@@ -1,0 +1,572 @@
+"""Bring-up check of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port (``multiple_object_tracking_lidar_tpu_torch``) and nothing
+of JAX, in five phases, one or more lines each:
+
+1. the card (``nvidia-smi`` name and power limit); no CUDA -> exit 1;
+2. the kernel build from ``csrc/*.cu``;
+3. each of the four kernels against its plain PyTorch version on the card,
+   at the headline shapes, on scenario and adversarial inputs;
+4. the slice: ``TrackerNode.on_pointcloud`` answers 12 headline
+   PointCloud2 frames and ``Tracker.bind_env_multi`` runs 4 dispatches of
+   S = 8, each with every kernel's launch counter reset before and read
+   after; outputs are held against the JAX package's committed golden
+   (tests/golden/torch_slice_headline.npz) and against the port's plain
+   path on the CPU;
+5. timings with CUDA events, beside the card's name and power limit.
+
+Any failed phase raises (exit 1).  The line before the last is the kernel
+report (JSON); the last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(HERE, "tests", "golden", "torch_slice_headline.npz")
+PKG = "multiple_object_tracking_lidar_tpu_torch"
+
+# Tolerances against the JAX golden, with their reasons.  Integers, labels
+# and decisions are exact.
+TOL_DETS = 1e-5  # m: raw_centroid / pos.  XLA on the CPU may contract the
+#   finalize's cnt*(c+half)+s*2^-k into an FMA (1 ulp), and the JAX pair
+#   scan centres members with an f32 sum where K3 rounds an f64 one: a few
+#   ulp at |x| <= 10 m (~1e-6 seen), the picks themselves identical
+TOL_VEL = 1e-4   # m/s: velocities are window differences / dt (x10) fed
+#   through 39-term smoother sums taken in another order
+# Against the port's own plain path on the CPU: the same elementwise IEEE
+# ops, but vmean and the smoother einsum reduce in another order on the card
+TOL_CPU_VEL = 1e-5
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms per call of fn on the current stream, by CUDA events, after
+    one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def equal(a, b) -> bool:
+    """Bitwise equality for floats (NaN == NaN), plain equality otherwise."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return False
+    if a.dtype.kind == "f":
+        return np.array_equal(a.view(np.uint32 if a.dtype == np.float32 else np.uint64),
+                              b.astype(a.dtype).view(np.uint32 if a.dtype == np.float32 else np.uint64))
+    return np.array_equal(a, b)
+
+
+def npy(t):
+    return t.detach().cpu().numpy()
+
+
+def max_err(a, b) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b), initial=0.0))
+
+
+# ---------------------------------------------------------------------------
+# phase 1: the card
+# ---------------------------------------------------------------------------
+def phase_card():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check runs on a GPU only")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"[1 card] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+    return smi
+
+
+# ---------------------------------------------------------------------------
+# phase 2: build
+# ---------------------------------------------------------------------------
+def phase_build():
+    from multiple_object_tracking_lidar_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    info = _build.build_info()
+    secs = time.perf_counter() - t0
+    usage = [ln.strip() for ln in info["log"].splitlines()
+             if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
+    log(f"[2 build] {os.path.relpath(info['path'], HERE)} from "
+        f"{len(_build.sources())} sources in {secs:.1f} s (nvcc {info['seconds']})")
+    for ln in usage:
+        log(f"[2 build]   {ln}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels vs plain versions on the card
+# ---------------------------------------------------------------------------
+def headline_frames(sc, n_pts, ks):
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import padded_frame
+
+    rows = [padded_frame(sc, k, n_pts) for k in ks]
+    pts = np.stack([r[0] for r in rows])
+    mask = np.stack([r[1] for r in rows])
+    t = np.asarray([r[2] for r in rows], np.float32)
+    return pts, mask, t
+
+
+def adversarial_points(cfg, rng, n):
+    """Points on leaf boundaries, NaN and out-of-bounds points, masked
+    points, and a dense blob, inside the headline scene."""
+    sc = cfg.scene
+    leaf = cfg.voxel_leaf_size
+    pts = np.stack([rng.uniform(sc.x_min - 0.5, sc.x_max + 0.5, n),
+                    rng.uniform(sc.y_min - 0.5, sc.y_max + 0.5, n),
+                    rng.uniform(sc.z_min - 0.3, sc.z_max + 0.3, n)], 1).astype(np.float32)
+    q = n // 8
+    pts[:q, :2] = (np.round(pts[:q, :2] / leaf) * leaf).astype(np.float32)  # on boundaries
+    pts[q:q + 50, 0] = np.nan
+    pts[q + 50:q + 100, 2] = np.inf
+    pts[q + 100:q + 150] = [-999.0, 999.0, 0.5]
+    blob = slice(2 * q, 3 * q)                                          # one cell
+    pts[blob] = (np.asarray([0.05, 2.05, 0.5], np.float32)
+                 + rng.normal(0, 0.01, (q, 3)).astype(np.float32))
+    mask = rng.random(n) < 0.9
+    return pts, mask
+
+
+def phase_kernels(dev, report):
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import headline_case
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        assign_cuda, centroid_cuda, grid_cuda, voxel_grid_cuda)
+    from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import cluster_table_grid
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    cfg, _, sc = headline_case()
+    caps = cfg.caps
+    leaf, leaf_z = cfg.voxel_leaf_size, cfg.leaf_z
+    rng = np.random.default_rng(2024)
+    n = caps.n_max_points
+
+    # ---- K1 -----------------------------------------------------------------
+    pts, mask, _ = headline_frames(sc, n, range(8))
+    apts, amask = adversarial_points(cfg, rng, n)
+    pts[7], mask[7] = apts, amask
+    P = torch.from_numpy(pts).to(dev)
+    M = torch.from_numpy(mask).to(dev)
+    acc_k, np_k = voxel_grid_cuda.accumulate_fast_stacked(P, M, cfg.scene, leaf, leaf_z)
+    acc_p, np_p = voxel_grid_cuda.accumulate_fast_stacked_plain(P, M, cfg.scene, leaf, leaf_z)
+    torch.cuda.synchronize()
+    ok = equal(npy(acc_k), npy(acc_p)) and equal(npy(np_k), npy(np_p))
+    err = max_err(npy(acc_k), npy(acc_p))
+    log(f"[3 K1 voxel_grid] S=8 N={n} cells={acc_k.shape[2]} (frame 7 adversarial: "
+        f"NaN/inf/out-of-bounds/leaf-boundary/masked/one-cell blob): "
+        f"bit-exact={ok} max_abs_err={err} npts={npy(np_k).tolist()}")
+    if not ok:
+        fail("K1 disagrees with its plain version (bit-exact expected)")
+    report["K1"] = {"max_abs_err": err}
+
+    # ---- K2 -----------------------------------------------------------------
+    tracker = Tracker(cfg, dev)
+    env = headline_case(device=dev)[1]
+    plan = tracker.plan(env)
+    kw = dict(dims=plan.dims, tol=cfg.cluster_tolerance, leaf_xy=leaf, leaf_z=leaf_z,
+              kwin=plan.table.k)
+    accs = acc_k.clone()
+    # adversarial frame 7: every cell occupied at its centre (one giant
+    # component over the free space) ; frame 6: half the cells, random
+    nc = accs.shape[2]
+    k1 = voxel_grid_cuda.kernel_params(cfg.scene, leaf, leaf_z)
+    lin = torch.arange(nc, device=dev)
+    cx = (k1["bx"] + lin % k1["gx"]).float() * k1["leaf_xy"] + k1["half_xy"]
+    cy = (k1["by"] + (lin // k1["gx"]) % k1["gy"]).float() * k1["leaf_xy"] + k1["half_xy"]
+    cz = torch.full_like(cx, 0.5)
+    accs[7] = torch.stack([cx, cy, cz, torch.ones_like(cx)])
+    half = torch.from_numpy(rng.random(nc) < 0.5).to(dev)
+    accs[6] = accs[7] * half
+    outs_k = grid_cuda.fused_finalize_static_cc_stacked(
+        accs, plan.scal, plan.table.base_row, plan.table.base_col, plan.table.bits, **kw)
+    outs_p = grid_cuda.fused_finalize_static_cc_stacked_plain(
+        accs, plan.scal, plan.table.base_row, plan.table.base_col, plan.table.bits,
+        dims=plan.dims, offsets=grid_cuda.kernel_offsets(plan.dims, cfg.cluster_tolerance, leaf, leaf_z),
+        kwin=plan.table.k, max_sweeps=2 * sum(plan.dims))
+    torch.cuda.synchronize()
+    names = ("cent", "dyn", "labels", "n_sweeps", "saturated")
+    ok = all(equal(npy(a), npy(b)) for a, b in zip(outs_k, outs_p))
+    n_comp = [int((outs_k[2][f] == torch.arange(nc, device=dev)).sum()) for f in range(8)]
+    log(f"[3 K2 grid_cc] S=8 cells={nc} offsets={len(grid_cuda.kernel_offsets(plan.dims, cfg.cluster_tolerance, leaf, leaf_z))} "
+        f"(frame 6: half the cells occupied, frame 7: all): bit-exact={ok} "
+        f"iterations={npy(outs_k[3]).tolist()} saturated={npy(outs_k[4]).tolist()} "
+        f"components={n_comp} dyn={npy(outs_k[1].sum(1)).tolist()}")
+    if not ok:
+        bad = [nm for nm, a, b in zip(names, outs_k, outs_p) if not equal(npy(a), npy(b))]
+        fail(f"K2 disagrees with its plain version in {bad}")
+    report["K2"] = {"max_abs_err": max_err(npy(outs_k[0]), npy(outs_p[0]))}
+
+    # ---- K3 -----------------------------------------------------------------
+    cent, dyn, labels, nsw, _ = outs_k
+    ctab = cluster_table_grid(labels[:6], nsw[:6], cent[:6], dyn[:6], plan.dims[0],
+                              cfg.min_cluster_size, cfg.max_cluster_size,
+                              caps.c_max_clusters, caps.p_max_cluster)
+    mp = ctab.mpts[0].clone()
+    mm = ctab.member_mask[0].clone()
+    c_max, p_max = mp.shape[0], mp.shape[1]
+    # adversarial slots: a collinear cluster, duplicated points, a full slot
+    # of P random members, an active slot after an empty one
+    line = torch.linspace(0, 1, 40, device=dev)
+    mp[10, :40] = torch.stack([1.0 + 0.3 * line, 2.0 + 0.6 * line, torch.zeros_like(line)], 1)
+    mm[10, :40] = True
+    mp[11, :30] = torch.from_numpy(rng.normal(0, 0.1, (30, 3)).astype(np.float32)).to(dev)
+    mp[11, 30:60] = mp[11, :30]
+    mm[11, :60] = True
+    mp[12] = torch.from_numpy(rng.uniform(-1, 1, (p_max, 3)).astype(np.float32)).to(dev)
+    mm[12] = True
+    mp[20, :5] = torch.from_numpy(rng.normal(3, 0.05, (5, 3)).astype(np.float32)).to(dev)
+    mm[20, :5] = True
+    cm_k, fr_k = centroid_cuda.pair_stats(mp, mm)
+    cm_p, fr_p = centroid_cuda.pair_stats_plain(mp, mm)
+    torch.cuda.synchronize()
+    ok = equal(npy(cm_k), npy(cm_p)) and equal(npy(fr_k), npy(fr_p))
+    log(f"[3 K3 pair_stats] C={c_max} P={p_max} active={int(mm.any(1).sum())} (collinear, "
+        f"duplicates, full slot, gap): bit-exact={ok} max_abs_err={max_err(npy(cm_k), npy(cm_p))}")
+    if not ok:
+        fail("K3 disagrees with its plain version (bit-exact expected)")
+    report["K3"] = {"max_abs_err": max_err(npy(cm_k), npy(cm_p))}
+
+    # ---- K4 -----------------------------------------------------------------
+    K, D = caps.k_max_tracks, caps.c_max_clusters
+    cases = []
+    # (a) first frame: no gating, everything registers
+    af0 = torch.zeros((K, 3), device=dev)
+    ai0 = torch.stack([torch.zeros(K, dtype=torch.int32), torch.full((K,), -1, dtype=torch.int32),
+                       torch.full((K,), 2**30, dtype=torch.int32)], 1).to(dev)
+    dets = torch.from_numpy(rng.uniform(-2, 2, (D, 4)).astype(np.float32)).to(dev)
+    dets[:, 3] = 0.1
+    dv = torch.zeros(D, dtype=torch.bool, device=dev)
+    dv[:5] = True
+    dv[7] = True
+    cases.append(("first frame", af0, ai0, dets, dv, False, 0, 0))
+    # (b) conflicting detections: several near one track, one near a track
+    # registered earlier in the same frame, invalid lanes inside the bound
+    af1 = torch.from_numpy(rng.uniform(-2, 2, (K, 3)).astype(np.float32)).to(dev)
+    af1[:, 2] = 0.0
+    alive = (torch.arange(K, device=dev) % 3 != 0).int()
+    births = torch.randperm(K, generator=torch.Generator().manual_seed(1)).int().to(dev)
+    ai1 = torch.stack([alive, torch.arange(K, device=dev).int() + 100, births], 1).int()
+    d2 = dets.clone()
+    d2[:, 3] = 0.5  # a gap of 5 frames: interpolation
+    d2[0, :2] = af1[1, :2] + 0.1
+    d2[1, :2] = af1[1, :2] - 0.1
+    d2[2, :2] = torch.tensor([9.0, 9.0], device=dev)
+    d2[3, :2] = torch.tensor([9.2, 9.1], device=dev)
+    dv2 = torch.ones(D, dtype=torch.bool, device=dev)
+    dv2[4] = False
+    dv2[D - 1] = False
+    cases.append(("conflicts", af1, ai1, d2, dv2, True, 300, 500))
+    # (c) a full bank: unmatched detections overflow
+    ai2 = ai1.clone()
+    ai2[:, 0] = 1
+    cases.append(("full bank", af1, ai2, d2, dv2, True, 300, 500))
+    ok, err4 = True, 0.0
+    for name, a_f, a_i, dts, dvv, allow, nobj, nbirth in cases:
+        args = (a_f, a_i, dts, dvv, torch.tensor(allow, device=dev),
+                torch.tensor(nobj, dtype=torch.int32, device=dev),
+                torch.tensor(nbirth, dtype=torch.int32, device=dev))
+        kw4 = dict(thr=cfg.id_threshold, dt_gp=cfg.dt_gp, interp_gap_factor=cfg.interp_gap_factor)
+        rk = assign_cuda.assoc_scan(*args, **kw4)
+        rp = assign_cuda.assoc_scan_plain(*args, **kw4)
+        torch.cuda.synchronize()
+        oks = npy(rk[9])
+        same = all(equal(npy(x), npy(y)) for i, (x, y) in enumerate(zip(rk, rp)) if i != 6)
+        same = same and equal(npy(rk[6])[oks], npy(rp[6])[oks])
+        err4 = max([err4, max_err(npy(rk[6])[oks], npy(rp[6])[oks])]
+                   + [max_err(npy(x), npy(y)) for i, (x, y) in enumerate(zip(rk, rp)) if i != 6])
+        log(f"[3 K4 assoc_scan] K={K} D={D} {name}: exact={same} registered={int(npy(rk[8]).sum())} "
+            f"ok={int(oks.sum())} interp={int(npy(rk[10]).sum())} overflow={int(rk[5])}")
+        ok = ok and same
+    if not ok:
+        fail("K4 disagrees with its plain version (exact decisions expected)")
+    report["K4"] = {"max_abs_err": err4}
+    return cfg, sc
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the slice
+# ---------------------------------------------------------------------------
+def kernel_wrappers():
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        assign_cuda, centroid_cuda, grid_cuda, voxel_grid_cuda)
+
+    return {
+        "K1": voxel_grid_cuda.accumulate_fast_stacked,
+        "K2": grid_cuda.fused_finalize_static_cc_stacked,
+        "K3": centroid_cuda.pair_stats,
+        "K4": assign_cuda.assoc_scan,
+    }
+
+
+def reset_counts():
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def read_counts():
+    return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+def compare(tag, got: dict, ref: dict, tol_dets, tol_vel):
+    """Integers, booleans and decisions exact; floats within tolerance;
+    pos / vel compared where ``valid`` (other lanes carry no contract:
+    they follow det_slot, which is defined only where det_ok)."""
+    errs = {}
+    for f, r in ref.items():
+        g = got[f]
+        if f in ("pos", "vel"):
+            v = ref["valid"]
+            e = max_err(g[v], r[v])
+            errs[f] = e
+            if e > (tol_vel if f == "vel" else tol_dets):
+                fail(f"{tag}: {f} max abs err {e}")
+        elif f == "raw_centroid":
+            e = max_err(g, r)
+            errs[f] = e
+            if e > tol_dets:
+                fail(f"{tag}: {f} max abs err {e}")
+        elif not np.array_equal(np.asarray(g), np.asarray(r)):
+            fail(f"{tag}: {f} differs: {np.asarray(g).tolist()} vs {np.asarray(r).tolist()}")
+    return errs
+
+
+def phase_slice(dev, cfg, sc, report):
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import headline_case, load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    golden = dict(np.load(GOLDEN))
+    n_gold = golden["publish"].shape[0]
+    n = cfg.caps.n_max_points
+
+    # the port's plain path on the CPU, same frames
+    t_cpu = Tracker(cfg, "cpu")
+    env_cpu = headline_case()[1]
+    step_cpu = t_cpu.bind_env(env_cpu)
+    st = t_cpu.init_state()
+    cpu_rows = []
+    pts, mask, ts = headline_frames(sc, n, range(n_gold))
+    for k in range(n_gold):
+        st, o = step_cpu(st, Frame(torch.from_numpy(pts[k]), torch.from_numpy(mask[k]),
+                                   torch.tensor(ts[k])))
+        cpu_rows.append([npy(x) for x in o])
+    fields = golden.keys()
+    cpu = {f: np.stack([r[i] for r in cpu_rows]) for i, f in enumerate(fields)}
+    e = compare("CPU plain path vs JAX golden", cpu, golden, TOL_DETS, TOL_VEL)
+    log(f"[4 slice] port plain path on the CPU, {n_gold} frames vs JAX golden: match, max abs err {e}")
+
+    # TrackerNode: one PointCloud2 at a time
+    node = TrackerNode(cfg, dev)
+    node.on_map(load_sim_grid())
+    reset_counts()
+    replies = [node.on_pointcloud(sc.frame(k)) for k in range(n_gold)]
+    torch.cuda.synchronize()
+    node_counts = read_counts()
+    got = {f: np.stack([getattr(o, f) for o in node.outputs]) for f in fields}
+    e_gold = compare("TrackerNode vs JAX golden", got, golden, TOL_DETS, TOL_VEL)
+    e_cpu = compare("TrackerNode vs CPU plain path", got, cpu, TOL_DETS, TOL_CPU_VEL)
+    n_pub = sum(r is not None for r in replies)
+    log(f"[4 slice] TrackerNode.on_pointcloud x{n_gold}: {n_pub} published, ids "
+        f"{sorted({o.id for r in replies if r for o in r[0].obstacles})}, "
+        f"launches {node_counts}; vs JAX golden max abs err {e_gold}; vs CPU {e_cpu}")
+    if min(node_counts.values()) <= 0:
+        fail(f"a kernel was not launched on the TrackerNode path: {node_counts}")
+
+    # bind_env_multi: 4 dispatches of S = 8
+    tracker = Tracker(cfg, dev)
+    env = headline_case(device=dev)[1]
+    multi = tracker.bind_env_multi(env)
+    S, n_disp = 8, 4
+    pts, mask, ts = headline_frames(sc, n, range(S * n_disp))
+    P = torch.from_numpy(pts).to(dev)
+    M = torch.from_numpy(mask).to(dev)
+    T = torch.from_numpy(ts).to(dev)
+    state = tracker.init_state()
+    reset_counts()
+    outs = []
+    for d in range(n_disp):
+        sl = slice(d * S, (d + 1) * S)
+        state, o = multi(state, Frame(P[sl], M[sl], T[sl]))
+        outs.append([npy(x) for x in o])
+    torch.cuda.synchronize()
+    multi_counts = read_counts()
+    allm = {f: np.concatenate([r[i] for r in outs]) for i, f in enumerate(fields)}
+    first = {f: v[:n_gold] for f, v in allm.items()}
+    e_gold = compare("bind_env_multi vs JAX golden", first, golden, TOL_DETS, TOL_VEL)
+    e_cpu = compare("bind_env_multi vs CPU plain path", first, cpu, TOL_DETS, TOL_CPU_VEL)
+    e_node = compare("bind_env_multi vs TrackerNode", first, got, 0.0, 0.0)
+    fin = {f: np.isfinite(v[allm["valid"]]).all() for f, v in allm.items() if f in ("pos", "vel")}
+    log(f"[4 slice] bind_env_multi {n_disp}x S={S}: {S * n_disp} frames, launches {multi_counts}, "
+        f"finite {fin}, n_alive {allm['n_alive'].tolist()}; first {n_gold} vs JAX golden max abs "
+        f"err {e_gold}; vs CPU {e_cpu}; vs TrackerNode {e_node}")
+    if min(multi_counts.values()) <= 0:
+        fail(f"a kernel was not launched on the bind_env_multi path: {multi_counts}")
+    if not all(fin.values()):
+        fail("non-finite pos/vel on valid lanes")
+    for k in node_counts:
+        report[k]["launches"] = node_counts[k] + multi_counts[k]
+    return tracker, env, (P, M, T)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: timings
+# ---------------------------------------------------------------------------
+def phase_timings(dev, cfg, smi, tracker, env, frames, report):
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        assign_cuda, centroid_cuda, grid_cuda, voxel_grid_cuda)
+    from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import cluster_table_grid
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import track_step
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    P, M, T = frames
+    leaf, leaf_z = cfg.voxel_leaf_size, cfg.leaf_z
+    caps = cfg.caps
+
+    # end to end: bind_env one frame per call; bind_env_multi S = 8
+    step = tracker.bind_env(env)
+    multi = tracker.bind_env_multi(env)
+    n_fr = P.shape[0]
+
+    def run_single():
+        st = tracker.init_state()
+        for k in range(n_fr):
+            st, _ = step(st, Frame(P[k], M[k], T[k]))
+
+    def run_multi():
+        st = tracker.init_state()
+        for d in range(n_fr // 8):
+            sl = slice(d * 8, (d + 1) * 8)
+            st, _ = multi(st, Frame(P[sl], M[sl], T[sl]))
+
+    syncs0 = track_step.host_syncs
+    ms_single = cuda_ms(run_single, 3) / n_fr
+    ms_multi = cuda_ms(run_multi, 3) / n_fr
+    syncs = (track_step.host_syncs - syncs0) / (8 * n_fr)
+    log(f"[5 timing] {smi}: bind_env {ms_single:.4f} ms/frame "
+        f"({1e3 / ms_single:.1f} clouds/s); bind_env_multi S=8 {ms_multi:.4f} ms/frame "
+        f"({1e3 / ms_multi:.1f} clouds/s); host syncs per frame {syncs:.2f}")
+
+    # kernels vs plain versions, at the main path's shapes
+    kw1 = (cfg.scene, leaf, leaf_z)
+    acc, _ = voxel_grid_cuda.accumulate_fast_stacked(P[:8].contiguous(), M[:8], *kw1)
+    plan = tracker.plan(env)
+    kw2 = dict(dims=plan.dims, tol=cfg.cluster_tolerance, leaf_xy=leaf, leaf_z=leaf_z,
+               kwin=plan.table.k)
+    tb = (plan.scal, plan.table.base_row, plan.table.base_col, plan.table.bits)
+    outs = grid_cuda.fused_finalize_static_cc_stacked(acc, *tb, **kw2)
+    ctab = cluster_table_grid(outs[2], outs[3], outs[0], outs[1], plan.dims[0],
+                              cfg.min_cluster_size, cfg.max_cluster_size,
+                              caps.c_max_clusters, caps.p_max_cluster)
+    mp, mm = ctab.mpts[3].contiguous(), ctab.member_mask[3].contiguous()
+    K, D = caps.k_max_tracks, caps.c_max_clusters
+    g = np.random.default_rng(5)
+    af0 = torch.from_numpy(g.uniform(-2, 2, (K, 3)).astype(np.float32)).to(dev)
+    ai0 = torch.stack([(torch.arange(K) % 2).int(), torch.arange(K).int(),
+                       torch.arange(K).int()], 1).int().to(dev)
+    dets = torch.from_numpy(g.uniform(-2, 2, (D, 4)).astype(np.float32)).to(dev)
+    dv = torch.zeros(D, dtype=torch.bool, device=dev)
+    dv[:4] = True
+    a4 = (af0, ai0, dets, dv, torch.tensor(True, device=dev),
+          torch.tensor(64, dtype=torch.int32, device=dev),
+          torch.tensor(64, dtype=torch.int32, device=dev))
+    kw4 = dict(thr=cfg.id_threshold, dt_gp=cfg.dt_gp, interp_gap_factor=cfg.interp_gap_factor)
+    offsets = grid_cuda.kernel_offsets(plan.dims, cfg.cluster_tolerance, leaf, leaf_z)
+    pairs = {
+        "K1": (lambda: voxel_grid_cuda.accumulate_fast_stacked(P[:8], M[:8], *kw1),
+               lambda: voxel_grid_cuda.accumulate_fast_stacked_plain(P[:8], M[:8], *kw1),
+               "S=8 frames x 106496 points"),
+        "K2": (lambda: grid_cuda.fused_finalize_static_cc_stacked(acc, *tb, **kw2),
+               lambda: grid_cuda.fused_finalize_static_cc_stacked_plain(
+                   acc, *tb, dims=plan.dims, offsets=offsets, kwin=plan.table.k,
+                   max_sweeps=2 * sum(plan.dims)),
+               "S=8 frames x 5500 cells"),
+        "K3": (lambda: centroid_cuda.pair_stats(mp, mm),
+               lambda: centroid_cuda.pair_stats_plain(mp, mm),
+               f"C=32 P=384, {int(mm.any(1).sum())} active slots"),
+        "K4": (lambda: assign_cuda.assoc_scan(*a4, **kw4),
+               lambda: assign_cuda.assoc_scan_plain(*a4, **kw4),
+               "K=64 D=32, 4 valid detections"),
+    }
+    for name, (fk, fp, shape) in pairs.items():
+        ms_p = cuda_ms(fp, 5)
+        ms_k = cuda_ms(fk, 50)
+        ms_k2 = cuda_ms(fk, 50)
+        ms_p2 = cuda_ms(fp, 5)
+        report[name]["ms"] = min(ms_k, ms_k2)
+        report[name]["plain_ms"] = min(ms_p, ms_p2)
+        log(f"[5 timing] {smi}: {name} {shape}: kernel {ms_k:.4f}/{ms_k2:.4f} ms, "
+            f"plain {ms_p:.4f}/{ms_p2:.4f} ms (run plain, kernel, kernel, plain; "
+            f"min reported)")
+    return ms_single, ms_multi
+
+
+KERNELS = (
+    ("K1", "voxel_grid fast-digit histogram + finalize",
+     f"{PKG}/csrc/voxel_grid.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1272"),
+    ("K2", "fused finalize + static drop + grid CC",
+     f"{PKG}/csrc/grid_cc.cu", "multiple_object_tracking_lidar_tpu/ops/grid_pallas.py:288"),
+    ("K3", "farthest-pair column stats",
+     f"{PKG}/csrc/centroid.cu", "multiple_object_tracking_lidar_tpu/ops/centroid_pallas.py:415"),
+    ("K4", "greedy association scan",
+     f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188"),
+)
+
+
+def main() -> int:
+    smi = phase_card()
+    sys.path.insert(0, HERE)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    phase_build()
+    report: dict = {}
+    cfg, sc = phase_kernels(dev, report)
+    tracker, env, frames = phase_slice(dev, cfg, sc, report)
+    phase_timings(dev, cfg, smi, tracker, env, frames, report)
+    kernels = [
+        {"name": f"{k}: {desc}", "route": "cuda", "source": src, "replaces": rep,
+         "launches": report[k]["launches"], "max_abs_err": report[k]["max_abs_err"],
+         "ms": report[k]["ms"], "plain_ms": report[k]["plain_ms"]}
+        for k, desc, src, rep in KERNELS
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

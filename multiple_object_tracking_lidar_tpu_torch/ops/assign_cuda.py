@@ -1,0 +1,156 @@
+"""K4: the order-faithful greedy association scan.
+
+Replaces the Pallas kernel ``multiple_object_tracking_lidar_tpu/ops/
+assign_pallas.py::assoc_scan_pallas``.  CUDA source: ``csrc/assign.cu``,
+whose header says what bounds it on the H100 (latency: a sequential scan
+over at most 128 detections) and how its design answers that (one CTA of
+128 threads, one lane per track slot, warp-shuffle reductions).
+
+``assoc_scan`` launches the kernel for CUDA tensors and runs
+``assoc_scan_plain`` for CPU tensors; ``.launches`` counts kernel
+launches.  Both return the JAX kernel's tuple: (alive (K,), obj_id (K,),
+birth_seq (K,), next_obj_num, next_birth, overflow, slots (D,), ids (D,),
+news (D,), oks (D,), interps (D,)).  Detections past the last valid one
+keep the defaults (slot 0, id -1, flags off); ``slots`` is defined only
+where ``oks`` (assign_pallas.py:159-169).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from multiple_object_tracking_lidar_tpu_torch import _build
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32
+
+_BIG = 2**30
+MAX_LANES = 128
+
+
+def _consts(thr, dt_gp, interp_gap_factor):
+    # JAX compares f32 values against these Python floats as f32 (weak type)
+    return f32(thr), f32(interp_gap_factor * dt_gp), f32(dt_gp)
+
+
+def assoc_scan_plain(
+    af0, ai0, dets, det_valid, allow, next_obj_num, next_birth,
+    *, thr, dt_gp, interp_gap_factor,
+):
+    """Plain PyTorch version of K4: the same sequential scan, one detection
+    per Python iteration (D is at most a few dozen)."""
+    k, d = af0.shape[0], dets.shape[0]
+    dev = af0.device
+    thr32, gapthr, dt32 = _consts(thr, dt_gp, interp_gap_factor)
+    af = af0.to(torch.float32).clone()
+    ai = ai0.to(torch.int32).clone()
+    dets = dets.to(torch.float32)
+    dv = det_valid.to(torch.bool)
+    outs = torch.zeros((5, d), dtype=torch.int32, device=dev)
+    outs[1] = -1
+    allow_b = bool(allow)
+    nobj, nbirth, ovf = int(next_obj_num), int(next_birth), 0
+    valid_at = torch.nonzero(dv).flatten()
+    bound = int(valid_at[-1]) + 1 if valid_at.numel() else 0
+    for j in range(bound):
+        det = dets[j]
+        valid = bool(dv[j])
+        alive = ai[:, 0] > 0
+        dx = det[0] - af[:, 0]
+        dy = det[1] - af[:, 1]
+        dist = torch.sqrt(dx * dx + dy * dy)
+        gate = alive & (dist < thr32) & allow_b
+        am = bool(gate.any())
+        bank_full = bool(alive.all())
+        if am:
+            bsel = torch.where(gate, ai[:, 2], _BIG)
+            slot = int(torch.nonzero(gate & (bsel == bsel.min()))[0])
+        elif not bank_full:
+            slot = int(torch.nonzero(~alive)[0])
+        else:
+            slot = -1
+        t_slot = af[slot, 2] if slot >= 0 else torch.zeros((), device=dev)
+        id_slot = int(ai[slot, 1]) if slot >= 0 else 0
+        gap = det[3] - t_slot
+        do_interp = am and bool(
+            (gap > gapthr) & (torch.round(gap / dt32) - 1.0 >= 1.0)
+        )
+        reg = valid and not am and not bank_full
+        matched = valid and am
+        write = matched or reg
+        if write:
+            af[slot] = torch.stack([det[0], det[1], det[3]])
+        if reg:
+            ai[slot] = torch.tensor([1, nobj, nbirth], dtype=torch.int32, device=dev)
+        outs[:, j] = torch.tensor(
+            [max(slot, 0), id_slot if matched else (nobj if reg else -1),
+             int(reg), int(write), int(do_interp and write)],
+            dtype=torch.int32, device=dev,
+        )
+        nobj += int(reg)
+        nbirth += int(reg)
+        ovf += int(valid and not am and bank_full)
+    scalar = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    return (
+        ai[:, 0] > 0, ai[:, 1], ai[:, 2], scalar(nobj), scalar(nbirth), scalar(ovf),
+        outs[0], outs[1], outs[2] > 0, outs[3] > 0, outs[4] > 0,
+    )
+
+
+def assoc_scan(
+    af0: torch.Tensor,        # (K, 3) f32 [last_x, last_y, last_t]
+    ai0: torch.Tensor,        # (K, 3) i32 [alive, obj_id, birth_seq]
+    dets: torch.Tensor,       # (D, 4) f32
+    det_valid: torch.Tensor,  # (D,) bool
+    allow: torch.Tensor,      # scalar bool -- frame-level gate allow
+    next_obj_num: torch.Tensor,
+    next_birth: torch.Tensor,
+    *,
+    thr: float,
+    dt_gp: float,
+    interp_gap_factor: float,
+):
+    """K4 on CUDA tensors, its plain version on CPU tensors."""
+    if af0.device.type == "cpu":
+        return assoc_scan_plain(
+            af0, ai0, dets, det_valid, allow, next_obj_num, next_birth,
+            thr=thr, dt_gp=dt_gp, interp_gap_factor=interp_gap_factor,
+        )
+    k, d = af0.shape[0], dets.shape[0]
+    dev = af0.device
+    if k > MAX_LANES or d > MAX_LANES:
+        raise ValueError(f"K4 holds K, D <= {MAX_LANES} (got K={k}, D={d})")
+    if af0.shape != (k, 3) or af0.dtype != torch.float32:
+        raise ValueError(f"af0 must be ({k}, 3) float32")
+    if ai0.shape != (k, 3) or ai0.dtype != torch.int32:
+        raise ValueError(f"ai0 must be ({k}, 3) int32")
+    if dets.shape != (d, 4) or dets.dtype != torch.float32:
+        raise ValueError(f"dets must be ({d}, 4) float32")
+    for t in (ai0, dets, det_valid, allow, next_obj_num, next_birth):
+        if t.device != dev:
+            raise ValueError(f"all inputs must be on {dev}")
+    thr32, gapthr, dt32 = _consts(thr, dt_gp, interp_gap_factor)
+    af0 = af0.contiguous()
+    ai0 = ai0.contiguous()
+    dets = dets.contiguous()
+    dv8 = det_valid.to(torch.uint8).contiguous()
+    allow_i = allow.to(torch.int32).reshape(1)
+    cnt_in = torch.stack([next_obj_num.reshape(()), next_birth.reshape(())]).to(torch.int32)
+    ai_out = torch.empty((k, 3), dtype=torch.int32, device=dev)
+    outs = torch.empty((5, d), dtype=torch.int32, device=dev)
+    cnt_out = torch.empty((3,), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    err = lib.motl_assoc_scan(
+        af0.data_ptr(), ai0.data_ptr(), dets.data_ptr(), dv8.data_ptr(),
+        allow_i.data_ptr(), cnt_in.data_ptr(), k, d, thr32, gapthr, dt32,
+        ai_out.data_ptr(), outs.data_ptr(), cnt_out.data_ptr(),
+        _build.stream_ptr(dev),
+    )
+    _build.check(err, "motl_assoc_scan")
+    assoc_scan.launches += 1
+    return (
+        ai_out[:, 0] > 0, ai_out[:, 1], ai_out[:, 2],
+        cnt_out[0], cnt_out[1], cnt_out[2],
+        outs[0], outs[1], outs[2] > 0, outs[3] > 0, outs[4] > 0,
+    )
+
+
+assoc_scan.launches = 0

@@ -1,0 +1,101 @@
+"""Per-cluster "centroid" feature: circumcenter of the farthest-pair arc.
+
+Reference behavior (ref: getCentroid, src/multiple_object_tracking_lidar.cpp:
+708-822): (1) the farthest member pair (Pi, Pj) by 3-D distance, first
+strict maximum in (i, j) order; (2) the member farthest from the PiPj line
+in XY, skipping points value-equal to Pi or Pj; (3) the circumcenter of
+(Pi, Pj, Pk) by the determinant formula, Pi when collinear (G == 0); z = 0
+and the frame time in the intensity slot.
+
+Port of ``multiple_object_tracking_lidar_tpu/ops/centroid.py::
+circumcenter_from_pair_stats``: step (1)'s O(P^2) scan is K3
+(``ops/centroid_cuda.py``); the selection, the line scan and the
+determinant stay here in eager PyTorch, one separately rounded op at a
+time, so no FMA contraction can break the G == 0 test.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from multiple_object_tracking_lidar_tpu_torch.ops.centroid_cuda import pair_stats
+
+
+def _first_min_index(v: torch.Tensor, hit: torch.Tensor, fill: int) -> torch.Tensor:
+    """Smallest lane index where ``hit``, ``fill`` where none (explicit, so
+    the tie order never depends on an argmax implementation)."""
+    lane = torch.arange(v.shape[-1], device=v.device)
+    return torch.where(hit, lane, fill).min(dim=-1).values
+
+
+def _take(mpts: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """mpts[c, i[c], :] -- an exact row copy."""
+    return torch.gather(mpts, 1, i.reshape(-1, 1, 1).expand(-1, 1, 3))[:, 0, :]
+
+
+def circumcenter_from_pair_stats(
+    cm: torch.Tensor,           # (C, P) colmax
+    fr: torch.Tensor,           # (C, P) firstrow
+    mpts: torch.Tensor,         # (C, P, 3)
+    member_mask: torch.Tensor,  # (C, P)
+    t: torch.Tensor,
+) -> torch.Tensor:
+    """(C, 4) [x, y, 0, t] detections from the pair stats.  i* = min
+    firstrow over the columns reaching the global max, j* = the first such
+    column whose firstrow is i*; empty/singleton slots resolve to 0."""
+    c, p = cm.shape
+    dtype = mpts.dtype
+    fr = fr.to(torch.int64)
+    gmax = cm.max(dim=1, keepdim=True).values
+    have = gmax > -0.5
+    hit = (cm == gmax) & have
+    i_star = torch.where(have[:, 0], torch.where(hit, fr, p).min(dim=1).values, 0)
+    lane = torch.arange(p, device=cm.device)[None, :]
+    j_star = torch.where(
+        have[:, 0],
+        torch.where(hit & (fr == i_star[:, None]), lane, p).min(dim=1).values,
+        0,
+    )
+    pi = _take(mpts, i_star)
+    pj = _take(mpts, j_star)
+
+    xs, ys, zs = mpts[:, :, 0], mpts[:, :, 1], mpts[:, :, 2]
+    pix, piy, piz = pi[:, 0:1], pi[:, 1:2], pi[:, 2:3]
+    pjx, pjy, pjz = pj[:, 0:1], pj[:, 1:2], pj[:, 2:3]
+    ex = pjx - pix
+    ey = pjy - piy
+    cross = torch.abs(ex * (ys - piy) - ey * (xs - pix))
+    norm = torch.sqrt(ex * ex + ey * ey)
+    line_d = cross / torch.clamp(norm, min=1e-30)
+    eq_i = (xs == pix) & (ys == piy) & (zs == piz)
+    eq_j = (xs == pjx) & (ys == pjy) & (zs == pjz)
+    k_mask = member_mask & ~eq_i & ~eq_j
+    ld = torch.where(k_mask, line_d, -1.0)
+    k_star = _first_min_index(ld, ld == ld.max(dim=1, keepdim=True).values, p)
+    pk = _take(mpts, k_star)
+    pkx, pky = pk[:, 0:1], pk[:, 1:2]
+
+    a = pjx - pix
+    b = pjy - piy
+    cc = pkx - pix
+    d = pky - piy
+    e = a * (pix + pjx) + b * (piy + pjy)
+    f = cc * (pix + pkx) + d * (piy + pky)
+    g = 2.0 * (a * (pky - pjy) - b * (pkx - pjx))
+    collinear = g == 0.0
+    g_safe = torch.where(collinear, torch.ones_like(g), g)
+    cx = torch.where(collinear, pix, (d * e - b * f) / g_safe)
+    cy = torch.where(collinear, piy, (a * f - cc * e) / g_safe)
+    zeros = torch.zeros((c, 1), dtype=dtype, device=mpts.device)
+    tcol = torch.as_tensor(t, dtype=dtype, device=mpts.device).reshape(1, 1).expand(c, 1)
+    return torch.cat([cx, cy, zeros, tcol], dim=1)
+
+
+def circumcenter_features_table_cuda(
+    mpts: torch.Tensor, member_mask: torch.Tensor, t: torch.Tensor
+) -> torch.Tensor:
+    """(C, 4) detections from the dense member table: K3 pair stats, then
+    the selection and determinant above (the port of
+    ``circumcenter_features_table_pallas_v2``)."""
+    cm, fr = pair_stats(mpts, member_mask)
+    return circumcenter_from_pair_stats(cm, fr, mpts, member_mask, t)

@@ -1,0 +1,182 @@
+"""Host runtime shell -- the port's equivalent of the ROS node.
+
+Minimal port of ``multiple_object_tracking_lidar_tpu/runtime/node.py``
+(ref: src/multiple_object_tracking_lidar_node.cpp:4-33, cloudCallback
+cpp:123-233): a map callback that binds the step, a point-cloud callback
+that decodes one PointCloud2, steps the tracker on the device and builds
+the reference's three outputs, and per-frame stats.  The time_init epoch
+fixups (cpp:132-139), the "no map yet" gate (cpp:128-131) and the glibc
+colour registry are host code, as in the JAX node.
+
+Not ported yet (ROADMAP): online hyperparameter learning
+(``param_fix=False``) and bank growth on overflow
+(``grow_bank_on_overflow`` when a frame overflows) raise
+``NotImplementedError``; checkpoint/resume.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from multiple_object_tracking_lidar_tpu_torch.config import TrackerConfig
+from multiple_object_tracking_lidar_tpu_torch.io.pointcloud2 import (
+    PointCloud2,
+    decode_pointcloud2,
+)
+from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import MapEnv, build_static_mask
+from multiple_object_tracking_lidar_tpu_torch.outputs.messages import build_outputs
+from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame, FrameOutput
+from multiple_object_tracking_lidar_tpu_torch.utils.colors import GlibcRand
+from multiple_object_tracking_lidar_tpu_torch.utils.pgm import OccupancyGrid
+
+
+@dataclasses.dataclass
+class FrameStats:
+    t: float
+    wall_ms: float
+    n_points: int
+    n_voxels: int
+    n_dynamic: int
+    n_clusters: int
+    n_alive: int
+    overflow: int
+    nan_velocity: bool = False
+    dup_saturated: int = 0
+    cc_saturated: int = 0
+    assoc_saturated: int = 0
+
+
+class TrackerNode:
+    def __init__(
+        self,
+        config: TrackerConfig,
+        device: torch.device | str = "cpu",
+        on_obstacles: Callable | None = None,
+        on_markers: Callable | None = None,
+        on_pose: Callable | None = None,
+    ):
+        if not config.param_fix:
+            raise NotImplementedError(
+                "param_fix=False (online hyperparameter learning) is not ported "
+                "yet (ROADMAP Queue 1: the node's learning mode)"
+            )
+        self.config = config
+        self.tracker = Tracker(config, device)
+        self.state = self.tracker.init_state()
+        self.env: MapEnv | None = None
+        self.time_init: float = time.time()  # cpp:74 -- now() at init
+        self._first_frame = True
+        self._rand = GlibcRand(config.color_seed)  # cpp:75
+        self.colors: dict[int, tuple[float, float, float, float]] = {}
+        self._known_ids = 0
+        self.on_obstacles = on_obstacles
+        self.on_markers = on_markers
+        self.on_pose = on_pose
+        self.stats: list[FrameStats] = []
+        self.outputs: list[FrameOutput] = []   # host copies, one per frame
+
+    # -- map callback (cpp:235-251) -----------------------------------------
+    def on_map(self, grid: OccupancyGrid) -> None:
+        self.env = build_static_mask(
+            grid, self.config.static_tolarance, self.config.occupied_threshold,
+            device=self.tracker.device,
+        )
+        self._bound_step = self.tracker.bind_env(self.env)
+
+    # -- pointcloud callback (cpp:123-233) ----------------------------------
+    def on_pointcloud(self, msg: PointCloud2):
+        if self.env is None:
+            return None  # map not initialized: skip (cpp:128-131)
+
+        stamp = msg.stamp
+        if self._first_frame:
+            # the reference's epoch fixups (cpp:132-139), until the first
+            # non-empty frame registers tracks
+            if stamp < 1.0e9:
+                self.time_init = 0.0
+            if stamp - self.time_init < 0:
+                self.time_init = stamp
+        t = stamp - self.time_init
+
+        t0 = time.perf_counter()
+        pts, mask = decode_pointcloud2(msg, self.config.caps.n_max_points)
+        dev = self.tracker.device
+        frame = Frame(
+            points=torch.from_numpy(pts).to(dev),
+            mask=torch.from_numpy(mask).to(dev),
+            t=torch.tensor(t, dtype=torch.float32, device=dev),
+        )
+        self.state, out = self._bound_step(self.state, frame)
+        out = FrameOutput(*(f.cpu().numpy() for f in out))
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        self.outputs.append(out)
+
+        if int(out.overflow) > 0 and self.config.grow_bank_on_overflow:
+            raise NotImplementedError(
+                f"track bank overflow ({int(out.overflow)} detections dropped): "
+                "growing the bank is not ported yet (ROADMAP Queue 1: bank growth)"
+            )
+
+        # NaN watchdog (the reference only logs, cpp:643-646)
+        nan_vel = bool(np.isnan(out.vel[out.valid]).any()) if out.valid.any() else False
+        if nan_vel:
+            logging.getLogger(__name__).error(
+                "NaN detected in GP velocity output at t=%.3f (ref cpp:645)", t
+            )
+        self.stats.append(
+            FrameStats(
+                t=t,
+                wall_ms=wall_ms,
+                n_points=int(out.n_points),
+                n_voxels=int(out.n_voxels),
+                n_dynamic=int(out.n_dynamic),
+                n_clusters=int(out.n_clusters),
+                n_alive=int(out.n_alive),
+                overflow=int(out.overflow),
+                nan_velocity=nan_vel,
+                dup_saturated=int(out.dup_saturated),
+                cc_saturated=int(out.cc_saturated),
+                assoc_saturated=int(out.assoc_saturated),
+            )
+        )
+        self._first_frame = self._first_frame and not bool(self.state.initialized)
+        self._refresh_colors(int(self.state.next_obj_num))
+
+        if not bool(out.publish):
+            return None
+        sel = [i for i in range(len(out.valid)) if out.valid[i]]
+        obstacles, markers, pose = build_outputs(
+            stamp=stamp,
+            frame_id=msg.frame_id,
+            ids=[int(out.obj_id[i]) for i in sel],
+            positions=out.pos[sel],
+            velocities=out.vel[sel],
+            colors=self.colors,
+            obstacle_radius=self.config.obstacle_radius,
+        )
+        if self.on_obstacles:
+            self.on_obstacles(obstacles)
+        if self.on_markers:
+            self.on_markers(markers)
+        if self.on_pose:
+            self.on_pose(pose)
+        return obstacles, markers, pose
+
+    def _refresh_colors(self, n_ids: int) -> None:
+        while self._known_ids < n_ids:
+            r = np.float32(self._rand.rand()) / np.float32(2147483647)
+            g = np.float32(self._rand.rand()) / np.float32(2147483647)
+            b = np.float32(self._rand.rand()) / np.float32(2147483647)
+            self.colors[self._known_ids] = (float(r), float(g), float(b), 0.8)
+            self._known_ids += 1
+
+    def run(self, frames):
+        """Drive the node from any iterable of PointCloud2 frames."""
+        return [self.on_pointcloud(msg) for msg in frames]

@@ -1,0 +1,356 @@
+"""The per-frame tracking step, dense-grid path.
+
+Port of ``multiple_object_tracking_lidar_tpu/tracker/pipeline.py`` for the
+configuration the JAX package benchmarks and its CLI runs with
+``--backend grid``: ``voxel_mode="onehot"``, ``cluster_backend="grid"``,
+``voxel_quant="fast"``, f32, greedy association, the ``lpf`` position
+filter.  The reference's callback chain (voxel downsample -> static
+removal -> Euclidean clustering -> circumcenter features -> greedy
+association -> LPF/IHGP filtering -> expiry; ref cloudCallback,
+src/multiple_object_tracking_lidar.cpp:123-233) runs as
+
+  K1 voxel histogram -> K2 finalize + static drop + grid CC ->
+  cluster table -> K3 pair stats -> circumcenter -> track_step (K4 inside)
+
+with the four kernels in ``ops/*_cuda.py``.  PyTorch runs eagerly, so the
+frame stays on the device between stages; one host sync per frame remains,
+the duplicate-pass count in ``track_step`` (``track_step.host_syncs``).
+Other configurations raise ``NotImplementedError`` naming their ROADMAP
+slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from multiple_object_tracking_lidar_tpu_torch.config import TrackerConfig
+from multiple_object_tracking_lidar_tpu_torch.models.ihgp import (
+    ihgp_apply_weights,
+    smoother_weights_xy,
+    stationary_gains,
+)
+from multiple_object_tracking_lidar_tpu_torch.models.lpf import lpf_pos
+from multiple_object_tracking_lidar_tpu_torch.models.matern32 import matern32_from_log
+from multiple_object_tracking_lidar_tpu_torch.ops.assign import associate_and_update
+from multiple_object_tracking_lidar_tpu_torch.ops.centroid import (
+    circumcenter_features_table_cuda,
+)
+from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import cluster_table_grid
+from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import (
+    fused_finalize_static_cc,
+    fused_finalize_static_cc_stacked,
+    make_scal,
+)
+from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import (
+    CellStaticTable,
+    MapEnv,
+    build_cell_static_table,
+)
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, grid_shape
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid import (
+    voxel_accumulate_onehot_cm,
+)
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
+    accumulate_fast_stacked,
+)
+from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
+    Frame,
+    FrameOutput,
+    TrackerState,
+    gains_from_numpy,
+    init_state,
+)
+
+# Configurations off this slice, and the ROADMAP slice that ports each.
+_UNPORTED = (
+    ("voxel_mode", "onehot", "the point-list and runs paths"),
+    ("cluster_backend", "grid", "the point-list path"),
+    ("voxel_quant", "fast", "exact mode"),
+    ("association", "greedy", "Hungarian association"),
+    ("position_filter", "lpf", "IHGP position filtering"),
+    ("dtype", "float32", "other compute dtypes"),
+)
+
+
+def check_config(config: TrackerConfig) -> None:
+    for field, ported, slice_name in _UNPORTED:
+        value = getattr(config, field)
+        if value != ported:
+            raise NotImplementedError(
+                f"{field}={value!r} is not ported yet: only {field}={ported!r} "
+                f"runs in this package (ROADMAP Queue 1: {slice_name})"
+            )
+
+
+class Perception(NamedTuple):
+    """Stateless per-frame perception result: (C, 4) detections + scalars."""
+
+    dets: torch.Tensor
+    det_valid: torch.Tensor
+    t: torch.Tensor
+    n_points: torch.Tensor
+    n_vox: torch.Tensor
+    n_dynamic: torch.Tensor
+    n_clusters: torch.Tensor
+    cc_saturated: torch.Tensor
+
+
+class GridPlan(NamedTuple):
+    """What a bound step holds on the device for one map: the per-cell
+    static table and the (6,) K2 scalars."""
+
+    dims: tuple[int, int, int]
+    table: CellStaticTable
+    scal: torch.Tensor
+
+
+class Tracker:
+    """Binds a TrackerConfig to the dense-grid step on ``device``.  The
+    stationary IHGP gains are computed once here on the host in f64 and
+    held as f32 tensors on the device."""
+
+    def __init__(self, config: TrackerConfig, device: torch.device | str = "cpu"):
+        check_config(config)
+        self.config = config
+        self.device = torch.device(device)
+        _, _, gains_np = self.compute_gains(
+            config,
+            (config.logSigma2_x, config.logMagnSigma2_x, config.logLengthScale_x),
+            (config.logSigma2_y, config.logMagnSigma2_y, config.logLengthScale_y),
+        )
+        self.gains_xy = gains_from_numpy(gains_np, self.device)
+
+    @staticmethod
+    def compute_gains(config: TrackerConfig, log_x, log_y):
+        """Host-f64 stationary gains + smoother weights per axis, stacked on
+        a leading {x, y} axis as f32 numpy (the JAX Tracker.compute_gains)."""
+        gx = stationary_gains(matern32_from_log(*log_x), config.dt_gp)
+        gy = stationary_gains(matern32_from_log(*log_y), config.dt_gp)
+        ax, ay = gx.as_arrays(np.float32), gy.as_arrays(np.float32)
+        gains_xy = {k: np.stack([ax[k], ay[k]]) for k in ax}
+        gains_xy["W_vel"] = smoother_weights_xy(gx, gy, config.data_length - 1, np.float32)
+        gains_xy["W_pos"] = smoother_weights_xy(gx, gy, config.data_length, np.float32)
+        return gx, gy, gains_xy
+
+    def init_state(self) -> TrackerState:
+        return init_state(
+            self.config.caps.k_max_tracks, self.config.data_length, torch.float32, self.device
+        )
+
+    def plan(self, env: MapEnv) -> GridPlan:
+        """The map's per-cell static table and K2 scalars, on the device."""
+        cfg = self.config
+        dims = grid_shape(cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+        table = build_cell_static_table(env, cfg.scene, cfg.voxel_leaf_size, *dims)
+        if table is None:
+            raise NotImplementedError(
+                "the map's per-cell window exceeds 32 bits (a rotated or coarse "
+                "map); the one-hot map lookup is not ported yet (ROADMAP Queue 1: "
+                "the point-list path)"
+            )
+        table = CellStaticTable(
+            *(t.to(self.device) for t in table[:3]), k=table.k
+        )
+        return GridPlan(dims=dims, table=table, scal=make_scal(env, cfg.cluster_tolerance, self.device))
+
+    def _frame(self, frame: Frame) -> Frame:
+        dev = self.device
+        return Frame(
+            points=torch.as_tensor(frame.points, dtype=torch.float32, device=dev),
+            mask=torch.as_tensor(frame.mask, device=dev),
+            t=torch.as_tensor(frame.t, dtype=torch.float32, device=dev),
+        )
+
+    def step(self, state: TrackerState, frame: Frame, env: MapEnv):
+        return self.bind_env(env)(state, frame)
+
+    def bind_env(self, env: MapEnv):
+        """Specialize the step on a fixed map (re-bind on map updates).
+        Returns ``step(state, frame) -> (state, output)``."""
+        plan = self.plan(env)
+        cfg, gains = self.config, self.gains_xy
+
+        def step(state: TrackerState, frame: Frame):
+            frame = self._frame(frame)
+            acc, npts = voxel_accumulate_onehot_cm(
+                frame.points, frame.mask, cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z,
+                quant=cfg.voxel_quant, with_npts=True,
+            )
+            p = _perceive_from_dense_acc(acc, frame.t, npts, plan, config=cfg)
+            return track_step(state, p, config=cfg, gains_xy=gains)
+
+        return step
+
+    def bind_env_multi(self, env: MapEnv):
+        """Like bind_env, for a batch of consecutive frames of one stream
+        stacked on a leading axis: ``multi_step(state, frames) -> (state,
+        outputs)``, outputs stacked per frame.  Same two-stage body as the
+        JAX package (pipeline.py:287-345): stage 1 perceives all S frames at
+        once (stacked K1, stacked K2, batched cluster table); stage 2 runs
+        per frame: K3 pair stats, the circumcenter, track_step."""
+        plan = self.plan(env)
+        cfg, gains = self.config, self.gains_xy
+        caps = cfg.caps
+
+        def multi(state: TrackerState, frames: Frame):
+            frames = self._frame(frames)
+            accs, npts = accumulate_fast_stacked(
+                frames.points.contiguous(), frames.mask, cfg.scene,
+                cfg.voxel_leaf_size, cfg.leaf_z,
+            )
+            cent, dyn, labels, n_sw, cc_sat = fused_finalize_static_cc_stacked(
+                accs, plan.scal, plan.table.base_row, plan.table.base_col,
+                plan.table.bits, dims=plan.dims, tol=cfg.cluster_tolerance,
+                leaf_xy=cfg.voxel_leaf_size, leaf_z=cfg.leaf_z, kwin=plan.table.k,
+            )
+            ctab = cluster_table_grid(
+                labels, n_sw, cent, dyn, plan.dims[0], cfg.min_cluster_size,
+                cfg.max_cluster_size, caps.c_max_clusters, caps.p_max_cluster,
+            )
+            n_vox = (accs[:, 3] > 0).sum(dim=1)
+            n_dyn = dyn.sum(dim=1)
+            outs = []
+            for s in range(frames.points.shape[0]):
+                dets = circumcenter_features_table_cuda(
+                    ctab.mpts[s], ctab.member_mask[s], frames.t[s]
+                )
+                p = Perception(
+                    dets=dets, det_valid=ctab.cluster_valid[s], t=frames.t[s],
+                    n_points=npts[s], n_vox=n_vox[s], n_dynamic=n_dyn[s],
+                    n_clusters=ctab.n_clusters[s], cc_saturated=cc_sat[s],
+                )
+                state, out = track_step(state, p, config=cfg, gains_xy=gains)
+                outs.append(out)
+            return state, FrameOutput(*(torch.stack(f) for f in zip(*outs)))
+
+        return multi
+
+
+def _perceive_from_dense_acc(
+    acc: torch.Tensor, t, n_points, plan: GridPlan, *, config: TrackerConfig
+) -> Perception:
+    """Dense-grid perception tail of one frame: K2 (finalize + static drop +
+    CC), the cluster table, K3 + the circumcenter."""
+    caps = config.caps
+    cent, dyn, labels, n_sw, cc_sat = fused_finalize_static_cc(
+        acc, plan.scal, plan.table.base_row, plan.table.base_col, plan.table.bits,
+        dims=plan.dims, tol=config.cluster_tolerance, leaf_xy=config.voxel_leaf_size,
+        leaf_z=config.leaf_z, kwin=plan.table.k,
+    )
+    ctab = cluster_table_grid(
+        labels, n_sw, cent, dyn, plan.dims[0], config.min_cluster_size,
+        config.max_cluster_size, caps.c_max_clusters, caps.p_max_cluster,
+    )
+    dets = circumcenter_features_table_cuda(ctab.mpts, ctab.member_mask, t)
+    return Perception(
+        dets=dets,
+        det_valid=ctab.cluster_valid,
+        t=t,
+        n_points=n_points,
+        n_vox=(acc[3] > 0).sum(),
+        n_dynamic=dyn.sum(),
+        n_clusters=ctab.n_clusters,
+        cc_saturated=cc_sat,
+    )
+
+
+def track_step(
+    state: TrackerState, p: Perception, *, config: TrackerConfig, gains_xy: dict
+) -> tuple[TrackerState, FrameOutput]:
+    """Stateful tracking back-end: association, lifecycle, filtering, expiry
+    (port of the JAX track_step, greedy association + LPF positions)."""
+    L = config.data_length
+    dt_gp = config.dt_gp
+    dets, det_valid, t = p.dets, p.det_valid, p.t
+    dev = dets.device
+
+    any_det = det_valid.any()
+    was_init = state.initialized
+    steady = was_init & any_det   # publish/filter/expire this frame (cpp:163+)
+
+    assoc = associate_and_update(
+        state.bank, state.next_obj_num, state.next_birth, dets, det_valid,
+        config.id_threshold, dt_gp, config.interp_gap_factor,
+        allow_match=was_init,  # first frame registers without gating (cpp:153-156)
+    )
+    bank = assoc.bank
+
+    # ---- filtering: the whole bank, one batched pass per duplicate ordinal
+    k_max = bank.alive.shape[0]
+    win_xy = bank.window[:, :, :2]                               # (K, L, 2)
+    vels = (win_xy[:, 1:, :] - win_xy[:, :-1, :]) / f32(dt_gp)
+    vmean = vels.mean(dim=1)                                      # (cpp:887-898)
+    y_vel = torch.movedim(vels - vmean[:, None, :], -1, 1)        # (K, 2, L-1)
+    pos = lpf_pos(bank.window, config.lpf_tau, dt_gp)             # (cpp:638, 824-833)
+    vmax = f32(config.max_velocity)
+
+    def one_pass(m_in):
+        eft_vel_last, m_out = ihgp_apply_weights(y_vel, m_in, gains_xy["W_vel"])
+        vel = eft_vel_last + vmean
+        # velocity clamp, NaN-preserving like the C++ if-chain (cpp:649-654)
+        vel = torch.where(vel > vmax, vmax, torch.where(vel < -vmax, -vmax, vel))
+        return vel, m_out
+
+    # The reference runs callIHGP once PER matched detection (cpp:629-659):
+    # a track matched d times this frame runs d chained passes and each
+    # duplicate publishes the output of its own pass.
+    det_active = assoc.det_ok & steady
+    slot = assoc.det_slot.to(torch.int64)
+    onehot = (slot[:, None] == torch.arange(k_max, device=dev)[None, :]) & det_active[:, None]
+    mult = onehot.sum(0)                                          # (K,)
+    ordinal = torch.gather(torch.cumsum(onehot.to(torch.int64), 0) - 1, 1, slot[:, None])[:, 0]
+    max_mult = int(mult.max())  # the one host sync per frame
+    track_step.host_syncs += 1
+
+    m = bank.m0
+    m_fin = bank.m0
+    pos_det = dets[:, :2] * 0  # as the JAX init: NaN-preserving
+    vel_det = dets[:, :2] * 0
+    for q in range(max_mult):
+        vel, m_next = one_pass(m)
+        selp = (ordinal == q)[:, None]
+        pos_det = torch.where(selp, pos[slot], pos_det)
+        vel_det = torch.where(selp, vel[slot], vel_det)
+        m_fin = torch.where((mult == q + 1)[:, None, None], m_next, m_fin)
+        m = m_next
+
+    # ---- expiry (cpp:545-584)
+    spin = state.spin_counter + steady.to(torch.int32)
+    do_prune = spin > int(config.prune_period * config.frequency)
+    stale = (t.to(torch.float32) - bank.window[:, L - 1, 3]) > f32(config.prune_period)
+    prune = do_prune & steady
+    alive = torch.where(prune, bank.alive & ~stale, bank.alive)
+    spin = torch.where(prune, torch.zeros_like(spin), spin)
+
+    new_state = TrackerState(
+        bank=bank._replace(alive=alive, m0=m_fin),
+        next_obj_num=assoc.next_obj_num,
+        next_birth=assoc.next_birth,
+        spin_counter=spin,
+        initialized=was_init | any_det,
+    )
+    out = FrameOutput(
+        publish=steady,
+        valid=assoc.det_ok & steady,
+        obj_id=assoc.det_id,
+        pos=pos_det,
+        vel=vel_det,
+        raw_centroid=dets,
+        new_track=assoc.det_new,
+        n_points=p.n_points,
+        n_voxels=p.n_vox,
+        n_dynamic=p.n_dynamic,
+        n_clusters=p.n_clusters,
+        n_alive=alive.sum(),
+        overflow=assoc.overflow,
+        dup_saturated=(mult < 0).sum(),
+        cc_saturated=p.cc_saturated,
+        assoc_saturated=assoc.assoc_saturated,
+    )
+    return new_state, out
+
+
+track_step.host_syncs = 0

@@ -1,0 +1,179 @@
+"""Tracker state as tensor NamedTuples, plus the carry-across functions.
+
+Port of ``multiple_object_tracking_lidar_tpu/tracker/state.py``: the same
+fields, layouts, dtypes and sentinels (``birth_seq = 2**30`` and
+``obj_id = -1`` for free slots), so the two packages compare like with
+like.  The carry-across functions move a JAX-side state, map env, cell
+static table or gains dict -- given as numpy arrays -- into this package's
+tensors on a device, and back.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class Frame(NamedTuple):
+    """Input contract: a fixed-size padded point tensor."""
+
+    points: torch.Tensor   # (N_max, 3) float32 (stacked: (S, N_max, 3))
+    mask: torch.Tensor     # (N_max,) bool
+    t: torch.Tensor        # scalar float32 -- stamp - time_init
+
+
+class TrackBank(NamedTuple):
+    alive: torch.Tensor      # (K,) bool
+    obj_id: torch.Tensor     # (K,) int32 -- published id (monotone)
+    birth_seq: torch.Tensor  # (K,) int32 -- registration order key
+    window: torch.Tensor     # (K, L, 4) float32 -- x, y, z, t
+    m0: torch.Tensor         # (K, 2, 2) float32 -- carried IHGP state per axis
+
+
+class TrackerState(NamedTuple):
+    bank: TrackBank
+    next_obj_num: torch.Tensor   # scalar int32
+    next_birth: torch.Tensor     # scalar int32
+    spin_counter: torch.Tensor   # scalar int32
+    initialized: torch.Tensor    # scalar bool
+
+
+class FrameOutput(NamedTuple):
+    """Per-frame result, fixed shapes (C_max detection slots)."""
+
+    publish: torch.Tensor
+    valid: torch.Tensor
+    obj_id: torch.Tensor
+    pos: torch.Tensor
+    vel: torch.Tensor
+    raw_centroid: torch.Tensor
+    new_track: torch.Tensor
+    n_points: torch.Tensor
+    n_voxels: torch.Tensor
+    n_dynamic: torch.Tensor
+    n_clusters: torch.Tensor
+    n_alive: torch.Tensor
+    overflow: torch.Tensor
+    dup_saturated: torch.Tensor
+    cc_saturated: torch.Tensor
+    assoc_saturated: torch.Tensor
+
+
+def init_state(
+    k_max: int, data_length: int, dtype=torch.float32, device="cpu"
+) -> TrackerState:
+    i32 = dict(dtype=torch.int32, device=device)
+    bank = TrackBank(
+        alive=torch.zeros(k_max, dtype=torch.bool, device=device),
+        obj_id=torch.full((k_max,), -1, **i32),
+        birth_seq=torch.full((k_max,), 2**30, **i32),
+        window=torch.zeros((k_max, data_length, 4), dtype=dtype, device=device),
+        m0=torch.zeros((k_max, 2, 2), dtype=dtype, device=device),
+    )
+    zero = torch.zeros((), **i32)
+    return TrackerState(
+        bank=bank,
+        next_obj_num=zero.clone(),
+        next_birth=zero.clone(),
+        spin_counter=zero.clone(),
+        initialized=torch.zeros((), dtype=torch.bool, device=device),
+    )
+
+
+# --- carry-across: JAX-side values as numpy <-> this package's tensors ------
+
+_STATE_DTYPES = {
+    "alive": torch.bool, "obj_id": torch.int32, "birth_seq": torch.int32,
+    "window": torch.float32, "m0": torch.float32, "next_obj_num": torch.int32,
+    "next_birth": torch.int32, "spin_counter": torch.int32,
+    "initialized": torch.bool,
+}
+
+
+def _t(a, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a), device=device).to(dtype)  # a copy: never aliases
+
+
+def state_from_numpy(state, device="cpu") -> TrackerState:
+    """A JAX TrackerState (any NamedTuple with its fields, leaves as numpy
+    arrays) -> this package's TrackerState on ``device``."""
+    b = state.bank
+    bank = TrackBank(**{f: _t(getattr(b, f), _STATE_DTYPES[f], device) for f in TrackBank._fields})
+    return TrackerState(
+        bank=bank,
+        **{
+            f: _t(getattr(state, f), _STATE_DTYPES[f], device)
+            for f in TrackerState._fields
+            if f != "bank"
+        },
+    )
+
+
+def state_to_numpy(state: TrackerState) -> dict:
+    """The inverse: {field: numpy} with the bank's fields nested under
+    "bank", the shape the JAX TrackerState's constructor takes."""
+    return {
+        "bank": {f: getattr(state.bank, f).cpu().numpy() for f in TrackBank._fields},
+        **{f: getattr(state, f).cpu().numpy() for f in TrackerState._fields if f != "bank"},
+    }
+
+
+def env_from_numpy(env, device="cpu"):
+    """A JAX MapEnv (numpy leaves) -> this package's MapEnv on ``device``.
+    It carries no f64 host mirror, so table builds read its f32 values, as
+    the JAX package does for an env it did not build itself."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import MapEnv
+
+    return MapEnv(
+        dilated=_t(env.dilated, torch.bool, device),
+        **{
+            f: _t(getattr(env, f), torch.float32, device)
+            for f in ("origin_x", "origin_y", "cos_nyaw", "sin_nyaw", "inv_resolution")
+        },
+    )
+
+
+def env_to_numpy(env) -> dict:
+    return {
+        f: getattr(env, f).cpu().numpy()
+        for f in ("dilated", "origin_x", "origin_y", "cos_nyaw", "sin_nyaw", "inv_resolution")
+    }
+
+
+def table_from_numpy(table, device="cpu"):
+    """A JAX CellStaticTable (numpy leaves, int k) -> this package's."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import CellStaticTable
+
+    return CellStaticTable(
+        base_row=_t(table.base_row, torch.int32, device),
+        base_col=_t(table.base_col, torch.int32, device),
+        bits=_t(table.bits, torch.int32, device),
+        k=int(table.k),
+    )
+
+
+def table_to_numpy(table) -> dict:
+    return {
+        "base_row": table.base_row.cpu().numpy(),
+        "base_col": table.base_col.cpu().numpy(),
+        "bits": table.bits.cpu().numpy(),
+        "k": int(table.k),
+    }
+
+
+def gains_from_numpy(gains_xy: dict, device="cpu") -> dict:
+    """The JAX Tracker.gains_xy dict (numpy leaves; the smoother weights
+    W_vel / W_pos are nested dicts) -> the same nesting of f32 tensors."""
+    return {
+        k: gains_from_numpy(v, device) if isinstance(v, dict) else _t(v, torch.float32, device)
+        for k, v in gains_xy.items()
+    }
+
+
+def gains_to_numpy(gains_xy: dict) -> dict:
+    return {
+        k: gains_to_numpy(v) if isinstance(v, dict) else v.cpu().numpy()
+        for k, v in gains_xy.items()
+    }

@@ -1,0 +1,126 @@
+"""Where the time goes in the PyTorch/CUDA port's dense-grid slice, on one
+GPU: ``torch.profiler`` over ``Tracker.bind_env_multi`` (S = 8) and
+``Tracker.bind_env`` on the headline scene.
+
+    python scripts/profile_torch_slice.py [--frames 32] [--out DIR]
+
+Prints, per entry point, the wall time per frame without the profiler,
+then under it the device-busy time per frame (the union of kernel intervals in the trace), the device idle share,
+and the kernels and host ops that take the most time.  With --out, writes
+a Chrome trace per entry point there (~20 MB each).  Needs a GPU (exits 1
+without one).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _busy_us(prof) -> float:
+    """Union of device kernel/memcpy intervals in the trace, in us."""
+    spans = []
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.time_range.elapsed_us() > 0:
+            spans.append((ev.time_range.start, ev.time_range.end))
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=None, help="directory for Chrome traces")
+    ap.add_argument("--frames", type=int, default=32)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from torch.profiler import ProfilerActivity, profile
+
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import headline_case, padded_frame
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    dev = torch.device("cuda", 0)
+    cfg, env, sc = headline_case(device=dev)
+    tracker = Tracker(cfg, dev)
+    rows = [padded_frame(sc, k, cfg.caps.n_max_points) for k in range(args.frames)]
+    P = torch.from_numpy(np.stack([r[0] for r in rows])).to(dev)
+    M = torch.from_numpy(np.stack([r[1] for r in rows])).to(dev)
+    T = torch.from_numpy(np.asarray([r[2] for r in rows], np.float32)).to(dev)
+    single = tracker.bind_env(env)
+    multi = tracker.bind_env_multi(env)
+
+    def run_multi():
+        st = tracker.init_state()
+        for d in range(args.frames // 8):
+            sl = slice(8 * d, 8 * d + 8)
+            st, _ = multi(st, Frame(P[sl], M[sl], T[sl]))
+
+    def run_single():
+        st = tracker.init_state()
+        for k in range(args.frames):
+            st, _ = single(st, Frame(P[k], M[k], T[k]))
+
+    for name, fn in (("bind_env_multi", run_multi), ("bind_env", run_single)):
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0) / args.frames)
+        print(f"[{name}] {smi}: {np.median(walls):.4f} ms/frame median of 5 runs of "
+              f"{args.frames} frames without the profiler (min {min(walls):.4f}, max {max(walls):.4f})")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        busy = _busy_us(prof)
+        n = args.frames
+        print(f"[{name}] {smi}: wall {wall_us / n:.1f} us/frame under the profiler, device busy "
+              f"{busy / n:.1f} us/frame, idle share {1 - busy / wall_us:.3f}")
+        ka = prof.key_averages()
+        dev_rows = sorted(
+            (e for e in ka if getattr(e, "self_device_time_total", 0) > 0),
+            key=lambda e: -e.self_device_time_total)
+        for e in dev_rows[:14]:
+            print(f"[{name}]   device {e.self_device_time_total / n:9.2f} us/frame  "
+                  f"x{e.count / n:6.2f}/frame  {e.key[:90]}")
+        host_rows = sorted(ka, key=lambda e: -e.self_cpu_time_total)
+        for e in host_rows[:10]:
+            print(f"[{name}]   host   {e.self_cpu_time_total / n:9.2f} us/frame  "
+                  f"x{e.count / n:6.2f}/frame  {e.key[:90]}")
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(args.out, f"{name}.json"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,159 @@
+"""The four CUDA kernels against their plain PyTorch versions, and the slice
+on the GPU against the port's plain path on the CPU.  Marked ``cuda``: they
+skip without a GPU.  This file imports no JAX, so on the GPU machine (which
+has none) it runs without the suite's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Kernel and plain version must agree bit for bit (integer sums, labels and
+decisions exactly; floats are the same IEEE ops in the same order, no FMA).
+The slice on the GPU matches the CPU plain path exactly except for the
+velocities, whose mean and 39-term smoother sums reduce in another order
+on the card (atol 1e-5 m/s).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from multiple_object_tracking_lidar_tpu_torch.bench_cases import headline_case
+from multiple_object_tracking_lidar_tpu_torch.ops import (
+    assign_cuda,
+    centroid_cuda,
+    grid_cuda,
+    voxel_grid_cuda,
+)
+from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame, FrameOutput
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); the plain versions run in the CPU tests")
+    return torch.device("cuda", 0)
+
+
+def _bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a, b = a.cpu(), b.cpu()
+    if a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def small(dev):
+    cfg, env, sc = headline_case(device=dev)
+    cfg = cfg.replace(caps=dataclasses.replace(
+        cfg.caps, n_max_points=16384, c_max_clusters=16, p_max_cluster=128, k_max_tracks=16))
+    frames = []
+    for k in range(8):
+        pts, t = sc.frame_arrays(k)
+        sub = np.concatenate([pts[:95200:10], pts[95200:]])[:16384]
+        buf = np.zeros((16384, 3), np.float32)
+        buf[: len(sub)] = sub
+        mask = np.zeros(16384, bool)
+        mask[: len(sub)] = True
+        frames.append((buf, mask, np.float32(t)))
+    buf = frames[7][0]
+    buf[:50, 0] = np.nan                                         # adversarial frame
+    buf[50:100] = [-999.0, 999.0, 0.5]
+    buf[100:2000, :2] = np.round(buf[100:2000, :2] / 0.1) * np.float32(0.1)
+    return cfg, env, frames
+
+
+def test_k1_matches_plain(dev, small):
+    cfg, _, frames = small
+    P = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+    M = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
+    args = (P, M, cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    n0 = voxel_grid_cuda.accumulate_fast_stacked.launches
+    ka, kn = voxel_grid_cuda.accumulate_fast_stacked(*args)
+    pa, pn = voxel_grid_cuda.accumulate_fast_stacked_plain(*args)
+    assert voxel_grid_cuda.accumulate_fast_stacked.launches == n0 + 1
+    assert _bits(ka, pa) and _bits(kn, pn)
+
+
+def test_k2_matches_plain(dev, small):
+    cfg, env, frames = small
+    P = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+    M = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
+    accs, _ = voxel_grid_cuda.accumulate_fast_stacked(
+        P, M, cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    coin = torch.from_numpy(np.random.default_rng(6).random(accs.shape[2]) < 0.5).to(dev)
+    accs[6, 3] = torch.where(accs[6, 3] > 0, accs[6, 3], coin.float())  # many components
+    plan = Tracker(cfg, dev).plan(env)
+    tb = (plan.scal, plan.table.base_row, plan.table.base_col, plan.table.bits)
+    kw = dict(dims=plan.dims, tol=cfg.cluster_tolerance, leaf_xy=cfg.voxel_leaf_size,
+              leaf_z=cfg.leaf_z, kwin=plan.table.k)
+    k = grid_cuda.fused_finalize_static_cc_stacked(accs, *tb, **kw)
+    p = grid_cuda.fused_finalize_static_cc_stacked_plain(
+        accs, *tb, dims=plan.dims, kwin=plan.table.k, max_sweeps=2 * sum(plan.dims),
+        offsets=grid_cuda.kernel_offsets(plan.dims, cfg.cluster_tolerance,
+                                         cfg.voxel_leaf_size, cfg.leaf_z))
+    for a, b in zip(k, p):
+        assert _bits(a, b)
+
+
+def test_k3_matches_plain(dev):
+    rng = np.random.default_rng(4)
+    mp = torch.from_numpy(rng.normal(0, 0.2, (16, 128, 3)).astype(np.float32)).to(dev)
+    mm = torch.from_numpy(rng.random((16, 128)) < 0.4).to(dev)
+    mm[3] = False
+    mp[5, 60:] = mp[5, :68].clone()                              # duplicates
+    line = torch.linspace(0, 1, 30, device=dev)
+    mp[6, :30] = torch.stack([line, 2 * line, 0 * line], 1)
+    kc, kf = centroid_cuda.pair_stats(mp, mm)
+    pc, pf = centroid_cuda.pair_stats_plain(mp, mm)
+    assert _bits(kc, pc) and _bits(kf, pf)
+
+
+@pytest.mark.parametrize("allow,full", [(False, False), (True, False), (True, True)])
+def test_k4_matches_plain(dev, allow, full):
+    rng = np.random.default_rng(7)
+    K, D = 16, 12
+    af0 = torch.from_numpy(rng.uniform(-1, 1, (K, 3)).astype(np.float32)).to(dev)
+    alive = torch.ones(K, dtype=torch.int32) if full else (torch.arange(K) % 3 != 0).int()
+    births = torch.from_numpy(rng.permutation(K)).int()
+    ai0 = torch.stack([alive, torch.arange(K).int(), births], 1).int().to(dev)
+    dets = torch.from_numpy(rng.uniform(-1.2, 1.2, (D, 4)).astype(np.float32)).to(dev)
+    dets[:, 3] = 0.6
+    dv = torch.from_numpy(rng.random(D) < 0.8).to(dev)
+    args = (af0, ai0, dets, dv, torch.tensor(allow, device=dev),
+            torch.tensor(40, dtype=torch.int32, device=dev),
+            torch.tensor(50, dtype=torch.int32, device=dev))
+    kw = dict(thr=0.5, dt_gp=0.1, interp_gap_factor=3.0)
+    k = assign_cuda.assoc_scan(*args, **kw)
+    p = assign_cuda.assoc_scan_plain(*args, **kw)
+    ok = p[9].cpu()
+    for i, (a, b) in enumerate(zip(k, p)):
+        if i == 6:
+            a, b = a.cpu()[ok], b.cpu()[ok]
+        assert _bits(a.reshape(-1), b.reshape(-1).to(a.dtype)), i
+
+
+def test_slice_gpu_matches_cpu_plain_path(dev, small):
+    cfg, env, frames = small
+    env_cpu = headline_case()[1]
+    outs = {}
+    for where, e in (("cpu", env_cpu), ("gpu", env)):
+        tr = Tracker(cfg, "cpu" if where == "cpu" else dev)
+        step = tr.bind_env(e)
+        st = tr.init_state()
+        rows = []
+        for buf, mask, t in frames[:7]:
+            st, o = step(st, Frame(torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))
+            rows.append([x.cpu() for x in o])
+        outs[where] = rows
+    for rc, rg in zip(outs["cpu"], outs["gpu"]):
+        for name, a, b in zip(FrameOutput._fields, rc, rg):
+            if name == "vel":
+                assert torch.allclose(a, b, rtol=0, atol=1e-5), name
+            else:
+                assert _bits(a, b), name

@@ -1,0 +1,73 @@
+"""The committed golden outputs of the JAX package on the headline scene
+(tests/golden/torch_slice_headline.npz, written by
+scripts/make_torch_golden.py), which the GPU machine -- it has no JAX --
+holds the port against.
+
+1. The JAX package still produces them: its first 2 frames are recomputed
+   here.  Integers exact; floats within 1e-6, because XLA's CPU code
+   generation (FMA contraction) may vary with the host CPU and with the x64
+   flag the test session sets.
+2. The port's plain path on the CPU reproduces all 12 frames: integers
+   exact, detections and positions within 1e-5 m, velocities within
+   1e-4 m/s (see test_torch_pipeline.py for the reasons); pos / vel
+   compared where ``valid``.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(REPO, "tests", "golden", "torch_slice_headline.npz")
+TOL_DETS, TOL_VEL = 1e-5, 1e-4
+
+
+@pytest.fixture(scope="module")
+def golden():
+    return dict(np.load(GOLDEN))
+
+
+def _compare(got: dict, ref: dict, tol_dets, tol_vel, n=None):
+    v = ref["valid"][:n]
+    for f, r in ref.items():
+        r, g = r[:n], np.asarray(got[f])[:n]
+        if f in ("pos", "vel"):
+            np.testing.assert_allclose(g[v], r[v], rtol=0, atol=tol_vel if f == "vel" else tol_dets,
+                                       err_msg=f)
+        elif f == "raw_centroid":
+            np.testing.assert_allclose(g, r, rtol=0, atol=tol_dets, err_msg=f)
+        else:
+            np.testing.assert_array_equal(g, r, err_msg=f)
+
+
+def test_golden_file_is_what_the_jax_package_computes(golden):
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from make_torch_golden import golden_outputs
+
+    out = golden_outputs(n_frames=2)
+    assert set(out) == set(golden)
+    assert golden["publish"].shape == (12,) and golden["raw_centroid"].shape == (12, 32, 4)
+    _compare(out, golden, 1e-6, 1e-6, n=2)
+
+
+def test_port_plain_path_reproduces_golden(golden):
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import headline_case, padded_frame
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    cfg, env, sc = headline_case()
+    tracker = Tracker(cfg)
+    step = tracker.bind_env(env)
+    st = tracker.init_state()
+    rows = []
+    for k in range(golden["publish"].shape[0]):
+        pts, mask, t = padded_frame(sc, k, cfg.caps.n_max_points)
+        st, out = step(st, Frame(torch.from_numpy(pts), torch.from_numpy(mask), torch.tensor(t)))
+        rows.append(out)
+    got = {f: np.stack([getattr(r, f).numpy() for r in rows]) for f in rows[0]._fields}
+    _compare(got, golden, TOL_DETS, TOL_VEL)
+    assert golden["valid"][1:].sum(axis=1).min() == 3          # three tracked objects
+    assert golden["overflow"].sum() == 0 and golden["cc_saturated"].sum() == 0

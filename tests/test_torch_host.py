@@ -1,0 +1,192 @@
+"""The port's copies of the host modules, pinned against their originals.
+
+The JAX package cannot be imported without JAX, so the PyTorch port
+carries copies of the numpy-only host code it needs.  Each copy must keep
+producing exactly what the original produces.
+"""
+
+import dataclasses
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import multiple_object_tracking_lidar_tpu.config as jcfg
+import multiple_object_tracking_lidar_tpu_torch.config as tcfg
+from multiple_object_tracking_lidar_tpu.io import pointcloud2 as jpc2
+from multiple_object_tracking_lidar_tpu.io import scenario as jscen
+from multiple_object_tracking_lidar_tpu.models import ihgp as jihgp
+from multiple_object_tracking_lidar_tpu.models import matern32 as jm32
+from multiple_object_tracking_lidar_tpu.outputs import messages as jmsg
+from multiple_object_tracking_lidar_tpu.utils import colors as jcol
+from multiple_object_tracking_lidar_tpu.utils import pgm as jpgm
+from multiple_object_tracking_lidar_tpu_torch.io import pointcloud2 as tpc2
+from multiple_object_tracking_lidar_tpu_torch.io import scenario as tscen
+from multiple_object_tracking_lidar_tpu_torch.models import ihgp as tihgp
+from multiple_object_tracking_lidar_tpu_torch.models import matern32 as tm32
+from multiple_object_tracking_lidar_tpu_torch.outputs import messages as tmsg
+from multiple_object_tracking_lidar_tpu_torch.utils import colors as tcol
+from multiple_object_tracking_lidar_tpu_torch.utils import pgm as tpgm
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SIM_MAP = os.path.join(REPO, "assets", "sim_map.yaml")
+
+
+def _fields(obj):
+    return dataclasses.asdict(obj)
+
+
+@pytest.mark.parametrize(
+    "path",
+    ["assets/sim_01/simTracker.launch", None],
+    ids=["launch", "defaults"],
+)
+def test_config_copy_matches(path):
+    if path is None:
+        a, b = jcfg.TrackerConfig(), tcfg.TrackerConfig()
+    else:
+        a = jcfg.load_config(os.path.join(REPO, path))
+        b = tcfg.load_config(os.path.join(REPO, path))
+    assert _fields(a) == _fields(b)
+    assert (a.dt_gp, a.leaf_z) == (b.dt_gp, b.leaf_z)
+    assert [f.name for f in dataclasses.fields(jcfg.TrackerConfig)] == [
+        f.name for f in dataclasses.fields(tcfg.TrackerConfig)
+    ]
+    mapping = {"static_tolerance": 7, "caps.k_max_tracks": 32, "scene.z_max": 3.0}
+    assert _fields(jcfg.config_from_mapping(mapping)) == _fields(
+        tcfg.config_from_mapping(mapping)
+    )
+
+
+def test_bench_config_and_headline_case_match_originals():
+    sys.path.insert(0, REPO)
+    import bench
+    from __graft_entry__ import _bench_config
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+
+    assert _fields(_bench_config()) == _fields(bench_cases.bench_config())
+    jc, jenv, jsc = bench.headline_case()
+    tc, tenv, tsc = bench_cases.headline_case()
+    assert _fields(jc) == _fields(tc)
+    for k in (0, 7):
+        jp, jt = jsc.frame_arrays(k)
+        tp, tt = tsc.frame_arrays(k)
+        assert jt == tt
+        np.testing.assert_array_equal(jp, tp)
+    np.testing.assert_array_equal(np.asarray(jenv.dilated), tenv.dilated.numpy())
+
+
+def test_map_and_scenario_copies_match():
+    ja, tb = jpgm.load_map_yaml(SIM_MAP), tpgm.load_map_yaml(SIM_MAP)
+    assert _fields(ja.info) == _fields(tb.info)
+    np.testing.assert_array_equal(ja.data, tb.data)
+    objs = dict(x0=0.1, y0=1.0, vx=0.3, vy=-0.2, turn_every=2.0)
+    js = jscen.Scenario(grid=ja, objects=[jscen.ScenarioObject(**objs)], seed=5, clutter_points=40)
+    ts = tscen.Scenario(grid=tb, objects=[tscen.ScenarioObject(**objs)], seed=5, clutter_points=40)
+    for k in (0, 3, 41):
+        jp, jt = js.frame_arrays(k)
+        tp, tt = ts.frame_arrays(k)
+        assert jt == tt
+        np.testing.assert_array_equal(jp, tp)
+        assert js.ground_truth(k) == ts.ground_truth(k)
+    jm, tm = js.frame(3), ts.frame(3)
+    assert jm.data == tm.data and jm.point_step == tm.point_step
+    # decode: the copy keeps only the numpy route
+    for n_max in (64, 8192):
+        jx, jmask = jpc2.decode_pointcloud2(jm, n_max, use_native=False)
+        tx, tmask = tpc2.decode_pointcloud2(tm, n_max)
+        np.testing.assert_array_equal(jx, tx)
+        np.testing.assert_array_equal(jmask, tmask)
+
+
+def test_colors_and_messages_copies_match():
+    assert jcol.make_colorset(9) == tcol.make_colorset(9)
+    g1, g2 = jcol.GlibcRand(5323), tcol.GlibcRand(5323)
+    assert [g1.rand() for _ in range(50)] == [g2.rand() for _ in range(50)]
+    rng = np.random.default_rng(0)
+    pos = rng.normal(size=(4, 2)).astype(np.float32)
+    vel = rng.normal(size=(4, 2)).astype(np.float32)
+    colors = {i: c for i, c in enumerate(jcol.make_colorset(4))}
+    a = jmsg.build_outputs(1.5, "map", [0, 3, 1, 2], pos, vel, colors)
+    b = tmsg.build_outputs(1.5, "map", [0, 3, 1, 2], pos, vel, colors)
+    assert [dataclasses.asdict(x) for x in a] == [dataclasses.asdict(x) for x in b]
+
+
+@pytest.mark.parametrize("length", [9, 39])
+def test_gains_and_smoother_weights_match_f64(length):
+    """The host-f64 gain builders are copies: identical f64 outputs."""
+    for logs in ((-5.5, -3.5, 0.75), (-4.0, -2.0, 0.2)):
+        ja = jihgp.stationary_gains(jm32.matern32_from_log(*logs), 0.1)
+        tb = tihgp.stationary_gains(tm32.matern32_from_log(*logs), 0.1)
+        for f in dataclasses.fields(ja):
+            np.testing.assert_array_equal(getattr(ja, f.name), getattr(tb, f.name))
+        jw = jihgp.smoother_weights(ja, length)
+        tw = tihgp.smoother_weights(tb, length)
+        for k in jw:
+            np.testing.assert_array_equal(jw[k], tw[k])
+        jx = jihgp.smoother_weights_xy(ja, ja, length)
+        tx = tihgp.smoother_weights_xy(tb, tb, length)
+        for k in jx:
+            np.testing.assert_array_equal(jx[k], tx[k])
+        ga, gb = ja.as_jax(), tb.as_arrays()
+        for k in ga:
+            np.testing.assert_array_equal(ga[k], gb[k])
+
+
+def test_tracker_gains_match():
+    from multiple_object_tracking_lidar_tpu.tracker.pipeline import Tracker as JT
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker as TT
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import gains_to_numpy
+
+    cfg = jcfg.TrackerConfig(voxel_mode="onehot", cluster_backend="grid", data_length=40)
+    tcfg_ = tcfg.TrackerConfig(voxel_mode="onehot", cluster_backend="grid", data_length=40)
+    ja = JT(cfg).gains_xy
+    tb = gains_to_numpy(TT(tcfg_).gains_xy)
+    assert set(ja) == set(tb)
+    for k, v in ja.items():
+        if isinstance(v, dict):
+            for kk in v:
+                np.testing.assert_array_equal(v[kk], tb[k][kk])
+        else:
+            np.testing.assert_array_equal(v, tb[k])
+
+
+@pytest.mark.parametrize("gz_max", [1.0, 2.0], ids=["gz1", "gz2"])
+def test_static_mask_and_cell_table_match(gz_max):
+    from multiple_object_tracking_lidar_tpu.ops import static_mask as jsm
+    from multiple_object_tracking_lidar_tpu.ops.voxel import grid_shape as jgs
+    from multiple_object_tracking_lidar_tpu_torch.ops import static_mask as tsm
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import grid_shape as tgs
+
+    grid_j, grid_t = jpgm.load_map_yaml(SIM_MAP), tpgm.load_map_yaml(SIM_MAP)
+    scene = dict(x_min=-2.4, x_max=2.5, y_min=-1.5, y_max=9.4, z_min=0.0, z_max=gz_max)
+    js, ts = jcfg.SceneBounds(**scene), tcfg.SceneBounds(**scene)
+    dims = jgs(js, 0.1, 2.0)
+    assert dims == tgs(ts, 0.1, 2.0)
+    jenv = jsm.build_static_mask(grid_j, 2, 50)
+    tenv = tsm.build_static_mask(grid_t, 2, 50)
+    np.testing.assert_array_equal(np.asarray(jenv.dilated), tenv.dilated.numpy())
+    for f in ("origin_x", "origin_y", "cos_nyaw", "sin_nyaw", "inv_resolution"):
+        assert np.float32(getattr(jenv, f)) == getattr(tenv, f).numpy()
+        assert getattr(tenv, f).dtype == torch.float32
+    jt = jsm.build_cell_static_table(jenv, js, 0.1, *dims)
+    tt = tsm.build_cell_static_table(tenv, ts, 0.1, *dims)
+    assert jt.k == tt.k
+    for f in ("base_row", "base_col", "bits"):
+        np.testing.assert_array_equal(np.asarray(getattr(jt, f)), getattr(tt, f).numpy())
+        assert getattr(tt, f).dtype == torch.int32
+
+
+def test_quantize_and_grid_shape_match():
+    from multiple_object_tracking_lidar_tpu.ops.voxel import _quantize as jq
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import _quantize as tq
+
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(-5, 12, (4096, 3)).astype(np.float32)
+    pts[:512] = np.round(pts[:512] / 0.1).astype(np.float32) * np.float32(0.1)  # boundaries
+    import jax.numpy as jnp
+
+    for a, b in zip(jq(jnp.asarray(pts), 0.1, 2.0), tq(torch.from_numpy(pts), 0.1, 2.0)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())

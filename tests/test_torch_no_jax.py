@@ -1,0 +1,73 @@
+"""The port imports and runs where JAX is absent (the GPU machine has no
+JAX): a fresh interpreter with ``jax`` and the JAX package blocked imports
+every module of the port, and ``chip_smoke.py``, and steps 2 frames on the
+CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent(
+    """
+    import importlib, pkgutil, sys
+    for blocked in ("jax", "jaxlib", "multiple_object_tracking_lidar_tpu"):
+        sys.modules[blocked] = None          # any import of them raises
+    sys.path.insert(0, REPO)
+    import dataclasses
+    import numpy as np
+    import torch
+    import multiple_object_tracking_lidar_tpu_torch as pkg
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke  # noqa: F401  (its import needs no JAX either)
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import headline_case, padded_frame
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+    cfg, env, sc = headline_case()
+    cfg = cfg.replace(caps=dataclasses.replace(cfg.caps, n_max_points=4096,
+                                               c_max_clusters=8, p_max_cluster=64, k_max_tracks=8))
+    tr = Tracker(cfg)
+    step = tr.bind_env(env)
+    st = tr.init_state()
+    for k in range(2):
+        pts, t = sc.frame_arrays(k)
+        sub = np.concatenate([pts[:95200:40], pts[95200:99700:3]])
+        buf = np.zeros((4096, 3), np.float32); buf[:len(sub)] = sub
+        mask = np.zeros(4096, bool); mask[:len(sub)] = True
+        st, out = step(st, Frame(torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))
+    assert int(out.n_clusters) >= 3 and bool(out.publish), out
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("NO_JAX_OK", len(names), int(out.valid.sum()))
+    """
+)
+
+
+def test_port_runs_without_jax():
+    res = subprocess.run(
+        [sys.executable, "-c", f"REPO = {REPO!r}\n" + SCRIPT],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "NO_JAX_OK" in res.stdout
+    n_modules = int(res.stdout.split("NO_JAX_OK")[1].split()[0])
+    assert n_modules >= 20
+
+
+def test_no_jax_import_in_port_sources():
+    pkg = os.path.join(REPO, "multiple_object_tracking_lidar_tpu_torch")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    for path in files:
+        with open(path, encoding="utf-8") as fh:
+            for line in fh:
+                s = line.strip()
+                assert not (s.startswith(("import jax", "from jax"))), (path, s)
+                assert "import multiple_object_tracking_lidar_tpu " not in s + " ", (path, s)
+                assert not s.startswith("from multiple_object_tracking_lidar_tpu."), (path, s)
+                assert not s.startswith("from multiple_object_tracking_lidar_tpu import"), (path, s)

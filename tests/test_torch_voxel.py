@@ -1,0 +1,141 @@
+"""K1's plain version (ops/voxel_grid_cuda.py) against the JAX package's
+fast-digit voxel accumulation: its jnp route (which test_grid.py pins to
+the Pallas kernels) and, once, the stacked Pallas kernel in interpret mode.
+
+Integer digit sums, counts and the point count must match exactly.  The
+finalized f32 sums may differ by 1 ulp: XLA on the CPU may contract the
+finalize's ``cnt * (c + half) + s * 2^-k`` into an FMA (test_grid.py's
+test_jnp_fast_matches_kernel allows the same), so they are held to
+rtol 3e-7 / atol 1e-7.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from multiple_object_tracking_lidar_tpu.config import SceneBounds as JScene
+from multiple_object_tracking_lidar_tpu.ops.voxel_grid import (
+    _accumulate_pallas_v5_stacked,
+    voxel_accumulate_onehot_cm,
+)
+from multiple_object_tracking_lidar_tpu_torch.config import SceneBounds as TScene
+from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid as tvg
+from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid_cuda as k1
+
+SCENE = dict(x_min=-2.0, x_max=2.0, y_min=-1.0, y_max=5.0, z_min=0.0, z_max=2.0)
+HEADLINE = dict(x_min=-2.4, x_max=2.5, y_min=-1.5, y_max=9.4, z_min=0.0, z_max=1.0)
+
+
+def _digit_sums(acc, k):
+    """Invert the finalize in f64: the exact integer digit sums per cell."""
+    acc = np.asarray(acc, np.float64)
+    lin = np.arange(k["n_cells"])
+    ix, iyz = lin % k["gx"], lin // k["gx"]
+    iy, iz = iyz % k["gy"], iyz // k["gy"]
+    cx = np.float32(k["bx"] + ix) * np.float32(k["leaf_xy"])
+    cy = np.float32(k["by"] + iy) * np.float32(k["leaf_xy"])
+    cz = np.float32(k["bz"] + iz) * np.float32(k["leaf_z"])
+    cnt = acc[3]
+    out = []
+    for ch, (c, half, sq) in enumerate(
+        ((cx, k["half_xy"], k["sq_xy"]), (cy, k["half_xy"], k["sq_xy"]), (cz, k["half_z"], k["sq_z"]))
+    ):
+        out.append(np.round((acc[ch] - cnt * (np.float64(c) + half)) * sq))
+    return np.stack(out + [cnt]).astype(np.int64)
+
+
+def _points(rng, n, scene, leaf):
+    pts = np.stack(
+        [
+            rng.uniform(scene["x_min"] - 0.5, scene["x_max"] + 0.5, n),
+            rng.uniform(scene["y_min"] - 0.5, scene["y_max"] + 0.5, n),
+            rng.uniform(scene["z_min"] - 0.5, scene["z_max"] + 0.5, n),
+        ],
+        axis=1,
+    ).astype(np.float32)
+    q = n // 8
+    pts[:q, :2] = (np.round(pts[:q, :2] / leaf) * leaf).astype(np.float32)  # leaf boundaries
+    pts[q : q + 7, 0] = np.nan
+    pts[q + 7 : q + 11, 2] = np.inf
+    pts[q + 11] = [-999.0, 999.0, 0.0]
+    pts[2 * q : 3 * q] = (np.float32([0.05, 1.05, 0.5]) + rng.normal(0, 0.01, (q, 3))).astype(
+        np.float32
+    )
+    mask = rng.random(n) < 0.85
+    return pts, mask
+
+
+@pytest.mark.parametrize(
+    "scene,leaf,n",
+    [(SCENE, 0.1, 1024), (SCENE, 0.05, 4096), (HEADLINE, 0.1, 8192)],
+    ids=["leaf0.1", "leaf0.05", "headline-geometry"],
+)
+def test_plain_k1_matches_jnp_fast_route(scene, leaf, n):
+    rng = np.random.default_rng(int(leaf * 1000) + n)
+    pts, mask = _points(rng, n, scene, leaf)
+    js, ts = JScene(**scene), TScene(**scene)
+    ref, n_ref = voxel_accumulate_onehot_cm(
+        jnp.asarray(pts), jnp.asarray(mask), js, leaf, 20 * leaf,
+        use_pallas=False, quant="fast", with_npts=True,
+    )
+    got, n_got = tvg.voxel_accumulate_onehot_cm(
+        torch.from_numpy(pts), torch.from_numpy(mask), ts, leaf, 20 * leaf,
+        quant="fast", with_npts=True,
+    )
+    ref, got = np.asarray(ref), got.numpy()
+    k = k1.kernel_params(ts, leaf, 20 * leaf)
+    assert int(n_ref) == int(n_got) == int(mask.sum())
+    assert got.shape == ref.shape == (4, k["n_cells"])
+    np.testing.assert_array_equal(got[3], ref[3])
+    np.testing.assert_array_equal(_digit_sums(got, k), _digit_sums(ref, k))
+    np.testing.assert_allclose(got, ref, rtol=3e-7, atol=1e-7)
+
+
+def test_plain_k1_matches_stacked_pallas_interpret():
+    scene = SCENE
+    rng = np.random.default_rng(11)
+    frames = [_points(rng, 2048, scene, 0.1) for _ in range(2)]
+    pts = np.stack([f[0] for f in frames])
+    mask = np.stack([f[1] for f in frames])
+    js, ts = JScene(**scene), TScene(**scene)
+    ref, n_ref = _accumulate_pallas_v5_stacked(
+        jnp.asarray(pts), jnp.asarray(mask), js, 0.1, 2.0, block=512, interpret=True
+    )
+    got, n_got = k1.accumulate_fast_stacked(
+        torch.from_numpy(pts), torch.from_numpy(mask), ts, 0.1, 2.0
+    )
+    k = k1.kernel_params(ts, 0.1, 2.0)
+    np.testing.assert_array_equal(np.asarray(n_ref), n_got.numpy())
+    for s in range(2):
+        np.testing.assert_array_equal(
+            _digit_sums(got[s].numpy(), k), _digit_sums(np.asarray(ref[s]), k)
+        )
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=3e-7, atol=1e-7)
+
+
+def test_finalize_dense_cm_matches():
+    from multiple_object_tracking_lidar_tpu.ops.voxel_grid import finalize_dense_cm as jfin
+
+    rng = np.random.default_rng(2)
+    acc = rng.normal(0, 3, (4, 300)).astype(np.float32)
+    acc[3] = rng.integers(0, 4, 300).astype(np.float32)
+    jc, jo, jn = jfin(jnp.asarray(acc))
+    tc, to, tn = tvg.finalize_dense_cm(torch.from_numpy(acc))
+    np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
+    np.testing.assert_array_equal(np.asarray(jo), to.numpy())
+    assert int(jn) == int(tn)
+
+
+def test_k1_wrapper_cpu_route_and_limits():
+    """On a CPU tensor the wrapper runs the plain version and launches
+    nothing; exact mode is a later slice."""
+    ts = TScene(**SCENE)
+    before = k1.accumulate_fast_stacked.launches
+    pts = torch.zeros((1, 16, 3))
+    k1.accumulate_fast_stacked(pts, torch.ones((1, 16), dtype=torch.bool), ts, 0.1, 2.0)
+    assert k1.accumulate_fast_stacked.launches == before
+    with pytest.raises(NotImplementedError, match="exact"):
+        tvg.voxel_accumulate_onehot_cm(pts[0], torch.ones(16, dtype=torch.bool), ts, 0.1, 2.0, quant="exact")
+    assert k1.max_cells() == 14528

@@ -6,15 +6,19 @@ Drives the port (``multiple_object_tracking_lidar_tpu_torch``) and nothing
 of JAX, in five phases, one or more lines each:
 
 1. the card (``nvidia-smi`` name and power limit); no CUDA -> exit 1;
-2. the kernel build from ``csrc/*.cu``;
-3. each of the four kernels against its plain PyTorch version on the card,
-   at the headline shapes, on scenario and adversarial inputs;
-4. the slice: ``TrackerNode.on_pointcloud`` answers 12 headline
-   PointCloud2 frames and ``Tracker.bind_env_multi`` runs 4 dispatches of
-   S = 8, each with every kernel's launch counter reset before and read
-   after; outputs are held against the JAX package's committed golden
-   (tests/golden/torch_slice_headline.npz) and against the port's plain
-   path on the CPU;
+2. the kernel build from ``csrc/*.cu`` (one nvcc per source, in parallel);
+3. each of the seven kernels against its plain PyTorch version on the
+   card, at the headline shapes, on scenario and adversarial inputs;
+4. the slices, each with every kernel's launch counter reset before and
+   read after: the headline (fast digits) -- ``TrackerNode.on_pointcloud``
+   answers 12 headline PointCloud2 frames and ``Tracker.bind_env_multi``
+   runs 4 dispatches of S = 8, held against the JAX golden
+   (tests/golden/torch_slice_headline.npz) and the port's plain path on
+   the CPU; then exact mode (K5) and runs mode (K7), each through
+   ``TrackerNode`` (12 frames) and ``bind_env_multi`` (2 x S = 8), held
+   against their JAX goldens (torch_{exact,runs}_headline.npz); and exact
+   mode on unpadded 100,000-point frames (K6), held against the exact
+   golden;
 5. timings with CUDA events, beside the card's name and power limit.
 
 Any failed phase raises (exit 1).  The line before the last is the kernel
@@ -34,6 +38,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "torch_slice_headline.npz")
+GOLDEN_EXACT = os.path.join(HERE, "tests", "golden", "torch_exact_headline.npz")
+GOLDEN_RUNS = os.path.join(HERE, "tests", "golden", "torch_runs_headline.npz")
 PKG = "multiple_object_tracking_lidar_tpu_torch"
 
 # Tolerances against the JAX golden, with their reasons.  Integers, labels
@@ -88,9 +94,13 @@ def npy(t):
 
 
 def max_err(a, b) -> float:
+    """Max |a - b|, where equal values (infinities and NaN pairs included)
+    count as 0."""
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
-    return float(np.max(np.abs(a - b), initial=0.0))
+    same = (a == b) | (np.isnan(a) & np.isnan(b))
+    with np.errstate(invalid="ignore"):
+        return float(np.max(np.where(same, 0.0, np.abs(a - b)), initial=0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +322,101 @@ def phase_kernels(dev, report):
     if not ok:
         fail("K4 disagrees with its plain version (exact decisions expected)")
     report["K4"] = {"max_abs_err": err4}
-    return cfg, sc
+    return cfg, sc, (pts, mask)
+
+
+def blob_frame(cfg, rng, n):
+    """n points, 99% of them in one cell at the top of the digit range
+    (digit sums in the tens of millions), the rest uniform, a few NaN, inf
+    and masked points."""
+    sc = cfg.scene
+    pts = np.stack([rng.uniform(sc.x_min, sc.x_max, n), rng.uniform(sc.y_min, sc.y_max, n),
+                    rng.uniform(sc.z_min, sc.z_max, n)], 1).astype(np.float32)
+    blob = int(0.99 * n)
+    pts[:blob] = [0.0999, 2.0999, 0.9]
+    pts[blob:blob + 5, 0] = np.nan
+    pts[blob + 5:blob + 10, 2] = np.inf
+    mask = rng.random(n) < 0.97
+    mask[:blob] = True
+    return pts[None], mask[None]
+
+
+def sorted_rows(P, M, cfg):
+    """The runs path's K7 inputs: cell keys sorted per frame (stable) and
+    the co-sorted coordinates (ops/voxel_pallas.py)."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid_cuda as vg
+
+    k = vg.kernel_params(cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    ok, lin, _ = vg.kept_cells(P, M, k)
+    keys = torch.where(ok, lin, k["n_cells"]).to(torch.int32)
+    vals = torch.where(ok[..., None], P, 0.0)
+    ks, perm = torch.sort(keys, dim=1, stable=True)
+    return ks, [torch.gather(vals[..., c], 1, perm).contiguous() for c in range(3)]
+
+
+def check_pair(report, name, what, fk, fp):
+    """Kernel call fk against plain call fp on the card: bit for bit."""
+    k_out, p_out = fk(), fp()
+    torch.cuda.synchronize()
+    ok = all(equal(npy(a), npy(b)) for a, b in zip(k_out, p_out))
+    err = max(max_err(npy(a), npy(b)) for a, b in zip(k_out, p_out))
+    log(f"[3 {name}] {what}: bit-exact={ok} max_abs_err={err}")
+    if not ok:
+        fail(f"{name} disagrees with its plain version ({what}; bit-exact expected)")
+    entry = report.setdefault(name, {"max_abs_err": 0.0})
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    return k_out
+
+
+def phase_kernels_more(dev, report, cfg, k1_inputs):
+    """K5, K6 and K7 (and K1 past the TPU's f32 bound) on the card."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import segsum_cuda, voxel_grid_cuda as vg
+
+    leaf, leaf_z = cfg.voxel_leaf_size, cfg.leaf_z
+    rng = np.random.default_rng(77)
+    P = torch.from_numpy(k1_inputs[0]).to(dev)
+    M = torch.from_numpy(k1_inputs[1]).to(dev)
+    n = P.shape[1]
+    adv = "frame 7 adversarial: NaN/inf/out-of-bounds/leaf-boundary/masked/one-cell blob"
+
+    bp, bm = blob_frame(cfg, rng, 133_120)
+    BP, BM = torch.from_numpy(bp).to(dev), torch.from_numpy(bm).to(dev)
+    kw = (cfg.scene, leaf, leaf_z)
+    check_pair(report, "K1", "S=1 N=133120 (N*127 >= 2^24, the TPU's v4 regime), 99% in one cell",
+               lambda: vg.accumulate_fast_stacked(BP, BM, *kw),
+               lambda: vg.accumulate_fast_stacked_plain(BP, BM, *kw))
+
+    check_pair(report, "K5", f"S=8 N={n} cells={vg.kernel_params(*kw)['n_cells']} ({adv})",
+               lambda: vg.accumulate_exact_stacked(P, M, *kw),
+               lambda: vg.accumulate_exact_stacked_plain(P, M, *kw))
+    bp, bm = blob_frame(cfg, rng, 131_072)
+    BP, BM = torch.from_numpy(bp).to(dev), torch.from_numpy(bm).to(dev)
+    out = check_pair(report, "K5", "S=1 N=131072 (N*128 >= 2^24, the TPU's v3 regime), 99% in one cell",
+                     lambda: vg.accumulate_exact_stacked(BP, BM, *kw),
+                     lambda: vg.accumulate_exact_stacked_plain(BP, BM, *kw))
+    log(f"[3 K5]   blob cell count {float(out[0][0, 3].max())}")
+
+    P1, M1 = P[:, :100_000].contiguous(), M[:, :100_000].contiguous()
+    check_pair(report, "K6", f"S=8 N=100000, the unpadded exact route ({adv})",
+               lambda: vg.accumulate_bf16x3_stacked(P1, M1, *kw),
+               lambda: vg.accumulate_bf16x3_stacked_plain(P1, M1, *kw))
+    kw15 = (cfg.scene, 0.15, 3.0)
+    check_pair(report, "K6", f"S=2 N={n} leaf 0.15 m (too coarse for two digits), "
+               f"cells={vg.kernel_params(*kw15)['n_cells']}",
+               lambda: vg.accumulate_bf16x3_stacked(P[:2], M[:2], *kw15),
+               lambda: vg.accumulate_bf16x3_stacked_plain(P[:2], M[:2], *kw15))
+
+    ks, vals = sorted_rows(P, M, cfg)
+    ks[6] = 5                                        # frame 6: one run over all 13 blocks
+    ks[5, 8100:8300] = ks[5, 8100]                   # frame 5: a run across the block edge
+    ks[5] = torch.cummax(ks[5], 0).values
+    vals[0][7, 9000] = float("inf")                  # frame 7: inf and signed zeros
+    vals[1][7, 8191] = float("-inf")
+    vals[2][7, ::7] = -0.0
+    check_pair(report, "K7", f"S=8 N={n} sorted headline rows (frame 5: a run across the "
+               "8192-row edge; 6: one run; 7: inf and -0.0)",
+               lambda: segsum_cuda.segment_totals(ks, *vals),
+               lambda: segsum_cuda.segment_totals_plain(ks, *vals))
 
 
 # ---------------------------------------------------------------------------
@@ -320,13 +424,16 @@ def phase_kernels(dev, report):
 # ---------------------------------------------------------------------------
 def kernel_wrappers():
     from multiple_object_tracking_lidar_tpu_torch.ops import (
-        assign_cuda, centroid_cuda, grid_cuda, voxel_grid_cuda)
+        assign_cuda, centroid_cuda, grid_cuda, segsum_cuda, voxel_grid_cuda)
 
     return {
         "K1": voxel_grid_cuda.accumulate_fast_stacked,
         "K2": grid_cuda.fused_finalize_static_cc_stacked,
         "K3": centroid_cuda.pair_stats,
         "K4": assign_cuda.assoc_scan,
+        "K5": voxel_grid_cuda.accumulate_exact_stacked,
+        "K6": voxel_grid_cuda.accumulate_bf16x3_stacked,
+        "K7": segsum_cuda.segment_totals,
     }
 
 
@@ -337,6 +444,21 @@ def reset_counts():
 
 def read_counts():
     return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+FAST_PATH = ("K1", "K2", "K3", "K4")   # the kernels each path must launch
+TAIL = ("K2", "K3", "K4")
+
+
+def require(tag, counts, need, report):
+    """Fail unless every kernel of ``need`` launched in this path's run;
+    add the run's counts to the report."""
+    missing = [k for k in need if counts[k] <= 0]
+    if missing:
+        fail(f"{missing} not launched on the {tag} path: {counts}")
+    for k, c in counts.items():
+        report.setdefault(k, {"max_abs_err": 0.0})
+        report[k]["launches"] = report[k].get("launches", 0) + c
 
 
 def compare(tag, got: dict, ref: dict, tol_dets, tol_vel):
@@ -402,8 +524,7 @@ def phase_slice(dev, cfg, sc, report):
     log(f"[4 slice] TrackerNode.on_pointcloud x{n_gold}: {n_pub} published, ids "
         f"{sorted({o.id for r in replies if r for o in r[0].obstacles})}, "
         f"launches {node_counts}; vs JAX golden max abs err {e_gold}; vs CPU {e_cpu}")
-    if min(node_counts.values()) <= 0:
-        fail(f"a kernel was not launched on the TrackerNode path: {node_counts}")
+    require("TrackerNode", node_counts, FAST_PATH, report)
 
     # bind_env_multi: 4 dispatches of S = 8
     tracker = Tracker(cfg, dev)
@@ -432,30 +553,77 @@ def phase_slice(dev, cfg, sc, report):
     log(f"[4 slice] bind_env_multi {n_disp}x S={S}: {S * n_disp} frames, launches {multi_counts}, "
         f"finite {fin}, n_alive {allm['n_alive'].tolist()}; first {n_gold} vs JAX golden max abs "
         f"err {e_gold}; vs CPU {e_cpu}; vs TrackerNode {e_node}")
-    if min(multi_counts.values()) <= 0:
-        fail(f"a kernel was not launched on the bind_env_multi path: {multi_counts}")
+    require("bind_env_multi", multi_counts, FAST_PATH, report)
     if not all(fin.values()):
         fail("non-finite pos/vel on valid lanes")
-    for k in node_counts:
-        report[k]["launches"] = node_counts[k] + multi_counts[k]
     return tracker, env, (P, M, T)
+
+
+def phase_modes(dev, report):
+    """Exact mode (K5), runs mode (K7) and exact mode on unpadded frames
+    (K6), each through TrackerNode and bind_env_multi against its golden."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    paths = (("A exact", bench_cases.exact_case, GOLDEN_EXACT, "K5", 12, 2),
+             ("B runs", bench_cases.runs_case, GOLDEN_RUNS, "K7", 12, 2),
+             ("exact unpadded", bench_cases.exact_unpadded_case, GOLDEN_EXACT, "K6", 4, 1))
+    for tag, case, gold_path, kern, n_node, n_disp in paths:
+        golden = dict(np.load(gold_path))
+        fields = golden.keys()
+        cfg, env, sc = case(device=dev)
+        node = TrackerNode(cfg, dev)
+        node.on_map(load_sim_grid())
+        reset_counts()
+        replies = [node.on_pointcloud(sc.frame(k)) for k in range(n_node)]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        got = {f: np.stack([getattr(o, f) for o in node.outputs]) for f in fields}
+        ref = {f: v[:n_node] for f, v in golden.items()}
+        e = compare(f"{tag} TrackerNode vs JAX golden", got, ref, TOL_DETS, TOL_VEL)
+        n_pub = sum(r is not None for r in replies)
+        log(f"[4 {tag}] TrackerNode.on_pointcloud x{n_node} (N={cfg.caps.n_max_points}): "
+            f"{n_pub} published, launches {counts}; vs JAX golden max abs err {e}")
+        require(f"{tag} TrackerNode", counts, (kern,) + TAIL, report)
+
+        tracker = Tracker(cfg, dev)
+        multi = tracker.bind_env_multi(env)
+        S = 8 if n_disp > 1 else 4
+        pts, mask, ts = headline_frames(sc, cfg.caps.n_max_points, range(S * n_disp))
+        P, M, T = (torch.from_numpy(a).to(dev) for a in (pts, mask, ts))
+        state = tracker.init_state()
+        reset_counts()
+        outs = []
+        for d in range(n_disp):
+            sl = slice(d * S, (d + 1) * S)
+            state, o = multi(state, Frame(P[sl], M[sl], T[sl]))
+            outs.append([npy(x) for x in o])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        allm = {f: np.concatenate([r[i] for r in outs]) for i, f in enumerate(fields)}
+        n_cmp = min(len(allm["publish"]), len(golden["publish"]))
+        first = {f: v[:n_cmp] for f, v in allm.items()}
+        e = compare(f"{tag} bind_env_multi vs JAX golden", first,
+                    {f: v[:n_cmp] for f, v in golden.items()}, TOL_DETS, TOL_VEL)
+        fin = all(np.isfinite(v[allm["valid"]]).all() for f, v in allm.items() if f in ("pos", "vel"))
+        log(f"[4 {tag}] bind_env_multi {n_disp}x S={S}: launches {counts}, finite {fin}, "
+            f"first {n_cmp} vs JAX golden max abs err {e}")
+        require(f"{tag} bind_env_multi", counts, (kern,) + TAIL, report)
+        if not fin:
+            fail(f"{tag}: non-finite pos/vel on valid lanes")
 
 
 # ---------------------------------------------------------------------------
 # phase 5: timings
 # ---------------------------------------------------------------------------
-def phase_timings(dev, cfg, smi, tracker, env, frames, report):
-    from multiple_object_tracking_lidar_tpu_torch.ops import (
-        assign_cuda, centroid_cuda, grid_cuda, voxel_grid_cuda)
-    from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import cluster_table_grid
-    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import track_step
+def time_path(tracker, env, P, M, T):
+    """(ms/frame of bind_env one frame per call, of bind_env_multi S = 8)
+    over the frames P, M, T, by CUDA events, 3 repeats after a warm-up."""
     from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
 
-    P, M, T = frames
-    leaf, leaf_z = cfg.voxel_leaf_size, cfg.leaf_z
-    caps = cfg.caps
-
-    # end to end: bind_env one frame per call; bind_env_multi S = 8
     step = tracker.bind_env(env)
     multi = tracker.bind_env_multi(env)
     n_fr = P.shape[0]
@@ -471,13 +639,34 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
             sl = slice(d * 8, (d + 1) * 8)
             st, _ = multi(st, Frame(P[sl], M[sl], T[sl]))
 
+    return cuda_ms(run_single, 3) / n_fr, cuda_ms(run_multi, 3) / n_fr
+
+
+def phase_timings(dev, cfg, smi, tracker, env, frames, report):
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        assign_cuda, centroid_cuda, grid_cuda, segsum_cuda, voxel_grid_cuda)
+    from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import cluster_table_grid
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import track_step
+
+    P, M, T = frames
+    leaf, leaf_z = cfg.voxel_leaf_size, cfg.leaf_z
+    caps = cfg.caps
+
+    # end to end: bind_env one frame per call; bind_env_multi S = 8
     syncs0 = track_step.host_syncs
-    ms_single = cuda_ms(run_single, 3) / n_fr
-    ms_multi = cuda_ms(run_multi, 3) / n_fr
-    syncs = (track_step.host_syncs - syncs0) / (8 * n_fr)
-    log(f"[5 timing] {smi}: bind_env {ms_single:.4f} ms/frame "
+    ms_single, ms_multi = time_path(tracker, env, P, M, T)
+    syncs = (track_step.host_syncs - syncs0) / (8 * P.shape[0])
+    log(f"[5 timing] {smi}: headline bind_env {ms_single:.4f} ms/frame "
         f"({1e3 / ms_single:.1f} clouds/s); bind_env_multi S=8 {ms_multi:.4f} ms/frame "
         f"({1e3 / ms_multi:.1f} clouds/s); host syncs per frame {syncs:.2f}")
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    for tag, case in (("A exact", bench_cases.exact_case), ("B runs", bench_cases.runs_case)):
+        cfg_m, env_m, _ = case(device=P.device)
+        ms_s, ms_m = time_path(Tracker(cfg_m, P.device), env_m, P, M, T)
+        log(f"[5 timing] {smi}: {tag} bind_env {ms_s:.4f} ms/frame ({1e3 / ms_s:.1f} "
+            f"clouds/s); bind_env_multi S=8 {ms_m:.4f} ms/frame ({1e3 / ms_m:.1f} clouds/s)")
 
     # kernels vs plain versions, at the main path's shapes
     kw1 = (cfg.scene, leaf, leaf_z)
@@ -504,6 +693,8 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
           torch.tensor(64, dtype=torch.int32, device=dev))
     kw4 = dict(thr=cfg.id_threshold, dt_gp=cfg.dt_gp, interp_gap_factor=cfg.interp_gap_factor)
     offsets = grid_cuda.kernel_offsets(plan.dims, cfg.cluster_tolerance, leaf, leaf_z)
+    ks, vals = sorted_rows(P[:8], M[:8], cfg)
+    P1, M1 = P[:8, :100_000].contiguous(), M[:8, :100_000].contiguous()
     pairs = {
         "K1": (lambda: voxel_grid_cuda.accumulate_fast_stacked(P[:8], M[:8], *kw1),
                lambda: voxel_grid_cuda.accumulate_fast_stacked_plain(P[:8], M[:8], *kw1),
@@ -519,12 +710,22 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
         "K4": (lambda: assign_cuda.assoc_scan(*a4, **kw4),
                lambda: assign_cuda.assoc_scan_plain(*a4, **kw4),
                "K=64 D=32, 4 valid detections"),
+        "K5": (lambda: voxel_grid_cuda.accumulate_exact_stacked(P[:8], M[:8], *kw1),
+               lambda: voxel_grid_cuda.accumulate_exact_stacked_plain(P[:8], M[:8], *kw1),
+               "S=8 frames x 106496 points"),
+        "K6": (lambda: voxel_grid_cuda.accumulate_bf16x3_stacked(P1, M1, *kw1),
+               lambda: voxel_grid_cuda.accumulate_bf16x3_stacked_plain(P1, M1, *kw1),
+               "S=8 frames x 100000 points"),
+        "K7": (lambda: segsum_cuda.segment_totals(ks, *vals),
+               lambda: segsum_cuda.segment_totals_plain(ks, *vals),
+               "S=8 frames x 106496 sorted rows"),
     }
     for name, (fk, fp, shape) in pairs.items():
-        ms_p = cuda_ms(fp, 5)
+        reps_p = 2 if name == "K6" else 5
+        ms_p = cuda_ms(fp, reps_p)
         ms_k = cuda_ms(fk, 50)
         ms_k2 = cuda_ms(fk, 50)
-        ms_p2 = cuda_ms(fp, 5)
+        ms_p2 = cuda_ms(fp, reps_p)
         report[name]["ms"] = min(ms_k, ms_k2)
         report[name]["plain_ms"] = min(ms_p, ms_p2)
         log(f"[5 timing] {smi}: {name} {shape}: kernel {ms_k:.4f}/{ms_k2:.4f} ms, "
@@ -542,6 +743,12 @@ KERNELS = (
      f"{PKG}/csrc/centroid.cu", "multiple_object_tracking_lidar_tpu/ops/centroid_pallas.py:415"),
     ("K4", "greedy association scan",
      f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188"),
+    ("K5", "voxel_grid exact two-digit histogram + finalize",
+     f"{PKG}/csrc/voxel_exact.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1538"),
+    ("K6", "voxel_grid bf16x3 sums in ascending point index",
+     f"{PKG}/csrc/voxel_bf16x3.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:408"),
+    ("K7", "segmented prefix totals over sorted rows",
+     f"{PKG}/csrc/segsum.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_pallas.py:316"),
 )
 
 
@@ -552,8 +759,10 @@ def main() -> int:
     torch.cuda.set_device(dev)
     phase_build()
     report: dict = {}
-    cfg, sc = phase_kernels(dev, report)
+    cfg, sc, k1_inputs = phase_kernels(dev, report)
+    phase_kernels_more(dev, report, cfg, k1_inputs)
     tracker, env, frames = phase_slice(dev, cfg, sc, report)
+    phase_modes(dev, report)
     phase_timings(dev, cfg, smi, tracker, env, frames, report)
     kernels = [
         {"name": f"{k}: {desc}", "route": "cuda", "source": src, "replaces": rep,

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-Route: ``nvcc`` compiles every source into one shared library with a plain
+Route: ``nvcc`` compiles every source into an object, all sources at once
+in parallel processes, and links them into one shared library with a plain
 C interface, loaded with ``ctypes`` -- no PyTorch headers in the build, so
 it takes seconds, not minutes.  The library lands in ``build/torch_kernels/``
 beside the package (``.gitignore`` lists ``build/``), named by a hash of the
@@ -28,10 +29,11 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    *ARCH_FLAGS,
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -47,6 +49,12 @@ SIGNATURES = {
     "motl_pair_stats": [_P, _P, _I, _I, _P, _P, _P],
     "motl_assoc_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P,
                         _P, _P],
+    "motl_voxel_exact": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "motl_voxel_bf16x3": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _I, _I, _F, _F, _P],
+    "motl_segment_totals": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                            _P],
 }
 
 
@@ -87,6 +95,29 @@ def _digest(srcs: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once, wait for all; their joined output, or
+    KernelBuildError naming the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise KernelBuildError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
+def _compile_and_link(srcs: list[str], so: str) -> str:
+    """One nvcc per source, all started together, then one link."""
+    nvcc = _nvcc()
+    objs = [f"{so}.{os.path.basename(s)}.o" for s in srcs]
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", s, "-o", o] for s, o in zip(srcs, objs)])
+    log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs]])
+    for o in objs:
+        os.remove(o)
+    return log
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use in this process (or reused
     from an earlier build of the same sources)."""
@@ -98,15 +129,9 @@ def load() -> ctypes.CDLL:
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
+            _state.log = _compile_and_link(srcs, tmp)
             _state.build_seconds = time.perf_counter() - t0
-            _state.log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise KernelBuildError(
-                    f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{_state.log}"
-                )
             os.replace(tmp, so)
             with open(so + ".log", "w", encoding="utf-8") as f:
                 f.write(_state.log)

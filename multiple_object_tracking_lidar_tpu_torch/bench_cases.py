@@ -3,11 +3,14 @@
 Copies of ``__graft_entry__._bench_config`` and ``bench.headline_case``
 (both import the JAX package), so the port can build the headline workload
 where JAX is absent.  tests/test_torch_host.py pins both against their
-originals.
+originals.  The other dense-grid front ends run the same scene with one
+field changed: ``exact_case`` (bench.py:518), ``runs_case`` and
+``exact_unpadded_case``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 from multiple_object_tracking_lidar_tpu_torch.config import (
@@ -90,3 +93,31 @@ def padded_frame(sc, k: int, n_pts: int):
     mask = np.zeros(n_pts, bool)
     mask[: min(len(pts), n_pts)] = True
     return buf, mask, np.float32(t)
+
+
+def exact_case(device="cpu"):
+    """Configuration A: the headline with ``voxel_quant="exact"``, as
+    bench.py:518 measures it.  The 0.1 m leaf passes ``_v3_leaf_ok`` and a
+    4,096-point block tiles N, so the accumulator is K5 (the TPU's v6)."""
+    cfg, env, sc = headline_case(device)
+    return cfg.replace(voxel_quant="exact"), env, sc
+
+
+def runs_case(device="cpu"):
+    """Configuration B: the headline with ``voxel_mode="runs"`` (the grid
+    backend stays): sort + K7 segment totals + densify."""
+    cfg, env, sc = headline_case(device)
+    return cfg.replace(voxel_mode="runs"), env, sc
+
+
+def exact_unpadded_case(device="cpu"):
+    """Exact mode on frames of exactly the 100,000 valid points, unpadded:
+    no point block tiles N = 100,000, so exact mode takes the bf16x3 sums
+    (K6), as the TPU takes its jnp lowering of them.  K6's other route, a
+    leaf too coarse for two int8 digits (> ~0.124 m), cannot run on this
+    map yet: at a 0.15 m leaf the sim map's per-cell static window is 6 x 6
+    = 36 bits, past the 32-bit cell table, and the one-hot map lookup it
+    needs is still to be ported (ROADMAP Queue 1 item 17)."""
+    cfg, env, sc = exact_case(device)
+    caps = dataclasses.replace(cfg.caps, n_max_points=100_000)
+    return cfg.replace(caps=caps), env, sc

@@ -1,0 +1,92 @@
+"""K7: segmented prefix totals over key-sorted rows.
+
+Replaces the Pallas kernel ``multiple_object_tracking_lidar_tpu/ops/
+voxel_pallas.py::segment_totals_raster`` (CUDA source ``csrc/segsum.cu``,
+whose header says what bounds it on the H100 and how its design answers
+that: one CTA per 8,192-row block in shared memory, and the carry across
+blocks as a second pass).  It computes the Pallas kernel's float tree, so
+the result is bit-identical: per block of T = rb * 128 rows
+(rb = min(64, N / 128)), Hillis-Steele passes at sh = 1, 2, ..., T/2 of
+``c_i + c_{(i-sh) mod T} * [k_{(i-sh) mod T} == k_i and i >= sh]``, then for
+every block b > 0 ``c + [k == carry_key] * carry`` with block b-1's last key
+and last output.
+
+``segment_totals`` launches the kernel for CUDA tensors and runs
+``segment_totals_plain`` for CPU tensors; ``.launches`` counts kernel
+launches.  Rows are (N,) or (S, N), one independent sorted row per frame.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from multiple_object_tracking_lidar_tpu_torch import _build
+
+LANES = 128
+RASTER_ROWS = 64  # voxel_pallas.py::_RB: rows of 128 per block
+
+
+def block_rows(n: int) -> int:
+    """T, the flat rows per block, with the Pallas wrapper's checks."""
+    if n % LANES != 0:
+        raise ValueError(f"N must be a multiple of {LANES}, got {n}")
+    r = n // LANES
+    rb = min(RASTER_ROWS, r)
+    if r % rb != 0:
+        raise ValueError(f"N/128 must be a multiple of {rb}, got {r}")
+    return rb * LANES
+
+
+def segment_totals_plain(ks, xs, ys, zs):
+    """Plain PyTorch version of K7: the same passes (``torch.roll`` is the
+    cyclic shift) and the same carry chain, as separate f32 ops."""
+    shape = ks.shape
+    n = shape[-1]
+    t = block_rows(n)
+    k = ks.reshape(-1, n // t, t)
+    cs = [c.to(torch.float32).reshape(k.shape) for c in (xs, ys, zs)]
+    i = torch.arange(t, device=ks.device)
+    sh = 1
+    while sh < t:
+        same = ((torch.roll(k, sh, dims=-1) == k) & (i >= sh)).to(torch.float32)
+        cs = [c + torch.roll(c, sh, dims=-1) * same for c in cs]
+        sh *= 2
+    for b in range(1, k.shape[1]):
+        m = (k[:, b] == k[:, b - 1, -1:]).to(torch.float32)
+        for c in cs:
+            c[:, b] = c[:, b] + m * c[:, b - 1, -1:]
+    return tuple(c.reshape(shape) for c in cs)
+
+
+def segment_totals(
+    ks: torch.Tensor,   # (N,) or (S, N) int32, sorted ascending per row
+    xs: torch.Tensor,   # same shape, f32
+    ys: torch.Tensor,
+    zs: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7 on CUDA tensors, its plain version on CPU tensors."""
+    if ks.device.type == "cpu":
+        return segment_totals_plain(ks, xs, ys, zs)
+    shape = ks.shape
+    n = shape[-1]
+    t = block_rows(n)
+    if ks.dtype != torch.int32 or ks.dim() not in (1, 2):
+        raise ValueError(f"ks must be (N,) or (S, N) int32, got {tuple(shape)} {ks.dtype}")
+    for c in (xs, ys, zs):
+        if c.shape != shape or c.dtype != torch.float32 or c.device != ks.device:
+            raise ValueError("xs, ys, zs must be float32 of ks's shape, on its device")
+    s = ks.numel() // n
+    ins = [a.contiguous() for a in (ks, xs, ys, zs)]
+    outs = [torch.empty(shape, dtype=torch.float32, device=ks.device) for _ in range(3)]
+    last_key = torch.empty((s, n // t), dtype=torch.int32, device=ks.device)
+    last_val = torch.empty((s, n // t, 3), dtype=torch.float32, device=ks.device)
+    err = _build.load().motl_segment_totals(
+        *(a.data_ptr() for a in ins), s, n, t, *(o.data_ptr() for o in outs),
+        last_key.data_ptr(), last_val.data_ptr(), _build.stream_ptr(ks.device),
+    )
+    _build.check(err, "motl_segment_totals")
+    segment_totals.launches += 1
+    return tuple(outs)
+
+
+segment_totals.launches = 0

@@ -3,11 +3,19 @@ src/multiple_object_tracking_lidar.cpp:452-456): every valid point's
 (x, y, z, 1) summed into its dense grid cell, as (4, n_cells)
 [sum_x, sum_y, sum_z, count].
 
-Port of the ``quant="fast"`` route of
-``multiple_object_tracking_lidar_tpu/ops/voxel_grid.py``: one int8 digit
-per axis of the point's offset from its cell centre, summed exactly in
-int32 by K1 (``ops/voxel_grid_cuda.py``).  The two-digit ``"exact"`` mode
-is a later slice (ROADMAP).
+Port of the one-hot routes of ``multiple_object_tracking_lidar_tpu/ops/
+voxel_grid.py``, with its TPU dispatch (voxel_grid.py:117-164):
+
+- ``quant="fast"``: one int8 digit per axis, K1, for every N (the TPU's v5
+  and its i32 twin v4 give the same integers; K1 sums in int32 with no
+  2^24 bound);
+- ``quant="exact"``: two balanced int8 digits per axis, K5, when a point
+  block tiles N (``_pick_block``) and the leaf fits the digit pair
+  (``_v3_leaf_ok``) -- the TPU's v6 / v3.  Otherwise the bf16x3 sums, K6:
+  the TPU's v2 kernel when the leaf is too coarse, and its jnp lowering of
+  the same sums when no block tiles N.
+
+The kernels live in ``ops/voxel_grid_cuda.py``.
 """
 
 from __future__ import annotations
@@ -16,8 +24,57 @@ import torch
 
 from multiple_object_tracking_lidar_tpu_torch.config import SceneBounds
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
+    FXP_XY,
+    FXP_Z,
+    accumulate_bf16x3_stacked,
+    accumulate_exact_stacked,
     accumulate_fast_stacked,
 )
+
+
+def _pick_block(n: int) -> int | None:
+    """The TPU's point block that tiles N exactly (voxel_grid.py:281)."""
+    for b in (4096, 2048, 1024, 512):
+        if n % b == 0:
+            return b
+    return None
+
+
+def _v3_leaf_ok(leaf_xy: float, leaf_z: float) -> bool:
+    """True iff two balanced int8 digits hold the quantized cell-relative
+    offset: |fq| <= 127 * 256 = 32512 at the 2^19 / 2^14 scales
+    (voxel_grid.py:471), i.e. leaf_xy <= ~0.124 m, leaf_z <= ~3.97 m."""
+    return (
+        leaf_xy / 2.0 * (1 << FXP_XY) <= 32512.0
+        and leaf_z / 2.0 * (1 << FXP_Z) <= 32512.0
+    )
+
+
+def exact_route(n: int, leaf_xy: float, leaf_z: float) -> str:
+    """The kernel exact mode takes for N points per frame: "K5" (two-digit
+    histogram) or "K6" (bf16x3 sums)."""
+    return "K5" if _pick_block(n) is not None and _v3_leaf_ok(leaf_xy, leaf_z) else "K6"
+
+
+def voxel_accumulate_stacked(
+    points: torch.Tensor,   # (S, N, 3)
+    mask: torch.Tensor,     # (S, N) nonzero = keep
+    scene: SceneBounds,
+    leaf_xy: float,
+    leaf_z: float,
+    quant: str = "exact",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """((S, 4, n_cells) f32 accumulators, (S,) i32 mask-nonzero counts) of
+    S stacked frames in one kernel call; each frame's result is the one a
+    single-frame call gives."""
+    if quant == "fast":
+        acc_fn = accumulate_fast_stacked
+    elif quant == "exact":
+        route = exact_route(points.shape[1], leaf_xy, leaf_z)
+        acc_fn = accumulate_exact_stacked if route == "K5" else accumulate_bf16x3_stacked
+    else:
+        raise ValueError(f"unknown voxel_quant {quant!r}")
+    return acc_fn(points.to(torch.float32).contiguous(), mask, scene, leaf_xy, leaf_z)
 
 
 def voxel_accumulate_onehot_cm(
@@ -26,23 +83,14 @@ def voxel_accumulate_onehot_cm(
     scene: SceneBounds,
     leaf_xy: float,
     leaf_z: float,
-    quant: str = "fast",
+    quant: str = "exact",
     with_npts: bool = False,
 ):
     """(4, n_cells) f32 accumulator of one (N, 3) frame, plus the scalar
     mask-nonzero point count when ``with_npts``."""
-    if quant != "fast":
-        raise NotImplementedError(
-            f"voxel_quant={quant!r}: only 'fast' is ported (exact mode is a "
-            "later slice, ROADMAP Queue 1)"
-        )
     n = points.shape[0]
-    acc, npts = accumulate_fast_stacked(
-        points.to(torch.float32).reshape(1, n, 3).contiguous(),
-        mask.reshape(1, n),
-        scene,
-        leaf_xy,
-        leaf_z,
+    acc, npts = voxel_accumulate_stacked(
+        points.reshape(1, n, 3), mask.reshape(1, n), scene, leaf_xy, leaf_z, quant
     )
     return (acc[0], npts[0]) if with_npts else acc[0]
 

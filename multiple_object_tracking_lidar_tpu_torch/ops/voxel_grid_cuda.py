@@ -1,16 +1,28 @@
-"""K1: the single-digit ("fast") voxel histogram with its finalize.
+"""The dense voxel accumulators: K1 (fast digits), K5 (exact digits) and
+K6 (bf16x3 sums).
 
-Replaces the Pallas kernels ``multiple_object_tracking_lidar_tpu/ops/
-voxel_grid.py::_accumulate_pallas_v5`` and ``_accumulate_pallas_v5_stacked``
-(one CUDA kernel; the single-frame call is S = 1).  CUDA source:
-``csrc/voxel_grid.cu``, whose header says what bounds it on the H100 and
-how its design answers that: per-CTA int32 shared-memory histograms merged
-with integer atomics, so the sums are exact and deterministic.
+- K1 replaces the Pallas kernels ``multiple_object_tracking_lidar_tpu/ops/
+  voxel_grid.py::_accumulate_pallas_v5`` / ``_v5_stacked`` and their i32
+  twins ``_accumulate_pallas_v4`` / ``_v4_stacked`` (``csrc/voxel_grid.cu``):
+  one int8 digit per axis.
+- K5 replaces ``_accumulate_pallas_v6`` / ``_v6_stacked`` and their i32
+  twins ``_accumulate_pallas_v3`` / ``_v3_stacked`` (``csrc/voxel_exact.cu``):
+  two balanced int8 digits per axis, seven channels.
+- K6 replaces ``_accumulate_pallas_v2`` and the jnp bf16x3 lowering
+  (``csrc/voxel_bf16x3.cu``): f32 sums of three bf16 parts per coordinate,
+  in the fixed order its header writes down.
 
-``accumulate_fast_stacked`` launches the kernel for CUDA tensors and runs
-``accumulate_fast_stacked_plain`` for CPU tensors; ``.launches`` counts
-kernel launches.  Both return ``((S, 4, n_cells) f32 [sum_x, sum_y, sum_z,
-count], (S,) i32 mask-nonzero point count)``.
+Each CUDA header says what bounds the kernel on the H100 and how its design
+answers that.  K1 and K5 sum integer digits with integer atomics, so their
+sums are exact and deterministic; K6 sums floats in a fixed order with no
+float atomics.  One kernel call covers S stacked frames; a single frame is
+S = 1.
+
+Each wrapper (``accumulate_fast_stacked``, ``accumulate_exact_stacked``,
+``accumulate_bf16x3_stacked``) launches its kernel for CUDA tensors and runs
+its ``*_plain`` version for CPU tensors; ``.launches`` counts kernel
+launches.  All return ``((S, 4, n_cells) f32 [sum_x, sum_y, sum_z, count],
+(S,) i32 mask-nonzero point count)``.
 """
 
 from __future__ import annotations
@@ -23,10 +35,15 @@ from multiple_object_tracking_lidar_tpu_torch import _build
 from multiple_object_tracking_lidar_tpu_torch.config import SceneBounds
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, grid_shape
 
-# Points per CTA: 13 CTAs per 106,496-point frame, each zeroing and merging
-# one (4, n_cells) shared histogram.
+# Points per CTA: 13 CTAs per 106,496-point frame (x2 channel groups for
+# K5), each zeroing and merging one (4, n_cells) shared histogram.
 PTS_PER_CTA = 8192
 SMEM_BYTES = 232448  # what one H100 block may use (227 KB)
+# K6: points per chunk of its stable counting sort (one warp places each)
+BF16X3_CHUNK = 2048
+
+FXP_XY = 19  # exact mode's digit scales (voxel_grid.py::_FXP_XY, _FXP_Z)
+FXP_Z = 14
 
 
 def v4_shifts(leaf_xy: float, leaf_z: float) -> tuple[int, int]:
@@ -37,11 +54,15 @@ def v4_shifts(leaf_xy: float, leaf_z: float) -> tuple[int, int]:
     return kx, kz
 
 
-def kernel_params(scene: SceneBounds, leaf_xy: float, leaf_z: float) -> dict:
+def kernel_params(
+    scene: SceneBounds, leaf_xy: float, leaf_z: float, quant: str = "fast"
+) -> dict:
     """Grid geometry and the f32 constants of the quantize and finalize:
-    f64 values cast to f32, as ``_v5_kernel_params`` hands them to Pallas."""
+    f64 values cast to f32, as ``_v5_kernel_params`` / ``_v6_kernel_params``
+    hand them to Pallas.  ``quant`` picks the digit scales: the per-leaf
+    single-digit shifts ("fast") or the fixed 2^19 / 2^14 ("exact")."""
     gx, gy, gz = grid_shape(scene, leaf_xy, leaf_z)
-    kx, kz = v4_shifts(leaf_xy, leaf_z)
+    kx, kz = v4_shifts(leaf_xy, leaf_z) if quant == "fast" else (FXP_XY, FXP_Z)
     return dict(
         gx=gx, gy=gy, gz=gz, n_cells=gx * gy * gz,
         bx=math.floor(scene.x_min / leaf_xy),
@@ -55,28 +76,16 @@ def kernel_params(scene: SceneBounds, leaf_xy: float, leaf_z: float) -> dict:
     )
 
 
-def _digit(p, fl, leaf, half, sq):
-    """round-half-even((p - fl*leaf) - half) * 2^k), clipped to +-127."""
-    frac = (p - fl * leaf) - half
-    return torch.clamp(torch.round(frac * sq), -127, 127).to(torch.int64)
-
-
-def accumulate_fast_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
-    """Plain PyTorch version of K1: same f32 quantize, exact integer sums
-    (index_add_ on int64), same finalize products."""
-    k = kernel_params(scene, leaf_xy, leaf_z)
-    s, n = points.shape[0], points.shape[1]
-    nc = k["n_cells"]
-    dev = points.device
-    p = points.to(torch.float32)
-    x, y, z = p[..., 0], p[..., 1], p[..., 2]
-    fx = torch.floor(x * k["inv_xy"])
-    fy = torch.floor(y * k["inv_xy"])
-    fz = torch.floor(z * k["inv_z"])
-    m = mask.reshape(s, n) != 0
-    # bounds on the float floor, before any cast: NaN fails every compare
+def kept_cells(p: torch.Tensor, mask: torch.Tensor, k: dict):
+    """The kernels' drop test and cell index, for (S, N, 3) f32 points.
+    Returns (ok (S, N) bool, lin (S, N) int64, floors (fx, fy, fz) f32):
+    bounds are tested on the float floor before any cast, so NaN fails every
+    compare; dropped points get lin 0 and floors at the grid base."""
+    fx = torch.floor(p[..., 0] * k["inv_xy"])
+    fy = torch.floor(p[..., 1] * k["inv_xy"])
+    fz = torch.floor(p[..., 2] * k["inv_z"])
     ok = (
-        m
+        (mask.reshape(p.shape[:-1]) != 0)
         & (fx >= k["bx"]) & (fx < k["bx"] + k["gx"])
         & (fy >= k["by"]) & (fy < k["by"] + k["gy"])
         & (fz >= k["bz"]) & (fz < k["bz"] + k["gz"])
@@ -87,30 +96,29 @@ def accumulate_fast_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
     ix = fx.to(torch.int64) - k["bx"]
     iy = fy.to(torch.int64) - k["by"]
     iz = fz.to(torch.int64) - k["bz"]
-    lin = ix + k["gx"] * (iy + k["gy"] * iz)
-    frame = torch.arange(s, device=dev)[:, None]
+    return ok, ix + k["gx"] * (iy + k["gy"] * iz), (fx, fy, fz)
+
+
+def _frac_scaled(p, fl, leaf, half, sq, ok):
+    """(p - fl*leaf - half) * 2^k in f32, zero where dropped, before rounding."""
+    return torch.where(ok, (p - fl * leaf) - half, 0.0) * sq
+
+
+def _digit_sums(digits: torch.Tensor, ok: torch.Tensor, lin: torch.Tensor, nc: int):
+    """(S, N, C) int64 per-point digits -> (S, C, nc) int32 exact sums."""
+    s = ok.shape[0]
+    frame = torch.arange(s, device=ok.device)[:, None]
     dump = s * nc
     tgt = torch.where(ok, frame * nc + lin, dump).reshape(-1)
-    digits = torch.stack(
-        [
-            _digit(x, fx, k["leaf_xy"], k["half_xy"], k["sq_xy"]),
-            _digit(y, fy, k["leaf_xy"], k["half_xy"], k["sq_xy"]),
-            _digit(z, fz, k["leaf_z"], k["half_z"], k["sq_z"]),
-            torch.ones_like(ix),
-        ],
-        dim=-1,
-    ).reshape(-1, 4)
-    sums = torch.zeros((dump + 1, 4), dtype=torch.int64, device=dev)
-    sums.index_add_(0, tgt, digits)
-    sums = sums[:dump].reshape(s, nc, 4).permute(0, 2, 1).to(torch.int32)
-    npts = m.sum(dim=1).to(torch.int32)
-    return finalize_fast_digits(sums, k), npts
+    sums = torch.zeros((dump + 1, digits.shape[-1]), dtype=torch.int64, device=ok.device)
+    sums.index_add_(0, tgt, digits.reshape(-1, digits.shape[-1]))
+    return sums[:dump].reshape(s, nc, -1).permute(0, 2, 1).to(torch.int32)
 
 
-def finalize_fast_digits(sums: torch.Tensor, k: dict) -> torch.Tensor:
-    """(S, 4, n_cells) i32 digit sums -> f32 [sum_x, sum_y, sum_z, count]:
-    cnt * (cell0 + half) + digit_sum * 2^-k (``_v4_finalize_into``)."""
-    lin = torch.arange(k["n_cells"], device=sums.device)
+def _cell_centres(k: dict, n: int, device):
+    """cell0 of each of the first n flat cells, f32: the same integer
+    decomposition and products as ``_v4_finalize_into``."""
+    lin = torch.arange(n, device=device)
     ix = lin % k["gx"]
     iyz = lin // k["gx"]
     iy = iyz % k["gy"]
@@ -118,6 +126,45 @@ def finalize_fast_digits(sums: torch.Tensor, k: dict) -> torch.Tensor:
     cx = (k["bx"] + ix).to(torch.float32) * k["leaf_xy"]
     cy = (k["by"] + iy).to(torch.float32) * k["leaf_xy"]
     cz = (k["bz"] + iz).to(torch.float32) * k["leaf_z"]
+    return cx, cy, cz
+
+
+def _npts(mask: torch.Tensor, s: int) -> torch.Tensor:
+    return (mask.reshape(s, -1) != 0).sum(dim=1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# K1: fast digits
+# ---------------------------------------------------------------------------
+def accumulate_fast_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
+    """Plain PyTorch version of K1: same f32 quantize, exact integer sums
+    (index_add_ on int64), same finalize products."""
+    k = kernel_params(scene, leaf_xy, leaf_z)
+    s = points.shape[0]
+    p = points.to(torch.float32)
+    ok, lin, (fx, fy, fz) = kept_cells(p, mask, k)
+
+    def digit(c, fl, leaf, half, sq):
+        q = torch.round(_frac_scaled(p[..., c], fl, leaf, half, sq, ok))
+        return torch.clamp(q, -127, 127).to(torch.int64)
+
+    digits = torch.stack(
+        [
+            digit(0, fx, k["leaf_xy"], k["half_xy"], k["sq_xy"]),
+            digit(1, fy, k["leaf_xy"], k["half_xy"], k["sq_xy"]),
+            digit(2, fz, k["leaf_z"], k["half_z"], k["sq_z"]),
+            torch.ones_like(lin),
+        ],
+        dim=-1,
+    )
+    sums = _digit_sums(digits, ok, lin, k["n_cells"])
+    return finalize_fast_digits(sums, k), _npts(mask, s)
+
+
+def finalize_fast_digits(sums: torch.Tensor, k: dict) -> torch.Tensor:
+    """(S, 4, n_cells) i32 digit sums -> f32 [sum_x, sum_y, sum_z, count]:
+    cnt * (cell0 + half) + digit_sum * 2^-k (``_v4_finalize_into``)."""
+    cx, cy, cz = _cell_centres(k, k["n_cells"], sums.device)
     sf = sums.to(torch.float32)
     cnt = sf[:, 3]
     return torch.stack(
@@ -132,8 +179,55 @@ def finalize_fast_digits(sums: torch.Tensor, k: dict) -> torch.Tensor:
 
 
 def max_cells() -> int:
-    """Largest grid K1's per-CTA (4, n_cells) int32 histogram holds."""
+    """Largest grid K1 and K5 hold: K1's per-CTA (4, n_cells) int32
+    histogram, and each of K5's two channel groups (4 + 3 channels)."""
     return SMEM_BYTES // 16
+
+
+def _check_points(points, mask, name):
+    if points.dim() != 3 or points.shape[2] != 3 or points.dtype != torch.float32:
+        raise ValueError(
+            f"{name}: points must be (S, N, 3) float32, got {tuple(points.shape)} {points.dtype}"
+        )
+    s, n = points.shape[0], points.shape[1]
+    if mask.shape != (s, n) or mask.device != points.device:
+        raise ValueError(f"{name}: mask must be ({s}, {n}) on {points.device}")
+    if not points.is_contiguous():
+        raise ValueError(f"{name}: points must be contiguous")
+    return s, n
+
+
+def _check_cells(nc: int, name: str) -> None:
+    if nc > max_cells():
+        raise ValueError(
+            f"{nc} grid cells exceed {name}'s shared-memory histogram "
+            f"({max_cells()} cells at 16 B/cell); a global-memory "
+            "variant is still to be ported (ROADMAP Queue 1 item 21)"
+        )
+
+
+def _launch_digits(name, entry, quant, n_ch, points, mask, scene, leaf_xy, leaf_z):
+    """Launch K1 or K5 (the same C signature): ((S, 4, n_cells) f32, (S,)
+    i32), with an (S, n_ch, n_cells) int32 digit-sum scratch."""
+    s, n = _check_points(points, mask, name)
+    k = kernel_params(scene, leaf_xy, leaf_z, quant=quant)
+    nc = k["n_cells"]
+    _check_cells(nc, name)
+    m8 = (mask != 0).to(torch.uint8).contiguous()
+    dev = points.device
+    acc_i = torch.zeros((s, n_ch, nc), dtype=torch.int32, device=dev)
+    out = torch.empty((s, 4, nc), dtype=torch.float32, device=dev)
+    npts = torch.zeros((s,), dtype=torch.int32, device=dev)
+    err = getattr(_build.load(), entry)(
+        points.data_ptr(), m8.data_ptr(), s, n, PTS_PER_CTA,
+        acc_i.data_ptr(), out.data_ptr(), npts.data_ptr(), nc,
+        k["gx"], k["gy"], k["gz"], k["bx"], k["by"], k["bz"],
+        k["inv_xy"], k["inv_z"], k["leaf_xy"], k["leaf_z"],
+        k["half_xy"], k["half_z"], k["sq_xy"], k["sq_z"],
+        k["invq_xy"], k["invq_z"], _build.stream_ptr(dev),
+    )
+    _build.check(err, entry)
+    return out, npts
 
 
 def accumulate_fast_stacked(
@@ -146,38 +240,181 @@ def accumulate_fast_stacked(
     """K1 on CUDA tensors, its plain version on CPU tensors."""
     if points.device.type == "cpu":
         return accumulate_fast_stacked_plain(points, mask, scene, leaf_xy, leaf_z)
-    if points.dim() != 3 or points.shape[2] != 3 or points.dtype != torch.float32:
-        raise ValueError(f"points must be (S, N, 3) float32, got {tuple(points.shape)} {points.dtype}")
-    s, n = points.shape[0], points.shape[1]
-    if mask.shape != (s, n) or mask.device != points.device:
-        raise ValueError(f"mask must be ({s}, {n}) on {points.device}")
-    if not points.is_contiguous():
-        raise ValueError("points must be contiguous")
-    k = kernel_params(scene, leaf_xy, leaf_z)
-    nc = k["n_cells"]
-    if nc > max_cells():
-        raise ValueError(
-            f"{nc} grid cells exceed K1's shared-memory histogram "
-            f"({max_cells()} cells at 16 B/cell); a global-memory variant is "
-            "still to be ported (ROADMAP)"
-        )
-    m8 = (mask != 0).to(torch.uint8).contiguous()
-    dev = points.device
-    acc_i = torch.zeros((s, 4, nc), dtype=torch.int32, device=dev)
-    out = torch.empty((s, 4, nc), dtype=torch.float32, device=dev)
-    npts = torch.zeros((s,), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    err = lib.motl_voxel_accumulate(
-        points.data_ptr(), m8.data_ptr(), s, n, PTS_PER_CTA,
-        acc_i.data_ptr(), out.data_ptr(), npts.data_ptr(), nc,
-        k["gx"], k["gy"], k["gz"], k["bx"], k["by"], k["bz"],
-        k["inv_xy"], k["inv_z"], k["leaf_xy"], k["leaf_z"],
-        k["half_xy"], k["half_z"], k["sq_xy"], k["sq_z"],
-        k["invq_xy"], k["invq_z"], _build.stream_ptr(dev),
-    )
-    _build.check(err, "motl_voxel_accumulate")
+    out = _launch_digits("K1", "motl_voxel_accumulate", "fast", 4,
+                         points, mask, scene, leaf_xy, leaf_z)
     accumulate_fast_stacked.launches += 1
-    return out, npts
+    return out
 
 
 accumulate_fast_stacked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: exact digits
+# ---------------------------------------------------------------------------
+def split_exact_digits(fq: torch.Tensor):
+    """fq (int64) -> two balanced int8 digits: d0 = ((fq+128)&255)-128,
+    d1 = (fq-d0) >> 8, so fq = d0 + 256*d1 (``_v6_quant_cm``)."""
+    d0 = ((fq + 128) & 255) - 128
+    return d0, (fq - d0) >> 8
+
+
+def exact_digit_sums(points, mask, scene, leaf_xy, leaf_z) -> torch.Tensor:
+    """(S, 7, n_cells) int32 raw two-digit sums of K5 before its finalize
+    (x d0, x d1, y d0, y d1, z d0, z d1, count): ``_v6_quant_cm``'s f32
+    quantize, exact integer sums (index_add_ on int64)."""
+    k = kernel_params(scene, leaf_xy, leaf_z, quant="exact")
+    p = points.to(torch.float32)
+    ok, lin, (fx, fy, fz) = kept_cells(p, mask, k)
+    chans = []
+    for c, fl, leaf, half, sq in (
+        (0, fx, k["leaf_xy"], k["half_xy"], k["sq_xy"]),
+        (1, fy, k["leaf_xy"], k["half_xy"], k["sq_xy"]),
+        (2, fz, k["leaf_z"], k["half_z"], k["sq_z"]),
+    ):
+        fq = torch.round(_frac_scaled(p[..., c], fl, leaf, half, sq, ok)).to(torch.int64)
+        chans.extend(split_exact_digits(fq))
+    chans.append(torch.ones_like(lin))
+    return _digit_sums(torch.stack(chans, dim=-1), ok, lin, k["n_cells"])
+
+
+def accumulate_exact_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
+    """Plain PyTorch version of K5: ``exact_digit_sums`` finalized by
+    ``finalize_exact_digits`` (``_v3_finalize_into``'s f32 ops)."""
+    sums = exact_digit_sums(points, mask, scene, leaf_xy, leaf_z)
+    acc = finalize_exact_digits(sums, scene, leaf_xy, leaf_z)
+    return acc, _npts(mask, points.shape[0])
+
+
+def finalize_exact_digits(acc: torch.Tensor, scene, leaf_xy, leaf_z) -> torch.Tensor:
+    """(..., 7, m) raw two-digit sums (v3/v6 scheme, m >= n_cells flat
+    cells; the JAX (..., 7, w1, 128) layout reshaped) -> (..., 4, n_cells)
+    f32 accumulator, with ``_v3_finalize_into``'s f32 ops:
+    cnt * (cell0 + half) + (s0 + 256 * s1) * 2^-k (voxel_grid.py:1918)."""
+    k = kernel_params(scene, leaf_xy, leaf_z, quant="exact")
+    cx, cy, cz = _cell_centres(k, acc.shape[-1], acc.device)
+    a = acc.to(torch.float32)
+    cnt = a[..., 6, :]
+    out = torch.stack(
+        [
+            cnt * (cx + k["half_xy"]) + (a[..., 0, :] + 256.0 * a[..., 1, :]) * k["invq_xy"],
+            cnt * (cy + k["half_xy"]) + (a[..., 2, :] + 256.0 * a[..., 3, :]) * k["invq_xy"],
+            cnt * (cz + k["half_z"]) + (a[..., 4, :] + 256.0 * a[..., 5, :]) * k["invq_z"],
+            cnt,
+        ],
+        dim=-2,
+    )
+    return out[..., : k["n_cells"]]
+
+
+def accumulate_exact_stacked(
+    points: torch.Tensor,   # (S, N, 3) f32
+    mask: torch.Tensor,     # (S, N) bool / nonzero = keep
+    scene: SceneBounds,
+    leaf_xy: float,
+    leaf_z: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5 on CUDA tensors, its plain version on CPU tensors."""
+    if points.device.type == "cpu":
+        return accumulate_exact_stacked_plain(points, mask, scene, leaf_xy, leaf_z)
+    out = _launch_digits("K5", "motl_voxel_exact", "exact", 7,
+                         points, mask, scene, leaf_xy, leaf_z)
+    accumulate_exact_stacked.launches += 1
+    return out
+
+
+accumulate_exact_stacked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: bf16x3 sums in ascending point index
+# ---------------------------------------------------------------------------
+def bf16_rne(v: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest bf16 value (ties to even), as f32: K6's bit
+    rounding, u + 0x7FFF + ((u >> 16) & 1) with the low 16 bits cleared
+    (finite inputs)."""
+    u = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    u = torch.where(u >= 2**31, u - 2**32, u)
+    return u.to(torch.int32).view(torch.float32)
+
+
+def bf16x3_parts(v: torch.Tensor) -> torch.Tensor:
+    """(..., ) f32 -> (..., 3) bf16 parts h1, h2, h3 as f32
+    (voxel_grid.py::_split3_bf16)."""
+    h1 = bf16_rne(v)
+    r1 = v - h1
+    h2 = bf16_rne(r1)
+    return torch.stack([h1, h2, bf16_rne(r1 - h2)], dim=-1)
+
+
+def accumulate_bf16x3_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
+    """Plain PyTorch version of K6, in K6's order: per cell, each part sum
+    starts at +0.0 and adds the cell's points in ascending point index, one
+    rounded f32 add at a time.  A stable sort groups the points by cell;
+    round r then adds every cell's r-th point at once (one point per cell,
+    so the index_put has unique indices)."""
+    k = kernel_params(scene, leaf_xy, leaf_z)
+    s = points.shape[0]
+    nc = k["n_cells"]
+    dev = points.device
+    p = points.to(torch.float32)
+    ok, lin, _ = kept_cells(p, mask, k)
+    frame = torch.arange(s, device=dev)[:, None]
+    key = torch.where(ok, frame * nc + lin, s * nc).reshape(-1)
+    n_kept = int(ok.sum())
+    order = torch.sort(key, stable=True).indices[:n_kept]
+    sk = key[order]
+    parts = bf16x3_parts(p.reshape(-1, 3)[order])                   # (M, 3, 3)
+    counts = torch.bincount(sk, minlength=s * nc)
+    rank = torch.arange(n_kept, device=dev) - (torch.cumsum(counts, 0) - counts)[sk]
+    by_rank = torch.sort(rank, stable=True).indices
+    acc = torch.zeros((s * nc, 3, 3), dtype=torch.float32, device=dev)
+    lo = 0
+    for m in torch.bincount(rank).tolist():
+        sel = by_rank[lo:lo + m]
+        idx = sk[sel]
+        acc[idx] = acc[idx] + parts[sel]
+        lo += m
+    sums = (acc[..., 0] + acc[..., 1]) + acc[..., 2]                 # (S*nc, 3)
+    out = torch.cat([sums, counts[:, None].to(torch.float32)], dim=1)
+    return out.reshape(s, nc, 4).permute(0, 2, 1).contiguous(), _npts(mask, s)
+
+
+def accumulate_bf16x3_stacked(
+    points: torch.Tensor,   # (S, N, 3) f32
+    mask: torch.Tensor,     # (S, N) bool / nonzero = keep
+    scene: SceneBounds,
+    leaf_xy: float,
+    leaf_z: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6 on CUDA tensors, its plain version on CPU tensors."""
+    if points.device.type == "cpu":
+        return accumulate_bf16x3_stacked_plain(points, mask, scene, leaf_xy, leaf_z)
+    s, n = _check_points(points, mask, "K6")
+    k = kernel_params(scene, leaf_xy, leaf_z)
+    nc = k["n_cells"]
+    n_chunks = -(-n // BF16X3_CHUNK)
+    m8 = (mask != 0).to(torch.uint8).contiguous()
+    dev = points.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    keys = torch.empty((s, n), **i32)
+    counts = torch.zeros((s, nc * n_chunks), **i32)
+    offs = torch.empty((s, nc * n_chunks), **i32)
+    cell_start = torch.empty((s, nc + 1), **i32)
+    order = torch.empty((s, n), **i32)
+    out = torch.empty((s, 4, nc), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    err = lib.motl_voxel_bf16x3(
+        points.data_ptr(), m8.data_ptr(), s, n, BF16X3_CHUNK,
+        keys.data_ptr(), counts.data_ptr(), offs.data_ptr(),
+        cell_start.data_ptr(), order.data_ptr(), out.data_ptr(), nc,
+        k["gx"], k["gy"], k["gz"], k["bx"], k["by"], k["bz"],
+        k["inv_xy"], k["inv_z"], _build.stream_ptr(dev),
+    )
+    _build.check(err, "motl_voxel_bf16x3")
+    accumulate_bf16x3_stacked.launches += 1
+    return out, _npts(m8, s)
+
+
+accumulate_bf16x3_stacked.launches = 0

@@ -1,0 +1,76 @@
+"""The sorted-runs voxel accumulator (``voxel_mode="runs"`` with
+``cluster_backend="grid"``): port of ``multiple_object_tracking_lidar_tpu/
+ops/voxel_pallas.py::voxel_accumulate_runs_cm``.
+
+Sort the points by cell key (stable, as ``lax.sort``: the order within a
+run fixes the f32 sum), take the segmented prefix totals with K7
+(``ops/segsum_cuda.py``), and write each run's total and count into its
+cell.  JAX densifies with a bf16x3 one-hot matmul over the compacted runs;
+each cell receives exactly one run and the three bf16 parts of a run total
+add back to it exactly, so writing the totals with ``index_put_`` (unique
+indices, no float atomics) gives the same bits.
+
+Dropped points -- masked, out of bounds or NaN -- take the key ``n_cells``
+and sort to the end.  JAX casts ``floor(NaN)`` to int32 before its bounds
+test, so whether it drops a NaN point is implementation-defined; the port
+drops NaN explicitly (as K1 and K5 do) and gives dropped rows the value
++0.0, so that no NaN or inf reaches K7's multiply-by-0 terms (ROADMAP
+Queue 3).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from multiple_object_tracking_lidar_tpu_torch.config import SceneBounds
+from multiple_object_tracking_lidar_tpu_torch.ops.segsum_cuda import segment_totals
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
+    kept_cells,
+    kernel_params,
+)
+
+
+def voxel_accumulate_runs_stacked(
+    points: torch.Tensor,   # (S, N, 3) f32
+    mask: torch.Tensor,     # (S, N) nonzero = keep
+    scene: SceneBounds,
+    leaf_xy: float,
+    leaf_z: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """((S, 4, n_cells) f32 [sum_x, sum_y, sum_z, count], (S,) i32
+    mask-nonzero count) of S independent frames: one sort, one K7 call."""
+    k = kernel_params(scene, leaf_xy, leaf_z)
+    nc = k["n_cells"]
+    s = points.shape[0]
+    dev = points.device
+    p = points.to(torch.float32)
+    ok, lin, _ = kept_cells(p, mask, k)
+    keys = torch.where(ok, lin, nc).to(torch.int32)
+    vals = torch.where(ok[..., None], p, 0.0)
+    ks, perm = torch.sort(keys, dim=1, stable=True)
+    tx, ty, tz = segment_totals(
+        ks, *(torch.gather(vals[..., c], 1, perm).contiguous() for c in range(3))
+    )
+
+    # the last row of each run holds its total; dropped rows go to a dump cell
+    is_last = torch.ones_like(ks, dtype=torch.bool)
+    is_last[:, :-1] = ks[:, 1:] != ks[:, :-1]
+    frame = torch.arange(s, device=dev)[:, None]
+    dump = s * nc
+    tgt = torch.where(is_last & (ks < nc), frame * nc + ks, dump).reshape(-1)
+    acc = torch.zeros((dump + 1, 4), dtype=torch.float32, device=dev)
+    acc[:, :3].index_put_((tgt,), torch.stack([tx, ty, tz], dim=-1).reshape(-1, 3))
+    cnt = torch.bincount(torch.where(ok, frame * nc + lin, dump).reshape(-1), minlength=dump + 1)
+    acc[:, 3] = cnt.to(torch.float32)
+    out = acc[:dump].reshape(s, nc, 4).permute(0, 2, 1).contiguous()
+    npts = (mask.reshape(s, -1) != 0).sum(dim=1).to(torch.int32)
+    return out, npts
+
+
+def voxel_accumulate_runs_cm(points, mask, scene, leaf_xy, leaf_z) -> torch.Tensor:
+    """(4, n_cells) accumulator of one (N, 3) frame."""
+    n = points.shape[0]
+    acc, _ = voxel_accumulate_runs_stacked(
+        points.reshape(1, n, 3), mask.reshape(1, n), scene, leaf_xy, leaf_z
+    )
+    return acc[0]

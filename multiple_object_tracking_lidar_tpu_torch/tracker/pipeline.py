@@ -1,18 +1,23 @@
 """The per-frame tracking step, dense-grid path.
 
 Port of ``multiple_object_tracking_lidar_tpu/tracker/pipeline.py`` for the
-configuration the JAX package benchmarks and its CLI runs with
-``--backend grid``: ``voxel_mode="onehot"``, ``cluster_backend="grid"``,
-``voxel_quant="fast"``, f32, greedy association, the ``lpf`` position
+dense-grid configurations: ``cluster_backend="grid"`` fed by
+``voxel_mode="onehot"`` (``voxel_quant="fast"``, the one the JAX package
+benchmarks and its CLI runs with ``--backend grid``, or ``"exact"``) or by
+``voxel_mode="runs"``; f32, greedy association, the ``lpf`` position
 filter.  The reference's callback chain (voxel downsample -> static
 removal -> Euclidean clustering -> circumcenter features -> greedy
 association -> LPF/IHGP filtering -> expiry; ref cloudCallback,
 src/multiple_object_tracking_lidar.cpp:123-233) runs as
 
-  K1 voxel histogram -> K2 finalize + static drop + grid CC ->
+  voxel accumulator -> K2 finalize + static drop + grid CC ->
   cluster table -> K3 pair stats -> circumcenter -> track_step (K4 inside)
 
-with the four kernels in ``ops/*_cuda.py``.  PyTorch runs eagerly, so the
+where the accumulator is K1 (fast digits), K5 (exact digits) or K6
+(bf16x3, exact mode at a coarse leaf or when no point block tiles N), or
+the sorted runs with K7 -- every kernel in ``ops/*_cuda.py``.  All of them
+take S stacked frames in one call, so ``bind_env`` (S = 1) and
+``bind_env_multi`` run the same accumulator.  PyTorch runs eagerly, so the
 frame stays on the device between stages; one host sync per frame remains,
 the duplicate-pass count in ``track_step`` (``track_step.host_syncs``).
 Other configurations raise ``NotImplementedError`` naming their ROADMAP
@@ -51,10 +56,10 @@ from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import (
 )
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, grid_shape
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid import (
-    voxel_accumulate_onehot_cm,
+    voxel_accumulate_stacked,
 )
-from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
-    accumulate_fast_stacked,
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel_pallas import (
+    voxel_accumulate_runs_stacked,
 )
 from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
     Frame,
@@ -64,24 +69,24 @@ from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
     init_state,
 )
 
-# Configurations off this slice, and the ROADMAP slice that ports each.
-_UNPORTED = (
-    ("voxel_mode", "onehot", "the point-list and runs paths"),
-    ("cluster_backend", "grid", "the point-list path"),
-    ("voxel_quant", "fast", "exact mode"),
-    ("association", "greedy", "Hungarian association"),
-    ("position_filter", "lpf", "IHGP position filtering"),
-    ("dtype", "float32", "other compute dtypes"),
+# The values each field may take in this package, and the ROADMAP slice
+# that ports the others.  voxel_quant takes both of its values.
+_PORTED = (
+    ("voxel_mode", ("onehot", "runs"), "the point-list path"),
+    ("cluster_backend", ("grid",), "the point-list path"),
+    ("association", ("greedy",), "Hungarian association"),
+    ("position_filter", ("lpf",), "IHGP position filtering"),
+    ("dtype", ("float32",), "other compute dtypes"),
 )
 
 
 def check_config(config: TrackerConfig) -> None:
-    for field, ported, slice_name in _UNPORTED:
+    for field, ported, slice_name in _PORTED:
         value = getattr(config, field)
-        if value != ported:
+        if value not in ported:
             raise NotImplementedError(
-                f"{field}={value!r} is not ported yet: only {field}={ported!r} "
-                f"runs in this package (ROADMAP Queue 1: {slice_name})"
+                f"{field}={value!r} is not ported yet: this package runs "
+                f"{field} in {ported} (ROADMAP Queue 1: {slice_name})"
             )
 
 
@@ -167,6 +172,16 @@ class Tracker:
     def step(self, state: TrackerState, frame: Frame, env: MapEnv):
         return self.bind_env(env)(state, frame)
 
+    def accumulate(self, points: torch.Tensor, mask: torch.Tensor):
+        """The config's voxel accumulator on S stacked frames:
+        ((S, 4, n_cells) f32, (S,) i32 mask-nonzero counts) -- the sorted
+        runs (K7) or the one-hot route of ``voxel_quant`` (K1, K5 or K6)."""
+        cfg = self.config
+        args = (points, mask, cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+        if cfg.voxel_mode == "runs":
+            return voxel_accumulate_runs_stacked(*args)
+        return voxel_accumulate_stacked(*args, quant=cfg.voxel_quant)
+
     def bind_env(self, env: MapEnv):
         """Specialize the step on a fixed map (re-bind on map updates).
         Returns ``step(state, frame) -> (state, output)``."""
@@ -175,11 +190,8 @@ class Tracker:
 
         def step(state: TrackerState, frame: Frame):
             frame = self._frame(frame)
-            acc, npts = voxel_accumulate_onehot_cm(
-                frame.points, frame.mask, cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z,
-                quant=cfg.voxel_quant, with_npts=True,
-            )
-            p = _perceive_from_dense_acc(acc, frame.t, npts, plan, config=cfg)
+            accs, npts = self.accumulate(frame.points[None], frame.mask[None])
+            p = _perceive_from_dense_acc(accs[0], frame.t, npts[0], plan, config=cfg)
             return track_step(state, p, config=cfg, gains_xy=gains)
 
         return step
@@ -189,18 +201,19 @@ class Tracker:
         stacked on a leading axis: ``multi_step(state, frames) -> (state,
         outputs)``, outputs stacked per frame.  Same two-stage body as the
         JAX package (pipeline.py:287-345): stage 1 perceives all S frames at
-        once (stacked K1, stacked K2, batched cluster table); stage 2 runs
-        per frame: K3 pair stats, the circumcenter, track_step."""
+        once (one accumulator call, stacked K2, batched cluster table);
+        stage 2 runs per frame: K3 pair stats, the circumcenter, track_step.
+        Every frame's perception is the one ``bind_env`` computes: the
+        accumulators and K2 treat the stacked frames independently.  (JAX
+        hoists the stacked v6/v3 in exact mode and scans frame by frame in
+        runs mode, pipeline.py:245-357; the results are the same.)"""
         plan = self.plan(env)
         cfg, gains = self.config, self.gains_xy
         caps = cfg.caps
 
         def multi(state: TrackerState, frames: Frame):
             frames = self._frame(frames)
-            accs, npts = accumulate_fast_stacked(
-                frames.points.contiguous(), frames.mask, cfg.scene,
-                cfg.voxel_leaf_size, cfg.leaf_z,
-            )
+            accs, npts = self.accumulate(frames.points, frames.mask)
             cent, dyn, labels, n_sw, cc_sat = fused_finalize_static_cc_stacked(
                 accs, plan.scal, plan.table.base_row, plan.table.base_col,
                 plan.table.bits, dims=plan.dims, tol=cfg.cluster_tolerance,

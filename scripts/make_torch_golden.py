@@ -1,15 +1,26 @@
-"""Write the JAX package's outputs on the headline scene as a golden file
+"""Write the JAX package's outputs on the headline scene as golden files
 for the PyTorch/CUDA port.
 
 The machine with the GPU has no JAX, so the port is held against these
-committed outputs there (chip_smoke.py).  Runs the JAX ``Tracker.bind_env``
+committed outputs there (chip_smoke.py).  Each golden runs the JAX package
 on the CPU over the first 12 frames of ``bench.headline_case()`` (full
 headline size: 106,496-point frames, C = 32, P = 384, K = 64) and stores
-every FrameOutput field stacked over frames in
-``tests/golden/torch_slice_headline.npz``.  tests/test_torch_golden.py
-recomputes the first frames and checks them against the file.
+every FrameOutput field stacked over frames:
 
-    python scripts/make_torch_golden.py
+- ``slice``: the headline config through ``Tracker.bind_env``
+  -> ``tests/golden/torch_slice_headline.npz``;
+- ``exact``: ``voxel_quant="exact"`` through ``Tracker.bind_env_multi(
+  hoist="on")``, which runs the stacked v6 kernel (interpret mode) -- the
+  TPU's program; ``bind_env`` on the CPU would take the bf16x3 jnp
+  lowering instead -> ``tests/golden/torch_exact_headline.npz``;
+- ``runs``: ``voxel_mode="runs"`` through ``Tracker.bind_env`` (the sort +
+  segment-totals kernel in interpret mode)
+  -> ``tests/golden/torch_runs_headline.npz``.
+
+tests/test_torch_golden.py recomputes the first frames and checks them
+against the files.
+
+    python scripts/make_torch_golden.py [slice] [exact] [runs]   # default: all
 """
 
 from __future__ import annotations
@@ -19,12 +30,17 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
-GOLDEN = os.path.join(REPO, "tests", "golden", "torch_slice_headline.npz")
+GOLDEN_DIR = os.path.join(REPO, "tests", "golden")
+GOLDENS = {
+    "slice": os.path.join(GOLDEN_DIR, "torch_slice_headline.npz"),
+    "exact": os.path.join(GOLDEN_DIR, "torch_exact_headline.npz"),
+    "runs": os.path.join(GOLDEN_DIR, "torch_runs_headline.npz"),
+}
 N_FRAMES = 12
 
 
-def golden_outputs(n_frames: int = N_FRAMES) -> dict:
-    """{field: (n_frames, ...) array} of the JAX FrameOutputs."""
+def golden_outputs(n_frames: int = N_FRAMES, case: str = "slice") -> dict:
+    """{field: (n_frames, ...) array} of the JAX FrameOutputs of ``case``."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -35,34 +51,50 @@ def golden_outputs(n_frames: int = N_FRAMES) -> dict:
     from multiple_object_tracking_lidar_tpu.tracker.state import Frame
 
     cfg, env, sc = bench.headline_case()
+    if case == "exact":
+        cfg = cfg.replace(voxel_quant="exact")
+    elif case == "runs":
+        cfg = cfg.replace(voxel_mode="runs")
+    elif case != "slice":
+        raise ValueError(f"unknown golden {case!r}")
     n = cfg.caps.n_max_points
-    tracker = Tracker(cfg)
-    step = tracker.bind_env(env, donate_state=False)
-    state = tracker.init_state()
-    rows = []
+    bufs, masks, ts = [], [], []
     for k in range(n_frames):
         pts, t = sc.frame_arrays(k)
         buf = np.zeros((n, 3), np.float32)
         buf[: len(pts)] = pts[:n]
         mask = np.zeros(n, bool)
         mask[: min(len(pts), n)] = True
-        state, out = step(
-            state, Frame(jnp.asarray(buf), jnp.asarray(mask), jnp.float32(t))
-        )
+        bufs.append(buf)
+        masks.append(mask)
+        ts.append(np.float32(t))
+    tracker = Tracker(cfg)
+    state = tracker.init_state()
+    if case == "exact":
+        multi = tracker.bind_env_multi(env, donate_state=False, hoist="on")
+        _, out = multi(state, Frame(jnp.asarray(np.stack(bufs)), jnp.asarray(np.stack(masks)),
+                                    jnp.asarray(np.stack(ts))))
+        out = jax.tree.map(np.asarray, out)
+        return {f: getattr(out, f) for f in out._fields}
+    step = tracker.bind_env(env, donate_state=False)
+    rows = []
+    for buf, mask, t in zip(bufs, masks, ts):
+        state, out = step(state, Frame(jnp.asarray(buf), jnp.asarray(mask), jnp.float32(t)))
         rows.append(jax.tree.map(np.asarray, out))
     return {f: np.stack([getattr(r, f) for r in rows]) for f in rows[0]._fields}
 
 
-def main() -> None:
+def main(cases: list[str]) -> None:
     import jax
     import numpy as np
 
     jax.config.update("jax_platforms", "cpu")
-    out = golden_outputs()
-    os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
-    np.savez_compressed(GOLDEN, **out)
-    print(f"wrote {GOLDEN}: {N_FRAMES} frames, {os.path.getsize(GOLDEN)} bytes")
+    os.makedirs(GOLDEN_DIR, exist_ok=True)
+    for case in cases or list(GOLDENS):
+        out = golden_outputs(case=case)
+        np.savez_compressed(GOLDENS[case], **out)
+        print(f"wrote {GOLDENS[case]}: {N_FRAMES} frames, {os.path.getsize(GOLDENS[case])} bytes")
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

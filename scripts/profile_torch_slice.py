@@ -1,8 +1,9 @@
 """Where the time goes in the PyTorch/CUDA port's dense-grid slice, on one
 GPU: ``torch.profiler`` over ``Tracker.bind_env_multi`` (S = 8) and
-``Tracker.bind_env`` on the headline scene.
+``Tracker.bind_env`` on the headline scene, in each configuration named
+(``bench_cases.<case>_case``: headline, exact, runs, exact_unpadded).
 
-    python scripts/profile_torch_slice.py [--frames 32] [--out DIR]
+    python scripts/profile_torch_slice.py [--case headline exact runs] [--frames 32] [--out DIR]
 
 Prints, per entry point, the wall time per frame without the profiler,
 then under it the device-busy time per frame (the union of kernel intervals in the trace), the device idle share,
@@ -49,23 +50,33 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
     ap.add_argument("--frames", type=int, default=32)
+    ap.add_argument("--case", nargs="+", default=["headline"],
+                    choices=["headline", "exact", "runs", "exact_unpadded"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from torch.profiler import ProfilerActivity, profile
-
-    from multiple_object_tracking_lidar_tpu_torch.bench_cases import headline_case, padded_frame
-    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
-    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     dev = torch.device("cuda", 0)
-    cfg, env, sc = headline_case(device=dev)
+    for case in args.case:
+        cfg, env, sc = getattr(bench_cases, f"{case}_case")(device=dev)
+        profile_case(case, cfg, env, sc, dev, smi, args)
+    return 0
+
+
+def profile_case(case, cfg, env, sc, dev, smi, args) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import padded_frame
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
     tracker = Tracker(cfg, dev)
     rows = [padded_frame(sc, k, cfg.caps.n_max_points) for k in range(args.frames)]
     P = torch.from_numpy(np.stack([r[0] for r in rows])).to(dev)
@@ -85,7 +96,7 @@ def main() -> int:
         for k in range(args.frames):
             st, _ = single(st, Frame(P[k], M[k], T[k]))
 
-    for name, fn in (("bind_env_multi", run_multi), ("bind_env", run_single)):
+    for name, fn in ((f"{case} bind_env_multi", run_multi), (f"{case} bind_env", run_single)):
         fn()
         torch.cuda.synchronize()
         walls = []
@@ -118,8 +129,7 @@ def main() -> int:
                   f"x{e.count / n:6.2f}/frame  {e.key[:90]}")
         if args.out:
             os.makedirs(args.out, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(args.out, f"{name}.json"))
-    return 0
+            prof.export_chrome_trace(os.path.join(args.out, f"{name.replace(' ', '_')}.json"))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""The four CUDA kernels against their plain PyTorch versions, and the slice
-on the GPU against the port's plain path on the CPU.  Marked ``cuda``: they
+"""The seven CUDA kernels against their plain PyTorch versions, and the
+slices (fast, exact and runs mode) on the GPU against the port's plain path
+on the CPU.  Marked ``cuda``: they
 skip without a GPU.  This file imports no JAX, so on the GPU machine (which
 has none) it runs without the suite's conftest:
 
@@ -23,6 +24,7 @@ from multiple_object_tracking_lidar_tpu_torch.ops import (
     assign_cuda,
     centroid_cuda,
     grid_cuda,
+    segsum_cuda,
     voxel_grid_cuda,
 )
 from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
@@ -136,6 +138,70 @@ def test_k4_matches_plain(dev, allow, full):
         if i == 6:
             a, b = a.cpu()[ok], b.cpu()[ok]
         assert _bits(a.reshape(-1), b.reshape(-1).to(a.dtype)), i
+
+
+@pytest.mark.parametrize("name,leaf", [("exact", 0.1), ("exact", 0.12), ("bf16x3", 0.05),
+                                       ("bf16x3", 0.1), ("bf16x3", 0.5)])
+def test_k5_k6_match_plain(dev, small, name, leaf):
+    cfg, _, frames = small
+    P = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+    M = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
+    args = (P, M, cfg.scene, leaf, 20 * leaf)
+    wrapper = getattr(voxel_grid_cuda, f"accumulate_{name}_stacked")
+    plain = getattr(voxel_grid_cuda, f"accumulate_{name}_stacked_plain")
+    n0 = wrapper.launches
+    ka, kn = wrapper(*args)
+    pa, pn = plain(*args)
+    assert wrapper.launches == n0 + 1
+    assert _bits(ka, pa) and _bits(kn, pn)
+
+
+def test_k5_raises_past_one_cta(dev, small):
+    """43,362 cells at a 0.05 m leaf: past K5's 14,528, the wrapper raises
+    (ROADMAP Queue 1 item 21); it never falls back."""
+    cfg, _, frames = small
+    P = torch.from_numpy(frames[0][0][None]).to(dev)
+    M = torch.from_numpy(frames[0][1][None]).to(dev)
+    with pytest.raises(ValueError, match="item 21"):
+        voxel_grid_cuda.accumulate_exact_stacked(P, M, cfg.scene, 0.05, 1.0)
+
+
+@pytest.mark.parametrize("n", [1024, 3 * 8192])
+def test_k7_matches_plain(dev, n):
+    rng = np.random.default_rng(n)
+    ks = np.sort(rng.integers(0, n // 5, (2, n)), axis=1).astype(np.int32)
+    if n > 8192:
+        ks[1, 8000:8400] = ks[1, 8000]                           # across a block edge
+        ks[1] = np.maximum.accumulate(ks[1])
+    vals = [torch.from_numpy(rng.normal(0, 3, (2, n)).astype(np.float32)).to(dev) for _ in range(3)]
+    K = torch.from_numpy(ks).to(dev)
+    k = segsum_cuda.segment_totals(K, *vals)
+    p = segsum_cuda.segment_totals_plain(K, *vals)
+    for a, b in zip(k, p):
+        assert _bits(a, b)
+
+
+@pytest.mark.parametrize("field,value", [("voxel_quant", "exact"), ("voxel_mode", "runs")])
+def test_exact_and_runs_slices_gpu_match_cpu_plain_path(dev, small, field, value):
+    cfg, env, frames = small
+    cfg = cfg.replace(**{field: value})
+    env_cpu = headline_case()[1]
+    outs = {}
+    for where, e in (("cpu", env_cpu), ("gpu", env)):
+        tr = Tracker(cfg, "cpu" if where == "cpu" else dev)
+        step = tr.bind_env(e)
+        st = tr.init_state()
+        rows = []
+        for buf, mask, t in frames[:7]:
+            st, o = step(st, Frame(torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))
+            rows.append([x.cpu() for x in o])
+        outs[where] = rows
+    for rc, rg in zip(outs["cpu"], outs["gpu"]):
+        for name, a, b in zip(FrameOutput._fields, rc, rg):
+            if name == "vel":
+                assert torch.allclose(a, b, rtol=0, atol=1e-5), name
+            else:
+                assert _bits(a, b), name
 
 
 def test_slice_gpu_matches_cpu_plain_path(dev, small):

@@ -1,5 +1,5 @@
 """The committed golden outputs of the JAX package on the headline scene
-(tests/golden/torch_slice_headline.npz, written by
+(tests/golden/torch_{slice,exact,runs}_headline.npz, written by
 scripts/make_torch_golden.py), which the GPU machine -- it has no JAX --
 holds the port against.
 
@@ -10,7 +10,9 @@ holds the port against.
 2. The port's plain path on the CPU reproduces all 12 frames: integers
    exact, detections and positions within 1e-5 m, velocities within
    1e-4 m/s (see test_torch_pipeline.py for the reasons); pos / vel
-   compared where ``valid``.
+   compared where ``valid``.  Exact mode's K6 route (unpadded
+   100,000-point frames, bf16x3 sums instead of the digits) is held to the
+   exact golden with the same tolerances.
 """
 
 import os
@@ -71,3 +73,48 @@ def test_port_plain_path_reproduces_golden(golden):
     _compare(got, golden, TOL_DETS, TOL_VEL)
     assert golden["valid"][1:].sum(axis=1).min() == 3          # three tracked objects
     assert golden["overflow"].sum() == 0 and golden["cc_saturated"].sum() == 0
+
+
+def _load(case):
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from make_torch_golden import GOLDENS
+
+    return dict(np.load(GOLDENS[case]))
+
+
+@pytest.mark.parametrize("case", ["exact", "runs"])
+def test_exact_and_runs_goldens_are_what_the_jax_package_computes(case):
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from make_torch_golden import golden_outputs
+
+    ref = _load(case)
+    out = golden_outputs(n_frames=2, case=case)
+    assert set(out) == set(ref)
+    assert ref["publish"].shape == (12,) and ref["raw_centroid"].shape == (12, 32, 4)
+    _compare(out, ref, 1e-6, 1e-6, n=2)
+
+
+@pytest.mark.parametrize("case", ["exact", "runs", "exact_unpadded"])
+def test_port_plain_path_reproduces_exact_and_runs_goldens(case):
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import padded_frame
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid import exact_route
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    cfg, env, sc = getattr(bench_cases, f"{case}_case")()
+    ref = _load(case.split("_")[0])
+    if case.startswith("exact"):
+        want = "K6" if case == "exact_unpadded" else "K5"
+        assert exact_route(cfg.caps.n_max_points, cfg.voxel_leaf_size, cfg.leaf_z) == want
+    tracker = Tracker(cfg)
+    step = tracker.bind_env(env)
+    st = tracker.init_state()
+    rows = []
+    for k in range(ref["publish"].shape[0]):
+        pts, mask, t = padded_frame(sc, k, cfg.caps.n_max_points)
+        st, out = step(st, Frame(torch.from_numpy(pts), torch.from_numpy(mask), torch.tensor(t)))
+        rows.append(out)
+    got = {f: np.stack([getattr(r, f).numpy() for r in rows]) for f in rows[0]._fields}
+    _compare(got, ref, TOL_DETS, TOL_VEL)
+    assert ref["valid"][1:].sum(axis=1).min() == 3

@@ -1,7 +1,7 @@
 """The port imports and runs where JAX is absent (the GPU machine has no
 JAX): a fresh interpreter with ``jax`` and the JAX package blocked imports
-every module of the port, and ``chip_smoke.py``, and steps 2 frames on the
-CPU."""
+every module of the port, and ``chip_smoke.py``, steps 2 frames on the
+CPU, and one frame each in exact mode and runs mode."""
 
 import os
 import subprocess
@@ -40,6 +40,12 @@ SCRIPT = textwrap.dedent(
         mask = np.zeros(4096, bool); mask[:len(sub)] = True
         st, out = step(st, Frame(torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))
     assert int(out.n_clusters) >= 3 and bool(out.publish), out
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import exact_case, runs_case
+    for case in (exact_case, runs_case):        # K5 and K7 plain on one frame
+        c = case()[0].replace(caps=cfg.caps)
+        o = Tracker(c).bind_env(env)(Tracker(c).init_state(), Frame(
+            torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))[1]
+        assert int(o.n_clusters) >= 3, (case.__name__, o)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                     and sys.modules[m] is not None)
     assert not leaked, leaked

@@ -159,7 +159,7 @@ def test_state_hand_over_through_carry_across(case):
 
 @pytest.mark.parametrize(
     "field,value",
-    [("voxel_quant", "exact"), ("association", "hungarian"),
+    [("voxel_mode", "dense"), ("association", "hungarian"),
      ("position_filter", "ihgp"), ("cluster_backend", "jnp")],
 )
 def test_unported_configs_raise(field, value):

@@ -129,13 +129,53 @@ def test_finalize_dense_cm_matches():
 
 
 def test_k1_wrapper_cpu_route_and_limits():
-    """On a CPU tensor the wrapper runs the plain version and launches
-    nothing; exact mode is a later slice."""
+    """On a CPU tensor each accumulator wrapper runs its plain version and
+    launches nothing; an unknown quant raises."""
     ts = TScene(**SCENE)
-    before = k1.accumulate_fast_stacked.launches
+    wrappers = (k1.accumulate_fast_stacked, k1.accumulate_exact_stacked,
+                k1.accumulate_bf16x3_stacked)
+    before = [w.launches for w in wrappers]
     pts = torch.zeros((1, 16, 3))
-    k1.accumulate_fast_stacked(pts, torch.ones((1, 16), dtype=torch.bool), ts, 0.1, 2.0)
-    assert k1.accumulate_fast_stacked.launches == before
-    with pytest.raises(NotImplementedError, match="exact"):
-        tvg.voxel_accumulate_onehot_cm(pts[0], torch.ones(16, dtype=torch.bool), ts, 0.1, 2.0, quant="exact")
+    for w in wrappers:
+        w(pts, torch.ones((1, 16), dtype=torch.bool), ts, 0.1, 2.0)
+    assert [w.launches for w in wrappers] == before
+    with pytest.raises(ValueError, match="voxel_quant"):
+        tvg.voxel_accumulate_onehot_cm(pts[0], torch.ones(16, dtype=torch.bool), ts, 0.1, 2.0, quant="int4")
     assert k1.max_cells() == 14528
+
+
+def test_plain_k1_matches_v4_kernel_past_the_f32_bound():
+    """At N * 127 >= 2^24 the TPU's fast route leaves v5 for the
+    i32-accumulating v4 (voxel_grid.py:129-133).  K1 covers that regime
+    too: its plain version equals the v4 kernel in interpret mode at
+    N = 133,120 on a tiny grid, with 99% of the points in one cell at the
+    top of the digit range (digit sums near 2^24)."""
+    from multiple_object_tracking_lidar_tpu.ops.voxel_grid import (
+        _accumulate_pallas_v4,
+        _v5_exact_n,
+    )
+
+    n = 133_120
+    assert not _v5_exact_n(n)
+    scene = dict(x_min=0.0, x_max=0.35, y_min=0.0, y_max=0.15, z_min=0.0, z_max=1.0)
+    rng = np.random.default_rng(133)
+    pts = np.stack([rng.uniform(-0.05, 0.4, n), rng.uniform(-0.05, 0.2, n),
+                    rng.uniform(0.0, 1.0, n)], axis=1).astype(np.float32)
+    blob = int(0.99 * n)
+    pts[:blob] = [0.1999, 0.0999, 0.5]          # one cell at the digit's top edge
+    pts[blob: blob + 5, 1] = np.nan
+    mask = rng.random(n) < 0.95
+    mask[:blob] = True
+    js, ts = JScene(**scene), TScene(**scene)
+    ref, n_ref = _accumulate_pallas_v4(
+        jnp.asarray(pts), jnp.asarray(mask), js, 0.1, 2.0, block=2048, interpret=True
+    )
+    got, n_got = k1.accumulate_fast_stacked(
+        torch.from_numpy(pts)[None], torch.from_numpy(mask)[None], ts, 0.1, 2.0
+    )
+    k = k1.kernel_params(ts, 0.1, 2.0)
+    sums = _digit_sums(got[0].numpy(), k)
+    assert int(n_ref) == int(n_got[0]) == int(mask.sum())
+    assert sums[0].max() > 13_000_000 and sums[3].max() >= blob
+    np.testing.assert_array_equal(sums, _digit_sums(np.asarray(ref), k))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref), rtol=3e-7, atol=1e-7)

@@ -7,19 +7,28 @@ of JAX, in five phases, one or more lines each:
 
 1. the card (``nvidia-smi`` name and power limit); no CUDA -> exit 1;
 2. the kernel build from ``csrc/*.cu`` (one nvcc per source, in parallel);
-3. each of the seven kernels against its plain PyTorch version on the
-   card, at the headline shapes, on scenario and adversarial inputs;
-4. the slices, each with every kernel's launch counter reset before and
+3. each kernel (K1-K9, K6 in its bf16x3 and f32 modes) against its plain
+   PyTorch version on the card, at the shapes its path gives it, on
+   scenario and adversarial inputs;
+4. the paths, each with every kernel's launch counter reset before and
    read after: the headline (fast digits) -- ``TrackerNode.on_pointcloud``
    answers 12 headline PointCloud2 frames and ``Tracker.bind_env_multi``
    runs 4 dispatches of S = 8, held against the JAX golden
    (tests/golden/torch_slice_headline.npz) and the port's plain path on
    the CPU; then exact mode (K5) and runs mode (K7), each through
    ``TrackerNode`` (12 frames) and ``bind_env_multi`` (2 x S = 8), held
-   against their JAX goldens (torch_{exact,runs}_headline.npz); and exact
+   against their JAX goldens (torch_{exact,runs}_headline.npz); exact
    mode on unpadded 100,000-point frames (K6), held against the exact
-   golden;
-5. timings with CUDA events, beside the card's name and power limit.
+   golden; then the point-list configurations C (dense + K8), D (dense +
+   jnp CC), E (scan + jnp CC) and F (runs + K8), each through
+   ``TrackerNode`` (12 frames) and ``bind_env_multi`` (2 x S = 8), and G
+   (the JAX package's ``TrackerConfig()``) through ``TrackerNode`` (4
+   frames), held against torch_{pointlist,pointlist_scan,pointlist_runs,
+   default}_headline.npz (D shares C's);
+5. timings with CUDA events, beside the card's name and power limit:
+   ``bind_env`` and ``bind_env_multi`` per path, host syncs per frame of
+   each point-list path, device ops per frame of C, and each kernel
+   against its plain version.
 
 Any failed phase raises (exit 1).  The line before the last is the kernel
 report (JSON); the last line is ``{"ok": true, "device": {...}}``.
@@ -40,6 +49,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "torch_slice_headline.npz")
 GOLDEN_EXACT = os.path.join(HERE, "tests", "golden", "torch_exact_headline.npz")
 GOLDEN_RUNS = os.path.join(HERE, "tests", "golden", "torch_runs_headline.npz")
+GOLDEN_PL = {g: os.path.join(HERE, "tests", "golden", f"torch_{g}_headline.npz")
+             for g in ("pointlist", "pointlist_scan", "pointlist_runs", "default")}
 PKG = "multiple_object_tracking_lidar_tpu_torch"
 
 # Tolerances against the JAX golden, with their reasons.  Integers, labels
@@ -355,7 +366,8 @@ def sorted_rows(P, M, cfg):
 
 
 def check_pair(report, name, what, fk, fp):
-    """Kernel call fk against plain call fp on the card: bit for bit."""
+    """Kernel call fk against plain call fp on the card: bit for bit (for
+    K8, labels exact)."""
     k_out, p_out = fk(), fp()
     torch.cuda.synchronize()
     ok = all(equal(npy(a), npy(b)) for a, b in zip(k_out, p_out))
@@ -419,12 +431,102 @@ def phase_kernels_more(dev, report, cfg, k1_inputs):
                lambda: segsum_cuda.segment_totals_plain(ks, *vals))
 
 
+def phase_kernels_pointlist(dev, report, cfg, k1_inputs):
+    """K6's f32 mode, K8 and K9 on the card, against their plain versions."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        cluster_pallas, segsum_cuda, voxel_grid_cuda as vg)
+
+    leaf, leaf_z = cfg.voxel_leaf_size, cfg.leaf_z
+    P = torch.from_numpy(k1_inputs[0]).to(dev)
+    M = torch.from_numpy(k1_inputs[1]).to(dev)
+    n = P.shape[1]
+    kw = (cfg.scene, leaf, leaf_z)
+    adv = "frame 7 adversarial: NaN/inf/out-of-bounds/leaf-boundary/masked/one-cell blob"
+    check_pair(report, "K6f", f"S=8 N={n} cells={vg.kernel_params(*kw)['n_cells']} ({adv})",
+               lambda: vg.accumulate_f32_stacked(P, M, *kw),
+               lambda: vg.accumulate_f32_stacked_plain(P, M, *kw))
+    gcfg, _, gsc = bench_cases.default_case()
+    gn = gcfg.caps.n_max_points
+    gp, gm, _ = headline_frames(gsc, gn, range(2))
+    GP, GM = torch.from_numpy(gp).to(dev), torch.from_numpy(gm).to(dev)
+    gkw = (gcfg.scene, gcfg.voxel_leaf_size, gcfg.leaf_z)
+    check_pair(report, "K6f", f"S=2 N={gn} at configuration G's grid, "
+               f"cells={vg.kernel_params(*gkw)['n_cells']}, "
+               f"chunk={vg.sorted_sums_chunk(vg.kernel_params(*gkw)['n_cells'], gn)}",
+               lambda: vg.accumulate_f32_stacked(GP, GM, *gkw),
+               lambda: vg.accumulate_f32_stacked_plain(GP, GM, *gkw))
+
+    # K8 at the point list C gives it: 8 headline frames compacted to
+    # M = 1,024 dynamic voxels; frame 6 a reversed 300-point chain (longer
+    # than n_sweeps = 256: cut short), frame 7 a lattice at the tolerance's
+    # spacing (thousands of pairs an ulp or two from tol2), frame 5 empty
+    pcfg = bench_cases.pointlist_case()[0]
+    caps = pcfg.caps
+    pts, msk = pointlist_rows(dev, pcfg, P, M)
+    pts[6] = 50.0
+    pts[6, :300, 0] = torch.arange(299, -1, -1, device=dev, dtype=torch.float32) * 0.1
+    msk[6] = False
+    msk[6, :300] = True
+    lat = torch.stack(torch.meshgrid(torch.arange(32), torch.arange(32), indexing="ij"), -1)
+    pts[7] = 0.5
+    pts[7, :, :2] = lat.reshape(-1, 2).to(dev).float() * 0.15 - 2.0
+    pts[7] += torch.from_numpy(np.random.default_rng(8).normal(0, 1e-6, (caps.m_max_dynamic, 3))
+                               .astype(np.float32)).to(dev)
+    msk[7] = True
+    msk[5] = False
+    tol, sweeps = pcfg.cluster_tolerance, 8 * caps.label_prop_iters
+    out = check_pair(report, "K8", f"S=8 M={caps.m_max_dynamic} headline point lists (5: empty; "
+                     f"6: a 300-point chain cut at n_sweeps={sweeps}; 7: a boundary lattice)",
+                     lambda: (cluster_pallas.connected_components_pallas(pts, msk, tol, sweeps),),
+                     lambda: (cluster_pallas.connected_components_pallas_plain(pts, msk, tol, sweeps),))
+    lab = out[0]
+    comps = [int(((lab[f] == torch.arange(lab.shape[1], device=dev)) & msk[f]).sum()) for f in range(8)]
+    log(f"[3 K8]   components per frame {comps}")
+    check_pair(report, "K8a", "the adjacency stage alone, same inputs (bool M x M)",
+               lambda: (cluster_pallas.cc_adjacency(pts, msk, tol),),
+               lambda: (cluster_pallas.cc_adjacency_plain(pts, msk, tol),))
+    gpts, gmsk = pointlist_rows(dev, gcfg, GP, GM)
+    check_pair(report, "K8", f"S=2 M={gcfg.caps.m_max_dynamic} configuration G's point lists",
+               lambda: (cluster_pallas.connected_components_pallas(gpts, gmsk, tol, sweeps),),
+               lambda: (cluster_pallas.connected_components_pallas_plain(gpts, gmsk, tol, sweeps),))
+
+    ks, vals = sorted_rows(P, M, cfg)
+    ks[5, 2000:2100] = ks[5, 2000]                   # frame 5: a run across the 2048-row edge
+    ks[5] = torch.cummax(ks[5], 0).values
+    ks[6] = 5                                        # frame 6: one run over every block
+    v4 = torch.stack(vals + [torch.ones_like(vals[0])], dim=-1).contiguous()
+    v4[7, 2047, 0] = float("inf")                    # frame 7: inf at a block's last row
+    v4[7, ::5, 2] = -0.0
+    check_pair(report, "K9", f"S=8 N={n} sorted headline rows x 4 channels (5: a run across "
+               "the 2048-row edge; 6: one run; 7: inf and -0.0)",
+               lambda: (segsum_cuda.segment_totals_rows(ks, v4),),
+               lambda: (segsum_cuda.segment_totals_rows_plain(ks, v4),))
+
+
+def pointlist_rows(dev, cfg, P, M):
+    """The compacted dynamic voxels the point list feeds its CC: (S, M, 3)
+    points and (S, M) mask of the frames P, M under ``cfg``."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.ops.compact import compact_points
+    from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import (
+        build_static_mask, remove_static)
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import voxel_downsample_dense
+
+    env = build_static_mask(load_sim_grid(), cfg.static_tolarance, cfg.occupied_threshold,
+                            device=dev)
+    vox, vmask, _ = voxel_downsample_dense(P, M, cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z,
+                                           cfg.caps.m_max_voxels)
+    pts, msk, _ = compact_points(vox, remove_static(vox, vmask, env), cfg.caps.m_max_dynamic)
+    return pts.contiguous(), msk.contiguous()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the slice
 # ---------------------------------------------------------------------------
 def kernel_wrappers():
     from multiple_object_tracking_lidar_tpu_torch.ops import (
-        assign_cuda, centroid_cuda, grid_cuda, segsum_cuda, voxel_grid_cuda)
+        assign_cuda, centroid_cuda, cluster_pallas, grid_cuda, segsum_cuda, voxel_grid_cuda)
 
     return {
         "K1": voxel_grid_cuda.accumulate_fast_stacked,
@@ -433,7 +535,11 @@ def kernel_wrappers():
         "K4": assign_cuda.assoc_scan,
         "K5": voxel_grid_cuda.accumulate_exact_stacked,
         "K6": voxel_grid_cuda.accumulate_bf16x3_stacked,
+        "K6f": voxel_grid_cuda.accumulate_f32_stacked,
         "K7": segsum_cuda.segment_totals,
+        "K8": cluster_pallas.connected_components_pallas,
+        "K8a": cluster_pallas.cc_adjacency,
+        "K9": segsum_cuda.segment_totals_rows,
     }
 
 
@@ -616,12 +722,92 @@ def phase_modes(dev, report):
             fail(f"{tag}: non-finite pos/vel on valid lanes")
 
 
+def run_node(dev, tag, cfg, sc, golden, n_node, need, report):
+    """TrackerNode over n_node PointCloud2 frames against the golden."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+
+    fields = golden.keys()
+    node = TrackerNode(cfg, dev)
+    node.on_map(load_sim_grid())
+    reset_counts()
+    replies = [node.on_pointcloud(sc.frame(k)) for k in range(n_node)]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    got = {f: np.stack([getattr(o, f) for o in node.outputs]) for f in fields}
+    ref = {f: v[:n_node] for f, v in golden.items()}
+    e = compare(f"{tag} TrackerNode vs JAX golden", got, ref, TOL_DETS, TOL_VEL)
+    n_pub = sum(r is not None for r in replies)
+    log(f"[4 {tag}] TrackerNode.on_pointcloud x{n_node} (N={cfg.caps.n_max_points}): "
+        f"{n_pub} published, n_dynamic {got['n_dynamic'].tolist()}, launches {counts}; "
+        f"vs JAX golden max abs err {e}")
+    require(f"{tag} TrackerNode", counts, need, report)
+    return got
+
+
+def run_multi(dev, tag, cfg, env, sc, golden, n_disp, s_frames, need, report):
+    """bind_env_multi over n_disp dispatches of S frames against the
+    golden; returns the outputs stacked over frames."""
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    fields = golden.keys()
+    tracker = Tracker(cfg, dev)
+    multi = tracker.bind_env_multi(env)
+    pts, mask, ts = headline_frames(sc, cfg.caps.n_max_points, range(s_frames * n_disp))
+    P, M, T = (torch.from_numpy(a).to(dev) for a in (pts, mask, ts))
+    state = tracker.init_state()
+    reset_counts()
+    outs = []
+    for d in range(n_disp):
+        sl = slice(d * s_frames, (d + 1) * s_frames)
+        state, o = multi(state, Frame(P[sl], M[sl], T[sl]))
+        outs.append([npy(x) for x in o])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    allm = {f: np.concatenate([r[i] for r in outs]) for i, f in enumerate(fields)}
+    n_cmp = min(len(allm["publish"]), len(golden["publish"]))
+    e = compare(f"{tag} bind_env_multi vs JAX golden", {f: v[:n_cmp] for f, v in allm.items()},
+                {f: v[:n_cmp] for f, v in golden.items()}, TOL_DETS, TOL_VEL)
+    fin = all(np.isfinite(v[allm["valid"]]).all() for f, v in allm.items() if f in ("pos", "vel"))
+    log(f"[4 {tag}] bind_env_multi {n_disp}x S={s_frames}: launches {counts}, finite {fin}, "
+        f"first {n_cmp} vs JAX golden max abs err {e}")
+    require(f"{tag} bind_env_multi", counts, need, report)
+    if not fin:
+        fail(f"{tag}: non-finite pos/vel on valid lanes")
+    return allm
+
+
+def phase_pointlist(dev, report):
+    """The point-list configurations C-G against their JAX goldens."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+
+    paths = (("C pointlist", bench_cases.pointlist_case, "pointlist", ("K6f", "K8", "K3", "K4")),
+             ("D pointlist jnp", bench_cases.pointlist_jnp_case, "pointlist",
+              ("K6f", "K8a", "K3", "K4")),
+             ("E scan", bench_cases.scan_case, "pointlist_scan", ("K8a", "K3", "K4")),
+             ("F runs", bench_cases.pointlist_runs_case, "pointlist_runs",
+              ("K7", "K8", "K3", "K4")))
+    for tag, case, gold, need in paths:
+        golden = dict(np.load(GOLDEN_PL[gold]))
+        cfg, env, sc = case(device=dev)
+        got = run_node(dev, tag, cfg, sc, golden, 12, need, report)
+        allm = run_multi(dev, tag, cfg, env, sc, golden, 2, 8, need, report)
+        e = compare(f"{tag} bind_env_multi vs TrackerNode", {f: v[:12] for f, v in allm.items()},
+                    got, 0.0, 0.0)
+        log(f"[4 {tag}] bind_env_multi vs TrackerNode, first 12 frames: max abs err {e}")
+    golden = dict(np.load(GOLDEN_PL["default"]))
+    cfg, env, sc = bench_cases.default_case(device=dev)
+    run_node(dev, "G defaults", cfg, sc, golden, 4, ("K6f", "K8a", "K3", "K4"), report)
+
+
 # ---------------------------------------------------------------------------
 # phase 5: timings
 # ---------------------------------------------------------------------------
-def time_path(tracker, env, P, M, T):
+def time_path(tracker, env, P, M, T, reps: int = 3):
     """(ms/frame of bind_env one frame per call, of bind_env_multi S = 8)
-    over the frames P, M, T, by CUDA events, 3 repeats after a warm-up."""
+    over the frames P, M, T, by CUDA events, ``reps`` repeats after a
+    warm-up."""
     from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
 
     step = tracker.bind_env(env)
@@ -639,12 +825,74 @@ def time_path(tracker, env, P, M, T):
             sl = slice(d * 8, (d + 1) * 8)
             st, _ = multi(st, Frame(P[sl], M[sl], T[sl]))
 
-    return cuda_ms(run_single, 3) / n_fr, cuda_ms(run_multi, 3) / n_fr
+    return cuda_ms(run_single, reps) / n_fr, cuda_ms(run_multi, reps) / n_fr
+
+
+def device_ops_per_frame(fn, n_frames: int) -> float:
+    """Device operations (kernels, copies, memsets) per frame of fn, from a
+    torch.profiler trace of one run after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_type == torch.autograd.DeviceType.CUDA for ev in prof.events()) / n_frames
+
+
+def phase_timings_pointlist(dev, smi, P, M, T):
+    """bind_env and bind_env_multi of the point-list paths: C on the 32
+    headline frames (3 repeats), D, E, F and G on 16 (2 repeats); the host
+    syncs per frame of each entry point, and C's device ops per frame."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.ops.cluster import connected_components
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker, track_step
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    paths = (("C pointlist", bench_cases.pointlist_case, 32),
+             ("D pointlist jnp", bench_cases.pointlist_jnp_case, 16),
+             ("E scan", bench_cases.scan_case, 16),
+             ("F runs", bench_cases.pointlist_runs_case, 16),
+             ("G defaults", bench_cases.default_case, 16))
+    for tag, case, n_fr in paths:
+        cfg, env, sc = case(device=dev)
+        if cfg.caps.n_max_points == P.shape[1]:
+            Pc, Mc, Tc = P[:n_fr], M[:n_fr], T[:n_fr]
+        else:
+            pts, mask, ts = headline_frames(sc, cfg.caps.n_max_points, range(n_fr))
+            Pc, Mc, Tc = (torch.from_numpy(a).to(dev) for a in (pts, mask, ts))
+        tracker = Tracker(cfg, dev)
+        ms_single, ms_multi = time_path(tracker, env, Pc, Mc, Tc, reps=3 if n_fr == 32 else 2)
+        step, multi = tracker.bind_env(env), tracker.bind_env_multi(env)
+
+        def one():
+            st = tracker.init_state()
+            for k in range(8):
+                st, _ = step(st, Frame(Pc[k], Mc[k], Tc[k]))
+
+        def eight():
+            multi(tracker.init_state(), Frame(Pc[:8], Mc[:8], Tc[:8]))
+
+        s0 = track_step.host_syncs + connected_components.host_syncs
+        one()
+        s1 = track_step.host_syncs + connected_components.host_syncs
+        eight()
+        s2 = track_step.host_syncs + connected_components.host_syncs
+        extra = (f"; host syncs per frame bind_env {(s1 - s0) / 8:.3f}, "
+                 f"bind_env_multi {(s2 - s1) / 8:.3f}")
+        if tag.startswith("C"):
+            extra += (f"; device ops per frame bind_env {device_ops_per_frame(one, 8):.2f}, "
+                      f"bind_env_multi {device_ops_per_frame(eight, 8):.2f}")
+        log(f"[5 timing] {smi}: {tag} bind_env {ms_single:.4f} ms/frame "
+            f"({1e3 / ms_single:.1f} clouds/s); bind_env_multi S=8 {ms_multi:.4f} ms/frame "
+            f"({1e3 / ms_multi:.1f} clouds/s){extra}")
 
 
 def phase_timings(dev, cfg, smi, tracker, env, frames, report):
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
     from multiple_object_tracking_lidar_tpu_torch.ops import (
-        assign_cuda, centroid_cuda, grid_cuda, segsum_cuda, voxel_grid_cuda)
+        assign_cuda, centroid_cuda, cluster_pallas, grid_cuda, segsum_cuda, voxel_grid_cuda)
     from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import cluster_table_grid
     from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import track_step
 
@@ -667,6 +915,7 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
         ms_s, ms_m = time_path(Tracker(cfg_m, P.device), env_m, P, M, T)
         log(f"[5 timing] {smi}: {tag} bind_env {ms_s:.4f} ms/frame ({1e3 / ms_s:.1f} "
             f"clouds/s); bind_env_multi S=8 {ms_m:.4f} ms/frame ({1e3 / ms_m:.1f} clouds/s)")
+    phase_timings_pointlist(dev, smi, P, M, T)
 
     # kernels vs plain versions, at the main path's shapes
     kw1 = (cfg.scene, leaf, leaf_z)
@@ -694,7 +943,11 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
     kw4 = dict(thr=cfg.id_threshold, dt_gp=cfg.dt_gp, interp_gap_factor=cfg.interp_gap_factor)
     offsets = grid_cuda.kernel_offsets(plan.dims, cfg.cluster_tolerance, leaf, leaf_z)
     ks, vals = sorted_rows(P[:8], M[:8], cfg)
+    v4 = torch.stack(vals + [torch.ones_like(vals[0])], dim=-1).contiguous()
     P1, M1 = P[:8, :100_000].contiguous(), M[:8, :100_000].contiguous()
+    pcfg = bench_cases.pointlist_case()[0]
+    cpts, cmsk = pointlist_rows(dev, pcfg, P[:8].contiguous(), M[:8])
+    tol, sweeps = pcfg.cluster_tolerance, 8 * pcfg.caps.label_prop_iters
     pairs = {
         "K1": (lambda: voxel_grid_cuda.accumulate_fast_stacked(P[:8], M[:8], *kw1),
                lambda: voxel_grid_cuda.accumulate_fast_stacked_plain(P[:8], M[:8], *kw1),
@@ -716,12 +969,21 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
         "K6": (lambda: voxel_grid_cuda.accumulate_bf16x3_stacked(P1, M1, *kw1),
                lambda: voxel_grid_cuda.accumulate_bf16x3_stacked_plain(P1, M1, *kw1),
                "S=8 frames x 100000 points"),
+        "K6f": (lambda: voxel_grid_cuda.accumulate_f32_stacked(P[:8], M[:8], *kw1),
+                lambda: voxel_grid_cuda.accumulate_f32_stacked_plain(P[:8], M[:8], *kw1),
+                "S=8 frames x 106496 points"),
         "K7": (lambda: segsum_cuda.segment_totals(ks, *vals),
                lambda: segsum_cuda.segment_totals_plain(ks, *vals),
                "S=8 frames x 106496 sorted rows"),
+        "K8": (lambda: cluster_pallas.connected_components_pallas(cpts, cmsk, tol, sweeps),
+               lambda: cluster_pallas.connected_components_pallas_plain(cpts, cmsk, tol, sweeps),
+               f"S=8 frames x M={cpts.shape[1]} point lists ({int(cmsk.sum())} valid rows)"),
+        "K9": (lambda: segsum_cuda.segment_totals_rows(ks, v4),
+               lambda: segsum_cuda.segment_totals_rows_plain(ks, v4),
+               "S=8 frames x 106496 sorted rows x 4 channels"),
     }
     for name, (fk, fp, shape) in pairs.items():
-        reps_p = 2 if name == "K6" else 5
+        reps_p = 2 if name in ("K6", "K6f") else 5
         ms_p = cuda_ms(fp, reps_p)
         ms_k = cuda_ms(fk, 50)
         ms_k2 = cuda_ms(fk, 50)
@@ -747,8 +1009,15 @@ KERNELS = (
      f"{PKG}/csrc/voxel_exact.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1538"),
     ("K6", "voxel_grid bf16x3 sums in ascending point index",
      f"{PKG}/csrc/voxel_bf16x3.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:408"),
+    ("K6f", "K6 f32 mode: the point-list scatter-add's sums in ascending point index "
+     "(no TPU kernel: an XLA scatter)",
+     f"{PKG}/csrc/voxel_bf16x3.cu", "multiple_object_tracking_lidar_tpu/ops/voxel.py:96"),
     ("K7", "segmented prefix totals over sorted rows",
      f"{PKG}/csrc/segsum.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_pallas.py:316"),
+    ("K8", "all-pairs fixed-radius connected components (adjacency bitmask + Jacobi sweeps)",
+     f"{PKG}/csrc/cluster_cc.cu", "multiple_object_tracking_lidar_tpu/ops/cluster_pallas.py:96"),
+    ("K9", "segmented prefix totals over (N, 4) rows, 2048-row blocks",
+     f"{PKG}/csrc/segsum.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_pallas.py:69"),
 )
 
 
@@ -761,8 +1030,10 @@ def main() -> int:
     report: dict = {}
     cfg, sc, k1_inputs = phase_kernels(dev, report)
     phase_kernels_more(dev, report, cfg, k1_inputs)
+    phase_kernels_pointlist(dev, report, cfg, k1_inputs)
     tracker, env, frames = phase_slice(dev, cfg, sc, report)
     phase_modes(dev, report)
+    phase_pointlist(dev, report)
     phase_timings(dev, cfg, smi, tracker, env, frames, report)
     kernels = [
         {"name": f"{k}: {desc}", "route": "cuda", "source": src, "replaces": rep,

@@ -3,9 +3,12 @@
 Copies of ``__graft_entry__._bench_config`` and ``bench.headline_case``
 (both import the JAX package), so the port can build the headline workload
 where JAX is absent.  tests/test_torch_host.py pins both against their
-originals.  The other dense-grid front ends run the same scene with one
-field changed: ``exact_case`` (bench.py:518), ``runs_case`` and
-``exact_unpadded_case``.
+originals.  The other front ends run the same scene with one or two
+fields changed: on the dense grid ``exact_case`` (bench.py:518),
+``runs_case`` and ``exact_unpadded_case``; on the point list
+``pointlist_case`` (C), ``pointlist_jnp_case`` (D), ``scan_case`` (E) and
+``pointlist_runs_case`` (F).  ``default_case`` (G) is the JAX package's
+``TrackerConfig()`` itself, fed the headline frames.
 """
 
 from __future__ import annotations
@@ -115,9 +118,54 @@ def exact_unpadded_case(device="cpu"):
     no point block tiles N = 100,000, so exact mode takes the bf16x3 sums
     (K6), as the TPU takes its jnp lowering of them.  K6's other route, a
     leaf too coarse for two int8 digits (> ~0.124 m), cannot run on this
-    map yet: at a 0.15 m leaf the sim map's per-cell static window is 6 x 6
-    = 36 bits, past the 32-bit cell table, and the one-hot map lookup it
-    needs is still to be ported (ROADMAP Queue 1 item 17)."""
+    map's dense grid yet: at a 0.15 m leaf the sim map's per-cell static
+    window is 6 x 6 = 36 bits, past the 32-bit cell table, and the grid
+    path's fallback for such maps is still to be ported (ROADMAP Queue 1
+    item 22; the point list runs them)."""
     cfg, env, sc = exact_case(device)
     caps = dataclasses.replace(cfg.caps, n_max_points=100_000)
     return cfg.replace(caps=caps), env, sc
+
+
+def pointlist_case(device="cpu"):
+    """Configuration C, the point-list main path: the headline with
+    ``voxel_mode="dense"`` (K6 f32 sums + finalize) and
+    ``cluster_backend="pallas"`` (K8)."""
+    cfg, env, sc = headline_case(device)
+    return cfg.replace(voxel_mode="dense", cluster_backend="pallas"), env, sc
+
+
+def pointlist_jnp_case(device="cpu"):
+    """Configuration D: C with the default CC, ``cluster_backend="jnp"``
+    (K8's adjacency, pointer-jump sweeps in plain torch)."""
+    cfg, env, sc = headline_case(device)
+    return cfg.replace(voxel_mode="dense", cluster_backend="jnp"), env, sc
+
+
+def scan_case(device="cpu"):
+    """Configuration E: the scatter-free front end, ``voxel_mode="scan"``,
+    with ``cluster_backend="jnp"``."""
+    cfg, env, sc = headline_case(device)
+    return cfg.replace(voxel_mode="scan", cluster_backend="jnp"), env, sc
+
+
+def pointlist_runs_case(device="cpu"):
+    """Configuration F: the sorted runs (K7) into the point list,
+    ``voxel_mode="runs"`` with ``cluster_backend="pallas"`` (K8)."""
+    cfg, env, sc = headline_case(device)
+    return cfg.replace(voxel_mode="runs", cluster_backend="pallas"), env, sc
+
+
+def default_case(device="cpu"):
+    """Configuration G: ``TrackerConfig()`` -- the JAX package's defaults
+    (0.05 m leaf, the default scene: 96 x 224 x 9 = 193,536 cells,
+    N = 131,072, m_max_dynamic 2,048, C = 64, P = 512, K = 64), what its
+    ``cli run`` runs without ``--backend grid`` -- on the sim map, fed the
+    headline frames padded to ``caps.n_max_points``."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import build_static_mask
+
+    _, _, sc = headline_case(device)
+    cfg = TrackerConfig()
+    env = build_static_mask(load_sim_grid(), cfg.static_tolarance, cfg.occupied_threshold,
+                            device=device)
+    return cfg, env, sc

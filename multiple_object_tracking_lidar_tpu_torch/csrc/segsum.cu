@@ -1,6 +1,14 @@
-// K7: segmented prefix totals over key-sorted rows.
+// K7 and K9: segmented prefix totals over key-sorted rows.
 //
-// Replaces the Pallas kernel multiple_object_tracking_lidar_tpu/ops/
+// K9 replaces the Pallas kernel multiple_object_tracking_lidar_tpu/ops/
+// voxel_pallas.py::segment_totals_pallas (body _segsum_kernel), K7's
+// predecessor: the same tree over flat blocks of T = min(2048, N) rows,
+// with the 4 channels of one (N, 4) array.  Everything below holds for it
+// with that T and C = 4; one kernel template serves both, on the channel
+// count and the channels' layout (K7: one array per channel; K9: rows of 4
+// interleaved floats).  At T = 2,048 a block holds 40 KB of shared memory.
+//
+// K7 replaces the Pallas kernel multiple_object_tracking_lidar_tpu/ops/
 // voxel_pallas.py::segment_totals_raster (body _segsum_raster_kernel), the
 // segment sums of voxel_mode="runs".  Rows arrive sorted by cell key; row i
 // of the output holds the sum of its run's rows up to and including i, so
@@ -35,28 +43,34 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kMaxPerThread = 8;  // T <= 8,192 = 8 * 1024
 
+// Channel c of row r of frame s sits at base[c] + (s * n + r) * stride:
+// K7 passes its three arrays with stride 1, K9 one (S, N, 4) array as four
+// bases one float apart with stride 4.
+template <int NC>
+struct Chans {
+  const float* in[NC];
+  float* out[NC];
+  int stride;
+};
+
+template <int NC>
 __global__ void __launch_bounds__(kThreads) seg_block_kernel(const int* __restrict__ ks,
-                                 const float* __restrict__ xs,
-                                 const float* __restrict__ ys,
-                                 const float* __restrict__ zs, int n, int T,
-                                 float* __restrict__ ox, float* __restrict__ oy,
-                                 float* __restrict__ oz,
-                                 int* __restrict__ last_key,
-                                 float* __restrict__ last_val) {
+                                                             Chans<NC> ch, int n, int T,
+                                                             int* __restrict__ last_key,
+                                                             float* __restrict__ last_val) {
   extern __shared__ unsigned char smem[];
   int* K = reinterpret_cast<int*>(smem);
-  float* C = reinterpret_cast<float*>(K + T);  // (3, T): x, y, z
+  float* C = reinterpret_cast<float*>(K + T);  // (NC, T)
   const int s = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
   const size_t base = (size_t)s * n + (size_t)b * T;
   for (int i = threadIdx.x; i < T; i += kThreads) {
     K[i] = ks[base + i];
-    C[i] = xs[base + i];
-    C[T + i] = ys[base + i];
-    C[2 * T + i] = zs[base + i];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) C[c * T + i] = ch.in[c][(base + i) * ch.stride];
   }
   __syncthreads();
   for (int sh = 1; sh < T; sh <<= 1) {
-    float nv[3][kMaxPerThread];
+    float nv[NC][kMaxPerThread];
 #pragma unroll
     for (int e = 0; e < kMaxPerThread; ++e) {
       const int i = threadIdx.x + e * kThreads;
@@ -64,7 +78,7 @@ __global__ void __launch_bounds__(kThreads) seg_block_kernel(const int* __restri
         const int j = (i - sh + T) % T;  // the cyclic roll
         const float same = (K[j] == K[i] && i >= sh) ? 1.0f : 0.0f;
 #pragma unroll
-        for (int c = 0; c < 3; ++c)
+        for (int c = 0; c < NC; ++c)
           nv[c][e] = __fadd_rn(C[c * T + i], __fmul_rn(C[c * T + j], same));
       }
     }
@@ -74,59 +88,76 @@ __global__ void __launch_bounds__(kThreads) seg_block_kernel(const int* __restri
       const int i = threadIdx.x + e * kThreads;
       if (i < T) {
 #pragma unroll
-        for (int c = 0; c < 3; ++c) C[c * T + i] = nv[c][e];
+        for (int c = 0; c < NC; ++c) C[c * T + i] = nv[c][e];
       }
     }
     __syncthreads();
   }
   for (int i = threadIdx.x; i < T; i += kThreads) {
-    ox[base + i] = C[i];
-    oy[base + i] = C[T + i];
-    oz[base + i] = C[2 * T + i];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) ch.out[c][(base + i) * ch.stride] = C[c * T + i];
   }
   if (threadIdx.x == 0) {
     const size_t sb = (size_t)s * nb + b;
     last_key[sb] = K[T - 1];
-    for (int c = 0; c < 3; ++c) last_val[3 * sb + c] = C[c * T + T - 1];
+    for (int c = 0; c < NC; ++c) last_val[NC * sb + c] = C[c * T + T - 1];
   }
 }
 
-__global__ void seg_carry_kernel(const int* __restrict__ ks, int n, int T,
+template <int NC>
+__global__ void seg_carry_kernel(const int* __restrict__ ks, Chans<NC> ch, int n, int T,
                                  const int* __restrict__ last_key,
-                                 const float* __restrict__ last_val,
-                                 float* __restrict__ ox, float* __restrict__ oy,
-                                 float* __restrict__ oz) {
+                                 const float* __restrict__ last_val) {
   __shared__ int ck;
-  __shared__ float carry[3];
+  __shared__ float carry[NC];
   const int s = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
   if (b == 0) return;  // block 0 keeps its prefixes
   if (threadIdx.x == 0) {
     // carry into block 1 = block 0's last output = its last prefix
     const size_t s0 = (size_t)s * nb;
     int key = last_key[s0];
-    float cv[3] = {last_val[3 * s0], last_val[3 * s0 + 1], last_val[3 * s0 + 2]};
+    float cv[NC];
+    for (int c = 0; c < NC; ++c) cv[c] = last_val[NC * s0 + c];
     for (int bb = 1; bb < b; ++bb) {  // block bb's last output
       const size_t sb = s0 + bb;
       const float m = last_key[sb] == key ? 1.0f : 0.0f;
-      for (int c = 0; c < 3; ++c) cv[c] = __fadd_rn(last_val[3 * sb + c], __fmul_rn(m, cv[c]));
+      for (int c = 0; c < NC; ++c) cv[c] = __fadd_rn(last_val[NC * sb + c], __fmul_rn(m, cv[c]));
       key = last_key[sb];
     }
     ck = key;
-    for (int c = 0; c < 3; ++c) carry[c] = cv[c];
+    for (int c = 0; c < NC; ++c) carry[c] = cv[c];
   }
   __syncthreads();
   const size_t base = (size_t)s * n + (size_t)b * T;
   for (int i = threadIdx.x; i < T; i += blockDim.x) {
     const float m = ks[base + i] == ck ? 1.0f : 0.0f;
-    ox[base + i] = __fadd_rn(ox[base + i], __fmul_rn(m, carry[0]));
-    oy[base + i] = __fadd_rn(oy[base + i], __fmul_rn(m, carry[1]));
-    oz[base + i] = __fadd_rn(oz[base + i], __fmul_rn(m, carry[2]));
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float* o = ch.out[c] + (base + i) * ch.stride;
+      *o = __fadd_rn(*o, __fmul_rn(m, carry[c]));
+    }
   }
+}
+
+template <int NC>
+int launch_segsum(const int* ks, Chans<NC> ch, int S, int N, int T, int* last_key,
+                  float* last_val, cudaStream_t st) {
+  if (T <= 0 || T > kThreads * kMaxPerThread || N % T != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)T * (1 + NC) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      seg_block_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(N / T, S);
+  seg_block_kernel<NC><<<grid, kThreads, smem, st>>>(ks, ch, N, T, last_key, last_val);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  seg_carry_kernel<NC><<<grid, 256, 0, st>>>(ks, ch, N, T, last_key, last_val);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// ks (S, N) i32 sorted per row; xs, ys, zs (S, N) f32; N % T == 0,
+// K7.  ks (S, N) i32 sorted per row; xs, ys, zs (S, N) f32; N % T == 0,
 // T % 128 == 0, T <= 8192.  Outputs ox, oy, oz (S, N) f32; scratch
 // last_key (S, N/T) i32 and last_val (S, N/T, 3) f32.
 extern "C" int motl_segment_totals(const int* ks, const float* xs,
@@ -134,17 +165,16 @@ extern "C" int motl_segment_totals(const int* ks, const float* xs,
                                    int N, int T, float* ox, float* oy,
                                    float* oz, int* last_key, float* last_val,
                                    void* stream) {
-  if (T <= 0 || T > kThreads * kMaxPerThread || N % T != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)T * 4 * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      seg_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N / T, S);
-  seg_block_kernel<<<grid, kThreads, smem, st>>>(ks, xs, ys, zs, N, T, ox, oy,
-                                                 oz, last_key, last_val);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  seg_carry_kernel<<<grid, 256, 0, st>>>(ks, N, T, last_key, last_val, ox, oy, oz);
-  return (int)cudaGetLastError();
+  Chans<3> ch{{xs, ys, zs}, {ox, oy, oz}, 1};
+  return launch_segsum<3>(ks, ch, S, N, T, last_key, last_val, (cudaStream_t)stream);
+}
+
+// K9.  ks (S, N) i32 sorted per row; vals (S, N, 4) f32; N % T == 0,
+// T <= 8192.  Output out (S, N, 4) f32; scratch last_key (S, N/T) i32 and
+// last_val (S, N/T, 4) f32.
+extern "C" int motl_segment_totals_rows(const int* ks, const float* vals, int S, int N, int T,
+                                        float* out, int* last_key, float* last_val,
+                                        void* stream) {
+  Chans<4> ch{{vals, vals + 1, vals + 2, vals + 3}, {out, out + 1, out + 2, out + 3}, 4};
+  return launch_segsum<4>(ks, ch, S, N, T, last_key, last_val, (cudaStream_t)stream);
 }

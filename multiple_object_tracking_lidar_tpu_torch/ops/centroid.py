@@ -11,7 +11,11 @@ Port of ``multiple_object_tracking_lidar_tpu/ops/centroid.py::
 circumcenter_from_pair_stats``: step (1)'s O(P^2) scan is K3
 (``ops/centroid_cuda.py``); the selection, the line scan and the
 determinant stay here in eager PyTorch, one separately rounded op at a
-time, so no FMA contraction can break the G == 0 test.
+time, so no FMA contraction can break the G == 0 test.  Both the dense
+member table (the grid path) and the cluster-sorted point list
+(``circumcenter_features_sorted``) go that way; the JAX point-list path
+runs ``_one_cluster``, whose picks the JAX package documents as those of the
+pair-stats route (centroid.py:152-157).
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ def circumcenter_from_pair_stats(
     fr: torch.Tensor,           # (C, P) firstrow
     mpts: torch.Tensor,         # (C, P, 3)
     member_mask: torch.Tensor,  # (C, P)
-    t: torch.Tensor,
+    t: torch.Tensor,            # scalar, or (C,) per slot
 ) -> torch.Tensor:
     """(C, 4) [x, y, 0, t] detections from the pair stats.  i* = min
     firstrow over the columns reaching the global max, j* = the first such
@@ -87,7 +91,7 @@ def circumcenter_from_pair_stats(
     cx = torch.where(collinear, pix, (d * e - b * f) / g_safe)
     cy = torch.where(collinear, piy, (a * f - cc * e) / g_safe)
     zeros = torch.zeros((c, 1), dtype=dtype, device=mpts.device)
-    tcol = torch.as_tensor(t, dtype=dtype, device=mpts.device).reshape(1, 1).expand(c, 1)
+    tcol = torch.as_tensor(t, dtype=dtype, device=mpts.device).reshape(-1, 1).expand(c, 1)
     return torch.cat([cx, cy, zeros, tcol], dim=1)
 
 
@@ -99,3 +103,36 @@ def circumcenter_features_table_cuda(
     ``circumcenter_features_table_pallas_v2``)."""
     cm, fr = pair_stats(mpts, member_mask)
     return circumcenter_from_pair_stats(cm, fr, mpts, member_mask, t)
+
+
+def circumcenter_features_table_stacked(
+    mpts: torch.Tensor, member_mask: torch.Tensor, t: torch.Tensor
+) -> torch.Tensor:
+    """(S, C, 4) detections of S frames' member tables (S, C, P, 3), t
+    (S,): one K3 launch for the S * C slots; each slot's result is the one
+    a single-frame call gives."""
+    s, c, p, _ = mpts.shape
+    t_slot = torch.as_tensor(t, dtype=mpts.dtype, device=mpts.device).reshape(s, 1).expand(s, c)
+    dets = circumcenter_features_table_cuda(
+        mpts.reshape(s * c, p, 3), member_mask.reshape(s * c, p), t_slot.reshape(-1))
+    return dets.reshape(s, c, 4)
+
+
+def circumcenter_features_sorted(
+    sorted_pts: torch.Tensor,     # (S, M + P, 3) cluster-contiguous points
+    starts: torch.Tensor,         # (S, C)
+    sizes: torch.Tensor,          # (S, C)
+    cluster_valid: torch.Tensor,  # (S, C)
+    t: torch.Tensor,              # (S,)
+    p_max: int,
+) -> torch.Tensor:
+    """(S, C, 4) detections of S frames from the cluster-sorted point list
+    (``ops/cluster.py::cluster_postprocess``): slot c's members are rows
+    ``starts[c] + arange(P)`` (every start is <= M, so JAX's dynamic_slice
+    never clamps), masked to ``sizes[c]``."""
+    s, c = starts.shape
+    lane = torch.arange(p_max, device=sorted_pts.device)
+    rows = (starts.to(torch.int64)[:, :, None] + lane).reshape(s, -1)
+    mpts = torch.gather(sorted_pts, 1, rows[..., None].expand(-1, -1, 3)).reshape(s, c, p_max, 3)
+    mm = (lane < sizes[:, :, None]) & cluster_valid[:, :, None]
+    return circumcenter_features_table_stacked(mpts, mm, t)

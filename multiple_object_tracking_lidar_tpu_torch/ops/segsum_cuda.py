@@ -1,6 +1,6 @@
-"""K7: segmented prefix totals over key-sorted rows.
+"""K7 and K9: segmented prefix totals over key-sorted rows.
 
-Replaces the Pallas kernel ``multiple_object_tracking_lidar_tpu/ops/
+K7 replaces the Pallas kernel ``multiple_object_tracking_lidar_tpu/ops/
 voxel_pallas.py::segment_totals_raster`` (CUDA source ``csrc/segsum.cu``,
 whose header says what bounds it on the H100 and how its design answers
 that: one CTA per 8,192-row block in shared memory, and the carry across
@@ -11,9 +11,15 @@ the result is bit-identical: per block of T = rb * 128 rows
 every block b > 0 ``c + [k == carry_key] * carry`` with block b-1's last key
 and last output.
 
-``segment_totals`` launches the kernel for CUDA tensors and runs
-``segment_totals_plain`` for CPU tensors; ``.launches`` counts kernel
-launches.  Rows are (N,) or (S, N), one independent sorted row per frame.
+K9 replaces K7's predecessor, ``voxel_pallas.py::segment_totals_pallas``,
+with the same tree over flat blocks of T = min(2048, N) rows and the four
+channels of one (N, 4) array (``segment_totals_rows``).  No path of the JAX
+package reaches it.
+
+``segment_totals`` / ``segment_totals_rows`` launch the kernel for CUDA
+tensors and run ``segment_totals_plain`` / ``segment_totals_rows_plain``
+for CPU tensors; ``.launches`` counts kernel launches.  Rows are (N,) or
+(S, N), one independent sorted row per frame.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from multiple_object_tracking_lidar_tpu_torch import _build
 
 LANES = 128
 RASTER_ROWS = 64  # voxel_pallas.py::_RB: rows of 128 per block
+ROW_BLOCK = 2048  # voxel_pallas.py::_BLOCK: K9's rows per block
 
 
 def block_rows(n: int) -> int:
@@ -37,14 +44,15 @@ def block_rows(n: int) -> int:
     return rb * LANES
 
 
-def segment_totals_plain(ks, xs, ys, zs):
-    """Plain PyTorch version of K7: the same passes (``torch.roll`` is the
-    cyclic shift) and the same carry chain, as separate f32 ops."""
+def _tree_plain(ks, chans, t):
+    """The kernels' tree over blocks of t rows: Hillis-Steele passes of
+    ``c + roll(c, sh) * same`` (``torch.roll`` is the cyclic shift), then
+    the carry chain ``c + [k == carry_key] * carry``, as separate f32 ops.
+    ``ks`` (..., n); each channel (..., n) f32."""
     shape = ks.shape
     n = shape[-1]
-    t = block_rows(n)
     k = ks.reshape(-1, n // t, t)
-    cs = [c.to(torch.float32).reshape(k.shape) for c in (xs, ys, zs)]
+    cs = [c.to(torch.float32).reshape(k.shape) for c in chans]
     i = torch.arange(t, device=ks.device)
     sh = 1
     while sh < t:
@@ -56,6 +64,12 @@ def segment_totals_plain(ks, xs, ys, zs):
         for c in cs:
             c[:, b] = c[:, b] + m * c[:, b - 1, -1:]
     return tuple(c.reshape(shape) for c in cs)
+
+
+def segment_totals_plain(ks, xs, ys, zs):
+    """Plain PyTorch version of K7: the same passes and the same carry
+    chain over blocks of ``block_rows(N)``."""
+    return _tree_plain(ks, (xs, ys, zs), block_rows(ks.shape[-1]))
 
 
 def segment_totals(
@@ -90,3 +104,50 @@ def segment_totals(
 
 
 segment_totals.launches = 0
+
+
+def row_block(n: int) -> int:
+    """K9's rows per block, min(2048, N), with the Pallas wrapper's check."""
+    t = min(ROW_BLOCK, n)
+    if n % t != 0:
+        raise ValueError(f"N must be a multiple of {t}, got {n}")
+    return t
+
+
+def segment_totals_rows_plain(ks, vals):
+    """Plain PyTorch version of K9: ``vals`` (..., N, 4) through the same
+    tree over blocks of ``row_block(N)`` rows."""
+    out = _tree_plain(ks, vals.unbind(-1), row_block(ks.shape[-1]))
+    return torch.stack(out, dim=-1)
+
+
+def segment_totals_rows(
+    ks: torch.Tensor,     # (N,) or (S, N) int32, sorted ascending per row
+    vals: torch.Tensor,   # (N, 4) or (S, N, 4) f32, co-sorted
+) -> torch.Tensor:
+    """K9 on CUDA tensors, its plain version on CPU tensors: (..., N, 4)
+    f32, row i the sum of its run's rows up to and including i."""
+    if ks.device.type == "cpu":
+        return segment_totals_rows_plain(ks, vals)
+    shape = ks.shape
+    n = shape[-1]
+    t = row_block(n)
+    if ks.dtype != torch.int32 or ks.dim() not in (1, 2):
+        raise ValueError(f"ks must be (N,) or (S, N) int32, got {tuple(shape)} {ks.dtype}")
+    if vals.shape != shape + (4,) or vals.dtype != torch.float32 or vals.device != ks.device:
+        raise ValueError(f"vals must be float32 {tuple(shape) + (4,)} on ks's device")
+    s = ks.numel() // n
+    ks_c, vals_c = ks.contiguous(), vals.contiguous()
+    out = torch.empty(vals.shape, dtype=torch.float32, device=ks.device)
+    last_key = torch.empty((s, n // t), dtype=torch.int32, device=ks.device)
+    last_val = torch.empty((s, n // t, 4), dtype=torch.float32, device=ks.device)
+    err = _build.load().motl_segment_totals_rows(
+        ks_c.data_ptr(), vals_c.data_ptr(), s, n, t, out.data_ptr(),
+        last_key.data_ptr(), last_val.data_ptr(), _build.stream_ptr(ks.device),
+    )
+    _build.check(err, "motl_segment_totals_rows")
+    segment_totals_rows.launches += 1
+    return out
+
+
+segment_totals_rows.launches = 0

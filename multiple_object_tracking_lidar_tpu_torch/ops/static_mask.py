@@ -1,14 +1,15 @@
-"""Static-point removal against an occupancy-grid map, per dense-grid cell.
+"""Static-point removal against an occupancy-grid map.
 
-Port of ``multiple_object_tracking_lidar_tpu/ops/static_mask.py`` for the
-dense-grid path (ref removeStatic, src/multiple_object_tracking_lidar.cpp:
-664-706): the map is dilated once on the host (``build_static_mask``), each
-scene cell gets a small window of that map packed into drop bits
-(``build_cell_static_table``), and the per-frame test is elementwise
-(``remove_static_cells``): an f32 rotate into map coordinates, truncation
-toward zero, one window-bit lookup.  The builders are numpy, as in the JAX
-package, and produce tensors; the point-list ``remove_static`` is not
-ported yet (ROADMAP).
+Port of ``multiple_object_tracking_lidar_tpu/ops/static_mask.py`` (ref
+removeStatic, src/multiple_object_tracking_lidar.cpp:664-706): the map is
+dilated once on the host (``build_static_mask``).  The per-frame test is an
+f32 rotate into map coordinates and truncation toward zero (C float
+arithmetic), then a map lookup: on the dense grid, each scene cell's small
+window of the map packed into drop bits (``build_cell_static_table``,
+``remove_static_cells``); on the point list, one gather into the dilated
+map per point (``remove_static``), which works for every map, including
+those whose cell window passes 32 bits.  The builders are numpy, as in the
+JAX package, and produce tensors.
 """
 
 from __future__ import annotations
@@ -175,3 +176,21 @@ def remove_static_cells(
     bit = (table.bits >> torch.clamp(qr * k + qc, 0, k * k - 1)) & 1
     drop = torch.where(in_win, bit, 1)  # out-of-window cannot happen; drop safe
     return occ & (drop == 0)
+
+
+def remove_static(points: torch.Tensor, mask: torch.Tensor, env: MapEnv) -> torch.Tensor:
+    """Point-list static filter: the keep-mask (True = dynamic point to
+    keep) of points (..., M, 3).  The f32 rotate and truncation of
+    ``remove_static_cells``, then ``dilated[row, col]``; points whose
+    (row, col) fall outside the map are dropped.  JAX reads the map through
+    a one-hot bilinear form (a TPU idiom); on 0/1 values the gather gives
+    the same bits."""
+    h, w = env.dilated.shape
+    x_map = points[..., 0].to(torch.float32) - env.origin_x
+    y_map = points[..., 1].to(torch.float32) - env.origin_y
+    col = ((env.cos_nyaw * x_map - env.sin_nyaw * y_map) * env.inv_resolution).to(torch.int32)
+    row = ((env.sin_nyaw * x_map + env.cos_nyaw * y_map) * env.inv_resolution).to(torch.int32)
+    in_bounds = (row >= 0) & (row < h) & (col >= 0) & (col < w)
+    flat = torch.clamp(row, 0, h - 1).to(torch.int64) * w + torch.clamp(col, 0, w - 1)
+    is_static = env.dilated.reshape(-1)[flat]
+    return mask & in_bounds & ~is_static

@@ -10,7 +10,10 @@ K6 (bf16x3 sums).
   two balanced int8 digits per axis, seven channels.
 - K6 replaces ``_accumulate_pallas_v2`` and the jnp bf16x3 lowering
   (``csrc/voxel_bf16x3.cu``): f32 sums of three bf16 parts per coordinate,
-  in the fixed order its header writes down.
+  in the fixed order its header writes down.  Its f32 mode sums the plain
+  coordinates in the same order: the point-list dense accumulator
+  (``voxel_mode="dense"``), whose JAX form is an XLA scatter-add, not a
+  Pallas kernel.
 
 Each CUDA header says what bounds the kernel on the H100 and how its design
 answers that.  K1 and K5 sum integer digits with integer atomics, so their
@@ -19,9 +22,9 @@ float atomics.  One kernel call covers S stacked frames; a single frame is
 S = 1.
 
 Each wrapper (``accumulate_fast_stacked``, ``accumulate_exact_stacked``,
-``accumulate_bf16x3_stacked``) launches its kernel for CUDA tensors and runs
-its ``*_plain`` version for CPU tensors; ``.launches`` counts kernel
-launches.  All return ``((S, 4, n_cells) f32 [sum_x, sum_y, sum_z, count],
+``accumulate_bf16x3_stacked``, ``accumulate_f32_stacked``) launches its
+kernel for CUDA tensors and runs its ``*_plain`` version for CPU tensors;
+``.launches`` counts kernel launches.  All return ``((S, 4, n_cells) f32 [sum_x, sum_y, sum_z, count],
 (S,) i32 mask-nonzero point count)``.
 """
 
@@ -348,12 +351,14 @@ def bf16x3_parts(v: torch.Tensor) -> torch.Tensor:
     return torch.stack([h1, h2, bf16_rne(r1 - h2)], dim=-1)
 
 
-def accumulate_bf16x3_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
-    """Plain PyTorch version of K6, in K6's order: per cell, each part sum
-    starts at +0.0 and adds the cell's points in ascending point index, one
-    rounded f32 add at a time.  A stable sort groups the points by cell;
-    round r then adds every cell's r-th point at once (one point per cell,
-    so the index_put has unique indices)."""
+def _ordered_sums_plain(points, mask, scene, leaf_xy, leaf_z, parts):
+    """K6's order in plain PyTorch: per cell, each sum starts at +0.0 and
+    adds the cell's points in ascending point index, one rounded f32 add at
+    a time.  ``parts`` maps the kept (M, 3) coordinates to the (M, 3, k)
+    values summed.  A stable sort groups the points by cell; round r then
+    adds every cell's r-th point at once (one point per cell, so the
+    index_put has unique indices).  Returns the (S * nc, 3, k) sums and
+    the (S * nc,) counts."""
     k = kernel_params(scene, leaf_xy, leaf_z)
     s = points.shape[0]
     nc = k["n_cells"]
@@ -365,20 +370,87 @@ def accumulate_bf16x3_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
     n_kept = int(ok.sum())
     order = torch.sort(key, stable=True).indices[:n_kept]
     sk = key[order]
-    parts = bf16x3_parts(p.reshape(-1, 3)[order])                   # (M, 3, 3)
+    vals = parts(p.reshape(-1, 3)[order])                           # (M, 3, k)
     counts = torch.bincount(sk, minlength=s * nc)
     rank = torch.arange(n_kept, device=dev) - (torch.cumsum(counts, 0) - counts)[sk]
     by_rank = torch.sort(rank, stable=True).indices
-    acc = torch.zeros((s * nc, 3, 3), dtype=torch.float32, device=dev)
+    acc = torch.zeros((s * nc,) + vals.shape[1:], dtype=torch.float32, device=dev)
     lo = 0
     for m in torch.bincount(rank).tolist():
         sel = by_rank[lo:lo + m]
         idx = sk[sel]
-        acc[idx] = acc[idx] + parts[sel]
+        acc[idx] = acc[idx] + vals[sel]
         lo += m
-    sums = (acc[..., 0] + acc[..., 1]) + acc[..., 2]                 # (S*nc, 3)
+    return acc, counts
+
+
+def _cell_major(sums, counts, s):
+    """(S * nc, 3) sums and (S * nc,) counts -> (S, 4, nc) f32."""
     out = torch.cat([sums, counts[:, None].to(torch.float32)], dim=1)
-    return out.reshape(s, nc, 4).permute(0, 2, 1).contiguous(), _npts(mask, s)
+    return out.reshape(s, -1, 4).permute(0, 2, 1).contiguous()
+
+
+def accumulate_bf16x3_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
+    """Plain PyTorch version of K6's bf16x3 mode: the three bf16 parts of
+    every coordinate summed in K6's order, combined as (S1 + S2) + S3."""
+    acc, counts = _ordered_sums_plain(points, mask, scene, leaf_xy, leaf_z, bf16x3_parts)
+    sums = (acc[..., 0] + acc[..., 1]) + acc[..., 2]                 # (S*nc, 3)
+    s = points.shape[0]
+    return _cell_major(sums, counts, s), _npts(mask, s)
+
+
+def accumulate_f32_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
+    """Plain PyTorch version of K6's f32 mode: the coordinates themselves
+    summed in K6's order -- the order in which XLA's CPU scatter-add
+    (``ops/voxel.py::voxel_accumulate`` of the JAX package) applies them."""
+    acc, counts = _ordered_sums_plain(points, mask, scene, leaf_xy, leaf_z,
+                                      lambda v: v[..., None])
+    s = points.shape[0]
+    return _cell_major(acc[..., 0], counts, s), _npts(mask, s)
+
+
+def sorted_sums_chunk(n_cells: int, n: int) -> int:
+    """K6's points per chunk: 2,048, doubled while the per-(cell, chunk)
+    counters would pass 2^26 per frame (256 MB)."""
+    chunk = BF16X3_CHUNK
+    while n_cells * -(-n // chunk) > 1 << 26 and chunk < n:
+        chunk *= 2
+    return chunk
+
+
+def _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, mode: int):
+    """Launch K6 (mode 0 bf16x3, mode 1 f32): ((S, 4, n_cells) f32, (S,)
+    i32)."""
+    s, n = _check_points(points, mask, "K6")
+    k = kernel_params(scene, leaf_xy, leaf_z)
+    nc = k["n_cells"]
+    chunk = sorted_sums_chunk(nc, n)
+    n_chunks = -(-n // chunk)
+    counts_len = nc * n_chunks
+    seg_len = max(8192, -(-counts_len // 1024))
+    seg_len = -(-seg_len // 32) * 32
+    n_seg = -(-counts_len // seg_len)
+    m8 = (mask != 0).to(torch.uint8).contiguous()
+    dev = points.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    keys = torch.empty((s, n), **i32)
+    counts = torch.zeros((s, counts_len), **i32)
+    offs = torch.empty((s, counts_len), **i32)
+    cell_start = torch.empty((s, nc + 1), **i32)
+    order = torch.empty((s, n), **i32)
+    seg_tot = torch.empty((s, n_seg), **i32)
+    seg_base = torch.empty((s, n_seg), **i32)
+    out = torch.empty((s, 4, nc), dtype=torch.float32, device=dev)
+    err = _build.load().motl_voxel_bf16x3(
+        points.data_ptr(), m8.data_ptr(), s, n, chunk,
+        keys.data_ptr(), counts.data_ptr(), offs.data_ptr(),
+        cell_start.data_ptr(), order.data_ptr(), seg_tot.data_ptr(),
+        seg_base.data_ptr(), seg_len, out.data_ptr(), nc,
+        k["gx"], k["gy"], k["gz"], k["bx"], k["by"], k["bz"],
+        k["inv_xy"], k["inv_z"], mode, _build.stream_ptr(dev),
+    )
+    _build.check(err, "motl_voxel_bf16x3")
+    return out, _npts(m8, s)
 
 
 def accumulate_bf16x3_stacked(
@@ -388,33 +460,30 @@ def accumulate_bf16x3_stacked(
     leaf_xy: float,
     leaf_z: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K6 on CUDA tensors, its plain version on CPU tensors."""
+    """K6 (bf16x3 mode) on CUDA tensors, its plain version on CPU tensors."""
     if points.device.type == "cpu":
         return accumulate_bf16x3_stacked_plain(points, mask, scene, leaf_xy, leaf_z)
-    s, n = _check_points(points, mask, "K6")
-    k = kernel_params(scene, leaf_xy, leaf_z)
-    nc = k["n_cells"]
-    n_chunks = -(-n // BF16X3_CHUNK)
-    m8 = (mask != 0).to(torch.uint8).contiguous()
-    dev = points.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    keys = torch.empty((s, n), **i32)
-    counts = torch.zeros((s, nc * n_chunks), **i32)
-    offs = torch.empty((s, nc * n_chunks), **i32)
-    cell_start = torch.empty((s, nc + 1), **i32)
-    order = torch.empty((s, n), **i32)
-    out = torch.empty((s, 4, nc), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    err = lib.motl_voxel_bf16x3(
-        points.data_ptr(), m8.data_ptr(), s, n, BF16X3_CHUNK,
-        keys.data_ptr(), counts.data_ptr(), offs.data_ptr(),
-        cell_start.data_ptr(), order.data_ptr(), out.data_ptr(), nc,
-        k["gx"], k["gy"], k["gz"], k["bx"], k["by"], k["bz"],
-        k["inv_xy"], k["inv_z"], _build.stream_ptr(dev),
-    )
-    _build.check(err, "motl_voxel_bf16x3")
+    out = _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, 0)
     accumulate_bf16x3_stacked.launches += 1
-    return out, _npts(m8, s)
+    return out
 
 
 accumulate_bf16x3_stacked.launches = 0
+
+
+def accumulate_f32_stacked(
+    points: torch.Tensor,   # (S, N, 3) f32
+    mask: torch.Tensor,     # (S, N) bool / nonzero = keep
+    scene: SceneBounds,
+    leaf_xy: float,
+    leaf_z: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6 (f32 mode) on CUDA tensors, its plain version on CPU tensors."""
+    if points.device.type == "cpu":
+        return accumulate_f32_stacked_plain(points, mask, scene, leaf_xy, leaf_z)
+    out = _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, 1)
+    accumulate_f32_stacked.launches += 1
+    return out
+
+
+accumulate_f32_stacked.launches = 0

@@ -1,6 +1,8 @@
-"""The sorted-runs voxel accumulator (``voxel_mode="runs"`` with
-``cluster_backend="grid"``): port of ``multiple_object_tracking_lidar_tpu/
-ops/voxel_pallas.py::voxel_accumulate_runs_cm``.
+"""The sorted-runs voxel front ends (``voxel_mode="runs"``): port of
+``multiple_object_tracking_lidar_tpu/ops/voxel_pallas.py::
+voxel_accumulate_runs_cm`` (the dense accumulator, ``cluster_backend=
+"grid"``) and ``voxel_downsample_runs`` (the compacted voxel list of the
+point-list backends).
 
 Sort the points by cell key (stable, as ``lax.sort``: the order within a
 run fixes the f32 sum), take the segmented prefix totals with K7
@@ -30,6 +32,22 @@ from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
 )
 
 
+def _sorted_runs(points, mask, scene, leaf_xy, leaf_z):
+    """Stable sort of S frames by cell key and K7's segment totals: (k,
+    ks (S, N) sorted keys, (tx, ty, tz) run prefixes, ok, lin)."""
+    k = kernel_params(scene, leaf_xy, leaf_z)
+    nc = k["n_cells"]
+    p = points.to(torch.float32)
+    ok, lin, _ = kept_cells(p, mask, k)
+    keys = torch.where(ok, lin, nc).to(torch.int32)
+    vals = torch.where(ok[..., None], p, 0.0)
+    ks, perm = torch.sort(keys, dim=1, stable=True)
+    tots = segment_totals(
+        ks, *(torch.gather(vals[..., c], 1, perm).contiguous() for c in range(3))
+    )
+    return k, ks, tots, ok, lin
+
+
 def voxel_accumulate_runs_stacked(
     points: torch.Tensor,   # (S, N, 3) f32
     mask: torch.Tensor,     # (S, N) nonzero = keep
@@ -39,18 +57,10 @@ def voxel_accumulate_runs_stacked(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """((S, 4, n_cells) f32 [sum_x, sum_y, sum_z, count], (S,) i32
     mask-nonzero count) of S independent frames: one sort, one K7 call."""
-    k = kernel_params(scene, leaf_xy, leaf_z)
+    k, ks, (tx, ty, tz), ok, lin = _sorted_runs(points, mask, scene, leaf_xy, leaf_z)
     nc = k["n_cells"]
     s = points.shape[0]
     dev = points.device
-    p = points.to(torch.float32)
-    ok, lin, _ = kept_cells(p, mask, k)
-    keys = torch.where(ok, lin, nc).to(torch.int32)
-    vals = torch.where(ok[..., None], p, 0.0)
-    ks, perm = torch.sort(keys, dim=1, stable=True)
-    tx, ty, tz = segment_totals(
-        ks, *(torch.gather(vals[..., c], 1, perm).contiguous() for c in range(3))
-    )
 
     # the last row of each run holds its total; dropped rows go to a dump cell
     is_last = torch.ones_like(ks, dtype=torch.bool)
@@ -74,3 +84,33 @@ def voxel_accumulate_runs_cm(points, mask, scene, leaf_xy, leaf_z) -> torch.Tens
         points.reshape(1, n, 3), mask.reshape(1, n), scene, leaf_xy, leaf_z
     )
     return acc[0]
+
+
+def voxel_downsample_runs(points, mask, scene: SceneBounds, leaf_xy: float, leaf_z: float,
+                          m_max: int):
+    """Voxel centroids of S frames (S, N, 3) through the sorted runs:
+    ((S, m_max, 3), (S, m_max), (S,)), or the single-frame shapes for one
+    (N, 3) frame.  The run ends come out of a second sort (of their row
+    index; other rows go to the back), the totals of those rows are
+    gathered, and each count is the distance between two run ends."""
+    single = points.dim() == 2
+    if single:
+        points, mask = points[None], mask[None]
+    k, ks, (tx, ty, tz), _, _ = _sorted_runs(points, mask, scene, leaf_xy, leaf_z)
+    s, n = ks.shape
+    dev = ks.device
+    is_last = torch.ones_like(ks, dtype=torch.bool)
+    is_last[:, :-1] = ks[:, 1:] != ks[:, :-1]
+    is_last &= ks < k["n_cells"]
+    n_vox = is_last.sum(dim=1).to(torch.int32)
+    rowi = torch.arange(n, device=dev)
+    src = torch.sort(torch.where(is_last, rowi, n), dim=1).values[:, :m_max]
+    out_mask = src < n
+    srcc = torch.clamp(src, 0, n - 1)
+    rows = torch.stack([torch.gather(c, 1, srcc) for c in (tx, ty, tz)], dim=-1)
+    prev = torch.cat([torch.full((s, 1), -1, dtype=src.dtype, device=dev), src[:, :-1]], dim=1)
+    counts = torch.where(out_mask, src - prev, 1).to(torch.float32)
+    out = rows / torch.clamp(counts[..., None], min=1.0)
+    out = torch.where(out_mask[..., None], out, 0.0)
+    res = (out, out_mask, n_vox)
+    return tuple(r[0] for r in res) if single else res

@@ -15,12 +15,22 @@ every FrameOutput field stacked over frames:
   lowering instead -> ``tests/golden/torch_exact_headline.npz``;
 - ``runs``: ``voxel_mode="runs"`` through ``Tracker.bind_env`` (the sort +
   segment-totals kernel in interpret mode)
-  -> ``tests/golden/torch_runs_headline.npz``.
+  -> ``tests/golden/torch_runs_headline.npz``;
+- the point-list configurations, each through ``Tracker.bind_env`` (the
+  Pallas CC in interpret mode where the backend is "pallas"):
+  ``pointlist`` (C: ``voxel_mode="dense"``, ``cluster_backend="pallas"``)
+  -> ``torch_pointlist_headline.npz``; ``pointlist_scan`` (E: "scan",
+  "jnp") -> ``torch_pointlist_scan_headline.npz``; ``pointlist_runs`` (F:
+  "runs", "pallas") -> ``torch_pointlist_runs_headline.npz``; ``default``
+  (G: ``TrackerConfig()`` itself on the sim map, the headline frames padded
+  to its 131,072 points, 4 frames) -> ``torch_default_headline.npz``.
+  Configuration D ("dense", "jnp") shares C's golden: the CC backends give
+  the same labels, and neither saturates.
 
 tests/test_torch_golden.py recomputes the first frames and checks them
 against the files.
 
-    python scripts/make_torch_golden.py [slice] [exact] [runs]   # default: all
+    python scripts/make_torch_golden.py [slice] [exact] [runs] [pointlist] ...  # default: all
 """
 
 from __future__ import annotations
@@ -35,11 +45,31 @@ GOLDENS = {
     "slice": os.path.join(GOLDEN_DIR, "torch_slice_headline.npz"),
     "exact": os.path.join(GOLDEN_DIR, "torch_exact_headline.npz"),
     "runs": os.path.join(GOLDEN_DIR, "torch_runs_headline.npz"),
+    "pointlist": os.path.join(GOLDEN_DIR, "torch_pointlist_headline.npz"),
+    "pointlist_scan": os.path.join(GOLDEN_DIR, "torch_pointlist_scan_headline.npz"),
+    "pointlist_runs": os.path.join(GOLDEN_DIR, "torch_pointlist_runs_headline.npz"),
+    "default": os.path.join(GOLDEN_DIR, "torch_default_headline.npz"),
 }
 N_FRAMES = 12
+FRAMES = {"default": 4}          # frames per golden where not N_FRAMES
+# the headline config's fields changed for each case ("pointlist_jnp" is
+# configuration D, checked against the "pointlist" golden)
+CASE_FIELDS = {
+    "slice": {},
+    "exact": {"voxel_quant": "exact"},
+    "runs": {"voxel_mode": "runs"},
+    "pointlist": {"voxel_mode": "dense", "cluster_backend": "pallas"},
+    "pointlist_jnp": {"voxel_mode": "dense", "cluster_backend": "jnp"},
+    "pointlist_scan": {"voxel_mode": "scan", "cluster_backend": "jnp"},
+    "pointlist_runs": {"voxel_mode": "runs", "cluster_backend": "pallas"},
+}
 
 
-def golden_outputs(n_frames: int = N_FRAMES, case: str = "slice") -> dict:
+def n_frames_of(case: str) -> int:
+    return FRAMES.get(case, N_FRAMES)
+
+
+def golden_outputs(n_frames: int | None = None, case: str = "slice") -> dict:
     """{field: (n_frames, ...) array} of the JAX FrameOutputs of ``case``."""
     import jax
     import jax.numpy as jnp
@@ -51,12 +81,15 @@ def golden_outputs(n_frames: int = N_FRAMES, case: str = "slice") -> dict:
     from multiple_object_tracking_lidar_tpu.tracker.state import Frame
 
     cfg, env, sc = bench.headline_case()
-    if case == "exact":
-        cfg = cfg.replace(voxel_quant="exact")
-    elif case == "runs":
-        cfg = cfg.replace(voxel_mode="runs")
-    elif case != "slice":
+    if case == "default":
+        from multiple_object_tracking_lidar_tpu.config import TrackerConfig
+
+        cfg = TrackerConfig()     # the env: the same sim map, default tolerances
+    elif case in CASE_FIELDS:
+        cfg = cfg.replace(**CASE_FIELDS[case])
+    else:
         raise ValueError(f"unknown golden {case!r}")
+    n_frames = n_frames_of(case) if n_frames is None else n_frames
     n = cfg.caps.n_max_points
     bufs, masks, ts = [], [], []
     for k in range(n_frames):
@@ -93,7 +126,8 @@ def main(cases: list[str]) -> None:
     for case in cases or list(GOLDENS):
         out = golden_outputs(case=case)
         np.savez_compressed(GOLDENS[case], **out)
-        print(f"wrote {GOLDENS[case]}: {N_FRAMES} frames, {os.path.getsize(GOLDENS[case])} bytes")
+        print(f"wrote {GOLDENS[case]}: {n_frames_of(case)} frames, "
+              f"{os.path.getsize(GOLDENS[case])} bytes")
 
 
 if __name__ == "__main__":

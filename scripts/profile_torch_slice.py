@@ -1,12 +1,14 @@
-"""Where the time goes in the PyTorch/CUDA port's dense-grid slice, on one
-GPU: ``torch.profiler`` over ``Tracker.bind_env_multi`` (S = 8) and
+"""Where the time goes in the PyTorch/CUDA port, on one GPU:
+``torch.profiler`` over ``Tracker.bind_env_multi`` (S = 8) and
 ``Tracker.bind_env`` on the headline scene, in each configuration named
-(``bench_cases.<case>_case``: headline, exact, runs, exact_unpadded).
+(``bench_cases.<case>_case``: the dense grid's headline, exact, runs,
+exact_unpadded; the point list's pointlist (C), pointlist_jnp (D), scan
+(E), pointlist_runs (F), default (G)).
 
     python scripts/profile_torch_slice.py [--case headline exact runs] [--frames 32] [--out DIR]
 
 Prints, per entry point, the wall time per frame without the profiler,
-then under it the device-busy time per frame (the union of kernel intervals in the trace), the device idle share,
+then under it the device-busy time per frame (the union of kernel intervals in the trace), the device idle share, the device operations per frame,
 and the kernels and host ops that take the most time.  With --out, writes
 a Chrome trace per entry point there (~20 MB each).  Needs a GPU (exits 1
 without one).
@@ -51,7 +53,8 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
     ap.add_argument("--frames", type=int, default=32)
     ap.add_argument("--case", nargs="+", default=["headline"],
-                    choices=["headline", "exact", "runs", "exact_unpadded"])
+                    choices=["headline", "exact", "runs", "exact_unpadded", "pointlist",
+                             "pointlist_jnp", "scan", "pointlist_runs", "default"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a GPU", file=sys.stderr)
@@ -114,8 +117,10 @@ def profile_case(case, cfg, env, sc, dev, smi, args) -> None:
             wall_us = 1e6 * (time.perf_counter() - t0)
         busy = _busy_us(prof)
         n = args.frames
+        n_ops = sum(ev.device_type == torch.autograd.DeviceType.CUDA for ev in prof.events())
         print(f"[{name}] {smi}: wall {wall_us / n:.1f} us/frame under the profiler, device busy "
-              f"{busy / n:.1f} us/frame, idle share {1 - busy / wall_us:.3f}")
+              f"{busy / n:.1f} us/frame, idle share {1 - busy / wall_us:.3f}, "
+              f"{n_ops / n:.2f} device ops/frame")
         ka = prof.key_averages()
         dev_rows = sorted(
             (e for e in ka if getattr(e, "self_device_time_total", 0) > 0),

@@ -1,6 +1,7 @@
-"""The seven CUDA kernels against their plain PyTorch versions, and the
-slices (fast, exact and runs mode) on the GPU against the port's plain path
-on the CPU.  Marked ``cuda``: they
+"""The CUDA kernels (K1-K9, K6 in both modes) against their plain PyTorch
+versions, and the slices (fast, exact and runs mode; the point-list
+configurations C-F) on the GPU against the port's plain path on the CPU.
+Marked ``cuda``: they
 skip without a GPU.  This file imports no JAX, so on the GPU machine (which
 has none) it runs without the suite's conftest:
 
@@ -19,10 +20,12 @@ import numpy as np
 import pytest
 import torch
 
+from multiple_object_tracking_lidar_tpu_torch import bench_cases
 from multiple_object_tracking_lidar_tpu_torch.bench_cases import headline_case
 from multiple_object_tracking_lidar_tpu_torch.ops import (
     assign_cuda,
     centroid_cuda,
+    cluster_pallas,
     grid_cuda,
     segsum_cuda,
     voxel_grid_cuda,
@@ -141,7 +144,8 @@ def test_k4_matches_plain(dev, allow, full):
 
 
 @pytest.mark.parametrize("name,leaf", [("exact", 0.1), ("exact", 0.12), ("bf16x3", 0.05),
-                                       ("bf16x3", 0.1), ("bf16x3", 0.5)])
+                                       ("bf16x3", 0.1), ("bf16x3", 0.5), ("f32", 0.05),
+                                       ("f32", 0.1)])
 def test_k5_k6_match_plain(dev, small, name, leaf):
     cfg, _, frames = small
     P = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
@@ -186,6 +190,77 @@ def test_exact_and_runs_slices_gpu_match_cpu_plain_path(dev, small, field, value
     cfg, env, frames = small
     cfg = cfg.replace(**{field: value})
     env_cpu = headline_case()[1]
+    outs = {}
+    for where, e in (("cpu", env_cpu), ("gpu", env)):
+        tr = Tracker(cfg, "cpu" if where == "cpu" else dev)
+        step = tr.bind_env(e)
+        st = tr.init_state()
+        rows = []
+        for buf, mask, t in frames[:7]:
+            st, o = step(st, Frame(torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))
+            rows.append([x.cpu() for x in o])
+        outs[where] = rows
+    for rc, rg in zip(outs["cpu"], outs["gpu"]):
+        for name, a, b in zip(FrameOutput._fields, rc, rg):
+            if name == "vel":
+                assert torch.allclose(a, b, rtol=0, atol=1e-5), name
+            else:
+                assert _bits(a, b), name
+
+
+def _blobs(seed, s, m, n_valid):
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(-3, 3, (s, 8, 3)) * np.array([1, 1, 0.1])
+    which = rng.integers(0, 8, (s, m))
+    pts = (np.take_along_axis(centres, which[..., None], 1)
+           + rng.normal(0, 0.06, (s, m, 3))).astype(np.float32)
+    mask = np.zeros((s, m), bool)
+    for f in range(s):
+        mask[f, rng.permutation(m)[:n_valid]] = True
+    return pts, mask
+
+
+@pytest.mark.parametrize("m,n_sweeps", [(256, 64), (1024, 256), (2048, 256), (1024, 5)])
+def test_k8_matches_plain(dev, m, n_sweeps):
+    pts, mask = _blobs(m + n_sweeps, 3, m, int(0.8 * m))
+    n = min(m, 200)                                   # frame 2: a reversed chain
+    pts[2] = 50.0
+    pts[2, :n, 0] = np.arange(n)[::-1] * 0.1
+    mask[2] = False
+    mask[2, :n] = True
+    mask[1] = False                                   # frame 1: empty
+    P, M = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+    n0 = cluster_pallas.connected_components_pallas.launches
+    k, ks = cluster_pallas.connected_components_pallas(P, M, 0.15, n_sweeps, with_sweeps=True)
+    p, ps = cluster_pallas.connected_components_pallas_plain(P, M, 0.15, n_sweeps,
+                                                             with_sweeps=True)
+    assert cluster_pallas.connected_components_pallas.launches == n0 + 1
+    assert _bits(k, p) and ks == ps
+    a0 = cluster_pallas.cc_adjacency.launches
+    adj = cluster_pallas.cc_adjacency(P, M, 0.15)
+    assert cluster_pallas.cc_adjacency.launches == a0 + 1
+    assert _bits(adj, cluster_pallas.cc_adjacency_plain(P, M, 0.15))
+
+
+@pytest.mark.parametrize("n", [1000, 3 * 2048])
+def test_k9_matches_plain(dev, n):
+    rng = np.random.default_rng(n)
+    ks = np.sort(rng.integers(0, n // 5, (2, n)), axis=1).astype(np.int32)
+    if n > 2048:
+        ks[1, 2000:2100] = ks[1, 2000]                           # across a block edge
+        ks[1] = np.maximum.accumulate(ks[1])
+    K = torch.from_numpy(ks).to(dev)
+    V = torch.from_numpy(rng.normal(0, 3, (2, n, 4)).astype(np.float32)).to(dev)
+    assert _bits(segsum_cuda.segment_totals_rows(K, V), segsum_cuda.segment_totals_rows_plain(K, V))
+
+
+@pytest.mark.parametrize("case", ["pointlist_case", "pointlist_jnp_case", "scan_case",
+                                  "pointlist_runs_case"])
+def test_pointlist_slices_gpu_match_cpu_plain_path(dev, small, case):
+    cfg0, _, frames = small
+    cfg, env, _ = getattr(bench_cases, case)(device=dev)
+    cfg = cfg.replace(caps=dataclasses.replace(cfg0.caps, m_max_voxels=2048, m_max_dynamic=512))
+    env_cpu = getattr(bench_cases, case)()[1]
     outs = {}
     for where, e in (("cpu", env_cpu), ("gpu", env)):
         tr = Tracker(cfg, "cpu" if where == "cpu" else dev)

@@ -1,7 +1,8 @@
 """The port imports and runs where JAX is absent (the GPU machine has no
 JAX): a fresh interpreter with ``jax`` and the JAX package blocked imports
 every module of the port, and ``chip_smoke.py``, steps 2 frames on the
-CPU, and one frame each in exact mode and runs mode."""
+CPU, one frame each in exact mode and runs mode, and one frame of each
+point-list configuration (C-G) on small caps."""
 
 import os
 import subprocess
@@ -46,6 +47,16 @@ SCRIPT = textwrap.dedent(
         o = Tracker(c).bind_env(env)(Tracker(c).init_state(), Frame(
             torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))[1]
         assert int(o.n_clusters) >= 3, (case.__name__, o)
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    small = dict(n_max_points=4096, m_max_voxels=1024, m_max_dynamic=256,
+                 c_max_clusters=8, p_max_cluster=64, k_max_tracks=8)
+    for name in ("pointlist_case", "pointlist_jnp_case", "scan_case",
+                 "pointlist_runs_case", "default_case"):
+        c = getattr(bench_cases, name)()[0]
+        c = c.replace(caps=dataclasses.replace(c.caps, **small))
+        o = Tracker(c).bind_env(env)(Tracker(c).init_state(), Frame(
+            torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))[1]
+        assert int(o.n_clusters) >= 3, (name, o)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                     and sys.modules[m] is not None)
     assert not leaked, leaked

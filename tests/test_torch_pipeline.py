@@ -159,13 +159,10 @@ def test_state_hand_over_through_carry_across(case):
 
 @pytest.mark.parametrize(
     "field,value",
-    [("voxel_mode", "dense"), ("association", "hungarian"),
-     ("position_filter", "ihgp"), ("cluster_backend", "jnp")],
+    [("dtype", "bfloat16"), ("association", "hungarian"),
+     ("position_filter", "ihgp"), ("dtype", "float64")],
 )
 def test_unported_configs_raise(field, value):
-    kw = {field: value}
-    if field == "cluster_backend":
-        kw["voxel_mode"] = "dense"
-    cfg = bench_cases.bench_config().replace(**kw)
+    cfg = bench_cases.bench_config().replace(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TTracker(cfg)

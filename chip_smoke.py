@@ -7,9 +7,10 @@ of JAX, in five phases, one or more lines each:
 
 1. the card (``nvidia-smi`` name and power limit); no CUDA -> exit 1;
 2. the kernel build from ``csrc/*.cu`` (one nvcc per source, in parallel);
-3. each kernel (K1-K9, K6 in its bf16x3 and f32 modes) against its plain
-   PyTorch version on the card, at the shapes its path gives it, on
-   scenario and adversarial inputs;
+3. each kernel (K1-K9, K6 in its bf16x3 and f32 modes, K1's and K5's
+   histograms and finalizes alone) against its plain PyTorch version on
+   the card, at the shapes its path gives it, on scenario and adversarial
+   inputs;
 4. the paths, each with every kernel's launch counter reset before and
    read after: the headline (fast digits) -- ``TrackerNode.on_pointcloud``
    answers 12 headline PointCloud2 frames and ``Tracker.bind_env_multi``
@@ -24,11 +25,20 @@ of JAX, in five phases, one or more lines each:
    ``TrackerNode`` (12 frames) and ``bind_env_multi`` (2 x S = 8), and G
    (the JAX package's ``TrackerConfig()``) through ``TrackerNode`` (4
    frames), held against torch_{pointlist,pointlist_scan,pointlist_runs,
-   default}_headline.npz (D shares C's);
+   default}_headline.npz (D shares C's); then the fleet on a one-rank NCCL
+   mesh: the kernel fleet (``ShardedTracker``, B = 8 headline streams x 3
+   steps, stream s at step k fed headline frame 3 s + k) against the JAX
+   fleet golden (torch_fleet_headline.npz) and bit for bit against each
+   stream's own ``bind_env``; the vmap fleet on C the same way against C's
+   ``bind_env``; ``MultiplexedTracker`` (2 streams) and ``StreamingNode``
+   on 12 headline frames against the slice golden;
 5. timings with CUDA events, beside the card's name and power limit:
    ``bind_env`` and ``bind_env_multi`` per path, host syncs per frame of
-   each point-list path, device ops per frame of C, and each kernel
-   against its plain version.
+   each point-list path, device ops per frame of C, the fleet's clouds/s
+   and device ops per cloud beside ``bind_env_multi``, and each kernel
+   against its plain version, with its bound (the larger of its bytes over
+   3.35 TB/s and its operations over 67 TFLOP/s) and, where one PyTorch
+   call computes the same function, that call's time.
 
 Any failed phase raises (exit 1).  The line before the last is the kernel
 report (JSON); the last line is ``{"ok": true, "device": {...}}``.
@@ -51,6 +61,9 @@ GOLDEN_EXACT = os.path.join(HERE, "tests", "golden", "torch_exact_headline.npz")
 GOLDEN_RUNS = os.path.join(HERE, "tests", "golden", "torch_runs_headline.npz")
 GOLDEN_PL = {g: os.path.join(HERE, "tests", "golden", f"torch_{g}_headline.npz")
              for g in ("pointlist", "pointlist_scan", "pointlist_runs", "default")}
+GOLDEN_FLEET = os.path.join(HERE, "tests", "golden", "torch_fleet_headline.npz")
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM: HBM3 rate (NVIDIA's datasheet)
+F32_OPS_PER_S = 67e12         # H100 SXM: f32 outside the tensor cores; int32 ops too
 PKG = "multiple_object_tracking_lidar_tpu_torch"
 
 # Tolerances against the JAX golden, with their reasons.  Integers, labels
@@ -431,6 +444,40 @@ def phase_kernels_more(dev, report, cfg, k1_inputs):
                lambda: segsum_cuda.segment_totals_plain(ks, *vals))
 
 
+def phase_kernels_fleet(dev, report, cfg, k1_inputs):
+    """K1's and K5's histograms alone (``*_stacked_raw``) and finalizes
+    alone (``finalize_*_stacked``), the kernel fleet's entries, against
+    their plain versions, and raw + finalize against the fused kernel: at
+    S = 8 headline frames (frame 7 adversarial) and on a blob frame past
+    the TPU's f32 bound."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid_cuda as vg
+
+    kw = (cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    P = torch.from_numpy(k1_inputs[0]).to(dev)
+    M = torch.from_numpy(k1_inputs[1]).to(dev)
+    bp, bm = blob_frame(cfg, np.random.default_rng(91), 133_120)
+    BP, BM = torch.from_numpy(bp).to(dev), torch.from_numpy(bm).to(dev)
+    adv = "frame 7 adversarial: NaN/inf/out-of-bounds/leaf-boundary/masked/one-cell blob"
+    kinds = (
+        ("K1", vg.accumulate_fast_stacked_raw, vg.finalize_fast_stacked,
+         vg.accumulate_fast_stacked, vg.fast_digit_sums),
+        ("K5", vg.accumulate_exact_stacked_raw, vg.finalize_exact_stacked,
+         vg.accumulate_exact_stacked, vg.exact_digit_sums),
+    )
+    for name, raw_fn, fin_fn, fused, plain_raw in kinds:
+        for what, PP, MM in ((f"S=8 N={P.shape[1]} ({adv})", P, M),
+                             ("S=1 N=133120, 99% in one cell", BP, BM)):
+            raw = check_pair(report, f"{name} raw", what,
+                             lambda: raw_fn(PP, MM, *kw),
+                             lambda: (plain_raw(PP, MM, *kw), (MM != 0).sum(1).to(torch.int32)))
+            check_pair(report, f"{name} fin", f"{what}: finalize of those sums",
+                       lambda: (fin_fn(raw[0], *kw),),
+                       lambda: (fin_fn(raw[0].cpu(), *kw).to(dev),))
+            check_pair(report, f"{name} fin", f"{what}: raw + finalize against the fused {name}",
+                       lambda: (fin_fn(raw[0], *kw), raw[1]),
+                       lambda: fused(PP, MM, *kw))
+
+
 def phase_kernels_pointlist(dev, report, cfg, k1_inputs):
     """K6's f32 mode, K8 and K9 on the card, against their plain versions."""
     from multiple_object_tracking_lidar_tpu_torch import bench_cases
@@ -530,10 +577,14 @@ def kernel_wrappers():
 
     return {
         "K1": voxel_grid_cuda.accumulate_fast_stacked,
+        "K1 raw": voxel_grid_cuda.accumulate_fast_stacked_raw,
+        "K1 fin": voxel_grid_cuda.finalize_fast_stacked,
         "K2": grid_cuda.fused_finalize_static_cc_stacked,
         "K3": centroid_cuda.pair_stats,
         "K4": assign_cuda.assoc_scan,
         "K5": voxel_grid_cuda.accumulate_exact_stacked,
+        "K5 raw": voxel_grid_cuda.accumulate_exact_stacked_raw,
+        "K5 fin": voxel_grid_cuda.finalize_exact_stacked,
         "K6": voxel_grid_cuda.accumulate_bf16x3_stacked,
         "K6f": voxel_grid_cuda.accumulate_f32_stacked,
         "K7": segsum_cuda.segment_totals,
@@ -554,6 +605,8 @@ def read_counts():
 
 FAST_PATH = ("K1", "K2", "K3", "K4")   # the kernels each path must launch
 TAIL = ("K2", "K3", "K4")
+FLEET_PATH = ("K1 raw", "K1 fin", "K2", "K3", "K4")
+FLEET_C_PATH = ("K6f", "K8", "K3", "K4")
 
 
 def require(tag, counts, need, report):
@@ -801,6 +854,151 @@ def phase_pointlist(dev, report):
     run_node(dev, "G defaults", cfg, sc, golden, 4, ("K6f", "K8a", "K3", "K4"), report)
 
 
+def fleet_frames(dev, sc, n, b, n_steps):
+    """(points (steps, B, n, 3), mask (steps, B, n), t (steps, B)) on the
+    card: stream s at step k gets headline frame 3 s + k."""
+    pts, mask, ts = headline_frames(sc, n, [3 * s + k for k in range(n_steps) for s in range(b)])
+    return tuple(torch.from_numpy(a.reshape((n_steps, b) + a.shape[1:])).to(dev)
+                 for a in (pts, mask, ts))
+
+
+def run_fleet(tag, fleet, env, frames, need, report):
+    """One ShardedTracker over frames (steps, B, ...), counters reset
+    before and read after; its outputs as {field: (steps, B, ...)}."""
+    P, M, T = frames
+    step = fleet.bind_env(env)
+    state = fleet.init_state(P.shape[1])
+    reset_counts()
+    outs = []
+    for k in range(P.shape[0]):
+        state, o = step(state, P[k], M[k], T[k])
+        outs.append(o)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require(tag, counts, need, report)
+    return {f: np.stack([npy(getattr(o, f)) for o in outs]) for f in outs[0]._fields}, counts
+
+
+def per_stream_bind_env(tag, tracker, env, frames, got):
+    """Each stream's own bind_env on the card, bit for bit against the
+    fleet's outputs ``got``."""
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    P, M, T = frames
+    one = tracker.bind_env(env)
+    for s in range(P.shape[1]):
+        st = tracker.init_state()
+        for k in range(P.shape[0]):
+            st, o = one(st, Frame(P[k, s], M[k, s], T[k, s]))
+            bad = [f for f in o._fields if not equal(npy(getattr(o, f)), got[f][k, s])]
+            if bad:
+                fail(f"{tag}: stream {s} step {k} differs from its bind_env in {bad}")
+
+
+def phase_fleet(dev, report):
+    """The fleet on a one-rank NCCL mesh: the kernel fleet at B = 8
+    headline streams, the vmap fleet on C, MultiplexedTracker and
+    StreamingNode, each against its golden and the port's own bind_env."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.parallel import ShardedTracker, make_mesh
+    from multiple_object_tracking_lidar_tpu_torch.runtime.fleet import MultiplexedTracker
+    from multiple_object_tracking_lidar_tpu_torch.runtime.stream import StreamingNode
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    B, n_steps = 8, 3
+    mesh = make_mesh(1, 1, device=dev)
+    gold_fleet = dict(np.load(GOLDEN_FLEET))
+    gold = dict(np.load(GOLDEN))
+    cfg, env, sc = bench_cases.headline_case(device=dev)
+    frames = fleet_frames(dev, sc, cfg.caps.n_max_points, B, n_steps)
+
+    tracker = Tracker(cfg, dev)
+    fleet = ShardedTracker(tracker, mesh, kernel_path="on")
+    got, counts = run_fleet("kernel fleet", fleet, env, frames, FLEET_PATH, report)
+    e_gold = compare("kernel fleet vs JAX fleet golden", got, gold_fleet, TOL_DETS, TOL_VEL)
+    per_stream_bind_env("kernel fleet", tracker, env, frames, got)
+    e_s0 = compare("kernel fleet stream 0 vs slice golden frames 0-2",
+                   {f: v[:, 0] for f, v in got.items()}, {f: v[:n_steps] for f, v in gold.items()},
+                   TOL_DETS, TOL_VEL)
+    log(f"[4 fleet] kernel fleet B={B} x {n_steps} steps on a 1 x 1 NCCL mesh: launches {counts}, "
+        f"n_clusters {got['n_clusters'].tolist()}, valid {got['valid'].sum(2).tolist()}; vs JAX "
+        f"fleet golden max abs err {e_gold}; bit for bit each stream's bind_env; stream 0 vs slice "
+        f"golden {e_s0}")
+
+    acfg, aenv, _ = bench_cases.exact_case(device=dev)
+    atracker = Tracker(acfg, dev)
+    got, counts = run_fleet("kernel fleet A exact", ShardedTracker(atracker, mesh, kernel_path="on"),
+                            aenv, frames, ("K5 raw", "K5 fin", "K2", "K3", "K4"), report)
+    per_stream_bind_env("kernel fleet A exact", atracker, aenv, frames, got)
+    e_a = compare("kernel fleet A exact stream 0 vs exact golden frames 0-2",
+                  {f: v[:, 0] for f, v in got.items()},
+                  {f: v[:n_steps] for f, v in dict(np.load(GOLDEN_EXACT)).items()},
+                  TOL_DETS, TOL_VEL)
+    log(f"[4 fleet] kernel fleet, exact mode (A), B={B} x {n_steps} steps: launches {counts}; "
+        f"bit for bit each stream's bind_env; stream 0 vs exact golden {e_a}")
+
+    ccfg, cenv, _ = bench_cases.pointlist_case(device=dev)
+    ctracker = Tracker(ccfg, dev)
+    vfleet = ShardedTracker(ctracker, mesh)
+    if vfleet._use_kernel_fleet:
+        fail("configuration C took the kernel fleet")
+    got, counts = run_fleet("vmap fleet C", vfleet, cenv, frames, FLEET_C_PATH, report)
+    per_stream_bind_env("vmap fleet C", ctracker, cenv, frames, got)
+    e_c = compare("vmap fleet C stream 0 vs C golden frames 0-2",
+                  {f: v[:, 0] for f, v in got.items()},
+                  {f: v[:n_steps] for f, v in dict(np.load(GOLDEN_PL["pointlist"])).items()},
+                  TOL_DETS, TOL_VEL)
+    log(f"[4 fleet] vmap fleet C B={B} x {n_steps} steps: launches {counts}, n_dynamic "
+        f"{got['n_dynamic'].tolist()}; bit for bit each stream's bind_env; stream 0 vs C golden {e_c}")
+
+    n_fr = 12
+    pts, mask, ts = headline_frames(sc, cfg.caps.n_max_points, range(n_fr))
+    P, M, T = (torch.from_numpy(a).to(dev) for a in (pts, mask, ts))
+    mux = MultiplexedTracker(tracker, env, 2)
+    reset_counts()
+    rows = [[], []]
+    for k in range(n_fr):
+        for s in range(2):
+            rows[s].append(mux.step(s, Frame(P[k], M[k], T[k])))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require("MultiplexedTracker", counts, FAST_PATH, report)
+    errs = []
+    for s in range(2):
+        g = {f: np.stack([npy(getattr(o, f)) for o in rows[s]]) for f in rows[s][0]._fields}
+        errs.append(compare(f"MultiplexedTracker stream {s} vs slice golden", g, gold, TOL_DETS, TOL_VEL))
+    log(f"[4 fleet] MultiplexedTracker 2 streams x {n_fr} frames, round robin: launches {counts}; "
+        f"vs slice golden max abs err {errs}")
+
+    recs = []
+    node = StreamingNode(cfg, on_outputs=lambda *r: recs.append(r), depth=3, device=dev)
+    node.on_map(load_sim_grid())
+    reset_counts()
+    for k in range(n_fr):
+        node.submit(sc.frame(k))
+    node.flush()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require("StreamingNode", counts, FAST_PATH, report)
+    published = [k for k in range(n_fr) if gold["publish"][k]]
+    if len(recs) != len(published):
+        fail(f"StreamingNode published {len(recs)} frames, the golden {len(published)}")
+    e_pos = e_vel = 0.0
+    for (obstacles, _, _), k in zip(recs, published):
+        v = gold["valid"][k]
+        if [o.id for o in obstacles.obstacles] != gold["obj_id"][k][v].tolist():
+            fail(f"StreamingNode frame {k}: ids differ from the golden")
+        e_pos = max(e_pos, max_err([o.position[:2] for o in obstacles.obstacles], gold["pos"][k][v]))
+        e_vel = max(e_vel, max_err([o.velocity[:2] for o in obstacles.obstacles], gold["vel"][k][v]))
+    if e_pos > TOL_DETS or e_vel > TOL_VEL:
+        fail(f"StreamingNode vs slice golden: pos err {e_pos}, vel err {e_vel}")
+    log(f"[4 fleet] StreamingNode depth 3 x {n_fr} PointCloud2 frames: {len(recs)} published, "
+        f"launches {counts}, summary {node.summary()}; vs slice golden pos err {e_pos}, vel err {e_vel}")
+    return fleet, env, frames
+
+
 # ---------------------------------------------------------------------------
 # phase 5: timings
 # ---------------------------------------------------------------------------
@@ -948,57 +1146,159 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
     pcfg = bench_cases.pointlist_case()[0]
     cpts, cmsk = pointlist_rows(dev, pcfg, P[:8].contiguous(), M[:8])
     tol, sweeps = pcfg.cluster_tolerance, 8 * pcfg.caps.label_prop_iters
-    pairs = {
-        "K1": (lambda: voxel_grid_cuda.accumulate_fast_stacked(P[:8], M[:8], *kw1),
-               lambda: voxel_grid_cuda.accumulate_fast_stacked_plain(P[:8], M[:8], *kw1),
-               "S=8 frames x 106496 points"),
+    P8, M8 = P[:8].contiguous(), M[:8].contiguous()
+    vg = voxel_grid_cuda
+    raw1, _ = vg.accumulate_fast_stacked_raw(P8, M8, *kw1)
+    raw5, _ = vg.accumulate_exact_stacked_raw(P8, M8, *kw1)
+
+    # what the data needs, for the bounds: kept points, cells, K2's
+    # iterations, K3's members, K8's valid rows and sweeps
+    k1p = vg.kernel_params(*kw1)
+    s8, nc = P8.shape[0], k1p["n_cells"]
+    ok, lin, _ = vg.kept_cells(P8, M8, k1p)
+    kept = int(ok.sum())
+    kept1 = int(vg.kept_cells(P1, M1, k1p)[0].sum())
+    n_off, iters = len(offsets), int(outs[3].sum())
+    members = mm.sum(dim=1).to(torch.float64)
+    _, k8_sweeps = cluster_pallas.connected_components_pallas(cpts, cmsk, tol, sweeps,
+                                                              with_sweeps=True)
+    v8 = cmsk.sum(dim=1).to(torch.float64)
+    # the library calls: one PyTorch call computing the same function
+    frame_of = torch.arange(s8, device=dev)[:, None]
+    tgt = torch.where(ok, frame_of * nc + lin, s8 * nc).reshape(-1)
+    vals4 = torch.cat([torch.where(ok[..., None], P8, 0.0), ok[..., None].float()], -1).reshape(-1, 4)
+    base = torch.zeros((s8 * nc + 1, 4), dtype=torch.float32, device=dev)
+    runs = torch.unique_consecutive((frame_of * (nc + 1) + ks).reshape(-1), return_counts=True)[1]
+    rows3 = torch.stack(vals, dim=-1).reshape(-1, 3)
+    rows4 = v4.reshape(-1, 4)
+    pairs = {  # name: (kernel, plain, shape, inputs, operations, library call or None)
+        "K1": (lambda: vg.accumulate_fast_stacked(P8, M8, *kw1),
+               lambda: vg.accumulate_fast_stacked_plain(P8, M8, *kw1),
+               "S=8 frames x 106496 points", (P8, M8), 35 * kept + 12 * s8 * nc, None),
+        "K1 raw": (lambda: vg.accumulate_fast_stacked_raw(P8, M8, *kw1),
+                   lambda: (vg.fast_digit_sums(P8, M8, *kw1), (M8 != 0).sum(1).int()),
+                   "S=8 frames x 106496 points", (P8, M8), 35 * kept, None),
+        "K1 fin": (lambda: vg.finalize_fast_stacked(raw1, *kw1),
+                   lambda: vg.finalize_fast_digits(raw1, k1p),
+                   "S=8 frames x 5500 cells", (raw1,), 12 * s8 * nc, None),
         "K2": (lambda: grid_cuda.fused_finalize_static_cc_stacked(acc, *tb, **kw2),
                lambda: grid_cuda.fused_finalize_static_cc_stacked_plain(
                    acc, *tb, dims=plan.dims, offsets=offsets, kwin=plan.table.k,
                    max_sweeps=2 * sum(plan.dims)),
-               "S=8 frames x 5500 cells"),
+               "S=8 frames x 5500 cells", (acc,) + tb,
+               s8 * nc * (15 + 9 * n_off) + iters * nc * (2 * n_off + 1), None),
         "K3": (lambda: centroid_cuda.pair_stats(mp, mm),
                lambda: centroid_cuda.pair_stats_plain(mp, mm),
-               f"C=32 P=384, {int(mm.any(1).sum())} active slots"),
+               f"C=32 P=384, {int(mm.any(1).sum())} active slots", (mp, mm),
+               int((9 * members * members + 3 * members).sum()), None),
         "K4": (lambda: assign_cuda.assoc_scan(*a4, **kw4),
                lambda: assign_cuda.assoc_scan_plain(*a4, **kw4),
-               "K=64 D=32, 4 valid detections"),
-        "K5": (lambda: voxel_grid_cuda.accumulate_exact_stacked(P[:8], M[:8], *kw1),
-               lambda: voxel_grid_cuda.accumulate_exact_stacked_plain(P[:8], M[:8], *kw1),
-               "S=8 frames x 106496 points"),
-        "K6": (lambda: voxel_grid_cuda.accumulate_bf16x3_stacked(P1, M1, *kw1),
-               lambda: voxel_grid_cuda.accumulate_bf16x3_stacked_plain(P1, M1, *kw1),
-               "S=8 frames x 100000 points"),
-        "K6f": (lambda: voxel_grid_cuda.accumulate_f32_stacked(P[:8], M[:8], *kw1),
-                lambda: voxel_grid_cuda.accumulate_f32_stacked_plain(P[:8], M[:8], *kw1),
-                "S=8 frames x 106496 points"),
+               "K=64 D=32, 4 valid detections", a4, 20 * K * D, None),
+        "K5": (lambda: vg.accumulate_exact_stacked(P8, M8, *kw1),
+               lambda: vg.accumulate_exact_stacked_plain(P8, M8, *kw1),
+               "S=8 frames x 106496 points", (P8, M8), 45 * kept + 18 * s8 * nc, None),
+        "K5 raw": (lambda: vg.accumulate_exact_stacked_raw(P8, M8, *kw1),
+                   lambda: (vg.exact_digit_sums(P8, M8, *kw1), (M8 != 0).sum(1).int()),
+                   "S=8 frames x 106496 points", (P8, M8), 45 * kept, None),
+        "K5 fin": (lambda: vg.finalize_exact_stacked(raw5, *kw1),
+                   lambda: vg.finalize_exact_digits(raw5, *kw1),
+                   "S=8 frames x 5500 cells", (raw5,), 18 * s8 * nc, None),
+        "K6": (lambda: vg.accumulate_bf16x3_stacked(P1, M1, *kw1),
+               lambda: vg.accumulate_bf16x3_stacked_plain(P1, M1, *kw1),
+               "S=8 frames x 100000 points", (P1, M1), 50 * kept1, None),
+        "K6f": (lambda: vg.accumulate_f32_stacked(P8, M8, *kw1),
+                lambda: vg.accumulate_f32_stacked_plain(P8, M8, *kw1),
+                "S=8 frames x 106496 points", (P8, M8), 20 * kept,
+                lambda: torch.index_add(base, 0, tgt, vals4)),
         "K7": (lambda: segsum_cuda.segment_totals(ks, *vals),
                lambda: segsum_cuda.segment_totals_plain(ks, *vals),
-               "S=8 frames x 106496 sorted rows"),
+               "S=8 frames x 106496 sorted rows", (ks,) + tuple(vals), 6 * ks.numel(),
+               lambda: torch.segment_reduce(rows3, "sum", lengths=runs, axis=0)),
         "K8": (lambda: cluster_pallas.connected_components_pallas(cpts, cmsk, tol, sweeps),
                lambda: cluster_pallas.connected_components_pallas_plain(cpts, cmsk, tol, sweeps),
-               f"S=8 frames x M={cpts.shape[1]} point lists ({int(cmsk.sum())} valid rows)"),
+               f"S=8 frames x M={cpts.shape[1]} point lists ({int(cmsk.sum())} valid rows)",
+               (cpts, cmsk), int(((9 + k8_sweeps) * v8 * v8).sum()), None),
         "K9": (lambda: segsum_cuda.segment_totals_rows(ks, v4),
                lambda: segsum_cuda.segment_totals_rows_plain(ks, v4),
-               "S=8 frames x 106496 sorted rows x 4 channels"),
+               "S=8 frames x 106496 sorted rows x 4 channels", (ks, v4), 8 * ks.numel(),
+               lambda: torch.segment_reduce(rows4, "sum", lengths=runs, axis=0)),
     }
-    for name, (fk, fp, shape) in pairs.items():
+    for name, (fk, fp, shape, ins, ops, lib) in pairs.items():
         reps_p = 2 if name in ("K6", "K6f") else 5
         ms_p = cuda_ms(fp, reps_p)
         ms_k = cuda_ms(fk, 50)
         ms_k2 = cuda_ms(fk, 50)
         ms_p2 = cuda_ms(fp, reps_p)
-        report[name]["ms"] = min(ms_k, ms_k2)
-        report[name]["plain_ms"] = min(ms_p, ms_p2)
+        moved = nbytes(ins) + nbytes(fk())
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        entry = report[name]
+        entry["ms"] = min(ms_k, ms_k2)
+        entry["plain_ms"] = min(ms_p, ms_p2)
+        entry["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        entry["library_ms"] = cuda_ms(lib, 20) if lib is not None else None
         log(f"[5 timing] {smi}: {name} {shape}: kernel {ms_k:.4f}/{ms_k2:.4f} ms, "
             f"plain {ms_p:.4f}/{ms_p2:.4f} ms (run plain, kernel, kernel, plain; "
-            f"min reported)")
+            f"min reported); bound {entry['bound_ms']:.4f} ms by {entry['bound_by']} "
+            f"({moved} bytes, {ops} operations); library call "
+            f"{'none' if lib is None else format(entry['library_ms'], '.4f') + ' ms'}")
     return ms_single, ms_multi
+
+
+def nbytes(x) -> int:
+    """Bytes of the tensors in x (a tensor or nested tuples of them)."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (tuple, list)):
+        return sum(nbytes(y) for y in x)
+    return 0
+
+
+def phase_timings_fleet(dev, smi, fleet, env, frames):
+    """The kernel fleet (B = 8 streams x 3 steps) beside bind_env_multi
+    (the same 24 clouds as 3 dispatches of S = 8), in turns (multi, fleet,
+    fleet, multi): ms per cloud, clouds/s and device ops per cloud."""
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    P, M, T = frames
+    n_steps, b = P.shape[0], P.shape[1]
+    n_clouds = n_steps * b
+    step = fleet.bind_env(env)
+    tracker = fleet.tracker
+    multi = tracker.bind_env_multi(env)
+    Pm, Mm, Tm = (a.reshape((n_clouds,) + a.shape[2:]) for a in (P, M, T))
+
+    def run_fleet():
+        st = fleet.init_state(b)
+        for k in range(n_steps):
+            st, _ = step(st, P[k], M[k], T[k])
+
+    def run_multi():
+        st = tracker.init_state()
+        for d in range(n_clouds // 8):
+            sl = slice(8 * d, 8 * d + 8)
+            st, _ = multi(st, Frame(Pm[sl], Mm[sl], Tm[sl]))
+
+    m1 = cuda_ms(run_multi, 3) / n_clouds
+    f1 = cuda_ms(run_fleet, 3) / n_clouds
+    f2 = cuda_ms(run_fleet, 3) / n_clouds
+    m2 = cuda_ms(run_multi, 3) / n_clouds
+    ops_f = device_ops_per_frame(run_fleet, n_clouds)
+    ops_m = device_ops_per_frame(run_multi, n_clouds)
+    log(f"[5 timing] {smi}: fleet B={b} x {n_steps} steps {f1:.4f}/{f2:.4f} ms/cloud "
+        f"({1e3 / min(f1, f2):.1f} clouds/s), device ops per cloud {ops_f:.2f}; beside it "
+        f"bind_env_multi S=8 {m1:.4f}/{m2:.4f} ms/cloud ({1e3 / min(m1, m2):.1f} clouds/s), "
+        f"device ops per cloud {ops_m:.2f} (run multi, fleet, fleet, multi)")
 
 
 KERNELS = (
     ("K1", "voxel_grid fast-digit histogram + finalize",
      f"{PKG}/csrc/voxel_grid.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1272"),
+    ("K1 raw", "K1's histogram alone, int32 digit sums for the fleet's all-reduce "
+     "(replaces _v5_stacked_raw :1642 and _v4_stacked_raw :1778)",
+     f"{PKG}/csrc/voxel_grid.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1642"),
+    ("K1 fin", "K1's finalize alone (no TPU kernel: the jnp finalize_fast_digits)",
+     f"{PKG}/csrc/voxel_grid.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1900"),
     ("K2", "fused finalize + static drop + grid CC",
      f"{PKG}/csrc/grid_cc.cu", "multiple_object_tracking_lidar_tpu/ops/grid_pallas.py:288"),
     ("K3", "farthest-pair column stats",
@@ -1007,6 +1307,11 @@ KERNELS = (
      f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188"),
     ("K5", "voxel_grid exact two-digit histogram + finalize",
      f"{PKG}/csrc/voxel_exact.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1538"),
+    ("K5 raw", "K5's histogram alone, int32 two-digit sums for the fleet's all-reduce "
+     "(replaces _v6_stacked_raw :1686 and _v3_stacked_raw :1830)",
+     f"{PKG}/csrc/voxel_exact.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1686"),
+    ("K5 fin", "K5's finalize alone (no TPU kernel: the jnp finalize_exact_digits)",
+     f"{PKG}/csrc/voxel_exact.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1918"),
     ("K6", "voxel_grid bf16x3 sums in ascending point index",
      f"{PKG}/csrc/voxel_bf16x3.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:408"),
     ("K6f", "K6 f32 mode: the point-list scatter-add's sums in ascending point index "
@@ -1031,16 +1336,22 @@ def main() -> int:
     cfg, sc, k1_inputs = phase_kernels(dev, report)
     phase_kernels_more(dev, report, cfg, k1_inputs)
     phase_kernels_pointlist(dev, report, cfg, k1_inputs)
+    phase_kernels_fleet(dev, report, cfg, k1_inputs)
     tracker, env, frames = phase_slice(dev, cfg, sc, report)
     phase_modes(dev, report)
     phase_pointlist(dev, report)
+    fleet, fleet_env, fleet_in = phase_fleet(dev, report)
     phase_timings(dev, cfg, smi, tracker, env, frames, report)
+    phase_timings_fleet(dev, smi, fleet, fleet_env, fleet_in)
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": f"{k}: {desc}", "route": "cuda", "source": src, "replaces": rep,
-         "launches": report[k]["launches"], "max_abs_err": report[k]["max_abs_err"],
-         "ms": report[k]["ms"], "plain_ms": report[k]["plain_ms"]}
+         **{key: report[k][key] for key in keys}}
         for k, desc, src, rep in KERNELS
     ]
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,6 +44,15 @@ SIGNATURES = {
     "motl_voxel_accumulate": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                               _F, _P],
+    "motl_voxel_accumulate_raw": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                                  _P],
+    "motl_voxel_finalize_fast": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                                 _F, _F, _F, _F, _P],
+    "motl_voxel_exact_raw": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "motl_voxel_finalize_exact": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                                  _F, _F, _F, _F, _P],
     "motl_grid_cc": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
                      _P, _P, _P, _P],
     "motl_pair_stats": [_P, _P, _I, _I, _P, _P, _P],

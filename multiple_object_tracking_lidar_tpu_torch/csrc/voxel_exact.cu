@@ -29,7 +29,12 @@
 // integer atomics: exact in any order, so the result is deterministic, and
 // no float is ever summed with atomics.  A second kernel finalizes to f32
 // with __fmul_rn / __fadd_rn / __fsub_rn only, so no FMA contraction changes
-// a bit against the plain PyTorch version (ops/voxel_grid_cuda.py).
+// a bit against the plain PyTorch version (ops/voxel_grid_cuda.py).  The two
+// kernels are also entries of their own (motl_voxel_exact_raw,
+// motl_voxel_finalize_exact), which replace the raw stacked kernels
+// _accumulate_pallas_v6_stacked_raw / _v3_stacked_raw and the jnp
+// finalize_exact_digits: the fused entry is the same two launches back to
+// back, so its bits equal raw + finalize.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,6 +148,25 @@ __global__ void exact_finalize_kernel(const int* __restrict__ acc,
   O[3 * nc + lin] = cnt;
 }
 
+int launch_hist(const float* pts, const uint8_t* mask, int S, int N,
+                int pts_per_cta, const ExactParams& p, int* acc, int* npts,
+                cudaStream_t st) {
+  const size_t smem = (size_t)4 * p.n_cells * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      exact_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + pts_per_cta - 1) / pts_per_cta, S, 2);
+  exact_hist_kernel<<<grid, 256, smem, st>>>(pts, mask, N, pts_per_cta, p, acc, npts);
+  return (int)cudaGetLastError();
+}
+
+int launch_finalize(const int* acc, float* out, int S, const ExactParams& p,
+                    cudaStream_t st) {
+  const int total = S * p.n_cells;
+  exact_finalize_kernel<<<(total + 255) / 256, 256, 0, st>>>(acc, out, S, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // points (S, N, 3) f32, mask (S, N) u8; acc (S, 7, n_cells) i32 and
@@ -155,16 +179,32 @@ extern "C" int motl_voxel_exact(
     float invq_xy, float invq_z, void* stream) {
   ExactParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z, leaf_xy,
                 leaf_z, half_xy, half_z, sq_xy, sq_z, invq_xy, invq_z};
-  const size_t smem = (size_t)4 * n_cells * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      exact_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid((N + pts_per_cta - 1) / pts_per_cta, S, 2);
-  exact_hist_kernel<<<grid, 256, smem, st>>>(pts, mask, N, pts_per_cta, p, acc, npts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int total = S * n_cells;
-  exact_finalize_kernel<<<(total + 255) / 256, 256, 0, st>>>(acc, out, S, p);
-  return (int)cudaGetLastError();
+  const int err = launch_hist(pts, mask, S, N, pts_per_cta, p, acc, npts, st);
+  if (err != 0) return err;
+  return launch_finalize(acc, out, S, p, st);
+}
+
+// The two-digit histogram alone (the kernel fleet all-reduces these
+// integers over its space group before one finalize): acc (S, 7, n_cells)
+// i32 and npts (S,) i32 zeroed by the caller.
+extern "C" int motl_voxel_exact_raw(
+    const float* pts, const uint8_t* mask, int S, int N, int pts_per_cta,
+    int* acc, int* npts, int n_cells, int gx, int gy, int gz, int bx, int by,
+    int bz, float inv_xy, float inv_z, float leaf_xy, float leaf_z,
+    float half_xy, float half_z, float sq_xy, float sq_z, void* stream) {
+  ExactParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z, leaf_xy,
+                leaf_z, half_xy, half_z, sq_xy, sq_z, 0.0f, 0.0f};
+  return launch_hist(pts, mask, S, N, pts_per_cta, p, acc, npts, (cudaStream_t)stream);
+}
+
+// The finalize alone: acc (S, 7, n_cells) i32 digit sums -> out (S, 4,
+// n_cells) f32.
+extern "C" int motl_voxel_finalize_exact(
+    const int* acc, float* out, int S, int n_cells, int gx, int gy, int bx,
+    int by, int bz, float leaf_xy, float leaf_z, float half_xy, float half_z,
+    float invq_xy, float invq_z, void* stream) {
+  ExactParams p{gx, gy, 1, bx, by, bz, n_cells, 0.0f, 0.0f, leaf_xy, leaf_z,
+                half_xy, half_z, 0.0f, 0.0f, invq_xy, invq_z};
+  return launch_finalize(acc, out, S, p, (cudaStream_t)stream);
 }

@@ -27,7 +27,10 @@ import functools
 import torch
 
 from multiple_object_tracking_lidar_tpu_torch import _build
-from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import _stencil_offsets
+from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import (
+    _stencil_offsets,
+    neighbor_index,
+)
 
 SMEM_BYTES = 232448       # what one H100 block may use (227 KB)
 _STATIC_SMEM = 4096       # the kernel's static shared arrays, rounded up
@@ -72,21 +75,6 @@ def _device_offsets(offsets: tuple, device: str) -> torch.Tensor:
     return torch.tensor(offsets, dtype=torch.int32, device=device).reshape(-1, 3)
 
 
-def _neighbors(dims, offsets, device):
-    """(n_off, n) flat neighbour index per stencil offset, n where the
-    neighbour lies outside the grid."""
-    gx, gy, gz = dims
-    n = gx * gy * gz
-    i = torch.arange(n, device=device)
-    x, y, z = i % gx, (i // gx) % gy, i // (gx * gy)
-    rows = []
-    for dz, dy, dx in offsets:
-        ok = ((x + dx >= 0) & (x + dx < gx) & (y + dy >= 0) & (y + dy < gy)
-              & (z + dz >= 0) & (z + dz < gz))
-        rows.append(torch.where(ok, i + dx + gx * (dy + gy * dz), n))
-    return torch.stack(rows) if rows else torch.empty((0, n), dtype=torch.int64, device=device)
-
-
 def fused_finalize_static_cc_stacked_plain(
     accs, scal, base_row, base_col, bits, *, dims, offsets, kwin, max_sweeps
 ):
@@ -109,7 +97,7 @@ def fused_finalize_static_cc_stacked_plain(
     bit = (bits >> torch.clamp(qr * kwin + qc, 0, kwin * kwin - 1)) & 1
     dyn = (cnt > 0.0) & (torch.where(in_win, bit, 1) == 0)
 
-    nb = _neighbors(dims, offsets, dev)                              # (O, n)
+    nb = neighbor_index(dims, offsets, dev)                              # (O, n)
     valid_nb = nb < n
     nb_c = torch.clamp(nb, max=n - 1)
     idx = torch.arange(n, dtype=torch.int32, device=dev)

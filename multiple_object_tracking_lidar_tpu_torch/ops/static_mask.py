@@ -164,9 +164,9 @@ def remove_static_cells(
 ) -> torch.Tensor:
     """Dense-grid static filter: the reference's f32 row/col math (cpp:674-
     678, C float arithmetic + truncation toward zero), then the cell's
-    precomputed drop bit.  ``cent`` is channel-major (3, ..., n_cells)."""
-    x_map = cent[0].to(torch.float32) - env.origin_x
-    y_map = cent[1].to(torch.float32) - env.origin_y
+    precomputed drop bit.  ``cent`` is channel-major (..., 3, n_cells)."""
+    x_map = cent[..., 0, :].to(torch.float32) - env.origin_x
+    y_map = cent[..., 1, :].to(torch.float32) - env.origin_y
     col = ((env.cos_nyaw * x_map - env.sin_nyaw * y_map) * env.inv_resolution).to(torch.int32)
     row = ((env.sin_nyaw * x_map + env.cos_nyaw * y_map) * env.inv_resolution).to(torch.int32)
     k = table.k

@@ -96,9 +96,10 @@ def voxel_accumulate_onehot_cm(
 
 
 def finalize_dense_cm(acc_cm: torch.Tensor):
-    """(4, n_cells) accumulator -> ((3, n_cells) centroids, (n_cells,)
-    occupancy, occupied count).  No compaction: the cell index is the point
-    index (ascending lin = PCL's output order)."""
-    occ = acc_cm[3] > 0
-    cent = acc_cm[:3] / torch.clamp(acc_cm[3][None, :], min=1.0)
-    return cent, occ, occ.sum()
+    """(..., 4, n_cells) accumulator -> ((..., 3, n_cells) centroids,
+    (..., n_cells) occupancy, (...) occupied count).  No compaction: the
+    cell index is the point index (ascending lin = PCL's output order)."""
+    cnt = acc_cm[..., 3, :]
+    occ = cnt > 0
+    cent = acc_cm[..., :3, :] / torch.clamp(cnt[..., None, :], min=1.0)
+    return cent, occ, occ.sum(dim=-1)

@@ -26,6 +26,13 @@ Each wrapper (``accumulate_fast_stacked``, ``accumulate_exact_stacked``,
 kernel for CUDA tensors and runs its ``*_plain`` version for CPU tensors;
 ``.launches`` counts kernel launches.  All return ``((S, 4, n_cells) f32 [sum_x, sum_y, sum_z, count],
 (S,) i32 mask-nonzero point count)``.
+
+K1 and K5 are two kernels each, a histogram and a finalize, and the kernel
+fleet (``parallel/sharding.py``) runs them apart: ``accumulate_*_stacked_raw``
+gives the int32 digit sums, the fleet all-reduces them over its point
+shards, and ``finalize_*_stacked`` finalizes once -- the TPU's
+``_accumulate_pallas_v{5,4,6,3}_stacked_raw`` with ``finalize_*_digits``.
+These four wrappers count their launches too.
 """
 
 from __future__ import annotations
@@ -139,11 +146,11 @@ def _npts(mask: torch.Tensor, s: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # K1: fast digits
 # ---------------------------------------------------------------------------
-def accumulate_fast_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
-    """Plain PyTorch version of K1: same f32 quantize, exact integer sums
-    (index_add_ on int64), same finalize products."""
+def fast_digit_sums(points, mask, scene, leaf_xy, leaf_z) -> torch.Tensor:
+    """(S, 4, n_cells) int32 raw one-digit sums of K1 before its finalize
+    (x, y, z digit, count): ``_v5_quant_cm``'s f32 quantize, exact integer
+    sums (index_add_ on int64)."""
     k = kernel_params(scene, leaf_xy, leaf_z)
-    s = points.shape[0]
     p = points.to(torch.float32)
     ok, lin, (fx, fy, fz) = kept_cells(p, mask, k)
 
@@ -160,8 +167,15 @@ def accumulate_fast_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
         ],
         dim=-1,
     )
-    sums = _digit_sums(digits, ok, lin, k["n_cells"])
-    return finalize_fast_digits(sums, k), _npts(mask, s)
+    return _digit_sums(digits, ok, lin, k["n_cells"])
+
+
+def accumulate_fast_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
+    """Plain PyTorch version of K1: ``fast_digit_sums`` finalized by
+    ``finalize_fast_digits`` (the kernel's finalize products)."""
+    sums = fast_digit_sums(points, mask, scene, leaf_xy, leaf_z)
+    k = kernel_params(scene, leaf_xy, leaf_z)
+    return finalize_fast_digits(sums, k), _npts(mask, points.shape[0])
 
 
 def finalize_fast_digits(sums: torch.Tensor, k: dict) -> torch.Tensor:
@@ -209,9 +223,11 @@ def _check_cells(nc: int, name: str) -> None:
         )
 
 
-def _launch_digits(name, entry, quant, n_ch, points, mask, scene, leaf_xy, leaf_z):
-    """Launch K1 or K5 (the same C signature): ((S, 4, n_cells) f32, (S,)
-    i32), with an (S, n_ch, n_cells) int32 digit-sum scratch."""
+def _launch_digits(name, entry, quant, n_ch, points, mask, scene, leaf_xy, leaf_z,
+                   raw=False):
+    """Launch K1 or K5 (the same C signatures): ((S, 4, n_cells) f32, (S,)
+    i32), with an (S, n_ch, n_cells) int32 digit-sum scratch; with ``raw``
+    the ``*_raw`` entry, which stops at that scratch and returns it."""
     s, n = _check_points(points, mask, name)
     k = kernel_params(scene, leaf_xy, leaf_z, quant=quant)
     nc = k["n_cells"]
@@ -219,18 +235,47 @@ def _launch_digits(name, entry, quant, n_ch, points, mask, scene, leaf_xy, leaf_
     m8 = (mask != 0).to(torch.uint8).contiguous()
     dev = points.device
     acc_i = torch.zeros((s, n_ch, nc), dtype=torch.int32, device=dev)
-    out = torch.empty((s, 4, nc), dtype=torch.float32, device=dev)
     npts = torch.zeros((s,), dtype=torch.int32, device=dev)
-    err = getattr(_build.load(), entry)(
+    geom = (nc, k["gx"], k["gy"], k["gz"], k["bx"], k["by"], k["bz"],
+            k["inv_xy"], k["inv_z"], k["leaf_xy"], k["leaf_z"],
+            k["half_xy"], k["half_z"], k["sq_xy"], k["sq_z"])
+    lib = _build.load()
+    if raw:
+        err = getattr(lib, entry + "_raw")(
+            points.data_ptr(), m8.data_ptr(), s, n, PTS_PER_CTA,
+            acc_i.data_ptr(), npts.data_ptr(), *geom, _build.stream_ptr(dev),
+        )
+        _build.check(err, entry + "_raw")
+        return acc_i, npts
+    out = torch.empty((s, 4, nc), dtype=torch.float32, device=dev)
+    err = getattr(lib, entry)(
         points.data_ptr(), m8.data_ptr(), s, n, PTS_PER_CTA,
-        acc_i.data_ptr(), out.data_ptr(), npts.data_ptr(), nc,
-        k["gx"], k["gy"], k["gz"], k["bx"], k["by"], k["bz"],
-        k["inv_xy"], k["inv_z"], k["leaf_xy"], k["leaf_z"],
-        k["half_xy"], k["half_z"], k["sq_xy"], k["sq_z"],
+        acc_i.data_ptr(), out.data_ptr(), npts.data_ptr(), *geom,
         k["invq_xy"], k["invq_z"], _build.stream_ptr(dev),
     )
     _build.check(err, entry)
     return out, npts
+
+
+def _launch_finalize(entry, quant, n_ch, sums, scene, leaf_xy, leaf_z):
+    """Launch K1's or K5's finalize alone on (S, n_ch, n_cells) int32 digit
+    sums: (S, 4, n_cells) f32."""
+    k = kernel_params(scene, leaf_xy, leaf_z, quant=quant)
+    nc = k["n_cells"]
+    s = sums.shape[0]
+    if sums.shape != (s, n_ch, nc) or sums.dtype != torch.int32:
+        raise ValueError(f"{entry}: sums must be (S, {n_ch}, {nc}) int32, "
+                         f"got {tuple(sums.shape)} {sums.dtype}")
+    sums = sums.contiguous()
+    out = torch.empty((s, 4, nc), dtype=torch.float32, device=sums.device)
+    err = getattr(_build.load(), entry)(
+        sums.data_ptr(), out.data_ptr(), s, nc, k["gx"], k["gy"],
+        k["bx"], k["by"], k["bz"], k["leaf_xy"], k["leaf_z"],
+        k["half_xy"], k["half_z"], k["invq_xy"], k["invq_z"],
+        _build.stream_ptr(sums.device),
+    )
+    _build.check(err, entry)
+    return out
 
 
 def accumulate_fast_stacked(
@@ -250,6 +295,51 @@ def accumulate_fast_stacked(
 
 
 accumulate_fast_stacked.launches = 0
+
+
+def accumulate_fast_stacked_raw(
+    points: torch.Tensor,   # (S, N, 3) f32
+    mask: torch.Tensor,     # (S, N) bool / nonzero = keep
+    scene: SceneBounds,
+    leaf_xy: float,
+    leaf_z: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's histogram without its finalize, the kernel fleet's accumulator:
+    ((S, 4, n_cells) int32 digit sums [x, y, z, count], (S,) i32
+    mask-nonzero counts), to be summed over point shards and finalized once
+    (``finalize_fast_stacked``).  Replaces ``_accumulate_pallas_v5_stacked_raw``
+    and ``_v4_stacked_raw`` (voxel_grid.py:1642, :1778), whose (S, 4, w1,
+    128) layout is this one padded to a multiple of 128 cells.  The TPU
+    takes v5 (f32 sums) while the global point count keeps them under 2^24
+    (``_v5_exact_n``) and v4 (int32) beyond; both give the same integers,
+    and this kernel sums in int32 with no 2^24 bound, so that choice picks
+    the same kernel either way.  Kernel on CUDA tensors, ``fast_digit_sums``
+    on CPU tensors."""
+    if points.device.type == "cpu":
+        return fast_digit_sums(points, mask, scene, leaf_xy, leaf_z), _npts(mask, points.shape[0])
+    out = _launch_digits("K1 raw", "motl_voxel_accumulate", "fast", 4,
+                         points, mask, scene, leaf_xy, leaf_z, raw=True)
+    accumulate_fast_stacked_raw.launches += 1
+    return out
+
+
+accumulate_fast_stacked_raw.launches = 0
+
+
+def finalize_fast_stacked(sums: torch.Tensor, scene: SceneBounds, leaf_xy: float,
+                          leaf_z: float) -> torch.Tensor:
+    """K1's finalize alone: (S, 4, n_cells) int32 digit sums -> (S, 4,
+    n_cells) f32 accumulator, the kernel fleet's counterpart of
+    ``finalize_fast_digits`` (voxel_grid.py:1900).  Kernel on CUDA tensors,
+    ``finalize_fast_digits`` on CPU tensors."""
+    if sums.device.type == "cpu":
+        return finalize_fast_digits(sums, kernel_params(scene, leaf_xy, leaf_z))
+    out = _launch_finalize("motl_voxel_finalize_fast", "fast", 4, sums, scene, leaf_xy, leaf_z)
+    finalize_fast_stacked.launches += 1
+    return out
+
+
+finalize_fast_stacked.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -327,6 +417,50 @@ def accumulate_exact_stacked(
 
 
 accumulate_exact_stacked.launches = 0
+
+
+def accumulate_exact_stacked_raw(
+    points: torch.Tensor,   # (S, N, 3) f32
+    mask: torch.Tensor,     # (S, N) bool / nonzero = keep
+    scene: SceneBounds,
+    leaf_xy: float,
+    leaf_z: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5's histogram without its finalize: ((S, 7, n_cells) int32
+    two-digit sums [x d0, x d1, y d0, y d1, z d0, z d1, count], (S,) i32),
+    finalized once after the fleet's all-reduce (``finalize_exact_stacked``).
+    Replaces ``_accumulate_pallas_v6_stacked_raw`` and ``_v3_stacked_raw``
+    (voxel_grid.py:1686, :1830; their (S, 7, w1, 128) layout padded to a
+    multiple of 128 cells).  The TPU picks v6 (f32 sums) or v3 (int32) by
+    the global point count (``_v6_exact_n``); both give the same integers,
+    and this kernel sums in int32 with no 2^24 bound, so that choice picks
+    the same kernel either way.  Kernel on CUDA tensors,
+    ``exact_digit_sums`` on CPU tensors."""
+    if points.device.type == "cpu":
+        return exact_digit_sums(points, mask, scene, leaf_xy, leaf_z), _npts(mask, points.shape[0])
+    out = _launch_digits("K5 raw", "motl_voxel_exact", "exact", 7,
+                         points, mask, scene, leaf_xy, leaf_z, raw=True)
+    accumulate_exact_stacked_raw.launches += 1
+    return out
+
+
+accumulate_exact_stacked_raw.launches = 0
+
+
+def finalize_exact_stacked(sums: torch.Tensor, scene: SceneBounds, leaf_xy: float,
+                           leaf_z: float) -> torch.Tensor:
+    """K5's finalize alone: (S, 7, n_cells) int32 digit sums -> (S, 4,
+    n_cells) f32, the kernel fleet's counterpart of ``finalize_exact_digits``
+    (voxel_grid.py:1918).  Kernel on CUDA tensors, ``finalize_exact_digits``
+    on CPU tensors."""
+    if sums.device.type == "cpu":
+        return finalize_exact_digits(sums, scene, leaf_xy, leaf_z)
+    out = _launch_finalize("motl_voxel_finalize_exact", "exact", 7, sums, scene, leaf_xy, leaf_z)
+    finalize_exact_stacked.launches += 1
+    return out
+
+
+finalize_exact_stacked.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ cpp:123-233): a map callback that binds the step, a point-cloud callback
 that decodes one PointCloud2, steps the tracker on the device and builds
 the reference's three outputs, and per-frame stats.  The time_init epoch
 fixups (cpp:132-139), the "no map yet" gate (cpp:128-131) and the glibc
-colour registry are host code, as in the JAX node.
+colour registry are host code, as in the JAX node.  The node runs on the
+card unless the caller passes ``device="cpu"``; without a CUDA device it
+raises.
 
 Not ported yet (ROADMAP): online hyperparameter learning
 (``param_fix=False``) and bank growth on overflow
@@ -57,7 +59,7 @@ class TrackerNode:
     def __init__(
         self,
         config: TrackerConfig,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         on_obstacles: Callable | None = None,
         on_markers: Callable | None = None,
         on_pose: Callable | None = None,

@@ -15,7 +15,13 @@ one of two perception paths:
 
   where the accumulator is K1 (fast digits), K5 (exact digits), K6
   (bf16x3: exact mode at a coarse leaf or when no point block tiles N) or
-  the sorted runs with K7;
+  the sorted runs with K7.  ``grid_cc`` picks the CC as the JAX package
+  does on the TPU: "auto" and "pallas" take K2 where the map has a per-cell
+  static table and the grid fits K2; otherwise ("jnp", a rotated or coarse
+  map, a large grid) the finalize, the static drop (``remove_static_cells``
+  with a table, the per-point map lookup ``remove_static`` without one) and
+  the stencil CC (``ops/cluster_grid.py::connected_components_grid``) run in
+  plain torch, and an explicit "pallas" that K2 cannot honour raises;
 - the point list (``cluster_backend="jnp"`` or ``"pallas"``; the JAX
   package's default ``TrackerConfig()``):
 
@@ -32,8 +38,14 @@ is the one ``bind_env`` computes -- stacked frames never mix), then runs
 ``track_step`` frame by frame.  PyTorch runs eagerly, so frames stay on the
 device between stages; one host sync per frame remains, the duplicate-pass
 count in ``track_step`` (``track_step.host_syncs``), plus one per
-``ops/cluster.py::CHECK_EVERY`` sweeps of the jnp CC.  Other configurations
-raise ``NotImplementedError`` naming their ROADMAP item.
+``ops/cluster.py::CHECK_EVERY`` sweeps of the jnp CC and one per iteration
+of the stencil CC.  ``perceive_from_acc`` and ``step_from_voxel_acc`` start
+after the accumulator, as the fleet's vmap form does (``parallel/
+sharding.py``).  Other configurations raise ``NotImplementedError`` naming
+their ROADMAP item.
+
+Entry points run on the card (``device="cuda"``) unless the caller asks for
+the CPU; without a CUDA device they raise rather than fall back.
 """
 
 from __future__ import annotations
@@ -57,17 +69,24 @@ from multiple_object_tracking_lidar_tpu_torch.ops.centroid import (
     circumcenter_features_table_stacked,
 )
 from multiple_object_tracking_lidar_tpu_torch.ops.cluster import euclidean_cluster
-from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import cluster_table_grid
+from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import (
+    cluster_table_grid,
+    connected_components_grid,
+)
 from multiple_object_tracking_lidar_tpu_torch.ops.compact import compact_points
 from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import (
+    fused_cc_fits,
     fused_finalize_static_cc_stacked,
+    kernel_offsets,
     make_scal,
+    max_kernel_cells,
 )
 from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import (
     CellStaticTable,
     MapEnv,
     build_cell_static_table,
     remove_static,
+    remove_static_cells,
 )
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import (
     f32,
@@ -79,6 +98,7 @@ from multiple_object_tracking_lidar_tpu_torch.ops.voxel import (
     voxel_accumulate_stacked as scatter_accumulate_stacked,
 )
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid import (
+    finalize_dense_cm,
     voxel_accumulate_stacked,
 )
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel_pallas import (
@@ -102,6 +122,19 @@ _PORTED = (
     ("position_filter", ("lpf",), "IHGP position filtering"),
     ("dtype", ("float32",), "other compute dtypes"),
 )
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """The device an entry point runs on.  Raises where the caller did not
+    ask for the CPU and no CUDA device exists: the port never falls back to
+    its plain versions quietly."""
+    dev = torch.device(device)
+    if dev.type != "cpu" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but no CUDA device is available; "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU"
+        )
+    return dev
 
 
 def check_config(config: TrackerConfig) -> None:
@@ -128,25 +161,62 @@ class Perception(NamedTuple):
 
 
 class GridPlan(NamedTuple):
-    """What a bound step holds on the device for one map: the map itself
-    and, on the dense-grid path, the per-cell static table and the (6,) K2
-    scalars (None on the point-list path, which reads the map per point)."""
+    """What a bound step holds on the device for one map: the map itself,
+    the per-cell static table (None on the point list, which reads the map
+    per point, and on a map whose cell window passes 32 bits), whether the
+    dense grid's CC is K2, and K2's (6,) scalars (None where K2 does not
+    run)."""
 
     env: MapEnv
     dims: tuple[int, int, int]
     table: CellStaticTable | None
     scal: torch.Tensor | None
+    k2: bool = False
+
+
+def make_plan(config: TrackerConfig, env: MapEnv, device, cell_table: bool = True,
+              table: CellStaticTable | None = None) -> GridPlan:
+    """The GridPlan of ``config`` on ``env``, moved to ``device``.  The
+    dense grid's per-cell table is ``table`` when given, else built from
+    the map when ``cell_table`` (None where its window passes 32 bits);
+    ``cell_table=False`` plans the route of a map with no table, as the
+    JAX fleet's vmap form takes it (its map is a tracer there).  K2 runs
+    where ``grid_cc`` is "auto" or "pallas", a table exists and the grid
+    fits K2 (pipeline.py:527-549); "pallas" that K2 cannot honour raises
+    ValueError."""
+    cfg = config
+    dims = grid_shape(cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    env = env._replace(**{f: getattr(env, f).to(device) for f in env._fields if f != "host"})
+    if cfg.cluster_backend != "grid":
+        return GridPlan(env=env, dims=dims, table=None, scal=None)
+    if table is None and cell_table:
+        table = build_cell_static_table(env, cfg.scene, cfg.voxel_leaf_size, *dims)
+    if table is not None:
+        table = CellStaticTable(*(t.to(device) for t in table[:3]), k=table.k)
+    n_cells = dims[0] * dims[1] * dims[2]
+    n_off = len(kernel_offsets(dims, cfg.cluster_tolerance, cfg.voxel_leaf_size, cfg.leaf_z))
+    fits = fused_cc_fits(n_cells, n_off)
+    if cfg.grid_cc == "pallas" and (table is None or not fits):
+        raise ValueError(
+            "grid_cc='pallas' needs a concrete map (per-cell static table) and "
+            f"<= {max_kernel_cells(n_off)} grid cells with {n_off} stencil offsets "
+            f"(got {n_cells}: K2 keeps the whole grid in one CTA's shared memory); "
+            "use a coarser leaf or grid_cc='auto' for the stencil fallback"
+        )
+    k2 = table is not None and fits and cfg.grid_cc in ("auto", "pallas")
+    scal = make_scal(env, cfg.cluster_tolerance, device) if k2 else None
+    return GridPlan(env=env, dims=dims, table=table, scal=scal, k2=k2)
 
 
 class Tracker:
-    """Binds a TrackerConfig to the dense-grid step on ``device``.  The
-    stationary IHGP gains are computed once here on the host in f64 and
-    held as f32 tensors on the device."""
+    """Binds a TrackerConfig to the step on ``device`` (the card unless
+    the caller passes "cpu").  The stationary IHGP gains are computed once
+    here on the host in f64 and held as f32 tensors on the device."""
 
-    def __init__(self, config: TrackerConfig, device: torch.device | str = "cpu"):
+    def __init__(self, config: TrackerConfig, device: torch.device | str = "cuda"):
         check_config(config)
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         _, _, gains_np = self.compute_gains(
             config,
             (config.logSigma2_x, config.logMagnSigma2_x, config.logLengthScale_x),
@@ -166,32 +236,18 @@ class Tracker:
         gains_xy["W_pos"] = smoother_weights_xy(gx, gy, config.data_length, np.float32)
         return gx, gy, gains_xy
 
-    def init_state(self) -> TrackerState:
+    def init_state(self, batch: int | None = None) -> TrackerState:
+        """A fresh state; ``batch`` stacks that many (a fleet's streams)."""
         return init_state(
-            self.config.caps.k_max_tracks, self.config.data_length, torch.float32, self.device
+            self.config.caps.k_max_tracks, self.config.data_length, torch.float32,
+            self.device, batch=batch,
         )
 
-    def plan(self, env: MapEnv) -> GridPlan:
+    def plan(self, env: MapEnv, cell_table: bool = True) -> GridPlan:
         """The map on the device and, for the dense grid, its per-cell
-        static table and K2 scalars."""
-        cfg = self.config
-        dims = grid_shape(cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
-        env = env._replace(**{f: getattr(env, f).to(self.device)
-                              for f in env._fields if f != "host"})
-        if cfg.cluster_backend != "grid":
-            return GridPlan(env=env, dims=dims, table=None, scal=None)
-        table = build_cell_static_table(env, cfg.scene, cfg.voxel_leaf_size, *dims)
-        if table is None:
-            raise NotImplementedError(
-                "the map's per-cell window exceeds 32 bits (a rotated or coarse "
-                "map); the dense grid's fallback on such a map is not ported yet "
-                "(ROADMAP Queue 1: the grid path on a map with no cell table)"
-            )
-        table = CellStaticTable(
-            *(t.to(self.device) for t in table[:3]), k=table.k
-        )
-        return GridPlan(env=env, dims=dims, table=table,
-                        scal=make_scal(env, cfg.cluster_tolerance, self.device))
+        static table (where the map has one) and the CC route
+        (``make_plan``)."""
+        return make_plan(self.config, env, self.device, cell_table=cell_table)
 
     def _frame(self, frame: Frame) -> Frame:
         dev = self.device
@@ -221,20 +277,15 @@ class Tracker:
         """Stateless perception of S stacked frames (points (S, N, 3)):
         a Perception whose fields carry a leading S axis."""
         cfg = self.config
-        caps = cfg.caps
-        if cfg.cluster_backend == "grid":
+        if cfg.cluster_backend == "grid" or cfg.voxel_mode not in ("scan", "runs"):
             accs, npts = self.accumulate(frames.points, frames.mask)
-            return _perceive_batch_from_dense_acc(accs, frames.t, npts, plan, config=cfg)
+            return perceive_from_acc_stacked(accs, frames.t, npts, plan, config=cfg)
         npts = (frames.mask.reshape(frames.mask.shape[0], -1) != 0).sum(dim=1).to(torch.int32)
-        if cfg.voxel_mode in ("scan", "runs"):
-            down = voxel_downsample_runs if cfg.voxel_mode == "runs" else voxel_downsample_scan
-            vox, vox_mask, n_vox = down(
-                frames.points.to(torch.float32), frames.mask, cfg.scene,
-                cfg.voxel_leaf_size, cfg.leaf_z, caps.m_max_voxels,
-            )
-        else:
-            accs, _ = self.accumulate(frames.points, frames.mask)
-            vox, vox_mask, n_vox = voxel_finalize_cm(accs, caps.m_max_voxels)
+        down = voxel_downsample_runs if cfg.voxel_mode == "runs" else voxel_downsample_scan
+        vox, vox_mask, n_vox = down(
+            frames.points.to(torch.float32), frames.mask, cfg.scene,
+            cfg.voxel_leaf_size, cfg.leaf_z, cfg.caps.m_max_voxels,
+        )
         return _perceive_from_vox(vox, vox_mask, n_vox, frames.t, npts, plan.env, config=cfg)
 
     def bind_env(self, env: MapEnv):
@@ -283,15 +334,29 @@ def _row(p: Perception, s: int) -> Perception:
 def _perceive_batch_from_dense_acc(
     accs: torch.Tensor, t, npts, plan: GridPlan, *, config: TrackerConfig
 ) -> Perception:
-    """Dense-grid perception of S frames: stacked K2 (finalize + static
-    drop + CC), the batched cluster table, one K3 launch for the S * C
-    slots, the circumcenter."""
+    """Dense-grid perception of S frames (accs (S, 4, n_cells)): stacked K2
+    (finalize + static drop + CC) or, where the plan says K2 does not run,
+    the finalize, the static drop and the stencil CC in plain torch; then
+    the batched cluster table, one K3 launch for the S * C slots, the
+    circumcenter."""
     caps = config.caps
-    cent, dyn, labels, n_sw, cc_sat = fused_finalize_static_cc_stacked(
-        accs, plan.scal, plan.table.base_row, plan.table.base_col,
-        plan.table.bits, dims=plan.dims, tol=config.cluster_tolerance,
-        leaf_xy=config.voxel_leaf_size, leaf_z=config.leaf_z, kwin=plan.table.k,
-    )
+    tol, leaf, leaf_z = config.cluster_tolerance, config.voxel_leaf_size, config.leaf_z
+    if plan.k2:
+        cent, dyn, labels, n_sw, cc_sat = fused_finalize_static_cc_stacked(
+            accs, plan.scal, plan.table.base_row, plan.table.base_col,
+            plan.table.bits, dims=plan.dims, tol=tol, leaf_xy=leaf,
+            leaf_z=leaf_z, kwin=plan.table.k,
+        )
+    else:
+        cent, occ, _ = finalize_dense_cm(accs.to(torch.float32))
+        if plan.table is not None:
+            dyn = remove_static_cells(cent, occ, plan.env, plan.table)
+        else:
+            dyn = remove_static(cent.transpose(-1, -2), occ, plan.env)
+        labels, n_sw, cc_sat = connected_components_grid(
+            cent, dyn, plan.dims, tol, leaf, leaf_z, caps.label_prop_iters,
+            caps.grid_sweeps_per_iter, caps.grid_jumps_per_iter,
+        )
     ctab = cluster_table_grid(
         labels, n_sw, cent, dyn, plan.dims[0], config.min_cluster_size,
         config.max_cluster_size, caps.c_max_clusters, caps.p_max_cluster,
@@ -302,6 +367,43 @@ def _perceive_batch_from_dense_acc(
         n_vox=(accs[:, 3] > 0).sum(dim=1), n_dynamic=dyn.sum(dim=1),
         n_clusters=ctab.n_clusters, cc_saturated=cc_sat,
     )
+
+
+def perceive_from_acc_stacked(
+    accs: torch.Tensor, t, n_points, plan: GridPlan, *, config: TrackerConfig
+) -> Perception:
+    """Perception after voxel accumulation, of S frames (accs (S, 4,
+    n_cells) channel-major): the dense grid's tail, or on the point list
+    the finalize to ``m_max_voxels`` centroids and the point-list tail."""
+    if config.cluster_backend == "grid":
+        return _perceive_batch_from_dense_acc(accs, t, n_points, plan, config=config)
+    vox, vox_mask, n_vox = voxel_finalize_cm(accs, config.caps.m_max_voxels)
+    return _perceive_from_vox(vox, vox_mask, n_vox, t, n_points, plan.env, config=config)
+
+
+def perceive_from_acc(
+    acc: torch.Tensor, t, n_points, env: MapEnv, *, config: TrackerConfig,
+    table: CellStaticTable | None = None,
+) -> Perception:
+    """One frame's perception from its (n_cells, 4) accumulator, the JAX
+    package's row-major layout (pipeline.py:453).  The dense grid uses
+    ``table``, or the map's own when none is given."""
+    plan = make_plan(config, env, acc.device, table=table)
+    p = perceive_from_acc_stacked(
+        acc.T[None], torch.as_tensor(t)[None], torch.as_tensor(n_points)[None], plan,
+        config=config,
+    )
+    return _row(p, 0)
+
+
+def step_from_voxel_acc(
+    state: TrackerState, acc: torch.Tensor, t, n_points, env: MapEnv, *,
+    config: TrackerConfig, gains_xy: dict,
+) -> tuple[TrackerState, FrameOutput]:
+    """Everything after voxel accumulation (pipeline.py:925), for a
+    deployment that sums partial accumulators over point shards first."""
+    p = perceive_from_acc(acc, t, n_points, env, config=config)
+    return track_step(state, p, config=config, gains_xy=gains_xy)
 
 
 def _perceive_from_vox(

@@ -62,23 +62,44 @@ class FrameOutput(NamedTuple):
 
 
 def init_state(
-    k_max: int, data_length: int, dtype=torch.float32, device="cpu"
+    k_max: int, data_length: int, dtype=torch.float32, device="cpu",
+    batch: int | None = None,
 ) -> TrackerState:
+    """A fresh state; with ``batch``, ``batch`` of them stacked on a leading
+    axis (a fleet's streams, as the JAX ShardedTracker.init_state)."""
+    lead = () if batch is None else (batch,)
     i32 = dict(dtype=torch.int32, device=device)
     bank = TrackBank(
-        alive=torch.zeros(k_max, dtype=torch.bool, device=device),
-        obj_id=torch.full((k_max,), -1, **i32),
-        birth_seq=torch.full((k_max,), 2**30, **i32),
-        window=torch.zeros((k_max, data_length, 4), dtype=dtype, device=device),
-        m0=torch.zeros((k_max, 2, 2), dtype=dtype, device=device),
+        alive=torch.zeros(lead + (k_max,), dtype=torch.bool, device=device),
+        obj_id=torch.full(lead + (k_max,), -1, **i32),
+        birth_seq=torch.full(lead + (k_max,), 2**30, **i32),
+        window=torch.zeros(lead + (k_max, data_length, 4), dtype=dtype, device=device),
+        m0=torch.zeros(lead + (k_max, 2, 2), dtype=dtype, device=device),
     )
-    zero = torch.zeros((), **i32)
     return TrackerState(
         bank=bank,
-        next_obj_num=zero.clone(),
-        next_birth=zero.clone(),
-        spin_counter=zero.clone(),
-        initialized=torch.zeros((), dtype=torch.bool, device=device),
+        next_obj_num=torch.zeros(lead, **i32),
+        next_birth=torch.zeros(lead, **i32),
+        spin_counter=torch.zeros(lead, **i32),
+        initialized=torch.zeros(lead, dtype=torch.bool, device=device),
+    )
+
+
+def state_row(state: TrackerState, s: int) -> TrackerState:
+    """Stream s of a stacked state (views, no copy)."""
+    return TrackerState(
+        bank=TrackBank(*(f[s] for f in state.bank)),
+        **{f: getattr(state, f)[s] for f in TrackerState._fields if f != "bank"},
+    )
+
+
+def stack_states(states: list[TrackerState]) -> TrackerState:
+    """The inverse of ``state_row``: per-stream states stacked on a leading
+    axis."""
+    return TrackerState(
+        bank=TrackBank(*(torch.stack(f) for f in zip(*(st.bank for st in states)))),
+        **{f: torch.stack([getattr(st, f) for st in states])
+           for f in TrackerState._fields if f != "bank"},
     )
 
 
@@ -98,7 +119,9 @@ def _t(a, dtype, device) -> torch.Tensor:
 
 def state_from_numpy(state, device="cpu") -> TrackerState:
     """A JAX TrackerState (any NamedTuple with its fields, leaves as numpy
-    arrays) -> this package's TrackerState on ``device``."""
+    arrays) -> this package's TrackerState on ``device``.  Leaves keep
+    their shapes, so a fleet's batched state (a leading stream axis)
+    carries across as a stacked state."""
     b = state.bank
     bank = TrackBank(**{f: _t(getattr(b, f), _STATE_DTYPES[f], device) for f in TrackBank._fields})
     return TrackerState(

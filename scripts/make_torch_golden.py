@@ -25,7 +25,13 @@ every FrameOutput field stacked over frames:
   (G: ``TrackerConfig()`` itself on the sim map, the headline frames padded
   to its 131,072 points, 4 frames) -> ``torch_default_headline.npz``.
   Configuration D ("dense", "jnp") shares C's golden: the CC backends give
-  the same labels, and neither saturates.
+  the same labels, and neither saturates;
+- ``fleet``: the headline config through the JAX kernel fleet,
+  ``ShardedTracker(make_mesh(1, 1), kernel_path="on")``, B = 8 streams
+  over 3 steps, stream s at step k fed headline frame 3 s + k (the raw
+  stacked kernels in interpret mode, one finalize, the stacked fused CC)
+  -> ``tests/golden/torch_fleet_headline.npz``, every field stacked as
+  (steps, streams, ...).
 
 tests/test_torch_golden.py recomputes the first frames and checks them
 against the files.
@@ -49,9 +55,11 @@ GOLDENS = {
     "pointlist_scan": os.path.join(GOLDEN_DIR, "torch_pointlist_scan_headline.npz"),
     "pointlist_runs": os.path.join(GOLDEN_DIR, "torch_pointlist_runs_headline.npz"),
     "default": os.path.join(GOLDEN_DIR, "torch_default_headline.npz"),
+    "fleet": os.path.join(GOLDEN_DIR, "torch_fleet_headline.npz"),
 }
 N_FRAMES = 12
-FRAMES = {"default": 4}          # frames per golden where not N_FRAMES
+FRAMES = {"default": 4, "fleet": 3}   # frames (the fleet: steps) per golden where not N_FRAMES
+FLEET_STREAMS = 8
 # the headline config's fields changed for each case ("pointlist_jnp" is
 # configuration D, checked against the "pointlist" golden)
 CASE_FIELDS = {
@@ -69,8 +77,46 @@ def n_frames_of(case: str) -> int:
     return FRAMES.get(case, N_FRAMES)
 
 
-def golden_outputs(n_frames: int | None = None, case: str = "slice") -> dict:
-    """{field: (n_frames, ...) array} of the JAX FrameOutputs of ``case``."""
+def _frame(sc, k: int, n: int):
+    """Headline frame k zero-padded to n points: (points, mask, t)."""
+    import numpy as np
+
+    pts, t = sc.frame_arrays(k)
+    buf = np.zeros((n, 3), np.float32)
+    buf[: len(pts)] = pts[:n]
+    mask = np.zeros(n, bool)
+    mask[: min(len(pts), n)] = True
+    return buf, mask, np.float32(t)
+
+
+def fleet_outputs(n_steps: int, n_streams: int = FLEET_STREAMS) -> dict:
+    """{field: (n_steps, n_streams, ...) array} of the JAX kernel fleet on
+    the headline config; stream s at step k gets headline frame 3 s + k."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    sys.path.insert(0, REPO)
+    import bench
+    from multiple_object_tracking_lidar_tpu.parallel.sharding import ShardedTracker, make_mesh
+    from multiple_object_tracking_lidar_tpu.tracker.pipeline import Tracker
+
+    cfg, env, sc = bench.headline_case()
+    fleet = ShardedTracker(Tracker(cfg), make_mesh(1, 1), kernel_path="on")
+    state = fleet.init_state(n_streams)
+    rows = []
+    for k in range(n_steps):
+        frames = [_frame(sc, 3 * s + k, cfg.caps.n_max_points) for s in range(n_streams)]
+        state, out = fleet.step(state, *(jnp.asarray(np.stack([f[i] for f in frames]))
+                                         for i in range(3)), env)
+        rows.append(jax.tree.map(np.asarray, out))
+    return {f: np.stack([getattr(r, f) for r in rows]) for f in rows[0]._fields}
+
+
+def golden_outputs(n_frames: int | None = None, case: str = "slice",
+                   n_streams: int = FLEET_STREAMS) -> dict:
+    """{field: (n_frames, ...) array} of the JAX FrameOutputs of ``case``
+    (the fleet: n_frames steps of n_streams streams)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -80,6 +126,8 @@ def golden_outputs(n_frames: int | None = None, case: str = "slice") -> dict:
     from multiple_object_tracking_lidar_tpu.tracker.pipeline import Tracker
     from multiple_object_tracking_lidar_tpu.tracker.state import Frame
 
+    if case == "fleet":
+        return fleet_outputs(n_frames_of(case) if n_frames is None else n_frames, n_streams)
     cfg, env, sc = bench.headline_case()
     if case == "default":
         from multiple_object_tracking_lidar_tpu.config import TrackerConfig
@@ -91,16 +139,7 @@ def golden_outputs(n_frames: int | None = None, case: str = "slice") -> dict:
         raise ValueError(f"unknown golden {case!r}")
     n_frames = n_frames_of(case) if n_frames is None else n_frames
     n = cfg.caps.n_max_points
-    bufs, masks, ts = [], [], []
-    for k in range(n_frames):
-        pts, t = sc.frame_arrays(k)
-        buf = np.zeros((n, 3), np.float32)
-        buf[: len(pts)] = pts[:n]
-        mask = np.zeros(n, bool)
-        mask[: min(len(pts), n)] = True
-        bufs.append(buf)
-        masks.append(mask)
-        ts.append(np.float32(t))
+    bufs, masks, ts = (list(x) for x in zip(*(_frame(sc, k, n) for k in range(n_frames))))
     tracker = Tracker(cfg)
     state = tracker.init_state()
     if case == "exact":

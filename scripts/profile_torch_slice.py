@@ -3,7 +3,10 @@
 ``Tracker.bind_env`` on the headline scene, in each configuration named
 (``bench_cases.<case>_case``: the dense grid's headline, exact, runs,
 exact_unpadded; the point list's pointlist (C), pointlist_jnp (D), scan
-(E), pointlist_runs (F), default (G)).
+(E), pointlist_runs (F), default (G)).  ``--case fleet`` profiles the
+kernel fleet instead (``parallel.ShardedTracker`` on a one-rank NCCL mesh,
+B = 8 headline streams, stream s at step k fed headline frame 3 s + k)
+beside the headline's ``bind_env_multi`` on the same clouds.
 
     python scripts/profile_torch_slice.py [--case headline exact runs] [--frames 32] [--out DIR]
 
@@ -54,7 +57,7 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=32)
     ap.add_argument("--case", nargs="+", default=["headline"],
                     choices=["headline", "exact", "runs", "exact_unpadded", "pointlist",
-                             "pointlist_jnp", "scan", "pointlist_runs", "default"])
+                             "pointlist_jnp", "scan", "pointlist_runs", "default", "fleet"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a GPU", file=sys.stderr)
@@ -68,8 +71,11 @@ def main() -> int:
     print(smi)
     dev = torch.device("cuda", 0)
     for case in args.case:
-        cfg, env, sc = getattr(bench_cases, f"{case}_case")(device=dev)
+        name = "headline" if case == "fleet" else case
+        cfg, env, sc = getattr(bench_cases, f"{name}_case")(device=dev)
         profile_case(case, cfg, env, sc, dev, smi, args)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     return 0
 
 
@@ -81,7 +87,10 @@ def profile_case(case, cfg, env, sc, dev, smi, args) -> None:
     from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
 
     tracker = Tracker(cfg, dev)
-    rows = [padded_frame(sc, k, cfg.caps.n_max_points) for k in range(args.frames)]
+    b, n_steps = 8, args.frames // 8
+    order = ([3 * s + k for k in range(n_steps) for s in range(b)] if case == "fleet"
+             else range(args.frames))
+    rows = [padded_frame(sc, k, cfg.caps.n_max_points) for k in order]
     P = torch.from_numpy(np.stack([r[0] for r in rows])).to(dev)
     M = torch.from_numpy(np.stack([r[1] for r in rows])).to(dev)
     T = torch.from_numpy(np.asarray([r[2] for r in rows], np.float32)).to(dev)
@@ -99,7 +108,21 @@ def profile_case(case, cfg, env, sc, dev, smi, args) -> None:
         for k in range(args.frames):
             st, _ = single(st, Frame(P[k], M[k], T[k]))
 
-    for name, fn in ((f"{case} bind_env_multi", run_multi), (f"{case} bind_env", run_single)):
+    entries = ((f"{case} bind_env_multi", run_multi), (f"{case} bind_env", run_single))
+    if case == "fleet":
+        from multiple_object_tracking_lidar_tpu_torch.parallel import ShardedTracker, make_mesh
+
+        fleet = ShardedTracker(tracker, make_mesh(1, 1, device=dev), kernel_path="on")
+        step = fleet.bind_env(env)
+        Pf, Mf, Tf = (a.reshape((n_steps, b) + a.shape[1:]) for a in (P, M, T))
+
+        def run_fleet():
+            st = fleet.init_state(b)
+            for k in range(n_steps):
+                st, _ = step(st, Pf[k], Mf[k], Tf[k])
+
+        entries = ((f"fleet B={b}", run_fleet), ("fleet's clouds, bind_env_multi", run_multi))
+    for name, fn in entries:
         fn()
         torch.cuda.synchronize()
         walls = []

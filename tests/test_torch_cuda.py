@@ -1,6 +1,8 @@
-"""The CUDA kernels (K1-K9, K6 in both modes) against their plain PyTorch
-versions, and the slices (fast, exact and runs mode; the point-list
-configurations C-F) on the GPU against the port's plain path on the CPU.
+"""The CUDA kernels (K1-K9, K6 in both modes, K1's and K5's histograms
+and finalizes alone) against their plain PyTorch versions, the slices
+(fast, exact and runs mode, the stencil CC of ``grid_cc="jnp"``; the
+point-list configurations C-F) on the GPU against the port's plain path on
+the CPU, and the kernel fleet on a one-rank NCCL mesh against ``bind_env``.
 Marked ``cuda``: they
 skip without a GPU.  This file imports no JAX, so on the GPU machine (which
 has none) it runs without the suite's conftest:
@@ -185,7 +187,59 @@ def test_k7_matches_plain(dev, n):
         assert _bits(a, b)
 
 
-@pytest.mark.parametrize("field,value", [("voxel_quant", "exact"), ("voxel_mode", "runs")])
+@pytest.mark.parametrize("quant", ["fast", "exact"])
+def test_raw_and_finalize_match_plain(dev, small, quant):
+    """K1's and K5's histograms alone and their finalizes alone (the kernel
+    fleet's entries) against their plain versions, and raw + finalize
+    against the fused kernel: bit for bit."""
+    cfg, _, frames = small
+    P = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+    M = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
+    args = (P, M, cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    kw = (cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    vg = voxel_grid_cuda
+    raw_fn, fin_fn, fused, plain_raw = (
+        (vg.accumulate_fast_stacked_raw, vg.finalize_fast_stacked, vg.accumulate_fast_stacked,
+         vg.fast_digit_sums) if quant == "fast" else
+        (vg.accumulate_exact_stacked_raw, vg.finalize_exact_stacked, vg.accumulate_exact_stacked,
+         vg.exact_digit_sums))
+    n0 = (raw_fn.launches, fin_fn.launches)
+    raw, n = raw_fn(*args)
+    fin = fin_fn(raw, *kw)
+    assert (raw_fn.launches, fin_fn.launches) == (n0[0] + 1, n0[1] + 1)
+    assert _bits(raw, plain_raw(*args)) and _bits(n, (M != 0).sum(1).int())
+    assert _bits(fin, fin_fn(raw.cpu(), *kw))                   # the plain finalize
+    assert _bits(fin, fused(*args)[0])
+
+
+def test_kernel_fleet_gpu_matches_bind_env(dev, small):
+    """The kernel fleet on a one-rank NCCL mesh, 4 streams x 2 steps, against
+    each stream's own bind_env on the card: bit for bit."""
+    from multiple_object_tracking_lidar_tpu_torch.parallel import ShardedTracker, make_mesh
+
+    cfg, env, frames = small
+    tr = Tracker(cfg, dev)
+    fleet = ShardedTracker(tr, make_mesh(1, 1), kernel_path="on")
+    step = fleet.bind_env(env)
+    state = fleet.init_state(4)
+    outs = []
+    for k in range(2):
+        fr = [frames[2 * s + k] for s in range(4)]
+        state, o = step(state, *(torch.from_numpy(np.stack([f[i] for f in fr])).to(dev)
+                                 for i in range(3)))
+        outs.append(o)
+    for s in range(4):
+        one = tr.bind_env(env)
+        st = tr.init_state()
+        for k in range(2):
+            buf, mask, t = frames[2 * s + k]
+            st, o = one(st, Frame(torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))
+            for name, a, b in zip(FrameOutput._fields, o, outs[k]):
+                assert _bits(a, b[s]), (s, k, name)
+
+
+@pytest.mark.parametrize("field,value", [("voxel_quant", "exact"), ("voxel_mode", "runs"),
+                                         ("grid_cc", "jnp")])
 def test_exact_and_runs_slices_gpu_match_cpu_plain_path(dev, small, field, value):
     cfg, env, frames = small
     cfg = cfg.replace(**{field: value})

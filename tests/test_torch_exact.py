@@ -329,7 +329,7 @@ def _check(tag, got, ref, k):
 
 def test_exact_slice_matches_jax_multi(case):
     assert tvg.exact_route(case["n"], 0.1, 2.0) == ("K5" if case["n"] == 8192 else "K6")
-    tt = TTracker(case["tcfg"])
+    tt = TTracker(case["tcfg"], device="cpu")
     step = tt.bind_env(case["tenv"])
     st = tt.init_state()
     singles = []

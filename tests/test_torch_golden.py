@@ -16,6 +16,9 @@ golden.
    compared where ``valid``.  Exact mode's K6 route (unpadded
    100,000-point frames, bf16x3 sums instead of the digits) is held to the
    exact golden with the same tolerances.
+3. The fleet golden (the JAX kernel fleet, 8 streams x 3 steps): step 0 of
+   streams 0-1 recomputed; the port's kernel fleet reproduces streams 0-1
+   over all 3 steps with the tolerances of 2.
 """
 
 import os
@@ -64,7 +67,7 @@ def test_port_plain_path_reproduces_golden(golden):
     from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
 
     cfg, env, sc = headline_case()
-    tracker = Tracker(cfg)
+    tracker = Tracker(cfg, device="cpu")
     step = tracker.bind_env(env)
     st = tracker.init_state()
     rows = []
@@ -110,7 +113,7 @@ def test_port_plain_path_reproduces_exact_and_runs_goldens(case):
     if case.startswith("exact"):
         want = "K6" if case == "exact_unpadded" else "K5"
         assert exact_route(cfg.caps.n_max_points, cfg.voxel_leaf_size, cfg.leaf_z) == want
-    tracker = Tracker(cfg)
+    tracker = Tracker(cfg, device="cpu")
     step = tracker.bind_env(env)
     st = tracker.init_state()
     rows = []
@@ -166,7 +169,7 @@ def test_port_plain_path_reproduces_pointlist_goldens(case):
     gold = next(g for g, cs in POINTLIST.items() if case in cs)
     ref = _load(gold)
     cfg, env, sc = getattr(bench_cases, case)()
-    tracker = Tracker(cfg)
+    tracker = Tracker(cfg, device="cpu")
     step = tracker.bind_env(env)
     st = tracker.init_state()
     rows = []
@@ -176,3 +179,40 @@ def test_port_plain_path_reproduces_pointlist_goldens(case):
         rows.append(out)
     got = {f: np.stack([getattr(r, f).numpy() for r in rows]) for f in rows[0]._fields}
     _compare(got, ref, TOL_DETS, TOL_VEL)
+
+
+def test_fleet_golden_is_what_the_jax_package_computes():
+    """The fleet golden (the JAX kernel fleet, B = 8 streams x 3 steps):
+    step 0 of streams 0-1 recomputed here (B = 2)."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from make_torch_golden import FLEET_STREAMS, golden_outputs, n_frames_of
+
+    ref = _load("fleet")
+    out = golden_outputs(n_frames=1, case="fleet", n_streams=2)
+    assert set(out) == set(ref)
+    assert ref["publish"].shape == (n_frames_of("fleet"), FLEET_STREAMS)
+    assert ref["raw_centroid"].shape == (3, 8, 32, 4)
+    _compare({f: v[0] for f, v in out.items()}, {f: v[0, :2] for f, v in ref.items()},
+             1e-6, 1e-6)
+    assert ref["valid"][1:].sum(axis=2).min() == 3 and ref["cc_saturated"].sum() == 0
+
+
+def test_port_plain_fleet_reproduces_fleet_golden():
+    """The port's kernel fleet on a 1 x 1 gloo mesh, plain versions on the
+    CPU, streams 0-1 over the golden's 3 steps."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import headline_case, padded_frame
+    from multiple_object_tracking_lidar_tpu_torch.parallel import ShardedTracker, make_mesh
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    ref = _load("fleet")
+    cfg, env, sc = headline_case()
+    fleet = ShardedTracker(Tracker(cfg, device="cpu"), make_mesh(1, 1, device="cpu"),
+                           kernel_path="on")
+    step = fleet.bind_env(env)
+    state = fleet.init_state(2)
+    for k in range(ref["publish"].shape[0]):
+        frames = [padded_frame(sc, 3 * s + k, cfg.caps.n_max_points) for s in range(2)]
+        state, out = step(state, *(torch.from_numpy(np.stack([f[i] for f in frames]))
+                                   for i in range(3)))
+        _compare({f: getattr(out, f).numpy() for f in out._fields},
+                 {f: v[k, :2] for f, v in ref.items()}, TOL_DETS, TOL_VEL)

@@ -143,7 +143,7 @@ def test_tracker_gains_match():
     cfg = jcfg.TrackerConfig(voxel_mode="onehot", cluster_backend="grid", data_length=40)
     tcfg_ = tcfg.TrackerConfig(voxel_mode="onehot", cluster_backend="grid", data_length=40)
     ja = JT(cfg).gains_xy
-    tb = gains_to_numpy(TT(tcfg_).gains_xy)
+    tb = gains_to_numpy(TT(tcfg_, device="cpu").gains_xy)
     assert set(ja) == set(tb)
     for k, v in ja.items():
         if isinstance(v, dict):
@@ -190,3 +190,44 @@ def test_quantize_and_grid_shape_match():
 
     for a, b in zip(jq(jnp.asarray(pts), 0.1, 2.0), tq(torch.from_numpy(pts), 0.1, 2.0)):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_wire_copy_matches_original():
+    """The port's io/wire.py writes the bytes the original writes, and each
+    reads what the other wrote: frames, records, maps and the framing
+    errors."""
+    import io
+
+    from multiple_object_tracking_lidar_tpu.io import wire as jwire
+    from multiple_object_tracking_lidar_tpu_torch.io import wire as twire
+
+    xyz = np.random.default_rng(9).normal(0, 1, (57, 3)).astype(np.float32)
+    msgs = (jpc2.make_pointcloud2(xyz, stamp=12.25, frame_id="base", extra_padding=4),
+            tpc2.make_pointcloud2(xyz, stamp=12.25, frame_id="base", extra_padding=4))
+    grid = jpgm.load_map_yaml(SIM_MAP)
+    rec = jmsg.build_outputs(1.5, "map", [0, 2], np.zeros((2, 2), np.float32),
+                             np.ones((2, 2), np.float32), {0: (1, 0, 0, 1), 2: (0, 1, 0, 1)})[0]
+    outs = []
+    for w, msg in zip((jwire, twire), msgs):
+        buf = io.BytesIO()
+        w.write_frame(buf, msg)
+        w.write_record(buf, rec)
+        w.write_map(buf, grid)
+        w.write_json(buf, "summary", {"frames": 3})
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1]
+    for r in (jwire, twire):
+        buf = io.BytesIO(outs[0])
+        frame = r.read_message(buf)
+        assert (frame.stamp, frame.frame_id, frame.point_step, frame.data) == (
+            12.25, "base", 16, msgs[0].data)
+        assert [tuple(dataclasses.astuple(f)) for f in frame.fields] == [
+            tuple(dataclasses.astuple(f)) for f in msgs[0].fields]
+        assert r.read_message(buf)[0] == "ObstacleArray"
+        typ, data = r.read_message(buf)
+        assert typ == "map" and data["info"]["resolution"] == grid.info.resolution
+        assert r.read_message(buf) == ("summary", {"frames": 3})
+        assert r.read_message(buf) is None
+        with pytest.raises(ValueError):
+            r.read_message(io.BytesIO(b"\xff\xff\xff\xff"))
+    assert (jwire.MAX_HEADER, jwire.MAX_PAYLOAD) == (twire.MAX_HEADER, twire.MAX_PAYLOAD)

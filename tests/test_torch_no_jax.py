@@ -1,8 +1,10 @@
 """The port imports and runs where JAX is absent (the GPU machine has no
 JAX): a fresh interpreter with ``jax`` and the JAX package blocked imports
-every module of the port, and ``chip_smoke.py``, steps 2 frames on the
-CPU, one frame each in exact mode and runs mode, and one frame of each
-point-list configuration (C-G) on small caps."""
+every module of the port (``parallel/*``, ``runtime/fleet.py`` and
+``runtime/stream.py`` among them), and ``chip_smoke.py``, steps 2 frames on
+the CPU, one frame each in exact mode and runs mode, one frame of each
+point-list configuration (C-G) and one kernel-fleet step of two streams on
+small caps."""
 
 import os
 import subprocess
@@ -31,7 +33,7 @@ SCRIPT = textwrap.dedent(
     cfg, env, sc = headline_case()
     cfg = cfg.replace(caps=dataclasses.replace(cfg.caps, n_max_points=4096,
                                                c_max_clusters=8, p_max_cluster=64, k_max_tracks=8))
-    tr = Tracker(cfg)
+    tr = Tracker(cfg, device="cpu")
     step = tr.bind_env(env)
     st = tr.init_state()
     for k in range(2):
@@ -44,7 +46,7 @@ SCRIPT = textwrap.dedent(
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import exact_case, runs_case
     for case in (exact_case, runs_case):        # K5 and K7 plain on one frame
         c = case()[0].replace(caps=cfg.caps)
-        o = Tracker(c).bind_env(env)(Tracker(c).init_state(), Frame(
+        o = Tracker(c, device="cpu").bind_env(env)(Tracker(c, device="cpu").init_state(), Frame(
             torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))[1]
         assert int(o.n_clusters) >= 3, (case.__name__, o)
     from multiple_object_tracking_lidar_tpu_torch import bench_cases
@@ -54,9 +56,14 @@ SCRIPT = textwrap.dedent(
                  "pointlist_runs_case", "default_case"):
         c = getattr(bench_cases, name)()[0]
         c = c.replace(caps=dataclasses.replace(c.caps, **small))
-        o = Tracker(c).bind_env(env)(Tracker(c).init_state(), Frame(
+        o = Tracker(c, device="cpu").bind_env(env)(Tracker(c, device="cpu").init_state(), Frame(
             torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))[1]
         assert int(o.n_clusters) >= 3, (name, o)
+    from multiple_object_tracking_lidar_tpu_torch.parallel import ShardedTracker, make_mesh
+    st = ShardedTracker(Tracker(cfg, device="cpu"), make_mesh(1, 1, device="cpu"))
+    pb, mb = (torch.from_numpy(np.stack([a, a])) for a in (buf, mask))
+    _, fo = st.bind_env(env)(st.init_state(2), pb, mb, torch.tensor([t, t]))
+    assert st._use_kernel_fleet and int(fo.n_clusters.min()) >= 3, fo
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                     and sys.modules[m] is not None)
     assert not leaked, leaked

@@ -93,7 +93,7 @@ def _tframe(fr):
 
 
 def test_bind_env_matches_jax(case):
-    tt = TTracker(case["tcfg"])
+    tt = TTracker(case["tcfg"], device="cpu")
     step = tt.bind_env(case["tenv"])
     st = tt.init_state()
     published = 0
@@ -108,7 +108,7 @@ def test_bind_env_matches_jax(case):
 
 
 def test_bind_env_multi_matches_jax(case):
-    tt = TTracker(case["tcfg"])
+    tt = TTracker(case["tcfg"], device="cpu")
     multi = tt.bind_env_multi(case["tenv"])
     st = tt.init_state()
     s = 4
@@ -142,7 +142,7 @@ def test_state_hand_over_through_carry_across(case):
     back = tstate.gains_to_numpy(gains)
     np.testing.assert_array_equal(back["W_vel"]["Wy"], np.asarray(jt.gains_xy["W_vel"]["Wy"]))
 
-    tt = TTracker(case["tcfg"])
+    tt = TTracker(case["tcfg"], device="cpu")
     tt.gains_xy = gains
     st = tstate.state_from_numpy(case["jstates"][5])
     rt = tstate.state_to_numpy(st)
@@ -165,4 +165,4 @@ def test_state_hand_over_through_carry_across(case):
 def test_unported_configs_raise(field, value):
     cfg = bench_cases.bench_config().replace(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TTracker(cfg)
+        TTracker(cfg, device="cpu")

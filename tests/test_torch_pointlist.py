@@ -19,7 +19,8 @@ on the CPU.
 - The slice on tiny caps (5 frames): configurations C, D, E, F, G's
   field values, onehot into the point list, and a coarse 0.15 m leaf whose
   per-cell map window passes 32 bits (no cell table: the point list runs
-  it, the grid path raises), through the port's ``bind_env`` and
+  it, and so does the dense grid through its stencil fallback), through
+  the port's ``bind_env`` and
   ``bind_env_multi`` against JAX ``Tracker.bind_env``.  Integers and
   decisions exact, positions within 1e-5 m, velocities within 1e-4 m/s
   (see test_torch_pipeline.py); the two port entry points bit for bit.
@@ -329,7 +330,7 @@ def test_pointlist_slice_matches_jax(name):
         js, out = jstep(js, JFrame(jnp.asarray(buf), jnp.asarray(mask), jnp.float32(t)))
         jouts.append(jax.tree.map(np.asarray, out))
 
-    tt = TTracker(tcfg)
+    tt = TTracker(tcfg, device="cpu")
     step = tt.bind_env(tenv)
     st = tt.init_state()
     singles = []
@@ -352,6 +353,16 @@ def test_pointlist_slice_matches_jax(name):
     if name == "C-pallas":              # more dynamic voxels than the 256 slots
         assert max(int(o.n_dynamic) for o in singles) > 256
         assert all(int(o.cc_saturated) == 0 for o in singles)
-    if name == "coarse-no-table":
-        with pytest.raises(NotImplementedError, match="no cell table"):
-            TTracker(tcfg.replace(cluster_backend="grid", voxel_mode="onehot")).bind_env(tenv)
+    if name == "coarse-no-table":       # the dense grid runs this map too, with no cell table
+        gcfg = tcfg.replace(cluster_backend="grid", voxel_mode="onehot")
+        jg = JTracker(_jax_config(gcfg))
+        jgstep = jg.bind_env(jenv, donate_state=False)
+        js = jg.init_state()
+        tg = TTracker(gcfg, device="cpu")
+        assert tg.plan(tenv).table is None and not tg.plan(tenv).k2
+        gstep = tg.bind_env(tenv)
+        st = tg.init_state()
+        for k, (buf, mask, t) in enumerate(frames):
+            js, jo = jgstep(js, JFrame(jnp.asarray(buf), jnp.asarray(mask), jnp.float32(t)))
+            st, out = gstep(st, TFrame(_t(buf), _t(mask), torch.tensor(t)))
+            _check(f"{name} grid frame {k}", out, jax.tree.map(np.asarray, jo))

@@ -219,7 +219,7 @@ def _check(tag, got, ref):
 
 
 def test_runs_slice_matches_jax(case):
-    tt = TTracker(case["tcfg"])
+    tt = TTracker(case["tcfg"], device="cpu")
     step = tt.bind_env(case["tenv"])
     st = tt.init_state()
     singles = []

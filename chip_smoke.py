@@ -7,10 +7,12 @@ of JAX, in five phases, one or more lines each:
 
 1. the card (``nvidia-smi`` name and power limit); no CUDA -> exit 1;
 2. the kernel build from ``csrc/*.cu`` (one nvcc per source, in parallel);
-3. each kernel (K1-K9, K6 in its bf16x3 and f32 modes, K1's and K5's
-   histograms and finalizes alone) against its plain PyTorch version on
+3. each kernel (K1-K11, K6 in its bf16x3 and f32 modes and its key
+   entry, K1's and K5's histograms and finalizes alone, K1-cm fused and
+   raw, K4 at K = 64, 256 and 1,024) against its plain PyTorch version on
    the card, at the shapes its path gives it, on scenario and adversarial
-   inputs;
+   inputs (K10 also on 0.1 m lattice knife edges at C = 32, P = 384 and
+   configuration G's C = 64, P = 512);
 4. the paths, each with every kernel's launch counter reset before and
    read after: the headline (fast digits) -- ``TrackerNode.on_pointcloud``
    answers 12 headline PointCloud2 frames and ``Tracker.bind_env_multi``
@@ -31,7 +33,16 @@ of JAX, in five phases, one or more lines each:
    fleet golden (torch_fleet_headline.npz) and bit for bit against each
    stream's own ``bind_env``; the vmap fleet on C the same way against C's
    ``bind_env``; ``MultiplexedTracker`` (2 streams) and ``StreamingNode``
-   on 12 headline frames against the slice golden;
+   on 12 headline frames against the slice golden; then this slice's entry
+   points (``ops/centroid_pallas.py``'s ``circumcenter_features_table_
+   pallas`` (K10) and ``pair_stats_pallas`` (K3), ``ops/voxel_grid.py::
+   accumulate_from_indices`` (K6 keys), ``scripts/micro_torch_pair_stats.py``
+   and ``scripts/micro_torch_acc.py`` (K1, K1-cm, raw + fin, K11)), each held
+   against the same function by another route; then bank growth:
+   ``TrackerNode`` with a two-slot bank over 12 headline frames against the
+   JAX growth golden (torch_growth_headline.npz), a checkpoint after frame
+   5 resumed bit for bit, and the same checkpoint padded to 256 slots (K4
+   past the TPU kernel's 128) within the golden's tolerances;
 5. timings with CUDA events, beside the card's name and power limit:
    ``bind_env`` and ``bind_env_multi`` per path, host syncs per frame of
    each point-list path, device ops per frame of C, the fleet's clouds/s
@@ -62,6 +73,7 @@ GOLDEN_RUNS = os.path.join(HERE, "tests", "golden", "torch_runs_headline.npz")
 GOLDEN_PL = {g: os.path.join(HERE, "tests", "golden", f"torch_{g}_headline.npz")
              for g in ("pointlist", "pointlist_scan", "pointlist_runs", "default")}
 GOLDEN_FLEET = os.path.join(HERE, "tests", "golden", "torch_fleet_headline.npz")
+GOLDEN_GROWTH = os.path.join(HERE, "tests", "golden", "torch_growth_headline.npz")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM: HBM3 rate (NVIDIA's datasheet)
 F32_OPS_PER_S = 67e12         # H100 SXM: f32 outside the tensor cores; int32 ops too
 PKG = "multiple_object_tracking_lidar_tpu_torch"
@@ -196,8 +208,7 @@ def adversarial_points(cfg, rng, n):
 
 def phase_kernels(dev, report):
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import headline_case
-    from multiple_object_tracking_lidar_tpu_torch.ops import (
-        assign_cuda, centroid_cuda, grid_cuda, voxel_grid_cuda)
+    from multiple_object_tracking_lidar_tpu_torch.ops import centroid_cuda, grid_cuda, voxel_grid_cuda
     from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import cluster_table_grid
     from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
 
@@ -293,7 +304,16 @@ def phase_kernels(dev, report):
     report["K3"] = {"max_abs_err": max_err(npy(cm_k), npy(cm_p))}
 
     # ---- K4 -----------------------------------------------------------------
-    K, D = caps.k_max_tracks, caps.c_max_clusters
+    report["K4"] = {"max_abs_err": check_k4(dev, cfg, rng, caps.k_max_tracks, caps.c_max_clusters)}
+    return cfg, sc, (pts, mask), (mp, mm)
+
+
+def check_k4(dev, cfg, rng, K, D) -> float:
+    """K4 against its plain version on a K-slot bank and D detection slots:
+    a first frame, conflicting detections with interpolation gaps, a full
+    bank.  Decisions exact; returns the max abs error."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import assign_cuda
+
     cases = []
     # (a) first frame: no gating, everything registers
     af0 = torch.zeros((K, 3), device=dev)
@@ -344,9 +364,8 @@ def phase_kernels(dev, report):
             f"ok={int(oks.sum())} interp={int(npy(rk[10]).sum())} overflow={int(rk[5])}")
         ok = ok and same
     if not ok:
-        fail("K4 disagrees with its plain version (exact decisions expected)")
-    report["K4"] = {"max_abs_err": err4}
-    return cfg, sc, (pts, mask)
+        fail(f"K4 at K={K} disagrees with its plain version (exact decisions expected)")
+    return err4
 
 
 def blob_frame(cfg, rng, n):
@@ -551,6 +570,106 @@ def phase_kernels_pointlist(dev, report, cfg, k1_inputs):
                lambda: (segsum_cuda.segment_totals_rows_plain(ks, v4),))
 
 
+def knife_edge_table(rng, c, p, dev):
+    """A (C, P) member table for K10: clusters on a 0.1 m lattice (equal
+    distances: ties in both argmax scans), a singleton, a collinear
+    lattice cluster (G == 0), a full slot, duplicated points, and empty
+    slots between and after the active ones."""
+    mp = np.zeros((c, p, 3), np.float32)
+    mm = np.zeros((c, p), bool)
+    for k in range(0, c // 2, 2):                       # odd slots stay empty
+        n = int(rng.integers(2, p))
+        mp[k, :n] = np.round(rng.normal(0, 1, (n, 3)) * 10) / 10
+        mm[k, :n] = True
+    mp[1, 0] = [1.0, 2.0, 0.5]                          # singleton
+    mm[1, 0] = True
+    line = np.arange(12, dtype=np.float32)
+    mp[3, :12] = np.stack([0.1 * line, 0.2 * line, 0 * line], 1)   # collinear
+    mm[3, :12] = True
+    mp[5] = np.round(rng.uniform(-1, 1, (p, 3)) * 10) / 10          # full slot
+    mm[5] = True
+    mp[7, :20] = np.round(rng.normal(3, 0.3, (20, 3)) * 10) / 10    # duplicates
+    mp[7, 20:40] = mp[7, :20]
+    mm[7, :40] = True
+    return torch.from_numpy(mp).to(dev), torch.from_numpy(mm).to(dev)
+
+
+def phase_kernels_slice5(dev, report, cfg, k1_inputs, table):
+    """K10, K6's key entry, K1-cm, K4 on grown banks and K11 against their
+    plain versions on the card, bit for bit."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        centroid_cuda, transpose_cuda, voxel_grid_cuda as vg)
+    from multiple_object_tracking_lidar_tpu_torch.ops.centroid import (
+        circumcenter_features_table_cuda)
+
+    rng = np.random.default_rng(55)
+    kw = (cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    mp, mm = table
+    gcaps = bench_cases.default_case()[0].caps
+    for what, tp, tm in (
+            (f"C={mp.shape[0]} P={mp.shape[1]} headline table ({int(mm.any(1).sum())} active: "
+             "collinear, duplicates, full slot, gap)", mp, mm),
+            ("C=32 P=384 knife edges on a 0.1 m lattice (ties, singleton, collinear, "
+             "full slot, duplicates, empty slots)", *knife_edge_table(rng, 32, 384, dev)),
+            (f"C={gcaps.c_max_clusters} P={gcaps.p_max_cluster} (configuration G's table) knife "
+             "edges", *knife_edge_table(rng, gcaps.c_max_clusters, gcaps.p_max_cluster, dev))):
+        check_pair(report, "K10", what, lambda: (centroid_cuda.circumcenter_xy(tp, tm),),
+                   lambda: (centroid_cuda.circumcenter_xy_plain(tp, tm),))
+        check_pair(report, "K10", f"{what}: against the pipeline's K3 route",
+                   lambda: (centroid_cuda.circumcenter_xy(tp, tm),),
+                   lambda: (circumcenter_features_table_cuda(tp, tm, torch.tensor(0.0))[:, :2],))
+
+    P = torch.from_numpy(k1_inputs[0]).to(dev)
+    M = torch.from_numpy(k1_inputs[1]).to(dev)
+    k1p = vg.kernel_params(*kw)
+    gx, gyz = k1p["gx"], k1p["gy"] * k1p["gz"]
+    ok, lin, _ = vg.kept_cells(P, M, k1p)
+    ix, iyz = (lin % gx).to(torch.int32), (lin // gx).to(torch.int32)
+    check_pair(report, "K6 keys", f"S=8 N={P.shape[1]} keys from the headline frames' cells "
+               f"(gx={gx}, gyz={gyz}) against K6's quantizing entry",
+               lambda: (vg.accumulate_bf16x3_keys(P, ix, iyz, ok, gx, gyz),),
+               lambda: (vg.accumulate_bf16x3_stacked(P, M, *kw)[0],))
+    ix[:, :500] = gx                                   # out of range, in bounds
+    iyz[:, 500:1000] = -3
+    iyz[:, 1000:1500] = gyz
+    ok[:, 1500:3000] = False                           # valid cells, not in bounds
+    ok[:, 3000:3100] = True                            # in bounds, cell of the dropped
+    check_pair(report, "K6 keys", f"S=8 N={P.shape[1]} adversarial keys (ix = gx, iyz < 0, "
+               "iyz = gyz, in_bounds false on valid cells)",
+               lambda: (vg.accumulate_bf16x3_keys(P, ix, iyz, ok, gx, gyz),),
+               lambda: (vg.accumulate_bf16x3_keys_plain(P, ix, iyz, ok, gx, gyz),))
+
+    Pcm = P.transpose(1, 2).contiguous()
+    adv = "frame 7 adversarial: NaN/inf/out-of-bounds/leaf-boundary/masked/one-cell blob"
+    check_pair(report, "K1-cm", f"S=8 N={P.shape[1]} channel-major ({adv})",
+               lambda: vg.accumulate_fast_stacked_cm(Pcm, M, *kw),
+               lambda: vg.accumulate_fast_stacked_cm_plain(Pcm, M, *kw))
+    check_pair(report, "K1-cm", "against K1 on the (S, N, 3) rows",
+               lambda: vg.accumulate_fast_stacked_cm(Pcm, M, *kw),
+               lambda: vg.accumulate_fast_stacked(P, M, *kw))
+    raw = check_pair(report, "K1-cm raw", f"S=8 N={P.shape[1]} channel-major ({adv})",
+                     lambda: vg.accumulate_fast_stacked_cm_raw(Pcm, M, *kw),
+                     lambda: (vg.fast_digit_sums(P, M, *kw), (M != 0).sum(1).to(torch.int32)))
+    check_pair(report, "K1-cm raw", "raw + K1 fin against the fused K1-cm",
+               lambda: (vg.finalize_fast_stacked(raw[0], *kw), raw[1]),
+               lambda: vg.accumulate_fast_stacked_cm(Pcm, M, *kw))
+
+    report["K4 wide"] = {"max_abs_err": max(
+        check_k4(dev, cfg, rng, k, cfg.caps.c_max_clusters) for k in (256, 1024))}
+
+    words = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, 2048, dtype=np.int64)
+                             .astype(np.int32)).to(dev)
+    for what, x in ((f"S=8 N={P.shape[1]} headline points (S, N, 3) -> (S, 3, N) ({adv})", P),
+                    ("micro_transpose.py's (1, 2048) int32 row -> (2048, 1)",
+                     words.reshape(1, 1, 2048)),
+                    ("its tiled probe, (16, 128) -> (128, 16)", words.reshape(1, 16, 128)),
+                    ("partial tiles both ways, (3, 70, 27) f32 words", words[:1890].view(
+                        torch.float32).reshape(1, 70, 27).expand(3, 70, 27).contiguous())):
+        check_pair(report, "K11", what, lambda: (transpose_cuda.transpose_words(x),),
+                   lambda: (transpose_cuda.transpose_words_plain(x),))
+
+
 def pointlist_rows(dev, cfg, P, M):
     """The compacted dynamic voxels the point list feeds its CC: (S, M, 3)
     points and (S, M) mask of the frames P, M under ``cfg``."""
@@ -572,25 +691,33 @@ def pointlist_rows(dev, cfg, P, M):
 # phase 4: the slice
 # ---------------------------------------------------------------------------
 def kernel_wrappers():
+    """{kernel: its wrapper, whose ``.launches`` counts its launches}."""
     from multiple_object_tracking_lidar_tpu_torch.ops import (
-        assign_cuda, centroid_cuda, cluster_pallas, grid_cuda, segsum_cuda, voxel_grid_cuda)
+        assign_cuda, centroid_cuda, cluster_pallas, grid_cuda, segsum_cuda, transpose_cuda,
+        voxel_grid_cuda)
 
+    vg = voxel_grid_cuda
     return {
-        "K1": voxel_grid_cuda.accumulate_fast_stacked,
-        "K1 raw": voxel_grid_cuda.accumulate_fast_stacked_raw,
-        "K1 fin": voxel_grid_cuda.finalize_fast_stacked,
+        "K1": vg.accumulate_fast_stacked,
+        "K1 raw": vg.accumulate_fast_stacked_raw,
+        "K1 fin": vg.finalize_fast_stacked,
+        "K1-cm": vg.accumulate_fast_stacked_cm,
+        "K1-cm raw": vg.accumulate_fast_stacked_cm_raw,
         "K2": grid_cuda.fused_finalize_static_cc_stacked,
         "K3": centroid_cuda.pair_stats,
         "K4": assign_cuda.assoc_scan,
-        "K5": voxel_grid_cuda.accumulate_exact_stacked,
-        "K5 raw": voxel_grid_cuda.accumulate_exact_stacked_raw,
-        "K5 fin": voxel_grid_cuda.finalize_exact_stacked,
-        "K6": voxel_grid_cuda.accumulate_bf16x3_stacked,
-        "K6f": voxel_grid_cuda.accumulate_f32_stacked,
+        "K5": vg.accumulate_exact_stacked,
+        "K5 raw": vg.accumulate_exact_stacked_raw,
+        "K5 fin": vg.finalize_exact_stacked,
+        "K6": vg.accumulate_bf16x3_stacked,
+        "K6 keys": vg.accumulate_bf16x3_keys,
+        "K6f": vg.accumulate_f32_stacked,
         "K7": segsum_cuda.segment_totals,
         "K8": cluster_pallas.connected_components_pallas,
         "K8a": cluster_pallas.cc_adjacency,
         "K9": segsum_cuda.segment_totals_rows,
+        "K10": centroid_cuda.circumcenter_xy,
+        "K11": transpose_cuda.transpose_words,
     }
 
 
@@ -999,6 +1126,137 @@ def phase_fleet(dev, report):
     return fleet, env, frames
 
 
+def phase_entry_points(dev, report, cfg, sc, table):
+    """This slice's entry points with every launch counter reset before and
+    read after: ``ops/centroid_pallas.py`` (K10's table and xy, K3 by the
+    JAX names), ``ops/voxel_grid.py::accumulate_from_indices`` (K6's key
+    entry) on a headline frame, and the two micro-benchmark scripts (K3;
+    K1, K1-cm, their histograms and K1's finalize), each holding its
+    results against the same function by another route."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import micro_torch_acc
+    import micro_torch_pair_stats
+
+    from multiple_object_tracking_lidar_tpu_torch.ops import centroid_pallas
+    from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid_cuda as vg
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid import accumulate_from_indices
+
+    mp, mm = table
+    kw = (cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    pts, mask, _ = headline_frames(sc, cfg.caps.n_max_points, [0])
+    P0, M0 = torch.from_numpy(pts[0]).to(dev), torch.from_numpy(mask[0]).to(dev)
+    k1p = vg.kernel_params(*kw)
+    gx, gyz = k1p["gx"], k1p["gy"] * k1p["gz"]
+    ok, lin, _ = vg.kept_cells(P0[None], M0[None], k1p)
+    ix, iyz = lin[0] % gx, lin[0] // gx
+    block = 512
+    reset_counts()
+    dets10 = centroid_pallas.circumcenter_features_table_pallas(mp, mm, 1.5)
+    dets3 = centroid_pallas.circumcenter_features_table_pallas_v2(mp, mm, 1.5)
+    ps = centroid_pallas.pair_stats_pallas(mp, mm, slab_rows=128)
+    micro_torch_pair_stats.run(dev, reps=20, log=log)
+    acc = accumulate_from_indices(P0, ix, iyz, ok[0], gx, gyz, block)
+    micro_torch_acc.run(dev, reps=10, log=log)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require("slice 5 entry points", counts,
+            ("K10", "K3", "K6 keys", "K1", "K1-cm", "K1 raw", "K1-cm raw", "K1 fin", "K11"),
+            report)
+    m = (P0.shape[0] // block) * block
+    acc6, _ = vg.accumulate_bf16x3_stacked(P0[None, :m].contiguous(), M0[None, :m], *kw)
+    ps_dyn = centroid_pallas.pair_stats_pallas_dyn(mp, mm)
+    if not (equal(npy(dets10), npy(dets3)) and equal(npy(acc), npy(acc6[0]))
+            and all(equal(npy(a), npy(b)) for a, b in zip(ps, ps_dyn))):
+        fail("slice 5 entry points: K10 against the K3 route, K6's key entry against its "
+             "quantizing entry, or pair_stats_pallas against pair_stats_pallas_dyn differ")
+    if not (np.isfinite(npy(dets10)).all() and int(acc[3].sum()) == int(ok[0, :m].sum())):
+        fail("slice 5 entry points: non-finite detections or lost points")
+    log(f"[4 slice 5] circumcenter_features_table_pallas (K10) C={mp.shape[0]} P={mp.shape[1]} "
+        f"= the K3 route bit for bit; pair_stats_pallas(slab_rows=128) = _dyn; "
+        f"accumulate_from_indices N={P0.shape[0]} block={block}: {int(acc[3].sum())} points in "
+        f"{int((acc[3] > 0).sum())} cells = K6's quantizing entry bit for bit; launches {counts}")
+
+
+def phase_growth(dev, report):
+    """Bank growth and checkpoint/resume through ``TrackerNode`` at full
+    headline width: a two-slot bank over 12 headline frames overflows and
+    grows, held against the JAX growth golden; a checkpoint of the state
+    after frame 5 resumes (at the grown K = 4) bit for bit, and padded to
+    256 slots (K4 past the TPU kernel's 128) within the golden's
+    tolerances."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.runtime.checkpoint import load_state, save_state
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import grow_bank
+
+    golden = dict(np.load(GOLDEN_GROWTH))
+    n_fr, k_save = golden["publish"].shape[0], 6
+    cfg, _, sc = bench_cases.growth_case(device=dev)
+    ckpt_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, "ckpt.npz")
+
+    def fresh():
+        node = TrackerNode(cfg, dev)
+        node.on_map(load_sim_grid())
+        return node
+
+    def outputs(node, lo=0):
+        return {f: np.stack([getattr(o, f) for o in node.outputs[lo:]])
+                for f in node.outputs[0]._fields}
+
+    node = fresh()
+    reset_counts()
+    growths, ks = [], []
+    for k in range(n_fr):
+        if k == k_save:
+            save_state(path, node.state, extra=node.checkpoint_extra())
+        node.on_pointcloud(sc.frame(k))
+        growths.append(node.n_growths)
+        ks.append(node.config.caps.k_max_tracks)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require("growth TrackerNode", counts, FAST_PATH, report)
+    if not any(st.overflow > 0 for st in node.stats) or node.n_growths < 1:
+        fail(f"growth: no overflow or no growth (n_growths {node.n_growths})")
+    got = outputs(node) | {"n_growths": np.asarray(growths), "k_max_tracks": np.asarray(ks)}
+    e = compare("growth TrackerNode vs JAX growth golden", got, golden, TOL_DETS, TOL_VEL)
+    log(f"[4 growth] TrackerNode k_max_tracks=2 x{n_fr} headline frames: overflow "
+        f"{[st.overflow for st in node.stats]}, n_growths {node.n_growths}, K {ks[-1]}, n_alive "
+        f"{got['n_alive'].tolist()}, launches {counts}; vs JAX growth golden max abs err {e}")
+
+    node2 = fresh()
+    node2.resume(*load_state(path, dev))
+    k_resumed = node2.config.caps.k_max_tracks
+    for k in range(k_save, n_fr):
+        node2.on_pointcloud(sc.frame(k))
+    torch.cuda.synchronize()
+    e = compare("resumed node vs the uninterrupted one", outputs(node2), outputs(node, k_save),
+                0.0, 0.0)
+    if k_resumed != ks[k_save - 1]:
+        fail(f"resume: K {k_resumed}, the checkpoint's bank {ks[k_save - 1]}")
+    state, meta = load_state(path, dev)
+    save_state(path, grow_bank(state, 256), extra=meta)
+    node3 = fresh()
+    node3.resume(*load_state(path, dev))
+    reset_counts()
+    for k in range(k_save, n_fr):
+        node3.on_pointcloud(sc.frame(k))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require("grown checkpoint", counts, FAST_PATH, report)
+    if node3.config.caps.k_max_tracks != 256:
+        fail(f"grown checkpoint: K {node3.config.caps.k_max_tracks}, not the padded 256")
+    report["K4 wide"]["launches"] = counts["K4"]     # every one of them at K = 256
+    ref = {f: v[k_save:] for f, v in golden.items() if f not in ("n_growths", "k_max_tracks")}
+    e3 = compare("256-slot resume vs JAX growth golden", outputs(node3), ref, TOL_DETS, TOL_VEL)
+    log(f"[4 growth] save after frame {k_save - 1} -> load_state -> resume at K={k_resumed}: "
+        f"frames {k_save}-{n_fr - 1} bit for bit the uninterrupted node's ({e}); the checkpoint "
+        f"padded to K={node3.config.caps.k_max_tracks}: launches {counts}, vs JAX golden max abs "
+        f"err {e3}")
+
+
 # ---------------------------------------------------------------------------
 # phase 5: timings
 # ---------------------------------------------------------------------------
@@ -1090,7 +1348,8 @@ def phase_timings_pointlist(dev, smi, P, M, T):
 def phase_timings(dev, cfg, smi, tracker, env, frames, report):
     from multiple_object_tracking_lidar_tpu_torch import bench_cases
     from multiple_object_tracking_lidar_tpu_torch.ops import (
-        assign_cuda, centroid_cuda, cluster_pallas, grid_cuda, segsum_cuda, voxel_grid_cuda)
+        assign_cuda, centroid_cuda, cluster_pallas, grid_cuda, segsum_cuda, transpose_cuda,
+        voxel_grid_cuda)
     from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import cluster_table_grid
     from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import track_step
 
@@ -1150,6 +1409,11 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
     vg = voxel_grid_cuda
     raw1, _ = vg.accumulate_fast_stacked_raw(P8, M8, *kw1)
     raw5, _ = vg.accumulate_exact_stacked_raw(P8, M8, *kw1)
+    Pcm8 = P8.transpose(1, 2).contiguous()
+    Kw = 1024
+    a4w = (torch.from_numpy(g.uniform(-2, 2, (Kw, 3)).astype(np.float32)).to(dev),
+           torch.stack([(torch.arange(Kw) % 2).int(), torch.arange(Kw).int(),
+                        torch.arange(Kw).int()], 1).int().to(dev)) + a4[2:]
 
     # what the data needs, for the bounds: kept points, cells, K2's
     # iterations, K3's members, K8's valid rows and sweeps
@@ -1158,6 +1422,8 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
     ok, lin, _ = vg.kept_cells(P8, M8, k1p)
     kept = int(ok.sum())
     kept1 = int(vg.kept_cells(P1, M1, k1p)[0].sum())
+    gx, gyz = k1p["gx"], k1p["gy"] * k1p["gz"]
+    ix8, iyz8 = (lin % gx).to(torch.int32), (lin // gx).to(torch.int32)
     n_off, iters = len(offsets), int(outs[3].sum())
     members = mm.sum(dim=1).to(torch.float64)
     _, k8_sweeps = cluster_pallas.connected_components_pallas(cpts, cmsk, tol, sweeps,
@@ -1194,6 +1460,28 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
         "K4": (lambda: assign_cuda.assoc_scan(*a4, **kw4),
                lambda: assign_cuda.assoc_scan_plain(*a4, **kw4),
                "K=64 D=32, 4 valid detections", a4, 20 * K * D, None),
+        "K4 wide": (lambda: assign_cuda.assoc_scan(*a4w, **kw4),
+                    lambda: assign_cuda.assoc_scan_plain(*a4w, **kw4),
+                    f"K={Kw} D=32, 4 valid detections", a4w, 20 * Kw * D, None),
+        "K10": (lambda: centroid_cuda.circumcenter_xy(mp, mm),
+                lambda: centroid_cuda.circumcenter_xy_plain(mp, mm),
+                f"C=32 P=384, {int(mm.any(1).sum())} active slots", (mp, mm),
+                int((9 * members * members + 3 * members).sum()) + 12 * mm.numel(), None),
+        "K1-cm": (lambda: vg.accumulate_fast_stacked_cm(Pcm8, M8, *kw1),
+                  lambda: vg.accumulate_fast_stacked_cm_plain(Pcm8, M8, *kw1),
+                  "S=8 frames x 106496 points, (S, 3, N)", (Pcm8, M8),
+                  35 * kept + 12 * s8 * nc, None),
+        "K1-cm raw": (lambda: vg.accumulate_fast_stacked_cm_raw(Pcm8, M8, *kw1),
+                      lambda: (vg.fast_digit_sums(P8, M8, *kw1), (M8 != 0).sum(1).int()),
+                      "S=8 frames x 106496 points, (S, 3, N)", (Pcm8, M8), 35 * kept, None),
+        "K11": (lambda: transpose_cuda.transpose_words(P8),
+                lambda: transpose_cuda.transpose_words_plain(P8),
+                "S=8 frames x 106496 points, (S, N, 3) -> (S, 3, N)", (P8,), 0,
+                lambda: torch.permute(P8, (0, 2, 1)).contiguous()),
+        "K6 keys": (lambda: vg.accumulate_bf16x3_keys(P8, ix8, iyz8, ok, gx, gyz),
+                    lambda: vg.accumulate_bf16x3_keys_plain(P8, ix8, iyz8, ok, gx, gyz),
+                    "S=8 frames x 106496 points, keys given", (P8, ix8, iyz8, ok), 50 * kept,
+                    None),
         "K5": (lambda: vg.accumulate_exact_stacked(P8, M8, *kw1),
                lambda: vg.accumulate_exact_stacked_plain(P8, M8, *kw1),
                "S=8 frames x 106496 points", (P8, M8), 45 * kept + 18 * s8 * nc, None),
@@ -1224,7 +1512,7 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
                lambda: torch.segment_reduce(rows4, "sum", lengths=runs, axis=0)),
     }
     for name, (fk, fp, shape, ins, ops, lib) in pairs.items():
-        reps_p = 2 if name in ("K6", "K6f") else 5
+        reps_p = 2 if name in ("K6", "K6f", "K6 keys") else 5
         ms_p = cuda_ms(fp, reps_p)
         ms_k = cuda_ms(fk, 50)
         ms_k2 = cuda_ms(fk, 50)
@@ -1323,6 +1611,19 @@ KERNELS = (
      f"{PKG}/csrc/cluster_cc.cu", "multiple_object_tracking_lidar_tpu/ops/cluster_pallas.py:96"),
     ("K9", "segmented prefix totals over (N, 4) rows, 2048-row blocks",
      f"{PKG}/csrc/segsum.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_pallas.py:69"),
+    ("K10", "the whole circumcenter per cluster slot (farthest pair, line scan, determinant)",
+     f"{PKG}/csrc/circumcenter.cu", "multiple_object_tracking_lidar_tpu/ops/centroid_pallas.py:124"),
+    ("K6 keys", "K6's key entry: bf16x3 sums from precomputed grid indices",
+     f"{PKG}/csrc/voxel_bf16x3.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:2020"),
+    ("K1-cm", "K1 reading (S, 3, N) channel-major points (the accumulator probes' layout)",
+     f"{PKG}/csrc/voxel_grid.cu", "scripts/micro_acc_v7.py:109"),
+    ("K1-cm raw", "K1-cm's histogram alone (make_v5_stacked's layout)",
+     f"{PKG}/csrc/voxel_grid.cu", "scripts/micro_acc_v5.py:276"),
+    ("K4 wide", "K4 on a bank grown past the TPU kernel's 128 slots (one CTA, up to 1,024 lanes)",
+     f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188"),
+    ("K11", "batched transpose of 32-bit words: the (S, N, 3) -> (S, 3, N) points K1-cm reads, "
+     "and the probes' (1, B) -> (B, 1) int32 row",
+     f"{PKG}/csrc/transpose.cu", "scripts/micro_transpose.py:49"),
 )
 
 
@@ -1333,14 +1634,17 @@ def main() -> int:
     torch.cuda.set_device(dev)
     phase_build()
     report: dict = {}
-    cfg, sc, k1_inputs = phase_kernels(dev, report)
+    cfg, sc, k1_inputs, table = phase_kernels(dev, report)
     phase_kernels_more(dev, report, cfg, k1_inputs)
     phase_kernels_pointlist(dev, report, cfg, k1_inputs)
     phase_kernels_fleet(dev, report, cfg, k1_inputs)
+    phase_kernels_slice5(dev, report, cfg, k1_inputs, table)
     tracker, env, frames = phase_slice(dev, cfg, sc, report)
     phase_modes(dev, report)
     phase_pointlist(dev, report)
     fleet, fleet_env, fleet_in = phase_fleet(dev, report)
+    phase_entry_points(dev, report, cfg, sc, table)
+    phase_growth(dev, report)
     phase_timings(dev, cfg, smi, tracker, env, frames, report)
     phase_timings_fleet(dev, smi, fleet, fleet_env, fleet_in)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -5,8 +5,8 @@ in parallel processes, and links them into one shared library with a plain
 C interface, loaded with ``ctypes`` -- no PyTorch headers in the build, so
 it takes seconds, not minutes.  The library lands in ``build/torch_kernels/``
 beside the package (``.gitignore`` lists ``build/``), named by a hash of the
-sources and flags, so an edited source never loads a stale build.  Nothing
-is downloaded and no library kernel is linked.
+sources, their headers and the flags, so an edited source never loads a
+stale build.  Nothing is downloaded and no library kernel is linked.
 
 ``--fmad=false`` is belt and braces: the sources already spell every f32
 product and sum with ``__fmul_rn``/``__fadd_rn``/``__fsub_rn`` so that FMA
@@ -47,6 +47,12 @@ SIGNATURES = {
     "motl_voxel_accumulate_raw": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                                   _P],
+    "motl_voxel_accumulate_cm": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F,
+                                 _F, _F, _F, _P],
+    "motl_voxel_accumulate_cm_raw": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
+                                     _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                                     _F, _F, _P],
     "motl_voxel_finalize_fast": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                                  _F, _F, _F, _F, _P],
     "motl_voxel_exact_raw": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
@@ -56,17 +62,21 @@ SIGNATURES = {
     "motl_grid_cc": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
                      _P, _P, _P, _P],
     "motl_pair_stats": [_P, _P, _I, _I, _P, _P, _P],
+    "motl_circumcenter": [_P, _P, _I, _I, _P, _P],
     "motl_assoc_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P,
                         _P, _P],
     "motl_voxel_exact": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "motl_voxel_bf16x3": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                           _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    "motl_voxel_bf16x3_keys": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                               _P, _P, _I, _P, _I, _I, _P],
     "motl_segment_totals": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                             _P],
     "motl_segment_totals_rows": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
     "motl_cc_adjacency": [_P, _P, _I, _I, _F, _P, _P, _P, _P],
     "motl_cc_labels": [_P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P],
+    "motl_transpose32": [_P, _P, _I, _I, _I, _P],
 }
 
 
@@ -100,8 +110,9 @@ def sources() -> list[str]:
 
 
 def _digest(srcs: list[str]) -> str:
+    """A hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + b"\0" + f.read())
     return h.hexdigest()[:16]

@@ -8,7 +8,8 @@ fields changed: on the dense grid ``exact_case`` (bench.py:518),
 ``runs_case`` and ``exact_unpadded_case``; on the point list
 ``pointlist_case`` (C), ``pointlist_jnp_case`` (D), ``scan_case`` (E) and
 ``pointlist_runs_case`` (F).  ``default_case`` (G) is the JAX package's
-``TrackerConfig()`` itself, fed the headline frames.
+``TrackerConfig()`` itself, fed the headline frames; ``growth_case`` the
+headline with a two-slot bank, which the node grows.
 """
 
 from __future__ import annotations
@@ -169,3 +170,12 @@ def default_case(device="cpu"):
     env = build_static_mask(load_sim_grid(), cfg.static_tolarance, cfg.occupied_threshold,
                             device=device)
     return cfg, env, sc
+
+
+def growth_case(device="cpu"):
+    """The headline with a two-slot track bank (``k_max_tracks=2``): the
+    three moving objects overflow the first frame, and the node's default
+    ``grow_bank_on_overflow`` doubles the bank (the JAX node's escape hatch,
+    runtime/node.py:131-136)."""
+    cfg, env, sc = headline_case(device)
+    return cfg.replace(caps=dataclasses.replace(cfg.caps, k_max_tracks=2)), env, sc

@@ -13,21 +13,27 @@
 //
 // What bounds it on the H100: latency -- the scan is sequential over at
 // most D <= 128 detections, a few dozen instructions each.  Design: one CTA
-// of 128 threads, one lane per track slot; the bank summary lives in
-// registers, the detections in shared memory.  Each detection needs four
-// block-wide reductions ("any gated", "smallest birth_seq among gated",
-// "lowest free slot", "bank full"), done with warp shuffles plus one
-// shared-memory exchange across the four warps.  The distance uses
-// __fmul_rn / __fadd_rn and IEEE sqrtf; the interp rounding uses rintf
-// (round half to even, as jnp.round).
+// of 32 * ceil(K / 32) threads, one lane per track slot; the bank summary
+// lives in registers, the detections in shared memory.  Each detection
+// needs four block-wide reductions ("any gated", "smallest birth_seq among
+// gated", "lowest free slot", "bank full"), done with warp shuffles plus
+// one shared-memory exchange across the CTA's warps.  What bounds K: one
+// lane per slot in one CTA, so K <= 1,024 (the largest CTA); a bank grown
+// past that raises in the wrapper.  D <= 128 is the shared detection
+// buffer.  The kernel is built twice, for CTAs of up to 128 and of up to
+// 1,024 threads: a 1,024-thread bound caps ptxas at 64 registers per
+// thread, where this kernel spills, so banks of K <= 128 (the default
+// K = 64 among them) launch the 128-thread build and keep its registers.  The distance uses __fmul_rn / __fadd_rn and IEEE sqrtf; the
+// interp rounding uses rintf (round half to even, as jnp.round).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kLanes = 128;
-constexpr int kWarps = kLanes / 32;
+constexpr int kMaxDets = 128;
+constexpr int kMaxLanes = 1024;
+constexpr int kNarrowLanes = 128;  // the TPU kernel's K bound
 constexpr int kBig = 1 << 30;
 
 struct Selected {
@@ -36,6 +42,7 @@ struct Selected {
   int id;
 };
 
+template <int kLanes>
 __global__ void __launch_bounds__(kLanes)
 assoc_scan_kernel(const float* __restrict__ af0, const int* __restrict__ ai0,
                   const float* __restrict__ dets, const uint8_t* __restrict__ dv,
@@ -43,12 +50,13 @@ assoc_scan_kernel(const float* __restrict__ af0, const int* __restrict__ ai0,
                   int K, int D, float thr, float gapthr, float dt,
                   int* __restrict__ ai_out, int* __restrict__ outs,
                   int* __restrict__ cnt_out) {
-  __shared__ float s_det[kLanes * 4];
-  __shared__ int s_dv[kLanes];
-  __shared__ int s_red[2][4][kWarps];
+  __shared__ float s_det[kMaxDets * 4];
+  __shared__ int s_dv[kMaxDets];
+  __shared__ int s_red[2][4][kLanes / 32];
   __shared__ Selected s_sel[2];
   const int k = threadIdx.x;
   const int lane = k & 31, warp = k >> 5;
+  const int n_warps = blockDim.x >> 5;
   const bool in_k = k < K;
 
   float lx = 0.f, ly = 0.f, lt = 0.f;
@@ -116,7 +124,7 @@ assoc_scan_kernel(const float* __restrict__ af0, const int* __restrict__ ai0,
     }
     __syncthreads();
     int any = 0, bmin = kBig, fmin = kBig, full = 1;
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < n_warps; ++w) {
       any |= s_red[buf][0][w];
       bmin = min(bmin, s_red[buf][1][w]);
       fmin = min(fmin, s_red[buf][2][w]);
@@ -181,13 +189,19 @@ assoc_scan_kernel(const float* __restrict__ af0, const int* __restrict__ ai0,
 // birth_seq]; dets (D, 4) f32; dv (D,) u8; allow (1,) i32; cnt_in (2,) i32
 // [next_obj_num, next_birth].  Outputs: ai_out (K, 3) i32, outs (5, D) i32
 // [slot, id, new, ok, interp], cnt_out (3,) i32 [next_obj_num, next_birth,
-// overflow].  K, D <= 128.
+// overflow].  1 <= K <= 1024, D <= 128.
 extern "C" int motl_assoc_scan(const float* af0, const int* ai0, const float* dets,
                                const uint8_t* dv, const int* allow, const int* cnt_in,
                                int K, int D, float thr, float gapthr, float dt,
                                int* ai_out, int* outs, int* cnt_out, void* stream) {
-  if (K > kLanes || D > kLanes) return (int)cudaErrorInvalidValue;
-  assoc_scan_kernel<<<1, kLanes, 0, (cudaStream_t)stream>>>(
-      af0, ai0, dets, dv, allow, cnt_in, K, D, thr, gapthr, dt, ai_out, outs, cnt_out);
+  if (K < 1 || K > kMaxLanes || D > kMaxDets) return (int)cudaErrorInvalidValue;
+  const int threads = (K + 31) / 32 * 32;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (threads <= kNarrowLanes)
+    assoc_scan_kernel<kNarrowLanes><<<1, threads, 0, st>>>(
+        af0, ai0, dets, dv, allow, cnt_in, K, D, thr, gapthr, dt, ai_out, outs, cnt_out);
+  else
+    assoc_scan_kernel<kMaxLanes><<<1, threads, 0, st>>>(
+        af0, ai0, dets, dv, allow, cnt_in, K, D, thr, gapthr, dt, ai_out, outs, cnt_out);
   return (int)cudaGetLastError();
 }

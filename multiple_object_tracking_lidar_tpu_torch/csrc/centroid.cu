@@ -15,15 +15,18 @@
 // the launch.  Design: one CTA per slot; the centred members sit in shared
 // memory; each thread owns columns j and scans rows i < j in ascending
 // order with a strict '>' update, so ties keep the first row.  The gram is
-// computed in the kernel body in the fixed order written above, with
-// __fmul_rn / __fadd_rn / __fsub_rn (no FMA), so it matches the plain
-// PyTorch version bit for bit.  The member mean is a sequential f64 sum of
-// the f32 coordinates, rounded to f32, divided by the f32 member count.
+// computed in the fixed order written above, with __fmul_rn / __fadd_rn /
+// __fsub_rn (no FMA), so it matches the plain PyTorch version bit for bit.
+// The member mean is a sequential f64 sum of the f32 coordinates, rounded
+// to f32, divided by the f32 member count.  Mean, centring and column scan
+// live in pair_scan.cuh, shared with K10 (circumcenter.cu).
 // Selection, the line scan and the determinant stay in eager PyTorch
 // (ops/centroid.py::circumcenter_from_pair_stats).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "pair_scan.cuh"
 
 namespace {
 
@@ -45,19 +48,7 @@ pair_stats_kernel(const float* __restrict__ mpts, const uint8_t* __restrict__ mm
   float* cm = colmax + (size_t)c * P;
   int* fr = firstrow + (size_t)c * P;
 
-  if (threadIdx.x < 3) {
-    // sequential f64 sum of member coordinates, one axis per thread
-    double acc = 0.0;
-    int cnt = 0;
-    for (int i = 0; i < P; ++i) {
-      if (mk[i]) {
-        acc += (double)M[3 * i + threadIdx.x];
-        ++cnt;
-      }
-    }
-    s_mean[threadIdx.x] = __double2float_rn(acc) / fmaxf((float)cnt, 1.0f);
-    if (threadIdx.x == 0) s_cnt = cnt;
-  }
+  member_mean(M, mk, P, s_mean, &s_cnt);
   __syncthreads();
   if (s_cnt == 0) {
     for (int j = threadIdx.x; j < P; j += blockDim.x) {
@@ -66,36 +57,10 @@ pair_stats_kernel(const float* __restrict__ mpts, const uint8_t* __restrict__ mm
     }
     return;
   }
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const bool m = mk[i] != 0;
-    const float x = m ? __fsub_rn(M[3 * i], s_mean[0]) : 0.0f;
-    const float y = m ? __fsub_rn(M[3 * i + 1], s_mean[1]) : 0.0f;
-    const float z = m ? __fsub_rn(M[3 * i + 2], s_mean[2]) : 0.0f;
-    pcx[i] = x;
-    pcy[i] = y;
-    pcz[i] = z;
-    sq[i] = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
-  }
+  centre_members(M, mk, P, s_mean, pcx, pcy, pcz, sq);
   __syncthreads();
-  for (int j = threadIdx.x; j < P; j += blockDim.x) {
-    float best = -1.0f;
-    int row = 0;
-    if (mk[j]) {
-      const float xj = pcx[j], yj = pcy[j], zj = pcz[j], sqj = sq[j];
-      for (int i = 0; i < j; ++i) {
-        if (!mk[i]) continue;
-        const float g = __fadd_rn(__fadd_rn(__fmul_rn(pcx[i], xj), __fmul_rn(pcy[i], yj)),
-                                  __fmul_rn(pcz[i], zj));
-        const float d2 = __fsub_rn(__fadd_rn(sq[i], sqj), __fmul_rn(2.0f, g));
-        if (d2 > best) {
-          best = d2;
-          row = i;
-        }
-      }
-    }
-    cm[j] = best;
-    fr[j] = row;
-  }
+  for (int j = threadIdx.x; j < P; j += blockDim.x)
+    column_max(j, mk, pcx, pcy, pcz, sq, &cm[j], &fr[j]);
 }
 
 }  // namespace

@@ -11,6 +11,14 @@
 // h3 = bf16((v - h1) - h2).  Per cell: the f32 sums S1, S2, S3 of each
 // part, combined as (S1 + S2) + S3, and the exact count.
 //
+// The key entry (motl_voxel_bf16x3_keys) replaces the Pallas kernel
+// voxel_grid.py::_accumulate_pallas (body _acc_kernel), the TPU's first
+// one-hot accumulator, whose caller quantizes: it takes precomputed ix,
+// iyz and in_bounds and sums the same bf16x3 parts over the (gyz, gx) grid.
+// Its stage 1 takes the key in_bounds ? iyz * gx + ix : -1 instead of
+// quantizing, and drops ix outside [0, gx) and iyz outside [0, gyz): no
+// one-hot row matches them (voxel_grid.py:314-317).  Stages 2-4 are shared.
+//
 // Mode 1 (f32) is the point-list dense accumulator, ops/voxel.py::
 // voxel_accumulate: no Pallas kernel, an XLA scatter-add of (x, y, z, 1),
 // which XLA's CPU code applies one update at a time in ascending point
@@ -95,6 +103,32 @@ __global__ void bf_key_count_kernel(const float* __restrict__ pts,
         key = ((int)fx - p.bx) + p.gx * (((int)fy - p.by) + p.gy * ((int)fz - p.bz));
         atomicAdd(&C[(size_t)key * n_chunks + c], 1);
       }
+    }
+    K[i] = key;
+  }
+}
+
+// Stage 1 of the key entry: the keys given as grid indices.
+__global__ void bf_key_count_idx_kernel(const int* __restrict__ ix,
+                                        const int* __restrict__ iyz,
+                                        const uint8_t* __restrict__ inb, int n,
+                                        int chunk, int n_chunks, int gx, int gyz,
+                                        int* __restrict__ keys,
+                                        int* __restrict__ counts) {
+  const int s = blockIdx.y;
+  const int c = blockIdx.x;
+  const int* X = ix + (size_t)s * n;
+  const int* YZ = iyz + (size_t)s * n;
+  const uint8_t* B = inb + (size_t)s * n;
+  int* K = keys + (size_t)s * n;
+  int* C = counts + (size_t)s * gx * gyz * n_chunks;
+  const int end = min(n, (c + 1) * chunk);
+  for (int i = c * chunk + threadIdx.x; i < end; i += blockDim.x) {
+    int key = -1;
+    const int x = X[i], yz = YZ[i];
+    if (B[i] != 0 && x >= 0 && x < gx && yz >= 0 && yz < gyz) {
+      key = yz * gx + x;
+      atomicAdd(&C[(size_t)key * n_chunks + c], 1);
     }
     K[i] = key;
   }
@@ -298,33 +332,15 @@ __global__ void f32_sum_kernel(const float* __restrict__ pts,
   O[3 * n_cells + cell] = (float)(hi - lo);
 }
 
-}  // namespace
-
-// points (S, N, 3) f32, mask (S, N) u8.  Scratch from the caller: keys
-// (S, N) i32, counts (S, n_cells * n_chunks) i32 zeroed, offs the same
-// shape, cell_start (S, n_cells + 1) i32, sorted (S, N) i32, seg_tot and
-// seg_base (S, n_seg) i32 with n_seg = ceil(n_cells * n_chunks / seg_len)
-// <= 1024.  Output out (S, 4, n_cells) f32 [sum_x, sum_y, sum_z, count]:
-// mode 0 the bf16x3 sums, mode 1 the plain f32 sums.
-extern "C" int motl_voxel_bf16x3(
-    const float* pts, const uint8_t* mask, int S, int N, int chunk,
-    int* keys, int* counts, int* offs, int* cell_start, int* sorted,
-    int* seg_tot, int* seg_base, int seg_len, float* out, int n_cells,
-    int gx, int gy, int gz, int bx, int by, int bz, float inv_xy, float inv_z,
-    int mode, void* stream) {
-  BfParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z};
-  cudaStream_t st = (cudaStream_t)stream;
+// Stages 2-4 of both entries, after stage 1 has written keys and counts.
+int launch_sorted_sums(const float* pts, int S, int N, int chunk, int n_cells, int* keys,
+                       int* counts, int* offs, int* cell_start, int* sorted, int* seg_tot,
+                       int* seg_base, int seg_len, float* out, int mode, cudaStream_t st) {
   const int n_chunks = (N + chunk - 1) / chunk;
   const int L = n_cells * n_chunks;
   const int n_seg = (L + seg_len - 1) / seg_len;
-  if (n_seg < 1 || n_seg > 1024 || seg_len % 32 != 0 || (mode != 0 && mode != 1))
-    return (int)cudaErrorInvalidValue;
-  bf_key_count_kernel<<<dim3(n_chunks, S), 256, 0, st>>>(
-      pts, mask, N, chunk, n_chunks, p, keys, counts);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   bf_seg_total_kernel<<<dim3(n_seg, S), 256, 0, st>>>(counts, L, seg_len, n_seg, seg_tot);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bf_seg_base_kernel<<<S, 1024, 0, st>>>(seg_tot, n_seg, n_cells, seg_base, cell_start);
   err = cudaGetLastError();
@@ -343,4 +359,58 @@ extern "C" int motl_voxel_bf16x3(
   else
     f32_sum_kernel<<<(total + 127) / 128, 128, 0, st>>>(pts, sorted, cell_start, S, N, n_cells, out);
   return (int)cudaGetLastError();
+}
+
+bool bad_shape(int N, int chunk, int n_cells, int seg_len) {
+  if (N < 1 || chunk < 1 || n_cells < 1 || seg_len < 32 || seg_len % 32 != 0) return true;
+  const long long L = (long long)n_cells * ((N + chunk - 1) / chunk);
+  const long long n_seg = (L + seg_len - 1) / seg_len;
+  return n_seg < 1 || n_seg > 1024;
+}
+
+}  // namespace
+
+// points (S, N, 3) f32, mask (S, N) u8.  Scratch from the caller: keys
+// (S, N) i32, counts (S, n_cells * n_chunks) i32 zeroed, offs the same
+// shape, cell_start (S, n_cells + 1) i32, sorted (S, N) i32, seg_tot and
+// seg_base (S, n_seg) i32 with n_seg = ceil(n_cells * n_chunks / seg_len)
+// <= 1024.  Output out (S, 4, n_cells) f32 [sum_x, sum_y, sum_z, count]:
+// mode 0 the bf16x3 sums, mode 1 the plain f32 sums.
+extern "C" int motl_voxel_bf16x3(
+    const float* pts, const uint8_t* mask, int S, int N, int chunk,
+    int* keys, int* counts, int* offs, int* cell_start, int* sorted,
+    int* seg_tot, int* seg_base, int seg_len, float* out, int n_cells,
+    int gx, int gy, int gz, int bx, int by, int bz, float inv_xy, float inv_z,
+    int mode, void* stream) {
+  if (bad_shape(N, chunk, n_cells, seg_len) || (mode != 0 && mode != 1))
+    return (int)cudaErrorInvalidValue;
+  BfParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z};
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_chunks = (N + chunk - 1) / chunk;
+  bf_key_count_kernel<<<dim3(n_chunks, S), 256, 0, st>>>(
+      pts, mask, N, chunk, n_chunks, p, keys, counts);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_sorted_sums(pts, S, N, chunk, n_cells, keys, counts, offs, cell_start, sorted,
+                            seg_tot, seg_base, seg_len, out, mode, st);
+}
+
+// The key entry: ix, iyz (S, N) i32 and in_bounds (S, N) u8 instead of the
+// mask and the grid geometry; n_cells = gyz * gx in iyz-major order.  The
+// bf16x3 sums of mode 0; the same scratch and output as motl_voxel_bf16x3.
+extern "C" int motl_voxel_bf16x3_keys(
+    const float* pts, const int* ix, const int* iyz, const uint8_t* inb, int S, int N,
+    int chunk, int* keys, int* counts, int* offs, int* cell_start, int* sorted,
+    int* seg_tot, int* seg_base, int seg_len, float* out, int gx, int gyz, void* stream) {
+  const int n_cells = gx * gyz;
+  if (gx < 1 || gyz < 1 || bad_shape(N, chunk, n_cells, seg_len))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_chunks = (N + chunk - 1) / chunk;
+  bf_key_count_idx_kernel<<<dim3(n_chunks, S), 256, 0, st>>>(
+      ix, iyz, inb, N, chunk, n_chunks, gx, gyz, keys, counts);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_sorted_sums(pts, S, N, chunk, n_cells, keys, counts, offs, cell_start, sorted,
+                            seg_tot, seg_base, seg_len, out, 0, st);
 }

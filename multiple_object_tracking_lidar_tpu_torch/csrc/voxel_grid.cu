@@ -21,7 +21,14 @@
 // (motl_voxel_accumulate_raw, motl_voxel_finalize_fast), which replace the
 // raw stacked kernels _accumulate_pallas_v5_stacked_raw / _v4_stacked_raw
 // and the jnp finalize_fast_digits: the fused entry is the same two
-// launches back to back, so its bits equal raw + finalize.  Every f32
+// launches back to back, so its bits equal raw + finalize.
+//
+// K1-cm (motl_voxel_accumulate_cm, _cm_raw) reads the points channel-major,
+// (S, 3, N) planes, instead of (S, N, 3) rows: the operand layout of the
+// TPU's accumulator probes (scripts/micro_acc_v5.py, micro_acc_v7.py,
+// micro_transpose.py), which all compute this histogram and differ only in
+// layout.  The point read is a template parameter; the function and its
+// bits do not change.  Every f32
 // product and sum uses __fmul_rn /
 // __fadd_rn / __fsub_rn so no FMA contraction changes a bit against the
 // plain PyTorch version (ops/voxel_grid_cuda.py).
@@ -49,6 +56,10 @@ __device__ __forceinline__ int fast_digit(float p, float fl, float leaf,
   return d < -127 ? -127 : (d > 127 ? 127 : d);
 }
 
+// CM: the points' layout.  false: row-major (S, N, 3) rows, 12 bytes per
+// point; true: channel-major (S, 3, N) planes, each thread's three loads
+// coalesced across the warp (K1-cm).
+template <bool CM>
 __global__ void voxel_hist_kernel(const float* __restrict__ pts,
                                   const uint8_t* __restrict__ mask, int n,
                                   int pts_per_cta, VoxParams p,
@@ -67,7 +78,9 @@ __global__ void voxel_hist_kernel(const float* __restrict__ pts,
   for (int i = start + threadIdx.x; i < end; i += blockDim.x) {
     if (M[i] == 0) continue;
     ++kept;
-    const float x = P[3 * i], y = P[3 * i + 1], z = P[3 * i + 2];
+    const float x = CM ? P[i] : P[3 * i];
+    const float y = CM ? P[n + i] : P[3 * i + 1];
+    const float z = CM ? P[2 * n + i] : P[3 * i + 2];
     const float fx = floorf(__fmul_rn(x, p.inv_xy));
     const float fy = floorf(__fmul_rn(y, p.inv_xy));
     const float fz = floorf(__fmul_rn(z, p.inv_z));
@@ -120,15 +133,16 @@ __global__ void voxel_finalize_kernel(const int* __restrict__ acc,
   O[3 * nc + lin] = cnt;
 }
 
+template <bool CM>
 int launch_hist(const float* pts, const uint8_t* mask, int S, int N,
                 int pts_per_cta, const VoxParams& p, int* acc, int* npts,
                 cudaStream_t st) {
   const size_t smem = (size_t)4 * p.n_cells * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
-      voxel_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      voxel_hist_kernel<CM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + pts_per_cta - 1) / pts_per_cta, S);
-  voxel_hist_kernel<<<grid, 256, smem, st>>>(pts, mask, N, pts_per_cta, p, acc, npts);
+  voxel_hist_kernel<CM><<<grid, 256, smem, st>>>(pts, mask, N, pts_per_cta, p, acc, npts);
   return (int)cudaGetLastError();
 }
 
@@ -137,6 +151,14 @@ int launch_finalize(const int* acc, float* out, int S, const VoxParams& p,
   const int total = S * p.n_cells;
   voxel_finalize_kernel<<<(total + 255) / 256, 256, 0, st>>>(acc, out, S, p);
   return (int)cudaGetLastError();
+}
+
+template <bool CM>
+int accumulate(const float* pts, const uint8_t* mask, int S, int N, int pts_per_cta,
+               int* acc, float* out, int* npts, const VoxParams& p, cudaStream_t st) {
+  const int err = launch_hist<CM>(pts, mask, S, N, pts_per_cta, p, acc, npts, st);
+  if (err != 0) return err;
+  return launch_finalize(acc, out, S, p, st);
 }
 
 }  // namespace
@@ -151,10 +173,21 @@ extern "C" int motl_voxel_accumulate(
     float invq_xy, float invq_z, void* stream) {
   VoxParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z, leaf_xy, leaf_z,
               half_xy, half_z, sq_xy, sq_z, invq_xy, invq_z};
-  cudaStream_t st = (cudaStream_t)stream;
-  const int err = launch_hist(pts, mask, S, N, pts_per_cta, p, acc, npts, st);
-  if (err != 0) return err;
-  return launch_finalize(acc, out, S, p, st);
+  return accumulate<false>(pts, mask, S, N, pts_per_cta, acc, out, npts, p,
+                           (cudaStream_t)stream);
+}
+
+// K1-cm: the same with points given channel-major, (S, 3, N) f32.
+extern "C" int motl_voxel_accumulate_cm(
+    const float* pts, const uint8_t* mask, int S, int N, int pts_per_cta,
+    int* acc, float* out, int* npts, int n_cells, int gx, int gy, int gz,
+    int bx, int by, int bz, float inv_xy, float inv_z, float leaf_xy,
+    float leaf_z, float half_xy, float half_z, float sq_xy, float sq_z,
+    float invq_xy, float invq_z, void* stream) {
+  VoxParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z, leaf_xy, leaf_z,
+              half_xy, half_z, sq_xy, sq_z, invq_xy, invq_z};
+  return accumulate<true>(pts, mask, S, N, pts_per_cta, acc, out, npts, p,
+                          (cudaStream_t)stream);
 }
 
 // The histogram alone (the kernel fleet all-reduces these integers over its
@@ -167,7 +200,18 @@ extern "C" int motl_voxel_accumulate_raw(
     float half_xy, float half_z, float sq_xy, float sq_z, void* stream) {
   VoxParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z, leaf_xy, leaf_z,
               half_xy, half_z, sq_xy, sq_z, 0.0f, 0.0f};
-  return launch_hist(pts, mask, S, N, pts_per_cta, p, acc, npts, (cudaStream_t)stream);
+  return launch_hist<false>(pts, mask, S, N, pts_per_cta, p, acc, npts, (cudaStream_t)stream);
+}
+
+// K1-cm's histogram alone: points (S, 3, N) f32.
+extern "C" int motl_voxel_accumulate_cm_raw(
+    const float* pts, const uint8_t* mask, int S, int N, int pts_per_cta,
+    int* acc, int* npts, int n_cells, int gx, int gy, int gz, int bx, int by,
+    int bz, float inv_xy, float inv_z, float leaf_xy, float leaf_z,
+    float half_xy, float half_z, float sq_xy, float sq_z, void* stream) {
+  VoxParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z, leaf_xy, leaf_z,
+              half_xy, half_z, sq_xy, sq_z, 0.0f, 0.0f};
+  return launch_hist<true>(pts, mask, S, N, pts_per_cta, p, acc, npts, (cudaStream_t)stream);
 }
 
 // The finalize alone: acc (S, 4, n_cells) i32 digit sums -> out (S, 4,

@@ -4,7 +4,11 @@ Replaces the Pallas kernel ``multiple_object_tracking_lidar_tpu/ops/
 assign_pallas.py::assoc_scan_pallas``.  CUDA source: ``csrc/assign.cu``,
 whose header says what bounds it on the H100 (latency: a sequential scan
 over at most 128 detections) and how its design answers that (one CTA of
-128 threads, one lane per track slot, warp-shuffle reductions).
+32 * ceil(K / 32) threads, one lane per track slot, warp-shuffle
+reductions).  The TPU kernel holds K <= 128 and the JAX package takes its
+jnp scan past that (assign.py:168-178); K4 holds a bank grown to
+``MAX_LANES`` = 1,024 slots, the largest CTA, and raises past it (built
+twice: banks of K <= 128 launch the build bounded at 128 threads).
 
 ``assoc_scan`` launches the kernel for CUDA tensors and runs
 ``assoc_scan_plain`` for CPU tensors; ``.launches`` counts kernel
@@ -23,7 +27,8 @@ from multiple_object_tracking_lidar_tpu_torch import _build
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32
 
 _BIG = 2**30
-MAX_LANES = 128
+MAX_LANES = 1024   # track slots: one lane each, one CTA
+MAX_DETS = 128     # detections: K4's shared detection buffer
 
 
 def _consts(thr, dt_gp, interp_gap_factor):
@@ -116,8 +121,11 @@ def assoc_scan(
         )
     k, d = af0.shape[0], dets.shape[0]
     dev = af0.device
-    if k > MAX_LANES or d > MAX_LANES:
-        raise ValueError(f"K4 holds K, D <= {MAX_LANES} (got K={k}, D={d})")
+    if not 1 <= k <= MAX_LANES or d > MAX_DETS:
+        raise ValueError(
+            f"K4 holds 1 <= K <= {MAX_LANES} track slots (one CTA, one lane per "
+            f"slot) and D <= {MAX_DETS} detections (got K={k}, D={d})"
+        )
     if af0.shape != (k, 3) or af0.dtype != torch.float32:
         raise ValueError(f"af0 must be ({k}, 3) float32")
     if ai0.shape != (k, 3) or ai0.dtype != torch.int32:

@@ -15,6 +15,10 @@ voxel_grid.py``, with its TPU dispatch (voxel_grid.py:117-164):
   the TPU's v2 kernel when the leaf is too coarse, and its jnp lowering of
   the same sums when no block tiles N.
 
+``accumulate_from_indices`` is the port of ``_accumulate_pallas``, the
+TPU's first one-hot accumulator, whose caller quantizes; no tracking path
+runs it.
+
 The kernels live in ``ops/voxel_grid_cuda.py``.
 """
 
@@ -26,6 +30,7 @@ from multiple_object_tracking_lidar_tpu_torch.config import SceneBounds
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
     FXP_XY,
     FXP_Z,
+    accumulate_bf16x3_keys,
     accumulate_bf16x3_stacked,
     accumulate_exact_stacked,
     accumulate_fast_stacked,
@@ -103,3 +108,30 @@ def finalize_dense_cm(acc_cm: torch.Tensor):
     occ = cnt > 0
     cent = acc_cm[..., :3, :] / torch.clamp(cnt[..., None, :], min=1.0)
     return cent, occ, occ.sum(dim=-1)
+
+
+def accumulate_from_indices(
+    points: torch.Tensor,     # (N, 3)
+    ix: torch.Tensor,         # (N,) int: x cell index
+    iyz: torch.Tensor,        # (N,) int: iy + gy * iz
+    in_bounds: torch.Tensor,  # (N,) bool
+    gx: int,
+    gyz: int,
+    block: int,
+) -> torch.Tensor:
+    """(4, gyz * gx) f32 [sum_x, sum_y, sum_z, count] of the points given
+    with their grid indices: the bf16x3 sums, combined as (S1 + S2) + S3,
+    of every point in bounds whose ix lies in [0, gx) and iyz in [0, gyz)
+    (K6's key entry).  Port of ``voxel_grid.py::_accumulate_pallas``
+    (:2020).  As the TPU grid (``grid = n // block``, :2043) it sums only
+    the first ``(N // block) * block`` points: a tail shorter than a block
+    is dropped."""
+    n = points.shape[0]
+    if block < 1 or n < block:
+        raise ValueError(f"block={block} must be in [1, N={n}]")
+    m = (n // block) * block
+    out = accumulate_bf16x3_keys(
+        points[None, :m].to(torch.float32), ix[None, :m], iyz[None, :m], in_bounds[None, :m],
+        gx, gyz,
+    )
+    return out[0]

@@ -10,10 +10,12 @@ K6 (bf16x3 sums).
   two balanced int8 digits per axis, seven channels.
 - K6 replaces ``_accumulate_pallas_v2`` and the jnp bf16x3 lowering
   (``csrc/voxel_bf16x3.cu``): f32 sums of three bf16 parts per coordinate,
-  in the fixed order its header writes down.  Its f32 mode sums the plain
-  coordinates in the same order: the point-list dense accumulator
-  (``voxel_mode="dense"``), whose JAX form is an XLA scatter-add, not a
-  Pallas kernel.
+  in the fixed order its header writes down.  Its key entry
+  (``accumulate_bf16x3_keys``) replaces ``_accumulate_pallas``, the TPU's
+  first accumulator, which takes precomputed grid indices.  Its f32 mode
+  sums the plain coordinates in the same order: the point-list dense
+  accumulator (``voxel_mode="dense"``), whose JAX form is an XLA
+  scatter-add, not a Pallas kernel.
 
 Each CUDA header says what bounds the kernel on the H100 and how its design
 answers that.  K1 and K5 sum integer digits with integer atomics, so their
@@ -26,6 +28,10 @@ Each wrapper (``accumulate_fast_stacked``, ``accumulate_exact_stacked``,
 kernel for CUDA tensors and runs its ``*_plain`` version for CPU tensors;
 ``.launches`` counts kernel launches.  All return ``((S, 4, n_cells) f32 [sum_x, sum_y, sum_z, count],
 (S,) i32 mask-nonzero point count)``.
+
+K1-cm (``accumulate_fast_stacked_cm`` and ``_cm_raw``) is K1 reading
+(S, 3, N) channel-major points, the layout of the TPU's accumulator
+probes in ``scripts/micro_acc_v5.py`` and ``micro_acc_v7.py``.
 
 K1 and K5 are two kernels each, a histogram and a finalize, and the kernel
 fleet (``parallel/sharding.py``) runs them apart: ``accumulate_*_stacked_raw``
@@ -201,12 +207,15 @@ def max_cells() -> int:
     return SMEM_BYTES // 16
 
 
-def _check_points(points, mask, name):
-    if points.dim() != 3 or points.shape[2] != 3 or points.dtype != torch.float32:
+def _check_points(points, mask, name, channel_major=False):
+    """(S, N) of (S, N, 3) points, or of (S, 3, N) ones where
+    ``channel_major``; ValueError where they or the mask do not fit."""
+    axis, layout = (1, "(S, 3, N)") if channel_major else (2, "(S, N, 3)")
+    if points.dim() != 3 or points.shape[axis] != 3 or points.dtype != torch.float32:
         raise ValueError(
-            f"{name}: points must be (S, N, 3) float32, got {tuple(points.shape)} {points.dtype}"
+            f"{name}: points must be {layout} float32, got {tuple(points.shape)} {points.dtype}"
         )
-    s, n = points.shape[0], points.shape[1]
+    s, n = points.shape[0], points.shape[3 - axis]
     if mask.shape != (s, n) or mask.device != points.device:
         raise ValueError(f"{name}: mask must be ({s}, {n}) on {points.device}")
     if not points.is_contiguous():
@@ -224,11 +233,14 @@ def _check_cells(nc: int, name: str) -> None:
 
 
 def _launch_digits(name, entry, quant, n_ch, points, mask, scene, leaf_xy, leaf_z,
-                   raw=False):
+                   raw=False, channel_major=False):
     """Launch K1 or K5 (the same C signatures): ((S, 4, n_cells) f32, (S,)
     i32), with an (S, n_ch, n_cells) int32 digit-sum scratch; with ``raw``
-    the ``*_raw`` entry, which stops at that scratch and returns it."""
-    s, n = _check_points(points, mask, name)
+    the ``*_raw`` entry, which stops at that scratch and returns it; with
+    ``channel_major`` K1-cm's ``*_cm`` entries on (S, 3, N) points."""
+    s, n = _check_points(points, mask, name, channel_major)
+    if channel_major:
+        entry += "_cm"
     k = kernel_params(scene, leaf_xy, leaf_z, quant=quant)
     nc = k["n_cells"]
     _check_cells(nc, name)
@@ -340,6 +352,60 @@ def finalize_fast_stacked(sums: torch.Tensor, scene: SceneBounds, leaf_xy: float
 
 
 finalize_fast_stacked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1-cm: K1 reading channel-major points
+# ---------------------------------------------------------------------------
+def accumulate_fast_stacked_cm_plain(points_cm, mask, scene, leaf_xy, leaf_z):
+    """Plain PyTorch version of K1-cm: K1's on the transposed points."""
+    return accumulate_fast_stacked_plain(points_cm.transpose(1, 2), mask, scene, leaf_xy, leaf_z)
+
+
+def accumulate_fast_stacked_cm(
+    points_cm: torch.Tensor,   # (S, 3, N) f32
+    mask: torch.Tensor,        # (S, N) bool / nonzero = keep
+    scene: SceneBounds,
+    leaf_xy: float,
+    leaf_z: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1-cm: K1's function on channel-major points, the layout of the
+    TPU's accumulator probes (``scripts/micro_acc_v5.py``' ``make_v5``,
+    ``make_v4bf16``, ``make_v5_stacked``; ``micro_acc_v7.py::
+    make_v7_stacked``), bit for bit K1's result.  Kernel on CUDA tensors,
+    its plain version on CPU tensors."""
+    if points_cm.device.type == "cpu":
+        return accumulate_fast_stacked_cm_plain(points_cm, mask, scene, leaf_xy, leaf_z)
+    out = _launch_digits("K1-cm", "motl_voxel_accumulate", "fast", 4, points_cm, mask,
+                         scene, leaf_xy, leaf_z, channel_major=True)
+    accumulate_fast_stacked_cm.launches += 1
+    return out
+
+
+accumulate_fast_stacked_cm.launches = 0
+
+
+def accumulate_fast_stacked_cm_raw(
+    points_cm: torch.Tensor,   # (S, 3, N) f32
+    mask: torch.Tensor,        # (S, N) bool / nonzero = keep
+    scene: SceneBounds,
+    leaf_xy: float,
+    leaf_z: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1-cm's histogram alone: ((S, 4, n_cells) int32 digit sums, (S,)
+    i32), as ``accumulate_fast_stacked_raw`` gives for the (S, N, 3)
+    points; finalized by ``finalize_fast_stacked``.  Kernel on CUDA
+    tensors, ``fast_digit_sums`` of the transposed points on CPU tensors."""
+    if points_cm.device.type == "cpu":
+        pts = points_cm.transpose(1, 2)
+        return fast_digit_sums(pts, mask, scene, leaf_xy, leaf_z), _npts(mask, pts.shape[0])
+    out = _launch_digits("K1-cm raw", "motl_voxel_accumulate", "fast", 4, points_cm, mask,
+                         scene, leaf_xy, leaf_z, raw=True, channel_major=True)
+    accumulate_fast_stacked_cm_raw.launches += 1
+    return out
+
+
+accumulate_fast_stacked_cm_raw.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -485,30 +551,24 @@ def bf16x3_parts(v: torch.Tensor) -> torch.Tensor:
     return torch.stack([h1, h2, bf16_rne(r1 - h2)], dim=-1)
 
 
-def _ordered_sums_plain(points, mask, scene, leaf_xy, leaf_z, parts):
-    """K6's order in plain PyTorch: per cell, each sum starts at +0.0 and
-    adds the cell's points in ascending point index, one rounded f32 add at
-    a time.  ``parts`` maps the kept (M, 3) coordinates to the (M, 3, k)
-    values summed.  A stable sort groups the points by cell; round r then
-    adds every cell's r-th point at once (one point per cell, so the
-    index_put has unique indices).  Returns the (S * nc, 3, k) sums and
-    the (S * nc,) counts."""
-    k = kernel_params(scene, leaf_xy, leaf_z)
-    s = points.shape[0]
-    nc = k["n_cells"]
-    dev = points.device
-    p = points.to(torch.float32)
-    ok, lin, _ = kept_cells(p, mask, k)
-    frame = torch.arange(s, device=dev)[:, None]
-    key = torch.where(ok, frame * nc + lin, s * nc).reshape(-1)
-    n_kept = int(ok.sum())
+def _sums_in_key_order(p, key, n_bins, parts):
+    """K6's order in plain PyTorch: per bin, each sum starts at +0.0 and
+    adds the bin's points in ascending point index, one rounded f32 add at
+    a time.  ``p`` (M, 3) f32 points, ``key`` (M,) int64 their bins, with
+    ``n_bins`` for a dropped point; ``parts`` maps the kept (m, 3)
+    coordinates to the (m, 3, k) values summed.  A stable sort groups the
+    points by bin; round r then adds every bin's r-th point at once (one
+    point per bin, so the index_put has unique indices).  Returns the
+    (n_bins, 3, k) sums and the (n_bins,) counts."""
+    dev = p.device
+    n_kept = int((key < n_bins).sum())
     order = torch.sort(key, stable=True).indices[:n_kept]
     sk = key[order]
-    vals = parts(p.reshape(-1, 3)[order])                           # (M, 3, k)
-    counts = torch.bincount(sk, minlength=s * nc)
+    vals = parts(p[order])                                          # (m, 3, k)
+    counts = torch.bincount(sk, minlength=n_bins)
     rank = torch.arange(n_kept, device=dev) - (torch.cumsum(counts, 0) - counts)[sk]
     by_rank = torch.sort(rank, stable=True).indices
-    acc = torch.zeros((s * nc,) + vals.shape[1:], dtype=torch.float32, device=dev)
+    acc = torch.zeros((n_bins,) + vals.shape[1:], dtype=torch.float32, device=dev)
     lo = 0
     for m in torch.bincount(rank).tolist():
         sel = by_rank[lo:lo + m]
@@ -516,6 +576,19 @@ def _ordered_sums_plain(points, mask, scene, leaf_xy, leaf_z, parts):
         acc[idx] = acc[idx] + vals[sel]
         lo += m
     return acc, counts
+
+
+def _ordered_sums_plain(points, mask, scene, leaf_xy, leaf_z, parts):
+    """``_sums_in_key_order`` over the S frames' cells (bin frame * nc +
+    lin): the (S * nc, 3, k) sums and the (S * nc,) counts."""
+    k = kernel_params(scene, leaf_xy, leaf_z)
+    s = points.shape[0]
+    nc = k["n_cells"]
+    p = points.to(torch.float32)
+    ok, lin, _ = kept_cells(p, mask, k)
+    frame = torch.arange(s, device=p.device)[:, None]
+    key = torch.where(ok, frame * nc + lin, s * nc).reshape(-1)
+    return _sums_in_key_order(p.reshape(-1, 3), key, s * nc, parts)
 
 
 def _cell_major(sums, counts, s):
@@ -552,34 +625,36 @@ def sorted_sums_chunk(n_cells: int, n: int) -> int:
     return chunk
 
 
-def _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, mode: int):
-    """Launch K6 (mode 0 bf16x3, mode 1 f32): ((S, 4, n_cells) f32, (S,)
-    i32)."""
-    s, n = _check_points(points, mask, "K6")
-    k = kernel_params(scene, leaf_xy, leaf_z)
-    nc = k["n_cells"]
+def _sorted_sums_scratch(s: int, n: int, nc: int, dev):
+    """K6's chunk, scratch (keys, counts, offs, cell_start, order, seg_tot,
+    seg_base), segment length and output for S frames of N points."""
     chunk = sorted_sums_chunk(nc, n)
     n_chunks = -(-n // chunk)
     counts_len = nc * n_chunks
     seg_len = max(8192, -(-counts_len // 1024))
     seg_len = -(-seg_len // 32) * 32
     n_seg = -(-counts_len // seg_len)
+    i32 = dict(dtype=torch.int32, device=dev)
+    scratch = (torch.empty((s, n), **i32), torch.zeros((s, counts_len), **i32),
+               torch.empty((s, counts_len), **i32), torch.empty((s, nc + 1), **i32),
+               torch.empty((s, n), **i32), torch.empty((s, n_seg), **i32),
+               torch.empty((s, n_seg), **i32))
+    out = torch.empty((s, 4, nc), dtype=torch.float32, device=dev)
+    return chunk, scratch, seg_len, out
+
+
+def _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, mode: int):
+    """Launch K6 (mode 0 bf16x3, mode 1 f32): ((S, 4, n_cells) f32, (S,)
+    i32)."""
+    s, n = _check_points(points, mask, "K6")
+    k = kernel_params(scene, leaf_xy, leaf_z)
+    nc = k["n_cells"]
     m8 = (mask != 0).to(torch.uint8).contiguous()
     dev = points.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    keys = torch.empty((s, n), **i32)
-    counts = torch.zeros((s, counts_len), **i32)
-    offs = torch.empty((s, counts_len), **i32)
-    cell_start = torch.empty((s, nc + 1), **i32)
-    order = torch.empty((s, n), **i32)
-    seg_tot = torch.empty((s, n_seg), **i32)
-    seg_base = torch.empty((s, n_seg), **i32)
-    out = torch.empty((s, 4, nc), dtype=torch.float32, device=dev)
+    chunk, scratch, seg_len, out = _sorted_sums_scratch(s, n, nc, dev)
     err = _build.load().motl_voxel_bf16x3(
         points.data_ptr(), m8.data_ptr(), s, n, chunk,
-        keys.data_ptr(), counts.data_ptr(), offs.data_ptr(),
-        cell_start.data_ptr(), order.data_ptr(), seg_tot.data_ptr(),
-        seg_base.data_ptr(), seg_len, out.data_ptr(), nc,
+        *(t.data_ptr() for t in scratch), seg_len, out.data_ptr(), nc,
         k["gx"], k["gy"], k["gz"], k["bx"], k["by"], k["bz"],
         k["inv_xy"], k["inv_z"], mode, _build.stream_ptr(dev),
     )
@@ -621,3 +696,61 @@ def accumulate_f32_stacked(
 
 
 accumulate_f32_stacked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6's key entry: bf16x3 sums over precomputed grid indices
+# ---------------------------------------------------------------------------
+def accumulate_bf16x3_keys_plain(points, ix, iyz, in_bounds, gx: int, gyz: int):
+    """Plain PyTorch version of K6's key entry: the bf16x3 parts of every
+    kept point's coordinates summed per bin iyz * gx + ix in K6's order,
+    combined as (S1 + S2) + S3.  A point is dropped where not in bounds,
+    or where ix lies outside [0, gx) or iyz outside [0, gyz): no one-hot
+    row of the TPU kernel matches it.  (S, 4, gyz * gx) f32."""
+    s, nc = points.shape[0], gx * gyz
+    ix, iyz = ix.to(torch.int64), iyz.to(torch.int64)
+    ok = (in_bounds != 0) & (ix >= 0) & (ix < gx) & (iyz >= 0) & (iyz < gyz)
+    frame = torch.arange(s, device=points.device)[:, None]
+    key = torch.where(ok, frame * nc + iyz * gx + ix, s * nc).reshape(-1)
+    acc, counts = _sums_in_key_order(points.to(torch.float32).reshape(-1, 3), key, s * nc,
+                                     bf16x3_parts)
+    return _cell_major((acc[..., 0] + acc[..., 1]) + acc[..., 2], counts, s)
+
+
+def accumulate_bf16x3_keys(
+    points: torch.Tensor,     # (S, N, 3) f32
+    ix: torch.Tensor,         # (S, N) int: x cell index
+    iyz: torch.Tensor,        # (S, N) int: iy + gy * iz
+    in_bounds: torch.Tensor,  # (S, N) bool
+    gx: int,
+    gyz: int,
+) -> torch.Tensor:
+    """K6's key entry on CUDA tensors, its plain version on CPU tensors:
+    (S, 4, gyz * gx) f32 [sum_x, sum_y, sum_z, count] in iyz-major cell
+    order (the TPU kernel's (gyz, gx) layout flattened)."""
+    if points.device.type == "cpu":
+        return accumulate_bf16x3_keys_plain(points, ix, iyz, in_bounds, gx, gyz)
+    if points.dim() != 3 or points.shape[2] != 3 or points.dtype != torch.float32:
+        raise ValueError(f"K6 keys: points must be (S, N, 3) float32, got "
+                         f"{tuple(points.shape)} {points.dtype}")
+    s, n = points.shape[0], points.shape[1]
+    for name, t in (("ix", ix), ("iyz", iyz), ("in_bounds", in_bounds)):
+        if t.shape != (s, n) or t.device != points.device:
+            raise ValueError(f"K6 keys: {name} must be ({s}, {n}) on {points.device}")
+    dev = points.device
+    points = points.contiguous()
+    ix32 = ix.to(torch.int32).contiguous()
+    iyz32 = iyz.to(torch.int32).contiguous()
+    inb8 = (in_bounds != 0).to(torch.uint8).contiguous()
+    chunk, scratch, seg_len, out = _sorted_sums_scratch(s, n, gx * gyz, dev)
+    err = _build.load().motl_voxel_bf16x3_keys(
+        points.data_ptr(), ix32.data_ptr(), iyz32.data_ptr(), inb8.data_ptr(), s, n, chunk,
+        *(t.data_ptr() for t in scratch), seg_len, out.data_ptr(), gx, gyz,
+        _build.stream_ptr(dev),
+    )
+    _build.check(err, "motl_voxel_bf16x3_keys")
+    accumulate_bf16x3_keys.launches += 1
+    return out
+
+
+accumulate_bf16x3_keys.launches = 0

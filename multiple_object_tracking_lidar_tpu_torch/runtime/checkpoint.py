@@ -1,0 +1,46 @@
+"""Checkpoint/resume for TrackerState.
+
+Port of ``multiple_object_tracking_lidar_tpu/runtime/checkpoint.py``, in its
+file format exactly: one npz holding the nine state fields under the JAX
+names, plus a ``__meta__`` entry, the JSON of ``extra`` as uint8 bytes.  A
+checkpoint written by either package loads in the other.  The reference has
+no checkpoint story -- a restart loses the whole track bank; restoring one
+resumes tracking mid-stream with identical ids, windows and GP carries.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import resolve_device
+from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
+    TrackBank,
+    TrackerState,
+    state_from_numpy,
+)
+
+_FIELDS = [
+    "alive", "obj_id", "birth_seq", "window", "m0",
+    "next_obj_num", "next_birth", "spin_counter", "initialized",
+]
+
+
+def save_state(path: str, state: TrackerState, extra: dict | None = None) -> None:
+    arrays = {f: getattr(state.bank, f).cpu().numpy() for f in TrackBank._fields}
+    arrays.update({f: getattr(state, f).cpu().numpy()
+                   for f in TrackerState._fields if f != "bank"})
+    arrays["__meta__"] = np.frombuffer(json.dumps(extra or {}).encode(), dtype=np.uint8)
+    np.savez(path, **arrays)
+
+
+def load_state(path: str, device: torch.device | str = "cuda") -> tuple[TrackerState, dict]:
+    """(state with its tensors on ``device``, the ``extra`` dict)."""
+    with np.load(path) as z:
+        d = {k: z[k] for k in _FIELDS}
+        meta = json.loads(bytes(z["__meta__"].tobytes()).decode() or "{}")
+    state = TrackerState(bank=TrackBank(**{f: d[f] for f in TrackBank._fields}),
+                         **{f: d[f] for f in TrackerState._fields if f != "bank"})
+    return state_from_numpy(state, resolve_device(device)), meta

@@ -10,10 +10,15 @@ colour registry are host code, as in the JAX node.  The node runs on the
 card unless the caller passes ``device="cpu"``; without a CUDA device it
 raises.
 
+Bank growth (``grow_bank_on_overflow``, the default): a frame that drops
+detections because every bank slot was alive doubles ``k_max_tracks``,
+pads the bank and rebinds, as the JAX node does (node.py:131-136,
+:233-284); the dropped detections re-register on their next sighting.
+``checkpoint_extra`` and ``resume`` pair with ``runtime/checkpoint.py``; a
+grown bank resumes grown.
+
 Not ported yet (ROADMAP): online hyperparameter learning
-(``param_fix=False``) and bank growth on overflow
-(``grow_bank_on_overflow`` when a frame overflows) raise
-``NotImplementedError``; checkpoint/resume.
+(``param_fix=False``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,7 +39,13 @@ from multiple_object_tracking_lidar_tpu_torch.io.pointcloud2 import (
 from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import MapEnv, build_static_mask
 from multiple_object_tracking_lidar_tpu_torch.outputs.messages import build_outputs
 from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
-from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame, FrameOutput
+from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
+    Frame,
+    FrameOutput,
+    TrackBank,
+    TrackerState,
+    grow_bank,
+)
 from multiple_object_tracking_lidar_tpu_torch.utils.colors import GlibcRand
 from multiple_object_tracking_lidar_tpu_torch.utils.pgm import OccupancyGrid
 
@@ -83,6 +94,7 @@ class TrackerNode:
         self.on_pose = on_pose
         self.stats: list[FrameStats] = []
         self.outputs: list[FrameOutput] = []   # host copies, one per frame
+        self.n_growths = 0                      # bank doublings on overflow
 
     # -- map callback (cpp:235-251) -----------------------------------------
     def on_map(self, grid: OccupancyGrid) -> None:
@@ -121,10 +133,7 @@ class TrackerNode:
         self.outputs.append(out)
 
         if int(out.overflow) > 0 and self.config.grow_bank_on_overflow:
-            raise NotImplementedError(
-                f"track bank overflow ({int(out.overflow)} detections dropped): "
-                "growing the bank is not ported yet (ROADMAP Queue 1: bank growth)"
-            )
+            self._grow_bank()
 
         # NaN watchdog (the reference only logs, cpp:643-646)
         nan_vel = bool(np.isnan(out.vel[out.valid]).any()) if out.valid.any() else False
@@ -170,6 +179,57 @@ class TrackerNode:
         if self.on_pose:
             self.on_pose(pose)
         return obstacles, markers, pose
+
+    # -- checkpoint/resume (runtime/checkpoint.py) ---------------------------
+    def checkpoint_extra(self) -> dict:
+        """Host-side state that save_state's ``extra`` must carry for an
+        exact resume (colours regenerate from next_obj_num and the seed, so
+        only the epoch is saved)."""
+        return {"time_init": self.time_init}
+
+    def resume(self, state: TrackerState, meta: dict | None = None) -> None:
+        """Adopt a checkpointed state (``load_state``): k_max_tracks adapts
+        to the checkpoint's bank size (a grown bank resumes grown); the
+        window length must match the config."""
+        l_ckpt = state.bank.window.shape[1]
+        if l_ckpt != self.config.data_length:
+            raise ValueError(
+                f"checkpoint data_length {l_ckpt} != config {self.config.data_length}"
+            )
+        k_ckpt = state.bank.alive.shape[0]
+        if k_ckpt != self.config.caps.k_max_tracks:
+            self._rebind(k_ckpt)
+        self.state = TrackerState(
+            bank=TrackBank(*(f.to(self.tracker.device) for f in state.bank)),
+            **{f: getattr(state, f).to(self.tracker.device)
+               for f in TrackerState._fields if f != "bank"},
+        )
+        if meta:
+            self.time_init = float(meta.get("time_init", self.time_init))
+        self._first_frame = not bool(self.state.initialized)
+        self._refresh_colors(int(self.state.next_obj_num))
+
+    def _rebind(self, k_max: int) -> None:
+        """A Tracker at ``k_max`` track slots, rebound to the map.  The bound
+        step holds no K-sized buffer: K4 and the track back end take K from
+        the state."""
+        self.config = self.config.replace(
+            caps=dataclasses.replace(self.config.caps, k_max_tracks=k_max)
+        )
+        self.tracker = Tracker(self.config, self.tracker.device)
+        if self.env is not None:
+            self._bound_step = self.tracker.bind_env(self.env)
+
+    def _grow_bank(self) -> None:
+        """Double k_max_tracks, pad the bank (``grow_bank``), rebind."""
+        k_old = self.config.caps.k_max_tracks
+        k_new = 2 * k_old
+        self._rebind(k_new)
+        self.state = grow_bank(self.state, k_new)
+        self.n_growths += 1
+        logging.getLogger(__name__).warning(
+            "track bank overflow: grew k_max_tracks %d -> %d", k_old, k_new
+        )
 
     def _refresh_colors(self, n_ids: int) -> None:
         while self._known_ids < n_ids:

@@ -85,6 +85,28 @@ def init_state(
     )
 
 
+_GROW_FILL = {"alive": False, "obj_id": -1, "birth_seq": 2**30, "window": 0, "m0": 0}
+
+
+def grow_bank(state: TrackerState, k_new: int) -> TrackerState:
+    """``state`` with every TrackBank field padded to ``k_new`` rows on its
+    device, with the free-slot values of ``init_state`` (the JAX node's
+    ``_grow_bank`` fills, runtime/node.py:251-262); the scalars carry over
+    unchanged."""
+    b = state.bank
+    k_old = b.alive.shape[0]
+    if k_new < k_old:
+        raise ValueError(f"cannot shrink the bank from {k_old} to {k_new} slots")
+
+    def pad(f):
+        a = getattr(b, f)
+        ext = torch.full((k_new - k_old,) + tuple(a.shape[1:]), _GROW_FILL[f],
+                         dtype=a.dtype, device=a.device)
+        return torch.cat([a, ext], dim=0)
+
+    return state._replace(bank=TrackBank(**{f: pad(f) for f in TrackBank._fields}))
+
+
 def state_row(state: TrackerState, s: int) -> TrackerState:
     """Stream s of a stacked state (views, no copy)."""
     return TrackerState(

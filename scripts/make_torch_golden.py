@@ -31,12 +31,17 @@ every FrameOutput field stacked over frames:
   over 3 steps, stream s at step k fed headline frame 3 s + k (the raw
   stacked kernels in interpret mode, one finalize, the stacked fused CC)
   -> ``tests/golden/torch_fleet_headline.npz``, every field stacked as
-  (steps, streams, ...).
+  (steps, streams, ...);
+- ``growth``: the JAX ``TrackerNode`` on the headline config with
+  ``k_max_tracks=2`` (its default ``grow_bank_on_overflow`` doubles the
+  bank when a frame overflows) over 12 headline PointCloud2 frames: every
+  FrameOutput field per frame, plus ``n_growths`` and ``k_max_tracks``
+  after each frame -> ``tests/golden/torch_growth_headline.npz``.
 
 tests/test_torch_golden.py recomputes the first frames and checks them
 against the files.
 
-    python scripts/make_torch_golden.py [slice] [exact] [runs] [pointlist] ...  # default: all
+    python scripts/make_torch_golden.py [slice] [exact] [runs] [pointlist] ... [growth]  # default: all
 """
 
 from __future__ import annotations
@@ -56,7 +61,9 @@ GOLDENS = {
     "pointlist_runs": os.path.join(GOLDEN_DIR, "torch_pointlist_runs_headline.npz"),
     "default": os.path.join(GOLDEN_DIR, "torch_default_headline.npz"),
     "fleet": os.path.join(GOLDEN_DIR, "torch_fleet_headline.npz"),
+    "growth": os.path.join(GOLDEN_DIR, "torch_growth_headline.npz"),
 }
+GROWTH_K0 = 2   # the growth golden's initial k_max_tracks
 N_FRAMES = 12
 FRAMES = {"default": 4, "fleet": 3}   # frames (the fleet: steps) per golden where not N_FRAMES
 FLEET_STREAMS = 8
@@ -113,6 +120,58 @@ def fleet_outputs(n_steps: int, n_streams: int = FLEET_STREAMS) -> dict:
     return {f: np.stack([getattr(r, f) for r in rows]) for f in rows[0]._fields}
 
 
+def node_outputs(node, grid, frames) -> dict:
+    """Give a JAX ``TrackerNode`` the map ``grid``, then the PointCloud2
+    ``frames``: {field: (n_frames, ...)} of the FrameOutput of every step
+    it took, plus ``n_growths`` and ``k_max_tracks`` after each frame.  The
+    steps are recorded where ``Tracker.bind_env`` makes them, so the step a
+    bank growth rebinds is recorded too."""
+    import jax
+    import numpy as np
+
+    from multiple_object_tracking_lidar_tpu.tracker.pipeline import Tracker
+
+    rows, growths, ks = [], [], []
+    bind_env = Tracker.bind_env
+
+    def recording(self, env, **kw):
+        step = bind_env(self, env, **kw)
+
+        def rec(state, frame):
+            state, out = step(state, frame)
+            rows.append(jax.tree.map(np.asarray, out))
+            return state, out
+
+        return rec
+
+    Tracker.bind_env = recording
+    try:
+        node.on_map(grid)
+        for msg in frames:
+            node.on_pointcloud(msg)
+            growths.append(node.n_growths)
+            ks.append(node.config.caps.k_max_tracks)
+    finally:
+        Tracker.bind_env = bind_env
+    out = {f: np.stack([getattr(r, f) for r in rows]) for f in rows[0]._fields}
+    out["n_growths"] = np.asarray(growths, np.int32)
+    out["k_max_tracks"] = np.asarray(ks, np.int32)
+    return out
+
+
+def growth_outputs(n_frames: int) -> dict:
+    """The ``growth`` golden's arrays over the first n_frames frames."""
+    import dataclasses
+
+    sys.path.insert(0, REPO)
+    import bench
+    from multiple_object_tracking_lidar_tpu.runtime.node import TrackerNode
+
+    cfg, _, sc = bench.headline_case()
+    cfg = cfg.replace(caps=dataclasses.replace(cfg.caps, k_max_tracks=GROWTH_K0))
+    return node_outputs(TrackerNode(cfg), sc.grid, [sc.frame(k) for k in range(n_frames)])
+
+
 def golden_outputs(n_frames: int | None = None, case: str = "slice",
                    n_streams: int = FLEET_STREAMS) -> dict:
     """{field: (n_frames, ...) array} of the JAX FrameOutputs of ``case``
@@ -128,6 +187,8 @@ def golden_outputs(n_frames: int | None = None, case: str = "slice",
 
     if case == "fleet":
         return fleet_outputs(n_frames_of(case) if n_frames is None else n_frames, n_streams)
+    if case == "growth":
+        return growth_outputs(n_frames_of(case) if n_frames is None else n_frames)
     cfg, env, sc = bench.headline_case()
     if case == "default":
         from multiple_object_tracking_lidar_tpu.config import TrackerConfig

@@ -1,0 +1,117 @@
+"""Times K4, the greedy association scan, on the GPU: its device time per
+launch from a ``torch.profiler`` trace, and the wrapper's time per call by
+CUDA events (host checks, ctypes and launch included), at bank sizes K =
+64 (the headline's), 128, 256 and 1,024 with D = 32 detections, 4 or all
+32 valid.  Each result is held bit for bit against K4's plain version.
+Prints the card's name and power limit beside every time.
+
+    python scripts/micro_torch_assoc.py [--reps 200]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from multiple_object_tracking_lidar_tpu_torch.ops import assign_cuda  # noqa: E402
+
+D = 32
+KW = dict(thr=0.5, dt_gp=0.1, interp_gap_factor=3.0)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def operands(k: int, n_valid: int, device) -> tuple:
+    """A half-alive bank of k slots and D detections, n_valid of them
+    valid, the first four near alive tracks."""
+    g = np.random.default_rng(k)
+    af0 = torch.from_numpy(g.uniform(-4, 4, (k, 3)).astype(np.float32))
+    ai0 = torch.stack([(torch.arange(k) % 2).int(), torch.arange(k).int(),
+                       torch.from_numpy(g.permutation(k)).int()], 1).int()
+    dets = torch.from_numpy(g.uniform(-4, 4, (D, 4)).astype(np.float32))
+    dets[:4, :2] = af0[1:8:2, :2] + 0.1
+    dets[:, 3] = 0.6
+    dv = torch.arange(D) < n_valid
+    return tuple(t.to(device) for t in (af0, ai0, dets, dv)) + (
+        torch.tensor(True, device=device),
+        torch.tensor(k, dtype=torch.int32, device=device),
+        torch.tensor(k, dtype=torch.int32, device=device))
+
+
+def _bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a, b = a.reshape(-1), b.reshape(-1).to(a.dtype)
+    if a.dtype.is_floating_point:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def device_us(args, reps: int) -> float:
+    """Mean device time of K4's kernel per launch, us, from the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            assign_cuda.assoc_scan(*args, **KW)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if "assoc_scan_kernel" in e.key]
+    if not rows:
+        raise SystemExit("micro_torch_assoc: no K4 kernel in the trace")
+    return sum(e.self_device_time_total for e in rows) / sum(e.count for e in rows)
+
+
+def wrapper_ms(args, reps: int) -> float:
+    assign_cuda.assoc_scan(*args, **KW)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        assign_cuda.assoc_scan(*args, **KW)
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def run(device="cuda", reps: int = 200, log=print) -> dict:
+    """{(K, valid detections): (device us per launch, wrapper ms per call)};
+    raises unless K4 equals its plain version on every input."""
+    if not torch.cuda.is_available():
+        raise SystemExit("micro_torch_assoc: needs a CUDA device")
+    smi = card()
+    out = {}
+    for k in (64, 128, 256, 1024):
+        for n_valid in (4, D):
+            args = operands(k, n_valid, device)
+            got = assign_cuda.assoc_scan(*args, **KW)
+            want = assign_cuda.assoc_scan_plain(*args, **KW)
+            ok = want[9]
+            if not all(_bits(a[ok] if i == 6 else a, b[ok] if i == 6 else b)
+                       for i, (a, b) in enumerate(zip(got, want))):
+                raise SystemExit(f"micro_torch_assoc: K4 differs from its plain version at K={k}")
+            out[(k, n_valid)] = (device_us(args, reps), wrapper_ms(args, reps))
+            log(f"[assoc] {smi}: K4 K={k} D={D}, {n_valid} valid: device "
+                f"{out[(k, n_valid)][0]:.3f} us per launch (torch.profiler, {reps} launches), "
+                f"wrapper {out[(k, n_valid)][1]:.4f} ms per call (CUDA events)")
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=200)
+    run(reps=ap.parse_args().reps)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1-K9, K6 in both modes, K1's and K5's histograms
-and finalizes alone) against their plain PyTorch versions, the slices
+"""The CUDA kernels (K1-K11, K6 in both modes and its key entry, K1-cm, K4
+on banks past 128 slots, K1's and K5's histograms and finalizes alone)
+against their plain PyTorch versions, the slices
 (fast, exact and runs mode, the stencil CC of ``grid_cc="jnp"``; the
 point-list configurations C-F) on the GPU against the port's plain path on
 the CPU, and the kernel fleet on a one-rank NCCL mesh against ``bind_env``.
@@ -30,6 +31,7 @@ from multiple_object_tracking_lidar_tpu_torch.ops import (
     cluster_pallas,
     grid_cuda,
     segsum_cuda,
+    transpose_cuda,
     voxel_grid_cuda,
 )
 from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
@@ -143,6 +145,110 @@ def test_k4_matches_plain(dev, allow, full):
         if i == 6:
             a, b = a.cpu()[ok], b.cpu()[ok]
         assert _bits(a.reshape(-1), b.reshape(-1).to(a.dtype)), i
+
+
+@pytest.mark.parametrize("K", [33, 128, 256, 1000, 1024])
+def test_k4_wide_matches_plain(dev, K):
+    """K4 on banks grown past the TPU kernel's 128 slots (one CTA of
+    32 * ceil(K / 32) lanes); tracks gated near slots past 128."""
+    rng = np.random.default_rng(K)
+    D = 32
+    af0 = torch.from_numpy(rng.uniform(-8, 8, (K, 3)).astype(np.float32)).to(dev)
+    ai0 = torch.stack([(torch.arange(K) % 4 != 1).int(), torch.arange(K).int(),
+                       torch.from_numpy(rng.permutation(K)).int()], 1).int().to(dev)
+    dets = torch.from_numpy(rng.uniform(-8, 8, (D, 4)).astype(np.float32)).to(dev)
+    dets[:, 3] = 0.6
+    dets[:4, :2] = af0[K - 1, :2] + 0.05                         # near the last slot
+    dv = torch.ones(D, dtype=torch.bool, device=dev)
+    args = (af0, ai0, dets, dv, torch.tensor(True, device=dev),
+            torch.tensor(40, dtype=torch.int32, device=dev),
+            torch.tensor(50, dtype=torch.int32, device=dev))
+    kw = dict(thr=0.5, dt_gp=0.1, interp_gap_factor=3.0)
+    n0 = assign_cuda.assoc_scan.launches
+    k = assign_cuda.assoc_scan(*args, **kw)
+    p = assign_cuda.assoc_scan_plain(*args, **kw)
+    assert assign_cuda.assoc_scan.launches == n0 + 1
+    ok = p[9].cpu()
+    for i, (a, b) in enumerate(zip(k, p)):
+        if i == 6:
+            a, b = a.cpu()[ok], b.cpu()[ok]
+        assert _bits(a.reshape(-1), b.reshape(-1).to(a.dtype)), i
+    with pytest.raises(ValueError, match="1024"):
+        assign_cuda.assoc_scan(torch.zeros((1025, 3), device=dev),
+                               torch.zeros((1025, 3), dtype=torch.int32, device=dev), *args[2:], **kw)
+
+
+def test_k10_matches_plain(dev):
+    """K10 on knife edges (a 0.1 m lattice: ties; a collinear cluster; a
+    singleton; duplicates; empty slots) at P = 384 and 512."""
+    rng = np.random.default_rng(10)
+    for c, p in ((16, 384), (8, 512)):
+        mp = np.zeros((c, p, 3), np.float32)
+        mm = np.zeros((c, p), bool)
+        for k in range(0, c, 2):
+            n = int(rng.integers(2, p))
+            mp[k, :n] = np.round(rng.normal(0, 1, (n, 3)) * 10) / 10
+            mm[k, :n] = True
+        mp[1, 0], mm[1, 0] = [1.0, 2.0, 0.5], True
+        mp[3, :9] = np.stack([0.1 * np.arange(9), 0.2 * np.arange(9), np.zeros(9)], 1)
+        mm[3, :9] = True
+        mp[5, :20] = np.round(rng.normal(0, 1, (20, 3)) * 10) / 10
+        mp[5, 20:40] = mp[5, :20]
+        mm[5, :40] = True
+        tp, tm = torch.from_numpy(mp).to(dev), torch.from_numpy(mm).to(dev)
+        n0 = centroid_cuda.circumcenter_xy.launches
+        k = centroid_cuda.circumcenter_xy(tp, tm)
+        assert centroid_cuda.circumcenter_xy.launches == n0 + 1
+        assert _bits(k, centroid_cuda.circumcenter_xy_plain(tp, tm))
+        assert (k[3].cpu().numpy() == mp[3, :9, :2]).all(1).any()     # collinear: Pi
+
+
+def test_k6_keys_matches_plain(dev, small):
+    cfg, _, frames = small
+    P = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+    M = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
+    k = voxel_grid_cuda.kernel_params(cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    gx, gyz = k["gx"], k["gy"] * k["gz"]
+    ok, lin, _ = voxel_grid_cuda.kept_cells(P, M, k)
+    ix, iyz = lin % gx, lin // gx
+    ix[:, :100], iyz[:, 100:200], ok[:, 200:300] = gx, -1, False
+    args = (P, ix, iyz, ok, gx, gyz)
+    n0 = voxel_grid_cuda.accumulate_bf16x3_keys.launches
+    got = voxel_grid_cuda.accumulate_bf16x3_keys(*args)
+    assert voxel_grid_cuda.accumulate_bf16x3_keys.launches == n0 + 1
+    assert _bits(got, voxel_grid_cuda.accumulate_bf16x3_keys_plain(*args))
+
+
+def test_k1_cm_matches_plain(dev, small):
+    cfg, _, frames = small
+    P = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+    M = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
+    kw = (cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    Pcm = P.transpose(1, 2).contiguous()
+    vg = voxel_grid_cuda
+    ka, kn = vg.accumulate_fast_stacked_cm(Pcm, M, *kw)
+    pa, pn = vg.accumulate_fast_stacked_cm_plain(Pcm, M, *kw)
+    assert _bits(ka, pa) and _bits(kn, pn)
+    ra, rn = vg.accumulate_fast_stacked_cm_raw(Pcm, M, *kw)
+    assert _bits(ra, vg.fast_digit_sums(P, M, *kw)) and _bits(rn, pn)
+    assert _bits(vg.finalize_fast_stacked(ra, *kw), ka)
+    assert _bits(ka, vg.accumulate_fast_stacked(P, M, *kw)[0])
+
+
+@pytest.mark.parametrize("shape,dtype", [((8, 5000, 3), torch.float32),
+                                         ((1, 1, 2048), torch.int32),
+                                         ((1, 16, 128), torch.int32),
+                                         ((3, 70, 45), torch.float32)])
+def test_k11_matches_plain(dev, shape, dtype):
+    """K11 on the points' (S, N, 3), the TPU probes' (1, B) and (16, 128)
+    int32 rows, and partial tiles both ways; NaN words move unchanged."""
+    g = torch.Generator().manual_seed(11)
+    x = torch.randint(-2**31, 2**31 - 1, shape, generator=g, dtype=torch.int64)
+    x = x.to(torch.int32).view(dtype).to(dev)
+    n0 = transpose_cuda.transpose_words.launches
+    got = transpose_cuda.transpose_words(x)
+    assert transpose_cuda.transpose_words.launches == n0 + 1
+    assert _bits(got, transpose_cuda.transpose_words_plain(x))
 
 
 @pytest.mark.parametrize("name,leaf", [("exact", 0.1), ("exact", 0.12), ("bf16x3", 0.05),

@@ -19,6 +19,10 @@ golden.
 3. The fleet golden (the JAX kernel fleet, 8 streams x 3 steps): step 0 of
    streams 0-1 recomputed; the port's kernel fleet reproduces streams 0-1
    over all 3 steps with the tolerances of 2.
+4. The growth golden (the JAX TrackerNode with a two-slot bank, which it
+   grows): its first 2 frames recomputed; the port's TrackerNode
+   reproduces all 12 frames, growths and K exact, with the tolerances
+   of 2.
 """
 
 import os
@@ -216,3 +220,38 @@ def test_port_plain_fleet_reproduces_fleet_golden():
                                    for i in range(3)))
         _compare({f: getattr(out, f).numpy() for f in out._fields},
                  {f: v[k, :2] for f, v in ref.items()}, TOL_DETS, TOL_VEL)
+
+
+def test_growth_golden_is_what_the_jax_package_computes():
+    """The growth golden (the JAX TrackerNode, k_max_tracks=2, on the 12
+    headline PointCloud2 frames): its first 2 frames recomputed, the
+    growth on frame 0 included."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from make_torch_golden import golden_outputs
+
+    ref = _load("growth")
+    out = golden_outputs(n_frames=2, case="growth")
+    assert set(out) == set(ref) and ref["publish"].shape == (12,)
+    _compare(out, ref, 1e-6, 1e-6, n=2)
+    assert ref["overflow"][0] > 0 and ref["n_growths"][-1] >= 1
+    assert ref["k_max_tracks"][-1] == 2 * 2 ** int(ref["n_growths"][-1])
+
+
+def test_port_node_reproduces_growth_golden():
+    """The port's TrackerNode on the CPU grows as the JAX node did and
+    reproduces its 12 frames with the tolerances above."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import growth_case, load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+
+    ref = _load("growth")
+    cfg, _, sc = growth_case()
+    node = TrackerNode(cfg, device="cpu")
+    node.on_map(load_sim_grid())
+    growths, ks = [], []
+    for k in range(ref["publish"].shape[0]):
+        node.on_pointcloud(sc.frame(k))
+        growths.append(node.n_growths)
+        ks.append(node.config.caps.k_max_tracks)
+    got = {f: np.stack([getattr(o, f) for o in node.outputs]) for f in node.outputs[0]._fields}
+    got |= {"n_growths": np.asarray(growths), "k_max_tracks": np.asarray(ks)}
+    _compare(got, ref, TOL_DETS, TOL_VEL)

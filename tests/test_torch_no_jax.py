@@ -3,7 +3,8 @@ JAX): a fresh interpreter with ``jax`` and the JAX package blocked imports
 every module of the port (``parallel/*``, ``runtime/fleet.py`` and
 ``runtime/stream.py`` among them), and ``chip_smoke.py``, steps 2 frames on
 the CPU, one frame each in exact mode and runs mode, one frame of each
-point-list configuration (C-G) and one kernel-fleet step of two streams on
+point-list configuration (C-G), one kernel-fleet step of two streams and
+one TrackerNode frame that overflows a two-slot bank and grows it, on
 small caps."""
 
 import os
@@ -64,6 +65,13 @@ SCRIPT = textwrap.dedent(
     pb, mb = (torch.from_numpy(np.stack([a, a])) for a in (buf, mask))
     _, fo = st.bind_env(env)(st.init_state(2), pb, mb, torch.tensor([t, t]))
     assert st._use_kernel_fleet and int(fo.n_clusters.min()) >= 3, fo
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.io.pointcloud2 import make_pointcloud2
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+    node = TrackerNode(cfg.replace(caps=dataclasses.replace(cfg.caps, k_max_tracks=2)), "cpu")
+    node.on_map(load_sim_grid())
+    node.on_pointcloud(make_pointcloud2(sub, stamp=float(t)))    # 3 clusters, 2 slots
+    assert node.n_growths == 1 and node.config.caps.k_max_tracks == 4, node.stats
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                     and sys.modules[m] is not None)
     assert not leaked, leaked

@@ -9,31 +9,37 @@ of JAX, in five phases, one or more lines each:
 2. the kernel build from ``csrc/*.cu`` (one nvcc per source, in parallel);
 3. each kernel (K1-K11, K6 in its bf16x3 and f32 modes and its key
    entry, K1's and K5's histograms and finalizes alone, K1-cm fused and
-   raw, K4 at K = 64, 256 and 1,024) against its plain PyTorch version on
-   the card, at the shapes its path gives it, on scenario and adversarial
-   inputs (K10 also on 0.1 m lattice knife edges at C = 32, P = 384 and
-   configuration G's C = 64, P = 512);
+   raw) against its plain PyTorch version on the card, at the shapes its
+   path gives it, on scenario and adversarial inputs (K10 also on 0.1 m
+   lattice knife edges at C = 32, P = 384 and configuration G's C = 64,
+   P = 512); K2, one thread-block cluster per frame, also on the grids of
+   ``bench_cases.k2_grids`` (32,768, 70,200 and 193,536 cells) and, on the
+   headline's, at every cluster size; K4, the whole track step, at K = 64
+   and 1,024 launched 1 x 1, 1 x 8 and 8 x 1 with up to D = 128 detections
+   (first frames, duplicates, gaps, overflow), and its decision scan alone
+   at K = 64, 256 and 1,024 -- all bit for bit;
 4. the paths, each with every kernel's launch counter reset before and
    read after: the headline (fast digits) -- ``TrackerNode.on_pointcloud``
    answers 12 headline PointCloud2 frames and ``Tracker.bind_env_multi``
    runs 4 dispatches of S = 8, held against the JAX golden
    (tests/golden/torch_slice_headline.npz) and the port's plain path on
-   the CPU; then exact mode (K5) and runs mode (K7), each through
-   ``TrackerNode`` (12 frames) and ``bind_env_multi`` (2 x S = 8), held
-   against their JAX goldens (torch_{exact,runs}_headline.npz); exact
-   mode on unpadded 100,000-point frames (K6), held against the exact
-   golden; then the point-list configurations C (dense + K8), D (dense +
-   jnp CC), E (scan + jnp CC) and F (runs + K8), each through
-   ``TrackerNode`` (12 frames) and ``bind_env_multi`` (2 x S = 8), and G
-   (the JAX package's ``TrackerConfig()``) through ``TrackerNode`` (4
-   frames), held against torch_{pointlist,pointlist_scan,pointlist_runs,
-   default}_headline.npz (D shares C's); then the fleet on a one-rank NCCL
-   mesh: the kernel fleet (``ShardedTracker``, B = 8 headline streams x 3
-   steps, stream s at step k fed headline frame 3 s + k) against the JAX
+   the CPU, with one K4 launch per frame and per call; then exact mode
+   (K5) and runs mode (K7), each through ``TrackerNode`` (12 frames) and
+   ``bind_env_multi`` (2 x S = 8), held against their JAX goldens
+   (torch_{exact,runs}_headline.npz); exact mode on unpadded 100,000-point
+   frames (K6), held against the exact golden; then the point-list
+   configurations C (dense + K8), D (dense + jnp CC), E (scan + jnp CC)
+   and F (runs + K8), each through ``TrackerNode`` (12 frames) and
+   ``bind_env_multi`` (2 x S = 8), and G (the JAX package's
+   ``TrackerConfig()``) through ``TrackerNode`` (4 frames), held against
+   torch_{pointlist,pointlist_scan,pointlist_runs,default}_headline.npz (D
+   shares C's); then the fleet on a one-rank NCCL mesh: the kernel fleet
+   (``ShardedTracker``, B = 8 headline streams x 3 steps, stream s at step
+   k fed headline frame 3 s + k, one K4 launch per step) against the JAX
    fleet golden (torch_fleet_headline.npz) and bit for bit against each
    stream's own ``bind_env``; the vmap fleet on C the same way against C's
    ``bind_env``; ``MultiplexedTracker`` (2 streams) and ``StreamingNode``
-   on 12 headline frames against the slice golden; then this slice's entry
+   on 12 headline frames against the slice golden; then the slice-5 entry
    points (``ops/centroid_pallas.py``'s ``circumcenter_features_table_
    pallas`` (K10) and ``pair_stats_pallas`` (K3), ``ops/voxel_grid.py::
    accumulate_from_indices`` (K6 keys), ``scripts/micro_torch_pair_stats.py``
@@ -44,12 +50,13 @@ of JAX, in five phases, one or more lines each:
    5 resumed bit for bit, and the same checkpoint padded to 256 slots (K4
    past the TPU kernel's 128) within the golden's tolerances;
 5. timings with CUDA events, beside the card's name and power limit:
-   ``bind_env`` and ``bind_env_multi`` per path, host syncs per frame of
-   each point-list path, device ops per frame of C, the fleet's clouds/s
-   and device ops per cloud beside ``bind_env_multi``, and each kernel
-   against its plain version, with its bound (the larger of its bytes over
-   3.35 TB/s and its operations over 67 TFLOP/s) and, where one PyTorch
-   call computes the same function, that call's time.
+   ``bind_env`` and ``bind_env_multi`` per path, host syncs and device ops
+   per frame of each (``torch.profiler``; the headline must make no host
+   sync), the fleet's clouds/s and device ops per cloud beside
+   ``bind_env_multi``, and each kernel against its plain version, with its
+   bound (the larger of its bytes over 3.35 TB/s and its operations over
+   67 TFLOP/s) and, where one PyTorch call computes the same function,
+   that call's time.
 
 Any failed phase raises (exit 1).  The line before the last is the kernel
 report (JSON); the last line is ``{"ok": true, "device": {...}}``.
@@ -303,8 +310,14 @@ def phase_kernels(dev, report):
         fail("K3 disagrees with its plain version (bit-exact expected)")
     report["K3"] = {"max_abs_err": max_err(npy(cm_k), npy(cm_p))}
 
-    # ---- K4 -----------------------------------------------------------------
-    report["K4"] = {"max_abs_err": check_k4(dev, cfg, rng, caps.k_max_tracks, caps.c_max_clusters)}
+    check_k2_sizes(dev, cfg, report)
+
+    # ---- K4: the decision scan alone, then the whole track step --------------
+    report["K4 scan"] = {"max_abs_err": check_k4(dev, cfg, rng, caps.k_max_tracks,
+                                                 caps.c_max_clusters)}
+    check_track(dev, cfg, tracker.gains_xy, caps.k_max_tracks,
+                ((1, 1, caps.c_max_clusters, ()), (1, 8, caps.c_max_clusters, (0,)),
+                 (8, 1, caps.c_max_clusters, (0,)), (1, 8, 128, ())), report, "K4")
     return cfg, sc, (pts, mask), (mp, mm)
 
 
@@ -360,12 +373,82 @@ def check_k4(dev, cfg, rng, K, D) -> float:
         same = same and equal(npy(rk[6])[oks], npy(rp[6])[oks])
         err4 = max([err4, max_err(npy(rk[6])[oks], npy(rp[6])[oks])]
                    + [max_err(npy(x), npy(y)) for i, (x, y) in enumerate(zip(rk, rp)) if i != 6])
-        log(f"[3 K4 assoc_scan] K={K} D={D} {name}: exact={same} registered={int(npy(rk[8]).sum())} "
+        log(f"[3 K4 scan] K={K} D={D} {name}: exact={same} registered={int(npy(rk[8]).sum())} "
             f"ok={int(oks.sum())} interp={int(npy(rk[10]).sum())} overflow={int(rk[5])}")
         ok = ok and same
     if not ok:
-        fail(f"K4 at K={K} disagrees with its plain version (exact decisions expected)")
+        fail(f"K4's decision scan at K={K} disagrees with its plain version (exact expected)")
     return err4
+
+
+def check_track(dev, cfg, gains, K, cases, report, name):
+    """K4 (the whole track step) against its plain version on the card,
+    bit for bit in every state and output field: ``cases`` of (B, S, D,
+    fresh banks).  Returns the max abs error."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+
+    err = 0.0
+    for i, (B, S, D, fresh) in enumerate(cases):
+        st, dets, valid, t = track_scene(1000 * K + i, cfg, K, D, B, S, fresh, dev)
+        ks, ko = track_cuda.track_frames(st, dets, valid, t, config=cfg, gains_xy=gains)
+        ps, po = track_cuda.track_frames_plain(st, dets, valid, t, config=cfg, gains_xy=gains)
+        torch.cuda.synchronize()
+        pairs = list(zip(ko, po)) + list(zip(ks.bank, ps.bank)) + list(zip(ks[1:], ps[1:]))
+        ok = all(equal(npy(a), npy(b)) for a, b in pairs)
+        e = max(max_err(npy(a), npy(b)) for a, b in pairs)
+        err = max(err, e)
+        vv = npy(ko.valid)
+        ids = npy(ko.obj_id)
+        dups = sum(len(ids[b, s][vv[b, s]]) - len(set(ids[b, s][vv[b, s]].tolist()))
+                   for b in range(B) for s in range(S))
+        log(f"[3 {name} track step] K={K} {B} x {S} frames, D={D}"
+            f"{' (first frame in banks ' + str(list(fresh)) + ')' if fresh else ''}: "
+            f"bit-exact={ok} max_abs_err={e} valid={int(vv.sum())} duplicates={dups} "
+            f"registered={int(npy(ko.new_track).sum())} overflow={int(npy(ko.overflow).sum())} "
+            f"n_alive={npy(ko.n_alive)[:, -1].tolist()}")
+        if not ok:
+            bad = [f for f, a, b in zip(track_cuda.TrackOutputs._fields, ko, po)
+                   if not equal(npy(a), npy(b))]
+            fail(f"{name} (K={K}, {B} x {S}, D={D}) disagrees with its plain version: {bad}")
+    report.setdefault(name, {"max_abs_err": 0.0})
+    report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+    return err
+
+
+def check_k2_sizes(dev, cfg, report):
+    """K2 against its plain version on the card at every grid of
+    ``k2_grids``, at the cluster size its rule picks and, on the headline
+    grid, at every cluster size: bit for bit."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import k2_grids, k2_inputs
+    from multiple_object_tracking_lidar_tpu_torch.ops import grid_cuda
+
+    err = 0.0
+    for label, dims, leaf, leaf_z, tol in k2_grids(cfg):
+        n = dims[0] * dims[1] * dims[2]
+        offsets = grid_cuda.kernel_offsets(dims, tol, leaf, leaf_z)
+        accs, scal, br, bc, bits, kwin = k2_inputs(dims, leaf, leaf_z, tol, n, dev)
+        kw = dict(dims=dims, tol=tol, leaf_xy=leaf, leaf_z=leaf_z, kwin=kwin)
+        rule = grid_cuda.cluster_size(n, len(offsets), dev)
+        sizes = [c for c in (1, 2, 4, 8, 16) if c <= grid_cuda.max_cluster(dev)
+                 and -(-n // c) <= grid_cuda.cta_cells(len(offsets))]
+        plain = grid_cuda.fused_finalize_static_cc_stacked_plain(
+            accs, scal, br, bc, bits, dims=dims, offsets=offsets, kwin=kwin,
+            max_sweeps=2 * sum(dims))
+        for c in (sizes if label == "headline" else [rule]):
+            got = grid_cuda.fused_finalize_static_cc_stacked(accs, scal, br, bc, bits, cluster=c, **kw)
+            torch.cuda.synchronize()
+            ok = all(equal(npy(a), npy(b)) for a, b in zip(got, plain))
+            e = max_err(npy(got[0]), npy(plain[0]))
+            err = max(err, e)
+            comps = [int((got[2][f] == torch.arange(n, device=dev)).sum()) for f in range(3)]
+            log(f"[3 K2 grid_cc] {label}: {dims[0]} x {dims[1]} x {dims[2]} = {n} cells, "
+                f"{len(offsets)} offsets, cluster {c} of {rule} by rule: bit-exact={ok} "
+                f"iterations={npy(got[3]).tolist()} saturated={npy(got[4]).tolist()} "
+                f"components={comps} dyn={npy(got[1].sum(1)).tolist()}")
+            if not ok:
+                fail(f"K2 at {n} cells, cluster {c}, disagrees with its plain version")
+    report["K2"]["max_abs_err"] = max(report["K2"]["max_abs_err"], err)
 
 
 def blob_frame(cfg, rng, n):
@@ -655,8 +738,14 @@ def phase_kernels_slice5(dev, report, cfg, k1_inputs, table):
                lambda: (vg.finalize_fast_stacked(raw[0], *kw), raw[1]),
                lambda: vg.accumulate_fast_stacked_cm(Pcm, M, *kw))
 
-    report["K4 wide"] = {"max_abs_err": max(
-        check_k4(dev, cfg, rng, k, cfg.caps.c_max_clusters) for k in (256, 1024))}
+    report["K4 scan"]["max_abs_err"] = max(
+        [report["K4 scan"]["max_abs_err"]]
+        + [check_k4(dev, cfg, rng, k, cfg.caps.c_max_clusters) for k in (256, 1024)])
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    check_track(dev, cfg, Tracker(cfg, dev).gains_xy, 1024,
+                ((1, 1, 128, ()), (1, 8, 128, (0,)), (8, 1, cfg.caps.c_max_clusters, ())),
+                report, "K4 wide")
 
     words = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, 2048, dtype=np.int64)
                              .astype(np.int32)).to(dev)
@@ -693,8 +782,8 @@ def pointlist_rows(dev, cfg, P, M):
 def kernel_wrappers():
     """{kernel: its wrapper, whose ``.launches`` counts its launches}."""
     from multiple_object_tracking_lidar_tpu_torch.ops import (
-        assign_cuda, centroid_cuda, cluster_pallas, grid_cuda, segsum_cuda, transpose_cuda,
-        voxel_grid_cuda)
+        assign_cuda, centroid_cuda, cluster_pallas, grid_cuda, segsum_cuda, track_cuda,
+        transpose_cuda, voxel_grid_cuda)
 
     vg = voxel_grid_cuda
     return {
@@ -705,7 +794,8 @@ def kernel_wrappers():
         "K1-cm raw": vg.accumulate_fast_stacked_cm_raw,
         "K2": grid_cuda.fused_finalize_static_cc_stacked,
         "K3": centroid_cuda.pair_stats,
-        "K4": assign_cuda.assoc_scan,
+        "K4": track_cuda.track_frames,
+        "K4 scan": assign_cuda.assoc_scan,
         "K5": vg.accumulate_exact_stacked,
         "K5 raw": vg.accumulate_exact_stacked_raw,
         "K5 fin": vg.finalize_exact_stacked,
@@ -797,7 +887,7 @@ def phase_slice(dev, cfg, sc, report):
     log(f"[4 slice] port plain path on the CPU, {n_gold} frames vs JAX golden: match, max abs err {e}")
 
     # TrackerNode: one PointCloud2 at a time
-    node = TrackerNode(cfg, dev)
+    node = TrackerNode(cfg, dev, keep_outputs=True)
     node.on_map(load_sim_grid())
     reset_counts()
     replies = [node.on_pointcloud(sc.frame(k)) for k in range(n_gold)]
@@ -811,6 +901,8 @@ def phase_slice(dev, cfg, sc, report):
         f"{sorted({o.id for r in replies if r for o in r[0].obstacles})}, "
         f"launches {node_counts}; vs JAX golden max abs err {e_gold}; vs CPU {e_cpu}")
     require("TrackerNode", node_counts, FAST_PATH, report)
+    if node_counts["K4"] != n_gold:
+        fail(f"TrackerNode: {node_counts['K4']} K4 launches for {n_gold} frames (one per frame)")
 
     # bind_env_multi: 4 dispatches of S = 8
     tracker = Tracker(cfg, dev)
@@ -840,6 +932,8 @@ def phase_slice(dev, cfg, sc, report):
         f"finite {fin}, n_alive {allm['n_alive'].tolist()}; first {n_gold} vs JAX golden max abs "
         f"err {e_gold}; vs CPU {e_cpu}; vs TrackerNode {e_node}")
     require("bind_env_multi", multi_counts, FAST_PATH, report)
+    if multi_counts["K4"] != n_disp:
+        fail(f"bind_env_multi: {multi_counts['K4']} K4 launches for {n_disp} calls (one per call)")
     if not all(fin.values()):
         fail("non-finite pos/vel on valid lanes")
     return tracker, env, (P, M, T)
@@ -861,7 +955,7 @@ def phase_modes(dev, report):
         golden = dict(np.load(gold_path))
         fields = golden.keys()
         cfg, env, sc = case(device=dev)
-        node = TrackerNode(cfg, dev)
+        node = TrackerNode(cfg, dev, keep_outputs=True)
         node.on_map(load_sim_grid())
         reset_counts()
         replies = [node.on_pointcloud(sc.frame(k)) for k in range(n_node)]
@@ -908,7 +1002,7 @@ def run_node(dev, tag, cfg, sc, golden, n_node, need, report):
     from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
 
     fields = golden.keys()
-    node = TrackerNode(cfg, dev)
+    node = TrackerNode(cfg, dev, keep_outputs=True)
     node.on_map(load_sim_grid())
     reset_counts()
     replies = [node.on_pointcloud(sc.frame(k)) for k in range(n_node)]
@@ -1003,6 +1097,8 @@ def run_fleet(tag, fleet, env, frames, need, report):
     torch.cuda.synchronize()
     counts = read_counts()
     require(tag, counts, need, report)
+    if counts["K4"] != P.shape[0]:
+        fail(f"{tag}: {counts['K4']} K4 launches for {P.shape[0]} steps (one per step)")
     return {f: np.stack([npy(getattr(o, f)) for o in outs]) for f in outs[0]._fields}, counts
 
 
@@ -1198,7 +1294,7 @@ def phase_growth(dev, report):
     path = os.path.join(ckpt_dir, "ckpt.npz")
 
     def fresh():
-        node = TrackerNode(cfg, dev)
+        node = TrackerNode(cfg, dev, keep_outputs=True)
         node.on_map(load_sim_grid())
         return node
 
@@ -1284,17 +1380,32 @@ def time_path(tracker, env, P, M, T, reps: int = 3):
     return cuda_ms(run_single, reps) / n_fr, cuda_ms(run_multi, reps) / n_fr
 
 
-def device_ops_per_frame(fn, n_frames: int) -> float:
-    """Device operations (kernels, copies, memsets) per frame of fn, from a
-    torch.profiler trace of one run after a warm-up."""
+def trace_counts(fn, n_frames: int) -> tuple[float, float]:
+    """(device operations -- kernels, copies, memsets -- per frame, host
+    syncs per frame) of fn, from a torch.profiler trace of one run after a
+    warm-up.  A host sync is a read of a device value on the host
+    (``.item()``, ``int()``, ``bool()`` of a CUDA tensor): one
+    ``aten::_local_scalar_dense`` each; the Python stack of the first is
+    logged."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(ev.device_type == torch.autograd.DeviceType.CUDA for ev in prof.events()) / n_frames
+    evs = prof.events()
+    ops = sum(ev.device_type == torch.autograd.DeviceType.CUDA for ev in evs)
+    syncs = [ev for ev in evs if ev.name == "aten::_local_scalar_dense"]
+    if syncs:
+        log(f"[5 timing]   first host sync of {len(syncs)}: "
+            f"{' <- '.join(str(f) for f in (syncs[0].stack or [])[:6])}")
+    return ops / n_frames, len(syncs) / n_frames
+
+
+def device_ops_per_frame(fn, n_frames: int) -> float:
+    return trace_counts(fn, n_frames)[0]
 
 
 def phase_timings_pointlist(dev, smi, P, M, T):
@@ -1302,8 +1413,7 @@ def phase_timings_pointlist(dev, smi, P, M, T):
     headline frames (3 repeats), D, E, F and G on 16 (2 repeats); the host
     syncs per frame of each entry point, and C's device ops per frame."""
     from multiple_object_tracking_lidar_tpu_torch import bench_cases
-    from multiple_object_tracking_lidar_tpu_torch.ops.cluster import connected_components
-    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker, track_step
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
     from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
 
     paths = (("C pointlist", bench_cases.pointlist_case, 32),
@@ -1330,16 +1440,9 @@ def phase_timings_pointlist(dev, smi, P, M, T):
         def eight():
             multi(tracker.init_state(), Frame(Pc[:8], Mc[:8], Tc[:8]))
 
-        s0 = track_step.host_syncs + connected_components.host_syncs
-        one()
-        s1 = track_step.host_syncs + connected_components.host_syncs
-        eight()
-        s2 = track_step.host_syncs + connected_components.host_syncs
-        extra = (f"; host syncs per frame bind_env {(s1 - s0) / 8:.3f}, "
-                 f"bind_env_multi {(s2 - s1) / 8:.3f}")
-        if tag.startswith("C"):
-            extra += (f"; device ops per frame bind_env {device_ops_per_frame(one, 8):.2f}, "
-                      f"bind_env_multi {device_ops_per_frame(eight, 8):.2f}")
+        (ops1, sync1), (ops8, sync8) = trace_counts(one, 8), trace_counts(eight, 8)
+        extra = (f"; host syncs per frame bind_env {sync1:.3f}, bind_env_multi {sync8:.3f}; "
+                 f"device ops per frame bind_env {ops1:.2f}, bind_env_multi {ops8:.2f}")
         log(f"[5 timing] {smi}: {tag} bind_env {ms_single:.4f} ms/frame "
             f"({1e3 / ms_single:.1f} clouds/s); bind_env_multi S=8 {ms_multi:.4f} ms/frame "
             f"({1e3 / ms_multi:.1f} clouds/s){extra}")
@@ -1348,22 +1451,35 @@ def phase_timings_pointlist(dev, smi, P, M, T):
 def phase_timings(dev, cfg, smi, tracker, env, frames, report):
     from multiple_object_tracking_lidar_tpu_torch import bench_cases
     from multiple_object_tracking_lidar_tpu_torch.ops import (
-        assign_cuda, centroid_cuda, cluster_pallas, grid_cuda, segsum_cuda, transpose_cuda,
-        voxel_grid_cuda)
+        assign_cuda, centroid_cuda, cluster_pallas, grid_cuda, segsum_cuda, track_cuda,
+        transpose_cuda, voxel_grid_cuda)
     from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import cluster_table_grid
-    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import track_step
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
 
     P, M, T = frames
     leaf, leaf_z = cfg.voxel_leaf_size, cfg.leaf_z
     caps = cfg.caps
 
     # end to end: bind_env one frame per call; bind_env_multi S = 8
-    syncs0 = track_step.host_syncs
     ms_single, ms_multi = time_path(tracker, env, P, M, T)
-    syncs = (track_step.host_syncs - syncs0) / (8 * P.shape[0])
+    step, multi = tracker.bind_env(env), tracker.bind_env_multi(env)
+
+    def one():
+        st = tracker.init_state()
+        for k in range(8):
+            st, _ = step(st, Frame(P[k], M[k], T[k]))
+
+    def eight():
+        multi(tracker.init_state(), Frame(P[:8], M[:8], T[:8]))
+
+    (ops1, sync1), (ops8, sync8) = trace_counts(one, 8), trace_counts(eight, 8)
     log(f"[5 timing] {smi}: headline bind_env {ms_single:.4f} ms/frame "
         f"({1e3 / ms_single:.1f} clouds/s); bind_env_multi S=8 {ms_multi:.4f} ms/frame "
-        f"({1e3 / ms_multi:.1f} clouds/s); host syncs per frame {syncs:.2f}")
+        f"({1e3 / ms_multi:.1f} clouds/s); host syncs per frame bind_env {sync1:.3f}, "
+        f"bind_env_multi {sync8:.3f}; device ops per frame bind_env {ops1:.2f}, "
+        f"bind_env_multi {ops8:.2f}")
+    if sync1 or sync8:
+        fail(f"headline host syncs per frame: bind_env {sync1}, bind_env_multi {sync8} (0 expected)")
     from multiple_object_tracking_lidar_tpu_torch import bench_cases
     from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
 
@@ -1388,6 +1504,18 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
     mp, mm = ctab.mpts[3].contiguous(), ctab.member_mask[3].contiguous()
     K, D = caps.k_max_tracks, caps.c_max_clusters
     g = np.random.default_rng(5)
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+
+    gains = tracker.gains_xy
+    t4 = track_scene(5, cfg, K, D, 1, 1, (), P.device)
+    t4w = track_scene(6, cfg, 1024, 128, 1, 1, (), P.device)
+    kwt = dict(config=cfg, gains_xy=gains)
+
+    def k4_ops(ins, out):
+        """The scan's per-lane work over the valid detections, then the
+        window update and filter of each updated track."""
+        k, n_det, n_upd = ins[0].bank.alive.shape[1], int(ins[2].sum()), int(out[1].valid.sum())
+        return 12 * k * n_det + 20 * cfg.data_length * n_upd
     af0 = torch.from_numpy(g.uniform(-2, 2, (K, 3)).astype(np.float32)).to(dev)
     ai0 = torch.stack([(torch.arange(K) % 2).int(), torch.arange(K).int(),
                        torch.arange(K).int()], 1).int().to(dev)
@@ -1410,10 +1538,6 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
     raw1, _ = vg.accumulate_fast_stacked_raw(P8, M8, *kw1)
     raw5, _ = vg.accumulate_exact_stacked_raw(P8, M8, *kw1)
     Pcm8 = P8.transpose(1, 2).contiguous()
-    Kw = 1024
-    a4w = (torch.from_numpy(g.uniform(-2, 2, (Kw, 3)).astype(np.float32)).to(dev),
-           torch.stack([(torch.arange(Kw) % 2).int(), torch.arange(Kw).int(),
-                        torch.arange(Kw).int()], 1).int().to(dev)) + a4[2:]
 
     # what the data needs, for the bounds: kept points, cells, K2's
     # iterations, K3's members, K8's valid rows and sweeps
@@ -1457,12 +1581,17 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
                lambda: centroid_cuda.pair_stats_plain(mp, mm),
                f"C=32 P=384, {int(mm.any(1).sum())} active slots", (mp, mm),
                int((9 * members * members + 3 * members).sum()), None),
-        "K4": (lambda: assign_cuda.assoc_scan(*a4, **kw4),
-               lambda: assign_cuda.assoc_scan_plain(*a4, **kw4),
-               "K=64 D=32, 4 valid detections", a4, 20 * K * D, None),
-        "K4 wide": (lambda: assign_cuda.assoc_scan(*a4w, **kw4),
-                    lambda: assign_cuda.assoc_scan_plain(*a4w, **kw4),
-                    f"K={Kw} D=32, 4 valid detections", a4w, 20 * Kw * D, None),
+        "K4": (lambda: track_cuda.track_frames(*t4, **kwt),
+               lambda: track_cuda.track_frames_plain(*t4, **kwt),
+               f"K={K} 1 x 1 frame, D={D}, {int(t4[2].sum())} valid detections", t4,
+               k4_ops(t4, track_cuda.track_frames(*t4, **kwt)), None),
+        "K4 wide": (lambda: track_cuda.track_frames(*t4w, **kwt),
+                    lambda: track_cuda.track_frames_plain(*t4w, **kwt),
+                    f"K=1024 1 x 1 frame, D=128, {int(t4w[2].sum())} valid detections", t4w,
+                    k4_ops(t4w, track_cuda.track_frames(*t4w, **kwt)), None),
+        "K4 scan": (lambda: assign_cuda.assoc_scan(*a4, **kw4),
+                    lambda: assign_cuda.assoc_scan_plain(*a4, **kw4),
+                    "K=64 D=32, 4 valid detections", a4, 12 * K * 4, None),
         "K10": (lambda: centroid_cuda.circumcenter_xy(mp, mm),
                 lambda: centroid_cuda.circumcenter_xy_plain(mp, mm),
                 f"C=32 P=384, {int(mm.any(1).sum())} active slots", (mp, mm),
@@ -1587,12 +1716,16 @@ KERNELS = (
      f"{PKG}/csrc/voxel_grid.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1642"),
     ("K1 fin", "K1's finalize alone (no TPU kernel: the jnp finalize_fast_digits)",
      f"{PKG}/csrc/voxel_grid.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1900"),
-    ("K2", "fused finalize + static drop + grid CC",
+    ("K2", "fused finalize + static drop + grid CC, one thread-block cluster per frame",
      f"{PKG}/csrc/grid_cc.cu", "multiple_object_tracking_lidar_tpu/ops/grid_pallas.py:288"),
     ("K3", "farthest-pair column stats",
      f"{PKG}/csrc/centroid.cu", "multiple_object_tracking_lidar_tpu/ops/centroid_pallas.py:415"),
-    ("K4", "greedy association scan",
+    ("K4", "the whole greedy + LPF track step (decision scan, window updates, chained IHGP "
+     "passes, LPF, expiry), one CTA per bank, S frames scanned in order",
      f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188"),
+    ("K4 scan", "K4's decision scan alone (the TPU kernel's function, from the same device "
+     "function)", f"{PKG}/csrc/assign.cu",
+     "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188"),
     ("K5", "voxel_grid exact two-digit histogram + finalize",
      f"{PKG}/csrc/voxel_exact.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1538"),
     ("K5 raw", "K5's histogram alone, int32 two-digit sums for the fleet's all-reduce "
@@ -1619,7 +1752,8 @@ KERNELS = (
      f"{PKG}/csrc/voxel_grid.cu", "scripts/micro_acc_v7.py:109"),
     ("K1-cm raw", "K1-cm's histogram alone (make_v5_stacked's layout)",
      f"{PKG}/csrc/voxel_grid.cu", "scripts/micro_acc_v5.py:276"),
-    ("K4 wide", "K4 on a bank grown past the TPU kernel's 128 slots (one CTA, up to 1,024 lanes)",
+    ("K4 wide", "K4 on a bank grown past the TPU kernel's 128 slots (one CTA of up to 1,024 "
+     "lanes; timed at K = 1,024, launched on the path at K = 256)",
      f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188"),
     ("K11", "batched transpose of 32-bit words: the (S, N, 3) -> (S, 3, N) points K1-cm reads, "
      "and the probes' (1, B) -> (B, 1) int32 row",

@@ -59,12 +59,14 @@ SIGNATURES = {
                              _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "motl_voxel_finalize_exact": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                                   _F, _F, _F, _F, _P],
-    "motl_grid_cc": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
-                     _P, _P, _P, _P],
+    "motl_grid_cc": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _P, _P, _P, _P, _P, _P],
+    "motl_grid_cc_max_cluster": [_I, _P],
     "motl_pair_stats": [_P, _P, _I, _I, _P, _P, _P],
     "motl_circumcenter": [_P, _P, _I, _I, _P, _P],
     "motl_assoc_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P,
                         _P, _P],
+    "motl_track_step": [*[_P] * 16, _I, _I, _I, _I, _I, *[_F] * 7, _I, *[_P] * 17],
     "motl_voxel_exact": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "motl_voxel_bf16x3": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -10,6 +10,11 @@ fields changed: on the dense grid ``exact_case`` (bench.py:518),
 ``pointlist_runs_case`` (F).  ``default_case`` (G) is the JAX package's
 ``TrackerConfig()`` itself, fed the headline frames; ``growth_case`` the
 headline with a two-slot bank, which the node grows.
+
+The kernels' own inputs, made from a seed: ``track_scene`` (K4: banks,
+detections with duplicates, gaps, overflow), ``k2_grids`` and
+``k2_inputs`` (K2 from the headline's 5,500 cells to the default scene's
+193,536).
 """
 
 from __future__ import annotations
@@ -179,3 +184,123 @@ def growth_case(device="cpu"):
     runtime/node.py:131-136)."""
     cfg, env, sc = headline_case(device)
     return cfg.replace(caps=dataclasses.replace(cfg.caps, k_max_tracks=2)), env, sc
+
+
+def track_scene(seed, cfg, K, D, B, S, fresh=(), dev="cpu"):
+    """K4's inputs for B banks x S frames: (state, dets (B, S, D, 4), valid
+    (B, S, D), t (B, S)).  Each bank starts with half its K slots alive
+    (banks in ``fresh`` start empty: a first frame); each frame sees a few
+    tracks, one of them three times (chained passes), registers new
+    objects far away (past K free slots: overflow), has invalid lanes
+    inside the bound and a NaN lane after it; frame 2 comes after a gap of
+    6 periods (interpolation backfill) and frame 4 is empty."""
+    import numpy as np
+    import torch
+
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
+        init_state,
+        map_state,
+        stack_states,
+    )
+
+    rng = np.random.default_rng(seed)
+    L = cfg.data_length
+    states, D4, V, T = [], np.zeros((B, S, D, 4), np.float32), np.zeros((B, S, D), bool), []
+    for b in range(B):
+        st = init_state(K, L, torch.float32, "cpu")
+        xy = rng.uniform(-40, 40, (K, 2)).astype(np.float32)
+        if b not in fresh:
+            live = rng.permutation(K)[: K // 2]
+            w = np.zeros((K, L, 4), np.float32)
+            for j in range(L):
+                w[:, j, :2] = xy + np.float32(0.03) * j
+                w[:, j, 3] = np.float32(1.0 - (L - 1 - j) * 0.1)
+            alive = np.zeros(K, bool)
+            alive[live] = True
+            birth = np.full(K, 2**30, np.int32)
+            birth[live] = rng.permutation(len(live))
+            st = st._replace(
+                bank=st.bank._replace(
+                    alive=torch.from_numpy(alive),
+                    obj_id=torch.from_numpy(np.where(alive, np.arange(K) + 5, -1).astype(np.int32)),
+                    birth_seq=torch.from_numpy(birth), window=torch.from_numpy(w),
+                    m0=torch.from_numpy(rng.normal(0, 0.05, (K, 2, 2)).astype(np.float32))),
+                next_obj_num=torch.tensor(K + 5, dtype=torch.int32),
+                next_birth=torch.tensor(len(live), dtype=torch.int32),
+                initialized=torch.tensor(True))
+        states.append(st)
+        alive_now = np.flatnonzero(st.bank.alive.numpy())
+        t, ts = 1.0, []
+        for s in range(S):
+            t += 0.7 if s == 2 else 0.1
+            ts.append(t)
+            D4[b, s] = rng.uniform(-60, 60, (D, 4))
+            D4[b, s, D - 1, 0] = np.nan
+            if s == 4:
+                continue
+            lane = 0
+            seen = rng.permutation(alive_now)[: min(len(alive_now), D // 4)] if len(alive_now) else []
+            for q, k in enumerate(seen):
+                for _ in range(3 if q == 0 else 1):
+                    if lane >= D - 2:
+                        break
+                    D4[b, s, lane] = [xy[k, 0] + 0.03 * (L + s), xy[k, 1] + rng.normal(0, 0.02), 0.0, t]
+                    V[b, s, lane] = True
+                    lane += 2 if q % 3 == 1 else 1        # invalid lanes inside the bound
+            n_new = min(D - 2 - lane, 4 if s % 2 else D // 2)
+            for q in range(n_new):
+                D4[b, s, lane] = [100.0 + 2.0 * q, 100.0 + 5.0 * s + 50.0 * b, 0.0, t]
+                V[b, s, lane] = True
+                lane += 1
+        T.append(ts)
+    return (map_state(lambda x: x.to(dev), stack_states(states)), torch.from_numpy(D4).to(dev),
+            torch.from_numpy(V).to(dev), torch.tensor(T, dtype=torch.float32, device=dev))
+
+
+def k2_grids(cfg):
+    """(label, dims, leaf, leaf_z) of the grids K2 is checked on: the
+    headline's 5,500 cells, the JAX fused CC's bound (32,768), the CLI's
+    grid on the sim map (70,200) and the default scene's (193,536)."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import grid_shape
+
+    g = TrackerConfig()
+    return (("headline", grid_shape(cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z),
+             cfg.voxel_leaf_size, cfg.leaf_z, cfg.cluster_tolerance),
+            ("the JAX bound", (128, 256, 1), 0.05, 2.0, 0.15),
+            ("CLI grid", (104, 225, 3), 0.05, 1.0, 0.15),
+            ("default scene", grid_shape(g.scene, g.voxel_leaf_size, g.leaf_z),
+             g.voxel_leaf_size, g.leaf_z, g.cluster_tolerance))
+
+
+def k2_inputs(dims, leaf, leaf_z, tol, seed, dev, s_frames=3):
+    """K2's inputs on a grid of ``dims`` with a table that keeps every
+    occupied cell dynamic (the map transform sends every centroid to pixel
+    (0, 0) of a 1 x 1 window whose bit is 0): frame 0 blobs of 30-400
+    cells and clutter, frame 1 every cell occupied at its centre (one
+    component across every rank), frame 2 each cell with probability 0.55
+    (a percolating tangle).  Returns (accs, scal, base_row, base_col,
+    bits, kwin)."""
+    import numpy as np
+    import torch
+
+    gx, gy, gz = dims
+    n = gx * gy * gz
+    rng = np.random.default_rng(seed)
+    lin = np.arange(n)
+    ix, iy, iz = lin % gx, (lin // gx) % gy, lin // (gx * gy)
+    centre = np.stack([(ix + 0.5) * leaf, (iy + 0.5) * leaf, (iz + 0.5) * leaf_z]).astype(np.float32)
+    accs = np.zeros((s_frames, 4, n), np.float32)
+    occ = np.zeros(n, bool)
+    for _ in range(max(4, n // 2000)):
+        cx, cy, cz = rng.integers(0, gx), rng.integers(0, gy), rng.integers(0, gz)
+        r = rng.integers(2, 12)
+        occ |= ((ix - cx) ** 2 + (iy - cy) ** 2 <= r * r) & (np.abs(iz - cz) <= 1)
+    occ |= rng.random(n) < 0.01
+    for f, o in enumerate((occ, np.ones(n, bool), rng.random(n) < 0.55)[:s_frames]):
+        cnt = np.where(o, rng.integers(1, 9, n), 0).astype(np.float32)
+        jitter = rng.normal(0, 0.2, (3, n)).astype(np.float32) * np.float32(leaf)
+        accs[f, :3] = (centre + jitter) * cnt
+        accs[f, 3] = cnt
+    z = torch.zeros(n, dtype=torch.int32, device=dev)
+    scal = torch.tensor([0.0, 0.0, 0.0, 0.0, 1.0, tol * tol], dtype=torch.float32, device=dev)
+    return torch.from_numpy(accs).to(dev), scal, z, z.clone(), z.clone(), 1

@@ -1,30 +1,63 @@
-// K4: the order-faithful greedy association scan.
+// K4: the whole greedy + LPF track step, one CTA per track bank, and its
+// decision scan alone.
 //
 // Replaces the Pallas kernel multiple_object_tracking_lidar_tpu/ops/
-// assign_pallas.py::assoc_scan_pallas (body _kernel).  Detections are
-// visited in order up to the last valid one + 1; each gates the alive
-// tracks with sqrt(dx^2 + dy^2) < thr, claims the gated track with the
-// smallest birth_seq (registration order), or registers in the lowest free
-// slot, or counts an overflow when the bank is full; it writes the slot's
-// last x / y / t, and flags the interpolation backfill when the gap exceeds
-// factor * dt.  Per detection: slot, id, new, ok, interp; per track: alive,
-// obj_id, birth_seq; plus next_obj_num, next_birth and the overflow count.
-// det_slot is defined only where det_ok (assign_pallas.py:159-169).
+// assign_pallas.py::assoc_scan_pallas (body _kernel) and, around it, the
+// rest of the JAX track_step (tracker/pipeline.py:942-1100), which XLA
+// compiles into the same program.  Per frame, in order:
 //
-// What bounds it on the H100: latency -- the scan is sequential over at
-// most D <= 128 detections, a few dozen instructions each.  Design: one CTA
-// of 32 * ceil(K / 32) threads, one lane per track slot; the bank summary
-// lives in registers, the detections in shared memory.  Each detection
-// needs four block-wide reductions ("any gated", "smallest birth_seq among
-// gated", "lowest free slot", "bank full"), done with warp shuffles plus
-// one shared-memory exchange across the CTA's warps.  What bounds K: one
-// lane per slot in one CTA, so K <= 1,024 (the largest CTA); a bank grown
-// past that raises in the wrapper.  D <= 128 is the shared detection
-// buffer.  The kernel is built twice, for CTAs of up to 128 and of up to
-// 1,024 threads: a 1,024-thread bound caps ptxas at 64 registers per
-// thread, where this kernel spills, so banks of K <= 128 (the default
-// K = 64 among them) launch the 128-thread build and keep its registers.  The distance uses __fmul_rn / __fadd_rn and IEEE sqrtf; the
-// interp rounding uses rintf (round half to even, as jnp.round).
+// 1. Decisions (device function `decide`, the scan the TPU kernel runs).
+//    Detections are visited in order up to the last valid one + 1; each
+//    gates the alive tracks with sqrt(dx^2 + dy^2) < thr, claims the gated
+//    track with the smallest birth_seq (registration order), or registers
+//    in the lowest free slot, or counts an overflow when the bank is full;
+//    it writes the slot's last x / y / t, and flags the interpolation
+//    backfill when the gap exceeds factor * dt.  Per detection: slot, id,
+//    new, ok, interp (det_slot is defined only where det_ok,
+//    assign_pallas.py:159-169); per track: alive, obj_id, birth_seq.
+// 2. Window and carry updates, the closed form of ops/assign.py::
+//    apply_window_updates: the slot's first detection backfills by linear
+//    interpolation or fills the window on registration, the rest push in
+//    arrival order, and a registration zeroes the slot's GP carry m0.
+// 3. Duplicate handling: mult[k] counts the detections that updated slot k
+//    this frame (when the frame publishes), and detection d's ordinal is
+//    the number of those at or before d, less one.  Lane k runs mult[k]
+//    chained IHGP velocity passes; detection d reads pass ordinal[d] of its
+//    slot.  This is the loop the JAX package runs as a while_loop and the
+//    plain version with one host sync per frame (max mult).
+// 4. Output: the LPF position, the velocity clamp (NaN-preserving), expiry
+//    of stale tracks every prune period, and every FrameOutput field.
+//
+// What bounds it on the H100: latency.  The scan is sequential over at
+// most D <= 128 detections, a few dozen instructions each; the rest is a
+// few hundred flops per updated track.  The bytes (the (K, L, 4) window at
+// 40 KB for K = 64) take microseconds.  Before this kernel the step was
+// ~100 small launches with one host sync per frame; the design makes it one
+// launch per call with no sync.  One CTA of 32 * ceil(K / 32) threads per
+// bank (blockIdx.x = stream), one lane per track slot.  The S frames of a
+// call are scanned in order inside the CTA: each lane keeps its slot's
+// summary (last x / y / t, alive, id, birth_seq) and GP carry in
+// registers between frames; the window stays in global memory (655 KB at
+// K = 1,024 and L = 40), each lane updating its own row in place
+// (ascending rows: every shift reads a row ahead of the one it writes).
+// The detections, the per-detection decisions and the smoother weights
+// (W_vel's last rows Wy, Wm and the carries My, Mm) sit in shared memory.
+// Each detection of the scan needs four block-wide reductions ("any gated",
+// "smallest birth_seq among gated", "lowest free slot", "bank full"), done
+// with warp shuffles plus one shared-memory exchange across the warps.
+// Bounds: K <= 1,024 (one lane per slot, the largest CTA), D <= 128 (the
+// shared detection buffer); past them the track step takes its plain
+// route (tracker/pipeline.py).  Built twice, for CTAs of up to 128 and of
+// up to 1,024 threads: a 1,024-thread bound caps ptxas at 64 registers per
+// thread, so banks of K <= 128 (the default K = 64) launch the 128-thread
+// build and keep their registers.
+//
+// Arithmetic: every f32 product, sum and quotient is __fmul_rn /
+// __fadd_rn / __fsub_rn / __fdiv_rn, each reduction ascending in its index
+// and started from its first term, as the plain version spells it
+// (ops/track_cuda.py), so the two agree bit for bit.  The distance uses
+// IEEE sqrtf; the gap roundings use rintf (round half to even, as
+// torch.round); int64 -> f32 conversions round to nearest.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,62 +75,67 @@ struct Selected {
   int id;
 };
 
+// One lane's view of its track slot during the scan.
+struct Lane {
+  float lx, ly, lt;
+  int alive, oid, birth;
+};
+
+// Per-detection decisions in shared memory.
+struct Decisions {
+  int slot[kMaxDets];
+  int id[kMaxDets];
+  int is_new[kMaxDets];
+  int ok[kMaxDets];
+  int interp[kMaxDets];
+};
+
 template <int kLanes>
-__global__ void __launch_bounds__(kLanes)
-assoc_scan_kernel(const float* __restrict__ af0, const int* __restrict__ ai0,
-                  const float* __restrict__ dets, const uint8_t* __restrict__ dv,
-                  const int* __restrict__ allow_p, const int* __restrict__ cnt_in,
-                  int K, int D, float thr, float gapthr, float dt,
-                  int* __restrict__ ai_out, int* __restrict__ outs,
-                  int* __restrict__ cnt_out) {
-  __shared__ float s_det[kMaxDets * 4];
-  __shared__ int s_dv[kMaxDets];
-  __shared__ int s_red[2][4][kLanes / 32];
-  __shared__ Selected s_sel[2];
+struct ScanScratch {
+  int red[2][4][kLanes / 32];
+  Selected sel[2];
+};
+
+__device__ __forceinline__ int last_valid_bound(const int* s_dv, int D) {
+  int bound = 0;
+  for (int d = 0; d < D; ++d)
+    if (s_dv[d]) bound = d + 1;
+  return bound;
+}
+
+// Decision defaults for every detection: slot 0, id -1, flags off.
+__device__ __forceinline__ void decision_defaults(Decisions& r, int D) {
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    r.slot[d] = 0;
+    r.id[d] = -1;
+    r.is_new[d] = 0;
+    r.ok[d] = 0;
+    r.interp[d] = 0;
+  }
+}
+
+// The greedy scan over detections [0, bound).  Every thread of the CTA
+// calls it; lane k (k < K) owns slot k.  Ends with a barrier, so `r` is
+// complete for every thread on return.
+template <int kLanes>
+__device__ void decide(const float* s_det, const int* s_dv, int bound, bool allow,
+                       float thr, float gapthr, float dt, int K, Lane& me,
+                       int& nobj, int& nbirth, int& ovf, ScanScratch<kLanes>& sc,
+                       Decisions& r) {
   const int k = threadIdx.x;
   const int lane = k & 31, warp = k >> 5;
   const int n_warps = blockDim.x >> 5;
   const bool in_k = k < K;
-
-  float lx = 0.f, ly = 0.f, lt = 0.f;
-  int alive = 0, oid = 0, birth = 0;
-  if (in_k) {
-    lx = af0[3 * k];
-    ly = af0[3 * k + 1];
-    lt = af0[3 * k + 2];
-    alive = ai0[3 * k];
-    oid = ai0[3 * k + 1];
-    birth = ai0[3 * k + 2];
-  }
-  for (int d = k; d < D; d += blockDim.x) {
-    for (int q = 0; q < 4; ++q) s_det[4 * d + q] = dets[4 * d + q];
-    s_dv[d] = dv[d] != 0;
-  }
-  // outputs default: slot 0, id -1, new 0, ok 0, interp 0
-  for (int d = k; d < D; d += blockDim.x) {
-    outs[d] = 0;
-    outs[D + d] = -1;
-    outs[2 * D + d] = 0;
-    outs[3 * D + d] = 0;
-    outs[4 * D + d] = 0;
-  }
-  const bool allow = allow_p[0] != 0;
-  int nobj = cnt_in[0], nbirth = cnt_in[1], ovf = 0;
-  __syncthreads();
-  int bound = 0;
-  for (int d = 0; d < D; ++d)
-    if (s_dv[d]) bound = d + 1;
-
   for (int j = 0; j < bound; ++j) {
     const float d0 = s_det[4 * j], d1 = s_det[4 * j + 1], d3 = s_det[4 * j + 3];
     const bool valid = s_dv[j] != 0;
-    const bool is_alive = in_k && alive > 0;
-    const float dx = __fsub_rn(d0, lx), dy = __fsub_rn(d1, ly);
+    const bool is_alive = in_k && me.alive > 0;
+    const float dx = __fsub_rn(d0, me.lx), dy = __fsub_rn(d1, me.ly);
     const float dist = sqrtf(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
     const bool gate = is_alive && dist < thr && allow;
     const bool is_free = in_k && !is_alive;
     int r_any = gate ? 1 : 0;
-    int r_bmin = gate ? birth : kBig;
+    int r_bmin = gate ? me.birth : kBig;
     int r_fmin = is_free ? k : kBig;
     int r_full = (is_alive || !in_k) ? 1 : 0;
     for (int o = 16; o > 0; o >>= 1) {
@@ -112,74 +150,423 @@ assoc_scan_kernel(const float* __restrict__ af0, const int* __restrict__ ai0,
     // reading it).
     const int buf = j & 1;
     if (k == 0) {  // defaults for "no slot selected" (full bank, no match)
-      s_sel[buf].slot = 0;
-      s_sel[buf].t = 0.0f;
-      s_sel[buf].id = 0;
+      sc.sel[buf].slot = 0;
+      sc.sel[buf].t = 0.0f;
+      sc.sel[buf].id = 0;
     }
     if (lane == 0) {
-      s_red[buf][0][warp] = r_any;
-      s_red[buf][1][warp] = r_bmin;
-      s_red[buf][2][warp] = r_fmin;
-      s_red[buf][3][warp] = r_full;
+      sc.red[buf][0][warp] = r_any;
+      sc.red[buf][1][warp] = r_bmin;
+      sc.red[buf][2][warp] = r_fmin;
+      sc.red[buf][3][warp] = r_full;
     }
     __syncthreads();
     int any = 0, bmin = kBig, fmin = kBig, full = 1;
     for (int w = 0; w < n_warps; ++w) {
-      any |= s_red[buf][0][w];
-      bmin = min(bmin, s_red[buf][1][w]);
-      fmin = min(fmin, s_red[buf][2][w]);
-      full &= s_red[buf][3][w];
+      any |= sc.red[buf][0][w];
+      bmin = min(bmin, sc.red[buf][1][w]);
+      fmin = min(fmin, sc.red[buf][2][w]);
+      full &= sc.red[buf][3][w];
     }
     const bool am = any != 0;
     const bool bank_full = full != 0;
     // the selected lane is unique: min birth_seq among gated (births are
     // unique among alive tracks), else the first free slot
-    const bool sel = am ? (gate && birth == bmin) : (is_free && k == fmin);
+    const bool sel = am ? (gate && me.birth == bmin) : (is_free && k == fmin);
     if (sel) {
-      s_sel[buf].slot = k;
-      s_sel[buf].t = lt;
-      s_sel[buf].id = oid;
+      sc.sel[buf].slot = k;
+      sc.sel[buf].t = me.lt;
+      sc.sel[buf].id = me.oid;
     }
     __syncthreads();
-    const int sel_slot = s_sel[buf].slot;
-    const float t_slot = s_sel[buf].t;
-    const int id_slot = s_sel[buf].id;
+    const int sel_slot = sc.sel[buf].slot;
+    const float t_slot = sc.sel[buf].t;
+    const int id_slot = sc.sel[buf].id;
     const float gap = __fsub_rn(d3, t_slot);
     const bool do_interp =
-        am && gap > gapthr && __fsub_rn(rintf(gap / dt), 1.0f) >= 1.0f;
+        am && gap > gapthr && __fsub_rn(rintf(__fdiv_rn(gap, dt)), 1.0f) >= 1.0f;
     const bool reg = valid && !am && !bank_full;
     const bool matched = valid && am;
     const bool write = matched || reg;
     if (sel && write) {
-      lx = d0;
-      ly = d1;
-      lt = d3;
+      me.lx = d0;
+      me.ly = d1;
+      me.lt = d3;
     }
     if (sel && reg) {
-      alive = 1;
-      oid = nobj;
-      birth = nbirth;
+      me.alive = 1;
+      me.oid = nobj;
+      me.birth = nbirth;
     }
     if (k == 0) {
-      outs[j] = sel_slot;
-      outs[D + j] = matched ? id_slot : (reg ? nobj : -1);
-      outs[2 * D + j] = reg ? 1 : 0;
-      outs[3 * D + j] = write ? 1 : 0;
-      outs[4 * D + j] = (do_interp && write) ? 1 : 0;
+      r.slot[j] = sel_slot;
+      r.id[j] = matched ? id_slot : (reg ? nobj : -1);
+      r.is_new[j] = reg ? 1 : 0;
+      r.ok[j] = write ? 1 : 0;
+      r.interp[j] = (do_interp && write) ? 1 : 0;
     }
     nobj += reg ? 1 : 0;
     nbirth += reg ? 1 : 0;
     ovf += (valid && !am && bank_full) ? 1 : 0;
   }
+  __syncthreads();
+}
+
+template <int kLanes>
+__global__ void __launch_bounds__(kLanes)
+assoc_scan_kernel(const float* __restrict__ af0, const int* __restrict__ ai0,
+                  const float* __restrict__ dets, const uint8_t* __restrict__ dv,
+                  const int* __restrict__ allow_p, const int* __restrict__ cnt_in,
+                  int K, int D, float thr, float gapthr, float dt,
+                  int* __restrict__ ai_out, int* __restrict__ outs,
+                  int* __restrict__ cnt_out) {
+  __shared__ float s_det[kMaxDets * 4];
+  __shared__ int s_dv[kMaxDets];
+  __shared__ Decisions s_res;
+  __shared__ ScanScratch<kLanes> s_sc;
+  const int k = threadIdx.x;
+  const bool in_k = k < K;
+  Lane me = {0.f, 0.f, 0.f, 0, 0, 0};
   if (in_k) {
-    ai_out[3 * k] = alive;
-    ai_out[3 * k + 1] = oid;
-    ai_out[3 * k + 2] = birth;
+    me.lx = af0[3 * k];
+    me.ly = af0[3 * k + 1];
+    me.lt = af0[3 * k + 2];
+    me.alive = ai0[3 * k];
+    me.oid = ai0[3 * k + 1];
+    me.birth = ai0[3 * k + 2];
+  }
+  for (int d = k; d < D; d += blockDim.x) {
+    for (int q = 0; q < 4; ++q) s_det[4 * d + q] = dets[4 * d + q];
+    s_dv[d] = dv[d] != 0;
+  }
+  decision_defaults(s_res, D);
+  int nobj = cnt_in[0], nbirth = cnt_in[1], ovf = 0;
+  __syncthreads();
+  const int bound = last_valid_bound(s_dv, D);
+  decide<kLanes>(s_det, s_dv, bound, allow_p[0] != 0, thr, gapthr, dt, K, me, nobj, nbirth,
+                 ovf, s_sc, s_res);
+  for (int d = k; d < D; d += blockDim.x) {
+    outs[d] = s_res.slot[d];
+    outs[D + d] = s_res.id[d];
+    outs[2 * D + d] = s_res.is_new[d];
+    outs[3 * D + d] = s_res.ok[d];
+    outs[4 * D + d] = s_res.interp[d];
+  }
+  if (in_k) {
+    ai_out[3 * k] = me.alive;
+    ai_out[3 * k + 1] = me.oid;
+    ai_out[3 * k + 2] = me.birth;
   }
   if (k == 0) {
     cnt_out[0] = nobj;
     cnt_out[1] = nbirth;
     cnt_out[2] = ovf;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the whole track step
+// ---------------------------------------------------------------------------
+struct TrackArgs {
+  const float* dets;      // (B, S, D, 4)
+  const uint8_t* dv;      // (B, S, D)
+  const float* t;         // (B, S)
+  const uint8_t* alive_in;  // (B, K)
+  const int* oid_in;
+  const int* birth_in;
+  const float* win_in;    // (B, K, L, 4)
+  const float* m0_in;     // (B, K, 2, 2)
+  const int* nobj_in;     // (B,)
+  const int* nbirth_in;
+  const int* spin_in;
+  const uint8_t* init_in;
+  const float* wy;        // W_vel Wy (2, L-1, L-1): row L-2 is eft's
+  const float* wm;        // W_vel Wm (2, L-1, 2): row L-2
+  const float* my;        // W_vel My (2, 2, L-1)
+  const float* mm;        // W_vel Mm (2, 2, 2)
+  int S, K, D, L;
+  float thr, gapthr, dt, vmax, lpf_a, lpf_b, prune_period;
+  int prune_spin;
+  uint8_t* alive_out;
+  int* oid_out;
+  int* birth_out;
+  float* win_out;
+  float* m0_out;
+  int* nobj_out;
+  int* nbirth_out;
+  int* spin_out;
+  uint8_t* init_out;
+  uint8_t* publish;       // (B, S)
+  uint8_t* valid;         // (B, S, D)
+  int* obj_id;            // (B, S, D)
+  float* pos;             // (B, S, D, 2)
+  float* vel;             // (B, S, D, 2)
+  uint8_t* new_track;     // (B, S, D)
+  int* counts;            // (B, S, 4): n_alive, overflow, dup_saturated, assoc_saturated
+};
+
+// int64 -> f32, round to nearest (torch's .to(float32) of an int64)
+__device__ __forceinline__ float i2f(long long v) { return __ll2float_rn(v); }
+
+// Lane k's window row after this frame's decisions, in place: the first
+// detection's interpolation backfill or registration fill, then the pushes
+// in arrival order (ops/assign.py::apply_window_updates, _interp_backfill).
+__device__ void update_window(float4* w, int L, const float* s_det, const Decisions& r,
+                              int D, int k, float dt) {
+  int mult = 0, first = -1;
+  for (int d = 0; d < D; ++d) {
+    if (r.ok[d] && r.slot[d] == k) {
+      if (first < 0) first = d;
+      ++mult;
+    }
+  }
+  if (mult == 0) return;
+  const float4 d1 = make_float4(s_det[4 * first], s_det[4 * first + 1],
+                                s_det[4 * first + 2], s_det[4 * first + 3]);
+  const bool first_reg = r.is_new[first] != 0;
+  if (first_reg) {
+    for (int l = 0; l < L; ++l) w[l] = d1;
+  } else if (r.interp[first]) {
+    const float4 last = w[L - 1];
+    const float gap = __fsub_rn(d1.w, last.w);
+    const long long lost = (long long)rintf(__fdiv_rn(gap, dt)) - 1;
+    const long long lost_c = lost < 1 ? 1 : lost;
+    const float lc = i2f(lost_c);
+    const float sx = __fdiv_rn(__fsub_rn(d1.x, last.x), lc);
+    const float sy = __fdiv_rn(__fsub_rn(d1.y, last.y), lc);
+    const float sz = __fdiv_rn(__fsub_rn(d1.z, last.z), lc);
+    for (int l = 0; l < L; ++l) {
+      if ((long long)l + lost < L) {
+        w[l] = w[l + lost];
+      } else {
+        const float jj = i2f((long long)l - L + lost_c + 1);
+        w[l] = make_float4(__fadd_rn(last.x, __fmul_rn(__fmul_rn(jj, sx), 1.0f)),
+                           __fadd_rn(last.y, __fmul_rn(__fmul_rn(jj, sy), 1.0f)),
+                           __fadd_rn(last.z, __fmul_rn(__fmul_rn(jj, sz), 0.0f)),
+                           __fadd_rn(last.w, __fmul_rn(jj, dt)));
+      }
+    }
+  }
+  // pushes: every assigned detection but the first when it registered
+  const int n_push = first_reg ? mult - 1 : mult;
+  const int offset = first_reg ? 1 : 0;
+  // shift by n_push rows, eight rows loaded before any is stored: a chunk
+  // reads rows at or past l0 + n_push >= l0 + 1, which no earlier chunk
+  // overwrote
+  if (n_push > 0) {
+    for (int l0 = 0; l0 + n_push < L; l0 += 8) {
+      const int m = min(8, L - n_push - l0);
+      float4 tmp[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j < m) tmp[j] = w[l0 + j + n_push];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j < m) w[l0 + j] = tmp[j];
+    }
+  }
+  int j = 0;
+  for (int d = first; d < D; ++d) {
+    if (!(r.ok[d] && r.slot[d] == k)) continue;
+    const int row = j - offset + L - n_push;
+    if (j >= offset && row >= 0)
+      w[row] = make_float4(s_det[4 * d], s_det[4 * d + 1], s_det[4 * d + 2], s_det[4 * d + 3]);
+    ++j;
+  }
+}
+
+template <int kLanes>
+__global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
+  extern __shared__ float s_w[];  // wy_last (2, L-1), wm_last (2, 2), my (2, 2, L-1), mm (2, 2, 2)
+  __shared__ float s_det[kMaxDets * 4];
+  __shared__ int s_dv[kMaxDets];
+  __shared__ int s_act[kMaxDets];
+  __shared__ Decisions s_res;
+  __shared__ ScanScratch<kLanes> s_sc;
+  const int b = blockIdx.x;
+  const int k = threadIdx.x;
+  const int S = a.S, K = a.K, D = a.D, L = a.L, L1 = L - 1;
+  const bool in_k = k < K;
+
+  float* wy = s_w;
+  float* wm = wy + 2 * L1;
+  float* my = wm + 4;
+  float* mm = my + 4 * L1;
+  for (int i = k; i < 2 * L1; i += blockDim.x) {
+    const int ax = i / L1, l = i % L1;
+    wy[i] = a.wy[((size_t)ax * L1 + (L1 - 1)) * L1 + l];
+  }
+  for (int i = k; i < 4; i += blockDim.x) wm[i] = a.wm[((i >> 1) * L1 + (L1 - 1)) * 2 + (i & 1)];
+  for (int i = k; i < 4 * L1; i += blockDim.x) my[i] = a.my[i];
+  for (int i = k; i < 8; i += blockDim.x) mm[i] = a.mm[i];
+
+  // this lane's slot: summary and carry in registers, window row in place
+  // in the output buffer
+  Lane me = {0.f, 0.f, 0.f, 0, 0, 0};
+  float m[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  float4* w = reinterpret_cast<float4*>(a.win_out) + ((size_t)b * K + (in_k ? k : 0)) * L;
+  if (in_k) {
+    const float4* __restrict__ w_in =
+        reinterpret_cast<const float4*>(a.win_in) + ((size_t)b * K + k) * L;
+    float4* __restrict__ w_out = w;
+#pragma unroll 8
+    for (int l = 0; l < L; ++l) w_out[l] = w_in[l];
+    me.lx = w[L - 1].x;
+    me.ly = w[L - 1].y;
+    me.lt = w[L - 1].w;
+    const size_t bk = (size_t)b * K + k;
+    me.alive = a.alive_in[bk] != 0;
+    me.oid = a.oid_in[bk];
+    me.birth = a.birth_in[bk];
+    for (int q = 0; q < 4; ++q) m[q >> 1][q & 1] = a.m0_in[4 * bk + q];
+  }
+  int nobj = a.nobj_in[b], nbirth = a.nbirth_in[b], spin = a.spin_in[b];
+  bool init = a.init_in[b] != 0;
+
+  for (int s = 0; s < S; ++s) {
+    const size_t fs = (size_t)b * S + s;
+    const float* dets = a.dets + fs * D * 4;
+    for (int d = k; d < D; d += blockDim.x) {
+      for (int q = 0; q < 4; ++q) s_det[4 * d + q] = dets[4 * d + q];
+      s_dv[d] = a.dv[fs * D + d] != 0;
+      // pos / vel default: det * 0 (NaN-preserving), for detections no pass reads
+      const float zx = __fmul_rn(dets[4 * d], 0.0f), zy = __fmul_rn(dets[4 * d + 1], 0.0f);
+      a.pos[2 * (fs * D + d)] = zx;
+      a.pos[2 * (fs * D + d) + 1] = zy;
+      a.vel[2 * (fs * D + d)] = zx;
+      a.vel[2 * (fs * D + d) + 1] = zy;
+    }
+    decision_defaults(s_res, D);
+    __syncthreads();
+    const int bound = last_valid_bound(s_dv, D);
+    const bool any_det = bound > 0;
+    const bool steady = init && any_det;
+    int ovf = 0;
+    decide<kLanes>(s_det, s_dv, bound, init, a.thr, a.gapthr, a.dt, K, me, nobj, nbirth, ovf,
+                   s_sc, s_res);
+    for (int d = k; d < D; d += blockDim.x) s_act[d] = (s_res.ok[d] && steady) ? 1 : 0;
+    __syncthreads();
+
+    if (in_k) {
+      update_window(w, L, s_det, s_res, D, k, a.dt);
+      // a registration zeroes the slot's GP carry (the ctor, cpp:45)
+      for (int d = 0; d < D; ++d) {
+        if (s_res.is_new[d] && s_res.slot[d] == k) {
+          m[0][0] = m[0][1] = m[1][0] = m[1][1] = 0.0f;
+        }
+      }
+      int mult = 0;
+      for (int d = 0; d < D; ++d) mult += (s_act[d] && s_res.slot[d] == k) ? 1 : 0;
+      if (mult > 0) {
+        // velocity window, its mean, the y-parts of the smoother sums and
+        // the LPF position: once per frame, ascending in the window index
+        // (each row read once per pass, both axes together; unrolled so
+        // the row loads overlap)
+        float vmean[2], ey[2], myv[2][2], sum[2];
+        float2 prev = make_float2(w[0].x, w[0].y);
+#pragma unroll 8
+        for (int l = 0; l < L1; ++l) {
+          const float4 cur = w[l + 1];
+          const float vx = __fdiv_rn(__fsub_rn(cur.x, prev.x), a.dt);
+          const float vy = __fdiv_rn(__fsub_rn(cur.y, prev.y), a.dt);
+          sum[0] = l ? __fadd_rn(sum[0], vx) : vx;
+          sum[1] = l ? __fadd_rn(sum[1], vy) : vy;
+          prev = make_float2(cur.x, cur.y);
+        }
+        vmean[0] = __fdiv_rn(sum[0], (float)L1);
+        vmean[1] = __fdiv_rn(sum[1], (float)L1);
+        prev = make_float2(w[0].x, w[0].y);
+#pragma unroll 8
+        for (int l = 0; l < L1; ++l) {
+          const float4 cur = w[l + 1];
+          const float yv[2] = {
+              __fsub_rn(__fdiv_rn(__fsub_rn(cur.x, prev.x), a.dt), vmean[0]),
+              __fsub_rn(__fdiv_rn(__fsub_rn(cur.y, prev.y), a.dt), vmean[1])};
+          prev = make_float2(cur.x, cur.y);
+#pragma unroll
+          for (int ax = 0; ax < 2; ++ax) {
+            const float e = __fmul_rn(yv[ax], wy[ax * L1 + l]);
+            const float c0 = __fmul_rn(yv[ax], my[(ax * 2 + 0) * L1 + l]);
+            const float c1 = __fmul_rn(yv[ax], my[(ax * 2 + 1) * L1 + l]);
+            ey[ax] = l ? __fadd_rn(ey[ax], e) : e;
+            myv[ax][0] = l ? __fadd_rn(myv[ax][0], c0) : c0;
+            myv[ax][1] = l ? __fadd_rn(myv[ax][1], c1) : c1;
+          }
+        }
+        float pos[2];
+        pos[0] = __fadd_rn(__fmul_rn(a.lpf_a, w[L - 2].x), __fmul_rn(a.lpf_b, w[L - 1].x));
+        pos[1] = __fadd_rn(__fmul_rn(a.lpf_a, w[L - 2].y), __fmul_rn(a.lpf_b, w[L - 1].y));
+        // chained passes, run as detections ask for them: detection d
+        // reads pass ordinal[d] = (updates of slot k at or before d) - 1
+        float vel[2] = {0.f, 0.f};
+        int done = 0, cnt = 0;
+        for (int d = 0; d < D; ++d) {
+          if (s_res.slot[d] != k) continue;
+          cnt += s_act[d];
+          if (cnt == 0) continue;
+          while (done < cnt) {
+            float mn[2][2];
+            for (int ax = 0; ax < 2; ++ax) {
+              const float em = __fadd_rn(__fmul_rn(m[ax][0], wm[2 * ax]),
+                                         __fmul_rn(m[ax][1], wm[2 * ax + 1]));
+              float v = __fadd_rn(__fadd_rn(ey[ax], em), vmean[ax]);
+              // clamp, NaN-preserving like the C++ if-chain (cpp:649-654)
+              v = v > a.vmax ? a.vmax : (v < -a.vmax ? -a.vmax : v);
+              vel[ax] = v;
+              for (int tt = 0; tt < 2; ++tt) {
+                mn[ax][tt] = __fadd_rn(
+                    myv[ax][tt], __fadd_rn(__fmul_rn(m[ax][0], mm[(ax * 2 + tt) * 2]),
+                                           __fmul_rn(m[ax][1], mm[(ax * 2 + tt) * 2 + 1])));
+              }
+            }
+            for (int q = 0; q < 4; ++q) m[q >> 1][q & 1] = mn[q >> 1][q & 1];
+            ++done;
+          }
+          a.pos[2 * (fs * D + d)] = pos[0];
+          a.pos[2 * (fs * D + d) + 1] = pos[1];
+          a.vel[2 * (fs * D + d)] = vel[0];
+          a.vel[2 * (fs * D + d) + 1] = vel[1];
+        }
+      }
+    }
+
+    // expiry (cpp:545-584)
+    spin += steady ? 1 : 0;
+    const bool prune = spin > a.prune_spin && steady;
+    if (in_k && prune) {
+      const bool stale = __fsub_rn(a.t[fs], w[L - 1].w) > a.prune_period;
+      if (stale) me.alive = 0;
+    }
+    if (prune) spin = 0;
+    const int n_alive = __syncthreads_count(in_k && me.alive);
+    for (int d = k; d < D; d += blockDim.x) {
+      a.valid[fs * D + d] = (s_res.ok[d] && steady) ? 1 : 0;
+      a.obj_id[fs * D + d] = s_res.id[d];
+      a.new_track[fs * D + d] = s_res.is_new[d] ? 1 : 0;
+    }
+    if (k == 0) {
+      a.publish[fs] = steady ? 1 : 0;
+      a.counts[4 * fs] = n_alive;
+      a.counts[4 * fs + 1] = ovf;
+      a.counts[4 * fs + 2] = 0;  // dup_saturated: every multiplicity runs exactly
+      a.counts[4 * fs + 3] = 0;  // assoc_saturated: greedy never saturates
+    }
+    init = init || any_det;
+    __syncthreads();  // s_det, s_dv, s_res are rewritten by the next frame
+  }
+
+  if (in_k) {
+    const size_t bk = (size_t)b * K + k;
+    a.alive_out[bk] = me.alive ? 1 : 0;
+    a.oid_out[bk] = me.oid;
+    a.birth_out[bk] = me.birth;
+    for (int q = 0; q < 4; ++q) a.m0_out[4 * bk + q] = m[q >> 1][q & 1];
+  }
+  if (k == 0) {
+    a.nobj_out[b] = nobj;
+    a.nbirth_out[b] = nbirth;
+    a.spin_out[b] = spin;
+    a.init_out[b] = init ? 1 : 0;
   }
 }
 
@@ -203,5 +590,42 @@ extern "C" int motl_assoc_scan(const float* af0, const int* ai0, const float* de
   else
     assoc_scan_kernel<kMaxLanes><<<1, threads, 0, st>>>(
         af0, ai0, dets, dv, allow, cnt_in, K, D, thr, gapthr, dt, ai_out, outs, cnt_out);
+  return (int)cudaGetLastError();
+}
+
+// The whole track step of B banks over S frames each, one CTA per bank.
+// Inputs: dets (B, S, D, 4) f32, dv (B, S, D) u8, t (B, S) f32; the state
+// alive (B, K) u8, obj_id (B, K) i32, birth_seq (B, K) i32, window (B, K,
+// L, 4) f32, m0 (B, K, 2, 2) f32, next_obj_num / next_birth / spin (B,)
+// i32, initialized (B,) u8; W_vel's Wy (2, L-1, L-1), Wm (2, L-1, 2), My
+// (2, 2, L-1), Mm (2, 2, 2) f32.  Outputs: the state after the S frames in
+// the same layouts, and per frame publish (B, S) u8, valid / new_track
+// (B, S, D) u8, obj_id (B, S, D) i32, pos / vel (B, S, D, 2) f32, counts
+// (B, S, 4) i32 [n_alive, overflow, dup_saturated, assoc_saturated].
+// 1 <= K <= 1024, 1 <= D <= 128, L >= 2.
+extern "C" int motl_track_step(
+    const float* dets, const uint8_t* dv, const float* t, const uint8_t* alive_in,
+    const int* oid_in, const int* birth_in, const float* win_in, const float* m0_in,
+    const int* nobj_in, const int* nbirth_in, const int* spin_in, const uint8_t* init_in,
+    const float* wy, const float* wm, const float* my, const float* mm, int B, int S, int K,
+    int D, int L, float thr, float gapthr, float dt, float vmax, float lpf_a, float lpf_b,
+    float prune_period, int prune_spin, uint8_t* alive_out, int* oid_out, int* birth_out,
+    float* win_out, float* m0_out, int* nobj_out, int* nbirth_out, int* spin_out,
+    uint8_t* init_out, uint8_t* publish, uint8_t* valid, int* obj_id, float* pos, float* vel,
+    uint8_t* new_track, int* counts, void* stream) {
+  if (B < 1 || S < 1 || K < 1 || K > kMaxLanes || D < 1 || D > kMaxDets || L < 2)
+    return (int)cudaErrorInvalidValue;
+  TrackArgs a{dets, dv, t, alive_in, oid_in, birth_in, win_in, m0_in, nobj_in, nbirth_in,
+              spin_in, init_in, wy, wm, my, mm, S, K, D, L, thr, gapthr, dt, vmax, lpf_a,
+              lpf_b, prune_period, prune_spin, alive_out, oid_out, birth_out, win_out, m0_out,
+              nobj_out, nbirth_out, spin_out, init_out, publish, valid, obj_id, pos, vel,
+              new_track, counts};
+  const int threads = (K + 31) / 32 * 32;
+  const size_t smem = (size_t)(6 * (L - 1) + 4 + 8) * sizeof(float);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (threads <= kNarrowLanes)
+    track_step_kernel<kNarrowLanes><<<B, threads, smem, st>>>(a);
+  else
+    track_step_kernel<kMaxLanes><<<B, threads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 // K2: fused voxel finalize + per-cell static drop + dense-grid connected
-// components, one CTA per frame.
+// components, one thread-block cluster per frame.
 //
 // Replaces the Pallas kernels multiple_object_tracking_lidar_tpu/ops/
 // grid_pallas.py::fused_finalize_static_cc and
@@ -11,51 +11,98 @@
 // propagation to its fixpoint: labels[i] = min flat cell index of i's
 // component, n_cells for cells that are not dynamic.
 //
-// What bounds it on the H100: shared memory.  Labels (two buffers) and the
-// packed adjacency words live in shared memory, 4 * (2 + n_words) bytes per
-// cell (12 B/cell with <= 32 stencil offsets: 66 KB at 5,500 cells), so one
-// CTA holds up to ~19k cells within the 227 KB a block may use; the wrapper
-// (ops/grid_cuda.py) derives that bound and raises past it.  The work is a
-// few thousand cells x 24 offsets per sweep, so one CTA per frame is enough
-// for a first kernel.  Design: each iteration is a Jacobi sweep
+// What bounds it on the H100: latency and shared memory.  The work is a few
+// thousand to a few hundred thousand cells x up to 256 offsets per sweep,
+// over a handful of sweeps; the labels (two buffers, read by every
+// neighbour) must stay on chip, and so should the packed adjacency words:
+// 4 * (2 + n_words) bytes per cell (12 B/cell with <= 32 stencil offsets,
+// the 0.1 m headline's 24; 28 B/cell with the 146 of a 0.05 m leaf and
+// three z slabs).  Design: one cluster of C CTAs per frame (C = 1, 2, 4, 8
+// or 16, chosen by the wrapper from the cell count, ops/grid_cuda.py::
+// cluster_size).  The frame's flat cells are split into C contiguous
+// ranges of R = ceil(n / C) cells, one per CTA; each CTA keeps its range's
+// two label buffers and adjacency words in its own shared memory, so the
+// cluster holds C x 227 KB: ~19k cells per CTA at <= 32 offsets, 304k per
+// 16-CTA cluster.  Where the adjacency words do not fit beside the labels
+// (the default scene: 193,536 cells x 146 offsets), they go to a global
+// scratch the wrapper allocates, read back only by the thread that wrote
+// them; the labels alone (8 B/cell) fit 456k cells.  Stencil neighbours and the pointer
+// jump read the other ranks' labels through distributed shared memory
+// (cluster.map_shared_rank; the owner of cell j is j / R).  A neighbour's
+// centroid is recomputed from the (read-only) accumulator, the same IEEE
+// ops as its owner's, so no CTA reads global memory another CTA wrote.
+//
+// Schedule, the same as the one-CTA kernel before it and the plain
+// version: each iteration is one Jacobi sweep over all cells
 // (B = min(A, min over adjacent neighbours of A)) followed by one pointer
-// jump (A = B[B]) -- the jump stays inside the component and at most halves
-// its depth, so real scenes converge in a handful of iterations.  A
-// block-wide "changed" vote (__syncthreads_or) ends the loop; the cap is
-// 2 (gx + gy + gz) iterations, and `saturated` reports an exit at the cap
-// while labels still changed, as grid_pallas.py:226-231 does.  The fixpoint
-// is schedule-independent, so labels equal the JAX kernel's; the plain
-// PyTorch version runs the same schedule, so the sweep count matches it.
-// All f32 arithmetic uses __fmul_rn / __fadd_rn / __fsub_rn (no FMA) and
-// IEEE division.
+// jump (A = B[B]) -- the jump stays inside the component and at most
+// halves its depth, so real scenes converge in a handful of iterations.
+// cluster.sync() separates the phases, and the "changed" vote is
+// cluster-wide (each CTA ORs its block vote into rank 0's shared word,
+// double-buffered by iteration parity).  The cap is 2 (gx + gy + gz)
+// iterations, and `saturated` reports an exit at the cap while labels
+// still changed, as grid_pallas.py:226-231 does.  Because the sweep is
+// global, labels, the iteration count and `saturated` do not depend on C,
+// and equal the plain PyTorch version's; the fixpoint is schedule-
+// independent, so labels equal the JAX kernel's.  All f32 arithmetic uses
+// __fmul_rn / __fadd_rn / __fsub_rn (no FMA) and IEEE division.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kMaxOffsets = 128;  // 4 packed adjacency words per cell
+constexpr int kMaxOffsets = 256;  // 8 packed adjacency words per cell
+constexpr int kMaxWords = kMaxOffsets / 32;
 constexpr int kThreads = 1024;
+constexpr int kMaxCluster = 16;   // non-portable on the H100 (portable: 8)
+
+struct Cent {
+  float x, y, z;
+};
+
+// cell i's centroid from the channel-major accumulator, as its owner
+// computes it
+__device__ __forceinline__ Cent centroid(const float* A, int n, int i) {
+  const float den = fmaxf(A[3 * n + i], 1.0f);
+  return {A[i] / den, A[n + i] / den, A[2 * n + i] / den};
+}
 
 __global__ void __launch_bounds__(kThreads)
 grid_cc_kernel(const float* __restrict__ acc, const int* __restrict__ brow,
                const int* __restrict__ bcol, const int* __restrict__ bits,
                const int* __restrict__ offs, int n_off,
                const float* __restrict__ scal, int gx, int gy, int gz,
-               int kwin, int max_sweeps, float* __restrict__ cent,
+               int kwin, int max_sweeps, int range, unsigned* adj_global,
+               float* __restrict__ cent,
                uint8_t* __restrict__ dyn_out, int* __restrict__ lab_out,
                int* __restrict__ nsw) {
+  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ int sm[];
   __shared__ int s_dx[kMaxOffsets], s_dy[kMaxOffsets], s_dz[kMaxOffsets],
       s_shift[kMaxOffsets];
+  __shared__ int s_vote[2];
   const int n = gx * gy * gz;
   const int n_words = (n_off + 31) >> 5;
-  int* labA = sm;
-  int* labB = sm + n;
-  unsigned* adj = reinterpret_cast<unsigned*>(sm + 2 * n);  // [w * n + i]
-  const int s = blockIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int s = blockIdx.x / (int)cluster.num_blocks();  // the frame
+  const int lo = rank * range;
+  const int hi = min(n, lo + range);
+  int* labA = sm;                                               // [range]
+  int* labB = sm + range;                                       // [range]
+  // [w * range + li]: in shared memory, or this CTA's slab of the scratch
+  unsigned* adj = adj_global ? adj_global + (size_t)blockIdx.x * n_words * range
+                             : reinterpret_cast<unsigned*>(sm + 2 * range);
   const float* A = acc + (size_t)s * 4 * n;
   float* C = cent + (size_t)s * 3 * n;
+  // label of cell j in its owner's buffer `buf` (labA or labB)
+  auto remote = [&](int* buf, int j) -> int {
+    const int r = j / range;
+    return cluster.map_shared_rank(buf, r)[j - r * range];
+  };
 
   for (int o = threadIdx.x; o < n_off; o += blockDim.x) {
     const int dz = offs[3 * o], dy = offs[3 * o + 1], dx = offs[3 * o + 2];
@@ -64,18 +111,18 @@ grid_cc_kernel(const float* __restrict__ acc, const int* __restrict__ brow,
     s_dx[o] = dx;
     s_shift[o] = dx + gx * (dy + gy * dz);
   }
+  if (threadIdx.x < 2) s_vote[threadIdx.x] = 0;
   const float ox = scal[0], oy = scal[1], cosv = scal[2], sinv = scal[3],
               invr = scal[4], tol2 = scal[5];
 
-  // ---- phase 1: finalize + static drop bit --------------------------------
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+  // ---- phase 1: finalize + static drop bit, this CTA's range ------------
+  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
     const float cnt = A[3 * n + i];
-    const float den = fmaxf(cnt, 1.0f);
-    const float cx = A[i] / den, cy = A[n + i] / den, cz = A[2 * n + i] / den;
-    C[i] = cx;
-    C[n + i] = cy;
-    C[2 * n + i] = cz;
-    const float xm = __fsub_rn(cx, ox), ym = __fsub_rn(cy, oy);
+    const Cent c = centroid(A, n, i);
+    C[i] = c.x;
+    C[n + i] = c.y;
+    C[2 * n + i] = c.z;
+    const float xm = __fsub_rn(c.x, ox), ym = __fsub_rn(c.y, oy);
     const int col = (int)__fmul_rn(__fsub_rn(__fmul_rn(cosv, xm), __fmul_rn(sinv, ym)), invr);
     const int row = (int)__fmul_rn(__fadd_rn(__fmul_rn(sinv, xm), __fmul_rn(cosv, ym)), invr);
     const int qr = row - brow[i], qc = col - bcol[i];
@@ -86,92 +133,159 @@ grid_cc_kernel(const float* __restrict__ acc, const int* __restrict__ brow,
     const int drop = in_win ? bit : 1;
     const bool dyn = cnt > 0.0f && drop == 0;
     dyn_out[(size_t)s * n + i] = dyn ? 1 : 0;
-    labB[i] = dyn ? 1 : 0;  // dyn flags, until the sweeps reuse the buffer
-    labA[i] = dyn ? i : n;
+    labB[i - lo] = dyn ? 1 : 0;  // dyn flags, until the sweeps reuse the buffer
+    labA[i - lo] = dyn ? i : n;
   }
-  __syncthreads();
+  cluster.sync();
 
   // ---- phase 2: packed adjacency words (d^2 <= tol^2, both dynamic) -------
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    unsigned w[4] = {0u, 0u, 0u, 0u};
-    if (labB[i]) {
+  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+    unsigned w[kMaxWords] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+    if (labB[i - lo]) {
       const int x = i % gx, yz = i / gx, y = yz % gy, z = yz / gy;
-      const float cx = C[i], cy = C[n + i], cz = C[2 * n + i];
+      const Cent c = centroid(A, n, i);
       for (int o = 0; o < n_off; ++o) {
         const int nx = x + s_dx[o], ny = y + s_dy[o], nz = z + s_dz[o];
         if (nx < 0 || nx >= gx || ny < 0 || ny >= gy || nz < 0 || nz >= gz) continue;
         const int j = i + s_shift[o];
-        if (!labB[j]) continue;
-        const float ddx = __fsub_rn(cx, C[j]);
-        const float ddy = __fsub_rn(cy, C[n + j]);
-        const float ddz = __fsub_rn(cz, C[2 * n + j]);
+        if (!remote(labB, j)) continue;
+        const Cent cj = centroid(A, n, j);
+        const float ddx = __fsub_rn(c.x, cj.x);
+        const float ddy = __fsub_rn(c.y, cj.y);
+        const float ddz = __fsub_rn(c.z, cj.z);
         const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy)),
                                    __fmul_rn(ddz, ddz));
         if (d2 <= tol2) w[o >> 5] |= 1u << (o & 31);
       }
     }
-    for (int k = 0; k < n_words; ++k) adj[k * n + i] = w[k];
+    for (int k = 0; k < n_words; ++k) adj[k * range + (i - lo)] = w[k];
   }
-  __syncthreads();
+  cluster.sync();  // every rank is done reading the dyn flags in labB
 
   // ---- phase 3: Jacobi min-label sweep + pointer jump, to the fixpoint ----
   int it = 0;
   int changed = 1;
   while (changed && it < max_sweeps) {
     int local = 0;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int old = labA[i];
+    for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+      const int old = labA[i - lo];
       int l = old;
       if (old < n) {
         for (int k = 0; k < n_words; ++k) {
-          unsigned wk = adj[k * n + i];
+          unsigned wk = adj[k * range + (i - lo)];
           while (wk) {
             const int b = __ffs(wk) - 1;
             wk &= wk - 1;
-            l = min(l, labA[i + s_shift[(k << 5) + b]]);
+            l = min(l, remote(labA, i + s_shift[(k << 5) + b]));
           }
         }
       }
-      labB[i] = l;
+      labB[i - lo] = l;
       local |= (l != old);
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int b = labB[i];
-      const int j = b < n ? labB[b] : n;
-      labA[i] = j;
+    cluster.sync();  // labB complete on every rank
+    // rank 0 clears the vote word of the next iteration: every rank read
+    // it (as the previous iteration's) before this barrier
+    if (rank == 0 && threadIdx.x == 0) s_vote[(it + 1) & 1] = 0;
+    for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+      const int b = labB[i - lo];
+      const int j = b < n ? remote(labB, b) : n;
+      labA[i - lo] = j;
       local |= (j != b);
     }
-    changed = __syncthreads_or(local);
+    if (__syncthreads_or(local) && threadIdx.x == 0)
+      atomicOr(cluster.map_shared_rank(&s_vote[it & 1], 0), 1);
+    cluster.sync();  // labA complete and every vote in
+    const int v = threadIdx.x == 0 ? *cluster.map_shared_rank(&s_vote[it & 1], 0) : 0;
+    changed = __syncthreads_or(v);
     ++it;
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) lab_out[(size_t)s * n + i] = labA[i];
-  if (threadIdx.x == 0) {
+  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x)
+    lab_out[(size_t)s * n + i] = labA[i - lo];
+  if (rank == 0 && threadIdx.x == 0) {
     nsw[2 * s] = it;
     nsw[2 * s + 1] = (changed && it >= max_sweeps) ? 1 : 0;
   }
+  cluster.sync();  // no rank leaves while another may read its shared memory
+}
+
+cudaError_t set_attributes(size_t smem, int cluster) {
+  cudaError_t err = cudaFuncSetAttribute(
+      grid_cc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(grid_cc_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
 }
 
 }  // namespace
 
 // acc (S, 4, n) f32; brow/bcol/bits (n,) i32; offs (n_off, 3) i32 as
 // (dz, dy, dx); scal (6,) f32 = origin_x, origin_y, cos, sin, inv_res, tol2.
-// Outputs: cent (S, 3, n) f32, dyn (S, n) u8, labels (S, n) i32,
+// `cluster` CTAs per frame (1, 2, 4, 8 or 16), each owning ceil(n / cluster)
+// cells; adj_global null keeps the adjacency words in shared memory, else
+// it is a scratch of S * cluster * ceil(n_off / 32) * ceil(n / cluster)
+// u32.  Outputs: cent (S, 3, n) f32, dyn (S, n) u8, labels (S, n) i32,
 // nsw (S, 2) i32 = [iterations, saturated].
 extern "C" int motl_grid_cc(const float* acc, const int* brow, const int* bcol,
                             const int* bits, const int* offs, int n_off,
                             const float* scal, int S, int gx, int gy, int gz,
-                            int kwin, int max_sweeps, float* cent, uint8_t* dyn,
-                            int* labels, int* nsw, void* stream) {
-  if (n_off > kMaxOffsets) return (int)cudaErrorInvalidValue;
+                            int kwin, int max_sweeps, int cluster, unsigned* adj_global,
+                            float* cent, uint8_t* dyn, int* labels, int* nsw,
+                            void* stream) {
+  if (n_off > kMaxOffsets || cluster < 1 || cluster > kMaxCluster || S < 1)
+    return (int)cudaErrorInvalidValue;
   const int n = gx * gy * gz;
   const int n_words = (n_off + 31) >> 5;
-  const size_t smem = (size_t)(2 + n_words) * n * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      grid_cc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int range = (n + cluster - 1) / cluster;
+  const size_t smem = (size_t)(2 + (adj_global ? 0 : n_words)) * range * sizeof(int);
+  cudaError_t err = set_attributes(smem, cluster);
   if (err != cudaSuccess) return (int)err;
-  grid_cc_kernel<<<S, kThreads, smem, (cudaStream_t)stream>>>(
-      acc, brow, bcol, bits, offs, n_off, scal, gx, gy, gz, kwin, max_sweeps,
-      cent, dyn, labels, nsw);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S * cluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, grid_cc_kernel, acc, brow, bcol, bits, offs, n_off, scal,
+                           gx, gy, gz, kwin, max_sweeps, range, adj_global, cent, dyn,
+                           labels, nsw);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The largest cluster (16, 8, 4, 2 or 1 CTAs) of which the card can hold
+// at least one at `smem` bytes of dynamic shared memory per CTA, written
+// to *out (a host int).
+extern "C" int motl_grid_cc_max_cluster(int smem, int* out) {
+  for (int c = kMaxCluster; c >= 1; c >>= 1) {
+    cudaError_t err = set_attributes((size_t)smem, c);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(c, 1, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n_clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&n_clusters, grid_cc_kernel, &cfg);
+    if (err == cudaSuccess && n_clusters >= 1) {
+      *out = c;
+      return 0;
+    }
+    cudaGetLastError();  // a refused size is an answer, not a fault
+  }
+  *out = 0;
+  return 0;
 }

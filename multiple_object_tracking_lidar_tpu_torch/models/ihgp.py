@@ -5,7 +5,8 @@ The builders (``dare_fixed_point``, ``IHGPGains``, ``stationary_gains``,
 ``smoother_weights``, ``smoother_weights_xy``) are copies of
 ``multiple_object_tracking_lidar_tpu/models/ihgp.py`` (numpy + scipy, run
 once on the host in f64; the JAX package cannot be imported without JAX).
-``ihgp_apply_weights`` is the PyTorch port of the per-frame device step.
+The per-frame apply of the weights is the track step's
+(``ops/track_cuda.py``: ``smoother_parts``, ``velocity_pass`` and K4).
 The scan forms and the learning-mode recursions are not ported yet
 (ROADMAP).
 """
@@ -15,7 +16,6 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-import torch
 from scipy.linalg import expm as _expm
 
 from multiple_object_tracking_lidar_tpu_torch.models.matern32 import Matern32SSM
@@ -199,15 +199,3 @@ def smoother_weights_xy(
         k: np.stack([np.asarray(wx[k], dtype), np.asarray(wy[k], dtype)])
         for k in wx
     }
-
-
-def ihgp_apply_weights(y: torch.Tensor, m0: torch.Tensor, w: dict):
-    """Batched closed-form smoother: y (K, 2, L), m0 (K, 2, 2) ->
-    (eft_last (K, 2), m_carry (K, 2, 2))."""
-    eft_last = torch.einsum("kal,al->ka", y, w["Wy"][:, -1, :]) + torch.einsum(
-        "kas,as->ka", m0, w["Wm"][:, -1, :]
-    )
-    m_carry = torch.einsum("kal,asl->kas", y, w["My"]) + torch.einsum(
-        "kas,ats->kat", m0, w["Mm"]
-    )
-    return eft_last, m_carry

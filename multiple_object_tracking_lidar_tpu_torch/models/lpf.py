@@ -14,9 +14,13 @@ import torch
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32
 
 
+def lpf_coefficients(lpf_tau: float, dt_gp: float) -> tuple[float, float]:
+    """(tau / (tau + dt), dt / (tau + dt)) as f32 values, as JAX applies
+    Python floats to f32 arrays."""
+    return f32(lpf_tau / (lpf_tau + dt_gp)), f32(dt_gp / (lpf_tau + dt_gp))
+
+
 def lpf_pos(windows: torch.Tensor, lpf_tau: float, dt_gp: float) -> torch.Tensor:
-    """windows (K, L, C), x,y leading -> (K, 2) filtered x,y positions.
-    The coefficients are f32, as JAX applies Python floats to f32 arrays."""
-    a = f32(lpf_tau / (lpf_tau + dt_gp))
-    b = f32(dt_gp / (lpf_tau + dt_gp))
+    """windows (K, L, C), x,y leading -> (K, 2) filtered x,y positions."""
+    a, b = lpf_coefficients(lpf_tau, dt_gp)
     return a * windows[:, -2, :2] + b * windows[:, -1, :2]

@@ -8,10 +8,14 @@ track (registration order) whose last position is within ``id_threshold``
 (strict <, 2-D); a miss registers a new track whose window is filled with
 the detection.  The reference's quirks stay: greedy first match, no claimed
 set, a track registered earlier in the frame can be matched later in it.
-The decisions run in K4 (``ops/assign_cuda.py``); the (K, L, 4) windows
-and GP carries are then rebuilt in closed form here.  Deviation kept from
-the JAX package: a registration that finds every slot alive is dropped and
-counted in ``overflow``.
+This is the plain route of the track step (``ops/track_cuda.py::
+track_step_plain``): the decisions run in K4's plain version
+(``ops/assign_cuda.py::assoc_scan_plain``, device-agnostic torch that
+reads each detection's decision on the host), and the (K, L, 4) windows
+and GP carries are then rebuilt in closed form here.  On the card within
+K4's bounds the kernel (``csrc/assign.cu``) does both in one launch.
+Deviation kept from the JAX package: a registration that finds every slot
+alive is dropped and counted in ``overflow``.
 """
 
 from __future__ import annotations
@@ -20,8 +24,8 @@ from typing import NamedTuple
 
 import torch
 
-from multiple_object_tracking_lidar_tpu_torch.ops.assign_cuda import assoc_scan
-from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32
+from multiple_object_tracking_lidar_tpu_torch.ops.assign_cuda import assoc_scan_plain
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, true_div
 from multiple_object_tracking_lidar_tpu_torch.tracker.state import TrackBank
 
 
@@ -50,7 +54,7 @@ def _interp_backfill(w: torch.Tensor, det: torch.Tensor, dt_gp: float) -> torch.
     dt32 = f32(dt_gp)
     last = w[:, L - 1]
     gap = det[:, 3] - last[:, 3]
-    lost = torch.round(gap / dt32).to(torch.int64) - 1
+    lost = torch.round(true_div(gap, dt32)).to(torch.int64) - 1
     lost_c = torch.clamp(lost, min=1)   # guard division; caller gates lost >= 1
     ks = torch.arange(L, device=w.device)[None, :]
     src = ks + lost[:, None]
@@ -142,7 +146,7 @@ def associate_and_update(
         dim=1,
     )
     allow = torch.as_tensor(allow_match, device=dev).to(torch.bool)
-    (alive, obj_id, birth_seq, nobj, nbirth, ovf, slots, ids, news, oks, interps) = assoc_scan(
+    (alive, obj_id, birth_seq, nobj, nbirth, ovf, slots, ids, news, oks, interps) = assoc_scan_plain(
         af0, ai0, dets.to(torch.float32), det_valid, allow,
         next_obj_num, next_birth,
         thr=id_threshold, dt_gp=dt_gp, interp_gap_factor=interp_gap_factor,

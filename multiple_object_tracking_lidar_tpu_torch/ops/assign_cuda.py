@@ -1,14 +1,16 @@
-"""K4: the order-faithful greedy association scan.
+"""K4's decision scan alone: the order-faithful greedy association.
 
-Replaces the Pallas kernel ``multiple_object_tracking_lidar_tpu/ops/
-assign_pallas.py::assoc_scan_pallas``.  CUDA source: ``csrc/assign.cu``,
-whose header says what bounds it on the H100 (latency: a sequential scan
-over at most 128 detections) and how its design answers that (one CTA of
-32 * ceil(K / 32) threads, one lane per track slot, warp-shuffle
-reductions).  The TPU kernel holds K <= 128 and the JAX package takes its
-jnp scan past that (assign.py:168-178); K4 holds a bank grown to
-``MAX_LANES`` = 1,024 slots, the largest CTA, and raises past it (built
-twice: banks of K <= 128 launch the build bounded at 128 threads).
+The TPU kernel ``multiple_object_tracking_lidar_tpu/ops/assign_pallas.py::
+assoc_scan_pallas`` makes only these decisions; on the card they are the
+first stage of the whole track step (``ops/track_cuda.py``, one launch per
+call), and ``assoc_scan`` launches that stage alone, from the same device
+function (``csrc/assign.cu::decide``), so that the decisions can be held
+against their plain version by themselves.  The tracking paths do not
+launch it: within K4's bounds they launch the whole step, past them they
+run ``assoc_scan_plain`` (the track step's plain route).  The TPU kernel
+holds K <= 128 and the JAX package takes its jnp scan past that
+(assign.py:168-178); K4 holds a bank grown to ``MAX_LANES`` = 1,024 slots,
+the largest CTA, and ``MAX_DETS`` = 128 detections, and raises past them.
 
 ``assoc_scan`` launches the kernel for CUDA tensors and runs
 ``assoc_scan_plain`` for CPU tensors; ``.launches`` counts kernel
@@ -24,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from multiple_object_tracking_lidar_tpu_torch import _build
-from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, true_div
 
 _BIG = 2**30
 MAX_LANES = 1024   # track slots: one lane each, one CTA
@@ -76,7 +78,7 @@ def assoc_scan_plain(
         id_slot = int(ai[slot, 1]) if slot >= 0 else 0
         gap = det[3] - t_slot
         do_interp = am and bool(
-            (gap > gapthr) & (torch.round(gap / dt32) - 1.0 >= 1.0)
+            (gap > gapthr) & (torch.round(true_div(gap, dt32)) - 1.0 >= 1.0)
         )
         reg = valid and not am and not bank_full
         matched = valid and am

@@ -10,8 +10,10 @@ sweeps and ``jumps_per_iter`` pointer jumps per iteration, at most
 ``max_iters`` iterations -- so its sweep count and ``saturated`` flag are
 JAX's too.  ``cluster_table_grid`` turns labels into PCL's cluster order
 and the dense (C, P, 3) member table.  The JAX package builds that table
-from one-hot matmuls (an MXU idiom); here ``bincount``, ``topk`` on the
-same unique packed key, ``gather`` and ``index_put_`` do it.  Every output
+from one-hot matmuls (an MXU idiom); here an integer ``index_add_``
+histogram (not ``bincount``, which reads its input's min and max on the
+host), ``topk`` on the same unique packed key, ``gather`` and
+``index_put_`` do it, with no host sync.  Every output
 is an integer or a copied value, so it matches the JAX package bit for bit.
 """
 
@@ -178,7 +180,8 @@ def cluster_table_grid(
     lab = torch.where(valid, labels, n)
     # component sizes: per-frame histogram of the labels (slot n = invalid)
     flat = (rows * (n + 1) + lab).reshape(-1)
-    counts = torch.bincount(flat, minlength=b * (n + 1)).reshape(b, n + 1)
+    counts = torch.zeros(b * (n + 1), dtype=torch.int64, device=dev).index_add_(
+        0, flat, torch.ones_like(flat)).reshape(b, n + 1)
     size_of = torch.gather(counts, 1, lab)
     keep = valid & (size_of >= min_size) & (size_of <= max_size)
     is_root = keep & (labels == idx)
@@ -202,7 +205,7 @@ def cluster_table_grid(
     slot_of = torch.full((b, n + 1), c_max, dtype=torch.int64, device=dev)
     ranks = torch.arange(c_max, device=dev).expand(b, c_max)
     slot_of.scatter_(1, torch.where(cluster_valid, roots, n), torch.where(cluster_valid, ranks, c_max))
-    slot_of[:, n] = c_max
+    slot_of[:, n].fill_(c_max)   # (a Python scalar assigned by index reads a host tensor)
     point_rank = torch.gather(slot_of, 1, lab)
     member = keep & (point_rank < c_max)
     point_rank = torch.where(member, point_rank, c_max)

@@ -2,11 +2,13 @@
 
 Replaces the Pallas kernels ``multiple_object_tracking_lidar_tpu/ops/
 grid_pallas.py::fused_finalize_static_cc`` and
-``fused_finalize_static_cc_stacked`` (one CUDA kernel, one CTA per frame;
-the single-frame call is S = 1).  CUDA source: ``csrc/grid_cc.cu``, whose
-header says what bounds it on the H100 (shared memory: labels and the
-packed adjacency words stay resident, 4 * (2 + n_words) bytes per cell)
-and how its design answers that.
+``fused_finalize_static_cc_stacked`` (one CUDA kernel, one thread-block
+cluster of 1-16 CTAs per frame; the single-frame call is S = 1).  CUDA
+source: ``csrc/grid_cc.cu``, whose header says what bounds it on the H100
+(latency, and shared memory: labels and the packed adjacency words stay
+resident, 4 * (2 + n_words) bytes per cell, split over the cluster's
+CTAs) and how its design answers that.  ``cluster_size`` picks the CTAs
+per frame from the cell count.
 
 Labels are the minimum flat cell index per component (``n_cells`` for
 cells that are not dynamic) -- the fixpoint every sweep schedule reaches,
@@ -22,6 +24,7 @@ launches.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -33,8 +36,18 @@ from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import (
 )
 
 SMEM_BYTES = 232448       # what one H100 block may use (227 KB)
-_STATIC_SMEM = 4096       # the kernel's static shared arrays, rounded up
-MAX_OFFSETS = 128         # 4 packed adjacency words per cell
+_STATIC_SMEM = 5120       # the kernel's static shared arrays, rounded up
+MAX_OFFSETS = 256         # 8 packed adjacency words per cell
+MAX_CLUSTER = 16          # CTAs per frame: the H100's non-portable cluster size
+# Cluster size rule (``cluster_size``): the fewest CTAs whose ranges fit
+# their shared memory and hold at most this many cells each.  On an H100
+# (700 W), scripts/micro_torch_grid_cc.py timed the headline's 5,500 cells
+# at 87.9, 57.7, 44.7, 33.6 and 58.6 us per S = 8 launch for 1, 2, 4, 8 and
+# 16 CTAs per frame: the sweeps' latency falls with the cells per CTA down
+# to ~700, and 16 x 8 CTAs no longer run at once.
+CELLS_PER_CTA = 1024
+# cells one CTA holds with only its two label buffers in shared memory
+LABEL_CELLS = (SMEM_BYTES - _STATIC_SMEM) // 8
 
 
 def kernel_offsets(dims, tol: float, leaf_xy: float, leaf_z: float):
@@ -48,18 +61,66 @@ def kernel_offsets(dims, tol: float, leaf_xy: float, leaf_z: float):
     )
 
 
-def max_kernel_cells(n_offsets: int) -> int:
-    """Largest grid K2 holds in one CTA's shared memory: two int32 label
-    buffers plus ceil(n_offsets / 32) adjacency words per cell.  This
-    replaces the TPU's VMEM-derived MAX_KERNEL_CELLS = 32768: 19,029 cells
-    with <= 32 offsets (the 0.1 m headline grid has 5,500 and 24), 11,417
-    with 74 (a 2-slab grid)."""
+def cta_cells(n_offsets: int) -> int:
+    """Cells one CTA holds in shared memory: two int32 label buffers plus
+    ceil(n_offsets / 32) adjacency words per cell -- 18,944 with <= 32
+    offsets (the 0.1 m headline grid has 5,500 cells and 24 offsets),
+    8,118 with 146 (a 0.05 m leaf over three z slabs)."""
     n_words = (n_offsets + 31) // 32
     return (SMEM_BYTES - _STATIC_SMEM) // (4 * (2 + n_words))
 
 
-def fused_cc_fits(n_cells: int, n_offsets: int) -> bool:
-    return n_offsets <= MAX_OFFSETS and n_cells <= max_kernel_cells(n_offsets)
+@functools.lru_cache(maxsize=8)
+def _device_max_cluster(index: int) -> int:
+    out = ctypes.c_int(0)
+    _build.check(_build.load().motl_grid_cc_max_cluster(SMEM_BYTES - _STATIC_SMEM,
+                                                        ctypes.addressof(out)),
+                 "motl_grid_cc_max_cluster")
+    return out.value
+
+
+def max_cluster(device=None) -> int:
+    """The most CTAs a frame's cluster may take: on a CUDA device, what
+    ``cudaOccupancyMaxActiveClusters`` grants at a full CTA's shared memory
+    (16 on the H100, with the non-portable size allowed); elsewhere the
+    H100's 16."""
+    dev = torch.device(device) if device is not None else None
+    if dev is None or dev.type != "cuda":
+        return MAX_CLUSTER
+    return _device_max_cluster(dev.index if dev.index is not None else torch.cuda.current_device())
+
+
+def max_kernel_cells(n_offsets: int, device=None) -> int:
+    """Largest grid K2 holds: a full cluster of CTAs, each with its range's
+    labels in shared memory (its adjacency words too where they fit, else
+    in a global scratch) -- 454,656 cells at 16 CTAs, whatever the
+    offsets.  This replaces the TPU's VMEM-derived MAX_KERNEL_CELLS =
+    32768."""
+    return max_cluster(device) * LABEL_CELLS
+
+
+def fused_cc_fits(n_cells: int, n_offsets: int, device=None) -> bool:
+    return n_offsets <= MAX_OFFSETS and n_cells <= max_kernel_cells(n_offsets, device)
+
+
+def cluster_size(n_cells: int, n_offsets: int, device=None) -> int:
+    """CTAs per frame for a grid of ``n_cells``: the smallest power of two
+    whose ranges of ceil(n_cells / C) cells fit one CTA's shared memory,
+    adjacency words included, and hold at most ``CELLS_PER_CTA`` cells;
+    where no cluster holds the adjacency words, the largest (its labels in
+    shared memory, the words in a global scratch: ``adjacency_in_smem``)."""
+    top = max_cluster(device)
+    per = min(cta_cells(n_offsets), CELLS_PER_CTA)
+    c = 1
+    while c < top and -(-n_cells // c) > per:
+        c *= 2
+    return c
+
+
+def adjacency_in_smem(n_cells: int, n_offsets: int, cluster: int) -> bool:
+    """True iff a CTA's range of ceil(n_cells / cluster) cells keeps its
+    adjacency words in shared memory beside its labels."""
+    return -(-n_cells // cluster) <= cta_cells(n_offsets)
 
 
 def make_scal(env, tol: float, device) -> torch.Tensor:
@@ -78,7 +139,12 @@ def _device_offsets(offsets: tuple, device: str) -> torch.Tensor:
 def fused_finalize_static_cc_stacked_plain(
     accs, scal, base_row, base_col, bits, *, dims, offsets, kwin, max_sweeps
 ):
-    """Plain PyTorch version of K2, same arithmetic order and schedule."""
+    """Plain PyTorch version of K2, same arithmetic order and schedule:
+    each iteration is one Jacobi sweep over every cell from the labels of
+    the last iteration, then one pointer jump, then the vote.  The kernel
+    runs this global schedule at every cluster size (its ranks read each
+    other's labels through distributed shared memory), so one plain
+    version stands for them all."""
     gx, gy, gz = dims
     n = gx * gy * gz
     s = accs.shape[0]
@@ -139,22 +205,28 @@ def fused_finalize_static_cc_stacked(
     leaf_z: float,
     kwin: int,
     max_sweeps: int | None = None,
+    cluster: int | None = None,
 ):
     """Returns (cent (S, 3, n) f32, dyn (S, n) bool, labels (S, n) i32,
     n_sweeps (S,) i32, saturated (S,) i32).  ``max_sweeps=None`` caps the
-    iterations at the grid-diameter bound 2 (gx + gy + gz)."""
+    iterations at the grid-diameter bound 2 (gx + gy + gz); ``cluster=None``
+    takes ``cluster_size``'s CTAs per frame (any size gives the same
+    results; the plain version on a CPU tensor has no CTAs and ignores
+    it)."""
     gx, gy, gz = dims
     n = gx * gy * gz
     if max_sweeps is None:
         max_sweeps = 2 * (gx + gy + gz)
     offsets = kernel_offsets(dims, tol, leaf_xy, leaf_z)
+    dev = accs_cm.device
     if accs_cm.device.type == "cpu":
         return fused_finalize_static_cc_stacked_plain(
             accs_cm, scal, base_row, base_col, bits,
             dims=dims, offsets=offsets, kwin=kwin, max_sweeps=max_sweeps,
         )
+    if cluster is None:
+        cluster = cluster_size(n, len(offsets), dev)
     s = accs_cm.shape[0]
-    dev = accs_cm.device
     if accs_cm.shape != (s, 4, n) or accs_cm.dtype != torch.float32:
         raise ValueError(f"accs must be (S, 4, {n}) float32, got {tuple(accs_cm.shape)} {accs_cm.dtype}")
     for name, t in (("base_row", base_row), ("base_col", base_col), ("bits", bits)):
@@ -162,11 +234,15 @@ def fused_finalize_static_cc_stacked(
             raise ValueError(f"{name} must be ({n},) int32 on {dev}")
     if scal.shape != (6,) or scal.dtype != torch.float32 or scal.device != dev:
         raise ValueError(f"scal must be (6,) float32 on {dev}")
-    if not fused_cc_fits(n, len(offsets)):
+    if cluster not in (1, 2, 4, 8, 16) or cluster > max_cluster(dev):
+        raise ValueError(f"cluster must be a power of two <= {max_cluster(dev)}, got {cluster}")
+    rng = -(-n // cluster)
+    if len(offsets) > MAX_OFFSETS or rng > LABEL_CELLS:
         raise ValueError(
             f"{n} grid cells with {len(offsets)} stencil offsets exceed K2's "
-            f"shared-memory residency ({max_kernel_cells(len(offsets))} cells); "
-            "a multi-CTA global-memory variant is still to be ported (ROADMAP)"
+            f"shared-memory residency ({LABEL_CELLS} cells' labels per CTA, "
+            f"{cluster} CTAs; at most {max_kernel_cells(len(offsets), dev)} cells "
+            f"and {MAX_OFFSETS} offsets)"
         )
     accs_cm = accs_cm.contiguous()
     offs = _device_offsets(offsets, str(dev))
@@ -174,13 +250,17 @@ def fused_finalize_static_cc_stacked(
     dyn = torch.empty((s, n), dtype=torch.bool, device=dev)
     labels = torch.empty((s, n), dtype=torch.int32, device=dev)
     nsw = torch.empty((s, 2), dtype=torch.int32, device=dev)
+    ins = [t.contiguous() for t in (base_row, base_col, bits)]
+    n_words = (len(offsets) + 31) // 32
+    scratch = (None if adjacency_in_smem(n, len(offsets), cluster) else
+               torch.empty((s * cluster * n_words * rng,), dtype=torch.int32, device=dev))
     lib = _build.load()
     err = lib.motl_grid_cc(
-        accs_cm.data_ptr(), base_row.contiguous().data_ptr(),
-        base_col.contiguous().data_ptr(), bits.contiguous().data_ptr(),
+        accs_cm.data_ptr(), *(t.data_ptr() for t in ins),
         offs.data_ptr(), len(offsets), scal.data_ptr(), s, gx, gy, gz, kwin,
-        max_sweeps, cent.data_ptr(), dyn.data_ptr(), labels.data_ptr(),
-        nsw.data_ptr(), _build.stream_ptr(dev),
+        max_sweeps, cluster, None if scratch is None else scratch.data_ptr(),
+        cent.data_ptr(), dyn.data_ptr(), labels.data_ptr(), nsw.data_ptr(),
+        _build.stream_ptr(dev),
     )
     _build.check(err, "motl_grid_cc")
     fused_finalize_static_cc_stacked.launches += 1

@@ -1,0 +1,280 @@
+"""K4: the whole track step -- association, window updates, the chained
+IHGP velocity passes, LPF positions, expiry -- in one launch.
+
+Replaces the Pallas kernel ``multiple_object_tracking_lidar_tpu/ops/
+assign_pallas.py::assoc_scan_pallas`` and, around it, the rest of the JAX
+``track_step`` (tracker/pipeline.py:942-1100), which XLA compiles into one
+program with it.  CUDA source: ``csrc/assign.cu``, whose header says what
+bounds it on the H100 (latency: a sequential scan over at most 128
+detections, then a few hundred flops per updated track) and how its design
+answers that (one CTA per track bank, one lane per slot, the S frames of a
+call scanned in order inside the CTA; no host sync).
+
+``track_frames`` takes B banks (a leading stream axis on the state) and S
+frames per bank: (B, S, D, 4) detections, (B, S, D) valid flags, (B, S)
+stamps.  ``bind_env`` launches it at 1 x 1, ``bind_env_multi`` at 1 x S
+and the fleet at B x 1 (``tracker/pipeline.py::track_batch``).  It
+launches the kernel for CUDA tensors and runs ``track_frames_plain`` for
+CPU tensors; ``.launches`` counts kernel launches.  Both return (the state
+after the S frames, ``TrackOutputs`` stacked (B, S, ...)).
+
+``track_step_plain`` is the plain version of one bank and one frame: the
+decisions (``assign_cuda.assoc_scan_plain``), the closed-form window
+updates (``ops/assign.py``), and the filter with every f32 reduction
+spelled as an ascending loop started from its first term -- the order the
+kernel sums in, so the two agree bit for bit.  It is the CPU route and,
+past the kernel's bounds (K > 1,024 slots or D > 128 detections) or under
+``assoc_backend="jnp"``, the card's route (``tracker/pipeline.py``).  It
+reads the duplicate-pass count on the host once per frame
+(``track_step_plain.host_syncs``); the kernel never does.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from multiple_object_tracking_lidar_tpu_torch import _build
+from multiple_object_tracking_lidar_tpu_torch.models.lpf import lpf_coefficients, lpf_pos
+from multiple_object_tracking_lidar_tpu_torch.ops.assign import associate_and_update
+from multiple_object_tracking_lidar_tpu_torch.ops.assign_cuda import MAX_DETS, MAX_LANES, _consts
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, true_div
+from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
+    TrackBank,
+    TrackerState,
+    map_state,
+    stack_states,
+)
+
+
+class TrackOutputs(NamedTuple):
+    """The FrameOutput fields the track step computes (the others pass
+    perception through)."""
+
+    publish: torch.Tensor         # bool
+    valid: torch.Tensor           # (D,) bool
+    obj_id: torch.Tensor          # (D,) int32
+    pos: torch.Tensor             # (D, 2) f32
+    vel: torch.Tensor             # (D, 2) f32
+    new_track: torch.Tensor       # (D,) bool
+    n_alive: torch.Tensor         # int32
+    overflow: torch.Tensor        # int32
+    dup_saturated: torch.Tensor   # int32, 0: every multiplicity runs exactly
+    assoc_saturated: torch.Tensor  # int32, 0 for greedy
+
+
+def kernel_fits(k: int, d: int) -> bool:
+    """True iff K4 holds a bank of ``k`` slots and ``d`` detection slots."""
+    return 1 <= k <= MAX_LANES and 1 <= d <= MAX_DETS
+
+
+def _asc_sum(terms):
+    """Ascending f32 sum, started from the first term (the kernel's order)."""
+    acc = terms[0]
+    for x in terms[1:]:
+        acc = acc + x
+    return acc
+
+
+def smoother_parts(window: torch.Tensor, w_vel: dict, dt_gp: float):
+    """The pass-independent parts of the velocity smoother on a (K, L, 4)
+    window: (vmean (K, 2), ey (K, 2) = sum_l y_l Wy[:, -1, l], my (K, 2, 2)
+    = sum_l y_l My[:, :, l]), y the mean-centred window velocities
+    (cpp:887-898) -- each sum ascending in l."""
+    vels = true_div(window[:, 1:, :2] - window[:, :-1, :2], f32(dt_gp))  # (K, L-1, 2)
+    n = vels.shape[1]
+    vmean = true_div(_asc_sum([vels[:, l] for l in range(n)]), f32(n))
+    y = vels - vmean[:, None, :]
+    wy, my_w = w_vel["Wy"][:, -1, :], w_vel["My"]                      # (2, L-1), (2, 2, L-1)
+    ey = _asc_sum([y[:, l] * wy[:, l] for l in range(n)])
+    my = _asc_sum([y[:, l, :, None] * my_w[:, :, l] for l in range(n)])
+    return vmean, ey, my
+
+
+def velocity_pass(m: torch.Tensor, vmean, ey, my, w_vel: dict, vmax: float):
+    """One IHGP velocity pass from the carry m (K, 2, 2): (clamped velocity
+    (K, 2), next carry (K, 2, 2)) -- the JAX ``ihgp_apply_weights`` with
+    the y-parts given, then the NaN-preserving clamp (cpp:649-654)."""
+    wm, mm = w_vel["Wm"][:, -1, :], w_vel["Mm"]                        # (2, 2), (2, 2, 2)
+    em = m[:, :, 0] * wm[:, 0] + m[:, :, 1] * wm[:, 1]
+    vel = (ey + em) + vmean
+    vel = torch.where(vel > vmax, vmax, torch.where(vel < -vmax, -vmax, vel))
+    m_next = my + (m[:, :, None, 0] * mm[:, :, 0] + m[:, :, None, 1] * mm[:, :, 1])
+    return vel, m_next
+
+
+def track_step_plain(
+    state: TrackerState, dets: torch.Tensor, det_valid: torch.Tensor, t: torch.Tensor, *,
+    config, gains_xy: dict,
+) -> tuple[TrackerState, TrackOutputs]:
+    """Plain PyTorch version of K4 on one bank and one frame: dets (D, 4),
+    det_valid (D,), t scalar (port of the JAX track_step, greedy
+    association + LPF positions)."""
+    L = config.data_length
+    dt_gp = config.dt_gp
+    any_det = det_valid.any()
+    was_init = state.initialized
+    steady = was_init & any_det   # publish/filter/expire this frame (cpp:163+)
+
+    assoc = associate_and_update(
+        state.bank, state.next_obj_num, state.next_birth, dets, det_valid,
+        config.id_threshold, dt_gp, config.interp_gap_factor,
+        allow_match=was_init,  # first frame registers without gating (cpp:153-156)
+    )
+    bank = assoc.bank
+    k_max = bank.alive.shape[0]
+    w_vel = gains_xy["W_vel"]
+    vmean, ey, my = smoother_parts(bank.window, w_vel, dt_gp)
+    pos = lpf_pos(bank.window, config.lpf_tau, dt_gp)                  # (cpp:638, 824-833)
+    vmax = f32(config.max_velocity)
+
+    # The reference runs callIHGP once PER matched detection (cpp:629-659):
+    # a track matched d times this frame runs d chained passes and each
+    # duplicate publishes the output of its own pass.
+    det_active = assoc.det_ok & steady
+    slot = assoc.det_slot.to(torch.int64)
+    onehot = (slot[:, None] == torch.arange(k_max, device=dets.device)[None, :]) & det_active[:, None]
+    mult = onehot.sum(0)                                               # (K,)
+    ordinal = torch.gather(torch.cumsum(onehot.to(torch.int64), 0) - 1, 1, slot[:, None])[:, 0]
+    max_mult = int(mult.max())  # the one host sync per frame
+    track_step_plain.host_syncs += 1
+
+    m = bank.m0
+    m_fin = bank.m0
+    pos_det = dets[:, :2] * 0  # as the JAX init: NaN-preserving
+    vel_det = dets[:, :2] * 0
+    for q in range(max_mult):
+        vel, m_next = velocity_pass(m, vmean, ey, my, w_vel, vmax)
+        selp = (ordinal == q)[:, None]
+        pos_det = torch.where(selp, pos[slot], pos_det)
+        vel_det = torch.where(selp, vel[slot], vel_det)
+        m_fin = torch.where((mult == q + 1)[:, None, None], m_next, m_fin)
+        m = m_next
+
+    # ---- expiry (cpp:545-584)
+    spin = state.spin_counter + steady.to(torch.int32)
+    do_prune = spin > int(config.prune_period * config.frequency)
+    stale = (t.to(torch.float32) - bank.window[:, L - 1, 3]) > f32(config.prune_period)
+    prune = do_prune & steady
+    alive = torch.where(prune, bank.alive & ~stale, bank.alive)
+    spin = torch.where(prune, torch.zeros_like(spin), spin)
+
+    new_state = TrackerState(
+        bank=bank._replace(alive=alive, m0=m_fin),
+        next_obj_num=assoc.next_obj_num,
+        next_birth=assoc.next_birth,
+        spin_counter=spin,
+        initialized=was_init | any_det,
+    )
+    out = TrackOutputs(
+        publish=steady,
+        valid=assoc.det_ok & steady,
+        obj_id=assoc.det_id,
+        pos=pos_det,
+        vel=vel_det,
+        new_track=assoc.det_new,
+        n_alive=alive.sum().to(torch.int32),
+        overflow=assoc.overflow,
+        dup_saturated=(mult < 0).sum().to(torch.int32),
+        assoc_saturated=assoc.assoc_saturated,
+    )
+    return new_state, out
+
+
+track_step_plain.host_syncs = 0
+
+
+def track_frames_plain(state, dets, det_valid, t, *, config, gains_xy):
+    """Plain version of ``track_frames``: ``track_step_plain`` bank by bank,
+    frame by frame."""
+    n_b, n_s = det_valid.shape[:2]
+    states, rows = [], []
+    for bi in range(n_b):
+        st = map_state(lambda x: x[bi], state)
+        outs = []
+        for si in range(n_s):
+            st, o = track_step_plain(st, dets[bi, si], det_valid[bi, si], t[bi, si],
+                                     config=config, gains_xy=gains_xy)
+            outs.append(o)
+        states.append(st)
+        rows.append(TrackOutputs(*(torch.stack(f) for f in zip(*outs))))
+    return stack_states(states), TrackOutputs(*(torch.stack(f) for f in zip(*rows)))
+
+
+def track_frames(
+    state: TrackerState,      # every field with a leading (B,) bank axis
+    dets: torch.Tensor,       # (B, S, D, 4) f32
+    det_valid: torch.Tensor,  # (B, S, D) bool
+    t: torch.Tensor,          # (B, S) f32
+    *,
+    config,
+    gains_xy: dict,
+) -> tuple[TrackerState, TrackOutputs]:
+    """K4 on CUDA tensors, ``track_frames_plain`` on CPU tensors."""
+    if dets.device.type == "cpu":
+        return track_frames_plain(state, dets, det_valid, t, config=config, gains_xy=gains_xy)
+    bank = state.bank
+    n_b, n_s, d = det_valid.shape
+    k, L = bank.window.shape[1], bank.window.shape[2]
+    dev = dets.device
+    if not kernel_fits(k, d):
+        raise ValueError(
+            f"K4 holds 1 <= K <= {MAX_LANES} track slots (one lane per slot) and "
+            f"1 <= D <= {MAX_DETS} detections (got K={k}, D={d}); the track step's "
+            "plain route runs past them (tracker/pipeline.py::track_batch)"
+        )
+    if dets.shape != (n_b, n_s, d, 4) or dets.dtype != torch.float32 or t.shape != (n_b, n_s):
+        raise ValueError(f"dets must be ({n_b}, {n_s}, {d}, 4) float32 and t ({n_b}, {n_s})")
+    if bank.window.shape != (n_b, k, L, 4) or bank.window.dtype != torch.float32 or L < 2:
+        raise ValueError(f"window must be ({n_b}, {k}, L >= 2, 4) float32")
+    w = gains_xy["W_vel"]
+    thr32, gapthr, dt32 = _consts(config.id_threshold, config.dt_gp, config.interp_gap_factor)
+    i32 = dict(dtype=torch.int32, device=dev)
+    u8 = dict(dtype=torch.bool, device=dev)
+    new = TrackerState(
+        bank=TrackBank(
+            alive=torch.empty((n_b, k), **u8), obj_id=torch.empty((n_b, k), **i32),
+            birth_seq=torch.empty((n_b, k), **i32),
+            window=torch.empty((n_b, k, L, 4), dtype=torch.float32, device=dev),
+            m0=torch.empty((n_b, k, 2, 2), dtype=torch.float32, device=dev),
+        ),
+        next_obj_num=torch.empty((n_b,), **i32), next_birth=torch.empty((n_b,), **i32),
+        spin_counter=torch.empty((n_b,), **i32), initialized=torch.empty((n_b,), **u8),
+    )
+    publish = torch.empty((n_b, n_s), **u8)
+    valid = torch.empty((n_b, n_s, d), **u8)
+    new_track = torch.empty((n_b, n_s, d), **u8)
+    obj_id = torch.empty((n_b, n_s, d), **i32)
+    pos = torch.empty((n_b, n_s, d, 2), dtype=torch.float32, device=dev)
+    vel = torch.empty((n_b, n_s, d, 2), dtype=torch.float32, device=dev)
+    counts = torch.empty((n_b, n_s, 4), **i32)
+    # inputs made contiguous first and held until the launch: a temporary
+    # freed before it could hand its memory to the next one
+    ins = [x.contiguous() for x in (
+        dets, det_valid.to(torch.bool), t.to(torch.float32), bank.alive, bank.obj_id,
+        bank.birth_seq, bank.window, bank.m0, state.next_obj_num, state.next_birth,
+        state.spin_counter, state.initialized, w["Wy"], w["Wm"], w["My"], w["Mm"])]
+    nb = new.bank
+    err = _build.load().motl_track_step(
+        *(x.data_ptr() for x in ins),
+        n_b, n_s, k, d, L,
+        thr32, gapthr, dt32, f32(config.max_velocity), *lpf_coefficients(config.lpf_tau, config.dt_gp),
+        f32(config.prune_period), int(config.prune_period * config.frequency),
+        nb.alive.data_ptr(), nb.obj_id.data_ptr(), nb.birth_seq.data_ptr(),
+        nb.window.data_ptr(), nb.m0.data_ptr(), new.next_obj_num.data_ptr(),
+        new.next_birth.data_ptr(), new.spin_counter.data_ptr(), new.initialized.data_ptr(),
+        publish.data_ptr(), valid.data_ptr(), obj_id.data_ptr(), pos.data_ptr(),
+        vel.data_ptr(), new_track.data_ptr(), counts.data_ptr(),
+        _build.stream_ptr(dev),
+    )
+    _build.check(err, "motl_track_step")
+    track_frames.launches += 1
+    return new, TrackOutputs(
+        publish=publish, valid=valid, obj_id=obj_id, pos=pos, vel=vel, new_track=new_track,
+        n_alive=counts[..., 0], overflow=counts[..., 1], dup_saturated=counts[..., 2],
+        assoc_saturated=counts[..., 3],
+    )
+
+
+track_frames.launches = 0

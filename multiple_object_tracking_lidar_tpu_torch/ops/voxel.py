@@ -50,6 +50,14 @@ def f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def true_div(x: torch.Tensor, v: float) -> torch.Tensor:
+    """``x / v`` by IEEE division on every device.  PyTorch's CUDA divide by
+    a Python scalar multiplies by the scalar's rounded reciprocal instead
+    (off by an ulp for ~14% of f32 values); a 0-dim tensor on x's device
+    takes the true division, as the CPU and the kernels do."""
+    return x / torch.tensor(v, dtype=x.dtype, device=x.device)
+
+
 def _quantize(points: torch.Tensor, leaf_xy: float, leaf_z: float):
     """Per-axis int32 voxel indices floor(p * f32(1/leaf)): f32
     multiply-by-inverse + floor, as PCL computes them, whatever the compute

@@ -70,7 +70,9 @@ def voxel_accumulate_runs_stacked(
     tgt = torch.where(is_last & (ks < nc), frame * nc + ks, dump).reshape(-1)
     acc = torch.zeros((dump + 1, 4), dtype=torch.float32, device=dev)
     acc[:, :3].index_put_((tgt,), torch.stack([tx, ty, tz], dim=-1).reshape(-1, 3))
-    cnt = torch.bincount(torch.where(ok, frame * nc + lin, dump).reshape(-1), minlength=dump + 1)
+    cell = torch.where(ok, frame * nc + lin, dump).reshape(-1)
+    # an integer histogram without bincount, which reads min and max on the host
+    cnt = torch.zeros(dump + 1, dtype=torch.int64, device=dev).index_add_(0, cell, torch.ones_like(cell))
     acc[:, 3] = cnt.to(torch.float32)
     out = acc[:dump].reshape(s, nc, 4).permute(0, 2, 1).contiguous()
     npts = (mask.reshape(s, -1) != 0).sum(dim=1).to(torch.int32)

@@ -18,21 +18,25 @@ chosen as the JAX package chooses them (sharding.py:88-107):
 
 * **kernel fleet** (``voxel_mode="onehot"`` + ``cluster_backend="grid"``):
   the local point shard padded to a multiple of 512 with masked rows, K1's
-  or K5's histogram alone (``accumulate_*_stacked_raw``), ``all_reduce``
-  of the int32 digit sums and of the point counts over the space group --
+  or K5's histogram alone (``accumulate_*_stacked_raw``; past their 14,528
+  cells the plain integer digit sums, ``voxel_grid.digit_sums_stacked``),
+  ``all_reduce`` of the int32 digit sums and of the point counts over the
+  space group --
   exactly two collectives, and the integer sums make the result the same
   bits at every space factor -- one finalize, then the dense grid's
   stacked perception over the local streams (K2, the batched cluster
-  table, one K3 launch) and ``track_step`` (K4) per stream.  Exact mode at
+  table, one K3 launch) and one K4 launch for every local stream's track
+  step (``track_batch`` at B x 1, one CTA per stream).  Exact mode at
   a leaf too coarse for two digits accumulates the bf16x3 sums (K6) and
   all-reduces them in f32 (sharding.py:210-226).
 * **vmap fleet** (every other config): the f32 scatter sums (K6's f32
   mode) whatever ``voxel_mode`` says, an f32 all-reduce, and perception
   from the accumulator with no per-cell static table -- on a grid config
   the stencil CC with the per-point map lookup, since the JAX program's map
-  is a tracer there (sharding.py:316-333).  Association stays K4, whose
-  decisions equal the jnp associator the JAX vmap fleet pins; an explicit
-  ``assoc_backend="pallas"`` raises, as it does there.
+  is a tracer there (sharding.py:316-333).  The track step is the same
+  B x 1 K4 launch, whose decisions equal the jnp associator the JAX vmap
+  fleet pins; an explicit ``assoc_backend="pallas"`` raises, as it does
+  there.
 
 Collectives go through ``torch.distributed`` on the mesh's process groups:
 NCCL on the card, gloo on the CPU.
@@ -47,14 +51,14 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import MapEnv
+from multiple_object_tracking_lidar_tpu_torch.ops.track_cuda import TrackOutputs
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import voxel_accumulate_stacked
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid import (
     _v3_leaf_ok,
+    digit_sums_stacked,
     voxel_accumulate_stacked as onehot_accumulate_stacked,
 )
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
-    accumulate_exact_stacked_raw,
-    accumulate_fast_stacked_raw,
     finalize_exact_stacked,
     finalize_fast_stacked,
 )
@@ -62,18 +66,13 @@ from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import (
     GridPlan,
     Perception,
     Tracker,
+    _frame_output,
     _perceive_batch_from_dense_acc,
-    _row,
     perceive_from_acc_stacked,
     resolve_device,
-    track_step,
+    track_batch,
 )
-from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
-    FrameOutput,
-    TrackerState,
-    stack_states,
-    state_row,
-)
+from multiple_object_tracking_lidar_tpu_torch.tracker.state import TrackerState
 
 PAD_TO = 512  # the kernel fleet pads each local point shard to this multiple
 
@@ -200,12 +199,10 @@ class ShardedTracker:
         else:
             p = self._vmap_perceive(pts, msk, t, plan)
         cfg, gains = self.tracker.config, self.tracker.gains_xy
-        states, outs = [], []
-        for s in range(pts.shape[0]):
-            st, out = track_step(state_row(state, s), _row(p, s), config=cfg, gains_xy=gains)
-            states.append(st)
-            outs.append(out)
-        return stack_states(states), FrameOutput(*(torch.stack(f) for f in zip(*outs)))
+        # every local stream's track step in one K4 launch (B banks x 1 frame)
+        st, o = track_batch(state, p.dets[:, None], p.det_valid[:, None], p.t[:, None],
+                            config=cfg, gains_xy=gains)
+        return st, _frame_output(TrackOutputs(*(f[:, 0] for f in o)), p)
 
     def _kernel_perceive(self, pts, msk, t, plan) -> Perception:
         cfg = self.tracker.config
@@ -216,11 +213,9 @@ class ShardedTracker:
             if pad:
                 pts = torch.cat([pts, pts.new_zeros((b, pad, 3))], dim=1)
                 msk = torch.cat([msk, msk.new_zeros((b, pad))], dim=1)
-            if cfg.voxel_quant == "fast":
-                raw_fn, finalize = accumulate_fast_stacked_raw, finalize_fast_stacked
-            else:
-                raw_fn, finalize = accumulate_exact_stacked_raw, finalize_exact_stacked
-            raw, n_pts = raw_fn(pts.contiguous(), msk, cfg.scene, leaf, leaf_z)
+            finalize = finalize_fast_stacked if cfg.voxel_quant == "fast" else finalize_exact_stacked
+            raw, n_pts = digit_sums_stacked(pts.contiguous(), msk, cfg.scene, leaf, leaf_z,
+                                            cfg.voxel_quant)
             dist.all_reduce(raw, group=self._space)
             dist.all_reduce(n_pts, group=self._space)
             accs = finalize(raw, cfg.scene, leaf, leaf_z)

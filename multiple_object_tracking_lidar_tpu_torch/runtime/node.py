@@ -17,6 +17,10 @@ pads the bank and rebinds, as the JAX node does (node.py:131-136,
 ``checkpoint_extra`` and ``resume`` pair with ``runtime/checkpoint.py``; a
 grown bank resumes grown.
 
+``keep_outputs=True`` keeps a host copy of every frame's ``FrameOutput``
+in ``outputs`` (off by default: the JAX node keeps only ``stats``);
+``run(frames, realtime=True)`` paces a replay at ``config.frequency``.
+
 Not ported yet (ROADMAP): online hyperparameter learning
 (``param_fix=False``) raises ``NotImplementedError``.
 """
@@ -74,6 +78,7 @@ class TrackerNode:
         on_obstacles: Callable | None = None,
         on_markers: Callable | None = None,
         on_pose: Callable | None = None,
+        keep_outputs: bool = False,
     ):
         if not config.param_fix:
             raise NotImplementedError(
@@ -93,7 +98,11 @@ class TrackerNode:
         self.on_markers = on_markers
         self.on_pose = on_pose
         self.stats: list[FrameStats] = []
-        self.outputs: list[FrameOutput] = []   # host copies, one per frame
+        # host copies of every frame's FrameOutput, kept only when asked
+        # (a node left running would grow without bound; the JAX node keeps
+        # only ``stats``)
+        self.keep_outputs = keep_outputs
+        self.outputs: list[FrameOutput] = []
         self.n_growths = 0                      # bank doublings on overflow
 
     # -- map callback (cpp:235-251) -----------------------------------------
@@ -130,7 +139,8 @@ class TrackerNode:
         self.state, out = self._bound_step(self.state, frame)
         out = FrameOutput(*(f.cpu().numpy() for f in out))
         wall_ms = 1e3 * (time.perf_counter() - t0)
-        self.outputs.append(out)
+        if self.keep_outputs:
+            self.outputs.append(out)
 
         if int(out.overflow) > 0 and self.config.grow_bank_on_overflow:
             self._grow_bank()
@@ -239,6 +249,19 @@ class TrackerNode:
             self.colors[self._known_ids] = (float(r), float(g), float(b), 0.8)
             self._known_ids += 1
 
-    def run(self, frames):
-        """Drive the node from any iterable of PointCloud2 frames."""
-        return [self.on_pointcloud(msg) for msg in frames]
+    # -- fixed-rate replay loop (spinNode, cpp:117-121) ----------------------
+    def run(self, frames, realtime: bool = False):
+        """Drive the node from any iterable of PointCloud2 frames (a "bag");
+        with ``realtime``, each frame's callback is padded with a sleep to
+        one period of ``config.frequency``, as the JAX node paces a replay
+        (runtime/node.py:328-339)."""
+        results = []
+        period = 1.0 / self.config.frequency
+        for msg in frames:
+            t0 = time.perf_counter()
+            results.append(self.on_pointcloud(msg))
+            if realtime:
+                leftover = period - (time.perf_counter() - t0)
+                if leftover > 0:
+                    time.sleep(leftover)
+        return results

@@ -17,8 +17,8 @@ one of two perception paths:
   (bf16x3: exact mode at a coarse leaf or when no point block tiles N) or
   the sorted runs with K7.  ``grid_cc`` picks the CC as the JAX package
   does on the TPU: "auto" and "pallas" take K2 where the map has a per-cell
-  static table and the grid fits K2; otherwise ("jnp", a rotated or coarse
-  map, a large grid) the finalize, the static drop (``remove_static_cells``
+  static table and the grid fits K2 (454,656 cells); otherwise ("jnp", a
+  rotated or coarse map, a larger grid) the finalize, the static drop (``remove_static_cells``
   with a table, the per-point map lookup ``remove_static`` without one) and
   the stencil CC (``ops/cluster_grid.py::connected_components_grid``) run in
   plain torch, and an explicit "pallas" that K2 cannot honour raises;
@@ -30,19 +30,21 @@ one of two perception paths:
     compact_points -> CC (pallas: K8; jnp: K8's adjacency + pointer-jump
     sweeps) -> cluster postprocess -> K3 pair stats -> circumcenter
 
-and then ``track_step`` (K4 inside).  Every kernel lives in
-``ops/*_cuda.py`` or ``ops/cluster_pallas.py``.  Perception is stateless,
-so it runs on S stacked frames at once: ``bind_env`` is S = 1 and
-``bind_env_multi`` perceives its S frames in one pass (each frame's result
-is the one ``bind_env`` computes -- stacked frames never mix), then runs
-``track_step`` frame by frame.  PyTorch runs eagerly, so frames stay on the
-device between stages; one host sync per frame remains, the duplicate-pass
-count in ``track_step`` (``track_step.host_syncs``), plus one per
-``ops/cluster.py::CHECK_EVERY`` sweeps of the jnp CC and one per iteration
-of the stencil CC.  ``perceive_from_acc`` and ``step_from_voxel_acc`` start
-after the accumulator, as the fleet's vmap form does (``parallel/
-sharding.py``).  Other configurations raise ``NotImplementedError`` naming
-their ROADMAP item.
+and then the track step: K4 (``ops/track_cuda.py``), the whole step in
+one launch, or past K4's bounds its plain route (``track_route``).  Every
+kernel lives in ``ops/*_cuda.py`` or ``ops/cluster_pallas.py``.
+Perception is stateless, so it runs on S stacked frames at once:
+``bind_env`` is S = 1 and ``bind_env_multi`` perceives its S frames in one
+pass (each frame's result is the one ``bind_env`` computes -- stacked
+frames never mix), then one K4 launch scans their track steps in order.
+PyTorch runs eagerly, so frames stay on the device between stages; the
+dense-grid paths make no host sync, the jnp CC one per
+``ops/cluster.py::CHECK_EVERY`` sweeps, the stencil CC one per iteration
+and K4's plain route one per frame (``track_step_plain.host_syncs``).
+``perceive_from_acc`` and ``step_from_voxel_acc`` start after the
+accumulator, as the fleet's vmap form does (``parallel/sharding.py``).
+Other configurations raise ``NotImplementedError`` naming their ROADMAP
+item.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a CUDA device they raise rather than fall back.
@@ -57,13 +59,10 @@ import torch
 
 from multiple_object_tracking_lidar_tpu_torch.config import TrackerConfig
 from multiple_object_tracking_lidar_tpu_torch.models.ihgp import (
-    ihgp_apply_weights,
     smoother_weights_xy,
     stationary_gains,
 )
-from multiple_object_tracking_lidar_tpu_torch.models.lpf import lpf_pos
 from multiple_object_tracking_lidar_tpu_torch.models.matern32 import matern32_from_log
-from multiple_object_tracking_lidar_tpu_torch.ops.assign import associate_and_update
 from multiple_object_tracking_lidar_tpu_torch.ops.centroid import (
     circumcenter_features_sorted,
     circumcenter_features_table_stacked,
@@ -88,8 +87,13 @@ from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import (
     remove_static,
     remove_static_cells,
 )
+from multiple_object_tracking_lidar_tpu_torch.ops.track_cuda import (
+    TrackOutputs,
+    kernel_fits,
+    track_frames,
+    track_frames_plain,
+)
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import (
-    f32,
     grid_shape,
     voxel_downsample_scan,
     voxel_finalize_cm,
@@ -111,6 +115,7 @@ from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
     TrackerState,
     gains_from_numpy,
     init_state,
+    map_state,
 )
 
 # The values each field may take in this package, and the ROADMAP slice
@@ -195,12 +200,12 @@ def make_plan(config: TrackerConfig, env: MapEnv, device, cell_table: bool = Tru
         table = CellStaticTable(*(t.to(device) for t in table[:3]), k=table.k)
     n_cells = dims[0] * dims[1] * dims[2]
     n_off = len(kernel_offsets(dims, cfg.cluster_tolerance, cfg.voxel_leaf_size, cfg.leaf_z))
-    fits = fused_cc_fits(n_cells, n_off)
+    fits = fused_cc_fits(n_cells, n_off, device)
     if cfg.grid_cc == "pallas" and (table is None or not fits):
         raise ValueError(
             "grid_cc='pallas' needs a concrete map (per-cell static table) and "
-            f"<= {max_kernel_cells(n_off)} grid cells with {n_off} stencil offsets "
-            f"(got {n_cells}: K2 keeps the whole grid in one CTA's shared memory); "
+            f"<= {max_kernel_cells(n_off, device)} grid cells with {n_off} stencil offsets "
+            f"(got {n_cells}: K2 keeps the grid in one cluster's shared memory); "
             "use a coarser leaf or grid_cc='auto' for the stencil fallback"
         )
     k2 = table is not None and fits and cfg.grid_cc in ("auto", "pallas")
@@ -288,9 +293,12 @@ class Tracker:
         )
         return _perceive_from_vox(vox, vox_mask, n_vox, frames.t, npts, plan.env, config=cfg)
 
-    def bind_env(self, env: MapEnv):
+    def bind_env(self, env: MapEnv, donate_state: bool = True):
         """Specialize the step on a fixed map (re-bind on map updates).
-        Returns ``step(state, frame) -> (state, output)``."""
+        Returns ``step(state, frame) -> (state, output)``: the stacked
+        perception at S = 1, then one K4 launch.  ``donate_state`` is the
+        JAX signature's; it is accepted and ignored (eager torch donates
+        nothing: K4 writes the new state to fresh tensors)."""
         plan = self.plan(env)
         cfg, gains = self.config, self.gains_xy
 
@@ -301,29 +309,73 @@ class Tracker:
 
         return step
 
-    def bind_env_multi(self, env: MapEnv):
+    def bind_env_multi(self, env: MapEnv, donate_state: bool = True, hoist: str = "auto"):
         """Like bind_env, for a batch of consecutive frames of one stream
         stacked on a leading axis: ``multi_step(state, frames) -> (state,
         outputs)``, outputs stacked per frame.  Perception runs once on all
         S frames (one accumulator call, stacked K2 or K8, one K3 launch),
-        then ``track_step`` runs frame by frame.  Every frame's perception
-        is the one ``bind_env`` computes: the stacked stages treat the frames
-        independently.  (The JAX package hoists the stacked accumulator
-        only on the onehot + grid path and scans the rest frame by frame,
-        pipeline.py:245-357; the results are the same.)"""
+        then the S track steps in one K4 launch (``track_batch`` at 1 x S),
+        which scans them in order.  Every frame's result is the one
+        ``bind_env`` computes: the stacked stages treat the frames
+        independently.
+
+        ``donate_state`` is accepted and ignored, as in ``bind_env``.
+        ``hoist`` is validated as the JAX package validates it
+        (pipeline.py:204-243): an unknown value raises; "on" and "batch"
+        need ``voxel_mode="onehot"``, ``cluster_backend="grid"`` and f32;
+        "batch" also needs a per-cell static table, ``grid_cc`` "auto" or
+        "pallas" and a grid within the JAX fused CC's 32,768 cells
+        (``hoist_batch_fits``), so the same configs raise in both packages.
+        Every value runs the same stacked program here: the JAX package
+        hoists only its accumulator ("on") or its whole perception
+        ("batch") out of a per-frame scan, and its results are the same
+        bits either way."""
         plan = self.plan(env)
+        check_hoist(self.config, plan, hoist)
         cfg, gains = self.config, self.gains_xy
 
         def multi(state: TrackerState, frames: Frame):
             frames = self._frame(frames)
             p = self.perceive(frames, plan)
-            outs = []
-            for s in range(frames.points.shape[0]):
-                state, out = track_step(state, _row(p, s), config=cfg, gains_xy=gains)
-                outs.append(out)
-            return state, FrameOutput(*(torch.stack(f) for f in zip(*outs)))
+            st, o = track_batch(
+                map_state(lambda x: x[None], state), p.dets[None], p.det_valid[None],
+                p.t[None], config=cfg, gains_xy=gains,
+            )
+            return map_state(lambda x: x[0], st), _frame_output(TrackOutputs(*(f[0] for f in o)), p)
 
         return multi
+
+
+JAX_MAX_KERNEL_CELLS = 32768  # the JAX fused CC's bound (ops/grid_pallas.py:49-54)
+
+
+def hoist_batch_fits(n_cells: int) -> bool:
+    """The JAX package's ``fused_cc_fits`` (ops/grid_pallas.py:52-54),
+    which ``hoist="batch"`` is validated against in both packages."""
+    return n_cells <= JAX_MAX_KERNEL_CELLS
+
+
+def check_hoist(config: TrackerConfig, plan: GridPlan, hoist: str) -> None:
+    """Raise ValueError where the JAX ``bind_env_multi`` refuses ``hoist``
+    (pipeline.py:204-243)."""
+    cfg = config
+    if hoist not in ("auto", "on", "batch", "off"):
+        raise ValueError(f"unknown hoist {hoist!r}")
+    kernel_cfg = (cfg.voxel_mode == "onehot" and cfg.cluster_backend == "grid"
+                  and cfg.dtype == "float32")
+    if hoist in ("on", "batch") and not kernel_cfg:
+        raise ValueError(
+            f"hoist={hoist!r} needs voxel_mode='onehot', cluster_backend='grid', "
+            f"dtype=float32 (got {cfg.voxel_mode!r}/{cfg.cluster_backend!r}/{cfg.dtype!r})"
+        )
+    n_cells = plan.dims[0] * plan.dims[1] * plan.dims[2]
+    if hoist == "batch" and not (
+        plan.table is not None and hoist_batch_fits(n_cells) and cfg.grid_cc in ("auto", "pallas")
+    ):
+        raise ValueError(
+            "hoist='batch' needs a concrete map (per-cell static table) "
+            "and a grid small enough for the fused-CC kernel"
+        )
 
 
 def _row(p: Perception, s: int) -> Perception:
@@ -445,100 +497,48 @@ def _perceive_from_vox(
     )
 
 
+def track_batch(
+    state: TrackerState, dets: torch.Tensor, det_valid: torch.Tensor, t: torch.Tensor, *,
+    config: TrackerConfig, gains_xy: dict,
+) -> tuple[TrackerState, TrackOutputs]:
+    """The track step of B banks over S frames each (state fields with a
+    leading (B,) axis; dets (B, S, D, 4), det_valid (B, S, D), t (B, S)):
+    K4 in one launch (``ops/track_cuda.py::track_frames``), or its plain
+    route frame by frame where K4 does not run: on the CPU, under
+    ``assoc_backend="jnp"`` (the JAX package's choice, ops/assign.py:
+    168-178), and past K4's bounds (K > 1,024 slots or D > 128
+    detections), where the JAX package takes its jnp scan too.  Every
+    route makes the same decisions."""
+    route = track_route(config, state.bank.alive.shape[-1], dets.shape[-2])
+    run = track_frames if route == "kernel" else track_frames_plain
+    return run(state, dets, det_valid, t, config=config, gains_xy=gains_xy)
+
+
+def track_route(config: TrackerConfig, k: int, d: int) -> str:
+    """The track step's route on the card for a bank of ``k`` slots and
+    ``d`` detection slots: "kernel" (K4) or "plain" (``track_frames_plain``
+    on the device).  On the CPU every route is the plain version."""
+    return "kernel" if config.assoc_backend != "jnp" and kernel_fits(k, d) else "plain"
+
+
+def _frame_output(o: TrackOutputs, p: Perception) -> FrameOutput:
+    return FrameOutput(
+        publish=o.publish, valid=o.valid, obj_id=o.obj_id, pos=o.pos, vel=o.vel,
+        raw_centroid=p.dets, new_track=o.new_track, n_points=p.n_points,
+        n_voxels=p.n_vox, n_dynamic=p.n_dynamic, n_clusters=p.n_clusters,
+        n_alive=o.n_alive, overflow=o.overflow, dup_saturated=o.dup_saturated,
+        cc_saturated=p.cc_saturated, assoc_saturated=o.assoc_saturated,
+    )
+
+
 def track_step(
     state: TrackerState, p: Perception, *, config: TrackerConfig, gains_xy: dict
 ) -> tuple[TrackerState, FrameOutput]:
-    """Stateful tracking back-end: association, lifecycle, filtering, expiry
-    (port of the JAX track_step, greedy association + LPF positions)."""
-    L = config.data_length
-    dt_gp = config.dt_gp
-    dets, det_valid, t = p.dets, p.det_valid, p.t
-    dev = dets.device
-
-    any_det = det_valid.any()
-    was_init = state.initialized
-    steady = was_init & any_det   # publish/filter/expire this frame (cpp:163+)
-
-    assoc = associate_and_update(
-        state.bank, state.next_obj_num, state.next_birth, dets, det_valid,
-        config.id_threshold, dt_gp, config.interp_gap_factor,
-        allow_match=was_init,  # first frame registers without gating (cpp:153-156)
+    """Stateful tracking back-end of one frame: association, lifecycle,
+    filtering, expiry (port of the JAX track_step, greedy association +
+    LPF positions) -- ``track_batch`` at one bank and one frame."""
+    st, o = track_batch(
+        map_state(lambda x: x[None], state), p.dets[None, None], p.det_valid[None, None],
+        torch.as_tensor(p.t).reshape(1, 1), config=config, gains_xy=gains_xy,
     )
-    bank = assoc.bank
-
-    # ---- filtering: the whole bank, one batched pass per duplicate ordinal
-    k_max = bank.alive.shape[0]
-    win_xy = bank.window[:, :, :2]                               # (K, L, 2)
-    vels = (win_xy[:, 1:, :] - win_xy[:, :-1, :]) / f32(dt_gp)
-    vmean = vels.mean(dim=1)                                      # (cpp:887-898)
-    y_vel = torch.movedim(vels - vmean[:, None, :], -1, 1)        # (K, 2, L-1)
-    pos = lpf_pos(bank.window, config.lpf_tau, dt_gp)             # (cpp:638, 824-833)
-    vmax = f32(config.max_velocity)
-
-    def one_pass(m_in):
-        eft_vel_last, m_out = ihgp_apply_weights(y_vel, m_in, gains_xy["W_vel"])
-        vel = eft_vel_last + vmean
-        # velocity clamp, NaN-preserving like the C++ if-chain (cpp:649-654)
-        vel = torch.where(vel > vmax, vmax, torch.where(vel < -vmax, -vmax, vel))
-        return vel, m_out
-
-    # The reference runs callIHGP once PER matched detection (cpp:629-659):
-    # a track matched d times this frame runs d chained passes and each
-    # duplicate publishes the output of its own pass.
-    det_active = assoc.det_ok & steady
-    slot = assoc.det_slot.to(torch.int64)
-    onehot = (slot[:, None] == torch.arange(k_max, device=dev)[None, :]) & det_active[:, None]
-    mult = onehot.sum(0)                                          # (K,)
-    ordinal = torch.gather(torch.cumsum(onehot.to(torch.int64), 0) - 1, 1, slot[:, None])[:, 0]
-    max_mult = int(mult.max())  # the one host sync per frame
-    track_step.host_syncs += 1
-
-    m = bank.m0
-    m_fin = bank.m0
-    pos_det = dets[:, :2] * 0  # as the JAX init: NaN-preserving
-    vel_det = dets[:, :2] * 0
-    for q in range(max_mult):
-        vel, m_next = one_pass(m)
-        selp = (ordinal == q)[:, None]
-        pos_det = torch.where(selp, pos[slot], pos_det)
-        vel_det = torch.where(selp, vel[slot], vel_det)
-        m_fin = torch.where((mult == q + 1)[:, None, None], m_next, m_fin)
-        m = m_next
-
-    # ---- expiry (cpp:545-584)
-    spin = state.spin_counter + steady.to(torch.int32)
-    do_prune = spin > int(config.prune_period * config.frequency)
-    stale = (t.to(torch.float32) - bank.window[:, L - 1, 3]) > f32(config.prune_period)
-    prune = do_prune & steady
-    alive = torch.where(prune, bank.alive & ~stale, bank.alive)
-    spin = torch.where(prune, torch.zeros_like(spin), spin)
-
-    new_state = TrackerState(
-        bank=bank._replace(alive=alive, m0=m_fin),
-        next_obj_num=assoc.next_obj_num,
-        next_birth=assoc.next_birth,
-        spin_counter=spin,
-        initialized=was_init | any_det,
-    )
-    out = FrameOutput(
-        publish=steady,
-        valid=assoc.det_ok & steady,
-        obj_id=assoc.det_id,
-        pos=pos_det,
-        vel=vel_det,
-        raw_centroid=dets,
-        new_track=assoc.det_new,
-        n_points=p.n_points,
-        n_voxels=p.n_vox,
-        n_dynamic=p.n_dynamic,
-        n_clusters=p.n_clusters,
-        n_alive=alive.sum(),
-        overflow=assoc.overflow,
-        dup_saturated=(mult < 0).sum(),
-        cc_saturated=p.cc_saturated,
-        assoc_saturated=assoc.assoc_saturated,
-    )
-    return new_state, out
-
-
-track_step.host_syncs = 0
+    return map_state(lambda x: x[0], st), _frame_output(TrackOutputs(*(f[0, 0] for f in o)), p)

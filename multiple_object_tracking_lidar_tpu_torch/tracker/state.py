@@ -107,17 +107,17 @@ def grow_bank(state: TrackerState, k_new: int) -> TrackerState:
     return state._replace(bank=TrackBank(**{f: pad(f) for f in TrackBank._fields}))
 
 
-def state_row(state: TrackerState, s: int) -> TrackerState:
-    """Stream s of a stacked state (views, no copy)."""
+def map_state(fn, state: TrackerState) -> TrackerState:
+    """``fn`` applied to every tensor of a TrackerState (``lambda x: x[s]``:
+    stream s of a stacked state, as views)."""
     return TrackerState(
-        bank=TrackBank(*(f[s] for f in state.bank)),
-        **{f: getattr(state, f)[s] for f in TrackerState._fields if f != "bank"},
+        bank=TrackBank(*(fn(f) for f in state.bank)),
+        **{f: fn(getattr(state, f)) for f in TrackerState._fields if f != "bank"},
     )
 
 
 def stack_states(states: list[TrackerState]) -> TrackerState:
-    """The inverse of ``state_row``: per-stream states stacked on a leading
-    axis."""
+    """Per-stream states stacked on a leading axis."""
     return TrackerState(
         bank=TrackBank(*(torch.stack(f) for f in zip(*(st.bank for st in states)))),
         **{f: torch.stack([getattr(st, f) for st in states])

@@ -1,9 +1,18 @@
-"""Times K4, the greedy association scan, on the GPU: its device time per
-launch from a ``torch.profiler`` trace, and the wrapper's time per call by
-CUDA events (host checks, ctypes and launch included), at bank sizes K =
-64 (the headline's), 128, 256 and 1,024 with D = 32 detections, 4 or all
-32 valid.  Each result is held bit for bit against K4's plain version.
-Prints the card's name and power limit beside every time.
+"""Times K4 on the GPU: its device time per launch from a
+``torch.profiler`` trace, and the wrapper's time per call by CUDA events
+(host checks, ctypes and launch included).
+
+- The whole track step (``ops/track_cuda.py::track_frames``) at K = 64
+  (the headline's) and 1,024 slots, launched 1 x 1 (``bind_env``), 1 x 8
+  (``bind_env_multi`` at S = 8) and 8 x 1 (the fleet at B = 8), on
+  ``bench_cases.track_scene``'s banks and detections (D = 32; 128 at
+  K = 1,024).
+- The decision scan alone (``ops/assign_cuda.py::assoc_scan``) at bank
+  sizes K = 64, 128, 256 and 1,024 with D = 32 detections, 4 or all 32
+  valid.
+
+Each result is held bit for bit against its plain version.  Prints the
+card's name and power limit beside every time.
 
     python scripts/micro_torch_assoc.py [--reps 200]
 """
@@ -20,7 +29,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from multiple_object_tracking_lidar_tpu_torch.ops import assign_cuda  # noqa: E402
+from multiple_object_tracking_lidar_tpu_torch import bench_cases  # noqa: E402
+from multiple_object_tracking_lidar_tpu_torch.ops import assign_cuda, track_cuda  # noqa: E402
+from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker  # noqa: E402
 
 D = 32
 KW = dict(thr=0.5, dt_gp=0.1, interp_gap_factor=3.0)
@@ -58,37 +69,70 @@ def _bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
-def device_us(args, reps: int) -> float:
-    """Mean device time of K4's kernel per launch, us, from the trace."""
+def device_us(fn, kernel: str, reps: int) -> float:
+    """Mean device time per launch of the kernel named ``kernel`` while fn
+    runs ``reps`` times, us, from the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            assign_cuda.assoc_scan(*args, **KW)
+            fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if "assoc_scan_kernel" in e.key]
+    rows = [e for e in prof.key_averages() if kernel in e.key]
     if not rows:
-        raise SystemExit("micro_torch_assoc: no K4 kernel in the trace")
+        raise SystemExit(f"micro_torch_assoc: no {kernel} in the trace")
     return sum(e.self_device_time_total for e in rows) / sum(e.count for e in rows)
 
 
-def wrapper_ms(args, reps: int) -> float:
-    assign_cuda.assoc_scan(*args, **KW)
+def wrapper_ms(fn, reps: int) -> float:
+    fn()
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     e0.record()
     for _ in range(reps):
-        assign_cuda.assoc_scan(*args, **KW)
+        fn()
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
 
 
+def _same(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return _bits(a, b)
+    return all(_same(x, y) for x, y in zip(a, b))
+
+
+def run_track(device="cuda", reps: int = 200, log=print) -> dict:
+    """{(K, B, S): (device us per launch, wrapper ms per call)} of the whole
+    track step; raises unless K4 equals its plain version."""
+    smi = card()
+    cfg = bench_cases.bench_config()
+    gains = Tracker(cfg, device).gains_xy
+    out = {}
+    for k in (64, 1024):
+        for b, s in ((1, 1), (1, 8), (8, 1)):
+            d = 32 if k == 64 else 128
+            args = bench_cases.track_scene(k + 10 * b + s, cfg, k, d, b, s, (), device)
+            kw = dict(config=cfg, gains_xy=gains)
+            if not _same(track_cuda.track_frames(*args, **kw),
+                         track_cuda.track_frames_plain(*args, **kw)):
+                raise SystemExit(f"micro_torch_assoc: K4 differs from its plain version at K={k}")
+            fn = (lambda a=args, w=kw: track_cuda.track_frames(*a, **w))
+            out[(k, b, s)] = (device_us(fn, "track_step_kernel", reps), wrapper_ms(fn, reps))
+            log(f"[assoc] {smi}: K4 track step K={k} {b} x {s} frames D={d} "
+                f"({int(args[2].sum())} valid detections): device {out[(k, b, s)][0]:.3f} us "
+                f"per launch (torch.profiler, {reps} launches), wrapper "
+                f"{out[(k, b, s)][1]:.4f} ms per call (CUDA events)")
+    return out
+
+
 def run(device="cuda", reps: int = 200, log=print) -> dict:
-    """{(K, valid detections): (device us per launch, wrapper ms per call)};
-    raises unless K4 equals its plain version on every input."""
+    """{(K, valid detections): (device us per launch, wrapper ms per call)}
+    of the decision scan alone, after ``run_track``'s; raises unless K4
+    equals its plain version on every input."""
     if not torch.cuda.is_available():
         raise SystemExit("micro_torch_assoc: needs a CUDA device")
+    run_track(device, reps, log)
     smi = card()
     out = {}
     for k in (64, 128, 256, 1024):
@@ -100,8 +144,9 @@ def run(device="cuda", reps: int = 200, log=print) -> dict:
             if not all(_bits(a[ok] if i == 6 else a, b[ok] if i == 6 else b)
                        for i, (a, b) in enumerate(zip(got, want))):
                 raise SystemExit(f"micro_torch_assoc: K4 differs from its plain version at K={k}")
-            out[(k, n_valid)] = (device_us(args, reps), wrapper_ms(args, reps))
-            log(f"[assoc] {smi}: K4 K={k} D={D}, {n_valid} valid: device "
+            fn = (lambda a=args: assign_cuda.assoc_scan(*a, **KW))
+            out[(k, n_valid)] = (device_us(fn, "assoc_scan_kernel", reps), wrapper_ms(fn, reps))
+            log(f"[assoc] {smi}: K4 scan K={k} D={D}, {n_valid} valid: device "
                 f"{out[(k, n_valid)][0]:.3f} us per launch (torch.profiler, {reps} launches), "
                 f"wrapper {out[(k, n_valid)][1]:.4f} ms per call (CUDA events)")
     return out

@@ -9,12 +9,17 @@ B = 8 headline streams, stream s at step k fed headline frame 3 s + k)
 beside the headline's ``bind_env_multi`` on the same clouds.
 
     python scripts/profile_torch_slice.py [--case headline exact runs] [--frames 32] [--out DIR]
+                                          [--repo DIR]
 
 Prints, per entry point, the wall time per frame without the profiler,
-then under it the device-busy time per frame (the union of kernel intervals in the trace), the device idle share, the device operations per frame,
-and the kernels and host ops that take the most time.  With --out, writes
-a Chrome trace per entry point there (~20 MB each).  Needs a GPU (exits 1
-without one).
+then under it the device-busy time per frame (the union of kernel
+intervals in the trace), the device idle share, the device operations per
+frame, the host syncs per frame (reads of a device value on the host:
+``aten::_local_scalar_dense`` in the trace), and the kernels and host ops
+that take the most time.  With --out, writes a Chrome trace per entry
+point there (~20 MB each).  ``--repo DIR`` profiles the port of another
+checkout (e.g. a parent commit unpacked under build/), so two versions can
+be measured in turns in one call.  Needs a GPU (exits 1 without one).
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
     ap.add_argument("--frames", type=int, default=32)
+    ap.add_argument("--repo", default=REPO, help="checkout whose port is profiled")
     ap.add_argument("--case", nargs="+", default=["headline"],
                     choices=["headline", "exact", "runs", "exact_unpadded", "pointlist",
                              "pointlist_jnp", "scan", "pointlist_runs", "default", "fleet"])
@@ -62,8 +68,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.abspath(args.repo))
     from multiple_object_tracking_lidar_tpu_torch import bench_cases
+
+    print(f"port from {os.path.dirname(bench_cases.__file__)}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -141,9 +149,10 @@ def profile_case(case, cfg, env, sc, dev, smi, args) -> None:
         busy = _busy_us(prof)
         n = args.frames
         n_ops = sum(ev.device_type == torch.autograd.DeviceType.CUDA for ev in prof.events())
+        n_sync = sum(ev.name == "aten::_local_scalar_dense" for ev in prof.events())
         print(f"[{name}] {smi}: wall {wall_us / n:.1f} us/frame under the profiler, device busy "
               f"{busy / n:.1f} us/frame, idle share {1 - busy / wall_us:.3f}, "
-              f"{n_ops / n:.2f} device ops/frame")
+              f"{n_ops / n:.2f} device ops/frame, {n_sync / n:.3f} host syncs/frame")
         ka = prof.key_averages()
         dev_rows = sorted(
             (e for e in ka if getattr(e, "self_device_time_total", 0) > 0),

@@ -458,3 +458,124 @@ def test_slice_gpu_matches_cpu_plain_path(dev, small):
                 assert torch.allclose(a, b, rtol=0, atol=1e-5), name
             else:
                 assert _bits(a, b), name
+
+
+def _nan_canonical(tree):
+    """Every NaN as one bit pattern: the CPU multiplies a NaN by 0 keeping
+    its payload, the card gives its canonical NaN (the NaN lane's default
+    pos/vel, ``det * 0``)."""
+    if isinstance(tree, torch.Tensor):
+        t = tree.cpu()
+        return torch.where(torch.isnan(t), torch.nan, t) if t.is_floating_point() else t
+    items = [_nan_canonical(x) for x in tree]
+    return tuple(items) if type(tree) is tuple else type(tree)(*items)
+
+
+def _same_tree(a, b) -> bool:
+    """Every tensor of two (nested) tuples bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return _bits(a, b)
+    return all(_same_tree(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("K,B,S,D", [(64, 1, 1, 16), (64, 1, 8, 16), (64, 8, 1, 16),
+                                     (64, 1, 8, 128), (1024, 1, 4, 128), (1024, 4, 1, 32)])
+def test_k4_track_step_matches_plain(dev, small, K, B, S, D):
+    """K4, the whole track step, against its plain version on the card:
+    every state and output field bit for bit, one launch per call."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+
+    cfg, _, _ = small
+    gains = Tracker(cfg, dev).gains_xy
+    st, dets, valid, t = track_scene(K + B + S, cfg, K, D, B, S, (0,), dev)
+    n0 = track_cuda.track_frames.launches
+    got = track_cuda.track_frames(st, dets, valid, t, config=cfg, gains_xy=gains)
+    assert track_cuda.track_frames.launches == n0 + 1
+    want = track_cuda.track_frames_plain(st, dets, valid, t, config=cfg, gains_xy=gains)
+    assert _same_tree(got, want)
+
+
+@pytest.mark.parametrize("k_max,c_max", [(2048, 16), (64, 256)])
+def test_f1_track_step_past_k4_bounds_runs_plain_on_the_card(dev, small, k_max, c_max):
+    """Past K4's bounds the track step runs its plain route on the card:
+    no launch, no raise, the CPU route's bits."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import track_batch
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import map_state
+
+    cfg, _, _ = small
+    cfg = cfg.replace(caps=dataclasses.replace(cfg.caps, k_max_tracks=k_max, c_max_clusters=c_max))
+    st, dets, valid, t = track_scene(3, cfg, k_max, c_max, 1, 2, (), "cpu")
+    kw = dict(config=cfg, gains_xy=Tracker(cfg, "cpu").gains_xy)
+    want = track_batch(st, dets, valid, t, **kw)
+    n0 = track_cuda.track_frames.launches
+    got = track_batch(map_state(lambda x: x.to(dev), st), dets.to(dev), valid.to(dev),
+                      t.to(dev), config=cfg, gains_xy=Tracker(cfg, dev).gains_xy)
+    assert track_cuda.track_frames.launches == n0
+    assert _same_tree(_nan_canonical(got), _nan_canonical(want))
+
+
+def test_f2_accumulator_past_k1_bound_on_the_card(dev):
+    """70,200 cells: the plain integer digit sums and K1's finalize on the
+    card, bit for bit the CPU route, no raise."""
+    from multiple_object_tracking_lidar_tpu_torch.config import SceneBounds
+    from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid
+
+    scene = SceneBounds(x_min=0.0, x_max=5.15, y_min=0.0, y_max=11.24, z_min=0.0, z_max=2.0)
+    rng = np.random.default_rng(12)
+    pts = np.stack([rng.uniform(-0.3, 5.5, 50000), rng.uniform(-0.3, 11.5, 50000),
+                    rng.uniform(-0.2, 2.2, 50000)], 1).astype(np.float32)[None]
+    mask = np.ones((1, 50000), bool)
+    for quant in ("fast", "exact"):
+        args = (scene, 0.05, 1.0)
+        n_fin = voxel_grid_cuda.finalize_fast_stacked.launches
+        got = voxel_grid.voxel_accumulate_stacked(torch.from_numpy(pts).to(dev),
+                                                  torch.from_numpy(mask).to(dev), *args, quant=quant)
+        want = voxel_grid.voxel_accumulate_stacked(torch.from_numpy(pts), torch.from_numpy(mask),
+                                                   *args, quant=quant)
+        assert _same_tree(got, want)
+        assert got[0].shape[-1] == 70200
+        if quant == "fast":
+            assert voxel_grid_cuda.finalize_fast_stacked.launches == n_fin + 1
+
+
+@pytest.mark.parametrize("dims,leaf,leaf_z,cluster", [
+    ((99, 226, 1), 0.06, 1.2, 2),           # F6: 22,374 cells, past one CTA, 2 CTAs
+    ((128, 256, 1), 0.05, 2.0, None),       # the JAX fused CC's 32,768
+    ((104, 225, 3), 0.05, 1.0, None),       # the CLI grid, 146 offsets
+    ((96, 224, 9), 0.05, 1.0, None),        # the default scene: adjacency in global memory
+])
+def test_k2_clusters_match_plain(dev, dims, leaf, leaf_z, cluster):
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import k2_inputs
+
+    accs, scal, br, bc, bits, kwin = k2_inputs(dims, leaf, leaf_z, 0.15, 1, dev)
+    kw = dict(dims=dims, tol=0.15, leaf_xy=leaf, leaf_z=leaf_z, kwin=kwin, cluster=cluster)
+    n0 = grid_cuda.fused_finalize_static_cc_stacked.launches
+    got = grid_cuda.fused_finalize_static_cc_stacked(accs, scal, br, bc, bits, **kw)
+    assert grid_cuda.fused_finalize_static_cc_stacked.launches == n0 + 1
+    want = grid_cuda.fused_finalize_static_cc_stacked(accs.cpu(), scal.cpu(), br.cpu(), bc.cpu(),
+                                                      bits.cpu(), **kw)
+    assert _same_tree(got, want)
+
+
+def test_f6_pallas_grid_cc_past_one_cta_on_the_card(dev, small):
+    """``grid_cc="pallas"`` on a 22,374-cell grid plans K2 (a cluster of
+    CTAs) on the card and its step matches the CPU route."""
+    cfg, env, frames = small
+    cfg = cfg.replace(grid_cc="pallas", voxel_leaf_size=0.06,
+                      scene=dataclasses.replace(cfg.scene, x_max=3.5, y_max=12.0))
+    env_cpu = headline_case()[1]
+    outs = []
+    for where, e in (("cpu", env_cpu), (dev, env)):
+        tr = Tracker(cfg, where)
+        assert tr.plan(e).k2
+        step = tr.bind_env(e)
+        st = tr.init_state()
+        rows = []
+        for buf, mask, t in frames[:3]:
+            st, o = step(st, Frame(torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))
+            rows.append(o)
+        outs.append(rows)
+    assert _same_tree(outs[0], outs[1])

@@ -245,7 +245,7 @@ def test_port_node_reproduces_growth_golden():
 
     ref = _load("growth")
     cfg, _, sc = growth_case()
-    node = TrackerNode(cfg, device="cpu")
+    node = TrackerNode(cfg, device="cpu", keep_outputs=True)
     node.on_map(load_sim_grid())
     growths, ks = [], []
     for k in range(ref["publish"].shape[0]):

@@ -46,11 +46,11 @@ SIM_MAP = os.path.join(REPO, "assets", "sim_map.yaml")
 LEAF, LEAF_Z, TOL = 0.1, 2.0, 0.15
 
 
-def _scene(z_max):
-    return dict(x_min=-2.4, x_max=2.5, y_min=-1.5, y_max=9.4, z_min=0.0, z_max=z_max)
+def _scene(z_max, y_min=-1.5):
+    return dict(x_min=-2.4, x_max=2.5, y_min=y_min, y_max=9.4, z_min=0.0, z_max=z_max)
 
 
-def _accs(z_max, n_frames=2, seed=3):
+def _accs(z_max, n_frames=2, seed=3, y_min=-1.5):
     """Channel-major accumulators of scenario frames over the sim map: three
     objects, wall returns, clutter across the z range (a dense band when
     the grid has two slabs)."""
@@ -69,7 +69,7 @@ def _accs(z_max, n_frames=2, seed=3):
         clutter_z=(0.0, z_max),
         seed=seed,
     )
-    js = JScene(**_scene(z_max))
+    js = JScene(**_scene(z_max, y_min))
     out = []
     for k in range(n_frames):
         pts, _ = sc.frame_arrays(k)
@@ -80,8 +80,8 @@ def _accs(z_max, n_frames=2, seed=3):
     return np.stack(out)
 
 
-def _envs(z_max):
-    js, ts = JScene(**_scene(z_max)), TScene(**_scene(z_max))
+def _envs(z_max, y_min=-1.5):
+    js, ts = JScene(**_scene(z_max, y_min)), TScene(**_scene(z_max, y_min))
     dims = grid_shape(js, LEAF, LEAF_Z)
     jenv = jsm.build_static_mask(load_map_yaml(SIM_MAP), 2, 50)
     tenv = tsm.build_static_mask(t_load(SIM_MAP), 2, 50)
@@ -90,8 +90,8 @@ def _envs(z_max):
     return dims, jenv, jtab, tenv, ttab
 
 
-def _run_both(accs, z_max, c_max=16, p_max=64, min_size=5, max_size=300):
-    dims, jenv, jtab, tenv, ttab = _envs(z_max)
+def _run_both(accs, z_max, c_max=16, p_max=64, min_size=5, max_size=300, y_min=-1.5):
+    dims, jenv, jtab, tenv, ttab = _envs(z_max, y_min)
     scal = grid_cuda.make_scal(tenv, TOL, "cpu")
     cent, dyn, labels, n_sw, sat = grid_cuda.fused_finalize_static_cc_stacked(
         torch.from_numpy(accs), scal, ttab.base_row, ttab.base_col, ttab.bits,
@@ -150,7 +150,8 @@ def test_plain_k2_dense_occupancy_and_truncation():
 def test_k2_schedule_and_limits():
     """The iteration count is the plain schedule's own (Jacobi sweep + one
     pointer jump per iteration); the cap reports saturation; the shared-
-    memory bound replaces the TPU's VMEM one."""
+    memory bound of a 16-CTA cluster replaces the TPU's VMEM one (32,768
+    cells), and the cluster size follows the cell count."""
     accs = _accs(1.0, n_frames=1)
     dims, jenv, jtab, tenv, ttab = _envs(1.0)
     scal = grid_cuda.make_scal(tenv, TOL, "cpu")
@@ -160,6 +161,30 @@ def test_k2_schedule_and_limits():
     assert 1 <= int(n_sw[0]) < 10 and int(sat[0]) == 0
     _, _, lab1, n1, sat1 = grid_cuda.fused_finalize_static_cc_stacked(*args, max_sweeps=1, **kw)
     assert int(n1[0]) == 1 and int(sat1[0]) == 1
-    assert grid_cuda.max_kernel_cells(24) == 19029
-    assert grid_cuda.max_kernel_cells(74) == 11417
-    assert not grid_cuda.fused_cc_fits(32768, 24)
+    assert grid_cuda.cta_cells(24) == 18944 and grid_cuda.cta_cells(74) == 11366
+    assert grid_cuda.max_kernel_cells(24) == grid_cuda.max_kernel_cells(146) == 16 * 28416
+    assert grid_cuda.fused_cc_fits(32768, 24) and grid_cuda.fused_cc_fits(193536, 146)
+    assert not grid_cuda.fused_cc_fits(16 * 28416 + 1, 24)
+    assert not grid_cuda.fused_cc_fits(1000, 257)
+    assert [grid_cuda.cluster_size(n, o) for n, o in
+            ((5500, 24), (32768, 48), (70200, 146), (193536, 146))] == [8, 16, 16, 16]
+    assert not grid_cuda.adjacency_in_smem(193536, 146, 16)
+    assert grid_cuda.adjacency_in_smem(70200, 146, 16)
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 16])
+def test_plain_k2_cluster_partition_matches_jax(cluster):
+    """K2's plain version on a grid that the cluster-size rule spreads over
+    ``cluster`` CTAs: the 2-slab grid with its 74 offsets, cut in y to the
+    dense clutter band for 2 and 4 CTAs.  Centroids, dyn, labels and the
+    cluster table match the JAX package bit for bit.  The kernel runs this
+    version's global schedule at every cluster size (one Jacobi sweep over
+    all cells, one jump, a cluster-wide vote); test_torch_cuda.py and
+    chip_smoke.py hold it to this version at each size."""
+    y_min = {2: 7.9, 4: 6.4, 16: -1.5}[cluster]
+    accs = _accs(2.0, n_frames=1, seed=11, y_min=y_min)
+    dims, cent, dyn, labels, n_sw, tt = _run_both(accs, 2.0, y_min=y_min)
+    n = dims[0] * dims[1] * dims[2]
+    n_off = len(grid_cuda.kernel_offsets(dims, TOL, LEAF, LEAF_Z))
+    assert n_off == 74 and grid_cuda.cluster_size(n, n_off) == cluster
+    assert int((labels[0] < n).sum()) > 100 and int(tt.n_clusters[0]) >= 1

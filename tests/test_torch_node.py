@@ -99,7 +99,7 @@ def jax_growth():
 
 @pytest.fixture(scope="module")
 def port_growth():
-    node = TrackerNode(_config(), device="cpu")
+    node = TrackerNode(_config(), device="cpu", keep_outputs=True)
     node.on_map(load_sim_grid())
     growths, ks = _run(node, _frames())
     return node, growths, ks
@@ -209,7 +209,7 @@ def test_resume_continues_bit_for_bit(tmp_path, k_save):
     5: after both), resumed into a fresh node at the initial K: the rest
     is bit for bit the uninterrupted node's, at the checkpoint's K."""
     frames = _frames()
-    node = TrackerNode(_config(), device="cpu")
+    node = TrackerNode(_config(), device="cpu", keep_outputs=True)
     node.on_map(load_sim_grid())
     _run(node, frames[:k_save])
     path = str(tmp_path / "ckpt.npz")
@@ -217,7 +217,7 @@ def test_resume_continues_bit_for_bit(tmp_path, k_save):
     k_ckpt = node.config.caps.k_max_tracks
     want = _continue(node, frames[k_save:])
 
-    fresh = TrackerNode(_config(), device="cpu")
+    fresh = TrackerNode(_config(), device="cpu", keep_outputs=True)
     fresh.on_map(load_sim_grid())
     fresh.resume(*tckpt.load_state(path, device="cpu"))
     assert fresh.config.caps.k_max_tracks == k_ckpt > 2             # a grown bank resumes grown

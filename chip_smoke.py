@@ -7,12 +7,17 @@ of JAX, in five phases, one or more lines each:
 
 1. the card (``nvidia-smi`` name and power limit); no CUDA -> exit 1;
 2. the kernel build from ``csrc/*.cu`` (one nvcc per source, in parallel);
-3. each kernel (K1-K11, K6 in its bf16x3 and f32 modes and its key
+3. each kernel (K1-K11, K3f, K6 in its bf16x3 and f32 modes and its key
    entry, K1's and K5's histograms and finalizes alone, K1-cm fused and
    raw) against its plain PyTorch version on the card, at the shapes its
    path gives it, on scenario and adversarial inputs (K10 also on 0.1 m
    lattice knife edges at C = 32, P = 384 and configuration G's C = 64,
-   P = 512); K2, one thread-block cluster per frame, also on the grids of
+   P = 512; K3f, with K3 and K10, on S = 8 stacked tables of both sizes --
+   lattice, collinear, empty, 1- and 2-member, all-equal and NaN-member
+   slots -- and against K3's stats with the eager selection after them;
+   K6's three entries at the headline's and G's grids on a frame in one
+   cell, an all-dropped frame, NaN points and keys at n_cells - 1); K2,
+   one thread-block cluster per frame, also on the grids of
    ``bench_cases.k2_grids`` (32,768, 70,200 and 193,536 cells) and, on the
    headline's, at every cluster size; K4, the whole track step, at K = 64
    and 1,024 launched 1 x 1, 1 x 8 and 8 x 1 with up to D = 128 detections
@@ -23,7 +28,8 @@ of JAX, in five phases, one or more lines each:
    answers 12 headline PointCloud2 frames and ``Tracker.bind_env_multi``
    runs 4 dispatches of S = 8, held against the JAX golden
    (tests/golden/torch_slice_headline.npz) and the port's plain path on
-   the CPU, with one K4 launch per frame and per call; then exact mode
+   the CPU, with one K4 launch per frame and per call, the circumcenter
+   in K3f and no tracking path launching K3; then exact mode
    (K5) and runs mode (K7), each through ``TrackerNode`` (12 frames) and
    ``bind_env_multi`` (2 x S = 8), held against their JAX goldens
    (torch_{exact,runs}_headline.npz); exact mode on unpadded 100,000-point
@@ -56,7 +62,8 @@ of JAX, in five phases, one or more lines each:
    ``bind_env_multi``, and each kernel against its plain version, with its
    bound (the larger of its bytes over 3.35 TB/s and its operations over
    67 TFLOP/s) and, where one PyTorch call computes the same function,
-   that call's time.
+   that call's time (K6f also at configuration G's grid, S = 8, beside
+   ``torch.index_add`` there).
 
 Any failed phase raises (exit 1).  The line before the last is the kernel
 report (JSON); the last line is ``{"ok": true, "device": {...}}``.
@@ -139,10 +146,10 @@ def npy(t):
 def max_err(a, b) -> float:
     """Max |a - b|, where equal values (infinities and NaN pairs included)
     count as 0."""
-    a = np.asarray(a, np.float64)
-    b = np.asarray(b, np.float64)
-    same = (a == b) | (np.isnan(a) & np.isnan(b))
     with np.errstate(invalid="ignore"):
+        a = np.asarray(a, np.float64)
+        b = np.asarray(b, np.float64)
+        same = (a == b) | (np.isnan(a) & np.isnan(b))
         return float(np.max(np.where(same, 0.0, np.abs(a - b)), initial=0.0))
 
 
@@ -600,9 +607,9 @@ def phase_kernels_pointlist(dev, report, cfg, k1_inputs):
     gp, gm, _ = headline_frames(gsc, gn, range(2))
     GP, GM = torch.from_numpy(gp).to(dev), torch.from_numpy(gm).to(dev)
     gkw = (gcfg.scene, gcfg.voxel_leaf_size, gcfg.leaf_z)
-    check_pair(report, "K6f", f"S=2 N={gn} at configuration G's grid, "
+    check_pair(report, "K6f G", f"S=2 N={gn} at configuration G's grid, "
                f"cells={vg.kernel_params(*gkw)['n_cells']}, "
-               f"chunk={vg.sorted_sums_chunk(vg.kernel_params(*gkw)['n_cells'], gn)}",
+               f"{vg.sorted_sums_plan(2, gn, vg.kernel_params(*gkw)['n_cells'])['passes']} passes",
                lambda: vg.accumulate_f32_stacked(GP, GM, *gkw),
                lambda: vg.accumulate_f32_stacked_plain(GP, GM, *gkw))
 
@@ -684,7 +691,7 @@ def phase_kernels_slice5(dev, report, cfg, k1_inputs, table):
     from multiple_object_tracking_lidar_tpu_torch.ops import (
         centroid_cuda, transpose_cuda, voxel_grid_cuda as vg)
     from multiple_object_tracking_lidar_tpu_torch.ops.centroid import (
-        circumcenter_features_table_cuda)
+        circumcenter_from_pair_stats)
 
     rng = np.random.default_rng(55)
     kw = (cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
@@ -699,9 +706,12 @@ def phase_kernels_slice5(dev, report, cfg, k1_inputs, table):
              "edges", *knife_edge_table(rng, gcaps.c_max_clusters, gcaps.p_max_cluster, dev))):
         check_pair(report, "K10", what, lambda: (centroid_cuda.circumcenter_xy(tp, tm),),
                    lambda: (centroid_cuda.circumcenter_xy_plain(tp, tm),))
-        check_pair(report, "K10", f"{what}: against the pipeline's K3 route",
-                   lambda: (centroid_cuda.circumcenter_xy(tp, tm),),
-                   lambda: (circumcenter_features_table_cuda(tp, tm, torch.tensor(0.0))[:, :2],))
+        eager = lambda: circumcenter_from_pair_stats(  # noqa: E731
+            *centroid_cuda.pair_stats(tp, tm), tp, tm, torch.tensor(0.0, device=dev))
+        check_pair(report, "K10", f"{what}: against K3's stats and the eager selection",
+                   lambda: (centroid_cuda.circumcenter_xy(tp, tm),), lambda: (eager()[:, :2],))
+        check_pair(report, "K3f", f"{what}: against K3's stats and the eager selection",
+                   lambda: (centroid_cuda.circumcenter_features(tp, tm, 0.0),), lambda: (eager(),))
 
     P = torch.from_numpy(k1_inputs[0]).to(dev)
     M = torch.from_numpy(k1_inputs[1]).to(dev)
@@ -759,6 +769,87 @@ def phase_kernels_slice5(dev, report, cfg, k1_inputs, table):
                    lambda: (transpose_cuda.transpose_words_plain(x),))
 
 
+def k3f_tables(rng, s, c, p, dev):
+    """S stacked (C, P) member tables, flattened to (S * C, P): a 0.1 m
+    lattice cluster (ties in both scans), an exactly collinear one
+    (G == 0), a singleton, two members, all-equal members, a NaN member, a
+    full slot, and empty slots after them."""
+    mp = np.zeros((s, c, p, 3), np.float32)
+    mm = np.zeros((s, c, p), bool)
+    for f in range(s):
+        n = int(rng.integers(2, p))
+        mp[f, 0, :n] = np.round(rng.normal(0, 1, (n, 3)) * 10) / 10
+        mm[f, 0, :n] = True
+        mp[f, 1, :9] = np.stack([0.25 * np.arange(9), 0.5 * np.arange(9), np.zeros(9)], 1)
+        mm[f, 1, :9] = True
+        mp[f, 2, 3], mm[f, 2, 3] = [1.0, 2.0, 0.5], True
+        mp[f, 3, :2], mm[f, 3, :2] = [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], True
+        mp[f, 4, :12], mm[f, 4, :12] = [3.0, -1.0, 0.25], True
+        mp[f, 5, :40] = rng.normal(0, 1, (40, 3))
+        mm[f, 5, :40] = True
+        mp[f, 5, 21, 1] = np.nan
+        mp[f, 6] = rng.uniform(-2, 2, (p, 3))
+        mm[f, 6] = True
+    return (torch.from_numpy(mp).reshape(s * c, p, 3).to(dev),
+            torch.from_numpy(mm).reshape(s * c, p).to(dev))
+
+
+def phase_kernels_slice7(dev, report):
+    """K3f (with K3 and K10 on its tables) and K6's three entries on the
+    edge cases of their redesign, against their plain versions, bit for
+    bit; K3f also against K3's stats with the eager selection after them,
+    the route it replaces."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.ops import centroid_cuda, voxel_grid_cuda as vg
+    from multiple_object_tracking_lidar_tpu_torch.ops.centroid import circumcenter_from_pair_stats
+
+    rng = np.random.default_rng(707)
+    for s, c, p in ((8, 32, 384), (8, 64, 512)):
+        mp, mm = k3f_tables(rng, s, c, p, dev)
+        t = torch.arange(s, dtype=torch.float32, device=dev) * 0.1 + 0.05
+        what = (f"S={s} x C={c} P={p} stacked (lattice, collinear, empty, 1- and 2-member, "
+                "all-equal, NaN-member, full slots), one t per frame")
+        check_pair(report, "K3f", what,
+                   lambda: (centroid_cuda.circumcenter_features(mp, mm, t),),
+                   lambda: (centroid_cuda.circumcenter_features_plain(mp, mm, t),))
+        check_pair(report, "K3f", f"{what}: against K3's stats and the eager selection",
+                   lambda: (centroid_cuda.circumcenter_features(mp, mm, t),),
+                   lambda: (circumcenter_from_pair_stats(*centroid_cuda.pair_stats(mp, mm), mp,
+                                                         mm, t.repeat_interleave(c)),))
+        check_pair(report, "K3", what, lambda: centroid_cuda.pair_stats(mp, mm),
+                   lambda: centroid_cuda.pair_stats_plain(mp, mm))
+        check_pair(report, "K10", what, lambda: (centroid_cuda.circumcenter_xy(mp, mm),),
+                   lambda: (centroid_cuda.circumcenter_xy_plain(mp, mm),))
+
+    for tag, case, k6f in (("the headline's grid", bench_cases.headline_case, "K6f"),
+                           ("configuration G's grid", bench_cases.default_case, "K6f G")):
+        cfg, _, sc = case()
+        n = cfg.caps.n_max_points
+        pts, mask, _ = headline_frames(sc, n, range(3))
+        P, M = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+        P[0, ::9, 0] = float("nan")
+        P[1] = torch.tensor([0.05, 2.05, 0.5], device=dev)
+        M[2] = False
+        kw = (cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+        k = vg.kernel_params(*kw)
+        what = (f"S=3 N={n} cells={k['n_cells']} at {tag} (frame 0: NaN points; 1: every "
+                "point in one cell; 2: all dropped)")
+        check_pair(report, "K6", what, lambda: vg.accumulate_bf16x3_stacked(P, M, *kw),
+                   lambda: vg.accumulate_bf16x3_stacked_plain(P, M, *kw))
+        out = check_pair(report, k6f, what, lambda: vg.accumulate_f32_stacked(P, M, *kw),
+                         lambda: vg.accumulate_f32_stacked_plain(P, M, *kw))
+        if int(out[0][1, 3].max()) != int(M[1].sum()) or bool((out[0][2] != 0).any()):
+            fail(f"K6f at {tag}: the one-cell frame or the all-dropped frame lost points")
+        gx, gyz = k["gx"], k["gy"] * k["gz"]
+        ok, lin, _ = vg.kept_cells(P, torch.ones_like(M), k)
+        ix, iyz = (lin % gx).to(torch.int32), (lin // gx).to(torch.int32)
+        ix[:, :64], iyz[:, :64], ok[:, :64] = gx - 1, gyz - 1, True
+        ok[2] = False
+        check_pair(report, "K6 keys", f"{what}, keys at n_cells - 1",
+                   lambda: (vg.accumulate_bf16x3_keys(P, ix, iyz, ok, gx, gyz),),
+                   lambda: (vg.accumulate_bf16x3_keys_plain(P, ix, iyz, ok, gx, gyz),))
+
+
 def pointlist_rows(dev, cfg, P, M):
     """The compacted dynamic voxels the point list feeds its CC: (S, M, 3)
     points and (S, M) mask of the frames P, M under ``cfg``."""
@@ -794,6 +885,7 @@ def kernel_wrappers():
         "K1-cm raw": vg.accumulate_fast_stacked_cm_raw,
         "K2": grid_cuda.fused_finalize_static_cc_stacked,
         "K3": centroid_cuda.pair_stats,
+        "K3f": centroid_cuda.circumcenter_features,
         "K4": track_cuda.track_frames,
         "K4 scan": assign_cuda.assoc_scan,
         "K5": vg.accumulate_exact_stacked,
@@ -820,18 +912,21 @@ def read_counts():
     return {k: w.launches for k, w in kernel_wrappers().items()}
 
 
-FAST_PATH = ("K1", "K2", "K3", "K4")   # the kernels each path must launch
-TAIL = ("K2", "K3", "K4")
-FLEET_PATH = ("K1 raw", "K1 fin", "K2", "K3", "K4")
-FLEET_C_PATH = ("K6f", "K8", "K3", "K4")
+FAST_PATH = ("K1", "K2", "K3f", "K4")   # the kernels each path must launch
+TAIL = ("K2", "K3f", "K4")
+FLEET_PATH = ("K1 raw", "K1 fin", "K2", "K3f", "K4")
+FLEET_C_PATH = ("K6f", "K8", "K3f", "K4")
 
 
 def require(tag, counts, need, report):
-    """Fail unless every kernel of ``need`` launched in this path's run;
-    add the run's counts to the report."""
+    """Fail unless every kernel of ``need`` launched in this path's run,
+    and unless a tracking path (one that needs K3f) launched no K3; add the
+    run's counts to the report."""
     missing = [k for k in need if counts[k] <= 0]
     if missing:
         fail(f"{missing} not launched on the {tag} path: {counts}")
+    if "K3f" in need and counts["K3"]:
+        fail(f"the {tag} path launched K3 {counts['K3']} times (its circumcenter is K3f)")
     for k, c in counts.items():
         report.setdefault(k, {"max_abs_err": 0.0})
         report[k]["launches"] = report[k].get("launches", 0) + c
@@ -996,8 +1091,9 @@ def phase_modes(dev, report):
             fail(f"{tag}: non-finite pos/vel on valid lanes")
 
 
-def run_node(dev, tag, cfg, sc, golden, n_node, need, report):
-    """TrackerNode over n_node PointCloud2 frames against the golden."""
+def run_node(dev, tag, cfg, sc, golden, n_node, need, report, counts_out=None):
+    """TrackerNode over n_node PointCloud2 frames against the golden (the
+    run's launch counts into ``counts_out`` where given)."""
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
     from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
 
@@ -1016,6 +1112,8 @@ def run_node(dev, tag, cfg, sc, golden, n_node, need, report):
         f"{n_pub} published, n_dynamic {got['n_dynamic'].tolist()}, launches {counts}; "
         f"vs JAX golden max abs err {e}")
     require(f"{tag} TrackerNode", counts, need, report)
+    if counts_out is not None:
+        counts_out.update(counts)
     return got
 
 
@@ -1056,12 +1154,12 @@ def phase_pointlist(dev, report):
     """The point-list configurations C-G against their JAX goldens."""
     from multiple_object_tracking_lidar_tpu_torch import bench_cases
 
-    paths = (("C pointlist", bench_cases.pointlist_case, "pointlist", ("K6f", "K8", "K3", "K4")),
+    paths = (("C pointlist", bench_cases.pointlist_case, "pointlist", ("K6f", "K8", "K3f", "K4")),
              ("D pointlist jnp", bench_cases.pointlist_jnp_case, "pointlist",
-              ("K6f", "K8a", "K3", "K4")),
-             ("E scan", bench_cases.scan_case, "pointlist_scan", ("K8a", "K3", "K4")),
+              ("K6f", "K8a", "K3f", "K4")),
+             ("E scan", bench_cases.scan_case, "pointlist_scan", ("K8a", "K3f", "K4")),
              ("F runs", bench_cases.pointlist_runs_case, "pointlist_runs",
-              ("K7", "K8", "K3", "K4")))
+              ("K7", "K8", "K3f", "K4")))
     for tag, case, gold, need in paths:
         golden = dict(np.load(GOLDEN_PL[gold]))
         cfg, env, sc = case(device=dev)
@@ -1072,7 +1170,10 @@ def phase_pointlist(dev, report):
         log(f"[4 {tag}] bind_env_multi vs TrackerNode, first 12 frames: max abs err {e}")
     golden = dict(np.load(GOLDEN_PL["default"]))
     cfg, env, sc = bench_cases.default_case(device=dev)
-    run_node(dev, "G defaults", cfg, sc, golden, 4, ("K6f", "K8a", "K3", "K4"), report)
+    g_counts = {}
+    run_node(dev, "G defaults", cfg, sc, golden, 4, ("K6f", "K8a", "K3f", "K4"), report,
+             g_counts)
+    report.setdefault("K6f G", {"max_abs_err": 0.0})["launches"] = g_counts["K6f"]
 
 
 def fleet_frames(dev, sc, n, b, n_steps):
@@ -1153,7 +1254,7 @@ def phase_fleet(dev, report):
     acfg, aenv, _ = bench_cases.exact_case(device=dev)
     atracker = Tracker(acfg, dev)
     got, counts = run_fleet("kernel fleet A exact", ShardedTracker(atracker, mesh, kernel_path="on"),
-                            aenv, frames, ("K5 raw", "K5 fin", "K2", "K3", "K4"), report)
+                            aenv, frames, ("K5 raw", "K5 fin", "K2", "K3f", "K4"), report)
     per_stream_bind_env("kernel fleet A exact", atracker, aenv, frames, got)
     e_a = compare("kernel fleet A exact stream 0 vs exact golden frames 0-2",
                   {f: v[:, 0] for f, v in got.items()},
@@ -1235,6 +1336,8 @@ def phase_entry_points(dev, report, cfg, sc, table):
 
     from multiple_object_tracking_lidar_tpu_torch.ops import centroid_pallas
     from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid_cuda as vg
+    from multiple_object_tracking_lidar_tpu_torch.ops.centroid import (
+        circumcenter_from_pair_stats)
     from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid import accumulate_from_indices
 
     mp, mm = table
@@ -1261,14 +1364,18 @@ def phase_entry_points(dev, report, cfg, sc, table):
     m = (P0.shape[0] // block) * block
     acc6, _ = vg.accumulate_bf16x3_stacked(P0[None, :m].contiguous(), M0[None, :m], *kw)
     ps_dyn = centroid_pallas.pair_stats_pallas_dyn(mp, mm)
-    if not (equal(npy(dets10), npy(dets3)) and equal(npy(acc), npy(acc6[0]))
+    eager = npy(circumcenter_from_pair_stats(*ps, mp, mm, torch.tensor(1.5, device=dev)))
+    if not (equal(npy(dets10), eager) and equal(npy(dets3), eager)
+            and equal(npy(acc), npy(acc6[0]))
             and all(equal(npy(a), npy(b)) for a, b in zip(ps, ps_dyn))):
-        fail("slice 5 entry points: K10 against the K3 route, K6's key entry against its "
-             "quantizing entry, or pair_stats_pallas against pair_stats_pallas_dyn differ")
+        fail("slice 5 entry points: K10's or K3f's table against K3's stats and the eager "
+             "selection, K6's key entry against its quantizing entry, or pair_stats_pallas "
+             "against pair_stats_pallas_dyn differ")
     if not (np.isfinite(npy(dets10)).all() and int(acc[3].sum()) == int(ok[0, :m].sum())):
         fail("slice 5 entry points: non-finite detections or lost points")
-    log(f"[4 slice 5] circumcenter_features_table_pallas (K10) C={mp.shape[0]} P={mp.shape[1]} "
-        f"= the K3 route bit for bit; pair_stats_pallas(slab_rows=128) = _dyn; "
+    log(f"[4 slice 5] circumcenter_features_table_pallas (K10) and _v2 (K3f) C={mp.shape[0]} "
+        f"P={mp.shape[1]} = K3's stats and the eager selection bit for bit; "
+        f"pair_stats_pallas(slab_rows=128) = _dyn; "
         f"accumulate_from_indices N={P0.shape[0]} block={block}: {int(acc[3].sum())} points in "
         f"{int((acc[3] > 0).sum())} cells = K6's quantizing entry bit for bit; launches {counts}")
 
@@ -1502,6 +1609,9 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
                               cfg.min_cluster_size, cfg.max_cluster_size,
                               caps.c_max_clusters, caps.p_max_cluster)
     mp, mm = ctab.mpts[3].contiguous(), ctab.member_mask[3].contiguous()
+    mp8 = ctab.mpts.reshape(-1, caps.p_max_cluster, 3).contiguous()
+    mm8 = ctab.member_mask.reshape(-1, caps.p_max_cluster).contiguous()
+    T8 = T[:8].contiguous()
     K, D = caps.k_max_tracks, caps.c_max_clusters
     g = np.random.default_rng(5)
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
@@ -1549,7 +1659,19 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
     gx, gyz = k1p["gx"], k1p["gy"] * k1p["gz"]
     ix8, iyz8 = (lin % gx).to(torch.int32), (lin // gx).to(torch.int32)
     n_off, iters = len(offsets), int(outs[3].sum())
-    members = mm.sum(dim=1).to(torch.float64)
+    # configuration G's grid for K6f: 8 frames of 131,072 points
+    gcfg, _, gsc = bench_cases.default_case()
+    gp, gm, _ = headline_frames(gsc, gcfg.caps.n_max_points, range(8))
+    GP8, GM8 = torch.from_numpy(gp).to(dev), torch.from_numpy(gm).to(dev)
+    gkw = (gcfg.scene, gcfg.voxel_leaf_size, gcfg.leaf_z)
+    gk = vg.kernel_params(*gkw)
+    g_ok, g_lin, _ = vg.kept_cells(GP8, GM8, gk)
+    g_kept, g_nc = int(g_ok.sum()), gk["n_cells"]
+    g_frame = torch.arange(8, device=dev)[:, None]
+    g_tgt = torch.where(g_ok, g_frame * g_nc + g_lin, 8 * g_nc).reshape(-1)
+    g_vals4 = torch.cat([torch.where(g_ok[..., None], GP8, 0.0), g_ok[..., None].float()],
+                        -1).reshape(-1, 4)
+    g_base = torch.zeros((8 * g_nc + 1, 4), dtype=torch.float32, device=dev)
     _, k8_sweeps = cluster_pallas.connected_components_pallas(cpts, cmsk, tol, sweeps,
                                                               with_sweeps=True)
     v8 = cmsk.sum(dim=1).to(torch.float64)
@@ -1580,7 +1702,7 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
         "K3": (lambda: centroid_cuda.pair_stats(mp, mm),
                lambda: centroid_cuda.pair_stats_plain(mp, mm),
                f"C=32 P=384, {int(mm.any(1).sum())} active slots", (mp, mm),
-               int((9 * members * members + 3 * members).sum()), None),
+               scan_ops(mm, False), None),
         "K4": (lambda: track_cuda.track_frames(*t4, **kwt),
                lambda: track_cuda.track_frames_plain(*t4, **kwt),
                f"K={K} 1 x 1 frame, D={D}, {int(t4[2].sum())} valid detections", t4,
@@ -1592,10 +1714,14 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
         "K4 scan": (lambda: assign_cuda.assoc_scan(*a4, **kw4),
                     lambda: assign_cuda.assoc_scan_plain(*a4, **kw4),
                     "K=64 D=32, 4 valid detections", a4, 12 * K * 4, None),
+        "K3f": (lambda: centroid_cuda.circumcenter_features(mp8, mm8, T8),
+                lambda: centroid_cuda.circumcenter_features_plain(mp8, mm8, T8),
+                f"S=8 x C=32 P=384 stacked, {int(mm8.any(1).sum())} active slots", (mp8, mm8, T8),
+                scan_ops(mm8, True), None),
         "K10": (lambda: centroid_cuda.circumcenter_xy(mp, mm),
                 lambda: centroid_cuda.circumcenter_xy_plain(mp, mm),
                 f"C=32 P=384, {int(mm.any(1).sum())} active slots", (mp, mm),
-                int((9 * members * members + 3 * members).sum()) + 12 * mm.numel(), None),
+                scan_ops(mm, True), None),
         "K1-cm": (lambda: vg.accumulate_fast_stacked_cm(Pcm8, M8, *kw1),
                   lambda: vg.accumulate_fast_stacked_cm_plain(Pcm8, M8, *kw1),
                   "S=8 frames x 106496 points, (S, 3, N)", (Pcm8, M8),
@@ -1627,6 +1753,10 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
                 lambda: vg.accumulate_f32_stacked_plain(P8, M8, *kw1),
                 "S=8 frames x 106496 points", (P8, M8), 20 * kept,
                 lambda: torch.index_add(base, 0, tgt, vals4)),
+        "K6f G": (lambda: vg.accumulate_f32_stacked(GP8, GM8, *gkw),
+                  lambda: vg.accumulate_f32_stacked_plain(GP8, GM8, *gkw),
+                  f"S=8 frames x {GP8.shape[1]} points at G's grid ({g_nc} cells)", (GP8, GM8),
+                  20 * g_kept, lambda: torch.index_add(g_base, 0, g_tgt, g_vals4)),
         "K7": (lambda: segsum_cuda.segment_totals(ks, *vals),
                lambda: segsum_cuda.segment_totals_plain(ks, *vals),
                "S=8 frames x 106496 sorted rows", (ks,) + tuple(vals), 6 * ks.numel(),
@@ -1640,13 +1770,21 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
                "S=8 frames x 106496 sorted rows x 4 channels", (ks, v4), 8 * ks.numel(),
                lambda: torch.segment_reduce(rows4, "sum", lengths=runs, axis=0)),
     }
+    # K3, K10 and K3f read only the members' rows (and K10 / K3f row 0 of a
+    # slot without members, their fallback), the mask and t
+    scan_bytes = {
+        "K3": lambda: scan_bytes_read(mm, False) + nbytes(centroid_cuda.pair_stats(mp, mm)),
+        "K10": lambda: scan_bytes_read(mm, True) + nbytes(centroid_cuda.circumcenter_xy(mp, mm)),
+        "K3f": lambda: (scan_bytes_read(mm8, True) + nbytes(T8)
+                        + nbytes(centroid_cuda.circumcenter_features(mp8, mm8, T8))),
+    }
     for name, (fk, fp, shape, ins, ops, lib) in pairs.items():
-        reps_p = 2 if name in ("K6", "K6f", "K6 keys") else 5
+        reps_p = 2 if name in ("K6", "K6f", "K6 keys", "K6f G") else 5
         ms_p = cuda_ms(fp, reps_p)
         ms_k = cuda_ms(fk, 50)
         ms_k2 = cuda_ms(fk, 50)
         ms_p2 = cuda_ms(fp, reps_p)
-        moved = nbytes(ins) + nbytes(fk())
+        moved = scan_bytes[name]() if name in scan_bytes else nbytes(ins) + nbytes(fk())
         t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
         entry = report[name]
         entry["ms"] = min(ms_k, ms_k2)
@@ -1660,6 +1798,24 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
             f"({moved} bytes, {ops} operations); library call "
             f"{'none' if lib is None else format(entry['library_ms'], '.4f') + ' ms'}")
     return ms_single, ms_multi
+
+
+def scan_ops(mm, line_scan: bool) -> int:
+    """Operations K3's scan needs on a member mask (C, P): 9 per member
+    pair i < j (the gram's 3 products and 2 sums, d2's 3 terms, the
+    compare), 11 per member (the mean's sum, the centring, |p|^2); with
+    ``line_scan`` (K10, K3f) 12 more per member for the line distance and
+    the equality tests."""
+    n = mm.sum(dim=1).to(torch.float64)
+    return int((9 * n * (n - 1) / 2 + (23 if line_scan else 11) * n).sum())
+
+
+def scan_bytes_read(mm, fallback_row: bool) -> int:
+    """Bytes K3's scan must read from a member table: the members' rows
+    (12 bytes each), the mask, and with ``fallback_row`` row 0 of each slot
+    without members."""
+    rows = int(mm.sum()) + (int((mm.sum(dim=1) == 0).sum()) if fallback_row else 0)
+    return 12 * rows + nbytes(mm)
 
 
 def nbytes(x) -> int:
@@ -1718,8 +1874,11 @@ KERNELS = (
      f"{PKG}/csrc/voxel_grid.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1900"),
     ("K2", "fused finalize + static drop + grid CC, one thread-block cluster per frame",
      f"{PKG}/csrc/grid_cc.cu", "multiple_object_tracking_lidar_tpu/ops/grid_pallas.py:288"),
-    ("K3", "farthest-pair column stats",
+    ("K3", "farthest-pair column stats (its own and the JAX-named entries; no tracking path)",
      f"{PKG}/csrc/centroid.cu", "multiple_object_tracking_lidar_tpu/ops/centroid_pallas.py:415"),
+    ("K3f", "the tracking paths' whole circumcenter feature [x, y, 0, t] in one launch (K10's "
+     "kernel body; replaces the pair stats kernel and the jnp selection after it)",
+     f"{PKG}/csrc/circumcenter.cu", "multiple_object_tracking_lidar_tpu/ops/centroid_pallas.py:456"),
     ("K4", "the whole greedy + LPF track step (decision scan, window updates, chained IHGP "
      "passes, LPF, expiry), one CTA per bank, S frames scanned in order",
      f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188"),
@@ -1737,6 +1896,9 @@ KERNELS = (
      f"{PKG}/csrc/voxel_bf16x3.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:408"),
     ("K6f", "K6 f32 mode: the point-list scatter-add's sums in ascending point index "
      "(no TPU kernel: an XLA scatter)",
+     f"{PKG}/csrc/voxel_bf16x3.cu", "multiple_object_tracking_lidar_tpu/ops/voxel.py:96"),
+    ("K6f G", "K6 f32 mode at configuration G's grid (193,536 cells, N = 131,072; timed at "
+     "S = 8, launched on G's path)",
      f"{PKG}/csrc/voxel_bf16x3.cu", "multiple_object_tracking_lidar_tpu/ops/voxel.py:96"),
     ("K7", "segmented prefix totals over sorted rows",
      f"{PKG}/csrc/segsum.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_pallas.py:316"),
@@ -1773,6 +1935,7 @@ def main() -> int:
     phase_kernels_pointlist(dev, report, cfg, k1_inputs)
     phase_kernels_fleet(dev, report, cfg, k1_inputs)
     phase_kernels_slice5(dev, report, cfg, k1_inputs, table)
+    phase_kernels_slice7(dev, report)
     tracker, env, frames = phase_slice(dev, cfg, sc, report)
     phase_modes(dev, report)
     phase_pointlist(dev, report)

@@ -64,15 +64,16 @@ SIGNATURES = {
     "motl_grid_cc_max_cluster": [_I, _P],
     "motl_pair_stats": [_P, _P, _I, _I, _P, _P, _P],
     "motl_circumcenter": [_P, _P, _I, _I, _P, _P],
+    "motl_circumcenter_features": [_P, _P, _P, _I, _I, _I, _P, _P],
     "motl_assoc_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P,
                         _P, _P],
     "motl_track_step": [*[_P] * 16, _I, _I, _I, _I, _I, *[_F] * 7, _I, *[_P] * 17],
     "motl_voxel_exact": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
-    "motl_voxel_bf16x3": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                          _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
-    "motl_voxel_bf16x3_keys": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                               _P, _P, _I, _P, _I, _I, _P],
+    "motl_voxel_bf16x3": [_P, _P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _I, _I,
+                          _I, _I, _I, _F, _F, _I, _P],
+    "motl_voxel_bf16x3_keys": [_P, _P, _P, _P, _I, _I, _I, _I, *[_P] * 7, _I,
+                               _I, _P],
     "motl_segment_totals": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                             _P],
     "motl_segment_totals_rows": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
@@ -190,3 +191,14 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def byte_mask(mask):
+    """A mask as the kernels read it, one byte per element, nonzero = set:
+    a bool or uint8 tensor as it is (no launch), any other dtype compared
+    with zero."""
+    import torch
+
+    if mask.dtype not in (torch.bool, torch.uint8):
+        mask = mask != 0
+    return mask.contiguous()

@@ -2,26 +2,28 @@
 //
 // Replaces the Pallas kernel multiple_object_tracking_lidar_tpu/ops/
 // centroid_pallas.py::pair_stats_pallas_dyn (body _kernel_v5_dyn).  For a
-// slot with members, centre them (pc = (p - mean) * member), take
+// slot with members, centre them (pc = p - mean), take
 //   d2[i, j] = (sq_i + sq_j) - 2 * ((x_i x_j + y_i y_j) + z_i z_j),
 //   sq_i = (x_i^2 + y_i^2) + z_i^2,
-// masked to member pairs i < j (else -1), and return per column j
-// colmax[j] = max_i d2m[i, j] and firstrow[j] = the smallest i reaching it.
-// A slot without members returns the init values (-1, P) at once: this
-// replaces the TPU kernel's dynamic loop bound (last active slot + 1).
+// over member pairs i < j, and return per column j colmax[j] = the
+// maximum d2 by the serial rule (ascending rows, strict '>' from -1: a NaN
+// never wins) and firstrow[j] = the first row reaching it; (-1, 0) for a
+// column without a member pair, (-1, P) for every column of a slot without
+// members.  The empty slot replaces the TPU kernel's dynamic loop bound
+// (last active slot + 1).
 //
-// What bounds it on the H100: nothing much -- P^2/2 = 74k pair terms per
-// active slot at P = 384, a handful of active slots per frame; the cost is
-// the launch.  Design: one CTA per slot; the centred members sit in shared
-// memory; each thread owns columns j and scans rows i < j in ascending
-// order with a strict '>' update, so ties keep the first row.  The gram is
-// computed in the fixed order written above, with __fmul_rn / __fadd_rn /
-// __fsub_rn (no FMA), so it matches the plain PyTorch version bit for bit.
-// The member mean is a sequential f64 sum of the f32 coordinates, rounded
-// to f32, divided by the f32 member count.  Mean, centring and column scan
-// live in pair_scan.cuh, shared with K10 (circumcenter.cu).
-// Selection, the line scan and the determinant stay in eager PyTorch
-// (ops/centroid.py::circumcenter_from_pair_stats).
+// No tracking path launches it: they run the whole circumcenter feature in
+// one launch (K3f, circumcenter.cu).  This entry keeps the column
+// statistics for pair_stats and the JAX-named entries
+// (ops/centroid_pallas.py).
+//
+// What bounds it on the H100: the launch -- a handful of active slots of
+// n^2 / 2 pair terms (74k at n = 384) per call.  Design: one CTA of 512
+// threads per slot; the compaction, staging, mean and banded pair scan of
+// pair_scan.cuh (shared with K10 and K3f, so the three compute d2 in one
+// order); the compacted columns' statistics are then spread back over the
+// slot's P lanes.  An empty slot writes its init values and returns before
+// reading a coordinate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,37 +32,32 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+using namespace pair_scan;
 
 __global__ void __launch_bounds__(kThreads)
 pair_stats_kernel(const float* __restrict__ mpts, const uint8_t* __restrict__ mm,
                   int P, float* __restrict__ colmax, int* __restrict__ firstrow) {
-  extern __shared__ float sh[];  // pcx, pcy, pcz, sq: 4 * P floats
-  __shared__ float s_mean[3];
-  __shared__ int s_cnt;
-  float* pcx = sh;
-  float* pcy = sh + P;
-  float* pcz = sh + 2 * P;
-  float* sq = sh + 3 * P;
+  extern __shared__ float sh[];
+  __shared__ Scratch ss;
+  const Slot s = slot_layout(sh, P);
   const int c = blockIdx.x;
-  const float* M = mpts + (size_t)c * P * 3;
-  const uint8_t* mk = mm + (size_t)c * P;
   float* cm = colmax + (size_t)c * P;
   int* fr = firstrow + (size_t)c * P;
 
-  member_mean(M, mk, P, s_mean, &s_cnt);
-  __syncthreads();
-  if (s_cnt == 0) {
-    for (int j = threadIdx.x; j < P; j += blockDim.x) {
+  const int n = compact_members(mm + (size_t)c * P, P, s, ss);
+  if (n == 0) {
+    for (int j = threadIdx.x; j < P; j += kThreads) {
       cm[j] = -1.0f;
       fr[j] = P;
     }
     return;
   }
-  centre_members(M, mk, P, s_mean, pcx, pcy, pcz, sq);
-  __syncthreads();
-  for (int j = threadIdx.x; j < P; j += blockDim.x)
-    column_max(j, mk, pcx, pcy, pcz, sq, &cm[j], &fr[j]);
+  scan_slot(mpts + (size_t)c * P * 3, P, n, s, ss);
+  for (int j = threadIdx.x; j < P; j += kThreads) {
+    const int r = s.rank[j];
+    cm[j] = r >= 0 ? s.cm[r] : -1.0f;
+    fr[j] = r >= 0 ? s.fr[r] : 0;
+  }
 }
 
 }  // namespace
@@ -68,7 +65,8 @@ pair_stats_kernel(const float* __restrict__ mpts, const uint8_t* __restrict__ mm
 // mpts (C, P, 3) f32, mm (C, P) u8 -> colmax (C, P) f32, firstrow (C, P) i32.
 extern "C" int motl_pair_stats(const float* mpts, const uint8_t* mm, int C, int P,
                                float* colmax, int* firstrow, void* stream) {
-  const size_t smem = (size_t)4 * P * sizeof(float);
+  if (C < 1 || P < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = slot_smem_bytes(P);
   cudaError_t err = cudaFuncSetAttribute(
       pair_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

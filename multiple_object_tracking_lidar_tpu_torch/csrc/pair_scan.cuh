@@ -1,77 +1,221 @@
-// The farthest-pair scan of one cluster slot, shared by K3 (centroid.cu)
-// and K10 (circumcenter.cu), so that both compute d2 in one written order:
-//   mean  = f32(sequential f64 sum of the member coordinates) / f32(count)
-//   pc_i  = p_i - mean for members, 0 elsewhere
+// The farthest-pair scan of one cluster slot, shared by K3 (centroid.cu),
+// K10 and K3f (circumcenter.cu), so that all three compute d2 in one
+// written order:
+//   mean  = f32(sequential f64 sum of the member coordinates, ascending
+//           lane) / f32(count)
+//   pc_i  = p_i - mean for members
 //   sq_i  = (x_i^2 + y_i^2) + z_i^2
 //   d2[i, j] = (sq_i + sq_j) - 2 * ((x_i x_j + y_i y_j) + z_i z_j)
 // with every product and sum rounded on its own (__fmul_rn / __fadd_rn /
-// __fsub_rn, no FMA): the plain PyTorch version (ops/centroid_cuda.py::
-// pair_stats_plain) runs the same elementwise ops.
+// __fsub_rn, no FMA, no tensor cores: the gram's separately rounded
+// products have no wgmma or mma counterpart): the plain PyTorch version
+// (ops/centroid_cuda.py::pair_stats_plain) runs the same elementwise ops.
+//
+// Column j's statistics: colmax = max over member rows i < j of d2[i, j],
+// taken by the serial rule "rows in ascending order, update on a strict
+// '>' from -1" -- so a NaN d2 never wins and ties keep the first row --
+// and firstrow = the row reaching it; (-1, row 0) where column j has no
+// member pair.
+//
+// Design (one CTA of kThreads = 512 per slot; the slot is 4.6 KB at P = 384):
+//  1. compaction: a stable block-wide prefix sum over the mask gives each
+//     member its rank and keeps its original lane, so the triangle is
+//     n_members^2, not P^2; a slot without members is known here, before
+//     any coordinate is read;
+//  2. staging: the slot's (P, 3) rows, one coalesced copy into shared
+//     memory (16-byte loads where aligned), then the members gathered into
+//     three padded coordinate arrays;
+//  3. the mean: threads 0-2 each sum one axis in ascending lane from
+//     shared memory (a tree or shuffle f64 sum is not bit-exact: f32 values
+//     whose exponents span more than ~20 bits do not add exactly in f64);
+//  4. the pair scan: one warp per compacted column, its rows split over the
+//     32 lanes (lane l takes rows l, l + 32, ...), each lane keeping a
+//     partial (best, row) by the serial rule; the partials merge by larger
+//     value, then smaller row -- exact in any order, so the split keeps the
+//     serial rule's bits.
+// Every tie rule and fallback is stated on original lanes.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
 
-// Threads 0-2 each sum one axis of the members of M (P, 3); s_mean and
-// s_cnt hold the mean and the member count after the caller's barrier.
-static __device__ __forceinline__ void member_mean(const float* __restrict__ M,
-                                                   const uint8_t* __restrict__ mk, int P,
-                                                   float* s_mean, int* s_cnt) {
-  if (threadIdx.x < 3) {
-    double acc = 0.0;
-    int cnt = 0;
-    for (int i = 0; i < P; ++i) {
-      if (mk[i]) {
-        acc += (double)M[3 * i + threadIdx.x];
-        ++cnt;
-      }
+namespace pair_scan {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+
+// The slot's shared memory: raw (3P floats, the rows as in global memory);
+// the compacted members' centred coordinates pcx / pcy / pcz (P + 1 floats
+// each, so the mean's three threads read three banks) and sq (P); the
+// compacted columns' cm (P floats) and fr (P ints, original lanes); lane
+// (P ints: compacted index -> original lane) and rank (P ints: lane ->
+// compacted index, -1 for a non-member).
+struct Slot {
+  float *raw, *pcx, *pcy, *pcz, *sq, *cm;
+  int *fr, *lane, *rank;
+};
+
+inline size_t slot_smem_bytes(int P) { return (size_t)(11 * P + 3) * sizeof(float); }
+
+__device__ __forceinline__ Slot slot_layout(float* sh, int P) {
+  Slot s;
+  s.raw = sh;
+  s.pcx = sh + 3 * P;
+  s.pcy = s.pcx + (P + 1);
+  s.pcz = s.pcy + (P + 1);
+  s.sq = s.pcz + (P + 1);
+  s.cm = s.sq + P;
+  s.fr = reinterpret_cast<int*>(s.cm + P);
+  s.lane = s.fr + P;
+  s.rank = s.lane + P;
+  return s;
+}
+
+// Per-CTA scratch for the block-wide scans and reductions.
+struct Scratch {
+  int warp_cnt[kWarps];
+  float mean[3];
+  float red_v[kWarps];
+  int red_a[kWarps];
+  int red_b[kWarps];
+};
+
+// Step 1: rank[j] and lane[rank] for every member (stable, ascending
+// lane); returns the member count in every thread, behind a barrier.
+__device__ __forceinline__ int compact_members(const uint8_t* __restrict__ mk, int P,
+                                               const Slot& s, Scratch& ss) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  int base = 0;
+  for (int j0 = 0; j0 < P; j0 += kThreads) {
+    const int j = j0 + threadIdx.x;
+    const bool m = j < P && mk[j] != 0;
+    const unsigned bal = __ballot_sync(0xffffffffu, m);
+    if (l == 0) ss.warp_cnt[w] = __popc(bal);
+    __syncthreads();
+    int before = base, total = base;
+    for (int v = 0; v < kWarps; ++v) {
+      before += v < w ? ss.warp_cnt[v] : 0;
+      total += ss.warp_cnt[v];
     }
-    s_mean[threadIdx.x] = __double2float_rn(acc) / fmaxf((float)cnt, 1.0f);
-    if (threadIdx.x == 0) *s_cnt = cnt;
+    const int pos = before + __popc(bal & ((1u << l) - 1u));
+    if (j < P) s.rank[j] = m ? pos : -1;
+    if (m) s.lane[pos] = j;
+    base = total;
+    __syncthreads();  // warp_cnt is rewritten by the next tile
   }
+  return base;
 }
 
-// The centred members and their squared norms, into shared memory (valid
-// after the caller's barrier).
-static __device__ __forceinline__ void centre_members(const float* __restrict__ M,
-                                                      const uint8_t* __restrict__ mk, int P,
-                                                      const float* s_mean, float* pcx,
-                                                      float* pcy, float* pcz, float* sq) {
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const bool m = mk[i] != 0;
-    const float x = m ? __fsub_rn(M[3 * i], s_mean[0]) : 0.0f;
-    const float y = m ? __fsub_rn(M[3 * i + 1], s_mean[1]) : 0.0f;
-    const float z = m ? __fsub_rn(M[3 * i + 2], s_mean[2]) : 0.0f;
-    pcx[i] = x;
-    pcy[i] = y;
-    pcz[i] = z;
-    sq[i] = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+// Steps 2-4 for a slot with n > 0 members: stage, gather, mean, centre,
+// scan.  Afterwards (behind a barrier) raw holds the slot's rows and cm /
+// fr the statistics of every compacted column.
+__device__ __forceinline__ void scan_slot(const float* __restrict__ M, int P, int n,
+                                          const Slot& s, Scratch& ss) {
+  // 2. staging: one coalesced copy of the rows, then the members gathered
+  const int n_words = 3 * P;
+  if ((reinterpret_cast<uintptr_t>(M) & 15) == 0 && (n_words & 3) == 0) {
+    const float4* src = reinterpret_cast<const float4*>(M);
+    float4* dst = reinterpret_cast<float4*>(s.raw);
+    for (int k = threadIdx.x; k < n_words / 4; k += kThreads) dst[k] = src[k];
+  } else {
+    for (int k = threadIdx.x; k < n_words; k += kThreads) s.raw[k] = M[k];
   }
-}
+  __syncthreads();
+  for (int ii = threadIdx.x; ii < n; ii += kThreads) {
+    const int L = s.lane[ii];
+    s.pcx[ii] = s.raw[3 * L];
+    s.pcy[ii] = s.raw[3 * L + 1];
+    s.pcz[ii] = s.raw[3 * L + 2];
+  }
+  __syncthreads();
 
-// Column j: colmax = max over member rows i < j of d2[i, j] and firstrow =
-// the smallest row reaching it (rows in ascending order, strict '>'); -1
-// and row 0 where column j has no member pair.
-static __device__ __forceinline__ void column_max(int j, const uint8_t* __restrict__ mk,
-                                                  const float* pcx, const float* pcy,
-                                                  const float* pcz, const float* sq,
-                                                  float* colmax, int* firstrow) {
-  float best = -1.0f;
-  int row = 0;
-  if (mk[j]) {
-    const float xj = pcx[j], yj = pcy[j], zj = pcz[j], sqj = sq[j];
-    for (int i = 0; i < j; ++i) {
-      if (!mk[i]) continue;
-      const float g = __fadd_rn(__fadd_rn(__fmul_rn(pcx[i], xj), __fmul_rn(pcy[i], yj)),
-                                __fmul_rn(pcz[i], zj));
-      const float d2 = __fsub_rn(__fadd_rn(sq[i], sqj), __fmul_rn(2.0f, g));
+  // 3. the mean: one sequential f64 sum per axis, ascending lane
+  if (threadIdx.x < 3) {
+    const float* a = threadIdx.x == 0 ? s.pcx : (threadIdx.x == 1 ? s.pcy : s.pcz);
+    double acc = 0.0;
+#pragma unroll 8
+    for (int ii = 0; ii < n; ++ii) acc += (double)a[ii];
+    ss.mean[threadIdx.x] = __double2float_rn(acc) / fmaxf((float)n, 1.0f);
+  }
+  __syncthreads();
+  for (int ii = threadIdx.x; ii < n; ii += kThreads) {
+    const float x = __fsub_rn(s.pcx[ii], ss.mean[0]);
+    const float y = __fsub_rn(s.pcy[ii], ss.mean[1]);
+    const float z = __fsub_rn(s.pcz[ii], ss.mean[2]);
+    s.pcx[ii] = x;
+    s.pcy[ii] = y;
+    s.pcz[ii] = z;
+    s.sq[ii] = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+  }
+  __syncthreads();
+
+  // 4. the pair scan: warp w takes compacted columns w, w + kWarps, ...
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  for (int jj = w; jj < n; jj += kWarps) {
+    const float xj = s.pcx[jj], yj = s.pcy[jj], zj = s.pcz[jj], sqj = s.sq[jj];
+    float best = -1.0f;
+    int row = INT_MAX;
+    for (int ii = l; ii < jj; ii += 32) {
+      const float g = __fadd_rn(__fadd_rn(__fmul_rn(s.pcx[ii], xj), __fmul_rn(s.pcy[ii], yj)),
+                                __fmul_rn(s.pcz[ii], zj));
+      const float d2 = __fsub_rn(__fadd_rn(s.sq[ii], sqj), __fmul_rn(2.0f, g));
       if (d2 > best) {
         best = d2;
-        row = i;
+        row = ii;
       }
     }
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+      const int orow = __shfl_xor_sync(0xffffffffu, row, o);
+      if (ob > best || (ob == best && orow < row)) {
+        best = ob;
+        row = orow;
+      }
+    }
+    if (l == 0) {
+      s.cm[jj] = best;
+      s.fr[jj] = best > -1.0f ? s.lane[row] : 0;
+    }
   }
-  *colmax = best;
-  *firstrow = row;
+  __syncthreads();
 }
+
+// Block-wide lexicographic choice of (v, a, b): larger v, then smaller a,
+// then smaller b.  Every thread calls it in the same order and gets the
+// winner; exact in any order of merging.
+__device__ __forceinline__ void block_best(float& v, int& a, int& b, Scratch& ss) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int oa = __shfl_xor_sync(0xffffffffu, a, o);
+    const int ob = __shfl_xor_sync(0xffffffffu, b, o);
+    if (ov > v || (ov == v && (oa < a || (oa == a && ob < b)))) {
+      v = ov;
+      a = oa;
+      b = ob;
+    }
+  }
+  __syncthreads();  // the previous call's readers are done with red_*
+  if ((threadIdx.x & 31) == 0) {
+    ss.red_v[threadIdx.x >> 5] = v;
+    ss.red_a[threadIdx.x >> 5] = a;
+    ss.red_b[threadIdx.x >> 5] = b;
+  }
+  __syncthreads();
+  v = ss.red_v[0];
+  a = ss.red_a[0];
+  b = ss.red_b[0];
+  for (int k = 1; k < kWarps; ++k) {
+    const float ov = ss.red_v[k];
+    const int oa = ss.red_a[k], ob = ss.red_b[k];
+    if (ov > v || (ov == v && (oa < a || (oa == a && ob < b)))) {
+      v = ov;
+      a = oa;
+      b = ob;
+    }
+  }
+}
+
+}  // namespace pair_scan

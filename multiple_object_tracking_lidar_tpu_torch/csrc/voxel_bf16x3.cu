@@ -15,9 +15,9 @@
 // voxel_grid.py::_accumulate_pallas (body _acc_kernel), the TPU's first
 // one-hot accumulator, whose caller quantizes: it takes precomputed ix,
 // iyz and in_bounds and sums the same bf16x3 parts over the (gyz, gx) grid.
-// Its stage 1 takes the key in_bounds ? iyz * gx + ix : -1 instead of
+// Its first stage takes the key in_bounds ? iyz * gx + ix : -1 instead of
 // quantizing, and drops ix outside [0, gx) and iyz outside [0, gyz): no
-// one-hot row matches them (voxel_grid.py:314-317).  Stages 2-4 are shared.
+// one-hot row matches them (voxel_grid.py:314-317).  The rest is shared.
 //
 // Mode 1 (f32) is the point-list dense accumulator, ops/voxel.py::
 // voxel_accumulate: no Pallas kernel, an XLA scatter-add of (x, y, z, 1),
@@ -32,39 +32,82 @@
 // plain PyTorch versions (ops/voxel_grid_cuda.py) run the same adds in the
 // same order.
 //
-// How the order is reached:
-//  1. key/count: grid (chunks of `chunk` points, S); each point's cell key
-//     (-1 when dropped) and integer-atomic counts per (cell, chunk);
-//  2. scan, three kernels: the exclusive scan of the counts laid out
-//     cell-major, chunk-minor, cut into up to 1,024 segments per frame
-//     (segment totals, their scan, each segment's own warp-cooperative,
-//     coalesced scan): the offset of every (cell, chunk) run and the start
-//     of every cell;
-//  3. scatter: one warp per chunk walks its points in index order, 32 at a
-//     time; __match_any_sync ranks equal keys by lane, the group's lowest
-//     lane advances the (cell, chunk) counter, which only this warp owns.
-//     So the sorted list holds each cell's points in ascending index: a
-//     stable counting sort, deterministic without float atomics;
-//  4. sum: one thread per (frame, cell) walks its run in order.
+// How the order is reached: a stable LSD radix sort of the kept points'
+// cell keys, 8-bit digits (ceil(bits(n_cells) / 8) passes: 2 at the
+// headline's 5,500 cells, 3 at the default configuration's 193,536), over
+// tiles of kTile = 2,048 points, one CTA of 256 threads each:
+//  1. keys (grid (tiles, S)): each point's cell key, -1 when dropped, the
+//     tile's digit-0 histogram of the kept keys and its mask-nonzero count,
+//     written in full (nothing to zero first); the CTA also initialises
+//     its share of the frame's per-cell positions and zeroes its rows of
+//     the later passes' histograms;
+//  2. one pass per digit (grid (tiles, S)): each CTA reads the frame's
+//     (tile, digit) histogram and takes its own offsets (a scan over
+//     256 digits x tiles, from L2), ranks its tile's keys stably -- warp w
+//     owns 256 consecutive keys, walked 32 at a time, __match_any_sync
+//     ranking equal digits by lane, per-warp digit counters in shared
+//     memory, then a scan over the 8 warps per digit -- reorders the tile by
+//     digit in shared memory and writes it out in runs of consecutive
+//     positions.
+//     Dropped keys (-1) never enter: pass 0 skips them, so later passes
+//     see only the kept points.  Every pass but the last adds its output's
+//     next-digit histogram (integer atomics, aggregated by (tile, digit)
+//     within a warp step).  The last pass gathers the points' coordinates
+//     into sorted order instead of writing (key, index) pairs, and takes
+//     each cell's run from integer atomics on the sorted positions: the
+//     atomicMin of its first and the atomicMax of one past its last (one of
+//     each per cell and warp step).  The run is contiguous, so that is its
+//     start and its count, and no scan over n_cells is needed: at 193,536
+//     cells a one-CTA-per-frame scan took 0.25 ms on an H100, more than
+//     the sort.
+//     Tile 0 also adds up the frame's mask-nonzero count;
+//  3. sum (one thread per (frame, cell)): a run of at most kLong points is
+//     walked by its own thread over contiguous memory, kBatch points' loads
+//     in flight before their adds, as 16-byte loads (a thread's scalar
+//     loads touch one cache line per lane, which made the walk LSU-bound:
+//     27 us on an H100 at the headline, S = 1); a longer one by the whole
+//     warp, which stages 32 points at a time with one coalesced load (their
+//     bf16 parts computed in parallel) and adds them in order through
+//     shuffles -- every lane holds the same running sums.  So one dense
+//     cell costs its chain of dependent adds, not a dependent load per
+//     point.  (A warp takes its long runs one after another, which is why
+//     kLong is high: at thresholds of 64 and 256 the headline's wall cells,
+//     hundreds of points each and side by side, made the sum 3x slower
+//     than the rest on an H100.)
+// Launches per call: 2 + passes (4 at the headline, 5 at 193,536 cells),
+// and none in the wrapper (the mask is read as bytes, the kernels
+// initialise their own counters and make the point count).  No float
+// atomics.
 //
-// What bounds it on the H100: the serial per-cell walk.  A cell with m
-// points takes m dependent f32 adds, so one dense cell sets the kernel's
-// time; the point traffic itself is ~3 reads of 12 bytes per point.  The
-// design keeps the fixed order (it is the contract) and spreads cells over
-// threads.  The per-(cell, chunk) counters live in global memory, so there
-// is no shared-memory bound on the grid size, but they grow with it: at the
-// JAX package's default configuration (0.05 m leaf, 96 x 224 x 9 =
-// 193,536 cells, N = 131,072 in 64 chunks of 2,048) the counts and their
-// offsets take 193,536 * 64 * 4 B = 49.5 MB each per frame.  The scan is
-// therefore spread over up to 1,024 CTAs per frame (a single CTA would walk
-// 12.4 M counts in series); the memory stays, 0.8 GB for both arrays at
-// S = 8 of the card's 80 GB.  (The wrapper doubles the chunk where the
-// counters would pass 2^26 per frame.)
+// Scratch, O(N + digits x tiles + n_cells) per frame, laid out by the
+// wrapper (ops/voxel_grid_cuda.py::sorted_sums_plan): the keys (N), up to
+// two (key, index) buffers (2N each), the histograms (passes x tiles x
+// 256), the tiles' mask counts, the cells' first and end positions
+// (2 n_cells) and the sorted coordinates (3N floats).  At the default
+// configuration (N = 131,072, 193,536 cells) that is 5.9 MB per frame (the
+// counting sort it replaces kept a 49.5 MB count matrix and its offsets
+// per frame).
+//
+// What bounds it on the H100: its bytes.  The function reads 13 bytes per
+// point and writes 16 per cell (1.7 + 3.1 MB per default frame: ~1.4 us
+// at 3.35 TB/s); the sort moves ~80 bytes per point and ~24 per cell
+// through L2 and memory, so the design's floor is a few times the bound;
+// the dense-cell case is bound by its chain of dependent f32 adds (~4
+// cycles each), which the fixed order requires.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int kTile = 2048;     // points per CTA in the key and radix stages
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPerWarp = kTile / kWarps;   // 256 keys, 8 steps of 32
+constexpr int kSteps = kPerWarp / 32;
+constexpr int kRadix = 256;
+constexpr int kLong = 2048;     // a longer cell's run is summed by its warp
+constexpr int kBatch = 16;      // points whose loads a thread has in flight
 
 struct BfParams {
   int gx, gy, gz, bx, by, bz, n_cells;
@@ -78,21 +121,62 @@ __device__ __forceinline__ float bf16_rne(float v) {
   return __uint_as_float(u & 0xFFFF0000u);
 }
 
-__global__ void bf_key_count_kernel(const float* __restrict__ pts,
-                                    const uint8_t* __restrict__ mask, int n,
-                                    int chunk, int n_chunks, BfParams p,
-                                    int* __restrict__ keys,
-                                    int* __restrict__ counts) {
-  const int s = blockIdx.y;
-  const int c = blockIdx.x;
-  const float* P = pts + (size_t)s * n * 3;
-  const uint8_t* M = mask + (size_t)s * n;
-  int* K = keys + (size_t)s * n;
-  int* C = counts + (size_t)s * p.n_cells * n_chunks;
-  const int end = min(n, (c + 1) * chunk);
-  for (int i = c * chunk + threadIdx.x; i < end; i += blockDim.x) {
+// The per-frame scratch, as ops/voxel_grid_cuda.py::sorted_sums_plan lays
+// it out.
+struct Scratch {
+  int* keys;     // (S, N) pass 0's input: cell key, -1 when dropped
+  int* pairs;    // up to 2 buffers of (S, N) keys then (S, N) indices
+  int* hist;     // (passes, S, tiles, 256) digit counts per (tile, digit)
+  int* tilecnt;  // (S, tiles) mask-nonzero points per tile
+  int* cells;    // (S, 2, n_cells): each cell's first sorted position and
+                 // one past its last (INT_MAX and 0 while empty)
+  float* sorted; // (S, N, 3) kept points' coordinates in key order
+};
+
+// Stage 1's common tail: the tile's histogram and mask count, the zeroing
+// of the frame's share of the cell counters and later histograms.
+__device__ __forceinline__ void key_tile_tail(int* s_hist, int mcount, int* s_red,
+                                              const Scratch& sc, int S, int n_tiles,
+                                              int n_passes, int n_cells) {
+  const int s = blockIdx.y, tile = blockIdx.x, d = threadIdx.x;
+  for (int o = 16; o > 0; o >>= 1) mcount += __shfl_xor_sync(0xffffffffu, mcount, o);
+  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = mcount;
+  __syncthreads();
+  const size_t tile_row = ((size_t)s * n_tiles + tile) * kRadix;
+  sc.hist[tile_row + d] = s_hist[d];
+  for (int p = 1; p < n_passes; ++p)
+    sc.hist[(size_t)p * S * n_tiles * kRadix + tile_row + d] = 0;
+  if (threadIdx.x == 0) {
+    int m = 0;
+    for (int w = 0; w < kWarps; ++w) m += s_red[w];
+    sc.tilecnt[(size_t)s * n_tiles + tile] = m;
+  }
+  const int per = (n_cells + n_tiles - 1) / n_tiles;
+  int* first = sc.cells + (size_t)s * 2 * n_cells;
+  const int hi = min(n_cells, (tile + 1) * per);
+  for (int j = tile * per + threadIdx.x; j < hi; j += kThreads) {
+    first[j] = 0x7fffffff;
+    first[n_cells + j] = 0;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+key_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask, int S, int N,
+           int n_tiles, int n_passes, BfParams p, Scratch sc) {
+  __shared__ int s_hist[kRadix];
+  __shared__ int s_red[kWarps];
+  const int s = blockIdx.y, tile = blockIdx.x;
+  s_hist[threadIdx.x] = 0;
+  __syncthreads();
+  const float* P = pts + (size_t)s * N * 3;
+  const uint8_t* M = mask + (size_t)s * N;
+  int* K = sc.keys + (size_t)s * N;
+  int mcount = 0;
+  const int end = min(N, (tile + 1) * kTile);
+  for (int i = tile * kTile + threadIdx.x; i < end; i += kThreads) {
     int key = -1;
     if (M[i] != 0) {
+      ++mcount;
       const float fx = floorf(__fmul_rn(P[3 * i], p.inv_xy));
       const float fy = floorf(__fmul_rn(P[3 * i + 1], p.inv_xy));
       const float fz = floorf(__fmul_rn(P[3 * i + 2], p.inv_z));
@@ -101,316 +185,421 @@ __global__ void bf_key_count_kernel(const float* __restrict__ pts,
           fy >= (float)p.by && fy < (float)(p.by + p.gy) &&
           fz >= (float)p.bz && fz < (float)(p.bz + p.gz)) {
         key = ((int)fx - p.bx) + p.gx * (((int)fy - p.by) + p.gy * ((int)fz - p.bz));
-        atomicAdd(&C[(size_t)key * n_chunks + c], 1);
+        atomicAdd(&s_hist[key & (kRadix - 1)], 1);
       }
     }
     K[i] = key;
   }
+  __syncthreads();
+  key_tile_tail(s_hist, mcount, s_red, sc, S, n_tiles, n_passes, p.n_cells);
 }
 
 // Stage 1 of the key entry: the keys given as grid indices.
-__global__ void bf_key_count_idx_kernel(const int* __restrict__ ix,
-                                        const int* __restrict__ iyz,
-                                        const uint8_t* __restrict__ inb, int n,
-                                        int chunk, int n_chunks, int gx, int gyz,
-                                        int* __restrict__ keys,
-                                        int* __restrict__ counts) {
-  const int s = blockIdx.y;
-  const int c = blockIdx.x;
-  const int* X = ix + (size_t)s * n;
-  const int* YZ = iyz + (size_t)s * n;
-  const uint8_t* B = inb + (size_t)s * n;
-  int* K = keys + (size_t)s * n;
-  int* C = counts + (size_t)s * gx * gyz * n_chunks;
-  const int end = min(n, (c + 1) * chunk);
-  for (int i = c * chunk + threadIdx.x; i < end; i += blockDim.x) {
+__global__ void __launch_bounds__(kThreads)
+key_idx_kernel(const int* __restrict__ ix, const int* __restrict__ iyz,
+               const uint8_t* __restrict__ inb, int S, int N, int n_tiles, int n_passes,
+               int gx, int gyz, Scratch sc) {
+  __shared__ int s_hist[kRadix];
+  __shared__ int s_red[kWarps];
+  const int s = blockIdx.y, tile = blockIdx.x;
+  s_hist[threadIdx.x] = 0;
+  __syncthreads();
+  const int* X = ix + (size_t)s * N;
+  const int* YZ = iyz + (size_t)s * N;
+  const uint8_t* B = inb + (size_t)s * N;
+  int* K = sc.keys + (size_t)s * N;
+  int mcount = 0;
+  const int end = min(N, (tile + 1) * kTile);
+  for (int i = tile * kTile + threadIdx.x; i < end; i += kThreads) {
     int key = -1;
     const int x = X[i], yz = YZ[i];
-    if (B[i] != 0 && x >= 0 && x < gx && yz >= 0 && yz < gyz) {
-      key = yz * gx + x;
-      atomicAdd(&C[(size_t)key * n_chunks + c], 1);
+    if (B[i] != 0) {
+      ++mcount;
+      if (x >= 0 && x < gx && yz >= 0 && yz < gyz) {
+        key = yz * gx + x;
+        atomicAdd(&s_hist[key & (kRadix - 1)], 1);
+      }
     }
     K[i] = key;
   }
-}
-
-// The exclusive scan of the L = n_cells * n_chunks counts of each frame
-// runs over n_seg segments of seg_len counts, in three kernels: the total
-// of every segment (grid (n_seg, S)), the exclusive scan of those totals
-// (one CTA per frame, n_seg <= 1024), then every segment's own scan from its
-// base (grid (n_seg, S)).  offs gets the exclusive prefix of every
-// (cell, chunk) count; cell_start[cell] = offs[cell * n_chunks],
-// cell_start[n_cells] = the frame's kept-point total.  Integer adds: exact
-// in any order.
-__global__ void __launch_bounds__(256) bf_seg_total_kernel(const int* __restrict__ counts,
-                                                           int L, int seg_len, int n_seg,
-                                                           int* __restrict__ seg_tot) {
-  __shared__ int warp_sum[8];
-  const int s = blockIdx.y, g = blockIdx.x;
-  const int* C = counts + (size_t)s * L;
-  const int lo = min(L, g * seg_len), hi = min(L, lo + seg_len);
-  int sum = 0;
-  for (int j = lo + threadIdx.x; j < hi; j += blockDim.x) sum += C[j];
-  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = sum;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int t = 0;
-    for (int w = 0; w < 8; ++w) t += warp_sum[w];
-    seg_tot[(size_t)s * n_seg + g] = t;
-  }
+  key_tile_tail(s_hist, mcount, s_red, sc, S, n_tiles, n_passes, gx * gyz);
 }
 
-__global__ void __launch_bounds__(1024) bf_seg_base_kernel(const int* __restrict__ seg_tot,
-                                                           int n_seg, int n_cells,
-                                                           int* __restrict__ seg_base,
-                                                           int* __restrict__ cell_start) {
-  __shared__ int warp_base[32];
-  const int s = blockIdx.x;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int v = threadIdx.x < n_seg ? seg_tot[(size_t)s * n_seg + threadIdx.x] : 0;
-  int inc = v;
+// One LSD pass over digit (key >> shift) & 255.  Pass 0 reads the keys
+// with their point index as the value and skips dropped keys; a later
+// pass reads the previous pass's (key, index) pairs, the frame's n_kept of
+// them.  The last pass writes the points' coordinates in sorted order,
+// each cell's first and past-the-end position (integer atomicMin /
+// atomicMax, one per cell and warp step) and, in tile 0, the frame's
+// mask-nonzero count (when npts is given).
+__global__ void __launch_bounds__(kThreads)
+radix_pass_kernel(const float* __restrict__ pts, int S, int N, int n_tiles, int shift,
+                  bool first, bool last, const int* __restrict__ kin,
+                  const int* __restrict__ iin, int* __restrict__ kout, int* __restrict__ iout,
+                  const int* __restrict__ hist, int* __restrict__ hist_next,
+                  int* __restrict__ cells, int n_cells, float* __restrict__ sorted,
+                  const int* __restrict__ tilecnt, int* __restrict__ npts) {
+  __shared__ int s_base[kWarps][kRadix];   // per-warp counts, then bases
+  __shared__ int s_off[kRadix];
+  __shared__ int s_tpre[kRadix];
+  __shared__ int s_key[kTile];
+  __shared__ int s_val[kTile];
+  __shared__ int s_wtot[kWarps];
+  __shared__ int s_nin, s_tcount;
+  const int s = blockIdx.y, tile = blockIdx.x;
+  const int d = threadIdx.x, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // this tile's offset per digit: all earlier digits, then this digit in
+  // the earlier tiles
+  const int* H = hist + (size_t)s * n_tiles * kRadix;
+  int total = 0, before = 0;
+#pragma unroll 16
+  for (int t = 0; t < n_tiles; ++t) {
+    const int h = H[(size_t)t * kRadix + d];
+    total += h;
+    before += t < tile ? h : 0;
+  }
+  int inc = total;
   for (int o = 1; o < 32; o <<= 1) {
     const int u = __shfl_up_sync(0xffffffffu, inc, o);
     if (lane >= o) inc += u;
   }
-  if (lane == 31) warp_base[w] = inc;
+  if (lane == 31) s_wtot[w] = inc;
+  for (int v = 0; v < kWarps; ++v) s_base[v][d] = 0;
   __syncthreads();
-  if (w == 0) {  // exclusive scan of the 32 warp totals
-    const int t = warp_base[lane];
-    int tinc = t;
+  int wbase = 0;
+  for (int v = 0; v < w; ++v) wbase += s_wtot[v];
+  s_off[d] = wbase + inc - total + before;
+  if (d == kRadix - 1) s_nin = wbase + inc;   // the frame's kept points
+  __syncthreads();
+  const int n_in = first ? N : s_nin;
+
+  const size_t fo = (size_t)s * N;
+  int kk[kSteps], vv[kSteps], rk[kSteps];
+  const int e0 = tile * kTile + w * kPerWarp;
+#pragma unroll
+  for (int k = 0; k < kSteps; ++k) {
+    const int e = e0 + 32 * k + lane;
+    int key = -1, val = 0;
+    if (e < n_in) {
+      key = kin[fo + e];
+      val = first ? e : iin[fo + e];
+    }
+    const int dig = key >= 0 ? (key >> shift) & (kRadix - 1) : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, dig);
+    const int leader = __ffs(peers) - 1;
+    const int base = dig >= 0 ? s_base[w][dig] : 0;
+    __syncwarp();
+    if (dig >= 0 && lane == leader) s_base[w][dig] = base + __popc(peers);
+    __syncwarp();
+    rk[k] = base + __popc(peers & ((1u << lane) - 1u));
+    kk[k] = key;
+    vv[k] = val;
+  }
+  __syncthreads();
+  {  // per-warp counts -> warp bases within the tile's digit run; the tile's
+     // digit runs -> their start in the tile and their global offset
+    int run = 0;
+    for (int v = 0; v < kWarps; ++v) {
+      const int c = s_base[v][d];
+      s_base[v][d] = run;
+      run += c;
+    }
+    int tinc = run;
     for (int o = 1; o < 32; o <<= 1) {
       const int u = __shfl_up_sync(0xffffffffu, tinc, o);
       if (lane >= o) tinc += u;
     }
-    warp_base[lane] = tinc - t;
-    if (lane == 31) cell_start[(size_t)s * (n_cells + 1) + n_cells] = tinc;
+    if (lane == 31) s_wtot[w] = tinc;
+    __syncthreads();
+    int tb = 0;
+    for (int v = 0; v < w; ++v) tb += s_wtot[v];
+    s_tpre[d] = tb + tinc - run;
+    s_off[d] -= tb + tinc - run;        // global position = tile position + this
+    if (d == kRadix - 1) s_tcount = tb + tinc;
   }
   __syncthreads();
-  if (threadIdx.x < n_seg) seg_base[(size_t)s * n_seg + threadIdx.x] = warp_base[w] + inc - v;
-}
-
-// One CTA of 32 warps per (segment, frame).  Warp w owns one contiguous
-// sub-segment and walks it in coalesced 32-wide steps: a shuffle sum per
-// step, then (after the 32 sub-segment totals are scanned) a shuffle scan
-// per step.
-__global__ void __launch_bounds__(1024) bf_scan_kernel(const int* __restrict__ counts,
-                                                       int L, int seg_len, int n_seg,
-                                                       const int* __restrict__ seg_base,
-                                                       int* __restrict__ offs,
-                                                       int* __restrict__ cell_start,
-                                                       int n_cells, int n_chunks) {
-  __shared__ int warp_base[32];
-  const int s = blockIdx.y, g = blockIdx.x;
-  const int* C = counts + (size_t)s * L;
-  int* O = offs + (size_t)s * L;
-  int* CS = cell_start + (size_t)s * (n_cells + 1);
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int g_lo = min(L, g * seg_len), g_hi = min(L, g_lo + seg_len);
-  const int sub = ((g_hi - g_lo + 31) / 32 + 31) / 32 * 32;  // a multiple of 32
-  const int lo = min(g_hi, g_lo + w * sub), hi = min(g_hi, lo + sub);
-  int sum = 0;
-  for (int j = lo + lane; j < hi; j += 32) sum += C[j];
-  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-  if (lane == 0) warp_base[w] = sum;
-  __syncthreads();
-  if (w == 0) {  // exclusive scan of the 32 sub-segment totals
-    const int v = warp_base[lane];
-    int inc = v;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, inc, o);
-      if (lane >= o) inc += u;
-    }
-    warp_base[lane] = inc - v;
-  }
-  __syncthreads();
-  int run = seg_base[(size_t)s * n_seg + g] + warp_base[w];
-  for (int j0 = lo; j0 < hi; j0 += 32) {
-    const int j = j0 + lane;
-    const int v = j < hi ? C[j] : 0;
-    int inc = v;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, inc, o);
-      if (lane >= o) inc += u;
-    }
-    if (j < hi) {
-      const int ex = run + inc - v;
-      O[j] = ex;
-      if (j % n_chunks == 0) CS[j / n_chunks] = ex;
-    }
-    run += __shfl_sync(0xffffffffu, inc, 31);
-  }
-}
-
-// One warp per chunk: stable placement of the chunk's kept points.
-__global__ void bf_scatter_kernel(const int* __restrict__ keys, int n,
-                                  int chunk, int n_chunks, int n_cells,
-                                  int* __restrict__ offs,
-                                  int* __restrict__ sorted) {
-  const int s = blockIdx.y;
-  const int c = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int* K = keys + (size_t)s * n;
-  int* O = offs + (size_t)s * n_cells * n_chunks;
-  int* SO = sorted + (size_t)s * n;
-  const int end = min(n, (c + 1) * chunk);
-  for (int base = c * chunk; base < end; base += 32) {
-    const int i = base + lane;
-    const int key = i < end ? K[i] : -1;
-    const unsigned peers = __match_any_sync(0xffffffffu, key);
-    const int leader = __ffs(peers) - 1;
-    int pos = 0;
-    if (key >= 0 && lane == leader) pos = O[(size_t)key * n_chunks + c];
-    pos = __shfl_sync(0xffffffffu, pos, leader);
+  // the tile in digit order in shared memory, so the writes below go out
+  // in runs of consecutive positions
+#pragma unroll
+  for (int k = 0; k < kSteps; ++k) {
+    const int key = kk[k];
     if (key >= 0) {
-      SO[pos + __popc(peers & ((1u << lane) - 1u))] = i;
-      if (lane == leader) O[(size_t)key * n_chunks + c] = pos + __popc(peers);
-    }
-    __syncwarp();  // the counter written above is read by the next round
-  }
-}
-
-__global__ void bf_sum_kernel(const float* __restrict__ pts,
-                              const int* __restrict__ sorted,
-                              const int* __restrict__ cell_start, int S,
-                              int n, int n_cells, float* __restrict__ out) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= S * n_cells) return;
-  const int s = t / n_cells, cell = t - s * n_cells;
-  const float* P = pts + (size_t)s * n * 3;
-  const int* SO = sorted + (size_t)s * n;
-  const int* CS = cell_start + (size_t)s * (n_cells + 1);
-  const int lo = CS[cell], hi = CS[cell + 1];
-  float acc[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) acc[k] = 0.0f;
-  for (int j = lo; j < hi; ++j) {
-    const int i = SO[j];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float v = P[3 * i + a];
-      const float h1 = bf16_rne(v);
-      const float r1 = __fsub_rn(v, h1);
-      const float h2 = bf16_rne(r1);
-      const float h3 = bf16_rne(__fsub_rn(r1, h2));
-      acc[3 * a] = __fadd_rn(acc[3 * a], h1);
-      acc[3 * a + 1] = __fadd_rn(acc[3 * a + 1], h2);
-      acc[3 * a + 2] = __fadd_rn(acc[3 * a + 2], h3);
+      const int dig = (key >> shift) & (kRadix - 1);
+      const int lp = s_tpre[dig] + s_base[w][dig] + rk[k];
+      s_key[lp] = key;
+      s_val[lp] = vv[k];
     }
   }
-  float* O = out + (size_t)s * 4 * n_cells;
+  __syncthreads();
+
+  const float* P = pts + fo * 3;
+  int* cfirst = cells + (size_t)s * 2 * n_cells;
+  const int m = s_tcount;
 #pragma unroll
-  for (int a = 0; a < 3; ++a)
-    O[a * n_cells + cell] = __fadd_rn(__fadd_rn(acc[3 * a], acc[3 * a + 1]), acc[3 * a + 2]);
-  O[3 * n_cells + cell] = (float)(hi - lo);
-}
-
-// f32 mode: the plain coordinates, one sum per axis from +0.0f, the
-// cell's points in ascending index.
-__global__ void f32_sum_kernel(const float* __restrict__ pts,
-                               const int* __restrict__ sorted,
-                               const int* __restrict__ cell_start, int S,
-                               int n, int n_cells, float* __restrict__ out) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= S * n_cells) return;
-  const int s = t / n_cells, cell = t - s * n_cells;
-  const float* P = pts + (size_t)s * n * 3;
-  const int* SO = sorted + (size_t)s * n;
-  const int* CS = cell_start + (size_t)s * (n_cells + 1);
-  const int lo = CS[cell], hi = CS[cell + 1];
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  for (int j = lo; j < hi; ++j) {
-    const int i = SO[j];
-    ax = __fadd_rn(ax, P[3 * i]);
-    ay = __fadd_rn(ay, P[3 * i + 1]);
-    az = __fadd_rn(az, P[3 * i + 2]);
+  for (int p0 = 0; p0 < kTile; p0 += kThreads) {
+    const int p = p0 + threadIdx.x;
+    const int key = p < m ? s_key[p] : -1;
+    const int dest = key >= 0 ? p + s_off[(key >> shift) & (kRadix - 1)] : -1;
+    if (last) {
+      if (key >= 0) {
+        float* D = sorted + (fo + dest) * 3;
+        const int i = s_val[p];
+        D[0] = P[3 * i];
+        D[1] = P[3 * i + 1];
+        D[2] = P[3 * i + 2];
+      }
+      // equal keys of a warp's run sit at consecutive positions
+      const unsigned pk = __match_any_sync(0xffffffffu, key);
+      const int top = 31 - __clz(pk);
+      const int dest_top = __shfl_sync(0xffffffffu, dest, top);
+      if (key >= 0 && lane == __ffs(pk) - 1) {
+        atomicMin(&cfirst[key], dest);
+        atomicMax(&cfirst[n_cells + key], dest_top + 1);
+      }
+    } else {
+      if (key >= 0) {
+        kout[fo + dest] = key;
+        iout[fo + dest] = s_val[p];
+      }
+      const int nd = (key >> (shift + 8)) & (kRadix - 1);
+      const int comb = key >= 0 ? (dest / kTile) * kRadix + nd : -1;
+      const unsigned pk = __match_any_sync(0xffffffffu, comb);
+      if (key >= 0 && lane == __ffs(pk) - 1)
+        atomicAdd(&hist_next[(size_t)s * n_tiles * kRadix + comb], __popc(pk));
+    }
   }
-  float* O = out + (size_t)s * 4 * n_cells;
-  O[cell] = ax;
-  O[n_cells + cell] = ay;
-  O[2 * n_cells + cell] = az;
-  O[3 * n_cells + cell] = (float)(hi - lo);
+  if (last && npts != nullptr && tile == 0 && w == 0) {
+    int m = 0;
+    for (int t = lane; t < n_tiles; t += 32) m += tilecnt[(size_t)s * n_tiles + t];
+    for (int o = 16; o > 0; o >>= 1) m += __shfl_xor_sync(0xffffffffu, m, o);
+    if (lane == 0) npts[s] = m;
+  }
 }
 
-// Stages 2-4 of both entries, after stage 1 has written keys and counts.
-int launch_sorted_sums(const float* pts, int S, int N, int chunk, int n_cells, int* keys,
-                       int* counts, int* offs, int* cell_start, int* sorted, int* seg_tot,
-                       int* seg_base, int seg_len, float* out, int mode, cudaStream_t st) {
-  const int n_chunks = (N + chunk - 1) / chunk;
-  const int L = n_cells * n_chunks;
-  const int n_seg = (L + seg_len - 1) / seg_len;
-  bf_seg_total_kernel<<<dim3(n_seg, S), 256, 0, st>>>(counts, L, seg_len, n_seg, seg_tot);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bf_seg_base_kernel<<<S, 1024, 0, st>>>(seg_tot, n_seg, n_cells, seg_base, cell_start);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bf_scan_kernel<<<dim3(n_seg, S), 1024, 0, st>>>(counts, L, seg_len, n_seg, seg_base, offs,
-                                                  cell_start, n_cells, n_chunks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bf_scatter_kernel<<<dim3(n_chunks, S), 32, 0, st>>>(
-      keys, N, chunk, n_chunks, n_cells, offs, sorted);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int total = S * n_cells;
+// The values summed for one point: mode 0 the three bf16 parts of each
+// coordinate (x h1, h2, h3, y ..., z ...), mode 1 the coordinates.
+template <int kMode>
+struct Parts {
+  static constexpr int n = kMode == 0 ? 9 : 3;
+  __device__ __forceinline__ static void of(const float* q, float* v) {
+    if (kMode == 0) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float h1 = bf16_rne(q[a]);
+        const float r1 = __fsub_rn(q[a], h1);
+        const float h2 = bf16_rne(r1);
+        v[3 * a] = h1;
+        v[3 * a + 1] = h2;
+        v[3 * a + 2] = bf16_rne(__fsub_rn(r1, h2));
+      }
+    } else {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) v[a] = q[a];
+    }
+  }
+  // the (sum_x, sum_y, sum_z) of the running sums
+  __device__ __forceinline__ static void result(const float* acc, float* r) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      r[a] = kMode == 0 ? __fadd_rn(__fadd_rn(acc[3 * a], acc[3 * a + 1]), acc[3 * a + 2]) : acc[a];
+  }
+};
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+sum_kernel(const float* __restrict__ sorted, const int* __restrict__ cells, int S, int N,
+           int n_cells, float* __restrict__ out) {
+  using Pt = Parts<kMode>;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool valid = t < S * n_cells;
+  int s = 0, cell = 0, lo = 0, hi = 0;
+  if (valid) {
+    s = t / n_cells;
+    cell = t - s * n_cells;
+    const int* first = cells + (size_t)s * 2 * n_cells;
+    const int f = first[cell], e = first[n_cells + cell];   // empty: INT_MAX, 0
+    lo = e > f ? f : 0;
+    hi = e > f ? e : 0;
+  }
+  const bool is_long = valid && hi - lo > kLong;
+  float acc[Pt::n], v[Pt::n], r[3];
+#pragma unroll
+  for (int k = 0; k < Pt::n; ++k) acc[k] = 0.0f;
+  if (valid && !is_long) {
+    // the thread's own run: single points up to a multiple of four, then
+    // kBatch points at a time as 16-byte loads, all in flight before their
+    // adds (the frame's rows start 16-byte aligned when N % 4 == 0)
+    const float* src = sorted + (size_t)s * N * 3;
+    const bool vec = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+    int j = lo;
+    for (; vec && j < hi && (j & 3); ++j) {
+      Pt::of(src + 3 * (size_t)j, v);
+#pragma unroll
+      for (int k = 0; k < Pt::n; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
+    }
+    for (; j + kBatch <= hi; j += kBatch) {
+      float q[3 * kBatch];
+      if (vec) {
+        const float4* q4 = reinterpret_cast<const float4*>(src + 3 * (size_t)j);
+#pragma unroll
+        for (int e = 0; e < 3 * kBatch / 4; ++e) {
+          const float4 w = q4[e];
+          q[4 * e] = w.x;
+          q[4 * e + 1] = w.y;
+          q[4 * e + 2] = w.z;
+          q[4 * e + 3] = w.w;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 3 * kBatch; ++e) q[e] = src[3 * (size_t)j + e];
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        Pt::of(q + 3 * u, v);
+#pragma unroll
+        for (int k = 0; k < Pt::n; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
+      }
+    }
+    for (; j < hi; ++j) {
+      Pt::of(src + 3 * (size_t)j, v);
+#pragma unroll
+      for (int k = 0; k < Pt::n; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
+    }
+  }
+  Pt::result(acc, r);
+
+  // long runs: the whole warp stages 32 points at a time (one coalesced
+  // load, the parts computed in parallel), every lane adds them in order
+  // through shuffles (the same sums on every lane), the owner keeps them
+  unsigned longs = __ballot_sync(0xffffffffu, is_long);
+  while (longs) {
+    const int L = __ffs(longs) - 1;
+    longs &= longs - 1;
+    const int llo = __shfl_sync(0xffffffffu, lo, L), lhi = __shfl_sync(0xffffffffu, hi, L);
+    const float* src = sorted + (size_t)__shfl_sync(0xffffffffu, s, L) * N * 3;
+#pragma unroll
+    for (int k = 0; k < Pt::n; ++k) acc[k] = 0.0f;
+    for (int b = llo; b < lhi; b += 32) {
+      const int j = b + lane;
+      if (j < lhi) {
+        Pt::of(src + 3 * (size_t)j, v);
+      } else {
+#pragma unroll
+        for (int k = 0; k < Pt::n; ++k) v[k] = 0.0f;
+      }
+      if (lhi - b >= 32) {
+#pragma unroll
+        for (int q = 0; q < 32; ++q) {
+#pragma unroll
+          for (int k = 0; k < Pt::n; ++k)
+            acc[k] = __fadd_rn(acc[k], __shfl_sync(0xffffffffu, v[k], q));
+        }
+      } else {
+        for (int q = 0; q < lhi - b; ++q) {
+#pragma unroll
+          for (int k = 0; k < Pt::n; ++k)
+            acc[k] = __fadd_rn(acc[k], __shfl_sync(0xffffffffu, v[k], q));
+        }
+      }
+    }
+    if (lane == L) Pt::result(acc, r);
+  }
+  if (valid) {
+    float* O = out + (size_t)s * 4 * n_cells;
+    O[cell] = r[0];
+    O[n_cells + cell] = r[1];
+    O[2 * n_cells + cell] = r[2];
+    O[3 * n_cells + cell] = (float)(hi - lo);
+  }
+}
+
+int passes_for(int n_cells) {
+  int bits = 1;
+  while (bits < 31 && (1 << bits) < n_cells) ++bits;
+  return (bits + 7) / 8;
+}
+
+bool bad_plan(int S, int N, int n_tiles, int n_passes, int n_cells) {
+  return S < 1 || N < 1 || n_cells < 1 || n_tiles != (N + kTile - 1) / kTile ||
+         n_passes != passes_for(n_cells) || (long long)S * n_cells > 0x7fffffffLL;
+}
+
+// Stages 2-3 of both entries, after stage 1 has written the keys and the
+// first histogram and initialised the rest.
+int launch_sorted_sums(const float* pts, int S, int N, int n_tiles, int n_passes,
+                       const Scratch& sc, int n_cells, float* out, int* npts, int mode,
+                       cudaStream_t st) {
+  const size_t frame = (size_t)S * N;
+  const size_t hist_pass = (size_t)S * n_tiles * kRadix;
+  const int* kin = sc.keys;
+  const int* iin = nullptr;
+  for (int p = 0; p < n_passes; ++p) {
+    const bool last = p == n_passes - 1;
+    int* kout = sc.pairs + (size_t)(p % 2) * 2 * frame;
+    int* iout = kout + frame;
+    radix_pass_kernel<<<dim3(n_tiles, S), kThreads, 0, st>>>(
+        pts, S, N, n_tiles, 8 * p, p == 0, last, kin, iin, last ? nullptr : kout,
+        last ? nullptr : iout, sc.hist + p * hist_pass,
+        last ? nullptr : sc.hist + (p + 1) * hist_pass, sc.cells, n_cells, sc.sorted,
+        sc.tilecnt, npts);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    kin = kout;
+    iin = iout;
+  }
+  const long long total = (long long)S * n_cells;
+  const int blocks = (int)((total + kThreads - 1) / kThreads);
   if (mode == 0)
-    bf_sum_kernel<<<(total + 127) / 128, 128, 0, st>>>(pts, sorted, cell_start, S, N, n_cells, out);
+    sum_kernel<0><<<blocks, kThreads, 0, st>>>(sc.sorted, sc.cells, S, N, n_cells, out);
   else
-    f32_sum_kernel<<<(total + 127) / 128, 128, 0, st>>>(pts, sorted, cell_start, S, N, n_cells, out);
+    sum_kernel<1><<<blocks, kThreads, 0, st>>>(sc.sorted, sc.cells, S, N, n_cells, out);
   return (int)cudaGetLastError();
-}
-
-bool bad_shape(int N, int chunk, int n_cells, int seg_len) {
-  if (N < 1 || chunk < 1 || n_cells < 1 || seg_len < 32 || seg_len % 32 != 0) return true;
-  const long long L = (long long)n_cells * ((N + chunk - 1) / chunk);
-  const long long n_seg = (L + seg_len - 1) / seg_len;
-  return n_seg < 1 || n_seg > 1024;
 }
 
 }  // namespace
 
-// points (S, N, 3) f32, mask (S, N) u8.  Scratch from the caller: keys
-// (S, N) i32, counts (S, n_cells * n_chunks) i32 zeroed, offs the same
-// shape, cell_start (S, n_cells + 1) i32, sorted (S, N) i32, seg_tot and
-// seg_base (S, n_seg) i32 with n_seg = ceil(n_cells * n_chunks / seg_len)
-// <= 1024.  Output out (S, 4, n_cells) f32 [sum_x, sum_y, sum_z, count]:
-// mode 0 the bf16x3 sums, mode 1 the plain f32 sums.
+// points (S, N, 3) f32, mask (S, N) u8 (nonzero = keep).  Scratch from the
+// caller, laid out by ops/voxel_grid_cuda.py::sorted_sums_plan for
+// n_tiles = ceil(N / kTile) tiles and n_passes = ceil(bits(n_cells) / 8)
+// digits (checked here): keys, pairs, hist, tilecnt, cells, sorted, none
+// of which needs zeroing.  Output out (S, 4, n_cells) f32 [sum_x, sum_y,
+// sum_z, count] (mode 0 the bf16x3 sums, mode 1 the plain f32 sums) and
+// npts (S,) i32, the mask-nonzero points per frame.
 extern "C" int motl_voxel_bf16x3(
-    const float* pts, const uint8_t* mask, int S, int N, int chunk,
-    int* keys, int* counts, int* offs, int* cell_start, int* sorted,
-    int* seg_tot, int* seg_base, int seg_len, float* out, int n_cells,
-    int gx, int gy, int gz, int bx, int by, int bz, float inv_xy, float inv_z,
-    int mode, void* stream) {
-  if (bad_shape(N, chunk, n_cells, seg_len) || (mode != 0 && mode != 1))
+    const float* pts, const uint8_t* mask, int S, int N, int n_tiles, int n_passes,
+    int* keys, int* pairs, int* hist, int* tilecnt, int* cells, float* sorted, float* out,
+    int* npts, int n_cells, int gx, int gy, int gz, int bx, int by, int bz, float inv_xy,
+    float inv_z, int mode, void* stream) {
+  if (bad_plan(S, N, n_tiles, n_passes, n_cells) || (mode != 0 && mode != 1))
     return (int)cudaErrorInvalidValue;
   BfParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z};
+  const Scratch sc{keys, pairs, hist, tilecnt, cells, sorted};
   cudaStream_t st = (cudaStream_t)stream;
-  const int n_chunks = (N + chunk - 1) / chunk;
-  bf_key_count_kernel<<<dim3(n_chunks, S), 256, 0, st>>>(
-      pts, mask, N, chunk, n_chunks, p, keys, counts);
+  key_kernel<<<dim3(n_tiles, S), kThreads, 0, st>>>(pts, mask, S, N, n_tiles, n_passes, p, sc);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_sorted_sums(pts, S, N, chunk, n_cells, keys, counts, offs, cell_start, sorted,
-                            seg_tot, seg_base, seg_len, out, mode, st);
+  return launch_sorted_sums(pts, S, N, n_tiles, n_passes, sc, n_cells, out, npts, mode, st);
 }
 
 // The key entry: ix, iyz (S, N) i32 and in_bounds (S, N) u8 instead of the
 // mask and the grid geometry; n_cells = gyz * gx in iyz-major order.  The
-// bf16x3 sums of mode 0; the same scratch and output as motl_voxel_bf16x3.
+// bf16x3 sums of mode 0; the same scratch and output as motl_voxel_bf16x3,
+// without the point count.
 extern "C" int motl_voxel_bf16x3_keys(
     const float* pts, const int* ix, const int* iyz, const uint8_t* inb, int S, int N,
-    int chunk, int* keys, int* counts, int* offs, int* cell_start, int* sorted,
-    int* seg_tot, int* seg_base, int seg_len, float* out, int gx, int gyz, void* stream) {
-  const int n_cells = gx * gyz;
-  if (gx < 1 || gyz < 1 || bad_shape(N, chunk, n_cells, seg_len))
+    int n_tiles, int n_passes, int* keys, int* pairs, int* hist, int* tilecnt, int* cells,
+    float* sorted, float* out, int gx, int gyz, void* stream) {
+  if (gx < 1 || gyz < 1 || (long long)gx * gyz > 0x7fffffffLL ||
+      bad_plan(S, N, n_tiles, n_passes, gx * gyz))
     return (int)cudaErrorInvalidValue;
+  const Scratch sc{keys, pairs, hist, tilecnt, cells, sorted};
   cudaStream_t st = (cudaStream_t)stream;
-  const int n_chunks = (N + chunk - 1) / chunk;
-  bf_key_count_idx_kernel<<<dim3(n_chunks, S), 256, 0, st>>>(
-      ix, iyz, inb, N, chunk, n_chunks, gx, gyz, keys, counts);
+  key_idx_kernel<<<dim3(n_tiles, S), kThreads, 0, st>>>(ix, iyz, inb, S, N, n_tiles, n_passes,
+                                                        gx, gyz, sc);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_sorted_sums(pts, S, N, chunk, n_cells, keys, counts, offs, cell_start, sorted,
-                            seg_tot, seg_base, seg_len, out, 0, st);
+  return launch_sorted_sums(pts, S, N, n_tiles, n_passes, sc, gx * gyz, out, nullptr, 0, st);
 }

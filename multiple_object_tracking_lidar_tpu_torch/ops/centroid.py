@@ -8,21 +8,23 @@ in XY, skipping points value-equal to Pi or Pj; (3) the circumcenter of
 and the frame time in the intensity slot.
 
 Port of ``multiple_object_tracking_lidar_tpu/ops/centroid.py::
-circumcenter_from_pair_stats``: step (1)'s O(P^2) scan is K3
-(``ops/centroid_cuda.py``); the selection, the line scan and the
-determinant stay here in eager PyTorch, one separately rounded op at a
-time, so no FMA contraction can break the G == 0 test.  Both the dense
-member table (the grid path) and the cluster-sorted point list
-(``circumcenter_features_sorted``) go that way; the JAX point-list path
-runs ``_one_cluster``, whose picks the JAX package documents as those of the
-pair-stats route (centroid.py:152-157).
+circumcenter_from_pair_stats`` and of the JAX pipeline's
+``circumcenter_features_table_pallas_v2``.  On CUDA tensors the whole
+feature is one launch, K3f (``ops/centroid_cuda.py::
+circumcenter_features``); its plain version, which CPU tensors take, is K3's
+plain pair stats followed by ``circumcenter_from_pair_stats`` below, one
+separately rounded op at a time, so no FMA contraction can break the
+G == 0 test.  Both the dense member table (the grid path) and the
+cluster-sorted point list (``circumcenter_features_sorted``) go that way;
+the JAX point-list path runs ``_one_cluster``, whose picks the JAX package
+documents as those of the pair-stats route (centroid.py:152-157).
 """
 
 from __future__ import annotations
 
 import torch
 
-from multiple_object_tracking_lidar_tpu_torch.ops.centroid_cuda import pair_stats
+from multiple_object_tracking_lidar_tpu_torch.ops import centroid_cuda
 
 
 def _first_min_index(v: torch.Tensor, hit: torch.Tensor, fill: int) -> torch.Tensor:
@@ -46,7 +48,10 @@ def circumcenter_from_pair_stats(
 ) -> torch.Tensor:
     """(C, 4) [x, y, 0, t] detections from the pair stats.  i* = min
     firstrow over the columns reaching the global max, j* = the first such
-    column whose firstrow is i*; empty/singleton slots resolve to 0."""
+    column whose firstrow is i*; empty/singleton slots resolve to 0.  The
+    line scan takes the first lane of the largest distance among the
+    members not equal to Pi or Pj, a NaN distance never winning; lane 0
+    where none qualifies."""
     c, p = cm.shape
     dtype = mpts.dtype
     fr = fr.to(torch.int64)
@@ -74,7 +79,7 @@ def circumcenter_from_pair_stats(
     eq_i = (xs == pix) & (ys == piy) & (zs == piz)
     eq_j = (xs == pjx) & (ys == pjy) & (zs == pjz)
     k_mask = member_mask & ~eq_i & ~eq_j
-    ld = torch.where(k_mask, line_d, -1.0)
+    ld = torch.where(k_mask & ~torch.isnan(line_d), line_d, -1.0)
     k_star = _first_min_index(ld, ld == ld.max(dim=1, keepdim=True).values, p)
     pk = _take(mpts, k_star)
     pkx, pky = pk[:, 0:1], pk[:, 1:2]
@@ -95,26 +100,15 @@ def circumcenter_from_pair_stats(
     return torch.cat([cx, cy, zeros, tcol], dim=1)
 
 
-def circumcenter_features_table_cuda(
-    mpts: torch.Tensor, member_mask: torch.Tensor, t: torch.Tensor
-) -> torch.Tensor:
-    """(C, 4) detections from the dense member table: K3 pair stats, then
-    the selection and determinant above (the port of
-    ``circumcenter_features_table_pallas_v2``)."""
-    cm, fr = pair_stats(mpts, member_mask)
-    return circumcenter_from_pair_stats(cm, fr, mpts, member_mask, t)
-
-
 def circumcenter_features_table_stacked(
     mpts: torch.Tensor, member_mask: torch.Tensor, t: torch.Tensor
 ) -> torch.Tensor:
     """(S, C, 4) detections of S frames' member tables (S, C, P, 3), t
-    (S,): one K3 launch for the S * C slots; each slot's result is the one
+    (S,): one K3f launch for the S * C slots; each slot's result is the one
     a single-frame call gives."""
     s, c, p, _ = mpts.shape
-    t_slot = torch.as_tensor(t, dtype=mpts.dtype, device=mpts.device).reshape(s, 1).expand(s, c)
-    dets = circumcenter_features_table_cuda(
-        mpts.reshape(s * c, p, 3), member_mask.reshape(s * c, p), t_slot.reshape(-1))
+    dets = centroid_cuda.circumcenter_features(
+        mpts.reshape(s * c, p, 3), member_mask.reshape(s * c, p), torch.as_tensor(t).reshape(-1))
     return dets.reshape(s, c, 4)
 
 

@@ -1,29 +1,33 @@
-"""K3: farthest-pair column statistics per cluster slot; K10: the whole
-circumcenter feature per slot.
+"""K3: farthest-pair column statistics per cluster slot; K10 and K3f: the
+whole circumcenter feature per slot.
 
-Replaces the Pallas kernel ``multiple_object_tracking_lidar_tpu/ops/
-centroid_pallas.py::pair_stats_pallas_dyn`` (reached through
-``circumcenter_features_table_pallas_v2``).  CUDA source:
-``csrc/centroid.cu``, whose header says what bounds it on the H100 (the
-launch: a few active slots of P^2/2 pair terms) and how its design answers
-that (one CTA per slot; empty slots return their init values at once).
+K3 replaces the Pallas kernel ``multiple_object_tracking_lidar_tpu/ops/
+centroid_pallas.py::pair_stats_pallas_dyn``.  CUDA source:
+``csrc/centroid.cu`` with the scan it shares with K10 and K3f,
+``csrc/pair_scan.cuh``, whose headers say what bounds them on the H100
+(the launch: a few active slots of n^2/2 pair terms) and how the design
+answers that (one CTA per slot, members compacted by a prefix sum, the
+column scan split over a warp's lanes; empty slots return at once).
+``pair_stats`` launches it for CUDA tensors and runs ``pair_stats_plain``
+for CPU tensors; ``.launches`` counts kernel launches.  Both return
+``(colmax (C, P) f32, firstrow (C, P) i32)``: ``colmax[j]`` the largest
+d2 over member rows i < j by the serial rule (ascending rows, strict '>'
+from -1, so a NaN never wins) and ``firstrow[j]`` the first row reaching
+it; (-1, 0) for a column without a pair, (-1, P) for a slot without
+members.  No tracking path launches K3: they run K3f.
 
-``pair_stats`` launches the kernel for CUDA tensors and runs
-``pair_stats_plain`` for CPU tensors; ``.launches`` counts kernel launches.
-Both return ``(colmax (C, P) f32, firstrow (C, P) i32)``:
-``colmax[j] = max_i d2m[i, j]`` (d2m = -1 off member pairs i < j) and
-``firstrow[j]`` the smallest row reaching it; (-1, P) for a slot without
-members.  The selection, line scan and determinant run in eager PyTorch
-(``ops/centroid.py::circumcenter_features_table_cuda``).
-
-K10 replaces ``centroid_pallas.py::circumcenter_xy_pallas``, the TPU's
-all-in-kernel circumcenter, which no tracking path of the JAX package runs
-(``ops/centroid_pallas.py`` of this package holds its entry points).  CUDA
-source: ``csrc/circumcenter.cu``, whose header says what bounds it and how
-its design answers that.  ``circumcenter_xy`` launches it for CUDA tensors
-and runs ``circumcenter_xy_plain`` -- K3's plain version followed by
-``circumcenter_from_pair_stats``, the same function -- for CPU tensors;
-both return (C, 2) f32 [x, y], bit for bit the same.
+K3f (``circumcenter_features``) is the tracking paths' circumcenter: the
+(C, 4) [x, y, 0, t] detections in one launch, bit for bit
+``circumcenter_features_plain`` -- K3's plain version followed by
+``ops/centroid.py::circumcenter_from_pair_stats``, the function the JAX
+pipeline computes as ``circumcenter_features_table_pallas_v2`` (the
+Pallas pair stats and jnp selection it replaces).  K10
+(``circumcenter_xy``) replaces ``centroid_pallas.py::
+circumcenter_xy_pallas``, the TPU's all-in-kernel circumcenter, which no
+tracking path runs (``ops/centroid_pallas.py`` of this package holds its
+entry points); it is the same kernel body writing (C, 2) [x, y]
+(``csrc/circumcenter.cu``).  Each launches for CUDA tensors and runs its
+plain version for CPU tensors, bit for bit the same.
 """
 
 from __future__ import annotations
@@ -33,10 +37,24 @@ import torch
 from multiple_object_tracking_lidar_tpu_torch import _build
 
 
+def column_max_plain(d2: torch.Tensor, pair_ok: torch.Tensor):
+    """K3's column statistics of a (C, P, P) [row, column] d2 and pair
+    mask, by the serial rule: a pair enters only where d2 > -1 (the rule's
+    first update from -1), so a NaN never wins; colmax the largest, firstrow
+    the first row reaching it, (-1, row 0) where no pair wins."""
+    p = d2.shape[1]
+    d2m = torch.where(pair_ok & (d2 > -1.0), d2, -1.0)
+    colmax = d2m.max(dim=1).values                            # (C, P)
+    rows = torch.arange(p, device=d2.device)[None, :, None].expand_as(d2)
+    firstrow = torch.where(d2m == colmax[:, None, :], rows, p).min(dim=1).values
+    return colmax, firstrow
+
+
 def pair_stats_plain(mpts: torch.Tensor, member_mask: torch.Tensor):
     """Plain PyTorch version of K3: the same centring (f64 sum of the member
     coordinates rounded to f32, over the f32 count), the same d2 expression
-    order, elementwise (no matmul, so no reordered gram)."""
+    order, elementwise (no matmul, so no reordered gram), then
+    ``column_max_plain``."""
     c, p, _ = mpts.shape
     dev = mpts.device
     mp = mpts.to(torch.float32)
@@ -55,10 +73,7 @@ def pair_stats_plain(mpts: torch.Tensor, member_mask: torch.Tensor):
     d2 = (sq[:, :, None] + sq[:, None, :]) - 2.0 * gram
     ar = torch.arange(p, device=dev)
     pair_ok = mm[:, :, None] & mm[:, None, :] & (ar[:, None] < ar[None, :])[None]
-    d2m = torch.where(pair_ok, d2, -1.0)
-    colmax = d2m.max(dim=1).values                            # (C, P)
-    rows = ar[None, :, None].expand(c, p, p)
-    firstrow = torch.where(d2m == colmax[:, None, :], rows, p).min(dim=1).values
+    colmax, firstrow = column_max_plain(d2, pair_ok)
     active = (cnt > 0)[:, None]
     colmax = torch.where(active, colmax, -1.0)
     firstrow = torch.where(active, firstrow, p).to(torch.int32)
@@ -82,7 +97,7 @@ def pair_stats(mpts: torch.Tensor, member_mask: torch.Tensor):
     c, p = _check_table(mpts, member_mask)
     dev = mpts.device
     mpts = mpts.contiguous()
-    mm8 = member_mask.to(torch.uint8).contiguous()
+    mm8 = _build.byte_mask(member_mask)
     colmax = torch.empty((c, p), dtype=torch.float32, device=dev)
     firstrow = torch.empty((c, p), dtype=torch.int32, device=dev)
     lib = _build.load()
@@ -98,16 +113,59 @@ def pair_stats(mpts: torch.Tensor, member_mask: torch.Tensor):
 pair_stats.launches = 0
 
 
-def circumcenter_xy_plain(mpts: torch.Tensor, member_mask: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K10: K3's plain pair stats, then the eager
-    selection, line scan and determinant."""
+def _slot_times(t, c: int, like: torch.Tensor) -> torch.Tensor:
+    """t as a flat tensor of ``like``'s dtype on its device: one time per
+    slot (C,), one per frame (S,) for S stacked frames of C / S slots each,
+    or one for all; ValueError where its length does not divide C."""
+    tt = torch.as_tensor(t, dtype=like.dtype, device=like.device).reshape(-1)
+    if tt.numel() < 1 or c % tt.numel():
+        raise ValueError(f"t must have a length dividing C={c}, got {tt.numel()}")
+    return tt
+
+
+def circumcenter_features_plain(mpts: torch.Tensor, member_mask: torch.Tensor,
+                                t) -> torch.Tensor:
+    """Plain PyTorch version of K3f: K3's plain pair stats, then the eager
+    selection, line scan and determinant; (C, 4) [x, y, 0, t]."""
     from multiple_object_tracking_lidar_tpu_torch.ops.centroid import (
         circumcenter_from_pair_stats,
     )
 
+    c = mpts.shape[0]
+    tt = _slot_times(t, c, mpts)
     cm, fr = pair_stats_plain(mpts, member_mask)
-    t0 = torch.zeros((), dtype=torch.float32, device=mpts.device)
-    return circumcenter_from_pair_stats(cm, fr, mpts.to(torch.float32), member_mask, t0)[:, :2]
+    return circumcenter_from_pair_stats(cm, fr, mpts, member_mask,
+                                        tt.repeat_interleave(c // tt.numel()))
+
+
+def circumcenter_features(mpts: torch.Tensor, member_mask: torch.Tensor, t) -> torch.Tensor:
+    """K3f on CUDA tensors, its plain version on CPU tensors: (C, 4) f32
+    [x, y, 0, t] detections of the member table mpts (C, P, 3) f32, mask
+    (C, P), t (C,) per slot (or (S,) per frame of S stacked frames, or a
+    scalar).  One launch; t is read on the device."""
+    if mpts.device.type == "cpu":
+        return circumcenter_features_plain(mpts, member_mask, t)
+    c, p = _check_table(mpts, member_mask)
+    dev = mpts.device
+    mpts = mpts.contiguous()
+    mm8 = _build.byte_mask(member_mask)
+    tt = _slot_times(t, c, mpts).contiguous()
+    out = torch.empty((c, 4), dtype=torch.float32, device=dev)
+    err = _build.load().motl_circumcenter_features(
+        mpts.data_ptr(), mm8.data_ptr(), tt.data_ptr(), c, p, c // tt.numel(),
+        out.data_ptr(), _build.stream_ptr(dev),
+    )
+    _build.check(err, "motl_circumcenter_features")
+    circumcenter_features.launches += 1
+    return out
+
+
+circumcenter_features.launches = 0
+
+
+def circumcenter_xy_plain(mpts: torch.Tensor, member_mask: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K10: K3f's plain version without [0, t]."""
+    return circumcenter_features_plain(mpts.to(torch.float32), member_mask, 0.0)[:, :2]
 
 
 def circumcenter_xy(mpts: torch.Tensor, member_mask: torch.Tensor) -> torch.Tensor:
@@ -117,7 +175,7 @@ def circumcenter_xy(mpts: torch.Tensor, member_mask: torch.Tensor) -> torch.Tens
     c, p = _check_table(mpts, member_mask)
     dev = mpts.device
     mpts = mpts.contiguous()
-    mm8 = member_mask.to(torch.uint8).contiguous()
+    mm8 = _build.byte_mask(member_mask)
     out = torch.empty((c, 2), dtype=torch.float32, device=dev)
     err = _build.load().motl_circumcenter(
         mpts.data_ptr(), mm8.data_ptr(), c, p, out.data_ptr(), _build.stream_ptr(dev),

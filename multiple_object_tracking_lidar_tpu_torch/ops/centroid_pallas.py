@@ -2,8 +2,8 @@
 their JAX names, on this package's kernels.
 
 No tracking path of either package calls them: the pipeline's circumcenter
-runs ``ops/centroid.py::circumcenter_features_table_cuda`` (K3 plus the
-eager selection), as the JAX pipeline runs
+runs ``ops/centroid_cuda.py::circumcenter_features`` (K3f, the whole
+feature in one launch), as the JAX pipeline runs
 ``circumcenter_features_table_pallas_v2``.  They are here so that every
 TPU kernel of that module has its counterpart, found by the same name:
 
@@ -14,8 +14,9 @@ TPU kernel of that module has its counterpart, found by the same name:
   tests pin ``_kernel_v3`` bit for bit to ``_kernel_v5_dyn``, which K3
   replaces, and its output bits do not depend on ``slab_rows`` (:385-388),
   so K3 computes its function for every ``slab_rows``;
-- ``pair_stats_pallas_dyn`` (:415) and
-  ``circumcenter_features_table_pallas_v2`` (:456): the existing K3 entries.
+- ``pair_stats_pallas_dyn`` (:415): K3's own entry;
+  ``circumcenter_features_table_pallas_v2`` (:456): the pipeline's route,
+  K3f (the pair stats it replaces and the selection after them).
 
 Each runs its kernel on CUDA tensors and the kernel's plain version on CPU
 tensors.
@@ -25,9 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from multiple_object_tracking_lidar_tpu_torch.ops.centroid import (
-    circumcenter_features_table_cuda,
-)
+from multiple_object_tracking_lidar_tpu_torch.ops import centroid_cuda
 from multiple_object_tracking_lidar_tpu_torch.ops.centroid_cuda import (
     circumcenter_xy,
     pair_stats,
@@ -73,8 +72,7 @@ def pair_stats_pallas_dyn(
 def circumcenter_features_table_pallas_v2(
     mpts: torch.Tensor, member_mask: torch.Tensor, t: torch.Tensor | float
 ) -> torch.Tensor:
-    """(C, 4) [x, y, 0, t] detections: K3 pair stats, then the eager
-    selection and determinant (the pipeline's route)."""
-    return circumcenter_features_table_cuda(
+    """(C, 4) [x, y, 0, t] detections by the pipeline's route (K3f)."""
+    return centroid_cuda.circumcenter_features(
         mpts.to(torch.float32), member_mask, torch.as_tensor(t, dtype=torch.float32)
     ).to(mpts.dtype)

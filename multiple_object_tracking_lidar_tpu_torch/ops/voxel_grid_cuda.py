@@ -55,8 +55,8 @@ from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, grid_shape
 # K5), each zeroing and merging one (4, n_cells) shared histogram.
 PTS_PER_CTA = 8192
 SMEM_BYTES = 232448  # what one H100 block may use (227 KB)
-# K6: points per chunk of its stable counting sort (one warp places each)
-BF16X3_CHUNK = 2048
+# K6: points per CTA of its radix-sort stages (csrc/voxel_bf16x3.cu kTile)
+SORT_TILE = 2048
 
 FXP_XY = 19  # exact mode's digit scales (voxel_grid.py::_FXP_XY, _FXP_Z)
 FXP_Z = 14
@@ -616,50 +616,63 @@ def accumulate_f32_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
     return _cell_major(acc[..., 0], counts, s), _npts(mask, s)
 
 
-def sorted_sums_chunk(n_cells: int, n: int) -> int:
-    """K6's points per chunk: 2,048, doubled while the per-(cell, chunk)
-    counters would pass 2^26 per frame (256 MB)."""
-    chunk = BF16X3_CHUNK
-    while n_cells * -(-n // chunk) > 1 << 26 and chunk < n:
-        chunk *= 2
-    return chunk
+def sorted_sums_plan(s: int, n: int, n_cells: int) -> dict:
+    """K6's scratch for S frames of N points over n_cells cells, in one
+    int32 buffer: the radix sort's tiles (``SORT_TILE`` points each) and
+    8-bit passes (ceil(bits(n_cells) / 8)), and the word offset and size of
+    each array -- the keys (N per frame), up to two (key, index) buffers
+    (2N each), the (pass, tile, digit) histograms, the tiles' mask counts,
+    the cells' first and end positions (2 n_cells) and the sorted
+    coordinates (3N).  O(N + digits x tiles + n_cells) per frame; nothing
+    scales with n_cells x tiles."""
+    n_tiles = -(-n // SORT_TILE)
+    passes = -(-max(1, (n_cells - 1).bit_length()) // 8)
+    sizes = {
+        "keys": s * n,
+        "pairs": min(2, passes - 1) * 2 * s * n,
+        "hist": passes * s * n_tiles * 256,
+        "tilecnt": s * n_tiles,
+        "cells": 2 * s * n_cells,
+        "sorted": 3 * s * n,
+    }
+    offsets, words = {}, 0
+    for name, size in sizes.items():
+        offsets[name] = words
+        words += -(-size // 64) * 64                 # 256-byte aligned arrays
+    return {"n_tiles": n_tiles, "passes": passes, "sizes": sizes, "offsets": offsets,
+            "words": words, "bytes": 4 * words}
 
 
 def _sorted_sums_scratch(s: int, n: int, nc: int, dev):
-    """K6's chunk, scratch (keys, counts, offs, cell_start, order, seg_tot,
-    seg_base), segment length and output for S frames of N points."""
-    chunk = sorted_sums_chunk(nc, n)
-    n_chunks = -(-n // chunk)
-    counts_len = nc * n_chunks
-    seg_len = max(8192, -(-counts_len // 1024))
-    seg_len = -(-seg_len // 32) * 32
-    n_seg = -(-counts_len // seg_len)
-    i32 = dict(dtype=torch.int32, device=dev)
-    scratch = (torch.empty((s, n), **i32), torch.zeros((s, counts_len), **i32),
-               torch.empty((s, counts_len), **i32), torch.empty((s, nc + 1), **i32),
-               torch.empty((s, n), **i32), torch.empty((s, n_seg), **i32),
-               torch.empty((s, n_seg), **i32))
+    """K6's plan, its scratch buffer (kept alive by the caller until the
+    launch is queued), the arrays' addresses in the entries' order, and the
+    (S, 4, n_cells) output."""
+    plan = sorted_sums_plan(s, n, nc)
+    buf = torch.empty(plan["words"], dtype=torch.int32, device=dev)
+    ptrs = [buf.data_ptr() + 4 * plan["offsets"][k]
+            for k in ("keys", "pairs", "hist", "tilecnt", "cells", "sorted")]
     out = torch.empty((s, 4, nc), dtype=torch.float32, device=dev)
-    return chunk, scratch, seg_len, out
+    return plan, buf, ptrs, out
 
 
 def _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, mode: int):
     """Launch K6 (mode 0 bf16x3, mode 1 f32): ((S, 4, n_cells) f32, (S,)
-    i32)."""
+    i32); the kernels zero their own counters and count the mask."""
     s, n = _check_points(points, mask, "K6")
     k = kernel_params(scene, leaf_xy, leaf_z)
     nc = k["n_cells"]
-    m8 = (mask != 0).to(torch.uint8).contiguous()
+    m8 = _build.byte_mask(mask)
     dev = points.device
-    chunk, scratch, seg_len, out = _sorted_sums_scratch(s, n, nc, dev)
+    plan, buf, ptrs, out = _sorted_sums_scratch(s, n, nc, dev)
+    npts = torch.empty((s,), dtype=torch.int32, device=dev)
     err = _build.load().motl_voxel_bf16x3(
-        points.data_ptr(), m8.data_ptr(), s, n, chunk,
-        *(t.data_ptr() for t in scratch), seg_len, out.data_ptr(), nc,
+        points.data_ptr(), m8.data_ptr(), s, n, plan["n_tiles"], plan["passes"], *ptrs,
+        out.data_ptr(), npts.data_ptr(), nc,
         k["gx"], k["gy"], k["gz"], k["bx"], k["by"], k["bz"],
         k["inv_xy"], k["inv_z"], mode, _build.stream_ptr(dev),
     )
     _build.check(err, "motl_voxel_bf16x3")
-    return out, _npts(m8, s)
+    return out, npts
 
 
 def accumulate_bf16x3_stacked(
@@ -741,12 +754,11 @@ def accumulate_bf16x3_keys(
     points = points.contiguous()
     ix32 = ix.to(torch.int32).contiguous()
     iyz32 = iyz.to(torch.int32).contiguous()
-    inb8 = (in_bounds != 0).to(torch.uint8).contiguous()
-    chunk, scratch, seg_len, out = _sorted_sums_scratch(s, n, gx * gyz, dev)
+    inb8 = _build.byte_mask(in_bounds)
+    plan, buf, ptrs, out = _sorted_sums_scratch(s, n, gx * gyz, dev)
     err = _build.load().motl_voxel_bf16x3_keys(
-        points.data_ptr(), ix32.data_ptr(), iyz32.data_ptr(), inb8.data_ptr(), s, n, chunk,
-        *(t.data_ptr() for t in scratch), seg_len, out.data_ptr(), gx, gyz,
-        _build.stream_ptr(dev),
+        points.data_ptr(), ix32.data_ptr(), iyz32.data_ptr(), inb8.data_ptr(), s, n,
+        plan["n_tiles"], plan["passes"], *ptrs, out.data_ptr(), gx, gyz, _build.stream_ptr(dev),
     )
     _build.check(err, "motl_voxel_bf16x3_keys")
     accumulate_bf16x3_keys.launches += 1

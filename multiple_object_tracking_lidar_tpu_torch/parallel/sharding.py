@@ -25,7 +25,7 @@ chosen as the JAX package chooses them (sharding.py:88-107):
   exactly two collectives, and the integer sums make the result the same
   bits at every space factor -- one finalize, then the dense grid's
   stacked perception over the local streams (K2, the batched cluster
-  table, one K3 launch) and one K4 launch for every local stream's track
+  table, one K3f launch) and one K4 launch for every local stream's track
   step (``track_batch`` at B x 1, one CTA per stream).  Exact mode at
   a leaf too coarse for two digits accumulates the bf16x3 sums (K6) and
   all-reduces them in f32 (sharding.py:210-226).

@@ -11,7 +11,7 @@ one of two perception paths:
   "onehot"`` or ``"runs"``; the configuration the JAX package benchmarks):
 
     voxel accumulator -> K2 finalize + static drop + grid CC ->
-    cluster table -> K3 pair stats -> circumcenter
+    cluster table -> K3f circumcenter (one launch)
 
   where the accumulator is K1 (fast digits), K5 (exact digits), K6
   (bf16x3: exact mode at a coarse leaf or when no point block tiles N) or
@@ -28,7 +28,7 @@ one of two perception paths:
     voxel list (dense: K6 f32 sums + finalize; scan: sort + passes; runs:
     sort + K7; onehot: K1/K5/K6 + finalize) -> remove_static ->
     compact_points -> CC (pallas: K8; jnp: K8's adjacency + pointer-jump
-    sweeps) -> cluster postprocess -> K3 pair stats -> circumcenter
+    sweeps) -> cluster postprocess -> K3f circumcenter (one launch)
 
 and then the track step: K4 (``ops/track_cuda.py``), the whole step in
 one launch, or past K4's bounds its plain route (``track_route``).  Every
@@ -313,7 +313,7 @@ class Tracker:
         """Like bind_env, for a batch of consecutive frames of one stream
         stacked on a leading axis: ``multi_step(state, frames) -> (state,
         outputs)``, outputs stacked per frame.  Perception runs once on all
-        S frames (one accumulator call, stacked K2 or K8, one K3 launch),
+        S frames (one accumulator call, stacked K2 or K8, one K3f launch),
         then the S track steps in one K4 launch (``track_batch`` at 1 x S),
         which scans them in order.  Every frame's result is the one
         ``bind_env`` computes: the stacked stages treat the frames
@@ -389,7 +389,7 @@ def _perceive_batch_from_dense_acc(
     """Dense-grid perception of S frames (accs (S, 4, n_cells)): stacked K2
     (finalize + static drop + CC) or, where the plan says K2 does not run,
     the finalize, the static drop and the stencil CC in plain torch; then
-    the batched cluster table, one K3 launch for the S * C slots, the
+    the batched cluster table, one K3f launch for the S * C slots: the
     circumcenter."""
     caps = config.caps
     tol, leaf, leaf_z = config.cluster_tolerance, config.voxel_leaf_size, config.leaf_z

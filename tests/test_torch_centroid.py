@@ -86,9 +86,7 @@ def test_circumcenter_selection_bit_identical(seed):
 def test_circumcenter_end_to_end_matches_jnp(seed):
     mp, mm = _table(seed)
     ref = circumcenter_features_table(jnp.asarray(mp), jnp.asarray(mm), jnp.float32(0.7))
-    got = tcen.circumcenter_features_table_cuda(
-        torch.from_numpy(mp), torch.from_numpy(mm), torch.tensor(0.7)
-    )
+    got = k3.circumcenter_features(torch.from_numpy(mp), torch.from_numpy(mm), torch.tensor(0.7))
     active = mm.any(1)
     np.testing.assert_allclose(np.asarray(ref)[active], got.numpy()[active], rtol=0, atol=1e-6)
 

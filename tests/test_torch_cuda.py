@@ -1,5 +1,5 @@
-"""The CUDA kernels (K1-K11, K6 in both modes and its key entry, K1-cm, K4
-on banks past 128 slots, K1's and K5's histograms and finalizes alone)
+"""The CUDA kernels (K1-K11, K3f, K6 in both modes and its key entry, K1-cm,
+K4 on banks past 128 slots, K1's and K5's histograms and finalizes alone)
 against their plain PyTorch versions, the slices
 (fast, exact and runs mode, the stencil CC of ``grid_cc="jnp"``; the
 point-list configurations C-F) on the GPU against the port's plain path on
@@ -201,6 +201,86 @@ def test_k10_matches_plain(dev):
         assert centroid_cuda.circumcenter_xy.launches == n0 + 1
         assert _bits(k, centroid_cuda.circumcenter_xy_plain(tp, tm))
         assert (k[3].cpu().numpy() == mp[3, :9, :2]).all(1).any()     # collinear: Pi
+
+
+def _k3f_table(rng, s, c, p, dev):
+    """S stacked (C, P) member tables: a 0.1 m lattice cluster (ties), a
+    collinear one (G == 0), a singleton, two members, all-equal members, a
+    NaN member, a full slot and empty slots."""
+    mp = np.zeros((s, c, p, 3), np.float32)
+    mm = np.zeros((s, c, p), bool)
+    for f in range(s):
+        n = int(rng.integers(2, p))
+        mp[f, 0, :n] = np.round(rng.normal(0, 1, (n, 3)) * 10) / 10
+        mm[f, 0, :n] = True
+        mp[f, 1, :9] = np.stack([0.25 * np.arange(9), 0.5 * np.arange(9), np.zeros(9)], 1)
+        mm[f, 1, :9] = True
+        mp[f, 2, 3], mm[f, 2, 3] = [1.0, 2.0, 0.5], True
+        mp[f, 3, :2], mm[f, 3, :2] = [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], True
+        mp[f, 4, :12], mm[f, 4, :12] = [3.0, -1.0, 0.25], True
+        mp[f, 5, :40] = rng.normal(0, 1, (40, 3))
+        mm[f, 5, :40] = True
+        mp[f, 5, 21, 1] = np.nan
+        mp[f, 6] = rng.uniform(-2, 2, (p, 3))
+        mm[f, 6] = True
+    return (torch.from_numpy(mp).reshape(s * c, p, 3).to(dev),
+            torch.from_numpy(mm).reshape(s * c, p).to(dev))
+
+
+@pytest.mark.parametrize("s,c,p", [(1, 32, 384), (8, 32, 384), (8, 64, 512)])
+def test_k3f_matches_plain(dev, s, c, p):
+    """K3f at the headline's and configuration G's tables, S stacked
+    frames, one time per frame: bit for bit its plain version, and K3's
+    stats with the eager selection after them."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.centroid import circumcenter_from_pair_stats
+
+    mp, mm = _k3f_table(np.random.default_rng(c + s), s, c, p, dev)
+    t = torch.arange(s, dtype=torch.float32, device=dev) * 0.1 + 0.05
+    n0 = centroid_cuda.circumcenter_features.launches
+    k = centroid_cuda.circumcenter_features(mp, mm, t)
+    assert centroid_cuda.circumcenter_features.launches == n0 + 1
+    assert _bits(k, centroid_cuda.circumcenter_features_plain(mp, mm, t))
+    ref = circumcenter_from_pair_stats(*centroid_cuda.pair_stats(mp, mm), mp, mm,
+                                       t.repeat_interleave(c))
+    assert _bits(k, ref)
+    assert _bits(k[1::c, :2], mp[1::c, 0, :2]) or _bits(k[1::c, :2], mp[1::c, 8, :2])
+
+
+@pytest.mark.parametrize("case", ["headline_case", "default_case"])
+@pytest.mark.parametrize("mode", ["bf16x3", "f32", "keys"])
+def test_k6_sort_matches_plain(dev, case, mode):
+    """K6's three entries at the headline's and configuration G's grids,
+    S = 3: a frame whose points all fall in one cell, an all-dropped frame,
+    NaN points and keys at n_cells - 1."""
+    cfg, _, sc = getattr(bench_cases, case)()
+    n = cfg.caps.n_max_points
+    rows = [bench_cases.padded_frame(sc, k, n) for k in range(3)]
+    P = torch.from_numpy(np.stack([r[0] for r in rows])).to(dev)
+    M = torch.from_numpy(np.stack([r[1] for r in rows])).to(dev)
+    P[0, ::9, 0] = float("nan")
+    P[1] = torch.tensor([0.05, 2.05, 0.5], device=dev)
+    M[2] = False
+    kw = (cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    if mode == "keys":
+        k = voxel_grid_cuda.kernel_params(*kw)
+        gx, gyz = k["gx"], k["gy"] * k["gz"]
+        M[2] = True
+        ok, lin, _ = voxel_grid_cuda.kept_cells(P, M, k)
+        ix, iyz = lin % gx, lin // gx
+        ix[:, :64], iyz[:, :64], ok[:, :64] = gx - 1, gyz - 1, True
+        ok[2] = False
+        args = (P, ix, iyz, ok, gx, gyz)
+        out = ((voxel_grid_cuda.accumulate_bf16x3_keys(*args),),
+               (voxel_grid_cuda.accumulate_bf16x3_keys_plain(*args),))
+    else:
+        wrapper = getattr(voxel_grid_cuda, f"accumulate_{mode}_stacked")
+        plain = getattr(voxel_grid_cuda, f"accumulate_{mode}_stacked_plain")
+        n0 = wrapper.launches
+        out = wrapper(P, M, *kw), plain(P, M, *kw)
+        assert wrapper.launches == n0 + 1
+    assert all(_bits(a, b) for a, b in zip(*out))
+    if mode != "keys":
+        assert out[0][0][1, 3].max() == M[1].sum() and (out[0][0][2] == 0).all()
 
 
 def test_k6_keys_matches_plain(dev, small):
@@ -452,6 +532,34 @@ def test_slice_gpu_matches_cpu_plain_path(dev, small):
             st, o = step(st, Frame(torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))
             rows.append([x.cpu() for x in o])
         outs[where] = rows
+    for rc, rg in zip(outs["cpu"], outs["gpu"]):
+        for name, a, b in zip(FrameOutput._fields, rc, rg):
+            if name == "vel":
+                assert torch.allclose(a, b, rtol=0, atol=1e-5), name
+            else:
+                assert _bits(a, b), name
+
+
+def test_headline_bind_env_launches_k3f_not_k3(dev, small):
+    """The headline's bind_env on the card: the circumcenter is K3f, one
+    launch per frame, and K3 never launches; the outputs match the CPU
+    plain path (velocities within 1e-5 m/s)."""
+    cfg, env, frames = small
+    env_cpu = headline_case()[1]
+    outs = {}
+    for where, e in (("cpu", env_cpu), ("gpu", env)):
+        tr = Tracker(cfg, "cpu" if where == "cpu" else dev)
+        step = tr.bind_env(e)
+        st = tr.init_state()
+        k3f0, k30 = centroid_cuda.circumcenter_features.launches, centroid_cuda.pair_stats.launches
+        rows = []
+        for buf, mask, t in frames[:4]:
+            st, o = step(st, Frame(torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))
+            rows.append([x.cpu() for x in o])
+        outs[where] = rows
+        if where == "gpu":
+            assert centroid_cuda.circumcenter_features.launches - k3f0 == 4
+            assert centroid_cuda.pair_stats.launches == k30
     for rc, rg in zip(outs["cpu"], outs["gpu"]):
         for name, a, b in zip(FrameOutput._fields, rc, rg):
             if name == "vel":

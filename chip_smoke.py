@@ -22,7 +22,12 @@ of JAX, in five phases, one or more lines each:
    headline's, at every cluster size; K4, the whole track step, at K = 64
    and 1,024 launched 1 x 1, 1 x 8 and 8 x 1 with up to D = 128 detections
    (first frames, duplicates, gaps, overflow), and its decision scan alone
-   at K = 64, 256 and 1,024 -- all bit for bit;
+   at K = 64, 256 and 1,024; K1, K5, their raw entries and K1-cm on the
+   grids of ``bench_cases.digit_grids`` (the headline's at every layout of
+   cell ranges x point chunks, 32,768, 70,200 and 193,536 cells at the
+   rule's), each with an adversarial frame and the 99%-in-one-cell frames
+   -- all bit for bit; a grid of exactly ``max_cells`` runs and one row
+   past it raises;
 4. the paths, each with every kernel's launch counter reset before and
    read after: the headline (fast digits) -- ``TrackerNode.on_pointcloud``
    answers 12 headline PointCloud2 frames and ``Tracker.bind_env_multi``
@@ -54,12 +59,18 @@ of JAX, in five phases, one or more lines each:
    ``TrackerNode`` with a two-slot bank over 12 headline frames against the
    JAX growth golden (torch_growth_headline.npz), a checkpoint after frame
    5 resumed bit for bit, and the same checkpoint padded to 256 slots (K4
-   past the TPU kernel's 128) within the golden's tolerances;
+   past the TPU kernel's 128) within the golden's tolerances; and G-grid
+   (G's config and frames on the dense grid: K1 and K2 at 193,536 cells)
+   through ``bind_env`` and ``bind_env_multi`` against the port's own
+   ``bind_env`` on the CPU.  No path may take the plain digit sums;
 5. timings with CUDA events, beside the card's name and power limit:
    ``bind_env`` and ``bind_env_multi`` per path, host syncs and device ops
    per frame of each (``torch.profiler``; the headline must make no host
-   sync), the fleet's clouds/s and device ops per cloud beside
-   ``bind_env_multi``, and each kernel against its plain version, with its
+   sync), K1 and K5 per call at 5,500, 70,200 and 193,536 cells
+   (``scripts/micro_torch_digits.py``: one device operation each, fused or
+   raw, beside ``Tensor.index_add_`` of their digits), the fleet's
+   clouds/s and device ops per cloud beside ``bind_env_multi``, and each
+   kernel against its plain version, with its
    bound (the larger of its bytes over 3.35 TB/s and its operations over
    67 TFLOP/s) and, where one PyTorch call computes the same function,
    that call's time (K6f also at configuration G's grid, S = 8, beside
@@ -850,6 +861,113 @@ def phase_kernels_slice7(dev, report):
                    lambda: (vg.accumulate_bf16x3_keys_plain(P, ix, iyz, ok, gx, gyz),))
 
 
+def digit_entries(vg):
+    """{entry: (kernel wrapper, plain call, channel-major)} of K1, K5, their
+    raw entries and K1-cm: the plain calls take (S, N, 3) points."""
+    def npts(M):
+        return (M != 0).sum(1).to(torch.int32)
+    return {
+        "K1": (vg.accumulate_fast_stacked, vg.accumulate_fast_stacked_plain, False),
+        "K1 raw": (vg.accumulate_fast_stacked_raw,
+                   lambda P, M, *kw: (vg.fast_digit_sums(P, M, *kw), npts(M)), False),
+        "K1-cm": (vg.accumulate_fast_stacked_cm, vg.accumulate_fast_stacked_plain, True),
+        "K1-cm raw": (vg.accumulate_fast_stacked_cm_raw,
+                      lambda P, M, *kw: (vg.fast_digit_sums(P, M, *kw), npts(M)), True),
+        "K5": (vg.accumulate_exact_stacked, vg.accumulate_exact_stacked_plain, False),
+        "K5 raw": (vg.accumulate_exact_stacked_raw,
+                   lambda P, M, *kw: (vg.exact_digit_sums(P, M, *kw), npts(M)), False),
+    }
+
+
+def phase_kernels_slice8(dev, report, cfg, k1_inputs):
+    """K1, K5, their raw entries and K1-cm against their plain versions, bit
+    for bit, on the grids of ``bench_cases.digit_grids``: the headline's
+    5,500 cells (8 frames, frame 7 adversarial) at every layout (cell ranges
+    x point chunks) that holds it, 32,768, 70,200 and 193,536 cells (two of
+    the path's frames and an adversarial one) at the rule's layout; each
+    grid also on the 99%-in-one-cell frames at N = 133,120 and 131,072, and
+    raw + finalize against the fused kernel.  Then a grid of exactly
+    ``max_cells`` runs, and one a row longer raises."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.config import SceneBounds
+    from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid_cuda as vg
+
+    rng = np.random.default_rng(808)
+    top = vg.max_cluster(dev)
+    entries = digit_entries(vg)
+    fins = {"K1": vg.finalize_fast_stacked, "K5": vg.finalize_exact_stacked}
+    for label, scene, leaf, leaf_z, case in bench_cases.digit_grids(cfg):
+        gcfg = cfg.replace(scene=scene, voxel_leaf_size=leaf)
+        kw = (scene, leaf, leaf_z)
+        nc = vg.kernel_params(*kw)["n_cells"]
+        if label == "headline":
+            pts, mask = k1_inputs
+        else:
+            ccfg, _, sc = getattr(bench_cases, f"{case}_case")()
+            n = ccfg.caps.n_max_points
+            pts, mask, _ = headline_frames(sc, n, range(2))
+            apts, amask = adversarial_points(gcfg, rng, n)
+            pts, mask = np.concatenate([pts, apts[None]]), np.concatenate([mask, amask[None]])
+        sets = [(f"S={pts.shape[0]} N={pts.shape[1]} (frame {pts.shape[0] - 1} adversarial)",
+                 pts, mask)]
+        for nb in (133_120, 131_072):
+            sets.append((f"S=1 N={nb}, 99% in one cell", *blob_frame(gcfg, rng, nb)))
+        layouts = ([(r, c) for r in (1, 2, 4, 8, 16) for c in (1, 2, 4, 8, 16)
+                    if r <= top and c <= top and vg._span(nc, r) <= vg.CTA_CELLS]
+                   if label == "headline" else [None])
+        for what, p_np, m_np in sets:
+            P, M = torch.from_numpy(p_np).to(dev), torch.from_numpy(m_np).to(dev)
+            Pcm = P.transpose(1, 2).contiguous()
+            for name, (fk, fp, cm) in entries.items():
+                want = fp(P, M, *kw)
+                torch.cuda.synchronize()
+                for lay in layouts:
+                    lk = {} if lay is None else {"ranges": lay[0], "chunks": lay[1]}
+                    got = fk(Pcm if cm else P, M, *kw, **lk)
+                    torch.cuda.synchronize()
+                    ok = all(equal(npy(a), npy(b)) for a, b in zip(got, want))
+                    err = max(max_err(npy(a), npy(b)) for a, b in zip(got, want))
+                    entry = report.setdefault(name, {"max_abs_err": 0.0})
+                    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                    if not ok:
+                        fail(f"{name} at {label} ({nc} cells), {what}, layout {lay}: differs "
+                             "from its plain version (bit-exact expected)")
+            for k in ("K1", "K5"):
+                raw = entries[f"{k} raw"][0](P, M, *kw)
+                if not all(equal(npy(a), npy(b)) for a, b in zip(
+                        (fins[k](raw[0], *kw), raw[1]), entries[k][0](P, M, *kw))):
+                    fail(f"{k} raw + fin differs from the fused {k} at {label}, {what}")
+            lay_note = (f"every layout ({len(layouts)}: ranges x chunks)" if label == "headline"
+                        else f"the rule's layouts K1 {vg.digit_layout(nc, P.shape[0], 1, dev)}, "
+                             f"K5 {vg.digit_layout(nc, P.shape[0], 3, dev)}")
+            log(f"[3 K1/K5 slice 8] {label}: {nc} cells, {what}, {lay_note}: K1, K1 raw, K1-cm, "
+                "K1-cm raw, K5, K5 raw bit-exact=True; raw + fin = fused")
+
+    # the capacity: 14,520 x 16 cells run, 14,521 x 16 raise
+    P, M = (torch.from_numpy(a[:2]).to(dev) for a in k1_inputs)
+    x0, y0 = cfg.scene.x_min, cfg.scene.y_min
+    for gx, fits in ((vg.CTA_CELLS * top // 16, True), (vg.CTA_CELLS * top // 16 + 1, False)):
+        scene = SceneBounds(x_min=x0, x_max=x0 + (gx - 0.5) * 0.05, y_min=y0,
+                            y_max=y0 + 15.5 * 0.05, z_min=0.0, z_max=0.5)
+        kw = (scene, 0.05, 1.0)
+        nc = vg.kernel_params(*kw)["n_cells"]
+        if fits:
+            check_pair(report, "K1", f"S=2 at exactly max_cells = {nc} cells",
+                       lambda: vg.accumulate_fast_stacked(P, M, *kw),
+                       lambda: vg.accumulate_fast_stacked_plain(P, M, *kw))
+            continue
+        for name, (fk, _, cm) in entries.items():
+            try:
+                fk(P.transpose(1, 2).contiguous() if cm else P, M, *kw)
+            except ValueError as e:
+                if "digit_sums_stacked" not in str(e):
+                    raise
+            else:
+                fail(f"{name} did not raise at {nc} cells, one row past max_cells")
+        log(f"[3 K1/K5 slice 8] {nc} cells (max_cells {vg.max_cells(dev)} + 16): every K1 / K5 "
+            "entry raises and names the dispatcher's plain route")
+
+
 def pointlist_rows(dev, cfg, P, M):
     """The compacted dynamic voxels the point list feeds its CC: (S, M, 3)
     points and (S, M) mask of the frames P, M under ``cfg``."""
@@ -903,13 +1021,23 @@ def kernel_wrappers():
     }
 
 
+PLAIN_SUMS = "plain digit sums"   # not a kernel: the dispatcher's route past K1 / K5
+
+
 def reset_counts():
+    from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid
+
     for w in kernel_wrappers().values():
         w.launches = 0
+    voxel_grid.digit_sums_stacked.plain_routes = 0
 
 
 def read_counts():
-    return {k: w.launches for k, w in kernel_wrappers().items()}
+    from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid
+
+    counts = {k: w.launches for k, w in kernel_wrappers().items()}
+    counts[PLAIN_SUMS] = voxel_grid.digit_sums_stacked.plain_routes
+    return counts
 
 
 FAST_PATH = ("K1", "K2", "K3f", "K4")   # the kernels each path must launch
@@ -920,14 +1048,20 @@ FLEET_C_PATH = ("K6f", "K8", "K3f", "K4")
 
 def require(tag, counts, need, report):
     """Fail unless every kernel of ``need`` launched in this path's run,
-    and unless a tracking path (one that needs K3f) launched no K3; add the
-    run's counts to the report."""
+    unless a tracking path (one that needs K3f) launched no K3, and unless
+    the path took no plain digit sums (every grid here is within K1's and
+    K5's ``max_cells``); add the run's kernel counts to the report."""
     missing = [k for k in need if counts[k] <= 0]
     if missing:
         fail(f"{missing} not launched on the {tag} path: {counts}")
     if "K3f" in need and counts["K3"]:
         fail(f"the {tag} path launched K3 {counts['K3']} times (its circumcenter is K3f)")
+    if counts[PLAIN_SUMS]:
+        fail(f"the {tag} path took the plain digit sums {counts[PLAIN_SUMS]} times "
+             "(its grid is within K1's and K5's max_cells)")
     for k, c in counts.items():
+        if k == PLAIN_SUMS:
+            continue
         report.setdefault(k, {"max_abs_err": 0.0})
         report[k]["launches"] = report[k].get("launches", 0) + c
 
@@ -1089,6 +1223,58 @@ def phase_modes(dev, report):
         require(f"{tag} bind_env_multi", counts, (kern,) + TAIL, report)
         if not fin:
             fail(f"{tag}: non-finite pos/vel on valid lanes")
+
+
+def phase_g_grid(dev, report):
+    """G-grid (``bench_cases.default_grid_case``: configuration G's config
+    and frames on the dense grid, K1 and K2 at 193,536 cells) through
+    ``bind_env`` (8 frames) and ``bind_env_multi`` (one dispatch of S = 8),
+    each against the port's own ``bind_env`` on the CPU over the same
+    frames (integers and decisions exact, positions TOL_DETS, velocities
+    TOL_CPU_VEL), with K1, K2, K3f and K4 launched and no plain digit sums."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    cfg, env, sc = bench_cases.default_grid_case(device=dev)
+    n_fr = 8
+    pts, mask, ts = headline_frames(sc, cfg.caps.n_max_points, range(n_fr))
+    t_cpu = Tracker(cfg, "cpu")
+    step = t_cpu.bind_env(bench_cases.default_grid_case()[1])
+    st = t_cpu.init_state()
+    rows = []
+    for k in range(n_fr):
+        st, o = step(st, Frame(torch.from_numpy(pts[k]), torch.from_numpy(mask[k]),
+                               torch.tensor(ts[k])))
+        rows.append(o)
+    fields = rows[0]._fields
+    cpu = {f: np.stack([npy(getattr(o, f)) for o in rows]) for f in fields}
+    P, M, T = (torch.from_numpy(a).to(dev) for a in (pts, mask, ts))
+    tracker = Tracker(cfg, dev)
+    one = tracker.bind_env(env)
+    st = tracker.init_state()
+    reset_counts()
+    outs = []
+    for k in range(n_fr):
+        st, o = one(st, Frame(P[k], M[k], T[k]))
+        outs.append(o)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    got = {f: np.stack([npy(getattr(o, f)) for o in outs]) for f in fields}
+    e1 = compare("G-grid bind_env vs the CPU bind_env", got, cpu, TOL_DETS, TOL_CPU_VEL)
+    require("G-grid bind_env", counts, FAST_PATH, report)
+    log(f"[4 G-grid] bind_env x{n_fr} (193,536 cells, N={cfg.caps.n_max_points}): n_clusters "
+        f"{got['n_clusters'].tolist()}, launches {counts}; vs the port's CPU bind_env max abs "
+        f"err {e1}")
+    reset_counts()
+    _, o = tracker.bind_env_multi(env)(tracker.init_state(), Frame(P, M, T))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    got = {f: npy(getattr(o, f)) for f in fields}
+    e8 = compare("G-grid bind_env_multi vs the CPU bind_env", got, cpu, TOL_DETS, TOL_CPU_VEL)
+    require("G-grid bind_env_multi", counts, FAST_PATH, report)
+    log(f"[4 G-grid] bind_env_multi S={n_fr}: launches {counts}; vs the port's CPU bind_env "
+        f"max abs err {e8}")
 
 
 def run_node(dev, tag, cfg, sc, golden, n_node, need, report, counts_out=None):
@@ -1590,12 +1776,44 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
     from multiple_object_tracking_lidar_tpu_torch import bench_cases
     from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
 
-    for tag, case in (("A exact", bench_cases.exact_case), ("B runs", bench_cases.runs_case)):
-        cfg_m, env_m, _ = case(device=P.device)
-        ms_s, ms_m = time_path(Tracker(cfg_m, P.device), env_m, P, M, T)
+    for tag, case in (("A exact", bench_cases.exact_case), ("B runs", bench_cases.runs_case),
+                      ("G-grid", bench_cases.default_grid_case)):
+        cfg_m, env_m, sc_m = case(device=P.device)
+        Pm, Mm, Tm = P, M, T
+        if cfg_m.caps.n_max_points != P.shape[1]:
+            Pm, Mm, Tm = (torch.from_numpy(a).to(dev) for a in
+                          headline_frames(sc_m, cfg_m.caps.n_max_points, range(16)))
+        tr_m = Tracker(cfg_m, P.device)
+        ms_s, ms_m = time_path(tr_m, env_m, Pm, Mm, Tm, reps=3 if Pm.shape[0] == 32 else 2)
+        extra = ""
+        if tag != "B runs":
+            step_m, multi_m = tr_m.bind_env(env_m), tr_m.bind_env_multi(env_m)
+
+            def one_m():
+                st = tr_m.init_state()
+                for k in range(8):
+                    st, _ = step_m(st, Frame(Pm[k], Mm[k], Tm[k]))
+
+            def eight_m():
+                multi_m(tr_m.init_state(), Frame(Pm[:8], Mm[:8], Tm[:8]))
+
+            (o1, s1), (o8, s8) = trace_counts(one_m, 8), trace_counts(eight_m, 8)
+            extra = (f"; host syncs per frame bind_env {s1:.3f}, bind_env_multi {s8:.3f}; "
+                     f"device ops per frame bind_env {o1:.2f}, bind_env_multi {o8:.2f}")
         log(f"[5 timing] {smi}: {tag} bind_env {ms_s:.4f} ms/frame ({1e3 / ms_s:.1f} "
-            f"clouds/s); bind_env_multi S=8 {ms_m:.4f} ms/frame ({1e3 / ms_m:.1f} clouds/s)")
+            f"clouds/s); bind_env_multi S=8 {ms_m:.4f} ms/frame ({1e3 / ms_m:.1f} clouds/s)"
+            f"{extra}")
     phase_timings_pointlist(dev, smi, P, M, T)
+
+    # K1 and K5 per call at the headline, the CLI's and the default scene's
+    # grids: one device operation each, fused or raw (the trace may drop an
+    # event, never add one: more than one per call fails)
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import micro_torch_digits
+
+    for (shape, name), (_, ops, _, _, _) in micro_torch_digits.run(dev, 20, log).items():
+        if ops > 1.0:
+            fail(f"{name} at {shape}: {ops} device operations per call (1 expected)")
 
     # kernels vs plain versions, at the main path's shapes
     kw1 = (cfg.scene, leaf, leaf_z)
@@ -1681,15 +1899,19 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
     vals4 = torch.cat([torch.where(ok[..., None], P8, 0.0), ok[..., None].float()], -1).reshape(-1, 4)
     base = torch.zeros((s8 * nc + 1, 4), dtype=torch.float32, device=dev)
     runs = torch.unique_consecutive((frame_of * (nc + 1) + ks).reshape(-1), return_counts=True)[1]
+    idx1, dig1, tab1 = micro_torch_digits.digit_rows(vg, P8, M8, kw1, "fast")
+    idx5, dig5, tab5 = micro_torch_digits.digit_rows(vg, P8, M8, kw1, "exact")
+    lib1 = lambda: tab1.index_add_(0, idx1, dig1)  # noqa: E731
+    lib5 = lambda: tab5.index_add_(0, idx5, dig5)  # noqa: E731
     rows3 = torch.stack(vals, dim=-1).reshape(-1, 3)
     rows4 = v4.reshape(-1, 4)
     pairs = {  # name: (kernel, plain, shape, inputs, operations, library call or None)
         "K1": (lambda: vg.accumulate_fast_stacked(P8, M8, *kw1),
                lambda: vg.accumulate_fast_stacked_plain(P8, M8, *kw1),
-               "S=8 frames x 106496 points", (P8, M8), 35 * kept + 12 * s8 * nc, None),
+               "S=8 frames x 106496 points", (P8, M8), 35 * kept + 12 * s8 * nc, lib1),
         "K1 raw": (lambda: vg.accumulate_fast_stacked_raw(P8, M8, *kw1),
                    lambda: (vg.fast_digit_sums(P8, M8, *kw1), (M8 != 0).sum(1).int()),
-                   "S=8 frames x 106496 points", (P8, M8), 35 * kept, None),
+                   "S=8 frames x 106496 points", (P8, M8), 35 * kept, lib1),
         "K1 fin": (lambda: vg.finalize_fast_stacked(raw1, *kw1),
                    lambda: vg.finalize_fast_digits(raw1, k1p),
                    "S=8 frames x 5500 cells", (raw1,), 12 * s8 * nc, None),
@@ -1739,10 +1961,10 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
                     None),
         "K5": (lambda: vg.accumulate_exact_stacked(P8, M8, *kw1),
                lambda: vg.accumulate_exact_stacked_plain(P8, M8, *kw1),
-               "S=8 frames x 106496 points", (P8, M8), 45 * kept + 18 * s8 * nc, None),
+               "S=8 frames x 106496 points", (P8, M8), 45 * kept + 18 * s8 * nc, lib5),
         "K5 raw": (lambda: vg.accumulate_exact_stacked_raw(P8, M8, *kw1),
                    lambda: (vg.exact_digit_sums(P8, M8, *kw1), (M8 != 0).sum(1).int()),
-                   "S=8 frames x 106496 points", (P8, M8), 45 * kept, None),
+                   "S=8 frames x 106496 points", (P8, M8), 45 * kept, lib5),
         "K5 fin": (lambda: vg.finalize_exact_stacked(raw5, *kw1),
                    lambda: vg.finalize_exact_digits(raw5, *kw1),
                    "S=8 frames x 5500 cells", (raw5,), 18 * s8 * nc, None),
@@ -1865,7 +2087,8 @@ def phase_timings_fleet(dev, smi, fleet, env, frames):
 
 
 KERNELS = (
-    ("K1", "voxel_grid fast-digit histogram + finalize",
+    ("K1", "voxel_grid fast-digit histogram + finalize, one launch (cell ranges x point-chunk "
+     "clusters)",
      f"{PKG}/csrc/voxel_grid.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1272"),
     ("K1 raw", "K1's histogram alone, int32 digit sums for the fleet's all-reduce "
      "(replaces _v5_stacked_raw :1642 and _v4_stacked_raw :1778)",
@@ -1885,7 +2108,8 @@ KERNELS = (
     ("K4 scan", "K4's decision scan alone (the TPU kernel's function, from the same device "
      "function)", f"{PKG}/csrc/assign.cu",
      "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188"),
-    ("K5", "voxel_grid exact two-digit histogram + finalize",
+    ("K5", "voxel_grid exact two-digit histogram + finalize, one launch (three channel groups of "
+     "cell ranges x point-chunk clusters)",
      f"{PKG}/csrc/voxel_exact.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1538"),
     ("K5 raw", "K5's histogram alone, int32 two-digit sums for the fleet's all-reduce "
      "(replaces _v6_stacked_raw :1686 and _v3_stacked_raw :1830)",
@@ -1936,9 +2160,11 @@ def main() -> int:
     phase_kernels_fleet(dev, report, cfg, k1_inputs)
     phase_kernels_slice5(dev, report, cfg, k1_inputs, table)
     phase_kernels_slice7(dev, report)
+    phase_kernels_slice8(dev, report, cfg, k1_inputs)
     tracker, env, frames = phase_slice(dev, cfg, sc, report)
     phase_modes(dev, report)
     phase_pointlist(dev, report)
+    phase_g_grid(dev, report)
     fleet, fleet_env, fleet_in = phase_fleet(dev, report)
     phase_entry_points(dev, report, cfg, sc, table)
     phase_growth(dev, report)

@@ -38,25 +38,19 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# pts, mask, S, N, ranges, chunks, out, npts, 7 grid ints, 10 floats, stream
+_DIGITS = [_P, _P, _I, _I, _I, _I, _P, _P, *[_I] * 7, *[_F] * 10, _P]
 
 # C signatures of the kernels' entry points (each returns a cudaError_t)
 SIGNATURES = {
-    "motl_voxel_accumulate": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
-                              _F, _P],
-    "motl_voxel_accumulate_raw": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
-                                  _P],
-    "motl_voxel_accumulate_cm": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I,
-                                 _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F,
-                                 _F, _F, _F, _P],
-    "motl_voxel_accumulate_cm_raw": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
-                                     _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
-                                     _F, _F, _P],
+    # K1 and K5 (fused, raw; rows and channel-major): one signature
+    "motl_voxel_accumulate": _DIGITS,
+    "motl_voxel_accumulate_raw": _DIGITS,
+    "motl_voxel_accumulate_cm": _DIGITS,
+    "motl_voxel_accumulate_cm_raw": _DIGITS,
     "motl_voxel_finalize_fast": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                                  _F, _F, _F, _F, _P],
-    "motl_voxel_exact_raw": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "motl_voxel_exact_raw": _DIGITS,
     "motl_voxel_finalize_exact": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                                   _F, _F, _F, _F, _P],
     "motl_grid_cc": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -68,8 +62,7 @@ SIGNATURES = {
     "motl_assoc_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P,
                         _P, _P],
     "motl_track_step": [*[_P] * 16, _I, _I, _I, _I, _I, *[_F] * 7, _I, *[_P] * 17],
-    "motl_voxel_exact": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "motl_voxel_exact": _DIGITS,
     "motl_voxel_bf16x3": [_P, _P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _I, _I,
                           _I, _I, _I, _F, _F, _I, _P],
     "motl_voxel_bf16x3_keys": [_P, _P, _P, _P, _I, _I, _I, _I, *[_P] * 7, _I,

@@ -8,13 +8,14 @@ fields changed: on the dense grid ``exact_case`` (bench.py:518),
 ``runs_case`` and ``exact_unpadded_case``; on the point list
 ``pointlist_case`` (C), ``pointlist_jnp_case`` (D), ``scan_case`` (E) and
 ``pointlist_runs_case`` (F).  ``default_case`` (G) is the JAX package's
-``TrackerConfig()`` itself, fed the headline frames; ``growth_case`` the
+``TrackerConfig()`` itself, fed the headline frames, and
+``default_grid_case`` (G-grid) its dense-grid form; ``growth_case`` the
 headline with a two-slot bank, which the node grows.
 
 The kernels' own inputs, made from a seed: ``track_scene`` (K4: banks,
 detections with duplicates, gaps, overflow), ``k2_grids`` and
 ``k2_inputs`` (K2 from the headline's 5,500 cells to the default scene's
-193,536).
+193,536), ``digit_grids`` (the same grids as scenes, for K1 and K5).
 """
 
 from __future__ import annotations
@@ -177,6 +178,15 @@ def default_case(device="cpu"):
     return cfg, env, sc
 
 
+def default_grid_case(device="cpu"):
+    """Configuration G-grid: G's config and frames on the dense grid
+    (``voxel_mode="onehot"``, ``cluster_backend="grid"``,
+    ``voxel_quant="fast"``): K1 and K2 at the default scene's 193,536
+    cells."""
+    cfg, env, sc = default_case(device)
+    return cfg.replace(voxel_mode="onehot", cluster_backend="grid", voxel_quant="fast"), env, sc
+
+
 def growth_case(device="cpu"):
     """The headline with a two-slot track bank (``k_max_tracks=2``): the
     three moving objects overflow the first frame, and the node's default
@@ -270,6 +280,30 @@ def k2_grids(cfg):
             ("CLI grid", (104, 225, 3), 0.05, 1.0, 0.15),
             ("default scene", grid_shape(g.scene, g.voxel_leaf_size, g.leaf_z),
              g.voxel_leaf_size, g.leaf_z, g.cluster_tolerance))
+
+
+def digit_grids(cfg):
+    """(label, scene, leaf_xy, leaf_z, case) of the grids K1 and K5 are
+    checked on: ``k2_grids``' dims as scenes whose corner is the headline
+    scene's (so the headline frames land in them), the default scene's
+    itself; ``case`` names the bench case whose frames feed the grid."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import grid_shape
+
+    out = []
+    for label, dims, leaf, leaf_z, _ in k2_grids(cfg):
+        if label == "headline":
+            scene, case = cfg.scene, "headline"
+        elif label == "default scene":
+            scene, case = TrackerConfig().scene, "default"
+        else:
+            x0, y0, z0 = cfg.scene.x_min, cfg.scene.y_min, cfg.scene.z_min
+            scene = SceneBounds(x_min=x0, x_max=x0 + (dims[0] - 0.5) * leaf,
+                                y_min=y0, y_max=y0 + (dims[1] - 0.5) * leaf,
+                                z_min=z0, z_max=z0 + (dims[2] - 0.5) * leaf_z)
+            case = "headline"
+        assert grid_shape(scene, leaf, leaf_z) == dims, (label, dims)
+        out.append((label, scene, leaf, leaf_z, case))
+    return tuple(out)
 
 
 def k2_inputs(dims, leaf, leaf_z, tol, seed, dev, s_frames=3):

@@ -18,37 +18,36 @@
 // Finalize: cnt * (c + half) + (s0 + 256 * s1) * 2^-19 (2^-14 for z).
 //
 // What bounds it on the H100: one pass over 13 bytes per point (1.4 MB per
-// 106,496-point frame) and one shared-memory integer atomic per channel per
-// kept point.  Seven int32 channels would take 28 B per cell, so one CTA's
-// 227 KB would hold only 8,301 cells.  Design: the channels are split over
-// two CTA groups (blockIdx.z): group 0 keeps channels 0-3, group 1 channels
-// 4-6, each in a (4, n_cells) int32 histogram in dynamic shared memory, so
-// K5 holds the same 14,528 cells as K1 (the dense scene's 11,000 included).
-// Both groups read the points (the read is cheap next to the atomics).
-// Each CTA merges its histogram into the global int32 (S, 7, n_cells) with
-// integer atomics: exact in any order, so the result is deterministic, and
-// no float is ever summed with atomics.  A second kernel finalizes to f32
-// with __fmul_rn / __fadd_rn / __fsub_rn only, so no FMA contraction changes
-// a bit against the plain PyTorch version (ops/voxel_grid_cuda.py).  The two
-// kernels are also entries of their own (motl_voxel_exact_raw,
-// motl_voxel_finalize_exact), which replace the raw stacked kernels
-// _accumulate_pallas_v6_stacked_raw / _v3_stacked_raw and the jnp
-// finalize_exact_digits: the fused entry is the same two launches back to
-// back, so its bits equal raw + finalize.
+// 106,496-point frame), 16 bytes out per cell, and seven integer atomics per
+// kept point.  Design: K1's (csrc/digit_cluster.cuh), per channel group:
+// the cells in C ranges, each CTA holding its range in shared memory, the
+// points in R chunks, the R CTAs of a range one thread-block cluster that
+// sums its copies over distributed shared memory; one launch per call,
+// nothing global zeroed or merged.  Seven channels would take 28 B per
+// cell, so the channels are split over three groups (blockIdx.y), one per
+// axis: that axis's two digits and the count, 12 B per cell, so K5 holds
+// at least K1's cells.  Every group keeps the count because the finalize of
+// an axis needs it: a 4 + 3 split (x and y digits; z digits and count)
+// leaves the x and y finalize without it, so the fused entry could not
+// finish in one launch.  The raw entry keeps the count in group 0 alone
+// (seven atomics per point; the fused entry nine).  Every group reads the
+// points; each finalizes its own axis, group 0 also the count, with the same
+// __device__ function as the fin entry, so fused == raw + fin bit for bit.
+// Integer sums are exact in any order, so the result is deterministic, and
+// no float is ever summed with atomics.  __fmul_rn / __fadd_rn / __fsub_rn
+// only, so no FMA contraction changes a bit against the plain PyTorch
+// version (ops/voxel_grid_cuda.py).  Entries: motl_voxel_exact (fused),
+// motl_voxel_exact_raw (replaces the raw stacked kernels
+// _accumulate_pallas_v6_stacked_raw / _v3_stacked_raw) and
+// motl_voxel_finalize_exact (the jnp finalize_exact_digits).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "digit_cluster.cuh"
 
 namespace {
 
-struct ExactParams {
-  int gx, gy, gz, bx, by, bz, n_cells;
-  float inv_xy, inv_z;      // f32(1/leaf): f64 constants cast to f32
-  float leaf_xy, leaf_z;    // f32(leaf)
-  float half_xy, half_z;    // f32(0.5*leaf)
-  float sq_xy, sq_z;        // 2^19, 2^14 digit scales
-  float invq_xy, invq_z;    // 2^-19, 2^-14
-};
+using digit_cluster::VoxParams;
+using digit_cluster::cell_origin;
+using digit_cluster::finalize_axis;
 
 __device__ __forceinline__ int exact_fq(float p, float fl, float leaf,
                                         float half, float sq) {
@@ -58,144 +57,85 @@ __device__ __forceinline__ int exact_fq(float p, float fl, float leaf,
   return (int)rintf(__fmul_rn(frac, sq));
 }
 
-__device__ __forceinline__ void split_digits(int fq, int& d0, int& d1) {
-  d0 = ((fq + 128) & 255) - 128;
-  d1 = (fq - d0) >> 8;  // arithmetic shift: fq - d0 is a multiple of 256
-}
+// Three channel groups, one per axis g: slots d0, d1 and the count (the raw
+// entry's groups 1 and 2 keep d0, d1 alone).
+struct ExactDigits {
+  static constexpr int kGroups = 3;
+  static constexpr int kMaxSlots = 3;
+  static constexpr int kRawChannels = 7;
 
-__global__ void exact_hist_kernel(const float* __restrict__ pts,
-                                  const uint8_t* __restrict__ mask, int n,
-                                  int pts_per_cta, ExactParams p,
-                                  int* __restrict__ acc, int* __restrict__ npts) {
-  extern __shared__ int hist[];  // (4, n_cells) int32: this group's channels
-  const int nc = p.n_cells;
-  const int s = blockIdx.y;
-  const int group = blockIdx.z;        // 0: channels 0-3, 1: channels 4-6
-  const int n_ch = group == 0 ? 4 : 3;
-  for (int i = threadIdx.x; i < n_ch * nc; i += blockDim.x) hist[i] = 0;
-  __syncthreads();
+  static __device__ int slots(int g, bool raw) { return raw && g > 0 ? 2 : 3; }
 
-  const float* P = pts + (size_t)s * n * 3;
-  const uint8_t* M = mask + (size_t)s * n;
-  const int start = blockIdx.x * pts_per_cta;
-  const int end = min(n, start + pts_per_cta);
-  int kept = 0;
-  for (int i = start + threadIdx.x; i < end; i += blockDim.x) {
-    if (M[i] == 0) continue;
-    ++kept;
-    const float x = P[3 * i], y = P[3 * i + 1], z = P[3 * i + 2];
-    const float fx = floorf(__fmul_rn(x, p.inv_xy));
-    const float fy = floorf(__fmul_rn(y, p.inv_xy));
-    const float fz = floorf(__fmul_rn(z, p.inv_z));
-    // bounds on the float floor, before any cast: NaN fails every compare
-    const bool ok = fx >= (float)p.bx && fx < (float)(p.bx + p.gx) &&
-                    fy >= (float)p.by && fy < (float)(p.by + p.gy) &&
-                    fz >= (float)p.bz && fz < (float)(p.bz + p.gz);
-    if (!ok) continue;
-    const int lin = ((int)fx - p.bx) +
-                    p.gx * (((int)fy - p.by) + p.gy * ((int)fz - p.bz));
-    int d0, d1;
-    if (group == 0) {
-      split_digits(exact_fq(x, fx, p.leaf_xy, p.half_xy, p.sq_xy), d0, d1);
-      atomicAdd(&hist[lin], d0);
-      atomicAdd(&hist[nc + lin], d1);
-      split_digits(exact_fq(y, fy, p.leaf_xy, p.half_xy, p.sq_xy), d0, d1);
-      atomicAdd(&hist[2 * nc + lin], d0);
-      atomicAdd(&hist[3 * nc + lin], d1);
-    } else {
-      split_digits(exact_fq(z, fz, p.leaf_z, p.half_z, p.sq_z), d0, d1);
-      atomicAdd(&hist[lin], d0);
-      atomicAdd(&hist[nc + lin], d1);
-      atomicAdd(&hist[2 * nc + lin], 1);
-    }
+  static __device__ void digits(int g, bool, const VoxParams& p, float x, float y, float z,
+                                float fx, float fy, float fz, int* d) {
+    const int fq = g == 0   ? exact_fq(x, fx, p.leaf_xy, p.half_xy, p.sq_xy)
+                   : g == 1 ? exact_fq(y, fy, p.leaf_xy, p.half_xy, p.sq_xy)
+                            : exact_fq(z, fz, p.leaf_z, p.half_z, p.sq_z);
+    d[0] = ((fq + 128) & 255) - 128;
+    d[1] = (fq - d[0]) >> 8;  // arithmetic shift: fq - d0 is a multiple of 256
+    d[2] = 1;
   }
-  // mask-nonzero count, once (group 0): warp sum, one global atomic per warp
-  if (group == 0) {
-    for (int o = 16; o > 0; o >>= 1) kept += __shfl_xor_sync(0xffffffffu, kept, o);
-    if ((threadIdx.x & 31) == 0 && kept) atomicAdd(&npts[s], kept);
-  }
-  __syncthreads();
 
-  int* A = acc + ((size_t)s * 7 + (group == 0 ? 0 : 4)) * nc;
-  for (int i = threadIdx.x; i < n_ch * nc; i += blockDim.x) {
-    const int v = hist[i];
-    if (v) atomicAdd(&A[i], v);
+  static __device__ void store_raw(int g, int* A, int nc, int lin, const int* v) {
+    A[2 * g * nc + lin] = v[0];
+    A[(2 * g + 1) * nc + lin] = v[1];
+    if (g == 0) A[6 * nc + lin] = v[2];
   }
-}
+
+  // _v3_finalize_into, axis g: cnt * (cell0 + half) + (s0 + 256*s1) * 2^-k
+  static __device__ void finalize(int g, const VoxParams& p, int lin, const int* v, float* O,
+                                  int nc) {
+    const float cnt = (float)v[2];
+    const float sum = __fadd_rn((float)v[0], __fmul_rn(256.0f, (float)v[1]));
+    O[g * nc + lin] = finalize_axis(cnt, cell_origin(p, lin, g), g == 2 ? p.half_z : p.half_xy,
+                                    sum, g == 2 ? p.invq_z : p.invq_xy);
+    if (g == 0) O[3 * nc + lin] = cnt;
+  }
+};
 
 __global__ void exact_finalize_kernel(const int* __restrict__ acc,
                                       float* __restrict__ out, int S,
-                                      ExactParams p) {
+                                      VoxParams p) {
   const int nc = p.n_cells;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= S * nc) return;
   const int s = t / nc, lin = t - s * nc;
   const int* A = acc + (size_t)s * 7 * nc;
-  float* O = out + (size_t)s * 4 * nc;
-  // _v3_finalize_into: cnt * (cell0 + half) + (s0 + 256*s1) * 2^-k
-  const int ix = lin % p.gx, iyz = lin / p.gx;
-  const int iy = iyz % p.gy, iz = iyz / p.gy;
-  const float cx = __fmul_rn((float)(p.bx + ix), p.leaf_xy);
-  const float cy = __fmul_rn((float)(p.by + iy), p.leaf_xy);
-  const float cz = __fmul_rn((float)(p.bz + iz), p.leaf_z);
-  const float cnt = (float)A[6 * nc + lin];
-  const float sx = __fadd_rn((float)A[lin], __fmul_rn(256.0f, (float)A[nc + lin]));
-  const float sy = __fadd_rn((float)A[2 * nc + lin], __fmul_rn(256.0f, (float)A[3 * nc + lin]));
-  const float sz = __fadd_rn((float)A[4 * nc + lin], __fmul_rn(256.0f, (float)A[5 * nc + lin]));
-  O[lin] = __fadd_rn(__fmul_rn(cnt, __fadd_rn(cx, p.half_xy)), __fmul_rn(sx, p.invq_xy));
-  O[nc + lin] = __fadd_rn(__fmul_rn(cnt, __fadd_rn(cy, p.half_xy)), __fmul_rn(sy, p.invq_xy));
-  O[2 * nc + lin] = __fadd_rn(__fmul_rn(cnt, __fadd_rn(cz, p.half_z)), __fmul_rn(sz, p.invq_z));
-  O[3 * nc + lin] = cnt;
-}
-
-int launch_hist(const float* pts, const uint8_t* mask, int S, int N,
-                int pts_per_cta, const ExactParams& p, int* acc, int* npts,
-                cudaStream_t st) {
-  const size_t smem = (size_t)4 * p.n_cells * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      exact_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + pts_per_cta - 1) / pts_per_cta, S, 2);
-  exact_hist_kernel<<<grid, 256, smem, st>>>(pts, mask, N, pts_per_cta, p, acc, npts);
-  return (int)cudaGetLastError();
-}
-
-int launch_finalize(const int* acc, float* out, int S, const ExactParams& p,
-                    cudaStream_t st) {
-  const int total = S * p.n_cells;
-  exact_finalize_kernel<<<(total + 255) / 256, 256, 0, st>>>(acc, out, S, p);
-  return (int)cudaGetLastError();
+  for (int g = 0; g < 3; ++g) {
+    const int v[3] = {A[2 * g * nc + lin], A[(2 * g + 1) * nc + lin], A[6 * nc + lin]};
+    ExactDigits::finalize(g, p, lin, v, out + (size_t)s * 4 * nc, nc);
+  }
 }
 
 }  // namespace
 
-// points (S, N, 3) f32, mask (S, N) u8; acc (S, 7, n_cells) i32 and
-// npts (S,) i32 zeroed by the caller; out (S, 4, n_cells) f32.
+// points (S, N, 3) f32, mask (S, N) u8 (nonzero = keep); the cells in
+// `ranges` ranges and the points in `chunks` chunks, per channel group
+// (digit_cluster.cuh); out (S, 4, n_cells) f32, npts (S,) i32.  One launch;
+// nothing needs zeroing.
 extern "C" int motl_voxel_exact(
-    const float* pts, const uint8_t* mask, int S, int N, int pts_per_cta,
-    int* acc, float* out, int* npts, int n_cells, int gx, int gy, int gz,
-    int bx, int by, int bz, float inv_xy, float inv_z, float leaf_xy,
-    float leaf_z, float half_xy, float half_z, float sq_xy, float sq_z,
-    float invq_xy, float invq_z, void* stream) {
-  ExactParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z, leaf_xy,
-                leaf_z, half_xy, half_z, sq_xy, sq_z, invq_xy, invq_z};
-  cudaStream_t st = (cudaStream_t)stream;
-  const int err = launch_hist(pts, mask, S, N, pts_per_cta, p, acc, npts, st);
-  if (err != 0) return err;
-  return launch_finalize(acc, out, S, p, st);
+    const float* pts, const uint8_t* mask, int S, int N, int ranges, int chunks,
+    void* out, int* npts, int n_cells, int gx, int gy, int gz, int bx, int by, int bz,
+    float inv_xy, float inv_z, float leaf_xy, float leaf_z, float half_xy, float half_z,
+    float sq_xy, float sq_z, float invq_xy, float invq_z, void* stream) {
+  VoxParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z, leaf_xy,
+              leaf_z, half_xy, half_z, sq_xy, sq_z, invq_xy, invq_z};
+  return digit_cluster::launch<ExactDigits, false, false>(pts, mask, S, N, ranges, chunks, p,
+                                                          out, npts, (cudaStream_t)stream);
 }
 
 // The two-digit histogram alone (the kernel fleet all-reduces these
-// integers over its space group before one finalize): acc (S, 7, n_cells)
-// i32 and npts (S,) i32 zeroed by the caller.
+// integers over its space group before one finalize): out (S, 7, n_cells)
+// i32; the same arguments as the fused entry (invq unused).
 extern "C" int motl_voxel_exact_raw(
-    const float* pts, const uint8_t* mask, int S, int N, int pts_per_cta,
-    int* acc, int* npts, int n_cells, int gx, int gy, int gz, int bx, int by,
-    int bz, float inv_xy, float inv_z, float leaf_xy, float leaf_z,
-    float half_xy, float half_z, float sq_xy, float sq_z, void* stream) {
-  ExactParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z, leaf_xy,
-                leaf_z, half_xy, half_z, sq_xy, sq_z, 0.0f, 0.0f};
-  return launch_hist(pts, mask, S, N, pts_per_cta, p, acc, npts, (cudaStream_t)stream);
+    const float* pts, const uint8_t* mask, int S, int N, int ranges, int chunks,
+    void* out, int* npts, int n_cells, int gx, int gy, int gz, int bx, int by, int bz,
+    float inv_xy, float inv_z, float leaf_xy, float leaf_z, float half_xy, float half_z,
+    float sq_xy, float sq_z, float invq_xy, float invq_z, void* stream) {
+  VoxParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z, leaf_xy,
+              leaf_z, half_xy, half_z, sq_xy, sq_z, invq_xy, invq_z};
+  return digit_cluster::launch<ExactDigits, false, true>(pts, mask, S, N, ranges, chunks, p,
+                                                         out, npts, (cudaStream_t)stream);
 }
 
 // The finalize alone: acc (S, 7, n_cells) i32 digit sums -> out (S, 4,
@@ -204,7 +144,9 @@ extern "C" int motl_voxel_finalize_exact(
     const int* acc, float* out, int S, int n_cells, int gx, int gy, int bx,
     int by, int bz, float leaf_xy, float leaf_z, float half_xy, float half_z,
     float invq_xy, float invq_z, void* stream) {
-  ExactParams p{gx, gy, 1, bx, by, bz, n_cells, 0.0f, 0.0f, leaf_xy, leaf_z,
-                half_xy, half_z, 0.0f, 0.0f, invq_xy, invq_z};
-  return launch_finalize(acc, out, S, p, (cudaStream_t)stream);
+  VoxParams p{gx, gy, 1, bx, by, bz, n_cells, 0.0f, 0.0f, leaf_xy, leaf_z,
+              half_xy, half_z, 0.0f, 0.0f, invq_xy, invq_z};
+  const int total = S * n_cells;
+  exact_finalize_kernel<<<(total + 255) / 256, 256, 0, (cudaStream_t)stream>>>(acc, out, S, p);
+  return (int)cudaGetLastError();
 }

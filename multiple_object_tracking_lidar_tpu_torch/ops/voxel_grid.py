@@ -8,12 +8,13 @@ voxel_grid.py``, with its TPU dispatch (voxel_grid.py:117-164):
 
 - ``quant="fast"``: one int8 digit per axis, K1, for every N (the TPU's v5
   and its i32 twin v4 give the same integers; K1 sums in int32 with no
-  2^24 bound).  Past K1's shared-memory histogram (14,528 cells: the CLI's
-  70,200-cell grid, the default scene's 193,536) the digit sums are the
-  plain integer ones and K1's finalize runs on them -- the same bits;
+  2^24 bound), one launch per call, up to ``max_cells`` (232,320 cells:
+  the CLI's 70,200-cell grid and the default scene's 193,536 included).
+  Past it the digit sums are the plain integer ones and K1's finalize runs
+  on them -- the same bits;
 - ``quant="exact"``: two balanced int8 digits per axis, K5, when a point
   block tiles N (``_pick_block``) and the leaf fits the digit pair
-  (``_v3_leaf_ok``) -- the TPU's v6 / v3 (past 14,528 cells, the plain
+  (``_v3_leaf_ok``) -- the TPU's v6 / v3 (past ``max_cells``, the plain
   digit sums and K5's finalize).  Otherwise the bf16x3 sums, K6:
   the TPU's v2 kernel when the leaf is too coarse, and its jnp lowering of
   the same sums when no block tiles N.
@@ -73,11 +74,12 @@ def exact_route(n: int, leaf_xy: float, leaf_z: float) -> str:
     return "K5" if _pick_block(n) is not None and _v3_leaf_ok(leaf_xy, leaf_z) else "K6"
 
 
-def digit_kernels_fit(scene: SceneBounds, leaf_xy: float, leaf_z: float) -> bool:
-    """True iff the grid fits K1's and K5's shared-memory histogram
-    (``max_cells``, 14,528 cells).  Past it the digit sums are the plain
-    integer ones (``digit_sums_stacked``)."""
-    return kernel_params(scene, leaf_xy, leaf_z)["n_cells"] <= max_cells()
+def digit_kernels_fit(scene: SceneBounds, leaf_xy: float, leaf_z: float, device=None) -> bool:
+    """True iff the grid fits K1's and K5's ranges of shared-memory
+    histograms on ``device`` (``max_cells``, 232,320 cells on the H100).
+    Past it the digit sums are the plain integer ones
+    (``digit_sums_stacked``)."""
+    return kernel_params(scene, leaf_xy, leaf_z)["n_cells"] <= max_cells(device)
 
 
 def digit_sums_stacked(points, mask, scene, leaf_xy, leaf_z, quant: str = "fast"):
@@ -85,12 +87,17 @@ def digit_sums_stacked(points, mask, scene, leaf_xy, leaf_z, quant: str = "fast"
     (``quant="fast"``, C = 4) or K5's (``"exact"``, C = 7) histogram alone
     where the grid fits it, else ``fast_digit_sums`` / ``exact_digit_sums``
     (int64 ``index_add_``, exact in any order: the same integers).  The
-    kernel fleet all-reduces these and finalizes once."""
-    if digit_kernels_fit(scene, leaf_xy, leaf_z):
+    kernel fleet all-reduces these and finalizes once.  ``.plain_routes``
+    counts the calls that took the plain sums."""
+    if digit_kernels_fit(scene, leaf_xy, leaf_z, points.device):
         raw = accumulate_fast_stacked_raw if quant == "fast" else accumulate_exact_stacked_raw
         return raw(points, mask, scene, leaf_xy, leaf_z)
+    digit_sums_stacked.plain_routes += 1
     sums = fast_digit_sums if quant == "fast" else exact_digit_sums
     return sums(points, mask, scene, leaf_xy, leaf_z), _npts(mask, points.shape[0])
+
+
+digit_sums_stacked.plain_routes = 0
 
 
 def voxel_accumulate_stacked(
@@ -103,7 +110,7 @@ def voxel_accumulate_stacked(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """((S, 4, n_cells) f32 accumulators, (S,) i32 mask-nonzero counts) of
     S stacked frames in one kernel call; each frame's result is the one a
-    single-frame call gives.  Past K1's and K5's 14,528 cells the digit
+    single-frame call gives.  Past K1's and K5's ``max_cells`` the digit
     sums are the plain integer ones, finalized by K1's or K5's finalize
     (``digit_sums_stacked``): the same bits."""
     if quant not in ("fast", "exact"):
@@ -111,7 +118,7 @@ def voxel_accumulate_stacked(
     points = points.to(torch.float32).contiguous()
     if quant == "exact" and exact_route(points.shape[1], leaf_xy, leaf_z) == "K6":
         return accumulate_bf16x3_stacked(points, mask, scene, leaf_xy, leaf_z)
-    if not digit_kernels_fit(scene, leaf_xy, leaf_z):
+    if not digit_kernels_fit(scene, leaf_xy, leaf_z, points.device):
         sums, npts = digit_sums_stacked(points, mask, scene, leaf_xy, leaf_z, quant)
         fin = finalize_fast_stacked if quant == "fast" else finalize_exact_stacked
         return fin(sums, scene, leaf_xy, leaf_z), npts

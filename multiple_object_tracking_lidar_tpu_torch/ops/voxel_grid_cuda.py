@@ -33,28 +33,43 @@ K1-cm (``accumulate_fast_stacked_cm`` and ``_cm_raw``) is K1 reading
 (S, 3, N) channel-major points, the layout of the TPU's accumulator
 probes in ``scripts/micro_acc_v5.py`` and ``micro_acc_v7.py``.
 
-K1 and K5 are two kernels each, a histogram and a finalize, and the kernel
-fleet (``parallel/sharding.py``) runs them apart: ``accumulate_*_stacked_raw``
-gives the int32 digit sums, the fleet all-reduces them over its point
-shards, and ``finalize_*_stacked`` finalizes once -- the TPU's
+K1 and K5 are one launch per call (``csrc/digit_cluster.cuh``): the
+grid's cells in ranges, each held in one CTA's shared memory, the frame's
+points in chunks, the chunks of a range one thread-block cluster
+(``digit_layout``), up to ``max_cells`` cells.
+The kernel fleet (``parallel/sharding.py``) runs their histograms and
+finalizes apart: ``accumulate_*_stacked_raw`` gives the int32 digit sums,
+the fleet all-reduces them over its point shards, and
+``finalize_*_stacked`` finalizes once -- the TPU's
 ``_accumulate_pallas_v{5,4,6,3}_stacked_raw`` with ``finalize_*_digits``.
 These four wrappers count their launches too.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from multiple_object_tracking_lidar_tpu_torch import _build
 from multiple_object_tracking_lidar_tpu_torch.config import SceneBounds
+from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import max_cluster
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, grid_shape
 
-# Points per CTA: 13 CTAs per 106,496-point frame (x2 channel groups for
-# K5), each zeroing and merging one (4, n_cells) shared histogram.
-PTS_PER_CTA = 8192
 SMEM_BYTES = 232448  # what one H100 block may use (227 KB)
+_STATIC_SMEM = 128   # K1's / K5's static shared words, rounded up
+# cells one CTA of K1 holds: four int32 channels, 16 B per cell (K5's
+# groups hold three, so they hold at least as many); a multiple of 4
+CTA_CELLS = (SMEM_BYTES - _STATIC_SMEM) // 16
+# Layout rule (``digit_layout``): CTAs per K1 / K5 launch to aim for.  On
+# an H100 (700 W), scripts/micro_torch_digits.py --sweep timed every layout
+# at S = 1 and 8 on the headline's 5,500 cells, the CLI's 70,200 and the
+# default scene's 193,536: the best took 32-128 CTAs per launch (all channel
+# groups), e.g. K1 at the headline S = 1 10.3 us at 1 x 16 x 4 (frames x
+# chunks x ranges) against 15.3 at 1 x 16 x 1, at S = 8 15.6 us at 8 x 8 x 1
+# against 29.8 at 8 x 16 x 1; more CTAs wait on cluster scheduling.
+CTA_BUDGET = 96
 # K6: points per CTA of its radix-sort stages (csrc/voxel_bf16x3.cu kTile)
 SORT_TILE = 2048
 
@@ -201,10 +216,34 @@ def finalize_fast_digits(sums: torch.Tensor, k: dict) -> torch.Tensor:
     )
 
 
-def max_cells() -> int:
-    """Largest grid K1 and K5 hold: K1's per-CTA (4, n_cells) int32
-    histogram, and each of K5's two channel groups (4 + 3 channels)."""
-    return SMEM_BYTES // 16
+def max_cells(device=None) -> int:
+    """Largest grid K1 and K5 hold: ``max_cluster`` ranges (16 on the H100)
+    of ``CTA_CELLS`` cells each, 232,320 cells."""
+    return max_cluster(device) * CTA_CELLS
+
+
+def _span(n_cells: int, ranges: int) -> int:
+    """Cells a CTA holds: ceil(n_cells / ranges), rounded up to 4."""
+    per = -(-n_cells // ranges)
+    return (per + 3) // 4 * 4
+
+
+def digit_layout(n_cells: int, s: int, groups: int = 1, device=None) -> tuple[int, int]:
+    """(ranges, chunks) of a K1 (``groups`` 1) or K5 (3) launch over S
+    frames: the fewest cell ranges C (a power of two) whose CTAs hold their
+    range in shared memory (``CTA_CELLS``); then the most point chunks R
+    (the cluster size, a power of two up to ``max_cluster``), and then the
+    most ranges, that keep S x groups x C x R within ``CTA_BUDGET`` CTAs."""
+    top = max_cluster(device)
+    ranges = 1
+    while _span(n_cells, ranges) > CTA_CELLS:
+        ranges *= 2
+    chunks = 1
+    while chunks < top and s * groups * ranges * chunks * 2 <= CTA_BUDGET:
+        chunks *= 2
+    while ranges < top and s * groups * ranges * chunks * 2 <= CTA_BUDGET:
+        ranges *= 2
+    return ranges, chunks
 
 
 def _check_points(points, mask, name, channel_major=False):
@@ -223,47 +262,55 @@ def _check_points(points, mask, name, channel_major=False):
     return s, n
 
 
-def _check_cells(nc: int, name: str) -> None:
-    if nc > max_cells():
+def _check_cells(nc: int, name: str, device) -> None:
+    if nc > max_cells(device):
         raise ValueError(
-            f"{nc} grid cells exceed {name}'s shared-memory histogram "
-            f"({max_cells()} cells at 16 B/cell); a global-memory "
-            "variant is still to be ported (ROADMAP Queue 1 item 21)"
+            f"{nc} grid cells exceed {name}'s {max_cells(device)}: {max_cluster(device)} "
+            f"ranges of {CTA_CELLS} cells, each in one CTA's shared memory at 16 B/cell; "
+            "the dispatcher takes the plain digit sums there "
+            "(ops/voxel_grid.py::digit_sums_stacked)"
         )
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_geometry(scene: SceneBounds, leaf_xy: float, leaf_z: float, quant: str) -> tuple:
+    """``kernel_params`` in the order the K1 / K5 entries take them
+    (n_cells, the grid's six ints, ten f32 constants), once per (scene,
+    leaf, quant)."""
+    k = kernel_params(scene, leaf_xy, leaf_z, quant=quant)
+    return tuple(k[key] for key in (
+        "n_cells", "gx", "gy", "gz", "bx", "by", "bz", "inv_xy", "inv_z", "leaf_xy", "leaf_z",
+        "half_xy", "half_z", "sq_xy", "sq_z", "invq_xy", "invq_z"))
 
 
 def _launch_digits(name, entry, quant, n_ch, points, mask, scene, leaf_xy, leaf_z,
-                   raw=False, channel_major=False):
-    """Launch K1 or K5 (the same C signatures): ((S, 4, n_cells) f32, (S,)
-    i32), with an (S, n_ch, n_cells) int32 digit-sum scratch; with ``raw``
-    the ``*_raw`` entry, which stops at that scratch and returns it; with
-    ``channel_major`` K1-cm's ``*_cm`` entries on (S, 3, N) points."""
+                   raw=False, channel_major=False, ranges=None, chunks=None):
+    """Launch K1 or K5 once (the same C signatures): ((S, 4, n_cells) f32,
+    (S,) i32); with ``raw`` the ``*_raw`` entry, ((S, n_ch, n_cells) int32
+    digit sums, (S,) i32); with ``channel_major`` K1-cm's ``*_cm`` entries
+    on (S, 3, N) points.  ``ranges`` / ``chunks`` (default
+    ``digit_layout``) split the cells and the points over the CTAs."""
     s, n = _check_points(points, mask, name, channel_major)
-    if channel_major:
-        entry += "_cm"
-    k = kernel_params(scene, leaf_xy, leaf_z, quant=quant)
-    nc = k["n_cells"]
-    _check_cells(nc, name)
-    m8 = (mask != 0).to(torch.uint8).contiguous()
+    geom = _launch_geometry(scene, leaf_xy, leaf_z, quant)
+    nc = geom[0]
     dev = points.device
-    acc_i = torch.zeros((s, n_ch, nc), dtype=torch.int32, device=dev)
-    npts = torch.zeros((s,), dtype=torch.int32, device=dev)
-    geom = (nc, k["gx"], k["gy"], k["gz"], k["bx"], k["by"], k["bz"],
-            k["inv_xy"], k["inv_z"], k["leaf_xy"], k["leaf_z"],
-            k["half_xy"], k["half_z"], k["sq_xy"], k["sq_z"])
-    lib = _build.load()
-    if raw:
-        err = getattr(lib, entry + "_raw")(
-            points.data_ptr(), m8.data_ptr(), s, n, PTS_PER_CTA,
-            acc_i.data_ptr(), npts.data_ptr(), *geom, _build.stream_ptr(dev),
-        )
-        _build.check(err, entry + "_raw")
-        return acc_i, npts
-    out = torch.empty((s, 4, nc), dtype=torch.float32, device=dev)
-    err = getattr(lib, entry)(
-        points.data_ptr(), m8.data_ptr(), s, n, PTS_PER_CTA,
-        acc_i.data_ptr(), out.data_ptr(), npts.data_ptr(), *geom,
-        k["invq_xy"], k["invq_z"], _build.stream_ptr(dev),
+    _check_cells(nc, name, dev)
+    auto = digit_layout(nc, s, 1 if quant == "fast" else 3, dev)
+    ranges = auto[0] if ranges is None else ranges
+    chunks = auto[1] if chunks is None else chunks
+    top = max_cluster(dev)
+    if (ranges not in (1, 2, 4, 8, 16) or ranges > top or chunks not in (1, 2, 4, 8, 16)
+            or chunks > top or _span(nc, ranges) > CTA_CELLS):
+        raise ValueError(f"{name}: {ranges} ranges x {chunks} chunks cannot hold {nc} cells "
+                         f"({CTA_CELLS} per CTA, at most {top} of each)")
+    m8 = _build.byte_mask(mask)
+    out = (torch.empty((s, n_ch, nc), dtype=torch.int32, device=dev) if raw
+           else torch.empty((s, 4, nc), dtype=torch.float32, device=dev))
+    npts = torch.empty((s,), dtype=torch.int32, device=dev)
+    entry += ("_cm" if channel_major else "") + ("_raw" if raw else "")
+    err = getattr(_build.load(), entry)(
+        points.data_ptr(), m8.data_ptr(), s, n, ranges, chunks, out.data_ptr(),
+        npts.data_ptr(), *geom, _build.stream_ptr(dev),
     )
     _build.check(err, entry)
     return out, npts
@@ -272,8 +319,8 @@ def _launch_digits(name, entry, quant, n_ch, points, mask, scene, leaf_xy, leaf_
 def _launch_finalize(entry, quant, n_ch, sums, scene, leaf_xy, leaf_z):
     """Launch K1's or K5's finalize alone on (S, n_ch, n_cells) int32 digit
     sums: (S, 4, n_cells) f32."""
-    k = kernel_params(scene, leaf_xy, leaf_z, quant=quant)
-    nc = k["n_cells"]
+    (nc, gx, gy, _, bx, by, bz, _, _, leaf_xy32, leaf_z32, half_xy, half_z, _, _,
+     invq_xy, invq_z) = _launch_geometry(scene, leaf_xy, leaf_z, quant)
     s = sums.shape[0]
     if sums.shape != (s, n_ch, nc) or sums.dtype != torch.int32:
         raise ValueError(f"{entry}: sums must be (S, {n_ch}, {nc}) int32, "
@@ -281,10 +328,8 @@ def _launch_finalize(entry, quant, n_ch, sums, scene, leaf_xy, leaf_z):
     sums = sums.contiguous()
     out = torch.empty((s, 4, nc), dtype=torch.float32, device=sums.device)
     err = getattr(_build.load(), entry)(
-        sums.data_ptr(), out.data_ptr(), s, nc, k["gx"], k["gy"],
-        k["bx"], k["by"], k["bz"], k["leaf_xy"], k["leaf_z"],
-        k["half_xy"], k["half_z"], k["invq_xy"], k["invq_z"],
-        _build.stream_ptr(sums.device),
+        sums.data_ptr(), out.data_ptr(), s, nc, gx, gy, bx, by, bz, leaf_xy32, leaf_z32,
+        half_xy, half_z, invq_xy, invq_z, _build.stream_ptr(sums.device),
     )
     _build.check(err, entry)
     return out
@@ -296,12 +341,20 @@ def accumulate_fast_stacked(
     scene: SceneBounds,
     leaf_xy: float,
     leaf_z: float,
+    *,
+    ranges: int | None = None,
+    chunks: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1 on CUDA tensors, its plain version on CPU tensors."""
+    """K1 on CUDA tensors, its plain version on CPU tensors.  ``ranges`` and
+    ``chunks`` split the grid's cells and the frame's points over the CTAs
+    (default ``digit_layout``); the results are the same bits whatever they
+    are, and a CPU tensor ignores them (as every K1 / K5 wrapper below
+    does)."""
     if points.device.type == "cpu":
         return accumulate_fast_stacked_plain(points, mask, scene, leaf_xy, leaf_z)
     out = _launch_digits("K1", "motl_voxel_accumulate", "fast", 4,
-                         points, mask, scene, leaf_xy, leaf_z)
+                         points, mask, scene, leaf_xy, leaf_z,
+                         ranges=ranges, chunks=chunks)
     accumulate_fast_stacked.launches += 1
     return out
 
@@ -315,6 +368,9 @@ def accumulate_fast_stacked_raw(
     scene: SceneBounds,
     leaf_xy: float,
     leaf_z: float,
+    *,
+    ranges: int | None = None,
+    chunks: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1's histogram without its finalize, the kernel fleet's accumulator:
     ((S, 4, n_cells) int32 digit sums [x, y, z, count], (S,) i32
@@ -330,7 +386,8 @@ def accumulate_fast_stacked_raw(
     if points.device.type == "cpu":
         return fast_digit_sums(points, mask, scene, leaf_xy, leaf_z), _npts(mask, points.shape[0])
     out = _launch_digits("K1 raw", "motl_voxel_accumulate", "fast", 4,
-                         points, mask, scene, leaf_xy, leaf_z, raw=True)
+                         points, mask, scene, leaf_xy, leaf_z, raw=True,
+                         ranges=ranges, chunks=chunks)
     accumulate_fast_stacked_raw.launches += 1
     return out
 
@@ -368,6 +425,9 @@ def accumulate_fast_stacked_cm(
     scene: SceneBounds,
     leaf_xy: float,
     leaf_z: float,
+    *,
+    ranges: int | None = None,
+    chunks: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1-cm: K1's function on channel-major points, the layout of the
     TPU's accumulator probes (``scripts/micro_acc_v5.py``' ``make_v5``,
@@ -377,7 +437,8 @@ def accumulate_fast_stacked_cm(
     if points_cm.device.type == "cpu":
         return accumulate_fast_stacked_cm_plain(points_cm, mask, scene, leaf_xy, leaf_z)
     out = _launch_digits("K1-cm", "motl_voxel_accumulate", "fast", 4, points_cm, mask,
-                         scene, leaf_xy, leaf_z, channel_major=True)
+                         scene, leaf_xy, leaf_z, channel_major=True,
+                         ranges=ranges, chunks=chunks)
     accumulate_fast_stacked_cm.launches += 1
     return out
 
@@ -391,6 +452,9 @@ def accumulate_fast_stacked_cm_raw(
     scene: SceneBounds,
     leaf_xy: float,
     leaf_z: float,
+    *,
+    ranges: int | None = None,
+    chunks: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1-cm's histogram alone: ((S, 4, n_cells) int32 digit sums, (S,)
     i32), as ``accumulate_fast_stacked_raw`` gives for the (S, N, 3)
@@ -400,7 +464,8 @@ def accumulate_fast_stacked_cm_raw(
         pts = points_cm.transpose(1, 2)
         return fast_digit_sums(pts, mask, scene, leaf_xy, leaf_z), _npts(mask, pts.shape[0])
     out = _launch_digits("K1-cm raw", "motl_voxel_accumulate", "fast", 4, points_cm, mask,
-                         scene, leaf_xy, leaf_z, raw=True, channel_major=True)
+                         scene, leaf_xy, leaf_z, raw=True, channel_major=True,
+                         ranges=ranges, chunks=chunks)
     accumulate_fast_stacked_cm_raw.launches += 1
     return out
 
@@ -472,12 +537,16 @@ def accumulate_exact_stacked(
     scene: SceneBounds,
     leaf_xy: float,
     leaf_z: float,
+    *,
+    ranges: int | None = None,
+    chunks: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5 on CUDA tensors, its plain version on CPU tensors."""
     if points.device.type == "cpu":
         return accumulate_exact_stacked_plain(points, mask, scene, leaf_xy, leaf_z)
     out = _launch_digits("K5", "motl_voxel_exact", "exact", 7,
-                         points, mask, scene, leaf_xy, leaf_z)
+                         points, mask, scene, leaf_xy, leaf_z,
+                         ranges=ranges, chunks=chunks)
     accumulate_exact_stacked.launches += 1
     return out
 
@@ -491,6 +560,9 @@ def accumulate_exact_stacked_raw(
     scene: SceneBounds,
     leaf_xy: float,
     leaf_z: float,
+    *,
+    ranges: int | None = None,
+    chunks: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5's histogram without its finalize: ((S, 7, n_cells) int32
     two-digit sums [x d0, x d1, y d0, y d1, z d0, z d1, count], (S,) i32),
@@ -505,7 +577,8 @@ def accumulate_exact_stacked_raw(
     if points.device.type == "cpu":
         return exact_digit_sums(points, mask, scene, leaf_xy, leaf_z), _npts(mask, points.shape[0])
     out = _launch_digits("K5 raw", "motl_voxel_exact", "exact", 7,
-                         points, mask, scene, leaf_xy, leaf_z, raw=True)
+                         points, mask, scene, leaf_xy, leaf_z, raw=True,
+                         ranges=ranges, chunks=chunks)
     accumulate_exact_stacked_raw.launches += 1
     return out
 

@@ -18,8 +18,8 @@ chosen as the JAX package chooses them (sharding.py:88-107):
 
 * **kernel fleet** (``voxel_mode="onehot"`` + ``cluster_backend="grid"``):
   the local point shard padded to a multiple of 512 with masked rows, K1's
-  or K5's histogram alone (``accumulate_*_stacked_raw``; past their 14,528
-  cells the plain integer digit sums, ``voxel_grid.digit_sums_stacked``),
+  or K5's histogram alone (``accumulate_*_stacked_raw``; past their
+  ``max_cells`` the plain integer digit sums, ``voxel_grid.digit_sums_stacked``),
   ``all_reduce`` of the int32 digit sums and of the point counts over the
   space group --
   exactly two collectives, and the integer sums make the result the same

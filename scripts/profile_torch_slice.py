@@ -3,7 +3,10 @@
 ``Tracker.bind_env`` on the headline scene, in each configuration named
 (``bench_cases.<case>_case``: the dense grid's headline, exact, runs,
 exact_unpadded; the point list's pointlist (C), pointlist_jnp (D), scan
-(E), pointlist_runs (F), default (G)).  ``--case fleet`` profiles the
+(E), pointlist_runs (F), default (G); and default_grid, G-grid: G's
+config and frames on the dense grid, ``voxel_mode="onehot"``,
+``cluster_backend="grid"``, ``voxel_quant="fast"``, built here from
+``default_case`` so an older checkout runs it too).  ``--case fleet`` profiles the
 kernel fleet instead (``parallel.ShardedTracker`` on a one-rank NCCL mesh,
 B = 8 headline streams, stream s at step k fed headline frame 3 s + k)
 beside the headline's ``bind_env_multi`` on the same clouds.
@@ -63,7 +66,8 @@ def main() -> int:
     ap.add_argument("--repo", default=REPO, help="checkout whose port is profiled")
     ap.add_argument("--case", nargs="+", default=["headline"],
                     choices=["headline", "exact", "runs", "exact_unpadded", "pointlist",
-                             "pointlist_jnp", "scan", "pointlist_runs", "default", "fleet"])
+                             "pointlist_jnp", "scan", "pointlist_runs", "default",
+                             "default_grid", "fleet"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a GPU", file=sys.stderr)
@@ -79,8 +83,10 @@ def main() -> int:
     print(smi)
     dev = torch.device("cuda", 0)
     for case in args.case:
-        name = "headline" if case == "fleet" else case
+        name = {"fleet": "headline", "default_grid": "default"}.get(case, case)
         cfg, env, sc = getattr(bench_cases, f"{name}_case")(device=dev)
+        if case == "default_grid":
+            cfg = cfg.replace(voxel_mode="onehot", cluster_backend="grid", voxel_quant="fast")
         profile_case(case, cfg, env, sc, dev, smi, args)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()

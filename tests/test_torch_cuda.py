@@ -1,5 +1,6 @@
 """The CUDA kernels (K1-K11, K3f, K6 in both modes and its key entry, K1-cm,
-K4 on banks past 128 slots, K1's and K5's histograms and finalizes alone)
+K4 on banks past 128 slots, K1's and K5's histograms and finalizes alone,
+K1 and K5 at 70,200 and 193,536 cells)
 against their plain PyTorch versions, the slices
 (fast, exact and runs mode, the stencil CC of ``grid_cc="jnp"``; the
 point-list configurations C-F) on the GPU against the port's plain path on
@@ -349,13 +350,50 @@ def test_k5_k6_match_plain(dev, small, name, leaf):
 
 
 def test_k5_raises_past_one_cta(dev, small):
-    """43,362 cells at a 0.05 m leaf: past K5's 14,528, the wrapper raises
-    (ROADMAP Queue 1 item 21); it never falls back."""
-    cfg, _, frames = small
+    """298,377 cells (0.05 m / 0.25 m over 6.4 x 12.8 x 2.1 m): past K5's
+    16 ranges of CTAs (232,320 cells), the wrapper raises and names the
+    dispatcher's plain route; it never falls back."""
+    from multiple_object_tracking_lidar_tpu_torch.config import SceneBounds
+
+    _, _, frames = small
+    scene = SceneBounds(x_min=0.0, x_max=6.43, y_min=0.0, y_max=12.83, z_min=0.0, z_max=2.1)
     P = torch.from_numpy(frames[0][0][None]).to(dev)
     M = torch.from_numpy(frames[0][1][None]).to(dev)
-    with pytest.raises(ValueError, match="item 21"):
-        voxel_grid_cuda.accumulate_exact_stacked(P, M, cfg.scene, 0.05, 1.0)
+    assert voxel_grid_cuda.kernel_params(scene, 0.05, 0.25)["n_cells"] == 298_377
+    with pytest.raises(ValueError, match="digit_sums_stacked"):
+        voxel_grid_cuda.accumulate_exact_stacked(P, M, scene, 0.05, 0.25)
+
+
+@pytest.mark.parametrize("grid", ["CLI grid", "default scene"])
+@pytest.mark.parametrize("quant", ["fast", "exact"])
+def test_k1_k5_clusters_match_plain(dev, grid, quant):
+    """K1 and K5, fused and raw, at the CLI's 70,200 cells and the default
+    scene's 193,536 (``bench_cases.digit_grids``; 8 and 16 cell ranges by
+    ``digit_layout``) on two frames of the path's points, one of them with
+    NaN rows and half its points in one cell: bit for bit their plain
+    versions, one launch each."""
+    cfg = bench_cases.headline_case()[0]
+    _, scene, leaf, leaf_z, case = next(g for g in bench_cases.digit_grids(cfg) if g[0] == grid)
+    ccfg, _, sc = getattr(bench_cases, f"{case}_case")()
+    rows = [bench_cases.padded_frame(sc, k, ccfg.caps.n_max_points) for k in (0, 1)]
+    pts = np.stack([r[0] for r in rows])
+    mask = np.stack([r[1] for r in rows])
+    pts[1, ::2] = pts[1, 0]
+    pts[1, 1:200:3, 1] = np.nan
+    P, M = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+    args = (P, M, scene, leaf, leaf_z)
+    vg = voxel_grid_cuda
+    fused, raw, plain, plain_raw = (
+        (vg.accumulate_fast_stacked, vg.accumulate_fast_stacked_raw,
+         vg.accumulate_fast_stacked_plain, vg.fast_digit_sums) if quant == "fast" else
+        (vg.accumulate_exact_stacked, vg.accumulate_exact_stacked_raw,
+         vg.accumulate_exact_stacked_plain, vg.exact_digit_sums))
+    n0 = (fused.launches, raw.launches)
+    got, got_raw = fused(*args), raw(*args)
+    assert (fused.launches, raw.launches) == (n0[0] + 1, n0[1] + 1)
+    cpu = (P.cpu(), M.cpu(), scene, leaf, leaf_z)
+    assert _bits(got[0], plain(*cpu)[0]) and _bits(got[1], plain(*cpu)[1])
+    assert _bits(got_raw[0], plain_raw(*cpu)) and _bits(got_raw[1], got[1])
 
 
 @pytest.mark.parametrize("n", [1024, 3 * 8192])
@@ -626,27 +664,32 @@ def test_f1_track_step_past_k4_bounds_runs_plain_on_the_card(dev, small, k_max, 
 
 
 def test_f2_accumulator_past_k1_bound_on_the_card(dev):
-    """70,200 cells: the plain integer digit sums and K1's finalize on the
-    card, bit for bit the CPU route, no raise."""
+    """298,377 cells, past K1's and K5's 232,320: the plain integer digit
+    sums and K1's / K5's finalize on the card (``plain_routes`` counts
+    them), bit for bit the CPU route, no raise; 51,200 points, so a point
+    block tiles N and exact mode takes K5's route, not K6's."""
     from multiple_object_tracking_lidar_tpu_torch.config import SceneBounds
     from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid
 
-    scene = SceneBounds(x_min=0.0, x_max=5.15, y_min=0.0, y_max=11.24, z_min=0.0, z_max=2.0)
+    scene = SceneBounds(x_min=0.0, x_max=6.43, y_min=0.0, y_max=12.83, z_min=0.0, z_max=2.1)
     rng = np.random.default_rng(12)
-    pts = np.stack([rng.uniform(-0.3, 5.5, 50000), rng.uniform(-0.3, 11.5, 50000),
-                    rng.uniform(-0.2, 2.2, 50000)], 1).astype(np.float32)[None]
-    mask = np.ones((1, 50000), bool)
+    n = 51_200
+    pts = np.stack([rng.uniform(-0.3, 6.7, n), rng.uniform(-0.3, 13.1, n),
+                    rng.uniform(-0.2, 2.3, n)], 1).astype(np.float32)[None]
+    mask = np.ones((1, n), bool)
     for quant in ("fast", "exact"):
-        args = (scene, 0.05, 1.0)
-        n_fin = voxel_grid_cuda.finalize_fast_stacked.launches
+        args = (scene, 0.05, 0.25)
+        fin = (voxel_grid_cuda.finalize_fast_stacked if quant == "fast"
+               else voxel_grid_cuda.finalize_exact_stacked)
+        n_fin, routes = fin.launches, voxel_grid.digit_sums_stacked.plain_routes
         got = voxel_grid.voxel_accumulate_stacked(torch.from_numpy(pts).to(dev),
                                                   torch.from_numpy(mask).to(dev), *args, quant=quant)
+        assert voxel_grid.digit_sums_stacked.plain_routes == routes + 1
         want = voxel_grid.voxel_accumulate_stacked(torch.from_numpy(pts), torch.from_numpy(mask),
                                                    *args, quant=quant)
         assert _same_tree(got, want)
-        assert got[0].shape[-1] == 70200
-        if quant == "fast":
-            assert voxel_grid_cuda.finalize_fast_stacked.launches == n_fin + 1
+        assert got[0].shape[-1] == 298_377
+        assert fin.launches == n_fin + 1
 
 
 @pytest.mark.parametrize("dims,leaf,leaf_z,cluster", [

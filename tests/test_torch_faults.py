@@ -4,9 +4,10 @@ GPU halves are in tests/test_torch_cuda.py):
 - F1: the track step past K4's bounds -- a default bank grown past 1,024
   slots, and C = 256 detection slots -- and under ``assoc_backend="jnp"``
   takes its plain route (``track_route``) and matches the JAX track_step;
-- F2: past K1's and K5's 14,528 cells (the CLI's 70,200-cell grid) the
-  accumulator takes the plain integer digit sums and matches the JAX
-  package's fast-digit route;
+- F2: the CLI's 70,200-cell grid, past one CTA's histogram, takes K1 and
+  K5 (eight ranges of CTAs; their plain versions here) and matches the
+  JAX package; past their 232,320 cells the accumulator takes
+  the plain integer digit sums and matches the JAX fast-digit route;
 - F3: ``bind_env(env, donate_state=...)`` and ``bind_env_multi(env,
   donate_state=..., hoist=...)`` take the JAX keywords, refuse exactly the
   configs the JAX package refuses, and every hoist gives the same bits;
@@ -194,36 +195,48 @@ def _fma_neutral(pts, mask, scene, leaf, leaf_z):
     return np.where(nan, mask, keep)
 
 
-@pytest.mark.parametrize("quant", ["fast", "exact"])
-def test_f2_digit_sums_past_the_one_cta_histogram(quant):
-    """70,200 cells (104 x 225 x 3, the CLI's grid on the sim map): the
-    dispatcher takes the plain integer digit sums and K1's / K5's
-    finalize, and matches the JAX package in the same mode on the same
-    points and mask.  Fast mode: its fast-digit route (the same integer
-    sums; the f32 finalize within 1 ulp, test_torch_voxel.py's tolerance).
-    Exact mode: the TPU's exact program, the stacked v6 kernel (interpret
-    mode) -- its raw two-digit sums and point count exact, the port's
-    accumulator against its ``finalize_exact_digits`` with counts exact and
-    sums within one ulp of the product and one of the result
-    (test_torch_exact.py's bound: XLA on the CPU may contract the finalize
-    into an FMA); also K5's plain version bit for bit."""
-    scene, leaf, leaf_z = TScene(**F2_SCENE), 0.05, 1.0
-    assert vgc.kernel_params(scene, leaf, leaf_z)["n_cells"] == 70_200
-    assert not tvg.digit_kernels_fit(scene, leaf, leaf_z)
-    rng = np.random.default_rng(70)
-    n = 4096
-    pts = np.stack([rng.uniform(-0.3, 5.5, n), rng.uniform(-0.3, 11.5, n),
-                    rng.uniform(-0.2, 2.2, n)], 1).astype(np.float32)
+def _f2_points(rng, n, leaf, hi=(5.5, 11.5, 2.2)):
+    """n points over the F2 scenes (and past their edges), 300 on leaf
+    boundaries, 10 NaN rows and a 1,000-point blob in one cell."""
+    pts = np.stack([rng.uniform(-0.3, hi[0], n), rng.uniform(-0.3, hi[1], n),
+                    rng.uniform(-0.2, hi[2], n)], 1).astype(np.float32)
     pts[:300] = (np.round(pts[:300] / leaf) * leaf).astype(np.float32)   # leaf boundaries
     pts[300:310, 0] = np.nan
     pts[400:1400] = pts[400] + rng.normal(0, 0.01, (1000, 3)).astype(np.float32)  # one blob
+    return pts
+
+
+@pytest.mark.parametrize("quant", ["fast", "exact"])
+def test_f2_digit_sums_past_the_one_cta_histogram(quant):
+    """70,200 cells (104 x 225 x 3, the CLI's grid on the sim map), past
+    one CTA's histogram (14,520 cells): the grid fits K1's and K5's
+    ranges of CTAs (``max_cells``, 232,320), so the dispatcher takes
+    the kernels (on the CPU their plain versions) and never the plain
+    route, and matches the JAX package in the same mode on the same points
+    and mask.  Fast mode: its fast-digit route (the same integer sums; the
+    f32 finalize within 1 ulp, test_torch_voxel.py's tolerance).  Exact
+    mode: the TPU's exact program, the stacked v6 kernel (interpret mode)
+    -- its raw two-digit sums and point count exact, the port's accumulator
+    against its ``finalize_exact_digits`` with counts exact and sums within
+    one ulp of the product and one of the result (test_torch_exact.py's
+    bound: XLA on the CPU may contract the finalize into an FMA); also K5's
+    plain version bit for bit."""
+    scene, leaf, leaf_z = TScene(**F2_SCENE), 0.05, 1.0
+    assert vgc.kernel_params(scene, leaf, leaf_z)["n_cells"] == 70_200
+    assert tvg.digit_kernels_fit(scene, leaf, leaf_z)
+    assert vgc.digit_layout(70_200, 1)[0] == 8                  # ceil(70,200 / 8) <= 14,520
+    rng = np.random.default_rng(70)
+    n = 4096
+    pts = _f2_points(rng, n, leaf)
     mask = rng.random(n) < 0.95
     if quant == "exact":
         mask = _fma_neutral(pts, mask, F2_SCENE, leaf, leaf_z)
         assert mask[300:310].any() and mask.sum() > 3500
     P, M = torch.from_numpy(pts)[None], torch.from_numpy(mask)[None]
+    routes = tvg.digit_sums_stacked.plain_routes
     acc, npts = tvg.voxel_accumulate_stacked(P, M, scene, leaf, leaf_z, quant=quant)
     sums, _ = tvg.digit_sums_stacked(P, M, scene, leaf, leaf_z, quant)
+    assert tvg.digit_sums_stacked.plain_routes == routes
     assert sums.dtype == torch.int32 and int(npts[0]) == int(mask.sum())
     if quant == "exact":
         ref, _ = vgc.accumulate_exact_stacked_plain(P, M, scene, leaf, leaf_z)
@@ -253,6 +266,43 @@ def test_f2_digit_sums_past_the_one_cta_histogram(quant):
     np.testing.assert_array_equal(acc[0, 3].numpy(), jacc[3])
     assert int(jn) == int(npts[0])
     np.testing.assert_allclose(acc[0].numpy(), jacc, rtol=3e-7, atol=1e-7)
+
+
+F2_BIG_SCENE = dict(x_min=0.0, x_max=6.43, y_min=0.0, y_max=12.83, z_min=0.0, z_max=2.1)
+
+
+@pytest.mark.parametrize("quant", ["fast", "exact"])
+def test_f2_digit_sums_past_the_cluster_capacity(quant):
+    """298,377 cells (129 x 257 x 9 at 0.05 m / 0.25 m), past K1's and K5's
+    16 ranges of CTAs (232,320 cells): the dispatcher takes the plain integer digit
+    sums and K1's / K5's finalize (``plain_routes`` counts it), the same
+    bits as K1's / K5's plain version; fast mode matches the JAX package's
+    fast-digit route (counts exact, sums within 1 ulp), exact mode the JAX
+    fast route's counts (the same integers in either mode)."""
+    scene, leaf, leaf_z = TScene(**F2_BIG_SCENE), 0.05, 0.25
+    nc = vgc.kernel_params(scene, leaf, leaf_z)["n_cells"]
+    assert nc == 129 * 257 * 9 > vgc.max_cells() == 232_320
+    assert not tvg.digit_kernels_fit(scene, leaf, leaf_z)
+    rng = np.random.default_rng(71)
+    pts = _f2_points(rng, 4096, leaf, hi=(6.7, 13.1, 2.3))
+    mask = rng.random(4096) < 0.95
+    P, M = torch.from_numpy(pts)[None], torch.from_numpy(mask)[None]
+    routes = tvg.digit_sums_stacked.plain_routes
+    acc, npts = tvg.voxel_accumulate_stacked(P, M, scene, leaf, leaf_z, quant=quant)
+    assert tvg.digit_sums_stacked.plain_routes == routes + 1
+    plain = (vgc.accumulate_fast_stacked_plain if quant == "fast"
+             else vgc.accumulate_exact_stacked_plain)(P, M, scene, leaf, leaf_z)
+    assert torch.equal(acc.view(torch.int32), plain[0].view(torch.int32))
+    assert int(npts[0]) == int(mask.sum()) == int(plain[1][0])
+    jacc, jn = voxel_accumulate_onehot_cm(jnp.asarray(pts), jnp.asarray(mask),
+                                          JScene(**F2_BIG_SCENE), leaf, leaf_z, quant="fast",
+                                          with_npts=True)
+    jacc = np.asarray(jacc)
+    assert jacc.shape == (4, nc) and int(jn) == int(npts[0])
+    np.testing.assert_array_equal(acc[0, 3].numpy(), jacc[3])
+    assert 0 < int(jacc[3].sum()) < int(mask.sum())
+    if quant == "fast":
+        np.testing.assert_allclose(acc[0].numpy(), jacc, rtol=3e-7, atol=1e-7)
 
 
 # ---------------------------------------------------------------------------

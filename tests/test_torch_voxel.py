@@ -141,7 +141,61 @@ def test_k1_wrapper_cpu_route_and_limits():
     assert [w.launches for w in wrappers] == before
     with pytest.raises(ValueError, match="voxel_quant"):
         tvg.voxel_accumulate_onehot_cm(pts[0], torch.ones(16, dtype=torch.bool), ts, 0.1, 2.0, quant="int4")
-    assert k1.max_cells() == 14528
+    assert k1.max_cells() == 232_320                      # 16 CTAs x 14,520 cells
+
+
+@pytest.mark.parametrize("n_cells,s,groups", [
+    (1, 1, 1), (5_500, 1, 1), (5_500, 8, 1), (5_500, 1, 3), (5_500, 8, 3), (14_520, 1, 1),
+    (14_521, 1, 1), (32_768, 8, 1), (70_200, 1, 1), (70_200, 8, 3), (193_536, 1, 1),
+    (193_536, 8, 3), (232_320, 64, 3),
+])
+def test_k1_layout_rule(n_cells, s, groups):
+    """The layout K1 (one channel group) and K5 (three) launch with
+    (``digit_layout``): the fewest cell ranges whose CTAs hold their range
+    (``CTA_CELLS`` = 14,520 cells at 16 B each), then as many point chunks
+    (the cluster size) and then ranges as keep S x groups x ranges x chunks
+    within ``CTA_BUDGET`` CTAs, both powers of two up to the H100's 16;
+    pure Python, no card."""
+    ranges, chunks = k1.digit_layout(n_cells, s, groups)
+    assert ranges in (1, 2, 4, 8, 16) and chunks in (1, 2, 4, 8, 16)
+    assert k1._span(n_cells, ranges) <= k1.CTA_CELLS and k1._span(n_cells, ranges) % 4 == 0
+    fewest = 1
+    while -(-n_cells // fewest) > k1.CTA_CELLS:
+        fewest *= 2
+    assert ranges >= fewest
+    ctas = s * groups * ranges * chunks
+    assert ctas <= k1.CTA_BUDGET or (ranges == fewest and chunks == 1)
+    assert 2 * ctas > k1.CTA_BUDGET or (ranges == 16 and chunks == 16)
+
+
+def test_k1_layouts_on_the_measured_grids():
+    """The rule's layouts on the grids it was timed on (PERF.md, PR 8):
+    the headline takes one range at S = 8 (the whole grid per CTA) and a
+    cluster of 16 chunks at S = 1; the default scene 16 ranges."""
+    assert k1.digit_layout(5_500, 1, 1) == (4, 16)
+    assert k1.digit_layout(5_500, 8, 1) == (1, 8)
+    assert k1.digit_layout(5_500, 8, 3) == (1, 4)
+    assert k1.digit_layout(70_200, 1, 3) == (8, 4)
+    assert k1.digit_layout(193_536, 1, 1) == (16, 4)
+    assert k1.digit_layout(193_536, 8, 1) == (16, 1)
+
+
+def test_k1_capacity_and_dispatch_bound():
+    """``max_cells`` is 16 ranges of ``CTA_CELLS`` (16 from
+    ``grid_cuda.max_cluster``: the H100's without a card); the
+    dispatcher's test follows it on either side, and the wrappers'
+    own check raises past it (on a CUDA tensor; nothing here launches)."""
+    assert k1.CTA_CELLS == (232_448 - 128) // 16 == 14_520
+    assert k1.max_cells() == k1.max_cells("cpu") == 16 * k1.CTA_CELLS
+    for gx, fits in ((k1.CTA_CELLS, True), (k1.CTA_CELLS + 1, False)):
+        ts = TScene(x_min=0.0, x_max=(gx - 0.5) * 0.05, y_min=0.0, y_max=15.5 * 0.05,
+                    z_min=0.0, z_max=0.05)
+        nc = k1.kernel_params(ts, 0.05, 0.1)["n_cells"]
+        assert nc == gx * 16
+        assert tvg.digit_kernels_fit(ts, 0.05, 0.1) == fits == (nc <= k1.max_cells())
+    k1._check_cells(k1.max_cells(), "K1", "cpu")
+    with pytest.raises(ValueError, match="digit_sums_stacked"):
+        k1._check_cells(k1.max_cells() + 1, "K1", "cpu")
 
 
 def test_plain_k1_matches_v4_kernel_past_the_f32_bound():

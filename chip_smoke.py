@@ -27,7 +27,10 @@ of JAX, in five phases, one or more lines each:
    cell ranges x point chunks, 32,768, 70,200 and 193,536 cells at the
    rule's), each with an adversarial frame and the 99%-in-one-cell frames
    -- all bit for bit; a grid of exactly ``max_cells`` runs and one row
-   past it raises;
+   past it raises; K8 and K8a (one thread-block cluster per frame) on C's
+   and G's point lists and at M = 8,192, past the shared-memory layout
+   (the adjacency words in device memory), K7 on sorted rows and through
+   the permutation of the runs front end's own sort;
 4. the paths, each with every kernel's launch counter reset before and
    read after: the headline (fast digits) -- ``TrackerNode.on_pointcloud``
    answers 12 headline PointCloud2 frames and ``Tracker.bind_env_multi``
@@ -68,7 +71,9 @@ of JAX, in five phases, one or more lines each:
    per frame of each (``torch.profiler``; the headline must make no host
    sync), K1 and K5 per call at 5,500, 70,200 and 193,536 cells
    (``scripts/micro_torch_digits.py``: one device operation each, fused or
-   raw, beside ``Tensor.index_add_`` of their digits), the fleet's
+   raw, beside ``Tensor.index_add_`` of their digits), K8, K8a and K7 per
+   call (``scripts/micro_torch_cc_segsum.py``: one device operation each,
+   K7 also through the sort's permutation), the fleet's
    clouds/s and device ops per cloud beside ``bind_env_multi``, and each
    kernel against its plain version, with its
    bound (the larger of its bytes over 3.35 TB/s and its operations over
@@ -486,8 +491,14 @@ def blob_frame(cfg, rng, n):
 
 
 def sorted_rows(P, M, cfg):
-    """The runs path's K7 inputs: cell keys sorted per frame (stable) and
-    the co-sorted coordinates (ops/voxel_pallas.py)."""
+    """The runs path's sorted keys and the co-sorted coordinates, gathered."""
+    ks, perm, vals = sorted_perm(P, M, cfg)
+    return ks, [torch.gather(vals[..., c], 1, perm).contiguous() for c in range(3)]
+
+
+def sorted_perm(P, M, cfg):
+    """The runs path's K7 inputs as ``_sorted_runs`` hands them over: the
+    sorted keys, the sort's permutation and the unsorted (S, N, 3) values."""
     from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid_cuda as vg
 
     k = vg.kernel_params(cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
@@ -495,7 +506,7 @@ def sorted_rows(P, M, cfg):
     keys = torch.where(ok, lin, k["n_cells"]).to(torch.int32)
     vals = torch.where(ok[..., None], P, 0.0)
     ks, perm = torch.sort(keys, dim=1, stable=True)
-    return ks, [torch.gather(vals[..., c], 1, perm).contiguous() for c in range(3)]
+    return ks, perm, vals
 
 
 def check_pair(report, name, what, fk, fp):
@@ -562,6 +573,14 @@ def phase_kernels_more(dev, report, cfg, k1_inputs):
                "8192-row edge; 6: one run; 7: inf and -0.0)",
                lambda: segsum_cuda.segment_totals(ks, *vals),
                lambda: segsum_cuda.segment_totals_plain(ks, *vals))
+    ks, perm, v3 = sorted_perm(P, M, cfg)
+    v3[7, perm[7, 9000]] = float("inf")              # frame 7: inf and signed zeros, sorted
+    v3[7, perm[7, ::7], 2] = -0.0                    # into place through the permutation
+    chans = [v3[..., c] for c in range(3)]
+    check_pair(report, "K7", f"S=8 N={n} through the permutation of the runs front end's own "
+               "sort (the channels of one (S, N, 3) tensor; frame 7: inf and -0.0)",
+               lambda: segsum_cuda.segment_totals(ks, *chans, perm=perm),
+               lambda: segsum_cuda.segment_totals_plain(ks, *chans, perm=perm))
 
 
 def phase_kernels_fleet(dev, report, cfg, k1_inputs):
@@ -657,6 +676,30 @@ def phase_kernels_pointlist(dev, report, cfg, k1_inputs):
     check_pair(report, "K8", f"S=2 M={gcfg.caps.m_max_dynamic} configuration G's point lists",
                lambda: (cluster_pallas.connected_components_pallas(gpts, gmsk, tol, sweeps),),
                lambda: (cluster_pallas.connected_components_pallas_plain(gpts, gmsk, tol, sweeps),))
+    check_pair(report, "K8a", f"S=2 M={gcfg.caps.m_max_dynamic} configuration G's point lists",
+               lambda: (cluster_pallas.cc_adjacency(gpts, gmsk, tol),),
+               lambda: (cluster_pallas.cc_adjacency_plain(gpts, gmsk, tol),))
+    # past the shared-memory layout: M = 8,192 rows of both point lists
+    # stacked with blobs, the adjacency words in device memory
+    big = cluster_pallas.MAX_ROWS
+    layout = cluster_pallas.cc_layout(big, dev)
+    if layout[1]:
+        fail(f"cc_layout({big}) keeps the adjacency in shared memory: {layout}")
+    rng = np.random.default_rng(81)
+    bp = torch.from_numpy(rng.normal(0, 0.8, (2, big, 3)).astype(np.float32)).to(dev)
+    bp[..., 2] *= 0.1
+    bm = torch.from_numpy(rng.random((2, big)) < 0.7).to(dev)
+    bp[0, :pts.shape[1]] = pts[0]
+    bm[0, :pts.shape[1]] = msk[0]
+    bp[1, :gpts.shape[1]] = gpts[0]
+    bm[1, :gpts.shape[1]] = gmsk[0]
+    check_pair(report, "K8", f"S=2 M={big} past the shared-memory layout ({layout[0]} CTAs per "
+               "frame, the adjacency words in device memory)",
+               lambda: (cluster_pallas.connected_components_pallas(bp, bm, tol, sweeps),),
+               lambda: (cluster_pallas.connected_components_pallas_plain(bp, bm, tol, sweeps),))
+    check_pair(report, "K8a", f"S=2 M={big} past the shared-memory layout",
+               lambda: (cluster_pallas.cc_adjacency(bp, bm, tol),),
+               lambda: (cluster_pallas.cc_adjacency_plain(bp, bm, tol),))
 
     ks, vals = sorted_rows(P, M, cfg)
     ks[5, 2000:2100] = ks[5, 2000]                   # frame 5: a run across the 2048-row edge
@@ -1785,21 +1828,19 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
                           headline_frames(sc_m, cfg_m.caps.n_max_points, range(16)))
         tr_m = Tracker(cfg_m, P.device)
         ms_s, ms_m = time_path(tr_m, env_m, Pm, Mm, Tm, reps=3 if Pm.shape[0] == 32 else 2)
-        extra = ""
-        if tag != "B runs":
-            step_m, multi_m = tr_m.bind_env(env_m), tr_m.bind_env_multi(env_m)
+        step_m, multi_m = tr_m.bind_env(env_m), tr_m.bind_env_multi(env_m)
 
-            def one_m():
-                st = tr_m.init_state()
-                for k in range(8):
-                    st, _ = step_m(st, Frame(Pm[k], Mm[k], Tm[k]))
+        def one_m():
+            st = tr_m.init_state()
+            for k in range(8):
+                st, _ = step_m(st, Frame(Pm[k], Mm[k], Tm[k]))
 
-            def eight_m():
-                multi_m(tr_m.init_state(), Frame(Pm[:8], Mm[:8], Tm[:8]))
+        def eight_m():
+            multi_m(tr_m.init_state(), Frame(Pm[:8], Mm[:8], Tm[:8]))
 
-            (o1, s1), (o8, s8) = trace_counts(one_m, 8), trace_counts(eight_m, 8)
-            extra = (f"; host syncs per frame bind_env {s1:.3f}, bind_env_multi {s8:.3f}; "
-                     f"device ops per frame bind_env {o1:.2f}, bind_env_multi {o8:.2f}")
+        (o1, s1), (o8, s8) = trace_counts(one_m, 8), trace_counts(eight_m, 8)
+        extra = (f"; host syncs per frame bind_env {s1:.3f}, bind_env_multi {s8:.3f}; "
+                 f"device ops per frame bind_env {o1:.2f}, bind_env_multi {o8:.2f}")
         log(f"[5 timing] {smi}: {tag} bind_env {ms_s:.4f} ms/frame ({1e3 / ms_s:.1f} "
             f"clouds/s); bind_env_multi S=8 {ms_m:.4f} ms/frame ({1e3 / ms_m:.1f} clouds/s)"
             f"{extra}")
@@ -1812,6 +1853,14 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
     import micro_torch_digits
 
     for (shape, name), (_, ops, _, _, _) in micro_torch_digits.run(dev, 20, log).items():
+        if ops > 1.0:
+            fail(f"{name} at {shape}: {ops} device operations per call (1 expected)")
+    # K8, K8a and K7 per call on C's and G's point lists and the headline's
+    # sorted rows (K7 also through the sort's permutation): one device
+    # operation each
+    import micro_torch_cc_segsum
+
+    for (name, shape), (_, ops, _) in micro_torch_cc_segsum.run(dev, 20, log).items():
         if ops > 1.0:
             fail(f"{name} at {shape}: {ops} device operations per call (1 expected)")
 
@@ -1857,6 +1906,8 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
     offsets = grid_cuda.kernel_offsets(plan.dims, cfg.cluster_tolerance, leaf, leaf_z)
     ks, vals = sorted_rows(P[:8], M[:8], cfg)
     v4 = torch.stack(vals + [torch.ones_like(vals[0])], dim=-1).contiguous()
+    _, perm8, v3 = sorted_perm(P[:8], M[:8], cfg)
+    chans = [v3[..., c] for c in range(3)]
     P1, M1 = P[:8, :100_000].contiguous(), M[:8, :100_000].contiguous()
     pcfg = bench_cases.pointlist_case()[0]
     cpts, cmsk = pointlist_rows(dev, pcfg, P[:8].contiguous(), M[:8])
@@ -1979,14 +2030,19 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
                   lambda: vg.accumulate_f32_stacked_plain(GP8, GM8, *gkw),
                   f"S=8 frames x {GP8.shape[1]} points at G's grid ({g_nc} cells)", (GP8, GM8),
                   20 * g_kept, lambda: torch.index_add(g_base, 0, g_tgt, g_vals4)),
-        "K7": (lambda: segsum_cuda.segment_totals(ks, *vals),
-               lambda: segsum_cuda.segment_totals_plain(ks, *vals),
-               "S=8 frames x 106496 sorted rows", (ks,) + tuple(vals), 6 * ks.numel(),
+        "K7": (lambda: segsum_cuda.segment_totals(ks, *chans, perm=perm8),
+               lambda: segsum_cuda.segment_totals_plain(ks, *chans, perm=perm8),
+               "S=8 frames x 106496 sorted rows, read through the sort's permutation",
+               (ks, perm8, v3), 6 * ks.numel(),
                lambda: torch.segment_reduce(rows3, "sum", lengths=runs, axis=0)),
         "K8": (lambda: cluster_pallas.connected_components_pallas(cpts, cmsk, tol, sweeps),
                lambda: cluster_pallas.connected_components_pallas_plain(cpts, cmsk, tol, sweeps),
                f"S=8 frames x M={cpts.shape[1]} point lists ({int(cmsk.sum())} valid rows)",
                (cpts, cmsk), int(((9 + k8_sweeps) * v8 * v8).sum()), None),
+        "K8a": (lambda: cluster_pallas.cc_adjacency(cpts, cmsk, tol),
+                lambda: cluster_pallas.cc_adjacency_plain(cpts, cmsk, tol),
+                f"S=8 frames x M={cpts.shape[1]} point lists, bool (M, M) out",
+                (cpts, cmsk), int((9 * v8 * v8).sum()), None),
         "K9": (lambda: segsum_cuda.segment_totals_rows(ks, v4),
                lambda: segsum_cuda.segment_totals_rows_plain(ks, v4),
                "S=8 frames x 106496 sorted rows x 4 channels", (ks, v4), 8 * ks.numel(),
@@ -2124,9 +2180,14 @@ KERNELS = (
     ("K6f G", "K6 f32 mode at configuration G's grid (193,536 cells, N = 131,072; timed at "
      "S = 8, launched on G's path)",
      f"{PKG}/csrc/voxel_bf16x3.cu", "multiple_object_tracking_lidar_tpu/ops/voxel.py:96"),
-    ("K7", "segmented prefix totals over sorted rows",
+    ("K7", "segmented prefix totals over sorted rows, read through the sort's permutation, one "
+     "launch (the carry a chained scan)",
      f"{PKG}/csrc/segsum.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_pallas.py:316"),
-    ("K8", "all-pairs fixed-radius connected components (adjacency bitmask + Jacobi sweeps)",
+    ("K8", "all-pairs fixed-radius connected components, one launch: a thread-block cluster per "
+     "frame, adjacency bits in shared memory, Jacobi sweeps over distributed shared memory",
+     f"{PKG}/csrc/cluster_cc.cu", "multiple_object_tracking_lidar_tpu/ops/cluster_pallas.py:96"),
+    ("K8a", "K8's adjacency stage alone (the same kernel body without the sweeps): the bool "
+     "(M, M) matrix the jnp CC sweeps (configurations D, E, G)",
      f"{PKG}/csrc/cluster_cc.cu", "multiple_object_tracking_lidar_tpu/ops/cluster_pallas.py:96"),
     ("K9", "segmented prefix totals over (N, 4) rows, 2048-row blocks",
      f"{PKG}/csrc/segsum.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_pallas.py:69"),

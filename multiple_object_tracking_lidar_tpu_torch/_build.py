@@ -67,11 +67,11 @@ SIGNATURES = {
                           _I, _I, _I, _F, _F, _I, _P],
     "motl_voxel_bf16x3_keys": [_P, _P, _P, _P, _I, _I, _I, _I, *[_P] * 7, _I,
                                _I, _P],
-    "motl_segment_totals": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                            _P],
+    "motl_segment_totals": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P,
+                            _P, _I, _P],
     "motl_segment_totals_rows": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "motl_cc_adjacency": [_P, _P, _I, _I, _F, _P, _P, _P, _P],
-    "motl_cc_labels": [_P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P],
+    "motl_cc_adjacency": [_P, _I, _P, _I, _I, _I, _F, _I, _P, _P, _P],
+    "motl_cc_labels": [_P, _I, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P],
     "motl_transpose32": [_P, _P, _I, _I, _I, _P],
 }
 

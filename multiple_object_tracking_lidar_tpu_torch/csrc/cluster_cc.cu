@@ -19,198 +19,345 @@
 //    the pair is adjacent when d2 <= tol2, tol2 = f32(tol * tol in f64).
 // Every op is an explicit __fmul_rn / __fadd_rn / __fmaf_rn / __fdiv_rn.
 //
-// Three kernels:
-//  1. prep: one CTA per frame -- count, the tree column sum, p and sq;
-//  2. adjacency: one thread per (row i, 32-column word w, frame): the 32
-//     d2 tests of the word, stored as bits[s][w][i] (row fastest, so the
-//     sweeps read it coalesced);
-//  3. sweeps: one CTA per frame; labels double-buffered in shared memory;
-//     each sweep every row takes min(old, min over set bits of old[j]) --
-//     Jacobi, reading only the previous sweep -- and __syncthreads_or ends
-//     the loop when nothing changed, or after n_sweeps sweeps.
-// The jnp backend (ops/cluster.py) runs kernels 1 and 2 alone and its own
-// sweeps with pointer jumps, so both backends test the same d2 bits.
-//
-// What bounds it on the H100: the sweeps are serial, one CTA per frame, and
-// each reads the whole adjacency: M * M / 8 bytes (128 KB at M = 1,024, the
-// headline's m_max_dynamic; 512 KB at M = 2,048, the default).  The TPU
-// kernel recomputes the (B, M) gram every sweep on the MXU; here the
-// adjacency does not change between sweeps, so it is computed once, by
-// M * M / 32 threads in parallel, and the sweeps stream it from L2 (it fits
-// the 50 MB L2 many times over) in coalesced words, skipping unset bits
-// with __ffs.  A sweep costs ~M / 1,024 rows per thread times M / 32 words.
+// What bounds it on the H100: latency.  The sweeps are serial and each
+// reads the frame's whole adjacency, M * M / 8 bytes (128 KB at M = 1,024,
+// the headline's m_max_dynamic; 512 KB at M = 2,048, the default); the
+// bytes the call must move are a few KB.  Design, one launch per call: one
+// thread-block cluster of C CTAs per frame (ops/cluster_pallas.py::
+// cc_layout), rank r owning rows r, r + C, r + 2C, ... (R = ceil(M / C) of
+// them; interleaved, so the valid rows, which compact_points puts first,
+// spread over every rank):
+//  1. prep, in every CTA redundantly: the frame staged in shared memory,
+//     the count, the tree column sum, p and sq of all M rows;
+//  2. adjacency: each CTA builds its rows' bit words (bit b of word w of
+//     row i: the pair (i, 32 w + b)), a warp testing one column against 32
+//     rows at a time, straight into its own shared memory -- or, past what
+//     the cluster's shared memory holds, into a device-memory scratch that
+//     only this CTA touches;
+//  3. sweeps: every CTA keeps all M labels, double-buffered in shared
+//     memory; each sweep a row takes min(old, min over set bits of old[j])
+//     -- Jacobi, reading only the previous sweep -- over a group of up to
+//     32 lanes (a word each, reduced by shuffles), and writes a changed
+//     value into every rank's next buffer over distributed shared memory; one
+//     cluster barrier ends the sweep, after each rank ORed its "changed"
+//     vote into every rank's vote word (triple-buffered, so one barrier per
+//     sweep suffices); the loop ends when no row changed or after n_sweeps.
+// When tol2 < 3e38 no pair with an invalid row can pass the test (its sq is
+// 3e38 and its p is 0 or NaN), so invalid rows and columns are skipped:
+// only the valid rows' words are tested, and only at valid columns.
+// The cc_adjacency entry (K8a) runs 1 and 2 and writes the bool (M, M)
+// matrix of its rows instead of sweeping; the jnp backend (ops/cluster.py)
+// sweeps that, so both backends test the same d2 bits.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr int kWindow = 32;  // XLA's tree-reduction window on the CPU
+constexpr int kWindow = 32;       // XLA's tree-reduction window on the CPU
+constexpr int kMaxRows = 8192;    // M; its P and sq fill 128 KB of shared memory
+constexpr int kMaxCluster = 16;   // non-portable on the H100 (portable: 8)
+constexpr float kInvalidSq = 3e38f;
 
-__global__ void __launch_bounds__(kThreads) cc_prep_kernel(const float* __restrict__ pts,
-                                                           const uint8_t* __restrict__ mask,
-                                                           int M, float* __restrict__ P,
-                                                           float* __restrict__ SQ) {
-  extern __shared__ float part[];  // two buffers of 3 * ceil(M / 32) floats
+struct Frame {
+  const float* pts;     // (M, 3) rows of frame s at pts + s * pfs
+  int pfs;
+  const uint8_t* mask;  // (M,) at mask + s * mfs
+  int mfs;
+};
+
+// Shared memory: [bits (R rows of W + 1 u32: the odd row stride keeps both
+// the build's column walk and the sweeps' row walk free of bank conflicts)
+// when they fit][P (3M) | SQ (M) | tree partials] -- the last region holds
+// the labels (2M i32) once the adjacency is built.
+template <bool kLabels>
+__global__ void __launch_bounds__(kThreads)
+cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_smem,
+          unsigned* __restrict__ bits_global, int* __restrict__ labels,
+          int* __restrict__ sweeps, uint8_t* __restrict__ adj) {
+  extern __shared__ unsigned sm[];
+  __shared__ unsigned s_vm[kMaxRows / 32];  // valid rows, one bit each
   __shared__ float s_c[3];
   __shared__ int s_cnt;
-  const int s = blockIdx.x;
-  const float* X = pts + (size_t)s * M * 3;
-  const uint8_t* MK = mask + (size_t)s * M;
+  __shared__ int s_vote[3];
+  const int rank = (int)(blockIdx.x % C);  // K8: the cluster rank; K8a: CTAs are independent
+  const int s = blockIdx.x / C;
+  const int W = (M + 31) / 32, Wp = W + 1;
+  const int t = threadIdx.x;
+  const float* X = f.pts + (size_t)s * f.pfs;
+  const uint8_t* MK = f.mask + (size_t)s * f.mfs;
+  unsigned* bits = bits_in_smem ? sm : bits_global + (size_t)blockIdx.x * Wp * R;
+  float* P = reinterpret_cast<float*>(bits_in_smem ? sm + (size_t)Wp * R : sm);
+  float* SQ = P + 3 * M;
   const int nb0 = (M + kWindow - 1) / kWindow;
-  float* buf[2] = {part, part + 3 * nb0};
-  if (threadIdx.x == 0) s_cnt = 0;
+  float* part[2] = {SQ + M, SQ + M + 3 * nb0};
+  const bool prune = tol2 < kInvalidSq;
+
+  // ---- 1. prep: count, tree column sum, p, sq (every CTA, all rows) ------
+  if (t == 0) s_cnt = 0;
+  for (int w = t; w < W; w += blockDim.x) s_vm[w] = 0u;
+  if (t < 3) s_vote[t] = 0;
   __syncthreads();
   int local = 0;
-  for (int i = threadIdx.x; i < M; i += blockDim.x) local += MK[i] != 0;
+  for (int q = t; q < 3 * M; q += blockDim.x) P[q] = X[q];  // the frame, staged
+  for (int i = t; i < M; i += blockDim.x) {
+    if (MK[i]) {
+      ++local;
+      atomicOr(&s_vm[i >> 5], 1u << (i & 31));
+    }
+  }
   atomicAdd(&s_cnt, local);
-  // level 0: windows of 32 rows of pts * mask, each summed in order from +0
-  for (int t = threadIdx.x; t < 3 * nb0; t += blockDim.x) {
-    const int k = t / nb0, b = t - k * nb0;
+  __syncthreads();
+  auto valid = [&](int i) { return (s_vm[i >> 5] >> (i & 31)) & 1u; };
+  for (int q = t; q < 3 * nb0; q += blockDim.x) {  // windows of 32 rows of pts * mask
+    const int k = q / nb0, b = q - k * nb0;
     float a = 0.0f;
     for (int i = b * kWindow; i < min(M, (b + 1) * kWindow); ++i)
-      a = __fadd_rn(a, __fmul_rn(X[3 * i + k], MK[i] ? 1.0f : 0.0f));
-    buf[0][t] = a;
+      a = __fadd_rn(a, __fmul_rn(P[3 * i + k], valid(i) ? 1.0f : 0.0f));
+    part[0][q] = a;
   }
   __syncthreads();
   int n = nb0, cur = 0;
   while (n > kWindow) {  // further levels while more than 32 partials remain
     const int nb = (n + kWindow - 1) / kWindow;
-    for (int t = threadIdx.x; t < 3 * nb; t += blockDim.x) {
-      const int k = t / nb, b = t - k * nb;
+    for (int q = t; q < 3 * nb; q += blockDim.x) {
+      const int k = q / nb, b = q - k * nb;
       float a = 0.0f;
       for (int i = b * kWindow; i < min(n, (b + 1) * kWindow); ++i)
-        a = __fadd_rn(a, buf[cur][k * n + i]);
-      buf[1 - cur][t] = a;
+        a = __fadd_rn(a, part[cur][k * n + i]);
+      part[1 - cur][q] = a;
     }
     __syncthreads();
     n = nb;
     cur = 1 - cur;
   }
-  if (threadIdx.x < 3) {
+  if (t < 3) {
     float a = 0.0f;
-    for (int i = 0; i < n; ++i) a = __fadd_rn(a, buf[cur][threadIdx.x * n + i]);
-    s_c[threadIdx.x] = __fdiv_rn(a, fmaxf((float)s_cnt, 1.0f));
+    for (int i = 0; i < n; ++i) a = __fadd_rn(a, part[cur][t * n + i]);
+    s_c[t] = __fdiv_rn(a, fmaxf((float)s_cnt, 1.0f));
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    const float mf = MK[i] ? 1.0f : 0.0f;
-    const float p0 = __fmul_rn(__fsub_rn(X[3 * i], s_c[0]), mf);
-    const float p1 = __fmul_rn(__fsub_rn(X[3 * i + 1], s_c[1]), mf);
-    const float p2 = __fmul_rn(__fsub_rn(X[3 * i + 2], s_c[2]), mf);
-    float* pr = P + ((size_t)s * M + i) * 3;
-    pr[0] = p0;
-    pr[1] = p1;
-    pr[2] = p2;
+  for (int i = t; i < M; i += blockDim.x) {  // in place: row i is this thread's alone
+    const float mf = valid(i) ? 1.0f : 0.0f;
+    const float p0 = __fmul_rn(__fsub_rn(P[3 * i], s_c[0]), mf);
+    const float p1 = __fmul_rn(__fsub_rn(P[3 * i + 1], s_c[1]), mf);
+    const float p2 = __fmul_rn(__fsub_rn(P[3 * i + 2], s_c[2]), mf);
+    P[3 * i] = p0;
+    P[3 * i + 1] = p1;
+    P[3 * i + 2] = p2;
     const float sq = __fmaf_rn(p2, p2, __fmaf_rn(p1, p1, __fmul_rn(p0, p0)));
-    SQ[(size_t)s * M + i] = MK[i] ? sq : 3e38f;
+    SQ[i] = valid(i) ? sq : kInvalidSq;
   }
-}
-
-__global__ void cc_adjacency_kernel(const float* __restrict__ P, const float* __restrict__ SQ,
-                                    int M, float tol2, unsigned* __restrict__ bits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int w = blockIdx.y, s = blockIdx.z;
-  const int W = gridDim.y;
-  if (i >= M) return;
-  const float* Pf = P + (size_t)s * M * 3;
-  const float* SQf = SQ + (size_t)s * M;
-  const float x = Pf[3 * i], y = Pf[3 * i + 1], z = Pf[3 * i + 2], sqi = SQf[i];
-  unsigned word = 0u;
-  for (int b = 0; b < 32; ++b) {
-    const int j = w * 32 + b;
-    if (j >= M) break;
-    const float g = __fmaf_rn(z, Pf[3 * j + 2], __fmaf_rn(y, Pf[3 * j + 1], __fmul_rn(x, Pf[3 * j])));
-    const float d2 = __fsub_rn(__fadd_rn(sqi, SQf[j]), __fmul_rn(2.0f, g));
-    if (d2 <= tol2) word |= 1u << b;
-  }
-  bits[((size_t)s * W + w) * M + i] = word;
-}
-
-__global__ void __launch_bounds__(kThreads) cc_sweep_kernel(const unsigned* __restrict__ bits,
-                                                            const uint8_t* __restrict__ mask,
-                                                            int M, int n_sweeps,
-                                                            int* __restrict__ labels,
-                                                            int* __restrict__ sweeps) {
-  extern __shared__ int lab[];  // two buffers of M labels
-  const int s = blockIdx.x;
-  const int W = (M + 31) / 32;
-  const unsigned* B = bits + (size_t)s * W * M;
-  const uint8_t* MK = mask + (size_t)s * M;
-  int* cur = lab;
-  int* nxt = lab + M;
-  for (int i = threadIdx.x; i < M; i += blockDim.x) cur[i] = MK[i] ? i : M;
   __syncthreads();
-  int it = 0;
-  while (it < n_sweeps) {
-    int changed = 0;
-    for (int i = threadIdx.x; i < M; i += blockDim.x) {
-      int nmin = M;
-      for (int w = 0; w < W; ++w) {
-        unsigned word = B[(size_t)w * M + i];
-        while (word) {
-          const int b = __ffs(word) - 1;
-          word &= word - 1u;
-          nmin = min(nmin, cur[w * 32 + b]);
+
+  // ---- 2. this rank's adjacency words, bits[il * Wp + w] of row il C + rank
+  // (rows fastest across threads: a warp tests one column j at a time, four
+  // columns in flight)
+  for (int q = t; q < W * R; q += blockDim.x) {
+    const int il = q % R, w = q / R;
+    const int i = il * C + rank;
+    unsigned word = 0u;
+    if (i < M && (!prune || valid(i))) {
+      const float x = P[3 * i], y = P[3 * i + 1], z = P[3 * i + 2], sqi = SQ[i];
+      const int nj = min(32, M - 32 * w);
+      unsigned cand = prune ? s_vm[w] : (nj == 32 ? 0xffffffffu : (1u << nj) - 1u);
+      while (cand) {
+        int bb[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          bb[u] = cand ? __ffs(cand) - 1 : -1;
+          cand &= cand - 1u;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (bb[u] < 0) continue;
+          const int j = 32 * w + bb[u];
+          const float g =
+              __fmaf_rn(z, P[3 * j + 2], __fmaf_rn(y, P[3 * j + 1], __fmul_rn(x, P[3 * j])));
+          const float d2 = __fsub_rn(__fadd_rn(sqi, SQ[j]), __fmul_rn(2.0f, g));
+          if (d2 <= tol2) word |= 1u << bb[u];
         }
       }
-      const int nv = min(cur[i], nmin);
-      nxt[i] = nv;
-      changed |= nv != cur[i];
     }
-    ++it;
-    const int any = __syncthreads_or(changed);
-    int* t = cur;
-    cur = nxt;
-    nxt = t;
-    if (!any) break;
+    bits[il * Wp + w] = word;
   }
-  for (int i = threadIdx.x; i < M; i += blockDim.x) labels[(size_t)s * M + i] = cur[i];
-  if (threadIdx.x == 0) sweeps[s] = it;
+  __syncthreads();
+
+  if (!kLabels) {
+    // ---- K8a: the bool rows of this rank, adj[s][i][j] ----------------------
+    uint8_t* A = adj + (size_t)s * M * M;
+    if (M % 16 == 0) {
+      const int nc = M / 16;  // 16-byte chunks per row
+      for (int q = t; q < R * nc; q += blockDim.x) {
+        const int il = q / nc, j0 = 16 * (q - il * nc);
+        if (il * C + rank >= M) break;
+        const unsigned half = (bits[il * Wp + (j0 >> 5)] >> (j0 & 31)) & 0xffffu;
+        unsigned v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          v[k] = ((half >> (4 * k)) & 1u) | (((half >> (4 * k + 1)) & 1u) << 8) |
+                 (((half >> (4 * k + 2)) & 1u) << 16) | (((half >> (4 * k + 3)) & 1u) << 24);
+        *reinterpret_cast<uint4*>(A + (size_t)(il * C + rank) * M + j0) =
+            make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    } else {
+      for (int q = t; q < R * M; q += blockDim.x) {
+        const int il = q / M, j = q - il * M;
+        if (il * C + rank >= M) break;
+        A[(size_t)(il * C + rank) * M + j] = (uint8_t)((bits[il * Wp + (j >> 5)] >> (j & 31)) & 1u);
+      }
+    }
+    return;
+  }
+
+  // ---- 3. Jacobi sweeps over the cluster ------------------------------------
+  cg::cluster_group cluster = cg::this_cluster();
+  const int lane = t & 31, warp = t >> 5, nwarps = blockDim.x >> 5;
+  int G = 1;  // lanes per row: the words of a row, up to a warp
+  while (G < 32 && G < W) G <<= 1;
+  const int rpw = 32 / G;  // rows per warp and step
+  int* lab[2] = {reinterpret_cast<int*>(P), reinterpret_cast<int*>(P) + M};
+  for (int i = t; i < M; i += blockDim.x) {
+    const int v = valid(i) ? i : M;
+    lab[0][i] = v;
+    lab[1][i] = v;
+  }
+  cluster.sync();  // every rank's labels set (its P and sq no longer read)
+  int it = 0;
+  while (it < n_sweeps) {
+    const int* cur_l = lab[it & 1];
+    int* nxt_l = lab[(it + 1) & 1];
+    int changed = 0;
+    // a group of G lanes per row, each lane a word in G, min over the group
+    for (int r0 = warp * rpw; r0 < R; r0 += nwarps * rpw) {
+      const int il = r0 + lane / G, i = il * C + rank;
+      const bool live = il < R && i < M && (!prune || valid(i));
+      int nmin = M;
+      if (live) {
+        for (int w = lane % G; w < W; w += G) {
+          unsigned word = bits[il * Wp + w];
+          while (word) {  // four labels in flight
+            int bb[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              bb[u] = word ? __ffs(word) - 1 : -1;
+              word &= word - 1u;
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              if (bb[u] >= 0) nmin = min(nmin, cur_l[32 * w + bb[u]]);
+          }
+        }
+      }
+      for (int off = G / 2; off > 0; off >>= 1)
+        nmin = min(nmin, __shfl_xor_sync(0xffffffffu, nmin, off));
+      if (live && lane % G == 0) {
+        const int old = cur_l[i];
+        const int nv = min(old, nmin);
+        changed |= nv != old;
+        // every rank's copies are equal after each sweep: write where the
+        // next buffer (two sweeps old) differs
+        if (nxt_l[i] != nv)
+          for (int r = 0; r < C; ++r) cluster.map_shared_rank(nxt_l, r)[i] = nv;
+      }
+    }
+    if (__syncthreads_or(changed) && t == 0)
+      for (int r = 0; r < C; ++r) atomicOr(cluster.map_shared_rank(&s_vote[it % 3], r), 1);
+    cluster.sync();  // every next buffer complete, every vote in
+    const int v = s_vote[it % 3];
+    // the word of sweep it + 2: its last reader (this CTA, sweep it - 1)
+    // is past, its first writer waits for this CTA at the next barrier
+    if (t == 0) s_vote[(it + 2) % 3] = 0;
+    ++it;
+    if (!v) break;
+  }
+  const int* fin = lab[it & 1];
+  for (int il = t; il < R && il * C + rank < M; il += blockDim.x)
+    labels[(size_t)s * M + il * C + rank] = fin[il * C + rank];
+  if (rank == 0 && t == 0) sweeps[s] = it;
 }
 
-int launch_adjacency(const float* pts, const uint8_t* mask, int S, int M, float tol2, float* P,
-                     float* SQ, unsigned* bits, cudaStream_t st) {
-  const int nb0 = (M + kWindow - 1) / kWindow;
-  const size_t smem = (size_t)2 * 3 * nb0 * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      cc_prep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Once per process and device: a kernel's shared-memory limit and its
+// non-portable cluster size.
+template <bool kLabels>
+cudaError_t allow(size_t smem) {
+  static size_t set[16];
+  int d = 0;
+  cudaError_t err = cudaGetDevice(&d);
+  if (err != cudaSuccess) return err;
+  if (d < 16 && set[d] >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(cc_kernel<kLabels>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess && kLabels)
+    err = cudaFuncSetAttribute(cc_kernel<kLabels>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && d < 16) set[d] = smem;
+  return err;
+}
+
+size_t smem_bytes(int M, int R, bool bits_in_smem) {
+  const int W = (M + 31) / 32, nb0 = (M + kWindow - 1) / kWindow;
+  const size_t region = (size_t)max(16 * M + 24 * nb0, 8 * M);
+  return region + (bits_in_smem ? (size_t)4 * (W + 1) * R : 0);
+}
+
+template <bool kLabels>
+int launch(const Frame& f, int S, int M, float tol2, int n_sweeps, int cluster,
+           unsigned* bits_global, int* labels, int* sweeps, uint8_t* adj, cudaStream_t st) {
+  if (S < 1 || M < 1 || M > kMaxRows || cluster < 1 || cluster > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  const int R = (M + cluster - 1) / cluster;
+  const bool in_smem = bits_global == nullptr;
+  const size_t smem = smem_bytes(M, R, in_smem);
+  cudaError_t err = allow<kLabels>(smem);
   if (err != cudaSuccess) return (int)err;
-  cc_prep_kernel<<<S, kThreads, smem, st>>>(pts, mask, M, P, SQ);
-  err = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S * cluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kLabels ? 1 : 0;  // K8a's CTAs share nothing
+  err = cudaLaunchKernelEx(&cfg, cc_kernel<kLabels>, f, M, tol2, n_sweeps, cluster, R,
+                           (int)in_smem,
+                           bits_global, labels, sweeps, adj);
   if (err != cudaSuccess) return (int)err;
-  const int W = (M + 31) / 32;
-  cc_adjacency_kernel<<<dim3((M + 127) / 128, W, S), 128, 0, st>>>(P, SQ, M, tol2, bits);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// pts (S, M, 3) f32, mask (S, M) u8 -> bits (S, ceil(M / 32), M) u32, bit b
-// of bits[s][w][i] set when rows i and 32 * w + b are adjacent.  Scratch
-// P (S, M, 3) f32, SQ (S, M) f32.
-extern "C" int motl_cc_adjacency(const float* pts, const uint8_t* mask, int S, int M,
-                                 float tol2, float* P, float* SQ, unsigned* bits,
-                                 void* stream) {
-  if (S < 1 || M < 1) return (int)cudaErrorInvalidValue;
-  return launch_adjacency(pts, mask, S, M, tol2, P, SQ, bits, (cudaStream_t)stream);
+// pts: S frames of (M, 3) f32 rows, frame s at pts + s * pfs floats; mask:
+// S frames of M bytes (nonzero = valid), frame s at mask + s * mfs.
+// `cluster` CTAs per frame (1-16); bits_global null keeps the adjacency in
+// shared memory, else it is a scratch of S * cluster * (ceil(M / 32) + 1) *
+// ceil(M / cluster) u32.
+
+// K8a: adj (S, M, M) bool (one byte each), row i column j set when rows i
+// and j are adjacent.
+extern "C" int motl_cc_adjacency(const float* pts, int pfs, const uint8_t* mask, int mfs, int S,
+                                 int M, float tol2, int cluster, unsigned* bits_global,
+                                 uint8_t* adj, void* stream) {
+  const Frame f{pts, pfs, mask, mfs};
+  return launch<false>(f, S, M, tol2, 0, cluster, bits_global, nullptr, nullptr, adj,
+                       (cudaStream_t)stream);
 }
 
-// The whole CC: the adjacency as above, then up to n_sweeps Jacobi sweeps.
-// labels (S, M) i32; sweeps (S,) i32 the sweeps run (the last one changed
-// nothing unless the cap cut the loop).
-extern "C" int motl_cc_labels(const float* pts, const uint8_t* mask, int S, int M, float tol2,
-                              int n_sweeps, float* P, float* SQ, unsigned* bits, int* labels,
-                              int* sweeps, void* stream) {
-  if (S < 1 || M < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  int e = launch_adjacency(pts, mask, S, M, tol2, P, SQ, bits, st);
-  if (e != 0) return e;
-  const size_t smem = (size_t)2 * M * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      cc_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cc_sweep_kernel<<<S, kThreads, smem, st>>>(bits, mask, M, n_sweeps, labels, sweeps);
-  return (int)cudaGetLastError();
+// K8: labels (S, M) i32; sweeps (S,) i32 the sweeps run (the last one
+// changed nothing unless the cap cut the loop).
+extern "C" int motl_cc_labels(const float* pts, int pfs, const uint8_t* mask, int mfs, int S,
+                              int M, float tol2, int n_sweeps, int cluster,
+                              unsigned* bits_global, int* labels, int* sweeps, void* stream) {
+  const Frame f{pts, pfs, mask, mfs};
+  return launch<true>(f, S, M, tol2, n_sweeps, cluster, bits_global, labels, sweeps, nullptr,
+                      (cudaStream_t)stream);
 }

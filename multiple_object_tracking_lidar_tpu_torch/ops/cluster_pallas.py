@@ -4,9 +4,10 @@ Replaces the Pallas kernel ``multiple_object_tracking_lidar_tpu/ops/
 cluster_pallas.py::connected_components_pallas`` (``cluster_backend=
 "pallas"``).  CUDA source: ``csrc/cluster_cc.cu``, whose header says what
 bounds it on the H100 (the serial sweeps, each reading the whole M x M
-adjacency) and how its design answers that (the adjacency, fixed across
-sweeps, is built once as a bitmask by M * M / 32 threads; one CTA per frame
-sweeps it from L2 with labels in shared memory and an early exit).
+adjacency) and how its design answers that: one launch per call, one
+thread-block cluster per frame (``cc_layout``), each CTA building its rows'
+adjacency bits in its own shared memory and the sweeps exchanging labels
+over distributed shared memory, with an early exit.
 
 The float ops are those XLA's CPU code gives the interpret-mode kernel:
 the centre is a tree-ordered column sum (windows of 32 rows), and the
@@ -17,12 +18,14 @@ labels, cut-short sweeps included -- is the interpret-mode kernel's.
 
 - ``connected_components_pallas``: labels (min point index per component,
   M for invalid rows); K8 on CUDA tensors, ``..._plain`` on CPU tensors.
-- ``cc_adjacency``: K8's adjacency stage alone, as a bool (M, M) matrix;
-  the jnp backend (``ops/cluster.py``) sweeps it, so both backends see the
-  same d2 bits on the card.
+- ``cc_adjacency``: K8's adjacency stage alone (K8a, the same kernel body
+  without the sweeps), as a bool (M, M) matrix; the jnp backend
+  (``ops/cluster.py``) sweeps it, so both backends see the same d2 bits on
+  the card.
 
-Both take one frame, (M, 3), or S stacked frames, (S, M, 3), and count
-their launches in ``.launches``.
+Both take one frame, (M, 3), or S stacked frames, (S, M, 3), read bool or
+uint8 masks and each frame's contiguous rows where they lie (no launch but
+the kernel's), and count their launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,10 @@ from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32
 BLOCK = 256         # cluster_pallas.py::_BLOCK: M % 256 == 0 for M > 256
 TREE_WINDOW = 32    # XLA's CPU tree-reduction window
 INVALID_SQ = 3e38   # squared norm of an invalid row: d2 > tol2 against all
+MAX_ROWS = 8192     # K8's M bound: p and sq of 8,192 rows fill 128 KB of a CTA
+ROWS_PER_CTA = 64   # cc_layout: rows per CTA before the cluster grows (micro_torch_cc_segsum.py --sweep)
+SMEM_BYTES = 232448  # what one H100 block may use (227 KB)
+STATIC_SMEM = 2048   # the kernel's static shared arrays, rounded up
 
 
 def check_rows(m: int) -> None:
@@ -141,64 +148,119 @@ def connected_components_pallas_plain(pts, mask, tol: float, n_sweeps: int = 64,
     return (labels, it) if with_sweeps else labels
 
 
-def _launch(entry, p, m, tol, extra, outs):
-    s, n = m.shape
-    dev = p.device
-    pc = p.contiguous()
-    m8 = m.to(torch.uint8).contiguous()
-    prow = torch.empty((s, n, 3), dtype=torch.float32, device=dev)
-    sq = torch.empty((s, n), dtype=torch.float32, device=dev)
-    bits = torch.empty((s, -(-n // 32), n), dtype=torch.int32, device=dev)
+def cc_layout(m: int, device=None) -> tuple[int, bool]:
+    """(C, bits in shared memory) for frames of M rows: the fewest CTAs per
+    frame, a power of two up to the card's cluster (``grid_cuda.max_cluster``,
+    K2's query of the card), that
+    give each CTA at most ``ROWS_PER_CTA`` rows and hold its rows' adjacency
+    words in shared memory beside the frame's p and sq; where even the
+    largest cluster cannot, the largest, with the words in a device-memory
+    scratch.  Raises past ``MAX_ROWS``, where p and sq alone fill a CTA's
+    shared memory."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import max_cluster
+
+    if not 1 <= m <= MAX_ROWS:
+        raise ValueError(f"K8 takes 1 to {MAX_ROWS} rows per frame, got M = {m}")
+    top = max_cluster(device)
+    c = 1
+    while c < top and (-(-m // c) > ROWS_PER_CTA or not fits_smem(m, c)):
+        c *= 2
+    return c, fits_smem(m, c)
+
+
+def fits_smem(m: int, c: int) -> bool:
+    """True iff a CTA of a C-CTA cluster holds its rows' adjacency words
+    (ceil(M / C) rows of ceil(M / 32) + 1 u32) beside the frame's p, sq and
+    tree partials (or its two label buffers, which reuse them)."""
+    nw = -(-m // 32)
+    region = max(16 * m + 24 * nw, 8 * m)
+    return region + 4 * (nw + 1) * -(-m // c) <= SMEM_BYTES - STATIC_SMEM
+
+
+def _frames(p: torch.Tensor):
+    """(p, its frame stride in floats): (S, M, 3) f32 rows, each frame's
+    (M, 3) contiguous, as compact_points' views are; else a copy."""
+    if p.dtype != torch.float32:
+        p = p.to(torch.float32)
+    if p.stride(-1) != 1 or p.stride(-2) != 3:
+        p = p.contiguous()
+    return p, p.stride(0)
+
+
+def _mask_frames(mask: torch.Tensor):
+    """(mask as bytes, its frame stride): a bool or uint8 (S, M) read where
+    it lies when each frame's row is contiguous (no launch)."""
+    if mask.dtype not in (torch.bool, torch.uint8) or mask.stride(-1) != 1:
+        mask = _build.byte_mask(mask)
+    return mask, mask.stride(0)
+
+
+def _launch(entry, pts, mask, tol, cluster, extra, outs):
+    """One launch of a K8 entry on S frames: the layout, the inputs read
+    where they lie, the adjacency scratch when it leaves shared memory."""
+    p = pts[None] if pts.dim() == 2 else pts
+    s, m = p.shape[:2]
+    mk = mask.reshape(s, m)
+    check_rows(m)
+    if cluster is None:
+        cluster, in_smem = cc_layout(m, p.device)
+    else:
+        from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import max_cluster
+
+        cc_layout(m)  # the row bound
+        top = max_cluster(p.device)
+        if cluster not in (1, 2, 4, 8, 16) or cluster > top:
+            raise ValueError(f"cluster must be a power of two up to {top}")
+        in_smem = fits_smem(m, cluster)
+    p, pfs = _frames(p)
+    mk, mfs = _mask_frames(mk)
+    bits = None
+    if not in_smem:
+        bits = torch.empty(s * cluster * (-(-m // 32) + 1) * -(-m // cluster), dtype=torch.int32,
+                           device=p.device)
     err = getattr(_build.load(), entry)(
-        pc.data_ptr(), m8.data_ptr(), s, n, tol2_f32(tol), *extra, prow.data_ptr(),
-        sq.data_ptr(), bits.data_ptr(), *(o.data_ptr() for o in outs),
-        _build.stream_ptr(dev),
+        p.data_ptr(), pfs, mk.data_ptr(), mfs, s, m, tol2_f32(tol), *extra, cluster,
+        None if bits is None else bits.data_ptr(), *(o.data_ptr() for o in outs),
+        _build.stream_ptr(p.device),
     )
     _build.check(err, entry)
-    return bits
 
 
-def unpack_bits(bits: torch.Tensor, m: int) -> torch.Tensor:
-    """K8's (S, ceil(M / 32), M) words -> bool (S, M, M): bit b of word
-    [s, w, i] is the pair (i, 32 w + b)."""
-    s, nw, _ = bits.shape
-    shifts = torch.arange(32, device=bits.device, dtype=torch.int32)
-    b = (bits.permute(0, 2, 1)[..., None] >> shifts) & 1        # (S, M, W, 32)
-    return b.reshape(s, m, nw * 32)[..., :m].to(torch.bool)
-
-
-def cc_adjacency(pts: torch.Tensor, mask: torch.Tensor, tol: float) -> torch.Tensor:
-    """K8's adjacency stage on CUDA tensors, its plain version on CPU
-    tensors: bool (M, M), or (S, M, M) for stacked frames."""
-    p, m, single = _stack(pts, mask)
-    if p.device.type == "cpu":
+def cc_adjacency(pts: torch.Tensor, mask: torch.Tensor, tol: float,
+                 cluster: int | None = None) -> torch.Tensor:
+    """K8's adjacency stage (K8a) on CUDA tensors, its plain version on CPU
+    tensors: bool (M, M), or (S, M, M) for stacked frames.  ``cluster``
+    overrides ``cc_layout``'s CTAs per frame (for checks and sweeps)."""
+    if pts.device.type == "cpu":
+        p, m, single = _stack(pts, mask)
         adj = cc_adjacency_plain(p, m, tol)
-    else:
-        bits = _launch("motl_cc_adjacency", p, m, tol, (), ())
-        cc_adjacency.launches += 1
-        adj = unpack_bits(bits, m.shape[1])
-    return adj[0] if single else adj
+        return adj[0] if single else adj
+    s, n = (1,) + pts.shape[:1] if pts.dim() == 2 else pts.shape[:2]
+    adj = torch.empty((s, n, n), dtype=torch.bool, device=pts.device)
+    _launch("motl_cc_adjacency", pts, mask, tol, cluster, (), (adj,))
+    cc_adjacency.launches += 1
+    return adj[0] if pts.dim() == 2 else adj
 
 
 cc_adjacency.launches = 0
 
 
 def connected_components_pallas(pts: torch.Tensor, mask: torch.Tensor, tol: float,
-                                n_sweeps: int = 64, with_sweeps: bool = False):
+                                n_sweeps: int = 64, with_sweeps: bool = False,
+                                cluster: int | None = None):
     """Labels (M,) or (S, M) int32: the min point index of each component
     after at most ``n_sweeps`` Jacobi sweeps, M for invalid rows.  K8 on
-    CUDA tensors, its plain version on CPU tensors.  ``with_sweeps`` also
-    returns the sweeps run (the largest over frames)."""
+    CUDA tensors (one launch), its plain version on CPU tensors.
+    ``with_sweeps`` also returns the sweeps run (the largest over frames; a
+    host read).  ``cluster`` overrides ``cc_layout``'s CTAs per frame."""
     if pts.device.type == "cpu":
         return connected_components_pallas_plain(pts, mask, tol, n_sweeps, with_sweeps)
-    p, m, single = _stack(pts, mask)
-    s, n = m.shape
-    check_rows(n)
-    labels = torch.empty((s, n), dtype=torch.int32, device=p.device)
-    sweeps = torch.empty((s,), dtype=torch.int32, device=p.device)
-    _launch("motl_cc_labels", p, m, tol, (int(n_sweeps),), (labels, sweeps))
+    s, n = (1,) + pts.shape[:1] if pts.dim() == 2 else pts.shape[:2]
+    labels = torch.empty((s, n), dtype=torch.int32, device=pts.device)
+    sweeps = torch.empty((s,), dtype=torch.int32, device=pts.device)
+    _launch("motl_cc_labels", pts, mask, tol, cluster, (int(n_sweeps),), (labels, sweeps))
     connected_components_pallas.launches += 1
-    labels = labels[0] if single else labels
+    labels = labels[0] if pts.dim() == 2 else labels
     return (labels, int(sweeps.max())) if with_sweeps else labels
 
 

@@ -3,18 +3,21 @@
 K7 replaces the Pallas kernel ``multiple_object_tracking_lidar_tpu/ops/
 voxel_pallas.py::segment_totals_raster`` (CUDA source ``csrc/segsum.cu``,
 whose header says what bounds it on the H100 and how its design answers
-that: one CTA per 8,192-row block in shared memory, and the carry across
-blocks as a second pass).  It computes the Pallas kernel's float tree, so
-the result is bit-identical: per block of T = rb * 128 rows
-(rb = min(64, N / 128)), Hillis-Steele passes at sh = 1, 2, ..., T/2 of
+that: one launch per call, 8 rows per thread in registers, warp shuffles
+for the short shifts, and the carry across blocks as a chained scan in the
+same launch).  It computes the Pallas kernel's float tree, so the result is
+bit-identical: per block of T = rb * 128 rows (rb = min(64, N / 128)),
+Hillis-Steele passes at sh = 1, 2, ..., T/2 of
 ``c_i + c_{(i-sh) mod T} * [k_{(i-sh) mod T} == k_i and i >= sh]``, then for
 every block b > 0 ``c + [k == carry_key] * carry`` with block b-1's last key
-and last output.
+and last output.  It reads the values through the sort's permutation
+(``perm``), so the runs front end gathers nothing.
 
 K9 replaces K7's predecessor, ``voxel_pallas.py::segment_totals_pallas``,
 with the same tree over flat blocks of T = min(2048, N) rows and the four
-channels of one (N, 4) array (``segment_totals_rows``).  No path of the JAX
-package reaches it.
+channels of one (N, 4) array (``segment_totals_rows``); it keeps the
+two-launch design (passes in shared memory, then the carry).  No path of
+the JAX package reaches it.
 
 ``segment_totals`` / ``segment_totals_rows`` launch the kernel for CUDA
 tensors and run ``segment_totals_plain`` / ``segment_totals_rows_plain``
@@ -66,37 +69,81 @@ def _tree_plain(ks, chans, t):
     return tuple(c.reshape(shape) for c in cs)
 
 
-def segment_totals_plain(ks, xs, ys, zs):
+def segment_totals_plain(ks, xs, ys, zs, perm=None):
     """Plain PyTorch version of K7: the same passes and the same carry
-    chain over blocks of ``block_rows(N)``."""
-    return _tree_plain(ks, (xs, ys, zs), block_rows(ks.shape[-1]))
+    chain over blocks of ``block_rows(N)``, on the rows ``xs[perm]`` (the
+    rows as given when ``perm`` is None)."""
+    chans = (xs, ys, zs)
+    if perm is not None:
+        chans = tuple(torch.gather(c, -1, perm) for c in chans)
+    return _tree_plain(ks, chans, block_rows(ks.shape[-1]))
+
+
+_CHAIN: dict = {}   # (device, stream) -> K7's chained-scan scratch
+
+
+def _chain_scratch(device, stream: int, blocks: int) -> torch.Tensor:
+    """K7's ticket, done count, flags and published carries for launches on
+    ``stream``: zeroed once (and again only when a call needs more blocks
+    than it holds); every launch leaves it zero."""
+    key = (device, stream)
+    buf = _CHAIN.get(key)
+    cap = 0 if buf is None else (buf.numel() - 2) // 5
+    if cap < blocks:
+        cap = max(blocks, 2 * cap, 64)
+        buf = torch.zeros(2 + 5 * cap, dtype=torch.int32, device=device)
+        _CHAIN[key] = buf
+    return buf
+
+
+def _channel_stride(chans, n: int):
+    """The element stride that places row r of frame s of every channel at
+    ``(s * n + r) * stride`` from its data pointer (1 for contiguous rows,
+    3 for the channels of one (S, N, 3) tensor), or None."""
+    st = chans[0].stride(-1)
+    for c in chans:
+        if c.stride(-1) != st or (c.dim() == 2 and c.shape[0] > 1 and c.stride(0) != n * st):
+            return None
+    return st if st >= 1 else None
 
 
 def segment_totals(
     ks: torch.Tensor,   # (N,) or (S, N) int32, sorted ascending per row
-    xs: torch.Tensor,   # same shape, f32
+    xs: torch.Tensor,   # same shape, f32 (unsorted when perm is given)
     ys: torch.Tensor,
     zs: torch.Tensor,
+    perm: torch.Tensor | None = None,  # same shape, int64: row r's source row in its frame
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K7 on CUDA tensors, its plain version on CPU tensors."""
+    """K7 on CUDA tensors, its plain version on CPU tensors: the run
+    prefixes of the rows ``xs[perm]``, ``ys[perm]``, ``zs[perm]`` (the rows
+    as given without ``perm``).  The channels may be views of one (S, N, 3)
+    tensor; the kernel reads them where they lie."""
     if ks.device.type == "cpu":
-        return segment_totals_plain(ks, xs, ys, zs)
+        return segment_totals_plain(ks, xs, ys, zs, perm)
     shape = ks.shape
     n = shape[-1]
     t = block_rows(n)
     if ks.dtype != torch.int32 or ks.dim() not in (1, 2):
         raise ValueError(f"ks must be (N,) or (S, N) int32, got {tuple(shape)} {ks.dtype}")
-    for c in (xs, ys, zs):
+    chans = (xs, ys, zs)
+    for c in chans:
         if c.shape != shape or c.dtype != torch.float32 or c.device != ks.device:
             raise ValueError("xs, ys, zs must be float32 of ks's shape, on its device")
+    if perm is not None and (perm.shape != shape or perm.dtype != torch.int64
+                             or perm.device != ks.device):
+        raise ValueError("perm must be int64 of ks's shape, on its device")
+    st = _channel_stride(chans, n)
+    if st is None:
+        chans, st = tuple(c.contiguous() for c in chans), 1
     s = ks.numel() // n
-    ins = [a.contiguous() for a in (ks, xs, ys, zs)]
+    ks_c = ks.contiguous()
+    perm_ptr = None if perm is None else perm.contiguous().data_ptr()
     outs = [torch.empty(shape, dtype=torch.float32, device=ks.device) for _ in range(3)]
-    last_key = torch.empty((s, n // t), dtype=torch.int32, device=ks.device)
-    last_val = torch.empty((s, n // t, 3), dtype=torch.float32, device=ks.device)
+    stream = _build.stream_ptr(ks.device)
+    chain = _chain_scratch(ks.device, stream, s * (n // t))
     err = _build.load().motl_segment_totals(
-        *(a.data_ptr() for a in ins), s, n, t, *(o.data_ptr() for o in outs),
-        last_key.data_ptr(), last_val.data_ptr(), _build.stream_ptr(ks.device),
+        ks_c.data_ptr(), *(c.data_ptr() for c in chans), st, perm_ptr, s, n, t,
+        *(o.data_ptr() for o in outs), chain.data_ptr(), (chain.numel() - 2) // 5, stream,
     )
     _build.check(err, "motl_segment_totals")
     segment_totals.launches += 1

@@ -33,8 +33,9 @@ from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
 
 
 def _sorted_runs(points, mask, scene, leaf_xy, leaf_z):
-    """Stable sort of S frames by cell key and K7's segment totals: (k,
-    ks (S, N) sorted keys, (tx, ty, tz) run prefixes, ok, lin)."""
+    """Stable sort of S frames by cell key and K7's segment totals, which
+    read the values through the sort's permutation: (k, ks (S, N) sorted
+    keys, (tx, ty, tz) run prefixes, ok, lin)."""
     k = kernel_params(scene, leaf_xy, leaf_z)
     nc = k["n_cells"]
     p = points.to(torch.float32)
@@ -42,9 +43,7 @@ def _sorted_runs(points, mask, scene, leaf_xy, leaf_z):
     keys = torch.where(ok, lin, nc).to(torch.int32)
     vals = torch.where(ok[..., None], p, 0.0)
     ks, perm = torch.sort(keys, dim=1, stable=True)
-    tots = segment_totals(
-        ks, *(torch.gather(vals[..., c], 1, perm).contiguous() for c in range(3))
-    )
+    tots = segment_totals(ks, vals[..., 0], vals[..., 1], vals[..., 2], perm=perm)
     return k, ks, tots, ok, lin
 
 

@@ -121,6 +121,47 @@ def test_k8_wrapper_cpu_route_and_shape_rule():
     assert torch.equal(both[1], one)
 
 
+@pytest.mark.parametrize("m,want", [(100, (2, True)), (256, (4, True)), (512, (8, True)),
+                                    (1024, (16, True)), (2048, (16, True)), (4096, (16, True)),
+                                    (6144, (16, False)), (8192, (16, False))])
+def test_cc_layout_choices(m, want):
+    """K8's CTAs per frame on the H100 (a 16-CTA cluster at most): at most
+    ROWS_PER_CTA rows each, the adjacency words in shared memory up to
+    M = 4,096; past that they go to device memory on the largest cluster."""
+    assert tcp.cc_layout(m) == want
+    c, in_smem = want
+    assert -(-m // c) <= tcp.ROWS_PER_CTA or c == 16
+    assert tcp.fits_smem(m, c) == in_smem
+    # the row bound of the layout: words of 4,096 rows fit 16 CTAs, not 8
+    assert tcp.fits_smem(4096, 16) and not tcp.fits_smem(4096, 8)
+    assert tcp.fits_smem(1024, 1) and tcp.fits_smem(2048, 4) and not tcp.fits_smem(2048, 2)
+
+
+def test_cc_layout_raises_past_its_bound():
+    assert tcp.cc_layout(tcp.MAX_ROWS)[0] == 16
+    for m in (tcp.MAX_ROWS + 256, 0):
+        with pytest.raises(ValueError, match="rows per frame"):
+            tcp.cc_layout(m)
+
+
+@pytest.mark.parametrize("tol", [0.15, 3.0, 1e15])
+@pytest.mark.parametrize("poison", ["copies", "nonfinite"])
+def test_invalid_rows_adjacent_to_nothing(tol, poison):
+    """What K8's skipping of invalid rows and columns rests on: with
+    tol2 < 3e38, no pair that holds an invalid row passes the d2 test,
+    whatever that row holds: copies of valid points, or NaN and inf (which
+    make the centre, and so every d2, NaN)."""
+    pts, mask = _blobs(5, 256, 180)
+    inv = np.flatnonzero(~mask)
+    if poison == "copies":
+        pts[inv[:6]] = pts[np.flatnonzero(mask)[:6]]
+    else:
+        pts[inv[:3], 0] = [np.nan, np.inf, -np.inf]
+    adj = tcp.cc_adjacency_plain(_t(pts)[None], _t(mask)[None], tol)[0].numpy()
+    assert not adj[~mask].any() and not adj[:, ~mask].any()
+    assert adj[mask][:, mask].any() == (poison == "copies")
+
+
 @pytest.mark.parametrize("m", [256, 2048])
 def test_adjacency_matches_jax_on_boundary_lattice(m):
     """Any difference in the centring sum, sq or the gram would flip some

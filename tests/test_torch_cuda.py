@@ -396,18 +396,48 @@ def test_k1_k5_clusters_match_plain(dev, grid, quant):
     assert _bits(got_raw[0], plain_raw(*cpu)) and _bits(got_raw[1], got[1])
 
 
-@pytest.mark.parametrize("n", [1024, 3 * 8192])
-def test_k7_matches_plain(dev, n):
+def _device_ops(fn) -> int:
+    """Device operations (kernels, copies, memsets) of one call of fn after
+    a warm-up, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+
+
+@pytest.mark.parametrize("n", [1024, 384, 3 * 8192, 13 * 8192])
+@pytest.mark.parametrize("with_perm", [False, True])
+def test_k7_matches_plain(dev, n, with_perm):
     rng = np.random.default_rng(n)
     ks = np.sort(rng.integers(0, n // 5, (2, n)), axis=1).astype(np.int32)
     if n > 8192:
         ks[1, 8000:8400] = ks[1, 8000]                           # across a block edge
         ks[1] = np.maximum.accumulate(ks[1])
-    vals = [torch.from_numpy(rng.normal(0, 3, (2, n)).astype(np.float32)).to(dev) for _ in range(3)]
+    v = rng.normal(0, 3, (2, n, 3)).astype(np.float32)
+    v[0, n // 2, 0] = np.inf                                     # inf and signed zeros
+    v[0, ::7, 2] = -0.0
+    V = torch.from_numpy(v).to(dev)
     K = torch.from_numpy(ks).to(dev)
-    k = segsum_cuda.segment_totals(K, *vals)
-    p = segsum_cuda.segment_totals_plain(K, *vals)
+    perm = None
+    if with_perm:                                                # the channels of one (S, N, 3)
+        perm = torch.stack([torch.randperm(n, generator=torch.Generator().manual_seed(f))
+                            for f in range(2)]).to(dev)
+        vals = [V[..., c] for c in range(3)]
+    else:
+        vals = [V[..., c].contiguous() for c in range(3)]
+    n0 = segsum_cuda.segment_totals.launches
+    k = segsum_cuda.segment_totals(K, *vals, perm=perm)
+    assert segsum_cuda.segment_totals.launches == n0 + 1
+    p = segsum_cuda.segment_totals_plain(K, *vals, perm=perm)
     for a, b in zip(k, p):
+        assert _bits(a, b)
+    # one device op per call, and a second call on the same scratch agrees
+    assert _device_ops(lambda: segsum_cuda.segment_totals(K, *vals, perm=perm)) == 1
+    for a, b in zip(segsum_cuda.segment_totals(K, *vals, perm=perm), p):
         assert _bits(a, b)
 
 
@@ -498,16 +528,25 @@ def _blobs(seed, s, m, n_valid):
     return pts, mask
 
 
-@pytest.mark.parametrize("m,n_sweeps", [(256, 64), (1024, 256), (2048, 256), (1024, 5)])
-def test_k8_matches_plain(dev, m, n_sweeps):
-    pts, mask = _blobs(m + n_sweeps, 3, m, int(0.8 * m))
+def _k8_frames(dev, m, n_sweeps):
+    pts, mask = _blobs(m + n_sweeps, 4, m, int(0.8 * m))
     n = min(m, 200)                                   # frame 2: a reversed chain
     pts[2] = 50.0
     pts[2, :n, 0] = np.arange(n)[::-1] * 0.1
     mask[2] = False
     mask[2, :n] = True
     mask[1] = False                                   # frame 1: empty
-    P, M = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+    pts[3, np.flatnonzero(~mask[3])[:3], 0] = [np.nan, np.inf, -np.inf]  # 3: in invalid rows
+    return torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+
+
+@pytest.mark.parametrize("m,n_sweeps", [(256, 64), (1024, 256), (2048, 256), (1024, 5),
+                                        (4096, 64), (8192, 32)])
+def test_k8_matches_plain(dev, m, n_sweeps):
+    """At C's M = 1,024 and G's 2,048, at 4,096 (16 CTAs, the words still in
+    shared memory) and 8,192 (past it: the words in device memory), and a
+    chain cut at n_sweeps = 5."""
+    P, M = _k8_frames(dev, m, n_sweeps)
     n0 = cluster_pallas.connected_components_pallas.launches
     k, ks = cluster_pallas.connected_components_pallas(P, M, 0.15, n_sweeps, with_sweeps=True)
     p, ps = cluster_pallas.connected_components_pallas_plain(P, M, 0.15, n_sweeps,
@@ -517,7 +556,37 @@ def test_k8_matches_plain(dev, m, n_sweeps):
     a0 = cluster_pallas.cc_adjacency.launches
     adj = cluster_pallas.cc_adjacency(P, M, 0.15)
     assert cluster_pallas.cc_adjacency.launches == a0 + 1
+    assert adj.dtype == torch.bool
     assert _bits(adj, cluster_pallas.cc_adjacency_plain(P, M, 0.15))
+    if n_sweeps == 5:
+        assert ks == 5                                # the chain was cut short
+
+
+@pytest.mark.parametrize("m", [1024, 2048])
+def test_k8_every_cluster_size_matches_plain(dev, m):
+    P, M = _k8_frames(dev, m, 64)
+    p = cluster_pallas.connected_components_pallas_plain(P, M, 0.15, 64)
+    a = cluster_pallas.cc_adjacency_plain(P, M, 0.15)
+    for c in (1, 2, 4, 8, 16):
+        if c > grid_cuda.max_cluster(dev):
+            continue
+        assert _bits(cluster_pallas.connected_components_pallas(P, M, 0.15, 64, cluster=c), p), c
+        assert _bits(cluster_pallas.cc_adjacency(P, M, 0.15, cluster=c), a), c
+
+
+def test_k8_one_device_op_per_call(dev):
+    """On the point list as compact_points hands it over (strided views of
+    its (S, M + 1) buffers), each call is its kernel and nothing else."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.compact import compact_points
+
+    pts, mask = _blobs(9, 2, 1400, 1100)
+    P, M = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+    cp, cm, _ = compact_points(P, M, 1024)
+    assert not cp.is_contiguous()
+    assert _device_ops(lambda: cluster_pallas.connected_components_pallas(cp, cm, 0.15, 64)) == 1
+    assert _device_ops(lambda: cluster_pallas.cc_adjacency(cp, cm, 0.15)) == 1
+    assert _bits(cluster_pallas.connected_components_pallas(cp, cm, 0.15, 64),
+                 cluster_pallas.connected_components_pallas_plain(cp, cm, 0.15, 64))
 
 
 @pytest.mark.parametrize("n", [1000, 3 * 2048])

@@ -114,6 +114,115 @@ def test_plain_k7_matches_segment_totals_raster(n, kind, nonfinite):
         np.testing.assert_allclose(got[0].numpy()[last], tot[ks[last]], rtol=1e-4, atol=1e-3)
 
 
+@pytest.mark.parametrize(
+    "n,kind,nonfinite",
+    [(3 * 8192, "block-edges", False), (1024, "runs", False), (2 * 8192, "block-edges", True)],
+    ids=["3-blocks-edges", "N1024", "inf-and-signed-zeros"],
+)
+def test_plain_k7_with_permutation_matches_segment_totals_raster(n, kind, nonfinite):
+    """K7's plain version reading the channels of one (N, 3) array through
+    a permutation, as the runs front end hands them over, against JAX on the
+    gathered rows (with inf and -0.0: the kernel's written ops, as above)."""
+    rng = np.random.default_rng(7 * n + len(kind))
+    ks = _keys(rng, n, kind)
+    perm = rng.permutation(n)
+    rows = rng.normal(0, 3, (n, 3)).astype(np.float32)        # rows in sorted order
+    if nonfinite:
+        rows[9000, 0] = np.inf
+        rows[8191, 1] = -np.inf                   # a block's last row feeds the carry
+        rows[::7, 2] = -0.0
+    vals = np.empty_like(rows)
+    vals[perm] = rows                             # unsorted, so that vals[perm] == rows
+    if nonfinite:
+        ref = [_written_tree(ks, rows[:, c]) for c in range(3)]
+    else:
+        ref = jvp.segment_totals_raster(jnp.asarray(ks), *(jnp.asarray(rows[:, c]) for c in range(3)),
+                                        interpret=True)
+    tv = torch.from_numpy(vals)
+    got = segsum_cuda.segment_totals(torch.from_numpy(ks), tv[:, 0], tv[:, 1], tv[:, 2],
+                                     perm=torch.from_numpy(perm))
+    for g, r in zip(got, ref):
+        assert _same_bits(g.numpy(), r)
+
+
+def _k7_block_schedule(k, v):
+    """One block of K7 as csrc/segsum.cu schedules it, in numpy f32: 8 rows
+    per thread; sh = 1, 2, 4 inside each thread on its rows and the 7 before
+    them; sh = 8 m from thread t - m by shuffle (lanes >= m) or from the
+    shared array, where only the threads the kernel lets write have written
+    (the rest of it poisoned)."""
+    t_rows = len(k)
+    nt = t_rows // 8
+    c = v.reshape(nt, 8).copy()
+    with np.errstate(invalid="ignore"):
+        for t in range(nt):
+            hr = [(t * 8 - 7 + q) % t_rows for q in range(15)]
+            h = np.array([v[r] for r in hr[:7]] + list(c[t]), np.float32)
+            for sh in (1, 2, 4):
+                for q in range(14, 2 * sh - 2, -1):
+                    same = np.float32(k[hr[q - sh]] == k[hr[q]] and hr[q] >= sh)
+                    h[q] = h[q] + h[q - sh] * same
+            c[t] = h[7:]
+        sh = 8
+        while sh < t_rows:
+            m = sh // 8
+            shared = np.full((nt, 8), 1e30, np.float32)
+            for t in range(nt):
+                if m >= 32 or t % 32 >= 32 - m or t >= nt - m:
+                    shared[t] = c[t]
+            new = c.copy()
+            for t in range(nt):
+                src = (t - m) % nt
+                vals = shared[src] if (m >= 32 or t % 32 < m) else c[t - m]
+                i = t * 8 + np.arange(8)
+                same = ((k[src * 8:src * 8 + 8] == k[i]) & (i >= sh)).astype(np.float32)
+                new[t] = c[t] + vals * same
+            c = new
+            sh *= 2
+    return c.reshape(-1)
+
+
+@pytest.mark.parametrize("n,kind", [(384, "runs"), (1024, "one-run"), (3 * 8192, "block-edges")])
+def test_k7_register_schedule_rehearsed(n, kind):
+    """The kernel's pass schedule (registers, shuffles, the shared array's
+    writers) and its chained carry give the written tree bit for bit,
+    with inf and -0.0 in the values."""
+    rng = np.random.default_rng(n)
+    ks = _keys(rng, n, kind)
+    v = rng.normal(0, 3, n).astype(np.float32)
+    v[n // 3] = np.inf
+    v[::7] = -0.0
+    t = segsum_cuda.block_rows(n)
+    blocks = [_k7_block_schedule(ks[b * t:(b + 1) * t], v[b * t:(b + 1) * t])
+              for b in range(n // t)]
+    with np.errstate(invalid="ignore"):
+        for b in range(1, len(blocks)):             # the chain: b - 1's last output
+            same = (ks[b * t:(b + 1) * t] == ks[b * t - 1]).astype(np.float32)
+            blocks[b] = blocks[b] + same * blocks[b - 1][-1]
+    assert _same_bits(np.concatenate(blocks), _written_tree(ks, v))
+
+
+def test_sorted_runs_reads_through_the_permutation(monkeypatch):
+    """The runs front end hands K7 the sort's permutation and the channels
+    of one (S, N, 3) tensor (no gather), and gets the gathered rows' sums."""
+    seen = {}
+    real = tvp.segment_totals
+
+    def spy(ks, xs, ys, zs, perm=None):
+        seen["perm"], seen["base"] = perm, {c.untyped_storage().data_ptr() for c in (xs, ys, zs)}
+        return real(ks, xs, ys, zs, perm=perm)
+
+    monkeypatch.setattr(tvp, "segment_totals", spy)
+    pts, mask = _frame(21, 4096)
+    P, M = torch.from_numpy(pts)[None], torch.from_numpy(mask)[None]
+    k, ks, tots, ok, lin = tvp._sorted_runs(P, M, TScene(**SCENE), 0.1, 2.0)
+    assert seen["perm"] is not None and len(seen["base"]) == 1
+    vals = torch.where(ok[..., None], P, 0.0)
+    rows = [torch.gather(vals[..., c], 1, seen["perm"]) for c in range(3)]
+    for a, b in zip(tots, segsum_cuda.segment_totals_plain(ks, *rows)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def test_k7_wrapper_cpu_route_and_shape_checks():
     before = segsum_cuda.segment_totals.launches
     z = torch.zeros((2, 256))

@@ -30,7 +30,11 @@ of JAX, in five phases, one or more lines each:
    past it raises; K8 and K8a (one thread-block cluster per frame) on C's
    and G's point lists and at M = 8,192, past the shared-memory layout
    (the adjacency words in device memory), K7 on sorted rows and through
-   the permutation of the runs front end's own sort;
+   the permutation of the runs front end's own sort, K9 on the headline's
+   sorted rows and on one block of a ragged T = N (1,001 and 7 rows, inf
+   and -0.0 in the rows the cyclic roll wraps onto), K11 through each of
+   its routes (the points' C = 3, also at R % 4 != 0 and from a misaligned
+   frame base; C = 1; C = 5; the probes);
 4. the paths, each with every kernel's launch counter reset before and
    read after: the headline (fast digits) -- ``TrackerNode.on_pointcloud``
    answers 12 headline PointCloud2 frames and ``Tracker.bind_env_multi``
@@ -73,13 +77,14 @@ of JAX, in five phases, one or more lines each:
    (``scripts/micro_torch_digits.py``: one device operation each, fused or
    raw, beside ``Tensor.index_add_`` of their digits), K8, K8a and K7 per
    call (``scripts/micro_torch_cc_segsum.py``: one device operation each,
-   K7 also through the sort's permutation), the fleet's
+   K7 also through the sort's permutation; K9 too), the fleet's
    clouds/s and device ops per cloud beside ``bind_env_multi``, and each
    kernel against its plain version, with its
    bound (the larger of its bytes over 3.35 TB/s and its operations over
    67 TFLOP/s) and, where one PyTorch call computes the same function,
    that call's time (K6f also at configuration G's grid, S = 8, beside
-   ``torch.index_add`` there).
+   ``torch.index_add`` there; K7, K9 and K11 also with their own and their
+   library call's device time from ``torch.profiler``).
 
 Any failed phase raises (exit 1).  The line before the last is the kernel
 report (JSON); the last line is ``{"ok": true, "device": {...}}``.
@@ -712,6 +717,18 @@ def phase_kernels_pointlist(dev, report, cfg, k1_inputs):
                "the 2048-row edge; 6: one run; 7: inf and -0.0)",
                lambda: (segsum_cuda.segment_totals_rows(ks, v4),),
                lambda: (segsum_cuda.segment_totals_rows_plain(ks, v4),))
+    # one block of a ragged T = N (the TPU kernel's N < 2048): the first N
+    # sorted rows of each frame, inf and -0.0 where the cyclic roll wraps
+    for t in (1001, 7):
+        kt, vt = ks[:, :t].contiguous(), v4[:, :t].clone()
+        kt[0] = kt[0, 0]                              # frame 0: one run
+        vt[:, t - 1, 3] = float("inf")                # inf * 0 -> NaN into row 0
+        vt[:, t - 3:, 1] = -0.0
+        vt[:, :4, 2] = -0.0
+        check_pair(report, "K9", f"S=8 N={t}: one block of a ragged T = {t} (inf and -0.0 in "
+                   "the rows the roll wraps onto)",
+                   lambda: (segsum_cuda.segment_totals_rows(kt, vt),),
+                   lambda: (segsum_cuda.segment_totals_rows_plain(kt, vt),))
 
 
 def knife_edge_table(rng, c, p, dev):
@@ -818,7 +835,15 @@ def phase_kernels_slice5(dev, report, cfg, k1_inputs, table):
                      words.reshape(1, 1, 2048)),
                     ("its tiled probe, (16, 128) -> (128, 16)", words.reshape(1, 16, 128)),
                     ("partial tiles both ways, (3, 70, 27) f32 words", words[:1890].view(
-                        torch.float32).reshape(1, 70, 27).expand(3, 70, 27).contiguous())):
+                        torch.float32).reshape(1, 70, 27).expand(3, 70, 27).contiguous()),
+                    (f"S=8 R={P.shape[1] - 1} points (R % 4 = 3: a ragged last group, "
+                     "misaligned planes and frame bases)", P[:, 1:].contiguous()),
+                    ("S=2 R=5000 points from a frame base 4 bytes past 16-byte alignment",
+                     P.reshape(-1)[1:1 + 30_000].view(2, 5000, 3)),
+                    ("C=1: (4, 3001, 1) int32 words, a copy",
+                     torch.arange(12004, device=dev, dtype=torch.int32).view(4, 3001, 1) * 7919),
+                    ("C=5: (3, 1001, 5) f32 words, 32 x 32 tiles",
+                     P.reshape(-1)[:15015].view(3, 1001, 5))):
         check_pair(report, "K11", what, lambda: (transpose_cuda.transpose_words(x),),
                    lambda: (transpose_cuda.transpose_words_plain(x),))
 
@@ -1083,6 +1108,7 @@ def read_counts():
     return counts
 
 
+DEVICE_TIMED = ("K7", "K9", "K11")     # phase 5 also reads their device time
 FAST_PATH = ("K1", "K2", "K3f", "K4")   # the kernels each path must launch
 TAIL = ("K2", "K3f", "K4")
 FLEET_PATH = ("K1 raw", "K1 fin", "K2", "K3f", "K4")
@@ -2075,6 +2101,11 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
             f"min reported); bound {entry['bound_ms']:.4f} ms by {entry['bound_by']} "
             f"({moved} bytes, {ops} operations); library call "
             f"{'none' if lib is None else format(entry['library_ms'], '.4f') + ' ms'}")
+        if name in DEVICE_TIMED:
+            d_k, o_k = micro_torch_digits.device_profile(fk, 20)
+            d_l, o_l = micro_torch_digits.device_profile(lib, 20)
+            log(f"[5 timing] {smi}: {name} {shape}: device {d_k:.2f} us/call in {o_k:.1f} ops; "
+                f"library call {d_l:.2f} us/call in {o_l:.1f} ops (torch.profiler)")
     return ms_single, ms_multi
 
 
@@ -2189,7 +2220,8 @@ KERNELS = (
     ("K8a", "K8's adjacency stage alone (the same kernel body without the sweeps): the bool "
      "(M, M) matrix the jnp CC sweeps (configurations D, E, G)",
      f"{PKG}/csrc/cluster_cc.cu", "multiple_object_tracking_lidar_tpu/ops/cluster_pallas.py:96"),
-    ("K9", "segmented prefix totals over (N, 4) rows, 2048-row blocks",
+    ("K9", "segmented prefix totals over (N, 4) rows, 2048-row blocks, one launch: K7's kernel "
+     "body over 16-byte rows (the carry a chained scan; below 2048 rows one block of any N)",
      f"{PKG}/csrc/segsum.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_pallas.py:69"),
     ("K10", "the whole circumcenter per cluster slot (farthest pair, line scan, determinant)",
      f"{PKG}/csrc/circumcenter.cu", "multiple_object_tracking_lidar_tpu/ops/centroid_pallas.py:124"),
@@ -2202,8 +2234,9 @@ KERNELS = (
     ("K4 wide", "K4 on a bank grown past the TPU kernel's 128 slots (one CTA of up to 1,024 "
      "lanes; timed at K = 1,024, launched on the path at K = 256)",
      f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188"),
-    ("K11", "batched transpose of 32-bit words: the (S, N, 3) -> (S, 3, N) points K1-cm reads, "
-     "and the probes' (1, B) -> (B, 1) int32 row",
+    ("K11", "batched transpose of 32-bit words: the (S, N, 3) -> (S, 3, N) points K1-cm reads "
+     "(4-row groups, 16-byte loads and stores, no shared memory), and the probes' (1, B) -> "
+     "(B, 1) int32 row (a copy) and (16, 128) tile",
      f"{PKG}/csrc/transpose.cu", "scripts/micro_transpose.py:49"),
 )
 

@@ -69,7 +69,7 @@ SIGNATURES = {
                                _I, _P],
     "motl_segment_totals": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P,
                             _P, _I, _P],
-    "motl_segment_totals_rows": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "motl_segment_totals_rows": [_P, _P, _I, _I, _I, _P, _P, _I, _P],
     "motl_cc_adjacency": [_P, _I, _P, _I, _I, _I, _F, _I, _P, _P, _P],
     "motl_cc_labels": [_P, _I, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P],
     "motl_transpose32": [_P, _P, _I, _I, _I, _P],
@@ -139,7 +139,11 @@ def _compile_and_link(srcs: list[str], so: str) -> str:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use in this process (or reused
-    from an earlier build of the same sources)."""
+    from an earlier build of the same sources).  Once loaded it is returned
+    without taking the lock: every wrapper calls this on every launch."""
+    lib = _state.lib
+    if lib is not None:
+        return lib
     with _lock:
         if _state.lib is not None:
             return _state.lib
@@ -180,10 +184,15 @@ def stream_ptr(device) -> int:
     """PyTorch's current stream on ``device``, where every kernel launches.
     Temporaries a wrapper frees right after its launch stay safe: the
     caching allocator hands their memory only to work queued later on the
-    same stream."""
+    same stream.  Read as the raw handle (``torch._C._cuda_getCurrentRawStream``
+    of PyTorch's CUDA build, what its own generated code calls): the same
+    stream as ``torch.cuda.current_stream(device).cuda_stream`` without
+    building a ``torch.cuda.Stream`` object, ~3 us less host time per
+    launch (PERF.md §6, K11)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def byte_mask(mask):

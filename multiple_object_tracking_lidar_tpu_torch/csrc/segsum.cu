@@ -2,34 +2,36 @@
 //
 // K7 replaces the Pallas kernel multiple_object_tracking_lidar_tpu/ops/
 // voxel_pallas.py::segment_totals_raster (body _segsum_raster_kernel), the
-// segment sums of voxel_mode="runs".  Rows arrive sorted by cell key; row i
-// of the output holds the sum of its run's rows up to and including i, so
-// the last row of each run holds the run's total.
+// segment sums of voxel_mode="runs".  K9 replaces its predecessor,
+// voxel_pallas.py::segment_totals_pallas (body _segsum_kernel).  Rows
+// arrive sorted by cell key; row i of the output holds the sum of its run's
+// rows up to and including i, so the last row of each run holds the run's
+// total.
 //
-// It computes the Pallas kernel's exact float tree, so the result is
+// Both compute their Pallas kernel's exact float tree, so the result is
 // bit-identical:
-//  * per block of T = rb * 128 flat rows (rb = min(64, N / 128)), passes at
-//    sh = 1, 2, ..., T/2 of  c_i <- c_i + c_{(i-sh) mod T} * same_i  with
+//  * per block of T flat rows -- K7: T = rb * 128 (rb = min(64, N / 128));
+//    K9: T = min(2048, N), any T -- passes at sh = 1, 2, ..., < T of
+//    c_i <- c_i + c_{(i-sh) mod T} * same_i  with
 //    same_i = [k_{(i-sh) mod T} == k_i and i >= sh] as 0.0f / 1.0f: the
 //    TPU's rolls are cyclic inside the block, and the multiply-by-0/1 form
 //    (not a branch) moves signed zeros, inf and NaN as the TPU does;
 //  * for every block b > 0: out = c + [k == carry_key] * carry, over the
 //    whole block, where carry_key and carry are block b-1's last key and
-//    last OUTPUT (its own fold included) (voxel_pallas.py:295-312).
+//    last OUTPUT (its own fold included) (voxel_pallas.py:52-63, :295-312).
 //
-// What bounds it on the H100: bytes (one read of each key and value, one
-// write of each output) and, past them, latency: 13 dependent passes over a
-// block's 8,192 rows on one SM, and a chain of N / T blocks per frame.  On
-// the H100 the ten passes through shared memory take about 18 of the ~31 us
-// a block needs, and the random reads through the permutation 12-18 us more
-// (PERF.md, K7's row).  Design, one launch per call:
+// What bounds them on the H100: bytes (one read of each key and value, one
+// write of each output) and, past them, latency: log2(T) dependent passes
+// over a block on one SM, and a chain of N / T blocks per frame.  Design,
+// one kernel body (seg_chain_kernel), one launch per call; the two
+// instantiations differ only in how a block's rows are read and written
+// (the layouts below) and in the number of channels:
 //  * each thread holds 8 consecutive rows in registers; the passes at
 //    sh = 1, 2, 4 run inside the thread on its rows and the 7 before them
 //    (read from shared memory once, recomputed redundantly), so they need
 //    no barrier; a pass at sh = 8m moves values by m threads: by warp
 //    shuffle from the lanes >= m, through a double-buffered shared array
-//    from the rest (one __syncthreads per pass, 10 at T = 8,192 where the
-//    two-launch design before it took 26); shared memory is read and
+//    from the rest (one __syncthreads per pass); shared memory is read and
 //    written 16 bytes at a time;
 //  * the carry chain runs in the same launch as a chained scan with
 //    look-back: blocks take logical ids from an atomic ticket (so every
@@ -37,129 +39,34 @@
 //    frame's last publishes its (last key, last local prefix) as soon as its
 //    passes end; block b waits for those of blocks 0 .. b-1 and walks the
 //    recurrence cv <- last_j + [k_j == key] * cv from block 0 itself --
-//    today's ops in today's order -- then folds; no block waits on another's
-//    fold, so the chain costs one round trip, not b;
-//  * the values are read through the sort's permutation (vals[perm[i]]),
-//    so the caller gathers nothing;
+//    the Pallas kernel's ops in its order -- then folds; no block waits on
+//    another's fold, so the chain costs one round trip, not b;
 //  * the ticket, the done count and the flags live in a small scratch the
-//    wrapper zeroes once per (device, stream); the last block out clears
-//    them, so the next launch on the stream finds them zero.
+//    wrapper zeroes once per (device, stream) and shares between K7 and K9;
+//    the last block out clears them, so the next launch on the stream finds
+//    them zero.
+// K7 (Planar3): 1,024 threads, T <= 8,192; the three channels read through
+// the sort's permutation (vals[perm[i]]), so the caller gathers nothing.
+// On the H100 the ten passes through shared memory take about 18 of the
+// ~31 us a block needs, and the random reads through the permutation 12-18
+// us more (PERF.md, K7's row).
+// K9 (Rows4): one (S, N, 4) array, each row one 16-byte load and one
+// 16-byte store, a thread's 8 loads in flight together; 256 threads for
+// T = 2,048 (8 passes through shared memory, 73.7 KB of it; two blocks per
+// SM, by registers).  Below 2,048 rows a frame is one block of T = N rows,
+// any N: shared memory is laid out at a pitch of T rounded up to 8 (the
+// last thread holds T mod 8 rows), and the rows that the cyclic roll wraps
+// onto are read at their true index.
 // Every f32 op is __fmul_rn / __fadd_rn.
-//
-// K9 replaces the Pallas kernel multiple_object_tracking_lidar_tpu/ops/
-// voxel_pallas.py::segment_totals_pallas (body _segsum_kernel), K7's
-// predecessor: the same tree over flat blocks of T = min(2048, N) rows
-// (any T), with the 4 channels of one (N, 4) array.  It keeps the design
-// K7 had before: one CTA per block with the passes in shared memory
-// (40 KB at T = 2,048), then the carry chain as a second launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kMaxPerThread = 8;  // T <= 8,192 = 8 * 1024
-
-// Channel c of row r of frame s sits at base[c] + (s * n + r) * stride:
-// K7 passes its three arrays with stride 1, K9 one (S, N, 4) array as four
-// bases one float apart with stride 4.
-template <int NC>
-struct Chans {
-  const float* in[NC];
-  float* out[NC];
-  int stride;
-};
-
-template <int NC>
-__global__ void __launch_bounds__(kThreads) seg_block_kernel(const int* __restrict__ ks,
-                                                             Chans<NC> ch, int n, int T,
-                                                             int* __restrict__ last_key,
-                                                             float* __restrict__ last_val) {
-  extern __shared__ unsigned char smem[];
-  int* K = reinterpret_cast<int*>(smem);
-  float* C = reinterpret_cast<float*>(K + T);  // (NC, T)
-  const int s = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
-  const size_t base = (size_t)s * n + (size_t)b * T;
-  for (int i = threadIdx.x; i < T; i += kThreads) {
-    K[i] = ks[base + i];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) C[c * T + i] = ch.in[c][(base + i) * ch.stride];
-  }
-  __syncthreads();
-  for (int sh = 1; sh < T; sh <<= 1) {
-    float nv[NC][kMaxPerThread];
-#pragma unroll
-    for (int e = 0; e < kMaxPerThread; ++e) {
-      const int i = threadIdx.x + e * kThreads;
-      if (i < T) {
-        const int j = (i - sh + T) % T;  // the cyclic roll
-        const float same = (K[j] == K[i] && i >= sh) ? 1.0f : 0.0f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-          nv[c][e] = __fadd_rn(C[c * T + i], __fmul_rn(C[c * T + j], same));
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < kMaxPerThread; ++e) {
-      const int i = threadIdx.x + e * kThreads;
-      if (i < T) {
-#pragma unroll
-        for (int c = 0; c < NC; ++c) C[c * T + i] = nv[c][e];
-      }
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < T; i += kThreads) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) ch.out[c][(base + i) * ch.stride] = C[c * T + i];
-  }
-  if (threadIdx.x == 0) {
-    const size_t sb = (size_t)s * nb + b;
-    last_key[sb] = K[T - 1];
-    for (int c = 0; c < NC; ++c) last_val[NC * sb + c] = C[c * T + T - 1];
-  }
-}
-
-template <int NC>
-__global__ void seg_carry_kernel(const int* __restrict__ ks, Chans<NC> ch, int n, int T,
-                                 const int* __restrict__ last_key,
-                                 const float* __restrict__ last_val) {
-  __shared__ int ck;
-  __shared__ float carry[NC];
-  const int s = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
-  if (b == 0) return;  // block 0 keeps its prefixes
-  if (threadIdx.x == 0) {
-    // carry into block 1 = block 0's last output = its last prefix
-    const size_t s0 = (size_t)s * nb;
-    int key = last_key[s0];
-    float cv[NC];
-    for (int c = 0; c < NC; ++c) cv[c] = last_val[NC * s0 + c];
-    for (int bb = 1; bb < b; ++bb) {  // block bb's last output
-      const size_t sb = s0 + bb;
-      const float m = last_key[sb] == key ? 1.0f : 0.0f;
-      for (int c = 0; c < NC; ++c) cv[c] = __fadd_rn(last_val[NC * sb + c], __fmul_rn(m, cv[c]));
-      key = last_key[sb];
-    }
-    ck = key;
-    for (int c = 0; c < NC; ++c) carry[c] = cv[c];
-  }
-  __syncthreads();
-  const size_t base = (size_t)s * n + (size_t)b * T;
-  for (int i = threadIdx.x; i < T; i += blockDim.x) {
-    const float m = ks[base + i] == ck ? 1.0f : 0.0f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      float* o = ch.out[c] + (base + i) * ch.stride;
-      *o = __fadd_rn(*o, __fmul_rn(m, carry[c]));
-    }
-  }
-}
-
-constexpr int kRows = 8;   // K7: consecutive rows per thread
+constexpr int kRows = 8;   // consecutive rows per thread
 constexpr int kHalo = 7;   // rows before a thread's first that sh = 1, 2, 4 reach
-constexpr int kMaxRowsK7 = kRows * kThreads;
+constexpr int kRecordWords = 5;  // a published block: key + up to 4 channels
 
 // Raises a kernel's dynamic shared-memory limit once per process and device,
 // not on every call.
@@ -190,77 +97,195 @@ __device__ __forceinline__ void load8(const int* p, int o, int (&v)[kRows]) {
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w; v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-// K7.  Channel c of sorted row r of frame s is vc[(s * n + p) * vstride],
-// p = perm[s * n + r] (a row index within the frame), or p = r without a
-// permutation.  chain: [ticket, done, flag[cap], (key, v0, v1, v2)[cap]].
-__global__ void __launch_bounds__(kThreads)
-seg_chain_kernel(const int* __restrict__ ks, const float* __restrict__ v0,
-                 const float* __restrict__ v1, const float* __restrict__ v2, int vstride,
-                 const int64_t* __restrict__ perm, int n, int T, int nb,
-                 float* __restrict__ o0, float* __restrict__ o1, float* __restrict__ o2,
-                 unsigned* chain, int cap) {
+// The block row that position q of thread t's window holds (q < 7: the
+// rows before its first, cyclic: thread 0's wrap to the block's end, which
+// a block of fewer than 7 rows wraps more than once).
+__device__ __forceinline__ int window_row(int t, int q, int T) {
+  const int r = t * kRows - kHalo + q;
+  return r >= 0 ? r : (r % T + T) % T;
+}
+
+// K7's rows: channel ch of sorted row r of frame s is
+// v[ch][(s * n + p) * vstride], p = perm[s * n + r] (a row of the frame),
+// or p = r without a permutation; outputs three (S, N) planes.
+struct Planar3 {
+  static constexpr int NC = 3;
+  static constexpr int kThreads = 1024;
+  static constexpr int kMinBlocks = 1;
+  static constexpr bool kRagged = false;  // T % 128 == 0
+  const float* v0;
+  const float* v1;
+  const float* v2;
+  int vstride;
+  const int64_t* perm;
+  float* o0;
+  float* o1;
+  float* o2;
+
+  // the block's rows, coalesced (row i by thread i mod blockDim), into
+  // shared memory: keys K[i], channel ch at buf[ch * Tp + i]
+  __device__ void load(const int* __restrict__ ks, int* K, float* buf, size_t frame,
+                       size_t base, int b, int T, int Tp) const {
+    const float* vin[3] = {v0, v1, v2};
+    for (int i = threadIdx.x; i < T; i += blockDim.x) {
+      const size_t p = frame + (perm ? (size_t)perm[base + i] : (size_t)(b * T + i));
+      K[i] = ks[base + i];
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) buf[ch * Tp + i] = vin[ch][p * vstride];
+    }
+  }
+  // the outputs from shared memory, coalesced, 16 bytes a thread
+  __device__ void store(const float* buf, size_t base, int T, int Tp) const {
+    float* out[3] = {o0, o1, o2};
+    for (int q = threadIdx.x; q < 3 * (T / 4); q += blockDim.x) {
+      const int ch = q / (T / 4), r = 4 * (q - ch * (T / 4));
+      *reinterpret_cast<float4*>(out[ch] + base + r) =
+          *reinterpret_cast<const float4*>(buf + ch * Tp + r);
+    }
+  }
+};
+
+// K9's rows: row r of frame s is the 4 floats at v + 4 (s * n + r), read
+// as one 16-byte load where v is 16-byte aligned; the output likewise.
+struct Rows4 {
+  static constexpr int NC = 4;
+  static constexpr int kThreads = 256;
+  static constexpr int kMinBlocks = 2;   // up to 128 registers: no spills
+  static constexpr bool kRagged = true;   // T = N < 2,048 may be any size
+  const float* v;
+  float* o;  // 16-byte aligned
+
+  // row i by thread i mod blockDim, all 8 of a thread's loads in flight
+  // (blockDim >= Tp / 8); rows T .. Tp - 1 (the last thread's missing
+  // rows) are zero: read by nothing, but defined
+  __device__ void load(const int* __restrict__ ks, int* K, float* buf, size_t frame,
+                       size_t base, int b, int T, int Tp) const {
+    const bool vec = ((uintptr_t)v & 15) == 0;
+    float4 a[kRows];
+    int key[kRows];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int i = threadIdx.x + j * blockDim.x;
+      a[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      key[j] = 0;
+      if (i < T) {
+        const float* p = v + 4 * (base + i);
+        key[j] = ks[base + i];
+        a[j] = vec ? *reinterpret_cast<const float4*>(p) : make_float4(p[0], p[1], p[2], p[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int i = threadIdx.x + j * blockDim.x;
+      if (i < Tp) {
+        K[i] = key[j];
+        buf[i] = a[j].x;
+        buf[Tp + i] = a[j].y;
+        buf[2 * Tp + i] = a[j].z;
+        buf[3 * Tp + i] = a[j].w;
+      }
+    }
+  }
+  __device__ void store(const float* buf, size_t base, int T, int Tp) const {
+    for (int i = threadIdx.x; i < T; i += blockDim.x)
+      reinterpret_cast<float4*>(o)[base + i] =
+          make_float4(buf[i], buf[Tp + i], buf[2 * Tp + i], buf[3 * Tp + i]);
+  }
+};
+
+// One block of T rows of one frame per CTA, in ticket order.  Shared
+// memory: keys [Tp], then two buffers of [NC][Tp] floats, Tp = T rounded up
+// to 8.  chain: [ticket, done, flag[cap], record[kRecordWords * cap]], a
+// record (last key, last local prefix of each channel).
+template <class L>
+__global__ void __launch_bounds__(L::kThreads, L::kMinBlocks)
+seg_chain_kernel(const int* __restrict__ ks, L lay, int n, int T, int nb, unsigned* chain,
+                 int cap) {
+  constexpr int NC = L::NC;
+  const int Tp = (T + kRows - 1) / kRows * kRows;
   extern __shared__ __align__(16) unsigned char smem[];
-  int* K = reinterpret_cast<int*>(smem);            // [T] keys
-  float* buf0 = reinterpret_cast<float*>(K + T);    // [3][T]
-  float* buf1 = buf0 + 3 * T;                       // [3][T]
+  int* K = reinterpret_cast<int*>(smem);            // [Tp] keys
+  float* buf0 = reinterpret_cast<float*>(K + Tp);   // [NC][Tp]
+  float* buf1 = buf0 + NC * Tp;                     // [NC][Tp]
   __shared__ unsigned s_ticket;
   __shared__ int s_ck;
-  __shared__ float s_carry[3];
+  __shared__ float s_carry[NC];
   if (threadIdx.x == 0) s_ticket = atomicAdd(&chain[0], 1u);
   __syncthreads();
   const unsigned tk = s_ticket;
   const int s = (int)(tk / (unsigned)nb), b = (int)(tk % (unsigned)nb);
   const size_t frame = (size_t)s * n;
   const size_t base = frame + (size_t)b * T;
-  const int nt = T / kRows;  // threads that hold rows
+  const int nt = Tp / kRows;  // threads that hold rows (the last T - 8 (nt - 1) of them)
   const int t = threadIdx.x, lane = t & 31;
   const bool act = t < nt;
-  const float* vin[3] = {v0, v1, v2};
   unsigned* flag = chain + 2;
   unsigned* pub = chain + 2 + cap;
-  // the block's rows, read coalesced (row i by thread i mod blockDim) into
-  // shared memory, then 8 consecutive rows per thread into registers
-  for (int i = t; i < T; i += blockDim.x) {
-    const size_t p = frame + (perm ? (size_t)perm[base + i] : (size_t)(b * T + i));
-    K[i] = ks[base + i];
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) buf0[ch * T + i] = vin[ch][p * vstride];
-  }
+  lay.load(ks, K, buf0, frame, base, b, T, Tp);
   __syncthreads();
-  float c[3][kRows];
+  float c[NC][kRows];
   int k[kRows];
   if (act) {
     load8(K, t, k);
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) load8(buf0 + ch * T, t, c[ch]);
+    for (int ch = 0; ch < NC; ++ch) load8(buf0 + ch * Tp, t, c[ch]);
   }
 
   // sh = 1, 2, 4 on the thread's rows and the 7 before them (the previous
-  // thread's last 7, cyclic): position q holds row (8 t - 7 + q) mod T;
+  // thread's last 7, cyclic): position q holds row window_row(t, q);
   // sh = 1 updates q >= 1, sh = 2 q >= 3, sh = 4 q >= 7 -- each from values
-  // the pass before made right
+  // the pass before made right.  [row >= sh] holds in every thread but 0,
+  // whose own rows are q - 7 and whose wrapped rows' tests are bit
+  // 7 p + q of wrapped (sh = 2^p).  Thread 0 of a block whose T is not a
+  // multiple of 8 reads its window's wrapped rows one by one.
   if (act) {
+    const bool whole = !L::kRagged || t > 0 || T % kRows == 0;
     const int prev = (t == 0 ? nt : t) - 1;
+    unsigned wrapped = 0u;
+#pragma unroll
+    for (int q = 0; q < kHalo; ++q) {
+      const int row = window_row(0, q, T);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) wrapped |= (row >= (1 << p) ? 1u : 0u) << (kHalo * p + q);
+    }
+    const bool later = t > 0;
     int hk[kHalo + kRows];
-    {
+    if (whole) {
       int pk[kRows];
       load8(K, prev, pk);
 #pragma unroll
-      for (int q = 0; q < kHalo + kRows; ++q) hk[q] = q < kHalo ? pk[q + 1] : k[q - kHalo];
+      for (int q = 0; q < kHalo; ++q) hk[q] = pk[q + 1];
+    } else {
+#pragma unroll
+      for (int q = 0; q < kHalo; ++q) hk[q] = K[window_row(t, q, T)];
     }
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      float h[kHalo + kRows], pv[kRows];
-      load8(buf0 + ch * T, prev, pv);
+    for (int q = kHalo; q < kHalo + kRows; ++q) hk[q] = k[q - kHalo];
 #pragma unroll
-      for (int q = 0; q < kHalo + kRows; ++q) h[q] = q < kHalo ? pv[q + 1] : c[ch][q - kHalo];
+    for (int ch = 0; ch < NC; ++ch) {
+      float h[kHalo + kRows];
+      if (whole) {
+        float pv[kRows];
+        load8(buf0 + ch * Tp, prev, pv);
 #pragma unroll
-      for (int sh = 1; sh <= 4; sh <<= 1) {
+        for (int q = 0; q < kHalo; ++q) h[q] = pv[q + 1];
+      } else {
 #pragma unroll
-        for (int q = kHalo + kRows - 1; q >= 2 * sh - 1; --q) {  // descending: reads the old h[q - sh]
-          const int row = (t * kRows - kHalo + q + T) % T;
-          const float same = (hk[q - sh] == hk[q] && row >= sh) ? 1.0f : 0.0f;
-          h[q] = __fadd_rn(h[q], __fmul_rn(h[q - sh], same));
+        for (int q = 0; q < kHalo; ++q) h[q] = buf0[ch * Tp + window_row(t, q, T)];
+      }
+#pragma unroll
+      for (int q = kHalo; q < kHalo + kRows; ++q) h[q] = c[ch][q - kHalo];
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        const int sh = 1 << p;
+        if (!L::kRagged || sh < T) {
+#pragma unroll
+          for (int q = kHalo + kRows - 1; q >= 2 * sh - 1; --q) {  // descending: reads the old h[q - sh]
+            const bool ge = later || (q >= kHalo ? q - kHalo >= sh
+                                                 : ((wrapped >> (kHalo * p + q)) & 1u) != 0u);
+            const float same = (hk[q - sh] == hk[q] && ge) ? 1.0f : 0.0f;
+            h[q] = __fadd_rn(h[q], __fmul_rn(h[q - sh], same));
+          }
         }
       }
 #pragma unroll
@@ -268,18 +293,24 @@ seg_chain_kernel(const int* __restrict__ ks, const float* __restrict__ v0,
     }
   }
 
-  // sh = 8 m: row i reads row i - 8m, the same slot of thread (t - m) mod nt
+  // sh = 8 m: row i reads row i - 8m, the same slot of thread t - m; rows
+  // i < sh (threads t < m) read row i - sh + T, the wrapped row (times 0),
+  // the same slot of thread t - m + nt when T % 8 == 0
   int pass = 0;
   for (int sh = kRows; sh < T; sh <<= 1, ++pass) {
     const int m = sh / kRows;
     float* W = (pass & 1) ? buf0 : buf1;  // buf0's last readers passed the barrier before
     const bool from_smem = m >= 32 || lane < m;
-    if (act && (m >= 32 || lane >= 32 - m || t >= nt - m)) {
+    // written for the lanes < m of the next warp, for every thread when
+    // m >= 32, and the rows T - sh .. T - 1 that the wrap reads
+    if (act && (m >= 32 || lane >= 32 - m || (t + 1) * kRows > T - sh)) {
 #pragma unroll
-      for (int ch = 0; ch < 3; ++ch) store8(W + ch * T, t, c[ch]);
+      for (int ch = 0; ch < NC; ++ch) store8(W + ch * Tp, t, c[ch]);
     }
     __syncthreads();
-    const int src = t - m < 0 ? t - m + nt : t - m;
+    const bool wrap = t < m;
+    const bool wrap_whole = !L::kRagged || T % kRows == 0;
+    const int src = wrap ? t - m + nt : t - m;
     float same[kRows];
     if (act) {
       int sk[kRows];
@@ -289,14 +320,21 @@ seg_chain_kernel(const int* __restrict__ ks, const float* __restrict__ v0,
         same[e] = (sk[e] == k[e] && t * kRows + e >= sh) ? 1.0f : 0.0f;
     }
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
+    for (int ch = 0; ch < NC; ++ch) {
       float v[kRows];
       if (m < 32) {  // uniform over the block: shuffles only where a lane can source one
 #pragma unroll
         for (int e = 0; e < kRows; ++e) v[e] = __shfl_up_sync(0xffffffffu, c[ch][e], m);
       }
       if (act) {
-        if (from_smem) load8(W + ch * T, src, v);
+        if (from_smem) {
+          if (!wrap || wrap_whole) {
+            load8(W + ch * Tp, src, v);
+          } else {
+#pragma unroll
+            for (int e = 0; e < kRows; ++e) v[e] = W[ch * Tp + T - sh + t * kRows + e];
+          }
+        }
 #pragma unroll
         for (int e = 0; e < kRows; ++e) c[ch][e] = __fadd_rn(c[ch][e], __fmul_rn(v[e], same[e]));
       }
@@ -305,12 +343,14 @@ seg_chain_kernel(const int* __restrict__ ks, const float* __restrict__ v0,
 
   // the carry: every block but the frame's last publishes its own (last
   // key, last local prefix) at once; block b waits for those of blocks
-  // 0 .. b-1 (one thread each) and walks the recurrence from block 0
+  // 0 .. b-1 (one thread each) and walks the recurrence from block 0.
+  // A frame of more than one block has T % 8 == 0: its last row is slot 7
+  // of thread nt - 1.
   if (t == nt - 1 && b < nb - 1) {
-    volatile unsigned* mine = pub + 4 * (size_t)tk;
+    volatile unsigned* mine = pub + kRecordWords * (size_t)tk;
     mine[0] = (unsigned)k[kRows - 1];
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) mine[1 + ch] = __float_as_uint(c[ch][kRows - 1]);
+    for (int ch = 0; ch < NC; ++ch) mine[1 + ch] = __float_as_uint(c[ch][kRows - 1]);
     __threadfence();
     atomicExch(&flag[tk], 1u);
   }
@@ -323,28 +363,29 @@ seg_chain_kernel(const int* __restrict__ ks, const float* __restrict__ v0,
       while (*(volatile unsigned*)&flag[q] == 0u) {
       }
       __threadfence();
-      const volatile unsigned* pv = pub + 4 * (size_t)q;
+      const volatile unsigned* pv = pub + kRecordWords * (size_t)q;
       lk[j] = (int)pv[0];
-      for (int ch = 0; ch < 3; ++ch) lv[3 * j + ch] = __uint_as_float(pv[1 + ch]);
+      for (int ch = 0; ch < NC; ++ch) lv[NC * j + ch] = __uint_as_float(pv[1 + ch]);
     }
     __syncthreads();
     if (t == 0) {
       int key = lk[0];
-      float cv[3] = {lv[0], lv[1], lv[2]};
+      float cv[NC];
+      for (int ch = 0; ch < NC; ++ch) cv[ch] = lv[ch];
       for (int j = 1; j < b; ++j) {  // block j's last output
         const float mk = lk[j] == key ? 1.0f : 0.0f;
-        for (int ch = 0; ch < 3; ++ch) cv[ch] = __fadd_rn(lv[3 * j + ch], __fmul_rn(mk, cv[ch]));
+        for (int ch = 0; ch < NC; ++ch) cv[ch] = __fadd_rn(lv[NC * j + ch], __fmul_rn(mk, cv[ch]));
         key = lk[j];
       }
       s_ck = key;
-      for (int ch = 0; ch < 3; ++ch) s_carry[ch] = cv[ch];
+      for (int ch = 0; ch < NC; ++ch) s_carry[ch] = cv[ch];
     }
   }
   __syncthreads();  // also: every reader of buf1 is done
   if (act) {
     const int ck = b > 0 ? s_ck : 0;
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
+    for (int ch = 0; ch < NC; ++ch) {
       if (b > 0) {
         const float cv = s_carry[ch];
 #pragma unroll
@@ -353,18 +394,11 @@ seg_chain_kernel(const int* __restrict__ ks, const float* __restrict__ v0,
           c[ch][e] = __fadd_rn(c[ch][e], __fmul_rn(mk, cv));
         }
       }
-      store8(buf1 + ch * T, t, c[ch]);
+      store8(buf1 + ch * Tp, t, c[ch]);
     }
   }
   __syncthreads();
-  {  // the outputs, written coalesced, 16 bytes a thread
-    float* out[3] = {o0, o1, o2};
-    for (int q = t; q < 3 * (T / 4); q += blockDim.x) {
-      const int ch = q / (T / 4), r = 4 * (q - ch * (T / 4));
-      *reinterpret_cast<float4*>(out[ch] + base + r) =
-          *reinterpret_cast<const float4*>(buf1 + ch * T + r);
-    }
-  }
+  lay.store(buf1, base, T, Tp);
   // the last block out clears the flags, the ticket and the done count for
   // the next launch on this stream: every reader of a flag is done by now
   if (t == 0) {
@@ -378,21 +412,21 @@ seg_chain_kernel(const int* __restrict__ ks, const float* __restrict__ v0,
   }
 }
 
-size_t g_k7_smem[16], g_k9_block_smem[16];
+size_t g_k7_smem[16], g_k9_smem[16];
 
-// K9: the passes of each block in shared memory, then the carry chain as a
-// second launch.
-int launch_rows(const int* ks, Chans<4> ch, int S, int N, int T, int* last_key,
-                float* last_val, cudaStream_t st) {
-  if (T <= 0 || T > kThreads * kMaxPerThread || N % T != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)T * 5 * sizeof(float);
-  cudaError_t err = allow_smem(seg_block_kernel<4>, smem, g_k9_block_smem);
+template <class L>
+int launch_chain(const int* ks, const L& lay, int S, int N, int T, unsigned* chain, int cap,
+                 size_t (&smem_set)[16], cudaStream_t st) {
+  constexpr int NC = L::NC;
+  const int Tp = (T + kRows - 1) / kRows * kRows;
+  const int nb = N / T;
+  // the look-back's summaries of blocks 0 .. nb-2 fit in one channel buffer
+  if ((long long)(nb - 1) * (1 + NC) > (long long)NC * Tp) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)Tp * (1 + 2 * NC) * sizeof(float);
+  cudaError_t err = allow_smem(seg_chain_kernel<L>, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N / T, S);
-  seg_block_kernel<4><<<grid, kThreads, smem, st>>>(ks, ch, N, T, last_key, last_val);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  seg_carry_kernel<4><<<grid, 256, 0, st>>>(ks, ch, N, T, last_key, last_val);
+  const int threads = (Tp / kRows + 31) / 32 * 32;
+  seg_chain_kernel<L><<<S * nb, threads, smem, st>>>(ks, lay, N, T, nb, chain, cap);
   return (int)cudaGetLastError();
 }
 
@@ -402,31 +436,27 @@ int launch_rows(const int* ks, Chans<4> ch, int S, int N, int T, int* last_key,
 // vc[(s * N + p) * vstride] with p = perm[s * N + r] (i64, a row of the
 // frame) or p = r when perm is null; N % T == 0, T % 128 == 0, T <= 8192.
 // Outputs ox, oy, oz (S, N) f32 (16-byte aligned).  chain: u32 scratch of
-// 2 + 5 * cap words, zero before the first launch on a stream and left zero
-// by every launch; cap >= S * N / T.
+// 2 + 6 * cap words, zero before the first launch on a stream and left
+// zero by every launch; cap >= S * N / T.
 extern "C" int motl_segment_totals(const int* ks, const float* xs, const float* ys,
                                    const float* zs, int vstride, const int64_t* perm, int S,
                                    int N, int T, float* ox, float* oy, float* oz,
                                    unsigned* chain, int cap, void* stream) {
-  if (S < 1 || T <= 0 || T % 128 != 0 || T > kMaxRowsK7 || N % T != 0 || vstride < 1 ||
-      (long long)S * (N / T) > cap)
+  if (S < 1 || T <= 0 || T % 128 != 0 || T > kRows * Planar3::kThreads || N % T != 0 ||
+      vstride < 1 || (long long)S * (N / T) > cap)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)T * 7 * sizeof(float);
-  cudaError_t err = allow_smem(seg_chain_kernel, smem, g_k7_smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nb = N / T;
-  const int threads = ((T / kRows) + 31) / 32 * 32;
-  seg_chain_kernel<<<S * nb, threads, smem, (cudaStream_t)stream>>>(
-      ks, xs, ys, zs, vstride, perm, N, T, nb, ox, oy, oz, chain, cap);
-  return (int)cudaGetLastError();
+  const Planar3 lay{xs, ys, zs, vstride, perm, ox, oy, oz};
+  return launch_chain(ks, lay, S, N, T, chain, cap, g_k7_smem, (cudaStream_t)stream);
 }
 
-// K9.  ks (S, N) i32 sorted per row; vals (S, N, 4) f32; N % T == 0,
-// T <= 8192.  Output out (S, N, 4) f32; scratch last_key (S, N/T) i32 and
-// last_val (S, N/T, 4) f32.
+// K9.  ks (S, N) i32 sorted per row; vals (S, N, 4) f32; T = min(2048, N),
+// N % T == 0.  Output out (S, N, 4) f32 (16-byte aligned).  chain: K7's
+// scratch.
 extern "C" int motl_segment_totals_rows(const int* ks, const float* vals, int S, int N, int T,
-                                        float* out, int* last_key, float* last_val,
-                                        void* stream) {
-  Chans<4> ch{{vals, vals + 1, vals + 2, vals + 3}, {out, out + 1, out + 2, out + 3}, 4};
-  return launch_rows(ks, ch, S, N, T, last_key, last_val, (cudaStream_t)stream);
+                                        float* out, unsigned* chain, int cap, void* stream) {
+  if (S < 1 || T <= 0 || T > kRows * Rows4::kThreads || N % T != 0 ||
+      (T % kRows != 0 && N != T) || (long long)S * (N / T) > cap)
+    return (int)cudaErrorInvalidValue;
+  const Rows4 lay{vals, out};
+  return launch_chain(ks, lay, S, N, T, chain, cap, g_k9_smem, (cudaStream_t)stream);
 }

@@ -14,10 +14,12 @@ and last output.  It reads the values through the sort's permutation
 (``perm``), so the runs front end gathers nothing.
 
 K9 replaces K7's predecessor, ``voxel_pallas.py::segment_totals_pallas``,
-with the same tree over flat blocks of T = min(2048, N) rows and the four
-channels of one (N, 4) array (``segment_totals_rows``); it keeps the
-two-launch design (passes in shared memory, then the carry).  No path of
-the JAX package reaches it.
+with the same tree over flat blocks of T = min(2048, N) rows (any N below
+2,048: one block of N rows) and the four channels of one (N, 4) array
+(``segment_totals_rows``).  It is the second instantiation of K7's kernel
+body: one launch per call, each row one 16-byte load and store, the carry
+the same chained scan over the same per-stream scratch.  No path of the
+JAX package reaches it.
 
 ``segment_totals`` / ``segment_totals_rows`` launch the kernel for CUDA
 tensors and run ``segment_totals_plain`` / ``segment_totals_rows_plain``
@@ -79,21 +81,23 @@ def segment_totals_plain(ks, xs, ys, zs, perm=None):
     return _tree_plain(ks, chans, block_rows(ks.shape[-1]))
 
 
-_CHAIN: dict = {}   # (device, stream) -> K7's chained-scan scratch
+_CHAIN: dict = {}   # (device, stream) -> K7's and K9's chained-scan scratch
+_BLOCK_WORDS = 6    # per block: its flag, then (last key, up to 4 channels)
 
 
-def _chain_scratch(device, stream: int, blocks: int) -> torch.Tensor:
-    """K7's ticket, done count, flags and published carries for launches on
-    ``stream``: zeroed once (and again only when a call needs more blocks
-    than it holds); every launch leaves it zero."""
+def _chain_scratch(device, stream: int, blocks: int) -> tuple[torch.Tensor, int]:
+    """(scratch, cap): the ticket, done count, flags and published carries
+    of K7's and K9's launches on ``stream``, for up to ``cap`` blocks per
+    launch: zeroed once (and again only when a call needs more blocks than
+    it holds); every launch leaves it zero."""
     key = (device, stream)
     buf = _CHAIN.get(key)
-    cap = 0 if buf is None else (buf.numel() - 2) // 5
+    cap = 0 if buf is None else (buf.numel() - 2) // _BLOCK_WORDS
     if cap < blocks:
         cap = max(blocks, 2 * cap, 64)
-        buf = torch.zeros(2 + 5 * cap, dtype=torch.int32, device=device)
+        buf = torch.zeros(2 + _BLOCK_WORDS * cap, dtype=torch.int32, device=device)
         _CHAIN[key] = buf
-    return buf
+    return buf, cap
 
 
 def _channel_stride(chans, n: int):
@@ -140,10 +144,10 @@ def segment_totals(
     perm_ptr = None if perm is None else perm.contiguous().data_ptr()
     outs = [torch.empty(shape, dtype=torch.float32, device=ks.device) for _ in range(3)]
     stream = _build.stream_ptr(ks.device)
-    chain = _chain_scratch(ks.device, stream, s * (n // t))
+    chain, cap = _chain_scratch(ks.device, stream, s * (n // t))
     err = _build.load().motl_segment_totals(
         ks_c.data_ptr(), *(c.data_ptr() for c in chans), st, perm_ptr, s, n, t,
-        *(o.data_ptr() for o in outs), chain.data_ptr(), (chain.numel() - 2) // 5, stream,
+        *(o.data_ptr() for o in outs), chain.data_ptr(), cap, stream,
     )
     _build.check(err, "motl_segment_totals")
     segment_totals.launches += 1
@@ -159,6 +163,11 @@ def row_block(n: int) -> int:
     if n % t != 0:
         raise ValueError(f"N must be a multiple of {t}, got {n}")
     return t
+
+
+# K9's look-back keeps the (last key, 4 channels) of a frame's blocks
+# 0 .. nb-2 in one of its 4 x 2,048-float channel buffers
+K9_MAX_ROWS = (1 + 4 * ROW_BLOCK // 5) * ROW_BLOCK
 
 
 def segment_totals_rows_plain(ks, vals):
@@ -183,14 +192,16 @@ def segment_totals_rows(
         raise ValueError(f"ks must be (N,) or (S, N) int32, got {tuple(shape)} {ks.dtype}")
     if vals.shape != shape + (4,) or vals.dtype != torch.float32 or vals.device != ks.device:
         raise ValueError(f"vals must be float32 {tuple(shape) + (4,)} on ks's device")
+    if n > K9_MAX_ROWS:
+        raise ValueError(f"K9 holds N <= {K9_MAX_ROWS} rows per frame, got {n}")
     s = ks.numel() // n
     ks_c, vals_c = ks.contiguous(), vals.contiguous()
     out = torch.empty(vals.shape, dtype=torch.float32, device=ks.device)
-    last_key = torch.empty((s, n // t), dtype=torch.int32, device=ks.device)
-    last_val = torch.empty((s, n // t, 4), dtype=torch.float32, device=ks.device)
+    stream = _build.stream_ptr(ks.device)
+    chain, cap = _chain_scratch(ks.device, stream, s * (n // t))
     err = _build.load().motl_segment_totals_rows(
-        ks_c.data_ptr(), vals_c.data_ptr(), s, n, t, out.data_ptr(),
-        last_key.data_ptr(), last_val.data_ptr(), _build.stream_ptr(ks.device),
+        ks_c.data_ptr(), vals_c.data_ptr(), s, n, t, out.data_ptr(), chain.data_ptr(), cap,
+        stream,
     )
     _build.check(err, "motl_segment_totals_rows")
     segment_totals_rows.launches += 1

@@ -6,8 +6,10 @@ through (16, 128)), which no tracking path of the JAX package runs.  On the
 card the same layout question is the (S, N, 3) -> (S, 3, N) conversion of
 the points that K1-cm reads; ``scripts/micro_torch_acc.py`` times both.
 CUDA source: ``csrc/transpose.cu``, whose header says what bounds it on the
-H100 (bytes) and how its design answers that (a tile per CTA staged in
-shared memory, so that the read and the write are both coalesced).
+H100 (bytes) and how its design answers that: one launch per call; for the
+points' C = 3 (any C <= 4) each thread moves groups of 4 rows with 16-byte
+loads and one 16-byte store per output plane, no shared memory; R == 1 or
+C == 1 is a copy; wider rows go through 32 x 32 tiles in shared memory.
 
 ``transpose_words`` launches the kernel for CUDA tensors and runs
 ``transpose_words_plain`` for CPU tensors; ``.launches`` counts kernel
@@ -44,8 +46,8 @@ def transpose_words(x: torch.Tensor) -> torch.Tensor:
                          f"(one grid), got S={s}, C={c}")
     x = x.contiguous()
     out = torch.empty((s, c, r), dtype=x.dtype, device=x.device)
-    err = _build.load().motl_transpose32(x.data_ptr(), out.data_ptr(), s, r, c,
-                                         _build.stream_ptr(x.device))
+    launch = _build.load().motl_transpose32
+    err = launch(x.data_ptr(), out.data_ptr(), s, r, c, _build.stream_ptr(x.device))
     _build.check(err, "motl_transpose32")
     transpose_words.launches += 1
     return out

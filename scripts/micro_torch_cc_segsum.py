@@ -1,6 +1,7 @@
-"""Times K8 (the point-list connected components, ``ops/cluster_pallas.py``)
-and K7 (the segmented run totals of ``voxel_mode="runs"``,
-``ops/segsum_cuda.py``) on the GPU, per call:
+"""Times K8 (the point-list connected components, ``ops/cluster_pallas.py``),
+K7 (the segmented run totals of ``voxel_mode="runs"``) and K9 (the
+four-channel segmented totals, ``ops/segsum_cuda.py``) on the GPU, per
+call:
 
 - K8 (``connected_components_pallas``) and its adjacency stage alone, K8a
   (``cc_adjacency``, the bool (S, M, M) matrix the jnp CC sweeps), on the
@@ -12,7 +13,10 @@ and K7 (the segmented run totals of ``voxel_mode="runs"``,
   "gather" from the sort's permutation and the unsorted (S, N, 3) values,
   as ``ops/voxel_pallas.py::_sorted_runs`` calls it (a checkout whose K7
   takes no permutation gathers with ``torch.gather`` first, as its
-  ``_sorted_runs`` does).
+  ``_sorted_runs`` does);
+- K9 (``segment_totals_rows``) at S = 1 and S = 8 on the same sorted rows
+  as one (S, N, 4) array: the gathered x, y, z and a ones column, the
+  rows ``voxel_pallas.py::segment_totals_pallas`` sums.
 
 Per call: the device time from a ``torch.profiler`` trace (every kernel,
 copy and memset the call launches, summed), the device operations, and the
@@ -127,6 +131,9 @@ def entries(device, s):
             return sg.segment_totals(
                 ks, *(torch.gather(vals[..., c], 1, perm).contiguous() for c in range(3)))
     out[("K7 gather", shape)] = (gathered, plain)
+    v4 = torch.stack(rows + [torch.ones_like(rows[0])], dim=-1).contiguous()
+    out[("K9", shape)] = (lambda: sg.segment_totals_rows(ks, v4),
+                          sg.segment_totals_rows_plain(ks, v4))
     return out
 
 

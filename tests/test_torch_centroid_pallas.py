@@ -30,7 +30,11 @@ on the CPU (plain versions; the JAX kernels in interpret mode):
   given channel-major points: bit for bit.
 - K11's plain version against the transpose probes of
   ``scripts/micro_transpose.py`` (direct, and tiled through (16, 128)) in
-  interpret mode, on the probes' own (1, 2048) int32 row: bit for bit.
+  interpret mode, on the probes' own (1, 2048) int32 row: bit for bit; and
+  against ``np.transpose`` at every width K11's routes tell apart (C = 1,
+  a copy; 2-4, the 16-byte row groups; 5, 33 and 128, the tiles), R % 4 =
+  0-3 (a ragged last group, misaligned planes and frames), int32 and f32
+  words (NaN payloads included): bit for bit.
 """
 
 import importlib.util
@@ -273,3 +277,18 @@ def test_k11_plain_matches_micro_transpose_probes(probe, rows):
     assert transpose_cuda.transpose_words.launches == before      # the CPU route
     assert got.shape == (1, mt.B // rows, rows) and got.is_contiguous()
     np.testing.assert_array_equal(got.reshape(mt.B, 1).numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("r_mod", [0, 1, 2, 3])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 33, 128])
+def test_k11_plain_matches_numpy_transpose(c, r_mod, dtype):
+    rng = np.random.default_rng(100 * c + r_mod)
+    r = 36 + r_mod
+    x = rng.integers(-2**31, 2**31 - 1, (3, r, c), dtype=np.int64).astype(np.int32).view(dtype)
+    before = transpose_cuda.transpose_words.launches
+    got = transpose_cuda.transpose_words(torch.from_numpy(x))
+    assert transpose_cuda.transpose_words.launches == before      # the CPU route
+    assert got.shape == (3, c, r) and got.is_contiguous() and got.dtype == torch.from_numpy(x).dtype
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.ascontiguousarray(np.transpose(x, (0, 2, 1))).view(np.int32))

@@ -15,7 +15,9 @@
   ``min_size`` and above ``max_size``, for both backends.
 - K9's plain version against ``segment_totals_pallas`` (interpret mode),
   bit for bit: N < 2,048, N = 2,048 and N = 3 * 2,048, runs across block
-  edges, length-1 runs and one run over everything.
+  edges, length-1 runs and one run over everything; one block of a ragged
+  T = N = 1,001 and 7 rows, with inf and -0.0 in the rows the cyclic roll
+  wraps onto and in the rows that read them.
 - ``fma32`` against an exact rational reference.
 
 The JAX functions run under ``jax.jit``, as the pipeline runs them: called
@@ -266,7 +268,8 @@ def test_euclidean_cluster_matches_jax(backend):
 
 
 @pytest.mark.parametrize(
-    "n,kind", [(1000, "runs"), (2048, "length-1"), (3 * 2048, "block-edges"), (3 * 2048, "one-run")]
+    "n,kind", [(1000, "runs"), (2048, "length-1"), (3 * 2048, "block-edges"), (3 * 2048, "one-run"),
+               (1001, "wrap"), (7, "wrap")]
 )
 def test_plain_k9_matches_segment_totals_pallas(n, kind):
     rng = np.random.default_rng(n + len(kind))
@@ -280,9 +283,15 @@ def test_plain_k9_matches_segment_totals_pallas(n, kind):
             ks[2000:2100] = ks[2000]                  # across the first block edge
             ks[4000:6144] = ks[4000]                  # over all of block 2's end and past
             ks = np.maximum.accumulate(ks)
-    if n == 1000:                                     # N < 2048: one block of N rows
-        ks = ks[:1000]
+    if n < 2048:                                      # N < 2048: one block of N rows
+        ks = ks[:n]
     vals = rng.normal(0, 3, (len(ks), 4)).astype(np.float32)
+    if kind == "wrap":                                # T = N, not a multiple of 8
+        ks[: n // 2] = ks[0]                          # rows 0 .. 3 in one run
+        vals[n - 1, 3] = np.inf                       # inf * 0 -> NaN into row 0 at sh = 1
+        vals[n - 3:, 1] = -0.0                        # -0.0 * 0 added to rows 0 .. 2
+        vals[:4, 2] = -0.0                            # -0.0 + (+0.0 or -0.0) from the wrap
+        vals[n - 4:, 2] = np.where(np.arange(4) % 2 == 0, 1.5, -1.5)
     ref = np.asarray(segment_totals_pallas(jnp.asarray(ks), jnp.asarray(vals), interpret=True))
     before = segsum_cuda.segment_totals_rows.launches
     got = segsum_cuda.segment_totals_rows(_t(ks), _t(vals)).numpy()

@@ -330,6 +330,40 @@ def test_k11_matches_plain(dev, shape, dtype):
     got = transpose_cuda.transpose_words(x)
     assert transpose_cuda.transpose_words.launches == n0 + 1
     assert _bits(got, transpose_cuda.transpose_words_plain(x))
+    assert _device_ops(lambda: transpose_cuda.transpose_words(x)) == 1
+
+
+def _words(g, shape, dtype):
+    x = torch.randint(-2**31, 2**31 - 1, shape, generator=g, dtype=torch.int64)
+    return x.to(torch.int32).view(dtype)
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 33, 128])
+def test_k11_every_route_matches_plain(dev, c):
+    """Every width K11's routes tell apart (C = 1 a copy, 2-4 the 16-byte
+    row groups, past 4 the tiles) at R % 4 = 0-3 (a ragged last group,
+    misaligned planes and frame bases), int32 and f32 words; one launch and
+    one device op per call."""
+    g = torch.Generator().manual_seed(c)
+    for r in (36, 37, 38, 39, 4099):
+        for dtype in (torch.int32, torch.float32):
+            x = _words(g, (3, r, c), dtype).to(dev)
+            n0 = transpose_cuda.transpose_words.launches
+            got = transpose_cuda.transpose_words(x)
+            assert transpose_cuda.transpose_words.launches == n0 + 1
+            assert _bits(got, transpose_cuda.transpose_words_plain(x)), (r, dtype)
+    assert _device_ops(lambda: transpose_cuda.transpose_words(x)) == 1
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 3), (2, 4096, 3), (2, 40, 4), (2, 1, 77), (2, 50, 5)])
+def test_k11_misaligned_frame_base_matches_plain(dev, shape):
+    """An input whose data pointer sits 4 bytes past a 16-byte boundary:
+    every access that cannot be 16 bytes moves word by word."""
+    g = torch.Generator().manual_seed(sum(shape))
+    n = shape[0] * shape[1] * shape[2]
+    x = _words(g, (n + 1,), torch.float32).to(dev)[1:].view(shape)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    assert _bits(transpose_cuda.transpose_words(x), transpose_cuda.transpose_words_plain(x))
 
 
 @pytest.mark.parametrize("name,leaf", [("exact", 0.1), ("exact", 0.12), ("bf16x3", 0.05),
@@ -599,6 +633,43 @@ def test_k9_matches_plain(dev, n):
     K = torch.from_numpy(ks).to(dev)
     V = torch.from_numpy(rng.normal(0, 3, (2, n, 4)).astype(np.float32)).to(dev)
     assert _bits(segsum_cuda.segment_totals_rows(K, V), segsum_cuda.segment_totals_rows_plain(K, V))
+
+
+@pytest.mark.parametrize("s", [1, 8])
+@pytest.mark.parametrize("n", [7, 1001, 2048, 3 * 2048, 106496])
+def test_k9_every_shape_matches_plain(dev, n, s):
+    """K9 at one block of a ragged T = N (7, 1,001), one block, three and
+    the headline's 52, for S = 1 and 8: frame 0 with inf and -0.0 in the
+    rows the cyclic roll wraps onto and in the rows that read them, and a
+    run across the first block edge; frame 1 one run over every block;
+    frame 2 length-1 runs.  One launch and one device op per call, and the
+    same bits from a (S, N, 4) array 4 bytes past 16-byte alignment."""
+    rng = np.random.default_rng(n + s)
+    t = segsum_cuda.row_block(n)
+    ks = np.sort(rng.integers(0, max(2, n // 5), (s, n)), axis=1).astype(np.int32)
+    v = rng.normal(0, 3, (s, n, 4)).astype(np.float32)
+    v[0, t - 1, 3] = np.inf                                      # inf * 0 -> NaN into row 0
+    v[0, t - 3:t, 1] = -0.0
+    v[0, :4, 2] = -0.0
+    v[0, max(0, t - 4):t, 2] = 1.5
+    if n > 2048:
+        ks[0, 2000:2100] = ks[0, 2000]                           # across a block edge
+        ks[0] = np.maximum.accumulate(ks[0])
+    if s > 1:
+        ks[1] = 5                                                # one run over every block
+        ks[2] = np.arange(n)                                     # length-1 runs
+    K = torch.from_numpy(ks).to(dev)
+    V = torch.from_numpy(v).to(dev)
+    n0 = segsum_cuda.segment_totals_rows.launches
+    got = segsum_cuda.segment_totals_rows(K, V)
+    assert segsum_cuda.segment_totals_rows.launches == n0 + 1
+    want = segsum_cuda.segment_totals_rows_plain(K, V)
+    assert _bits(got, want)
+    assert _device_ops(lambda: segsum_cuda.segment_totals_rows(K, V)) == 1
+    off = torch.empty(V.numel() + 1, dtype=torch.float32, device=dev)[1:].view(V.shape)
+    off.copy_(V)
+    assert off.data_ptr() % 16 != 0
+    assert _bits(segsum_cuda.segment_totals_rows(K, off), want)
 
 
 @pytest.mark.parametrize("case", ["pointlist_case", "pointlist_jnp_case", "scan_case",

@@ -12,6 +12,9 @@ against the JAX package.
 - ``voxel_accumulate_runs_cm`` against JAX's, bit for bit, on NaN-free
   inputs (JAX's NaN handling is implementation-defined, see
   ops/voxel_pallas.py); the stacked call equals one call per frame.
+- The kernel's register/shuffle schedule, rehearsed in numpy on K7's
+  blocks and on K9's (one ragged block of 3, 7, 13 or 1,001 rows; three of
+  2,048), against the written tree, bit for bit.
 - The slice on tiny caps (6 frames): the port's ``bind_env`` and
   ``bind_env_multi`` against JAX ``Tracker.bind_env`` in runs mode.
   Integers and decisions exact, positions within 1e-5 m, velocities within
@@ -68,10 +71,11 @@ def _keys(rng, n, kind):
     return k
 
 
-def _written_tree(ks, v):
-    """The Pallas kernel's ops as written, in numpy f32: cyclic rolls,
+def _written_tree(ks, v, t=None):
+    """The Pallas kernel's ops as written, in numpy f32, over blocks of t
+    rows (K7's ``block_rows(N)`` by default): cyclic rolls,
     multiply-by-0/1, then the carry chain."""
-    t = segsum_cuda.block_rows(len(ks))
+    t = segsum_cuda.block_rows(len(ks)) if t is None else t
     k, c = ks.reshape(-1, t), v.reshape(-1, t).copy()
     i = np.arange(t)
     sh = 1
@@ -145,61 +149,97 @@ def test_plain_k7_with_permutation_matches_segment_totals_raster(n, kind, nonfin
         assert _same_bits(g.numpy(), r)
 
 
-def _k7_block_schedule(k, v):
-    """One block of K7 as csrc/segsum.cu schedules it, in numpy f32: 8 rows
-    per thread; sh = 1, 2, 4 inside each thread on its rows and the 7 before
-    them; sh = 8 m from thread t - m by shuffle (lanes >= m) or from the
-    shared array, where only the threads the kernel lets write have written
-    (the rest of it poisoned)."""
+def _chain_block_schedule(k, v):
+    """One block of K7 or K9 as csrc/segsum.cu schedules it, in numpy f32:
+    8 rows per thread at a pitch of T rounded up to 8 (the last thread
+    holds T mod 8 rows); sh = 1, 2, 4 inside each thread on its rows and the
+    7 before them (cyclic: thread 0's wrap to the block's end, more than
+    once when T < 7), [row >= sh] tested only in thread 0; sh = 8 m from
+    thread t - m by shuffle (lanes >= m) or from the shared array, where
+    only the threads the kernel lets write have written (the rest NaN, which
+    even a multiply by 0 passes on), rows i < sh reading row i - sh + T
+    there."""
     t_rows = len(k)
-    nt = t_rows // 8
-    c = v.reshape(nt, 8).copy()
+    nt = -(-t_rows // 8)
+    kp = np.zeros(8 * nt, k.dtype)
+    kp[:t_rows] = k
+    vp = np.zeros(8 * nt, np.float32)
+    vp[:t_rows] = v
+    c = vp.reshape(nt, 8).copy()
     with np.errstate(invalid="ignore"):
         for t in range(nt):
-            hr = [(t * 8 - 7 + q) % t_rows for q in range(15)]
-            h = np.array([v[r] for r in hr[:7]] + list(c[t]), np.float32)
+            hr = [t * 8 - 7 + q if t * 8 - 7 + q >= 0 else (t * 8 - 7 + q) % t_rows
+                  for q in range(15)]
+            h = np.array([vp[r] for r in hr[:7]] + list(c[t]), np.float32)
+            hk = [kp[r] for r in hr]
             for sh in (1, 2, 4):
+                if sh >= t_rows:
+                    break
                 for q in range(14, 2 * sh - 2, -1):
-                    same = np.float32(k[hr[q - sh]] == k[hr[q]] and hr[q] >= sh)
+                    ge = t > 0 or (q - 7 >= sh if q >= 7 else hr[q] >= sh)
+                    same = np.float32(hk[q - sh] == hk[q] and ge)
                     h[q] = h[q] + h[q - sh] * same
             c[t] = h[7:]
         sh = 8
         while sh < t_rows:
             m = sh // 8
-            shared = np.full((nt, 8), 1e30, np.float32)
+            shared = np.full((nt, 8), np.nan, np.float32)
             for t in range(nt):
-                if m >= 32 or t % 32 >= 32 - m or t >= nt - m:
+                if m >= 32 or t % 32 >= 32 - m or (t + 1) * 8 > t_rows - sh:
                     shared[t] = c[t]
             new = c.copy()
             for t in range(nt):
-                src = (t - m) % nt
-                vals = shared[src] if (m >= 32 or t % 32 < m) else c[t - m]
+                src = t - m + nt if t < m else t - m
+                if not (m >= 32 or t % 32 < m):
+                    vals = c[t - m]
+                elif t >= m or t_rows % 8 == 0:
+                    vals = shared[src]
+                else:
+                    vals = shared.reshape(-1)[t_rows - sh + t * 8 + np.arange(8)]
                 i = t * 8 + np.arange(8)
-                same = ((k[src * 8:src * 8 + 8] == k[i]) & (i >= sh)).astype(np.float32)
+                same = ((kp[src * 8:src * 8 + 8] == kp[i]) & (i >= sh)).astype(np.float32)
                 new[t] = c[t] + vals * same
             c = new
             sh *= 2
-    return c.reshape(-1)
+    return c.reshape(-1)[:t_rows]
 
 
-@pytest.mark.parametrize("n,kind", [(384, "runs"), (1024, "one-run"), (3 * 8192, "block-edges")])
+@pytest.mark.parametrize("n,kind", [(384, "runs"), (1024, "one-run"), (3 * 8192, "block-edges"),
+                                    (3, "k9-wrap"), (7, "k9-wrap"), (13, "k9-wrap"),
+                                    (1001, "k9-wrap"),
+                                    (3 * 2048, "k9-runs")])
 def test_k7_register_schedule_rehearsed(n, kind):
     """The kernel's pass schedule (registers, shuffles, the shared array's
     writers) and its chained carry give the written tree bit for bit,
-    with inf and -0.0 in the values."""
+    with inf and -0.0 in the values: K7's blocks, and K9's ("k9-", blocks
+    of ``row_block(N)``: three of 2,048, and one ragged block of 3, 7, 13
+    or 1,001 rows whose first 8 rows are -0.0 and the rest negative but a
+    last run of +2 and -1, so that a wrapped row read from the wrong place,
+    the padding's +0.0, or a wrong [row >= sh] turns a -0.0 into +0.0)."""
     rng = np.random.default_rng(n)
-    ks = _keys(rng, n, kind)
+    ks = _keys(rng, n, kind[3:] if kind.startswith("k9-") else kind)
     v = rng.normal(0, 3, n).astype(np.float32)
     v[n // 3] = np.inf
     v[::7] = -0.0
-    t = segsum_cuda.block_rows(n)
-    blocks = [_k7_block_schedule(ks[b * t:(b + 1) * t], v[b * t:(b + 1) * t])
+    t = segsum_cuda.row_block(n) if kind.startswith("k9-") else segsum_cuda.block_rows(n)
+    if kind == "k9-wrap":                           # no inf: it would turn the block to NaN
+        v[:] = -np.abs(rng.normal(0, 3, n)).astype(np.float32) - np.float32(0.5)
+        v[:8] = -0.0
+        ks[n - 1] = ks[n - 2]                       # the last two rows one run: +2 - 1 > 0
+        v[n - 2:] = (2.0, -1.0)
+    blocks = [_chain_block_schedule(ks[b * t:(b + 1) * t], v[b * t:(b + 1) * t])
               for b in range(n // t)]
     with np.errstate(invalid="ignore"):
         for b in range(1, len(blocks)):             # the chain: b - 1's last output
             same = (ks[b * t:(b + 1) * t] == ks[b * t - 1]).astype(np.float32)
             blocks[b] = blocks[b] + same * blocks[b - 1][-1]
-    assert _same_bits(np.concatenate(blocks), _written_tree(ks, v))
+    want = _written_tree(ks, v, t)
+    assert _same_bits(np.concatenate(blocks), want)
+    if kind.startswith("k9-"):
+        vals = np.zeros((n, 4), np.float32)
+        vals[:, 2] = v
+        got = segsum_cuda.segment_totals_rows(torch.from_numpy(ks), torch.from_numpy(vals))
+        assert _same_bits(got[:, 2].numpy(), want)
 
 
 def test_sorted_runs_reads_through_the_permutation(monkeypatch):

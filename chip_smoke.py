@@ -34,7 +34,12 @@ of JAX, in five phases, one or more lines each:
    sorted rows and on one block of a ragged T = N (1,001 and 7 rows, inf
    and -0.0 in the rows the cyclic roll wraps onto), K11 through each of
    its routes (the points' C = 3, also at R % 4 != 0 and from a misaligned
-   frame base; C = 1; C = 5; the probes);
+   frame base; C = 1; C = 5; the probes); K4 under ``position_filter=
+   "ihgp"`` at K = 64 and 1,024, 1 x 1, 1 x 8 and 8 x 1 (its positions not
+   LPF's, its decisions LPF's); F7: K8a at a ragged M = 1,000, the jnp CC
+   through it against the CPU, K8 refusing M = 1,000 as the JAX Pallas
+   wrapper does, and K8 and K8a at M = 8,448 (the frame in device memory)
+   against their plain versions and, through both CC backends, the CPU;
 4. the paths, each with every kernel's launch counter reset before and
    read after: the headline (fast digits) -- ``TrackerNode.on_pointcloud``
    answers 12 headline PointCloud2 frames and ``Tracker.bind_env_multi``
@@ -69,7 +74,14 @@ of JAX, in five phases, one or more lines each:
    past the TPU kernel's 128) within the golden's tolerances; and G-grid
    (G's config and frames on the dense grid: K1 and K2 at 193,536 cells)
    through ``bind_env`` and ``bind_env_multi`` against the port's own
-   ``bind_env`` on the CPU.  No path may take the plain digit sums;
+   ``bind_env`` on the CPU; the CLI (``runtime/cli.py``) in-process, ``run
+   --backend grid`` on 16 headline frames recorded with the port's bag
+   writers, against the JAX CLI's goldens (tests/golden/
+   torch_cli{,_ihgp}_headline.json) under ``lpf`` and ``ihgp``, its SVG,
+   the ROS1 bag's replay, a checkpoint resumed; the headline under
+   ``ihgp`` through ``TrackerNode``, ``bind_env_multi`` and the kernel
+   fleet against torch_ihgp_headline.npz.  No path may take the plain
+   digit sums;
 5. timings with CUDA events, beside the card's name and power limit:
    ``bind_env`` and ``bind_env_multi`` per path, host syncs and device ops
    per frame of each (``torch.profiler``; the headline must make no host
@@ -84,7 +96,10 @@ of JAX, in five phases, one or more lines each:
    67 TFLOP/s) and, where one PyTorch call computes the same function,
    that call's time (K6f also at configuration G's grid, S = 8, beside
    ``torch.index_add`` there; K7, K9 and K11 also with their own and their
-   library call's device time from ``torch.profiler``).
+   library call's device time from ``torch.profiler``); then the headline
+   under ``lpf`` and ``ihgp`` in turns (ms/frame, device ops per frame,
+   K4's device us per call at 1 x 1 and 1 x 8) and ``bind_env_pipelined``
+   beside ``bind_env_multi``.
 
 Any failed phase raises (exit 1).  The line before the last is the kernel
 report (JSON); the last line is ``{"ok": true, "device": {...}}``.
@@ -109,6 +124,9 @@ GOLDEN_PL = {g: os.path.join(HERE, "tests", "golden", f"torch_{g}_headline.npz")
              for g in ("pointlist", "pointlist_scan", "pointlist_runs", "default")}
 GOLDEN_FLEET = os.path.join(HERE, "tests", "golden", "torch_fleet_headline.npz")
 GOLDEN_GROWTH = os.path.join(HERE, "tests", "golden", "torch_growth_headline.npz")
+GOLDEN_IHGP = os.path.join(HERE, "tests", "golden", "torch_ihgp_headline.npz")
+GOLDEN_CLI = os.path.join(HERE, "tests", "golden", "torch_cli_headline.json")
+GOLDEN_CLI_IHGP = os.path.join(HERE, "tests", "golden", "torch_cli_ihgp_headline.json")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM: HBM3 rate (NVIDIA's datasheet)
 F32_OPS_PER_S = 67e12         # H100 SXM: f32 outside the tensor cores; int32 ops too
 PKG = "multiple_object_tracking_lidar_tpu_torch"
@@ -1115,11 +1133,17 @@ FLEET_PATH = ("K1 raw", "K1 fin", "K2", "K3f", "K4")
 FLEET_C_PATH = ("K6f", "K8", "K3f", "K4")
 
 
-def require(tag, counts, need, report):
+def k4_report_as(position_filter):
+    """An ihgp path's K4 launches count in the report as K4 ihgp's."""
+    return {"K4": "K4 ihgp"} if position_filter == "ihgp" else None
+
+
+def require(tag, counts, need, report, report_as=None):
     """Fail unless every kernel of ``need`` launched in this path's run,
     unless a tracking path (one that needs K3f) launched no K3, and unless
     the path took no plain digit sums (every grid here is within K1's and
-    K5's ``max_cells``); add the run's kernel counts to the report."""
+    K5's ``max_cells``); add the run's kernel counts to the report, under
+    the names ``report_as`` maps them to."""
     missing = [k for k in need if counts[k] <= 0]
     if missing:
         fail(f"{missing} not launched on the {tag} path: {counts}")
@@ -1131,6 +1155,7 @@ def require(tag, counts, need, report):
     for k, c in counts.items():
         if k == PLAIN_SUMS:
             continue
+        k = (report_as or {}).get(k, k)
         report.setdefault(k, {"max_abs_err": 0.0})
         report[k]["launches"] = report[k].get("launches", 0) + c
 
@@ -1366,7 +1391,7 @@ def run_node(dev, tag, cfg, sc, golden, n_node, need, report, counts_out=None):
     log(f"[4 {tag}] TrackerNode.on_pointcloud x{n_node} (N={cfg.caps.n_max_points}): "
         f"{n_pub} published, n_dynamic {got['n_dynamic'].tolist()}, launches {counts}; "
         f"vs JAX golden max abs err {e}")
-    require(f"{tag} TrackerNode", counts, need, report)
+    require(f"{tag} TrackerNode", counts, need, report, k4_report_as(cfg.position_filter))
     if counts_out is not None:
         counts_out.update(counts)
     return got
@@ -1399,7 +1424,7 @@ def run_multi(dev, tag, cfg, env, sc, golden, n_disp, s_frames, need, report):
     fin = all(np.isfinite(v[allm["valid"]]).all() for f, v in allm.items() if f in ("pos", "vel"))
     log(f"[4 {tag}] bind_env_multi {n_disp}x S={s_frames}: launches {counts}, finite {fin}, "
         f"first {n_cmp} vs JAX golden max abs err {e}")
-    require(f"{tag} bind_env_multi", counts, need, report)
+    require(f"{tag} bind_env_multi", counts, need, report, k4_report_as(cfg.position_filter))
     if not fin:
         fail(f"{tag}: non-finite pos/vel on valid lanes")
     return allm
@@ -1452,7 +1477,7 @@ def run_fleet(tag, fleet, env, frames, need, report):
         outs.append(o)
     torch.cuda.synchronize()
     counts = read_counts()
-    require(tag, counts, need, report)
+    require(tag, counts, need, report, k4_report_as(fleet.tracker.config.position_filter))
     if counts["K4"] != P.shape[0]:
         fail(f"{tag}: {counts['K4']} K4 launches for {P.shape[0]} steps (one per step)")
     return {f: np.stack([npy(getattr(o, f)) for o in outs]) for f in outs[0]._fields}, counts
@@ -1913,12 +1938,14 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
     t4 = track_scene(5, cfg, K, D, 1, 1, (), P.device)
     t4w = track_scene(6, cfg, 1024, 128, 1, 1, (), P.device)
     kwt = dict(config=cfg, gains_xy=gains)
+    kwi = dict(config=cfg.replace(position_filter="ihgp"), gains_xy=gains)
 
-    def k4_ops(ins, out):
+    def k4_ops(ins, out, ihgp=False):
         """The scan's per-lane work over the valid detections, then the
-        window update and filter of each updated track."""
+        window update and filter of each updated track (under ihgp also
+        the position smoother's 14 operations per window row)."""
         k, n_det, n_upd = ins[0].bank.alive.shape[1], int(ins[2].sum()), int(out[1].valid.sum())
-        return 12 * k * n_det + 20 * cfg.data_length * n_upd
+        return 12 * k * n_det + (20 + 14 * ihgp) * cfg.data_length * n_upd
     af0 = torch.from_numpy(g.uniform(-2, 2, (K, 3)).astype(np.float32)).to(dev)
     ai0 = torch.stack([(torch.arange(K) % 2).int(), torch.arange(K).int(),
                        torch.arange(K).int()], 1).int().to(dev)
@@ -2006,6 +2033,10 @@ def phase_timings(dev, cfg, smi, tracker, env, frames, report):
                lambda: track_cuda.track_frames_plain(*t4, **kwt),
                f"K={K} 1 x 1 frame, D={D}, {int(t4[2].sum())} valid detections", t4,
                k4_ops(t4, track_cuda.track_frames(*t4, **kwt)), None),
+        "K4 ihgp": (lambda: track_cuda.track_frames(*t4, **kwi),
+                    lambda: track_cuda.track_frames_plain(*t4, **kwi),
+                    f"K={K} 1 x 1 frame, D={D}, {int(t4[2].sum())} valid detections, ihgp", t4,
+                    k4_ops(t4, track_cuda.track_frames(*t4, **kwi), True), None),
         "K4 wide": (lambda: track_cuda.track_frames(*t4w, **kwt),
                     lambda: track_cuda.track_frames_plain(*t4w, **kwt),
                     f"K=1024 1 x 1 frame, D=128, {int(t4w[2].sum())} valid detections", t4w,
@@ -2173,6 +2204,384 @@ def phase_timings_fleet(dev, smi, fleet, env, frames):
         f"device ops per cloud {ops_m:.2f} (run multi, fleet, fleet, multi)")
 
 
+# ---------------------------------------------------------------------------
+# K4 under position_filter="ihgp"; F7 (the point-list CC's row bounds)
+# ---------------------------------------------------------------------------
+def f7_points(rng, s, m, n_blobs=40):
+    """(S, M, 3) f32 points in n_blobs blobs (each a cluster at the
+    headline's tolerance) and a 90%-valid (S, M) mask."""
+    centres = rng.uniform(-8, 8, (s, n_blobs, 3)) * np.array([1, 1, 0.1])
+    which = rng.integers(0, n_blobs, (s, m))
+    pts = np.take_along_axis(centres, which[..., None], 1) + rng.normal(0, 0.05, (s, m, 3))
+    return pts.astype(np.float32), rng.random((s, m)) < 0.9
+
+
+def phase_kernels_slice11(dev, smi, report, cfg):
+    """K4 under ``position_filter="ihgp"`` against its plain version, bit for
+    bit, at K = 64 (the 128-thread build) and 1,024 (the 1,024-thread
+    build), 1 x 1, 1 x S and B x 1, on ``track_scene``'s duplicates, gaps
+    and overflow; then F7: K8a at a ragged M = 1,000 (the jnp CC's
+    adjacency, which takes any M) against its plain version and the jnp CC
+    through it against the CPU, K8 at M = 1,000 refusing as the JAX Pallas
+    wrapper does, and K8 and K8a past ``MAX_ROWS`` (M = 8,448, the frame in
+    device memory) against their plain versions and, through both CC
+    backends, against the CPU."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import cluster, cluster_pallas, track_cuda
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    icfg = cfg.replace(position_filter="ihgp")
+    gains = Tracker(icfg, dev).gains_xy
+    D = cfg.caps.c_max_clusters
+    check_track(dev, icfg, gains, cfg.caps.k_max_tracks,
+                ((1, 1, D, ()), (1, 8, D, (0,)), (8, 1, D, (0,)), (1, 8, 128, ())),
+                report, "K4 ihgp")
+    check_track(dev, icfg, gains, 1024, ((1, 1, 128, ()), (1, 8, 128, (0,)), (8, 1, D, ())),
+                report, "K4 ihgp")
+    st, dets, valid, t = track_scene(11, cfg, 64, D, 1, 8, (), dev)
+    o_l = track_cuda.track_frames(st, dets, valid, t, config=cfg, gains_xy=gains)[1]
+    o_i = track_cuda.track_frames(st, dets, valid, t, config=icfg, gains_xy=gains)[1]
+    v = npy(o_i.valid)
+    moved = max_err(npy(o_l.pos)[v], npy(o_i.pos)[v])
+    same_ids = equal(npy(o_l.obj_id), npy(o_i.obj_id))
+    log(f"[3 K4 ihgp] 1 x 8 frames K=64: ihgp positions against LPF's max |diff| {moved} m, "
+        f"decisions {'equal' if same_ids else 'differ'}")
+    if not moved > 0 or not same_ids:
+        fail("K4 under ihgp: positions equal to LPF's, or decisions changed")
+
+    pcfg = bench_cases.pointlist_case()[0]
+    tol, caps = pcfg.cluster_tolerance, pcfg.caps
+    rng = np.random.default_rng(1107)
+    pts, mask = f7_points(rng, 2, 1000)
+    P, Mk = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+    check_pair(report, "K8a", "S=2 M=1000 (no multiple of 256: the jnp CC's adjacency, F7)",
+               lambda: (cluster_pallas.cc_adjacency(P, Mk, tol),),
+               lambda: (cluster_pallas.cc_adjacency_plain(P, Mk, tol),))
+    reset_counts()
+    lab, it = cluster.connected_components(P, Mk, tol, caps.label_prop_iters, caps.pointer_jumps)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    lab_c, it_c = cluster.connected_components(P.cpu(), Mk.cpu(), tol, caps.label_prop_iters,
+                                               caps.pointer_jumps)
+    ok = equal(npy(lab), lab_c.numpy()) and equal(npy(it), it_c.numpy())
+    n_comp = [len(np.unique(npy(lab)[f][mask[f]])) for f in range(2)]
+    log(f"[3 F7] jnp CC on the card at M=1000 through K8a ({counts['K8a']} launch): labels and "
+        f"sweeps equal the CPU's={ok}, components {n_comp}, sweeps {npy(it).tolist()}")
+    if not ok or counts["K8a"] != 1:
+        fail(f"F7: the jnp CC at M=1000 on the card (counts {counts}, equal {ok})")
+    try:
+        cluster_pallas.connected_components_pallas(P, Mk, tol)
+    except ValueError as e:
+        log(f"[3 F7] K8 at M=1000 raises, as the JAX Pallas wrapper: {e}")
+    else:
+        fail("F7: K8 at M=1000 ran (the JAX Pallas rule: M % 256 == 0 past 256)")
+
+    m = cluster_pallas.MAX_ROWS + 256
+    pts, mask = f7_points(rng, 1, m)
+    P, Mk = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+    layout = cluster_pallas._layout(m, None, dev)
+    if layout[1] or not layout[2]:
+        fail(f"F7: the layout at M={m} keeps the frame in shared memory: {layout}")
+    sweeps = 8 * caps.label_prop_iters
+    check_pair(report, "K8", f"S=1 M={m} past MAX_ROWS (F7: {layout[0]} CTAs, the frame, "
+               "adjacency words and labels in device memory)",
+               lambda: (cluster_pallas.connected_components_pallas(P, Mk, tol, sweeps),),
+               lambda: (cluster_pallas.connected_components_pallas_plain(P, Mk, tol, sweeps),))
+    check_pair(report, "K8a", f"S=1 M={m} past MAX_ROWS (F7: the frame in device memory)",
+               lambda: (cluster_pallas.cc_adjacency(P, Mk, tol),),
+               lambda: (cluster_pallas.cc_adjacency_plain(P, Mk, tol),))
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import micro_torch_digits
+
+    # the frame in device memory beside the frame in shared memory (M =
+    # 8,192, the words in device memory): device us and ops per call, S = 1
+    P0, M0 = P[:, :cluster_pallas.MAX_ROWS].contiguous(), Mk[:, :cluster_pallas.MAX_ROWS].contiguous()
+    for kern, fn in (("K8", lambda p, k: cluster_pallas.connected_components_pallas(p, k, tol,
+                                                                                    sweeps)),
+                     ("K8a", lambda p, k: cluster_pallas.cc_adjacency(p, k, tol))):
+        (us0, ops0), (us1, ops1) = (micro_torch_digits.device_profile(lambda: fn(p, k), 20)
+                                    for p, k in ((P0, M0), (P, Mk)))
+        log(f"[3 F7] {smi}: {kern} S=1 device {us0:.2f} us/call in {ops0:.1f} ops at "
+            f"M={cluster_pallas.MAX_ROWS} (frame in shared memory), {us1:.2f} us/call in "
+            f"{ops1:.1f} ops at M={m} (frame in device memory) (torch.profiler)")
+        if ops0 != 1 or ops1 != 1:
+            fail(f"F7: {kern} took {ops0} / {ops1} device ops per call (1 expected)")
+    ms_plain = cuda_ms(lambda: cluster_pallas.connected_components_pallas_plain(P, Mk, tol, sweeps),
+                       1)
+    log(f"[3 F7] {smi}: K8's plain version on the card at M={m}: {ms_plain:.3f} ms/call "
+        "(CUDA events)")
+    args = (tol, pcfg.min_cluster_size, pcfg.max_cluster_size, caps.c_max_clusters,
+            caps.p_max_cluster, caps.label_prop_iters, caps.pointer_jumps)
+    for backend, kern in (("jnp", "K8a"), ("pallas", "K8")):
+        reset_counts()
+        t0 = time.perf_counter()
+        got = cluster.euclidean_cluster(P, Mk, *args, backend=backend)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        ref = cluster.euclidean_cluster(P.cpu(), Mk.cpu(), *args, backend=backend)
+        bad = [f for f, a, b in zip(got._fields, got, ref) if not equal(npy(a), b.numpy())]
+        log(f"[3 F7] {backend} CC at M={m} (past MAX_ROWS = {cluster_pallas.MAX_ROWS}) on the "
+            f"card: {kern} {counts[kern]} launch(es), {int(got.n_clusters)} clusters in "
+            f"{secs:.2f} s; equal to the CPU's plain route: {not bad}")
+        if bad or counts[kern] != 1:
+            fail(f"F7: the {backend} CC past MAX_ROWS (counts {counts}, differs in {bad})")
+
+
+def cli_errors(records, golden):
+    """(mismatches, max |pos / vel diff|) of the CLI's JSON records against
+    a golden's: frames, stamps, ids and obstacle counts exact; positions
+    and velocities within TOL_VEL plus the two records' 4-decimal rounding;
+    each speed label exact, unless the golden's unrounded speed lies within
+    TOL_VEL of the label's rounding boundary (a 0.005 m/s step)."""
+    ref, speeds = golden["records"], golden["speeds"]
+    if [r["frame"] for r in records] != [r["frame"] for r in ref]:
+        return [f"frames {[r['frame'] for r in records]} vs {[r['frame'] for r in ref]}"], 0.0
+    bad, err = [], 0.0
+    for a, b, sp in zip(records, ref, speeds):
+        k = a["frame"]
+        ids_a = [o["id"] for o in a["obstacles"]]
+        if a["t"] != b["t"] or ids_a != [o["id"] for o in b["obstacles"]]:
+            bad.append(f"frame {k}: t / ids {a} vs {b}")
+            continue
+        for oa, ob in zip(a["obstacles"], b["obstacles"]):
+            err = max(err, max_err(oa["pos"] + oa["vel"], ob["pos"] + ob["vel"]))
+        for la, lb, v in zip(a["speed_labels"], b["speed_labels"], sp):
+            frac = v * 100.0 - np.floor(v * 100.0)
+            if la != lb and abs(frac - 0.5) * 0.01 >= TOL_VEL:
+                bad.append(f"frame {k}: speed label {la} vs {lb} (speed {v})")
+    if err > TOL_VEL + 1e-4:
+        bad.append(f"pos / vel max abs err {err}")
+    return bad, err
+
+
+def run_cli(argv):
+    """The port's CLI ``main(argv)`` in-process: (stdout, its JSON records,
+    the JSON records on stderr)."""
+    import contextlib
+    import io
+
+    from multiple_object_tracking_lidar_tpu_torch.runtime.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    if rc != 0:
+        fail(f"the CLI {argv} returned {rc}")
+    recs = [[json.loads(x) for x in v.getvalue().splitlines() if x.startswith("{")]
+            for v in (out, err)]
+    return out.getvalue(), recs[0], recs[1]
+
+
+def phase_cli(dev, report):
+    """The port's CLI on the card, as a user runs it: the first 16 headline
+    PointCloud2 frames recorded to an npz bag and a ROS1 bag with the
+    port's writers; ``run --map assets/sim_map.yaml --backend grid`` (the
+    70,875-cell grid) replaying the npz bag with ``--svg`` and
+    ``--checkpoint``, held to the JAX CLI's golden
+    (tests/golden/torch_cli_headline.json); the ROS1 bag's replay byte for
+    byte the npz bag's; a resume from the checkpoint over frames 16-19
+    (the same three ids); and a config file
+    with ``position_filter: ihgp`` against its own golden.  Each run must
+    launch K1, K2, K3f and K4, take no plain route and make no host sync
+    of K4's plain version."""
+    import tempfile
+
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import SIM_MAP, headline_case
+    from multiple_object_tracking_lidar_tpu_torch.io.bag import record_bag
+    from multiple_object_tracking_lidar_tpu_torch.io.rosbag import write_rosbag
+    from multiple_object_tracking_lidar_tpu_torch.ops.track_cuda import track_step_plain
+
+    _, _, sc = headline_case()
+    n_fr = 16
+    frames = [sc.frame(k) for k in range(n_fr)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    npz, ros = os.path.join(tmp, "frames.npz"), os.path.join(tmp, "frames.bag")
+    svg, ck = os.path.join(tmp, "tracks.svg"), os.path.join(tmp, "state.npz")
+    record_bag(npz, frames)
+    write_rosbag(ros, frames)
+    later = os.path.join(tmp, "later.npz")          # frames 16-19: the resumed run's
+    record_bag(later, [sc.frame(k) for k in range(n_fr, n_fr + 4)])
+    base = ["run", "--device", str(dev), "--map", SIM_MAP, "--backend", "grid", "--frames",
+            str(n_fr)]
+    ihgp_cfg = os.path.join(tmp, "ihgp.yaml")
+    with open(ihgp_cfg, "w", encoding="utf-8") as fh:
+        fh.write("position_filter: ihgp\n")
+    runs = (("lpf", GOLDEN_CLI, ["--bag", npz, "--svg", svg, "--checkpoint", ck]),
+            ("ihgp", GOLDEN_CLI_IHGP, ["--bag", npz, "--config", ihgp_cfg]))
+    outs = {}
+    for tag, gpath, extra in runs:
+        with open(gpath, encoding="utf-8") as fh:
+            golden = json.load(fh)
+        syncs0 = track_step_plain.host_syncs
+        reset_counts()
+        text, recs, err_recs = run_cli(base + extra)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        syncs = track_step_plain.host_syncs - syncs0
+        bad, err = cli_errors(recs, golden)
+        summary = next(r["summary"] for r in err_recs if "summary" in r)
+        n_obs = sum(len(r["obstacles"]) for r in recs)
+        log(f"[4 CLI {tag}] run --backend grid --bag <{n_fr} headline frames> "
+            f"{' '.join(extra[2:])}: {len(recs)} records, {n_obs} obstacles, ids "
+            f"{sorted({o['id'] for r in recs for o in r['obstacles']})}, launches {counts}, "
+            f"K4 plain host syncs {syncs}; vs JAX CLI golden: pos/vel max abs err {err}, "
+            f"mismatches {bad}")
+        log(f"[4 CLI {tag}] node wall clock (stderr summary): p50 {summary['p50_ms']} ms/frame, "
+            f"p99 {summary['p99_ms']} ms/frame, mean {summary['mean_ms']} over "
+            f"{summary['frames']} frames (the first 3 left out)")
+        if bad:
+            fail(f"CLI {tag} against its golden: {bad}")
+        require(f"CLI {tag}", counts, FAST_PATH, report, k4_report_as(tag))
+        if syncs:
+            fail(f"CLI {tag}: {syncs} host syncs of K4's plain version (0 expected)")
+        outs[tag] = (text, counts)
+
+    with open(svg, encoding="utf-8") as fh:
+        doc = fh.read()
+    text_ros = run_cli(base + ["--bag", ros])[0]
+    _, recs3, err3 = run_cli(base[:-1] + ["4", "--bag", later, "--checkpoint", ck])
+    resumed = next((r for r in err3 if "resumed" in r), None)
+    ids3 = {o["id"] for r in recs3 for o in r["obstacles"]}
+    log(f"[4 CLI] SVG {len(doc)} bytes ({doc.count('<polyline')} trajectories); the ROS1 bag's "
+        f"replay byte for byte the npz bag's: {text_ros == outs['lpf'][0]}; resumed {resumed} "
+        f"on frames 16-19: {len(recs3)} of 4 published, ids {sorted(ids3)}")
+    if not doc.startswith("<svg") or doc.count("<polyline") < 3:
+        fail("CLI: the SVG holds fewer than 3 trajectories")
+    if text_ros != outs["lpf"][0]:
+        fail("CLI: the ROS1 bag's replay differs from the npz bag's")
+    if resumed is None or resumed["alive"] != 3 or len(recs3) != 4 or ids3 != {0, 1, 2}:
+        fail(f"CLI: the resume from the checkpoint ({resumed}, {len(recs3)} records, ids {ids3})")
+
+
+def phase_ihgp(dev, report):
+    """The headline config under ``position_filter="ihgp"`` through
+    ``TrackerNode`` (12 frames, one K4 launch each), ``bind_env_multi`` (2 x
+    S = 8) and the kernel fleet (B = 8 x 3 steps, bit for bit each stream's
+    ``bind_env``), against the JAX golden (torch_ihgp_headline.npz)."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.parallel import ShardedTracker, make_mesh
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    golden = dict(np.load(GOLDEN_IHGP))
+    cfg, env, sc = bench_cases.headline_case(device=dev)
+    cfg = cfg.replace(position_filter="ihgp")
+    counts = {}
+    got = run_node(dev, "ihgp", cfg, sc, golden, 12, FAST_PATH, report, counts)
+    if counts["K4"] != 12:
+        fail(f"ihgp TrackerNode: {counts['K4']} K4 launches for 12 frames (one per frame)")
+    allm = run_multi(dev, "ihgp", cfg, env, sc, golden, 2, 8, FAST_PATH, report)
+    e = compare("ihgp bind_env_multi vs TrackerNode", {f: v[:12] for f, v in allm.items()},
+                got, 0.0, 0.0)
+    lpf = dict(np.load(GOLDEN))
+    v = golden["valid"]
+    log(f"[4 ihgp] bind_env_multi vs TrackerNode, first 12 frames: max abs err {e}; ihgp "
+        f"positions against the LPF golden's max |diff| {max_err(golden['pos'][v], lpf['pos'][v])}")
+    tracker = Tracker(cfg, dev)
+    frames = fleet_frames(dev, sc, cfg.caps.n_max_points, 8, 3)
+    fleet = ShardedTracker(tracker, make_mesh(1, 1, device=dev), kernel_path="on")
+    got_f, counts = run_fleet("kernel fleet ihgp", fleet, env, frames, FLEET_PATH, report)
+    per_stream_bind_env("kernel fleet ihgp", tracker, env, frames, got_f)
+    e_s0 = compare("kernel fleet ihgp stream 0 vs ihgp golden frames 0-2",
+                   {f: v[:, 0] for f, v in got_f.items()},
+                   {f: v[:3] for f, v in golden.items()}, TOL_DETS, TOL_VEL)
+    log(f"[4 ihgp] kernel fleet B=8 x 3 steps: launches {counts}; bit for bit each stream's "
+        f"bind_env; stream 0 vs ihgp golden {e_s0}")
+
+
+def phase_timings_slice11(dev, smi, P, M, T):
+    """The headline under ``ihgp`` beside ``lpf``, in turns (lpf, ihgp,
+    ihgp, lpf), each side's range logged: ``bind_env`` and
+    ``bind_env_multi`` ms/frame by CUDA events and their device ops per
+    frame (torch.profiler, one trace per turn); K4's device us per call
+    (torch.profiler) at 1 x 1 and 1 x 8; then ``bind_env_pipelined`` beside
+    ``bind_env_multi`` in turns (multi, pipelined, pipelined, multi)."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import micro_torch_digits
+
+    def k4_device(fn):
+        """(device us per K4 launch, device ops recorded per call) from
+        torch.profiler over 50 calls of one launch each: the profiler drops
+        events now and then, so the time is the mean over the launches it
+        recorded."""
+        us, ops = micro_torch_digits.device_profile(fn, 50)
+        return us / ops, ops
+
+    cfg, env, _ = bench_cases.headline_case(device=dev)
+    trackers = {pf: Tracker(cfg.replace(position_filter=pf), dev) for pf in ("lpf", "ihgp")}
+    scenes = {(pf, b, s_fr): track_scene(5, tr.config, tr.config.caps.k_max_tracks,
+                                         tr.config.caps.c_max_clusters, b, s_fr, (), dev)
+              for pf, tr in trackers.items() for b, s_fr in ((1, 1), (1, 8))}
+    turns = ("lpf", "ihgp", "ihgp", "lpf")
+    readings = {pf: [] for pf in trackers}
+    for pf in turns:
+        tr = trackers[pf]
+        ms_s, ms_m = time_path(tr, env, P, M, T)
+        step, multi = tr.bind_env(env), tr.bind_env_multi(env)
+
+        def one():
+            st = tr.init_state()
+            for k in range(8):
+                st, _ = step(st, Frame(P[k], M[k], T[k]))
+
+        def eight():
+            multi(tr.init_state(), Frame(P[:8], M[:8], T[:8]))
+
+        (o1, s1), (o8, s8) = trace_counts(one, 8), trace_counts(eight, 8)
+        if s1 or s8:
+            fail(f"headline {pf}: host syncs per frame {s1} / {s8} (0 expected)")
+        k4 = [k4_device(lambda: track_cuda.track_frames(*scenes[pf, b, s_fr], config=tr.config,
+                                                         gains_xy=tr.gains_xy))
+              for b, s_fr in ((1, 1), (1, 8))]
+        readings[pf].append((ms_s, ms_m, o1, o8, k4[0][0], k4[1][0], k4[0][1], k4[1][1]))
+        log(f"[5 timing] {smi}: headline {pf} (turn {len(readings[pf])} of 2) bind_env "
+            f"{ms_s:.4f} ms/frame ({1e3 / ms_s:.1f} clouds/s); bind_env_multi S=8 {ms_m:.4f} "
+            f"ms/frame ({1e3 / ms_m:.1f} clouds/s); host syncs per frame {s1:.3f} / {s8:.3f}; "
+            f"device ops per frame bind_env {o1:.2f}, bind_env_multi {o8:.2f}; K4 {pf} K=64 "
+            f"D=32 1 x 1 / 1 x 8: device {k4[0][0]:.2f} / {k4[1][0]:.2f} us per launch "
+            f"({k4[0][1]:.2f} / {k4[1][1]:.2f} ops recorded per call) (torch.profiler)")
+    names = ("bind_env ms/frame", "bind_env_multi ms/frame", "bind_env device ops/frame",
+             "bind_env_multi device ops/frame", "K4 1x1 device us/launch",
+             "K4 1x8 device us/launch", "K4 1x1 ops recorded/call", "K4 1x8 ops recorded/call")
+    for pf, rows in readings.items():
+        log(f"[5 timing] {smi}: headline {pf}, range over its 2 turns (lpf, ihgp, ihgp, lpf): "
+            + "; ".join(f"{n} {min(r[i] for r in rows):.4f}-{max(r[i] for r in rows):.4f}"
+                        for i, n in enumerate(names)))
+    for pf, rows in readings.items():
+        for i in (2, 3, 6, 7):          # one program: its op count cannot change between turns
+            if rows[0][i] != rows[1][i] or (i > 5 and rows[0][i] != 1):
+                log(f"[5 timing] {smi}: headline {pf} {names[i]} read {rows[0][i]} and "
+                    f"{rows[1][i]} in its two turns: the profiler dropped events, so the "
+                    "larger is a lower bound, not a count")
+
+    tr = trackers["ihgp"]
+    multi, pipe = tr.bind_env_multi(env), tr.bind_env_pipelined(env)
+
+    def run(fn):
+        def go():
+            st = tr.init_state()
+            for d in range(P.shape[0] // 8):
+                sl = slice(8 * d, 8 * d + 8)
+                st, _ = fn(st, Frame(P[sl], M[sl], T[sl]))
+        return go
+
+    n = P.shape[0]
+    m1 = cuda_ms(run(multi), 3) / n
+    p1 = cuda_ms(run(pipe), 3) / n
+    p2 = cuda_ms(run(pipe), 3) / n
+    m2 = cuda_ms(run(multi), 3) / n
+    log(f"[5 timing] {smi}: headline ihgp bind_env_pipelined S=8 {p1:.4f}/{p2:.4f} "
+        f"ms/frame beside bind_env_multi S=8 {m1:.4f}/{m2:.4f} (run multi, pipelined, "
+        f"pipelined, multi)")
+
+
 KERNELS = (
     ("K1", "voxel_grid fast-digit histogram + finalize, one launch (cell ranges x point-chunk "
      "clusters)",
@@ -2191,6 +2600,10 @@ KERNELS = (
      f"{PKG}/csrc/circumcenter.cu", "multiple_object_tracking_lidar_tpu/ops/centroid_pallas.py:456"),
     ("K4", "the whole greedy + LPF track step (decision scan, window updates, chained IHGP "
      "passes, LPF, expiry), one CTA per bank, S frames scanned in order",
+     f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188"),
+    ("K4 ihgp", "K4 under position_filter=ihgp: an IHGP position pass chained before each "
+     "velocity pass (W_pos's weights beside W_vel's in shared memory; timed at K = 64 1 x 1, "
+     "launched on the CLI's ihgp run)",
      f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188"),
     ("K4 scan", "K4's decision scan alone (the TPU kernel's function, from the same device "
      "function)", f"{PKG}/csrc/assign.cu",
@@ -2255,7 +2668,10 @@ def main() -> int:
     phase_kernels_slice5(dev, report, cfg, k1_inputs, table)
     phase_kernels_slice7(dev, report)
     phase_kernels_slice8(dev, report, cfg, k1_inputs)
+    phase_kernels_slice11(dev, smi, report, cfg)
     tracker, env, frames = phase_slice(dev, cfg, sc, report)
+    phase_cli(dev, report)
+    phase_ihgp(dev, report)
     phase_modes(dev, report)
     phase_pointlist(dev, report)
     phase_g_grid(dev, report)
@@ -2264,6 +2680,7 @@ def main() -> int:
     phase_growth(dev, report)
     phase_timings(dev, cfg, smi, tracker, env, frames, report)
     phase_timings_fleet(dev, smi, fleet, fleet_env, fleet_in)
+    phase_timings_slice11(dev, smi, *frames)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": f"{k}: {desc}", "route": "cuda", "source": src, "replaces": rep,

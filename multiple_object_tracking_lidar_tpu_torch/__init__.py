@@ -7,7 +7,8 @@ wrapped in an ``ops/*_cuda.py`` module beside its plain PyTorch version:
 a CUDA tensor launches the kernel, a CPU tensor runs the plain version.
 
 Host modules that need only numpy (``config``, ``utils/*``, ``io/*``,
-``models/matern32``, ``outputs/messages`` and the f64 gain builders in
+``models/matern32``, ``outputs/messages``, ``outputs/svg``, the stage
+timers of ``runtime/profiler`` and the f64 gain builders in
 ``models/ihgp``) are copies: the JAX package's ``__init__`` imports JAX, so
 none of its modules can be imported where JAX is absent.  The tests pin
 each copy against its original.

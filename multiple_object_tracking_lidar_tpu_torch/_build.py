@@ -61,7 +61,7 @@ SIGNATURES = {
     "motl_circumcenter_features": [_P, _P, _P, _I, _I, _I, _P, _P],
     "motl_assoc_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P,
                         _P, _P],
-    "motl_track_step": [*[_P] * 16, _I, _I, _I, _I, _I, *[_F] * 7, _I, *[_P] * 17],
+    "motl_track_step": [*[_P] * 20, _I, _I, _I, _I, _I, _I, *[_F] * 7, _I, *[_P] * 17],
     "motl_voxel_exact": _DIGITS,
     "motl_voxel_bf16x3": [_P, _P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _I, _I,
                           _I, _I, _I, _F, _F, _I, _P],
@@ -70,8 +70,8 @@ SIGNATURES = {
     "motl_segment_totals": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P,
                             _P, _I, _P],
     "motl_segment_totals_rows": [_P, _P, _I, _I, _I, _P, _P, _I, _P],
-    "motl_cc_adjacency": [_P, _I, _P, _I, _I, _I, _F, _I, _P, _P, _P],
-    "motl_cc_labels": [_P, _I, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P],
+    "motl_cc_adjacency": [_P, _I, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P],
+    "motl_cc_labels": [_P, _I, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P],
     "motl_transpose32": [_P, _P, _I, _I, _I, _P],
 }
 

@@ -1,5 +1,5 @@
-// K4: the whole greedy + LPF track step, one CTA per track bank, and its
-// decision scan alone.
+// K4: the whole greedy track step (LPF or IHGP positions), one CTA per track
+// bank, and its decision scan alone.
 //
 // Replaces the Pallas kernel multiple_object_tracking_lidar_tpu/ops/
 // assign_pallas.py::assoc_scan_pallas (body _kernel) and, around it, the
@@ -27,6 +27,12 @@
 //    plain version with one host sync per frame (max mult).
 // 4. Output: the LPF position, the velocity clamp (NaN-preserving), expiry
 //    of stale tracks every prune period, and every FrameOutput field.
+//    Under position_filter="ihgp" (the kIhgp instantiations, the reference's
+//    present-but-disabled mode, JAX tracker/pipeline.py:1015-1022) each
+//    pass is two chained smoother passes: the position pass from the carry
+//    over the window's xy less its last row (W_pos), then the velocity pass
+//    from the position pass's carry; detection d publishes both from pass
+//    ordinal[d].
 //
 // What bounds it on the H100: latency.  The scan is sequential over at
 // most D <= 128 detections, a few dozen instructions each; the rest is a
@@ -41,16 +47,20 @@
 // K = 1,024 and L = 40), each lane updating its own row in place
 // (ascending rows: every shift reads a row ahead of the one it writes).
 // The detections, the per-detection decisions and the smoother weights
-// (W_vel's last rows Wy, Wm and the carries My, Mm) sit in shared memory.
+// (W_vel's last rows Wy, Wm and the carries My, Mm; under ihgp W_pos's
+// too) sit in shared memory.
 // Each detection of the scan needs four block-wide reductions ("any gated",
 // "smallest birth_seq among gated", "lowest free slot", "bank full"), done
 // with warp shuffles plus one shared-memory exchange across the warps.
 // Bounds: K <= 1,024 (one lane per slot, the largest CTA), D <= 128 (the
 // shared detection buffer); past them the track step takes its plain
-// route (tracker/pipeline.py).  Built twice, for CTAs of up to 128 and of
-// up to 1,024 threads: a 1,024-thread bound caps ptxas at 64 registers per
+// route (tracker/pipeline.py).  Built for CTAs of up to 128 and of up to
+// 1,024 threads: a 1,024-thread bound caps ptxas at 64 registers per
 // thread, so banks of K <= 128 (the default K = 64) launch the 128-thread
-// build and keep their registers.
+// build and keep their registers.  Each width is built once per position
+// filter (kIhgp): the ihgp pass's eight more live floats would otherwise
+// add spills to the lpf path of the 1,024-thread build (measured: 4% more
+// device time there).
 //
 // Arithmetic: every f32 product, sum and quotient is __fmul_rn /
 // __fadd_rn / __fsub_rn / __fdiv_rn, each reduction ascending in its index
@@ -284,6 +294,10 @@ struct TrackArgs {
   const float* wm;        // W_vel Wm (2, L-1, 2): row L-2
   const float* my;        // W_vel My (2, 2, L-1)
   const float* mm;        // W_vel Mm (2, 2, 2)
+  const float* pwy;       // W_pos Wy (2, L, L): row L-1 is eft's (read under ihgp)
+  const float* pwm;       // W_pos Wm (2, L, 2): row L-1
+  const float* pmy;       // W_pos My (2, 2, L)
+  const float* pmm;       // W_pos Mm (2, 2, 2)
   int S, K, D, L;
   float thr, gapthr, dt, vmax, lpf_a, lpf_b, prune_period;
   int prune_spin;
@@ -375,9 +389,11 @@ __device__ void update_window(float4* w, int L, const float* s_det, const Decisi
   }
 }
 
-template <int kLanes>
+template <int kLanes, bool kIhgp>
 __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
-  extern __shared__ float s_w[];  // wy_last (2, L-1), wm_last (2, 2), my (2, 2, L-1), mm (2, 2, 2)
+  // W_vel: wy_last (2, L-1), wm_last (2, 2), my (2, 2, L-1), mm (2, 2, 2);
+  // then under ihgp W_pos: wy_last (2, L), wm_last (2, 2), my (2, 2, L), mm (2, 2, 2)
+  extern __shared__ float s_w[];
   __shared__ float s_det[kMaxDets * 4];
   __shared__ int s_dv[kMaxDets];
   __shared__ int s_act[kMaxDets];
@@ -399,6 +415,20 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
   for (int i = k; i < 4; i += blockDim.x) wm[i] = a.wm[((i >> 1) * L1 + (L1 - 1)) * 2 + (i & 1)];
   for (int i = k; i < 4 * L1; i += blockDim.x) my[i] = a.my[i];
   for (int i = k; i < 8; i += blockDim.x) mm[i] = a.mm[i];
+  float* pwy = mm + 8;
+  float* pwm = pwy + 2 * L;
+  float* pmy = pwm + 4;
+  float* pmm = pmy + 4 * L;
+  if constexpr (kIhgp) {
+    for (int i = k; i < 2 * L; i += blockDim.x) {
+      const int ax = i / L, l = i % L;
+      pwy[i] = a.pwy[((size_t)ax * L + (L - 1)) * L + l];
+    }
+    for (int i = k; i < 4; i += blockDim.x)
+      pwm[i] = a.pwm[((i >> 1) * L + (L - 1)) * 2 + (i & 1)];
+    for (int i = k; i < 4 * L; i += blockDim.x) pmy[i] = a.pmy[i];
+    for (int i = k; i < 8; i += blockDim.x) pmm[i] = a.pmm[i];
+  }
 
   // this lane's slot: summary and carry in registers, window row in place
   // in the output buffer
@@ -493,9 +523,31 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
             myv[ax][1] = l ? __fadd_rn(myv[ax][1], c1) : c1;
           }
         }
-        float pos[2];
-        pos[0] = __fadd_rn(__fmul_rn(a.lpf_a, w[L - 2].x), __fmul_rn(a.lpf_b, w[L - 1].x));
-        pos[1] = __fadd_rn(__fmul_rn(a.lpf_a, w[L - 2].y), __fmul_rn(a.lpf_b, w[L - 1].y));
+        // the position: LPF once per frame, or under ihgp the y-parts of
+        // the position smoother (pmean = the last row's xy, y_l = row l's
+        // xy less pmean), ascending in l, and a position pass per pass
+        float pos[2], pmean[2], eyp[2], myp[2][2];
+        if constexpr (kIhgp) {
+          pmean[0] = w[L - 1].x;
+          pmean[1] = w[L - 1].y;
+#pragma unroll 8
+          for (int l = 0; l < L; ++l) {
+            const float4 cur = w[l];
+            const float yv[2] = {__fsub_rn(cur.x, pmean[0]), __fsub_rn(cur.y, pmean[1])};
+#pragma unroll
+            for (int ax = 0; ax < 2; ++ax) {
+              const float e = __fmul_rn(yv[ax], pwy[ax * L + l]);
+              const float c0 = __fmul_rn(yv[ax], pmy[(ax * 2 + 0) * L + l]);
+              const float c1 = __fmul_rn(yv[ax], pmy[(ax * 2 + 1) * L + l]);
+              eyp[ax] = l ? __fadd_rn(eyp[ax], e) : e;
+              myp[ax][0] = l ? __fadd_rn(myp[ax][0], c0) : c0;
+              myp[ax][1] = l ? __fadd_rn(myp[ax][1], c1) : c1;
+            }
+          }
+        } else {
+          pos[0] = __fadd_rn(__fmul_rn(a.lpf_a, w[L - 2].x), __fmul_rn(a.lpf_b, w[L - 1].x));
+          pos[1] = __fadd_rn(__fmul_rn(a.lpf_a, w[L - 2].y), __fmul_rn(a.lpf_b, w[L - 1].y));
+        }
         // chained passes, run as detections ask for them: detection d
         // reads pass ordinal[d] = (updates of slot k at or before d) - 1
         float vel[2] = {0.f, 0.f};
@@ -506,6 +558,19 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
           if (cnt == 0) continue;
           while (done < cnt) {
             float mn[2][2];
+            if constexpr (kIhgp) {  // the position pass; the velocity pass chains on its carry
+              for (int ax = 0; ax < 2; ++ax) {
+                const float em = __fadd_rn(__fmul_rn(m[ax][0], pwm[2 * ax]),
+                                           __fmul_rn(m[ax][1], pwm[2 * ax + 1]));
+                pos[ax] = __fadd_rn(__fadd_rn(eyp[ax], em), pmean[ax]);
+                for (int tt = 0; tt < 2; ++tt) {
+                  mn[ax][tt] = __fadd_rn(
+                      myp[ax][tt], __fadd_rn(__fmul_rn(m[ax][0], pmm[(ax * 2 + tt) * 2]),
+                                             __fmul_rn(m[ax][1], pmm[(ax * 2 + tt) * 2 + 1])));
+                }
+              }
+              for (int q = 0; q < 4; ++q) m[q >> 1][q & 1] = mn[q >> 1][q & 1];
+            }
             for (int ax = 0; ax < 2; ++ax) {
               const float em = __fadd_rn(__fmul_rn(m[ax][0], wm[2 * ax]),
                                          __fmul_rn(m[ax][1], wm[2 * ax + 1]));
@@ -598,8 +663,10 @@ extern "C" int motl_assoc_scan(const float* af0, const int* ai0, const float* de
 // alive (B, K) u8, obj_id (B, K) i32, birth_seq (B, K) i32, window (B, K,
 // L, 4) f32, m0 (B, K, 2, 2) f32, next_obj_num / next_birth / spin (B,)
 // i32, initialized (B,) u8; W_vel's Wy (2, L-1, L-1), Wm (2, L-1, 2), My
-// (2, 2, L-1), Mm (2, 2, 2) f32.  Outputs: the state after the S frames in
-// the same layouts, and per frame publish (B, S) u8, valid / new_track
+// (2, 2, L-1), Mm (2, 2, 2) f32; W_pos's Wy (2, L, L), Wm (2, L, 2), My
+// (2, 2, L), Mm (2, 2, 2) f32, read only when ihgp != 0 (the position
+// filter is "ihgp").  Outputs: the state after the S frames in the same
+// layouts, and per frame publish (B, S) u8, valid / new_track
 // (B, S, D) u8, obj_id (B, S, D) i32, pos / vel (B, S, D, 2) f32, counts
 // (B, S, 4) i32 [n_alive, overflow, dup_saturated, assoc_saturated].
 // 1 <= K <= 1024, 1 <= D <= 128, L >= 2.
@@ -607,7 +674,8 @@ extern "C" int motl_track_step(
     const float* dets, const uint8_t* dv, const float* t, const uint8_t* alive_in,
     const int* oid_in, const int* birth_in, const float* win_in, const float* m0_in,
     const int* nobj_in, const int* nbirth_in, const int* spin_in, const uint8_t* init_in,
-    const float* wy, const float* wm, const float* my, const float* mm, int B, int S, int K,
+    const float* wy, const float* wm, const float* my, const float* mm, const float* pwy,
+    const float* pwm, const float* pmy, const float* pmm, int ihgp, int B, int S, int K,
     int D, int L, float thr, float gapthr, float dt, float vmax, float lpf_a, float lpf_b,
     float prune_period, int prune_spin, uint8_t* alive_out, int* oid_out, int* birth_out,
     float* win_out, float* m0_out, int* nobj_out, int* nbirth_out, int* spin_out,
@@ -616,16 +684,21 @@ extern "C" int motl_track_step(
   if (B < 1 || S < 1 || K < 1 || K > kMaxLanes || D < 1 || D > kMaxDets || L < 2)
     return (int)cudaErrorInvalidValue;
   TrackArgs a{dets, dv, t, alive_in, oid_in, birth_in, win_in, m0_in, nobj_in, nbirth_in,
-              spin_in, init_in, wy, wm, my, mm, S, K, D, L, thr, gapthr, dt, vmax, lpf_a,
-              lpf_b, prune_period, prune_spin, alive_out, oid_out, birth_out, win_out, m0_out,
-              nobj_out, nbirth_out, spin_out, init_out, publish, valid, obj_id, pos, vel,
-              new_track, counts};
+              spin_in, init_in, wy, wm, my, mm, pwy, pwm, pmy, pmm, S, K, D, L, thr,
+              gapthr, dt, vmax, lpf_a, lpf_b, prune_period, prune_spin, alive_out, oid_out,
+              birth_out, win_out, m0_out, nobj_out, nbirth_out, spin_out, init_out, publish,
+              valid, obj_id, pos, vel, new_track, counts};
   const int threads = (K + 31) / 32 * 32;
-  const size_t smem = (size_t)(6 * (L - 1) + 4 + 8) * sizeof(float);
+  const size_t smem =
+      (size_t)(6 * (L - 1) + 4 + 8 + (ihgp ? 6 * L + 4 + 8 : 0)) * sizeof(float);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (threads <= kNarrowLanes)
-    track_step_kernel<kNarrowLanes><<<B, threads, smem, st>>>(a);
+  if (threads <= kNarrowLanes && ihgp)
+    track_step_kernel<kNarrowLanes, true><<<B, threads, smem, st>>>(a);
+  else if (threads <= kNarrowLanes)
+    track_step_kernel<kNarrowLanes, false><<<B, threads, smem, st>>>(a);
+  else if (ihgp)
+    track_step_kernel<kMaxLanes, true><<<B, threads, smem, st>>>(a);
   else
-    track_step_kernel<kMaxLanes><<<B, threads, smem, st>>>(a);
+    track_step_kernel<kMaxLanes, false><<<B, threads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }

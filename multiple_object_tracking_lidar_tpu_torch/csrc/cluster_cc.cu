@@ -48,6 +48,14 @@
 // The cc_adjacency entry (K8a) runs 1 and 2 and writes the bool (M, M)
 // matrix of its rows instead of sweeping; the jnp backend (ops/cluster.py)
 // sweeps that, so both backends test the same d2 bits.
+// Past kMaxRows, where p and sq of the frame alone fill a CTA's shared
+// memory, the same steps run with the frame in device memory
+// (cc_kernel<., true>): each CTA's p, sq and tree partials in a scratch of
+// its own, the adjacency words in device memory, and the labels one
+// double-buffered copy per frame in device memory, each rank writing only
+// its own rows (st.global.cg) and reading every row from L2 (ld.global.cg);
+// the cluster barrier that ends a sweep orders those writes before the next
+// sweep's reads.  Only the valid-row bits stay in shared memory.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -60,6 +68,7 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kWindow = 32;       // XLA's tree-reduction window on the CPU
 constexpr int kMaxRows = 8192;    // M; its P and sq fill 128 KB of shared memory
+constexpr int kMaxDeviceRows = 65536;  // M with the frame in device memory
 constexpr int kMaxCluster = 16;   // non-portable on the H100 (portable: 8)
 constexpr float kInvalidSq = 3e38f;
 
@@ -70,17 +79,35 @@ struct Frame {
   int mfs;
 };
 
+// P, SQ and the tree partials of one CTA: 4M + 6 ceil(M / 32) floats.
+__host__ __device__ inline size_t frame_floats(int M) {
+  return 4 * (size_t)M + 6 * (size_t)((M + kWindow - 1) / kWindow);
+}
+
+// A label of the sweeps: from L2 when the labels lie in device memory
+// (another SM's rank wrote it), else from shared memory.
+template <bool kDeviceFrame>
+__device__ __forceinline__ int ld_label(const int* p) {
+  if constexpr (kDeviceFrame) return __ldcg(p);
+  else return *p;
+}
+
 // Shared memory: [bits (R rows of W + 1 u32: the odd row stride keeps both
 // the build's column walk and the sweeps' row walk free of bank conflicts)
 // when they fit][P (3M) | SQ (M) | tree partials] -- the last region holds
-// the labels (2M i32) once the adjacency is built.
-template <bool kLabels>
+// the labels (2M i32) once the adjacency is built.  With kDeviceFrame it
+// holds the valid-row bits alone (W u32); P, SQ and the partials lie at
+// frame_global + blockIdx.x * frame_floats(M), the bits in bits_global, the
+// labels of frame s at lab_global + 2 s M.
+template <bool kLabels, bool kDeviceFrame>
 __global__ void __launch_bounds__(kThreads)
 cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_smem,
-          unsigned* __restrict__ bits_global, int* __restrict__ labels,
+          unsigned* __restrict__ bits_global, float* __restrict__ frame_global,
+          int* __restrict__ lab_global, int* __restrict__ labels,
           int* __restrict__ sweeps, uint8_t* __restrict__ adj) {
   extern __shared__ unsigned sm[];
-  __shared__ unsigned s_vm[kMaxRows / 32];  // valid rows, one bit each
+  __shared__ unsigned s_vm[kDeviceFrame ? 1 : kMaxRows / 32];  // valid rows, one bit each
+  unsigned* vm = kDeviceFrame ? sm : s_vm;
   __shared__ float s_c[3];
   __shared__ int s_cnt;
   __shared__ int s_vote[3];
@@ -90,8 +117,9 @@ cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_sm
   const int t = threadIdx.x;
   const float* X = f.pts + (size_t)s * f.pfs;
   const uint8_t* MK = f.mask + (size_t)s * f.mfs;
-  unsigned* bits = bits_in_smem ? sm : bits_global + (size_t)blockIdx.x * Wp * R;
-  float* P = reinterpret_cast<float*>(bits_in_smem ? sm + (size_t)Wp * R : sm);
+  unsigned* bits = (!kDeviceFrame && bits_in_smem) ? sm : bits_global + (size_t)blockIdx.x * Wp * R;
+  float* P = kDeviceFrame ? frame_global + (size_t)blockIdx.x * frame_floats(M)
+                          : reinterpret_cast<float*>(bits_in_smem ? sm + (size_t)Wp * R : sm);
   float* SQ = P + 3 * M;
   const int nb0 = (M + kWindow - 1) / kWindow;
   float* part[2] = {SQ + M, SQ + M + 3 * nb0};
@@ -99,7 +127,7 @@ cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_sm
 
   // ---- 1. prep: count, tree column sum, p, sq (every CTA, all rows) ------
   if (t == 0) s_cnt = 0;
-  for (int w = t; w < W; w += blockDim.x) s_vm[w] = 0u;
+  for (int w = t; w < W; w += blockDim.x) vm[w] = 0u;
   if (t < 3) s_vote[t] = 0;
   __syncthreads();
   int local = 0;
@@ -107,12 +135,12 @@ cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_sm
   for (int i = t; i < M; i += blockDim.x) {
     if (MK[i]) {
       ++local;
-      atomicOr(&s_vm[i >> 5], 1u << (i & 31));
+      atomicOr(&vm[i >> 5], 1u << (i & 31));
     }
   }
   atomicAdd(&s_cnt, local);
   __syncthreads();
-  auto valid = [&](int i) { return (s_vm[i >> 5] >> (i & 31)) & 1u; };
+  auto valid = [&](int i) { return (vm[i >> 5] >> (i & 31)) & 1u; };
   for (int q = t; q < 3 * nb0; q += blockDim.x) {  // windows of 32 rows of pts * mask
     const int k = q / nb0, b = q - k * nb0;
     float a = 0.0f;
@@ -164,7 +192,7 @@ cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_sm
     if (i < M && (!prune || valid(i))) {
       const float x = P[3 * i], y = P[3 * i + 1], z = P[3 * i + 2], sqi = SQ[i];
       const int nj = min(32, M - 32 * w);
-      unsigned cand = prune ? s_vm[w] : (nj == 32 ? 0xffffffffu : (1u << nj) - 1u);
+      unsigned cand = prune ? vm[w] : (nj == 32 ? 0xffffffffu : (1u << nj) - 1u);
       while (cand) {
         int bb[4];
 #pragma unroll
@@ -221,10 +249,20 @@ cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_sm
   while (G < 32 && G < W) G <<= 1;
   const int rpw = 32 / G;  // rows per warp and step
   int* lab[2] = {reinterpret_cast<int*>(P), reinterpret_cast<int*>(P) + M};
-  for (int i = t; i < M; i += blockDim.x) {
-    const int v = valid(i) ? i : M;
-    lab[0][i] = v;
-    lab[1][i] = v;
+  if (kDeviceFrame) {  // one copy per frame: each rank sets its own rows
+    lab[0] = lab_global + (size_t)s * 2 * M;
+    lab[1] = lab[0] + M;
+    for (int il = t; il < R && il * C + rank < M; il += blockDim.x) {
+      const int i = il * C + rank, v = valid(i) ? i : M;
+      __stcg(lab[0] + i, v);
+      __stcg(lab[1] + i, v);
+    }
+  } else {
+    for (int i = t; i < M; i += blockDim.x) {
+      const int v = valid(i) ? i : M;
+      lab[0][i] = v;
+      lab[1][i] = v;
+    }
   }
   cluster.sync();  // every rank's labels set (its P and sq no longer read)
   int it = 0;
@@ -249,20 +287,23 @@ cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_sm
             }
 #pragma unroll
             for (int u = 0; u < 4; ++u)
-              if (bb[u] >= 0) nmin = min(nmin, cur_l[32 * w + bb[u]]);
+              if (bb[u] >= 0) nmin = min(nmin, ld_label<kDeviceFrame>(cur_l + 32 * w + bb[u]));
           }
         }
       }
       for (int off = G / 2; off > 0; off >>= 1)
         nmin = min(nmin, __shfl_xor_sync(0xffffffffu, nmin, off));
       if (live && lane % G == 0) {
-        const int old = cur_l[i];
+        const int old = ld_label<kDeviceFrame>(cur_l + i);
         const int nv = min(old, nmin);
         changed |= nv != old;
-        // every rank's copies are equal after each sweep: write where the
-        // next buffer (two sweeps old) differs
-        if (nxt_l[i] != nv)
+        if (kDeviceFrame) {
+          __stcg(nxt_l + i, nv);
+        } else if (nxt_l[i] != nv) {
+          // every rank's copies are equal after each sweep: write where the
+          // next buffer (two sweeps old) differs
           for (int r = 0; r < C; ++r) cluster.map_shared_rank(nxt_l, r)[i] = nv;
+        }
       }
     }
     if (__syncthreads_or(changed) && t == 0)
@@ -277,23 +318,23 @@ cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_sm
   }
   const int* fin = lab[it & 1];
   for (int il = t; il < R && il * C + rank < M; il += blockDim.x)
-    labels[(size_t)s * M + il * C + rank] = fin[il * C + rank];
+    labels[(size_t)s * M + il * C + rank] = ld_label<kDeviceFrame>(fin + il * C + rank);
   if (rank == 0 && t == 0) sweeps[s] = it;
 }
 
 // Once per process and device: a kernel's shared-memory limit and its
 // non-portable cluster size.
-template <bool kLabels>
+template <bool kLabels, bool kDeviceFrame>
 cudaError_t allow(size_t smem) {
   static size_t set[16];
   int d = 0;
   cudaError_t err = cudaGetDevice(&d);
   if (err != cudaSuccess) return err;
   if (d < 16 && set[d] >= smem) return cudaSuccess;
-  err = cudaFuncSetAttribute(cc_kernel<kLabels>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  err = cudaFuncSetAttribute(cc_kernel<kLabels, kDeviceFrame>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && kLabels)
-    err = cudaFuncSetAttribute(cc_kernel<kLabels>,
+    err = cudaFuncSetAttribute(cc_kernel<kLabels, kDeviceFrame>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess && d < 16) set[d] = smem;
   return err;
@@ -305,15 +346,19 @@ size_t smem_bytes(int M, int R, bool bits_in_smem) {
   return region + (bits_in_smem ? (size_t)4 * (W + 1) * R : 0);
 }
 
-template <bool kLabels>
+template <bool kLabels, bool kDeviceFrame>
 int launch(const Frame& f, int S, int M, float tol2, int n_sweeps, int cluster,
-           unsigned* bits_global, int* labels, int* sweeps, uint8_t* adj, cudaStream_t st) {
-  if (S < 1 || M < 1 || M > kMaxRows || cluster < 1 || cluster > kMaxCluster)
+           unsigned* bits_global, float* frame_global, int* lab_global, int* labels,
+           int* sweeps, uint8_t* adj, cudaStream_t st) {
+  if (S < 1 || M < 1 || M > (kDeviceFrame ? kMaxDeviceRows : kMaxRows) || cluster < 1 ||
+      cluster > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  if (kDeviceFrame && (bits_global == nullptr || (kLabels && lab_global == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int R = (M + cluster - 1) / cluster;
   const bool in_smem = bits_global == nullptr;
-  const size_t smem = smem_bytes(M, R, in_smem);
-  cudaError_t err = allow<kLabels>(smem);
+  const size_t smem = kDeviceFrame ? (size_t)4 * ((M + 31) / 32) : smem_bytes(M, R, in_smem);
+  cudaError_t err = allow<kLabels, kDeviceFrame>(smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(S * cluster, 1, 1);
@@ -327,9 +372,9 @@ int launch(const Frame& f, int S, int M, float tol2, int n_sweeps, int cluster,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = kLabels ? 1 : 0;  // K8a's CTAs share nothing
-  err = cudaLaunchKernelEx(&cfg, cc_kernel<kLabels>, f, M, tol2, n_sweeps, cluster, R,
-                           (int)in_smem,
-                           bits_global, labels, sweeps, adj);
+  err = cudaLaunchKernelEx(&cfg, cc_kernel<kLabels, kDeviceFrame>, f, M, tol2, n_sweeps,
+                           cluster, R, (int)in_smem, bits_global, frame_global, lab_global,
+                           labels, sweeps, adj);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -340,24 +385,38 @@ int launch(const Frame& f, int S, int M, float tol2, int n_sweeps, int cluster,
 // S frames of M bytes (nonzero = valid), frame s at mask + s * mfs.
 // `cluster` CTAs per frame (1-16); bits_global null keeps the adjacency in
 // shared memory, else it is a scratch of S * cluster * (ceil(M / 32) + 1) *
-// ceil(M / cluster) u32.
+// ceil(M / cluster) u32.  frame_global null keeps the frame in shared memory
+// (M <= 8,192); else it is a scratch of S * cluster * (4 M + 6 ceil(M / 32))
+// f32 and then S * 2 M i32 for K8's labels (M <= 65,536; bits_global then
+// required).
 
 // K8a: adj (S, M, M) bool (one byte each), row i column j set when rows i
 // and j are adjacent.
 extern "C" int motl_cc_adjacency(const float* pts, int pfs, const uint8_t* mask, int mfs, int S,
                                  int M, float tol2, int cluster, unsigned* bits_global,
-                                 uint8_t* adj, void* stream) {
+                                 float* frame_global, uint8_t* adj, void* stream) {
   const Frame f{pts, pfs, mask, mfs};
-  return launch<false>(f, S, M, tol2, 0, cluster, bits_global, nullptr, nullptr, adj,
-                       (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (frame_global)
+    return launch<false, true>(f, S, M, tol2, 0, cluster, bits_global, frame_global, nullptr,
+                               nullptr, nullptr, adj, st);
+  return launch<false, false>(f, S, M, tol2, 0, cluster, bits_global, nullptr, nullptr, nullptr,
+                              nullptr, adj, st);
 }
 
 // K8: labels (S, M) i32; sweeps (S,) i32 the sweeps run (the last one
 // changed nothing unless the cap cut the loop).
 extern "C" int motl_cc_labels(const float* pts, int pfs, const uint8_t* mask, int mfs, int S,
                               int M, float tol2, int n_sweeps, int cluster,
-                              unsigned* bits_global, int* labels, int* sweeps, void* stream) {
+                              unsigned* bits_global, float* frame_global, int* labels,
+                              int* sweeps, void* stream) {
   const Frame f{pts, pfs, mask, mfs};
-  return launch<true>(f, S, M, tol2, n_sweeps, cluster, bits_global, labels, sweeps, nullptr,
-                      (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (frame_global) {
+    int* lab_global = reinterpret_cast<int*>(frame_global + (size_t)S * cluster * frame_floats(M));
+    return launch<true, true>(f, S, M, tol2, n_sweeps, cluster, bits_global, frame_global,
+                              lab_global, labels, sweeps, nullptr, st);
+  }
+  return launch<true, false>(f, S, M, tol2, n_sweeps, cluster, bits_global, nullptr, nullptr,
+                             labels, sweeps, nullptr, st);
 }

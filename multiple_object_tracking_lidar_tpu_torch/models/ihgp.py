@@ -6,7 +6,8 @@ The builders (``dare_fixed_point``, ``IHGPGains``, ``stationary_gains``,
 ``multiple_object_tracking_lidar_tpu/models/ihgp.py`` (numpy + scipy, run
 once on the host in f64; the JAX package cannot be imported without JAX).
 The per-frame apply of the weights is the track step's
-(``ops/track_cuda.py``: ``smoother_parts``, ``velocity_pass`` and K4).
+(``ops/track_cuda.py``: ``smoother_parts``, ``position_parts``,
+``smoother_pass`` and K4).
 The scan forms and the learning-mode recursions are not ported yet
 (ROADMAP).
 """

@@ -16,6 +16,11 @@ p0 * q0))``; d2 = (sq_i + sq_j) - 2 * gram.  The plain version computes
 each FMA exactly from f64 ops (``fma32``), so the adjacency -- and so the
 labels, cut-short sweeps included -- is the interpret-mode kernel's.
 
+Past ``MAX_ROWS`` = 8,192 rows, where a frame's p and sq alone fill a CTA's
+shared memory, both entries run the same kernel body with the frame in
+device memory (``_layout``): each CTA's p and sq, the adjacency words and
+K8's labels in device-memory scratches, up to ``MAX_DEVICE_ROWS``.
+
 - ``connected_components_pallas``: labels (min point index per component,
   M for invalid rows); K8 on CUDA tensors, ``..._plain`` on CPU tensors.
 - ``cc_adjacency``: K8's adjacency stage alone (K8a, the same kernel body
@@ -38,14 +43,16 @@ from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32
 BLOCK = 256         # cluster_pallas.py::_BLOCK: M % 256 == 0 for M > 256
 TREE_WINDOW = 32    # XLA's CPU tree-reduction window
 INVALID_SQ = 3e38   # squared norm of an invalid row: d2 > tol2 against all
-MAX_ROWS = 8192     # K8's M bound: p and sq of 8,192 rows fill 128 KB of a CTA
+MAX_ROWS = 8192     # the frame in shared memory: p and sq of 8,192 rows fill 128 KB of a CTA
+MAX_DEVICE_ROWS = 65536  # the frame in device memory: K8a's bool (M, M) is then 4 GiB a frame
 ROWS_PER_CTA = 64   # cc_layout: rows per CTA before the cluster grows (micro_torch_cc_segsum.py --sweep)
 SMEM_BYTES = 232448  # what one H100 block may use (227 KB)
 STATIC_SMEM = 2048   # the kernel's static shared arrays, rounded up
 
 
 def check_rows(m: int) -> None:
-    """The Pallas wrapper's shape rule."""
+    """The Pallas wrapper's shape rule, K8's alone (the jnp CC, whose
+    adjacency K8a computes, takes any M)."""
     block = min(BLOCK, m)
     if m % block != 0:
         raise ValueError(f"M must be a multiple of {block}, got {m}")
@@ -156,7 +163,7 @@ def cc_layout(m: int, device=None) -> tuple[int, bool]:
     words in shared memory beside the frame's p and sq; where even the
     largest cluster cannot, the largest, with the words in a device-memory
     scratch.  Raises past ``MAX_ROWS``, where p and sq alone fill a CTA's
-    shared memory."""
+    shared memory (``_layout`` then puts the frame in device memory)."""
     from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import max_cluster
 
     if not 1 <= m <= MAX_ROWS:
@@ -195,33 +202,47 @@ def _mask_frames(mask: torch.Tensor):
     return mask, mask.stride(0)
 
 
+def _layout(m: int, cluster: int | None, device) -> tuple[int, bool, bool]:
+    """(CTAs per frame, adjacency bits in shared memory, frame in device
+    memory) for frames of M rows: ``cc_layout``'s (or the ``cluster`` asked
+    for) up to ``MAX_ROWS``; past it the largest cluster (or the one asked
+    for) with the frame and the bits in device memory.  Raises past
+    ``MAX_DEVICE_ROWS``."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import max_cluster
+
+    if not 1 <= m <= MAX_DEVICE_ROWS:
+        raise ValueError(f"K8 takes 1 to {MAX_DEVICE_ROWS} rows per frame, got M = {m}")
+    top = max_cluster(device)
+    device_frame = m > MAX_ROWS
+    if cluster is None:
+        return (top, False, True) if device_frame else (*cc_layout(m, device), False)
+    if cluster not in (1, 2, 4, 8, 16) or cluster > top:
+        raise ValueError(f"cluster must be a power of two up to {top}")
+    return cluster, not device_frame and fits_smem(m, cluster), device_frame
+
+
 def _launch(entry, pts, mask, tol, cluster, extra, outs):
     """One launch of a K8 entry on S frames: the layout, the inputs read
-    where they lie, the adjacency scratch when it leaves shared memory."""
+    where they lie, the adjacency scratch when it leaves shared memory, and
+    the frame's scratch (each CTA's p, sq and partials, then K8's labels)
+    when the frame does."""
     p = pts[None] if pts.dim() == 2 else pts
     s, m = p.shape[:2]
     mk = mask.reshape(s, m)
-    check_rows(m)
-    if cluster is None:
-        cluster, in_smem = cc_layout(m, p.device)
-    else:
-        from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import max_cluster
-
-        cc_layout(m)  # the row bound
-        top = max_cluster(p.device)
-        if cluster not in (1, 2, 4, 8, 16) or cluster > top:
-            raise ValueError(f"cluster must be a power of two up to {top}")
-        in_smem = fits_smem(m, cluster)
+    cluster, in_smem, device_frame = _layout(m, cluster, p.device)
     p, pfs = _frames(p)
     mk, mfs = _mask_frames(mk)
-    bits = None
+    bits = frame = None
     if not in_smem:
         bits = torch.empty(s * cluster * (-(-m // 32) + 1) * -(-m // cluster), dtype=torch.int32,
                            device=p.device)
+    if device_frame:
+        frame = torch.empty(s * cluster * (4 * m + 6 * -(-m // 32)) + s * 2 * m,
+                            dtype=torch.float32, device=p.device)
     err = getattr(_build.load(), entry)(
         p.data_ptr(), pfs, mk.data_ptr(), mfs, s, m, tol2_f32(tol), *extra, cluster,
-        None if bits is None else bits.data_ptr(), *(o.data_ptr() for o in outs),
-        _build.stream_ptr(p.device),
+        *(None if b is None else b.data_ptr() for b in (bits, frame)),
+        *(o.data_ptr() for o in outs), _build.stream_ptr(p.device),
     )
     _build.check(err, entry)
 
@@ -256,6 +277,7 @@ def connected_components_pallas(pts: torch.Tensor, mask: torch.Tensor, tol: floa
     if pts.device.type == "cpu":
         return connected_components_pallas_plain(pts, mask, tol, n_sweeps, with_sweeps)
     s, n = (1,) + pts.shape[:1] if pts.dim() == 2 else pts.shape[:2]
+    check_rows(n)
     labels = torch.empty((s, n), dtype=torch.int32, device=pts.device)
     sweeps = torch.empty((s,), dtype=torch.int32, device=pts.device)
     _launch("motl_cc_labels", pts, mask, tol, cluster, (int(n_sweeps),), (labels, sweeps))

@@ -1,5 +1,7 @@
 """K4: the whole track step -- association, window updates, the chained
-IHGP velocity passes, LPF positions, expiry -- in one launch.
+IHGP velocity passes, LPF positions (or under ``position_filter="ihgp"``
+an IHGP position pass chained before each velocity pass), expiry -- in one
+launch.
 
 Replaces the Pallas kernel ``multiple_object_tracking_lidar_tpu/ops/
 assign_pallas.py::assoc_scan_pallas`` and, around it, the rest of the JAX
@@ -92,16 +94,46 @@ def smoother_parts(window: torch.Tensor, w_vel: dict, dt_gp: float):
     return vmean, ey, my
 
 
+def position_parts(window: torch.Tensor, w_pos: dict):
+    """The pass-independent parts of the IHGP position smoother on a (K, L,
+    4) window: (pmean (K, 2), the last row's xy; ey (K, 2) = sum_l y_l
+    Wy[:, -1, l]; my (K, 2, 2) = sum_l y_l My[:, :, l]), y the window's xy
+    less pmean (cpp:835-869) -- each sum ascending in l."""
+    pmean = window[:, -1, :2]
+    y = window[:, :, :2] - pmean[:, None, :]                            # (K, L, 2)
+    n = y.shape[1]
+    wy, my_w = w_pos["Wy"][:, -1, :], w_pos["My"]                      # (2, L), (2, 2, L)
+    ey = _asc_sum([y[:, l] * wy[:, l] for l in range(n)])
+    my = _asc_sum([y[:, l, :, None] * my_w[:, :, l] for l in range(n)])
+    return pmean, ey, my
+
+
+def smoother_pass(m: torch.Tensor, ey, my, w: dict):
+    """One closed-form smoother pass from the carry m (K, 2, 2) with the
+    y-parts given: (eft_last (K, 2), next carry (K, 2, 2)) -- the JAX
+    ``ihgp_apply_weights``."""
+    wm, mm = w["Wm"][:, -1, :], w["Mm"]                                # (2, 2), (2, 2, 2)
+    em = m[:, :, 0] * wm[:, 0] + m[:, :, 1] * wm[:, 1]
+    m_next = my + (m[:, :, None, 0] * mm[:, :, 0] + m[:, :, None, 1] * mm[:, :, 1])
+    return ey + em, m_next
+
+
 def velocity_pass(m: torch.Tensor, vmean, ey, my, w_vel: dict, vmax: float):
     """One IHGP velocity pass from the carry m (K, 2, 2): (clamped velocity
-    (K, 2), next carry (K, 2, 2)) -- the JAX ``ihgp_apply_weights`` with
-    the y-parts given, then the NaN-preserving clamp (cpp:649-654)."""
-    wm, mm = w_vel["Wm"][:, -1, :], w_vel["Mm"]                        # (2, 2), (2, 2, 2)
-    em = m[:, :, 0] * wm[:, 0] + m[:, :, 1] * wm[:, 1]
-    vel = (ey + em) + vmean
+    (K, 2), next carry (K, 2, 2)), then the NaN-preserving clamp
+    (cpp:649-654)."""
+    eft, m_next = smoother_pass(m, ey, my, w_vel)
+    vel = eft + vmean
     vel = torch.where(vel > vmax, vmax, torch.where(vel < -vmax, -vmax, vel))
-    m_next = my + (m[:, :, None, 0] * mm[:, :, 0] + m[:, :, None, 1] * mm[:, :, 1])
     return vel, m_next
+
+
+def position_pass(m: torch.Tensor, pmean, ey_pos, my_pos, w_pos: dict):
+    """One IHGP position pass from the carry m (K, 2, 2), the reference's
+    present-but-disabled mode (``position_filter="ihgp"``): (position (K,
+    2), the carry the velocity pass then starts from)."""
+    eft, m_mid = smoother_pass(m, ey_pos, my_pos, w_pos)
+    return eft + pmean, m_mid
 
 
 def track_step_plain(
@@ -110,7 +142,9 @@ def track_step_plain(
 ) -> tuple[TrackerState, TrackOutputs]:
     """Plain PyTorch version of K4 on one bank and one frame: dets (D, 4),
     det_valid (D,), t scalar (port of the JAX track_step, greedy
-    association + LPF positions)."""
+    association; LPF positions, or under ``position_filter="ihgp"`` an IHGP
+    position pass before each velocity pass, the velocity pass chained on
+    its carry, JAX pipeline.py:1015-1022)."""
     L = config.data_length
     dt_gp = config.dt_gp
     any_det = det_valid.any()
@@ -126,7 +160,12 @@ def track_step_plain(
     k_max = bank.alive.shape[0]
     w_vel = gains_xy["W_vel"]
     vmean, ey, my = smoother_parts(bank.window, w_vel, dt_gp)
-    pos = lpf_pos(bank.window, config.lpf_tau, dt_gp)                  # (cpp:638, 824-833)
+    ihgp = config.position_filter == "ihgp"
+    if ihgp:
+        w_pos = gains_xy["W_pos"]
+        pmean, ey_pos, my_pos = position_parts(bank.window, w_pos)
+    else:
+        pos = lpf_pos(bank.window, config.lpf_tau, dt_gp)              # (cpp:638, 824-833)
     vmax = f32(config.max_velocity)
 
     # The reference runs callIHGP once PER matched detection (cpp:629-659):
@@ -145,6 +184,8 @@ def track_step_plain(
     pos_det = dets[:, :2] * 0  # as the JAX init: NaN-preserving
     vel_det = dets[:, :2] * 0
     for q in range(max_mult):
+        if ihgp:
+            pos, m = position_pass(m, pmean, ey_pos, my_pos, w_pos)
         vel, m_next = velocity_pass(m, vmean, ey, my, w_vel, vmax)
         selp = (ordinal == q)[:, None]
         pos_det = torch.where(selp, pos[slot], pos_det)
@@ -228,7 +269,7 @@ def track_frames(
         raise ValueError(f"dets must be ({n_b}, {n_s}, {d}, 4) float32 and t ({n_b}, {n_s})")
     if bank.window.shape != (n_b, k, L, 4) or bank.window.dtype != torch.float32 or L < 2:
         raise ValueError(f"window must be ({n_b}, {k}, L >= 2, 4) float32")
-    w = gains_xy["W_vel"]
+    w, wp = gains_xy["W_vel"], gains_xy["W_pos"]
     thr32, gapthr, dt32 = _consts(config.id_threshold, config.dt_gp, config.interp_gap_factor)
     i32 = dict(dtype=torch.int32, device=dev)
     u8 = dict(dtype=torch.bool, device=dev)
@@ -254,10 +295,11 @@ def track_frames(
     ins = [x.contiguous() for x in (
         dets, det_valid.to(torch.bool), t.to(torch.float32), bank.alive, bank.obj_id,
         bank.birth_seq, bank.window, bank.m0, state.next_obj_num, state.next_birth,
-        state.spin_counter, state.initialized, w["Wy"], w["Wm"], w["My"], w["Mm"])]
+        state.spin_counter, state.initialized, w["Wy"], w["Wm"], w["My"], w["Mm"],
+        wp["Wy"], wp["Wm"], wp["My"], wp["Mm"])]
     nb = new.bank
     err = _build.load().motl_track_step(
-        *(x.data_ptr() for x in ins),
+        *(x.data_ptr() for x in ins), int(config.position_filter == "ihgp"),
         n_b, n_s, k, d, L,
         thr32, gapthr, dt32, f32(config.max_velocity), *lpf_coefficients(config.lpf_tau, config.dt_gp),
         f32(config.prune_period), int(config.prune_period * config.frequency),

@@ -1,7 +1,8 @@
 """The per-frame tracking step.
 
 Port of ``multiple_object_tracking_lidar_tpu/tracker/pipeline.py`` for f32,
-greedy association and the ``lpf`` position filter.  The reference's
+greedy association and both position filters (``lpf``, and ``ihgp``, the
+reference's present-but-disabled mode).  The reference's
 callback chain (voxel downsample -> static removal -> Euclidean clustering
 -> circumcenter features -> greedy association -> LPF filtering -> expiry;
 ref cloudCallback, src/multiple_object_tracking_lidar.cpp:123-233) runs on
@@ -119,12 +120,11 @@ from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
 )
 
 # The values each field may take in this package, and the ROADMAP slice
-# that ports the others.  voxel_quant takes both of its values, voxel_mode
-# and cluster_backend all of theirs (TrackerConfig refuses the combinations
-# the JAX package refuses).
+# that ports the others.  voxel_quant and position_filter take both of their
+# values, voxel_mode and cluster_backend all of theirs (TrackerConfig
+# refuses the combinations the JAX package refuses).
 _PORTED = (
     ("association", ("greedy",), "Hungarian association"),
-    ("position_filter", ("lpf",), "IHGP position filtering"),
     ("dtype", ("float32",), "other compute dtypes"),
 )
 
@@ -345,6 +345,16 @@ class Tracker:
 
         return multi
 
+    def bind_env_pipelined(self, env: MapEnv, donate_state: bool = True):
+        """The JAX package's highest-throughput shape (pipeline.py:362-422):
+        the stateless perception batched over the frame axis, then the
+        track steps scanned in order.  ``bind_env_multi`` is that program
+        on every config here (one stacked perception, one K4 launch for
+        the S steps), so this returns it: ``run(state, frames_stacked) ->
+        (state, outputs_stacked)``.  ``donate_state`` is accepted and
+        ignored, as in ``bind_env``."""
+        return self.bind_env_multi(env, donate_state=donate_state)
+
 
 JAX_MAX_KERNEL_CELLS = 32768  # the JAX fused CC's bound (ops/grid_pallas.py:49-54)
 
@@ -535,8 +545,8 @@ def track_step(
     state: TrackerState, p: Perception, *, config: TrackerConfig, gains_xy: dict
 ) -> tuple[TrackerState, FrameOutput]:
     """Stateful tracking back-end of one frame: association, lifecycle,
-    filtering, expiry (port of the JAX track_step, greedy association +
-    LPF positions) -- ``track_batch`` at one bank and one frame."""
+    filtering, expiry (port of the JAX track_step, greedy association,
+    LPF or IHGP positions) -- ``track_batch`` at one bank and one frame."""
     st, o = track_batch(
         map_state(lambda x: x[None], state), p.dets[None, None], p.det_valid[None, None],
         torch.as_tensor(p.t).reshape(1, 1), config=config, gains_xy=gains_xy,

@@ -36,7 +36,18 @@ every FrameOutput field stacked over frames:
   ``k_max_tracks=2`` (its default ``grow_bank_on_overflow`` doubles the
   bank when a frame overflows) over 12 headline PointCloud2 frames: every
   FrameOutput field per frame, plus ``n_growths`` and ``k_max_tracks``
-  after each frame -> ``tests/golden/torch_growth_headline.npz``.
+  after each frame -> ``tests/golden/torch_growth_headline.npz``;
+- ``ihgp``: the headline config with ``position_filter="ihgp"`` through
+  ``Tracker.bind_env`` -> ``tests/golden/torch_ihgp_headline.npz``;
+- ``cli`` and ``cli_ihgp``: the JAX CLI, ``run --map assets/sim_map.yaml
+  --backend grid --bag <16 headline frames> --frames 16`` (the default
+  ``TrackerConfig()``; ``cli_ihgp`` with a config file that sets
+  ``position_filter: ihgp``), on the CPU: its JSON lines, and beside each
+  obstacle its unrounded speed (``hypot(vx, vy)`` of the published
+  velocity, before the label's rounding) ->
+  ``tests/golden/torch_cli{,_ihgp}_headline.json``.  The bag is the
+  headline scenario's ``frame(k)`` PointCloud2 messages, 100,000 points
+  each, recorded by ``io/bag.py`` (``cli_bag``).
 
 tests/test_torch_golden.py recomputes the first frames and checks them
 against the files.
@@ -62,7 +73,12 @@ GOLDENS = {
     "default": os.path.join(GOLDEN_DIR, "torch_default_headline.npz"),
     "fleet": os.path.join(GOLDEN_DIR, "torch_fleet_headline.npz"),
     "growth": os.path.join(GOLDEN_DIR, "torch_growth_headline.npz"),
+    "ihgp": os.path.join(GOLDEN_DIR, "torch_ihgp_headline.npz"),
+    "cli": os.path.join(GOLDEN_DIR, "torch_cli_headline.json"),
+    "cli_ihgp": os.path.join(GOLDEN_DIR, "torch_cli_ihgp_headline.json"),
 }
+CLI_FRAMES = 16
+CLI_IHGP_CONFIG = "position_filter: ihgp\n"   # the cli_ihgp config file's text
 GROWTH_K0 = 2   # the growth golden's initial k_max_tracks
 N_FRAMES = 12
 FRAMES = {"default": 4, "fleet": 3}   # frames (the fleet: steps) per golden where not N_FRAMES
@@ -77,6 +93,7 @@ CASE_FIELDS = {
     "pointlist_jnp": {"voxel_mode": "dense", "cluster_backend": "jnp"},
     "pointlist_scan": {"voxel_mode": "scan", "cluster_backend": "jnp"},
     "pointlist_runs": {"voxel_mode": "runs", "cluster_backend": "pallas"},
+    "ihgp": {"position_filter": "ihgp"},
 }
 
 
@@ -172,6 +189,67 @@ def growth_outputs(n_frames: int) -> dict:
     return node_outputs(TrackerNode(cfg), sc.grid, [sc.frame(k) for k in range(n_frames)])
 
 
+def cli_bag(path: str, n_frames: int = CLI_FRAMES) -> list[str]:
+    """Record the first n_frames headline PointCloud2 frames to the npz bag
+    ``path`` (the port's io/bag.py, a pinned copy of the JAX package's);
+    returns the CLI arguments that replay it on the dense grid."""
+    sys.path.insert(0, REPO)
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import SIM_MAP, headline_case
+    from multiple_object_tracking_lidar_tpu_torch.io.bag import record_bag
+
+    _, _, sc = headline_case()
+    record_bag(path, [sc.frame(k) for k in range(n_frames)])
+    return ["run", "--map", SIM_MAP, "--backend", "grid", "--bag", path,
+            "--frames", str(n_frames)]
+
+
+def cli_outputs(case: str, n_frames: int = CLI_FRAMES) -> dict:
+    """The JAX CLI's run on the ``cli_bag`` frames: {"argv": the CLI
+    arguments after the bag's, "records": the JSON lines, "speeds": per
+    record the unrounded speed of each obstacle}."""
+    import contextlib
+    import io
+    import json
+    import tempfile
+
+    import numpy as np
+
+    sys.path.insert(0, REPO)
+    from multiple_object_tracking_lidar_tpu.runtime import node as jnode
+    from multiple_object_tracking_lidar_tpu.runtime.cli import main as jmain
+
+    speeds = []
+    on_pointcloud = jnode.TrackerNode.on_pointcloud
+
+    def recording(self, msg):
+        res = on_pointcloud(self, msg)
+        if res is not None:
+            speeds.append([float(np.hypot(o.velocity[0], o.velocity[1]))
+                           for o in res[0].obstacles])
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = cli_bag(os.path.join(tmp, "frames.npz"), n_frames)
+        extra = []
+        if case == "cli_ihgp":
+            cfg = os.path.join(tmp, "ihgp.yaml")
+            with open(cfg, "w", encoding="utf-8") as fh:
+                fh.write(CLI_IHGP_CONFIG)
+            extra = ["--config", cfg]
+        out = io.StringIO()
+        jnode.TrackerNode.on_pointcloud = recording
+        try:
+            with contextlib.redirect_stdout(out):
+                assert jmain(argv + extra) == 0
+        finally:
+            jnode.TrackerNode.on_pointcloud = on_pointcloud
+    records = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
+    assert len(records) == len(speeds)
+    return {"argv": ["--backend", "grid", "--frames", str(n_frames)]
+            + (["--config", "<position_filter: ihgp>"] if extra else []),
+            "records": records, "speeds": speeds}
+
+
 def golden_outputs(n_frames: int | None = None, case: str = "slice",
                    n_streams: int = FLEET_STREAMS) -> dict:
     """{field: (n_frames, ...) array} of the JAX FrameOutputs of ``case``
@@ -224,6 +302,15 @@ def main(cases: list[str]) -> None:
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     for case in cases or list(GOLDENS):
+        if case.startswith("cli"):
+            import json
+
+            out = cli_outputs(case)
+            with open(GOLDENS[case], "w", encoding="utf-8") as fh:
+                json.dump(out, fh, indent=None, separators=(",", ":"))
+                fh.write("\n")
+            print(f"wrote {GOLDENS[case]}: {os.path.getsize(GOLDENS[case])} bytes")
+            continue
         out = golden_outputs(case=case)
         np.savez_compressed(GOLDENS[case], **out)
         print(f"wrote {GOLDENS[case]}: {n_frames_of(case)} frames, "

@@ -14,7 +14,14 @@
 Each result is held bit for bit against its plain version.  Prints the
 card's name and power limit beside every time.
 
-    python scripts/micro_torch_assoc.py [--reps 200]
+    python scripts/micro_torch_assoc.py [--reps 200] [--repo DIR]
+        [--position-filter lpf [ihgp]] [--track-only]
+
+``--repo DIR`` times the port of another checkout (a parent commit
+unpacked under build/), so two versions can be measured in turns in one
+call; ``--position-filter`` times the whole track step under each
+position filter given (``ihgp``: a position pass chained before each
+velocity pass); ``--track-only`` leaves the decision scan out.
 """
 
 from __future__ import annotations
@@ -27,12 +34,7 @@ import sys
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from multiple_object_tracking_lidar_tpu_torch import bench_cases  # noqa: E402
-from multiple_object_tracking_lidar_tpu_torch.ops import assign_cuda, track_cuda  # noqa: E402
-from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker  # noqa: E402
-
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D = 32
 KW = dict(thr=0.5, dt_gp=0.1, interp_gap_factor=3.0)
 
@@ -102,11 +104,18 @@ def _same(a, b) -> bool:
     return all(_same(x, y) for x, y in zip(a, b))
 
 
-def run_track(device="cuda", reps: int = 200, log=print) -> dict:
+def run_track(device="cuda", reps: int = 200, log=print, position_filter: str = "lpf") -> dict:
     """{(K, B, S): (device us per launch, wrapper ms per call)} of the whole
-    track step; raises unless K4 equals its plain version."""
+    track step under ``position_filter``; raises unless K4 equals its plain
+    version."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
     smi = card()
     cfg = bench_cases.bench_config()
+    if position_filter != "lpf":
+        cfg = cfg.replace(position_filter=position_filter)
     gains = Tracker(cfg, device).gains_xy
     out = {}
     for k in (64, 1024):
@@ -119,20 +128,26 @@ def run_track(device="cuda", reps: int = 200, log=print) -> dict:
                 raise SystemExit(f"micro_torch_assoc: K4 differs from its plain version at K={k}")
             fn = (lambda a=args, w=kw: track_cuda.track_frames(*a, **w))
             out[(k, b, s)] = (device_us(fn, "track_step_kernel", reps), wrapper_ms(fn, reps))
-            log(f"[assoc] {smi}: K4 track step K={k} {b} x {s} frames D={d} "
+            log(f"[assoc] {smi}: K4 track step {position_filter} K={k} {b} x {s} frames D={d} "
                 f"({int(args[2].sum())} valid detections): device {out[(k, b, s)][0]:.3f} us "
                 f"per launch (torch.profiler, {reps} launches), wrapper "
                 f"{out[(k, b, s)][1]:.4f} ms per call (CUDA events)")
     return out
 
 
-def run(device="cuda", reps: int = 200, log=print) -> dict:
+def run(device="cuda", reps: int = 200, log=print, position_filters=("lpf",),
+        track_only: bool = False) -> dict:
     """{(K, valid detections): (device us per launch, wrapper ms per call)}
-    of the decision scan alone, after ``run_track``'s; raises unless K4
-    equals its plain version on every input."""
+    of the decision scan alone, after ``run_track``'s under each position
+    filter; raises unless K4 equals its plain version on every input."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import assign_cuda
+
     if not torch.cuda.is_available():
         raise SystemExit("micro_torch_assoc: needs a CUDA device")
-    run_track(device, reps, log)
+    for pf in position_filters:
+        run_track(device, reps, log, pf)
+    if track_only:
+        return {}
     smi = card()
     out = {}
     for k in (64, 128, 256, 1024):
@@ -155,7 +170,15 @@ def run(device="cuda", reps: int = 200, log=print) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=200)
-    run(reps=ap.parse_args().reps)
+    ap.add_argument("--repo", default=REPO, help="checkout whose port is timed")
+    ap.add_argument("--position-filter", nargs="+", default=["lpf"], choices=["lpf", "ihgp"])
+    ap.add_argument("--track-only", action="store_true")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.repo))
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+
+    print(f"port from {os.path.dirname(bench_cases.__file__)}", flush=True)
+    run(reps=args.reps, position_filters=args.position_filter, track_only=args.track_only)
 
 
 if __name__ == "__main__":

@@ -4,8 +4,10 @@ K1 and K5 at 70,200 and 193,536 cells)
 against their plain PyTorch versions, the slices
 (fast, exact and runs mode, the stencil CC of ``grid_cc="jnp"``; the
 point-list configurations C-F) on the GPU against the port's plain path on
-the CPU, and the kernel fleet on a one-rank NCCL mesh against ``bind_env``.
-Marked ``cuda``: they
+the CPU, and the kernel fleet on a one-rank NCCL mesh against ``bind_env``;
+K4 under ``position_filter="ihgp"``, F7 (K8a at a ragged M; K8 and K8a
+past 8,192 rows, the frame in device memory) and the CLI's ``run --backend grid`` against the
+JAX CLI's goldens.  Marked ``cuda``: they
 skip without a GPU.  This file imports no JAX, so on the GPU machine (which
 has none) it runs without the suite's conftest:
 
@@ -575,11 +577,12 @@ def _k8_frames(dev, m, n_sweeps):
 
 
 @pytest.mark.parametrize("m,n_sweeps", [(256, 64), (1024, 256), (2048, 256), (1024, 5),
-                                        (4096, 64), (8192, 32)])
+                                        (4096, 64), (8192, 32), (8448, 64), (8448, 5)])
 def test_k8_matches_plain(dev, m, n_sweeps):
     """At C's M = 1,024 and G's 2,048, at 4,096 (16 CTAs, the words still in
-    shared memory) and 8,192 (past it: the words in device memory), and a
-    chain cut at n_sweeps = 5."""
+    shared memory) and 8,192 (past it: the words in device memory), at
+    8,448 (past MAX_ROWS: the frame and the labels in device memory too),
+    and chains cut at n_sweeps = 5."""
     P, M = _k8_frames(dev, m, n_sweeps)
     n0 = cluster_pallas.connected_components_pallas.launches
     k, ks = cluster_pallas.connected_components_pallas(P, M, 0.15, n_sweeps, with_sweeps=True)
@@ -870,3 +873,102 @@ def test_f6_pallas_grid_cc_past_one_cta_on_the_card(dev, small):
             rows.append(o)
         outs.append(rows)
     assert _same_tree(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("K,B,S,D", [(64, 1, 1, 16), (64, 1, 8, 32), (64, 8, 1, 16),
+                                     (64, 1, 8, 128), (1024, 1, 4, 128), (1024, 4, 1, 32)])
+def test_k4_ihgp_matches_plain(dev, small, K, B, S, D):
+    """K4 under ``position_filter="ihgp"`` (a position pass chained before
+    each velocity pass) against its plain version on the card: every state
+    and output field bit for bit, one launch per call, at K = 64 (the
+    128-thread build) and 1,024 (the 1,024-thread build)."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+
+    cfg = small[0].replace(position_filter="ihgp")
+    gains = Tracker(cfg, dev).gains_xy
+    st, dets, valid, t = track_scene(K + B + S + 1, cfg, K, D, B, S, (0,), dev)
+    n0 = track_cuda.track_frames.launches
+    got = track_cuda.track_frames(st, dets, valid, t, config=cfg, gains_xy=gains)
+    assert track_cuda.track_frames.launches == n0 + 1
+    want = track_cuda.track_frames_plain(st, dets, valid, t, config=cfg, gains_xy=gains)
+    assert _same_tree(got, want)
+    lpf = track_cuda.track_frames(st, dets, valid, t, config=small[0], gains_xy=gains)[1]
+    v = got[1].valid
+    assert _bits(lpf.obj_id, got[1].obj_id) and _bits(lpf.valid, v)
+    if bool(v.any()):                   # published lanes: ihgp positions are not LPF's
+        assert not _bits(lpf.pos[v], got[1].pos[v])
+
+
+def test_f7_k8a_at_a_ragged_m_on_the_card(dev):
+    """F7: K8a takes M = 1,000 (the jnp CC's adjacency has no row rule):
+    bit for bit its plain version, and the jnp CC through it gives the CPU's
+    labels and sweeps; K8 at M = 1,000 raises, as the JAX Pallas wrapper."""
+    import chip_smoke
+    from multiple_object_tracking_lidar_tpu_torch.ops import cluster
+
+    pts, mask = chip_smoke.f7_points(np.random.default_rng(4), 2, 1000)
+    p, m = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+    n0 = cluster_pallas.cc_adjacency.launches
+    assert _bits(cluster_pallas.cc_adjacency(p, m, 0.15),
+                 cluster_pallas.cc_adjacency_plain(p, m, 0.15))
+    got = cluster.connected_components(p, m, 0.15, 32, 2)
+    assert cluster_pallas.cc_adjacency.launches == n0 + 2
+    assert _same_tree(got, cluster.connected_components(p.cpu(), m.cpu(), 0.15, 32, 2))
+    with pytest.raises(ValueError, match="multiple of 256"):
+        cluster_pallas.connected_components_pallas(p, m, 0.15)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+def test_f7_past_max_rows_on_the_card(dev, backend):
+    """F7: M = 8,448, past the 8,192 rows of the frame in shared memory: K8
+    and K8a run with the frame in device memory, bit for bit their plain
+    versions, and the point-list CC launches them once and gives the CPU
+    route's clusters."""
+    import chip_smoke
+    from multiple_object_tracking_lidar_tpu_torch.ops import cluster
+
+    pts, mask = chip_smoke.f7_points(np.random.default_rng(5), 1, cluster_pallas.MAX_ROWS + 256)
+    p, m = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+    wrapper, plain = ((cluster_pallas.cc_adjacency, cluster_pallas.cc_adjacency_plain)
+                      if backend == "jnp" else
+                      (cluster_pallas.connected_components_pallas,
+                       cluster_pallas.connected_components_pallas_plain))
+    assert _bits(wrapper(p, m, 0.15), plain(p, m, 0.15))
+    args = (0.15, 3, 300, 32, 384, 32, 2)
+    n0 = wrapper.launches
+    got = cluster.euclidean_cluster(p, m, *args, backend=backend)
+    assert wrapper.launches == n0 + 1
+    want = cluster.euclidean_cluster(torch.from_numpy(pts), torch.from_numpy(mask), *args,
+                                     backend=backend)
+    assert _same_tree(got, want) and int(want.n_clusters) >= 20
+
+
+@pytest.mark.parametrize("golden", ["torch_cli_headline.json", "torch_cli_ihgp_headline.json"])
+def test_cli_run_grid_on_the_card_matches_golden(dev, tmp_path, golden):
+    """The port's CLI, ``run --backend grid`` on 16 headline frames replayed
+    from an npz bag, on the card: its JSON lines within the JAX CLI's golden
+    (``chip_smoke.cli_errors``), through K1, K2, K3f and K4."""
+    import json
+    import os
+
+    import chip_smoke
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import SIM_MAP
+    from multiple_object_tracking_lidar_tpu_torch.io.bag import record_bag
+
+    sc = headline_case()[2]
+    bag = str(tmp_path / "frames.npz")
+    record_bag(bag, [sc.frame(k) for k in range(16)])
+    argv = ["run", "--device", str(dev), "--map", SIM_MAP, "--backend", "grid", "--bag", bag,
+            "--frames", "16"]
+    if "ihgp" in golden:
+        (tmp_path / "ihgp.yaml").write_text("position_filter: ihgp\n")
+        argv += ["--config", str(tmp_path / "ihgp.yaml")]
+    with open(os.path.join(os.path.dirname(__file__), "golden", golden), encoding="utf-8") as fh:
+        ref = json.load(fh)
+    chip_smoke.reset_counts()
+    _, recs, _ = chip_smoke.run_cli(argv)
+    counts = chip_smoke.read_counts()
+    assert chip_smoke.cli_errors(recs, ref)[0] == []
+    assert all(counts[k] > 0 for k in ("K1", "K2", "K3f", "K4")), counts
+    assert counts["K4"] == 16 and counts[chip_smoke.PLAIN_SUMS] == 0

@@ -16,7 +16,13 @@ GPU halves are in tests/test_torch_cuda.py):
 - F5: ``TrackerNode.outputs`` stays empty unless ``keep_outputs=True`` (the
   JAX node keeps no outputs);
 - F6: ``grid_cc="pallas"`` runs K2 on a 22,374-cell grid (past one CTA,
-  within the JAX fused CC's 32,768) and matches the JAX package there.
+  within the JAX fused CC's 32,768) and matches the JAX package there;
+- F7: the point list's CC takes the ``m_max_dynamic`` values the JAX
+  package takes: K8a (the jnp CC's adjacency) any M, K8 the Pallas rule
+  "M % 256 == 0 past 256" alone; past ``MAX_ROWS`` (the frame in shared
+  memory) both wrappers launch with the frame in device memory, up to
+  ``MAX_DEVICE_ROWS``; the jnp CC at a ragged M = 1,000 matches the JAX jnp
+  CC under jit (K8's prep spells XLA's tree column sum).
 
 Tolerances as in test_torch_track_kernel.py: decisions and integers exact,
 positions 1e-5 m, velocities 1e-4 m/s, windows 1e-6, GP carries 1e-4.
@@ -458,3 +464,114 @@ def test_f6_pallas_grid_cc_past_one_cta_matches_jax():
                 np.testing.assert_allclose(b, a, rtol=0, atol=TOL_POS)
             else:
                 np.testing.assert_array_equal(b, a, err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# F7
+# ---------------------------------------------------------------------------
+def _f7_points(m, seed=7):
+    """m points in six blobs (chains under 0.15 m), 90% valid."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(-3, 3, (6, 3)) * np.array([1, 1, 0.1])
+    pts = (centres[rng.integers(0, 6, m)] + rng.normal(0, 0.06, (m, 3))).astype(np.float32)
+    mask = rng.random(m) < 0.9
+    return pts, mask
+
+
+def test_f7_jnp_cc_at_a_ragged_m_matches_jax():
+    """M = 1,000 (no multiple of 256): the port's jnp CC (K8a's plain
+    adjacency + sweeps, the CPU route) against the JAX jnp CC under jit:
+    the adjacency, the labels and the sweep count exactly."""
+    from multiple_object_tracking_lidar_tpu.ops import cluster as jcl
+    from multiple_object_tracking_lidar_tpu_torch.ops import cluster as tcl
+
+    pts, mask = _f7_points(1000)
+    jp, jm = jnp.asarray(pts, jnp.float32), jnp.asarray(mask)
+    j_adj = jax.jit(jcl._pairwise_adjacency, static_argnums=2)(jp, jm, 0.15)
+    j_lab, j_it = jax.jit(jcl.connected_components, static_argnums=(2, 3, 4))(jp, jm, 0.15, 32, 4)
+    tp, tm = torch.from_numpy(pts), torch.from_numpy(mask)
+    np.testing.assert_array_equal(tcl._pairwise_adjacency(tp, tm, 0.15).numpy(),
+                                  np.asarray(j_adj))
+    t_lab, t_it = tcl.connected_components(tp, tm, 0.15, 32, 4)
+    np.testing.assert_array_equal(t_lab.numpy(), np.asarray(j_lab))
+    assert int(t_it) == int(j_it)
+    assert len(np.unique(np.asarray(j_lab)[mask])) >= 3
+
+
+def _mock_cc_lib(monkeypatch):
+    """Stand the kernel library in with one that records each entry's
+    (name, M, cluster, bits scratch, frame scratch) and launches nothing."""
+    from multiple_object_tracking_lidar_tpu_torch import _build
+
+    launched = []
+
+    class _Lib:
+        def __getattr__(self, entry):
+            def call(*args):
+                i = 8 if entry == "motl_cc_labels" else 7  # past n_sweeps
+                launched.append((entry, args[5], args[i], args[i + 1] is not None,
+                                 args[i + 2] is not None))
+                return 0
+            return call
+
+    monkeypatch.setattr(_build, "load", lambda: _Lib())
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: None)
+    return launched
+
+
+def test_f7_k8_keeps_the_jax_rule_and_k8a_takes_any_m(monkeypatch):
+    """The row rule is K8's: at M = 1,000 its wrapper (and plain version)
+    raise before any launch, as the JAX Pallas wrapper does, while K8a's
+    wrapper goes on to its launch; past ``MAX_ROWS`` both wrappers launch
+    (the frame in device memory), and past ``MAX_DEVICE_ROWS`` both raise."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import cluster_pallas as tcp
+
+    launched = _mock_cc_lib(monkeypatch)
+    pts, mask = _f7_points(1000)
+    tp, tm = torch.from_numpy(pts)[None], torch.from_numpy(mask)[None]
+    tcp.cc_adjacency(tp.to("meta"), tm.to("meta"), 0.15)
+    assert [x[:2] for x in launched] == [("motl_cc_adjacency", 1000)]
+    for call in (lambda: tcp.connected_components_pallas(tp.to("meta"), tm.to("meta"), 0.15),
+                 lambda: tcp.connected_components_pallas(tp, tm, 0.15)):
+        with pytest.raises(ValueError, match="multiple of 256"):
+            call()
+    assert len(launched) == 1
+    for m in (tcp.MAX_ROWS + 256, tcp.MAX_DEVICE_ROWS):
+        big = torch.zeros((1, m, 3), device="meta")
+        tcp.cc_adjacency(big, torch.ones(big.shape[:2], dtype=torch.bool, device="meta"), 0.15)
+        tcp.connected_components_pallas(big, torch.ones(big.shape[:2], dtype=torch.bool,
+                                                        device="meta"), 0.15)
+    assert [x[:2] for x in launched[1:]] == [("motl_cc_adjacency", tcp.MAX_ROWS + 256),
+                                             ("motl_cc_labels", tcp.MAX_ROWS + 256),
+                                             ("motl_cc_adjacency", tcp.MAX_DEVICE_ROWS),
+                                             ("motl_cc_labels", tcp.MAX_DEVICE_ROWS)]
+    big = torch.zeros((1, tcp.MAX_DEVICE_ROWS + 256, 3), device="meta")
+    for wrapper in (tcp.cc_adjacency, tcp.connected_components_pallas):
+        with pytest.raises(ValueError, match="rows per frame"):
+            wrapper(big, torch.ones(big.shape[:2], dtype=torch.bool, device="meta"), 0.15)
+
+
+@pytest.mark.parametrize("m", [4096, 8192, 8448, 65536])
+def test_f7_route_past_max_rows_is_counted(monkeypatch, m):
+    """Past ``MAX_ROWS`` each wrapper makes one launch, counted in its
+    ``.launches``, on the largest cluster with the adjacency bits and the
+    frame in device-memory scratches (the frame's sized for each CTA's p,
+    sq and partials and K8's labels); up to it, ``cc_layout``'s layout and
+    no frame scratch.  A meta tensor stands in for the card."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import cluster_pallas as tcp
+
+    launched = _mock_cc_lib(monkeypatch)
+    pts = torch.zeros((2, m, 3), device="meta")
+    mask = torch.ones((2, m), dtype=torch.bool, device="meta")
+    n0 = (tcp.cc_adjacency.launches, tcp.connected_components_pallas.launches)
+    tcp.cc_adjacency(pts, mask, 0.15)
+    tcp.connected_components_pallas(pts, mask, 0.15)
+    assert (tcp.cc_adjacency.launches, tcp.connected_components_pallas.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    device_frame = m > tcp.MAX_ROWS
+    want = ((16, True, True) if device_frame
+            else (tcp.cc_layout(m)[0], not tcp.cc_layout(m)[1], False))
+    assert [x[2:] for x in launched] == [want, want]
+    assert tcp._layout(m, None, "meta") == (want[0], not want[1], device_frame)
+    if device_frame:                    # the cluster asked for is kept; the frame stays out
+        assert tcp._layout(m, 4, "meta") == (4, False, True)

@@ -23,6 +23,14 @@ golden.
    grows): its first 2 frames recomputed; the port's TrackerNode
    reproduces all 12 frames, growths and K exact, with the tolerances
    of 2.
+5. The ``ihgp`` golden (the headline config with ``position_filter=
+   "ihgp"``): as 1 and 2.
+6. The CLI goldens (the JAX CLI's JSON lines for ``run --backend grid``
+   on 16 headline frames from an npz bag, under ``lpf`` and ``ihgp``):
+   the JAX CLI still prints the first 3 frames' records, and the port's
+   CLI on the CPU (``--device cpu``) reproduces all 16 within
+   ``chip_smoke.cli_errors``' tolerances (frames, ids and labels exact,
+   pos / vel within 1e-4 plus the 4-decimal rounding).
 """
 
 import os
@@ -255,3 +263,78 @@ def test_port_node_reproduces_growth_golden():
     got = {f: np.stack([getattr(o, f) for o in node.outputs]) for f in node.outputs[0]._fields}
     got |= {"n_growths": np.asarray(growths), "k_max_tracks": np.asarray(ks)}
     _compare(got, ref, TOL_DETS, TOL_VEL)
+
+
+def test_ihgp_golden_is_what_the_jax_package_computes():
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from make_torch_golden import golden_outputs
+
+    ref = _load("ihgp")
+    out = golden_outputs(n_frames=2, case="ihgp")
+    assert set(out) == set(ref) and ref["publish"].shape == (12,)
+    _compare(out, ref, 1e-6, 1e-6, n=2)
+
+
+def test_port_plain_path_reproduces_ihgp_golden(golden):
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import headline_case, padded_frame
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    ref = _load("ihgp")
+    cfg, env, sc = headline_case()
+    cfg = cfg.replace(position_filter="ihgp")
+    step = Tracker(cfg, device="cpu").bind_env(env)
+    st = Tracker(cfg, device="cpu").init_state()
+    rows = []
+    for k in range(ref["publish"].shape[0]):
+        pts, mask, t = padded_frame(sc, k, cfg.caps.n_max_points)
+        st, out = step(st, Frame(torch.from_numpy(pts), torch.from_numpy(mask), torch.tensor(t)))
+        rows.append(out)
+    got = {f: np.stack([getattr(r, f).numpy() for r in rows]) for f in rows[0]._fields}
+    _compare(got, ref, TOL_DETS, TOL_VEL)
+    v = ref["valid"]
+    assert v[1:].sum(axis=1).min() == 3
+    assert np.abs(ref["pos"][v] - golden["pos"][v]).max() > 1e-3     # not the LPF positions
+
+
+def _cli_golden(case):
+    import json
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from make_torch_golden import GOLDENS
+
+    with open(GOLDENS[case], encoding="utf-8") as fh:
+        return json.load(fh)
+
+
+def test_cli_golden_is_what_the_jax_cli_computes():
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from make_torch_golden import cli_outputs
+
+    ref = _cli_golden("cli")
+    out = cli_outputs("cli", n_frames=3)
+    n = len(out["records"])
+    assert n == 2 and out["argv"][:2] == ref["argv"][:2]
+    first = {"records": ref["records"][:n], "speeds": ref["speeds"][:n]}
+    assert chip_smoke.cli_errors(out["records"], first)[0] == []
+    np.testing.assert_allclose(np.concatenate(out["speeds"]),
+                               np.concatenate(first["speeds"]), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["cli", "cli_ihgp"])
+def test_port_cli_reproduces_cli_goldens(tmp_path, case):
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from make_torch_golden import CLI_IHGP_CONFIG, cli_bag
+
+    ref = _cli_golden(case)
+    argv = cli_bag(str(tmp_path / "frames.npz")) + ["--device", "cpu"]
+    if case == "cli_ihgp":
+        (tmp_path / "ihgp.yaml").write_text(CLI_IHGP_CONFIG)
+        argv += ["--config", str(tmp_path / "ihgp.yaml")]
+    _, recs, _ = chip_smoke.run_cli(argv)
+    assert chip_smoke.cli_errors(recs, ref)[0] == []
+    assert len(recs) == 15 and all(len(r["obstacles"]) == 3 for r in recs)

@@ -231,3 +231,128 @@ def test_wire_copy_matches_original():
         with pytest.raises(ValueError):
             r.read_message(io.BytesIO(b"\xff\xff\xff\xff"))
     assert (jwire.MAX_HEADER, jwire.MAX_PAYLOAD) == (twire.MAX_HEADER, twire.MAX_PAYLOAD)
+
+
+def _pc2_fields(msg):
+    return (msg.stamp, msg.frame_id, msg.height, msg.width, msg.is_bigendian,
+            msg.point_step, msg.row_step, msg.data, msg.is_dense,
+            [dataclasses.astuple(f) for f in msg.fields])
+
+
+def _scenario_msgs(pc2, n=4):
+    """n ragged PointCloud2 frames (one empty) built by ``pc2``."""
+    rng = np.random.default_rng(12)
+    sizes = (37, 0, 211, 5)[:n]
+    return [pc2.make_pointcloud2(rng.normal(0, 2, (s, 3)).astype(np.float32),
+                                 stamp=0.1 * (k + 1) + 1e-7 * k, frame_id="map")
+            for k, s in enumerate(sizes)]
+
+
+def test_bag_copy_matches_original(tmp_path):
+    """io/bag.py: each package's recording holds the same arrays, replays
+    the same messages in either package, and ``bag_info`` agrees."""
+    from multiple_object_tracking_lidar_tpu.io import bag as jbag
+    from multiple_object_tracking_lidar_tpu_torch.io import bag as tbag
+
+    paths = [str(tmp_path / f"{w}.npz") for w in ("j", "t")]
+    assert jbag.record_bag(paths[0], _scenario_msgs(jpc2)) == 4
+    assert tbag.record_bag(paths[1], _scenario_msgs(tpc2)) == 4
+    with np.load(paths[0]) as a, np.load(paths[1]) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for path in paths:
+        ja, tb = list(jbag.replay_bag(path)), list(tbag.replay_bag(path))
+        assert [_pc2_fields(m) for m in ja] == [_pc2_fields(m) for m in tb]
+        assert jbag.bag_info(path) == tbag.bag_info(path)
+
+
+def test_rosbag_copy_matches_original(tmp_path):
+    """io/rosbag.py: the same bag bytes, the same messages read back by
+    either reader (a bz2 chunk included), the same serialization."""
+    import bz2
+
+    from multiple_object_tracking_lidar_tpu.io import rosbag as jrb
+    from multiple_object_tracking_lidar_tpu_torch.io import rosbag as trb
+
+    paths = [str(tmp_path / f"{w}.bag") for w in ("j", "t")]
+    assert jrb.write_rosbag(paths[0], _scenario_msgs(jpc2), topic="/points") == 4
+    assert trb.write_rosbag(paths[1], _scenario_msgs(tpc2), topic="/points") == 4
+    with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+        raw = a.read()
+        assert raw == b.read()
+    for r in (jrb, trb):
+        assert [_pc2_fields(m) for m in r.read_rosbag(paths[1])] == [
+            _pc2_fields(m) for m in jrb.read_rosbag(paths[0])]
+        assert list(r.read_rosbag(paths[0], topic="/other")) == []
+        assert r.rosbag_info(paths[0]) == jrb.rosbag_info(paths[0])
+    msg = _scenario_msgs(jpc2)[2]
+    assert trb.serialize_pointcloud2(msg, seq=3) == jrb.serialize_pointcloud2(msg, seq=3)
+    # a bz2-compressed chunk: rewrite the one chunk record compressed
+    z = tmp_path / "z.bag"
+    fields, data, pos = jrb._read_record(raw, 4096 + len(jrb._MAGIC))
+    assert fields["op"][0] == jrb._OP_CHUNK
+    comp = jrb._record({**fields, "compression": b"bz2"}, bz2.compress(data))
+    z.write_bytes(raw[: 4096 + len(jrb._MAGIC)] + comp + raw[pos:])
+    assert [_pc2_fields(m) for m in trb.read_rosbag(str(z))] == [
+        _pc2_fields(m) for m in jrb.read_rosbag(str(z))]
+    for bad in (b"#ROSBAG V1.2\n", b"not a bag at all"):
+        (tmp_path / "bad.bag").write_bytes(bad + b"\0" * 16)
+        for r in (jrb, trb):
+            with pytest.raises(ValueError):
+                list(r.read_rosbag(str(tmp_path / "bad.bag")))
+
+
+def test_svg_copy_matches_original():
+    """outputs/svg.py: the same document with and without a map, with and
+    without speeds."""
+    from multiple_object_tracking_lidar_tpu.outputs import svg as jsvg
+    from multiple_object_tracking_lidar_tpu_torch.outputs import svg as tsvg
+
+    tracks = {0: [(0.1, 1.0), (0.12, 1.05), (0.15, 1.1)], 3: [(-0.8, 4.0)], 1: [(0.9, 6.5)]}
+    colors = {0: (0.5, 0.25, 0.125, 0.8), 3: (1.0, 0.0, 0.0, 0.5)}
+    speeds = {0: 0.4567, 3: 0.0312}
+    for grid in (jpgm.load_map_yaml(SIM_MAP), None):
+        for sp in (speeds, None):
+            a = jsvg.render_svg(grid, tracks, colors, sp, scale=40.0)
+            assert a == tsvg.render_svg(grid, tracks, colors, sp, scale=40.0)
+            assert a.startswith("<svg") and a.endswith("</svg>")
+
+
+def test_stage_timer_copy_matches_original():
+    """runtime/profiler.py: ``StageTimer`` and ``StageStats`` give the JAX
+    package's summary and report on the same samples."""
+    from multiple_object_tracking_lidar_tpu.runtime import profiler as jprof
+    from multiple_object_tracking_lidar_tpu_torch.runtime import profiler as tprof
+
+    samples = {"decode": [0.5, 0.7, 3.0, 0.4, 0.45, 0.6], "step": [10.0, 2.5], "emit": [0.1]}
+    timers = [jprof.StageTimer(), tprof.StageTimer()]
+    for tm in timers:
+        for name, xs in samples.items():
+            for x in xs:
+                tm.record(name, x)
+        with tm.stage("wrapped"):
+            pass
+    sj, st = (tm.summary() for tm in timers)
+    assert sj.keys() == st.keys()
+    for name in samples:
+        assert dataclasses.asdict(sj[name]) == dataclasses.asdict(st[name])
+    assert st["wrapped"].count == 1
+    strip = lambda tm: [ln for ln in tm.report().splitlines() if "wrapped" not in ln]
+    assert strip(timers[0]) == strip(timers[1])
+    assert [f.name for f in dataclasses.fields(jprof.StageStats)] == [
+        f.name for f in dataclasses.fields(tprof.StageStats)]
+
+
+def test_device_trace_writes_a_chrome_trace(tmp_path):
+    """``device_trace`` over torch.profiler: the trace holds the ops run
+    inside it (CPU activities here)."""
+    import json as _json
+
+    from multiple_object_tracking_lidar_tpu_torch.runtime.profiler import device_trace
+
+    with device_trace(str(tmp_path / "tr")) as prof:
+        torch.ones(64).cumsum(0)
+    with open(prof.trace_path, encoding="utf-8") as fh:
+        names = {e.get("name") for e in _json.load(fh)["traceEvents"]}
+    assert "aten::cumsum" in names

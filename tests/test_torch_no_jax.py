@@ -5,7 +5,10 @@ every module of the port (``parallel/*``, ``runtime/fleet.py`` and
 the CPU, one frame each in exact mode and runs mode, one frame of each
 point-list configuration (C-G), one kernel-fleet step of two streams and
 one TrackerNode frame that overflows a two-slot bank and grows it, on
-small caps."""
+small caps; then the CLI (``runtime/cli.py``: ``run --device cpu`` under
+``position_filter: ihgp`` with ``--record-bag`` to a ROS1 bag and ``--svg``,
+the bag replayed, ``info``), ``bind_env_pipelined`` and the profiler's
+``device_trace``."""
 
 import os
 import subprocess
@@ -72,6 +75,30 @@ SCRIPT = textwrap.dedent(
     node.on_map(load_sim_grid())
     node.on_pointcloud(make_pointcloud2(sub, stamp=float(t)))    # 3 clusters, 2 slots
     assert node.n_growths == 1 and node.config.caps.k_max_tracks == 4, node.stats
+    import contextlib, io, json, os, tempfile
+    from multiple_object_tracking_lidar_tpu_torch.runtime.cli import main
+    from multiple_object_tracking_lidar_tpu_torch.runtime.profiler import device_trace
+    tmp = tempfile.mkdtemp()
+    with open(os.path.join(tmp, "cfg.yaml"), "w") as fh:
+        fh.write("voxel_leaf_size: 0.1\\ndata_length: 6\\nposition_filter: ihgp\\ncaps:\\n"
+                 "  n_max_points: 1024\\n  m_max_voxels: 512\\n  m_max_dynamic: 128\\n"
+                 "  c_max_clusters: 8\\n  p_max_cluster: 64\\n  k_max_tracks: 8\\n")
+    runs = []
+    for flag in ("--record-bag", "--bag"):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text), contextlib.redirect_stderr(io.StringIO()):
+            assert main(["run", "--device", "cpu", "--map", os.path.join(REPO, "assets", "sim_map.yaml"),
+                         "--config", os.path.join(tmp, "cfg.yaml"), "--frames", "4",
+                         flag, os.path.join(tmp, "f.bag"), "--svg", os.path.join(tmp, "t.svg")]) == 0
+        runs.append(text.getvalue())
+    assert runs[0] == runs[1] and json.loads(runs[0].splitlines()[-1])["obstacles"], runs
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        assert main(["info"]) == 0
+    pipe = Tracker(cfg, device="cpu").bind_env_pipelined(env)
+    with device_trace(os.path.join(tmp, "trace")) as prof:
+        _, po = pipe(Tracker(cfg, device="cpu").init_state(), Frame(*(x[None] for x in (
+            torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))))
+    assert int(po.n_clusters[0]) >= 3 and os.path.exists(prof.trace_path)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                     and sys.modules[m] is not None)
     assert not leaked, leaked

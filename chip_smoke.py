@@ -40,6 +40,13 @@ of JAX, in five phases, one or more lines each:
    through it against the CPU, K8 refusing M = 1,000 as the JAX Pallas
    wrapper does, and K8 and K8a at M = 8,448 (the frame in device memory)
    against their plain versions and, through both CC backends, the CPU;
+   K12 (the Hungarian auction alone) on dense, sparse and near-tie problems
+   up to D = 128, K = 1,024 (several per launch), ``max_iters=1`` saturating,
+   and on the headline and dense scenes' own problems (iterations per phase
+   logged), and K4's Hungarian builds on the dense scene's own frames (K =
+   96, D = 64) and at K = 64 and 1,024, 1 x 1, 1 x S and B x 1, under lpf
+   and ihgp, on a gated scene (tracks in pairs 0.35 m apart) -- bit for bit
+   their plain versions;
 4. the paths, each with every kernel's launch counter reset before and
    read after: the headline (fast digits) -- ``TrackerNode.on_pointcloud``
    answers 12 headline PointCloud2 frames and ``Tracker.bind_env_multi``
@@ -80,8 +87,14 @@ of JAX, in five phases, one or more lines each:
    torch_cli{,_ihgp}_headline.json) under ``lpf`` and ``ihgp``, its SVG,
    the ROS1 bag's replay, a checkpoint resumed; the headline under
    ``ihgp`` through ``TrackerNode``, ``bind_env_multi`` and the kernel
-   fleet against torch_ihgp_headline.npz.  No path may take the plain
-   digit sums;
+   fleet against torch_ihgp_headline.npz; the headline and the dense scene
+   (``bench.dense_case``: 40 objects 0.55 m apart, C = 64, K = 96) under
+   ``association="hungarian"`` through ``TrackerNode``, ``bind_env_multi``
+   and the kernel fleet (B = 8) against torch_hungarian_{headline,dense}.npz
+   (the dense golden's F8 detections within TOL_F8), and the CLI with a
+   config file ``association: hungarian`` against
+   torch_cli_hungarian_headline.json, each launching K4's Hungarian build
+   ("K4 hungarian").  No path may take the plain digit sums;
 5. timings with CUDA events, beside the card's name and power limit:
    ``bind_env`` and ``bind_env_multi`` per path, host syncs and device ops
    per frame of each (``torch.profiler``; the headline must make no host
@@ -99,7 +112,14 @@ of JAX, in five phases, one or more lines each:
    library call's device time from ``torch.profiler``); then the headline
    under ``lpf`` and ``ihgp`` in turns (ms/frame, device ops per frame,
    K4's device us per call at 1 x 1 and 1 x 8) and ``bind_env_pipelined``
-   beside ``bind_env_multi``.
+   beside ``bind_env_multi``; the headline under ``greedy`` and
+   ``hungarian`` in turns (the same readings; hungarian must make no host
+   sync), K4 hungarian also at K = 1,024, and K4 hungarian and K12 against
+   their plain versions with their bounds.  Every one-op reading
+   (``one_op_profile``) comes from a trace between marker kernels, taken
+   again when it lost events at an end (``micro_torch_digits.whole_trace``),
+   and K4's, K4 hungarian's, K12's and F7's fail at other than one op per
+   call (``require_one_op``).
 
 Any failed phase raises (exit 1).  The line before the last is the kernel
 report (JSON); the last line is ``{"ok": true, "device": {...}}``.
@@ -127,6 +147,24 @@ GOLDEN_GROWTH = os.path.join(HERE, "tests", "golden", "torch_growth_headline.npz
 GOLDEN_IHGP = os.path.join(HERE, "tests", "golden", "torch_ihgp_headline.npz")
 GOLDEN_CLI = os.path.join(HERE, "tests", "golden", "torch_cli_headline.json")
 GOLDEN_CLI_IHGP = os.path.join(HERE, "tests", "golden", "torch_cli_ihgp_headline.json")
+GOLDEN_CLI_HUNGARIAN = os.path.join(HERE, "tests", "golden",
+                                    "torch_cli_hungarian_headline.json")
+GOLDEN_HUNGARIAN = {"hungarian": os.path.join(HERE, "tests", "golden",
+                                              "torch_hungarian_headline.npz"),
+                    "dense_hungarian": os.path.join(HERE, "tests", "golden",
+                                                    "torch_hungarian_dense.npz")}
+# F8 (ROADMAP Queue 3): on the dense scene the JAX package's voxel
+# centroids on the CPU and the port's differ by an ulp in some cells (XLA
+# contracts the fast-digit finalize into an FMA), which moves two merged
+# clusters' circumcenters past TOL_DETS (frame 2, slot 14 by 1.8e-5 m; frame
+# 3, slot 1 of 187 members by 4.4e-4 m, its farthest-pair pick flipped):
+# those detections, (frame, slot) of the dense golden, and the lanes of the
+# tracks they feed from then on hold to TOL_F8 (m) and TOL_F8_VEL (m/s)
+# instead of TOL_DETS / TOL_VEL.  Read on the 8 golden frames, the same on
+# the CPU's plain path and on the H100: raw_centroid 4.37e-4 m, pos 3.97e-4
+# m, vel 1.312e-3 m/s; the bands are 2.3x and 3.05x those readings.
+F8_DENSE = ((2, 14), (3, 1))
+TOL_F8, TOL_F8_VEL = 1e-3, 4e-3
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM: HBM3 rate (NVIDIA's datasheet)
 F32_OPS_PER_S = 67e12         # H100 SXM: f32 outside the tensor cores; int32 ops too
 PKG = "multiple_object_tracking_lidar_tpu_torch"
@@ -427,36 +465,49 @@ def check_k4(dev, cfg, rng, K, D) -> float:
     return err4
 
 
-def check_track(dev, cfg, gains, K, cases, report, name):
+def check_track(dev, cfg, gains, K, cases, report, name, gated=False):
     """K4 (the whole track step) against its plain version on the card,
     bit for bit in every state and output field: ``cases`` of (B, S, D,
-    fresh banks).  Returns the max abs error."""
+    fresh banks), on ``track_scene``'s frames (``gated``: its Hungarian
+    scene).  Returns the max abs error."""
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
-    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
 
     err = 0.0
     for i, (B, S, D, fresh) in enumerate(cases):
-        st, dets, valid, t = track_scene(1000 * K + i, cfg, K, D, B, S, fresh, dev)
-        ks, ko = track_cuda.track_frames(st, dets, valid, t, config=cfg, gains_xy=gains)
-        ps, po = track_cuda.track_frames_plain(st, dets, valid, t, config=cfg, gains_xy=gains)
-        torch.cuda.synchronize()
-        pairs = list(zip(ko, po)) + list(zip(ks.bank, ps.bank)) + list(zip(ks[1:], ps[1:]))
-        ok = all(equal(npy(a), npy(b)) for a, b in pairs)
-        e = max(max_err(npy(a), npy(b)) for a, b in pairs)
-        err = max(err, e)
-        vv = npy(ko.valid)
-        ids = npy(ko.obj_id)
-        dups = sum(len(ids[b, s][vv[b, s]]) - len(set(ids[b, s][vv[b, s]].tolist()))
-                   for b in range(B) for s in range(S))
-        log(f"[3 {name} track step] K={K} {B} x {S} frames, D={D}"
-            f"{' (first frame in banks ' + str(list(fresh)) + ')' if fresh else ''}: "
-            f"bit-exact={ok} max_abs_err={e} valid={int(vv.sum())} duplicates={dups} "
-            f"registered={int(npy(ko.new_track).sum())} overflow={int(npy(ko.overflow).sum())} "
-            f"n_alive={npy(ko.n_alive)[:, -1].tolist()}")
-        if not ok:
-            bad = [f for f, a, b in zip(track_cuda.TrackOutputs._fields, ko, po)
-                   if not equal(npy(a), npy(b))]
-            fail(f"{name} (K={K}, {B} x {S}, D={D}) disagrees with its plain version: {bad}")
+        inputs = track_scene(1000 * K + i, cfg, K, D, B, S, fresh, dev, gated)
+        label = f"K={K} {B} x {S} frames, D={D}" + (
+            f" (first frame in banks {list(fresh)})" if fresh else "")
+        err = max(err, check_track_inputs(cfg, gains, inputs, report, name, label))
+    return err
+
+
+def check_track_inputs(cfg, gains, inputs, report, name, label):
+    """``check_track`` on given inputs (state with a leading (B,) axis,
+    dets (B, S, D, 4), valid (B, S, D), t (B, S)): K4 against its plain
+    version, bit for bit; the max abs error, also kept in report[name]."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+
+    st, dets, valid, t = inputs
+    B, S = valid.shape[:2]
+    ks, ko = track_cuda.track_frames(st, dets, valid, t, config=cfg, gains_xy=gains)
+    ps, po = track_cuda.track_frames_plain(st, dets, valid, t, config=cfg, gains_xy=gains)
+    torch.cuda.synchronize()
+    pairs = list(zip(ko, po)) + list(zip(ks.bank, ps.bank)) + list(zip(ks[1:], ps[1:]))
+    ok = all(equal(npy(a), npy(b)) for a, b in pairs)
+    err = max(max_err(npy(a), npy(b)) for a, b in pairs)
+    vv = npy(ko.valid)
+    ids = npy(ko.obj_id)
+    dups = sum(len(ids[b, s][vv[b, s]]) - len(set(ids[b, s][vv[b, s]].tolist()))
+               for b in range(B) for s in range(S))
+    log(f"[3 {name} track step] {label}: bit-exact={ok} max_abs_err={err} "
+        f"valid={int(vv.sum())} duplicates={dups} registered={int(npy(ko.new_track).sum())} "
+        f"overflow={int(npy(ko.overflow).sum())} "
+        f"assoc_saturated={int(npy(ko.assoc_saturated).sum())} "
+        f"n_alive={npy(ko.n_alive)[:, -1].tolist()}")
+    if not ok:
+        bad = [f for f, a, b in zip(track_cuda.TrackOutputs._fields, ko, po)
+               if not equal(npy(a), npy(b))]
+        fail(f"{name} ({label}) disagrees with its plain version: {bad}")
     report.setdefault(name, {"max_abs_err": 0.0})
     report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
     return err
@@ -1077,8 +1128,8 @@ def pointlist_rows(dev, cfg, P, M):
 def kernel_wrappers():
     """{kernel: its wrapper, whose ``.launches`` counts its launches}."""
     from multiple_object_tracking_lidar_tpu_torch.ops import (
-        assign_cuda, centroid_cuda, cluster_pallas, grid_cuda, segsum_cuda, track_cuda,
-        transpose_cuda, voxel_grid_cuda)
+        assign_cuda, centroid_cuda, cluster_pallas, grid_cuda, hungarian_cuda, segsum_cuda,
+        track_cuda, transpose_cuda, voxel_grid_cuda)
 
     vg = voxel_grid_cuda
     return {
@@ -1104,6 +1155,7 @@ def kernel_wrappers():
         "K9": segsum_cuda.segment_totals_rows,
         "K10": centroid_cuda.circumcenter_xy,
         "K11": transpose_cuda.transpose_words,
+        "K12": hungarian_cuda.auction_assign,
     }
 
 
@@ -1133,8 +1185,11 @@ FLEET_PATH = ("K1 raw", "K1 fin", "K2", "K3f", "K4")
 FLEET_C_PATH = ("K6f", "K8", "K3f", "K4")
 
 
-def k4_report_as(position_filter):
-    """An ihgp path's K4 launches count in the report as K4 ihgp's."""
+def k4_report_as(position_filter, association="greedy"):
+    """A Hungarian path's K4 launches count in the report as K4 hungarian's,
+    an ihgp path's as K4 ihgp's."""
+    if association == "hungarian":
+        return {"K4": "K4 hungarian"}
     return {"K4": "K4 ihgp"} if position_filter == "ihgp" else None
 
 
@@ -1160,24 +1215,45 @@ def require(tag, counts, need, report, report_as=None):
         report[k]["launches"] = report[k].get("launches", 0) + c
 
 
-def compare(tag, got: dict, ref: dict, tol_dets, tol_vel):
+def f8_lanes(ref: dict, f8) -> tuple[np.ndarray, np.ndarray]:
+    """((frames, slots) bool detections, (frames, slots) bool published
+    lanes) that F8's (frame, slot) detections reach: the detection itself,
+    and every later lane of the track it was given to (its obj_id)."""
+    dets = np.zeros(ref["valid"].shape, bool)
+    lanes = np.zeros(ref["valid"].shape, bool)
+    for k, slot in f8:
+        dets[k, slot] = True
+        oid = ref["obj_id"][k, slot]
+        if oid >= 0:
+            lanes[k:] |= ref["obj_id"][k:] == oid
+    return dets, lanes
+
+
+def compare(tag, got: dict, ref: dict, tol_dets, tol_vel, f8=()):
     """Integers, booleans and decisions exact; floats within tolerance;
     pos / vel compared where ``valid`` (other lanes carry no contract:
-    they follow det_slot, which is defined only where det_ok)."""
+    they follow det_slot, which is defined only where det_ok).  The F8
+    detections ``f8`` ((frame, slot) pairs) and the lanes of their tracks
+    hold to TOL_F8 (velocities TOL_F8_VEL), and their detections must
+    depart past the tolerance (a repaired F8 shows)."""
     errs = {}
+    f8_dets, f8_pub = f8_lanes(ref, f8)
     for f, r in ref.items():
         g = got[f]
-        if f in ("pos", "vel"):
-            v = ref["valid"]
-            e = max_err(g[v], r[v])
+        if f in ("pos", "vel", "raw_centroid"):
+            sel = ref["valid"] if f != "raw_centroid" else np.ones(r.shape[:-1], bool)
+            loose = f8_pub if f != "raw_centroid" else f8_dets
+            tol = tol_vel if f == "vel" else tol_dets
+            e = max_err(g[sel & ~loose], r[sel & ~loose])
             errs[f] = e
-            if e > (tol_vel if f == "vel" else tol_dets):
+            if e > tol:
                 fail(f"{tag}: {f} max abs err {e}")
-        elif f == "raw_centroid":
-            e = max_err(g, r)
-            errs[f] = e
-            if e > tol_dets:
-                fail(f"{tag}: {f} max abs err {e}")
+            if loose.any():
+                e8 = max_err(g[sel & loose], r[sel & loose])
+                errs[f + " F8"] = e8
+                tol8 = TOL_F8_VEL if f == "vel" else TOL_F8
+                if e8 > tol8 or (f == "raw_centroid" and e8 <= tol):
+                    fail(f"{tag}: F8's {f} max abs err {e8} (within ({tol}, {tol8}] expected)")
         elif not np.array_equal(np.asarray(g), np.asarray(r)):
             fail(f"{tag}: {f} differs: {np.asarray(g).tolist()} vs {np.asarray(r).tolist()}")
     return errs
@@ -1371,9 +1447,10 @@ def phase_g_grid(dev, report):
         f"max abs err {e8}")
 
 
-def run_node(dev, tag, cfg, sc, golden, n_node, need, report, counts_out=None):
+def run_node(dev, tag, cfg, sc, golden, n_node, need, report, counts_out=None, f8=()):
     """TrackerNode over n_node PointCloud2 frames against the golden (the
-    run's launch counts into ``counts_out`` where given)."""
+    run's launch counts into ``counts_out`` where given; ``f8`` as
+    ``compare``'s)."""
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
     from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
 
@@ -1386,20 +1463,22 @@ def run_node(dev, tag, cfg, sc, golden, n_node, need, report, counts_out=None):
     counts = read_counts()
     got = {f: np.stack([getattr(o, f) for o in node.outputs]) for f in fields}
     ref = {f: v[:n_node] for f, v in golden.items()}
-    e = compare(f"{tag} TrackerNode vs JAX golden", got, ref, TOL_DETS, TOL_VEL)
+    e = compare(f"{tag} TrackerNode vs JAX golden", got, ref, TOL_DETS, TOL_VEL, f8)
     n_pub = sum(r is not None for r in replies)
     log(f"[4 {tag}] TrackerNode.on_pointcloud x{n_node} (N={cfg.caps.n_max_points}): "
         f"{n_pub} published, n_dynamic {got['n_dynamic'].tolist()}, launches {counts}; "
         f"vs JAX golden max abs err {e}")
-    require(f"{tag} TrackerNode", counts, need, report, k4_report_as(cfg.position_filter))
+    require(f"{tag} TrackerNode", counts, need, report,
+            k4_report_as(cfg.position_filter, cfg.association))
     if counts_out is not None:
         counts_out.update(counts)
     return got
 
 
-def run_multi(dev, tag, cfg, env, sc, golden, n_disp, s_frames, need, report):
+def run_multi(dev, tag, cfg, env, sc, golden, n_disp, s_frames, need, report, f8=()):
     """bind_env_multi over n_disp dispatches of S frames against the
-    golden; returns the outputs stacked over frames."""
+    golden (``f8`` as ``compare``'s); returns the outputs stacked over
+    frames."""
     from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
     from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
 
@@ -1420,11 +1499,13 @@ def run_multi(dev, tag, cfg, env, sc, golden, n_disp, s_frames, need, report):
     allm = {f: np.concatenate([r[i] for r in outs]) for i, f in enumerate(fields)}
     n_cmp = min(len(allm["publish"]), len(golden["publish"]))
     e = compare(f"{tag} bind_env_multi vs JAX golden", {f: v[:n_cmp] for f, v in allm.items()},
-                {f: v[:n_cmp] for f, v in golden.items()}, TOL_DETS, TOL_VEL)
+                {f: v[:n_cmp] for f, v in golden.items()}, TOL_DETS, TOL_VEL,
+                [x for x in f8 if x[0] < n_cmp])
     fin = all(np.isfinite(v[allm["valid"]]).all() for f, v in allm.items() if f in ("pos", "vel"))
     log(f"[4 {tag}] bind_env_multi {n_disp}x S={s_frames}: launches {counts}, finite {fin}, "
         f"first {n_cmp} vs JAX golden max abs err {e}")
-    require(f"{tag} bind_env_multi", counts, need, report, k4_report_as(cfg.position_filter))
+    require(f"{tag} bind_env_multi", counts, need, report,
+            k4_report_as(cfg.position_filter, cfg.association))
     if not fin:
         fail(f"{tag}: non-finite pos/vel on valid lanes")
     return allm
@@ -1477,7 +1558,8 @@ def run_fleet(tag, fleet, env, frames, need, report):
         outs.append(o)
     torch.cuda.synchronize()
     counts = read_counts()
-    require(tag, counts, need, report, k4_report_as(fleet.tracker.config.position_filter))
+    fcfg = fleet.tracker.config
+    require(tag, counts, need, report, k4_report_as(fcfg.position_filter, fcfg.association))
     if counts["K4"] != P.shape[0]:
         fail(f"{tag}: {counts['K4']} K4 launches for {P.shape[0]} steps (one per step)")
     return {f: np.stack([npy(getattr(o, f)) for o in outs]) for f in outs[0]._fields}, counts
@@ -1770,25 +1852,21 @@ def time_path(tracker, env, P, M, T, reps: int = 3):
 def trace_counts(fn, n_frames: int) -> tuple[float, float]:
     """(device operations -- kernels, copies, memsets -- per frame, host
     syncs per frame) of fn, from a torch.profiler trace of one run after a
-    warm-up.  A host sync is a read of a device value on the host
-    (``.item()``, ``int()``, ``bool()`` of a CUDA tensor): one
-    ``aten::_local_scalar_dense`` each; the Python stack of the first is
-    logged."""
-    from torch.profiler import ProfilerActivity, profile
+    warm-up, between marker kernels (``micro_torch_digits.whole_trace``).
+    A host sync is a read of a device value on the host (``.item()``,
+    ``int()``, ``bool()`` of a CUDA tensor): one ``aten::_local_scalar_dense``
+    each; the Python stack of the first is logged."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import micro_torch_digits
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 with_stack=True) as prof:
-        fn()
-        torch.cuda.synchronize()
-    evs = prof.events()
-    ops = sum(ev.device_type == torch.autograd.DeviceType.CUDA for ev in evs)
+    evs, ops, _ = micro_torch_digits.whole_trace(fn, with_stack=True)
     syncs = [ev for ev in evs if ev.name == "aten::_local_scalar_dense"]
     if syncs:
         log(f"[5 timing]   first host sync of {len(syncs)}: "
             f"{' <- '.join(str(f) for f in (syncs[0].stack or [])[:6])}")
-    return ops / n_frames, len(syncs) / n_frames
+    return len(ops) / n_frames, len(syncs) / n_frames
 
 
 def device_ops_per_frame(fn, n_frames: int) -> float:
@@ -2207,6 +2285,36 @@ def phase_timings_fleet(dev, smi, fleet, env, frames):
 # ---------------------------------------------------------------------------
 # K4 under position_filter="ihgp"; F7 (the point-list CC's row bounds)
 # ---------------------------------------------------------------------------
+def one_op_profile(fn, reps: int):
+    """(device us per recorded launch, device ops recorded per call, whole)
+    of a one-launch call over ``reps`` calls after a warm-up, from a
+    torch.profiler trace between marker kernels
+    (``micro_torch_digits.whole_trace``: a trace that lost events at an end
+    is taken again, up to three times).  The time is the mean over the
+    launches recorded (NaN if none)."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import micro_torch_digits
+
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    _, evs, whole = micro_torch_digits.whole_trace(run)
+    us = sum(e.time_range.elapsed_us() for e in evs)
+    return (us / len(evs) if evs else float("nan")), len(evs) / reps, whole
+
+
+def require_one_op(tag: str, ops: float, whole: bool) -> None:
+    """Fail a reading of ``one_op_profile`` other than one device op per
+    call; a trace still not whole after its tries can only under-read, so
+    it fails above one op or with no launch recorded."""
+    if ops != 1 if whole else not 0 < ops <= 1:
+        fail(f"{tag}: {ops} device ops recorded per call (1 expected; whole trace: {whole})")
+
+
 def f7_points(rng, s, m, n_blobs=40):
     """(S, M, 3) f32 points in n_blobs blobs (each a cluster at the
     headline's tolerance) and a 90%-valid (S, M) mask."""
@@ -2291,8 +2399,6 @@ def phase_kernels_slice11(dev, smi, report, cfg):
     check_pair(report, "K8a", f"S=1 M={m} past MAX_ROWS (F7: the frame in device memory)",
                lambda: (cluster_pallas.cc_adjacency(P, Mk, tol),),
                lambda: (cluster_pallas.cc_adjacency_plain(P, Mk, tol),))
-    sys.path.insert(0, os.path.join(HERE, "scripts"))
-    import micro_torch_digits
 
     # the frame in device memory beside the frame in shared memory (M =
     # 8,192, the words in device memory): device us and ops per call, S = 1
@@ -2300,13 +2406,13 @@ def phase_kernels_slice11(dev, smi, report, cfg):
     for kern, fn in (("K8", lambda p, k: cluster_pallas.connected_components_pallas(p, k, tol,
                                                                                     sweeps)),
                      ("K8a", lambda p, k: cluster_pallas.cc_adjacency(p, k, tol))):
-        (us0, ops0), (us1, ops1) = (micro_torch_digits.device_profile(lambda: fn(p, k), 20)
-                                    for p, k in ((P0, M0), (P, Mk)))
-        log(f"[3 F7] {smi}: {kern} S=1 device {us0:.2f} us/call in {ops0:.1f} ops at "
-            f"M={cluster_pallas.MAX_ROWS} (frame in shared memory), {us1:.2f} us/call in "
-            f"{ops1:.1f} ops at M={m} (frame in device memory) (torch.profiler)")
-        if ops0 != 1 or ops1 != 1:
-            fail(f"F7: {kern} took {ops0} / {ops1} device ops per call (1 expected)")
+        (us0, ops0, w0), (us1, ops1, w1) = (one_op_profile(lambda: fn(p, k), 20)
+                                            for p, k in ((P0, M0), (P, Mk)))
+        log(f"[3 F7] {smi}: {kern} S=1 device {us0:.2f} us/launch ({ops0:.2f} ops per call) "
+            f"at M={cluster_pallas.MAX_ROWS} (frame in shared memory), {us1:.2f} us/launch "
+            f"({ops1:.2f} ops per call) at M={m} (frame in device memory) (torch.profiler)")
+        require_one_op(f"F7: {kern} at M={cluster_pallas.MAX_ROWS}", ops0, w0)
+        require_one_op(f"F7: {kern} at M={m}", ops1, w1)
     ms_plain = cuda_ms(lambda: cluster_pallas.connected_components_pallas_plain(P, Mk, tol, sweeps),
                        1)
     log(f"[3 F7] {smi}: K8's plain version on the card at M={m}: {ms_plain:.3f} ms/call "
@@ -2382,10 +2488,11 @@ def phase_cli(dev, report):
     ``--checkpoint``, held to the JAX CLI's golden
     (tests/golden/torch_cli_headline.json); the ROS1 bag's replay byte for
     byte the npz bag's; a resume from the checkpoint over frames 16-19
-    (the same three ids); and a config file
-    with ``position_filter: ihgp`` against its own golden.  Each run must
-    launch K1, K2, K3f and K4, take no plain route and make no host sync
-    of K4's plain version."""
+    (the same three ids); and config files with ``position_filter: ihgp``
+    and with ``association: hungarian``, each against its own golden.  Each
+    run must launch K1, K2, K3f and K4 (its Hungarian build under
+    hungarian, counted as "K4 hungarian"), take no plain route and make no
+    host sync of K4's plain version."""
     import tempfile
 
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import SIM_MAP, headline_case
@@ -2408,8 +2515,12 @@ def phase_cli(dev, report):
     ihgp_cfg = os.path.join(tmp, "ihgp.yaml")
     with open(ihgp_cfg, "w", encoding="utf-8") as fh:
         fh.write("position_filter: ihgp\n")
+    hungarian_cfg = os.path.join(tmp, "hungarian.yaml")
+    with open(hungarian_cfg, "w", encoding="utf-8") as fh:
+        fh.write("association: hungarian\n")
     runs = (("lpf", GOLDEN_CLI, ["--bag", npz, "--svg", svg, "--checkpoint", ck]),
-            ("ihgp", GOLDEN_CLI_IHGP, ["--bag", npz, "--config", ihgp_cfg]))
+            ("ihgp", GOLDEN_CLI_IHGP, ["--bag", npz, "--config", ihgp_cfg]),
+            ("hungarian", GOLDEN_CLI_HUNGARIAN, ["--bag", npz, "--config", hungarian_cfg]))
     outs = {}
     for tag, gpath, extra in runs:
         with open(gpath, encoding="utf-8") as fh:
@@ -2433,7 +2544,8 @@ def phase_cli(dev, report):
             f"{summary['frames']} frames (the first 3 left out)")
         if bad:
             fail(f"CLI {tag} against its golden: {bad}")
-        require(f"CLI {tag}", counts, FAST_PATH, report, k4_report_as(tag))
+        require(f"CLI {tag}", counts, FAST_PATH, report,
+                k4_report_as(tag, "hungarian" if tag == "hungarian" else "greedy"))
         if syncs:
             fail(f"CLI {tag}: {syncs} host syncs of K4's plain version (0 expected)")
         outs[tag] = (text, counts)
@@ -2503,17 +2615,6 @@ def phase_timings_slice11(dev, smi, P, M, T):
     from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
     from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
 
-    sys.path.insert(0, os.path.join(HERE, "scripts"))
-    import micro_torch_digits
-
-    def k4_device(fn):
-        """(device us per K4 launch, device ops recorded per call) from
-        torch.profiler over 50 calls of one launch each: the profiler drops
-        events now and then, so the time is the mean over the launches it
-        recorded."""
-        us, ops = micro_torch_digits.device_profile(fn, 50)
-        return us / ops, ops
-
     cfg, env, _ = bench_cases.headline_case(device=dev)
     trackers = {pf: Tracker(cfg.replace(position_filter=pf), dev) for pf in ("lpf", "ihgp")}
     scenes = {(pf, b, s_fr): track_scene(5, tr.config, tr.config.caps.k_max_tracks,
@@ -2537,9 +2638,12 @@ def phase_timings_slice11(dev, smi, P, M, T):
         (o1, s1), (o8, s8) = trace_counts(one, 8), trace_counts(eight, 8)
         if s1 or s8:
             fail(f"headline {pf}: host syncs per frame {s1} / {s8} (0 expected)")
-        k4 = [k4_device(lambda: track_cuda.track_frames(*scenes[pf, b, s_fr], config=tr.config,
-                                                         gains_xy=tr.gains_xy))
+        k4 = [one_op_profile(lambda: track_cuda.track_frames(*scenes[pf, b, s_fr],
+                                                              config=tr.config,
+                                                              gains_xy=tr.gains_xy), 50)
               for b, s_fr in ((1, 1), (1, 8))]
+        for (b, s_fr), (_, ops, whole) in zip(((1, 1), (1, 8)), k4):
+            require_one_op(f"K4 {pf} {b} x {s_fr}", ops, whole)
         readings[pf].append((ms_s, ms_m, o1, o8, k4[0][0], k4[1][0], k4[0][1], k4[1][1]))
         log(f"[5 timing] {smi}: headline {pf} (turn {len(readings[pf])} of 2) bind_env "
             f"{ms_s:.4f} ms/frame ({1e3 / ms_s:.1f} clouds/s); bind_env_multi S=8 {ms_m:.4f} "
@@ -2580,6 +2684,301 @@ def phase_timings_slice11(dev, smi, P, M, T):
     log(f"[5 timing] {smi}: headline ihgp bind_env_pipelined S=8 {p1:.4f}/{p2:.4f} "
         f"ms/frame beside bind_env_multi S=8 {m1:.4f}/{m2:.4f} (run multi, pipelined, "
         f"pipelined, multi)")
+
+
+# ---------------------------------------------------------------------------
+# association="hungarian": K12, K4's Hungarian builds, the paths
+# ---------------------------------------------------------------------------
+AUCTION_PROBLEMS = (  # (D, K, kind, max_iters) K12 is held to its plain version at
+    (12, 10, "dense", 3000), (20, 6, "dense", 3000), (5, 30, "dense", 3000),
+    (16, 16, "ties", 3000), (16, 16, "ties", 1), (32, 64, "sparse", 3000),
+    (128, 1024, "sparse", 3000))
+
+
+def auction_problem(rng, d, k, kind):
+    """(cost (D, K) f32, feasible): gate-like sparse costs, dense random
+    ones (an all-infeasible row in both), or near ties (every cost within
+    1e-4 of 0.25, two rows equal)."""
+    if kind == "ties":
+        cost = (np.float32(0.25) + rng.uniform(0, 1e-4, (d, k))).astype(np.float32)
+        cost[1] = cost[0]
+        return cost, np.ones((d, k), bool)
+    cost = rng.uniform(0, 0.6 if kind == "dense" else 3.0, (d, k)).astype(np.float32)
+    feas = (cost < 0.5) & (rng.uniform(size=(d, k)) < 0.8)
+    feas[0] = False
+    return cost, feas
+
+
+def path_track_inputs(dev, cfg, env, sc, n_frames):
+    """A Hungarian path's own track-step inputs: ``bind_env`` on the card
+    over n_frames, and before each step the state, the frame's perceived
+    detections and the gate's (cost, feasible) of the bank and those
+    detections.  Returns (states (a list), dets (n, D, 4), valid (n, D),
+    t (n,), costs (n, D, K), feasible (n, D, K))."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.hungarian import gate_costs
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    tracker = Tracker(cfg, dev)
+    plan, step, st = tracker.plan(env), tracker.bind_env(env), tracker.init_state()
+    pts, mask, ts = headline_frames(sc, cfg.caps.n_max_points, range(n_frames))
+    P, M, T = (torch.from_numpy(a).to(dev) for a in (pts, mask, ts))
+    states, dets, valid, t, costs, feas = [], [], [], [], [], []
+    for k in range(n_frames):
+        p = tracker.perceive(Frame(P[k:k + 1], M[k:k + 1], T[k:k + 1]), plan)
+        c, f = gate_costs(st.bank, p.dets[0], p.det_valid[0], cfg.id_threshold, st.initialized)
+        states.append(st)
+        dets.append(p.dets[0])
+        valid.append(p.det_valid[0])
+        t.append(torch.as_tensor(p.t).reshape(-1)[0].to(torch.float32))
+        costs.append(c)
+        feas.append(f)
+        st, _ = step(st, Frame(P[k], M[k], T[k]))
+    return (states, torch.stack(dets), torch.stack(valid), torch.stack(t), torch.stack(costs),
+            torch.stack(feas))
+
+
+def auction_ops(iters, d, k, per_pair) -> int:
+    """Operations the auction's data needs: every iteration's sweep over
+    the n = D + K columns (two differences and a comparison each), and in
+    each phase's first iteration every real row's K pairs (``per_pair``
+    operations each: K12 reads and subtracts, K4 rebuilds the cost)."""
+    return int(sum(iters)) * 3 * (d + k) + len(iters) * per_pair * d * k
+
+
+def phase_kernels_slice12(dev, smi, report, cfg):
+    """K12 (the auction alone) against ``auction_assign_plain`` on the card:
+    the assigned columns, saturated phases and iterations per phase bit for
+    bit on dense, sparse and near-tie problems up to D = 128, K = 1,024
+    (several problems in one launch), ``max_iters=1`` saturating, and on
+    the headline and dense scenes' own problems under hungarian (their
+    iterations per phase logged); then K4's Hungarian builds against their
+    plain version, bit for bit: on the dense scene's own frames (K = 96, D =
+    64; 1 x 4 and 4 x 1), and at K = 64 and 1,024, 1 x 1, 1 x S and B x 1,
+    under lpf and ihgp, on ``track_scene``'s gated scene (pairs of tracks
+    0.35 m apart, conflicts, registrations, overflow)."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.ops import hungarian_cuda
+    from multiple_object_tracking_lidar_tpu_torch.ops.hungarian import EPS, auction_assign_plain
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import map_state, stack_states
+
+    rng = np.random.default_rng(1207)
+    report.setdefault("K12", {"max_abs_err": 0.0})
+
+    def check(tag, C, F, eps, max_cost, max_iters):
+        a, sat, it = hungarian_cuda.auction_assign(C, F, eps, max_cost, max_iters,
+                                                   return_iters=True)
+        torch.cuda.synchronize()
+        ok, err = True, 0.0
+        for b in range(C.shape[0]):
+            pa, ps, pit = auction_assign_plain(C[b], F[b], eps, max_cost, max_iters,
+                                               return_iters=True)
+            ok = ok and equal(npy(a[b]), npy(pa)) and int(sat[b]) == int(ps)
+            ok = ok and npy(it[b]).tolist() == pit
+            err = max(err, max_err(npy(a[b]), npy(pa)))
+        report["K12"]["max_abs_err"] = max(report["K12"]["max_abs_err"], err)
+        log(f"[3 K12] {tag}, {C.shape[0]} problem(s) in one launch: exact={ok} "
+            f"saturated={npy(sat).tolist()} iterations per phase {npy(it).tolist()}")
+        if not ok:
+            fail(f"K12 ({tag}) disagrees with its plain version")
+        return npy(sat), npy(it)
+
+    for d, k, kind, max_iters in AUCTION_PROBLEMS:
+        eps, max_cost = (1e-4, 1.0) if kind == "ties" else (1e-3, 0.5)
+        probs = [auction_problem(rng, d, k, kind) for _ in range(3 if k < 1024 else 1)]
+        C = torch.from_numpy(np.stack([q[0] for q in probs])).to(dev)
+        F = torch.from_numpy(np.stack([q[1] for q in probs])).to(dev)
+        sat, _ = check(f"D={d} K={k} {kind} max_iters={max_iters}", C, F, eps, max_cost,
+                       max_iters)
+        if max_iters == 1 and sat.min() <= 0:
+            fail("K12 at max_iters=1 did not saturate")
+    for name, case, n in (("headline", bench_cases.hungarian_case, 8),
+                          ("dense", bench_cases.dense_hungarian_case, 4)):
+        hcfg, env, sc = case(device=dev)
+        states, dets, valid, t, C, F = path_track_inputs(dev, hcfg, env, sc, n)
+        check(f"the {name} scene's {n} frames under hungarian (D={C.shape[1]}, "
+              f"K={C.shape[2]}, {int(F.sum())} feasible pairs)", C, F, EPS, hcfg.id_threshold,
+              3000)
+        if name == "dense":
+            # K4's Hungarian build on the dense scene's own frames (K = 96,
+            # D = 64): its n frames from the first state (1 x n), and each
+            # frame from the state before it, one bank each (n x 1)
+            gains = Tracker(hcfg, dev).gains_xy
+            first = map_state(lambda x: x[None], states[0])
+            check_track_inputs(hcfg, gains, (first, dets[None], valid[None], t[None]), report,
+                               "K4 hungarian", f"the dense scene's {n} frames, K="
+                               f"{hcfg.caps.k_max_tracks} 1 x {n}, D={dets.shape[1]}")
+            check_track_inputs(hcfg, gains, (stack_states(states), dets[:, None],
+                                             valid[:, None], t[:, None]), report,
+                               "K4 hungarian", f"the dense scene's {n} frames, K="
+                               f"{hcfg.caps.k_max_tracks} {n} x 1, D={dets.shape[1]}")
+
+    hcfg = cfg.replace(association="hungarian")
+    gains = Tracker(hcfg, dev).gains_xy
+    D = cfg.caps.c_max_clusters
+    check_track(dev, hcfg, gains, cfg.caps.k_max_tracks,
+                ((1, 1, D, ()), (1, 8, D, (0,)), (8, 1, D, (0,)), (1, 8, 128, ())),
+                report, "K4 hungarian", gated=True)
+    check_track(dev, hcfg, gains, 1024, ((1, 1, 128, ()), (1, 4, D, (0,)), (4, 1, D, ())),
+                report, "K4 hungarian", gated=True)
+    check_track(dev, hcfg.replace(position_filter="ihgp"), gains, cfg.caps.k_max_tracks,
+                ((1, 8, D, (0,)), (8, 1, D, (0,))), report, "K4 hungarian", gated=True)
+    check_track(dev, hcfg.replace(position_filter="ihgp"), gains, 1024, ((1, 1, 128, ()),),
+                report, "K4 hungarian", gated=True)
+
+
+def phase_hungarian(dev, report):
+    """The headline and the dense scene under ``association="hungarian"``
+    through ``TrackerNode`` (12 / 8 frames, one K4 launch each),
+    ``bind_env_multi`` (2 x S = 8 / 1 x S = 8) and the kernel fleet (B = 8
+    x 3 steps, bit for bit each stream's ``bind_env``), against the JAX
+    goldens (torch_hungarian_{headline,dense}.npz; the dense golden's F8
+    detection and its track within TOL_F8).  Every run launches K4's
+    Hungarian build, counted as "K4 hungarian"."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.parallel import ShardedTracker, make_mesh
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    for tag, case, gkey, n_node, n_disp, f8 in (
+            ("hungarian", bench_cases.hungarian_case, "hungarian", 12, 2, ()),
+            ("dense hungarian", bench_cases.dense_hungarian_case, "dense_hungarian", 8, 1,
+             F8_DENSE)):
+        golden = dict(np.load(GOLDEN_HUNGARIAN[gkey]))
+        cfg, env, sc = case(device=dev)
+        counts = {}
+        got = run_node(dev, tag, cfg, sc, golden, n_node, FAST_PATH, report, counts, f8)
+        if counts["K4"] != n_node:
+            fail(f"{tag} TrackerNode: {counts['K4']} K4 launches for {n_node} frames")
+        allm = run_multi(dev, tag, cfg, env, sc, golden, n_disp, 8, FAST_PATH, report, f8)
+        n = min(n_node, 8 * n_disp)
+        e = compare(f"{tag} bind_env_multi vs TrackerNode", {f: v[:n] for f, v in allm.items()},
+                    {f: v[:n] for f, v in got.items()}, 0.0, 0.0)
+        ids = [got["obj_id"][k][got["valid"][k]] for k in range(n_node)]
+        dups = sum(len(i) - len(set(i.tolist())) for i in ids)
+        log(f"[4 {tag}] bind_env_multi vs TrackerNode, first {n} frames: max abs err {e}; "
+            f"duplicate ids per frame {dups}; assoc_saturated {got['assoc_saturated'].tolist()}")
+        if dups:
+            fail(f"{tag}: a track matched twice in a frame")
+        tracker = Tracker(cfg, dev)
+        frames = fleet_frames(dev, sc, cfg.caps.n_max_points, 8, 3)
+        fleet = ShardedTracker(tracker, make_mesh(1, 1, device=dev), kernel_path="on")
+        got_f, counts = run_fleet(f"kernel fleet {tag}", fleet, env, frames, FLEET_PATH, report)
+        per_stream_bind_env(f"kernel fleet {tag}", tracker, env, frames, got_f)
+        e_s0 = compare(f"kernel fleet {tag} stream 0 vs golden frames 0-2",
+                       {f: v[:, 0] for f, v in got_f.items()},
+                       {f: v[:3] for f, v in golden.items()}, TOL_DETS, TOL_VEL,
+                       [x for x in f8 if x[0] < 3])
+        log(f"[4 {tag}] kernel fleet B=8 x 3 steps: launches {counts}; bit for bit each "
+            f"stream's bind_env; stream 0 vs golden {e_s0}")
+
+
+def phase_timings_slice12(dev, smi, P, M, T, report):
+    """The headline under ``greedy`` and ``hungarian`` in turns (greedy,
+    hungarian, hungarian, greedy), each side's range logged: ``bind_env``
+    and ``bind_env_multi`` ms/frame (CUDA events), device ops and host
+    syncs per frame (torch.profiler; hungarian must make no host sync), and
+    K4's device us per launch at K = 64, D = 32, 1 x 1 and 1 x 8 on the
+    gated scene (the Hungarian build also at K = 1,024, D = 128); then K4
+    hungarian and K12 against their plain versions with their bounds."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import hungarian_cuda, track_cuda
+    from multiple_object_tracking_lidar_tpu_torch.ops.hungarian import (
+        EPS, auction_assign_plain, gate_costs)
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame, map_state
+
+    cfg, env, _ = bench_cases.headline_case(device=dev)
+    trackers = {a: Tracker(cfg.replace(association=a), dev) for a in ("greedy", "hungarian")}
+    K, D = cfg.caps.k_max_tracks, cfg.caps.c_max_clusters
+    scenes = {(b, s_fr): track_scene(5, cfg, K, D, b, s_fr, (), dev, gated=True)
+              for b, s_fr in ((1, 1), (1, 8))}
+    readings = {a: [] for a in trackers}
+    for a in ("greedy", "hungarian", "hungarian", "greedy"):
+        tr = trackers[a]
+        ms_s, ms_m = time_path(tr, env, P, M, T)
+        step, multi = tr.bind_env(env), tr.bind_env_multi(env)
+
+        def one():
+            st = tr.init_state()
+            for k in range(8):
+                st, _ = step(st, Frame(P[k], M[k], T[k]))
+
+        def eight():
+            multi(tr.init_state(), Frame(P[:8], M[:8], T[:8]))
+
+        (o1, s1), (o8, s8) = trace_counts(one, 8), trace_counts(eight, 8)
+        if s1 or s8:
+            fail(f"headline {a}: host syncs per frame {s1} / {s8} (0 expected)")
+        k4 = [one_op_profile(lambda: track_cuda.track_frames(*scenes[key], config=tr.config,
+                                                              gains_xy=tr.gains_xy), 20)
+              for key in ((1, 1), (1, 8))]
+        for key, (_, ops, whole) in zip(((1, 1), (1, 8)), k4):
+            require_one_op(f"K4 {a} {key[0]} x {key[1]}", ops, whole)
+        readings[a].append((ms_s, ms_m, o1, o8, k4[0][0], k4[1][0]))
+        log(f"[5 timing] {smi}: headline {a} (turn {len(readings[a])} of 2) bind_env "
+            f"{ms_s:.4f} ms/frame; bind_env_multi S=8 {ms_m:.4f} ms/frame; host syncs per "
+            f"frame {s1:.3f} / {s8:.3f}; device ops per frame {o1:.2f} / {o8:.2f}; K4 {a} "
+            f"K={K} D={D} gated scene 1 x 1 / 1 x 8: device {k4[0][0]:.2f} / {k4[1][0]:.2f} us "
+            f"per launch ({k4[0][1]:.2f} / {k4[1][1]:.2f} ops recorded per call)")
+    names = ("bind_env ms/frame", "bind_env_multi ms/frame", "bind_env device ops/frame",
+             "bind_env_multi device ops/frame", "K4 1x1 device us/launch",
+             "K4 1x8 device us/launch")
+    for a, rows in readings.items():
+        log(f"[5 timing] {smi}: headline {a}, range over its 2 turns (greedy, hungarian, "
+            "hungarian, greedy): " + "; ".join(
+                f"{n} {min(r[i] for r in rows):.4f}-{max(r[i] for r in rows):.4f}"
+                for i, n in enumerate(names)))
+    hcfg = trackers["hungarian"].config
+    gains = trackers["hungarian"].gains_xy
+    wide = track_scene(6, cfg, 1024, 128, 1, 1, (), dev, gated=True)
+    us_w, ops_w, whole = one_op_profile(lambda: track_cuda.track_frames(*wide, config=hcfg,
+                                                                        gains_xy=gains), 20)
+    require_one_op("K4 hungarian K=1024 D=128", ops_w, whole)
+    log(f"[5 timing] {smi}: K4 hungarian K=1024 D=128 1 x 1 gated scene: device {us_w:.2f} us "
+        f"per launch ({ops_w:.2f} ops recorded per call)")
+
+    # the kernel report: K4 hungarian and K12 on the gated scene's frame
+    t4 = scenes[1, 1]
+    st0 = map_state(lambda x: x[0], t4[0])
+    C, F = gate_costs(st0.bank, t4[1][0, 0], t4[2][0, 0], cfg.id_threshold, True)
+    _, _, iters = auction_assign_plain(C, F, EPS, cfg.id_threshold, return_iters=True)
+    kw = dict(config=hcfg, gains_xy=gains)
+    out4 = track_cuda.track_frames(*t4, **kw)
+    n_upd = int(out4[1].valid.sum())
+    pairs = {
+        "K4 hungarian": (lambda: track_cuda.track_frames(*t4, **kw),
+                         lambda: track_cuda.track_frames_plain(*t4, **kw),
+                         f"K={K} 1 x 1 frame, D={D}, gated scene, iterations per phase {iters}",
+                         nbytes(t4) + nbytes(out4),
+                         auction_ops(iters, D, K, 8) + 20 * cfg.data_length * n_upd),
+        "K12": (lambda: hungarian_cuda.auction_assign(C, F, EPS, cfg.id_threshold),
+                lambda: auction_assign_plain(C, F, EPS, cfg.id_threshold),
+                f"D={D} K={K}, the same frame's gate costs, iterations per phase {iters}",
+                nbytes((C, F)) + nbytes(hungarian_cuda.auction_assign(C, F, EPS,
+                                                                       cfg.id_threshold)),
+                auction_ops(iters, D, K, 2)),
+    }
+    for name, (fk, fp, shape, moved, ops) in pairs.items():
+        ms_p = cuda_ms(fp, 3)
+        ms_k = cuda_ms(fk, 20)
+        ms_k2 = cuda_ms(fk, 20)
+        ms_p2 = cuda_ms(fp, 3)
+        us_k, ops_k, whole = one_op_profile(fk, 20)
+        require_one_op(name, ops_k, whole)
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        entry = report[name]
+        entry["ms"] = min(ms_k, ms_k2)
+        entry["plain_ms"] = min(ms_p, ms_p2)
+        entry["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        entry["library_ms"] = None
+        log(f"[5 timing] {smi}: {name} {shape}: kernel {ms_k:.4f}/{ms_k2:.4f} ms, plain "
+            f"{ms_p:.4f}/{ms_p2:.4f} ms (run plain, kernel, kernel, plain; min reported); "
+            f"device {us_k:.2f} us per launch ({ops_k:.2f} ops per call; "
+            f"torch.profiler); bound {entry['bound_ms']:.6f} ms by {entry['bound_by']} ({moved} "
+            f"bytes, {ops} operations); library call none")
 
 
 KERNELS = (
@@ -2647,6 +3046,14 @@ KERNELS = (
     ("K4 wide", "K4 on a bank grown past the TPU kernel's 128 slots (one CTA of up to 1,024 "
      "lanes; timed at K = 1,024, launched on the path at K = 256)",
      f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188"),
+    ("K4 hungarian", "K4 under association=hungarian: the eps-scaling auction (one warp, "
+     "auction.cuh, the cost rebuilt from the detections and the slots' last x / y) and the "
+     "Hungarian registrations in place of the greedy scan (timed at K = 64 1 x 1 on a gated "
+     "scene; launched on the headline and dense scenes' hungarian paths)",
+     f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/hungarian.py:139"),
+    ("K12", "the Hungarian auction alone on given (D, K) cost matrices, one warp per problem "
+     "(K4's Hungarian stage's device function; no tracking path launches it)",
+     f"{PKG}/csrc/auction.cu", "multiple_object_tracking_lidar_tpu/ops/hungarian.py:34"),
     ("K11", "batched transpose of 32-bit words: the (S, N, 3) -> (S, 3, N) points K1-cm reads "
      "(4-row groups, 16-byte loads and stores, no shared memory), and the probes' (1, B) -> "
      "(B, 1) int32 row (a copy) and (16, 128) tile",
@@ -2669,9 +3076,11 @@ def main() -> int:
     phase_kernels_slice7(dev, report)
     phase_kernels_slice8(dev, report, cfg, k1_inputs)
     phase_kernels_slice11(dev, smi, report, cfg)
+    phase_kernels_slice12(dev, smi, report, cfg)
     tracker, env, frames = phase_slice(dev, cfg, sc, report)
     phase_cli(dev, report)
     phase_ihgp(dev, report)
+    phase_hungarian(dev, report)
     phase_modes(dev, report)
     phase_pointlist(dev, report)
     phase_g_grid(dev, report)
@@ -2681,6 +3090,7 @@ def main() -> int:
     phase_timings(dev, cfg, smi, tracker, env, frames, report)
     phase_timings_fleet(dev, smi, fleet, fleet_env, fleet_in)
     phase_timings_slice11(dev, smi, *frames)
+    phase_timings_slice12(dev, smi, *frames, report)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": f"{k}: {desc}", "route": "cuda", "source": src, "replaces": rep,

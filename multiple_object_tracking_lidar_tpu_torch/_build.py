@@ -61,7 +61,9 @@ SIGNATURES = {
     "motl_circumcenter_features": [_P, _P, _P, _I, _I, _I, _P, _P],
     "motl_assoc_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P,
                         _P, _P],
-    "motl_track_step": [*[_P] * 20, _I, _I, _I, _I, _I, _I, *[_F] * 7, _I, *[_P] * 17],
+    "motl_track_step": [*[_P] * 20, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, *[_F] * 7, _I,
+                        *[_P] * 17],
+    "motl_auction_assign": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "motl_voxel_exact": _DIGITS,
     "motl_voxel_bf16x3": [_P, _P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _I, _I,
                           _I, _I, _I, _F, _F, _I, _P],

@@ -10,7 +10,11 @@ fields changed: on the dense grid ``exact_case`` (bench.py:518),
 ``pointlist_runs_case`` (F).  ``default_case`` (G) is the JAX package's
 ``TrackerConfig()`` itself, fed the headline frames, and
 ``default_grid_case`` (G-grid) its dense-grid form; ``growth_case`` the
-headline with a two-slot bank, which the node grows.
+headline with a two-slot bank, which the node grows.  ``hungarian_case`` is
+the headline under ``association="hungarian"``; ``dense_case`` a copy of
+``bench.dense_case`` (40 objects 0.55 m apart under a 0.5 m gate, where
+greedy and Hungarian association disagree) and ``dense_hungarian_case``
+that scene under hungarian.
 
 The kernels' own inputs, made from a seed: ``track_scene`` (K4: banks,
 detections with duplicates, gaps, overflow), ``k2_grids`` and
@@ -196,14 +200,82 @@ def growth_case(device="cpu"):
     return cfg.replace(caps=dataclasses.replace(cfg.caps, k_max_tracks=2)), env, sc
 
 
-def track_scene(seed, cfg, K, D, B, S, fresh=(), dev="cpu"):
+def hungarian_case(device="cpu"):
+    """The headline config and scene under ``association="hungarian"``:
+    the auction (K4's Hungarian build) in place of the greedy scan."""
+    cfg, env, sc = headline_case(device)
+    return cfg.replace(association="hungarian"), env, sc
+
+
+def dense_case(device="cpu"):
+    """(cfg, env, scenario) of the dense-dynamic workload, a copy of
+    ``bench.dense_case`` (bench.py:453-506): 40 moving objects in the south,
+    0.55 m apart on an 8 x 5 lattice (under the 0.5 m gate, so greedy's
+    first match and the optimal assignment can differ), and a dense band of
+    unmapped returns in the north whose blob exceeds ``max_cluster_size``;
+    C = 64 clusters, K = 96 slots, both z-slabs (11,000 cells)."""
+    import numpy as np
+
+    from multiple_object_tracking_lidar_tpu_torch.io.scenario import (
+        Scenario,
+        ScenarioObject,
+    )
+    from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import build_static_mask
+
+    grid = load_sim_grid()
+    cfg = bench_config()
+    n_valid = 100_000
+    rng = np.random.default_rng(7)
+    objs = []
+    for i in range(40):
+        gx_i, gy_i = i % 8, i // 8
+        objs.append(
+            ScenarioObject(
+                x0=-1.93 + 0.55 * gx_i,
+                y0=0.2 + 1.06 * gy_i,
+                vx=float(rng.uniform(-0.25, 0.25)),
+                vy=float(rng.uniform(-0.25, 0.25)),
+                points_per_frame=130,
+                radius=0.30,
+            )
+        )
+    n_obj_pts = 40 * 130
+    n_clutter = 9000
+    sc_dense = Scenario(
+        grid=grid,
+        objects=objs,
+        static_points_per_frame=n_valid - n_obj_pts - n_clutter,
+        clutter_points=n_clutter,
+        clutter_bounds=(-2.2, 2.3, 6.3, 9.3),  # north band, clear of objects
+        clutter_z=(0.0, 2.0),                  # both z-slabs
+        seed=321,
+    )
+    cfg_dense = cfg.replace(
+        caps=dataclasses.replace(cfg.caps, c_max_clusters=64, k_max_tracks=96),
+        scene=SceneBounds(x_min=-2.4, x_max=2.5, y_min=-1.5, y_max=9.4, z_min=0.0, z_max=2.0),
+    )
+    env_dense = build_static_mask(grid, cfg_dense.static_tolarance, cfg_dense.occupied_threshold,
+                                  device=device)
+    return cfg_dense, env_dense, sc_dense
+
+
+def dense_hungarian_case(device="cpu"):
+    """The dense scene under ``association="hungarian"``."""
+    cfg, env, sc = dense_case(device)
+    return cfg.replace(association="hungarian"), env, sc
+
+
+def track_scene(seed, cfg, K, D, B, S, fresh=(), dev="cpu", gated=False):
     """K4's inputs for B banks x S frames: (state, dets (B, S, D, 4), valid
     (B, S, D), t (B, S)).  Each bank starts with half its K slots alive
     (banks in ``fresh`` start empty: a first frame); each frame sees a few
     tracks, one of them three times (chained passes), registers new
     objects far away (past K free slots: overflow), has invalid lanes
     inside the bound and a NaN lane after it; frame 2 comes after a gap of
-    6 periods (interpolation backfill) and frame 4 is empty."""
+    6 periods (interpolation backfill) and frame 4 is empty.  With
+    ``gated`` (the Hungarian builds' scene) the slots come in pairs 0.35 m
+    apart and each seen track's detections fall within the gate of its
+    last position, so that the auction has conflicts to resolve."""
     import numpy as np
     import torch
 
@@ -219,6 +291,8 @@ def track_scene(seed, cfg, K, D, B, S, fresh=(), dev="cpu"):
     for b in range(B):
         st = init_state(K, L, torch.float32, "cpu")
         xy = rng.uniform(-40, 40, (K, 2)).astype(np.float32)
+        if gated:
+            xy[1::2] = xy[0::2][: K // 2] + np.float32([0.35, 0.0])
         if b not in fresh:
             live = rng.permutation(K)[: K // 2]
             w = np.zeros((K, L, 4), np.float32)
@@ -254,7 +328,8 @@ def track_scene(seed, cfg, K, D, B, S, fresh=(), dev="cpu"):
                 for _ in range(3 if q == 0 else 1):
                     if lane >= D - 2:
                         break
-                    D4[b, s, lane] = [xy[k, 0] + 0.03 * (L + s), xy[k, 1] + rng.normal(0, 0.02), 0.0, t]
+                    dy = 0.03 * (L - 1) + rng.normal(0, 0.1) if gated else rng.normal(0, 0.02)
+                    D4[b, s, lane] = [xy[k, 0] + 0.03 * (L + s), xy[k, 1] + dy, 0.0, t]
                     V[b, s, lane] = True
                     lane += 2 if q % 3 == 1 else 1        # invalid lanes inside the bound
             n_new = min(D - 2 - lane, 4 if s % 2 else D // 2)

@@ -1,5 +1,5 @@
-// K4: the whole greedy track step (LPF or IHGP positions), one CTA per track
-// bank, and its decision scan alone.
+// K4: the whole track step (greedy or Hungarian association, LPF or IHGP
+// positions), one CTA per track bank, and its greedy decision scan alone.
 //
 // Replaces the Pallas kernel multiple_object_tracking_lidar_tpu/ops/
 // assign_pallas.py::assoc_scan_pallas (body _kernel) and, around it, the
@@ -34,6 +34,23 @@
 //    from the position pass's carry; detection d publishes both from pass
 //    ordinal[d].
 //
+// Under association="hungarian" (the kAuction instantiations; JAX
+// tracker/pipeline.py:965-990 picks ops/hungarian.py::
+// hungarian_associate_and_update) step 1 is the Hungarian stage instead
+// (`hungarian_decide`): warp 0 runs the eps-scaling auction
+// (auction.cuh::auction_warp) over the D detections and the K slots, each
+// cost sqrt(fma(dx, dx, dy * dy)) rebuilt from the detections and the
+// slots' last x / y in shared memory (a dead slot's last x / y NaN, so its
+// gate fails as JAX's alive mask does), on the detections' lists of gated
+// slots that every warp builds first, while the other warps wait; then
+// lane k takes the detection that owns real column k (at most one), and the
+// unmatched valid detections, in detection order, register into the free
+// slots by rank, or count an overflow past the last free slot.  Steps 2-4
+// are the same code as greedy's (every multiplicity is at most 1), and the
+// frame's counts[3] is the auction's saturated phase count.  Each width
+// and filter has its Hungarian build, so the greedy builds keep their
+// registers and shared memory.
+//
 // What bounds it on the H100: latency.  The scan is sequential over at
 // most D <= 128 detections, a few dozen instructions each; the rest is a
 // few hundred flops per updated track.  The bytes (the (K, L, 4) window at
@@ -54,7 +71,10 @@
 // with warp shuffles plus one shared-memory exchange across the warps.
 // Bounds: K <= 1,024 (one lane per slot, the largest CTA), D <= 128 (the
 // shared detection buffer); past them the track step takes its plain
-// route (tracker/pipeline.py).  Built for CTAs of up to 128 and of up to
+// route (tracker/pipeline.py).  The Hungarian builds' static shared memory
+// (the auction's columns and lists, each slot's last x / y, the free-slot
+// table) is ~48 KB at 1,024 lanes, at the static limit; their launch opts
+// in to the dynamic shared memory (the smoother weights) past it.  Built for CTAs of up to 128 and of up to
 // 1,024 threads: a 1,024-thread bound caps ptxas at 64 registers per
 // thread, so banks of K <= 128 (the default K = 64) launch the 128-thread
 // build and keep their registers.  Each width is built once per position
@@ -72,7 +92,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "auction.cuh"
+
 namespace {
+
+using motl_auction::kFull;
 
 constexpr int kMaxDets = 128;
 constexpr int kMaxLanes = 1024;
@@ -317,7 +341,132 @@ struct TrackArgs {
   float* vel;             // (B, S, D, 2)
   uint8_t* new_track;     // (B, S, D)
   int* counts;            // (B, S, 4): n_alive, overflow, dup_saturated, assoc_saturated
+  motl_auction::AuctionParams au;  // read by the Hungarian builds
 };
+
+// ---------------------------------------------------------------------------
+// the Hungarian stage
+// ---------------------------------------------------------------------------
+template <int kLanes>
+struct HungarianScratch {
+  motl_auction::AuctionScratch<kLanes + kMaxDets> auc;
+  float2 last[kLanes];    // each slot's last x / y; NaN where the slot is not alive
+  int free_slot[kLanes];  // the q-th free slot (before this frame's registrations)
+  int reg_det[kMaxDets];  // the detection registered into the q-th free slot
+  int sat;
+  int n_want;
+};
+
+// A detection's value on a slot: -cost where gated (valid, allowed, cost <
+// thr), else NEG; the cost sqrt(fma(dx, dx, dy * dy)), as XLA's CPU code
+// contracts the JAX expression (tests/test_torch_hungarian.py).
+struct TrackValue {
+  const float* det;
+  const int* dv;
+  const float2* last;
+  bool allow;
+  float thr, neg;
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    const float dx = __fsub_rn(det[4 * r], last[c].x), dy = __fsub_rn(det[4 * r + 1], last[c].y);
+    const float cost = sqrtf(__fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
+    return (dv[r] && allow && cost < thr) ? -cost : neg;
+  }
+};
+
+// The Hungarian decisions over all D detections (JAX ops/hungarian.py:
+// 139-200): the auction, then matches and registrations.  Every thread of
+// the CTA calls it; lane k (k < K) owns slot k.  s_wcount holds a count per
+// warp.  Ends with a barrier, so `r` is complete for every thread on return;
+// nobj, nbirth, ovf and sat come out the same in every thread.
+template <int kLanes>
+__device__ void hungarian_decide(const float* s_det, const int* s_dv, bool allow, float thr,
+                                 float gapthr, float dt, int K, int D,
+                                 const motl_auction::AuctionParams& au, Lane& me, int& nobj,
+                                 int& nbirth, int& ovf, int& sat, int* s_wcount,
+                                 HungarianScratch<kLanes>& h, Decisions& r) {
+  const int k = threadIdx.x;
+  const int lane = k & 31, warp = k >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const bool in_k = k < K;
+  const unsigned below = (1u << lane) - 1u;
+  if (in_k) {
+    const float nan = __int_as_float(0x7fc00000);
+    h.last[k] = me.alive ? make_float2(me.lx, me.ly) : make_float2(nan, nan);
+  }
+  __syncthreads();
+  const TrackValue value{s_det, s_dv, h.last, allow, thr, au.neg};
+  motl_auction::auction_lists(value, D, K, au.neg, h.auc, warp, n_warps);
+  __syncthreads();
+  if (warp == 0) {
+    const int s = motl_auction::auction_warp(value, D, K, au, h.auc, nullptr);
+    if (lane == 0) h.sat = s;
+  }
+  __syncthreads();
+  sat = h.sat;
+  // a match: the detection owning real column k, with the pre-frame slot's
+  // id and last t (the interpolation test)
+  const int own = in_k ? h.auc.owner[k] : -1;
+  if (own >= 0 && own < D) {
+    const float t_det = s_det[4 * own + 3];
+    const float gap = __fsub_rn(t_det, me.lt);
+    r.slot[own] = k;
+    r.id[own] = me.oid;
+    r.ok[own] = 1;
+    r.interp[own] =
+        (gap > gapthr && __fsub_rn(rintf(__fdiv_rn(gap, dt)), 1.0f) >= 1.0f) ? 1 : 0;
+    me.lx = s_det[4 * own];
+    me.ly = s_det[4 * own + 1];
+    me.lt = t_det;
+  }
+  // the free slots' ranks (slot order)
+  const bool free_k = in_k && !me.alive;
+  const unsigned fb = __ballot_sync(kFull, free_k);
+  if (lane == 0) s_wcount[warp] = __popc(fb);
+  __syncthreads();
+  int rank = __popc(fb & below), n_free = 0;
+  for (int w = 0; w < n_warps; ++w) {
+    const int c = s_wcount[w];
+    rank += w < warp ? c : 0;
+    n_free += c;
+  }
+  if (free_k) h.free_slot[rank] = k;
+  __syncthreads();
+  // registrations: the unmatched valid detections, in order, take the free
+  // slots by rank
+  if (warp == 0) {
+    int cnt = 0;
+    for (int base = 0; base < D; base += 32) {
+      const int d = base + lane;
+      const int col = d < D ? h.auc.row_col[d] : -1;
+      const bool want = d < D && s_dv[d] && !(col >= 0 && col < K);
+      const unsigned wb = __ballot_sync(kFull, want);
+      const int q = cnt + __popc(wb & below);
+      if (want && q < n_free) {
+        r.slot[d] = h.free_slot[q];
+        r.id[d] = nobj + q;
+        r.is_new[d] = 1;
+        r.ok[d] = 1;
+        h.reg_det[q] = d;
+      }
+      cnt += __popc(wb);
+    }
+    if (lane == 0) h.n_want = cnt;
+  }
+  __syncthreads();
+  const int n_want = h.n_want, n_reg = min(n_want, n_free);
+  if (free_k && rank < n_reg) {
+    const int d = h.reg_det[rank];
+    me.alive = 1;
+    me.oid = nobj + rank;
+    me.birth = nbirth + rank;
+    me.lx = s_det[4 * d];
+    me.ly = s_det[4 * d + 1];
+    me.lt = s_det[4 * d + 3];
+  }
+  nobj += n_reg;
+  nbirth += n_reg;
+  ovf += n_want - n_reg;
+}
 
 // int64 -> f32, round to nearest (torch's .to(float32) of an int64)
 __device__ __forceinline__ float i2f(long long v) { return __ll2float_rn(v); }
@@ -389,7 +538,7 @@ __device__ void update_window(float4* w, int L, const float* s_det, const Decisi
   }
 }
 
-template <int kLanes, bool kIhgp>
+template <int kLanes, bool kIhgp, bool kAuction>
 __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
   // W_vel: wy_last (2, L-1), wm_last (2, 2), my (2, 2, L-1), mm (2, 2, 2);
   // then under ihgp W_pos: wy_last (2, L), wm_last (2, 2), my (2, 2, L), mm (2, 2, 2)
@@ -471,9 +620,15 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
     const int bound = last_valid_bound(s_dv, D);
     const bool any_det = bound > 0;
     const bool steady = init && any_det;
-    int ovf = 0;
-    decide<kLanes>(s_det, s_dv, bound, init, a.thr, a.gapthr, a.dt, K, me, nobj, nbirth, ovf,
-                   s_sc, s_res);
+    int ovf = 0, sat = 0;
+    if constexpr (kAuction) {
+      __shared__ HungarianScratch<kLanes> s_h;
+      hungarian_decide<kLanes>(s_det, s_dv, init, a.thr, a.gapthr, a.dt, K, D, a.au, me, nobj,
+                               nbirth, ovf, sat, s_sc.red[0][0], s_h, s_res);
+    } else {
+      decide<kLanes>(s_det, s_dv, bound, init, a.thr, a.gapthr, a.dt, K, me, nobj, nbirth, ovf,
+                     s_sc, s_res);
+    }
     for (int d = k; d < D; d += blockDim.x) s_act[d] = (s_res.ok[d] && steady) ? 1 : 0;
     __syncthreads();
 
@@ -614,7 +769,7 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
       a.counts[4 * fs] = n_alive;
       a.counts[4 * fs + 1] = ovf;
       a.counts[4 * fs + 2] = 0;  // dup_saturated: every multiplicity runs exactly
-      a.counts[4 * fs + 3] = 0;  // assoc_saturated: greedy never saturates
+      a.counts[4 * fs + 3] = sat;  // assoc_saturated: the auction's; greedy never saturates
     }
     init = init || any_det;
     __syncthreads();  // s_det, s_dv, s_res are rewritten by the next frame
@@ -658,6 +813,28 @@ extern "C" int motl_assoc_scan(const float* af0, const int* ai0, const float* de
   return (int)cudaGetLastError();
 }
 
+template <int kLanes, bool kIhgp, bool kAuction>
+cudaError_t launch_track(const TrackArgs& a, int B, int threads, size_t smem, cudaStream_t st) {
+  if (kAuction) {  // the auction's static tables fill most of the 48 KB without opt-in
+    const cudaError_t e = cudaFuncSetAttribute(track_step_kernel<kLanes, kIhgp, kAuction>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  track_step_kernel<kLanes, kIhgp, kAuction><<<B, threads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int kLanes>
+cudaError_t launch_track_width(const TrackArgs& a, bool ihgp, bool auction, int B, int threads,
+                               size_t smem, cudaStream_t st) {
+  if (auction)
+    return ihgp ? launch_track<kLanes, true, true>(a, B, threads, smem, st)
+                : launch_track<kLanes, false, true>(a, B, threads, smem, st);
+  return ihgp ? launch_track<kLanes, true, false>(a, B, threads, smem, st)
+              : launch_track<kLanes, false, false>(a, B, threads, smem, st);
+}
+
 // The whole track step of B banks over S frames each, one CTA per bank.
 // Inputs: dets (B, S, D, 4) f32, dv (B, S, D) u8, t (B, S) f32; the state
 // alive (B, K) u8, obj_id (B, K) i32, birth_seq (B, K) i32, window (B, K,
@@ -665,17 +842,22 @@ extern "C" int motl_assoc_scan(const float* af0, const int* ai0, const float* de
 // i32, initialized (B,) u8; W_vel's Wy (2, L-1, L-1), Wm (2, L-1, 2), My
 // (2, 2, L-1), Mm (2, 2, 2) f32; W_pos's Wy (2, L, L), Wm (2, L, 2), My
 // (2, 2, L), Mm (2, 2, 2) f32, read only when ihgp != 0 (the position
-// filter is "ihgp").  Outputs: the state after the S frames in the same
-// layouts, and per frame publish (B, S) u8, valid / new_track
-// (B, S, D) u8, obj_id (B, S, D) i32, pos / vel (B, S, D, 2) f32, counts
-// (B, S, 4) i32 [n_alive, overflow, dup_saturated, assoc_saturated].
-// 1 <= K <= 1024, 1 <= D <= 128, L >= 2.
+// filter is "ihgp").  auction != 0 selects Hungarian association, whose
+// parameters are read from auction_f, a HOST array [neg, neg_half,
+// neg_pen, neg_pen2, eps_0, ..., eps_{n_phases - 1}] (f32,
+// ops/hungarian.py::auction_schedule), with n_phases and max_iters;
+// auction_f is not read under greedy association.  Outputs: the state
+// after the S frames in the same layouts, and per frame publish (B, S) u8,
+// valid / new_track (B, S, D) u8, obj_id (B, S, D) i32, pos / vel (B, S,
+// D, 2) f32, counts (B, S, 4) i32 [n_alive, overflow, dup_saturated,
+// assoc_saturated].  1 <= K <= 1024, 1 <= D <= 128, L >= 2.
 extern "C" int motl_track_step(
     const float* dets, const uint8_t* dv, const float* t, const uint8_t* alive_in,
     const int* oid_in, const int* birth_in, const float* win_in, const float* m0_in,
     const int* nobj_in, const int* nbirth_in, const int* spin_in, const uint8_t* init_in,
     const float* wy, const float* wm, const float* my, const float* mm, const float* pwy,
-    const float* pwm, const float* pmy, const float* pmm, int ihgp, int B, int S, int K,
+    const float* pwm, const float* pmy, const float* pmm, int ihgp, int auction,
+    const float* auction_f, int n_phases, int max_iters, int B, int S, int K,
     int D, int L, float thr, float gapthr, float dt, float vmax, float lpf_a, float lpf_b,
     float prune_period, int prune_spin, uint8_t* alive_out, int* oid_out, int* birth_out,
     float* win_out, float* m0_out, int* nobj_out, int* nbirth_out, int* spin_out,
@@ -687,18 +869,14 @@ extern "C" int motl_track_step(
               spin_in, init_in, wy, wm, my, mm, pwy, pwm, pmy, pmm, S, K, D, L, thr,
               gapthr, dt, vmax, lpf_a, lpf_b, prune_period, prune_spin, alive_out, oid_out,
               birth_out, win_out, m0_out, nobj_out, nbirth_out, spin_out, init_out, publish,
-              valid, obj_id, pos, vel, new_track, counts};
+              valid, obj_id, pos, vel, new_track, counts, {}};
+  if (auction && !motl_auction::read_params(auction_f, n_phases, max_iters, &a.au))
+    return (int)cudaErrorInvalidValue;
   const int threads = (K + 31) / 32 * 32;
   const size_t smem =
       (size_t)(6 * (L - 1) + 4 + 8 + (ihgp ? 6 * L + 4 + 8 : 0)) * sizeof(float);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (threads <= kNarrowLanes && ihgp)
-    track_step_kernel<kNarrowLanes, true><<<B, threads, smem, st>>>(a);
-  else if (threads <= kNarrowLanes)
-    track_step_kernel<kNarrowLanes, false><<<B, threads, smem, st>>>(a);
-  else if (ihgp)
-    track_step_kernel<kMaxLanes, true><<<B, threads, smem, st>>>(a);
-  else
-    track_step_kernel<kMaxLanes, false><<<B, threads, smem, st>>>(a);
-  return (int)cudaGetLastError();
+  if (threads <= kNarrowLanes)
+    return (int)launch_track_width<kNarrowLanes>(a, ihgp, auction, B, threads, smem, st);
+  return (int)launch_track_width<kMaxLanes>(a, ihgp, auction, B, threads, smem, st);
 }

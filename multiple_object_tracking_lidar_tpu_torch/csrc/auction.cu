@@ -1,0 +1,71 @@
+// K12: the Hungarian auction alone, one warp (one CTA of 32 threads) per
+// (D, K) problem, on given cost matrices.
+//
+// Runs the device function of K4's Hungarian builds (auction.cuh::
+// auction_warp; its header says what it replaces -- the JAX package's
+// jnp auction, multiple_object_tracking_lidar_tpu/ops/hungarian.py::
+// auction_assign :34, no TPU kernel -- what bounds it and how) so that the
+// auction can be held against its plain version by itself, max_iters small
+// enough to saturate included.  No tracking path launches it: their
+// auction is a stage of K4 (csrc/assign.cu), which rebuilds each cost from
+// the detections and the slots' last positions instead of reading it.
+// Here each value is read from the (D, K) cost and feasibility matrices in
+// device memory (L1/L2-resident after the first iteration): -cost where
+// feasible, NEG where not, as jnp.where writes it.
+
+#include "auction.cuh"
+
+namespace {
+
+using motl_auction::AuctionParams;
+using motl_auction::AuctionScratch;
+
+constexpr int kMaxCols = 1024 + motl_auction::kMaxRows;
+
+struct MatrixValue {
+  const float* cost;
+  const uint8_t* feas;
+  int K;
+  float neg;
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    const size_t i = (size_t)r * K + c;
+    return feas[i] ? -cost[i] : neg;
+  }
+};
+
+__global__ void __launch_bounds__(32)
+auction_kernel(const float* __restrict__ cost, const uint8_t* __restrict__ feas, int D, int K,
+               AuctionParams p, int* __restrict__ assigned, int* __restrict__ saturated,
+               int* __restrict__ iters) {
+  __shared__ AuctionScratch<kMaxCols> sm;
+  const size_t b = blockIdx.x;
+  const MatrixValue value{cost + b * D * K, feas + b * D * K, K, p.neg};
+  motl_auction::auction_lists(value, D, K, p.neg, sm, 0, 1);
+  __syncwarp();
+  const int sat = motl_auction::auction_warp(value, D, K, p, sm,
+                                             iters != nullptr ? iters + b * p.n_phases : nullptr);
+  for (int r = threadIdx.x; r < D; r += 32) {
+    const int c = sm.row_col[r];
+    assigned[b * D + r] = (c >= 0 && c < K) ? c : -1;
+  }
+  if (threadIdx.x == 0) saturated[b] = sat;
+}
+
+}  // namespace
+
+// B problems: cost (B, D, K) f32, feas (B, D, K) u8; auction_f a HOST array
+// [neg, neg_half, neg_pen, neg_pen2, eps_0, ..., eps_{n_phases - 1}] (f32,
+// ops/hungarian.py::auction_schedule).  Outputs: assigned (B, D) i32 (the
+// real column of each row, -1 if none), saturated (B,) i32, and, unless
+// iters is null, iters (B, n_phases) i32.  1 <= D <= 128, 1 <= K <= 1024.
+extern "C" int motl_auction_assign(const float* cost, const uint8_t* feas, const float* auction_f,
+                                   int n_phases, int max_iters, int B, int D, int K,
+                                   int* assigned, int* saturated, int* iters, void* stream) {
+  AuctionParams p;
+  if (B < 1 || D < 1 || D > motl_auction::kMaxRows || K < 1 || D + K > kMaxCols ||
+      !motl_auction::read_params(auction_f, n_phases, max_iters, &p))
+    return (int)cudaErrorInvalidValue;
+  auction_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(cost, feas, D, K, p, assigned, saturated,
+                                                      iters);
+  return (int)cudaGetLastError();
+}

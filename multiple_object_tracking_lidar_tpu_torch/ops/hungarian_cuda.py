@@ -1,0 +1,109 @@
+"""K12: the Hungarian auction alone, on given cost matrices.
+
+The JAX package's ``association="hungarian"`` solves each frame's gated
+assignment with ``ops/hungarian.py::auction_assign`` (:34), a jnp Jacobi
+auction with eps scaling inside bounded ``while_loop``s; it has no TPU
+kernel.  On the card the auction is one device function
+(``csrc/auction.cuh::auction_warp``, whose header says what bounds it and
+how its design answers that: one warp, per-column state in shared memory,
+one bid for all the dummy rows, packed-key ``atomicMax`` winners).  K4's
+Hungarian builds run it as the decision stage of the track step
+(``ops/track_cuda.py``); ``auction_assign`` launches it alone
+(``csrc/auction.cu``, one 32-thread CTA per problem) so that it can be
+held against ``ops/hungarian.py::auction_assign_plain`` by itself,
+including a ``max_iters`` small enough to saturate.  No tracking path
+launches it, as no tracking path launches the greedy scan alone
+(``ops/assign_cuda.py``).
+
+``auction_assign`` launches the kernel for CUDA tensors and runs
+``auction_assign_plain`` for CPU tensors; ``.launches`` counts kernel
+launches.  It takes (D, K) or B stacked (B, D, K) problems and returns
+(assigned (D,) / (B, D) int32, saturated () / (B,) int32) and, with
+``return_iters``, the iterations each phase ran ((n_phases,) / (B,
+n_phases) int32).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from multiple_object_tracking_lidar_tpu_torch import _build
+from multiple_object_tracking_lidar_tpu_torch.ops.hungarian import (
+    MAX_ITERS,
+    NEG32,
+    NEG_HALF32,
+    SCALE,
+    auction_assign_plain,
+    auction_schedule,
+)
+
+MAX_ROWS = 128      # real rows (detections), as K4
+MAX_COLS = 1024     # real columns (track slots), as K4
+MAX_PHASES = 16     # csrc/auction.cuh::kMaxPhases
+
+
+def auction_params(d: int, eps: float, max_cost: float, scale: float = SCALE):
+    """(host f32 array [neg, neg_half, neg_pen, neg_pen2, eps_0, ...],
+    n_phases): the kernels' auction parameters for ``d`` real rows."""
+    neg_pen, neg_pen2, eps_ps = auction_schedule(d, eps, max_cost, scale)
+    if len(eps_ps) > MAX_PHASES:
+        raise ValueError(f"{len(eps_ps)} eps phases; the kernels hold at most {MAX_PHASES}")
+    vals = [NEG32, NEG_HALF32, neg_pen, neg_pen2, *eps_ps]
+    return (ctypes.c_float * len(vals))(*vals), len(eps_ps)
+
+
+def auction_assign(
+    cost: torch.Tensor,       # (D, K) or (B, D, K) f32
+    feasible: torch.Tensor,   # the same shape, bool
+    eps: float,
+    max_cost: float,
+    max_iters: int = MAX_ITERS,
+    scale: float = SCALE,
+    return_iters: bool = False,
+):
+    """K12 on CUDA tensors, ``auction_assign_plain`` (problem by problem)
+    on CPU tensors."""
+    single = cost.dim() == 2
+    if single:
+        cost, feasible = cost[None], feasible[None]
+    if cost.device.type == "cpu":
+        outs = [auction_assign_plain(c, f, eps, max_cost, max_iters, scale, return_iters=True)
+                for c, f in zip(cost, feasible)]
+        assigned = torch.stack([o[0] for o in outs])
+        saturated = torch.stack([o[1] for o in outs])
+        iters = torch.tensor([o[2] for o in outs], dtype=torch.int32)
+    else:
+        assigned, saturated, iters = _launch(cost, feasible, eps, max_cost, max_iters, scale)
+    out = (assigned, saturated, iters)
+    if single:
+        out = tuple(x[0] for x in out)
+    return out if return_iters else out[:2]
+
+
+def _launch(cost, feasible, eps, max_cost, max_iters, scale):
+    n_b, d, k = cost.shape
+    dev = cost.device
+    if not (1 <= d <= MAX_ROWS and 1 <= k <= MAX_COLS):
+        raise ValueError(f"K12 holds 1 <= D <= {MAX_ROWS} rows and 1 <= K <= {MAX_COLS} "
+                         f"columns (got D={d}, K={k})")
+    if cost.dtype != torch.float32 or feasible.shape != cost.shape or feasible.device != dev:
+        raise ValueError(f"cost must be float32 and feasible {tuple(cost.shape)} on {dev}")
+    params, n_phases = auction_params(d, eps, max_cost, scale)
+    cost = cost.contiguous()
+    feas = _build.byte_mask(feasible)
+    assigned = torch.empty((n_b, d), dtype=torch.int32, device=dev)
+    saturated = torch.empty((n_b,), dtype=torch.int32, device=dev)
+    iters = torch.empty((n_b, n_phases), dtype=torch.int32, device=dev)
+    err = _build.load().motl_auction_assign(
+        cost.data_ptr(), feas.data_ptr(), ctypes.addressof(params), n_phases, int(max_iters),
+        n_b, d, k, assigned.data_ptr(), saturated.data_ptr(), iters.data_ptr(),
+        _build.stream_ptr(dev),
+    )
+    _build.check(err, "motl_auction_assign")
+    auction_assign.launches += 1
+    return assigned, saturated, iters
+
+
+auction_assign.launches = 0

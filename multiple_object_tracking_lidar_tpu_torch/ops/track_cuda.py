@@ -1,7 +1,8 @@
-"""K4: the whole track step -- association, window updates, the chained
-IHGP velocity passes, LPF positions (or under ``position_filter="ihgp"``
-an IHGP position pass chained before each velocity pass), expiry -- in one
-launch.
+"""K4: the whole track step -- association (greedy, or under
+``association="hungarian"`` the eps-scaling auction and its registrations),
+window updates, the chained IHGP velocity passes, LPF positions (or under
+``position_filter="ihgp"`` an IHGP position pass chained before each
+velocity pass), expiry -- in one launch.
 
 Replaces the Pallas kernel ``multiple_object_tracking_lidar_tpu/ops/
 assign_pallas.py::assoc_scan_pallas`` and, around it, the rest of the JAX
@@ -21,18 +22,22 @@ CPU tensors; ``.launches`` counts kernel launches.  Both return (the state
 after the S frames, ``TrackOutputs`` stacked (B, S, ...)).
 
 ``track_step_plain`` is the plain version of one bank and one frame: the
-decisions (``assign_cuda.assoc_scan_plain``), the closed-form window
+decisions (``assign_cuda.assoc_scan_plain``, or under hungarian
+``ops/hungarian.py::hungarian_associate_and_update_plain``, as JAX
+tracker/pipeline.py:965-990 picks them), the closed-form window
 updates (``ops/assign.py``), and the filter with every f32 reduction
 spelled as an ascending loop started from its first term -- the order the
 kernel sums in, so the two agree bit for bit.  It is the CPU route and,
 past the kernel's bounds (K > 1,024 slots or D > 128 detections) or under
-``assoc_backend="jnp"``, the card's route (``tracker/pipeline.py``).  It
-reads the duplicate-pass count on the host once per frame
-(``track_step_plain.host_syncs``); the kernel never does.
+greedy ``assoc_backend="jnp"``, the card's route (``tracker/pipeline.py``).
+It reads the duplicate-pass count on the host once per frame
+(``track_step_plain.host_syncs``), and under hungarian the auction's
+convergence once per iteration; the kernel never does.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -41,6 +46,12 @@ from multiple_object_tracking_lidar_tpu_torch import _build
 from multiple_object_tracking_lidar_tpu_torch.models.lpf import lpf_coefficients, lpf_pos
 from multiple_object_tracking_lidar_tpu_torch.ops.assign import associate_and_update
 from multiple_object_tracking_lidar_tpu_torch.ops.assign_cuda import MAX_DETS, MAX_LANES, _consts
+from multiple_object_tracking_lidar_tpu_torch.ops.hungarian import (
+    EPS,
+    MAX_ITERS,
+    hungarian_associate_and_update_plain,
+)
+from multiple_object_tracking_lidar_tpu_torch.ops.hungarian_cuda import auction_params
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, true_div
 from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
     TrackBank,
@@ -63,7 +74,7 @@ class TrackOutputs(NamedTuple):
     n_alive: torch.Tensor         # int32
     overflow: torch.Tensor        # int32
     dup_saturated: torch.Tensor   # int32, 0: every multiplicity runs exactly
-    assoc_saturated: torch.Tensor  # int32, 0 for greedy
+    assoc_saturated: torch.Tensor  # int32: the auction's saturated phases, 0 for greedy
 
 
 def kernel_fits(k: int, d: int) -> bool:
@@ -141,17 +152,19 @@ def track_step_plain(
     config, gains_xy: dict,
 ) -> tuple[TrackerState, TrackOutputs]:
     """Plain PyTorch version of K4 on one bank and one frame: dets (D, 4),
-    det_valid (D,), t scalar (port of the JAX track_step, greedy
-    association; LPF positions, or under ``position_filter="ihgp"`` an IHGP
-    position pass before each velocity pass, the velocity pass chained on
-    its carry, JAX pipeline.py:1015-1022)."""
+    det_valid (D,), t scalar (port of the JAX track_step, greedy or
+    Hungarian association; LPF positions, or under ``position_filter=
+    "ihgp"`` an IHGP position pass before each velocity pass, the velocity
+    pass chained on its carry, JAX pipeline.py:1015-1022)."""
     L = config.data_length
     dt_gp = config.dt_gp
     any_det = det_valid.any()
     was_init = state.initialized
     steady = was_init & any_det   # publish/filter/expire this frame (cpp:163+)
 
-    assoc = associate_and_update(
+    associate = (hungarian_associate_and_update_plain if config.association == "hungarian"
+                 else associate_and_update)
+    assoc = associate(
         state.bank, state.next_obj_num, state.next_birth, dets, det_valid,
         config.id_threshold, dt_gp, config.interp_gap_factor,
         allow_match=was_init,  # first frame registers without gating (cpp:153-156)
@@ -260,9 +273,15 @@ def track_frames(
     k, L = bank.window.shape[1], bank.window.shape[2]
     dev = dets.device
     if not kernel_fits(k, d):
+        if config.association == "hungarian":
+            raise NotImplementedError(
+                f"K4's Hungarian builds hold 1 <= K <= {MAX_LANES} track slots and 1 <= D <= "
+                f"{MAX_DETS} detections (got K={k}, D={d}); past them the Hungarian step has "
+                "no route on the card yet (ROADMAP item 26)"
+            )
         raise ValueError(
             f"K4 holds 1 <= K <= {MAX_LANES} track slots (one lane per slot) and "
-            f"1 <= D <= {MAX_DETS} detections (got K={k}, D={d}); the track step's "
+            f"1 <= D <= {MAX_DETS} detections (got K={k}, D={d}); the greedy step's "
             "plain route runs past them (tracker/pipeline.py::track_batch)"
         )
     if dets.shape != (n_b, n_s, d, 4) or dets.dtype != torch.float32 or t.shape != (n_b, n_s):
@@ -271,6 +290,10 @@ def track_frames(
         raise ValueError(f"window must be ({n_b}, {k}, L >= 2, 4) float32")
     w, wp = gains_xy["W_vel"], gains_xy["W_pos"]
     thr32, gapthr, dt32 = _consts(config.id_threshold, config.dt_gp, config.interp_gap_factor)
+    hungarian = config.association == "hungarian"
+    # the auction's parameters as JAX's hungarian_associate_and_update sets
+    # them: its eps, max_cost the gate, auction_assign's cap and scale
+    au, n_phases = auction_params(d, EPS, config.id_threshold) if hungarian else (None, 0)
     i32 = dict(dtype=torch.int32, device=dev)
     u8 = dict(dtype=torch.bool, device=dev)
     new = TrackerState(
@@ -300,6 +323,7 @@ def track_frames(
     nb = new.bank
     err = _build.load().motl_track_step(
         *(x.data_ptr() for x in ins), int(config.position_filter == "ihgp"),
+        int(hungarian), ctypes.addressof(au) if hungarian else None, n_phases, MAX_ITERS,
         n_b, n_s, k, d, L,
         thr32, gapthr, dt32, f32(config.max_velocity), *lpf_coefficients(config.lpf_tau, config.dt_gp),
         f32(config.prune_period), int(config.prune_period * config.frequency),

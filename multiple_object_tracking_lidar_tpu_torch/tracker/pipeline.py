@@ -1,7 +1,8 @@
 """The per-frame tracking step.
 
 Port of ``multiple_object_tracking_lidar_tpu/tracker/pipeline.py`` for f32,
-greedy association and both position filters (``lpf``, and ``ihgp``, the
+both associations (``greedy``, and ``hungarian``, the optimal gated
+assignment) and both position filters (``lpf``, and ``ihgp``, the
 reference's present-but-disabled mode).  The reference's
 callback chain (voxel downsample -> static removal -> Euclidean clustering
 -> circumcenter features -> greedy association -> LPF filtering -> expiry;
@@ -32,7 +33,8 @@ one of two perception paths:
     sweeps) -> cluster postprocess -> K3f circumcenter (one launch)
 
 and then the track step: K4 (``ops/track_cuda.py``), the whole step in
-one launch, or past K4's bounds its plain route (``track_route``).  Every
+one launch, or, for greedy past K4's bounds, its plain route
+(``track_route``; a Hungarian step past them raises on the card).  Every
 kernel lives in ``ops/*_cuda.py`` or ``ops/cluster_pallas.py``.
 Perception is stateless, so it runs on S stacked frames at once:
 ``bind_env`` is S = 1 and ``bind_env_multi`` perceives its S frames in one
@@ -120,11 +122,10 @@ from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
 )
 
 # The values each field may take in this package, and the ROADMAP slice
-# that ports the others.  voxel_quant and position_filter take both of their
-# values, voxel_mode and cluster_backend all of theirs (TrackerConfig
-# refuses the combinations the JAX package refuses).
+# that ports the others.  voxel_quant, position_filter and association take
+# both of their values, voxel_mode and cluster_backend all of theirs
+# (TrackerConfig refuses the combinations the JAX package refuses).
 _PORTED = (
-    ("association", ("greedy",), "Hungarian association"),
     ("dtype", ("float32",), "other compute dtypes"),
 )
 
@@ -514,11 +515,12 @@ def track_batch(
     """The track step of B banks over S frames each (state fields with a
     leading (B,) axis; dets (B, S, D, 4), det_valid (B, S, D), t (B, S)):
     K4 in one launch (``ops/track_cuda.py::track_frames``), or its plain
-    route frame by frame where K4 does not run: on the CPU, under
-    ``assoc_backend="jnp"`` (the JAX package's choice, ops/assign.py:
-    168-178), and past K4's bounds (K > 1,024 slots or D > 128
-    detections), where the JAX package takes its jnp scan too.  Every
-    route makes the same decisions."""
+    route frame by frame where K4 does not run: on the CPU, and for greedy
+    under ``assoc_backend="jnp"`` (the JAX package's choice, ops/assign.py:
+    168-178) and past K4's bounds (K > 1,024 slots or D > 128
+    detections), where the JAX package takes its jnp scan too.  A
+    Hungarian step past K4's bounds raises on the card (ROADMAP item 26).
+    Every route makes the same decisions."""
     route = track_route(config, state.bank.alive.shape[-1], dets.shape[-2])
     run = track_frames if route == "kernel" else track_frames_plain
     return run(state, dets, det_valid, t, config=config, gains_xy=gains_xy)
@@ -527,7 +529,14 @@ def track_batch(
 def track_route(config: TrackerConfig, k: int, d: int) -> str:
     """The track step's route on the card for a bank of ``k`` slots and
     ``d`` detection slots: "kernel" (K4) or "plain" (``track_frames_plain``
-    on the device).  On the CPU every route is the plain version."""
+    on the device).  The plain route is greedy's alone: under
+    ``assoc_backend="jnp"`` and past K4's bounds.  ``assoc_backend`` picks
+    the greedy engine only -- the JAX package passes it to the greedy
+    associator alone (pipeline.py:984-990) -- so a Hungarian step takes K4
+    whatever it says, and past K4's bounds K4 raises (ROADMAP item 26).
+    On the CPU every route is the plain version."""
+    if config.association == "hungarian":
+        return "kernel"
     return "kernel" if config.assoc_backend != "jnp" and kernel_fits(k, d) else "plain"
 
 
@@ -545,8 +554,9 @@ def track_step(
     state: TrackerState, p: Perception, *, config: TrackerConfig, gains_xy: dict
 ) -> tuple[TrackerState, FrameOutput]:
     """Stateful tracking back-end of one frame: association, lifecycle,
-    filtering, expiry (port of the JAX track_step, greedy association,
-    LPF or IHGP positions) -- ``track_batch`` at one bank and one frame."""
+    filtering, expiry (port of the JAX track_step, greedy or Hungarian
+    association, LPF or IHGP positions) -- ``track_batch`` at one bank and
+    one frame."""
     st, o = track_batch(
         map_state(lambda x: x[None], state), p.dets[None, None], p.det_valid[None, None],
         torch.as_tensor(p.t).reshape(1, 1), config=config, gains_xy=gains_xy,

@@ -39,13 +39,21 @@ every FrameOutput field stacked over frames:
   after each frame -> ``tests/golden/torch_growth_headline.npz``;
 - ``ihgp``: the headline config with ``position_filter="ihgp"`` through
   ``Tracker.bind_env`` -> ``tests/golden/torch_ihgp_headline.npz``;
-- ``cli`` and ``cli_ihgp``: the JAX CLI, ``run --map assets/sim_map.yaml
-  --backend grid --bag <16 headline frames> --frames 16`` (the default
-  ``TrackerConfig()``; ``cli_ihgp`` with a config file that sets
-  ``position_filter: ihgp``), on the CPU: its JSON lines, and beside each
+- ``hungarian``: the headline config with ``association="hungarian"``
+  through ``Tracker.bind_env`` -> ``tests/golden/torch_hungarian_headline.npz``;
+- ``dense_hungarian``: ``bench.dense_case()`` (40 objects 0.55 m apart,
+  C = 64, K = 96, both z-slabs) with ``association="hungarian"`` through
+  ``Tracker.bind_env``, 8 frames -> ``tests/golden/torch_hungarian_dense.npz``,
+  two detections of which (frames 2 and 3) the port holds to a looser
+  bound (ROADMAP Queue 3, F8: ``chip_smoke.F8_DENSE``);
+- ``cli``, ``cli_ihgp`` and ``cli_hungarian``: the JAX CLI, ``run --map
+  assets/sim_map.yaml --backend grid --bag <16 headline frames> --frames
+  16`` (the default ``TrackerConfig()``; ``cli_ihgp`` and
+  ``cli_hungarian`` with a config file that sets ``position_filter: ihgp``
+  or ``association: hungarian``), on the CPU: its JSON lines, and beside each
   obstacle its unrounded speed (``hypot(vx, vy)`` of the published
   velocity, before the label's rounding) ->
-  ``tests/golden/torch_cli{,_ihgp}_headline.json``.  The bag is the
+  ``tests/golden/torch_cli{,_ihgp,_hungarian}_headline.json``.  The bag is the
   headline scenario's ``frame(k)`` PointCloud2 messages, 100,000 points
   each, recorded by ``io/bag.py`` (``cli_bag``).
 
@@ -76,12 +84,18 @@ GOLDENS = {
     "ihgp": os.path.join(GOLDEN_DIR, "torch_ihgp_headline.npz"),
     "cli": os.path.join(GOLDEN_DIR, "torch_cli_headline.json"),
     "cli_ihgp": os.path.join(GOLDEN_DIR, "torch_cli_ihgp_headline.json"),
+    "hungarian": os.path.join(GOLDEN_DIR, "torch_hungarian_headline.npz"),
+    "dense_hungarian": os.path.join(GOLDEN_DIR, "torch_hungarian_dense.npz"),
+    "cli_hungarian": os.path.join(GOLDEN_DIR, "torch_cli_hungarian_headline.json"),
 }
 CLI_FRAMES = 16
 CLI_IHGP_CONFIG = "position_filter: ihgp\n"   # the cli_ihgp config file's text
+CLI_CONFIGS = {"cli_ihgp": CLI_IHGP_CONFIG,   # each CLI golden's config file, if any
+               "cli_hungarian": "association: hungarian\n"}
 GROWTH_K0 = 2   # the growth golden's initial k_max_tracks
 N_FRAMES = 12
-FRAMES = {"default": 4, "fleet": 3}   # frames (the fleet: steps) per golden where not N_FRAMES
+# frames (the fleet: steps) per golden where not N_FRAMES
+FRAMES = {"default": 4, "fleet": 3, "dense_hungarian": 8}
 FLEET_STREAMS = 8
 # the headline config's fields changed for each case ("pointlist_jnp" is
 # configuration D, checked against the "pointlist" golden)
@@ -94,6 +108,8 @@ CASE_FIELDS = {
     "pointlist_scan": {"voxel_mode": "scan", "cluster_backend": "jnp"},
     "pointlist_runs": {"voxel_mode": "runs", "cluster_backend": "pallas"},
     "ihgp": {"position_filter": "ihgp"},
+    "hungarian": {"association": "hungarian"},
+    "dense_hungarian": {"association": "hungarian"},
 }
 
 
@@ -231,10 +247,10 @@ def cli_outputs(case: str, n_frames: int = CLI_FRAMES) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         argv = cli_bag(os.path.join(tmp, "frames.npz"), n_frames)
         extra = []
-        if case == "cli_ihgp":
-            cfg = os.path.join(tmp, "ihgp.yaml")
+        if case in CLI_CONFIGS:
+            cfg = os.path.join(tmp, "config.yaml")
             with open(cfg, "w", encoding="utf-8") as fh:
-                fh.write(CLI_IHGP_CONFIG)
+                fh.write(CLI_CONFIGS[case])
             extra = ["--config", cfg]
         out = io.StringIO()
         jnode.TrackerNode.on_pointcloud = recording
@@ -246,7 +262,7 @@ def cli_outputs(case: str, n_frames: int = CLI_FRAMES) -> dict:
     records = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
     assert len(records) == len(speeds)
     return {"argv": ["--backend", "grid", "--frames", str(n_frames)]
-            + (["--config", "<position_filter: ihgp>"] if extra else []),
+            + (["--config", f"<{CLI_CONFIGS[case].strip()}>"] if extra else []),
             "records": records, "speeds": speeds}
 
 
@@ -267,7 +283,7 @@ def golden_outputs(n_frames: int | None = None, case: str = "slice",
         return fleet_outputs(n_frames_of(case) if n_frames is None else n_frames, n_streams)
     if case == "growth":
         return growth_outputs(n_frames_of(case) if n_frames is None else n_frames)
-    cfg, env, sc = bench.headline_case()
+    cfg, env, sc = bench.dense_case() if case == "dense_hungarian" else bench.headline_case()
     if case == "default":
         from multiple_object_tracking_lidar_tpu.config import TrackerConfig
 

@@ -7,7 +7,9 @@ point-list configurations C-F) on the GPU against the port's plain path on
 the CPU, and the kernel fleet on a one-rank NCCL mesh against ``bind_env``;
 K4 under ``position_filter="ihgp"``, F7 (K8a at a ragged M; K8 and K8a
 past 8,192 rows, the frame in device memory) and the CLI's ``run --backend grid`` against the
-JAX CLI's goldens.  Marked ``cuda``: they
+JAX CLI's goldens; K12 (the Hungarian auction alone) and K4's Hungarian
+builds against their plain versions, and the Hungarian paths against the
+JAX goldens.  Marked ``cuda``: they
 skip without a GPU.  This file imports no JAX, so on the GPU machine (which
 has none) it runs without the suite's conftest:
 
@@ -432,17 +434,11 @@ def test_k1_k5_clusters_match_plain(dev, grid, quant):
     assert _bits(got_raw[0], plain_raw(*cpu)) and _bits(got_raw[1], got[1])
 
 
-def _device_ops(fn) -> int:
-    """Device operations (kernels, copies, memsets) of one call of fn after
-    a warm-up, from a torch.profiler trace."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+def _device_ops(fn) -> float:
+    """Device operations of one call of fn after a warm-up, from a trace
+    between marker kernels (``chip_smoke.one_op_profile``: a trace that lost
+    events at an end is taken again, up to three times)."""
+    return _chip_smoke().one_op_profile(fn, 1)[1]
 
 
 @pytest.mark.parametrize("n", [1024, 384, 3 * 8192, 13 * 8192])
@@ -972,3 +968,129 @@ def test_cli_run_grid_on_the_card_matches_golden(dev, tmp_path, golden):
     assert chip_smoke.cli_errors(recs, ref)[0] == []
     assert all(counts[k] > 0 for k in ("K1", "K2", "K3f", "K4")), counts
     assert counts["K4"] == 16 and counts[chip_smoke.PLAIN_SUMS] == 0
+
+
+# ---------------------------------------------------------------------------
+# association="hungarian": K12 and K4's Hungarian builds
+# ---------------------------------------------------------------------------
+def _chip_smoke():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("d,k,kind,max_iters", [
+    (12, 10, "dense", 3000), (20, 6, "dense", 3000), (5, 30, "dense", 3000),
+    (16, 16, "ties", 3000), (16, 16, "ties", 1), (32, 64, "sparse", 3000),
+    (128, 1024, "sparse", 3000)])
+def test_k12_matches_plain(dev, d, k, kind, max_iters):
+    """K12 against ``auction_assign_plain`` on the card (on
+    ``chip_smoke.auction_problem``'s dense, sparse and near-tie costs): the
+    assigned columns, the saturated phases and every phase's iterations bit
+    for bit, one launch per call; ``max_iters=1`` saturates; three stacked
+    problems in one launch, each its own plain answer."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import hungarian_cuda
+    from multiple_object_tracking_lidar_tpu_torch.ops.hungarian import auction_assign_plain
+
+    rng = np.random.default_rng(d * 1000 + k + max_iters)
+    eps, max_cost = (1e-4, 1.0) if kind == "ties" else (1e-3, 0.5)
+    probs = [_chip_smoke().auction_problem(rng, d, k, kind) for _ in range(3 if k < 1024 else 1)]
+    C = torch.from_numpy(np.stack([p[0] for p in probs])).to(dev)
+    F = torch.from_numpy(np.stack([p[1] for p in probs])).to(dev)
+    n0 = hungarian_cuda.auction_assign.launches
+    a, sat, it = hungarian_cuda.auction_assign(C, F, eps, max_cost, max_iters, return_iters=True)
+    assert hungarian_cuda.auction_assign.launches == n0 + 1
+    for b in range(C.shape[0]):
+        pa, ps, pit = auction_assign_plain(C[b], F[b], eps, max_cost, max_iters, return_iters=True)
+        assert _bits(a[b], pa) and int(sat[b]) == int(ps) and it[b].tolist() == pit
+    if max_iters == 1:
+        assert int(sat.min()) > 0
+
+
+@pytest.mark.parametrize("K,B,S,D,pf", [
+    (64, 1, 1, 32, "lpf"), (64, 1, 8, 32, "lpf"), (64, 8, 1, 32, "lpf"), (64, 1, 8, 128, "lpf"),
+    (64, 1, 8, 32, "ihgp"), (1024, 1, 1, 128, "lpf"), (1024, 1, 4, 32, "lpf"),
+    (1024, 4, 1, 32, "lpf"), (1024, 1, 1, 128, "ihgp")])
+def test_k4_hungarian_matches_plain(dev, small, K, B, S, D, pf):
+    """K4's Hungarian builds against their plain version on the card:
+    every state and output field bit for bit (``assoc_saturated`` among
+    them), one launch per call, at K = 64 (the 128-thread build) and 1,024
+    (the 1,024-thread build), 1 x 1, 1 x S and B x 1; the decisions differ
+    from greedy's on these gated scenes, and one detection per track."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+
+    cfg = small[0].replace(association="hungarian", position_filter=pf)
+    gains = Tracker(cfg, dev).gains_xy
+    fresh = (0,) if B > 1 else ()       # an empty bank only registers: one of B, never a lone one
+    st, dets, valid, t = track_scene(K + B + S + D, cfg, K, D, B, S, fresh, dev, gated=True)
+    n0 = track_cuda.track_frames.launches
+    got = track_cuda.track_frames(st, dets, valid, t, config=cfg, gains_xy=gains)
+    assert track_cuda.track_frames.launches == n0 + 1
+    want = track_cuda.track_frames_plain(st, dets, valid, t, config=cfg, gains_xy=gains)
+    assert _same_tree(_nan_canonical(got), _nan_canonical(want))
+    greedy = track_cuda.track_frames(st, dets, valid, t, config=cfg.replace(association="greedy"),
+                                     gains_xy=gains)[1]
+    assert not _bits(greedy.obj_id, got[1].obj_id)
+    ids, v = got[1].obj_id.cpu().numpy(), got[1].valid.cpu().numpy()
+    assert all(len(ids[b, s][v[b, s]]) == len(set(ids[b, s][v[b, s]].tolist()))
+               for b in range(B) for s in range(S))
+
+
+def test_hungarian_route_ignores_assoc_backend_on_the_card(dev, small):
+    """Under hungarian ``assoc_backend="jnp"`` still takes K4 (the JAX
+    package passes the backend to greedy only); past K4's bounds the
+    Hungarian step raises on the card (ROADMAP item 26) and launches
+    nothing: it takes no plain route there."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import track_batch
+
+    cfg = small[0].replace(association="hungarian", assoc_backend="jnp")
+    gains = Tracker(cfg, dev).gains_xy
+    st, dets, valid, t = track_scene(9, cfg, 64, 32, 1, 2, (), dev, gated=True)
+    n0 = track_cuda.track_frames.launches
+    got = track_batch(st, dets, valid, t, config=cfg, gains_xy=gains)
+    assert track_cuda.track_frames.launches == n0 + 1
+    want = track_cuda.track_frames_plain(st, dets, valid, t, config=cfg, gains_xy=gains)
+    assert _same_tree(_nan_canonical(got), _nan_canonical(want))
+    cfg2 = cfg.replace(caps=dataclasses.replace(cfg.caps, c_max_clusters=256))
+    st2, d2, v2, t2 = track_scene(10, cfg2, 64, 256, 1, 1, (), dev, gated=True)
+    n0 = (track_cuda.track_frames.launches, track_cuda.track_step_plain.host_syncs)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 26"):
+        track_batch(st2, d2, v2, t2, config=cfg2, gains_xy=gains)
+    assert (track_cuda.track_frames.launches, track_cuda.track_step_plain.host_syncs) == n0
+
+
+@pytest.mark.parametrize("case", ["hungarian", "dense_hungarian"])
+def test_hungarian_bind_env_on_the_card_matches_golden(dev, case):
+    """The headline and the dense scene under hungarian through
+    ``bind_env`` on the card against their JAX goldens: decisions exact,
+    floats within the goldens' tolerances (the dense golden's F8
+    detections within chip_smoke.TOL_F8), one K4 launch per frame."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    chip_smoke = _chip_smoke()
+    golden = dict(np.load(chip_smoke.GOLDEN_HUNGARIAN[case]))
+    make = {"hungarian": bench_cases.hungarian_case,
+            "dense_hungarian": bench_cases.dense_hungarian_case}[case]
+    cfg, env, sc = make(device=dev)
+    tracker = Tracker(cfg, dev)
+    step, st = tracker.bind_env(env), tracker.init_state()
+    n = golden["publish"].shape[0]
+    n0 = track_cuda.track_frames.launches
+    rows = []
+    for k in range(n):
+        pts, mask, t = bench_cases.padded_frame(sc, k, cfg.caps.n_max_points)
+        st, out = step(st, Frame(torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev),
+                                 torch.tensor(t).to(dev)))
+        rows.append(out)
+    assert track_cuda.track_frames.launches == n0 + n
+    got = {f: np.stack([getattr(r, f).cpu().numpy() for r in rows]) for f in golden}
+    chip_smoke.compare(case, got, golden, chip_smoke.TOL_DETS, chip_smoke.TOL_VEL,
+                       f8=chip_smoke.F8_DENSE if case == "dense_hungarian" else ())

@@ -25,8 +25,12 @@ golden.
    of 2.
 5. The ``ihgp`` golden (the headline config with ``position_filter=
    "ihgp"``): as 1 and 2.
-6. The CLI goldens (the JAX CLI's JSON lines for ``run --backend grid``
-   on 16 headline frames from an npz bag, under ``lpf`` and ``ihgp``):
+6. The Hungarian goldens (``association="hungarian"`` on the headline,
+   12 frames, and on the dense scene of ``bench.dense_case``, 8 frames):
+   as 1 and 2.
+7. The CLI goldens (the JAX CLI's JSON lines for ``run --backend grid``
+   on 16 headline frames from an npz bag, under ``lpf``, ``ihgp`` and
+   ``association: hungarian``):
    the JAX CLI still prints the first 3 frames' records, and the port's
    CLI on the CPU (``--device cpu``) reproduces all 16 within
    ``chip_smoke.cli_errors``' tolerances (frames, ids and labels exact,
@@ -297,6 +301,50 @@ def test_port_plain_path_reproduces_ihgp_golden(golden):
     assert np.abs(ref["pos"][v] - golden["pos"][v]).max() > 1e-3     # not the LPF positions
 
 
+@pytest.mark.parametrize("case", ["hungarian", "dense_hungarian"])
+def test_hungarian_goldens_are_what_the_jax_package_computes(case):
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from make_torch_golden import golden_outputs, n_frames_of
+
+    ref = _load(case)
+    out = golden_outputs(n_frames=2, case=case)
+    assert set(out) == set(ref) and ref["publish"].shape == (n_frames_of(case),)
+    _compare(out, ref, 1e-6, 1e-6, n=2)
+
+
+@pytest.mark.parametrize("case", ["hungarian", "dense_hungarian"])
+def test_port_plain_path_reproduces_hungarian_goldens(case):
+    """As 2, and on the dense golden the F8 detections (frames 2 and 3,
+    ``chip_smoke.F8_DENSE``; ROADMAP Queue 3) and the lanes of their tracks
+    within ``chip_smoke.TOL_F8``, past the 1e-5 of the others
+    (``chip_smoke.compare``)."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import padded_frame
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    ref = _load(case)
+    make = {"hungarian": bench_cases.hungarian_case,
+            "dense_hungarian": bench_cases.dense_hungarian_case}[case]
+    cfg, env, sc = make()
+    tracker = Tracker(cfg, device="cpu")
+    step, st = tracker.bind_env(env), tracker.init_state()
+    rows = []
+    for k in range(ref["publish"].shape[0]):
+        pts, mask, t = padded_frame(sc, k, cfg.caps.n_max_points)
+        st, out = step(st, Frame(torch.from_numpy(pts), torch.from_numpy(mask), torch.tensor(t)))
+        rows.append(out)
+    got = {f: np.stack([getattr(r, f).numpy() for r in rows]) for f in rows[0]._fields}
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    chip_smoke.compare(case, got, ref, TOL_DETS, TOL_VEL,
+                       f8=chip_smoke.F8_DENSE if case == "dense_hungarian" else ())
+    ids = [got["obj_id"][k][got["valid"][k]] for k in range(len(rows))]
+    assert all(len(i) == len(set(i.tolist())) for i in ids)   # one detection per track
+    assert got["valid"][1:].sum(axis=1).min() >= (3 if case == "hungarian" else 20)
+
+
 def _cli_golden(case):
     import json
 
@@ -323,18 +371,18 @@ def test_cli_golden_is_what_the_jax_cli_computes():
                                np.concatenate(first["speeds"]), rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("case", ["cli", "cli_ihgp"])
+@pytest.mark.parametrize("case", ["cli", "cli_ihgp", "cli_hungarian"])
 def test_port_cli_reproduces_cli_goldens(tmp_path, case):
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     sys.path.insert(0, REPO)
     import chip_smoke
-    from make_torch_golden import CLI_IHGP_CONFIG, cli_bag
+    from make_torch_golden import CLI_CONFIGS, cli_bag
 
     ref = _cli_golden(case)
     argv = cli_bag(str(tmp_path / "frames.npz")) + ["--device", "cpu"]
-    if case == "cli_ihgp":
-        (tmp_path / "ihgp.yaml").write_text(CLI_IHGP_CONFIG)
-        argv += ["--config", str(tmp_path / "ihgp.yaml")]
+    if case in CLI_CONFIGS:
+        (tmp_path / "config.yaml").write_text(CLI_CONFIGS[case])
+        argv += ["--config", str(tmp_path / "config.yaml")]
     _, recs, _ = chip_smoke.run_cli(argv)
     assert chip_smoke.cli_errors(recs, ref)[0] == []
     assert len(recs) == 15 and all(len(r["obstacles"]) == 3 for r in recs)

@@ -159,8 +159,7 @@ def test_state_hand_over_through_carry_across(case):
 
 @pytest.mark.parametrize(
     "field,value",
-    [("dtype", "bfloat16"), ("association", "hungarian"),
-     ("dtype", "float64")],
+    [("dtype", "bfloat16"), ("dtype", "float64")],
 )
 def test_unported_configs_raise(field, value):
     cfg = bench_cases.bench_config().replace(**{field: value})

@@ -36,7 +36,9 @@ of JAX, in five phases, one or more lines each:
    its routes (the points' C = 3, also at R % 4 != 0 and from a misaligned
    frame base; C = 1; C = 5; the probes); K4 under ``position_filter=
    "ihgp"`` at K = 64 and 1,024, 1 x 1, 1 x 8 and 8 x 1 (its positions not
-   LPF's, its decisions LPF's); F7: K8a at a ragged M = 1,000, the jnp CC
+   LPF's, its decisions LPF's); K2, K3f and K4 (greedy and Hungarian,
+   lpf and ihgp, K = 64 and 1,024) built for double (``dtype="float64"``);
+   F7: K8a at a ragged M = 1,000, the jnp CC
    through it against the CPU, K8 refusing M = 1,000 as the JAX Pallas
    wrapper does, and K8 and K8a at M = 8,448 (the frame in device memory)
    against their plain versions and, through both CC backends, the CPU;
@@ -91,10 +93,16 @@ of JAX, in five phases, one or more lines each:
    (``bench.dense_case``: 40 objects 0.55 m apart, C = 64, K = 96) under
    ``association="hungarian"`` through ``TrackerNode``, ``bind_env_multi``
    and the kernel fleet (B = 8) against torch_hungarian_{headline,dense}.npz
-   (the dense golden's F8 detections within TOL_F8), and the CLI with a
+   (every lane within TOL_DETS / TOL_VEL), and the CLI with a
    config file ``association: hungarian`` against
    torch_cli_hungarian_headline.json, each launching K4's Hungarian build
-   ("K4 hungarian").  No path may take the plain digit sums;
+   ("K4 hungarian"); the headline under ``dtype="float64"`` (greedy + lpf,
+   and hungarian + ihgp) through ``bind_env``, ``TrackerNode``,
+   ``bind_env_multi`` and the CLI (a config file ``dtype: float64``)
+   against torch_f64{,_hungarian_ihgp}_headline.npz and
+   torch_cli_f64_headline.json within 1e-9 m / 1e-8 m/s, each launching K1
+   and the double builds of K2, K3f and K4 and no f32 build of them.  No
+   path may take the plain digit sums;
 5. timings with CUDA events, beside the card's name and power limit:
    ``bind_env`` and ``bind_env_multi`` per path, host syncs and device ops
    per frame of each (``torch.profiler``; the headline must make no host
@@ -115,7 +123,10 @@ of JAX, in five phases, one or more lines each:
    beside ``bind_env_multi``; the headline under ``greedy`` and
    ``hungarian`` in turns (the same readings; hungarian must make no host
    sync), K4 hungarian also at K = 1,024, and K4 hungarian and K12 against
-   their plain versions with their bounds.  Every one-op reading
+   their plain versions with their bounds; the f32 and f64 headlines in
+   turns (the same readings; neither may make a host sync), and K2, K3f
+   and K4's double builds against their plain versions and, in turns,
+   their f32 builds, with their bounds (fp64 at 34 TFLOP/s).  Every one-op reading
    (``one_op_profile``) comes from a trace between marker kernels, taken
    again when it lost events at an end (``micro_torch_digits.whole_trace``),
    and K4's, K4 hungarian's, K12's and F7's fail at other than one op per
@@ -153,18 +164,6 @@ GOLDEN_HUNGARIAN = {"hungarian": os.path.join(HERE, "tests", "golden",
                                               "torch_hungarian_headline.npz"),
                     "dense_hungarian": os.path.join(HERE, "tests", "golden",
                                                     "torch_hungarian_dense.npz")}
-# F8 (ROADMAP Queue 3): on the dense scene the JAX package's voxel
-# centroids on the CPU and the port's differ by an ulp in some cells (XLA
-# contracts the fast-digit finalize into an FMA), which moves two merged
-# clusters' circumcenters past TOL_DETS (frame 2, slot 14 by 1.8e-5 m; frame
-# 3, slot 1 of 187 members by 4.4e-4 m, its farthest-pair pick flipped):
-# those detections, (frame, slot) of the dense golden, and the lanes of the
-# tracks they feed from then on hold to TOL_F8 (m) and TOL_F8_VEL (m/s)
-# instead of TOL_DETS / TOL_VEL.  Read on the 8 golden frames, the same on
-# the CPU's plain path and on the H100: raw_centroid 4.37e-4 m, pos 3.97e-4
-# m, vel 1.312e-3 m/s; the bands are 2.3x and 3.05x those readings.
-F8_DENSE = ((2, 14), (3, 1))
-TOL_F8, TOL_F8_VEL = 1e-3, 4e-3
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM: HBM3 rate (NVIDIA's datasheet)
 F32_OPS_PER_S = 67e12         # H100 SXM: f32 outside the tensor cores; int32 ops too
 PKG = "multiple_object_tracking_lidar_tpu_torch"
@@ -1162,11 +1161,23 @@ def kernel_wrappers():
 PLAIN_SUMS = "plain digit sums"   # not a kernel: the dispatcher's route past K1 / K5
 
 
+def f64_wrappers():
+    """{double build: its wrapper, whose ``.launches_f64`` counts its
+    launches} (K2, K3f and K4 built for double, ``dtype="float64"``)."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import centroid_cuda, grid_cuda, track_cuda
+
+    return {"K2 f64": grid_cuda.fused_finalize_static_cc_stacked,
+            "K3f f64": centroid_cuda.circumcenter_features,
+            "K4 f64": track_cuda.track_frames}
+
+
 def reset_counts():
     from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid
 
     for w in kernel_wrappers().values():
         w.launches = 0
+    for w in f64_wrappers().values():
+        w.launches_f64 = 0
     voxel_grid.digit_sums_stacked.plain_routes = 0
 
 
@@ -1174,6 +1185,7 @@ def read_counts():
     from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid
 
     counts = {k: w.launches for k, w in kernel_wrappers().items()}
+    counts.update({k: w.launches_f64 for k, w in f64_wrappers().items()})
     counts[PLAIN_SUMS] = voxel_grid.digit_sums_stacked.plain_routes
     return counts
 
@@ -1186,10 +1198,11 @@ FLEET_C_PATH = ("K6f", "K8", "K3f", "K4")
 
 
 def k4_report_as(position_filter, association="greedy"):
-    """A Hungarian path's K4 launches count in the report as K4 hungarian's,
-    an ihgp path's as K4 ihgp's."""
+    """A Hungarian path's K4 launches count in the report as K4 hungarian's
+    (its double build's as K4 hungarian f64's), an ihgp path's as K4
+    ihgp's."""
     if association == "hungarian":
-        return {"K4": "K4 hungarian"}
+        return {"K4": "K4 hungarian", "K4 f64": "K4 hungarian f64"}
     return {"K4": "K4 ihgp"} if position_filter == "ihgp" else None
 
 
@@ -1215,45 +1228,20 @@ def require(tag, counts, need, report, report_as=None):
         report[k]["launches"] = report[k].get("launches", 0) + c
 
 
-def f8_lanes(ref: dict, f8) -> tuple[np.ndarray, np.ndarray]:
-    """((frames, slots) bool detections, (frames, slots) bool published
-    lanes) that F8's (frame, slot) detections reach: the detection itself,
-    and every later lane of the track it was given to (its obj_id)."""
-    dets = np.zeros(ref["valid"].shape, bool)
-    lanes = np.zeros(ref["valid"].shape, bool)
-    for k, slot in f8:
-        dets[k, slot] = True
-        oid = ref["obj_id"][k, slot]
-        if oid >= 0:
-            lanes[k:] |= ref["obj_id"][k:] == oid
-    return dets, lanes
-
-
-def compare(tag, got: dict, ref: dict, tol_dets, tol_vel, f8=()):
+def compare(tag, got: dict, ref: dict, tol_dets, tol_vel):
     """Integers, booleans and decisions exact; floats within tolerance;
     pos / vel compared where ``valid`` (other lanes carry no contract:
-    they follow det_slot, which is defined only where det_ok).  The F8
-    detections ``f8`` ((frame, slot) pairs) and the lanes of their tracks
-    hold to TOL_F8 (velocities TOL_F8_VEL), and their detections must
-    depart past the tolerance (a repaired F8 shows)."""
+    they follow det_slot, which is defined only where det_ok)."""
     errs = {}
-    f8_dets, f8_pub = f8_lanes(ref, f8)
     for f, r in ref.items():
         g = got[f]
         if f in ("pos", "vel", "raw_centroid"):
             sel = ref["valid"] if f != "raw_centroid" else np.ones(r.shape[:-1], bool)
-            loose = f8_pub if f != "raw_centroid" else f8_dets
             tol = tol_vel if f == "vel" else tol_dets
-            e = max_err(g[sel & ~loose], r[sel & ~loose])
+            e = max_err(g[sel], r[sel])
             errs[f] = e
             if e > tol:
                 fail(f"{tag}: {f} max abs err {e}")
-            if loose.any():
-                e8 = max_err(g[sel & loose], r[sel & loose])
-                errs[f + " F8"] = e8
-                tol8 = TOL_F8_VEL if f == "vel" else TOL_F8
-                if e8 > tol8 or (f == "raw_centroid" and e8 <= tol):
-                    fail(f"{tag}: F8's {f} max abs err {e8} (within ({tol}, {tol8}] expected)")
         elif not np.array_equal(np.asarray(g), np.asarray(r)):
             fail(f"{tag}: {f} differs: {np.asarray(g).tolist()} vs {np.asarray(r).tolist()}")
     return errs
@@ -1447,10 +1435,10 @@ def phase_g_grid(dev, report):
         f"max abs err {e8}")
 
 
-def run_node(dev, tag, cfg, sc, golden, n_node, need, report, counts_out=None, f8=()):
-    """TrackerNode over n_node PointCloud2 frames against the golden (the
-    run's launch counts into ``counts_out`` where given; ``f8`` as
-    ``compare``'s)."""
+def run_node(dev, tag, cfg, sc, golden, n_node, need, report, counts_out=None,
+             tols=(TOL_DETS, TOL_VEL)):
+    """TrackerNode over n_node PointCloud2 frames against the golden within
+    ``tols`` (the run's launch counts into ``counts_out`` where given)."""
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
     from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
 
@@ -1463,7 +1451,7 @@ def run_node(dev, tag, cfg, sc, golden, n_node, need, report, counts_out=None, f
     counts = read_counts()
     got = {f: np.stack([getattr(o, f) for o in node.outputs]) for f in fields}
     ref = {f: v[:n_node] for f, v in golden.items()}
-    e = compare(f"{tag} TrackerNode vs JAX golden", got, ref, TOL_DETS, TOL_VEL, f8)
+    e = compare(f"{tag} TrackerNode vs JAX golden", got, ref, *tols)
     n_pub = sum(r is not None for r in replies)
     log(f"[4 {tag}] TrackerNode.on_pointcloud x{n_node} (N={cfg.caps.n_max_points}): "
         f"{n_pub} published, n_dynamic {got['n_dynamic'].tolist()}, launches {counts}; "
@@ -1475,10 +1463,10 @@ def run_node(dev, tag, cfg, sc, golden, n_node, need, report, counts_out=None, f
     return got
 
 
-def run_multi(dev, tag, cfg, env, sc, golden, n_disp, s_frames, need, report, f8=()):
+def run_multi(dev, tag, cfg, env, sc, golden, n_disp, s_frames, need, report,
+              tols=(TOL_DETS, TOL_VEL)):
     """bind_env_multi over n_disp dispatches of S frames against the
-    golden (``f8`` as ``compare``'s); returns the outputs stacked over
-    frames."""
+    golden within ``tols``; returns the outputs stacked over frames."""
     from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
     from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
 
@@ -1499,8 +1487,7 @@ def run_multi(dev, tag, cfg, env, sc, golden, n_disp, s_frames, need, report, f8
     allm = {f: np.concatenate([r[i] for r in outs]) for i, f in enumerate(fields)}
     n_cmp = min(len(allm["publish"]), len(golden["publish"]))
     e = compare(f"{tag} bind_env_multi vs JAX golden", {f: v[:n_cmp] for f, v in allm.items()},
-                {f: v[:n_cmp] for f, v in golden.items()}, TOL_DETS, TOL_VEL,
-                [x for x in f8 if x[0] < n_cmp])
+                {f: v[:n_cmp] for f, v in golden.items()}, *tols)
     fin = all(np.isfinite(v[allm["valid"]]).all() for f, v in allm.items() if f in ("pos", "vel"))
     log(f"[4 {tag}] bind_env_multi {n_disp}x S={s_frames}: launches {counts}, finite {fin}, "
         f"first {n_cmp} vs JAX golden max abs err {e}")
@@ -2833,24 +2820,23 @@ def phase_hungarian(dev, report):
     through ``TrackerNode`` (12 / 8 frames, one K4 launch each),
     ``bind_env_multi`` (2 x S = 8 / 1 x S = 8) and the kernel fleet (B = 8
     x 3 steps, bit for bit each stream's ``bind_env``), against the JAX
-    goldens (torch_hungarian_{headline,dense}.npz; the dense golden's F8
-    detection and its track within TOL_F8).  Every run launches K4's
+    goldens (torch_hungarian_{headline,dense}.npz, every lane within
+    TOL_DETS / TOL_VEL).  Every run launches K4's
     Hungarian build, counted as "K4 hungarian"."""
     from multiple_object_tracking_lidar_tpu_torch import bench_cases
     from multiple_object_tracking_lidar_tpu_torch.parallel import ShardedTracker, make_mesh
     from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
 
-    for tag, case, gkey, n_node, n_disp, f8 in (
-            ("hungarian", bench_cases.hungarian_case, "hungarian", 12, 2, ()),
-            ("dense hungarian", bench_cases.dense_hungarian_case, "dense_hungarian", 8, 1,
-             F8_DENSE)):
+    for tag, case, gkey, n_node, n_disp in (
+            ("hungarian", bench_cases.hungarian_case, "hungarian", 12, 2),
+            ("dense hungarian", bench_cases.dense_hungarian_case, "dense_hungarian", 8, 1)):
         golden = dict(np.load(GOLDEN_HUNGARIAN[gkey]))
         cfg, env, sc = case(device=dev)
         counts = {}
-        got = run_node(dev, tag, cfg, sc, golden, n_node, FAST_PATH, report, counts, f8)
+        got = run_node(dev, tag, cfg, sc, golden, n_node, FAST_PATH, report, counts)
         if counts["K4"] != n_node:
             fail(f"{tag} TrackerNode: {counts['K4']} K4 launches for {n_node} frames")
-        allm = run_multi(dev, tag, cfg, env, sc, golden, n_disp, 8, FAST_PATH, report, f8)
+        allm = run_multi(dev, tag, cfg, env, sc, golden, n_disp, 8, FAST_PATH, report)
         n = min(n_node, 8 * n_disp)
         e = compare(f"{tag} bind_env_multi vs TrackerNode", {f: v[:n] for f, v in allm.items()},
                     {f: v[:n] for f, v in got.items()}, 0.0, 0.0)
@@ -2867,8 +2853,7 @@ def phase_hungarian(dev, report):
         per_stream_bind_env(f"kernel fleet {tag}", tracker, env, frames, got_f)
         e_s0 = compare(f"kernel fleet {tag} stream 0 vs golden frames 0-2",
                        {f: v[:, 0] for f, v in got_f.items()},
-                       {f: v[:3] for f, v in golden.items()}, TOL_DETS, TOL_VEL,
-                       [x for x in f8 if x[0] < 3])
+                       {f: v[:3] for f, v in golden.items()}, TOL_DETS, TOL_VEL)
         log(f"[4 {tag}] kernel fleet B=8 x 3 steps: launches {counts}; bit for bit each "
             f"stream's bind_env; stream 0 vs golden {e_s0}")
 
@@ -2981,6 +2966,365 @@ def phase_timings_slice12(dev, smi, P, M, T, report):
             f"bytes, {ops} operations); library call none")
 
 
+# ---------------------------------------------------------------------------
+# dtype="float64" on the dense grid: K2, K3f and K4 built for double
+# ---------------------------------------------------------------------------
+F64_OPS_PER_S = 34e12          # H100 SXM: fp64 outside the tensor cores (NVIDIA's datasheet)
+TOL_F64 = (1e-9, 1e-8)         # m, m/s: the JAX package's own f64 bounds (tests/test_grid.py:241)
+GOLDEN_F64 = {"f64": os.path.join(HERE, "tests", "golden", "torch_f64_headline.npz"),
+              "f64_hungarian_ihgp": os.path.join(HERE, "tests", "golden",
+                                                 "torch_f64_hungarian_ihgp_headline.npz")}
+GOLDEN_CLI_F64 = os.path.join(HERE, "tests", "golden", "torch_cli_f64_headline.json")
+F64_PATH = ("K1", "K2 f64", "K3f f64", "K4 f64")   # the kernels each f64 path must launch
+F32_TAIL = ("K2", "K3f", "K4")                      # which no f64 path may launch
+
+
+def f64_track_inputs(inputs):
+    """K4's inputs (``track_scene``'s) in f64: the bank's window and m0, the
+    detections and the stamps."""
+    st, dets, valid, t = inputs
+    bank = st.bank._replace(window=st.bank.window.double(), m0=st.bank.m0.double())
+    return st._replace(bank=bank), dets.double(), valid, t.double()
+
+
+def require_f64(tag, counts):
+    """Fail an f64 path's run (its counts, already reported by ``require``)
+    unless K1 and the double builds of K2, K3f and K4 launched and no f32
+    build of them did: every f64 stage has its build, and none falls back."""
+    missing = [k for k in F64_PATH if counts[k] <= 0]
+    ran32 = [k for k in F32_TAIL if counts[k]]
+    if missing or ran32:
+        fail(f"the f64 {tag} path: {missing} not launched, f32 builds {ran32} launched: "
+             f"{counts}")
+
+
+def phase_kernels_slice13(dev, report, cfg):
+    """K2, K3f and K4's double builds (dtype="float64") against their plain
+    versions on the card, bit for bit: K2 on the headline's 8 frames of K1
+    sums cast to f64 (and two adversarial frames: every cell occupied at its
+    centre, half of them) and on ``k2_grids``' grids; K3f on ``k3f_tables``'
+    edge cases and the headline's own f64 member tables; K4 f64 (lpf, ihgp)
+    on ``track_scene`` at K = 64 (1 x 1, 1 x 8, 8 x 1) and 1,024, and K4
+    hungarian f64 on its gated scene at K = 64 and 1,024, each in f64; a
+    Hungarian f64 step past K4's bounds (D = 256) raises, as in f32."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import (
+        headline_case, k2_grids, k2_inputs, track_scene)
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        centroid_cuda, grid_cuda, track_cuda, voxel_grid_cuda)
+    from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import cluster_table_grid
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    cfg64 = cfg.replace(dtype="float64")
+    tracker = Tracker(cfg64, dev)
+    _, env, sc = headline_case(device=dev)
+    plan = tracker.plan(env)
+    leaf, leaf_z, tol = cfg.voxel_leaf_size, cfg.leaf_z, cfg.cluster_tolerance
+    pts, msk, ts = headline_frames(sc, cfg.caps.n_max_points, range(8))
+    P8, M8 = torch.from_numpy(pts).to(dev), torch.from_numpy(msk).to(dev)
+    T8 = torch.from_numpy(ts).to(dev).double()
+    acc, _ = voxel_grid_cuda.accumulate_fast_stacked(P8, M8, cfg.scene, leaf, leaf_z)
+    acc = acc.double()
+    nc = acc.shape[2]
+    k1 = voxel_grid_cuda.kernel_params(cfg.scene, leaf, leaf_z)
+    lin = torch.arange(nc, device=dev)
+    cx = (k1["bx"] + lin % k1["gx"]).double() * k1["leaf_xy"] + k1["half_xy"]
+    cy = (k1["by"] + (lin // k1["gx"]) % k1["gy"]).double() * k1["leaf_xy"] + k1["half_xy"]
+    adv = acc.clone()
+    adv[7] = torch.stack([cx, cy, torch.full_like(cx, 0.5), torch.ones_like(cx)])
+    adv[6] = adv[7] * (torch.arange(nc, device=dev) % 2 == 0)
+    tb = (plan.scal, plan.table.base_row, plan.table.base_col, plan.table.bits)
+    kw2 = dict(dims=plan.dims, tol=tol, leaf_xy=leaf, leaf_z=leaf_z, kwin=plan.table.k)
+    offsets = grid_cuda.kernel_offsets(plan.dims, tol, leaf, leaf_z)
+
+    def k2_pair(a, tbl, kw, offs):
+        return (lambda: grid_cuda.fused_finalize_static_cc_stacked(a, *tbl, **kw),
+                lambda: grid_cuda.fused_finalize_static_cc_stacked_plain(
+                    a, *tbl, dims=kw["dims"], offsets=offs, kwin=kw["kwin"],
+                    max_sweeps=2 * sum(kw["dims"]), tol=kw["tol"]))
+
+    report.setdefault("K2 f64", {"max_abs_err": 0.0})
+    for label, a in (("the headline's 8 frames", acc), ("adversarial frames", adv)):
+        fk, fp = k2_pair(a, tb, kw2, offsets)
+        got, want = fk(), fp()
+        torch.cuda.synchronize()
+        ok = all(equal(npy(x), npy(y)) for x, y in zip(got, want))
+        err = max_err(npy(got[0]), npy(want[0]))
+        report["K2 f64"]["max_abs_err"] = max(report["K2 f64"]["max_abs_err"], err)
+        log(f"[3 K2 f64] {label}, {nc} cells, {len(offsets)} offsets: bit-exact={ok} "
+            f"dtype={got[0].dtype} iterations={npy(got[3]).tolist()} "
+            f"dyn={npy(got[1].sum(1)).tolist()}")
+        if not ok:
+            fail(f"K2's double build ({label}) disagrees with its plain version")
+    for label, dims, lf, lz, tl in k2_grids(cfg):
+        n = dims[0] * dims[1] * dims[2]
+        offs = grid_cuda.kernel_offsets(dims, tl, lf, lz)
+        a, scal, br, bc, bits, kwin = k2_inputs(dims, lf, lz, tl, n, dev)
+        fk, fp = k2_pair(a.double(), (scal, br, bc, bits),
+                         dict(dims=dims, tol=tl, leaf_xy=lf, leaf_z=lz, kwin=kwin), offs)
+        got, want = fk(), fp()
+        torch.cuda.synchronize()
+        ok = all(equal(npy(x), npy(y)) for x, y in zip(got, want))
+        log(f"[3 K2 f64] {label}: {n} cells, {len(offs)} offsets, cluster "
+            f"{grid_cuda.cluster_size(n, len(offs), dev)}: bit-exact={ok} "
+            f"iterations={npy(got[3]).tolist()}")
+        if not ok:
+            fail(f"K2's double build at {n} cells disagrees with its plain version")
+
+    # K3f f64: the edge-case tables and the headline's own member tables
+    rng = np.random.default_rng(1301)
+    outs = grid_cuda.fused_finalize_static_cc_stacked(acc, *tb, **kw2)
+    ctab = cluster_table_grid(outs[2], outs[3], outs[0], outs[1], plan.dims[0],
+                              cfg.min_cluster_size, cfg.max_cluster_size,
+                              cfg.caps.c_max_clusters, cfg.caps.p_max_cluster)
+    mp_h = ctab.mpts.reshape(-1, cfg.caps.p_max_cluster, 3).contiguous()
+    mm_h = ctab.member_mask.reshape(-1, cfg.caps.p_max_cluster).contiguous()
+    mp_e, mm_e = k3f_tables(rng, 8, 32, cfg.caps.p_max_cluster, dev)
+    report.setdefault("K3f f64", {"max_abs_err": 0.0})
+    for label, mp, mm in (("the headline's f64 member tables, S=8 x C=32", mp_h, mm_h),
+                          ("edge-case tables, S=8 x C=32", mp_e.double(), mm_e)):
+        got = centroid_cuda.circumcenter_features(mp, mm, T8)
+        want = centroid_cuda.circumcenter_features_plain(mp, mm, T8)
+        torch.cuda.synchronize()
+        ok = equal(npy(got), npy(want)) and got.dtype == torch.float64
+        err = max_err(npy(got), npy(want))
+        report["K3f f64"]["max_abs_err"] = max(report["K3f f64"]["max_abs_err"], err)
+        log(f"[3 K3f f64] {label}, {int(mm.any(1).sum())} active slots: bit-exact={ok} "
+            f"max_abs_err={err}")
+        if not ok:
+            fail(f"K3f's double build ({label}) disagrees with its plain version")
+
+    # K4's double builds
+    gains = tracker.gains_xy
+    K, D = cfg.caps.k_max_tracks, cfg.caps.c_max_clusters
+    for name, assoc, pfs, widths in (
+            ("K4 f64", "greedy", ("lpf", "ihgp"), (K, 1024)),
+            ("K4 hungarian f64", "hungarian", ("lpf", "ihgp"), (K, 1024))):
+        for pf in pfs:
+            c = cfg64.replace(association=assoc, position_filter=pf)
+            for k in widths:
+                d = D if k == K else 128
+                for i, (b, s, fresh) in enumerate(((1, 1, ()), (1, 8, (0,)), (8, 1, (0,)))
+                                                  if k == K else ((1, 1, ()),)):
+                    ins = f64_track_inputs(track_scene(1300 + 10 * k + i, cfg, k, d, b, s,
+                                                       fresh, dev, assoc == "hungarian"))
+                    check_track_inputs(c, gains, ins, report, name,
+                                       f"{pf}, K={k} {b} x {s} frames, D={d}, f64")
+    past = f64_track_inputs(track_scene(1399, cfg, K, 256, 1, 1, (), dev, True))
+    try:
+        track_cuda.track_frames(*past, config=cfg64.replace(association="hungarian"),
+                                gains_xy=gains)
+        fail("a Hungarian f64 step at D=256 ran (K4's Hungarian builds hold D <= 128)")
+    except NotImplementedError as e:
+        log(f"[3 K4 hungarian f64] D=256 raises as it should: {e}")
+    return {"acc": acc, "tb": tb, "kw2": kw2, "offsets": offsets, "mp": mp_h, "mm": mm_h,
+            "T8": T8, "tracker": tracker}
+
+
+def phase_f64(dev, report):
+    """The f64 headline (``dtype="float64"``) through ``bind_env`` (12
+    frames), ``bind_env_multi`` (S = 8, twice), ``TrackerNode`` (12 frames)
+    and the CLI (a config file ``dtype: float64``) against the JAX package's
+    f64 goldens (torch_f64_headline.npz, torch_cli_f64_headline.json), and
+    under ``association="hungarian"`` + ``position_filter="ihgp"`` through
+    ``TrackerNode`` and ``bind_env_multi`` against
+    torch_f64_hungarian_ihgp_headline.npz: integers exact, floats within
+    TOL_F64 (1e-9 m, 1e-8 m/s; the CLI's 4-decimal records within
+    ``cli_errors``' bound); every run launches K1 and the double builds of
+    K2, K3f and K4 and no f32 build of them."""
+    import tempfile
+
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from make_torch_golden import CLI_CONFIGS, cli_bag
+
+    base, env, sc = bench_cases.headline_case(device=dev)
+    for gkey, fields in (("f64", {}), ("f64_hungarian_ihgp",
+                                       {"association": "hungarian", "position_filter": "ihgp"})):
+        golden = dict(np.load(GOLDEN_F64[gkey]))
+        cfg = base.replace(dtype="float64", **fields)
+        assoc = cfg.association
+        n_gold = golden["publish"].shape[0]
+        if gkey == "f64":
+            tracker = Tracker(cfg, dev)
+            step = tracker.bind_env(env)
+            pts, msk, ts = headline_frames(sc, cfg.caps.n_max_points, range(n_gold))
+            st = tracker.init_state()
+            reset_counts()
+            rows = []
+            for k in range(n_gold):
+                st, o = step(st, Frame(torch.from_numpy(pts[k]).to(dev),
+                                       torch.from_numpy(msk[k]).to(dev),
+                                       torch.tensor(ts[k], device=dev)))
+                rows.append([npy(x) for x in o])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            got = {f: np.stack([r[i] for r in rows]) for i, f in enumerate(golden)}
+            if got["raw_centroid"].dtype != np.float64 or got["pos"].dtype != np.float64:
+                fail(f"f64 bind_env returned {got['raw_centroid'].dtype} detections")
+            e = compare("f64 bind_env vs JAX golden", got, golden, *TOL_F64)
+            log(f"[4 f64] bind_env x{n_gold}: launches {counts}; vs JAX golden max abs err {e}")
+            require("f64 bind_env", counts, (), report)
+            require_f64("f64 bind_env", counts)
+            if counts["K4 f64"] != n_gold:
+                fail(f"f64 bind_env: {counts['K4 f64']} K4 f64 launches for {n_gold} frames")
+        tag = f"{gkey} headline"
+        counts = {}
+        run_node(dev, tag, cfg, sc, golden, n_gold, (), report, counts, TOL_F64)
+        require_f64(f"{tag} TrackerNode", counts)
+        if counts["K4 f64"] != n_gold:
+            fail(f"{tag} TrackerNode: {counts['K4 f64']} K4 f64 launches for {n_gold} frames")
+        run_multi(dev, tag, cfg, env, sc, golden, n_gold // 8 or 1, 8, (), report, TOL_F64)
+        require_f64(f"{tag} bind_env_multi", read_counts())
+    # the CLI with a config file `dtype: float64`
+    with open(GOLDEN_CLI_F64, encoding="utf-8") as fh:
+        gold = json.load(fh)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = cli_bag(os.path.join(tmp, "frames.npz"))
+        conf = os.path.join(tmp, "config.yaml")
+        with open(conf, "w", encoding="utf-8") as fh:
+            fh.write(CLI_CONFIGS["cli_f64"])
+        reset_counts()
+        _, recs, _ = run_cli(argv + ["--config", conf, "--device", "cuda"])
+        counts = read_counts()
+    errs, worst = cli_errors(recs, gold)
+    log(f"[4 f64] CLI run --config <dtype: float64>: {len(recs)} records, launches {counts}; "
+        f"vs the JAX CLI golden: {errs or 'within tolerance'} (worst pos / vel {worst})")
+    if errs:
+        fail(f"f64 CLI: {errs}")
+    require("f64 CLI", counts, (), report)
+    require_f64("f64 CLI", counts)
+
+
+def phase_timings_slice13(dev, smi, P, M, T, report, k):
+    """The f32 and f64 headlines in turns (f32, f64, f64, f32), each side's
+    range logged: ``bind_env`` and ``bind_env_multi`` ms/frame (CUDA events),
+    device ops and host syncs per frame (torch.profiler; both must make no
+    host sync); then K2, K3f and K4's double builds against their plain
+    versions at the main path's shapes, with their bounds (fp64 at
+    F64_OPS_PER_S, or the bytes at HBM_BYTES_PER_S)."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import centroid_cuda, grid_cuda, track_cuda
+    from multiple_object_tracking_lidar_tpu_torch.ops.hungarian import (
+        EPS, auction_assign_plain, gate_costs)
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame, map_state
+
+    cfg, env, _ = bench_cases.headline_case(device=dev)
+    trackers = {dt: Tracker(cfg.replace(dtype=dt), dev) for dt in ("float32", "float64")}
+    readings = {dt: [] for dt in trackers}
+    for dt in ("float32", "float64", "float64", "float32"):
+        tr = trackers[dt]
+        ms_s, ms_m = time_path(tr, env, P, M, T)
+        step, multi = tr.bind_env(env), tr.bind_env_multi(env)
+
+        def one():
+            st = tr.init_state()
+            for i in range(8):
+                st, _ = step(st, Frame(P[i], M[i], T[i]))
+
+        def eight():
+            multi(tr.init_state(), Frame(P[:8], M[:8], T[:8]))
+
+        (o1, s1), (o8, s8) = trace_counts(one, 8), trace_counts(eight, 8)
+        if s1 or s8:
+            fail(f"headline {dt}: host syncs per frame {s1} / {s8} (0 expected)")
+        readings[dt].append((ms_s, ms_m, o1, o8))
+        log(f"[5 timing] {smi}: headline {dt} (turn {len(readings[dt])} of 2) bind_env "
+            f"{ms_s:.4f} ms/frame; bind_env_multi S=8 {ms_m:.4f} ms/frame; host syncs per "
+            f"frame {s1:.3f} / {s8:.3f}; device ops per frame {o1:.2f} / {o8:.2f}")
+    names = ("bind_env ms/frame", "bind_env_multi ms/frame", "bind_env device ops/frame",
+             "bind_env_multi device ops/frame")
+    for dt, rows in readings.items():
+        log(f"[5 timing] {smi}: headline {dt}, range over its 2 turns (f32, f64, f64, f32): "
+            + "; ".join(f"{n} {min(r[i] for r in rows):.4f}-{max(r[i] for r in rows):.4f}"
+                        for i, n in enumerate(names)))
+
+    # the double builds beside their plain versions, with their bounds
+    acc, tb, kw2, offsets = k["acc"], k["tb"], k["kw2"], k["offsets"]
+    mp, mm, T8, tracker = k["mp"], k["mm"], k["T8"], k["tracker"]
+    K, D = cfg.caps.k_max_tracks, cfg.caps.c_max_clusters
+    gains = tracker.gains_xy
+    c64 = tracker.config
+    h64 = c64.replace(association="hungarian")
+    t4_32 = track_scene(5, cfg, K, D, 1, 1, (), dev)
+    t4h_32 = track_scene(5, cfg, K, D, 1, 1, (), dev, gated=True)
+    t4, t4h = f64_track_inputs(t4_32), f64_track_inputs(t4h_32)
+    g32 = trackers["float32"].gains_xy
+    acc32, mp32, T32 = acc.float(), mp.float(), T8.float()
+    twins = {  # each double build's f32 build on the same inputs rounded to f32
+        "K2 f64": lambda: grid_cuda.fused_finalize_static_cc_stacked(acc32, *tb, **kw2),
+        "K3f f64": lambda: centroid_cuda.circumcenter_features(mp32, mm, T32),
+        "K4 f64": lambda: track_cuda.track_frames(*t4_32, config=cfg, gains_xy=g32),
+        "K4 hungarian f64": lambda: track_cuda.track_frames(
+            *t4h_32, config=cfg.replace(association="hungarian"), gains_xy=g32),
+    }
+    outs = grid_cuda.fused_finalize_static_cc_stacked(acc, *tb, **kw2)
+    s8, nc, n_off, iters = acc.shape[0], acc.shape[2], len(offsets), int(outs[3].sum())
+    o4 = track_cuda.track_frames(*t4, config=c64, gains_xy=gains)
+    o4h = track_cuda.track_frames(*t4h, config=h64, gains_xy=gains)
+    st0 = map_state(lambda x: x[0], t4h[0])
+    C, F = gate_costs(st0.bank, t4h[1][0, 0], t4h[2][0, 0], cfg.id_threshold, True)
+    _, _, au_iters = auction_assign_plain(C, F, EPS, cfg.id_threshold, return_iters=True)
+
+    def upd(out):
+        return int(out[1].valid.sum())
+
+    pairs = {  # name: (kernel, plain, shape, bytes, fp64 operations)
+        "K2 f64": (lambda: grid_cuda.fused_finalize_static_cc_stacked(acc, *tb, **kw2),
+                   lambda: grid_cuda.fused_finalize_static_cc_stacked_plain(
+                       acc, *tb, dims=kw2["dims"], offsets=offsets, kwin=kw2["kwin"],
+                       max_sweeps=2 * sum(kw2["dims"]), tol=kw2["tol"]),
+                   f"S=8 frames x {nc} cells, f64", nbytes((acc,) + tb) + nbytes(outs),
+                   s8 * nc * (15 + 9 * n_off) + iters * nc * (2 * n_off + 1)),
+        "K3f f64": (lambda: centroid_cuda.circumcenter_features(mp, mm, T8),
+                    lambda: centroid_cuda.circumcenter_features_plain(mp, mm, T8),
+                    f"S=8 x C=32 P=384 stacked, {int(mm.any(1).sum())} active slots, f64",
+                    2 * (scan_bytes_read(mm, True) - nbytes(mm)) + nbytes(mm) + nbytes(T8)
+                    + nbytes(centroid_cuda.circumcenter_features(mp, mm, T8)),
+                    scan_ops(mm, True)),
+        "K4 f64": (lambda: track_cuda.track_frames(*t4, config=c64, gains_xy=gains),
+                   lambda: track_cuda.track_frames_plain(*t4, config=c64, gains_xy=gains),
+                   f"K={K} 1 x 1 frame, D={D}, {int(t4[2].sum())} valid detections, f64",
+                   nbytes(t4) + nbytes(o4),
+                   12 * K * int(t4[2].sum()) + 20 * cfg.data_length * upd(o4)),
+        "K4 hungarian f64": (
+            lambda: track_cuda.track_frames(*t4h, config=h64, gains_xy=gains),
+            lambda: track_cuda.track_frames_plain(*t4h, config=h64, gains_xy=gains),
+            f"K={K} 1 x 1 frame, D={D}, gated scene, iterations per phase {au_iters}, f64",
+            nbytes(t4h) + nbytes(o4h),
+            auction_ops(au_iters, D, K, 8) + 20 * cfg.data_length * upd(o4h)),
+    }
+    for name, (fk, fp, shape, moved, ops) in pairs.items():
+        ms_p = cuda_ms(fp, 3)
+        ms_k = cuda_ms(fk, 20)
+        ms_k2 = cuda_ms(fk, 20)
+        ms_p2 = cuda_ms(fp, 3)
+        us32 = one_op_profile(twins[name], 10)[0]
+        us_k, ops_k, whole = one_op_profile(fk, 20)
+        require_one_op(name, ops_k, whole)
+        us_k2 = one_op_profile(fk, 20)[0]
+        us32_2 = one_op_profile(twins[name], 10)[0]
+        log(f"[5 timing] {smi}: {name} device us per launch in turns (f32 build, double, "
+            f"double, f32 build) {us32:.2f}, {us_k:.2f}, {us_k2:.2f}, {us32_2:.2f}: double / "
+            f"f32 {min(us_k, us_k2) / min(us32, us32_2):.2f}x")
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F64_OPS_PER_S
+        entry = report[name]
+        entry["ms"] = min(ms_k, ms_k2)
+        entry["plain_ms"] = min(ms_p, ms_p2)
+        entry["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        entry["library_ms"] = None
+        log(f"[5 timing] {smi}: {name} {shape}: kernel {ms_k:.4f}/{ms_k2:.4f} ms, plain "
+            f"{ms_p:.4f}/{ms_p2:.4f} ms (run plain, kernel, kernel, plain; min reported); "
+            f"device {us_k:.2f} us per launch ({ops_k:.2f} ops per call; torch.profiler); "
+            f"bound {entry['bound_ms']:.6f} ms by {entry['bound_by']} ({moved} bytes, {ops} "
+            "fp64 operations); library call none")
+
+
 KERNELS = (
     ("K1", "voxel_grid fast-digit histogram + finalize, one launch (cell ranges x point-chunk "
      "clusters)",
@@ -3054,6 +3398,18 @@ KERNELS = (
     ("K12", "the Hungarian auction alone on given (D, K) cost matrices, one warp per problem "
      "(K4's Hungarian stage's device function; no tracking path launches it)",
      f"{PKG}/csrc/auction.cu", "multiple_object_tracking_lidar_tpu/ops/hungarian.py:34"),
+    ("K2 f64", "K2's double build (dtype=float64): f64 finalize, the static drop on the "
+     "centroid rounded to f32, the stencil's d^2 as fma(dz, dz, fma(dx, dx, dy * dy)) in f64",
+     f"{PKG}/csrc/grid_cc.cu", "multiple_object_tracking_lidar_tpu/ops/grid_pallas.py:288"),
+    ("K3f f64", "K3f's double build (dtype=float64): the circumcenter of f64 member tables, "
+     "the mean a sequential f64 sum",
+     f"{PKG}/csrc/circumcenter.cu", "multiple_object_tracking_lidar_tpu/ops/centroid_pallas.py:456"),
+    ("K4 f64", "K4's greedy double builds (dtype=float64, lpf and ihgp): the whole track step "
+     "in f64", f"{PKG}/csrc/assign.cu",
+     "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188"),
+    ("K4 hungarian f64", "K4's Hungarian double builds (dtype=float64): the auction in f64, "
+     "each column's winner by a 64-bit atomicMax of the bid then an atomicMin of the row, its "
+     "tables in dynamic shared memory", f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/hungarian.py:139"),
     ("K11", "batched transpose of 32-bit words: the (S, N, 3) -> (S, 3, N) points K1-cm reads "
      "(4-row groups, 16-byte loads and stores, no shared memory), and the probes' (1, B) -> "
      "(B, 1) int32 row (a copy) and (16, 128) tile",
@@ -3077,10 +3433,12 @@ def main() -> int:
     phase_kernels_slice8(dev, report, cfg, k1_inputs)
     phase_kernels_slice11(dev, smi, report, cfg)
     phase_kernels_slice12(dev, smi, report, cfg)
+    k13 = phase_kernels_slice13(dev, report, cfg)
     tracker, env, frames = phase_slice(dev, cfg, sc, report)
     phase_cli(dev, report)
     phase_ihgp(dev, report)
     phase_hungarian(dev, report)
+    phase_f64(dev, report)
     phase_modes(dev, report)
     phase_pointlist(dev, report)
     phase_g_grid(dev, report)
@@ -3091,6 +3449,7 @@ def main() -> int:
     phase_timings_fleet(dev, smi, fleet, fleet_env, fleet_in)
     phase_timings_slice11(dev, smi, *frames)
     phase_timings_slice12(dev, smi, *frames, report)
+    phase_timings_slice13(dev, smi, *frames, report, k13)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": f"{k}: {desc}", "route": "cuda", "source": src, "replaces": rep,

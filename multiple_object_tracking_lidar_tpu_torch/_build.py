@@ -9,8 +9,10 @@ sources, their headers and the flags, so an edited source never loads a
 stale build.  Nothing is downloaded and no library kernel is linked.
 
 ``--fmad=false`` is belt and braces: the sources already spell every f32
-product and sum with ``__fmul_rn``/``__fadd_rn``/``__fsub_rn`` so that FMA
-contraction cannot change a bit against the plain PyTorch versions.  There
+and f64 product and sum (``__fmul_rn``/``__fadd_rn``/``__fsub_rn``, their
+``__d*_rn`` twins, and ``__fmaf_rn``/``__fma_rn`` exactly where the JAX
+package's CPU code contracts an FMA) so that no contraction of nvcc's can
+change a bit against the plain PyTorch versions.  There
 is no ``--use_fast_math``: division and ``sqrtf`` stay IEEE.
 """
 
@@ -37,7 +39,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # pts, mask, S, N, ranges, chunks, out, npts, 7 grid ints, 10 floats, stream
 _DIGITS = [_P, _P, _I, _I, _I, _I, _P, _P, *[_I] * 7, *[_F] * 10, _P]
 
@@ -55,14 +57,19 @@ SIGNATURES = {
                                   _F, _F, _F, _F, _P],
     "motl_grid_cc": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                      _P, _P, _P, _P, _P, _P],
+    "motl_grid_cc_f64": [_P, _P, _P, _P, _P, _I, _P, _D, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P],
     "motl_grid_cc_max_cluster": [_I, _P],
     "motl_pair_stats": [_P, _P, _I, _I, _P, _P, _P],
     "motl_circumcenter": [_P, _P, _I, _I, _P, _P],
     "motl_circumcenter_features": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "motl_circumcenter_features_f64": [_P, _P, _P, _I, _I, _I, _P, _P],
     "motl_assoc_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P,
                         _P, _P],
     "motl_track_step": [*[_P] * 20, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, *[_F] * 7, _I,
                         *[_P] * 17],
+    "motl_track_step_f64": [*[_P] * 20, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, *[_D] * 7, _I,
+                            *[_P] * 17],
     "motl_auction_assign": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "motl_voxel_exact": _DIGITS,
     "motl_voxel_bf16x3": [_P, _P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _I, _I,

@@ -88,30 +88,51 @@
 // (ops/track_cuda.py), so the two agree bit for bit.  The distance uses
 // IEEE sqrtf; the gap roundings use rintf (round half to even, as
 // torch.round); int64 -> f32 conversions round to nearest.
+//
+// Double builds (motl_track_step_f64, dtype="float64"): the same kernel
+// templated on the float type T of the detections, windows, carries and
+// smoother weights, each op its __d*_rn twin (fp_rn.cuh), the Hungarian
+// gate's FMA __fma_rn; the JAX package runs its track step in the compute
+// dtype (tracker/pipeline.py:942-1100) and the plain version is the same
+// torch code on f64 tensors.  Every double build is one launch per call.
+// The Hungarian double builds keep their auction tables (prices, bids, the
+// second step's rows; ~62 KB at 1,024 lanes, past the 48 KB of static shared
+// memory) in dynamic shared memory after the smoother weights
+// (`hungarian_smem`), so they hold the f32 builds' K <= 1,024.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "auction.cuh"
+#include "fp_rn.cuh"
 
 namespace {
 
 using motl_auction::kFull;
+
+// A window row (x, y, z, t), aligned as float4 in the f32 builds so that a
+// row is one 16-byte access
+template <class T>
+struct alignas(4 * sizeof(T)) V4 {
+  T x, y, z, w;
+};
 
 constexpr int kMaxDets = 128;
 constexpr int kMaxLanes = 1024;
 constexpr int kNarrowLanes = 128;  // the TPU kernel's K bound
 constexpr int kBig = 1 << 30;
 
+template <class T>
 struct Selected {
   int slot;
-  float t;
+  T t;
   int id;
 };
 
 // One lane's view of its track slot during the scan.
+template <class T>
 struct Lane {
-  float lx, ly, lt;
+  T lx, ly, lt;
   int alive, oid, birth;
 };
 
@@ -124,10 +145,10 @@ struct Decisions {
   int interp[kMaxDets];
 };
 
-template <int kLanes>
+template <class T, int kLanes>
 struct ScanScratch {
   int red[2][4][kLanes / 32];
-  Selected sel[2];
+  Selected<T> sel[2];
 };
 
 __device__ __forceinline__ int last_valid_bound(const int* s_dv, int D) {
@@ -151,21 +172,21 @@ __device__ __forceinline__ void decision_defaults(Decisions& r, int D) {
 // The greedy scan over detections [0, bound).  Every thread of the CTA
 // calls it; lane k (k < K) owns slot k.  Ends with a barrier, so `r` is
 // complete for every thread on return.
-template <int kLanes>
-__device__ void decide(const float* s_det, const int* s_dv, int bound, bool allow,
-                       float thr, float gapthr, float dt, int K, Lane& me,
-                       int& nobj, int& nbirth, int& ovf, ScanScratch<kLanes>& sc,
+template <class T, int kLanes>
+__device__ void decide(const T* s_det, const int* s_dv, int bound, bool allow,
+                       T thr, T gapthr, T dt, int K, Lane<T>& me,
+                       int& nobj, int& nbirth, int& ovf, ScanScratch<T, kLanes>& sc,
                        Decisions& r) {
   const int k = threadIdx.x;
   const int lane = k & 31, warp = k >> 5;
   const int n_warps = blockDim.x >> 5;
   const bool in_k = k < K;
   for (int j = 0; j < bound; ++j) {
-    const float d0 = s_det[4 * j], d1 = s_det[4 * j + 1], d3 = s_det[4 * j + 3];
+    const T d0 = s_det[4 * j], d1 = s_det[4 * j + 1], d3 = s_det[4 * j + 3];
     const bool valid = s_dv[j] != 0;
     const bool is_alive = in_k && me.alive > 0;
-    const float dx = __fsub_rn(d0, me.lx), dy = __fsub_rn(d1, me.ly);
-    const float dist = sqrtf(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
+    const T dx = fp::sub(d0, me.lx), dy = fp::sub(d1, me.ly);
+    const T dist = fp::sqrt(fp::add(fp::mul(dx, dx), fp::mul(dy, dy)));
     const bool gate = is_alive && dist < thr && allow;
     const bool is_free = in_k && !is_alive;
     int r_any = gate ? 1 : 0;
@@ -185,7 +206,7 @@ __device__ void decide(const float* s_det, const int* s_dv, int bound, bool allo
     const int buf = j & 1;
     if (k == 0) {  // defaults for "no slot selected" (full bank, no match)
       sc.sel[buf].slot = 0;
-      sc.sel[buf].t = 0.0f;
+      sc.sel[buf].t = T(0);
       sc.sel[buf].id = 0;
     }
     if (lane == 0) {
@@ -214,11 +235,11 @@ __device__ void decide(const float* s_det, const int* s_dv, int bound, bool allo
     }
     __syncthreads();
     const int sel_slot = sc.sel[buf].slot;
-    const float t_slot = sc.sel[buf].t;
+    const T t_slot = sc.sel[buf].t;
     const int id_slot = sc.sel[buf].id;
-    const float gap = __fsub_rn(d3, t_slot);
+    const T gap = fp::sub(d3, t_slot);
     const bool do_interp =
-        am && gap > gapthr && __fsub_rn(rintf(__fdiv_rn(gap, dt)), 1.0f) >= 1.0f;
+        am && gap > gapthr && fp::sub(fp::rint(fp::div(gap, dt)), T(1)) >= T(1);
     const bool reg = valid && !am && !bank_full;
     const bool matched = valid && am;
     const bool write = matched || reg;
@@ -257,10 +278,10 @@ assoc_scan_kernel(const float* __restrict__ af0, const int* __restrict__ ai0,
   __shared__ float s_det[kMaxDets * 4];
   __shared__ int s_dv[kMaxDets];
   __shared__ Decisions s_res;
-  __shared__ ScanScratch<kLanes> s_sc;
+  __shared__ ScanScratch<float, kLanes> s_sc;
   const int k = threadIdx.x;
   const bool in_k = k < K;
-  Lane me = {0.f, 0.f, 0.f, 0, 0, 0};
+  Lane<float> me = {0.f, 0.f, 0.f, 0, 0, 0};
   if (in_k) {
     me.lx = af0[3 * k];
     me.ly = af0[3 * k + 1];
@@ -277,8 +298,8 @@ assoc_scan_kernel(const float* __restrict__ af0, const int* __restrict__ ai0,
   int nobj = cnt_in[0], nbirth = cnt_in[1], ovf = 0;
   __syncthreads();
   const int bound = last_valid_bound(s_dv, D);
-  decide<kLanes>(s_det, s_dv, bound, allow_p[0] != 0, thr, gapthr, dt, K, me, nobj, nbirth,
-                 ovf, s_sc, s_res);
+  decide<float, kLanes>(s_det, s_dv, bound, allow_p[0] != 0, thr, gapthr, dt, K, me, nobj,
+                        nbirth, ovf, s_sc, s_res);
   for (int d = k; d < D; d += blockDim.x) {
     outs[d] = s_res.slot[d];
     outs[D + d] = s_res.id[d];
@@ -301,35 +322,36 @@ assoc_scan_kernel(const float* __restrict__ af0, const int* __restrict__ ai0,
 // ---------------------------------------------------------------------------
 // the whole track step
 // ---------------------------------------------------------------------------
+template <class T>
 struct TrackArgs {
-  const float* dets;      // (B, S, D, 4)
+  const T* dets;          // (B, S, D, 4)
   const uint8_t* dv;      // (B, S, D)
-  const float* t;         // (B, S)
+  const T* t;             // (B, S)
   const uint8_t* alive_in;  // (B, K)
   const int* oid_in;
   const int* birth_in;
-  const float* win_in;    // (B, K, L, 4)
-  const float* m0_in;     // (B, K, 2, 2)
+  const T* win_in;        // (B, K, L, 4)
+  const T* m0_in;         // (B, K, 2, 2)
   const int* nobj_in;     // (B,)
   const int* nbirth_in;
   const int* spin_in;
   const uint8_t* init_in;
-  const float* wy;        // W_vel Wy (2, L-1, L-1): row L-2 is eft's
-  const float* wm;        // W_vel Wm (2, L-1, 2): row L-2
-  const float* my;        // W_vel My (2, 2, L-1)
-  const float* mm;        // W_vel Mm (2, 2, 2)
-  const float* pwy;       // W_pos Wy (2, L, L): row L-1 is eft's (read under ihgp)
-  const float* pwm;       // W_pos Wm (2, L, 2): row L-1
-  const float* pmy;       // W_pos My (2, 2, L)
-  const float* pmm;       // W_pos Mm (2, 2, 2)
+  const T* wy;            // W_vel Wy (2, L-1, L-1): row L-2 is eft's
+  const T* wm;            // W_vel Wm (2, L-1, 2): row L-2
+  const T* my;            // W_vel My (2, 2, L-1)
+  const T* mm;            // W_vel Mm (2, 2, 2)
+  const T* pwy;           // W_pos Wy (2, L, L): row L-1 is eft's (read under ihgp)
+  const T* pwm;           // W_pos Wm (2, L, 2): row L-1
+  const T* pmy;           // W_pos My (2, 2, L)
+  const T* pmm;           // W_pos Mm (2, 2, 2)
   int S, K, D, L;
-  float thr, gapthr, dt, vmax, lpf_a, lpf_b, prune_period;
+  T thr, gapthr, dt, vmax, lpf_a, lpf_b, prune_period;
   int prune_spin;
   uint8_t* alive_out;
   int* oid_out;
   int* birth_out;
-  float* win_out;
-  float* m0_out;
+  T* win_out;
+  T* m0_out;
   int* nobj_out;
   int* nbirth_out;
   int* spin_out;
@@ -337,38 +359,70 @@ struct TrackArgs {
   uint8_t* publish;       // (B, S)
   uint8_t* valid;         // (B, S, D)
   int* obj_id;            // (B, S, D)
-  float* pos;             // (B, S, D, 2)
-  float* vel;             // (B, S, D, 2)
+  T* pos;                 // (B, S, D, 2)
+  T* vel;                 // (B, S, D, 2)
   uint8_t* new_track;     // (B, S, D)
   int* counts;            // (B, S, 4): n_alive, overflow, dup_saturated, assoc_saturated
-  motl_auction::AuctionParams au;  // read by the Hungarian builds
+  motl_auction::AuctionParams<T> au;  // read by the Hungarian builds
+  void* stream;
 };
 
 // ---------------------------------------------------------------------------
 // the Hungarian stage
 // ---------------------------------------------------------------------------
-template <int kLanes>
+template <class T>
+struct XY {
+  T x, y;
+};
+
+template <class T, int kLanes>
 struct HungarianScratch {
-  motl_auction::AuctionScratch<kLanes + kMaxDets> auc;
-  float2 last[kLanes];    // each slot's last x / y; NaN where the slot is not alive
+  motl_auction::AuctionScratch<T, kLanes + kMaxDets> auc;
+  XY<T> last[kLanes];     // each slot's last x / y; NaN where the slot is not alive
   int free_slot[kLanes];  // the q-th free slot (before this frame's registrations)
   int reg_det[kMaxDets];  // the detection registered into the q-th free slot
   int sat;
   int n_want;
 };
 
+// The double builds' second-step auction scratch (unused by the f32 builds).
+template <class T, int kLanes>
+struct WideScratch {
+  motl_auction::WideKeys<kLanes + kMaxDets> keys;
+};
+template <int kLanes>
+struct WideScratch<float, kLanes> {};
+
+// Bytes of the smoother weights in dynamic shared memory (W_vel's, and
+// W_pos's under ihgp), rounded up to 16 so that what follows is aligned.
+template <class T>
+__host__ __device__ inline size_t weights_smem(int L, bool ihgp) {
+  const size_t b = (size_t)(6 * (L - 1) + 4 + 8 + (ihgp ? 6 * L + 4 + 8 : 0)) * sizeof(T);
+  return (b + 15) & ~(size_t)15;
+}
+
+// The double Hungarian builds' scratch in dynamic shared memory after the
+// weights; the f32 builds keep theirs static (none here).
+template <class T, int kLanes, bool kAuction>
+inline size_t hungarian_smem() {
+  if (kAuction && sizeof(T) == sizeof(double))
+    return sizeof(HungarianScratch<T, kLanes>) + sizeof(WideScratch<T, kLanes>) + 16;
+  return 0;
+}
+
 // A detection's value on a slot: -cost where gated (valid, allowed, cost <
 // thr), else NEG; the cost sqrt(fma(dx, dx, dy * dy)), as XLA's CPU code
 // contracts the JAX expression (tests/test_torch_hungarian.py).
+template <class T>
 struct TrackValue {
-  const float* det;
+  const T* det;
   const int* dv;
-  const float2* last;
+  const XY<T>* last;
   bool allow;
-  float thr, neg;
-  __device__ __forceinline__ float operator()(int r, int c) const {
-    const float dx = __fsub_rn(det[4 * r], last[c].x), dy = __fsub_rn(det[4 * r + 1], last[c].y);
-    const float cost = sqrtf(__fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
+  T thr, neg;
+  __device__ __forceinline__ T operator()(int r, int c) const {
+    const T dx = fp::sub(det[4 * r], last[c].x), dy = fp::sub(det[4 * r + 1], last[c].y);
+    const T cost = fp::sqrt(fp::fma(dx, dx, fp::mul(dy, dy)));
     return (dv[r] && allow && cost < thr) ? -cost : neg;
   }
 };
@@ -378,27 +432,30 @@ struct TrackValue {
 // the CTA calls it; lane k (k < K) owns slot k.  s_wcount holds a count per
 // warp.  Ends with a barrier, so `r` is complete for every thread on return;
 // nobj, nbirth, ovf and sat come out the same in every thread.
-template <int kLanes>
-__device__ void hungarian_decide(const float* s_det, const int* s_dv, bool allow, float thr,
-                                 float gapthr, float dt, int K, int D,
-                                 const motl_auction::AuctionParams& au, Lane& me, int& nobj,
-                                 int& nbirth, int& ovf, int& sat, int* s_wcount,
-                                 HungarianScratch<kLanes>& h, Decisions& r) {
+template <class T, int kLanes>
+__device__ void hungarian_decide(const T* s_det, const int* s_dv, bool allow, T thr,
+                                 T gapthr, T dt, int K, int D,
+                                 const motl_auction::AuctionParams<T>& au, Lane<T>& me,
+                                 int& nobj, int& nbirth, int& ovf, int& sat, int* s_wcount,
+                                 HungarianScratch<T, kLanes>& h, WideScratch<T, kLanes>& wide,
+                                 Decisions& r) {
   const int k = threadIdx.x;
   const int lane = k & 31, warp = k >> 5;
   const int n_warps = blockDim.x >> 5;
   const bool in_k = k < K;
   const unsigned below = (1u << lane) - 1u;
   if (in_k) {
-    const float nan = __int_as_float(0x7fc00000);
-    h.last[k] = me.alive ? make_float2(me.lx, me.ly) : make_float2(nan, nan);
+    const T nan = T(NAN);
+    h.last[k] = me.alive ? XY<T>{me.lx, me.ly} : XY<T>{nan, nan};
   }
   __syncthreads();
-  const TrackValue value{s_det, s_dv, h.last, allow, thr, au.neg};
+  const TrackValue<T> value{s_det, s_dv, h.last, allow, thr, au.neg};
   motl_auction::auction_lists(value, D, K, au.neg, h.auc, warp, n_warps);
   __syncthreads();
   if (warp == 0) {
-    const int s = motl_auction::auction_warp(value, D, K, au, h.auc, nullptr);
+    motl_auction::WideKeys<kLanes + kMaxDets>* wk = nullptr;
+    if constexpr (sizeof(T) == sizeof(double)) wk = &wide.keys;
+    const int s = motl_auction::auction_warp(value, D, K, au, h.auc, wk, nullptr);
     if (lane == 0) h.sat = s;
   }
   __syncthreads();
@@ -407,13 +464,13 @@ __device__ void hungarian_decide(const float* s_det, const int* s_dv, bool allow
   // id and last t (the interpolation test)
   const int own = in_k ? h.auc.owner[k] : -1;
   if (own >= 0 && own < D) {
-    const float t_det = s_det[4 * own + 3];
-    const float gap = __fsub_rn(t_det, me.lt);
+    const T t_det = s_det[4 * own + 3];
+    const T gap = fp::sub(t_det, me.lt);
     r.slot[own] = k;
     r.id[own] = me.oid;
     r.ok[own] = 1;
     r.interp[own] =
-        (gap > gapthr && __fsub_rn(rintf(__fdiv_rn(gap, dt)), 1.0f) >= 1.0f) ? 1 : 0;
+        (gap > gapthr && fp::sub(fp::rint(fp::div(gap, dt)), T(1)) >= T(1)) ? 1 : 0;
     me.lx = s_det[4 * own];
     me.ly = s_det[4 * own + 1];
     me.lt = t_det;
@@ -468,14 +525,16 @@ __device__ void hungarian_decide(const float* s_det, const int* s_dv, bool allow
   ovf += n_want - n_reg;
 }
 
-// int64 -> f32, round to nearest (torch's .to(float32) of an int64)
-__device__ __forceinline__ float i2f(long long v) { return __ll2float_rn(v); }
+// int64 -> T, round to nearest (torch's .to(float32 / float64) of an int64)
+__device__ __forceinline__ void i2f(long long v, float& out) { out = __ll2float_rn(v); }
+__device__ __forceinline__ void i2f(long long v, double& out) { out = __ll2double_rn(v); }
 
 // Lane k's window row after this frame's decisions, in place: the first
 // detection's interpolation backfill or registration fill, then the pushes
 // in arrival order (ops/assign.py::apply_window_updates, _interp_backfill).
-__device__ void update_window(float4* w, int L, const float* s_det, const Decisions& r,
-                              int D, int k, float dt) {
+template <class T>
+__device__ void update_window(V4<T>* w, int L, const T* s_det, const Decisions& r,
+                              int D, int k, T dt) {
   int mult = 0, first = -1;
   for (int d = 0; d < D; ++d) {
     if (r.ok[d] && r.slot[d] == k) {
@@ -484,29 +543,31 @@ __device__ void update_window(float4* w, int L, const float* s_det, const Decisi
     }
   }
   if (mult == 0) return;
-  const float4 d1 = make_float4(s_det[4 * first], s_det[4 * first + 1],
-                                s_det[4 * first + 2], s_det[4 * first + 3]);
+  const V4<T> d1 = {s_det[4 * first], s_det[4 * first + 1], s_det[4 * first + 2],
+                    s_det[4 * first + 3]};
   const bool first_reg = r.is_new[first] != 0;
   if (first_reg) {
     for (int l = 0; l < L; ++l) w[l] = d1;
   } else if (r.interp[first]) {
-    const float4 last = w[L - 1];
-    const float gap = __fsub_rn(d1.w, last.w);
-    const long long lost = (long long)rintf(__fdiv_rn(gap, dt)) - 1;
+    const V4<T> last = w[L - 1];
+    const T gap = fp::sub(d1.w, last.w);
+    const long long lost = (long long)fp::rint(fp::div(gap, dt)) - 1;
     const long long lost_c = lost < 1 ? 1 : lost;
-    const float lc = i2f(lost_c);
-    const float sx = __fdiv_rn(__fsub_rn(d1.x, last.x), lc);
-    const float sy = __fdiv_rn(__fsub_rn(d1.y, last.y), lc);
-    const float sz = __fdiv_rn(__fsub_rn(d1.z, last.z), lc);
+    T lc;
+    i2f(lost_c, lc);
+    const T sx = fp::div(fp::sub(d1.x, last.x), lc);
+    const T sy = fp::div(fp::sub(d1.y, last.y), lc);
+    const T sz = fp::div(fp::sub(d1.z, last.z), lc);
     for (int l = 0; l < L; ++l) {
       if ((long long)l + lost < L) {
         w[l] = w[l + lost];
       } else {
-        const float jj = i2f((long long)l - L + lost_c + 1);
-        w[l] = make_float4(__fadd_rn(last.x, __fmul_rn(__fmul_rn(jj, sx), 1.0f)),
-                           __fadd_rn(last.y, __fmul_rn(__fmul_rn(jj, sy), 1.0f)),
-                           __fadd_rn(last.z, __fmul_rn(__fmul_rn(jj, sz), 0.0f)),
-                           __fadd_rn(last.w, __fmul_rn(jj, dt)));
+        T jj;
+        i2f((long long)l - L + lost_c + 1, jj);
+        w[l] = V4<T>{fp::add(last.x, fp::mul(fp::mul(jj, sx), T(1))),
+                     fp::add(last.y, fp::mul(fp::mul(jj, sy), T(1))),
+                     fp::add(last.z, fp::mul(fp::mul(jj, sz), T(0))),
+                     fp::add(last.w, fp::mul(jj, dt))};
       }
     }
   }
@@ -519,7 +580,7 @@ __device__ void update_window(float4* w, int L, const float* s_det, const Decisi
   if (n_push > 0) {
     for (int l0 = 0; l0 + n_push < L; l0 += 8) {
       const int m = min(8, L - n_push - l0);
-      float4 tmp[8];
+      V4<T> tmp[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         if (j < m) tmp[j] = w[l0 + j + n_push];
@@ -533,30 +594,31 @@ __device__ void update_window(float4* w, int L, const float* s_det, const Decisi
     if (!(r.ok[d] && r.slot[d] == k)) continue;
     const int row = j - offset + L - n_push;
     if (j >= offset && row >= 0)
-      w[row] = make_float4(s_det[4 * d], s_det[4 * d + 1], s_det[4 * d + 2], s_det[4 * d + 3]);
+      w[row] = V4<T>{s_det[4 * d], s_det[4 * d + 1], s_det[4 * d + 2], s_det[4 * d + 3]};
     ++j;
   }
 }
 
-template <int kLanes, bool kIhgp, bool kAuction>
-__global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
+template <class T, int kLanes, bool kIhgp, bool kAuction>
+__global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs<T> a) {
   // W_vel: wy_last (2, L-1), wm_last (2, 2), my (2, 2, L-1), mm (2, 2, 2);
   // then under ihgp W_pos: wy_last (2, L), wm_last (2, 2), my (2, 2, L), mm (2, 2, 2)
-  extern __shared__ float s_w[];
-  __shared__ float s_det[kMaxDets * 4];
+  extern __shared__ __align__(16) unsigned char s_wraw[];
+  T* s_w = reinterpret_cast<T*>(s_wraw);
+  __shared__ T s_det[kMaxDets * 4];
   __shared__ int s_dv[kMaxDets];
   __shared__ int s_act[kMaxDets];
   __shared__ Decisions s_res;
-  __shared__ ScanScratch<kLanes> s_sc;
+  __shared__ ScanScratch<T, kLanes> s_sc;
   const int b = blockIdx.x;
   const int k = threadIdx.x;
   const int S = a.S, K = a.K, D = a.D, L = a.L, L1 = L - 1;
   const bool in_k = k < K;
 
-  float* wy = s_w;
-  float* wm = wy + 2 * L1;
-  float* my = wm + 4;
-  float* mm = my + 4 * L1;
+  T* wy = s_w;
+  T* wm = wy + 2 * L1;
+  T* my = wm + 4;
+  T* mm = my + 4 * L1;
   for (int i = k; i < 2 * L1; i += blockDim.x) {
     const int ax = i / L1, l = i % L1;
     wy[i] = a.wy[((size_t)ax * L1 + (L1 - 1)) * L1 + l];
@@ -564,10 +626,10 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
   for (int i = k; i < 4; i += blockDim.x) wm[i] = a.wm[((i >> 1) * L1 + (L1 - 1)) * 2 + (i & 1)];
   for (int i = k; i < 4 * L1; i += blockDim.x) my[i] = a.my[i];
   for (int i = k; i < 8; i += blockDim.x) mm[i] = a.mm[i];
-  float* pwy = mm + 8;
-  float* pwm = pwy + 2 * L;
-  float* pmy = pwm + 4;
-  float* pmm = pmy + 4 * L;
+  T* pwy = mm + 8;
+  T* pwm = pwy + 2 * L;
+  T* pmy = pwm + 4;
+  T* pmm = pmy + 4 * L;
   if constexpr (kIhgp) {
     for (int i = k; i < 2 * L; i += blockDim.x) {
       const int ax = i / L, l = i % L;
@@ -581,13 +643,13 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
 
   // this lane's slot: summary and carry in registers, window row in place
   // in the output buffer
-  Lane me = {0.f, 0.f, 0.f, 0, 0, 0};
-  float m[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  float4* w = reinterpret_cast<float4*>(a.win_out) + ((size_t)b * K + (in_k ? k : 0)) * L;
+  Lane<T> me = {T(0), T(0), T(0), 0, 0, 0};
+  T m[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
+  V4<T>* w = reinterpret_cast<V4<T>*>(a.win_out) + ((size_t)b * K + (in_k ? k : 0)) * L;
   if (in_k) {
-    const float4* __restrict__ w_in =
-        reinterpret_cast<const float4*>(a.win_in) + ((size_t)b * K + k) * L;
-    float4* __restrict__ w_out = w;
+    const V4<T>* __restrict__ w_in =
+        reinterpret_cast<const V4<T>*>(a.win_in) + ((size_t)b * K + k) * L;
+    V4<T>* __restrict__ w_out = w;
 #pragma unroll 8
     for (int l = 0; l < L; ++l) w_out[l] = w_in[l];
     me.lx = w[L - 1].x;
@@ -604,12 +666,12 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
 
   for (int s = 0; s < S; ++s) {
     const size_t fs = (size_t)b * S + s;
-    const float* dets = a.dets + fs * D * 4;
+    const T* dets = a.dets + fs * D * 4;
     for (int d = k; d < D; d += blockDim.x) {
       for (int q = 0; q < 4; ++q) s_det[4 * d + q] = dets[4 * d + q];
       s_dv[d] = a.dv[fs * D + d] != 0;
       // pos / vel default: det * 0 (NaN-preserving), for detections no pass reads
-      const float zx = __fmul_rn(dets[4 * d], 0.0f), zy = __fmul_rn(dets[4 * d + 1], 0.0f);
+      const T zx = fp::mul(dets[4 * d], T(0)), zy = fp::mul(dets[4 * d + 1], T(0));
       a.pos[2 * (fs * D + d)] = zx;
       a.pos[2 * (fs * D + d) + 1] = zy;
       a.vel[2 * (fs * D + d)] = zx;
@@ -621,13 +683,21 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
     const bool any_det = bound > 0;
     const bool steady = init && any_det;
     int ovf = 0, sat = 0;
-    if constexpr (kAuction) {
-      __shared__ HungarianScratch<kLanes> s_h;
-      hungarian_decide<kLanes>(s_det, s_dv, init, a.thr, a.gapthr, a.dt, K, D, a.au, me, nobj,
-                               nbirth, ovf, sat, s_sc.red[0][0], s_h, s_res);
+    if constexpr (kAuction && sizeof(T) == sizeof(double)) {
+      unsigned char* dyn = s_wraw + weights_smem<T>(L, kIhgp);
+      auto& s_h = *reinterpret_cast<HungarianScratch<T, kLanes>*>(dyn);
+      auto& s_wide = *reinterpret_cast<WideScratch<T, kLanes>*>(
+          dyn + ((sizeof(HungarianScratch<T, kLanes>) + 15) & ~(size_t)15));
+      hungarian_decide<T, kLanes>(s_det, s_dv, init, a.thr, a.gapthr, a.dt, K, D, a.au, me,
+                                  nobj, nbirth, ovf, sat, s_sc.red[0][0], s_h, s_wide, s_res);
+    } else if constexpr (kAuction) {
+      __shared__ HungarianScratch<T, kLanes> s_h;
+      __shared__ WideScratch<T, kLanes> s_wide;
+      hungarian_decide<T, kLanes>(s_det, s_dv, init, a.thr, a.gapthr, a.dt, K, D, a.au, me,
+                                  nobj, nbirth, ovf, sat, s_sc.red[0][0], s_h, s_wide, s_res);
     } else {
-      decide<kLanes>(s_det, s_dv, bound, init, a.thr, a.gapthr, a.dt, K, me, nobj, nbirth, ovf,
-                     s_sc, s_res);
+      decide<T, kLanes>(s_det, s_dv, bound, init, a.thr, a.gapthr, a.dt, K, me, nobj, nbirth,
+                        ovf, s_sc, s_res);
     }
     for (int d = k; d < D; d += blockDim.x) s_act[d] = (s_res.ok[d] && steady) ? 1 : 0;
     __syncthreads();
@@ -637,7 +707,7 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
       // a registration zeroes the slot's GP carry (the ctor, cpp:45)
       for (int d = 0; d < D; ++d) {
         if (s_res.is_new[d] && s_res.slot[d] == k) {
-          m[0][0] = m[0][1] = m[1][0] = m[1][1] = 0.0f;
+          m[0][0] = m[0][1] = m[1][0] = m[1][1] = T(0);
         }
       }
       int mult = 0;
@@ -647,96 +717,96 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
         // the LPF position: once per frame, ascending in the window index
         // (each row read once per pass, both axes together; unrolled so
         // the row loads overlap)
-        float vmean[2], ey[2], myv[2][2], sum[2];
-        float2 prev = make_float2(w[0].x, w[0].y);
+        T vmean[2], ey[2], myv[2][2], sum[2];
+        XY<T> prev = {w[0].x, w[0].y};
 #pragma unroll 8
         for (int l = 0; l < L1; ++l) {
-          const float4 cur = w[l + 1];
-          const float vx = __fdiv_rn(__fsub_rn(cur.x, prev.x), a.dt);
-          const float vy = __fdiv_rn(__fsub_rn(cur.y, prev.y), a.dt);
-          sum[0] = l ? __fadd_rn(sum[0], vx) : vx;
-          sum[1] = l ? __fadd_rn(sum[1], vy) : vy;
-          prev = make_float2(cur.x, cur.y);
+          const V4<T> cur = w[l + 1];
+          const T vx = fp::div(fp::sub(cur.x, prev.x), a.dt);
+          const T vy = fp::div(fp::sub(cur.y, prev.y), a.dt);
+          sum[0] = l ? fp::add(sum[0], vx) : vx;
+          sum[1] = l ? fp::add(sum[1], vy) : vy;
+          prev = XY<T>{cur.x, cur.y};
         }
-        vmean[0] = __fdiv_rn(sum[0], (float)L1);
-        vmean[1] = __fdiv_rn(sum[1], (float)L1);
-        prev = make_float2(w[0].x, w[0].y);
+        vmean[0] = fp::div(sum[0], (T)L1);
+        vmean[1] = fp::div(sum[1], (T)L1);
+        prev = XY<T>{w[0].x, w[0].y};
 #pragma unroll 8
         for (int l = 0; l < L1; ++l) {
-          const float4 cur = w[l + 1];
-          const float yv[2] = {
-              __fsub_rn(__fdiv_rn(__fsub_rn(cur.x, prev.x), a.dt), vmean[0]),
-              __fsub_rn(__fdiv_rn(__fsub_rn(cur.y, prev.y), a.dt), vmean[1])};
-          prev = make_float2(cur.x, cur.y);
+          const V4<T> cur = w[l + 1];
+          const T yv[2] = {
+              fp::sub(fp::div(fp::sub(cur.x, prev.x), a.dt), vmean[0]),
+              fp::sub(fp::div(fp::sub(cur.y, prev.y), a.dt), vmean[1])};
+          prev = XY<T>{cur.x, cur.y};
 #pragma unroll
           for (int ax = 0; ax < 2; ++ax) {
-            const float e = __fmul_rn(yv[ax], wy[ax * L1 + l]);
-            const float c0 = __fmul_rn(yv[ax], my[(ax * 2 + 0) * L1 + l]);
-            const float c1 = __fmul_rn(yv[ax], my[(ax * 2 + 1) * L1 + l]);
-            ey[ax] = l ? __fadd_rn(ey[ax], e) : e;
-            myv[ax][0] = l ? __fadd_rn(myv[ax][0], c0) : c0;
-            myv[ax][1] = l ? __fadd_rn(myv[ax][1], c1) : c1;
+            const T e = fp::mul(yv[ax], wy[ax * L1 + l]);
+            const T c0 = fp::mul(yv[ax], my[(ax * 2 + 0) * L1 + l]);
+            const T c1 = fp::mul(yv[ax], my[(ax * 2 + 1) * L1 + l]);
+            ey[ax] = l ? fp::add(ey[ax], e) : e;
+            myv[ax][0] = l ? fp::add(myv[ax][0], c0) : c0;
+            myv[ax][1] = l ? fp::add(myv[ax][1], c1) : c1;
           }
         }
         // the position: LPF once per frame, or under ihgp the y-parts of
         // the position smoother (pmean = the last row's xy, y_l = row l's
         // xy less pmean), ascending in l, and a position pass per pass
-        float pos[2], pmean[2], eyp[2], myp[2][2];
+        T pos[2], pmean[2], eyp[2], myp[2][2];
         if constexpr (kIhgp) {
           pmean[0] = w[L - 1].x;
           pmean[1] = w[L - 1].y;
 #pragma unroll 8
           for (int l = 0; l < L; ++l) {
-            const float4 cur = w[l];
-            const float yv[2] = {__fsub_rn(cur.x, pmean[0]), __fsub_rn(cur.y, pmean[1])};
+            const V4<T> cur = w[l];
+            const T yv[2] = {fp::sub(cur.x, pmean[0]), fp::sub(cur.y, pmean[1])};
 #pragma unroll
             for (int ax = 0; ax < 2; ++ax) {
-              const float e = __fmul_rn(yv[ax], pwy[ax * L + l]);
-              const float c0 = __fmul_rn(yv[ax], pmy[(ax * 2 + 0) * L + l]);
-              const float c1 = __fmul_rn(yv[ax], pmy[(ax * 2 + 1) * L + l]);
-              eyp[ax] = l ? __fadd_rn(eyp[ax], e) : e;
-              myp[ax][0] = l ? __fadd_rn(myp[ax][0], c0) : c0;
-              myp[ax][1] = l ? __fadd_rn(myp[ax][1], c1) : c1;
+              const T e = fp::mul(yv[ax], pwy[ax * L + l]);
+              const T c0 = fp::mul(yv[ax], pmy[(ax * 2 + 0) * L + l]);
+              const T c1 = fp::mul(yv[ax], pmy[(ax * 2 + 1) * L + l]);
+              eyp[ax] = l ? fp::add(eyp[ax], e) : e;
+              myp[ax][0] = l ? fp::add(myp[ax][0], c0) : c0;
+              myp[ax][1] = l ? fp::add(myp[ax][1], c1) : c1;
             }
           }
         } else {
-          pos[0] = __fadd_rn(__fmul_rn(a.lpf_a, w[L - 2].x), __fmul_rn(a.lpf_b, w[L - 1].x));
-          pos[1] = __fadd_rn(__fmul_rn(a.lpf_a, w[L - 2].y), __fmul_rn(a.lpf_b, w[L - 1].y));
+          pos[0] = fp::add(fp::mul(a.lpf_a, w[L - 2].x), fp::mul(a.lpf_b, w[L - 1].x));
+          pos[1] = fp::add(fp::mul(a.lpf_a, w[L - 2].y), fp::mul(a.lpf_b, w[L - 1].y));
         }
         // chained passes, run as detections ask for them: detection d
         // reads pass ordinal[d] = (updates of slot k at or before d) - 1
-        float vel[2] = {0.f, 0.f};
+        T vel[2] = {T(0), T(0)};
         int done = 0, cnt = 0;
         for (int d = 0; d < D; ++d) {
           if (s_res.slot[d] != k) continue;
           cnt += s_act[d];
           if (cnt == 0) continue;
           while (done < cnt) {
-            float mn[2][2];
+            T mn[2][2];
             if constexpr (kIhgp) {  // the position pass; the velocity pass chains on its carry
               for (int ax = 0; ax < 2; ++ax) {
-                const float em = __fadd_rn(__fmul_rn(m[ax][0], pwm[2 * ax]),
-                                           __fmul_rn(m[ax][1], pwm[2 * ax + 1]));
-                pos[ax] = __fadd_rn(__fadd_rn(eyp[ax], em), pmean[ax]);
+                const T em = fp::add(fp::mul(m[ax][0], pwm[2 * ax]),
+                                     fp::mul(m[ax][1], pwm[2 * ax + 1]));
+                pos[ax] = fp::add(fp::add(eyp[ax], em), pmean[ax]);
                 for (int tt = 0; tt < 2; ++tt) {
-                  mn[ax][tt] = __fadd_rn(
-                      myp[ax][tt], __fadd_rn(__fmul_rn(m[ax][0], pmm[(ax * 2 + tt) * 2]),
-                                             __fmul_rn(m[ax][1], pmm[(ax * 2 + tt) * 2 + 1])));
+                  mn[ax][tt] = fp::add(
+                      myp[ax][tt], fp::add(fp::mul(m[ax][0], pmm[(ax * 2 + tt) * 2]),
+                                           fp::mul(m[ax][1], pmm[(ax * 2 + tt) * 2 + 1])));
                 }
               }
               for (int q = 0; q < 4; ++q) m[q >> 1][q & 1] = mn[q >> 1][q & 1];
             }
             for (int ax = 0; ax < 2; ++ax) {
-              const float em = __fadd_rn(__fmul_rn(m[ax][0], wm[2 * ax]),
-                                         __fmul_rn(m[ax][1], wm[2 * ax + 1]));
-              float v = __fadd_rn(__fadd_rn(ey[ax], em), vmean[ax]);
+              const T em = fp::add(fp::mul(m[ax][0], wm[2 * ax]),
+                                   fp::mul(m[ax][1], wm[2 * ax + 1]));
+              T v = fp::add(fp::add(ey[ax], em), vmean[ax]);
               // clamp, NaN-preserving like the C++ if-chain (cpp:649-654)
               v = v > a.vmax ? a.vmax : (v < -a.vmax ? -a.vmax : v);
               vel[ax] = v;
               for (int tt = 0; tt < 2; ++tt) {
-                mn[ax][tt] = __fadd_rn(
-                    myv[ax][tt], __fadd_rn(__fmul_rn(m[ax][0], mm[(ax * 2 + tt) * 2]),
-                                           __fmul_rn(m[ax][1], mm[(ax * 2 + tt) * 2 + 1])));
+                mn[ax][tt] = fp::add(
+                    myv[ax][tt], fp::add(fp::mul(m[ax][0], mm[(ax * 2 + tt) * 2]),
+                                         fp::mul(m[ax][1], mm[(ax * 2 + tt) * 2 + 1])));
               }
             }
             for (int q = 0; q < 4; ++q) m[q >> 1][q & 1] = mn[q >> 1][q & 1];
@@ -754,7 +824,7 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs a) {
     spin += steady ? 1 : 0;
     const bool prune = spin > a.prune_spin && steady;
     if (in_k && prune) {
-      const bool stale = __fsub_rn(a.t[fs], w[L - 1].w) > a.prune_period;
+      const bool stale = fp::sub(a.t[fs], w[L - 1].w) > a.prune_period;
       if (stale) me.alive = 0;
     }
     if (prune) spin = 0;
@@ -813,26 +883,44 @@ extern "C" int motl_assoc_scan(const float* af0, const int* ai0, const float* de
   return (int)cudaGetLastError();
 }
 
-template <int kLanes, bool kIhgp, bool kAuction>
-cudaError_t launch_track(const TrackArgs& a, int B, int threads, size_t smem, cudaStream_t st) {
+template <class T, int kLanes, bool kIhgp, bool kAuction>
+cudaError_t launch_track(const TrackArgs<T>& a, int B, int threads, size_t smem,
+                         cudaStream_t st) {
+  smem += hungarian_smem<T, kLanes, kAuction>();
   if (kAuction) {  // the auction's static tables fill most of the 48 KB without opt-in
-    const cudaError_t e = cudaFuncSetAttribute(track_step_kernel<kLanes, kIhgp, kAuction>,
+    const cudaError_t e = cudaFuncSetAttribute(track_step_kernel<T, kLanes, kIhgp, kAuction>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
     if (e != cudaSuccess) return e;
   }
-  track_step_kernel<kLanes, kIhgp, kAuction><<<B, threads, smem, st>>>(a);
+  track_step_kernel<T, kLanes, kIhgp, kAuction><<<B, threads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <int kLanes>
-cudaError_t launch_track_width(const TrackArgs& a, bool ihgp, bool auction, int B, int threads,
-                               size_t smem, cudaStream_t st) {
+template <class T, int kLanes>
+cudaError_t launch_track_width(const TrackArgs<T>& a, bool ihgp, bool auction, int B,
+                               int threads, size_t smem, cudaStream_t st) {
   if (auction)
-    return ihgp ? launch_track<kLanes, true, true>(a, B, threads, smem, st)
-                : launch_track<kLanes, false, true>(a, B, threads, smem, st);
-  return ihgp ? launch_track<kLanes, true, false>(a, B, threads, smem, st)
-              : launch_track<kLanes, false, false>(a, B, threads, smem, st);
+    return ihgp ? launch_track<T, kLanes, true, true>(a, B, threads, smem, st)
+                : launch_track<T, kLanes, false, true>(a, B, threads, smem, st);
+  return ihgp ? launch_track<T, kLanes, true, false>(a, B, threads, smem, st)
+              : launch_track<T, kLanes, false, false>(a, B, threads, smem, st);
+}
+
+template <class T>
+int track_step(TrackArgs<T>& a, const T* auction_f, int ihgp, int auction, int n_phases,
+               int max_iters, int B) {
+  const int K = a.K, D = a.D, L = a.L;
+  if (B < 1 || a.S < 1 || K < 1 || K > kMaxLanes || D < 1 || D > kMaxDets || L < 2)
+    return (int)cudaErrorInvalidValue;
+  if (auction && !motl_auction::read_params(auction_f, n_phases, max_iters, &a.au))
+    return (int)cudaErrorInvalidValue;
+  const int threads = (K + 31) / 32 * 32;
+  const size_t smem = weights_smem<T>(L, ihgp);
+  const cudaStream_t st = (cudaStream_t)a.stream;
+  if (threads <= kNarrowLanes)
+    return (int)launch_track_width<T, kNarrowLanes>(a, ihgp, auction, B, threads, smem, st);
+  return (int)launch_track_width<T, kMaxLanes>(a, ihgp, auction, B, threads, smem, st);
 }
 
 // The whole track step of B banks over S frames each, one CTA per bank.
@@ -863,20 +951,35 @@ extern "C" int motl_track_step(
     float* win_out, float* m0_out, int* nobj_out, int* nbirth_out, int* spin_out,
     uint8_t* init_out, uint8_t* publish, uint8_t* valid, int* obj_id, float* pos, float* vel,
     uint8_t* new_track, int* counts, void* stream) {
-  if (B < 1 || S < 1 || K < 1 || K > kMaxLanes || D < 1 || D > kMaxDets || L < 2)
-    return (int)cudaErrorInvalidValue;
-  TrackArgs a{dets, dv, t, alive_in, oid_in, birth_in, win_in, m0_in, nobj_in, nbirth_in,
-              spin_in, init_in, wy, wm, my, mm, pwy, pwm, pmy, pmm, S, K, D, L, thr,
-              gapthr, dt, vmax, lpf_a, lpf_b, prune_period, prune_spin, alive_out, oid_out,
-              birth_out, win_out, m0_out, nobj_out, nbirth_out, spin_out, init_out, publish,
-              valid, obj_id, pos, vel, new_track, counts, {}};
-  if (auction && !motl_auction::read_params(auction_f, n_phases, max_iters, &a.au))
-    return (int)cudaErrorInvalidValue;
-  const int threads = (K + 31) / 32 * 32;
-  const size_t smem =
-      (size_t)(6 * (L - 1) + 4 + 8 + (ihgp ? 6 * L + 4 + 8 : 0)) * sizeof(float);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (threads <= kNarrowLanes)
-    return (int)launch_track_width<kNarrowLanes>(a, ihgp, auction, B, threads, smem, st);
-  return (int)launch_track_width<kMaxLanes>(a, ihgp, auction, B, threads, smem, st);
+  TrackArgs<float> a{dets, dv, t, alive_in, oid_in, birth_in, win_in, m0_in, nobj_in,
+                     nbirth_in, spin_in, init_in, wy, wm, my, mm, pwy, pwm, pmy, pmm, S, K, D,
+                     L, thr, gapthr, dt, vmax, lpf_a, lpf_b, prune_period, prune_spin,
+                     alive_out, oid_out, birth_out, win_out, m0_out, nobj_out, nbirth_out,
+                     spin_out, init_out, publish, valid, obj_id, pos, vel, new_track, counts,
+                     {}, stream};
+  return track_step(a, auction_f, ihgp, auction, n_phases, max_iters, B);
+}
+
+// The double builds: every float array and scalar of motl_track_step in f64
+// (dets, t, window, m0, the smoother weights, pos / vel, auction_f and the
+// seven scalars); the rest as motl_track_step.
+extern "C" int motl_track_step_f64(
+    const double* dets, const uint8_t* dv, const double* t, const uint8_t* alive_in,
+    const int* oid_in, const int* birth_in, const double* win_in, const double* m0_in,
+    const int* nobj_in, const int* nbirth_in, const int* spin_in, const uint8_t* init_in,
+    const double* wy, const double* wm, const double* my, const double* mm, const double* pwy,
+    const double* pwm, const double* pmy, const double* pmm, int ihgp, int auction,
+    const double* auction_f, int n_phases, int max_iters, int B, int S, int K,
+    int D, int L, double thr, double gapthr, double dt, double vmax, double lpf_a,
+    double lpf_b, double prune_period, int prune_spin, uint8_t* alive_out, int* oid_out,
+    int* birth_out, double* win_out, double* m0_out, int* nobj_out, int* nbirth_out,
+    int* spin_out, uint8_t* init_out, uint8_t* publish, uint8_t* valid, int* obj_id,
+    double* pos, double* vel, uint8_t* new_track, int* counts, void* stream) {
+  TrackArgs<double> a{dets, dv, t, alive_in, oid_in, birth_in, win_in, m0_in, nobj_in,
+                      nbirth_in, spin_in, init_in, wy, wm, my, mm, pwy, pwm, pmy, pmm, S, K, D,
+                      L, thr, gapthr, dt, vmax, lpf_a, lpf_b, prune_period, prune_spin,
+                      alive_out, oid_out, birth_out, win_out, m0_out, nobj_out, nbirth_out,
+                      spin_out, init_out, publish, valid, obj_id, pos, vel, new_track, counts,
+                      {}, stream};
+  return track_step(a, auction_f, ihgp, auction, n_phases, max_iters, B);
 }

@@ -35,15 +35,15 @@ struct MatrixValue {
 
 __global__ void __launch_bounds__(32)
 auction_kernel(const float* __restrict__ cost, const uint8_t* __restrict__ feas, int D, int K,
-               AuctionParams p, int* __restrict__ assigned, int* __restrict__ saturated,
+               AuctionParams<float> p, int* __restrict__ assigned, int* __restrict__ saturated,
                int* __restrict__ iters) {
-  __shared__ AuctionScratch<kMaxCols> sm;
+  __shared__ AuctionScratch<float, kMaxCols> sm;
   const size_t b = blockIdx.x;
   const MatrixValue value{cost + b * D * K, feas + b * D * K, K, p.neg};
   motl_auction::auction_lists(value, D, K, p.neg, sm, 0, 1);
   __syncwarp();
-  const int sat = motl_auction::auction_warp(value, D, K, p, sm,
-                                             iters != nullptr ? iters + b * p.n_phases : nullptr);
+  const int sat = motl_auction::auction_warp<float, kMaxCols>(
+      value, D, K, p, sm, nullptr, iters != nullptr ? iters + b * p.n_phases : nullptr);
   for (int r = threadIdx.x; r < D; r += 32) {
     const int c = sm.row_col[r];
     assigned[b * D + r] = (c >= 0 && c < K) ? c : -1;
@@ -61,7 +61,7 @@ auction_kernel(const float* __restrict__ cost, const uint8_t* __restrict__ feas,
 extern "C" int motl_auction_assign(const float* cost, const uint8_t* feas, const float* auction_f,
                                    int n_phases, int max_iters, int B, int D, int K,
                                    int* assigned, int* saturated, int* iters, void* stream) {
-  AuctionParams p;
+  AuctionParams<float> p;
   if (B < 1 || D < 1 || D > motl_auction::kMaxRows || K < 1 || D + K > kMaxCols ||
       !motl_auction::read_params(auction_f, n_phases, max_iters, &p))
     return (int)cudaErrorInvalidValue;

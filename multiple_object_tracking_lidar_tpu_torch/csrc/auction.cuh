@@ -56,11 +56,25 @@
 // Arithmetic: every f32 sum and difference __fadd_rn / __fsub_rn, in the
 // order JAX writes them; the comparisons strict where argmax and max put
 // them (a later equal value never takes the first maximum's place).
+//
+// Templated on the float type T of the values, prices and bids: float for
+// K4's f32 builds and K12, double for K4's double builds (dtype="float64";
+// the JAX auction runs in the costs' dtype, with _NEG, the penalties and
+// eps_p in f64).  A 64-bit word cannot hold a double bid beside its row, so
+// the double build picks each column's winner in two steps: one 64-bit
+// atomicMax of the bid's order-preserving bits, then, after a __syncwarp,
+// an atomicMin of the row among the bids equal to that maximum -- the same
+// (largest bid, then first row) rule, exact in any order.  Its warp top two
+// take five shuffle rounds of top2_merge (__reduce_*_sync are 32-bit).
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "fp_rn.cuh"
 
 namespace motl_auction {
 
@@ -69,33 +83,36 @@ constexpr int kMaxPhases = 16;   // eps phases (4 at the defaults)
 constexpr int kMaxFeas = 4;      // a row's listed feasible columns; past it the row scans all K
 constexpr unsigned kFull = 0xffffffffu;
 
+template <class T>
 struct AuctionParams {
-  float neg;        // f32(_NEG): an infeasible pair's value
-  float neg_half;   // f32(_NEG / 2): the second-maximum and "took" threshold
-  float neg_pen;    // f32(-penalty): a real row's value on a virtual column
-  float neg_pen2;   // f32(-penalty2): a dummy row's value everywhere
-  float eps[kMaxPhases];
+  T neg;        // _NEG in T: an infeasible pair's value
+  T neg_half;   // _NEG / 2 in T: the second-maximum and "took" threshold
+  T neg_pen;    // -penalty in T: a real row's value on a virtual column
+  T neg_pen2;   // -penalty2 in T: a dummy row's value everywhere
+  T eps[kMaxPhases];
   int n_phases;
   int max_iters;
 };
 
-// Host: the parameters from the wrapper's f32 values [neg, neg_half,
-// neg_pen, neg_pen2, eps_0, ..., eps_{n_phases - 1}]; false when out of range.
-inline bool read_params(const float* f, int n_phases, int max_iters, AuctionParams* p) {
+// Host: the parameters from the wrapper's values [neg, neg_half, neg_pen,
+// neg_pen2, eps_0, ..., eps_{n_phases - 1}] of type T; false when out of
+// range.
+template <class T>
+inline bool read_params(const T* f, int n_phases, int max_iters, AuctionParams<T>* p) {
   if (f == nullptr || n_phases < 1 || n_phases > kMaxPhases || max_iters < 0) return false;
   p->neg = f[0];
   p->neg_half = f[1];
   p->neg_pen = f[2];
   p->neg_pen2 = f[3];
-  for (int i = 0; i < kMaxPhases; ++i) p->eps[i] = i < n_phases ? f[4 + i] : 0.0f;
+  for (int i = 0; i < kMaxPhases; ++i) p->eps[i] = i < n_phases ? f[4 + i] : T(0);
   p->n_phases = n_phases;
   p->max_iters = max_iters;
   return true;
 }
 
-template <int kCols>
+template <class T, int kCols>
 struct AuctionScratch {
-  float price[kCols];
+  T price[kCols];
   int owner[kCols];              // column -> row, -1 unowned
   int row_col[kCols];            // row -> column, -1 unassigned
   unsigned long long key[kCols];  // this iteration's best bid per column, 0 none
@@ -103,24 +120,34 @@ struct AuctionScratch {
   int bid_row[kMaxRows + 1];
   int feas_n[kMaxRows];          // each real row's feasible columns, ascending
   int feas_col[kMaxRows][kMaxFeas];
-  float feas_val[kMaxRows][kMaxFeas];
+  T feas_val[kMaxRows][kMaxFeas];
+};
+
+// The double build's second step: each bid's value, and each column's
+// winning row (INT_MAX none).
+template <int kCols>
+struct WideKeys {
+  double bid_val[kMaxRows + 1];
+  int krow[kCols];
 };
 
 // The largest value, the first index holding it, and the largest value at
 // any other index.
+template <class T>
 struct Top2 {
-  float v1;
+  T v1;
   int i1;
-  float v2;
+  T v2;
 };
 
-__device__ __forceinline__ Top2 top2_empty() {
-  const float ninf = __int_as_float(0xff800000);
-  return {ninf, 0x7fffffff, ninf};
+template <class T>
+__device__ __forceinline__ Top2<T> top2_empty() {
+  return {T(-INFINITY), 0x7fffffff, T(-INFINITY)};
 }
 
 // Push value x at index i; a lane pushes in ascending i.
-__device__ __forceinline__ void top2_push(Top2& t, float x, int i) {
+template <class T>
+__device__ __forceinline__ void top2_push(Top2<T>& t, T x, int i) {
   if (x > t.v1) {
     t.v2 = t.v1;
     t.v1 = x;
@@ -132,9 +159,10 @@ __device__ __forceinline__ void top2_push(Top2& t, float x, int i) {
 
 // Merge two disjoint index sets: the larger v1 wins, the smaller index on
 // ties; the loser's v1 becomes a candidate second.
-__device__ __forceinline__ Top2 top2_merge(Top2 a, Top2 b) {
-  if (b.v1 > a.v1 || (b.v1 == a.v1 && b.i1 < a.i1)) return {b.v1, b.i1, fmaxf(a.v1, b.v2)};
-  return {a.v1, a.i1, fmaxf(a.v2, b.v1)};
+template <class T>
+__device__ __forceinline__ Top2<T> top2_merge(Top2<T> a, Top2<T> b) {
+  if (b.v1 > a.v1 || (b.v1 == a.v1 && b.i1 < a.i1)) return {b.v1, b.i1, fmax(a.v1, b.v2)};
+  return {a.v1, a.i1, fmax(a.v2, b.v1)};
 }
 
 // A float's bits as an unsigned word of the same order (-0 first made +0,
@@ -152,12 +180,23 @@ __device__ __forceinline__ float from_ord(unsigned u) {
 // instruction each on sm_80 and later): the largest first value, the
 // smallest index holding it, and the largest of every other lane's first
 // value and the holder's second.
-__device__ __forceinline__ Top2 top2_warp(Top2 t) {
+__device__ __forceinline__ Top2<float> top2_warp(Top2<float> t) {
   const unsigned o1 = ord_bits(t.v1);
   const unsigned best = __reduce_max_sync(kFull, o1);
   const int bi = __reduce_min_sync(kFull, o1 == best ? t.i1 : 0x7fffffff);
   const unsigned sec = __reduce_max_sync(kFull, t.i1 == bi ? ord_bits(t.v2) : o1);
   return {from_ord(best), bi, from_ord(sec)};
+}
+
+// The double build's: five butterfly rounds of top2_merge (each round
+// merges disjoint lane sets, so the result is the f32 rule's, exactly).
+__device__ __forceinline__ Top2<double> top2_warp(Top2<double> t) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const Top2<double> u = {__shfl_xor_sync(kFull, t.v1, o), __shfl_xor_sync(kFull, t.i1, o),
+                            __shfl_xor_sync(kFull, t.v2, o)};
+    t = (threadIdx.x & o) ? top2_merge(u, t) : top2_merge(t, u);
+  }
+  return t;
 }
 
 __device__ __forceinline__ int min_warp(int v) { return __reduce_min_sync(kFull, v); }
@@ -178,11 +217,32 @@ __device__ __forceinline__ float key_bid(unsigned long long key) {
 
 __device__ __forceinline__ int key_row(unsigned long long key) { return ~(int)(unsigned)key; }
 
+// A double's bits as an unsigned 64-bit word of the same order (-0 first
+// made +0; no NaN reaches here, and no key is 0), and back.
+__device__ __forceinline__ unsigned long long ord_bits64(double x) {
+  const unsigned long long u = (unsigned long long)__double_as_longlong(__dadd_rn(x, 0.0));
+  return (u >> 63) ? ~u : (u | (1ull << 63));
+}
+
+__device__ __forceinline__ double from_ord64(unsigned long long u) {
+  return __longlong_as_double((long long)((u >> 63) ? (u & ~(1ull << 63)) : ~u));
+}
+
 // The bid of a row whose net values have top two t.
-__device__ __forceinline__ float bid_of(const Top2& t, float price_best, float eps,
-                                        float neg_half) {
-  const float second = t.v2 <= neg_half ? t.v1 : t.v2;
-  return __fadd_rn(__fadd_rn(price_best, __fsub_rn(t.v1, second)), eps);
+template <class T>
+__device__ __forceinline__ T bid_of(const Top2<T>& t, T price_best, T eps, T neg_half) {
+  const T second = t.v2 <= neg_half ? t.v1 : t.v2;
+  return fp::add(fp::add(price_best, fp::sub(t.v1, second)), eps);
+}
+
+// Enter a bid on column c for row r: the f32 build's packed key, or the
+// double build's bid bits (its row settles in place_rows).
+template <class T, int kCols>
+__device__ __forceinline__ void place_bid(AuctionScratch<T, kCols>& sm, int c, T bid, int r) {
+  if constexpr (sizeof(T) == sizeof(float))
+    atomicMax(&sm.key[c], bid_key(bid, r));
+  else
+    atomicMax(&sm.key[c], ord_bits64(bid));
 }
 
 // Each real row's feasible columns (value != neg), ascending, up to
@@ -192,16 +252,16 @@ __device__ __forceinline__ float bid_of(const Top2& t, float price_best, float e
 // decides a bid: its net (NEG - price) is below NEG / 2, so it is neither a
 // row's first maximum (a virtual column beats it) nor a second maximum the
 // NEG / 2 rule keeps.  The caller synchronises before the auction reads them.
-template <int kCols, class Value>
-__device__ void auction_lists(const Value& value, int D, int K, float neg,
-                              AuctionScratch<kCols>& sm, int warp, int n_warps) {
+template <class T, int kCols, class Value>
+__device__ void auction_lists(const Value& value, int D, int K, T neg,
+                              AuctionScratch<T, kCols>& sm, int warp, int n_warps) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   for (int r = warp; r < D; r += n_warps) {
     int cnt = 0;
     for (int c0 = 0; c0 < K; c0 += 32) {
       const int c = c0 + lane;
-      const float v = c < K ? value(r, c) : neg;
+      const T v = c < K ? value(r, c) : neg;
       const bool f = v != neg;
       const unsigned m = __ballot_sync(kFull, f);
       const int q = cnt + __popc(m & below);
@@ -223,21 +283,25 @@ __device__ void auction_lists(const Value& value, int D, int K, float neg,
 // column row r owns after the last phase (a real one when < K, else
 // virtual; -1 if unassigned) and sm.owner[c] column c's owner; returns the
 // saturated phase count (the same in every lane).  iters_out, when given,
-// receives each phase's iterations (lane 0 writes).  1 <= D <= kMaxRows,
-// K >= 1, D + K <= kCols.
-template <int kCols, class Value>
-__device__ int auction_warp(const Value& value, int D, int K, const AuctionParams& p,
-                            AuctionScratch<kCols>& sm, int* iters_out) {
+// receives each phase's iterations (lane 0 writes).  wk is the double
+// build's second-step scratch (unused, and may be null, in the f32 build).
+// 1 <= D <= kMaxRows, K >= 1, D + K <= kCols.
+template <class T, int kCols, class Value>
+__device__ int auction_warp(const Value& value, int D, int K, const AuctionParams<T>& p,
+                            AuctionScratch<T, kCols>& sm, WideKeys<kCols>* wk,
+                            int* iters_out) {
+  constexpr bool kWide = sizeof(T) == sizeof(double);
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   const int n = D + K;
   for (int c = lane; c < n; c += 32) {
-    sm.price[c] = 0.0f;
+    sm.price[c] = T(0);
     sm.key[c] = 0ull;
+    if constexpr (kWide) wk->krow[c] = INT_MAX;
   }
   int saturated = 0;
   for (int ph = 0; ph < p.n_phases; ++ph) {
-    const float eps = p.eps[ph];
+    const T eps = p.eps[ph];
     for (int c = lane; c < n; c += 32) {
       sm.owner[c] = -1;
       sm.row_col[c] = -1;
@@ -249,12 +313,12 @@ __device__ int auction_warp(const Value& value, int D, int K, const AuctionParam
       // 1. one pass over the columns (and, by the same index, the rows): a
       //    dummy row's top two nets, a real row's over the virtual columns,
       //    the first unassigned dummy row
-      Top2 td = top2_empty(), tv = top2_empty();
+      Top2<T> td = top2_empty<T>(), tv = top2_empty<T>();
       int dmin = 0x7fffffff;
       for (int c = lane; c < n; c += 32) {
-        const float pc = sm.price[c];
-        top2_push(td, __fsub_rn(p.neg_pen2, pc), c);
-        if (c >= K) top2_push(tv, __fsub_rn(p.neg_pen, pc), c);
+        const T pc = sm.price[c];
+        top2_push(td, fp::sub(p.neg_pen2, pc), c);
+        if (c >= K) top2_push(tv, fp::sub(p.neg_pen, pc), c);
         if (c >= D && sm.row_col[c] < 0) dmin = min(dmin, c);
       }
       td = top2_warp(td);
@@ -268,21 +332,24 @@ __device__ int auction_warp(const Value& value, int D, int K, const AuctionParam
         const int nf = r < D ? sm.feas_n[r] : 0;
         const bool bids = r < D && sm.row_col[r] < 0 && nf <= kMaxFeas;
         int bc = 0;
+        T bid = T(0);
         if (bids) {
-          Top2 t = top2_empty();
+          Top2<T> t = top2_empty<T>();
           for (int j = 0; j < nf; ++j) {
             const int c = sm.feas_col[r][j];
-            top2_push(t, __fsub_rn(sm.feas_val[r][j], sm.price[c]), c);
+            top2_push(t, fp::sub(sm.feas_val[r][j], sm.price[c]), c);
           }
           t = top2_merge(t, tv);
           bc = t.i1;
-          atomicMax(&sm.key[bc], bid_key(bid_of(t, sm.price[bc], eps, p.neg_half), r));
+          bid = bid_of(t, sm.price[bc], eps, p.neg_half);
+          place_bid(sm, bc, bid, r);
         }
         const unsigned m = __ballot_sync(kFull, bids);
         if (bids) {
           const int q = nb + __popc(m & below);
           sm.bid_col[q] = bc;
           sm.bid_row[q] = r;
+          if constexpr (kWide) wk->bid_val[q] = bid;
         }
         nb += __popc(m);
       }
@@ -295,50 +362,70 @@ __device__ int auction_warp(const Value& value, int D, int K, const AuctionParam
         while (todo) {
           const int rr = r0 + __ffs(todo) - 1;
           todo &= todo - 1;
-          Top2 t = top2_empty();
-          for (int c = lane; c < K; c += 32) top2_push(t, __fsub_rn(value(rr, c), sm.price[c]), c);
+          Top2<T> t = top2_empty<T>();
+          for (int c = lane; c < K; c += 32) top2_push(t, fp::sub(value(rr, c), sm.price[c]), c);
           t = top2_merge(top2_warp(t), tv);
-          const float bid = bid_of(t, sm.price[t.i1], eps, p.neg_half);
+          const T bid = bid_of(t, sm.price[t.i1], eps, p.neg_half);
           if (lane == 0) {
-            atomicMax(&sm.key[t.i1], bid_key(bid, rr));
+            place_bid(sm, t.i1, bid, rr);
             sm.bid_col[nb] = t.i1;
             sm.bid_row[nb] = rr;
+            if constexpr (kWide) wk->bid_val[nb] = bid;
           }
           ++nb;
         }
       }
       //    the dummy rows' one bid
       if (dmin < n) {
-        const float bid = bid_of(td, sm.price[td.i1], eps, p.neg_half);
+        const T bid = bid_of(td, sm.price[td.i1], eps, p.neg_half);
         if (lane == 0) {
-          atomicMax(&sm.key[td.i1], bid_key(bid, dmin));
+          place_bid(sm, td.i1, bid, dmin);
           sm.bid_col[nb] = td.i1;
           sm.bid_row[nb] = dmin;
+          if constexpr (kWide) wk->bid_val[nb] = bid;
         }
         ++nb;
       }
       __syncwarp();
+      if constexpr (kWide) {
+        // the double build's second step: the first row among each column's
+        // bids equal to its maximum
+        for (int j = lane; j < nb; j += 32) {
+          const int c = sm.bid_col[j];
+          if (ord_bits64(wk->bid_val[j]) == sm.key[c]) atomicMin(&wk->krow[c], sm.bid_row[j]);
+        }
+        __syncwarp();
+      }
       // 3. each column bid on goes to its key's row at its key's bid: the
       //    bid entry of that row applies it and clears the key (every other
       //    entry of the column has read the key before, at the barrier)
       int gained = 0;
       for (int j0 = 0; j0 < nb; j0 += 32) {
         const int j = j0 + lane;
-        int c = 0;
+        int c = 0, w = 0;
         unsigned long long key = 0ull;
         bool mine = false;
         if (j < nb) {
           c = sm.bid_col[j];
           key = sm.key[c];
-          mine = key != 0ull && key_row(key) == sm.bid_row[j];
+          if constexpr (kWide)
+            w = wk->krow[c];
+          else
+            w = key_row(key);
+          mine = key != 0ull && w == sm.bid_row[j];
         }
         __syncwarp();
         bool got = false;
         if (mine) {
           sm.key[c] = 0ull;
-          const float bid = key_bid(key);
+          if constexpr (kWide) wk->krow[c] = INT_MAX;
+          T bid;
+          if constexpr (kWide)
+            bid = from_ord64(key);
+          else
+            bid = key_bid(key);
           if (bid > p.neg_half) {
-            const int w = key_row(key), old = sm.owner[c];
+            const int old = sm.owner[c];
             sm.owner[c] = w;
             sm.price[c] = bid;
             sm.row_col[w] = c;

@@ -37,9 +37,9 @@ using namespace pair_scan;
 __global__ void __launch_bounds__(kThreads)
 pair_stats_kernel(const float* __restrict__ mpts, const uint8_t* __restrict__ mm,
                   int P, float* __restrict__ colmax, int* __restrict__ firstrow) {
-  extern __shared__ float sh[];
-  __shared__ Scratch ss;
-  const Slot s = slot_layout(sh, P);
+  extern __shared__ __align__(16) unsigned char sh[];
+  __shared__ Scratch<float> ss;
+  const Slot<float> s = slot_layout<float>(sh, P);
   const int c = blockIdx.x;
   float* cm = colmax + (size_t)c * P;
   int* fr = firstrow + (size_t)c * P;
@@ -66,7 +66,7 @@ pair_stats_kernel(const float* __restrict__ mpts, const uint8_t* __restrict__ mm
 extern "C" int motl_pair_stats(const float* mpts, const uint8_t* mm, int C, int P,
                                float* colmax, int* firstrow, void* stream) {
   if (C < 1 || P < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = slot_smem_bytes(P);
+  const size_t smem = slot_smem_bytes<float>(P);
   cudaError_t err = cudaFuncSetAttribute(
       pair_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

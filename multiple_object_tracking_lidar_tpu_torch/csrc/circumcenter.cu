@@ -46,6 +46,15 @@
 // from shared memory.  An empty slot knows it after the mask's prefix sum
 // and only reads its row 0.  On the tracking paths K3f replaces K3 plus
 // the ~85 eager launches of the selection, line scan and determinant.
+//
+// K3f's double build (motl_circumcenter_features_f64, dtype="float64") is
+// the same kernel on f64 members, templated on the float type: the JAX
+// package's f64 route runs the jnp circumcenter_features_table on f64
+// members (ops/centroid.py:121-133), the same picks and formulas; every
+// product, sum, quotient and root is __dmul_rn / __dadd_rn / __dsub_rn /
+// __ddiv_rn / __dsqrt_rn (fp_rn.cuh), nothing contracted, and the mean is
+// pair_scan.cuh's sequential f64 sum.  Its plain version is the same plain
+// functions on f64 tensors.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -59,19 +68,19 @@ namespace {
 using namespace pair_scan;
 
 // kOut = 2: out (C, 2) [x, y] (K10); kOut = 4: out (C, 4) [x, y, 0,
-// t[c / t_div]] (K3f).
-template <int kOut>
+// t[c / t_div]] (K3f); T the float type (double: K3f's double build).
+template <class T, int kOut>
 __global__ void __launch_bounds__(kThreads)
-circumcenter_kernel(const float* __restrict__ mpts, const uint8_t* __restrict__ mm,
-                    const float* __restrict__ t, int t_div, int P, float* __restrict__ out) {
-  extern __shared__ float sh[];
-  __shared__ Scratch ss;
-  const Slot s = slot_layout(sh, P);
+circumcenter_kernel(const T* __restrict__ mpts, const uint8_t* __restrict__ mm,
+                    const T* __restrict__ t, int t_div, int P, T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char sh[];
+  __shared__ Scratch<T> ss;
+  const Slot<T> s = slot_layout<T>(sh, P);
   const int c = blockIdx.x;
-  const float* M = mpts + (size_t)c * P * 3;
+  const T* M = mpts + (size_t)c * P * 3;
 
   const int n = compact_members(mm + (size_t)c * P, P, s, ss);
-  const float* rows = M;  // where Pi, Pj, Pk are read: global for an empty slot
+  const T* rows = M;  // where Pi, Pj, Pk are read: global for an empty slot
   int i_star = 0, j_star = 0, k_star = 0;
   if (n > 0) {
     scan_slot(M, P, n, s, ss);
@@ -79,10 +88,10 @@ circumcenter_kernel(const float* __restrict__ mpts, const uint8_t* __restrict__ 
 
     // 1. the farthest pair: larger colmax, then smaller firstrow, then
     //    smaller column
-    float v = -INFINITY;
+    T v = -INFINITY;
     int a = INT_MAX, b = INT_MAX;
     for (int jj = threadIdx.x; jj < n; jj += kThreads) {
-      const float ov = s.cm[jj];
+      const T ov = s.cm[jj];
       const int oa = s.fr[jj], ob = s.lane[jj];
       if (ov > v || (ov == v && (oa < a || (oa == a && ob < b)))) {
         v = ov;
@@ -91,28 +100,29 @@ circumcenter_kernel(const float* __restrict__ mpts, const uint8_t* __restrict__ 
       }
     }
     block_best(v, a, b, ss);
-    if (v > -0.5f) {
+    if (v > T(-0.5)) {
       i_star = a;
       j_star = b;
     }
 
     // 2. the member farthest from the PiPj line in XY
-    const float pix = rows[3 * i_star], piy = rows[3 * i_star + 1], piz = rows[3 * i_star + 2];
-    const float pjx = rows[3 * j_star], pjy = rows[3 * j_star + 1], pjz = rows[3 * j_star + 2];
-    const float ex = __fsub_rn(pjx, pix), ey = __fsub_rn(pjy, piy);
-    const float norm = __fsqrt_rn(__fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)));
-    const float den = norm < 1e-30f ? 1e-30f : norm;
-    float best = -1.0f;
+    const T pix = rows[3 * i_star], piy = rows[3 * i_star + 1], piz = rows[3 * i_star + 2];
+    const T pjx = rows[3 * j_star], pjy = rows[3 * j_star + 1], pjz = rows[3 * j_star + 2];
+    const T ex = fp::sub(pjx, pix), ey = fp::sub(pjy, piy);
+    const T norm = fp::sqrt(fp::add(fp::mul(ex, ex), fp::mul(ey, ey)));
+    const T tiny = T(1e-30);  // the JAX clamp, in the members' dtype
+    const T den = norm < tiny ? tiny : norm;
+    T best = T(-1);
     int lk = INT_MAX, unused = 0;
     for (int ii = threadIdx.x; ii < n; ii += kThreads) {
       const int L = s.lane[ii];
-      const float x = rows[3 * L], y = rows[3 * L + 1], z = rows[3 * L + 2];
+      const T x = rows[3 * L], y = rows[3 * L + 1], z = rows[3 * L + 2];
       const bool eq_i = x == pix && y == piy && z == piz;
       const bool eq_j = x == pjx && y == pjy && z == pjz;
       if (!eq_i && !eq_j) {
-        const float cross = fabsf(__fsub_rn(__fmul_rn(ex, __fsub_rn(y, piy)),
-                                            __fmul_rn(ey, __fsub_rn(x, pix))));
-        const float ld = __fdiv_rn(cross, den);
+        const T cross = fabs(fp::sub(fp::mul(ex, fp::sub(y, piy)),
+                                     fp::mul(ey, fp::sub(x, pix))));
+        const T ld = fp::div(cross, den);
         if (ld > best) {
           best = ld;
           lk = L;
@@ -120,43 +130,43 @@ circumcenter_kernel(const float* __restrict__ mpts, const uint8_t* __restrict__ 
       }
     }
     block_best(best, lk, unused, ss);
-    k_star = best > -0.5f ? lk : 0;
+    k_star = best > T(-0.5) ? lk : 0;
   }
 
   // 3. the circumcenter determinant
   if (threadIdx.x == 0) {
-    const float pix = rows[3 * i_star], piy = rows[3 * i_star + 1];
-    const float pjx = rows[3 * j_star], pjy = rows[3 * j_star + 1];
-    const float pkx = rows[3 * k_star], pky = rows[3 * k_star + 1];
-    const float a = __fsub_rn(pjx, pix);
-    const float b = __fsub_rn(pjy, piy);
-    const float cc = __fsub_rn(pkx, pix);
-    const float d = __fsub_rn(pky, piy);
-    const float e = __fadd_rn(__fmul_rn(a, __fadd_rn(pix, pjx)), __fmul_rn(b, __fadd_rn(piy, pjy)));
-    const float f = __fadd_rn(__fmul_rn(cc, __fadd_rn(pix, pkx)), __fmul_rn(d, __fadd_rn(piy, pky)));
-    const float g = __fmul_rn(2.0f, __fsub_rn(__fmul_rn(a, __fsub_rn(pky, pjy)),
-                                              __fmul_rn(b, __fsub_rn(pkx, pjx))));
-    const bool collinear = g == 0.0f;
-    float* o = out + (size_t)c * kOut;
-    o[0] = collinear ? pix : __fdiv_rn(__fsub_rn(__fmul_rn(d, e), __fmul_rn(b, f)), g);
-    o[1] = collinear ? piy : __fdiv_rn(__fsub_rn(__fmul_rn(a, f), __fmul_rn(cc, e)), g);
+    const T pix = rows[3 * i_star], piy = rows[3 * i_star + 1];
+    const T pjx = rows[3 * j_star], pjy = rows[3 * j_star + 1];
+    const T pkx = rows[3 * k_star], pky = rows[3 * k_star + 1];
+    const T a = fp::sub(pjx, pix);
+    const T b = fp::sub(pjy, piy);
+    const T cc = fp::sub(pkx, pix);
+    const T d = fp::sub(pky, piy);
+    const T e = fp::add(fp::mul(a, fp::add(pix, pjx)), fp::mul(b, fp::add(piy, pjy)));
+    const T f = fp::add(fp::mul(cc, fp::add(pix, pkx)), fp::mul(d, fp::add(piy, pky)));
+    const T g = fp::mul(T(2), fp::sub(fp::mul(a, fp::sub(pky, pjy)),
+                                      fp::mul(b, fp::sub(pkx, pjx))));
+    const bool collinear = g == T(0);
+    T* o = out + (size_t)c * kOut;
+    o[0] = collinear ? pix : fp::div(fp::sub(fp::mul(d, e), fp::mul(b, f)), g);
+    o[1] = collinear ? piy : fp::div(fp::sub(fp::mul(a, f), fp::mul(cc, e)), g);
     if (kOut == 4) {
-      o[2] = 0.0f;
+      o[2] = T(0);
       o[3] = t[c / t_div];
     }
   }
 }
 
-template <int kOut>
-int launch(const float* mpts, const uint8_t* mm, const float* t, int t_div, int C, int P,
-           float* out, void* stream) {
+template <class T, int kOut>
+int launch(const T* mpts, const uint8_t* mm, const T* t, int t_div, int C, int P, T* out,
+           void* stream) {
   if (C < 1 || P < 1 || t_div < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = slot_smem_bytes(P);
+  const size_t smem = slot_smem_bytes<T>(P);
   cudaError_t err = cudaFuncSetAttribute(
-      circumcenter_kernel<kOut>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      circumcenter_kernel<T, kOut>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  circumcenter_kernel<kOut><<<C, kThreads, smem, (cudaStream_t)stream>>>(mpts, mm, t, t_div, P,
-                                                                         out);
+  circumcenter_kernel<T, kOut><<<C, kThreads, smem, (cudaStream_t)stream>>>(mpts, mm, t, t_div,
+                                                                            P, out);
   return (int)cudaGetLastError();
 }
 
@@ -165,7 +175,7 @@ int launch(const float* mpts, const uint8_t* mm, const float* t, int t_div, int 
 // K10: mpts (C, P, 3) f32, mm (C, P) u8 -> out (C, 2) f32 circumcenter [x, y].
 extern "C" int motl_circumcenter(const float* mpts, const uint8_t* mm, int C, int P,
                                  float* out, void* stream) {
-  return launch<2>(mpts, mm, nullptr, 1, C, P, out, stream);
+  return launch<float, 2>(mpts, mm, nullptr, 1, C, P, out, stream);
 }
 
 // K3f: mpts (C, P, 3) f32, mm (C, P) u8, t (C / t_div,) f32 -> out (C, 4)
@@ -173,5 +183,13 @@ extern "C" int motl_circumcenter(const float* mpts, const uint8_t* mm, int C, in
 // stacked frames of C / S slots each.
 extern "C" int motl_circumcenter_features(const float* mpts, const uint8_t* mm, const float* t,
                                           int C, int P, int t_div, float* out, void* stream) {
-  return launch<4>(mpts, mm, t, t_div, C, P, out, stream);
+  return launch<float, 4>(mpts, mm, t, t_div, C, P, out, stream);
+}
+
+// K3f's double build: mpts (C, P, 3) f64, mm (C, P) u8, t (C / t_div,) f64
+// -> out (C, 4) f64 [x, y, 0, t[c / t_div]].
+extern "C" int motl_circumcenter_features_f64(const double* mpts, const uint8_t* mm,
+                                              const double* t, int C, int P, int t_div,
+                                              double* out, void* stream) {
+  return launch<double, 4>(mpts, mm, t, t_div, C, P, out, stream);
 }

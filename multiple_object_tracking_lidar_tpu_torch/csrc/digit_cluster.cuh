@@ -34,8 +34,12 @@
 //
 // A policy type D supplies the group's slots, the digits of a point and the
 // finalize (see FastDigits, ExactDigits).  Every f32 product and sum is
-// __fmul_rn / __fadd_rn / __fsub_rn (no FMA contraction); bounds are tested
-// on the float floor before any cast, so NaN fails every compare.
+// spelled: __fmul_rn / __fadd_rn / __fsub_rn, and __fmaf_rn exactly where
+// XLA's CPU code contracts the JAX package's jitted quantize and finalize
+// (p - fl * leaf, (base + i) * leaf + half, cnt * centre + s * 2^-k), so
+// the sums equal the JAX package's (ROADMAP Queue 3, F8) and the plain
+// PyTorch version's (ops/voxel_grid_cuda.py, fma32); bounds are tested on
+// the float floor before any cast, so NaN fails every compare.
 
 #pragma once
 
@@ -74,19 +78,19 @@ __device__ __forceinline__ bool point_cell(float x, float y, float z, const VoxP
   return ok;
 }
 
-// cell0 of flat cell lin on axis a (0: x, 1: y, 2: z), as
-// _v4_finalize_into decomposes it
-__device__ __forceinline__ float cell_origin(const VoxParams& p, int lin, int a) {
+// The centre cell0 + half of flat cell lin on axis a (0: x, 1: y, 2: z), as
+// _v4_finalize_into decomposes it: (base + i) * leaf + half rounded once,
+// the FMA XLA's CPU code contracts it into
+__device__ __forceinline__ float cell_centre(const VoxParams& p, int lin, int a) {
   const int ix = lin % p.gx, iyz = lin / p.gx;
-  if (a == 0) return __fmul_rn((float)(p.bx + ix), p.leaf_xy);
-  if (a == 1) return __fmul_rn((float)(p.by + iyz % p.gy), p.leaf_xy);
-  return __fmul_rn((float)(p.bz + iyz / p.gy), p.leaf_z);
+  if (a == 0) return __fmaf_rn((float)(p.bx + ix), p.leaf_xy, p.half_xy);
+  if (a == 1) return __fmaf_rn((float)(p.by + iyz % p.gy), p.leaf_xy, p.half_xy);
+  return __fmaf_rn((float)(p.bz + iyz / p.gy), p.leaf_z, p.half_z);
 }
 
-// cnt * (cell0 + half) + s * 2^-k
-__device__ __forceinline__ float finalize_axis(float cnt, float c0, float half, float s,
-                                               float invq) {
-  return __fadd_rn(__fmul_rn(cnt, __fadd_rn(c0, half)), __fmul_rn(s, invq));
+// cnt * centre + s * 2^-k, the product and the sum rounded once (XLA's FMA)
+__device__ __forceinline__ float finalize_axis(float cnt, float centre, float s, float invq) {
+  return __fmaf_rn(cnt, centre, __fmul_rn(s, invq));
 }
 
 template <class D, bool CM, bool RAW>

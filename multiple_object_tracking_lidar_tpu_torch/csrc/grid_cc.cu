@@ -46,6 +46,17 @@
 // and equal the plain PyTorch version's; the fixpoint is schedule-
 // independent, so labels equal the JAX kernel's.  All f32 arithmetic uses
 // __fmul_rn / __fadd_rn / __fsub_rn (no FMA) and IEEE division.
+//
+// The double build (motl_grid_cc_f64, dtype="float64") is the same kernel
+// on an f64 accumulator, for the JAX package's f64 route: finalize_dense_cm
+// in f64, remove_static_cells on the centroid cast to f32 (the map
+// transform stays f32: promoting its products would move the truncation),
+// then the jnp stencil CC on the f64 centroids (pipeline.py:527-534,
+// :600-613), whose d^2 XLA's CPU code contracts into fma(dz, dz, fma(dx,
+// dx, dy * dy)) against tol^2 in f64 -- spelled so with __fma_rn.  A
+// neighbour's centroid is recomputed from the accumulator, and shared
+// memory holds only labels and adjacency bits, so the double build keeps
+// the f32 build's cell bounds (ops/grid_cuda.py::max_kernel_cells).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -60,24 +71,41 @@ constexpr int kMaxWords = kMaxOffsets / 32;
 constexpr int kThreads = 1024;
 constexpr int kMaxCluster = 16;   // non-portable on the H100 (portable: 8)
 
+template <class T>
 struct Cent {
-  float x, y, z;
+  T x, y, z;
 };
+
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
 
 // cell i's centroid from the channel-major accumulator, as its owner
 // computes it
-__device__ __forceinline__ Cent centroid(const float* A, int n, int i) {
-  const float den = fmaxf(A[3 * n + i], 1.0f);
-  return {A[i] / den, A[n + i] / den, A[2 * n + i] / den};
+template <class T>
+__device__ __forceinline__ Cent<T> centroid(const T* A, int n, int i) {
+  const T den = fmax(A[3 * n + i], T(1));
+  return {div_rn(A[i], den), div_rn(A[n + i], den), div_rn(A[2 * n + i], den)};
 }
 
+// d^2 of two centroids: the f32 build in the JAX kernel's order, unfused;
+// the double build as XLA contracts the jnp stencil's sum of squares
+__device__ __forceinline__ float dist2(const Cent<float>& a, const Cent<float>& b) {
+  const float ddx = __fsub_rn(a.x, b.x), ddy = __fsub_rn(a.y, b.y), ddz = __fsub_rn(a.z, b.z);
+  return __fadd_rn(__fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy)), __fmul_rn(ddz, ddz));
+}
+__device__ __forceinline__ double dist2(const Cent<double>& a, const Cent<double>& b) {
+  const double ddx = __dsub_rn(a.x, b.x), ddy = __dsub_rn(a.y, b.y), ddz = __dsub_rn(a.z, b.z);
+  return __fma_rn(ddz, ddz, __fma_rn(ddx, ddx, __dmul_rn(ddy, ddy)));
+}
+
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-grid_cc_kernel(const float* __restrict__ acc, const int* __restrict__ brow,
+grid_cc_kernel(const T* __restrict__ acc, const int* __restrict__ brow,
                const int* __restrict__ bcol, const int* __restrict__ bits,
                const int* __restrict__ offs, int n_off,
-               const float* __restrict__ scal, int gx, int gy, int gz,
+               const float* __restrict__ scal, T tol2_arg, int gx, int gy, int gz,
                int kwin, int max_sweeps, int range, unsigned* adj_global,
-               float* __restrict__ cent,
+               T* __restrict__ cent,
                uint8_t* __restrict__ dyn_out, int* __restrict__ lab_out,
                int* __restrict__ nsw) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -96,8 +124,8 @@ grid_cc_kernel(const float* __restrict__ acc, const int* __restrict__ brow,
   // [w * range + li]: in shared memory, or this CTA's slab of the scratch
   unsigned* adj = adj_global ? adj_global + (size_t)blockIdx.x * n_words * range
                              : reinterpret_cast<unsigned*>(sm + 2 * range);
-  const float* A = acc + (size_t)s * 4 * n;
-  float* C = cent + (size_t)s * 3 * n;
+  const T* A = acc + (size_t)s * 4 * n;
+  T* C = cent + (size_t)s * 3 * n;
   // label of cell j in its owner's buffer `buf` (labA or labB)
   auto remote = [&](int* buf, int j) -> int {
     const int r = j / range;
@@ -113,16 +141,19 @@ grid_cc_kernel(const float* __restrict__ acc, const int* __restrict__ brow,
   }
   if (threadIdx.x < 2) s_vote[threadIdx.x] = 0;
   const float ox = scal[0], oy = scal[1], cosv = scal[2], sinv = scal[3],
-              invr = scal[4], tol2 = scal[5];
+              invr = scal[4];
+  // tol^2: the f32 build's scal[5], the double build's argument
+  const T tol2 = sizeof(T) == sizeof(float) ? (T)scal[5] : tol2_arg;
 
   // ---- phase 1: finalize + static drop bit, this CTA's range ------------
   for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    const float cnt = A[3 * n + i];
-    const Cent c = centroid(A, n, i);
+    const T cnt = A[3 * n + i];
+    const Cent<T> c = centroid(A, n, i);
     C[i] = c.x;
     C[n + i] = c.y;
     C[2 * n + i] = c.z;
-    const float xm = __fsub_rn(c.x, ox), ym = __fsub_rn(c.y, oy);
+    // the map transform in f32 (a double centroid rounded once)
+    const float xm = __fsub_rn((float)c.x, ox), ym = __fsub_rn((float)c.y, oy);
     const int col = (int)__fmul_rn(__fsub_rn(__fmul_rn(cosv, xm), __fmul_rn(sinv, ym)), invr);
     const int row = (int)__fmul_rn(__fadd_rn(__fmul_rn(sinv, xm), __fmul_rn(cosv, ym)), invr);
     const int qr = row - brow[i], qc = col - bcol[i];
@@ -131,7 +162,7 @@ grid_cc_kernel(const float* __restrict__ acc, const int* __restrict__ brow,
     q = q < 0 ? 0 : (q > kwin * kwin - 1 ? kwin * kwin - 1 : q);
     const int bit = (int)(((unsigned)bits[i] >> q) & 1u);
     const int drop = in_win ? bit : 1;
-    const bool dyn = cnt > 0.0f && drop == 0;
+    const bool dyn = cnt > T(0) && drop == 0;
     dyn_out[(size_t)s * n + i] = dyn ? 1 : 0;
     labB[i - lo] = dyn ? 1 : 0;  // dyn flags, until the sweeps reuse the buffer
     labA[i - lo] = dyn ? i : n;
@@ -143,19 +174,13 @@ grid_cc_kernel(const float* __restrict__ acc, const int* __restrict__ brow,
     unsigned w[kMaxWords] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
     if (labB[i - lo]) {
       const int x = i % gx, yz = i / gx, y = yz % gy, z = yz / gy;
-      const Cent c = centroid(A, n, i);
+      const Cent<T> c = centroid(A, n, i);
       for (int o = 0; o < n_off; ++o) {
         const int nx = x + s_dx[o], ny = y + s_dy[o], nz = z + s_dz[o];
         if (nx < 0 || nx >= gx || ny < 0 || ny >= gy || nz < 0 || nz >= gz) continue;
         const int j = i + s_shift[o];
         if (!remote(labB, j)) continue;
-        const Cent cj = centroid(A, n, j);
-        const float ddx = __fsub_rn(c.x, cj.x);
-        const float ddy = __fsub_rn(c.y, cj.y);
-        const float ddz = __fsub_rn(c.z, cj.z);
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy)),
-                                   __fmul_rn(ddz, ddz));
-        if (d2 <= tol2) w[o >> 5] |= 1u << (o & 31);
+        if (dist2(c, centroid(A, n, j)) <= tol2) w[o >> 5] |= 1u << (o & 31);
       }
     }
     for (int k = 0; k < n_words; ++k) adj[k * range + (i - lo)] = w[k];
@@ -209,13 +234,46 @@ grid_cc_kernel(const float* __restrict__ acc, const int* __restrict__ brow,
   cluster.sync();  // no rank leaves while another may read its shared memory
 }
 
+template <class T>
 cudaError_t set_attributes(size_t smem, int cluster) {
   cudaError_t err = cudaFuncSetAttribute(
-      grid_cc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      grid_cc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(grid_cc_kernel,
+    err = cudaFuncSetAttribute(grid_cc_kernel<T>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return err;
+}
+
+template <class T>
+int launch(const T* acc, const int* brow, const int* bcol, const int* bits, const int* offs,
+           int n_off, const float* scal, T tol2, int S, int gx, int gy, int gz, int kwin,
+           int max_sweeps, int cluster, unsigned* adj_global, T* cent, uint8_t* dyn,
+           int* labels, int* nsw, void* stream) {
+  if (n_off > kMaxOffsets || cluster < 1 || cluster > kMaxCluster || S < 1)
+    return (int)cudaErrorInvalidValue;
+  const int n = gx * gy * gz;
+  const int n_words = (n_off + 31) >> 5;
+  const int range = (n + cluster - 1) / cluster;
+  const size_t smem = (size_t)(2 + (adj_global ? 0 : n_words)) * range * sizeof(int);
+  cudaError_t err = set_attributes<T>(smem, cluster);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S * cluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, grid_cc_kernel<T>, acc, brow, bcol, bits, offs, n_off, scal,
+                           tol2, gx, gy, gz, kwin, max_sweeps, range, adj_global, cent, dyn,
+                           labels, nsw);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -233,31 +291,22 @@ extern "C" int motl_grid_cc(const float* acc, const int* brow, const int* bcol,
                             int kwin, int max_sweeps, int cluster, unsigned* adj_global,
                             float* cent, uint8_t* dyn, int* labels, int* nsw,
                             void* stream) {
-  if (n_off > kMaxOffsets || cluster < 1 || cluster > kMaxCluster || S < 1)
-    return (int)cudaErrorInvalidValue;
-  const int n = gx * gy * gz;
-  const int n_words = (n_off + 31) >> 5;
-  const int range = (n + cluster - 1) / cluster;
-  const size_t smem = (size_t)(2 + (adj_global ? 0 : n_words)) * range * sizeof(int);
-  cudaError_t err = set_attributes(smem, cluster);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(S * cluster, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, grid_cc_kernel, acc, brow, bcol, bits, offs, n_off, scal,
-                           gx, gy, gz, kwin, max_sweeps, range, adj_global, cent, dyn,
-                           labels, nsw);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  if (scal == nullptr) return (int)cudaErrorInvalidValue;
+  float tol2 = 0.0f;  // scal[5], read on the device
+  return launch<float>(acc, brow, bcol, bits, offs, n_off, scal, tol2, S, gx, gy, gz, kwin,
+                       max_sweeps, cluster, adj_global, cent, dyn, labels, nsw, stream);
+}
+
+// The double build: acc (S, 4, n) f64, cent (S, 3, n) f64, tol2 the f64
+// tol * tol (scal[5] unread); the rest as motl_grid_cc.
+extern "C" int motl_grid_cc_f64(const double* acc, const int* brow, const int* bcol,
+                                const int* bits, const int* offs, int n_off,
+                                const float* scal, double tol2, int S, int gx, int gy, int gz,
+                                int kwin, int max_sweeps, int cluster, unsigned* adj_global,
+                                double* cent, uint8_t* dyn, int* labels, int* nsw,
+                                void* stream) {
+  return launch<double>(acc, brow, bcol, bits, offs, n_off, scal, tol2, S, gx, gy, gz, kwin,
+                        max_sweeps, cluster, adj_global, cent, dyn, labels, nsw, stream);
 }
 
 // The largest cluster (16, 8, 4, 2 or 1 CTAs) of which the card can hold
@@ -265,7 +314,7 @@ extern "C" int motl_grid_cc(const float* acc, const int* brow, const int* bcol,
 // to *out (a host int).
 extern "C" int motl_grid_cc_max_cluster(int smem, int* out) {
   for (int c = kMaxCluster; c >= 1; c >>= 1) {
-    cudaError_t err = set_attributes((size_t)smem, c);
+    cudaError_t err = set_attributes<float>((size_t)smem, c);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(c, 1, 1);
@@ -279,7 +328,7 @@ extern "C" int motl_grid_cc_max_cluster(int smem, int* out) {
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     int n_clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&n_clusters, grid_cc_kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n_clusters, grid_cc_kernel<float>, &cfg);
     if (err == cudaSuccess && n_clusters >= 1) {
       *out = c;
       return 0;

@@ -34,6 +34,13 @@
 //     value, then smaller row -- exact in any order, so the split keeps the
 //     serial rule's bits.
 // Every tie rule and fallback is stated on original lanes.
+//
+// Templated on the float type T: float for K3, K10 and K3f, double for K3f's
+// double build (dtype="float64"), whose mean is the sequential f64 sum of
+// the f64 coordinates in ascending lane, over the f64 count -- no wider
+// type, so the order is the one written (the plain version sums lane by
+// lane too) -- and whose products and sums are __dmul_rn / __dadd_rn /
+// __dsub_rn (fp_rn.cuh).
 
 #pragma once
 
@@ -41,6 +48,8 @@
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "fp_rn.cuh"
 
 namespace pair_scan {
 
@@ -53,15 +62,21 @@ constexpr int kWarps = kThreads / 32;
 // compacted columns' cm (P floats) and fr (P ints, original lanes); lane
 // (P ints: compacted index -> original lane) and rank (P ints: lane ->
 // compacted index, -1 for a non-member).
+template <class T>
 struct Slot {
-  float *raw, *pcx, *pcy, *pcz, *sq, *cm;
+  T *raw, *pcx, *pcy, *pcz, *sq, *cm;
   int *fr, *lane, *rank;
 };
 
-inline size_t slot_smem_bytes(int P) { return (size_t)(11 * P + 3) * sizeof(float); }
+template <class T>
+inline size_t slot_smem_bytes(int P) {
+  return (size_t)(8 * P + 3) * sizeof(T) + (size_t)3 * P * sizeof(int);
+}
 
-__device__ __forceinline__ Slot slot_layout(float* sh, int P) {
-  Slot s;
+template <class T>
+__device__ __forceinline__ Slot<T> slot_layout(void* shv, int P) {
+  T* sh = static_cast<T*>(shv);
+  Slot<T> s;
   s.raw = sh;
   s.pcx = sh + 3 * P;
   s.pcy = s.pcx + (P + 1);
@@ -75,18 +90,20 @@ __device__ __forceinline__ Slot slot_layout(float* sh, int P) {
 }
 
 // Per-CTA scratch for the block-wide scans and reductions.
+template <class T>
 struct Scratch {
   int warp_cnt[kWarps];
-  float mean[3];
-  float red_v[kWarps];
+  T mean[3];
+  T red_v[kWarps];
   int red_a[kWarps];
   int red_b[kWarps];
 };
 
 // Step 1: rank[j] and lane[rank] for every member (stable, ascending
 // lane); returns the member count in every thread, behind a barrier.
+template <class T>
 __device__ __forceinline__ int compact_members(const uint8_t* __restrict__ mk, int P,
-                                               const Slot& s, Scratch& ss) {
+                                               const Slot<T>& s, Scratch<T>& ss) {
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
   int base = 0;
   for (int j0 = 0; j0 < P; j0 += kThreads) {
@@ -112,16 +129,19 @@ __device__ __forceinline__ int compact_members(const uint8_t* __restrict__ mk, i
 // Steps 2-4 for a slot with n > 0 members: stage, gather, mean, centre,
 // scan.  Afterwards (behind a barrier) raw holds the slot's rows and cm /
 // fr the statistics of every compacted column.
-__device__ __forceinline__ void scan_slot(const float* __restrict__ M, int P, int n,
-                                          const Slot& s, Scratch& ss) {
-  // 2. staging: one coalesced copy of the rows, then the members gathered
-  const int n_words = 3 * P;
-  if ((reinterpret_cast<uintptr_t>(M) & 15) == 0 && (n_words & 3) == 0) {
-    const float4* src = reinterpret_cast<const float4*>(M);
-    float4* dst = reinterpret_cast<float4*>(s.raw);
-    for (int k = threadIdx.x; k < n_words / 4; k += kThreads) dst[k] = src[k];
+template <class T>
+__device__ __forceinline__ void scan_slot(const T* __restrict__ M, int P, int n,
+                                          const Slot<T>& s, Scratch<T>& ss) {
+  // 2. staging: one coalesced copy of the rows (16-byte words where
+  //    aligned), then the members gathered
+  const int n_vals = 3 * P;
+  const int n_bytes = n_vals * (int)sizeof(T);
+  if ((reinterpret_cast<uintptr_t>(M) & 15) == 0 && (n_bytes & 15) == 0) {
+    const int4* src = reinterpret_cast<const int4*>(M);
+    int4* dst = reinterpret_cast<int4*>(s.raw);
+    for (int k = threadIdx.x; k < n_bytes / 16; k += kThreads) dst[k] = src[k];
   } else {
-    for (int k = threadIdx.x; k < n_words; k += kThreads) s.raw[k] = M[k];
+    for (int k = threadIdx.x; k < n_vals; k += kThreads) s.raw[k] = M[k];
   }
   __syncthreads();
   for (int ii = threadIdx.x; ii < n; ii += kThreads) {
@@ -132,43 +152,47 @@ __device__ __forceinline__ void scan_slot(const float* __restrict__ M, int P, in
   }
   __syncthreads();
 
-  // 3. the mean: one sequential f64 sum per axis, ascending lane
+  // 3. the mean: one sequential f64 sum per axis, ascending lane (for f32
+  //    members rounded to f32, then over the f32 count)
   if (threadIdx.x < 3) {
-    const float* a = threadIdx.x == 0 ? s.pcx : (threadIdx.x == 1 ? s.pcy : s.pcz);
+    const T* a = threadIdx.x == 0 ? s.pcx : (threadIdx.x == 1 ? s.pcy : s.pcz);
     double acc = 0.0;
 #pragma unroll 8
-    for (int ii = 0; ii < n; ++ii) acc += (double)a[ii];
-    ss.mean[threadIdx.x] = __double2float_rn(acc) / fmaxf((float)n, 1.0f);
+    for (int ii = 0; ii < n; ++ii) acc = __dadd_rn(acc, (double)a[ii]);
+    if (sizeof(T) == sizeof(float))
+      ss.mean[threadIdx.x] = (T)fp::div(__double2float_rn(acc), fmaxf((float)n, 1.0f));
+    else
+      ss.mean[threadIdx.x] = (T)fp::div(acc, fmax((double)n, 1.0));
   }
   __syncthreads();
   for (int ii = threadIdx.x; ii < n; ii += kThreads) {
-    const float x = __fsub_rn(s.pcx[ii], ss.mean[0]);
-    const float y = __fsub_rn(s.pcy[ii], ss.mean[1]);
-    const float z = __fsub_rn(s.pcz[ii], ss.mean[2]);
+    const T x = fp::sub(s.pcx[ii], ss.mean[0]);
+    const T y = fp::sub(s.pcy[ii], ss.mean[1]);
+    const T z = fp::sub(s.pcz[ii], ss.mean[2]);
     s.pcx[ii] = x;
     s.pcy[ii] = y;
     s.pcz[ii] = z;
-    s.sq[ii] = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+    s.sq[ii] = fp::add(fp::add(fp::mul(x, x), fp::mul(y, y)), fp::mul(z, z));
   }
   __syncthreads();
 
   // 4. the pair scan: warp w takes compacted columns w, w + kWarps, ...
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
   for (int jj = w; jj < n; jj += kWarps) {
-    const float xj = s.pcx[jj], yj = s.pcy[jj], zj = s.pcz[jj], sqj = s.sq[jj];
-    float best = -1.0f;
+    const T xj = s.pcx[jj], yj = s.pcy[jj], zj = s.pcz[jj], sqj = s.sq[jj];
+    T best = T(-1);
     int row = INT_MAX;
     for (int ii = l; ii < jj; ii += 32) {
-      const float g = __fadd_rn(__fadd_rn(__fmul_rn(s.pcx[ii], xj), __fmul_rn(s.pcy[ii], yj)),
-                                __fmul_rn(s.pcz[ii], zj));
-      const float d2 = __fsub_rn(__fadd_rn(s.sq[ii], sqj), __fmul_rn(2.0f, g));
+      const T g = fp::add(fp::add(fp::mul(s.pcx[ii], xj), fp::mul(s.pcy[ii], yj)),
+                          fp::mul(s.pcz[ii], zj));
+      const T d2 = fp::sub(fp::add(s.sq[ii], sqj), fp::mul(T(2), g));
       if (d2 > best) {
         best = d2;
         row = ii;
       }
     }
     for (int o = 16; o > 0; o >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+      const T ob = __shfl_xor_sync(0xffffffffu, best, o);
       const int orow = __shfl_xor_sync(0xffffffffu, row, o);
       if (ob > best || (ob == best && orow < row)) {
         best = ob;
@@ -177,7 +201,7 @@ __device__ __forceinline__ void scan_slot(const float* __restrict__ M, int P, in
     }
     if (l == 0) {
       s.cm[jj] = best;
-      s.fr[jj] = best > -1.0f ? s.lane[row] : 0;
+      s.fr[jj] = best > T(-1) ? s.lane[row] : 0;
     }
   }
   __syncthreads();
@@ -186,9 +210,10 @@ __device__ __forceinline__ void scan_slot(const float* __restrict__ M, int P, in
 // Block-wide lexicographic choice of (v, a, b): larger v, then smaller a,
 // then smaller b.  Every thread calls it in the same order and gets the
 // winner; exact in any order of merging.
-__device__ __forceinline__ void block_best(float& v, int& a, int& b, Scratch& ss) {
+template <class T>
+__device__ __forceinline__ void block_best(T& v, int& a, int& b, Scratch<T>& ss) {
   for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const T ov = __shfl_xor_sync(0xffffffffu, v, o);
     const int oa = __shfl_xor_sync(0xffffffffu, a, o);
     const int ob = __shfl_xor_sync(0xffffffffu, b, o);
     if (ov > v || (ov == v && (oa < a || (oa == a && ob < b)))) {
@@ -208,7 +233,7 @@ __device__ __forceinline__ void block_best(float& v, int& a, int& b, Scratch& ss
   a = ss.red_a[0];
   b = ss.red_b[0];
   for (int k = 1; k < kWarps; ++k) {
-    const float ov = ss.red_v[k];
+    const T ov = ss.red_v[k];
     const int oa = ss.red_a[k], ob = ss.red_b[k];
     if (ov > v || (ov == v && (oa < a || (oa == a && ob < b)))) {
       v = ov;

@@ -34,9 +34,11 @@
 // points; each finalizes its own axis, group 0 also the count, with the same
 // __device__ function as the fin entry, so fused == raw + fin bit for bit.
 // Integer sums are exact in any order, so the result is deterministic, and
-// no float is ever summed with atomics.  __fmul_rn / __fadd_rn / __fsub_rn
-// only, so no FMA contraction changes a bit against the plain PyTorch
-// version (ops/voxel_grid_cuda.py).  Entries: motl_voxel_exact (fused),
+// no float is ever summed with atomics.  Every product and sum is spelled
+// (__fmul_rn / __fadd_rn / __fsub_rn, __fmaf_rn where XLA contracts the
+// JAX quantize and finalize: digit_cluster.cuh), so no contraction of
+// nvcc's changes a bit against the plain PyTorch version
+// (ops/voxel_grid_cuda.py).  Entries: motl_voxel_exact (fused),
 // motl_voxel_exact_raw (replaces the raw stacked kernels
 // _accumulate_pallas_v6_stacked_raw / _v3_stacked_raw) and
 // motl_voxel_finalize_exact (the jnp finalize_exact_digits).
@@ -46,14 +48,14 @@
 namespace {
 
 using digit_cluster::VoxParams;
-using digit_cluster::cell_origin;
+using digit_cluster::cell_centre;
 using digit_cluster::finalize_axis;
 
 __device__ __forceinline__ int exact_fq(float p, float fl, float leaf,
                                         float half, float sq) {
-  // _v6_quant_cm: frac = p - cell0 - 0.5*leaf; round(frac * 2^k); no clip
-  const float cell0 = __fmul_rn(fl, leaf);
-  const float frac = __fsub_rn(__fsub_rn(p, cell0), half);
+  // _v6_quant_cm: frac = p - cell0 - 0.5*leaf (p - fl * leaf one FMA, as
+  // XLA contracts it); round(frac * 2^k); no clip
+  const float frac = __fsub_rn(__fmaf_rn(-fl, leaf, p), half);
   return (int)rintf(__fmul_rn(frac, sq));
 }
 
@@ -82,13 +84,14 @@ struct ExactDigits {
     if (g == 0) A[6 * nc + lin] = v[2];
   }
 
-  // _v3_finalize_into, axis g: cnt * (cell0 + half) + (s0 + 256*s1) * 2^-k
+  // _v3_finalize_into, axis g: cnt * (cell0 + half) + (s0 + 256*s1) * 2^-k,
+  // as XLA's FMAs round it (digit_cluster.cuh; 256 * s1 is exact)
   static __device__ void finalize(int g, const VoxParams& p, int lin, const int* v, float* O,
                                   int nc) {
     const float cnt = (float)v[2];
     const float sum = __fadd_rn((float)v[0], __fmul_rn(256.0f, (float)v[1]));
-    O[g * nc + lin] = finalize_axis(cnt, cell_origin(p, lin, g), g == 2 ? p.half_z : p.half_xy,
-                                    sum, g == 2 ? p.invq_z : p.invq_xy);
+    O[g * nc + lin] = finalize_axis(cnt, cell_centre(p, lin, g), sum,
+                                    g == 2 ? p.invq_z : p.invq_xy);
     if (g == 0) O[3 * nc + lin] = cnt;
   }
 };

@@ -37,23 +37,24 @@
 // TPU's accumulator probes (scripts/micro_acc_v5.py, micro_acc_v7.py,
 // micro_transpose.py), which all compute this histogram and differ only in
 // layout.  The point read is a template parameter; the function and its
-// bits do not change.  Every f32 product and sum uses __fmul_rn /
-// __fadd_rn / __fsub_rn so no FMA contraction changes a bit against the
-// plain PyTorch version (ops/voxel_grid_cuda.py).
+// bits do not change.  Every f32 product and sum is spelled (__fmul_rn /
+// __fadd_rn / __fsub_rn, and __fmaf_rn where XLA's CPU code contracts the
+// JAX quantize and finalize: digit_cluster.cuh), so nvcc's contraction
+// changes no bit against the plain PyTorch version (ops/voxel_grid_cuda.py).
 
 #include "digit_cluster.cuh"
 
 namespace {
 
 using digit_cluster::VoxParams;
-using digit_cluster::cell_origin;
+using digit_cluster::cell_centre;
 using digit_cluster::finalize_axis;
 
 __device__ __forceinline__ int fast_digit(float p, float fl, float leaf,
                                           float half, float sq) {
-  // _v5_quant_cm: frac = p - cell0 - 0.5*leaf; round(frac * 2^k); clip
-  const float cell0 = __fmul_rn(fl, leaf);
-  const float frac = __fsub_rn(__fsub_rn(p, cell0), half);
+  // _v5_quant_cm: frac = p - cell0 - 0.5*leaf (p - fl * leaf one FMA, as
+  // XLA contracts it); round(frac * 2^k); clip
+  const float frac = __fsub_rn(__fmaf_rn(-fl, leaf, p), half);
   int d = (int)rintf(__fmul_rn(frac, sq));
   return d < -127 ? -127 : (d > 127 ? 127 : d);
 }
@@ -78,13 +79,14 @@ struct FastDigits {
     for (int c = 0; c < 4; ++c) A[c * nc + lin] = v[c];
   }
 
-  // _v4_finalize_into: cnt * (cell0 + half) + digit_sum * 2^-k
+  // _v4_finalize_into: cnt * (cell0 + half) + digit_sum * 2^-k, as XLA's
+  // FMAs round it (digit_cluster.cuh)
   static __device__ void finalize(int, const VoxParams& p, int lin, const int* v, float* O,
                                   int nc) {
     const float cnt = (float)v[3];
-    O[lin] = finalize_axis(cnt, cell_origin(p, lin, 0), p.half_xy, (float)v[0], p.invq_xy);
-    O[nc + lin] = finalize_axis(cnt, cell_origin(p, lin, 1), p.half_xy, (float)v[1], p.invq_xy);
-    O[2 * nc + lin] = finalize_axis(cnt, cell_origin(p, lin, 2), p.half_z, (float)v[2], p.invq_z);
+    O[lin] = finalize_axis(cnt, cell_centre(p, lin, 0), (float)v[0], p.invq_xy);
+    O[nc + lin] = finalize_axis(cnt, cell_centre(p, lin, 1), (float)v[1], p.invq_xy);
+    O[2 * nc + lin] = finalize_axis(cnt, cell_centre(p, lin, 2), (float)v[2], p.invq_z);
     O[3 * nc + lin] = cnt;
   }
 };

@@ -11,16 +11,18 @@ from __future__ import annotations
 
 import torch
 
-from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype
 
 
-def lpf_coefficients(lpf_tau: float, dt_gp: float) -> tuple[float, float]:
-    """(tau / (tau + dt), dt / (tau + dt)) as f32 values, as JAX applies
-    Python floats to f32 arrays."""
-    return f32(lpf_tau / (lpf_tau + dt_gp)), f32(dt_gp / (lpf_tau + dt_gp))
+def lpf_coefficients(lpf_tau: float, dt_gp: float,
+                     dtype: torch.dtype = torch.float32) -> tuple[float, float]:
+    """(tau / (tau + dt), dt / (tau + dt)) as values of ``dtype`` (f32 or
+    f64), as JAX applies Python floats to arrays of that dtype."""
+    return (in_dtype(lpf_tau / (lpf_tau + dt_gp), dtype),
+            in_dtype(dt_gp / (lpf_tau + dt_gp), dtype))
 
 
 def lpf_pos(windows: torch.Tensor, lpf_tau: float, dt_gp: float) -> torch.Tensor:
     """windows (K, L, C), x,y leading -> (K, 2) filtered x,y positions."""
-    a, b = lpf_coefficients(lpf_tau, dt_gp)
+    a, b = lpf_coefficients(lpf_tau, dt_gp, windows.dtype)
     return a * windows[:, -2, :2] + b * windows[:, -1, :2]

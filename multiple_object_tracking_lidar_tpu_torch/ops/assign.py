@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from multiple_object_tracking_lidar_tpu_torch.ops.assign_cuda import assoc_scan_plain
-from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, true_div
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype, true_div
 from multiple_object_tracking_lidar_tpu_torch.tracker.state import TrackBank
 
 
@@ -51,7 +51,7 @@ def _interp_backfill(w: torch.Tensor, det: torch.Tensor, dt_gp: float) -> torch.
     det (K, 4).  new[k] = w[k + lost] for k < L - lost, else
     interp[k - (L - lost)] = last + (j+1) * d_total / lost, z total 0."""
     L = w.shape[1]
-    dt32 = f32(dt_gp)
+    dt32 = in_dtype(dt_gp, w.dtype)
     last = w[:, L - 1]
     gap = det[:, 3] - last[:, 3]
     lost = torch.round(true_div(gap, dt32)).to(torch.int64) - 1
@@ -140,14 +140,14 @@ def associate_and_update(
     L = bank.window.shape[1]
     dev = dets.device
     last = bank.window[:, L - 1, :]
-    af0 = torch.stack([last[:, 0], last[:, 1], last[:, 3]], dim=1).to(torch.float32)
+    af0 = torch.stack([last[:, 0], last[:, 1], last[:, 3]], dim=1)
     ai0 = torch.stack(
         [bank.alive.to(torch.int32), bank.obj_id.to(torch.int32), bank.birth_seq.to(torch.int32)],
         dim=1,
     )
     allow = torch.as_tensor(allow_match, device=dev).to(torch.bool)
     (alive, obj_id, birth_seq, nobj, nbirth, ovf, slots, ids, news, oks, interps) = assoc_scan_plain(
-        af0, ai0, dets.to(torch.float32), det_valid, allow,
+        af0, ai0, dets.to(af0.dtype), det_valid, allow,
         next_obj_num, next_birth,
         thr=id_threshold, dt_gp=dt_gp, interp_gap_factor=interp_gap_factor,
     )

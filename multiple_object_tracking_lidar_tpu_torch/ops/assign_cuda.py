@@ -26,16 +26,17 @@ from __future__ import annotations
 import torch
 
 from multiple_object_tracking_lidar_tpu_torch import _build
-from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, true_div
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype, true_div
 
 _BIG = 2**30
 MAX_LANES = 1024   # track slots: one lane each, one CTA
 MAX_DETS = 128     # detections: K4's shared detection buffer
 
 
-def _consts(thr, dt_gp, interp_gap_factor):
-    # JAX compares f32 values against these Python floats as f32 (weak type)
-    return f32(thr), f32(interp_gap_factor * dt_gp), f32(dt_gp)
+def _consts(thr, dt_gp, interp_gap_factor, dtype=torch.float32):
+    # JAX compares values against these Python floats in their dtype (weak type)
+    return (in_dtype(thr, dtype), in_dtype(interp_gap_factor * dt_gp, dtype),
+            in_dtype(dt_gp, dtype))
 
 
 def assoc_scan_plain(
@@ -43,13 +44,15 @@ def assoc_scan_plain(
     *, thr, dt_gp, interp_gap_factor,
 ):
     """Plain PyTorch version of K4: the same sequential scan, one detection
-    per Python iteration (D is at most a few dozen)."""
+    per Python iteration (D is at most a few dozen), in the detections'
+    dtype (f32, or f64: K4's double build)."""
     k, d = af0.shape[0], dets.shape[0]
     dev = af0.device
-    thr32, gapthr, dt32 = _consts(thr, dt_gp, interp_gap_factor)
-    af = af0.to(torch.float32).clone()
+    dt = torch.float64 if dets.dtype == torch.float64 else torch.float32
+    thr32, gapthr, dt32 = _consts(thr, dt_gp, interp_gap_factor, dt)
+    af = af0.to(dt).clone()
     ai = ai0.to(torch.int32).clone()
-    dets = dets.to(torch.float32)
+    dets = dets.to(dt)
     dv = det_valid.to(torch.bool)
     outs = torch.zeros((5, d), dtype=torch.int32, device=dev)
     outs[1] = -1
@@ -74,7 +77,7 @@ def assoc_scan_plain(
             slot = int(torch.nonzero(~alive)[0])
         else:
             slot = -1
-        t_slot = af[slot, 2] if slot >= 0 else torch.zeros((), device=dev)
+        t_slot = af[slot, 2] if slot >= 0 else torch.zeros((), dtype=dt, device=dev)
         id_slot = int(ai[slot, 1]) if slot >= 0 else 0
         gap = det[3] - t_slot
         do_interp = am and bool(

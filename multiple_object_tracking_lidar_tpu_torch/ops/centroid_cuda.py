@@ -50,20 +50,32 @@ def column_max_plain(d2: torch.Tensor, pair_ok: torch.Tensor):
     return colmax, firstrow
 
 
+def _member_mean(mp: torch.Tensor, mm: torch.Tensor) -> torch.Tensor:
+    """(C, 3) mean of each slot's members, as K3 / K3f centre them: f32
+    members summed in f64 (exact here: ``pair_scan.cuh``) and rounded to
+    f32, over the f32 count; f64 members (the double build) summed in f64
+    one lane after another in ascending lane order, over the f64 count."""
+    cnt = torch.clamp(mm.sum(dim=1), min=1).to(mp.dtype)[:, None]
+    vals = torch.where(mm[..., None], mp, 0.0)
+    if mp.dtype == torch.float32:
+        return vals.to(torch.float64).sum(dim=1).to(torch.float32) / cnt
+    acc = torch.zeros_like(vals[:, 0])
+    for lane in range(vals.shape[1]):
+        acc = acc + vals[:, lane]
+    return acc / cnt
+
+
 def pair_stats_plain(mpts: torch.Tensor, member_mask: torch.Tensor):
-    """Plain PyTorch version of K3: the same centring (f64 sum of the member
-    coordinates rounded to f32, over the f32 count), the same d2 expression
-    order, elementwise (no matmul, so no reordered gram), then
-    ``column_max_plain``."""
+    """Plain PyTorch version of K3 (and of K3f's scan, in f32 or, for f64
+    members, its double build): the same centring (``_member_mean``), the
+    same d2 expression order, elementwise (no matmul, so no reordered
+    gram), then ``column_max_plain``."""
     c, p, _ = mpts.shape
     dev = mpts.device
-    mp = mpts.to(torch.float32)
+    mp = mpts if mpts.dtype == torch.float64 else mpts.to(torch.float32)
     mm = member_mask.to(torch.bool)
     cnt = mm.sum(dim=1)
-    mean = (
-        torch.where(mm[..., None], mp, 0.0).to(torch.float64).sum(dim=1).to(torch.float32)
-        / torch.clamp(cnt, min=1).to(torch.float32)[:, None]
-    )                                                          # (C, 3)
+    mean = _member_mean(mp, mm)                                # (C, 3)
     pc = torch.where(mm[..., None], mp - mean[:, None, :], 0.0)
     x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
     sq = (x * x + y * y) + z * z                              # (C, P)
@@ -80,10 +92,11 @@ def pair_stats_plain(mpts: torch.Tensor, member_mask: torch.Tensor):
     return colmax, firstrow
 
 
-def _check_table(mpts: torch.Tensor, member_mask: torch.Tensor):
+def _check_table(mpts: torch.Tensor, member_mask: torch.Tensor, dtypes=(torch.float32,)):
     """(C, P) of a CUDA member table, or ValueError."""
-    if mpts.dim() != 3 or mpts.shape[2] != 3 or mpts.dtype != torch.float32:
-        raise ValueError(f"mpts must be (C, P, 3) float32, got {tuple(mpts.shape)} {mpts.dtype}")
+    if mpts.dim() != 3 or mpts.shape[2] != 3 or mpts.dtype not in dtypes:
+        raise ValueError(f"mpts must be (C, P, 3) {' or '.join(str(d) for d in dtypes)}, "
+                         f"got {tuple(mpts.shape)} {mpts.dtype}")
     c, p, _ = mpts.shape
     if member_mask.shape != (c, p) or member_mask.device != mpts.device:
         raise ValueError(f"member_mask must be ({c}, {p}) on {mpts.device}")
@@ -139,28 +152,36 @@ def circumcenter_features_plain(mpts: torch.Tensor, member_mask: torch.Tensor,
 
 
 def circumcenter_features(mpts: torch.Tensor, member_mask: torch.Tensor, t) -> torch.Tensor:
-    """K3f on CUDA tensors, its plain version on CPU tensors: (C, 4) f32
-    [x, y, 0, t] detections of the member table mpts (C, P, 3) f32, mask
+    """K3f on CUDA tensors, its plain version on CPU tensors: (C, 4)
+    [x, y, 0, t] detections of the member table mpts (C, P, 3), mask
     (C, P), t (C,) per slot (or (S,) per frame of S stacked frames, or a
-    scalar).  One launch; t is read on the device."""
+    scalar), in mpts' dtype: f32, or f64 (the double build,
+    ``motl_circumcenter_features_f64``).  One launch; t is read on the
+    device."""
     if mpts.device.type == "cpu":
         return circumcenter_features_plain(mpts, member_mask, t)
-    c, p = _check_table(mpts, member_mask)
+    c, p = _check_table(mpts, member_mask, (torch.float32, torch.float64))
     dev = mpts.device
     mpts = mpts.contiguous()
     mm8 = _build.byte_mask(member_mask)
     tt = _slot_times(t, c, mpts).contiguous()
-    out = torch.empty((c, 4), dtype=torch.float32, device=dev)
-    err = _build.load().motl_circumcenter_features(
+    out = torch.empty((c, 4), dtype=mpts.dtype, device=dev)
+    entry = ("motl_circumcenter_features_f64" if mpts.dtype == torch.float64
+             else "motl_circumcenter_features")
+    err = getattr(_build.load(), entry)(
         mpts.data_ptr(), mm8.data_ptr(), tt.data_ptr(), c, p, c // tt.numel(),
         out.data_ptr(), _build.stream_ptr(dev),
     )
-    _build.check(err, "motl_circumcenter_features")
-    circumcenter_features.launches += 1
+    _build.check(err, entry)
+    if mpts.dtype == torch.float64:
+        circumcenter_features.launches_f64 += 1
+    else:
+        circumcenter_features.launches += 1
     return out
 
 
 circumcenter_features.launches = 0
+circumcenter_features.launches_f64 = 0   # the double build's
 
 
 def circumcenter_xy_plain(mpts: torch.Tensor, member_mask: torch.Tensor) -> torch.Tensor:

@@ -24,8 +24,8 @@ from typing import NamedTuple
 
 import torch
 
-from multiple_object_tracking_lidar_tpu_torch.ops.cluster_pallas import fma32
-from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32
+from multiple_object_tracking_lidar_tpu_torch.ops.cluster_pallas import fma
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype
 
 
 def _stencil_offsets(tol: float, leaf_xy: float, leaf_z: float) -> list[tuple[int, int, int]]:
@@ -84,10 +84,10 @@ def connected_components_grid(
     still changed).
 
     The adjacency is fixed, so it is built once: neighbour j of cell i is
-    adjacent when both are dynamic and d2 <= f32(tol^2), where d2 is what
-    XLA's CPU code computes for the JAX expression ``sum((c - c_j) ** 2)``:
-    the FMA chain fma(dz, dz, fma(dx, dx, dy * dy)), rounded exactly from
-    f64 by ``fma32``.  A neighbour outside the grid reads the pad (never
+    adjacent when both are dynamic and d2 <= tol^2 (in the centroids'
+    dtype, f32 or f64), where d2 is what XLA's CPU code computes for the
+    JAX expression ``sum((c - c_j) ** 2)``: the FMA chain fma(dz, dz,
+    fma(dx, dx, dy * dy)), each correctly rounded (``fma``).  A neighbour outside the grid reads the pad (never
     dynamic), as the JAX pad-and-slice does.  Leading dims batch frames;
     each frame stops where its own loop would, as under ``jax.vmap``, and
     the host reads whether any frame still runs once per iteration
@@ -96,7 +96,7 @@ def connected_components_grid(
     gx, gy, gz = dims
     n = gx * gy * gz
     dev = dyn.device
-    cent = cent.reshape(-1, 3, n).to(torch.float32)
+    cent = cent.reshape(-1, 3, n)
     dyn = dyn.reshape(-1, n)
     b = dyn.shape[0]
     offsets = _stencil_offsets(tol, leaf_xy, leaf_z)
@@ -104,8 +104,8 @@ def connected_components_grid(
     nb_c = torch.clamp(nb, max=n - 1)
     dyn_pad = torch.cat([dyn, torch.zeros((b, 1), dtype=torch.bool, device=dev)], 1)
     d = [cent[:, k, None, :] - cent[:, k][:, nb_c] for k in range(3)]  # (b, O, n)
-    d2 = fma32(d[2], d[2], fma32(d[0], d[0], d[1] * d[1]))
-    adj = dyn[:, None, :] & dyn_pad[:, nb] & (d2 <= f32(tol * tol))
+    d2 = fma(d[2], d[2], fma(d[0], d[0], d[1] * d[1]))
+    adj = dyn[:, None, :] & dyn_pad[:, nb] & (d2 <= in_dtype(tol * tol, cent.dtype))
 
     idx = torch.arange(n, dtype=torch.int32, device=dev)
     sentinel = torch.full((b, 1), n, dtype=torch.int32, device=dev)

@@ -80,6 +80,51 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return bits.view(torch.float64).to(torch.float32)
 
 
+_SPLIT = 134217729.0   # 2^27 + 1: Veltkamp's splitter for a 53-bit significand
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """(s, e): s = a + b rounded, e its exact error (Knuth's TwoSum)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _round_odd(s: torch.Tensor, err: torch.Tensor) -> torch.Tensor:
+    """s (a rounded f64 sum) rounded to odd instead, given its exact error
+    err: where inexact and its last bit even, one ulp toward the exact
+    value (Boldo and Melquiond, "Emulation of FMA and correctly rounded
+    sums: proved algorithms using rounding to odd", IEEE TC 2008)."""
+    bits = s.view(torch.int64)
+    even = (bits & 1) == 0
+    away = (err > 0) == (s > 0)                # one ulp up in magnitude
+    bits = torch.where((err != 0) & even, torch.where(away, bits + 1, bits - 1), bits)
+    return bits.view(torch.float64)
+
+
+def fma64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f64 fma(a, b, c) of f64 tensors (PyTorch has no
+    wider type): a * b = uh + ul exactly by Veltkamp's split and Dekker's
+    product, c + uh = th + tl by TwoSum, then RN(th + RO(tl + ul)) -- the
+    emulated FMA of Boldo and Melquiond, exact barring over- and underflow.
+    K2, K3f and K4's double builds take ``__fma_rn`` where this stands."""
+    a, b, c = (x.to(torch.float64) for x in (a, b, c))
+    uh = a * b
+    ca, cb = _SPLIT * a, _SPLIT * b
+    ah, bh = ca - (ca - a), cb - (cb - b)
+    al, bl = a - ah, b - bh
+    ul = ((ah * bh - uh) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, uh)
+    v, ve = _two_sum(tl, ul)
+    return th + _round_odd(v, ve)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded fma(a, b, c) in the tensors' dtype (f32 or
+    f64): ``fma32`` or ``fma64``."""
+    return fma64(a, b, c) if a.dtype == torch.float64 else fma32(a, b, c)
+
+
 def _tree_colsum(v: torch.Tensor) -> torch.Tensor:
     """(S, n, 3) -> (S, 3): XLA's CPU column sum, windows of 32 rows summed
     in order from +0.0 while more than 32 rows remain, then the rest in

@@ -19,7 +19,8 @@ version runs the same schedule, so it reports the same iteration count
 
 ``fused_finalize_static_cc_stacked`` launches the kernel for CUDA tensors
 and runs the plain version for CPU tensors; ``.launches`` counts kernel
-launches.
+launches, ``.launches_f64`` those of its double build (``dtype="float64"``:
+the f64 accumulator, centroids and d^2, ``motl_grid_cc_f64``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import (
     _stencil_offsets,
     neighbor_index,
 )
+from multiple_object_tracking_lidar_tpu_torch.ops.cluster_pallas import fma64
 
 SMEM_BYTES = 232448       # what one H100 block may use (227 KB)
 _STATIC_SMEM = 5120       # the kernel's static shared arrays, rounded up
@@ -137,24 +139,31 @@ def _device_offsets(offsets: tuple, device: str) -> torch.Tensor:
 
 
 def fused_finalize_static_cc_stacked_plain(
-    accs, scal, base_row, base_col, bits, *, dims, offsets, kwin, max_sweeps
+    accs, scal, base_row, base_col, bits, *, dims, offsets, kwin, max_sweeps, tol=None
 ):
     """Plain PyTorch version of K2, same arithmetic order and schedule:
     each iteration is one Jacobi sweep over every cell from the labels of
     the last iteration, then one pointer jump, then the vote.  The kernel
     runs this global schedule at every cluster size (its ranks read each
     other's labels through distributed shared memory), so one plain
-    version stands for them all."""
+    version stands for them all.  An f64 ``accs`` is the double build's:
+    the centroids in f64, the map transform on them rounded to f32, and
+    d^2 = fma(dz, dz, fma(dx, dx, dy * dy)) against the f64 ``tol * tol``
+    (``tol`` required), as the JAX package's f64 route computes them."""
     gx, gy, gz = dims
     n = gx * gy * gz
     s = accs.shape[0]
     dev = accs.device
-    accs = accs.to(torch.float32)
+    f64 = accs.dtype == torch.float64
+    if not f64:
+        accs = accs.to(torch.float32)
     cnt = accs[:, 3]
     cent = accs[:, :3] / torch.clamp(cnt, min=1.0)[:, None, :]
     ox, oy, cosv, sinv, invr, tol2 = (scal[q] for q in range(6))
-    xm = cent[:, 0] - ox
-    ym = cent[:, 1] - oy
+    if f64:
+        tol2 = torch.tensor(float(tol) * float(tol), dtype=torch.float64, device=dev)
+    xm = cent[:, 0].to(torch.float32) - ox
+    ym = cent[:, 1].to(torch.float32) - oy
     col = ((cosv * xm - sinv * ym) * invr).to(torch.int32)
     row = ((sinv * xm + cosv * ym) * invr).to(torch.int32)
     qr = row - base_row
@@ -173,9 +182,14 @@ def fused_finalize_static_cc_stacked_plain(
     sentinel = torch.tensor(n, dtype=torch.int32, device=dev)
     for f in range(s):
         c = cent[f]
-        d = [c[a][None, :] - c[a][nb_c] for a in range(3)]           # (O, n)
-        d2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
-        adj = dyn[f][None, :] & valid_nb & dyn[f][nb_c] & (d2 <= tol2)
+        adj = dyn[f][None, :] & valid_nb & dyn[f][nb_c]                  # (O, n)
+        if f64:     # the emulated FMAs on the pairs of dynamic cells alone
+            pair = adj.nonzero(as_tuple=True)
+            d = [c[a][pair[1]] - c[a][nb_c[pair]] for a in range(3)]
+            adj[pair] = fma64(d[2], d[2], fma64(d[0], d[0], d[1] * d[1])) <= tol2
+        else:
+            d = [c[a][None, :] - c[a][nb_c] for a in range(3)]
+            adj &= ((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]) <= tol2
         lab = torch.where(dyn[f], idx, sentinel)
         it, changed = 0, True
         while changed and it < max_sweeps:
@@ -193,7 +207,7 @@ def fused_finalize_static_cc_stacked_plain(
 
 
 def fused_finalize_static_cc_stacked(
-    accs_cm: torch.Tensor,   # (S, 4, n_cells) f32 channel-major accumulators
+    accs_cm: torch.Tensor,   # (S, 4, n_cells) f32 or f64 channel-major accumulators
     scal: torch.Tensor,      # (6,) f32 (make_scal)
     base_row: torch.Tensor,  # (n_cells,) i32
     base_col: torch.Tensor,
@@ -207,12 +221,13 @@ def fused_finalize_static_cc_stacked(
     max_sweeps: int | None = None,
     cluster: int | None = None,
 ):
-    """Returns (cent (S, 3, n) f32, dyn (S, n) bool, labels (S, n) i32,
-    n_sweeps (S,) i32, saturated (S,) i32).  ``max_sweeps=None`` caps the
-    iterations at the grid-diameter bound 2 (gx + gy + gz); ``cluster=None``
-    takes ``cluster_size``'s CTAs per frame (any size gives the same
-    results; the plain version on a CPU tensor has no CTAs and ignores
-    it)."""
+    """Returns (cent (S, 3, n) of the accumulators' dtype, dyn (S, n) bool,
+    labels (S, n) i32, n_sweeps (S,) i32, saturated (S,) i32).  An f64
+    accumulator launches the double build (``motl_grid_cc_f64``, one launch
+    too).  ``max_sweeps=None`` caps the iterations at the grid-diameter
+    bound 2 (gx + gy + gz); ``cluster=None`` takes ``cluster_size``'s CTAs
+    per frame (any size gives the same results; the plain version on a CPU
+    tensor has no CTAs and ignores it)."""
     gx, gy, gz = dims
     n = gx * gy * gz
     if max_sweeps is None:
@@ -222,13 +237,15 @@ def fused_finalize_static_cc_stacked(
     if accs_cm.device.type == "cpu":
         return fused_finalize_static_cc_stacked_plain(
             accs_cm, scal, base_row, base_col, bits,
-            dims=dims, offsets=offsets, kwin=kwin, max_sweeps=max_sweeps,
+            dims=dims, offsets=offsets, kwin=kwin, max_sweeps=max_sweeps, tol=tol,
         )
     if cluster is None:
         cluster = cluster_size(n, len(offsets), dev)
     s = accs_cm.shape[0]
-    if accs_cm.shape != (s, 4, n) or accs_cm.dtype != torch.float32:
-        raise ValueError(f"accs must be (S, 4, {n}) float32, got {tuple(accs_cm.shape)} {accs_cm.dtype}")
+    dt = accs_cm.dtype
+    if accs_cm.shape != (s, 4, n) or dt not in (torch.float32, torch.float64):
+        raise ValueError(f"accs must be (S, 4, {n}) float32 or float64, "
+                         f"got {tuple(accs_cm.shape)} {dt}")
     for name, t in (("base_row", base_row), ("base_col", base_col), ("bits", bits)):
         if t.shape != (n,) or t.dtype != torch.int32 or t.device != dev:
             raise ValueError(f"{name} must be ({n},) int32 on {dev}")
@@ -246,7 +263,7 @@ def fused_finalize_static_cc_stacked(
         )
     accs_cm = accs_cm.contiguous()
     offs = _device_offsets(offsets, str(dev))
-    cent = torch.empty((s, 3, n), dtype=torch.float32, device=dev)
+    cent = torch.empty((s, 3, n), dtype=dt, device=dev)
     dyn = torch.empty((s, n), dtype=torch.bool, device=dev)
     labels = torch.empty((s, n), dtype=torch.int32, device=dev)
     nsw = torch.empty((s, 2), dtype=torch.int32, device=dev)
@@ -255,19 +272,25 @@ def fused_finalize_static_cc_stacked(
     scratch = (None if adjacency_in_smem(n, len(offsets), cluster) else
                torch.empty((s * cluster * n_words * rng,), dtype=torch.int32, device=dev))
     lib = _build.load()
-    err = lib.motl_grid_cc(
+    entry = "motl_grid_cc_f64" if dt == torch.float64 else "motl_grid_cc"
+    tol2 = (float(tol) * float(tol),) if dt == torch.float64 else ()
+    err = getattr(lib, entry)(
         accs_cm.data_ptr(), *(t.data_ptr() for t in ins),
-        offs.data_ptr(), len(offsets), scal.data_ptr(), s, gx, gy, gz, kwin,
+        offs.data_ptr(), len(offsets), scal.data_ptr(), *tol2, s, gx, gy, gz, kwin,
         max_sweeps, cluster, None if scratch is None else scratch.data_ptr(),
         cent.data_ptr(), dyn.data_ptr(), labels.data_ptr(), nsw.data_ptr(),
         _build.stream_ptr(dev),
     )
-    _build.check(err, "motl_grid_cc")
-    fused_finalize_static_cc_stacked.launches += 1
+    _build.check(err, entry)
+    if dt == torch.float64:
+        fused_finalize_static_cc_stacked.launches_f64 += 1
+    else:
+        fused_finalize_static_cc_stacked.launches += 1
     return cent, dyn, labels, nsw[:, 0], nsw[:, 1]
 
 
 fused_finalize_static_cc_stacked.launches = 0
+fused_finalize_static_cc_stacked.launches_f64 = 0   # the double build's
 
 
 def fused_finalize_static_cc(acc_cm, scal, base_row, base_col, bits, **kw):

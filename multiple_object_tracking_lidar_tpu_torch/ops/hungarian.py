@@ -39,8 +39,8 @@ from multiple_object_tracking_lidar_tpu_torch.ops.assign import (
     AssocResult,
     apply_window_updates,
 )
-from multiple_object_tracking_lidar_tpu_torch.ops.cluster_pallas import fma32
-from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, true_div
+from multiple_object_tracking_lidar_tpu_torch.ops.cluster_pallas import fma32, fma64
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, in_dtype, true_div
 from multiple_object_tracking_lidar_tpu_torch.tracker.state import TrackBank
 
 _NEG = -3e38
@@ -51,17 +51,25 @@ MAX_ITERS = 3000             # auction_assign's per-phase cap
 SCALE = 8.0                  # auction_assign's eps scaling factor
 
 
-def auction_schedule(d: int, eps: float, max_cost: float, scale: float = SCALE):
+def auction_schedule(d: int, eps: float, max_cost: float, scale: float = SCALE,
+                     dtype: torch.dtype = torch.float32):
     """(-penalty, -penalty2, [eps_p per phase]) for ``d`` real rows, each
-    computed in Python f64 and rounded once to f32, as ``jnp.full`` and
-    ``jnp.asarray(eps_p, f32)`` round them (JAX hungarian.py:64-69,
-    :120-127)."""
+    computed in Python f64 and rounded once to ``dtype`` (f32 or f64), as
+    ``jnp.full`` and ``jnp.asarray(eps_p, dtype)`` round them (JAX
+    hungarian.py:64-69, :120-127)."""
     penalty = d * max_cost + 1.0
     penalty2 = 2.0 * penalty
     eps0 = max(max_cost / 2.0, eps)
     n_phases = max(1, int(math.ceil(math.log(max(eps0 / eps, 2.0), scale))) + 1)
-    eps_ps = [f32(max(eps, eps0 / (scale**p))) for p in range(n_phases)]
-    return f32(-penalty), f32(-penalty2), eps_ps
+    eps_ps = [in_dtype(max(eps, eps0 / (scale**p)), dtype) for p in range(n_phases)]
+    return in_dtype(-penalty, dtype), in_dtype(-penalty2, dtype), eps_ps
+
+
+def auction_negs(dtype: torch.dtype = torch.float32) -> tuple[float, float]:
+    """(_NEG, _NEG / 2) as values of ``dtype``: what ``jnp.where(...,
+    _NEG)`` writes into an array of that dtype, and what its values are
+    compared with."""
+    return in_dtype(_NEG, dtype), in_dtype(_NEG / 2, dtype)
 
 
 def auction_assign_plain(
@@ -73,18 +81,19 @@ def auction_assign_plain(
     scale: float = SCALE,
     return_iters: bool = False,
 ):
-    """Eps-scaling Jacobi auction: ((D,) int32 column per row or -1, int32
-    saturated phase count), and with ``return_iters`` the iterations each
-    phase ran (a list)."""
+    """Eps-scaling Jacobi auction in the costs' dtype (f32 or f64): ((D,)
+    int32 column per row or -1, int32 saturated phase count), and with
+    ``return_iters`` the iterations each phase ran (a list)."""
     d, k = cost.shape
     dev, dt = cost.device, cost.dtype
-    neg_pen, neg_pen2, eps_ps = auction_schedule(d, eps, max_cost, scale)
+    neg_pen, neg_pen2, eps_ps = auction_schedule(d, eps, max_cost, scale, dt)
+    neg_v, neg_half = auction_negs(dt)
     n = d + k
     value = torch.full((n, n), neg_pen2, dtype=dt, device=dev)
-    value[:d, :k] = torch.where(feasible, -cost, NEG32)
+    value[:d, :k] = torch.where(feasible, -cost, neg_v)
     value[:d, k:] = neg_pen
     rows = torch.arange(n, device=dev)
-    neg = torch.tensor(NEG32, dtype=dt, device=dev)
+    neg = torch.tensor(neg_v, dtype=dt, device=dev)
     price = torch.zeros(n, dtype=dt, device=dev)
     saturated, iters = 0, []
     for eps_p in eps_ps:
@@ -104,13 +113,13 @@ def auction_assign_plain(
             net2 = net.clone()
             net2[rows, best_k] = neg
             second_v = net2.amax(dim=1)
-            second_v = torch.where(second_v <= NEG_HALF32, best_v, second_v)
+            second_v = torch.where(second_v <= neg_half, best_v, second_v)
             bid = price[best_k] + (best_v - second_v) + eps_t
             col_bid = torch.where(unassigned[:, None] & (best_k[:, None] == rows[None, :]),
                                   bid[:, None], neg)
             top_bid = col_bid.amax(dim=0)
             winner = torch.argmax(col_bid, dim=0).to(torch.int32)
-            took = top_bid > NEG_HALF32
+            took = top_bid > neg_half
             price = torch.where(took, top_bid, price)
             owner = torch.where(took, winner, owner)
             it += 1
@@ -134,14 +143,19 @@ def gate_costs(bank: TrackBank, dets: torch.Tensor, det_valid: torch.Tensor,
     cost is spelled that way here and in K4.  The square root is IEEE's,
     taken in f64 and rounded once to f32 (correctly rounded: 53 >= 2 * 24
     + 2 bits): PyTorch's f32 ``sqrt`` on the CPU is off by an ulp for
-    ~0.6% of inputs, and a bid moves with every bit of its cost."""
+    ~0.6% of inputs, and a bid moves with every bit of its cost.  In f64
+    (K4's double build) the same: ``fma64`` and the f64 root."""
     L = bank.window.shape[1]
     last = bank.window[:, L - 1, :]
     dx = dets[:, 0:1] - last[None, :, 0]
     dy = dets[:, 1:2] - last[None, :, 1]
-    cost = torch.sqrt(fma32(dx, dx, dy * dy).to(torch.float64)).to(torch.float32)
+    if dx.dtype == torch.float64:
+        cost = torch.sqrt(fma64(dx, dx, dy * dy))
+    else:
+        cost = torch.sqrt(fma32(dx, dx, dy * dy).to(torch.float64)).to(torch.float32)
     allow = torch.as_tensor(allow_match, device=dets.device).to(torch.bool)
-    feasible = (det_valid[:, None] & bank.alive[None, :] & (cost < f32(id_threshold)) & allow)
+    feasible = (det_valid[:, None] & bank.alive[None, :]
+                & (cost < in_dtype(id_threshold, cost.dtype)) & allow)
     return cost, feasible
 
 
@@ -186,8 +200,9 @@ def hungarian_associate_and_update_plain(
 
     last = bank.window[:, L - 1, :]
     gap = dets[:, 3] - last[slots64, 3]
-    interps = (matched & (gap > f32(interp_gap_factor * dt_gp))
-               & (torch.round(true_div(gap, f32(dt_gp))) - 1.0 >= 1.0))
+    dt = gap.dtype
+    interps = (matched & (gap > in_dtype(interp_gap_factor * dt_gp, dt))
+               & (torch.round(true_div(gap, in_dtype(dt_gp, dt))) - 1.0 >= 1.0))
 
     new_ids = (next_obj_num + new_rank).to(torch.int32)
     det_id = torch.where(matched, bank.obj_id[slots64],

@@ -32,10 +32,9 @@ import torch
 from multiple_object_tracking_lidar_tpu_torch import _build
 from multiple_object_tracking_lidar_tpu_torch.ops.hungarian import (
     MAX_ITERS,
-    NEG32,
-    NEG_HALF32,
     SCALE,
     auction_assign_plain,
+    auction_negs,
     auction_schedule,
 )
 
@@ -44,14 +43,17 @@ MAX_COLS = 1024     # real columns (track slots), as K4
 MAX_PHASES = 16     # csrc/auction.cuh::kMaxPhases
 
 
-def auction_params(d: int, eps: float, max_cost: float, scale: float = SCALE):
-    """(host f32 array [neg, neg_half, neg_pen, neg_pen2, eps_0, ...],
-    n_phases): the kernels' auction parameters for ``d`` real rows."""
-    neg_pen, neg_pen2, eps_ps = auction_schedule(d, eps, max_cost, scale)
+def auction_params(d: int, eps: float, max_cost: float, scale: float = SCALE,
+                   dtype: torch.dtype = torch.float32):
+    """(host array [neg, neg_half, neg_pen, neg_pen2, eps_0, ...] of f32, or
+    of f64 for K4's double builds, n_phases): the kernels' auction
+    parameters for ``d`` real rows."""
+    neg_pen, neg_pen2, eps_ps = auction_schedule(d, eps, max_cost, scale, dtype)
     if len(eps_ps) > MAX_PHASES:
         raise ValueError(f"{len(eps_ps)} eps phases; the kernels hold at most {MAX_PHASES}")
-    vals = [NEG32, NEG_HALF32, neg_pen, neg_pen2, *eps_ps]
-    return (ctypes.c_float * len(vals))(*vals), len(eps_ps)
+    vals = [*auction_negs(dtype), neg_pen, neg_pen2, *eps_ps]
+    ctype = ctypes.c_double if dtype == torch.float64 else ctypes.c_float
+    return (ctype * len(vals))(*vals), len(eps_ps)
 
 
 def auction_assign(

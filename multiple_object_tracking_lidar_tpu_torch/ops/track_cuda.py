@@ -18,7 +18,8 @@ frames per bank: (B, S, D, 4) detections, (B, S, D) valid flags, (B, S)
 stamps.  ``bind_env`` launches it at 1 x 1, ``bind_env_multi`` at 1 x S
 and the fleet at B x 1 (``tracker/pipeline.py::track_batch``).  It
 launches the kernel for CUDA tensors and runs ``track_frames_plain`` for
-CPU tensors; ``.launches`` counts kernel launches.  Both return (the state
+CPU tensors; ``.launches`` counts kernel launches, ``.launches_f64``
+those of the double builds (``dtype="float64"``).  Both return (the state
 after the S frames, ``TrackOutputs`` stacked (B, S, ...)).
 
 ``track_step_plain`` is the plain version of one bank and one frame: the
@@ -52,7 +53,7 @@ from multiple_object_tracking_lidar_tpu_torch.ops.hungarian import (
     hungarian_associate_and_update_plain,
 )
 from multiple_object_tracking_lidar_tpu_torch.ops.hungarian_cuda import auction_params
-from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, true_div
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype, true_div
 from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
     TrackBank,
     TrackerState,
@@ -95,9 +96,10 @@ def smoother_parts(window: torch.Tensor, w_vel: dict, dt_gp: float):
     window: (vmean (K, 2), ey (K, 2) = sum_l y_l Wy[:, -1, l], my (K, 2, 2)
     = sum_l y_l My[:, :, l]), y the mean-centred window velocities
     (cpp:887-898) -- each sum ascending in l."""
-    vels = true_div(window[:, 1:, :2] - window[:, :-1, :2], f32(dt_gp))  # (K, L-1, 2)
+    dt = window.dtype
+    vels = true_div(window[:, 1:, :2] - window[:, :-1, :2], in_dtype(dt_gp, dt))  # (K, L-1, 2)
     n = vels.shape[1]
-    vmean = true_div(_asc_sum([vels[:, l] for l in range(n)]), f32(n))
+    vmean = true_div(_asc_sum([vels[:, l] for l in range(n)]), float(n))
     y = vels - vmean[:, None, :]
     wy, my_w = w_vel["Wy"][:, -1, :], w_vel["My"]                      # (2, L-1), (2, 2, L-1)
     ey = _asc_sum([y[:, l] * wy[:, l] for l in range(n)])
@@ -179,7 +181,8 @@ def track_step_plain(
         pmean, ey_pos, my_pos = position_parts(bank.window, w_pos)
     else:
         pos = lpf_pos(bank.window, config.lpf_tau, dt_gp)              # (cpp:638, 824-833)
-    vmax = f32(config.max_velocity)
+    dt = bank.window.dtype
+    vmax = in_dtype(config.max_velocity, dt)
 
     # The reference runs callIHGP once PER matched detection (cpp:629-659):
     # a track matched d times this frame runs d chained passes and each
@@ -209,7 +212,7 @@ def track_step_plain(
     # ---- expiry (cpp:545-584)
     spin = state.spin_counter + steady.to(torch.int32)
     do_prune = spin > int(config.prune_period * config.frequency)
-    stale = (t.to(torch.float32) - bank.window[:, L - 1, 3]) > f32(config.prune_period)
+    stale = (t.to(dt) - bank.window[:, L - 1, 3]) > in_dtype(config.prune_period, dt)
     prune = do_prune & steady
     alive = torch.where(prune, bank.alive & ~stale, bank.alive)
     spin = torch.where(prune, torch.zeros_like(spin), spin)
@@ -265,13 +268,16 @@ def track_frames(
     config,
     gains_xy: dict,
 ) -> tuple[TrackerState, TrackOutputs]:
-    """K4 on CUDA tensors, ``track_frames_plain`` on CPU tensors."""
+    """K4 on CUDA tensors, ``track_frames_plain`` on CPU tensors.  f64
+    tensors (dets, t, the bank's window and m0, the gains) launch the
+    double build (``motl_track_step_f64``), one launch too."""
     if dets.device.type == "cpu":
         return track_frames_plain(state, dets, det_valid, t, config=config, gains_xy=gains_xy)
     bank = state.bank
     n_b, n_s, d = det_valid.shape
     k, L = bank.window.shape[1], bank.window.shape[2]
     dev = dets.device
+    dt = dets.dtype
     if not kernel_fits(k, d):
         if config.association == "hungarian":
             raise NotImplementedError(
@@ -284,24 +290,29 @@ def track_frames(
             f"1 <= D <= {MAX_DETS} detections (got K={k}, D={d}); the greedy step's "
             "plain route runs past them (tracker/pipeline.py::track_batch)"
         )
-    if dets.shape != (n_b, n_s, d, 4) or dets.dtype != torch.float32 or t.shape != (n_b, n_s):
-        raise ValueError(f"dets must be ({n_b}, {n_s}, {d}, 4) float32 and t ({n_b}, {n_s})")
-    if bank.window.shape != (n_b, k, L, 4) or bank.window.dtype != torch.float32 or L < 2:
-        raise ValueError(f"window must be ({n_b}, {k}, L >= 2, 4) float32")
+    if (dets.shape != (n_b, n_s, d, 4) or dt not in (torch.float32, torch.float64)
+            or t.shape != (n_b, n_s)):
+        raise ValueError(f"dets must be ({n_b}, {n_s}, {d}, 4) float32 or float64 "
+                         f"and t ({n_b}, {n_s})")
+    if bank.window.shape != (n_b, k, L, 4) or bank.window.dtype != dt or L < 2:
+        raise ValueError(f"window must be ({n_b}, {k}, L >= 2, 4) {dt}")
     w, wp = gains_xy["W_vel"], gains_xy["W_pos"]
-    thr32, gapthr, dt32 = _consts(config.id_threshold, config.dt_gp, config.interp_gap_factor)
+    if any(x.dtype != dt for x in (bank.m0, *w.values(), *wp.values())):
+        raise ValueError(f"m0 and the smoother weights must be {dt}, as the detections")
+    thr32, gapthr, dt32 = _consts(config.id_threshold, config.dt_gp, config.interp_gap_factor, dt)
     hungarian = config.association == "hungarian"
     # the auction's parameters as JAX's hungarian_associate_and_update sets
     # them: its eps, max_cost the gate, auction_assign's cap and scale
-    au, n_phases = auction_params(d, EPS, config.id_threshold) if hungarian else (None, 0)
+    au, n_phases = (auction_params(d, EPS, config.id_threshold, dtype=dt) if hungarian
+                    else (None, 0))
     i32 = dict(dtype=torch.int32, device=dev)
     u8 = dict(dtype=torch.bool, device=dev)
     new = TrackerState(
         bank=TrackBank(
             alive=torch.empty((n_b, k), **u8), obj_id=torch.empty((n_b, k), **i32),
             birth_seq=torch.empty((n_b, k), **i32),
-            window=torch.empty((n_b, k, L, 4), dtype=torch.float32, device=dev),
-            m0=torch.empty((n_b, k, 2, 2), dtype=torch.float32, device=dev),
+            window=torch.empty((n_b, k, L, 4), dtype=dt, device=dev),
+            m0=torch.empty((n_b, k, 2, 2), dtype=dt, device=dev),
         ),
         next_obj_num=torch.empty((n_b,), **i32), next_birth=torch.empty((n_b,), **i32),
         spin_counter=torch.empty((n_b,), **i32), initialized=torch.empty((n_b,), **u8),
@@ -310,23 +321,25 @@ def track_frames(
     valid = torch.empty((n_b, n_s, d), **u8)
     new_track = torch.empty((n_b, n_s, d), **u8)
     obj_id = torch.empty((n_b, n_s, d), **i32)
-    pos = torch.empty((n_b, n_s, d, 2), dtype=torch.float32, device=dev)
-    vel = torch.empty((n_b, n_s, d, 2), dtype=torch.float32, device=dev)
+    pos = torch.empty((n_b, n_s, d, 2), dtype=dt, device=dev)
+    vel = torch.empty((n_b, n_s, d, 2), dtype=dt, device=dev)
     counts = torch.empty((n_b, n_s, 4), **i32)
     # inputs made contiguous first and held until the launch: a temporary
     # freed before it could hand its memory to the next one
     ins = [x.contiguous() for x in (
-        dets, det_valid.to(torch.bool), t.to(torch.float32), bank.alive, bank.obj_id,
+        dets, det_valid.to(torch.bool), t.to(dt), bank.alive, bank.obj_id,
         bank.birth_seq, bank.window, bank.m0, state.next_obj_num, state.next_birth,
         state.spin_counter, state.initialized, w["Wy"], w["Wm"], w["My"], w["Mm"],
         wp["Wy"], wp["Wm"], wp["My"], wp["Mm"])]
     nb = new.bank
-    err = _build.load().motl_track_step(
+    entry = "motl_track_step_f64" if dt == torch.float64 else "motl_track_step"
+    err = getattr(_build.load(), entry)(
         *(x.data_ptr() for x in ins), int(config.position_filter == "ihgp"),
         int(hungarian), ctypes.addressof(au) if hungarian else None, n_phases, MAX_ITERS,
         n_b, n_s, k, d, L,
-        thr32, gapthr, dt32, f32(config.max_velocity), *lpf_coefficients(config.lpf_tau, config.dt_gp),
-        f32(config.prune_period), int(config.prune_period * config.frequency),
+        thr32, gapthr, dt32, in_dtype(config.max_velocity, dt),
+        *lpf_coefficients(config.lpf_tau, config.dt_gp, dt),
+        in_dtype(config.prune_period, dt), int(config.prune_period * config.frequency),
         nb.alive.data_ptr(), nb.obj_id.data_ptr(), nb.birth_seq.data_ptr(),
         nb.window.data_ptr(), nb.m0.data_ptr(), new.next_obj_num.data_ptr(),
         new.next_birth.data_ptr(), new.spin_counter.data_ptr(), new.initialized.data_ptr(),
@@ -334,8 +347,11 @@ def track_frames(
         vel.data_ptr(), new_track.data_ptr(), counts.data_ptr(),
         _build.stream_ptr(dev),
     )
-    _build.check(err, "motl_track_step")
-    track_frames.launches += 1
+    _build.check(err, entry)
+    if dt == torch.float64:
+        track_frames.launches_f64 += 1
+    else:
+        track_frames.launches += 1
     return new, TrackOutputs(
         publish=publish, valid=valid, obj_id=obj_id, pos=pos, vel=vel, new_track=new_track,
         n_alive=counts[..., 0], overflow=counts[..., 1], dup_saturated=counts[..., 2],
@@ -344,3 +360,4 @@ def track_frames(
 
 
 track_frames.launches = 0
+track_frames.launches_f64 = 0   # the double builds'

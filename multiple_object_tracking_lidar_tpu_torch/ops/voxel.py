@@ -50,6 +50,12 @@ def f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def in_dtype(x: float, dtype: torch.dtype) -> float:
+    """``x`` as a value of ``dtype`` (f32 or f64), as a Python float: the
+    value JAX gives a Python constant meeting an array of that dtype."""
+    return f32(x) if dtype == torch.float32 else float(x)
+
+
 def true_div(x: torch.Tensor, v: float) -> torch.Tensor:
     """``x / v`` by IEEE division on every device.  PyTorch's CUDA divide by
     a Python scalar multiplies by the scalar's rounded reciprocal instead
@@ -83,14 +89,18 @@ def voxel_accumulate_stacked(
     points: torch.Tensor, mask: torch.Tensor, scene: SceneBounds, leaf_xy: float, leaf_z: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """((S, 4, n_cells) f32 channel-major [sum_x, sum_y, sum_z, count],
-    (S,) i32 mask-nonzero counts): one K6 f32-mode call for S frames."""
+    (S,) i32 mask-nonzero counts): one K6 f32-mode call for S frames.  f64
+    points sum in f64 (the JAX f64 scatter-add; the plain version only:
+    ``accumulate_f32_stacked``)."""
     # imported here: voxel_grid_cuda imports this module
     from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
         accumulate_f32_stacked,
     )
 
     points, mask, _ = _squeeze(points, mask)
-    return accumulate_f32_stacked(points.to(torch.float32).contiguous(), mask, scene, leaf_xy, leaf_z)
+    if points.dtype != torch.float64:
+        points = points.to(torch.float32)
+    return accumulate_f32_stacked(points.contiguous(), mask, scene, leaf_xy, leaf_z)
 
 
 def voxel_accumulate(

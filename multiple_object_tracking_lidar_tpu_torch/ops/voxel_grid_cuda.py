@@ -54,6 +54,7 @@ import torch
 
 from multiple_object_tracking_lidar_tpu_torch import _build
 from multiple_object_tracking_lidar_tpu_torch.config import SceneBounds
+from multiple_object_tracking_lidar_tpu_torch.ops.cluster_pallas import fma32
 from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import max_cluster
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, grid_shape
 
@@ -131,8 +132,11 @@ def kept_cells(p: torch.Tensor, mask: torch.Tensor, k: dict):
 
 
 def _frac_scaled(p, fl, leaf, half, sq, ok):
-    """(p - fl*leaf - half) * 2^k in f32, zero where dropped, before rounding."""
-    return torch.where(ok, (p - fl * leaf) - half, 0.0) * sq
+    """(fma(-fl, leaf, p) - half) * 2^k in f32, zero where dropped, before
+    rounding: ``p - cell0 - half`` with ``p - fl * leaf`` rounded once, as
+    XLA's CPU code contracts ``_v5_quant_cm`` / ``_v6_quant_cm``."""
+    frac = fma32(-fl, torch.full_like(fl, leaf), p) - half
+    return torch.where(ok, frac, 0.0) * sq
 
 
 def _digit_sums(digits: torch.Tensor, ok: torch.Tensor, lin: torch.Tensor, nc: int):
@@ -147,17 +151,28 @@ def _digit_sums(digits: torch.Tensor, ok: torch.Tensor, lin: torch.Tensor, nc: i
 
 
 def _cell_centres(k: dict, n: int, device):
-    """cell0 of each of the first n flat cells, f32: the same integer
-    decomposition and products as ``_v4_finalize_into``."""
+    """The centre cell0 + half of each of the first n flat cells, f32: the
+    integer decomposition of ``_v4_finalize_into`` and its
+    ``(base + i) * leaf + half`` rounded once, as XLA's CPU code contracts
+    it."""
     lin = torch.arange(n, device=device)
     ix = lin % k["gx"]
     iyz = lin // k["gx"]
     iy = iyz % k["gy"]
     iz = iyz // k["gy"]
-    cx = (k["bx"] + ix).to(torch.float32) * k["leaf_xy"]
-    cy = (k["by"] + iy).to(torch.float32) * k["leaf_xy"]
-    cz = (k["bz"] + iz).to(torch.float32) * k["leaf_z"]
-    return cx, cy, cz
+
+    def centre(i, leaf, half):
+        i = i.to(torch.float32)
+        return fma32(i, torch.full_like(i, leaf), torch.full_like(i, half))
+
+    return (centre(k["bx"] + ix, k["leaf_xy"], k["half_xy"]),
+            centre(k["by"] + iy, k["leaf_xy"], k["half_xy"]),
+            centre(k["bz"] + iz, k["leaf_z"], k["half_z"]))
+
+
+def _finalize_axis(cnt, centre, s, invq):
+    """cnt * centre + s * 2^-k rounded once (the finalize's FMA)."""
+    return fma32(cnt, centre.expand_as(cnt), s * invq)
 
 
 def _npts(mask: torch.Tensor, s: int) -> torch.Tensor:
@@ -201,15 +216,16 @@ def accumulate_fast_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
 
 def finalize_fast_digits(sums: torch.Tensor, k: dict) -> torch.Tensor:
     """(S, 4, n_cells) i32 digit sums -> f32 [sum_x, sum_y, sum_z, count]:
-    cnt * (cell0 + half) + digit_sum * 2^-k (``_v4_finalize_into``)."""
+    fma(cnt, cell0 + half, digit_sum * 2^-k) (``_v4_finalize_into`` as
+    XLA's CPU code contracts it)."""
     cx, cy, cz = _cell_centres(k, k["n_cells"], sums.device)
     sf = sums.to(torch.float32)
     cnt = sf[:, 3]
     return torch.stack(
         [
-            cnt * (cx + k["half_xy"]) + sf[:, 0] * k["invq_xy"],
-            cnt * (cy + k["half_xy"]) + sf[:, 1] * k["invq_xy"],
-            cnt * (cz + k["half_z"]) + sf[:, 2] * k["invq_z"],
+            _finalize_axis(cnt, cx, sf[:, 0], k["invq_xy"]),
+            _finalize_axis(cnt, cy, sf[:, 1], k["invq_xy"]),
+            _finalize_axis(cnt, cz, sf[:, 2], k["invq_z"]),
             cnt,
         ],
         dim=1,
@@ -513,17 +529,19 @@ def accumulate_exact_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
 def finalize_exact_digits(acc: torch.Tensor, scene, leaf_xy, leaf_z) -> torch.Tensor:
     """(..., 7, m) raw two-digit sums (v3/v6 scheme, m >= n_cells flat
     cells; the JAX (..., 7, w1, 128) layout reshaped) -> (..., 4, n_cells)
-    f32 accumulator, with ``_v3_finalize_into``'s f32 ops:
-    cnt * (cell0 + half) + (s0 + 256 * s1) * 2^-k (voxel_grid.py:1918)."""
+    f32 accumulator, with ``_v3_finalize_into``'s f32 ops as XLA's CPU code
+    contracts them: fma(cnt, cell0 + half, (s0 + 256 * s1) * 2^-k)
+    (voxel_grid.py:1918; 256 * s1 is exact, so its sum has one rounding
+    either way)."""
     k = kernel_params(scene, leaf_xy, leaf_z, quant="exact")
     cx, cy, cz = _cell_centres(k, acc.shape[-1], acc.device)
     a = acc.to(torch.float32)
     cnt = a[..., 6, :]
     out = torch.stack(
         [
-            cnt * (cx + k["half_xy"]) + (a[..., 0, :] + 256.0 * a[..., 1, :]) * k["invq_xy"],
-            cnt * (cy + k["half_xy"]) + (a[..., 2, :] + 256.0 * a[..., 3, :]) * k["invq_xy"],
-            cnt * (cz + k["half_z"]) + (a[..., 4, :] + 256.0 * a[..., 5, :]) * k["invq_z"],
+            _finalize_axis(cnt, cx, a[..., 0, :] + 256.0 * a[..., 1, :], k["invq_xy"]),
+            _finalize_axis(cnt, cy, a[..., 2, :] + 256.0 * a[..., 3, :], k["invq_xy"]),
+            _finalize_axis(cnt, cz, a[..., 4, :] + 256.0 * a[..., 5, :], k["invq_z"]),
             cnt,
         ],
         dim=-2,
@@ -632,7 +650,8 @@ def _sums_in_key_order(p, key, n_bins, parts):
     coordinates to the (m, 3, k) values summed.  A stable sort groups the
     points by bin; round r then adds every bin's r-th point at once (one
     point per bin, so the index_put has unique indices).  Returns the
-    (n_bins, 3, k) sums and the (n_bins,) counts."""
+    (n_bins, 3, k) sums and the (n_bins,) counts; f64 points sum in f64
+    (the JAX package's f64 scatter-add)."""
     dev = p.device
     n_kept = int((key < n_bins).sum())
     order = torch.sort(key, stable=True).indices[:n_kept]
@@ -641,7 +660,7 @@ def _sums_in_key_order(p, key, n_bins, parts):
     counts = torch.bincount(sk, minlength=n_bins)
     rank = torch.arange(n_kept, device=dev) - (torch.cumsum(counts, 0) - counts)[sk]
     by_rank = torch.sort(rank, stable=True).indices
-    acc = torch.zeros((n_bins,) + vals.shape[1:], dtype=torch.float32, device=dev)
+    acc = torch.zeros((n_bins,) + vals.shape[1:], dtype=vals.dtype, device=dev)
     lo = 0
     for m in torch.bincount(rank).tolist():
         sel = by_rank[lo:lo + m]
@@ -653,7 +672,9 @@ def _sums_in_key_order(p, key, n_bins, parts):
 
 def _ordered_sums_plain(points, mask, scene, leaf_xy, leaf_z, parts):
     """``_sums_in_key_order`` over the S frames' cells (bin frame * nc +
-    lin): the (S * nc, 3, k) sums and the (S * nc,) counts."""
+    lin): the (S * nc, 3, k) sums and the (S * nc,) counts.  The cells come
+    from the f32 points (the JAX quantize is f32 in every dtype); f64
+    points are summed as they are."""
     k = kernel_params(scene, leaf_xy, leaf_z)
     s = points.shape[0]
     nc = k["n_cells"]
@@ -661,12 +682,14 @@ def _ordered_sums_plain(points, mask, scene, leaf_xy, leaf_z, parts):
     ok, lin, _ = kept_cells(p, mask, k)
     frame = torch.arange(s, device=p.device)[:, None]
     key = torch.where(ok, frame * nc + lin, s * nc).reshape(-1)
-    return _sums_in_key_order(p.reshape(-1, 3), key, s * nc, parts)
+    vals = points if points.dtype == torch.float64 else p
+    return _sums_in_key_order(vals.reshape(-1, 3), key, s * nc, parts)
 
 
 def _cell_major(sums, counts, s):
-    """(S * nc, 3) sums and (S * nc,) counts -> (S, 4, nc) f32."""
-    out = torch.cat([sums, counts[:, None].to(torch.float32)], dim=1)
+    """(S * nc, 3) sums and (S * nc,) counts -> (S, 4, nc) of the sums'
+    dtype."""
+    out = torch.cat([sums, counts[:, None].to(sums.dtype)], dim=1)
     return out.reshape(s, -1, 4).permute(0, 2, 1).contiguous()
 
 
@@ -773,9 +796,16 @@ def accumulate_f32_stacked(
     leaf_xy: float,
     leaf_z: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K6 (f32 mode) on CUDA tensors, its plain version on CPU tensors."""
+    """K6 (f32 mode) on CUDA tensors, its plain version on CPU tensors (f64
+    points there too: sums in f64).  f64 points on the card raise: K6 has
+    no double build yet (ROADMAP item 27)."""
     if points.device.type == "cpu":
         return accumulate_f32_stacked_plain(points, mask, scene, leaf_xy, leaf_z)
+    if points.dtype == torch.float64:
+        raise NotImplementedError(
+            "K6's f32-mode sums have no double build yet: the f64 scatter sums (the vmap "
+            "fleet's and the point list's accumulator under dtype='float64') run on the "
+            "CPU only (ROADMAP Queue 1, item 27)")
     out = _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, 1)
     accumulate_f32_stacked.launches += 1
     return out

@@ -29,8 +29,10 @@ chosen as the JAX package chooses them (sharding.py:88-107):
   step (``track_batch`` at B x 1, one CTA per stream).  Exact mode at
   a leaf too coarse for two digits accumulates the bf16x3 sums (K6) and
   all-reduces them in f32 (sharding.py:210-226).
-* **vmap fleet** (every other config): the f32 scatter sums (K6's f32
-  mode) whatever ``voxel_mode`` says, an f32 all-reduce, and perception
+* **vmap fleet** (every other config, and every f64 one, as in JAX): the
+  scatter sums in the compute dtype (K6's f32 mode; the f64 sums have no
+  double build yet and run on the CPU only, ROADMAP item 27) whatever
+  ``voxel_mode`` says, an all-reduce in that dtype, and perception
   from the accumulator with no per-cell static table -- on a grid config
   the stencil CC with the per-point map lookup, since the JAX program's map
   is a tracer there (sharding.py:316-333).  The track step is the same
@@ -190,10 +192,13 @@ class ShardedTracker:
 
     # ---- per rank ------------------------------------------------------
     def _step(self, state, points, mask, t, plan: GridPlan):
-        dev = self.tracker.device
-        pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
+        dev, dt = self.tracker.device, self.tracker.dtype
+        # the vmap fleet sums the points in the compute dtype (JAX sharding.py:
+        # 321); the kernel fleet (f32 only) quantizes f32 points
+        pts = torch.as_tensor(points, device=dev).to(
+            torch.float32 if self._use_kernel_fleet else dt)
         msk = torch.as_tensor(mask, device=dev) != 0
-        t = torch.as_tensor(t, dtype=torch.float32, device=dev)
+        t = torch.as_tensor(t, device=dev).to(dt)
         if self._use_kernel_fleet:
             p = self._kernel_perceive(pts, msk, t, plan)
         else:

@@ -134,6 +134,8 @@ class TrackerNode:
         frame = Frame(
             points=torch.from_numpy(pts).to(dev),
             mask=torch.from_numpy(mask).to(dev),
+            # the stamp in f32 whatever the compute dtype, as the JAX node
+            # rounds it (np.float32); an f64 step casts it up
             t=torch.tensor(t, dtype=torch.float32, device=dev),
         )
         self.state, out = self._bound_step(self.state, frame)

@@ -23,7 +23,8 @@ one of two perception paths:
   rotated or coarse map, a larger grid) the finalize, the static drop (``remove_static_cells``
   with a table, the per-point map lookup ``remove_static`` without one) and
   the stencil CC (``ops/cluster_grid.py::connected_components_grid``) run in
-  plain torch, and an explicit "pallas" that K2 cannot honour raises;
+  plain torch (an f64 step on the card raises there: ``check_f64_routes``),
+  and an explicit "pallas" that K2 cannot honour raises;
 - the point list (``cluster_backend="jnp"`` or ``"pallas"``; the JAX
   package's default ``TrackerConfig()``):
 
@@ -33,8 +34,8 @@ one of two perception paths:
     sweeps) -> cluster postprocess -> K3f circumcenter (one launch)
 
 and then the track step: K4 (``ops/track_cuda.py``), the whole step in
-one launch, or, for greedy past K4's bounds, its plain route
-(``track_route``; a Hungarian step past them raises on the card).  Every
+one launch, or, for an f32 greedy step past K4's bounds, its plain route
+(``track_route``; a Hungarian or f64 step past them raises on the card).  Every
 kernel lives in ``ops/*_cuda.py`` or ``ops/cluster_pallas.py``.
 Perception is stateless, so it runs on S stacked frames at once:
 ``bind_env`` is S = 1 and ``bind_env_multi`` perceives its S frames in one
@@ -105,6 +106,7 @@ from multiple_object_tracking_lidar_tpu_torch.ops.voxel import (
     voxel_accumulate_stacked as scatter_accumulate_stacked,
 )
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid import (
+    digit_kernels_fit,
     finalize_dense_cm,
     voxel_accumulate_stacked,
 )
@@ -121,13 +123,15 @@ from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
     map_state,
 )
 
-# The values each field may take in this package, and the ROADMAP slice
-# that ports the others.  voxel_quant, position_filter and association take
-# both of their values, voxel_mode and cluster_backend all of theirs
-# (TrackerConfig refuses the combinations the JAX package refuses).
-_PORTED = (
-    ("dtype", ("float32",), "other compute dtypes"),
-)
+# The compute dtypes this package runs, and the configurations each runs
+# on: f32 every one (TrackerConfig refuses the combinations the JAX package
+# refuses); f64 the dense grid on the fast digits -- voxel_mode="onehot",
+# cluster_backend="grid", voxel_quant="fast" -- under both position filters
+# and both associations (K1 in f32, then K2, K3f and K4 built for double).
+# The ROADMAP item that ports the rest.
+F64_SCOPE = {"voxel_mode": "onehot", "cluster_backend": "grid", "voxel_quant": "fast"}
+F64_ITEM = "ROADMAP Queue 1, item 27: f64 on the exact, runs and scan modes and the point list"
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -144,13 +148,45 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 
 def check_config(config: TrackerConfig) -> None:
-    for field, ported, slice_name in _PORTED:
-        value = getattr(config, field)
-        if value not in ported:
+    """NotImplementedError, naming the ROADMAP item, where this package does
+    not run ``config``: a compute dtype other than f32 and f64, or f64
+    outside ``F64_SCOPE``."""
+    if config.dtype not in _DTYPES:
+        raise NotImplementedError(
+            f"dtype={config.dtype!r} is not ported yet: this package runs dtype in "
+            f"{tuple(_DTYPES)} (ROADMAP Queue 1: other compute dtypes)"
+        )
+    if config.dtype == "float64":
+        off = {f: getattr(config, f) for f, v in F64_SCOPE.items() if getattr(config, f) != v}
+        if off:
             raise NotImplementedError(
-                f"{field}={value!r} is not ported yet: this package runs "
-                f"{field} in {ported} (ROADMAP Queue 1: {slice_name})"
+                f"dtype='float64' runs on {F64_SCOPE} only, got {off} ({F64_ITEM})"
             )
+
+
+def check_f64_routes(config: TrackerConfig, device, *, k1: bool = True, k2: bool = True,
+                     k4: bool = True) -> None:
+    """NotImplementedError, naming ROADMAP item 27, where an f64 step on a
+    CUDA device would run a stage in plain torch: every f64 stage on the
+    card is a kernel (K1, then K2, K3f and K4 built for double) and none
+    falls back.  ``k1`` is False where the grid passes K1's cells (the
+    plain digit sums), ``k2`` where the dense grid's CC is not K2 (the
+    finalize, static drop and stencil CC in plain torch), ``k4`` where the
+    greedy step takes its plain route.  On the CPU every stage is plain
+    and nothing raises; f32 keeps its plain routes on the card."""
+    if config.dtype != "float64" or torch.device(device).type != "cuda":
+        return
+    plain = [name for name, ok in (
+        ("the digit sums past K1's cells", k1),
+        ("the finalize, static drop and stencil CC without K2 (grid_cc='jnp', a map "
+         "with no per-cell static table, or a grid past K2's cells)", k2),
+        ("the greedy track step past K4's bounds or under assoc_backend='jnp'", k4),
+    ) if not ok]
+    if plain:
+        raise NotImplementedError(
+            f"dtype='float64' on the card runs no plain version, and these stages have "
+            f"no double build: {'; '.join(plain)} ({F64_ITEM})"
+        )
 
 
 class Perception(NamedTuple):
@@ -189,7 +225,8 @@ def make_plan(config: TrackerConfig, env: MapEnv, device, cell_table: bool = Tru
     JAX fleet's vmap form takes it (its map is a tracer there).  K2 runs
     where ``grid_cc`` is "auto" or "pallas", a table exists and the grid
     fits K2 (pipeline.py:527-549); "pallas" that K2 cannot honour raises
-    ValueError."""
+    ValueError.  An f64 plan on the card whose grid passes K1 or does not
+    take K2 raises NotImplementedError (``check_f64_routes``)."""
     cfg = config
     dims = grid_shape(cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
     env = env._replace(**{f: getattr(env, f).to(device) for f in env._fields if f != "host"})
@@ -210,6 +247,9 @@ def make_plan(config: TrackerConfig, env: MapEnv, device, cell_table: bool = Tru
             "use a coarser leaf or grid_cc='auto' for the stencil fallback"
         )
     k2 = table is not None and fits and cfg.grid_cc in ("auto", "pallas")
+    if cfg.dtype == "float64":
+        k1 = digit_kernels_fit(cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z, device)
+        check_f64_routes(cfg, device, k1=k1, k2=k2)
     scal = make_scal(env, cfg.cluster_tolerance, device) if k2 else None
     return GridPlan(env=env, dims=dims, table=table, scal=scal, k2=k2)
 
@@ -217,35 +257,39 @@ def make_plan(config: TrackerConfig, env: MapEnv, device, cell_table: bool = Tru
 class Tracker:
     """Binds a TrackerConfig to the step on ``device`` (the card unless
     the caller passes "cpu").  The stationary IHGP gains are computed once
-    here on the host in f64 and held as f32 tensors on the device."""
+    here on the host in f64 and held as tensors of the compute dtype on the
+    device."""
 
     def __init__(self, config: TrackerConfig, device: torch.device | str = "cuda"):
         check_config(config)
         self.config = config
+        self.dtype = _DTYPES[config.dtype]
         self.device = resolve_device(device)
         _, _, gains_np = self.compute_gains(
             config,
             (config.logSigma2_x, config.logMagnSigma2_x, config.logLengthScale_x),
             (config.logSigma2_y, config.logMagnSigma2_y, config.logLengthScale_y),
         )
-        self.gains_xy = gains_from_numpy(gains_np, self.device)
+        self.gains_xy = gains_from_numpy(gains_np, self.device, self.dtype)
 
     @staticmethod
     def compute_gains(config: TrackerConfig, log_x, log_y):
         """Host-f64 stationary gains + smoother weights per axis, stacked on
-        a leading {x, y} axis as f32 numpy (the JAX Tracker.compute_gains)."""
+        a leading {x, y} axis as numpy of the compute dtype (the JAX
+        Tracker.compute_gains)."""
+        dtype = np.dtype(config.dtype)
         gx = stationary_gains(matern32_from_log(*log_x), config.dt_gp)
         gy = stationary_gains(matern32_from_log(*log_y), config.dt_gp)
-        ax, ay = gx.as_arrays(np.float32), gy.as_arrays(np.float32)
+        ax, ay = gx.as_arrays(dtype), gy.as_arrays(dtype)
         gains_xy = {k: np.stack([ax[k], ay[k]]) for k in ax}
-        gains_xy["W_vel"] = smoother_weights_xy(gx, gy, config.data_length - 1, np.float32)
-        gains_xy["W_pos"] = smoother_weights_xy(gx, gy, config.data_length, np.float32)
+        gains_xy["W_vel"] = smoother_weights_xy(gx, gy, config.data_length - 1, dtype)
+        gains_xy["W_pos"] = smoother_weights_xy(gx, gy, config.data_length, dtype)
         return gx, gy, gains_xy
 
     def init_state(self, batch: int | None = None) -> TrackerState:
         """A fresh state; ``batch`` stacks that many (a fleet's streams)."""
         return init_state(
-            self.config.caps.k_max_tracks, self.config.data_length, torch.float32,
+            self.config.caps.k_max_tracks, self.config.data_length, self.dtype,
             self.device, batch=batch,
         )
 
@@ -256,11 +300,15 @@ class Tracker:
         return make_plan(self.config, env, self.device, cell_table=cell_table)
 
     def _frame(self, frame: Frame) -> Frame:
+        """The frame on the device: points in f32 (every accumulator
+        quantizes f32 points, as the JAX package's fast digits do under
+        f64: voxel_grid.py:187-233), t in the compute dtype (a caller's
+        f64 stamp is not rounded through f32 first)."""
         dev = self.device
         return Frame(
             points=torch.as_tensor(frame.points, dtype=torch.float32, device=dev),
             mask=torch.as_tensor(frame.mask, device=dev),
-            t=torch.as_tensor(frame.t, dtype=torch.float32, device=dev),
+            t=torch.as_tensor(frame.t, device=dev).to(self.dtype),
         )
 
     def step(self, state: TrackerState, frame: Frame, env: MapEnv):
@@ -268,16 +316,20 @@ class Tracker:
 
     def accumulate(self, points: torch.Tensor, mask: torch.Tensor):
         """The config's dense voxel accumulator on S stacked frames:
-        ((S, 4, n_cells) f32, (S,) i32 mask-nonzero counts) -- the sorted
-        runs (K7), the scatter sums (K6 f32 mode, ``voxel_mode="dense"``)
-        or the one-hot route of ``voxel_quant`` (K1, K5 or K6)."""
+        ((S, 4, n_cells) of the compute dtype, (S,) i32 mask-nonzero
+        counts) -- the sorted runs (K7), the scatter sums (K6 f32 mode,
+        ``voxel_mode="dense"``) or the one-hot route of ``voxel_quant`` (K1,
+        K5 or K6).  Under f64 (the fast digits alone) K1's f32 sums are
+        cast, as the JAX package casts its f32 finalize (voxel_grid.py:
+        231)."""
         cfg = self.config
         args = (points, mask, cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
         if cfg.voxel_mode == "runs":
             return voxel_accumulate_runs_stacked(*args)
         if cfg.voxel_mode == "dense":
             return scatter_accumulate_stacked(*args)
-        return voxel_accumulate_stacked(*args, quant=cfg.voxel_quant)
+        accs, npts = voxel_accumulate_stacked(*args, quant=cfg.voxel_quant)
+        return accs.to(self.dtype), npts
 
     def perceive(self, frames: Frame, plan: GridPlan) -> Perception:
         """Stateless perception of S stacked frames (points (S, N, 3)):
@@ -411,7 +463,7 @@ def _perceive_batch_from_dense_acc(
             leaf_z=leaf_z, kwin=plan.table.k,
         )
     else:
-        cent, occ, _ = finalize_dense_cm(accs.to(torch.float32))
+        cent, occ, _ = finalize_dense_cm(accs)
         if plan.table is not None:
             dyn = remove_static_cells(cent, occ, plan.env, plan.table)
         else:
@@ -519,25 +571,30 @@ def track_batch(
     under ``assoc_backend="jnp"`` (the JAX package's choice, ops/assign.py:
     168-178) and past K4's bounds (K > 1,024 slots or D > 128
     detections), where the JAX package takes its jnp scan too.  A
-    Hungarian step past K4's bounds raises on the card (ROADMAP item 26).
+    Hungarian step past K4's bounds raises on the card (ROADMAP item 26),
+    and so does an f64 step that would take the plain route (item 27).
     Every route makes the same decisions."""
-    route = track_route(config, state.bank.alive.shape[-1], dets.shape[-2])
+    route = track_route(config, state.bank.alive.shape[-1], dets.shape[-2], dets.device)
     run = track_frames if route == "kernel" else track_frames_plain
     return run(state, dets, det_valid, t, config=config, gains_xy=gains_xy)
 
 
-def track_route(config: TrackerConfig, k: int, d: int) -> str:
+def track_route(config: TrackerConfig, k: int, d: int, device=None) -> str:
     """The track step's route on the card for a bank of ``k`` slots and
     ``d`` detection slots: "kernel" (K4) or "plain" (``track_frames_plain``
     on the device).  The plain route is greedy's alone: under
-    ``assoc_backend="jnp"`` and past K4's bounds.  ``assoc_backend`` picks
+    ``assoc_backend="jnp"`` and past K4's bounds; an f64 step on a CUDA
+    ``device`` raises there instead (``check_f64_routes``).  ``assoc_backend`` picks
     the greedy engine only -- the JAX package passes it to the greedy
     associator alone (pipeline.py:984-990) -- so a Hungarian step takes K4
     whatever it says, and past K4's bounds K4 raises (ROADMAP item 26).
     On the CPU every route is the plain version."""
     if config.association == "hungarian":
         return "kernel"
-    return "kernel" if config.assoc_backend != "jnp" and kernel_fits(k, d) else "plain"
+    route = "kernel" if config.assoc_backend != "jnp" and kernel_fits(k, d) else "plain"
+    if device is not None:
+        check_f64_routes(config, device, k4=route == "kernel")
+    return route
 
 
 def _frame_output(o: TrackOutputs, p: Perception) -> FrameOutput:

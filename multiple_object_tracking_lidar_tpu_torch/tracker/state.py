@@ -139,13 +139,22 @@ def _t(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device).to(dtype)  # a copy: never aliases
 
 
+def _float_t(a, device) -> torch.Tensor:
+    """A float leaf in its compute dtype: f64 stays f64, the rest f32."""
+    a = np.array(a)
+    return _t(a, torch.float64 if a.dtype == np.float64 else torch.float32, device)
+
+
 def state_from_numpy(state, device="cpu") -> TrackerState:
     """A JAX TrackerState (any NamedTuple with its fields, leaves as numpy
     arrays) -> this package's TrackerState on ``device``.  Leaves keep
     their shapes, so a fleet's batched state (a leading stream axis)
     carries across as a stacked state."""
     b = state.bank
-    bank = TrackBank(**{f: _t(getattr(b, f), _STATE_DTYPES[f], device) for f in TrackBank._fields})
+    bank = TrackBank(**{
+        f: _float_t(getattr(b, f), device) if _STATE_DTYPES[f].is_floating_point
+        else _t(getattr(b, f), _STATE_DTYPES[f], device)
+        for f in TrackBank._fields})
     return TrackerState(
         bank=bank,
         **{
@@ -208,11 +217,12 @@ def table_to_numpy(table) -> dict:
     }
 
 
-def gains_from_numpy(gains_xy: dict, device="cpu") -> dict:
+def gains_from_numpy(gains_xy: dict, device="cpu", dtype=torch.float32) -> dict:
     """The JAX Tracker.gains_xy dict (numpy leaves; the smoother weights
-    W_vel / W_pos are nested dicts) -> the same nesting of f32 tensors."""
+    W_vel / W_pos are nested dicts) -> the same nesting of tensors of the
+    compute dtype (f32 or f64)."""
     return {
-        k: gains_from_numpy(v, device) if isinstance(v, dict) else _t(v, torch.float32, device)
+        k: gains_from_numpy(v, device, dtype) if isinstance(v, dict) else _t(v, dtype, device)
         for k, v in gains_xy.items()
     }
 

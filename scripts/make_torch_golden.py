@@ -43,17 +43,22 @@ every FrameOutput field stacked over frames:
   through ``Tracker.bind_env`` -> ``tests/golden/torch_hungarian_headline.npz``;
 - ``dense_hungarian``: ``bench.dense_case()`` (40 objects 0.55 m apart,
   C = 64, K = 96, both z-slabs) with ``association="hungarian"`` through
-  ``Tracker.bind_env``, 8 frames -> ``tests/golden/torch_hungarian_dense.npz``,
-  two detections of which (frames 2 and 3) the port holds to a looser
-  bound (ROADMAP Queue 3, F8: ``chip_smoke.F8_DENSE``);
-- ``cli``, ``cli_ihgp`` and ``cli_hungarian``: the JAX CLI, ``run --map
+  ``Tracker.bind_env``, 8 frames -> ``tests/golden/torch_hungarian_dense.npz``;
+- ``f64``: the headline config with ``dtype="float64"`` through
+  ``Tracker.bind_env`` (jax_enable_x64 on; the frames as the others, f32
+  points and stamps, which both packages cast) ->
+  ``tests/golden/torch_f64_headline.npz``;
+- ``f64_hungarian_ihgp``: the same under ``association="hungarian"`` and
+  ``position_filter="ihgp"`` -> ``tests/golden/torch_f64_hungarian_ihgp_headline.npz``;
+- ``cli``, ``cli_ihgp``, ``cli_hungarian`` and ``cli_f64``: the JAX CLI, ``run --map
   assets/sim_map.yaml --backend grid --bag <16 headline frames> --frames
   16`` (the default ``TrackerConfig()``; ``cli_ihgp`` and
   ``cli_hungarian`` with a config file that sets ``position_filter: ihgp``
-  or ``association: hungarian``), on the CPU: its JSON lines, and beside each
+  or ``association: hungarian``, ``cli_f64`` one that sets ``dtype:
+  float64``, x64 on), on the CPU: its JSON lines, and beside each
   obstacle its unrounded speed (``hypot(vx, vy)`` of the published
   velocity, before the label's rounding) ->
-  ``tests/golden/torch_cli{,_ihgp,_hungarian}_headline.json``.  The bag is the
+  ``tests/golden/torch_cli{,_ihgp,_hungarian,_f64}_headline.json``.  The bag is the
   headline scenario's ``frame(k)`` PointCloud2 messages, 100,000 points
   each, recorded by ``io/bag.py`` (``cli_bag``).
 
@@ -87,11 +92,15 @@ GOLDENS = {
     "hungarian": os.path.join(GOLDEN_DIR, "torch_hungarian_headline.npz"),
     "dense_hungarian": os.path.join(GOLDEN_DIR, "torch_hungarian_dense.npz"),
     "cli_hungarian": os.path.join(GOLDEN_DIR, "torch_cli_hungarian_headline.json"),
+    "f64": os.path.join(GOLDEN_DIR, "torch_f64_headline.npz"),
+    "f64_hungarian_ihgp": os.path.join(GOLDEN_DIR, "torch_f64_hungarian_ihgp_headline.npz"),
+    "cli_f64": os.path.join(GOLDEN_DIR, "torch_cli_f64_headline.json"),
 }
 CLI_FRAMES = 16
 CLI_IHGP_CONFIG = "position_filter: ihgp\n"   # the cli_ihgp config file's text
 CLI_CONFIGS = {"cli_ihgp": CLI_IHGP_CONFIG,   # each CLI golden's config file, if any
-               "cli_hungarian": "association: hungarian\n"}
+               "cli_hungarian": "association: hungarian\n",
+               "cli_f64": "dtype: float64\n"}
 GROWTH_K0 = 2   # the growth golden's initial k_max_tracks
 N_FRAMES = 12
 # frames (the fleet: steps) per golden where not N_FRAMES
@@ -110,7 +119,15 @@ CASE_FIELDS = {
     "ihgp": {"position_filter": "ihgp"},
     "hungarian": {"association": "hungarian"},
     "dense_hungarian": {"association": "hungarian"},
+    "f64": {"dtype": "float64"},
+    "f64_hungarian_ihgp": {"dtype": "float64", "association": "hungarian",
+                           "position_filter": "ihgp"},
 }
+
+
+def uses_f64(case: str) -> bool:
+    """True iff the golden runs dtype="float64" (JAX then needs x64 on)."""
+    return "f64" in case
 
 
 def n_frames_of(case: str) -> int:
@@ -228,12 +245,15 @@ def cli_outputs(case: str, n_frames: int = CLI_FRAMES) -> dict:
     import json
     import tempfile
 
+    import jax
     import numpy as np
 
     sys.path.insert(0, REPO)
     from multiple_object_tracking_lidar_tpu.runtime import node as jnode
     from multiple_object_tracking_lidar_tpu.runtime.cli import main as jmain
 
+    if uses_f64(case):
+        jax.config.update("jax_enable_x64", True)
     speeds = []
     on_pointcloud = jnode.TrackerNode.on_pointcloud
 
@@ -279,6 +299,8 @@ def golden_outputs(n_frames: int | None = None, case: str = "slice",
     from multiple_object_tracking_lidar_tpu.tracker.pipeline import Tracker
     from multiple_object_tracking_lidar_tpu.tracker.state import Frame
 
+    if uses_f64(case):
+        jax.config.update("jax_enable_x64", True)
     if case == "fleet":
         return fleet_outputs(n_frames_of(case) if n_frames is None else n_frames, n_streams)
     if case == "growth":

@@ -1,7 +1,7 @@
 """The ctypes signatures of the port's kernel library (``_build.SIGNATURES``)
 against the ``extern "C"`` entry points of ``csrc/*.cu``, parameter by
 parameter: a pointer is ``c_void_p``, an int ``c_int``, a float
-``c_float``.  A wrong list would pass Python ints of the wrong width to
+``c_float``, a double ``c_double``.  A wrong list would pass Python ints of the wrong width to
 the kernels on the card, where nothing here can check it; the sources are
 read as text, so no compiler is needed."""
 
@@ -31,6 +31,8 @@ def _kind(param: str):
         return ctypes.c_void_p
     if param.split()[0] == "float":
         return ctypes.c_float
+    if param.split()[0] == "double":
+        return ctypes.c_double
     assert param.split()[0] == "int", param
     return ctypes.c_int
 

@@ -1070,8 +1070,8 @@ def test_hungarian_route_ignores_assoc_backend_on_the_card(dev, small):
 def test_hungarian_bind_env_on_the_card_matches_golden(dev, case):
     """The headline and the dense scene under hungarian through
     ``bind_env`` on the card against their JAX goldens: decisions exact,
-    floats within the goldens' tolerances (the dense golden's F8
-    detections within chip_smoke.TOL_F8), one K4 launch per frame."""
+    floats within the goldens' tolerances in every lane, one K4 launch per
+    frame."""
     from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
     from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
 
@@ -1092,5 +1092,169 @@ def test_hungarian_bind_env_on_the_card_matches_golden(dev, case):
         rows.append(out)
     assert track_cuda.track_frames.launches == n0 + n
     got = {f: np.stack([getattr(r, f).cpu().numpy() for r in rows]) for f in golden}
-    chip_smoke.compare(case, got, golden, chip_smoke.TOL_DETS, chip_smoke.TOL_VEL,
-                       f8=chip_smoke.F8_DENSE if case == "dense_hungarian" else ())
+    chip_smoke.compare(case, got, golden, chip_smoke.TOL_DETS, chip_smoke.TOL_VEL)
+
+
+# ---------------------------------------------------------------------------
+# dtype="float64": K2, K3f and K4 built for double
+# ---------------------------------------------------------------------------
+def test_k2_f64_matches_plain(dev, small):
+    """K2's double build on K1's sums cast to f64 (and a frame of many
+    components), every output bit for bit its plain version; one launch,
+    counted as the double build's."""
+    cfg, env, frames = small
+    P = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+    M = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
+    accs, _ = voxel_grid_cuda.accumulate_fast_stacked(
+        P, M, cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    accs = accs.double()
+    coin = torch.from_numpy(np.random.default_rng(6).random(accs.shape[2]) < 0.5).to(dev)
+    accs[6, 3] = torch.where(accs[6, 3] > 0, accs[6, 3], coin.double())
+    plan = Tracker(cfg, dev).plan(env)
+    tb = (plan.scal, plan.table.base_row, plan.table.base_col, plan.table.bits)
+    kw = dict(dims=plan.dims, tol=cfg.cluster_tolerance, leaf_xy=cfg.voxel_leaf_size,
+              leaf_z=cfg.leaf_z, kwin=plan.table.k)
+    w = grid_cuda.fused_finalize_static_cc_stacked
+    n0, n64 = w.launches, w.launches_f64
+    k = w(accs, *tb, **kw)
+    assert (w.launches, w.launches_f64) == (n0, n64 + 1) and k[0].dtype == torch.float64
+    p = grid_cuda.fused_finalize_static_cc_stacked_plain(
+        accs, *tb, dims=plan.dims, kwin=plan.table.k, max_sweeps=2 * sum(plan.dims),
+        offsets=grid_cuda.kernel_offsets(plan.dims, cfg.cluster_tolerance,
+                                         cfg.voxel_leaf_size, cfg.leaf_z),
+        tol=cfg.cluster_tolerance)
+    for a, b in zip(k, p):
+        assert _bits(a, b)
+
+
+@pytest.mark.parametrize("s,c,p", [(1, 32, 384), (8, 32, 384)])
+def test_k3f_f64_matches_plain(dev, s, c, p):
+    """K3f's double build on f64 member tables (random clusters, a lattice,
+    a collinear slot, empty slots) bit for bit its plain version."""
+    rng = np.random.default_rng(s * 100 + c)
+    mp = rng.normal(0, 1, (s * c, p, 3))
+    mm = np.zeros((s * c, p), bool)
+    for i in range(s * c):
+        mm[i, : int(rng.integers(0, p))] = i % 4 != 3
+    mp[1, :9] = np.stack([0.25 * np.arange(9), 0.5 * np.arange(9), np.zeros(9)], 1)
+    mm[1] = np.arange(p) < 9
+    mp[2, :20] = np.round(mp[2, :20] * 10) / 10
+    t = torch.arange(s, dtype=torch.float64, device=dev) * 0.1 + 1e-12
+    MP, MM = torch.from_numpy(mp).to(dev), torch.from_numpy(mm).to(dev)
+    n64 = centroid_cuda.circumcenter_features.launches_f64
+    got = centroid_cuda.circumcenter_features(MP, MM, t)
+    assert centroid_cuda.circumcenter_features.launches_f64 == n64 + 1
+    assert got.dtype == torch.float64
+    assert _bits(got, centroid_cuda.circumcenter_features_plain(MP, MM, t))
+
+
+@pytest.mark.parametrize("K,B,S,D,pf,assoc", [
+    (64, 1, 1, 16, "lpf", "greedy"), (64, 1, 8, 32, "ihgp", "greedy"),
+    (64, 8, 1, 16, "lpf", "greedy"), (1024, 1, 4, 128, "lpf", "greedy"),
+    (64, 1, 8, 32, "lpf", "hungarian"), (64, 8, 1, 16, "ihgp", "hungarian"),
+    (1024, 1, 1, 128, "ihgp", "hungarian")])
+def test_k4_f64_matches_plain(dev, small, K, B, S, D, pf, assoc):
+    """K4's double builds (greedy and Hungarian, lpf and ihgp) on f64
+    inputs, every state and output field bit for bit their plain version,
+    one launch per call."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+
+    cfg, _, _ = small
+    cfg = cfg.replace(dtype="float64", position_filter=pf, association=assoc)
+    gains = Tracker(cfg, dev).gains_xy
+    st, dets, valid, t = track_scene(K + B + S, cfg, K, D, B, S, (0,), dev,
+                                     gated=assoc == "hungarian")
+    st = st._replace(bank=st.bank._replace(window=st.bank.window.double(),
+                                           m0=st.bank.m0.double()))
+    dets, t = dets.double(), t.double()
+    n0, n64 = track_cuda.track_frames.launches, track_cuda.track_frames.launches_f64
+    got = track_cuda.track_frames(st, dets, valid, t, config=cfg, gains_xy=gains)
+    assert (track_cuda.track_frames.launches, track_cuda.track_frames.launches_f64) == (n0, n64 + 1)
+    want = track_cuda.track_frames_plain(st, dets, valid, t, config=cfg, gains_xy=gains)
+    assert got[0].bank.window.dtype == torch.float64 and _same_tree(got, want)
+
+
+def test_k4_hungarian_f64_raises_past_k4_bounds(dev, small):
+    """As in f32, a Hungarian f64 step past K4's 128 detections raises
+    (ROADMAP item 26)."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+
+    cfg, _, _ = small
+    cfg = cfg.replace(dtype="float64", association="hungarian")
+    st, dets, valid, t = track_scene(7, cfg, 64, 256, 1, 1, (), dev, gated=True)
+    st = st._replace(bank=st.bank._replace(window=st.bank.window.double(),
+                                           m0=st.bank.m0.double()))
+    with pytest.raises(NotImplementedError, match="item 26"):
+        track_cuda.track_frames(st, dets.double(), valid, t.double(), config=cfg,
+                                gains_xy=Tracker(cfg, dev).gains_xy)
+
+
+def test_f64_slice_gpu_matches_cpu_plain_path(dev, small):
+    """``bind_env`` under f64 on the card (K1, then K2, K3f and K4's double
+    builds, no f32 build of them) against the CPU plain path: every field
+    bit for bit."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+
+    cfg, env, frames = small
+    cfg = cfg.replace(dtype="float64")
+    env_cpu = headline_case()[1]
+    outs = {}
+    counts = (grid_cuda.fused_finalize_static_cc_stacked, centroid_cuda.circumcenter_features,
+              track_cuda.track_frames)
+    for where, e in (("cpu", env_cpu), ("gpu", env)):
+        tr = Tracker(cfg, "cpu" if where == "cpu" else dev)
+        step, st = tr.bind_env(e), tr.init_state()
+        before = [(w.launches, w.launches_f64) for w in counts]
+        rows = []
+        for buf, mask, t in frames[:7]:
+            st, o = step(st, Frame(torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))
+            rows.append([x.cpu() for x in o])
+        outs[where] = rows
+        if where == "gpu":
+            after = [(w.launches, w.launches_f64) for w in counts]
+            assert all(a[0] == b[0] and a[1] == b[1] + 7 for a, b in zip(after, before))
+    for rc, rg in zip(outs["cpu"], outs["gpu"]):
+        for name, a, b in zip(FrameOutput._fields, rc, rg):
+            assert _bits(a, b), name
+
+
+@pytest.mark.parametrize("route", ["grid_cc_jnp", "no_cell_table", "past_k2", "past_k1",
+                                   "greedy_past_k4", "assoc_backend_jnp"])
+def test_f64_plain_routes_raise_on_the_card(dev, small, monkeypatch, route):
+    """Every f64 stage on the card is a kernel: where f32 takes a plain
+    route (the stencil CC without K2, the plain digit sums past K1, the
+    greedy step past K4's bounds or under assoc_backend="jnp"), an f64
+    plan or step on the card raises naming ROADMAP item 27."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+    from multiple_object_tracking_lidar_tpu_torch.tracker import pipeline
+
+    cfg, env, _ = small
+    cfg = cfg.replace(dtype="float64")
+    if route in ("greedy_past_k4", "assoc_backend_jnp"):
+        k, d = (1025, 16) if route == "greedy_past_k4" else (64, 16)
+        if route == "assoc_backend_jnp":
+            cfg = cfg.replace(assoc_backend="jnp")
+        st, dets, valid, t = track_scene(3, cfg, k, d, 1, 1, (), dev)
+        st = st._replace(bank=st.bank._replace(window=st.bank.window.double(),
+                                               m0=st.bank.m0.double()))
+        n0 = track_cuda.track_frames.launches_f64
+        with pytest.raises(NotImplementedError, match="item 27"):
+            pipeline.track_batch(st, dets.double(), valid, t.double(), config=cfg,
+                                 gains_xy=Tracker(cfg, dev).gains_xy)
+        assert track_cuda.track_frames.launches_f64 == n0
+        return
+    kw = {}
+    if route == "grid_cc_jnp":
+        cfg = cfg.replace(grid_cc="jnp")
+    elif route == "no_cell_table":
+        kw = {"cell_table": False}
+    elif route == "past_k2":
+        monkeypatch.setattr(pipeline, "fused_cc_fits", lambda *a: False)
+    else:
+        monkeypatch.setattr(pipeline, "digit_kernels_fit", lambda *a: False)
+    with pytest.raises(NotImplementedError, match="item 27"):
+        Tracker(cfg, dev).plan(env, **kw)
+    Tracker(cfg.replace(dtype="float32"), dev).plan(env, **kw)     # f32 keeps its plain routes

@@ -180,25 +180,12 @@ def test_f1_routes():
 F2_SCENE = dict(x_min=0.0, x_max=5.15, y_min=0.0, y_max=11.24, z_min=0.0, z_max=2.0)
 
 
-def _fma_neutral(pts, mask, scene, leaf, leaf_z):
-    """``mask`` with the points cleared whose exact-mode digit depends on
-    whether ``p - floor(p / leaf) * leaf`` is rounded once (an FMA, as XLA's
-    CPU code contracts it) or twice (K5), as test_torch_exact.py does; NaN
-    rows stay as they were (every route drops them)."""
-    k = vgc.kernel_params(TScene(**scene), leaf, leaf_z, quant="exact")
-    keep = mask.copy()
-    with np.errstate(invalid="ignore", over="ignore"):
-        for a, (inv, lf, half, sq) in enumerate(
-            [("inv_xy", "leaf_xy", "half_xy", "sq_xy")] * 2 + [("inv_z", "leaf_z", "half_z", "sq_z")]
-        ):
-            p = pts[:, a]
-            fl = np.floor(p * np.float32(k[inv]))
-            twice = (p - fl * np.float32(k[lf])) - np.float32(k[half])
-            once = (p.astype(np.float64) - fl.astype(np.float64) * np.float64(np.float32(k[lf])))
-            once = once.astype(np.float32) - np.float32(k[half])
-            keep &= ~(np.rint(twice * np.float32(k[sq])) != np.rint(once * np.float32(k[sq])))
-    nan = np.isnan(pts).any(axis=1)
-    return np.where(nan, mask, keep)
+def _jit_fast_route(pts, mask, scene, leaf, leaf_z):
+    """The JAX package's fast-digit jnp route under ``jax.jit`` (the
+    program its tracking paths run): ((4, n_cells) f32, point count)."""
+    acc, n = jax.jit(lambda p, m: voxel_accumulate_onehot_cm(
+        p, m, scene, leaf, leaf_z, quant="fast", with_npts=True))(jnp.asarray(pts), jnp.asarray(mask))
+    return np.asarray(acc), n
 
 
 def _f2_points(rng, n, leaf, hi=(5.5, 11.5, 2.2)):
@@ -220,13 +207,11 @@ def test_f2_digit_sums_past_the_one_cta_histogram(quant):
     the kernels (on the CPU their plain versions) and never the plain
     route, and matches the JAX package in the same mode on the same points
     and mask.  Fast mode: its fast-digit route (the same integer sums; the
-    f32 finalize within 1 ulp, test_torch_voxel.py's tolerance).  Exact
+    f32 finalize too, under ``jax.jit``: test_torch_voxel.py).  Exact
     mode: the TPU's exact program, the stacked v6 kernel (interpret mode)
     -- its raw two-digit sums and point count exact, the port's accumulator
-    against its ``finalize_exact_digits`` with counts exact and sums within
-    one ulp of the product and one of the result (test_torch_exact.py's
-    bound: XLA on the CPU may contract the finalize into an FMA); also K5's
-    plain version bit for bit."""
+    equal to its jitted ``finalize_exact_digits`` (the FMAs XLA's CPU code
+    contracts, which K5 spells); also K5's plain version bit for bit."""
     scene, leaf, leaf_z = TScene(**F2_SCENE), 0.05, 1.0
     assert vgc.kernel_params(scene, leaf, leaf_z)["n_cells"] == 70_200
     assert tvg.digit_kernels_fit(scene, leaf, leaf_z)
@@ -235,9 +220,6 @@ def test_f2_digit_sums_past_the_one_cta_histogram(quant):
     n = 4096
     pts = _f2_points(rng, n, leaf)
     mask = rng.random(n) < 0.95
-    if quant == "exact":
-        mask = _fma_neutral(pts, mask, F2_SCENE, leaf, leaf_z)
-        assert mask[300:310].any() and mask.sum() > 3500
     P, M = torch.from_numpy(pts)[None], torch.from_numpy(mask)[None]
     routes = tvg.digit_sums_stacked.plain_routes
     acc, npts = tvg.voxel_accumulate_stacked(P, M, scene, leaf, leaf_z, quant=quant)
@@ -254,24 +236,16 @@ def test_f2_digit_sums_past_the_one_cta_histogram(quant):
         np.testing.assert_array_equal(
             sums[0].numpy(), np.asarray(raw).reshape(7, -1)[:, :70_200].astype(np.int32))
         assert int(jn[0]) == int(npts[0])
-        jacc = np.asarray(jvg.finalize_exact_digits(raw, js, leaf, leaf_z), np.float32)
+        jacc = np.asarray(jax.jit(lambda r: jvg.finalize_exact_digits(r, js, leaf, leaf_z))(raw),
+                          np.float32)
         jacc = jacc.reshape(4, -1)[:, :70_200]
-        got = acc[0].numpy()
-        np.testing.assert_array_equal(got[3], jacc[3])
         assert np.isfinite(jacc).all()
-        k = vgc.kernel_params(scene, leaf, leaf_z, quant="exact")
-        cs = vgc._cell_centres(k, 70_200, "cpu")
-        for a, half in enumerate((k["half_xy"], k["half_xy"], k["half_z"])):
-            prod = jacc[3] * (cs[a].numpy() + np.float32(half))
-            bound = np.spacing(np.abs(prod)) + np.spacing(np.abs(jacc[a]))
-            assert (np.abs(got[a] - jacc[a]) <= bound).all(), a
+        np.testing.assert_array_equal(acc[0].numpy(), jacc)
         return
-    jacc, jn = voxel_accumulate_onehot_cm(jnp.asarray(pts), jnp.asarray(mask), JScene(**F2_SCENE),
-                                          leaf, leaf_z, quant="fast", with_npts=True)
-    jacc = np.asarray(jacc)
+    jacc, jn = _jit_fast_route(pts, mask, JScene(**F2_SCENE), leaf, leaf_z)
     np.testing.assert_array_equal(acc[0, 3].numpy(), jacc[3])
     assert int(jn) == int(npts[0])
-    np.testing.assert_allclose(acc[0].numpy(), jacc, rtol=3e-7, atol=1e-7)
+    np.testing.assert_array_equal(acc[0].numpy(), jacc)
 
 
 F2_BIG_SCENE = dict(x_min=0.0, x_max=6.43, y_min=0.0, y_max=12.83, z_min=0.0, z_max=2.1)
@@ -283,7 +257,7 @@ def test_f2_digit_sums_past_the_cluster_capacity(quant):
     16 ranges of CTAs (232,320 cells): the dispatcher takes the plain integer digit
     sums and K1's / K5's finalize (``plain_routes`` counts it), the same
     bits as K1's / K5's plain version; fast mode matches the JAX package's
-    fast-digit route (counts exact, sums within 1 ulp), exact mode the JAX
+    fast-digit route under jit bit for bit, exact mode the JAX
     fast route's counts (the same integers in either mode)."""
     scene, leaf, leaf_z = TScene(**F2_BIG_SCENE), 0.05, 0.25
     nc = vgc.kernel_params(scene, leaf, leaf_z)["n_cells"]
@@ -300,15 +274,12 @@ def test_f2_digit_sums_past_the_cluster_capacity(quant):
              else vgc.accumulate_exact_stacked_plain)(P, M, scene, leaf, leaf_z)
     assert torch.equal(acc.view(torch.int32), plain[0].view(torch.int32))
     assert int(npts[0]) == int(mask.sum()) == int(plain[1][0])
-    jacc, jn = voxel_accumulate_onehot_cm(jnp.asarray(pts), jnp.asarray(mask),
-                                          JScene(**F2_BIG_SCENE), leaf, leaf_z, quant="fast",
-                                          with_npts=True)
-    jacc = np.asarray(jacc)
+    jacc, jn = _jit_fast_route(pts, mask, JScene(**F2_BIG_SCENE), leaf, leaf_z)
     assert jacc.shape == (4, nc) and int(jn) == int(npts[0])
     np.testing.assert_array_equal(acc[0, 3].numpy(), jacc[3])
     assert 0 < int(jacc[3].sum()) < int(mask.sum())
     if quant == "fast":
-        np.testing.assert_allclose(acc[0].numpy(), jacc, rtol=3e-7, atol=1e-7)
+        np.testing.assert_array_equal(acc[0].numpy(), jacc)
 
 
 # ---------------------------------------------------------------------------

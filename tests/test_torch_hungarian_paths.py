@@ -11,11 +11,11 @@ device="cpu")``: K4's plain version, whose auction is
   under a 0.5 m gate, C = 64, K = 96) cut to 16,384 points: the port's
   track step on the JAX perception's detections against the JAX
   ``track_step``; ``bind_env`` against the JAX ``bind_env``, every integer
-  exact, with the one known departure of the port's perception there
-  pinned (ROADMAP Queue 3, F8: two circumcenters 1.3e-5 and 4.4e-4 m off),
-  and its cause shown on the full dense frame 3: the JAX package's jitted
-  CPU voxel sums are the port's digit scheme with the quantize, the cell
-  centre and the finalize each contracted into an FMA.
+  exact and every float within the tolerances (F8, two circumcenters once
+  1.3e-5 and 4.4e-4 m off, is repaired: ROADMAP Queue 3), and its cause
+  shown on the full dense frame 3: the JAX package's jitted CPU voxel sums
+  are the port's digit scheme with the quantize, the cell centre and the
+  finalize each contracted into an FMA, which K1 now spells too.
 - The fleet (``ShardedTracker``, kernel form, B = 2 streams) against the
   JAX ``ShardedTracker``; ``TrackerNode`` against the JAX ``TrackerNode``,
   its per-frame stats (``assoc_saturated`` among them) included; and
@@ -187,13 +187,13 @@ def test_dense_track_step_matches_jax_on_jax_detections():
 
 
 def test_dense_perception_departs_from_jax_in_one_cluster():
-    """F8 (ROADMAP Queue 3, open): on the dense scene the port's ``bind_env``
-    makes every decision of the JAX ``bind_env`` (ids, flags, counts exact
-    on every frame), but two clusters' circumcenters depart past the 1e-5
-    the headline holds -- frame 2, slot 35 by 1.3e-5 m and frame 3, slot 1
-    by 4.4e-4 m (its farthest-pair pick flipped) -- where the JAX CPU
-    finalize's FMA moves voxel centroids by an ulp; every other detection
-    stays within 1e-5.  Pinned so that a change in either direction shows."""
+    """F8 (ROADMAP Queue 3, resolved): on the dense scene the port's
+    ``bind_env`` makes every decision of the JAX ``bind_env`` (ids, flags,
+    counts exact on every frame), and no detection departs past the 1e-5
+    the headline holds -- the two that did (frame 2, slot 35 by 1.3e-5 m
+    and frame 3, slot 1 by 4.4e-4 m, its farthest-pair pick flipped) came
+    from the ulp the JAX CPU finalize's FMAs move voxel centroids by, which
+    K1 now spells.  Pinned so that a change in either direction shows."""
     tcfg, tenv, jcfg, jenv, frames = _case("dense")
     ref = _outputs(JTracker(jcfg), jenv, "bind_env", frames, "jax")
     got = _outputs(TTracker(tcfg, device="cpu"), tenv, "bind_env", frames, "torch")
@@ -205,8 +205,8 @@ def test_dense_perception_departs_from_jax_in_one_cluster():
                                               err_msg=f"frame {k} {f}")
         d = np.abs(g.raw_centroid.numpy() - r.raw_centroid).max(axis=1)
         departed += [(k, int(i)) for i in np.flatnonzero(d > TOL_POS)]
-        assert d.max() < 1e-3
-    assert departed == [(2, 35), (3, 1)]
+        _check(f"dense bind_env frame {k}", g, r)
+    assert departed == []
 
 
 def _fma32(a, b, c):
@@ -224,8 +224,10 @@ def test_f8_cause_xla_contracts_the_fast_digit_quantize_and_finalize():
     contracted into an FMA -- the quantize's ``p - floor * leaf``, the cell
     centre's ``(base + i) * leaf + half`` and the finalize's ``cnt * centre
     + digit_sum * 2^-k``.  Spelled so, every cell agrees bit for bit; the
-    port's unfused K1 plain version departs in 1,600-odd cells (x 776, y
-    829 of 2,843 occupied, 15 of the y digit sums among them)."""
+    port's K1 plain version, unfused, departed in 1,600-odd cells (x 776, y
+    829 of 2,843 occupied, 15 of the y digit sums among them).  K1 now
+    spells the same FMAs (F8's repair): its plain version equals the JAX
+    sums in every cell."""
     from multiple_object_tracking_lidar_tpu.ops.voxel_grid import voxel_accumulate_onehot_cm
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import padded_frame
     from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid_cuda as vg
@@ -263,7 +265,7 @@ def test_f8_cause_xla_contracts_the_fast_digit_quantize_and_finalize():
     np.testing.assert_array_equal(got, ref)
     occupied = cnt > 0
     departed = [int((port[c] != ref[c])[occupied].sum()) for c in range(4)]
-    assert departed[0] > 500 and departed[1] > 500 and departed[2] == departed[3] == 0
+    assert departed == [0, 0, 0, 0]
 
 
 def test_dense_scene_greedy_and_hungarian_disagree():

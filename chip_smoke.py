@@ -38,6 +38,11 @@ of JAX, in five phases, one or more lines each:
    "ihgp"`` at K = 64 and 1,024, 1 x 1, 1 x 8 and 8 x 1 (its positions not
    LPF's, its decisions LPF's); K2, K3f and K4 (greedy and Hungarian,
    lpf and ihgp, K = 64 and 1,024) built for double (``dtype="float64"``);
+   K6f, K8a and K2 fed f32 sums built for double: K6f f64 on the headline's
+   8 f64 frames (one adversarial) and G's grid, 2 + passes launches per
+   call, K8a f64 at M = 1,024 and 2,048, S = 1 and 8 (a 1e-13 m boundary
+   lattice) and at M = 6,144 (its f64 frame in device memory), K2 on the
+   runs' f32 sums, one op per call each;
    F7: K8a at a ragged M = 1,000, the jnp CC
    through it against the CPU, K8 refusing M = 1,000 as the JAX Pallas
    wrapper does, and K8 and K8a at M = 8,448 (the frame in device memory)
@@ -101,8 +106,17 @@ of JAX, in five phases, one or more lines each:
    ``bind_env_multi`` and the CLI (a config file ``dtype: float64``)
    against torch_f64{,_hungarian_ihgp}_headline.npz and
    torch_cli_f64_headline.json within 1e-9 m / 1e-8 m/s, each launching K1
-   and the double builds of K2, K3f and K4 and no f32 build of them.  No
-   path may take the plain digit sums;
+   and the double builds of K2, K3f and K4 and no f32 build of them;
+   ``dtype="float64"`` off the fast digits against
+   torch_f64_{default,pointlist,pointlist_scan,pointlist_runs,exact,runs}
+   _headline.npz within 1e-9 m / 1e-8 m/s: G (``TrackerConfig(dtype=
+   "float64")``) through ``bind_env``, ``TrackerNode``, ``bind_env_multi``
+   (S = 8) and the CLI on its default backend (a config file ``dtype:
+   float64``, torch_cli_f64_default_headline.json), C, E, F, exact and runs
+   through ``bind_env``, each launching its double builds (K6f, K8a, K2 --
+   fed f32 sums under runs --, K3f, K4; K7 and K8 in f32 where the JAX
+   route is f32) and no f32 build of K2, K3f, K4, K6f or K8a.  No path may
+   take the plain digit sums;
 5. timings with CUDA events, beside the card's name and power limit:
    ``bind_env`` and ``bind_env_multi`` per path, host syncs and device ops
    per frame of each (``torch.profiler``; the headline must make no host
@@ -126,7 +140,10 @@ of JAX, in five phases, one or more lines each:
    their plain versions with their bounds; the f32 and f64 headlines in
    turns (the same readings; neither may make a host sync), and K2, K3f
    and K4's double builds against their plain versions and, in turns,
-   their f32 builds, with their bounds (fp64 at 34 TFLOP/s).  Every one-op reading
+   their f32 builds, with their bounds (fp64 at 34 TFLOP/s); K6f, K8a and
+   K2 fed f32 sums built for double beside their f32 builds in turns, with
+   their bounds, and G in f32 and f64 in turns (ms/frame, device ops and
+   host syncs per frame).  Every one-op reading
    (``one_op_profile``) comes from a trace between marker kernels, taken
    again when it lost events at an end (``micro_torch_digits.whole_trace``),
    and K4's, K4 hungarian's, K12's and F7's fail at other than one op per
@@ -1162,13 +1179,19 @@ PLAIN_SUMS = "plain digit sums"   # not a kernel: the dispatcher's route past K1
 
 
 def f64_wrappers():
-    """{double build: its wrapper, whose ``.launches_f64`` counts its
-    launches} (K2, K3f and K4 built for double, ``dtype="float64"``)."""
-    from multiple_object_tracking_lidar_tpu_torch.ops import centroid_cuda, grid_cuda, track_cuda
+    """{double build: (its wrapper, the wrapper's counter of its launches)}
+    (``dtype="float64"``: K2, K3f, K4, K6f and K8a built for double, and
+    K2's double build fed f32 sums)."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        centroid_cuda, cluster_pallas, grid_cuda, track_cuda, voxel_grid_cuda)
 
-    return {"K2 f64": grid_cuda.fused_finalize_static_cc_stacked,
-            "K3f f64": centroid_cuda.circumcenter_features,
-            "K4 f64": track_cuda.track_frames}
+    k2 = grid_cuda.fused_finalize_static_cc_stacked
+    return {"K2 f64": (k2, "launches_f64"),
+            "K3f f64": (centroid_cuda.circumcenter_features, "launches_f64"),
+            "K4 f64": (track_cuda.track_frames, "launches_f64"),
+            "K6f f64": (voxel_grid_cuda.accumulate_f32_stacked, "launches_f64"),
+            "K8a f64": (cluster_pallas.cc_adjacency, "launches_f64"),
+            "K2 f64 f32-sums": (k2, "launches_f64_f32sums")}
 
 
 def reset_counts():
@@ -1176,8 +1199,8 @@ def reset_counts():
 
     for w in kernel_wrappers().values():
         w.launches = 0
-    for w in f64_wrappers().values():
-        w.launches_f64 = 0
+    for w, attr in f64_wrappers().values():
+        setattr(w, attr, 0)
     voxel_grid.digit_sums_stacked.plain_routes = 0
 
 
@@ -1185,7 +1208,7 @@ def read_counts():
     from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid
 
     counts = {k: w.launches for k, w in kernel_wrappers().items()}
-    counts.update({k: w.launches_f64 for k, w in f64_wrappers().items()})
+    counts.update({k: getattr(w, attr) for k, (w, attr) in f64_wrappers().items()})
     counts[PLAIN_SUMS] = voxel_grid.digit_sums_stacked.plain_routes
     return counts
 
@@ -2975,8 +2998,8 @@ GOLDEN_F64 = {"f64": os.path.join(HERE, "tests", "golden", "torch_f64_headline.n
               "f64_hungarian_ihgp": os.path.join(HERE, "tests", "golden",
                                                  "torch_f64_hungarian_ihgp_headline.npz")}
 GOLDEN_CLI_F64 = os.path.join(HERE, "tests", "golden", "torch_cli_f64_headline.json")
-F64_PATH = ("K1", "K2 f64", "K3f f64", "K4 f64")   # the kernels each f64 path must launch
-F32_TAIL = ("K2", "K3f", "K4")                      # which no f64 path may launch
+F64_PATH = ("K1", "K2 f64", "K3f f64", "K4 f64")   # the kernels the f64 headline must launch
+F32_BUILDS = ("K2", "K3f", "K4", "K6f", "K8a")     # which no f64 path may launch
 
 
 def f64_track_inputs(inputs):
@@ -2987,12 +3010,14 @@ def f64_track_inputs(inputs):
     return st._replace(bank=bank), dets.double(), valid, t.double()
 
 
-def require_f64(tag, counts):
+def require_f64(tag, counts, need=F64_PATH):
     """Fail an f64 path's run (its counts, already reported by ``require``)
-    unless K1 and the double builds of K2, K3f and K4 launched and no f32
-    build of them did: every f64 stage has its build, and none falls back."""
-    missing = [k for k in F64_PATH if counts[k] <= 0]
-    ran32 = [k for k in F32_TAIL if counts[k]]
+    unless every kernel of ``need`` launched (by default K1 and the double
+    builds of K2, K3f and K4) and no f32 build of K2, K3f, K4, K6f or K8a
+    did (K7 and K8 stay f32 where the JAX route is f32): every f64 stage
+    has its build, and none falls back."""
+    missing = [k for k in need if counts[k] <= 0]
+    ran32 = [k for k in F32_BUILDS if counts[k]]
     if missing or ran32:
         fail(f"the f64 {tag} path: {missing} not launched, f32 builds {ran32} launched: "
              f"{counts}")
@@ -3325,6 +3350,370 @@ def phase_timings_slice13(dev, smi, P, M, T, report, k):
             "fp64 operations); library call none")
 
 
+# ---------------------------------------------------------------------------
+# dtype="float64" off the dense grid's fast digits
+# ---------------------------------------------------------------------------
+GOLDEN_F64_PL = {g: os.path.join(HERE, "tests", "golden", f"torch_{g}_headline.npz")
+                 for g in ("f64_default", "f64_pointlist", "f64_pointlist_scan",
+                           "f64_pointlist_runs", "f64_exact", "f64_runs")}
+GOLDEN_CLI_F64_DEFAULT = os.path.join(HERE, "tests", "golden",
+                                      "torch_cli_f64_default_headline.json")
+def f64_points(pts, seed):
+    """f64 copies of f32 points with noise below f32's resolution (so a
+    route that rounds them through f32 shows)."""
+    return pts.astype(np.float64) + np.random.default_rng(seed).normal(0, 1e-9, pts.shape)
+
+
+def require_ops(tag: str, ops: float, whole: bool, n: int) -> None:
+    """``require_one_op`` for a call of ``n`` launches (K6f: 2 + passes)."""
+    if ops != n if whole else not 0 < ops <= n:
+        fail(f"{tag}: {ops} device ops recorded per call ({n} expected; whole trace: {whole})")
+
+
+def k6f_passes(vg, s, n, kw):
+    return vg.sorted_sums_plan(s, n, vg.kernel_params(*kw)["n_cells"], 8)["passes"]
+
+
+def phase_kernels_slice14(dev, report, cfg):
+    """K6f, K8a and K2 fed f32 sums built for double (dtype="float64")
+    against their plain versions on the card, bit for bit: K6f f64 on the
+    headline's 8 frames in f64 (frame 7 adversarial: NaN, out of bounds, a
+    one-cell blob) and on configuration G's grid (S = 8), 2 + passes
+    launches per call; K8a f64 on C's M = 1,024 and G's M = 2,048 point
+    lists in f64 (S = 1 and 8; C's frame 7 a boundary lattice at 1e-13 m)
+    and past 4,096 rows (M = 6,144, the frame in device memory), one op per
+    call; K2's double build fed the runs' f32 sums (K7's accumulator of the
+    headline's 8 frames), one op per call."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import (
+        default_case, headline_case, pointlist_case)
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        cluster_pallas, grid_cuda, voxel_grid_cuda as vg)
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel_pallas import (
+        voxel_accumulate_runs_stacked)
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    f64 = torch.float64
+    kw = (cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    _, env, sc = headline_case(device=dev)
+    pts, msk, ts = headline_frames(sc, cfg.caps.n_max_points, range(8))
+    p64 = f64_points(pts, 1401)
+    P64t = torch.from_numpy(p64.copy()).to(dev)      # the timings' frames: no adversarial one
+    p64[7, :50, 0] = np.nan
+    p64[7, 50:100] = [-999.0, 999.0, 0.5]
+    p64[7, 100:2100] = np.array([0.35, 1.25, 0.5]) + np.random.default_rng(1402).normal(
+        0, 0.01, (2000, 3))
+    P32, M8 = torch.from_numpy(pts).to(dev), torch.from_numpy(msk).to(dev)
+    P64 = torch.from_numpy(p64).to(dev)
+    gcfg, _, gsc = default_case()
+    gp, gm, _ = headline_frames(gsc, gcfg.caps.n_max_points, range(8))
+    GP32, GM = torch.from_numpy(gp).to(dev), torch.from_numpy(gm).to(dev)
+    GP64 = torch.from_numpy(f64_points(gp, 1403)).to(dev)
+    gkw = (gcfg.scene, gcfg.voxel_leaf_size, gcfg.leaf_z)
+    for label, Pd, Md, kk in (("the headline's 8 frames (7 adversarial)", P64, M8, kw),
+                              ("configuration G's grid, 8 frames", GP64, GM, gkw)):
+        n_pass = k6f_passes(vg, 8, Pd.shape[1], kk)
+        fk = lambda Pd=Pd, Md=Md, kk=kk: vg.accumulate_f32_stacked(Pd, Md, *kk)  # noqa: E731
+        out = check_pair(report, "K6f f64", f"S=8 N={Pd.shape[1]} f64, "
+                         f"{vg.kernel_params(*kk)['n_cells']} cells, {n_pass} passes: {label}",
+                         fk, lambda Pd=Pd, Md=Md, kk=kk: vg.accumulate_f32_stacked_plain(
+                             Pd, Md, *kk))
+        if out[0].dtype != f64:
+            fail(f"K6f f64 returned {out[0].dtype}")
+        _, ops, whole = one_op_profile(fk, 5)
+        require_ops(f"K6f f64 ({label})", ops, whole, 2 + n_pass)
+
+    # K8a f64: C's and G's point lists (the f32 pipeline's rows, in f64 with
+    # sub-f32 noise on the valid rows), S = 1 and 8
+    pcfg = pointlist_case()[0]
+    cpts, cmsk = pointlist_rows(dev, pcfg, P32, M8)
+    gpts, gmsk = pointlist_rows(dev, gcfg, GP32, GM)
+    rng = np.random.default_rng(1404)
+
+    def widen(p, m):
+        noise = torch.from_numpy(rng.normal(0, 1e-9, tuple(p.shape))).to(dev)
+        return (p.double() + noise * m[..., None]).contiguous()
+
+    c64, g64 = widen(cpts, cmsk), widen(gpts, gmsk)
+    lat = torch.stack(torch.meshgrid(torch.arange(32), torch.arange(32), indexing="ij"), -1)
+    c64[7] = 0.5
+    c64[7, :, :2] = lat.reshape(-1, 2).to(dev).double() * 0.15 - 2.0
+    c64[7] += torch.from_numpy(rng.normal(0, 1e-13, (c64.shape[1], 3))).to(dev)
+    cmsk = cmsk.clone()
+    cmsk[7] = True
+    tol = pcfg.cluster_tolerance
+    for label, p, m in (("C's M=1,024, S=1", c64[:1], cmsk[:1]),
+                        ("C's M=1,024, S=8 (7: a boundary lattice at 1e-13 m)", c64, cmsk),
+                        ("G's M=2,048, S=1", g64[:1], gmsk[:1]),
+                        ("G's M=2,048, S=8", g64, gmsk)):
+        fk = lambda p=p, m=m: (cluster_pallas.cc_adjacency(p, m, tol),)  # noqa: E731
+        check_pair(report, "K8a f64", f"{label} point lists in f64 (layout "
+                   f"{cluster_pallas._layout(p.shape[1], None, dev, f64)})", fk,
+                   lambda p=p, m=m: (cluster_pallas.cc_adjacency_plain(p, m, tol),))
+        _, ops, whole = one_op_profile(fk, 10)
+        require_one_op(f"K8a f64 ({label})", ops, whole)
+    big = 6144
+    lay = cluster_pallas._layout(big, None, dev, f64)
+    if not lay[2] or cluster_pallas._layout(big, None, dev)[2]:
+        fail(f"M={big}: the f64 frame should leave shared memory and the f32 one stay: {lay}")
+    bp = torch.from_numpy(rng.normal(0, 0.8, (2, big, 3))).to(dev)
+    bp[..., 2] *= 0.1
+    bm = torch.from_numpy(rng.random((2, big)) < 0.7).to(dev)
+    bp[0, :c64.shape[1]], bm[0, :c64.shape[1]] = c64[0], cmsk[0]
+    bp[1, :g64.shape[1]], bm[1, :g64.shape[1]] = g64[0], gmsk[0]
+    fk = lambda: (cluster_pallas.cc_adjacency(bp, bm, tol),)  # noqa: E731
+    check_pair(report, "K8a f64", f"S=2 M={big} past 4,096 rows (the frame in device memory, "
+               f"{lay[0]} CTAs per frame)", fk,
+               lambda: (cluster_pallas.cc_adjacency_plain(bp, bm, tol),))
+    _, ops, whole = one_op_profile(fk, 3)
+    require_one_op(f"K8a f64 (M={big})", ops, whole)
+
+    # K2 f64 fed the runs' f32 sums
+    rcfg = cfg.replace(voxel_mode="runs", dtype="float64")
+    plan = Tracker(rcfg, dev).plan(env)
+    acc_r, _ = voxel_accumulate_runs_stacked(P32, M8, *kw)
+    tb = (plan.scal, plan.table.base_row, plan.table.base_col, plan.table.bits)
+    kw2 = dict(dims=plan.dims, tol=cfg.cluster_tolerance, leaf_xy=cfg.voxel_leaf_size,
+               leaf_z=cfg.leaf_z, kwin=plan.table.k)
+    offsets = grid_cuda.kernel_offsets(plan.dims, cfg.cluster_tolerance, cfg.voxel_leaf_size,
+                                       cfg.leaf_z)
+    fk = lambda: grid_cuda.fused_finalize_static_cc_stacked(  # noqa: E731
+        acc_r, *tb, dtype=f64, **kw2)
+    out = check_pair(report, "K2 f64 f32-sums", f"S=8 x {acc_r.shape[2]} cells of the runs' "
+                     "f32 sums (K7's accumulator), finalized in f32, widened, d^2 in f64", fk,
+                     lambda: grid_cuda.fused_finalize_static_cc_stacked_plain(
+                         acc_r, *tb, dims=plan.dims, offsets=offsets, kwin=plan.table.k,
+                         max_sweeps=2 * sum(plan.dims), tol=cfg.cluster_tolerance, dtype=f64))
+    if out[0].dtype != f64:
+        fail(f"K2 f64 f32-sums returned {out[0].dtype} centroids")
+    wide = grid_cuda.fused_finalize_static_cc_stacked(acc_r.double(), *tb, **kw2)[0]
+    log(f"[3 K2 f64 f32-sums] centroids differ from dividing the f32 sums in f64 in "
+        f"{int((wide != out[0]).sum())} of {wide.numel()} values; dyn "
+        f"{npy(out[1].sum(1)).tolist()}, iterations {npy(out[3]).tolist()}")
+    _, ops, whole = one_op_profile(fk, 10)
+    require_one_op("K2 f64 f32-sums", ops, whole)
+    return {"P64": P64t, "M8": M8, "kw": kw, "GP64": GP64, "GM": GM, "gkw": gkw, "c64": c64,
+            "cmsk": cmsk, "g64": g64, "gmsk": gmsk, "tol": tol, "acc_r": acc_r, "tb": tb,
+            "kw2": kw2, "offsets": offsets}
+
+
+def phase_f64_pointlist(dev, report):
+    """``dtype="float64"`` off the fast digits against the JAX package's f64
+    goldens (4 headline frames each; integers exact, floats within TOL_F64):
+    G (``TrackerConfig(dtype="float64")``) through ``bind_env``,
+    ``bind_env_multi`` (S = 8), ``TrackerNode`` and the CLI (a config file
+    ``dtype: float64``, no ``--backend``, 8 frames); C, E, F and the exact
+    and runs modes through ``bind_env``.  Each run launches its double
+    builds (K6f, K8a, K2, K3f, K4; K2 fed f32 sums under runs) and K7 / K8
+    in f32 where the JAX route is f32, and no f32 build of K2, K3f, K4,
+    K6f or K8a."""
+    import tempfile
+
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from make_torch_golden import CASE_FIELDS, CLI_CONFIGS, FRAMES, cli_bag
+
+    g_need = ("K6f f64", "K8a f64", "K3f f64", "K4 f64")
+    paths = (("f64_default", bench_cases.default_case, "G f64", g_need),
+             ("f64_pointlist", bench_cases.headline_case, "C f64",
+              ("K6f f64", "K8", "K3f f64", "K4 f64")),
+             ("f64_pointlist_scan", bench_cases.headline_case, "E f64",
+              ("K8a f64", "K3f f64", "K4 f64")),
+             ("f64_pointlist_runs", bench_cases.headline_case, "F f64",
+              ("K7", "K8", "K3f f64", "K4 f64")),
+             ("f64_exact", bench_cases.headline_case, "exact f64",
+              ("K6f f64", "K2 f64", "K3f f64", "K4 f64")),
+             ("f64_runs", bench_cases.headline_case, "runs f64",
+              ("K7", "K2 f64 f32-sums", "K3f f64", "K4 f64")))
+    for gkey, case, tag, need in paths:
+        golden = dict(np.load(GOLDEN_F64_PL[gkey]))
+        cfg, env, sc = case(device=dev)
+        cfg = cfg.replace(**CASE_FIELDS[gkey])
+        n_gold = golden["publish"].shape[0]
+        tracker = Tracker(cfg, dev)
+        step = tracker.bind_env(env)
+        pts, msk, ts = headline_frames(sc, cfg.caps.n_max_points, range(n_gold))
+        st = tracker.init_state()
+        reset_counts()
+        rows = []
+        for k in range(n_gold):
+            st, o = step(st, Frame(torch.from_numpy(pts[k]).to(dev),
+                                   torch.from_numpy(msk[k]).to(dev),
+                                   torch.tensor(ts[k], device=dev)))
+            rows.append([npy(x) for x in o])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        got = {f: np.stack([r[i] for r in rows]) for i, f in enumerate(golden)}
+        if got["raw_centroid"].dtype != np.float64 or got["pos"].dtype != np.float64:
+            fail(f"{tag} bind_env returned {got['raw_centroid'].dtype} detections")
+        e = compare(f"{tag} bind_env vs JAX golden", got, golden, *TOL_F64)
+        log(f"[4 {tag}] bind_env x{n_gold} ({cfg.voxel_mode} / {cfg.cluster_backend} / "
+            f"{cfg.voxel_quant}, N={cfg.caps.n_max_points}): n_clusters "
+            f"{got['n_clusters'].tolist()}, launches {counts}; vs JAX golden max abs err {e}")
+        require(f"{tag} bind_env", counts, need, report)
+        require_f64(f"{tag} bind_env", counts, need)
+        if counts["K4 f64"] != n_gold:
+            fail(f"{tag} bind_env: {counts['K4 f64']} K4 f64 launches for {n_gold} frames")
+        if gkey != "f64_default":
+            continue
+        counts = {}
+        run_node(dev, tag, cfg, sc, golden, n_gold, need, report, counts, TOL_F64)
+        require_f64(f"{tag} TrackerNode", counts, need)
+        run_multi(dev, tag, cfg, env, sc, golden, 1, 8, need, report, TOL_F64)
+        require_f64(f"{tag} bind_env_multi", read_counts(), need)
+    # the CLI: a config file `dtype: float64` on the default backend
+    with open(GOLDEN_CLI_F64_DEFAULT, encoding="utf-8") as fh:
+        gold = json.load(fh)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = cli_bag(os.path.join(tmp, "frames.npz"), FRAMES["cli_f64_default"], grid=False)
+        conf = os.path.join(tmp, "config.yaml")
+        with open(conf, "w", encoding="utf-8") as fh:
+            fh.write(CLI_CONFIGS["cli_f64_default"])
+        reset_counts()
+        _, recs, _ = run_cli(argv + ["--config", conf, "--device", "cuda"])
+        counts = read_counts()
+    errs, worst = cli_errors(recs, gold)
+    log(f"[4 G f64] CLI run --config <dtype: float64> (no --backend): {len(recs)} records, "
+        f"launches {counts}; vs the JAX CLI golden: {errs or 'within tolerance'} (worst pos / "
+        f"vel {worst})")
+    if errs:
+        fail(f"G f64 CLI: {errs}")
+    require("G f64 CLI", counts, g_need, report)
+    require_f64("G f64 CLI", counts, g_need)
+
+
+def phase_timings_slice14(dev, smi, report, k):
+    """Each new double build beside its f32 build on the same inputs
+    rounded to f32, device us per call in turns (f32, f64, f64, f32;
+    torch.profiler): K6f at the headline's S = 8 and G's grid S = 8, K8a at
+    M = 1,024 and 2,048, S = 1 and 8, K2 fed f32 sums beside K2 f32 and K2
+    f64; the report's entries (kernel and plain ms by CUDA events in turns,
+    bounds: bytes at HBM_BYTES_PER_S, fp64 operations at F64_OPS_PER_S and
+    the integer ones at F32_OPS_PER_S; K6f f64's library call a
+    ``torch.index_add`` in f64); then the f64 G frame's device ops and host
+    syncs per frame (bind_env and bind_env_multi S = 8)."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        cluster_pallas, grid_cuda, voxel_grid_cuda as vg)
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    tol, tb, kw2, acc_r = k["tol"], k["tb"], k["kw2"], k["acc_r"]
+
+    def device_us(fn, reps):
+        us, ops, _ = one_op_profile(fn, reps)
+        return us * ops
+
+    def turns(tag, f32, f64, reps):
+        a, b = device_us(f32, reps), device_us(f64, reps)
+        b2, a2 = device_us(f64, reps), device_us(f32, reps)
+        log(f"[5 timing] {smi}: {tag} device us per call in turns (f32 build, double, double, "
+            f"f32 build) {a:.2f}, {b:.2f}, {b2:.2f}, {a2:.2f}: double / f32 "
+            f"{min(b, b2) / min(a, a2):.2f}x")
+        return min(b, b2)
+
+    for label, P, Mk, kk in (("headline S=8", k["P64"], k["M8"], k["kw"]),
+                             ("G's grid S=8", k["GP64"], k["GM"], k["gkw"])):
+        P32 = P.float()
+        turns(f"K6f f64 {label}", lambda P32=P32, Mk=Mk, kk=kk: vg.accumulate_f32_stacked(
+            P32, Mk, *kk), lambda P=P, Mk=Mk, kk=kk: vg.accumulate_f32_stacked(P, Mk, *kk), 10)
+    for label, p, m in (("M=1,024 S=1", k["c64"][:1], k["cmsk"][:1]),
+                        ("M=1,024 S=8", k["c64"], k["cmsk"]),
+                        ("M=2,048 S=1", k["g64"][:1], k["gmsk"][:1]),
+                        ("M=2,048 S=8", k["g64"], k["gmsk"])):
+        p32 = p.float()
+        turns(f"K8a f64 {label}", lambda p32=p32, m=m: cluster_pallas.cc_adjacency(p32, m, tol),
+              lambda p=p, m=m: cluster_pallas.cc_adjacency(p, m, tol), 20)
+    acc64 = acc_r.double()
+    k2_32 = lambda: grid_cuda.fused_finalize_static_cc_stacked(acc_r, *tb, **kw2)  # noqa: E731
+    k2_64 = lambda: grid_cuda.fused_finalize_static_cc_stacked(acc64, *tb, **kw2)  # noqa: E731
+    k2_fs = lambda: grid_cuda.fused_finalize_static_cc_stacked(  # noqa: E731
+        acc_r, *tb, dtype=torch.float64, **kw2)
+    turns("K2 f64 f32-sums (beside K2 f32)", k2_32, k2_fs, 20)
+    turns("K2 f64 f32-sums (beside K2 f64, as the 'f32 build' column)", k2_64, k2_fs, 20)
+
+    # the report's entries
+    P64, M8, kw = k["P64"], k["M8"], k["kw"]
+    k1p = vg.kernel_params(*kw)
+    s8, nc = P64.shape[0], k1p["n_cells"]
+    ok, lin, _ = vg.kept_cells(P64.float(), M8, k1p)
+    kept = int(ok.sum())
+    frame_of = torch.arange(s8, device=dev)[:, None]
+    tgt = torch.where(ok, frame_of * nc + lin, s8 * nc).reshape(-1)
+    vals4 = torch.cat([torch.where(ok[..., None], P64, 0.0), ok[..., None].double()],
+                      -1).reshape(-1, 4)
+    base = torch.zeros((s8 * nc + 1, 4), dtype=torch.float64, device=dev)
+    g64, gmsk = k["g64"], k["gmsk"]
+    vg8 = gmsk.sum(dim=1).to(torch.float64)
+    outs = grid_cuda.fused_finalize_static_cc_stacked(acc_r, *tb, dtype=torch.float64, **kw2)
+    n_off, iters = len(k["offsets"]), int(outs[3].sum())
+    pairs = {  # name: (kernel, plain, shape, bytes, (fp64 ops, other ops), library call)
+        "K6f f64": (lambda: vg.accumulate_f32_stacked(P64, M8, *kw),
+                    lambda: vg.accumulate_f32_stacked_plain(P64, M8, *kw),
+                    f"S=8 frames x {P64.shape[1]} f64 points, {nc} cells",
+                    nbytes((P64, M8)) + nbytes(vg.accumulate_f32_stacked(P64, M8, *kw)),
+                    (3 * kept, 17 * kept), lambda: torch.index_add(base, 0, tgt, vals4)),
+        "K8a f64": (lambda: cluster_pallas.cc_adjacency(g64, gmsk, tol),
+                    lambda: cluster_pallas.cc_adjacency_plain(g64, gmsk, tol),
+                    f"S=8 x M={g64.shape[1]} G point lists in f64, bool (M, M) out",
+                    nbytes((g64, gmsk)) + nbytes(cluster_pallas.cc_adjacency(g64, gmsk, tol)),
+                    (int((9 * vg8 * vg8).sum()), 0), None),
+        "K2 f64 f32-sums": (k2_fs, lambda: grid_cuda.fused_finalize_static_cc_stacked_plain(
+            acc_r, *tb, dims=kw2["dims"], offsets=k["offsets"], kwin=kw2["kwin"],
+            max_sweeps=2 * sum(kw2["dims"]), tol=kw2["tol"], dtype=torch.float64),
+            f"S=8 frames x {acc_r.shape[2]} cells of f32 sums, f64 centroids and d^2",
+            nbytes((acc_r,) + tb) + nbytes(outs),
+            (s8 * acc_r.shape[2] * 9 * n_off,
+             s8 * acc_r.shape[2] * 15 + iters * acc_r.shape[2] * (2 * n_off + 1)), None),
+    }
+    for name, (fk, fp, shape, moved, (ops64, ops32), lib) in pairs.items():
+        ms_p = cuda_ms(fp, 2)
+        ms_k = cuda_ms(fk, 20)
+        ms_k2 = cuda_ms(fk, 20)
+        ms_p2 = cuda_ms(fp, 2)
+        t_bytes = moved / HBM_BYTES_PER_S
+        t_ops = ops64 / F64_OPS_PER_S + ops32 / F32_OPS_PER_S
+        entry = report[name]
+        entry["ms"] = min(ms_k, ms_k2)
+        entry["plain_ms"] = min(ms_p, ms_p2)
+        entry["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        entry["library_ms"] = cuda_ms(lib, 20) if lib is not None else None
+        log(f"[5 timing] {smi}: {name} {shape}: kernel {ms_k:.4f}/{ms_k2:.4f} ms, plain "
+            f"{ms_p:.4f}/{ms_p2:.4f} ms (run plain, kernel, kernel, plain; min reported); "
+            f"bound {entry['bound_ms']:.6f} ms by {entry['bound_by']} ({moved} bytes, {ops64} "
+            f"fp64 and {ops32} other operations); library call "
+            f"{'none' if lib is None else format(entry['library_ms'], '.4f') + ' ms'}")
+
+    # G in f32 and f64 in turns: ms/frame; device ops and host syncs per frame
+    cfg, env, sc = bench_cases.default_case(device=dev)
+    pts, msk, ts = headline_frames(sc, cfg.caps.n_max_points, range(8))
+    P, M, T = (torch.from_numpy(a).to(dev) for a in (pts, msk, ts))
+    trackers = {dt: Tracker(cfg.replace(dtype=dt), dev) for dt in ("float32", "float64")}
+    for turn, dt in enumerate(("float32", "float64", "float64", "float32")):
+        tr = trackers[dt]
+        step, multi = tr.bind_env(env), tr.bind_env_multi(env)
+
+        def one():
+            st = tr.init_state()
+            for i in range(8):
+                st, _ = step(st, Frame(P[i], M[i], T[i]))
+
+        def eight():
+            multi(tr.init_state(), Frame(P, M, T))
+
+        ms1, ms8 = cuda_ms(one, 2) / 8, cuda_ms(eight, 2) / 8
+        counts = ""
+        if turn < 2:
+            (o1, s1), (o8, s8_) = trace_counts(one, 8), trace_counts(eight, 8)
+            counts = (f"; device ops per frame {o1:.2f} / {o8:.2f}; host syncs per frame "
+                      f"{s1:.3f} / {s8_:.3f}")
+        log(f"[5 timing] {smi}: G {dt} (turn {turn + 1} of f32, f64, f64, f32) bind_env "
+            f"{ms1:.4f} ms/frame, bind_env_multi S=8 {ms8:.4f} ms/frame{counts}")
+
+
 KERNELS = (
     ("K1", "voxel_grid fast-digit histogram + finalize, one launch (cell ranges x point-chunk "
      "clusters)",
@@ -3410,6 +3799,17 @@ KERNELS = (
     ("K4 hungarian f64", "K4's Hungarian double builds (dtype=float64): the auction in f64, "
      "each column's winner by a 64-bit atomicMax of the bid then an atomicMin of the row, its "
      "tables in dynamic shared memory", f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/hungarian.py:139"),
+    ("K6f f64", "K6f's double build (dtype=float64): the point list's scatter sums and the "
+     "exact route's in f64, ascending point index, the cells from the points rounded to f32 "
+     "(timed at the headline's S = 8; launched on G, C and exact in f64)",
+     f"{PKG}/csrc/voxel_bf16x3.cu", "multiple_object_tracking_lidar_tpu/ops/voxel.py:96"),
+    ("K8a f64", "K8a's double build (dtype=float64): the jnp CC's f64 adjacency, the 32-row "
+     "tree sum and the FMA chains in f64 against the f64 tol * tol, the frame in shared memory "
+     "up to 4,096 rows (timed at G's M = 2,048, S = 8; launched on G and E in f64)",
+     f"{PKG}/csrc/cluster_cc.cu", "multiple_object_tracking_lidar_tpu/ops/cluster_pallas.py:96"),
+    ("K2 f64 f32-sums", "K2's double build fed f32 sums (voxel_mode=runs under dtype=float64): "
+     "the f32 finalize and static drop, the centroid widened, the stencil's d^2 in f64",
+     f"{PKG}/csrc/grid_cc.cu", "multiple_object_tracking_lidar_tpu/ops/grid_pallas.py:288"),
     ("K11", "batched transpose of 32-bit words: the (S, N, 3) -> (S, 3, N) points K1-cm reads "
      "(4-row groups, 16-byte loads and stores, no shared memory), and the probes' (1, B) -> "
      "(B, 1) int32 row (a copy) and (16, 128) tile",
@@ -3434,11 +3834,13 @@ def main() -> int:
     phase_kernels_slice11(dev, smi, report, cfg)
     phase_kernels_slice12(dev, smi, report, cfg)
     k13 = phase_kernels_slice13(dev, report, cfg)
+    k14 = phase_kernels_slice14(dev, report, cfg)
     tracker, env, frames = phase_slice(dev, cfg, sc, report)
     phase_cli(dev, report)
     phase_ihgp(dev, report)
     phase_hungarian(dev, report)
     phase_f64(dev, report)
+    phase_f64_pointlist(dev, report)
     phase_modes(dev, report)
     phase_pointlist(dev, report)
     phase_g_grid(dev, report)
@@ -3450,6 +3852,7 @@ def main() -> int:
     phase_timings_slice11(dev, smi, *frames)
     phase_timings_slice12(dev, smi, *frames, report)
     phase_timings_slice13(dev, smi, *frames, report, k13)
+    phase_timings_slice14(dev, smi, report, k14)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": f"{k}: {desc}", "route": "cuda", "source": src, "replaces": rep,

@@ -59,6 +59,8 @@ SIGNATURES = {
                      _P, _P, _P, _P, _P, _P],
     "motl_grid_cc_f64": [_P, _P, _P, _P, _P, _I, _P, _D, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P],
+    "motl_grid_cc_f64_f32sums": [_P, _P, _P, _P, _P, _I, _P, _D, _I, _I, _I, _I, _I, _I, _I,
+                                 _P, _P, _P, _P, _P, _P],
     "motl_grid_cc_max_cluster": [_I, _P],
     "motl_pair_stats": [_P, _P, _I, _I, _P, _P, _P],
     "motl_circumcenter": [_P, _P, _I, _I, _P, _P],
@@ -74,12 +76,15 @@ SIGNATURES = {
     "motl_voxel_exact": _DIGITS,
     "motl_voxel_bf16x3": [_P, _P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _I, _I,
                           _I, _I, _I, _F, _F, _I, _P],
+    "motl_voxel_sums_f64": [_P, _P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _I, _I,
+                            _I, _I, _I, _F, _F, _P],
     "motl_voxel_bf16x3_keys": [_P, _P, _P, _P, _I, _I, _I, _I, *[_P] * 7, _I,
                                _I, _P],
     "motl_segment_totals": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P,
                             _P, _I, _P],
     "motl_segment_totals_rows": [_P, _P, _I, _I, _I, _P, _P, _I, _P],
     "motl_cc_adjacency": [_P, _I, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P],
+    "motl_cc_adjacency_f64": [_P, _I, _P, _I, _I, _I, _D, _I, _P, _P, _P, _P],
     "motl_cc_labels": [_P, _I, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P],
     "motl_transpose32": [_P, _P, _I, _I, _I, _P],
 }

@@ -56,10 +56,24 @@
 // its own rows (st.global.cg) and reading every row from L2 (ld.global.cg);
 // the cluster barrier that ends a sweep orders those writes before the next
 // sweep's reads.  Only the valid-row bits stay in shared memory.
+//
+// K8a's double build (motl_cc_adjacency_f64, dtype="float64") is the same
+// body on f64 points: the JAX jnp CC's f64 adjacency (ops/cluster.py:
+// 51-69), whose jitted CPU code spells its ops as the f32 program does --
+// the 32-row tree column sum, sq and the gram as FMA chains (__fma_rn),
+// d2 = (sq_i + sq_j) - 2 * gram -- against the f64 tol * tol (found by test
+// against the jitted JAX _pairwise_adjacency: tests/
+// test_torch_f64_pointlist.py).  In double, p, sq and the partials take
+// 32 B a row, so the frame stays in shared memory up to kMaxRowsF64 =
+// 4,096 rows and moves to device memory past it.  K8 (the labels) has no
+// double build: the JAX Pallas CC casts the points to f32 (cluster_pallas.
+// py:132), and so does the port.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fp_rn.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -68,20 +82,30 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kWindow = 32;       // XLA's tree-reduction window on the CPU
 constexpr int kMaxRows = 8192;    // M; its P and sq fill 128 KB of shared memory
+constexpr int kMaxRowsF64 = 4096; // the same bytes in double
 constexpr int kMaxDeviceRows = 65536;  // M with the frame in device memory
 constexpr int kMaxCluster = 16;   // non-portable on the H100 (portable: 8)
 constexpr float kInvalidSq = 3e38f;
 
+template <class T>
 struct Frame {
-  const float* pts;     // (M, 3) rows of frame s at pts + s * pfs
+  const T* pts;         // (M, 3) rows of frame s at pts + s * pfs
   int pfs;
   const uint8_t* mask;  // (M,) at mask + s * mfs
   int mfs;
 };
 
-// P, SQ and the tree partials of one CTA: 4M + 6 ceil(M / 32) floats.
+// P, SQ and the tree partials of one CTA: 4M + 6 ceil(M / 32) values.
 __host__ __device__ inline size_t frame_floats(int M) {
   return 4 * (size_t)M + 6 * (size_t)((M + kWindow - 1) / kWindow);
+}
+
+// The adjacency words of R rows in shared memory, rounded to 8 bytes in
+// the double build so that P behind them stays aligned.
+template <class T>
+__host__ __device__ inline size_t bits_words(int W, int R) {
+  const size_t w = (size_t)(W + 1) * R;
+  return sizeof(T) == 8 ? (w + 1) & ~(size_t)1 : w;
 }
 
 // A label of the sweeps: from L2 when the labels lie in device memory
@@ -94,36 +118,37 @@ __device__ __forceinline__ int ld_label(const int* p) {
 
 // Shared memory: [bits (R rows of W + 1 u32: the odd row stride keeps both
 // the build's column walk and the sweeps' row walk free of bank conflicts)
-// when they fit][P (3M) | SQ (M) | tree partials] -- the last region holds
-// the labels (2M i32) once the adjacency is built.  With kDeviceFrame it
+// when they fit][P (3M) | SQ (M) | tree partials, of T] -- the last region
+// holds the labels (2M i32) once the adjacency is built.  With kDeviceFrame it
 // holds the valid-row bits alone (W u32); P, SQ and the partials lie at
 // frame_global + blockIdx.x * frame_floats(M), the bits in bits_global, the
 // labels of frame s at lab_global + 2 s M.
-template <bool kLabels, bool kDeviceFrame>
+template <class T, bool kLabels, bool kDeviceFrame>
 __global__ void __launch_bounds__(kThreads)
-cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_smem,
-          unsigned* __restrict__ bits_global, float* __restrict__ frame_global,
+cc_kernel(Frame<T> f, int M, T tol2, int n_sweeps, int C, int R, int bits_in_smem,
+          unsigned* __restrict__ bits_global, T* __restrict__ frame_global,
           int* __restrict__ lab_global, int* __restrict__ labels,
           int* __restrict__ sweeps, uint8_t* __restrict__ adj) {
   extern __shared__ unsigned sm[];
   __shared__ unsigned s_vm[kDeviceFrame ? 1 : kMaxRows / 32];  // valid rows, one bit each
   unsigned* vm = kDeviceFrame ? sm : s_vm;
-  __shared__ float s_c[3];
+  __shared__ T s_c[3];
   __shared__ int s_cnt;
   __shared__ int s_vote[3];
   const int rank = (int)(blockIdx.x % C);  // K8: the cluster rank; K8a: CTAs are independent
   const int s = blockIdx.x / C;
   const int W = (M + 31) / 32, Wp = W + 1;
   const int t = threadIdx.x;
-  const float* X = f.pts + (size_t)s * f.pfs;
+  const T* X = f.pts + (size_t)s * f.pfs;
   const uint8_t* MK = f.mask + (size_t)s * f.mfs;
   unsigned* bits = (!kDeviceFrame && bits_in_smem) ? sm : bits_global + (size_t)blockIdx.x * Wp * R;
-  float* P = kDeviceFrame ? frame_global + (size_t)blockIdx.x * frame_floats(M)
-                          : reinterpret_cast<float*>(bits_in_smem ? sm + (size_t)Wp * R : sm);
-  float* SQ = P + 3 * M;
+  T* P = kDeviceFrame ? frame_global + (size_t)blockIdx.x * frame_floats(M)
+                      : reinterpret_cast<T*>(bits_in_smem ? sm + bits_words<T>(W, R) : sm);
+  T* SQ = P + 3 * M;
   const int nb0 = (M + kWindow - 1) / kWindow;
-  float* part[2] = {SQ + M, SQ + M + 3 * nb0};
-  const bool prune = tol2 < kInvalidSq;
+  T* part[2] = {SQ + M, SQ + M + 3 * nb0};
+  const T invalid_sq = T(kInvalidSq);
+  const bool prune = tol2 < invalid_sq;
 
   // ---- 1. prep: count, tree column sum, p, sq (every CTA, all rows) ------
   if (t == 0) s_cnt = 0;
@@ -143,9 +168,9 @@ cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_sm
   auto valid = [&](int i) { return (vm[i >> 5] >> (i & 31)) & 1u; };
   for (int q = t; q < 3 * nb0; q += blockDim.x) {  // windows of 32 rows of pts * mask
     const int k = q / nb0, b = q - k * nb0;
-    float a = 0.0f;
+    T a = T(0);
     for (int i = b * kWindow; i < min(M, (b + 1) * kWindow); ++i)
-      a = __fadd_rn(a, __fmul_rn(P[3 * i + k], valid(i) ? 1.0f : 0.0f));
+      a = fp::add(a, fp::mul(P[3 * i + k], valid(i) ? T(1) : T(0)));
     part[0][q] = a;
   }
   __syncthreads();
@@ -154,9 +179,9 @@ cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_sm
     const int nb = (n + kWindow - 1) / kWindow;
     for (int q = t; q < 3 * nb; q += blockDim.x) {
       const int k = q / nb, b = q - k * nb;
-      float a = 0.0f;
+      T a = T(0);
       for (int i = b * kWindow; i < min(n, (b + 1) * kWindow); ++i)
-        a = __fadd_rn(a, part[cur][k * n + i]);
+        a = fp::add(a, part[cur][k * n + i]);
       part[1 - cur][q] = a;
     }
     __syncthreads();
@@ -164,21 +189,21 @@ cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_sm
     cur = 1 - cur;
   }
   if (t < 3) {
-    float a = 0.0f;
-    for (int i = 0; i < n; ++i) a = __fadd_rn(a, part[cur][t * n + i]);
-    s_c[t] = __fdiv_rn(a, fmaxf((float)s_cnt, 1.0f));
+    T a = T(0);
+    for (int i = 0; i < n; ++i) a = fp::add(a, part[cur][t * n + i]);
+    s_c[t] = fp::div(a, fmax((T)s_cnt, T(1)));
   }
   __syncthreads();
   for (int i = t; i < M; i += blockDim.x) {  // in place: row i is this thread's alone
-    const float mf = valid(i) ? 1.0f : 0.0f;
-    const float p0 = __fmul_rn(__fsub_rn(P[3 * i], s_c[0]), mf);
-    const float p1 = __fmul_rn(__fsub_rn(P[3 * i + 1], s_c[1]), mf);
-    const float p2 = __fmul_rn(__fsub_rn(P[3 * i + 2], s_c[2]), mf);
+    const T mf = valid(i) ? T(1) : T(0);
+    const T p0 = fp::mul(fp::sub(P[3 * i], s_c[0]), mf);
+    const T p1 = fp::mul(fp::sub(P[3 * i + 1], s_c[1]), mf);
+    const T p2 = fp::mul(fp::sub(P[3 * i + 2], s_c[2]), mf);
     P[3 * i] = p0;
     P[3 * i + 1] = p1;
     P[3 * i + 2] = p2;
-    const float sq = __fmaf_rn(p2, p2, __fmaf_rn(p1, p1, __fmul_rn(p0, p0)));
-    SQ[i] = valid(i) ? sq : kInvalidSq;
+    const T sq = fp::fma(p2, p2, fp::fma(p1, p1, fp::mul(p0, p0)));
+    SQ[i] = valid(i) ? sq : invalid_sq;
   }
   __syncthreads();
 
@@ -190,7 +215,7 @@ cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_sm
     const int i = il * C + rank;
     unsigned word = 0u;
     if (i < M && (!prune || valid(i))) {
-      const float x = P[3 * i], y = P[3 * i + 1], z = P[3 * i + 2], sqi = SQ[i];
+      const T x = P[3 * i], y = P[3 * i + 1], z = P[3 * i + 2], sqi = SQ[i];
       const int nj = min(32, M - 32 * w);
       unsigned cand = prune ? vm[w] : (nj == 32 ? 0xffffffffu : (1u << nj) - 1u);
       while (cand) {
@@ -204,9 +229,8 @@ cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_sm
         for (int u = 0; u < 4; ++u) {
           if (bb[u] < 0) continue;
           const int j = 32 * w + bb[u];
-          const float g =
-              __fmaf_rn(z, P[3 * j + 2], __fmaf_rn(y, P[3 * j + 1], __fmul_rn(x, P[3 * j])));
-          const float d2 = __fsub_rn(__fadd_rn(sqi, SQ[j]), __fmul_rn(2.0f, g));
+          const T g = fp::fma(z, P[3 * j + 2], fp::fma(y, P[3 * j + 1], fp::mul(x, P[3 * j])));
+          const T d2 = fp::sub(fp::add(sqi, SQ[j]), fp::mul(T(2), g));
           if (d2 <= tol2) word |= 1u << bb[u];
         }
       }
@@ -215,7 +239,7 @@ cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_sm
   }
   __syncthreads();
 
-  if (!kLabels) {
+  if constexpr (!kLabels) {
     // ---- K8a: the bool rows of this rank, adj[s][i][j] ----------------------
     uint8_t* A = adj + (size_t)s * M * M;
     if (M % 16 == 0) {
@@ -240,7 +264,7 @@ cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_sm
       }
     }
     return;
-  }
+  } else {
 
   // ---- 3. Jacobi sweeps over the cluster ------------------------------------
   cg::cluster_group cluster = cg::this_cluster();
@@ -320,45 +344,47 @@ cc_kernel(Frame f, int M, float tol2, int n_sweeps, int C, int R, int bits_in_sm
   for (int il = t; il < R && il * C + rank < M; il += blockDim.x)
     labels[(size_t)s * M + il * C + rank] = ld_label<kDeviceFrame>(fin + il * C + rank);
   if (rank == 0 && t == 0) sweeps[s] = it;
+  }
 }
 
 // Once per process and device: a kernel's shared-memory limit and its
 // non-portable cluster size.
-template <bool kLabels, bool kDeviceFrame>
+template <class T, bool kLabels, bool kDeviceFrame>
 cudaError_t allow(size_t smem) {
   static size_t set[16];
   int d = 0;
   cudaError_t err = cudaGetDevice(&d);
   if (err != cudaSuccess) return err;
   if (d < 16 && set[d] >= smem) return cudaSuccess;
-  err = cudaFuncSetAttribute(cc_kernel<kLabels, kDeviceFrame>,
+  err = cudaFuncSetAttribute(cc_kernel<T, kLabels, kDeviceFrame>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && kLabels)
-    err = cudaFuncSetAttribute(cc_kernel<kLabels, kDeviceFrame>,
+    err = cudaFuncSetAttribute(cc_kernel<T, kLabels, kDeviceFrame>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess && d < 16) set[d] = smem;
   return err;
 }
 
+template <class T>
 size_t smem_bytes(int M, int R, bool bits_in_smem) {
-  const int W = (M + 31) / 32, nb0 = (M + kWindow - 1) / kWindow;
-  const size_t region = (size_t)max(16 * M + 24 * nb0, 8 * M);
-  return region + (bits_in_smem ? (size_t)4 * (W + 1) * R : 0);
+  const int W = (M + 31) / 32;
+  const size_t region = max(sizeof(T) * frame_floats(M), (size_t)8 * M);
+  return region + (bits_in_smem ? 4 * bits_words<T>(W, R) : 0);
 }
 
-template <bool kLabels, bool kDeviceFrame>
-int launch(const Frame& f, int S, int M, float tol2, int n_sweeps, int cluster,
-           unsigned* bits_global, float* frame_global, int* lab_global, int* labels,
+template <class T, bool kLabels, bool kDeviceFrame>
+int launch(const Frame<T>& f, int S, int M, T tol2, int n_sweeps, int cluster,
+           unsigned* bits_global, T* frame_global, int* lab_global, int* labels,
            int* sweeps, uint8_t* adj, cudaStream_t st) {
-  if (S < 1 || M < 1 || M > (kDeviceFrame ? kMaxDeviceRows : kMaxRows) || cluster < 1 ||
-      cluster > kMaxCluster)
+  const int max_rows = kDeviceFrame ? kMaxDeviceRows : (sizeof(T) == 8 ? kMaxRowsF64 : kMaxRows);
+  if (S < 1 || M < 1 || M > max_rows || cluster < 1 || cluster > kMaxCluster)
     return (int)cudaErrorInvalidValue;
   if (kDeviceFrame && (bits_global == nullptr || (kLabels && lab_global == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int R = (M + cluster - 1) / cluster;
   const bool in_smem = bits_global == nullptr;
-  const size_t smem = kDeviceFrame ? (size_t)4 * ((M + 31) / 32) : smem_bytes(M, R, in_smem);
-  cudaError_t err = allow<kLabels, kDeviceFrame>(smem);
+  const size_t smem = kDeviceFrame ? (size_t)4 * ((M + 31) / 32) : smem_bytes<T>(M, R, in_smem);
+  cudaError_t err = allow<T, kLabels, kDeviceFrame>(smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(S * cluster, 1, 1);
@@ -372,11 +398,23 @@ int launch(const Frame& f, int S, int M, float tol2, int n_sweeps, int cluster,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = kLabels ? 1 : 0;  // K8a's CTAs share nothing
-  err = cudaLaunchKernelEx(&cfg, cc_kernel<kLabels, kDeviceFrame>, f, M, tol2, n_sweeps,
+  err = cudaLaunchKernelEx(&cfg, cc_kernel<T, kLabels, kDeviceFrame>, f, M, tol2, n_sweeps,
                            cluster, R, (int)in_smem, bits_global, frame_global, lab_global,
                            labels, sweeps, adj);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <class T>
+int adjacency(const T* pts, int pfs, const uint8_t* mask, int mfs, int S, int M, T tol2,
+              int cluster, unsigned* bits_global, T* frame_global, uint8_t* adj, void* stream) {
+  const Frame<T> f{pts, pfs, mask, mfs};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (frame_global)
+    return launch<T, false, true>(f, S, M, tol2, 0, cluster, bits_global, frame_global, nullptr,
+                                  nullptr, nullptr, adj, st);
+  return launch<T, false, false>(f, S, M, tol2, 0, cluster, bits_global, nullptr, nullptr,
+                                 nullptr, nullptr, adj, st);
 }
 
 }  // namespace
@@ -395,13 +433,19 @@ int launch(const Frame& f, int S, int M, float tol2, int n_sweeps, int cluster,
 extern "C" int motl_cc_adjacency(const float* pts, int pfs, const uint8_t* mask, int mfs, int S,
                                  int M, float tol2, int cluster, unsigned* bits_global,
                                  float* frame_global, uint8_t* adj, void* stream) {
-  const Frame f{pts, pfs, mask, mfs};
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (frame_global)
-    return launch<false, true>(f, S, M, tol2, 0, cluster, bits_global, frame_global, nullptr,
-                               nullptr, nullptr, adj, st);
-  return launch<false, false>(f, S, M, tol2, 0, cluster, bits_global, nullptr, nullptr, nullptr,
-                              nullptr, adj, st);
+  return adjacency<float>(pts, pfs, mask, mfs, S, M, tol2, cluster, bits_global, frame_global,
+                          adj, stream);
+}
+
+// K8a's double build: pts and frame_global f64 (frame_global then S *
+// cluster * (4 M + 6 ceil(M / 32)) f64; the frame in shared memory up to
+// M = 4,096), tol2 the f64 tol * tol; the rest as motl_cc_adjacency.
+extern "C" int motl_cc_adjacency_f64(const double* pts, int pfs, const uint8_t* mask, int mfs,
+                                     int S, int M, double tol2, int cluster,
+                                     unsigned* bits_global, double* frame_global, uint8_t* adj,
+                                     void* stream) {
+  return adjacency<double>(pts, pfs, mask, mfs, S, M, tol2, cluster, bits_global, frame_global,
+                           adj, stream);
 }
 
 // K8: labels (S, M) i32; sweeps (S,) i32 the sweeps run (the last one
@@ -410,13 +454,13 @@ extern "C" int motl_cc_labels(const float* pts, int pfs, const uint8_t* mask, in
                               int M, float tol2, int n_sweeps, int cluster,
                               unsigned* bits_global, float* frame_global, int* labels,
                               int* sweeps, void* stream) {
-  const Frame f{pts, pfs, mask, mfs};
+  const Frame<float> f{pts, pfs, mask, mfs};
   const cudaStream_t st = (cudaStream_t)stream;
   if (frame_global) {
     int* lab_global = reinterpret_cast<int*>(frame_global + (size_t)S * cluster * frame_floats(M));
-    return launch<true, true>(f, S, M, tol2, n_sweeps, cluster, bits_global, frame_global,
-                              lab_global, labels, sweeps, nullptr, st);
+    return launch<float, true, true>(f, S, M, tol2, n_sweeps, cluster, bits_global, frame_global,
+                                     lab_global, labels, sweeps, nullptr, st);
   }
-  return launch<true, false>(f, S, M, tol2, n_sweeps, cluster, bits_global, nullptr, nullptr,
-                             labels, sweeps, nullptr, st);
+  return launch<float, true, false>(f, S, M, tol2, n_sweeps, cluster, bits_global, nullptr,
+                                    nullptr, labels, sweeps, nullptr, st);
 }

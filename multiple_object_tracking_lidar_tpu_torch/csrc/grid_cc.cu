@@ -57,6 +57,15 @@
 // neighbour's centroid is recomputed from the accumulator, and shared
 // memory holds only labels and adjacency bits, so the double build keeps
 // the f32 build's cell bounds (ops/grid_cuda.py::max_kernel_cells).
+//
+// The double build fed f32 sums (motl_grid_cc_f64_f32sums) is the JAX f64
+// route of voxel_mode="runs" on the dense grid: its accumulator is f32
+// (voxel_pallas.py:158-243), finalize_dense_cm divides in f32
+// (pipeline.py:591), the static drop reads that f32 centroid, and the
+// centroid is widened to f64 (:600) for the stencil CC's f64 d^2.  So the
+// centroid is the f32 build's, the d^2 and the output the double build's
+// (a template parameter for the accumulator's type).  Dividing the f32
+// sums in f64 instead would give other bits.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -80,11 +89,11 @@ __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, 
 __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
 
 // cell i's centroid from the channel-major accumulator, as its owner
-// computes it
-template <class T>
-__device__ __forceinline__ Cent<T> centroid(const T* A, int n, int i) {
-  const T den = fmax(A[3 * n + i], T(1));
-  return {div_rn(A[i], den), div_rn(A[n + i], den), div_rn(A[2 * n + i], den)};
+// computes it: divided in the accumulator's type TA, then widened to T
+template <class T, class TA>
+__device__ __forceinline__ Cent<T> centroid(const TA* A, int n, int i) {
+  const TA den = fmax(A[3 * n + i], TA(1));
+  return {(T)div_rn(A[i], den), (T)div_rn(A[n + i], den), (T)div_rn(A[2 * n + i], den)};
 }
 
 // d^2 of two centroids: the f32 build in the JAX kernel's order, unfused;
@@ -98,9 +107,9 @@ __device__ __forceinline__ double dist2(const Cent<double>& a, const Cent<double
   return __fma_rn(ddz, ddz, __fma_rn(ddx, ddx, __dmul_rn(ddy, ddy)));
 }
 
-template <class T>
+template <class T, class TA>
 __global__ void __launch_bounds__(kThreads)
-grid_cc_kernel(const T* __restrict__ acc, const int* __restrict__ brow,
+grid_cc_kernel(const TA* __restrict__ acc, const int* __restrict__ brow,
                const int* __restrict__ bcol, const int* __restrict__ bits,
                const int* __restrict__ offs, int n_off,
                const float* __restrict__ scal, T tol2_arg, int gx, int gy, int gz,
@@ -124,7 +133,7 @@ grid_cc_kernel(const T* __restrict__ acc, const int* __restrict__ brow,
   // [w * range + li]: in shared memory, or this CTA's slab of the scratch
   unsigned* adj = adj_global ? adj_global + (size_t)blockIdx.x * n_words * range
                              : reinterpret_cast<unsigned*>(sm + 2 * range);
-  const T* A = acc + (size_t)s * 4 * n;
+  const TA* A = acc + (size_t)s * 4 * n;
   T* C = cent + (size_t)s * 3 * n;
   // label of cell j in its owner's buffer `buf` (labA or labB)
   auto remote = [&](int* buf, int j) -> int {
@@ -147,8 +156,8 @@ grid_cc_kernel(const T* __restrict__ acc, const int* __restrict__ brow,
 
   // ---- phase 1: finalize + static drop bit, this CTA's range ------------
   for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    const T cnt = A[3 * n + i];
-    const Cent<T> c = centroid(A, n, i);
+    const TA cnt = A[3 * n + i];
+    const Cent<T> c = centroid<T>(A, n, i);
     C[i] = c.x;
     C[n + i] = c.y;
     C[2 * n + i] = c.z;
@@ -162,7 +171,7 @@ grid_cc_kernel(const T* __restrict__ acc, const int* __restrict__ brow,
     q = q < 0 ? 0 : (q > kwin * kwin - 1 ? kwin * kwin - 1 : q);
     const int bit = (int)(((unsigned)bits[i] >> q) & 1u);
     const int drop = in_win ? bit : 1;
-    const bool dyn = cnt > T(0) && drop == 0;
+    const bool dyn = cnt > TA(0) && drop == 0;
     dyn_out[(size_t)s * n + i] = dyn ? 1 : 0;
     labB[i - lo] = dyn ? 1 : 0;  // dyn flags, until the sweeps reuse the buffer
     labA[i - lo] = dyn ? i : n;
@@ -174,13 +183,13 @@ grid_cc_kernel(const T* __restrict__ acc, const int* __restrict__ brow,
     unsigned w[kMaxWords] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
     if (labB[i - lo]) {
       const int x = i % gx, yz = i / gx, y = yz % gy, z = yz / gy;
-      const Cent<T> c = centroid(A, n, i);
+      const Cent<T> c = centroid<T>(A, n, i);
       for (int o = 0; o < n_off; ++o) {
         const int nx = x + s_dx[o], ny = y + s_dy[o], nz = z + s_dz[o];
         if (nx < 0 || nx >= gx || ny < 0 || ny >= gy || nz < 0 || nz >= gz) continue;
         const int j = i + s_shift[o];
         if (!remote(labB, j)) continue;
-        if (dist2(c, centroid(A, n, j)) <= tol2) w[o >> 5] |= 1u << (o & 31);
+        if (dist2(c, centroid<T>(A, n, j)) <= tol2) w[o >> 5] |= 1u << (o & 31);
       }
     }
     for (int k = 0; k < n_words; ++k) adj[k * range + (i - lo)] = w[k];
@@ -234,18 +243,18 @@ grid_cc_kernel(const T* __restrict__ acc, const int* __restrict__ brow,
   cluster.sync();  // no rank leaves while another may read its shared memory
 }
 
-template <class T>
+template <class T, class TA>
 cudaError_t set_attributes(size_t smem, int cluster) {
   cudaError_t err = cudaFuncSetAttribute(
-      grid_cc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      grid_cc_kernel<T, TA>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(grid_cc_kernel<T>,
+    err = cudaFuncSetAttribute(grid_cc_kernel<T, TA>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return err;
 }
 
-template <class T>
-int launch(const T* acc, const int* brow, const int* bcol, const int* bits, const int* offs,
+template <class T, class TA = T>
+int launch(const TA* acc, const int* brow, const int* bcol, const int* bits, const int* offs,
            int n_off, const float* scal, T tol2, int S, int gx, int gy, int gz, int kwin,
            int max_sweeps, int cluster, unsigned* adj_global, T* cent, uint8_t* dyn,
            int* labels, int* nsw, void* stream) {
@@ -255,7 +264,7 @@ int launch(const T* acc, const int* brow, const int* bcol, const int* bits, cons
   const int n_words = (n_off + 31) >> 5;
   const int range = (n + cluster - 1) / cluster;
   const size_t smem = (size_t)(2 + (adj_global ? 0 : n_words)) * range * sizeof(int);
-  cudaError_t err = set_attributes<T>(smem, cluster);
+  cudaError_t err = set_attributes<T, TA>(smem, cluster);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(S * cluster, 1, 1);
@@ -269,7 +278,7 @@ int launch(const T* acc, const int* brow, const int* bcol, const int* bits, cons
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, grid_cc_kernel<T>, acc, brow, bcol, bits, offs, n_off, scal,
+  err = cudaLaunchKernelEx(&cfg, grid_cc_kernel<T, TA>, acc, brow, bcol, bits, offs, n_off, scal,
                            tol2, gx, gy, gz, kwin, max_sweeps, range, adj_global, cent, dyn,
                            labels, nsw);
   if (err != cudaSuccess) return (int)err;
@@ -309,12 +318,26 @@ extern "C" int motl_grid_cc_f64(const double* acc, const int* brow, const int* b
                         max_sweeps, cluster, adj_global, cent, dyn, labels, nsw, stream);
 }
 
+// The double build fed f32 sums: acc (S, 4, n) f32, finalized in f32 and
+// widened; cent (S, 3, n) f64 and tol2 the f64 tol * tol, as
+// motl_grid_cc_f64.
+extern "C" int motl_grid_cc_f64_f32sums(const float* acc, const int* brow, const int* bcol,
+                                        const int* bits, const int* offs, int n_off,
+                                        const float* scal, double tol2, int S, int gx, int gy,
+                                        int gz, int kwin, int max_sweeps, int cluster,
+                                        unsigned* adj_global, double* cent, uint8_t* dyn,
+                                        int* labels, int* nsw, void* stream) {
+  return launch<double, float>(acc, brow, bcol, bits, offs, n_off, scal, tol2, S, gx, gy, gz,
+                               kwin, max_sweeps, cluster, adj_global, cent, dyn, labels, nsw,
+                               stream);
+}
+
 // The largest cluster (16, 8, 4, 2 or 1 CTAs) of which the card can hold
 // at least one at `smem` bytes of dynamic shared memory per CTA, written
 // to *out (a host int).
 extern "C" int motl_grid_cc_max_cluster(int smem, int* out) {
   for (int c = kMaxCluster; c >= 1; c >>= 1) {
-    cudaError_t err = set_attributes<float>((size_t)smem, c);
+    cudaError_t err = set_attributes<float, float>((size_t)smem, c);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(c, 1, 1);
@@ -328,7 +351,7 @@ extern "C" int motl_grid_cc_max_cluster(int smem, int* out) {
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     int n_clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&n_clusters, grid_cc_kernel<float>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n_clusters, grid_cc_kernel<float, float>, &cfg);
     if (err == cudaSuccess && n_clusters >= 1) {
       *out = c;
       return 0;

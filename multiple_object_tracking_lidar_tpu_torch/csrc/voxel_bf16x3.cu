@@ -23,6 +23,13 @@
 // voxel_accumulate: no Pallas kernel, an XLA scatter-add of (x, y, z, 1),
 // which XLA's CPU code applies one update at a time in ascending point
 // index.  Per cell: the plain f32 sum of each coordinate and the count.
+// Its double build (motl_voxel_sums_f64, dtype="float64") is the same
+// kernels on f64 points: the cell keys from the points rounded to f32 (the
+// JAX quantize is f32 in every dtype), the f64 coordinates gathered and
+// summed with __dadd_rn in the same order -- the JAX f64 scatter-add's
+// sums, and the sums of the f64 one-hot contraction that voxel_quant=
+// "exact" takes under f64 (voxel_grid.py:242-254), there up to XLA's own
+// summation order.
 //
 // The summation order.  Float atomics would change the bits from run to
 // run, and the TPU's MXU order (mode 0) has no counterpart to copy.  So K6
@@ -93,10 +100,17 @@
 // at 3.35 TB/s); the sort moves ~80 bytes per point and ~24 per cell
 // through L2 and memory, so the design's floor is a few times the bound;
 // the dense-cell case is bound by its chain of dependent f32 adds (~4
-// cycles each), which the fixed order requires.
+// cycles each), which the fixed order requires.  The double build reads 25
+// bytes per point and writes 32 per cell; its sort moves the same keys,
+// its last pass and its sum 24 bytes a point instead of 12, and its chain
+// is one of dependent f64 adds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "fp_rn.cuh"
 
 namespace {
 
@@ -107,7 +121,25 @@ constexpr int kPerWarp = kTile / kWarps;   // 256 keys, 8 steps of 32
 constexpr int kSteps = kPerWarp / 32;
 constexpr int kRadix = 256;
 constexpr int kLong = 2048;     // a longer cell's run is summed by its warp
-constexpr int kBatch = 16;      // points whose loads a thread has in flight
+// points whose loads a thread has in flight: 16 f32 points, 8 f64 ones
+template <class T>
+constexpr int kBatch = sizeof(T) == 4 ? 16 : 8;
+
+// 16-byte loads of T: four floats or two doubles
+__device__ __forceinline__ void unpack(const float4& w, float* q) {
+  q[0] = w.x;
+  q[1] = w.y;
+  q[2] = w.z;
+  q[3] = w.w;
+}
+__device__ __forceinline__ void unpack(const double2& w, double* q) {
+  q[0] = w.x;
+  q[1] = w.y;
+}
+template <class T>
+using Vec16 = typename std::conditional<sizeof(T) == 4, float4, double2>::type;
+template <class T>
+constexpr int kVecN = 16 / (int)sizeof(T);
 
 struct BfParams {
   int gx, gy, gz, bx, by, bz, n_cells;
@@ -130,7 +162,7 @@ struct Scratch {
   int* tilecnt;  // (S, tiles) mask-nonzero points per tile
   int* cells;    // (S, 2, n_cells): each cell's first sorted position and
                  // one past its last (INT_MAX and 0 while empty)
-  float* sorted; // (S, N, 3) kept points' coordinates in key order
+  void* sorted;  // (S, N, 3) kept points' coordinates in key order (f32 or f64)
 };
 
 // Stage 1's common tail: the tile's histogram and mask count, the zeroing
@@ -160,15 +192,16 @@ __device__ __forceinline__ void key_tile_tail(int* s_hist, int mcount, int* s_re
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-key_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask, int S, int N,
+key_kernel(const T* __restrict__ pts, const uint8_t* __restrict__ mask, int S, int N,
            int n_tiles, int n_passes, BfParams p, Scratch sc) {
   __shared__ int s_hist[kRadix];
   __shared__ int s_red[kWarps];
   const int s = blockIdx.y, tile = blockIdx.x;
   s_hist[threadIdx.x] = 0;
   __syncthreads();
-  const float* P = pts + (size_t)s * N * 3;
+  const T* P = pts + (size_t)s * N * 3;
   const uint8_t* M = mask + (size_t)s * N;
   int* K = sc.keys + (size_t)s * N;
   int mcount = 0;
@@ -177,9 +210,10 @@ key_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask, int 
     int key = -1;
     if (M[i] != 0) {
       ++mcount;
-      const float fx = floorf(__fmul_rn(P[3 * i], p.inv_xy));
-      const float fy = floorf(__fmul_rn(P[3 * i + 1], p.inv_xy));
-      const float fz = floorf(__fmul_rn(P[3 * i + 2], p.inv_z));
+      // the cell from the point rounded to f32 (a no-op on f32 points)
+      const float fx = floorf(__fmul_rn((float)P[3 * i], p.inv_xy));
+      const float fy = floorf(__fmul_rn((float)P[3 * i + 1], p.inv_xy));
+      const float fz = floorf(__fmul_rn((float)P[3 * i + 2], p.inv_z));
       // bounds on the float floor, before any cast: NaN fails every compare
       if (fx >= (float)p.bx && fx < (float)(p.bx + p.gx) &&
           fy >= (float)p.by && fy < (float)(p.by + p.gy) &&
@@ -233,12 +267,13 @@ key_idx_kernel(const int* __restrict__ ix, const int* __restrict__ iyz,
 // each cell's first and past-the-end position (integer atomicMin /
 // atomicMax, one per cell and warp step) and, in tile 0, the frame's
 // mask-nonzero count (when npts is given).
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-radix_pass_kernel(const float* __restrict__ pts, int S, int N, int n_tiles, int shift,
+radix_pass_kernel(const T* __restrict__ pts, int S, int N, int n_tiles, int shift,
                   bool first, bool last, const int* __restrict__ kin,
                   const int* __restrict__ iin, int* __restrict__ kout, int* __restrict__ iout,
                   const int* __restrict__ hist, int* __restrict__ hist_next,
-                  int* __restrict__ cells, int n_cells, float* __restrict__ sorted,
+                  int* __restrict__ cells, int n_cells, T* __restrict__ sorted,
                   const int* __restrict__ tilecnt, int* __restrict__ npts) {
   __shared__ int s_base[kWarps][kRadix];   // per-warp counts, then bases
   __shared__ int s_off[kRadix];
@@ -334,7 +369,7 @@ radix_pass_kernel(const float* __restrict__ pts, int S, int N, int n_tiles, int 
   }
   __syncthreads();
 
-  const float* P = pts + fo * 3;
+  const T* P = pts + fo * 3;
   int* cfirst = cells + (size_t)s * 2 * n_cells;
   const int m = s_tcount;
 #pragma unroll
@@ -344,7 +379,7 @@ radix_pass_kernel(const float* __restrict__ pts, int S, int N, int n_tiles, int 
     const int dest = key >= 0 ? p + s_off[(key >> shift) & (kRadix - 1)] : -1;
     if (last) {
       if (key >= 0) {
-        float* D = sorted + (fo + dest) * 3;
+        T* D = sorted + (fo + dest) * 3;
         const int i = s_val[p];
         D[0] = P[3 * i];
         D[1] = P[3 * i + 1];
@@ -379,12 +414,13 @@ radix_pass_kernel(const float* __restrict__ pts, int S, int N, int n_tiles, int 
 }
 
 // The values summed for one point: mode 0 the three bf16 parts of each
-// coordinate (x h1, h2, h3, y ..., z ...), mode 1 the coordinates.
-template <int kMode>
+// coordinate (x h1, h2, h3, y ..., z ...), mode 1 the coordinates, in T
+// (f32, or f64 for the double build; mode 0 is f32 alone).
+template <int kMode, class T>
 struct Parts {
   static constexpr int n = kMode == 0 ? 9 : 3;
-  __device__ __forceinline__ static void of(const float* q, float* v) {
-    if (kMode == 0) {
+  __device__ __forceinline__ static void of(const T* q, T* v) {
+    if constexpr (kMode == 0) {
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         const float h1 = bf16_rne(q[a]);
@@ -400,18 +436,19 @@ struct Parts {
     }
   }
   // the (sum_x, sum_y, sum_z) of the running sums
-  __device__ __forceinline__ static void result(const float* acc, float* r) {
+  __device__ __forceinline__ static void result(const T* acc, T* r) {
 #pragma unroll
     for (int a = 0; a < 3; ++a)
-      r[a] = kMode == 0 ? __fadd_rn(__fadd_rn(acc[3 * a], acc[3 * a + 1]), acc[3 * a + 2]) : acc[a];
+      r[a] = kMode == 0 ? fp::add(fp::add(acc[3 * a], acc[3 * a + 1]), acc[3 * a + 2]) : acc[a];
   }
 };
 
-template <int kMode>
+template <int kMode, class T>
 __global__ void __launch_bounds__(kThreads)
-sum_kernel(const float* __restrict__ sorted, const int* __restrict__ cells, int S, int N,
-           int n_cells, float* __restrict__ out) {
-  using Pt = Parts<kMode>;
+sum_kernel(const T* __restrict__ sorted, const int* __restrict__ cells, int S, int N,
+           int n_cells, T* __restrict__ out) {
+  using Pt = Parts<kMode, T>;
+  constexpr int B = kBatch<T>, V = kVecN<T>;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
   const bool valid = t < S * n_cells;
@@ -425,48 +462,43 @@ sum_kernel(const float* __restrict__ sorted, const int* __restrict__ cells, int 
     hi = e > f ? e : 0;
   }
   const bool is_long = valid && hi - lo > kLong;
-  float acc[Pt::n], v[Pt::n], r[3];
+  T acc[Pt::n], v[Pt::n], r[3];
 #pragma unroll
-  for (int k = 0; k < Pt::n; ++k) acc[k] = 0.0f;
+  for (int k = 0; k < Pt::n; ++k) acc[k] = T(0);
   if (valid && !is_long) {
-    // the thread's own run: single points up to a multiple of four, then
-    // kBatch points at a time as 16-byte loads, all in flight before their
-    // adds (the frame's rows start 16-byte aligned when N % 4 == 0)
-    const float* src = sorted + (size_t)s * N * 3;
+    // the thread's own run: single points up to a multiple of V (the values
+    // per 16 bytes), then B points at a time as 16-byte loads, all in
+    // flight before their adds (the frame's rows start 16-byte aligned
+    // when N % V == 0)
+    const T* src = sorted + (size_t)s * N * 3;
     const bool vec = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
     int j = lo;
-    for (; vec && j < hi && (j & 3); ++j) {
+    for (; vec && j < hi && (j % V); ++j) {
       Pt::of(src + 3 * (size_t)j, v);
 #pragma unroll
-      for (int k = 0; k < Pt::n; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
+      for (int k = 0; k < Pt::n; ++k) acc[k] = fp::add(acc[k], v[k]);
     }
-    for (; j + kBatch <= hi; j += kBatch) {
-      float q[3 * kBatch];
+    for (; j + B <= hi; j += B) {
+      T q[3 * B];
       if (vec) {
-        const float4* q4 = reinterpret_cast<const float4*>(src + 3 * (size_t)j);
+        const Vec16<T>* q4 = reinterpret_cast<const Vec16<T>*>(src + 3 * (size_t)j);
 #pragma unroll
-        for (int e = 0; e < 3 * kBatch / 4; ++e) {
-          const float4 w = q4[e];
-          q[4 * e] = w.x;
-          q[4 * e + 1] = w.y;
-          q[4 * e + 2] = w.z;
-          q[4 * e + 3] = w.w;
-        }
+        for (int e = 0; e < 3 * B / V; ++e) unpack(q4[e], q + V * e);
       } else {
 #pragma unroll
-        for (int e = 0; e < 3 * kBatch; ++e) q[e] = src[3 * (size_t)j + e];
+        for (int e = 0; e < 3 * B; ++e) q[e] = src[3 * (size_t)j + e];
       }
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
+      for (int u = 0; u < B; ++u) {
         Pt::of(q + 3 * u, v);
 #pragma unroll
-        for (int k = 0; k < Pt::n; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
+        for (int k = 0; k < Pt::n; ++k) acc[k] = fp::add(acc[k], v[k]);
       }
     }
     for (; j < hi; ++j) {
       Pt::of(src + 3 * (size_t)j, v);
 #pragma unroll
-      for (int k = 0; k < Pt::n; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
+      for (int k = 0; k < Pt::n; ++k) acc[k] = fp::add(acc[k], v[k]);
     }
   }
   Pt::result(acc, r);
@@ -479,40 +511,40 @@ sum_kernel(const float* __restrict__ sorted, const int* __restrict__ cells, int 
     const int L = __ffs(longs) - 1;
     longs &= longs - 1;
     const int llo = __shfl_sync(0xffffffffu, lo, L), lhi = __shfl_sync(0xffffffffu, hi, L);
-    const float* src = sorted + (size_t)__shfl_sync(0xffffffffu, s, L) * N * 3;
+    const T* src = sorted + (size_t)__shfl_sync(0xffffffffu, s, L) * N * 3;
 #pragma unroll
-    for (int k = 0; k < Pt::n; ++k) acc[k] = 0.0f;
+    for (int k = 0; k < Pt::n; ++k) acc[k] = T(0);
     for (int b = llo; b < lhi; b += 32) {
       const int j = b + lane;
       if (j < lhi) {
         Pt::of(src + 3 * (size_t)j, v);
       } else {
 #pragma unroll
-        for (int k = 0; k < Pt::n; ++k) v[k] = 0.0f;
+        for (int k = 0; k < Pt::n; ++k) v[k] = T(0);
       }
       if (lhi - b >= 32) {
 #pragma unroll
         for (int q = 0; q < 32; ++q) {
 #pragma unroll
           for (int k = 0; k < Pt::n; ++k)
-            acc[k] = __fadd_rn(acc[k], __shfl_sync(0xffffffffu, v[k], q));
+            acc[k] = fp::add(acc[k], __shfl_sync(0xffffffffu, v[k], q));
         }
       } else {
         for (int q = 0; q < lhi - b; ++q) {
 #pragma unroll
           for (int k = 0; k < Pt::n; ++k)
-            acc[k] = __fadd_rn(acc[k], __shfl_sync(0xffffffffu, v[k], q));
+            acc[k] = fp::add(acc[k], __shfl_sync(0xffffffffu, v[k], q));
         }
       }
     }
     if (lane == L) Pt::result(acc, r);
   }
   if (valid) {
-    float* O = out + (size_t)s * 4 * n_cells;
+    T* O = out + (size_t)s * 4 * n_cells;
     O[cell] = r[0];
     O[n_cells + cell] = r[1];
     O[2 * n_cells + cell] = r[2];
-    O[3 * n_cells + cell] = (float)(hi - lo);
+    O[3 * n_cells + cell] = (T)(hi - lo);
   }
 }
 
@@ -527,23 +559,24 @@ bool bad_plan(int S, int N, int n_tiles, int n_passes, int n_cells) {
          n_passes != passes_for(n_cells) || (long long)S * n_cells > 0x7fffffffLL;
 }
 
-// Stages 2-3 of both entries, after stage 1 has written the keys and the
-// first histogram and initialised the rest.
-int launch_sorted_sums(const float* pts, int S, int N, int n_tiles, int n_passes,
-                       const Scratch& sc, int n_cells, float* out, int* npts, int mode,
-                       cudaStream_t st) {
+// Stages 2-3 of every entry, after stage 1 has written the keys and the
+// first histogram and initialised the rest; T the points' and sums' type.
+template <int kMode, class T>
+int launch_sorted_sums(const T* pts, int S, int N, int n_tiles, int n_passes,
+                       const Scratch& sc, int n_cells, T* out, int* npts, cudaStream_t st) {
   const size_t frame = (size_t)S * N;
   const size_t hist_pass = (size_t)S * n_tiles * kRadix;
+  T* sorted = static_cast<T*>(sc.sorted);
   const int* kin = sc.keys;
   const int* iin = nullptr;
   for (int p = 0; p < n_passes; ++p) {
     const bool last = p == n_passes - 1;
     int* kout = sc.pairs + (size_t)(p % 2) * 2 * frame;
     int* iout = kout + frame;
-    radix_pass_kernel<<<dim3(n_tiles, S), kThreads, 0, st>>>(
+    radix_pass_kernel<T><<<dim3(n_tiles, S), kThreads, 0, st>>>(
         pts, S, N, n_tiles, 8 * p, p == 0, last, kin, iin, last ? nullptr : kout,
         last ? nullptr : iout, sc.hist + p * hist_pass,
-        last ? nullptr : sc.hist + (p + 1) * hist_pass, sc.cells, n_cells, sc.sorted,
+        last ? nullptr : sc.hist + (p + 1) * hist_pass, sc.cells, n_cells, sorted,
         sc.tilecnt, npts);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -552,11 +585,24 @@ int launch_sorted_sums(const float* pts, int S, int N, int n_tiles, int n_passes
   }
   const long long total = (long long)S * n_cells;
   const int blocks = (int)((total + kThreads - 1) / kThreads);
-  if (mode == 0)
-    sum_kernel<0><<<blocks, kThreads, 0, st>>>(sc.sorted, sc.cells, S, N, n_cells, out);
-  else
-    sum_kernel<1><<<blocks, kThreads, 0, st>>>(sc.sorted, sc.cells, S, N, n_cells, out);
+  sum_kernel<kMode, T><<<blocks, kThreads, 0, st>>>(sorted, sc.cells, S, N, n_cells, out);
   return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch_points(const T* pts, const uint8_t* mask, int S, int N, int n_tiles, int n_passes,
+                  const Scratch& sc, T* out, int* npts, const BfParams& p, int mode,
+                  cudaStream_t st) {
+  key_kernel<T><<<dim3(n_tiles, S), kThreads, 0, st>>>(pts, mask, S, N, n_tiles, n_passes, p,
+                                                       sc);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (sizeof(T) == 4) {
+    if (mode == 0)
+      return launch_sorted_sums<0, T>(pts, S, N, n_tiles, n_passes, sc, p.n_cells, out, npts,
+                                      st);
+  }
+  return launch_sorted_sums<1, T>(pts, S, N, n_tiles, n_passes, sc, p.n_cells, out, npts, st);
 }
 
 }  // namespace
@@ -575,13 +621,26 @@ extern "C" int motl_voxel_bf16x3(
     float inv_z, int mode, void* stream) {
   if (bad_plan(S, N, n_tiles, n_passes, n_cells) || (mode != 0 && mode != 1))
     return (int)cudaErrorInvalidValue;
-  BfParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z};
+  const BfParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z};
   const Scratch sc{keys, pairs, hist, tilecnt, cells, sorted};
-  cudaStream_t st = (cudaStream_t)stream;
-  key_kernel<<<dim3(n_tiles, S), kThreads, 0, st>>>(pts, mask, S, N, n_tiles, n_passes, p, sc);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_sorted_sums(pts, S, N, n_tiles, n_passes, sc, n_cells, out, npts, mode, st);
+  return launch_points<float>(pts, mask, S, N, n_tiles, n_passes, sc, out, npts, p, mode,
+                              (cudaStream_t)stream);
+}
+
+// The double build of mode 1: points (S, N, 3) f64, their cells from the
+// points rounded to f32; sorted (S, N, 3) and out (S, 4, n_cells) f64 (the
+// f64 sums in ascending point index and the count); the rest as
+// motl_voxel_bf16x3.
+extern "C" int motl_voxel_sums_f64(
+    const double* pts, const uint8_t* mask, int S, int N, int n_tiles, int n_passes,
+    int* keys, int* pairs, int* hist, int* tilecnt, int* cells, double* sorted, double* out,
+    int* npts, int n_cells, int gx, int gy, int gz, int bx, int by, int bz, float inv_xy,
+    float inv_z, void* stream) {
+  if (bad_plan(S, N, n_tiles, n_passes, n_cells)) return (int)cudaErrorInvalidValue;
+  const BfParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z};
+  const Scratch sc{keys, pairs, hist, tilecnt, cells, sorted};
+  return launch_points<double>(pts, mask, S, N, n_tiles, n_passes, sc, out, npts, p, 1,
+                               (cudaStream_t)stream);
 }
 
 // The key entry: ix, iyz (S, N) i32 and in_bounds (S, N) u8 instead of the
@@ -601,5 +660,6 @@ extern "C" int motl_voxel_bf16x3_keys(
                                                         gx, gyz, sc);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_sorted_sums(pts, S, N, n_tiles, n_passes, sc, gx * gyz, out, nullptr, 0, st);
+  return launch_sorted_sums<0, float>(pts, S, N, n_tiles, n_passes, sc, gx * gyz, out, nullptr,
+                                      st);
 }

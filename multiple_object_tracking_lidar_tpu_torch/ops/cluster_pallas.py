@@ -21,6 +21,15 @@ shared memory, both entries run the same kernel body with the frame in
 device memory (``_layout``): each CTA's p and sq, the adjacency words and
 K8's labels in device-memory scratches, up to ``MAX_DEVICE_ROWS``.
 
+Under ``dtype="float64"`` the jnp CC's adjacency is K8a's double build
+(``motl_cc_adjacency_f64``, counted in ``cc_adjacency.launches_f64``): the
+JAX f64 ``_pairwise_adjacency`` under ``jax.jit`` spells its ops as the f32
+program does (the 32-row tree sum, the FMA chains; ``fma64`` in the plain
+version) and tests d2 against the f64 ``tol * tol``.  Its frame of 32-byte
+rows stays in shared memory up to ``MAX_ROWS_F64`` = 4,096 rows.  K8 has
+no double build: the JAX Pallas CC casts the points to f32, and
+``connected_components_pallas`` does too.
+
 - ``connected_components_pallas``: labels (min point index per component,
   M for invalid rows); K8 on CUDA tensors, ``..._plain`` on CPU tensors.
 - ``cc_adjacency``: K8's adjacency stage alone (K8a, the same kernel body
@@ -38,12 +47,13 @@ from __future__ import annotations
 import torch
 
 from multiple_object_tracking_lidar_tpu_torch import _build
-from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype
 
 BLOCK = 256         # cluster_pallas.py::_BLOCK: M % 256 == 0 for M > 256
 TREE_WINDOW = 32    # XLA's CPU tree-reduction window
 INVALID_SQ = 3e38   # squared norm of an invalid row: d2 > tol2 against all
 MAX_ROWS = 8192     # the frame in shared memory: p and sq of 8,192 rows fill 128 KB of a CTA
+MAX_ROWS_F64 = 4096  # the same in double (32 B a row)
 MAX_DEVICE_ROWS = 65536  # the frame in device memory: K8a's bool (M, M) is then 4 GiB a frame
 ROWS_PER_CTA = 64   # cc_layout: rows per CTA before the cluster grows (micro_torch_cc_segsum.py --sweep)
 SMEM_BYTES = 232448  # what one H100 block may use (227 KB)
@@ -58,9 +68,16 @@ def check_rows(m: int) -> None:
         raise ValueError(f"M must be a multiple of {block}, got {m}")
 
 
-def tol2_f32(tol: float) -> float:
-    """f32(tol * tol computed in f64), as the kernel's ``d2 <= tol2``."""
-    return f32(float(tol) * float(tol))
+def tol2_of(tol: float, dtype: torch.dtype) -> float:
+    """The ``d2 <= tol2`` bound in ``dtype``, ``jnp.asarray(tol * tol,
+    p.dtype)``: tol * tol computed in f64, rounded to f32 for f32."""
+    return in_dtype(float(tol) * float(tol), dtype)
+
+
+def max_rows(dtype: torch.dtype = torch.float32) -> int:
+    """Rows whose frame a CTA holds in shared memory: ``MAX_ROWS``, or
+    ``MAX_ROWS_F64`` for the double build."""
+    return MAX_ROWS_F64 if dtype == torch.float64 else MAX_ROWS
 
 
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -145,24 +162,26 @@ def _tree_colsum(v: torch.Tensor) -> torch.Tensor:
 
 
 def centred_rows(pts: torch.Tensor, mask: torch.Tensor):
-    """(S, M, 3) f32, (S, M) bool -> (p (S, M, 3), sq (S, M)): K8's prep."""
-    mf = mask.to(torch.float32)
+    """(S, M, 3) f32 or f64, (S, M) bool -> (p (S, M, 3), sq (S, M)) of
+    the points' dtype: K8's prep."""
+    mf = mask.to(pts.dtype)
     cnt = torch.clamp(mf.sum(dim=1), min=1.0)
     c = _tree_colsum(pts * mf[..., None]) / cnt[:, None]
     p = (pts - c[:, None, :]) * mf[..., None]
     p0, p1, p2 = p.unbind(-1)
-    sq = fma32(p2, p2, fma32(p1, p1, p0 * p0))
+    sq = fma(p2, p2, fma(p1, p1, p0 * p0))
     return p, torch.where(mask, sq, INVALID_SQ)
 
 
 def cc_adjacency_plain(pts: torch.Tensor, mask: torch.Tensor, tol: float) -> torch.Tensor:
-    """(S, M, M) bool: d2 <= tol2 with K8's float ops (self pairs
-    included; invalid rows adjacent to nothing)."""
+    """(S, M, M) bool: d2 <= tol2 with K8's float ops, in the points'
+    dtype (f32, or f64 as K8a's double build; self pairs included; invalid
+    rows adjacent to nothing)."""
     p, sq = centred_rows(pts, mask)
     pi, pj = p[:, :, None, :], p[:, None, :, :]
-    g = fma32(pi[..., 2], pj[..., 2], fma32(pi[..., 1], pj[..., 1], pi[..., 0] * pj[..., 0]))
+    g = fma(pi[..., 2], pj[..., 2], fma(pi[..., 1], pj[..., 1], pi[..., 0] * pj[..., 0]))
     d2 = (sq[:, :, None] + sq[:, None, :]) - 2.0 * g
-    return d2 <= tol2_f32(tol)
+    return d2 <= tol2_of(tol, pts.dtype)
 
 
 def jacobi_sweeps(adj: torch.Tensor, mask: torch.Tensor, n_sweeps: int):
@@ -183,11 +202,15 @@ def jacobi_sweeps(adj: torch.Tensor, mask: torch.Tensor, n_sweeps: int):
     return lab.to(torch.int32), it
 
 
-def _stack(pts, mask):
+def _stack(pts, mask, keep_f64: bool = False):
+    """(S, M, 3) points in f32 (f64 kept where ``keep_f64``), (S, M) bool
+    mask, whether the input was one frame."""
     single = pts.dim() == 2
     if single:
         pts, mask = pts[None], mask[None]
-    return pts.to(torch.float32), mask.reshape(pts.shape[:2]) != 0, single
+    if not (keep_f64 and pts.dtype == torch.float64):
+        pts = pts.to(torch.float32)
+    return pts, mask.reshape(pts.shape[:2]) != 0, single
 
 
 def connected_components_pallas_plain(pts, mask, tol: float, n_sweeps: int = 64,
@@ -200,39 +223,48 @@ def connected_components_pallas_plain(pts, mask, tol: float, n_sweeps: int = 64,
     return (labels, it) if with_sweeps else labels
 
 
-def cc_layout(m: int, device=None) -> tuple[int, bool]:
+def cc_layout(m: int, device=None, dtype: torch.dtype = torch.float32) -> tuple[int, bool]:
     """(C, bits in shared memory) for frames of M rows: the fewest CTAs per
     frame, a power of two up to the card's cluster (``grid_cuda.max_cluster``,
     K2's query of the card), that
     give each CTA at most ``ROWS_PER_CTA`` rows and hold its rows' adjacency
     words in shared memory beside the frame's p and sq; where even the
     largest cluster cannot, the largest, with the words in a device-memory
-    scratch.  Raises past ``MAX_ROWS``, where p and sq alone fill a CTA's
-    shared memory (``_layout`` then puts the frame in device memory)."""
+    scratch.  Raises past ``max_rows(dtype)`` (8,192 rows, 4,096 in
+    double), where p and sq alone fill a CTA's shared memory (``_layout``
+    then puts the frame in device memory)."""
     from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import max_cluster
 
-    if not 1 <= m <= MAX_ROWS:
-        raise ValueError(f"K8 takes 1 to {MAX_ROWS} rows per frame, got M = {m}")
+    top_rows = max_rows(dtype)
+    if not 1 <= m <= top_rows:
+        raise ValueError(f"K8 takes 1 to {top_rows} rows per frame in {dtype}, got M = {m}")
     top = max_cluster(device)
     c = 1
-    while c < top and (-(-m // c) > ROWS_PER_CTA or not fits_smem(m, c)):
+    while c < top and (-(-m // c) > ROWS_PER_CTA or not fits_smem(m, c, dtype)):
         c *= 2
-    return c, fits_smem(m, c)
+    return c, fits_smem(m, c, dtype)
 
 
-def fits_smem(m: int, c: int) -> bool:
+def fits_smem(m: int, c: int, dtype: torch.dtype = torch.float32) -> bool:
     """True iff a CTA of a C-CTA cluster holds its rows' adjacency words
-    (ceil(M / C) rows of ceil(M / 32) + 1 u32) beside the frame's p, sq and
-    tree partials (or its two label buffers, which reuse them)."""
+    (ceil(M / C) rows of ceil(M / 32) + 1 u32, rounded to 8 bytes in
+    double) beside the frame's p, sq and tree partials (4 M + 6 ceil(M /
+    32) values of the points' dtype; or its two label buffers, which reuse
+    them)."""
     nw = -(-m // 32)
-    region = max(16 * m + 24 * nw, 8 * m)
-    return region + 4 * (nw + 1) * -(-m // c) <= SMEM_BYTES - STATIC_SMEM
+    item = 8 if dtype == torch.float64 else 4
+    region = max(item * (4 * m + 6 * nw), 8 * m)
+    words = (nw + 1) * -(-m // c)
+    if item == 8:
+        words += words % 2
+    return region + 4 * words <= SMEM_BYTES - STATIC_SMEM
 
 
 def _frames(p: torch.Tensor):
-    """(p, its frame stride in floats): (S, M, 3) f32 rows, each frame's
-    (M, 3) contiguous, as compact_points' views are; else a copy."""
-    if p.dtype != torch.float32:
+    """(p, its frame stride in values): (S, M, 3) f32 or f64 rows, each
+    frame's (M, 3) contiguous, as compact_points' views are; else a copy
+    (other dtypes to f32)."""
+    if p.dtype not in (torch.float32, torch.float64):
         p = p.to(torch.float32)
     if p.stride(-1) != 1 or p.stride(-2) != 3:
         p = p.contiguous()
@@ -247,35 +279,37 @@ def _mask_frames(mask: torch.Tensor):
     return mask, mask.stride(0)
 
 
-def _layout(m: int, cluster: int | None, device) -> tuple[int, bool, bool]:
+def _layout(m: int, cluster: int | None, device,
+            dtype: torch.dtype = torch.float32) -> tuple[int, bool, bool]:
     """(CTAs per frame, adjacency bits in shared memory, frame in device
-    memory) for frames of M rows: ``cc_layout``'s (or the ``cluster`` asked
-    for) up to ``MAX_ROWS``; past it the largest cluster (or the one asked
-    for) with the frame and the bits in device memory.  Raises past
-    ``MAX_DEVICE_ROWS``."""
+    memory) for frames of M rows in ``dtype``: ``cc_layout``'s (or the
+    ``cluster`` asked for) up to ``max_rows(dtype)``; past it the largest
+    cluster (or the one asked for) with the frame and the bits in device
+    memory.  Raises past ``MAX_DEVICE_ROWS``."""
     from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import max_cluster
 
     if not 1 <= m <= MAX_DEVICE_ROWS:
         raise ValueError(f"K8 takes 1 to {MAX_DEVICE_ROWS} rows per frame, got M = {m}")
     top = max_cluster(device)
-    device_frame = m > MAX_ROWS
+    device_frame = m > max_rows(dtype)
     if cluster is None:
-        return (top, False, True) if device_frame else (*cc_layout(m, device), False)
+        return (top, False, True) if device_frame else (*cc_layout(m, device, dtype), False)
     if cluster not in (1, 2, 4, 8, 16) or cluster > top:
         raise ValueError(f"cluster must be a power of two up to {top}")
-    return cluster, not device_frame and fits_smem(m, cluster), device_frame
+    return cluster, not device_frame and fits_smem(m, cluster, dtype), device_frame
 
 
 def _launch(entry, pts, mask, tol, cluster, extra, outs):
     """One launch of a K8 entry on S frames: the layout, the inputs read
     where they lie, the adjacency scratch when it leaves shared memory, and
     the frame's scratch (each CTA's p, sq and partials, then K8's labels)
-    when the frame does."""
+    when the frame does, in the points' dtype (f32, or f64 for K8a's double
+    build)."""
     p = pts[None] if pts.dim() == 2 else pts
     s, m = p.shape[:2]
     mk = mask.reshape(s, m)
-    cluster, in_smem, device_frame = _layout(m, cluster, p.device)
     p, pfs = _frames(p)
+    cluster, in_smem, device_frame = _layout(m, cluster, p.device, p.dtype)
     mk, mfs = _mask_frames(mk)
     bits = frame = None
     if not in_smem:
@@ -283,9 +317,9 @@ def _launch(entry, pts, mask, tol, cluster, extra, outs):
                            device=p.device)
     if device_frame:
         frame = torch.empty(s * cluster * (4 * m + 6 * -(-m // 32)) + s * 2 * m,
-                            dtype=torch.float32, device=p.device)
+                            dtype=p.dtype, device=p.device)
     err = getattr(_build.load(), entry)(
-        p.data_ptr(), pfs, mk.data_ptr(), mfs, s, m, tol2_f32(tol), *extra, cluster,
+        p.data_ptr(), pfs, mk.data_ptr(), mfs, s, m, tol2_of(tol, p.dtype), *extra, cluster,
         *(None if b is None else b.data_ptr() for b in (bits, frame)),
         *(o.data_ptr() for o in outs), _build.stream_ptr(p.device),
     )
@@ -295,20 +329,27 @@ def _launch(entry, pts, mask, tol, cluster, extra, outs):
 def cc_adjacency(pts: torch.Tensor, mask: torch.Tensor, tol: float,
                  cluster: int | None = None) -> torch.Tensor:
     """K8's adjacency stage (K8a) on CUDA tensors, its plain version on CPU
-    tensors: bool (M, M), or (S, M, M) for stacked frames.  ``cluster``
+    tensors: bool (M, M), or (S, M, M) for stacked frames.  f64 points take
+    the double build (``.launches_f64``), any other dtype f32.  ``cluster``
     overrides ``cc_layout``'s CTAs per frame (for checks and sweeps)."""
     if pts.device.type == "cpu":
-        p, m, single = _stack(pts, mask)
+        p, m, single = _stack(pts, mask, keep_f64=True)
         adj = cc_adjacency_plain(p, m, tol)
         return adj[0] if single else adj
     s, n = (1,) + pts.shape[:1] if pts.dim() == 2 else pts.shape[:2]
     adj = torch.empty((s, n, n), dtype=torch.bool, device=pts.device)
-    _launch("motl_cc_adjacency", pts, mask, tol, cluster, (), (adj,))
-    cc_adjacency.launches += 1
+    f64 = pts.dtype == torch.float64
+    _launch("motl_cc_adjacency_f64" if f64 else "motl_cc_adjacency", pts, mask, tol, cluster,
+            (), (adj,))
+    if f64:
+        cc_adjacency.launches_f64 += 1
+    else:
+        cc_adjacency.launches += 1
     return adj[0] if pts.dim() == 2 else adj
 
 
 cc_adjacency.launches = 0
+cc_adjacency.launches_f64 = 0   # the double build's
 
 
 def connected_components_pallas(pts: torch.Tensor, mask: torch.Tensor, tol: float,
@@ -318,9 +359,13 @@ def connected_components_pallas(pts: torch.Tensor, mask: torch.Tensor, tol: floa
     after at most ``n_sweeps`` Jacobi sweeps, M for invalid rows.  K8 on
     CUDA tensors (one launch), its plain version on CPU tensors.
     ``with_sweeps`` also returns the sweeps run (the largest over frames; a
-    host read).  ``cluster`` overrides ``cc_layout``'s CTAs per frame."""
+    host read).  ``cluster`` overrides ``cc_layout``'s CTAs per frame.
+    f64 points are rounded to f32 first, as the JAX Pallas CC rounds them
+    (cluster_pallas.py:132): K8 has no double build."""
     if pts.device.type == "cpu":
         return connected_components_pallas_plain(pts, mask, tol, n_sweeps, with_sweeps)
+    if pts.dtype != torch.float32:
+        pts = pts.to(torch.float32)
     s, n = (1,) + pts.shape[:1] if pts.dim() == 2 else pts.shape[:2]
     check_rows(n)
     labels = torch.empty((s, n), dtype=torch.int32, device=pts.device)

@@ -20,7 +20,10 @@ version runs the same schedule, so it reports the same iteration count
 ``fused_finalize_static_cc_stacked`` launches the kernel for CUDA tensors
 and runs the plain version for CPU tensors; ``.launches`` counts kernel
 launches, ``.launches_f64`` those of its double build (``dtype="float64"``:
-the f64 accumulator, centroids and d^2, ``motl_grid_cc_f64``).
+the f64 accumulator, centroids and d^2, ``motl_grid_cc_f64``) and
+``.launches_f64_f32sums`` those of the double build fed f32 sums
+(``voxel_mode="runs"`` under f64: K7's f32 accumulator finalized in f32,
+the centroid widened, then the f64 d^2; ``motl_grid_cc_f64_f32sums``).
 """
 
 from __future__ import annotations
@@ -139,7 +142,8 @@ def _device_offsets(offsets: tuple, device: str) -> torch.Tensor:
 
 
 def fused_finalize_static_cc_stacked_plain(
-    accs, scal, base_row, base_col, bits, *, dims, offsets, kwin, max_sweeps, tol=None
+    accs, scal, base_row, base_col, bits, *, dims, offsets, kwin, max_sweeps, tol=None,
+    dtype=None,
 ):
     """Plain PyTorch version of K2, same arithmetic order and schedule:
     each iteration is one Jacobi sweep over every cell from the labels of
@@ -149,16 +153,19 @@ def fused_finalize_static_cc_stacked_plain(
     version stands for them all.  An f64 ``accs`` is the double build's:
     the centroids in f64, the map transform on them rounded to f32, and
     d^2 = fma(dz, dz, fma(dx, dx, dy * dy)) against the f64 ``tol * tol``
-    (``tol`` required), as the JAX package's f64 route computes them."""
+    (``tol`` required), as the JAX package's f64 route computes them.
+    ``dtype=torch.float64`` on f32 ``accs`` is the build fed f32 sums: the
+    centroids finalized in f32, then widened, the rest as the double
+    build's."""
     gx, gy, gz = dims
     n = gx * gy * gz
     s = accs.shape[0]
     dev = accs.device
-    f64 = accs.dtype == torch.float64
-    if not f64:
+    f64 = (dtype or accs.dtype) == torch.float64
+    if accs.dtype != torch.float64:
         accs = accs.to(torch.float32)
     cnt = accs[:, 3]
-    cent = accs[:, :3] / torch.clamp(cnt, min=1.0)[:, None, :]
+    cent = (accs[:, :3] / torch.clamp(cnt, min=1.0)[:, None, :]).to(dtype or accs.dtype)
     ox, oy, cosv, sinv, invr, tol2 = (scal[q] for q in range(6))
     if f64:
         tol2 = torch.tensor(float(tol) * float(tol), dtype=torch.float64, device=dev)
@@ -206,6 +213,12 @@ def fused_finalize_static_cc_stacked_plain(
     return cent, dyn, labels, n_sw, sat
 
 
+# (accumulator dtype, centroid dtype) -> (C entry, its launch counter)
+_BUILDS = {(torch.float32, torch.float32): ("motl_grid_cc", "launches"),
+           (torch.float64, torch.float64): ("motl_grid_cc_f64", "launches_f64"),
+           (torch.float32, torch.float64): ("motl_grid_cc_f64_f32sums", "launches_f64_f32sums")}
+
+
 def fused_finalize_static_cc_stacked(
     accs_cm: torch.Tensor,   # (S, 4, n_cells) f32 or f64 channel-major accumulators
     scal: torch.Tensor,      # (6,) f32 (make_scal)
@@ -220,12 +233,15 @@ def fused_finalize_static_cc_stacked(
     kwin: int,
     max_sweeps: int | None = None,
     cluster: int | None = None,
+    dtype: torch.dtype | None = None,
 ):
-    """Returns (cent (S, 3, n) of the accumulators' dtype, dyn (S, n) bool,
-    labels (S, n) i32, n_sweeps (S,) i32, saturated (S,) i32).  An f64
-    accumulator launches the double build (``motl_grid_cc_f64``, one launch
-    too).  ``max_sweeps=None`` caps the iterations at the grid-diameter
-    bound 2 (gx + gy + gz); ``cluster=None`` takes ``cluster_size``'s CTAs
+    """Returns (cent (S, 3, n) of ``dtype`` (by default the accumulators'),
+    dyn (S, n) bool, labels (S, n) i32, n_sweeps (S,) i32, saturated (S,)
+    i32).  An f64 accumulator launches the double build
+    (``motl_grid_cc_f64``, one launch too); an f32 one with
+    ``dtype=torch.float64`` the double build fed f32 sums
+    (``motl_grid_cc_f64_f32sums``).  ``max_sweeps=None`` caps the
+    iterations at the grid-diameter bound 2 (gx + gy + gz); ``cluster=None`` takes ``cluster_size``'s CTAs
     per frame (any size gives the same results; the plain version on a CPU
     tensor has no CTAs and ignores it)."""
     gx, gy, gz = dims
@@ -237,15 +253,16 @@ def fused_finalize_static_cc_stacked(
     if accs_cm.device.type == "cpu":
         return fused_finalize_static_cc_stacked_plain(
             accs_cm, scal, base_row, base_col, bits,
-            dims=dims, offsets=offsets, kwin=kwin, max_sweeps=max_sweeps, tol=tol,
+            dims=dims, offsets=offsets, kwin=kwin, max_sweeps=max_sweeps, tol=tol, dtype=dtype,
         )
     if cluster is None:
         cluster = cluster_size(n, len(offsets), dev)
     s = accs_cm.shape[0]
-    dt = accs_cm.dtype
-    if accs_cm.shape != (s, 4, n) or dt not in (torch.float32, torch.float64):
-        raise ValueError(f"accs must be (S, 4, {n}) float32 or float64, "
-                         f"got {tuple(accs_cm.shape)} {dt}")
+    dt = dtype or accs_cm.dtype
+    if (accs_cm.shape != (s, 4, n) or accs_cm.dtype not in (torch.float32, torch.float64)
+            or dt not in (accs_cm.dtype, torch.float64)):
+        raise ValueError(f"accs must be (S, 4, {n}) float32 or float64 and dtype the same "
+                         f"or float64, got {tuple(accs_cm.shape)} {accs_cm.dtype} -> {dt}")
     for name, t in (("base_row", base_row), ("base_col", base_col), ("bits", bits)):
         if t.shape != (n,) or t.dtype != torch.int32 or t.device != dev:
             raise ValueError(f"{name} must be ({n},) int32 on {dev}")
@@ -272,7 +289,7 @@ def fused_finalize_static_cc_stacked(
     scratch = (None if adjacency_in_smem(n, len(offsets), cluster) else
                torch.empty((s * cluster * n_words * rng,), dtype=torch.int32, device=dev))
     lib = _build.load()
-    entry = "motl_grid_cc_f64" if dt == torch.float64 else "motl_grid_cc"
+    entry, counter = _BUILDS[accs_cm.dtype, dt]
     tol2 = (float(tol) * float(tol),) if dt == torch.float64 else ()
     err = getattr(lib, entry)(
         accs_cm.data_ptr(), *(t.data_ptr() for t in ins),
@@ -282,15 +299,14 @@ def fused_finalize_static_cc_stacked(
         _build.stream_ptr(dev),
     )
     _build.check(err, entry)
-    if dt == torch.float64:
-        fused_finalize_static_cc_stacked.launches_f64 += 1
-    else:
-        fused_finalize_static_cc_stacked.launches += 1
+    setattr(fused_finalize_static_cc_stacked, counter,
+            getattr(fused_finalize_static_cc_stacked, counter) + 1)
     return cent, dyn, labels, nsw[:, 0], nsw[:, 1]
 
 
 fused_finalize_static_cc_stacked.launches = 0
-fused_finalize_static_cc_stacked.launches_f64 = 0   # the double build's
+fused_finalize_static_cc_stacked.launches_f64 = 0            # the double build's
+fused_finalize_static_cc_stacked.launches_f64_f32sums = 0    # fed f32 sums
 
 
 def fused_finalize_static_cc(acc_cm, scal, base_row, base_col, bits, **kw):

@@ -14,7 +14,8 @@ cell's points; voxels come out in ascending linear cell index (x fastest).
 - ``voxel_finalize``: centroids, cumsum-compacted to m_max rows.
 - ``voxel_downsample_scan`` (``voxel_mode="scan"``): a stable sort by cell,
   17 segmented Hillis-Steele passes, a cumsum and a searchsorted -- plain
-  torch, the same ops as JAX, so the same bits.
+  torch, the same ops as JAX, so the same bits, in f32 or f64 (no TPU
+  kernel; the card runs them in torch too).
 
 Every front end takes S stacked frames, (S, N, 3), or one (N, 3) frame.
 A dropped point -- masked, out of bounds or NaN -- is tested on the float
@@ -88,10 +89,10 @@ def _squeeze(points, mask):
 def voxel_accumulate_stacked(
     points: torch.Tensor, mask: torch.Tensor, scene: SceneBounds, leaf_xy: float, leaf_z: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """((S, 4, n_cells) f32 channel-major [sum_x, sum_y, sum_z, count],
-    (S,) i32 mask-nonzero counts): one K6 f32-mode call for S frames.  f64
-    points sum in f64 (the JAX f64 scatter-add; the plain version only:
-    ``accumulate_f32_stacked``)."""
+    """((S, 4, n_cells) channel-major [sum_x, sum_y, sum_z, count] of the
+    points' dtype, (S,) i32 mask-nonzero counts): one K6 f32-mode call for
+    S frames.  f64 points sum in f64 (the JAX f64 scatter-add), K6f's
+    double build on the card (``accumulate_f32_stacked``)."""
     # imported here: voxel_grid_cuda imports this module
     from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
         accumulate_f32_stacked,
@@ -145,7 +146,9 @@ def voxel_downsample_scan(points, mask, scene: SceneBounds, leaf_xy: float, leaf
     Hillis-Steele prefix sums ``v + where(same, shifted, 0.0)`` (the last
     row of each run holds its total), then gather-only compaction through
     a cumsum and a searchsorted.  ((S, m_max, 3), (S, m_max), (S,)), or the
-    single-frame shapes for an (N, 3) input."""
+    single-frame shapes for an (N, 3) input.  The cells come from the
+    points rounded to f32; the sums are in the points' dtype (f32 or f64,
+    ``w`` in ``points.dtype`` as JAX's: ops/voxel.py:166)."""
     from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
         kept_cells,
         kernel_params,
@@ -157,8 +160,9 @@ def voxel_downsample_scan(points, mask, scene: SceneBounds, leaf_xy: float, leaf
     p = pts.to(torch.float32)
     ok, lin, _ = kept_cells(p, msk, k)
     keys = torch.where(ok, lin, nc)
-    w = ok.to(torch.float32)
-    vals = torch.cat([torch.where(ok[..., None], p, 0.0), w[..., None]], dim=-1)
+    v = pts if pts.dtype == torch.float64 else p
+    w = ok.to(v.dtype)
+    vals = torch.cat([torch.where(ok[..., None], v, 0.0), w[..., None]], dim=-1)
     ks, perm = torch.sort(keys, dim=1, stable=True)
     vals = torch.gather(vals, 1, perm[..., None].expand(-1, -1, 4))
 

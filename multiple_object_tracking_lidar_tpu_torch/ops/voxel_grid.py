@@ -19,6 +19,15 @@ voxel_grid.py``, with its TPU dispatch (voxel_grid.py:117-164):
   the TPU's v2 kernel when the leaf is too coarse, and its jnp lowering of
   the same sums when no block tiles N.
 
+Under ``dtype="float64"`` (f64 points) the fast route is unchanged (K1 on
+the points rounded to f32; the caller casts its sums), and the exact route
+is not K5's digits: the JAX package takes an f64 one-hot contraction
+there (voxel_grid.py:242-254, on the TPU too, since ``use_pallas`` is
+false for f64), whose sums are the f64 coordinates of each cell's points
+in XLA's ``dot_general`` order.  The port takes K6f's double build
+(``accumulate_f32_stacked``): the same sums in ascending point index, so
+they agree to a few ulps, not bit for bit.
+
 ``accumulate_from_indices`` is the port of ``_accumulate_pallas``, the
 TPU's first one-hot accumulator, whose caller quantizes; no tracking path
 runs it.
@@ -39,6 +48,7 @@ from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
     accumulate_bf16x3_stacked,
     accumulate_exact_stacked,
     accumulate_exact_stacked_raw,
+    accumulate_f32_stacked,
     accumulate_fast_stacked,
     accumulate_fast_stacked_raw,
     exact_digit_sums,
@@ -110,11 +120,15 @@ def voxel_accumulate_stacked(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """((S, 4, n_cells) f32 accumulators, (S,) i32 mask-nonzero counts) of
     S stacked frames in one kernel call; each frame's result is the one a
-    single-frame call gives.  Past K1's and K5's ``max_cells`` the digit
+    single-frame call gives.  f64 points on the exact route sum in f64
+    (K6f's double build: the JAX f64 contraction's sums up to its
+    order).  Past K1's and K5's ``max_cells`` the digit
     sums are the plain integer ones, finalized by K1's or K5's finalize
     (``digit_sums_stacked``): the same bits."""
     if quant not in ("fast", "exact"):
         raise ValueError(f"unknown voxel_quant {quant!r}")
+    if quant == "exact" and points.dtype == torch.float64:
+        return accumulate_f32_stacked(points.contiguous(), mask, scene, leaf_xy, leaf_z)
     points = points.to(torch.float32).contiguous()
     if quant == "exact" and exact_route(points.shape[1], leaf_xy, leaf_z) == "K6":
         return accumulate_bf16x3_stacked(points, mask, scene, leaf_xy, leaf_z)

@@ -15,7 +15,9 @@ K6 (bf16x3 sums).
   first accumulator, which takes precomputed grid indices.  Its f32 mode
   sums the plain coordinates in the same order: the point-list dense
   accumulator (``voxel_mode="dense"``), whose JAX form is an XLA
-  scatter-add, not a Pallas kernel.
+  scatter-add, not a Pallas kernel; on f64 points its double build
+  (K6f f64, ``dtype="float64"``) sums them in f64, the cells from the
+  points rounded to f32.
 
 Each CUDA header says what bounds the kernel on the H100 and how its design
 answers that.  K1 and K5 sum integer digits with integer atomics, so their
@@ -26,8 +28,10 @@ S = 1.
 Each wrapper (``accumulate_fast_stacked``, ``accumulate_exact_stacked``,
 ``accumulate_bf16x3_stacked``, ``accumulate_f32_stacked``) launches its
 kernel for CUDA tensors and runs its ``*_plain`` version for CPU tensors;
-``.launches`` counts kernel launches.  All return ``((S, 4, n_cells) f32 [sum_x, sum_y, sum_z, count],
-(S,) i32 mask-nonzero point count)``.
+``.launches`` counts kernel launches (``accumulate_f32_stacked.launches_f64``
+its double build's).  All return ``((S, 4, n_cells) [sum_x, sum_y, sum_z,
+count]`` in f32 (f64 from the double build), ``(S,) i32 mask-nonzero point
+count)``.
 
 K1-cm (``accumulate_fast_stacked_cm`` and ``_cm_raw``) is K1 reading
 (S, 3, N) channel-major points, the layout of the TPU's accumulator
@@ -262,13 +266,16 @@ def digit_layout(n_cells: int, s: int, groups: int = 1, device=None) -> tuple[in
     return ranges, chunks
 
 
-def _check_points(points, mask, name, channel_major=False):
+def _check_points(points, mask, name, channel_major=False, dtypes=None):
     """(S, N) of (S, N, 3) points, or of (S, 3, N) ones where
-    ``channel_major``; ValueError where they or the mask do not fit."""
+    ``channel_major``, of a dtype in ``dtypes`` (f32 by default);
+    ValueError where they or the mask do not fit."""
     axis, layout = (1, "(S, 3, N)") if channel_major else (2, "(S, N, 3)")
-    if points.dim() != 3 or points.shape[axis] != 3 or points.dtype != torch.float32:
+    dtypes = dtypes or (torch.float32,)
+    if points.dim() != 3 or points.shape[axis] != 3 or points.dtype not in dtypes:
+        kinds = " or ".join(str(d).replace("torch.", "") for d in dtypes)
         raise ValueError(
-            f"{name}: points must be {layout} float32, got {tuple(points.shape)} {points.dtype}"
+            f"{name}: points must be {layout} {kinds}, got {tuple(points.shape)} {points.dtype}"
         )
     s, n = points.shape[0], points.shape[3 - axis]
     if mask.shape != (s, n) or mask.device != points.device:
@@ -712,15 +719,16 @@ def accumulate_f32_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
     return _cell_major(acc[..., 0], counts, s), _npts(mask, s)
 
 
-def sorted_sums_plan(s: int, n: int, n_cells: int) -> dict:
+def sorted_sums_plan(s: int, n: int, n_cells: int, itemsize: int = 4) -> dict:
     """K6's scratch for S frames of N points over n_cells cells, in one
     int32 buffer: the radix sort's tiles (``SORT_TILE`` points each) and
     8-bit passes (ceil(bits(n_cells) / 8)), and the word offset and size of
     each array -- the keys (N per frame), up to two (key, index) buffers
     (2N each), the (pass, tile, digit) histograms, the tiles' mask counts,
     the cells' first and end positions (2 n_cells) and the sorted
-    coordinates (3N).  O(N + digits x tiles + n_cells) per frame; nothing
-    scales with n_cells x tiles."""
+    coordinates (3N values of ``itemsize`` bytes: 4, or 8 for the double
+    build).  O(N + digits x tiles + n_cells) per frame; nothing scales
+    with n_cells x tiles."""
     n_tiles = -(-n // SORT_TILE)
     passes = -(-max(1, (n_cells - 1).bit_length()) // 8)
     sizes = {
@@ -729,7 +737,7 @@ def sorted_sums_plan(s: int, n: int, n_cells: int) -> dict:
         "hist": passes * s * n_tiles * 256,
         "tilecnt": s * n_tiles,
         "cells": 2 * s * n_cells,
-        "sorted": 3 * s * n,
+        "sorted": 3 * s * n * itemsize // 4,
     }
     offsets, words = {}, 0
     for name, size in sizes.items():
@@ -739,35 +747,40 @@ def sorted_sums_plan(s: int, n: int, n_cells: int) -> dict:
             "words": words, "bytes": 4 * words}
 
 
-def _sorted_sums_scratch(s: int, n: int, nc: int, dev):
+def _sorted_sums_scratch(s: int, n: int, nc: int, dev, dtype=torch.float32):
     """K6's plan, its scratch buffer (kept alive by the caller until the
     launch is queued), the arrays' addresses in the entries' order, and the
-    (S, 4, n_cells) output."""
-    plan = sorted_sums_plan(s, n, nc)
+    (S, 4, n_cells) output of ``dtype`` (f32, or f64 for the double
+    build)."""
+    plan = sorted_sums_plan(s, n, nc, torch.empty((), dtype=dtype).element_size())
     buf = torch.empty(plan["words"], dtype=torch.int32, device=dev)
     ptrs = [buf.data_ptr() + 4 * plan["offsets"][k]
             for k in ("keys", "pairs", "hist", "tilecnt", "cells", "sorted")]
-    out = torch.empty((s, 4, nc), dtype=torch.float32, device=dev)
+    out = torch.empty((s, 4, nc), dtype=dtype, device=dev)
     return plan, buf, ptrs, out
 
 
 def _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, mode: int):
-    """Launch K6 (mode 0 bf16x3, mode 1 f32): ((S, 4, n_cells) f32, (S,)
-    i32); the kernels zero their own counters and count the mask."""
-    s, n = _check_points(points, mask, "K6")
+    """Launch K6 (mode 0 bf16x3, mode 1 f32; mode 1 on f64 points its
+    double build, ``motl_voxel_sums_f64``): ((S, 4, n_cells) of the
+    points' dtype, (S,) i32); the kernels zero their own counters and
+    count the mask."""
+    f64 = points.dtype == torch.float64 and mode == 1
+    s, n = _check_points(points, mask, "K6", dtypes=(torch.float64,) if f64 else None)
     k = kernel_params(scene, leaf_xy, leaf_z)
     nc = k["n_cells"]
     m8 = _build.byte_mask(mask)
     dev = points.device
-    plan, buf, ptrs, out = _sorted_sums_scratch(s, n, nc, dev)
+    plan, buf, ptrs, out = _sorted_sums_scratch(s, n, nc, dev, points.dtype)
     npts = torch.empty((s,), dtype=torch.int32, device=dev)
-    err = _build.load().motl_voxel_bf16x3(
+    entry = "motl_voxel_sums_f64" if f64 else "motl_voxel_bf16x3"
+    err = getattr(_build.load(), entry)(
         points.data_ptr(), m8.data_ptr(), s, n, plan["n_tiles"], plan["passes"], *ptrs,
         out.data_ptr(), npts.data_ptr(), nc,
         k["gx"], k["gy"], k["gz"], k["bx"], k["by"], k["bz"],
-        k["inv_xy"], k["inv_z"], mode, _build.stream_ptr(dev),
+        k["inv_xy"], k["inv_z"], *(() if f64 else (mode,)), _build.stream_ptr(dev),
     )
-    _build.check(err, "motl_voxel_bf16x3")
+    _build.check(err, entry)
     return out, npts
 
 
@@ -790,28 +803,29 @@ accumulate_bf16x3_stacked.launches = 0
 
 
 def accumulate_f32_stacked(
-    points: torch.Tensor,   # (S, N, 3) f32
+    points: torch.Tensor,   # (S, N, 3) f32 or f64
     mask: torch.Tensor,     # (S, N) bool / nonzero = keep
     scene: SceneBounds,
     leaf_xy: float,
     leaf_z: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K6 (f32 mode) on CUDA tensors, its plain version on CPU tensors (f64
-    points there too: sums in f64).  f64 points on the card raise: K6 has
-    no double build yet (ROADMAP item 27)."""
+    """K6 (f32 mode) on CUDA tensors, its plain version on CPU tensors.
+    f64 points sum in f64: on the card K6f's double build
+    (``motl_voxel_sums_f64``, counted in ``.launches_f64``), the JAX f64
+    scatter-add's sums (the point list's and the vmap fleet's accumulator
+    under dtype="float64", and the exact route's there)."""
     if points.device.type == "cpu":
         return accumulate_f32_stacked_plain(points, mask, scene, leaf_xy, leaf_z)
-    if points.dtype == torch.float64:
-        raise NotImplementedError(
-            "K6's f32-mode sums have no double build yet: the f64 scatter sums (the vmap "
-            "fleet's and the point list's accumulator under dtype='float64') run on the "
-            "CPU only (ROADMAP Queue 1, item 27)")
     out = _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, 1)
-    accumulate_f32_stacked.launches += 1
+    if points.dtype == torch.float64:
+        accumulate_f32_stacked.launches_f64 += 1
+    else:
+        accumulate_f32_stacked.launches += 1
     return out
 
 
 accumulate_f32_stacked.launches = 0
+accumulate_f32_stacked.launches_f64 = 0   # the double build's
 
 
 # ---------------------------------------------------------------------------

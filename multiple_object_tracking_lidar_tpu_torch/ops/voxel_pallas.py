@@ -12,6 +12,12 @@ each cell receives exactly one run and the three bf16 parts of a run total
 add back to it exactly, so writing the totals with ``index_put_`` (unique
 indices, no float atomics) gives the same bits.
 
+Under ``dtype="float64"`` K7 stays f32, on the points rounded to f32, as
+the JAX route casts them (``segment_totals_raster``, voxel_pallas.py:
+350-352): the dense accumulator is f32 (the dense grid finalizes it in f32
+and widens the centroids), and the voxel list divides the f32 totals by
+f64 counts (voxel_pallas.py:152-153), in f64.
+
 Dropped points -- masked, out of bounds or NaN -- take the key ``n_cells``
 and sort to the end.  JAX casts ``floor(NaN)`` to int32 before its bounds
 test, so whether it drops a NaN point is implementation-defined; the port
@@ -93,7 +99,9 @@ def voxel_downsample_runs(points, mask, scene: SceneBounds, leaf_xy: float, leaf
     ((S, m_max, 3), (S, m_max), (S,)), or the single-frame shapes for one
     (N, 3) frame.  The run ends come out of a second sort (of their row
     index; other rows go to the back), the totals of those rows are
-    gathered, and each count is the distance between two run ends."""
+    gathered, and each count is the distance between two run ends.  The
+    totals are f32 (K7); the counts and the centroids are in the points'
+    dtype, f32 or f64."""
     single = points.dim() == 2
     if single:
         points, mask = points[None], mask[None]
@@ -110,8 +118,9 @@ def voxel_downsample_runs(points, mask, scene: SceneBounds, leaf_xy: float, leaf
     srcc = torch.clamp(src, 0, n - 1)
     rows = torch.stack([torch.gather(c, 1, srcc) for c in (tx, ty, tz)], dim=-1)
     prev = torch.cat([torch.full((s, 1), -1, dtype=src.dtype, device=dev), src[:, :-1]], dim=1)
-    counts = torch.where(out_mask, src - prev, 1).to(torch.float32)
-    out = rows / torch.clamp(counts[..., None], min=1.0)
+    dt = torch.float64 if points.dtype == torch.float64 else torch.float32
+    counts = torch.where(out_mask, src - prev, 1).to(dt)
+    out = rows.to(dt) / torch.clamp(counts[..., None], min=1.0)
     out = torch.where(out_mask[..., None], out, 0.0)
     res = (out, out_mask, n_vox)
     return tuple(r[0] for r in res) if single else res

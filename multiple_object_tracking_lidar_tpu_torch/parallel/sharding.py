@@ -30,12 +30,14 @@ chosen as the JAX package chooses them (sharding.py:88-107):
   a leaf too coarse for two digits accumulates the bf16x3 sums (K6) and
   all-reduces them in f32 (sharding.py:210-226).
 * **vmap fleet** (every other config, and every f64 one, as in JAX): the
-  scatter sums in the compute dtype (K6's f32 mode; the f64 sums have no
-  double build yet and run on the CPU only, ROADMAP item 27) whatever
-  ``voxel_mode`` says, an all-reduce in that dtype, and perception
-  from the accumulator with no per-cell static table -- on a grid config
-  the stencil CC with the per-point map lookup, since the JAX program's map
-  is a tracer there (sharding.py:316-333).  The track step is the same
+  scatter sums in the compute dtype (K6's f32 mode, or its double build
+  K6f f64) whatever ``voxel_mode`` says, an all-reduce in that dtype, and
+  perception from the accumulator with no per-cell static table -- on a
+  grid config the stencil CC with the per-point map lookup, since the JAX
+  program's map is a tracer there (sharding.py:316-333).  That stencil CC
+  has no double build, so an f64 grid config's vmap fleet raises on the
+  card at its plan (``check_f64_routes``, ROADMAP item 27's tail) and runs
+  on the CPU; an f64 point-list config's runs on the card.  The track step is the same
   B x 1 K4 launch, whose decisions equal the jnp associator the JAX vmap
   fleet pins; an explicit ``assoc_backend="pallas"`` raises, as it does
   there.

@@ -1,7 +1,8 @@
 """The per-frame tracking step.
 
-Port of ``multiple_object_tracking_lidar_tpu/tracker/pipeline.py`` for f32,
-both associations (``greedy``, and ``hungarian``, the optimal gated
+Port of ``multiple_object_tracking_lidar_tpu/tracker/pipeline.py`` for f32
+and f64 (every configuration the JAX ``TrackerConfig`` accepts), both
+associations (``greedy``, and ``hungarian``, the optimal gated
 assignment) and both position filters (``lpf``, and ``ihgp``, the
 reference's present-but-disabled mode).  The reference's
 callback chain (voxel downsample -> static removal -> Euclidean clustering
@@ -35,7 +36,17 @@ one of two perception paths:
 
 and then the track step: K4 (``ops/track_cuda.py``), the whole step in
 one launch, or, for an f32 greedy step past K4's bounds, its plain route
-(``track_route``; a Hungarian or f64 step past them raises on the card).  Every
+(``track_route``; a Hungarian or f64 step past them raises on the card).
+
+Under ``dtype="float64"`` the stages follow the JAX package's f64 route:
+the quantize, K1 (fast digits, its sums cast), K7 (runs), K8 (the Pallas
+CC, on the points rounded to f32) and the map lookups stay f32; the
+scatter sums (``voxel_mode="dense"``) and the exact route's sums are K6f's
+double build, the jnp CC's adjacency K8a's, the dense grid's CC K2's (fed
+K7's f32 sums under ``voxel_mode="runs"``: finalized in f32, then
+widened), the circumcenter K3f's and the track step K4's; the scan and
+the runs' division run in f64 torch.  No f64 stage takes a plain version
+of a kernel on the card (``check_f64_routes``).  Every
 kernel lives in ``ops/*_cuda.py`` or ``ops/cluster_pallas.py``.
 Perception is stateless, so it runs on S stacked frames at once:
 ``bind_env`` is S = 1 and ``bind_env_multi`` perceives its S frames in one
@@ -123,15 +134,23 @@ from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
     map_state,
 )
 
-# The compute dtypes this package runs, and the configurations each runs
-# on: f32 every one (TrackerConfig refuses the combinations the JAX package
-# refuses); f64 the dense grid on the fast digits -- voxel_mode="onehot",
-# cluster_backend="grid", voxel_quant="fast" -- under both position filters
-# and both associations (K1 in f32, then K2, K3f and K4 built for double).
-# The ROADMAP item that ports the rest.
-F64_SCOPE = {"voxel_mode": "onehot", "cluster_backend": "grid", "voxel_quant": "fast"}
-F64_ITEM = "ROADMAP Queue 1, item 27: f64 on the exact, runs and scan modes and the point list"
+# The compute dtypes this package runs, each on every configuration
+# TrackerConfig accepts (it refuses the combinations the JAX package
+# refuses), and the ROADMAP item that holds the f64 stages still without a
+# double build on the card (check_f64_routes raises there).
+F64_TAIL = "ROADMAP Queue 1, item 27's tail: f64 stages with no double build on the card"
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def points_dtype(config: TrackerConfig) -> torch.dtype:
+    """The dtype a frame's points go to the device in: the compute dtype,
+    as the JAX package casts them (pipeline.py:846, :905, :916), except on
+    the fast digits (``voxel_mode="onehot"``, ``voxel_quant="fast"``),
+    which quantize and sum the points rounded to f32 in every dtype
+    (voxel_grid.py:187-233), so f32 points give the same bits."""
+    if config.voxel_mode == "onehot" and config.voxel_quant == "fast":
+        return torch.float32
+    return _DTYPES[config.dtype]
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -149,27 +168,20 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 def check_config(config: TrackerConfig) -> None:
     """NotImplementedError, naming the ROADMAP item, where this package does
-    not run ``config``: a compute dtype other than f32 and f64, or f64
-    outside ``F64_SCOPE``."""
+    not run ``config``: a compute dtype other than f32 and f64."""
     if config.dtype not in _DTYPES:
         raise NotImplementedError(
             f"dtype={config.dtype!r} is not ported yet: this package runs dtype in "
             f"{tuple(_DTYPES)} (ROADMAP Queue 1: other compute dtypes)"
         )
-    if config.dtype == "float64":
-        off = {f: getattr(config, f) for f, v in F64_SCOPE.items() if getattr(config, f) != v}
-        if off:
-            raise NotImplementedError(
-                f"dtype='float64' runs on {F64_SCOPE} only, got {off} ({F64_ITEM})"
-            )
 
 
 def check_f64_routes(config: TrackerConfig, device, *, k1: bool = True, k2: bool = True,
                      k4: bool = True) -> None:
-    """NotImplementedError, naming ROADMAP item 27, where an f64 step on a
-    CUDA device would run a stage in plain torch: every f64 stage on the
-    card is a kernel (K1, then K2, K3f and K4 built for double) and none
-    falls back.  ``k1`` is False where the grid passes K1's cells (the
+    """NotImplementedError, naming ROADMAP item 27's tail, where an f64 step
+    on a CUDA device would run a stage in plain torch: every f64 stage on
+    the card is a kernel (K1, K6f, K7 or K8 in f32 where the JAX route is
+    f32; K6f, K8a, K2, K3f and K4 built for double) and none falls back.  ``k1`` is False where the grid passes K1's cells (the
     plain digit sums), ``k2`` where the dense grid's CC is not K2 (the
     finalize, static drop and stencil CC in plain torch), ``k4`` where the
     greedy step takes its plain route.  On the CPU every stage is plain
@@ -185,7 +197,7 @@ def check_f64_routes(config: TrackerConfig, device, *, k1: bool = True, k2: bool
     if plain:
         raise NotImplementedError(
             f"dtype='float64' on the card runs no plain version, and these stages have "
-            f"no double build: {'; '.join(plain)} ({F64_ITEM})"
+            f"no double build: {'; '.join(plain)} ({F64_TAIL})"
         )
 
 
@@ -248,7 +260,9 @@ def make_plan(config: TrackerConfig, env: MapEnv, device, cell_table: bool = Tru
         )
     k2 = table is not None and fits and cfg.grid_cc in ("auto", "pallas")
     if cfg.dtype == "float64":
-        k1 = digit_kernels_fit(cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z, device)
+        # K1 runs the fast digits alone: under f64 the exact route is K6f's
+        k1 = (cfg.voxel_mode != "onehot" or cfg.voxel_quant != "fast"
+              or digit_kernels_fit(cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z, device))
         check_f64_routes(cfg, device, k1=k1, k2=k2)
     scal = make_scal(env, cfg.cluster_tolerance, device) if k2 else None
     return GridPlan(env=env, dims=dims, table=table, scal=scal, k2=k2)
@@ -300,13 +314,12 @@ class Tracker:
         return make_plan(self.config, env, self.device, cell_table=cell_table)
 
     def _frame(self, frame: Frame) -> Frame:
-        """The frame on the device: points in f32 (every accumulator
-        quantizes f32 points, as the JAX package's fast digits do under
-        f64: voxel_grid.py:187-233), t in the compute dtype (a caller's
+        """The frame on the device: points in ``points_dtype`` (the compute
+        dtype, f32 on the fast digits), t in the compute dtype (a caller's
         f64 stamp is not rounded through f32 first)."""
         dev = self.device
         return Frame(
-            points=torch.as_tensor(frame.points, dtype=torch.float32, device=dev),
+            points=torch.as_tensor(frame.points, dtype=points_dtype(self.config), device=dev),
             mask=torch.as_tensor(frame.mask, device=dev),
             t=torch.as_tensor(frame.t, device=dev).to(self.dtype),
         )
@@ -319,9 +332,11 @@ class Tracker:
         ((S, 4, n_cells) of the compute dtype, (S,) i32 mask-nonzero
         counts) -- the sorted runs (K7), the scatter sums (K6 f32 mode,
         ``voxel_mode="dense"``) or the one-hot route of ``voxel_quant`` (K1,
-        K5 or K6).  Under f64 (the fast digits alone) K1's f32 sums are
-        cast, as the JAX package casts its f32 finalize (voxel_grid.py:
-        231)."""
+        K5 or K6).  Under f64 the scatter sums and the exact route's are
+        K6f's double build on the f64 points, K1's f32 sums are cast, as
+        the JAX package casts its f32 finalize (voxel_grid.py:231), and the
+        runs' accumulator stays f32, as JAX's does (voxel_pallas.py:
+        158-243; the dense grid finalizes it in f32)."""
         cfg = self.config
         args = (points, mask, cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
         if cfg.voxel_mode == "runs":
@@ -341,7 +356,7 @@ class Tracker:
         npts = (frames.mask.reshape(frames.mask.shape[0], -1) != 0).sum(dim=1).to(torch.int32)
         down = voxel_downsample_runs if cfg.voxel_mode == "runs" else voxel_downsample_scan
         vox, vox_mask, n_vox = down(
-            frames.points.to(torch.float32), frames.mask, cfg.scene,
+            frames.points, frames.mask, cfg.scene,
             cfg.voxel_leaf_size, cfg.leaf_z, cfg.caps.m_max_voxels,
         )
         return _perceive_from_vox(vox, vox_mask, n_vox, frames.t, npts, plan.env, config=cfg)
@@ -453,14 +468,17 @@ def _perceive_batch_from_dense_acc(
     (finalize + static drop + CC) or, where the plan says K2 does not run,
     the finalize, the static drop and the stencil CC in plain torch; then
     the batched cluster table, one K3f launch for the S * C slots: the
-    circumcenter."""
+    circumcenter.  f32 ``accs`` under f64 (the runs' accumulator) are
+    finalized in f32 and the centroids widened (JAX pipeline.py:591, :600):
+    K2's build fed f32 sums."""
     caps = config.caps
+    dtype = _DTYPES[config.dtype]
     tol, leaf, leaf_z = config.cluster_tolerance, config.voxel_leaf_size, config.leaf_z
     if plan.k2:
         cent, dyn, labels, n_sw, cc_sat = fused_finalize_static_cc_stacked(
             accs, plan.scal, plan.table.base_row, plan.table.base_col,
             plan.table.bits, dims=plan.dims, tol=tol, leaf_xy=leaf,
-            leaf_z=leaf_z, kwin=plan.table.k,
+            leaf_z=leaf_z, kwin=plan.table.k, dtype=dtype,
         )
     else:
         cent, occ, _ = finalize_dense_cm(accs)
@@ -468,6 +486,7 @@ def _perceive_batch_from_dense_acc(
             dyn = remove_static_cells(cent, occ, plan.env, plan.table)
         else:
             dyn = remove_static(cent.transpose(-1, -2), occ, plan.env)
+        cent = cent.to(dtype)
         labels, n_sw, cc_sat = connected_components_grid(
             cent, dyn, plan.dims, tol, leaf, leaf_z, caps.label_prop_iters,
             caps.grid_sweeps_per_iter, caps.grid_jumps_per_iter,

@@ -50,6 +50,18 @@ every FrameOutput field stacked over frames:
   ``tests/golden/torch_f64_headline.npz``;
 - ``f64_hungarian_ihgp``: the same under ``association="hungarian"`` and
   ``position_filter="ihgp"`` -> ``tests/golden/torch_f64_hungarian_ihgp_headline.npz``;
+- the f64 point list and modes, each ``CASE_FIELDS`` of its f32 case plus
+  ``dtype="float64"`` through ``Tracker.bind_env`` (x64 on), 4 frames:
+  ``f64_default`` (G: ``TrackerConfig(dtype="float64")``) ->
+  ``torch_f64_default_headline.npz``, ``f64_pointlist`` (C),
+  ``f64_pointlist_scan`` (E), ``f64_pointlist_runs`` (F), ``f64_exact`` and
+  ``f64_runs`` -> ``torch_f64_{pointlist,pointlist_scan,pointlist_runs,
+  exact,runs}_headline.npz`` (``f64_exact`` through ``bind_env``: the JAX
+  f64 exact route is its one-hot contraction, no TPU program);
+- ``cli_f64_default``: the JAX CLI ``run`` with a config file ``dtype:
+  float64`` and no ``--backend grid`` (the point list of
+  ``TrackerConfig(dtype="float64")``), 8 frames ->
+  ``torch_cli_f64_default_headline.json``;
 - ``cli``, ``cli_ihgp``, ``cli_hungarian`` and ``cli_f64``: the JAX CLI, ``run --map
   assets/sim_map.yaml --backend grid --bag <16 headline frames> --frames
   16`` (the default ``TrackerConfig()``; ``cli_ihgp`` and
@@ -95,16 +107,24 @@ GOLDENS = {
     "f64": os.path.join(GOLDEN_DIR, "torch_f64_headline.npz"),
     "f64_hungarian_ihgp": os.path.join(GOLDEN_DIR, "torch_f64_hungarian_ihgp_headline.npz"),
     "cli_f64": os.path.join(GOLDEN_DIR, "torch_cli_f64_headline.json"),
+    **{case: os.path.join(GOLDEN_DIR, f"torch_{case}_headline.npz") for case in (
+        "f64_default", "f64_pointlist", "f64_pointlist_scan", "f64_pointlist_runs",
+        "f64_exact", "f64_runs")},
+    "cli_f64_default": os.path.join(GOLDEN_DIR, "torch_cli_f64_default_headline.json"),
 }
 CLI_FRAMES = 16
 CLI_IHGP_CONFIG = "position_filter: ihgp\n"   # the cli_ihgp config file's text
 CLI_CONFIGS = {"cli_ihgp": CLI_IHGP_CONFIG,   # each CLI golden's config file, if any
                "cli_hungarian": "association: hungarian\n",
-               "cli_f64": "dtype: float64\n"}
+               "cli_f64": "dtype: float64\n",
+               "cli_f64_default": "dtype: float64\n"}
+CLI_POINTLIST = ("cli_f64_default",)   # the CLI goldens without --backend grid
 GROWTH_K0 = 2   # the growth golden's initial k_max_tracks
 N_FRAMES = 12
 # frames (the fleet: steps) per golden where not N_FRAMES
-FRAMES = {"default": 4, "fleet": 3, "dense_hungarian": 8}
+FRAMES = {"default": 4, "fleet": 3, "dense_hungarian": 8, "f64_default": 4, "f64_pointlist": 4,
+          "f64_pointlist_scan": 4, "f64_pointlist_runs": 4, "f64_exact": 4, "f64_runs": 4,
+          "cli_f64_default": 8}
 FLEET_STREAMS = 8
 # the headline config's fields changed for each case ("pointlist_jnp" is
 # configuration D, checked against the "pointlist" golden)
@@ -122,7 +142,10 @@ CASE_FIELDS = {
     "f64": {"dtype": "float64"},
     "f64_hungarian_ihgp": {"dtype": "float64", "association": "hungarian",
                            "position_filter": "ihgp"},
+    "f64_default": {"dtype": "float64"},     # on TrackerConfig(), as "default"
 }
+for _case in ("pointlist", "pointlist_scan", "pointlist_runs", "exact", "runs"):
+    CASE_FIELDS[f"f64_{_case}"] = {**CASE_FIELDS[_case], "dtype": "float64"}
 
 
 def uses_f64(case: str) -> bool:
@@ -222,21 +245,22 @@ def growth_outputs(n_frames: int) -> dict:
     return node_outputs(TrackerNode(cfg), sc.grid, [sc.frame(k) for k in range(n_frames)])
 
 
-def cli_bag(path: str, n_frames: int = CLI_FRAMES) -> list[str]:
+def cli_bag(path: str, n_frames: int = CLI_FRAMES, grid: bool = True) -> list[str]:
     """Record the first n_frames headline PointCloud2 frames to the npz bag
     ``path`` (the port's io/bag.py, a pinned copy of the JAX package's);
-    returns the CLI arguments that replay it on the dense grid."""
+    returns the CLI arguments that replay it on the dense grid (on the
+    config's own backend where not ``grid``)."""
     sys.path.insert(0, REPO)
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import SIM_MAP, headline_case
     from multiple_object_tracking_lidar_tpu_torch.io.bag import record_bag
 
     _, _, sc = headline_case()
     record_bag(path, [sc.frame(k) for k in range(n_frames)])
-    return ["run", "--map", SIM_MAP, "--backend", "grid", "--bag", path,
-            "--frames", str(n_frames)]
+    backend = ["--backend", "grid"] if grid else []
+    return ["run", "--map", SIM_MAP, *backend, "--bag", path, "--frames", str(n_frames)]
 
 
-def cli_outputs(case: str, n_frames: int = CLI_FRAMES) -> dict:
+def cli_outputs(case: str, n_frames: int | None = None) -> dict:
     """The JAX CLI's run on the ``cli_bag`` frames: {"argv": the CLI
     arguments after the bag's, "records": the JSON lines, "speeds": per
     record the unrounded speed of each obstacle}."""
@@ -254,6 +278,8 @@ def cli_outputs(case: str, n_frames: int = CLI_FRAMES) -> dict:
 
     if uses_f64(case):
         jax.config.update("jax_enable_x64", True)
+    n_frames = FRAMES.get(case, CLI_FRAMES) if n_frames is None else n_frames
+    grid = case not in CLI_POINTLIST
     speeds = []
     on_pointcloud = jnode.TrackerNode.on_pointcloud
 
@@ -265,7 +291,7 @@ def cli_outputs(case: str, n_frames: int = CLI_FRAMES) -> dict:
         return res
 
     with tempfile.TemporaryDirectory() as tmp:
-        argv = cli_bag(os.path.join(tmp, "frames.npz"), n_frames)
+        argv = cli_bag(os.path.join(tmp, "frames.npz"), n_frames, grid)
         extra = []
         if case in CLI_CONFIGS:
             cfg = os.path.join(tmp, "config.yaml")
@@ -281,7 +307,7 @@ def cli_outputs(case: str, n_frames: int = CLI_FRAMES) -> dict:
             jnode.TrackerNode.on_pointcloud = on_pointcloud
     records = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
     assert len(records) == len(speeds)
-    return {"argv": ["--backend", "grid", "--frames", str(n_frames)]
+    return {"argv": (["--backend", "grid"] if grid else []) + ["--frames", str(n_frames)]
             + (["--config", f"<{CLI_CONFIGS[case].strip()}>"] if extra else []),
             "records": records, "speeds": speeds}
 
@@ -306,10 +332,11 @@ def golden_outputs(n_frames: int | None = None, case: str = "slice",
     if case == "growth":
         return growth_outputs(n_frames_of(case) if n_frames is None else n_frames)
     cfg, env, sc = bench.dense_case() if case == "dense_hungarian" else bench.headline_case()
-    if case == "default":
+    if case in ("default", "f64_default"):
         from multiple_object_tracking_lidar_tpu.config import TrackerConfig
 
-        cfg = TrackerConfig()     # the env: the same sim map, default tolerances
+        # the env: the same sim map, default tolerances
+        cfg = TrackerConfig(**CASE_FIELDS.get(case, {}))
     elif case in CASE_FIELDS:
         cfg = cfg.replace(**CASE_FIELDS[case])
     else:

@@ -9,7 +9,11 @@ K4 under ``position_filter="ihgp"``, F7 (K8a at a ragged M; K8 and K8a
 past 8,192 rows, the frame in device memory) and the CLI's ``run --backend grid`` against the
 JAX CLI's goldens; K12 (the Hungarian auction alone) and K4's Hungarian
 builds against their plain versions, and the Hungarian paths against the
-JAX goldens.  Marked ``cuda``: they
+JAX goldens; under ``dtype="float64"`` the double builds (K2, K3f, K4;
+K6f, K8a and K2 fed f32 sums) against their plain versions, the f64 paths
+(the dense grid, the point list, the exact and runs modes) against the
+CPU plain path, and the f64 routes with no double build raising.  Marked
+``cuda``: they
 skip without a GPU.  This file imports no JAX, so on the GPU machine (which
 has none) it runs without the suite's conftest:
 
@@ -1258,3 +1262,139 @@ def test_f64_plain_routes_raise_on_the_card(dev, small, monkeypatch, route):
     with pytest.raises(NotImplementedError, match="item 27"):
         Tracker(cfg, dev).plan(env, **kw)
     Tracker(cfg.replace(dtype="float32"), dev).plan(env, **kw)     # f32 keeps its plain routes
+
+
+# ---------------------------------------------------------------------------
+# dtype="float64" off the dense grid's fast digits: K6f, K8a and K2 fed f32
+# sums built for double
+# ---------------------------------------------------------------------------
+def _f64(a, seed):
+    """f64 copy of f32 points with noise below f32's resolution."""
+    return torch.from_numpy(a.astype(np.float64)
+                            + np.random.default_rng(seed).normal(0, 1e-9, a.shape))
+
+
+def test_k6f_double_build_matches_plain(dev, small):
+    """K6f's double build on f64 points (the adversarial frame 7 included)
+    and on configuration G's grid: bit for bit its plain version, counted
+    in ``.launches_f64``."""
+    cfg, _, frames = small
+    P = _f64(np.stack([f[0] for f in frames]), 1).to(dev)
+    M = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
+    w = voxel_grid_cuda.accumulate_f32_stacked
+    gcfg, _, gsc = bench_cases.default_case()
+    gp = np.stack([gsc.frame_arrays(s)[0][::3][:32768] for s in range(2)])
+    GP, GM = _f64(gp, 2).to(dev), torch.ones((2, 32768), dtype=torch.bool, device=dev)
+    for P_, M_, c in ((P, M, cfg), (GP, GM, gcfg)):
+        kw = (c.scene, c.voxel_leaf_size, c.leaf_z)
+        n0, n64 = w.launches, w.launches_f64
+        k = w(P_, M_, *kw)
+        assert (w.launches, w.launches_f64) == (n0, n64 + 1) and k[0].dtype == torch.float64
+        p = voxel_grid_cuda.accumulate_f32_stacked_plain(P_.cpu(), M_.cpu(), *kw)
+        assert _bits(k[0], p[0]) and _bits(k[1], p[1])
+
+
+def test_k8a_double_build_matches_plain(dev, small):
+    """K8a's double build on f64 point lists: C's M = 1,024 rows of the
+    small frames, G's M = 2,048, and M = 6,144 past 4,096 rows (the f64
+    frame in device memory, where the f32 one stays in shared memory), bit
+    for bit its plain version; one launch each."""
+    rng = np.random.default_rng(14)
+    w = cluster_pallas.cc_adjacency
+    for s, m, spread in ((8, 1024, 0.8), (2, 2048, 1.5), (1, 6144, 2.0)):
+        pts = torch.from_numpy(rng.normal(0, spread, (s, m, 3))).to(dev)
+        pts[..., 2] *= 0.1
+        msk = torch.from_numpy(rng.random((s, m)) < 0.8).to(dev)
+        n64 = w.launches_f64
+        got = w(pts, msk, 0.15)
+        assert w.launches_f64 == n64 + 1
+        assert cluster_pallas._layout(m, None, dev, torch.float64)[2] == (m > 4096)
+        want = cluster_pallas.cc_adjacency_plain(pts.cpu(), msk.cpu(), 0.15)
+        assert torch.equal(got.cpu(), want) and int(want.sum()) > s * m
+
+
+def test_k2_double_build_fed_f32_sums_matches_plain(dev, small):
+    """K2 fed the runs' f32 sums under f64 (finalize in f32, widen, f64
+    d^2): bit for bit its plain version, counted in
+    ``.launches_f64_f32sums``, and not the f64 division's centroids."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel_pallas import (
+        voxel_accumulate_runs_stacked)
+
+    cfg, env, frames = small
+    cfg = cfg.replace(voxel_mode="runs", dtype="float64")
+    plan = Tracker(cfg, dev).plan(env)
+    P = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+    M = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
+    acc, _ = voxel_accumulate_runs_stacked(P, M, cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    tb = (plan.scal, plan.table.base_row, plan.table.base_col, plan.table.bits)
+    kw = dict(dims=plan.dims, tol=cfg.cluster_tolerance, leaf_xy=cfg.voxel_leaf_size,
+              leaf_z=cfg.leaf_z, kwin=plan.table.k)
+    w = grid_cuda.fused_finalize_static_cc_stacked
+    n0, n64, nfs = w.launches, w.launches_f64, w.launches_f64_f32sums
+    k = w(acc, *tb, dtype=torch.float64, **kw)
+    assert (w.launches, w.launches_f64, w.launches_f64_f32sums) == (n0, n64, nfs + 1)
+    cpu_tb = tuple(t.cpu() for t in tb)
+    p = grid_cuda.fused_finalize_static_cc_stacked(acc.cpu(), *cpu_tb, dtype=torch.float64, **kw)
+    assert k[0].dtype == torch.float64 and all(_bits(a, b) for a, b in zip(k, p))
+    wide = w(acc.double(), *tb, **kw)[0]
+    assert not torch.equal(wide, k[0])
+
+
+F64_PATHS = {   # fields: the double builds (and the f32 kernels) each must launch
+    "dense-jnp": ({"voxel_mode": "dense", "cluster_backend": "jnp"},
+                  ("K6f f64", "K8a f64")),
+    "dense-pallas": ({"voxel_mode": "dense", "cluster_backend": "pallas"},
+                     ("K6f f64", "K8")),
+    "scan-jnp": ({"voxel_mode": "scan", "cluster_backend": "jnp"}, ("K8a f64",)),
+    "runs-pallas": ({"voxel_mode": "runs", "cluster_backend": "pallas"}, ("K7", "K8")),
+    "exact-grid": ({"voxel_mode": "onehot", "cluster_backend": "grid", "voxel_quant": "exact"},
+                   ("K6f f64", "K2 f64")),
+    "runs-grid": ({"voxel_mode": "runs", "cluster_backend": "grid"},
+                  ("K7", "K2 f64 f32-sums")),
+}
+
+
+@pytest.mark.parametrize("name", list(F64_PATHS))
+def test_f64_pointlist_and_modes_gpu_match_cpu_plain_path(dev, small, name):
+    """``bind_env`` under f64 on the card for the point list and the exact
+    and runs modes against the CPU plain path, every field bit for bit,
+    with the double builds launched (K7 and K8 in f32 where the JAX route
+    is f32) and no f32 build of K2, K3f, K4, K6f or K8a."""
+    chip_smoke = _chip_smoke()
+    fields, need = F64_PATHS[name]
+    cfg, env, frames = small
+    cfg = cfg.replace(dtype="float64", **fields)
+    if cfg.cluster_backend != "grid":
+        cfg = cfg.replace(caps=dataclasses.replace(cfg.caps, m_max_voxels=2048,
+                                                   m_max_dynamic=1024))
+    outs = {}
+    for where, e in (("cpu", headline_case()[1]), ("gpu", env)):
+        tr = Tracker(cfg, "cpu" if where == "cpu" else dev)
+        step, st = tr.bind_env(e), tr.init_state()
+        if where == "gpu":
+            chip_smoke.reset_counts()
+        rows = []
+        for buf, mask, t in frames[:6]:
+            st, o = step(st, Frame(_f64(buf, 3), torch.from_numpy(mask), torch.tensor(t)))
+            rows.append([x.cpu() for x in o])
+        outs[where] = rows
+    counts = chip_smoke.read_counts()
+    assert all(counts[k] > 0 for k in need + ("K3f f64", "K4 f64")), counts
+    assert not any(counts[k] for k in chip_smoke.F32_BUILDS), counts
+    for rc, rg in zip(outs["cpu"], outs["gpu"]):
+        for f, a, b in zip(FrameOutput._fields, rc, rg):
+            assert _bits(a, b), (name, f)
+
+
+def test_f64_vmap_fleet_on_a_grid_config_raises_on_the_card(dev, small):
+    """The f64 vmap fleet (JAX's kernel fleet is f32 only) plans the dense
+    grid with no per-cell table, whose stencil CC has no double build:
+    on the card it raises naming ROADMAP item 27 (``check_f64_routes``),
+    now at the plan and no longer at K6f."""
+    from multiple_object_tracking_lidar_tpu_torch.parallel import ShardedTracker, make_mesh
+
+    cfg, env, _ = small
+    fleet = ShardedTracker(Tracker(cfg.replace(dtype="float64"), dev), make_mesh(1, 1))
+    assert not fleet._use_kernel_fleet
+    with pytest.raises(NotImplementedError, match="item 27"):
+        fleet.bind_env(env)

@@ -16,11 +16,14 @@ under the same dtype, on the CPU (tests/conftest.py turns x64 on).
   ``bind_env_multi`` and ``bind_env_pipelined``; ``TrackerNode`` with bank
   growth and checkpoint/resume, ``StreamingNode``; the vmap fleet
   (``ShardedTracker`` on 1 x 1 meshes).
-- What raises: the kernel fleet (``kernel_path="on"``, as JAX's), f64
-  on the exact, runs and scan modes and the point list (ROADMAP item 27),
-  and, on the card, every f64 stage that would take a plain route
-  (``check_f64_routes``: the digit sums past K1, the stencil CC without
-  K2, the greedy step past K4's bounds or under assoc_backend="jnp").
+- The exact, runs and scan modes and the point list under f64 (which
+  raised naming ROADMAP item 27 before they were ported) against the JAX
+  ``bind_env``; tests/test_torch_f64_pointlist.py holds the rest of them.
+- What raises: the kernel fleet (``kernel_path="on"``, as JAX's), and, on
+  the card, every f64 stage that would take a plain route
+  (``check_f64_routes``, item 27's tail: the digit sums past K1, the
+  stencil CC without K2, the greedy step past K4's bounds or under
+  assoc_backend="jnp").
 
 Integers, flags and decisions exact; detections and positions within
 1e-9 m, velocities within 1e-8 m/s (the JAX package's own f64 bounds,
@@ -505,9 +508,16 @@ def test_kernel_fleet_refuses_f64_as_jax_does(case):
     {"voxel_mode": "dense", "cluster_backend": "pallas"},
 ], ids=["exact", "runs", "scan", "pointlist"])
 def test_other_f64_configs_raise_naming_item_27(fields):
+    """The headline's config under f64 and ``fields`` -- the exact and runs
+    modes on the dense grid, the scan and the point list, which raised
+    naming ROADMAP item 27 until they were ported -- constructs and
+    matches the JAX ``bind_env`` (``test_torch_f64_pointlist.matches_jax``:
+    integers exact, floats within 1e-12 m, 1e-9 m on the exact route)."""
+    from test_torch_f64_pointlist import matches_jax
+
     cfg = bench_cases.bench_config().replace(dtype="float64", **fields)
-    with pytest.raises(NotImplementedError, match="item 27"):
-        TTracker(cfg, device="cpu")
+    TTracker(cfg, device="cpu")
+    matches_jax({f: getattr(cfg, f) for f in ("voxel_mode", "cluster_backend", "voxel_quant")})
 
 
 @pytest.mark.parametrize("stage", ["k1", "k2", "k4"])

@@ -22,6 +22,11 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from test_torch_golden import one_intra_op_thread  # noqa: E402, F401
+
+pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 
 def _load(case):

@@ -163,7 +163,15 @@ def test_state_hand_over_through_carry_across(case):
 )
 def test_unported_configs_raise(field, value):
     cfg = bench_cases.bench_config().replace(**{field: value})
-    if value == "float64":   # f64 runs the dense grid; the point list is ROADMAP item 27
-        cfg = cfg.replace(cluster_backend="jnp", voxel_mode="dense")
+    if value == "float64":
+        # f64 runs every configuration; what still raises is an f64 stage
+        # with no double build on the card (ROADMAP item 27's tail): here
+        # the stencil CC of grid_cc="jnp"
+        from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import check_f64_routes
+
+        TTracker(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            check_f64_routes(cfg.replace(grid_cc="jnp"), "cuda", k2=False)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TTracker(cfg, device="cpu")

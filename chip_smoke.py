@@ -7,7 +7,7 @@ of JAX, in five phases, one or more lines each:
 
 1. the card (``nvidia-smi`` name and power limit); no CUDA -> exit 1;
 2. the kernel build from ``csrc/*.cu`` (one nvcc per source, in parallel);
-3. each kernel (K1-K11, K3f, K6 in its bf16x3 and f32 modes and its key
+3. each kernel (K1-K13, K3f, K6 in its bf16x3 and f32 modes and its key
    entry, K1's and K5's histograms and finalizes alone, K1-cm fused and
    raw) against its plain PyTorch version on the card, at the shapes its
    path gives it, on scenario and adversarial inputs (K10 also on 0.1 m
@@ -53,7 +53,11 @@ of JAX, in five phases, one or more lines each:
    logged), and K4's Hungarian builds on the dense scene's own frames (K =
    96, D = 64) and at K = 64 and 1,024, 1 x 1, 1 x S and B x 1, under lpf
    and ihgp, on a gated scene (tracks in pairs 0.35 m apart) -- bit for bit
-   their plain versions;
+   their plain versions; K13 (the IHGP learning step) at the shapes of
+   ``K13_SHAPES`` (the headline node's update, tune's 60 windows, 1,024 and
+   4,096 windows, one window, half the mask off, logLengthScale at -10 --
+   the NaN reset -- and +10), bit for bit its plain version, one op per
+   call;
 4. the paths, each with every kernel's launch counter reset before and
    read after: the headline (fast digits) -- ``TrackerNode.on_pointcloud``
    answers 12 headline PointCloud2 frames and ``Tracker.bind_env_multi``
@@ -115,7 +119,13 @@ of JAX, in five phases, one or more lines each:
    float64``, torch_cli_f64_default_headline.json), C, E, F, exact and runs
    through ``bind_env``, each launching its double builds (K6f, K8a, K2 --
    fed f32 sums under runs --, K3f, K4; K7 and K8 in f32 where the JAX
-   route is f32) and no f32 build of K2, K3f, K4, K6f or K8a.  No path may
+   route is f32) and no f32 build of K2, K3f, K4, K6f or K8a; the headline
+   ``TrackerNode`` with ``param_fix=False`` (online learning, an update every
+   0.2 s) over 16 frames against torch_learning_headline.npz (the frames,
+   the frames of the updates, the log-parameters and the NLL), one K13
+   launch per update and one K4 per frame, and the CLI's ``tune`` at its
+   defaults against torch_cli_tune.json, one K13 launch per step; no plain
+   learning step on the card.  No path may
    take the plain digit sums;
 5. timings with CUDA events, beside the card's name and power limit:
    ``bind_env`` and ``bind_env_multi`` per path, host syncs and device ops
@@ -143,7 +153,10 @@ of JAX, in five phases, one or more lines each:
    their f32 builds, with their bounds (fp64 at 34 TFLOP/s); K6f, K8a and
    K2 fed f32 sums built for double beside their f32 builds in turns, with
    their bounds, and G in f32 and f64 in turns (ms/frame, device ops and
-   host syncs per frame).  Every one-op reading
+   host syncs per frame); K13 and its plain version in turns at the
+   headline node's shape (the plain version's device ops per call), K13's
+   device time at four shapes, and the headline node's wall ms per frame
+   p50 / p99 with learning on and off in turns.  Every one-op reading
    (``one_op_profile``) comes from a trace between marker kernels, taken
    again when it lost events at an end (``micro_torch_digits.whole_trace``),
    and K4's, K4 hungarian's, K12's and F7's fail at other than one op per
@@ -181,6 +194,8 @@ GOLDEN_HUNGARIAN = {"hungarian": os.path.join(HERE, "tests", "golden",
                                               "torch_hungarian_headline.npz"),
                     "dense_hungarian": os.path.join(HERE, "tests", "golden",
                                                     "torch_hungarian_dense.npz")}
+GOLDEN_LEARNING = os.path.join(HERE, "tests", "golden", "torch_learning_headline.npz")
+GOLDEN_TUNE = os.path.join(HERE, "tests", "golden", "torch_cli_tune.json")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM: HBM3 rate (NVIDIA's datasheet)
 F32_OPS_PER_S = 67e12         # H100 SXM: f32 outside the tensor cores; int32 ops too
 PKG = "multiple_object_tracking_lidar_tpu_torch"
@@ -1144,8 +1159,8 @@ def pointlist_rows(dev, cfg, P, M):
 def kernel_wrappers():
     """{kernel: its wrapper, whose ``.launches`` counts its launches}."""
     from multiple_object_tracking_lidar_tpu_torch.ops import (
-        assign_cuda, centroid_cuda, cluster_pallas, grid_cuda, hungarian_cuda, segsum_cuda,
-        track_cuda, transpose_cuda, voxel_grid_cuda)
+        assign_cuda, centroid_cuda, cluster_pallas, grid_cuda, hungarian_cuda, learning_cuda,
+        segsum_cuda, track_cuda, transpose_cuda, voxel_grid_cuda)
 
     vg = voxel_grid_cuda
     return {
@@ -1172,6 +1187,7 @@ def kernel_wrappers():
         "K10": centroid_cuda.circumcenter_xy,
         "K11": transpose_cuda.transpose_words,
         "K12": hungarian_cuda.auction_assign,
+        "K13": learning_cuda.learning_step_cuda,
     }
 
 
@@ -3714,6 +3730,238 @@ def phase_timings_slice14(dev, smi, report, k):
             f"{ms1:.4f} ms/frame, bind_env_multi S=8 {ms8:.4f} ms/frame{counts}")
 
 
+# ---------------------------------------------------------------------------
+# slice 15: the learning mode (K13)
+# ---------------------------------------------------------------------------
+K13_SHAPES = (  # (label, A problems, B windows, T steps, mask, logLengthScale per problem)
+    ("headline node", 2, 3, 39, "all", None),
+    ("tune default", 1, 60, 9, "all", None),
+    ("wide node", 2, 1024, 39, "all", None),
+    ("wide tune", 1, 4096, 9, "all", None),
+    ("one window", 1, 1, 39, "all", None),
+    ("half mask", 2, 64, 39, "half", None),
+    ("edges", 2, 8, 5, "all", (-10.0, 10.0)),
+)
+K13_DT = 0.1
+TOL_LEARN_LP = 5e-5    # the node's log-parameters against the golden (tests/
+TOL_LEARN_NLL = 1e-3   # test_torch_golden_learning.py: the windows' last bits)
+TOL_TUNE = 1e-4 + 1e-9  # tune's records, rounded to 4 decimals
+
+
+def k13_inputs(rng, dev, a, b, t, mask, lls):
+    """(log_params (A, 3), y (A, B, T), mask (A, B)) on the card: the
+    config's log-parameters (logLengthScale set per problem where given),
+    mean-centred noisy sinusoid windows, every window or every other one."""
+    lp = np.tile(np.asarray([-5.5, -3.5, 0.75], np.float32), (a, 1))
+    if lls is not None:
+        lp[:, 2] = lls
+    s = np.arange(t + 1) * K13_DT
+    v = 0.5 * np.sin(s * rng.uniform(0.5, 2, (a * b, 1))) + rng.normal(0, 0.05, (a * b, t + 1))
+    v = v[:, 1:].reshape(a, b, t)
+    y = (v - v.mean(-1, keepdims=True)).astype(np.float32)
+    m = np.ones((a, b), bool)
+    if mask == "half":
+        m[:, ::2] = False
+    return tuple(torch.from_numpy(x).to(dev) for x in (lp, y, m))
+
+
+def k13_ops(lp, b, t) -> int:
+    """K13's floating-point operations on these inputs, counted from
+    csrc/learning.cu (an FMA two): per problem, the model (~60), the 2 x 2
+    and three 4 x 4 expms at this run's Pade orders and squarings, the DARE
+    (72 a trip) and three Lyapunov recursions (28 a trip), ~400 of
+    gains, then 122 per window step and 12 per window."""
+    from multiple_object_tracking_lidar_tpu_torch.models import learning as TL
+
+    def mm(n):
+        return n * n * (2 * n - 1)
+
+    def expm(a):
+        n = a.shape[-1]
+        norm = float(np.abs(a).sum(0).max())
+        idx = (norm >= TL.EXPM_CONDS[0]) + (norm >= TL.EXPM_CONDS[1])
+        nsq = max(0.0, np.floor(np.log2(norm / TL.EXPM_MAXNORM))) if norm > 0 else 0.0
+        if not nsq <= TL.EXPM_MAX_SQUARINGS:
+            return n * n + 60
+        pade = (mm(n) + 5 * n * n, 2 * mm(n) + 9 * n * n, 3 * mm(n) + 13 * n * n)[idx] + mm(n)
+        return 60 + n * n * 3 + pade + 2 * n * n + 8 * n ** 3 // 3 + int(nsq) * mm(n)
+
+    total = 0
+    for row in lp.cpu().numpy():
+        ssm = TL.matern32_torch(torch.from_numpy(row))
+        f = (ssm["F"] * K13_DT).numpy()
+        ops = 60 + expm(f) + 100 * 72 + 400
+        for j in range(3):
+            ff = np.block([[f, np.zeros((2, 2))], [ssm["dF"][j].numpy() * K13_DT, f]])
+            ops += expm(ff) + 100 * 28
+        total += ops + b * t * 122 + b * 12
+    return total
+
+
+def phase_kernels_slice15(dev, report):
+    """K13 against its plain version on the card, bit for bit, at the
+    shapes of ``K13_SHAPES`` (the headline node's two axes of 3 windows of
+    39 steps, the tune default's 60 windows of 9, 1,024 and 4,096 windows,
+    one window, half the mask off, logLengthScale at -10 -- the NaN reset --
+    and +10); each call one device op (``require_one_op``)."""
+    from multiple_object_tracking_lidar_tpu_torch.models import learning as TL
+    from multiple_object_tracking_lidar_tpu_torch.ops import learning_cuda
+
+    rng = np.random.default_rng(15)
+    report.setdefault("K13", {"max_abs_err": 0.0})
+    for label, a, b, t, mask, lls in K13_SHAPES:
+        L, Y, M = k13_inputs(rng, dev, a, b, t, mask, lls)
+        fk = lambda L=L, Y=Y, M=M: learning_cuda.learning_step_cuda(L, Y, M, K13_DT)  # noqa: E731
+        new, nll = fk()
+        pn, pl = TL.learning_step_plain(L, Y, M, K13_DT)
+        if not (equal(npy(new), npy(pn)) and equal(npy(nll), npy(pl))):
+            fail(f"K13 {label} (A={a}, B={b}, T={t}): {npy(new).tolist()} {npy(nll).tolist()} "
+                 f"vs plain {npy(pn).tolist()} {npy(pl).tolist()}")
+        if lls is not None and not (np.isnan(npy(nll)[0]) and npy(new)[0].tolist() == [-5.5, 0, 0]
+                                    and abs(npy(new)[1, 2]) == 10.0):
+            fail(f"K13 edges: {npy(new).tolist()} {npy(nll).tolist()} (NaN reset at -10, "
+                 "the clamp at +10)")
+        us, ops, whole = one_op_profile(fk, 20)
+        require_one_op(f"K13 {label}", ops, whole)
+        log(f"[3 K13] {label} (A={a}, B={b}, T={t}): bit for bit the plain version; device "
+            f"{us:.2f} us in {ops:g} op per call; NLL {npy(nll).tolist()}")
+
+
+def phase_learning(dev, smi, report):
+    """The learning mode on the card, as a user runs it: the headline
+    ``TrackerNode`` with ``param_fix=False``, ``learn_period=0.2`` on the 16
+    golden frames against tests/golden/torch_learning_headline.npz (frames
+    within TOL_DETS / TOL_VEL, the updates at the golden's frames, the
+    log-parameters within TOL_LEARN_LP and the NLL within TOL_LEARN_NLL),
+    one K13 launch per update and one K4 per frame, K1-K4 as on the
+    headline path; then the CLI's ``tune`` at its defaults (``TrackerConfig()``
+    on the point list, 60 frames, 30 steps, one K13 launch per step)
+    against tests/golden/torch_cli_tune.json within TOL_TUNE.  No plain
+    learning step may run on the card (it fails if called with a CUDA
+    tensor).  Then the timings: K13 and its plain version in turns (CUDA
+    events; the plain version's launches per call from a trace), K13's
+    entry of the report with its bound, and the node's wall ms per frame
+    p50 / p99 with learning on and off, in turns (on, off, off, on)."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import headline_case, load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.models import learning as TL
+    from multiple_object_tracking_lidar_tpu_torch.ops import learning_cuda
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+
+    golden = dict(np.load(GOLDEN_LEARNING))
+    learn_fields = ("update_frame", "log_params", "nll_history")
+    cfg, _, sc = headline_case(device=dev)
+    lcfg = cfg.replace(param_fix=False, learn_period=0.2)
+    n = golden["publish"].shape[0]
+    plain = TL.learning_step_plain
+
+    def card_guard(lp, *args, **kw):
+        if lp.device.type != "cpu":
+            fail("the plain learning step ran on the card")
+        return plain(lp, *args, **kw)
+
+    TL.learning_step_plain = card_guard
+    try:
+        node = TrackerNode(lcfg, dev, keep_outputs=True)
+        node.on_map(load_sim_grid())
+        frames = [sc.frame(k) for k in range(n)]
+        reset_counts()
+        upd, lps = [], []
+        for k, msg in enumerate(frames):
+            n0 = len(node.nll_history)
+            node.on_pointcloud(msg)
+            if len(node.nll_history) > n0:
+                upd.append(k)
+                lps.append(np.stack([node.log_params["x"], node.log_params["y"]]))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        got = {f: np.stack([getattr(o, f) for o in node.outputs]) for f in node.outputs[0]._fields}
+        e = compare("learning TrackerNode vs JAX golden", got,
+                    {f: v for f, v in golden.items() if f not in learn_fields}, TOL_DETS, TOL_VEL)
+        if upd != golden["update_frame"].tolist():
+            fail(f"learning node updated after frames {upd}, the golden {golden['update_frame']}")
+        e_lp = max_err(np.asarray(lps), golden["log_params"])
+        e_nll = max_err(np.asarray(node.nll_history), golden["nll_history"])
+        if e_lp > TOL_LEARN_LP or e_nll > TOL_LEARN_NLL:
+            fail(f"learning node: log_params max abs err {e_lp}, NLL {e_nll}")
+        if counts["K13"] != len(upd) or counts["K4"] != n:
+            fail(f"learning node: K13 {counts['K13']} launches for {len(upd)} updates, K4 "
+                 f"{counts['K4']} for {n} frames")
+        log(f"[4 learning] TrackerNode x{n} (headline, param_fix=False, learn_period=0.2): "
+            f"{len(upd)} updates after frames {upd}; vs JAX golden max abs err {e}, "
+            f"log_params {e_lp}, NLL {e_nll}; launches {counts}")
+        require("learning TrackerNode", counts, FAST_PATH + ("K13",), report)
+
+        with open(GOLDEN_TUNE, encoding="utf-8") as fh:
+            gt = json.load(fh)
+        argv = [os.path.join(HERE, a) if a.endswith(".yaml") else a for a in gt["argv"]]
+        reset_counts()
+        _, recs, _ = run_cli(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ref = gt["records"]
+        if [r["step"] for r in recs] != [r["step"] for r in ref]:
+            fail(f"tune printed steps {[r['step'] for r in recs]}")
+        e_t = max(abs(a[k] - b[k]) for a, b in zip(recs, ref)
+                  for k in ("nll", "logMagnSigma2", "logLengthScale"))
+        if e_t > TOL_TUNE:
+            fail(f"tune vs JAX golden: max abs err {e_t}")
+        if counts["K13"] != len(ref):
+            fail(f"tune: K13 {counts['K13']} launches for {len(ref)} steps")
+        log(f"[4 learning] CLI tune {' '.join(gt['argv'][1:])} (TrackerConfig(), 60 frames, "
+            f"{len(ref)} steps): vs JAX golden max abs err {e_t}; last {recs[-1]}; "
+            f"launches {counts}")
+        require("tune", counts, ("K6f", "K8a", "K3f", "K4", "K13"), report)
+    finally:
+        TL.learning_step_plain = plain
+
+    # timings: K13 and its plain version in turns at the node's shape
+    rng = np.random.default_rng(150)
+    L, Y, M = k13_inputs(rng, dev, 2, 3, 39, "all", None)
+    fk = lambda: learning_cuda.learning_step_cuda(L, Y, M, K13_DT)  # noqa: E731
+    fp = lambda: TL.learning_step_plain(L, Y, M, K13_DT)  # noqa: E731
+    ms_p = cuda_ms(fp, 2)
+    ms_k = cuda_ms(fk, 50)
+    ms_k2 = cuda_ms(fk, 50)
+    ms_p2 = cuda_ms(fp, 2)
+    plain_ops, plain_syncs = trace_counts(fp, 1)
+    moved = nbytes((L, Y, M)) + nbytes(fk())
+    ops = k13_ops(L, 3, 39)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    entry = report["K13"]
+    entry["ms"] = min(ms_k, ms_k2)
+    entry["plain_ms"] = min(ms_p, ms_p2)
+    entry["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+    entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    entry["library_ms"] = None
+    log(f"[5 timing] {smi}: K13 (A=2, B=3, T=39, the headline node's update): kernel "
+        f"{ms_k:.4f}/{ms_k2:.4f} ms, plain {ms_p:.4f}/{ms_p2:.4f} ms (run plain, kernel, "
+        f"kernel, plain; min reported); plain {plain_ops:g} device ops and {plain_syncs:g} "
+        f"host syncs per call; bound {entry['bound_ms']:.6f} ms by {entry['bound_by']} "
+        f"({moved} bytes, {ops} operations); library call none")
+    for label, a, b, t, mask, lls in K13_SHAPES[:4]:
+        La, Ya, Ma = k13_inputs(rng, dev, a, b, t, mask, lls)
+        us, n_ops, whole = one_op_profile(
+            lambda: learning_cuda.learning_step_cuda(La, Ya, Ma, K13_DT), 20)
+        require_one_op(f"K13 {label}", n_ops, whole)
+        log(f"[5 timing] {smi}: K13 {label} (A={a}, B={b}, T={t}) device {us:.2f} us per "
+            f"launch, {n_ops:g} op; {k13_ops(La, b, t)} operations")
+
+    # the node's wall ms per frame, learning on and off in turns
+    for turn, on in enumerate((True, False, False, True)):
+        node = TrackerNode(lcfg if on else cfg, dev)
+        node.on_map(load_sim_grid())
+        wall = []
+        for msg in frames:
+            t0 = time.perf_counter()
+            node.on_pointcloud(msg)
+            wall.append(1e3 * (time.perf_counter() - t0))
+        w = np.asarray(wall[2:])
+        log(f"[5 timing] {smi}: headline TrackerNode learning {'on ' if on else 'off'} (turn "
+            f"{turn + 1} of on, off, off, on): wall ms/frame p50 {np.percentile(w, 50):.4f} "
+            f"p99 {np.percentile(w, 99):.4f} mean {w.mean():.4f} over frames 2-{n - 1}; "
+            f"{len(node.nll_history)} updates")
+
+
 KERNELS = (
     ("K1", "voxel_grid fast-digit histogram + finalize, one launch (cell ranges x point-chunk "
      "clusters)",
@@ -3810,6 +4058,11 @@ KERNELS = (
     ("K2 f64 f32-sums", "K2's double build fed f32 sums (voxel_mode=runs under dtype=float64): "
      "the f32 finalize and static drop, the centroid widened, the stencil's d^2 in f64",
      f"{PKG}/csrc/grid_cc.cu", "multiple_object_tracking_lidar_tpu/ops/grid_pallas.py:288"),
+    ("K13", "one SGD step of the IHGP hyperparameter learning for A stacked problems, one CTA "
+     "each: the model, JAX's f32 expm, the 100-trip DARE and three Lyapunov recursions, the "
+     "window recursion one thread per window, the sums in a fixed order, the update (timed at "
+     "the headline node's 2 x 3 windows of 39 steps; launched on the learning node and tune)",
+     f"{PKG}/csrc/learning.cu", "multiple_object_tracking_lidar_tpu/models/learning.py:121"),
     ("K11", "batched transpose of 32-bit words: the (S, N, 3) -> (S, 3, N) points K1-cm reads "
      "(4-row groups, 16-byte loads and stores, no shared memory), and the probes' (1, B) -> "
      "(B, 1) int32 row (a copy) and (16, 128) tile",
@@ -3835,6 +4088,7 @@ def main() -> int:
     phase_kernels_slice12(dev, smi, report, cfg)
     k13 = phase_kernels_slice13(dev, report, cfg)
     k14 = phase_kernels_slice14(dev, report, cfg)
+    phase_kernels_slice15(dev, report)
     tracker, env, frames = phase_slice(dev, cfg, sc, report)
     phase_cli(dev, report)
     phase_ihgp(dev, report)
@@ -3853,6 +4107,7 @@ def main() -> int:
     phase_timings_slice12(dev, smi, *frames, report)
     phase_timings_slice13(dev, smi, *frames, report, k13)
     phase_timings_slice14(dev, smi, report, k14)
+    phase_learning(dev, smi, report)
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": f"{k}: {desc}", "route": "cuda", "source": src, "replaces": rep,

@@ -87,6 +87,7 @@ SIGNATURES = {
     "motl_cc_adjacency_f64": [_P, _I, _P, _I, _I, _I, _D, _I, _P, _P, _P, _P],
     "motl_cc_labels": [_P, _I, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P],
     "motl_transpose32": [_P, _P, _I, _I, _I, _P],
+    "motl_learning_step": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
 }
 
 

@@ -8,8 +8,12 @@ once on the host in f64; the JAX package cannot be imported without JAX).
 The per-frame apply of the weights is the track step's
 (``ops/track_cuda.py``: ``smoother_parts``, ``position_parts``,
 ``smoother_pass`` and K4).
-The scan forms and the learning-mode recursions are not ported yet
-(ROADMAP).
+
+The scan forms (``ihgp_filter_smoother``, ``ihgp_batch``; JAX ihgp.py:181-230)
+are plain torch on no path, public API as in the JAX package.  The
+learning-mode recursion ``ihgp_nll_grad`` (JAX ihgp.py:312-342) is the
+window stage of the learning step (``models/learning.py``): its plain
+version, and K13's order of operations on the card.
 """
 
 from __future__ import annotations
@@ -17,9 +21,12 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 from scipy.linalg import expm as _expm
 
+from multiple_object_tracking_lidar_tpu_torch.models.f32_math import log_f32
 from multiple_object_tracking_lidar_tpu_torch.models.matern32 import Matern32SSM
+from multiple_object_tracking_lidar_tpu_torch.ops.cluster_pallas import fma32
 
 # The reference's truncated pi constant (cpp:135) — kept for bit-parity of NLL.
 REF_PI = 3.141592654
@@ -81,6 +88,18 @@ class IHGPGains:
             "G": np.asarray(self.G, dtype),
             "S": np.asarray(self.S, dtype),
         }
+
+    def as_arrays_learning(self, dtype=np.float32) -> dict:
+        """``as_arrays`` plus the derivative tensors dS, dK, dAKHA and HdA
+        (the JAX package's ``as_jax_learning``, ihgp.py:106-114)."""
+        d = self.as_arrays(dtype)
+        d.update(
+            dS=np.asarray(self.dS, dtype),
+            dK=np.asarray(self.dK, dtype),
+            dAKHA=np.asarray(self.dAKHA, dtype),
+            HdA=np.asarray(self.HdA, dtype),
+        )
+        return d
 
 
 def stationary_gains(ssm: Matern32SSM, dt: float) -> IHGPGains:
@@ -200,3 +219,98 @@ def smoother_weights_xy(
         k: np.stack([np.asarray(wx[k], dtype), np.asarray(wy[k], dtype)])
         for k in wx
     }
+
+
+# ---------------------------------------------------------------------------
+# Scan forms (JAX ihgp.py:181-230): plain torch, on no path
+# ---------------------------------------------------------------------------
+
+def _gain_tensors(gains: dict, keys, like: torch.Tensor) -> list:
+    return [torch.as_tensor(gains[k], dtype=like.dtype, device=like.device) for k in keys]
+
+
+def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """M @ v for (..., 2, 2) M and (..., 2) v, each row's sum in ascending
+    k."""
+    return M[..., 0] * v[..., 0:1] + M[..., 1] * v[..., 1:2]
+
+
+def ihgp_filter_smoother(y, m0, gains: dict, device: torch.device | str = "cuda"):
+    """Forward filter + backward smoother over one window of one scalar
+    series (JAX ihgp.py:181-212; ref cpp:132-196): y (L,) mean-centred
+    observations, m0 (2,) the carried filter state, ``gains`` the
+    ``as_arrays`` constants -> (eft (L,) the smoothed mean at every window
+    position, m_carry (2,) the smoothed state at position 0, next frame's
+    m0).  Leading axes of y and m0 broadcast against the gains'.  Runs on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import resolve_device
+
+    dev = resolve_device(device)
+    y = torch.as_tensor(y, device=dev)
+    m = torch.as_tensor(m0, dtype=y.dtype, device=dev)
+    AKHA, K, A, G = _gain_tensors(gains, ("AKHA", "K", "A", "G"), y)
+    mf = []
+    for k in range(y.shape[-1]):
+        m = _mv(AKHA, m) + K * y[..., k:k + 1]            # cpp:157
+        mf.append(m)
+    m_last = mf[-1]
+    m = m_last
+    eft = [m_last[..., 0]]
+    for k in range(y.shape[-1] - 2, -1, -1):
+        m = mf[k] + _mv(G, m - _mv(A, mf[k]))             # cpp:187
+        eft.append(m[..., 0])
+    return torch.stack(eft[::-1], -1), m
+
+
+def ihgp_batch(y, m0, gains_xy: dict, device: torch.device | str = "cuda"):
+    """Filter + smooth the whole track bank (JAX ihgp.py:215-230): y (K, 2,
+    L) mean-centred series per track per axis {x, y}, m0 (K, 2, 2) carried
+    states, ``gains_xy`` leaves with a leading {x, y} axis of 2 -> (eft
+    (K, 2, L), m_carry (K, 2, 2))."""
+    return ihgp_filter_smoother(y, m0, gains_xy, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Learning mode: marginal likelihood + gradient recursions (cpp:132-162)
+# ---------------------------------------------------------------------------
+
+def ihgp_nll_grad(y: torch.Tensor, m0: torch.Tensor, gains: dict):
+    """Negative log marginal likelihood and its gradient w.r.t. (sigma2,
+    magnSigma2, lengthScale) over one window (JAX ihgp.py:312-342; the
+    reference's edata / gdata recursions, cpp:141-154, dm from zero per
+    window).  y (..., L), m0 (..., 2); the gains' leaves (the
+    ``as_arrays_learning`` set as tensors, or K13's stage-1 values) carry
+    leading axes that broadcast against y's.  Returns (edata (...), gdata
+    (..., 3)).
+
+    Every product and sum is spelled in K13's order (``csrc/learning.cu``,
+    stage 2): each 2-term dot in ascending k, ``0.5 * v * v / S`` as
+    ((0.5 v) v) / S, the constants 0.5 log(2 REF_PI) and 0.5 log(S) taken
+    once."""
+    AKHA, K, HA, S = gains["AKHA"], gains["K"], gains["HA"], gains["S"]
+    dS, dK, dAKHA, HdA = gains["dS"], gains["dK"], gains["dAKHA"], gains["HdA"]
+    hl2pi = 0.5 * log_f32(torch.full((), 2 * REF_PI, dtype=y.dtype, device=y.device))
+    hlS = 0.5 * log_f32(S)
+    Sj = S[..., None]
+    SS = Sj * Sj      # x / S / S is x / (S * S) to XLA's algebraic simplifier
+    m = m0
+    dm = torch.zeros((*m0.shape[:-1], dS.shape[-1], 2), dtype=y.dtype, device=y.device)
+    edata = torch.zeros(m0.shape[:-1], dtype=y.dtype, device=y.device)
+    gdata = torch.zeros((*m0.shape[:-1], dS.shape[-1]), dtype=y.dtype, device=y.device)
+    for k in range(y.shape[-1]):
+        yk = y[..., k]
+        m_0, m_1 = m[..., 0], m[..., 1]
+        v = yk - fma32(HA[..., 1], m_1, HA[..., 0] * m_0)                   # HA @ m
+        vv = 0.5 * v * v
+        edata = edata + vv / S + hl2pi + hlS
+        hm = fma32(HdA[..., 1], m_1[..., None], HdA[..., 0] * m_0[..., None])   # HdA @ m
+        dmh = fma32(dm[..., 1], HA[..., None, 1], dm[..., 0] * HA[..., None, 0])  # dm @ HA
+        dv = -hm - dmh
+        gdata = gdata + v[..., None] * dv / Sj - vv[..., None] * dS / SS + 0.5 * dS / Sj
+        dam = fma32(dAKHA[..., 1], m_1[..., None, None], dAKHA[..., 0] * m_0[..., None, None])
+        dma = fma32(dm[..., :, None, 1], AKHA[..., None, :, 1],
+                    dm[..., :, None, 0] * AKHA[..., None, :, 0])                # dm @ AKHA^T
+        dm = fma32(dK, yk[..., None, None], dam + dma)
+        am = fma32(AKHA[..., 1], m_1[..., None], AKHA[..., 0] * m_0[..., None])   # AKHA @ m
+        m = fma32(K, yk[..., None], am)
+    return edata, gdata

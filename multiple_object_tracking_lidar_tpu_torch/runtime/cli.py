@@ -6,12 +6,12 @@ subcommands, flags, JSON-line records on stdout and JSON records on stderr.
 Subcommands:
   run    replay a scenario ("bag") through the tracker, emit JSON-lines
   bench  the port's throughput benchmark (not ported yet: raises)
-  tune   GP hyperparameter fitting (not ported yet: raises)
+  tune   GP hyperparameter fitting on a scenario's velocity windows
   info   print config + device summary
 
-``run`` takes one flag the JAX CLI lacks, ``--device`` (default ``cuda``):
-the tracker runs on the card unless the caller asks for the CPU, and
-without a CUDA device it raises.
+``run`` and ``tune`` take one flag the JAX CLI lacks, ``--device``
+(default ``cuda``): the tracker and the learning step (K13) run on the card
+unless the caller asks for the CPU, and without a CUDA device they raise.
 """
 
 from __future__ import annotations
@@ -166,11 +166,62 @@ def cmd_run(args) -> int:
     return 0
 
 
-def cmd_tune(_args) -> int:
-    raise NotImplementedError(
-        "tune (the GP hyperparameter fit, models/learning.py) is not ported yet "
-        "(ROADMAP Queue 1 item 12: the node's learning mode)"
+def cmd_tune(args) -> int:
+    """Fit (logMagnSigma2, logLengthScale) on velocity windows harvested
+    from a scenario run -- the reference's dead hyperparameter-learning loop
+    (IHGP_nonfixed, cpp:922-1011) as a working workflow (JAX cli.py:163-215):
+    the same scenario, windows and JSON lines, each step one K13 launch on
+    the card."""
+    import numpy as np
+    import torch
+
+    from multiple_object_tracking_lidar_tpu_torch.io.scenario import Scenario, ScenarioObject
+    from multiple_object_tracking_lidar_tpu_torch.models.learning import learning_step
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+    from multiple_object_tracking_lidar_tpu_torch.utils.pgm import load_map_yaml
+
+    cfg = _load_cfg(args)
+    grid = load_map_yaml(args.map)
+    cfg = _apply_backend(cfg, grid, getattr(args, "backend", "default"))
+    node = TrackerNode(cfg, device=args.device)
+    node.on_map(grid)
+    sc = Scenario(
+        grid=grid,
+        objects=[ScenarioObject(0.0, 1.0, 0.0, 0.45, turn_every=8.0)],
+        frequency=cfg.frequency,
+        static_points_per_frame=min(4000, cfg.caps.n_max_points // 2),
     )
+
+    # harvest mean-centered velocity windows from the live track bank
+    windows = []
+    for k in range(args.frames):
+        node.on_pointcloud(sc.frame(k))
+        bank = node.state.bank
+        alive = bank.alive.cpu().numpy()
+        w = bank.window.cpu().numpy()
+        for i in np.nonzero(alive)[0]:
+            v = (w[i, 1:, 0] - w[i, :-1, 0]) / cfg.dt_gp
+            windows.append(v - v.mean())
+    # float32 whatever the tracker's dtype, as the JAX CLI runs the step
+    dev = node.tracker.device
+    y = torch.from_numpy(np.stack(windows).astype(np.float32)).to(dev)
+    mask = torch.ones(len(windows), dtype=torch.bool, device=dev)
+
+    lp = torch.tensor([cfg.logSigma2_x, cfg.logMagnSigma2_x, cfg.logLengthScale_x],
+                      dtype=torch.float32, device=dev)
+    for step_i in range(args.steps):
+        lp, nll = learning_step(lp, y, mask, cfg.dt_gp)
+        print(
+            json.dumps(
+                {
+                    "step": step_i,
+                    "nll": round(float(nll), 4),
+                    "logMagnSigma2": round(float(lp[1]), 4),
+                    "logLengthScale": round(float(lp[2]), 4),
+                }
+            )
+        )
+    return 0
 
 
 def cmd_bench(_args) -> int:
@@ -225,7 +276,7 @@ def main(argv=None) -> int:
     pr.set_defaults(fn=cmd_run)
 
     pt = sub.add_parser(
-        "tune", help="fit GP hyperparameters on a scenario (not ported yet)"
+        "tune", help="fit GP hyperparameters on a scenario (resurrected IHGP_nonfixed)"
     )
     pt.add_argument("--map", required=True)
     pt.add_argument("--config", help="config file")
@@ -236,6 +287,12 @@ def main(argv=None) -> int:
     pt.add_argument("--frames", type=int, default=60)
     pt.add_argument("--steps", type=int, default=30)
     pt.add_argument("--data-length", type=int, dest="data_length")
+    pt.add_argument(
+        "--device",
+        default="cuda",
+        help="torch device the tracker and the learning step run on (default cuda; "
+        "'cpu' runs the plain PyTorch versions of the kernels)",
+    )
     pt.set_defaults(fn=cmd_tune)
 
     pb = sub.add_parser("bench", help="run the throughput benchmark (not ported yet)")

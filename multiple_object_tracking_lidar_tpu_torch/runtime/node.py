@@ -21,8 +21,17 @@ grown bank resumes grown.
 in ``outputs`` (off by default: the JAX node keeps only ``stats``);
 ``run(frames, realtime=True)`` paces a replay at ``config.frequency``.
 
-Not ported yet (ROADMAP): online hyperparameter learning
-(``param_fix=False``) raises ``NotImplementedError``.
+Online hyperparameter learning (``param_fix=False``, the working form of
+the reference's dead IHGP_nonfixed loop, cpp:922-1011; JAX node.py:71-86,
+:286-318): the node steps through ``Tracker.bind_env_gains`` with its
+current gains, and every ``learn_period`` seconds copies the bank's windows
+to the host once, forms each alive track's mean-centred velocity window per
+axis in numpy f32 as the JAX node does, runs one learning step for both
+axes in one K13 launch (``models/learning.py::learning_step_stacked``; the
+plain version on the CPU), and swaps in the gains ``Tracker.compute_gains``
+derives on the host in f64.  The log-parameters stay f32 whatever the
+tracker's dtype, and are not checkpointed (the JAX node saves only the
+epoch).
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from multiple_object_tracking_lidar_tpu_torch.io.pointcloud2 import (
     PointCloud2,
     decode_pointcloud2,
 )
+from multiple_object_tracking_lidar_tpu_torch.models.learning import learning_step_stacked
 from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import MapEnv, build_static_mask
 from multiple_object_tracking_lidar_tpu_torch.outputs.messages import build_outputs
 from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
@@ -48,6 +58,7 @@ from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
     FrameOutput,
     TrackBank,
     TrackerState,
+    gains_from_numpy,
     grow_bank,
 )
 from multiple_object_tracking_lidar_tpu_torch.utils.colors import GlibcRand
@@ -80,11 +91,6 @@ class TrackerNode:
         on_pose: Callable | None = None,
         keep_outputs: bool = False,
     ):
-        if not config.param_fix:
-            raise NotImplementedError(
-                "param_fix=False (online hyperparameter learning) is not ported "
-                "yet (ROADMAP Queue 1: the node's learning mode)"
-            )
         self.config = config
         self.tracker = Tracker(config, device)
         self.state = self.tracker.init_state()
@@ -104,6 +110,21 @@ class TrackerNode:
         self.keep_outputs = keep_outputs
         self.outputs: list[FrameOutput] = []
         self.n_growths = 0                      # bank doublings on overflow
+        # online hyperparameter learning (param_fix=False; JAX node.py:71-86)
+        self.learning = not config.param_fix
+        self.log_params = {
+            "x": np.asarray(
+                [config.logSigma2_x, config.logMagnSigma2_x, config.logLengthScale_x],
+                np.float32,
+            ),
+            "y": np.asarray(
+                [config.logSigma2_y, config.logMagnSigma2_y, config.logLengthScale_y],
+                np.float32,
+            ),
+        }
+        self.nll_history: list[tuple[float, float]] = []  # (t, mean NLL x+y)
+        self._gains = self.tracker.gains_xy
+        self._last_learn_t: float | None = None
 
     # -- map callback (cpp:235-251) -----------------------------------------
     def on_map(self, grid: OccupancyGrid) -> None:
@@ -111,7 +132,15 @@ class TrackerNode:
             grid, self.config.static_tolarance, self.config.occupied_threshold,
             device=self.tracker.device,
         )
-        self._bound_step = self.tracker.bind_env(self.env)
+        self._bind()
+
+    def _bind(self) -> None:
+        """Bind the step to the map: with the gains an argument when
+        learning (JAX node.py:96-99)."""
+        if self.learning:
+            self._bound_gstep = self.tracker.bind_env_gains(self.env)
+        else:
+            self._bound_step = self.tracker.bind_env(self.env)
 
     # -- pointcloud callback (cpp:123-233) ----------------------------------
     def on_pointcloud(self, msg: PointCloud2):
@@ -138,7 +167,10 @@ class TrackerNode:
             # rounds it (np.float32); an f64 step casts it up
             t=torch.tensor(t, dtype=torch.float32, device=dev),
         )
-        self.state, out = self._bound_step(self.state, frame)
+        if self.learning:
+            self.state, out = self._bound_gstep(self.state, frame, self._gains)
+        else:
+            self.state, out = self._bound_step(self.state, frame)
         out = FrameOutput(*(f.cpu().numpy() for f in out))
         wall_ms = 1e3 * (time.perf_counter() - t0)
         if self.keep_outputs:
@@ -146,6 +178,8 @@ class TrackerNode:
 
         if int(out.overflow) > 0 and self.config.grow_bank_on_overflow:
             self._grow_bank()
+        if self.learning:
+            self._maybe_learn(t)
 
         # NaN watchdog (the reference only logs, cpp:643-646)
         nan_vel = bool(np.isnan(out.vel[out.valid]).any()) if out.valid.any() else False
@@ -230,18 +264,61 @@ class TrackerNode:
         )
         self.tracker = Tracker(self.config, self.tracker.device)
         if self.env is not None:
-            self._bound_step = self.tracker.bind_env(self.env)
+            self._bind()
 
     def _grow_bank(self) -> None:
-        """Double k_max_tracks, pad the bank (``grow_bank``), rebind."""
+        """Double k_max_tracks, pad the bank (``grow_bank``), rebind; when
+        learning, the gains derived anew from the learned log-parameters
+        (JAX node.py:268-276)."""
         k_old = self.config.caps.k_max_tracks
         k_new = 2 * k_old
         self._rebind(k_new)
         self.state = grow_bank(self.state, k_new)
+        if self.learning:
+            self._set_gains()
         self.n_growths += 1
         logging.getLogger(__name__).warning(
             "track bank overflow: grew k_max_tracks %d -> %d", k_old, k_new
         )
+
+    def _set_gains(self) -> None:
+        """The gains of the learned log-parameters: host f64
+        (``Tracker.compute_gains``), then on the tracker's device in its
+        dtype."""
+        _, _, gains = Tracker.compute_gains(
+            self.config, tuple(self.log_params["x"]), tuple(self.log_params["y"])
+        )
+        self._gains = gains_from_numpy(gains, self.tracker.device, self.tracker.dtype)
+
+    def _maybe_learn(self, t: float) -> None:
+        """Online hyperparameter learning (JAX node.py:286-318): every
+        learn_period seconds, one learning step per axis on the alive
+        tracks' mean-centred finite-difference velocity windows -- both
+        axes in one K13 launch -- then freshly derived gains swapped into
+        the running step."""
+        if self._last_learn_t is not None and t - self._last_learn_t < self.config.learn_period:
+            return
+        alive = self.state.bank.alive.cpu().numpy()
+        if not alive.any():
+            return
+        self._last_learn_t = t
+        w = self.state.bank.window.cpu().numpy()[alive]        # (B, L, 4)
+        ys = []
+        for col in (0, 1):
+            v = (w[:, 1:, col] - w[:, :-1, col]) / self.config.dt_gp
+            ys.append((v - v.mean(axis=1, keepdims=True)).astype(np.float32))
+        dev = self.tracker.device
+        lp = np.stack([self.log_params["x"], self.log_params["y"]])
+        new, nll = learning_step_stacked(
+            torch.from_numpy(lp).to(dev),
+            torch.from_numpy(np.stack(ys)).to(dev),
+            torch.ones((2, len(w)), dtype=torch.bool, device=dev),
+            self.config.dt_gp,
+        )
+        new, nll = new.cpu().numpy(), nll.cpu().numpy()
+        self.log_params["x"], self.log_params["y"] = new[0], new[1]
+        self.nll_history.append((t, float(np.mean([float(nll[0]), float(nll[1])]))))
+        self._set_gains()
 
     def _refresh_colors(self, n_ids: int) -> None:
         while self._known_ids < n_ids:

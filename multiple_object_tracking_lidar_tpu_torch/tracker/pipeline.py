@@ -367,13 +367,25 @@ class Tracker:
         perception at S = 1, then one K4 launch.  ``donate_state`` is the
         JAX signature's; it is accepted and ignored (eager torch donates
         nothing: K4 writes the new state to fresh tensors)."""
-        plan = self.plan(env)
-        cfg, gains = self.config, self.gains_xy
+        gstep = self.bind_env_gains(env, donate_state)
+        gains = self.gains_xy
+        return lambda state, frame: gstep(state, frame, gains)
 
-        def step(state: TrackerState, frame: Frame):
+    def bind_env_gains(self, env: MapEnv, donate_state: bool = True):
+        """Like bind_env, with the IHGP gains an argument: ``step(state,
+        frame, gains_xy) -> (state, output)`` (JAX pipeline.py:154-169).
+        Online hyperparameter learning (``param_fix=False``) swaps updated
+        gains in per call; ``gains_xy`` is the nesting ``gains_from_numpy``
+        makes of ``compute_gains``' dict, on this tracker's device in its
+        dtype (K4 reads the smoother weights from it, ops/track_cuda.py).
+        ``donate_state`` is accepted and ignored, as in ``bind_env``."""
+        plan = self.plan(env)
+        cfg = self.config
+
+        def step(state: TrackerState, frame: Frame, gains_xy: dict):
             frame = self._frame(frame)
             p = self.perceive(Frame(frame.points[None], frame.mask[None], frame.t[None]), plan)
-            return track_step(state, _row(p, 0), config=cfg, gains_xy=gains)
+            return track_step(state, _row(p, 0), config=cfg, gains_xy=gains_xy)
 
         return step
 

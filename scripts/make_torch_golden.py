@@ -72,7 +72,18 @@ every FrameOutput field stacked over frames:
   velocity, before the label's rounding) ->
   ``tests/golden/torch_cli{,_ihgp,_hungarian,_f64}_headline.json``.  The bag is the
   headline scenario's ``frame(k)`` PointCloud2 messages, 100,000 points
-  each, recorded by ``io/bag.py`` (``cli_bag``).
+  each, recorded by ``io/bag.py`` (``cli_bag``);
+- ``learning``: the headline config with ``param_fix=False`` and
+  ``learn_period=0.2`` (``LEARN_PERIOD``) through the JAX ``TrackerNode``
+  over 16 headline PointCloud2 frames: every FrameOutput field per frame
+  (the steps ``bind_env_gains`` makes), and per update the frame it
+  followed (``update_frame``), the log-parameters after it
+  (``log_params``, (updates, 2, 3): x then y) and the node's
+  ``nll_history`` entry ((updates, 2): t, mean NLL) ->
+  ``tests/golden/torch_learning_headline.npz``;
+- ``cli_tune``: the JAX CLI's ``tune --map assets/sim_map.yaml`` at its
+  defaults (``TrackerConfig()``, ``--frames 60 --steps 30``): its JSON
+  lines -> ``tests/golden/torch_cli_tune.json``.
 
 tests/test_torch_golden.py recomputes the first frames and checks them
 against the files.
@@ -111,6 +122,8 @@ GOLDENS = {
         "f64_default", "f64_pointlist", "f64_pointlist_scan", "f64_pointlist_runs",
         "f64_exact", "f64_runs")},
     "cli_f64_default": os.path.join(GOLDEN_DIR, "torch_cli_f64_default_headline.json"),
+    "learning": os.path.join(GOLDEN_DIR, "torch_learning_headline.npz"),
+    "cli_tune": os.path.join(GOLDEN_DIR, "torch_cli_tune.json"),
 }
 CLI_FRAMES = 16
 CLI_IHGP_CONFIG = "position_filter: ihgp\n"   # the cli_ihgp config file's text
@@ -124,7 +137,9 @@ N_FRAMES = 12
 # frames (the fleet: steps) per golden where not N_FRAMES
 FRAMES = {"default": 4, "fleet": 3, "dense_hungarian": 8, "f64_default": 4, "f64_pointlist": 4,
           "f64_pointlist_scan": 4, "f64_pointlist_runs": 4, "f64_exact": 4, "f64_runs": 4,
-          "cli_f64_default": 8}
+          "cli_f64_default": 8, "learning": 16}
+LEARN_PERIOD = 0.2   # the learning golden's learn_period (s): an update every 2 frames
+TUNE_ARGV = ["tune", "--map", "assets/sim_map.yaml"]   # cli_tune: the JAX defaults
 FLEET_STREAMS = 8
 # the headline config's fields changed for each case ("pointlist_jnp" is
 # configuration D, checked against the "pointlist" golden)
@@ -205,7 +220,7 @@ def node_outputs(node, grid, frames) -> dict:
     from multiple_object_tracking_lidar_tpu.tracker.pipeline import Tracker
 
     rows, growths, ks = [], [], []
-    bind_env = Tracker.bind_env
+    bind_env, bind_env_gains = Tracker.bind_env, Tracker.bind_env_gains
 
     def recording(self, env, **kw):
         step = bind_env(self, env, **kw)
@@ -217,7 +232,17 @@ def node_outputs(node, grid, frames) -> dict:
 
         return rec
 
-    Tracker.bind_env = recording
+    def recording_gains(self, env, **kw):
+        step = bind_env_gains(self, env, **kw)
+
+        def rec(state, frame, gains):
+            state, out = step(state, frame, gains)
+            rows.append(jax.tree.map(np.asarray, out))
+            return state, out
+
+        return rec
+
+    Tracker.bind_env, Tracker.bind_env_gains = recording, recording_gains
     try:
         node.on_map(grid)
         for msg in frames:
@@ -225,7 +250,7 @@ def node_outputs(node, grid, frames) -> dict:
             growths.append(node.n_growths)
             ks.append(node.config.caps.k_max_tracks)
     finally:
-        Tracker.bind_env = bind_env
+        Tracker.bind_env, Tracker.bind_env_gains = bind_env, bind_env_gains
     out = {f: np.stack([getattr(r, f) for r in rows]) for f in rows[0]._fields}
     out["n_growths"] = np.asarray(growths, np.int32)
     out["k_max_tracks"] = np.asarray(ks, np.int32)
@@ -243,6 +268,60 @@ def growth_outputs(n_frames: int) -> dict:
     cfg, _, sc = bench.headline_case()
     cfg = cfg.replace(caps=dataclasses.replace(cfg.caps, k_max_tracks=GROWTH_K0))
     return node_outputs(TrackerNode(cfg), sc.grid, [sc.frame(k) for k in range(n_frames)])
+
+
+def learning_outputs(n_frames: int) -> dict:
+    """The ``learning`` golden's arrays over the first n_frames frames."""
+    import numpy as np
+
+    sys.path.insert(0, REPO)
+    import bench
+    from multiple_object_tracking_lidar_tpu.runtime.node import TrackerNode
+
+    cfg, _, sc = bench.headline_case()
+    node = TrackerNode(cfg.replace(param_fix=False, learn_period=LEARN_PERIOD))
+    seen, update_frame, log_params = [], [], []
+    on_pointcloud = node.on_pointcloud
+
+    def recording(msg):
+        n0 = len(node.nll_history)
+        res = on_pointcloud(msg)
+        seen.append(msg)
+        if len(node.nll_history) > n0:
+            update_frame.append(len(seen) - 1)
+            log_params.append(np.stack([node.log_params["x"], node.log_params["y"]]))
+        return res
+
+    node.on_pointcloud = recording
+    out = node_outputs(node, sc.grid, [sc.frame(k) for k in range(n_frames)])
+    del out["n_growths"], out["k_max_tracks"]
+    out["update_frame"] = np.asarray(update_frame, np.int32)
+    out["log_params"] = np.asarray(log_params, np.float32)
+    out["nll_history"] = np.asarray(node.nll_history, np.float64)
+    return out
+
+
+def tune_outputs(steps: int | None = None) -> dict:
+    """The JAX CLI's ``tune`` at ``TUNE_ARGV`` (``steps`` cuts ``--steps``):
+    {"argv": its arguments, "records": its JSON lines}."""
+    import contextlib
+    import io
+    import json
+
+    sys.path.insert(0, REPO)
+    from multiple_object_tracking_lidar_tpu.runtime.cli import main as jmain
+
+    argv = TUNE_ARGV + ([] if steps is None else ["--steps", str(steps)])
+    out = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        with contextlib.redirect_stdout(out):
+            assert jmain(argv) == 0
+    finally:
+        os.chdir(cwd)
+    return {"argv": argv, "records": [json.loads(x) for x in out.getvalue().splitlines()
+                                      if x.startswith("{")]}
 
 
 def cli_bag(path: str, n_frames: int = CLI_FRAMES, grid: bool = True) -> list[str]:
@@ -331,6 +410,8 @@ def golden_outputs(n_frames: int | None = None, case: str = "slice",
         return fleet_outputs(n_frames_of(case) if n_frames is None else n_frames, n_streams)
     if case == "growth":
         return growth_outputs(n_frames_of(case) if n_frames is None else n_frames)
+    if case == "learning":
+        return learning_outputs(n_frames_of(case) if n_frames is None else n_frames)
     cfg, env, sc = bench.dense_case() if case == "dense_hungarian" else bench.headline_case()
     if case in ("default", "f64_default"):
         from multiple_object_tracking_lidar_tpu.config import TrackerConfig
@@ -370,7 +451,7 @@ def main(cases: list[str]) -> None:
         if case.startswith("cli"):
             import json
 
-            out = cli_outputs(case)
+            out = tune_outputs() if case == "cli_tune" else cli_outputs(case)
             with open(GOLDENS[case], "w", encoding="utf-8") as fh:
                 json.dump(out, fh, indent=None, separators=(",", ":"))
                 fh.write("\n")

@@ -12,7 +12,9 @@ builds against their plain versions, and the Hungarian paths against the
 JAX goldens; under ``dtype="float64"`` the double builds (K2, K3f, K4;
 K6f, K8a and K2 fed f32 sums) against their plain versions, the f64 paths
 (the dense grid, the point list, the exact and runs modes) against the
-CPU plain path, and the f64 routes with no double build raising.  Marked
+CPU plain path, and the f64 routes with no double build raising; K13
+(the IHGP learning step) against its plain version and past its bounds,
+and the learning node against its JAX golden.  Marked
 ``cuda``: they
 skip without a GPU.  This file imports no JAX, so on the GPU machine (which
 has none) it runs without the suite's conftest:
@@ -1398,3 +1400,95 @@ def test_f64_vmap_fleet_on_a_grid_config_raises_on_the_card(dev, small):
     assert not fleet._use_kernel_fleet
     with pytest.raises(NotImplementedError, match="item 27"):
         fleet.bind_env(env)
+
+
+# ---------------------------------------------------------------------------
+# the learning mode: K13
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", ["headline node", "tune default", "wide node", "wide tune",
+                                   "one window", "half mask", "edges"])
+def test_k13_matches_plain(dev, shape, monkeypatch):
+    """K13 against ``learning_step_plain`` on the card at
+    ``chip_smoke.K13_SHAPES``: the new log-parameters and the NLL bit for
+    bit (every product, sum and FMA spelled on both sides; exp and log are
+    the same polynomials, no transcendental of the card's library), one
+    launch per call; ``learning_step`` / ``learning_step_stacked`` on CUDA
+    tensors launch it and never the plain version."""
+    from multiple_object_tracking_lidar_tpu_torch.models import learning as TL
+    from multiple_object_tracking_lidar_tpu_torch.ops import learning_cuda
+
+    cs = _chip_smoke()
+    label, a, b, t, mask, lls = next(s for s in cs.K13_SHAPES if s[0] == shape)
+    L, Y, M = cs.k13_inputs(np.random.default_rng(a * 100000 + b * 100 + t), dev, a, b, t,
+                            mask, lls)
+    pn, pl = TL.learning_step_plain(L, Y, M, cs.K13_DT)
+
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain learning step ran on the card")
+
+    monkeypatch.setattr(TL, "learning_step_plain", no_plain)
+    n0 = learning_cuda.learning_step_cuda.launches
+    new, nll = TL.learning_step_stacked(L, Y, M, cs.K13_DT)
+    assert learning_cuda.learning_step_cuda.launches == n0 + 1
+    assert _bits(new, pn) and _bits(nll, pl)
+    n1, l1 = TL.learning_step(L[0], Y[0], M[0], cs.K13_DT)
+    assert _bits(n1, pn[0]) and _bits(l1, pl[0])
+    if lls is not None:
+        assert torch.isnan(nll[0]) and new[0].tolist() == [-5.5, 0.0, 0.0]
+
+
+def test_k13_raises_past_its_bounds(dev):
+    """The wrapper raises ValueError past its bounds (no window, no step,
+    more than MAX_WINDOWS windows), on f64 inputs and on tensors off the
+    card; no plain route on the card."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import learning_cuda
+
+    lp = torch.zeros(1, 3, device=dev)
+    cases = [(torch.zeros(1, 0, 5, device=dev), torch.ones(1, 0, dtype=torch.bool, device=dev)),
+             (torch.zeros(1, 4, 0, device=dev), torch.ones(1, 4, dtype=torch.bool, device=dev)),
+             (torch.zeros(1, learning_cuda.MAX_WINDOWS + 1, 1, device=dev),
+              torch.ones(1, learning_cuda.MAX_WINDOWS + 1, dtype=torch.bool, device=dev))]
+    for y, m in cases:
+        with pytest.raises(ValueError, match="K13"):
+            learning_cuda.learning_step_cuda(lp, y, m, 0.1)
+    y, m = torch.zeros(1, 4, 5, device=dev), torch.ones(1, 4, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        learning_cuda.learning_step_cuda(lp.double(), y.double(), m, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        learning_cuda.learning_step_cuda(lp, y, m.cpu(), 0.1)
+
+
+def test_learning_node_matches_golden(dev):
+    """The headline TrackerNode with ``param_fix=False`` on the card
+    against tests/golden/torch_learning_headline.npz (chip_smoke's
+    tolerances), one K13 launch per update."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.ops import learning_cuda
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+
+    cs = _chip_smoke()
+    golden = dict(np.load(cs.GOLDEN_LEARNING))
+    cfg, _, sc = headline_case(device=dev)
+    node = TrackerNode(cfg.replace(param_fix=False, learn_period=0.2), dev, keep_outputs=True)
+    node.on_map(load_sim_grid())
+    n0 = learning_cuda.learning_step_cuda.launches
+    upd, lps = [], []
+    for k in range(golden["publish"].shape[0]):
+        h = len(node.nll_history)
+        node.on_pointcloud(sc.frame(k))
+        if len(node.nll_history) > h:
+            upd.append(k)
+            lps.append(np.stack([node.log_params["x"], node.log_params["y"]]))
+    assert learning_cuda.learning_step_cuda.launches - n0 == len(upd)
+    assert upd == golden["update_frame"].tolist()
+    np.testing.assert_allclose(np.asarray(lps), golden["log_params"], rtol=0,
+                               atol=cs.TOL_LEARN_LP)
+    np.testing.assert_allclose(np.asarray(node.nll_history), golden["nll_history"], rtol=0,
+                               atol=cs.TOL_LEARN_NLL)
+    got = {f: np.stack([getattr(o, f) for o in node.outputs]) for f in node.outputs[0]._fields}
+    for f in ("obj_id", "valid", "n_alive", "publish"):
+        np.testing.assert_array_equal(got[f], golden[f], err_msg=f)
+    v = golden["valid"]
+    np.testing.assert_allclose(got["pos"][v], golden["pos"][v], rtol=0, atol=cs.TOL_DETS)
+    np.testing.assert_allclose(got["vel"][v], golden["vel"][v], rtol=0, atol=cs.TOL_VEL)

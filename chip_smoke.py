@@ -26,8 +26,8 @@ of JAX, in five phases, one or more lines each:
    grids of ``bench_cases.digit_grids`` (the headline's at every layout of
    cell ranges x point chunks, 32,768, 70,200 and 193,536 cells at the
    rule's), each with an adversarial frame and the 99%-in-one-cell frames
-   -- all bit for bit; a grid of exactly ``max_cells`` runs and one row
-   past it raises; K8 and K8a (one thread-block cluster per frame) on C's
+   -- all bit for bit; a grid of exactly ``max_cells`` and one row past it
+   (the wide layout) bit for bit; K8 and K8a (one thread-block cluster per frame) on C's
    and G's point lists and at M = 8,192, past the shared-memory layout
    (the adjacency words in device memory), K7 on sorted rows and through
    the permutation of the runs front end's own sort, K9 on the headline's
@@ -57,7 +57,13 @@ of JAX, in five phases, one or more lines each:
    ``K13_SHAPES`` (the headline node's update, tune's 60 windows, 1,024 and
    4,096 windows, one window, half the mask off, logLengthScale at -10 --
    the NaN reset -- and +10), bit for bit its plain version, one op per
-   call;
+   call; K4 xl -- K4 past its 1,024 slots and 128 detections -- (greedy and
+   Hungarian, lpf and ihgp, f32 and f64) at (K, D) = (2,048, 32), (4,096,
+   64), (64, 256) and (1,024, 512), K1 and K5 wide (and K1's raw entry) at
+   the floor's 1,119,963 cells and at 2 x ``max_cells``, S = 1 and 8, and
+   K14 (the stencil CC) on the floor frames' own cells in f32 and f64,
+   converged and at ``max_iters = 1``, each bit for bit its plain version,
+   one op per call;
 4. the paths, each with every kernel's launch counter reset before and
    read after: the headline (fast digits) -- ``TrackerNode.on_pointcloud``
    answers 12 headline PointCloud2 frames and ``Tracker.bind_env_multi``
@@ -125,8 +131,15 @@ of JAX, in five phases, one or more lines each:
    the frames of the updates, the log-parameters and the NLL), one K13
    launch per update and one K4 per frame, and the CLI's ``tune`` at its
    defaults against torch_cli_tune.json, one K13 launch per step; no plain
-   learning step on the card.  No path may
-   take the plain digit sums;
+   learning step on the card; then the floor case (``bench_cases.
+   floor_case``): at the goldens' 16 m floor through ``bind_env`` in f32,
+   Hungarian and f64 against torch_floor{,_hungarian,_f64}_headline.npz,
+   torch_track_wide.npz through K4 xl, and the full 30 m floor (1,119,963
+   cells, C = 256) through ``bind_env``, ``bind_env_multi``, ``TrackerNode``
+   (growing its bank) and the vmap fleet (B = 2) in f32, Hungarian and f64,
+   the grown bank padded to 2,048 slots, each launching K1 (wide), K14, K3f
+   and K4 xl.  No path may take the plain digit sums (nor, on the floor,
+   any plain route);
 5. timings with CUDA events, beside the card's name and power limit:
    ``bind_env`` and ``bind_env_multi`` per path, host syncs and device ops
    per frame of each (``torch.profiler``; the headline must make no host
@@ -158,9 +171,14 @@ of JAX, in five phases, one or more lines each:
    device time at four shapes, and the headline node's wall ms per frame
    p50 / p99 with learning on and off in turns.  Every one-op reading
    (``one_op_profile``) comes from a trace between marker kernels, taken
-   again when it lost events at an end (``micro_torch_digits.whole_trace``),
-   and K4's, K4 hungarian's, K12's and F7's fail at other than one op per
-   call (``require_one_op``).
+   again, up to eight times with a growing pause, when it lost events at
+   an end (``micro_torch_digits.whole_trace``; the run logs how many were
+   taken again), and K4's, K4 hungarian's, K12's and F7's fail at other than one op per
+   call (``require_one_op``); the narrow K4 at the headline against its
+   PR 11-13 range, K4 xl, K4 xl hungarian (with its auction's iterations),
+   K1 / K5 wide and K14 against their plain versions with their bounds,
+   and the floor's ms/frame, device ops, host syncs and idle share per
+   frame (greedy and Hungarian; the bank padded to 2,048).
 
 Any failed phase raises (exit 1).  The line before the last is the kernel
 report (JSON); the last line is ``{"ok": true, "device": {...}}``.
@@ -1111,7 +1129,8 @@ def phase_kernels_slice8(dev, report, cfg, k1_inputs):
             log(f"[3 K1/K5 slice 8] {label}: {nc} cells, {what}, {lay_note}: K1, K1 raw, K1-cm, "
                 "K1-cm raw, K5, K5 raw bit-exact=True; raw + fin = fused")
 
-    # the capacity: 14,520 x 16 cells run, 14,521 x 16 raise
+    # the edge of PR 8's layouts: 14,520 x 16 cells take 16 ranges, one row
+    # more the wide layout (32 ranges), every entry bit for bit its plain version
     P, M = (torch.from_numpy(a[:2]).to(dev) for a in k1_inputs)
     x0, y0 = cfg.scene.x_min, cfg.scene.y_min
     for gx, fits in ((vg.CTA_CELLS * top // 16, True), (vg.CTA_CELLS * top // 16 + 1, False)):
@@ -1124,16 +1143,13 @@ def phase_kernels_slice8(dev, report, cfg, k1_inputs):
                        lambda: vg.accumulate_fast_stacked(P, M, *kw),
                        lambda: vg.accumulate_fast_stacked_plain(P, M, *kw))
             continue
-        for name, (fk, _, cm) in entries.items():
-            try:
-                fk(P.transpose(1, 2).contiguous() if cm else P, M, *kw)
-            except ValueError as e:
-                if "digit_sums_stacked" not in str(e):
-                    raise
-            else:
-                fail(f"{name} did not raise at {nc} cells, one row past max_cells")
-        log(f"[3 K1/K5 slice 8] {nc} cells (max_cells {vg.max_cells(dev)} + 16): every K1 / K5 "
-            "entry raises and names the dispatcher's plain route")
+        for name, (fk, fp, cm) in entries.items():
+            check_pair(report, "K1 wide" if name.startswith("K1") else "K5 wide",
+                       f"{name} at {nc} cells (max_cells {vg.max_cells(dev)} + 16), S=2, layout "
+                       f"{vg.digit_layout(nc, 2, 3 if name.startswith('K5') else 1, dev)}",
+                       lambda fk=fk, cm=cm: fk(P.transpose(1, 2).contiguous() if cm else P, M,
+                                               *kw),
+                       lambda fp=fp: fp(P, M, *kw))
 
 
 def pointlist_rows(dev, cfg, P, M):
@@ -1160,7 +1176,7 @@ def kernel_wrappers():
     """{kernel: its wrapper, whose ``.launches`` counts its launches}."""
     from multiple_object_tracking_lidar_tpu_torch.ops import (
         assign_cuda, centroid_cuda, cluster_pallas, grid_cuda, hungarian_cuda, learning_cuda,
-        segsum_cuda, track_cuda, transpose_cuda, voxel_grid_cuda)
+        segsum_cuda, stencil_cc_cuda, track_cuda, transpose_cuda, voxel_grid_cuda)
 
     vg = voxel_grid_cuda
     return {
@@ -1188,26 +1204,31 @@ def kernel_wrappers():
         "K11": transpose_cuda.transpose_words,
         "K12": hungarian_cuda.auction_assign,
         "K13": learning_cuda.learning_step_cuda,
+        "K14": stencil_cc_cuda.stencil_cc,
     }
 
 
-PLAIN_SUMS = "plain digit sums"   # not a kernel: the dispatcher's route past K1 / K5
+PLAIN_SUMS = "plain digit sums"   # not a kernel: the digit sums' CPU route
 
 
-def f64_wrappers():
-    """{double build: (its wrapper, the wrapper's counter of its launches)}
-    (``dtype="float64"``: K2, K3f, K4, K6f and K8a built for double, and
-    K2's double build fed f32 sums)."""
+def entry_builds():
+    """{build: (its wrapper, its C entry)} for the builds a wrapper counts
+    in ``.launches_by`` beside its f32 build (``.launches``): K2, K3f, K4,
+    K6f, K8a and K14 built for double (``dtype="float64"``), K2's double
+    build fed f32 sums, and K4 xl in f32 and f64."""
     from multiple_object_tracking_lidar_tpu_torch.ops import (
-        centroid_cuda, cluster_pallas, grid_cuda, track_cuda, voxel_grid_cuda)
+        centroid_cuda, cluster_pallas, grid_cuda, stencil_cc_cuda, track_cuda, voxel_grid_cuda)
 
-    k2 = grid_cuda.fused_finalize_static_cc_stacked
-    return {"K2 f64": (k2, "launches_f64"),
-            "K3f f64": (centroid_cuda.circumcenter_features, "launches_f64"),
-            "K4 f64": (track_cuda.track_frames, "launches_f64"),
-            "K6f f64": (voxel_grid_cuda.accumulate_f32_stacked, "launches_f64"),
-            "K8a f64": (cluster_pallas.cc_adjacency, "launches_f64"),
-            "K2 f64 f32-sums": (k2, "launches_f64_f32sums")}
+    k2, k4 = grid_cuda.fused_finalize_static_cc_stacked, track_cuda.track_frames
+    return {"K2 f64": (k2, "motl_grid_cc_f64"),
+            "K3f f64": (centroid_cuda.circumcenter_features, "motl_circumcenter_features_f64"),
+            "K4 f64": (k4, "motl_track_step_f64"),
+            "K6f f64": (voxel_grid_cuda.accumulate_f32_stacked, "motl_voxel_sums_f64"),
+            "K8a f64": (cluster_pallas.cc_adjacency, "motl_cc_adjacency_f64"),
+            "K2 f64 f32-sums": (k2, "motl_grid_cc_f64_f32sums"),
+            "K4 xl": (k4, "motl_track_step_xl"),
+            "K4 xl f64": (k4, "motl_track_step_xl_f64"),
+            "K14 f64": (stencil_cc_cuda.stencil_cc, "motl_stencil_cc_f64")}
 
 
 def reset_counts():
@@ -1215,8 +1236,8 @@ def reset_counts():
 
     for w in kernel_wrappers().values():
         w.launches = 0
-    for w, attr in f64_wrappers().values():
-        setattr(w, attr, 0)
+        if hasattr(w, "launches_by"):
+            w.launches_by.clear()
     voxel_grid.digit_sums_stacked.plain_routes = 0
 
 
@@ -1224,7 +1245,7 @@ def read_counts():
     from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid
 
     counts = {k: w.launches for k, w in kernel_wrappers().items()}
-    counts.update({k: getattr(w, attr) for k, (w, attr) in f64_wrappers().items()})
+    counts.update({k: w.launches_by[e] for k, (w, e) in entry_builds().items()})
     counts[PLAIN_SUMS] = voxel_grid.digit_sums_stacked.plain_routes
     return counts
 
@@ -1248,8 +1269,7 @@ def k4_report_as(position_filter, association="greedy"):
 def require(tag, counts, need, report, report_as=None):
     """Fail unless every kernel of ``need`` launched in this path's run,
     unless a tracking path (one that needs K3f) launched no K3, and unless
-    the path took no plain digit sums (every grid here is within K1's and
-    K5's ``max_cells``); add the run's kernel counts to the report, under
+    the path took no plain digit sums (the CPU's route); add the run's kernel counts to the report, under
     the names ``report_as`` maps them to."""
     missing = [k for k in need if counts[k] <= 0]
     if missing:
@@ -1258,7 +1278,7 @@ def require(tag, counts, need, report, report_as=None):
         fail(f"the {tag} path launched K3 {counts['K3']} times (its circumcenter is K3f)")
     if counts[PLAIN_SUMS]:
         fail(f"the {tag} path took the plain digit sums {counts[PLAIN_SUMS]} times "
-             "(its grid is within K1's and K5's max_cells)")
+             "(the CPU's route)")
     for k, c in counts.items():
         if k == PLAIN_SUMS:
             continue
@@ -3015,7 +3035,7 @@ GOLDEN_F64 = {"f64": os.path.join(HERE, "tests", "golden", "torch_f64_headline.n
                                                  "torch_f64_hungarian_ihgp_headline.npz")}
 GOLDEN_CLI_F64 = os.path.join(HERE, "tests", "golden", "torch_cli_f64_headline.json")
 F64_PATH = ("K1", "K2 f64", "K3f f64", "K4 f64")   # the kernels the f64 headline must launch
-F32_BUILDS = ("K2", "K3f", "K4", "K6f", "K8a")     # which no f64 path may launch
+F32_BUILDS = ("K2", "K3f", "K4", "K6f", "K8a", "K4 xl", "K14")   # which no f64 path may launch
 
 
 def f64_track_inputs(inputs):
@@ -3047,7 +3067,7 @@ def phase_kernels_slice13(dev, report, cfg):
     edge cases and the headline's own f64 member tables; K4 f64 (lpf, ihgp)
     on ``track_scene`` at K = 64 (1 x 1, 1 x 8, 8 x 1) and 1,024, and K4
     hungarian f64 on its gated scene at K = 64 and 1,024, each in f64; a
-    Hungarian f64 step past K4's bounds (D = 256) raises, as in f32."""
+    Hungarian f64 step past the narrow builds (D = 256) through K4 xl."""
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import (
         headline_case, k2_grids, k2_inputs, track_scene)
     from multiple_object_tracking_lidar_tpu_torch.ops import (
@@ -3151,12 +3171,9 @@ def phase_kernels_slice13(dev, report, cfg):
                     check_track_inputs(c, gains, ins, report, name,
                                        f"{pf}, K={k} {b} x {s} frames, D={d}, f64")
     past = f64_track_inputs(track_scene(1399, cfg, K, 256, 1, 1, (), dev, True))
-    try:
-        track_cuda.track_frames(*past, config=cfg64.replace(association="hungarian"),
-                                gains_xy=gains)
-        fail("a Hungarian f64 step at D=256 ran (K4's Hungarian builds hold D <= 128)")
-    except NotImplementedError as e:
-        log(f"[3 K4 hungarian f64] D=256 raises as it should: {e}")
+    hcfg = cfg64.replace(association="hungarian")
+    check_track_inputs(hcfg, Tracker(hcfg, dev).gains_xy, past, report, "K4 xl hungarian",
+                       f"K={K} 1 x 1, D=256 (past the narrow builds' 128), f64")
     return {"acc": acc, "tb": tb, "kw2": kw2, "offsets": offsets, "mp": mp_h, "mm": mm_h,
             "T8": T8, "tracker": tracker}
 
@@ -3962,6 +3979,599 @@ def phase_learning(dev, smi, report):
             f"{len(node.nll_history)} updates")
 
 
+# ---------------------------------------------------------------------------
+# slice 16: every size on the card -- K4 xl, K1 / K5 wide, K14
+# ---------------------------------------------------------------------------
+GOLDEN_FLOOR = {case: os.path.join(HERE, "tests", "golden", f"torch_{case}_headline.npz")
+                for case in ("floor", "floor_hungarian", "floor_f64")}
+GOLDEN_TRACK_WIDE = os.path.join(HERE, "tests", "golden", "torch_track_wide.npz")
+FLOOR_FIELDS = {"floor": {}, "floor_hungarian": {"association": "hungarian"},
+                "floor_f64": {"dtype": "float64"}}
+TOL_F64 = (1e-9, 1e-8)   # m, m/s: the f64 goldens' bounds (the JAX package's own)
+XL_SHAPES = ((2048, 32), (4096, 64), (64, 256), (1024, 512))   # (K, D) past K4's narrow builds
+# K4 at K = 64, D = 32, 1 x 1, lpf on track_scene(5, ...): device us per launch, the
+# range PR 11's call 11 and PR 13's calls measured (PERF.md section 6, row 4); the
+# narrow builds this slice refactored must stay within FACTOR of its top
+K4_NARROW_US, K4_NARROW_FACTOR = (62.98, 63.96), 1.15
+
+
+def floor_report_as(cfg):
+    """A floor path's counts in the report: K1 as K1 wide, the double
+    builds of K4 xl and K14 under their names, a Hungarian path's K4 xl as
+    K4 xl hungarian."""
+    xl = "K4 xl hungarian" if cfg.association == "hungarian" else "K4 xl"
+    return {"K1": "K1 wide", "K4 xl": xl, "K4 xl f64": xl, "K14 f64": "K14"}
+
+
+def floor_need(cfg):
+    """The kernels a floor path must launch: K1 (wide), K14, K3f and K4 xl,
+    their double builds under f64 (K1 stays f32 there: the fast digits)."""
+    if cfg.dtype == "float64":
+        return ("K1", "K14 f64", "K3f f64", "K4 xl f64")
+    return ("K1", "K14", "K3f", "K4 xl")
+
+
+def plain_counters():
+    """The plain routes' counters the card must leave at 0: the digit sums'
+    CPU route, and the host syncs of the stencil CC and the plain track
+    step."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import cluster_grid, track_cuda, voxel_grid
+
+    return {"plain digit sums": voxel_grid.digit_sums_stacked.plain_routes,
+            "stencil CC host syncs": cluster_grid.connected_components_grid.host_syncs,
+            "plain track step host syncs": track_cuda.track_step_plain.host_syncs}
+
+
+def require_floor(tag, counts, cfg, report, plain_before, need=None):
+    """``require`` for a floor path (its kernels, reported under the floor
+    names), no f32 build on an f64 path, and every plain route's counter
+    unmoved since ``plain_before``."""
+    need = need or floor_need(cfg)
+    require(tag, counts, need, report, floor_report_as(cfg))
+    if cfg.dtype == "float64":
+        require_f64(tag, counts, need)
+    after = plain_counters()
+    if after != plain_before:
+        fail(f"{tag}: a plain route ran on the card: {plain_before} -> {after}")
+
+
+def two_max_cells_case(dev, rng, s):
+    """(points (S, 131,072, 3), mask, kw) on a 968 x 480 x 1 grid of 2 x
+    ``max_cells`` = 464,640 cells (0.05 m leaf): uniform points, frame 1
+    with 99% of its points in one cell."""
+    from multiple_object_tracking_lidar_tpu_torch.config import SceneBounds
+    from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid_cuda as vg
+
+    scene = SceneBounds(x_min=0.0, x_max=967.5 * 0.05, y_min=0.0, y_max=479.5 * 0.05,
+                        z_min=0.0, z_max=0.5)
+    kw = (scene, 0.05, 1.0)
+    if vg.kernel_params(*kw)["n_cells"] != 2 * vg.max_cells():
+        fail(f"the 2 x max_cells grid has {vg.kernel_params(*kw)['n_cells']} cells")
+    n = 131_072
+    pts = np.stack([rng.uniform(-0.1, 48.5, (s, n)), rng.uniform(-0.1, 24.1, (s, n)),
+                    rng.uniform(-0.1, 0.6, (s, n))], -1).astype(np.float32)
+    pts[1, : 99 * n // 100] = pts[1, 0] + rng.normal(0, 0.005, (99 * n // 100, 3))
+    mask = rng.random((s, n)) < 0.97
+    return torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev), kw
+
+
+def floor_cells(dev, fcfg, fenv, P, M):
+    """The floor frames' centroids and dynamic cells as the path computes
+    them (K1, the finalize, the per-cell static drop), and the plan."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid_cuda as vg
+    from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import (
+        remove_static, remove_static_cells)
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid import finalize_dense_cm
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    plan = Tracker(fcfg, dev).plan(fenv)
+    if plan.k2:
+        fail("the floor's plan took K2 (its grid is past K2's cells)")
+    acc, _ = vg.accumulate_fast_stacked(P, M, fcfg.scene, fcfg.voxel_leaf_size, fcfg.leaf_z)
+    cent, occ, _ = finalize_dense_cm(acc)
+    dyn = (remove_static_cells(cent, occ, plan.env, plan.table) if plan.table is not None
+           else remove_static(cent.transpose(-1, -2), occ, plan.env))
+    return cent, dyn, plan
+
+
+def phase_kernels_slice16(dev, report):
+    """K4 xl, K1 / K5 wide and K14 against their plain versions on the card,
+    bit for bit, one device op per call: K4 xl (greedy and Hungarian, lpf
+    and ihgp, f32 and f64) at ``XL_SHAPES`` on ``track_scene``'s frames
+    (greedy 1 x 3 and 2 x 1 with a first frame, Hungarian 1 x 1 on its
+    gated scene, at K = 2,048 and 4,096 each (filter, dtype) on one of the
+    two banks: their plain versions run every auction phase to its cap,
+    ~5-10 s a frame on the card); K1 and K5 (and K1's raw entry) at the floor's 1,119,963
+    cells and at 2 x ``max_cells``, S = 1 and 8; K14 on the floor frames'
+    own dynamic cells, f32 and f64, converged and at ``max_iters = 1``."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import (
+        bench_config, floor_case, track_scene)
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        stencil_cc_cuda as k14, track_cuda, voxel_grid_cuda as vg)
+    from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import kernel_offsets
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import grid_shape, in_dtype
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    t0 = time.perf_counter()
+    cfg = bench_config()
+    for assoc, name in (("greedy", "K4 xl"), ("hungarian", "K4 xl hungarian")):
+        report.setdefault(name, {"max_abs_err": 0.0})
+        for pf in ("lpf", "ihgp"):
+            for dt in ("float32", "float64"):
+                c = cfg.replace(association=assoc, position_filter=pf, dtype=dt)
+                gains = Tracker(c, dev).gains_xy
+                for K, D in XL_SHAPES:
+                    if assoc == "hungarian" and K > 1024 and (K == 4096) != ((pf, dt) in (
+                            ("lpf", "float32"), ("ihgp", "float64"))):
+                        continue   # K > 1,024: each (filter, dtype) once over the two banks
+                    cases = ((1, 3, ()), (2, 1, (1,))) if assoc == "greedy" else ((1, 1, ()),)
+                    for B, S, fresh in cases:
+                        inp = track_scene(16 * K + D + B, c, K, D, B, S, fresh, dev,
+                                          assoc == "hungarian")
+                        if dt == "float64":
+                            inp = f64_track_inputs(inp)
+                        check_track_inputs(c, gains, inp, report, name,
+                                           f"{pf} {dt} K={K} D={D} {B} x {S}")
+                    st, dets, valid, t = inp
+                    _, ops, whole = one_op_profile(lambda: track_cuda.track_frames(
+                        st, dets, valid, t, config=c, gains_xy=gains), 1)
+                    require_one_op(f"{name} {pf} {dt} K={K} D={D}", ops, whole)
+        log(f"[3 {name}] every build bit for bit its plain version, one op per call "
+            f"({time.perf_counter() - t0:.1f} s so far)")
+
+    fcfg, fenv, fsc = floor_case(dev)
+    kw = (fcfg.scene, fcfg.voxel_leaf_size, fcfg.leaf_z)
+    pts, msk, _ = headline_frames(fsc, fcfg.caps.n_max_points, range(8))
+    P, M = torch.from_numpy(pts).to(dev), torch.from_numpy(msk).to(dev)
+    P2, M2, kw2 = two_max_cells_case(dev, np.random.default_rng(16), 8)
+    for label, PP, MM, kk in (("floor", P, M, kw), ("2 x max_cells", P2, M2, kw2)):
+        nc = vg.kernel_params(*kk)["n_cells"]
+        for s in (1, 8):
+            for name, fk, fp, groups in (
+                    ("K1 wide", vg.accumulate_fast_stacked, vg.accumulate_fast_stacked_plain, 1),
+                    ("K5 wide", vg.accumulate_exact_stacked, vg.accumulate_exact_stacked_plain, 3)):
+                what = (f"{label} {nc} cells, S={s}, N={PP.shape[1]}, layout (ranges, chunks) "
+                        f"{vg.digit_layout(nc, s, groups)}")
+                check_pair(report, name, what, lambda: fk(PP[:s], MM[:s], *kk),
+                           lambda: fp(PP[:s], MM[:s], *kk))
+                us, ops, whole = one_op_profile(lambda: fk(PP[:s], MM[:s], *kk), 10)
+                require_one_op(f"{name} {what}", ops, whole)
+                log(f"[3 {name}] {what}: device {us:.2f} us per call (torch.profiler)")
+        check_pair(report, "K1 wide", f"{label} raw entry (the kernel fleet's), S=2",
+                   lambda: vg.accumulate_fast_stacked_raw(PP[:2], MM[:2], *kk),
+                   lambda: (vg.fast_digit_sums(PP[:2], MM[:2], *kk), vg._npts(MM[:2], 2)))
+
+    cent, dyn, _ = floor_cells(dev, fcfg, fenv, P, M)
+    dims = grid_shape(*kw)
+    tol, caps = fcfg.cluster_tolerance, fcfg.caps
+    offs = kernel_offsets(dims, tol, kw[1], kw[2])
+    for dt in (torch.float32, torch.float64):
+        C = cent.to(dt)
+        for mi in (caps.label_prop_iters, 1):
+            args = (mi, caps.grid_sweeps_per_iter, caps.grid_jumps_per_iter)
+            out = check_pair(
+                report, "K14", f"floor {dims} ({len(offs)} offsets), S=8, {dt}, max_iters={mi}",
+                lambda: k14.stencil_cc(C, dyn, dims, tol, kw[1], kw[2], *args),
+                lambda: k14.stencil_cc_plain(C, dyn, dims, offs, in_dtype(tol * tol, dt), *args))
+            us, ops, whole = one_op_profile(
+                lambda: k14.stencil_cc(C, dyn, dims, tol, kw[1], kw[2], *args), 5)
+            require_one_op(f"K14 {dt} max_iters={mi}", ops, whole)
+            log(f"[3 K14] {dt} max_iters={mi}: dynamic cells {npy(dyn.sum(1)).tolist()}, "
+                f"n_sweeps {npy(out[1]).tolist()}, saturated {npy(out[2]).tolist()}; device "
+                f"{us:.2f} us per call (torch.profiler)")
+    log(f"[3 slice 16] kernels checked in {time.perf_counter() - t0:.1f} s")
+
+
+def track_wide_golden(dev, report):
+    """tests/golden/torch_track_wide.npz: each case's inputs
+    (``bench_cases.track_wide_inputs``, rebuilt from their seed) through
+    ``track_frames`` on the card (K4 xl: K = 2,048 or D = 256), its frames in
+    one launch, against the jitted JAX ``track_step``: integers and
+    decisions exact, pos / vel within the dtype's tolerances where valid."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import (
+        TRACK_WIDE, TRACK_WIDE_L, track_wide_inputs)
+    from multiple_object_tracking_lidar_tpu_torch.config import Capacities, TrackerConfig
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import TrackBank, TrackerState
+
+    g = dict(np.load(GOLDEN_TRACK_WIDE))
+    for k, d, assoc, dtype in TRACK_WIDE:
+        key = f"k{k}_d{d}_{assoc}_{dtype}"
+        cfg = TrackerConfig(data_length=TRACK_WIDE_L, association=assoc, dtype=dtype,
+                            caps=Capacities(n_max_points=1024, m_max_voxels=256,
+                                            m_max_dynamic=128, c_max_clusters=d,
+                                            p_max_cluster=32, k_max_tracks=k))
+        tracker = Tracker(cfg, dev)
+        bank, scal, frames = track_wide_inputs(k, d, assoc, dtype)
+        state = TrackerState(
+            bank=TrackBank(**{f: torch.from_numpy(v)[None].to(dev) for f, v in bank.items()}),
+            **{f: torch.as_tensor(v)[None].to(dev) for f, v in scal.items()})
+        dets, valid, t = (torch.from_numpy(np.stack([fr[i] for fr in frames]))[None].to(dev)
+                          for i in range(3))
+        reset_counts()
+        st, o = track_cuda.track_frames(state, dets, valid, t, config=cfg,
+                                        gains_xy=tracker.gains_xy)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        xl = "K4 xl f64" if dtype == "float64" else "K4 xl"
+        if counts[xl] != 1:
+            fail(f"track_wide {key}: launches {counts} (one {xl} expected)")
+        got = {f: npy(getattr(o, f))[0] for f in o._fields}
+        ref = {f: g[f"{key}/out_{f}"] for f in o._fields}
+        e = compare(f"track_wide {key} vs JAX golden", got, ref,
+                    *(TOL_F64 if dtype == "float64" else (TOL_DETS, TOL_VEL)))
+        for f in ("alive", "obj_id", "birth_seq"):
+            if not equal(npy(getattr(st.bank, f))[0], g[f"{key}/bank_{f}"]):
+                fail(f"track_wide {key}: the bank's {f} differs from the golden's")
+        name = "K4 xl hungarian" if assoc == "hungarian" else "K4 xl"
+        entry = report.setdefault(name, {"max_abs_err": 0.0})
+        entry["launches"] = entry.get("launches", 0) + 1
+        log(f"[4 floor] track_wide {key}: {ref['publish'].shape[0]} frames in one K4 xl launch "
+            f"vs JAX golden max abs err {e}; valid {int(got['valid'].sum())}, registered "
+            f"{int(got['new_track'].sum())}, assoc_saturated {got['assoc_saturated'].tolist()}")
+
+
+def run_floor_bind_env(dev, cfg, env, P, M, T, report, tag):
+    """bind_env over the frames on the card, counters reset before and read
+    after (the floor's kernels required, no plain route); outputs stacked
+    over frames and the final state."""
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    tracker = Tracker(cfg, dev)
+    step = tracker.bind_env(env)
+    st = tracker.init_state()
+    plain = plain_counters()
+    reset_counts()
+    rows = []
+    for k in range(P.shape[0]):
+        st, o = step(st, Frame(P[k], M[k], T[k]))
+        rows.append(o)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require_floor(tag, counts, cfg, report, plain)
+    return {f: np.stack([npy(getattr(o, f)) for o in rows]) for f in rows[0]._fields}, st, counts
+
+
+def phase_floor(dev, report):
+    """The floor case (``bench_cases.floor_case``) on the card.  The goldens'
+    cut floor (16 m, 328,683 cells) through ``bind_env`` in f32 greedy,
+    Hungarian and f64 against tests/golden/torch_floor{,_hungarian,_f64}
+    _headline.npz (the map's hash first), and track_wide against its
+    golden; then the full floor (30 m, 1,119,963 cells, C = 256, 150
+    movers) in f32 greedy, Hungarian and f64: ``bind_env`` over 8 frames,
+    ``bind_env_multi`` (S = 8) bit for bit ``bind_env``, ``TrackerNode``
+    (k_max_tracks 64 grown by the node; its first frame bit for bit
+    ``bind_env``'s), the vmap fleet (``ShardedTracker``, kernel_path "off",
+    B = 2 on one card, bit for bit a B = 1 fleet per stream); and the grown
+    bank padded to 2,048 slots: greedy bit for bit the 256-slot bank's
+    frames, Hungarian against its plain version on the card for a frame.
+    Every path launches K1 (wide), K14, K3f and K4 xl (their double builds
+    under f64) and moves no plain route's counter."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases as bc
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+    from multiple_object_tracking_lidar_tpu_torch.parallel import ShardedTracker, make_mesh
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
+        Frame, grow_bank, map_state)
+
+    t0 = time.perf_counter()
+    gcfg0, genv, gsc = bc.floor_golden_case(dev)
+    map_hash = bc.floor_map_hash(bc.floor_map(bc.FLOOR_SEED, bc.FLOOR_GOLDEN_M))
+    n_g = bc.FLOOR_GOLDEN_FRAMES
+    pts, msk, ts = headline_frames(gsc, gcfg0.caps.n_max_points, range(n_g))
+    GP, GM, GT = (torch.from_numpy(a).to(dev) for a in (pts, msk, ts))
+    for case, fields in FLOOR_FIELDS.items():
+        golden = dict(np.load(GOLDEN_FLOOR[case]))
+        if str(golden.pop("map_hash")) != map_hash:
+            fail(f"{case}: the golden's floor map is not the one rebuilt from its seed")
+        gcfg = gcfg0.replace(**fields)
+        got, _, counts = run_floor_bind_env(dev, gcfg, genv, GP, GM, GT, report, f"{case} (16 m)")
+        e = compare(f"{case} (16 m) bind_env vs JAX golden", got, golden,
+                    *(TOL_F64 if gcfg.dtype == "float64" else (TOL_DETS, TOL_VEL)))
+        log(f"[4 floor] {case} at the goldens' 16 m floor ({n_g} frames): n_clusters "
+            f"{got['n_clusters'].tolist()}, valid {got['valid'].sum(1).tolist()}, launches "
+            f"{counts}; vs JAX golden max abs err {e}")
+    track_wide_golden(dev, report)
+
+    fcfg0, fenv, fsc = bc.floor_case(dev)
+    n_f = 8
+    pts, msk, ts = headline_frames(fsc, fcfg0.caps.n_max_points, range(n_f + 2))
+    P, M, T = (torch.from_numpy(a).to(dev) for a in (pts, msk, ts))
+    mesh = make_mesh(1, 1, device=dev)
+    for case, fields in FLOOR_FIELDS.items():
+        fcfg = fcfg0.replace(**fields)
+        tag = f"{case} (30 m)"
+        ref, _, counts = run_floor_bind_env(dev, fcfg, fenv, P[:n_f], M[:n_f], T[:n_f], report, tag)
+        if not np.isfinite(ref["pos"][ref["valid"]]).all():
+            fail(f"{tag}: non-finite positions")
+        tracker = Tracker(fcfg, dev)
+        multi = tracker.bind_env_multi(fenv)
+        plain = plain_counters()
+        reset_counts()
+        _, om = multi(tracker.init_state(), Frame(P[:n_f], M[:n_f], T[:n_f]))
+        torch.cuda.synchronize()
+        require_floor(f"{tag} bind_env_multi", read_counts(), fcfg, report, plain)
+        compare(f"{tag} bind_env_multi vs bind_env", {f: npy(getattr(om, f)) for f in om._fields},
+                ref, 0.0, 0.0)
+
+        node = TrackerNode(fcfg, dev, keep_outputs=True)
+        node.on_map(bc.floor_map(bc.FLOOR_SEED, bc.FLOOR_M))
+        plain = plain_counters()
+        reset_counts()
+        for k in range(n_f):
+            node.on_pointcloud(fsc.frame(k))
+        torch.cuda.synchronize()
+        require_floor(f"{tag} TrackerNode", read_counts(), fcfg, report, plain)
+        k_node = node.config.caps.k_max_tracks
+        first = {f: getattr(node.outputs[0], f)[None] for f in ref}
+        compare(f"{tag} TrackerNode frame 0 vs bind_env", first, {f: v[:1] for f, v in ref.items()},
+                0.0, 0.0)
+        if node.n_growths < 1 or k_node < 256:
+            fail(f"{tag} TrackerNode: {node.n_growths} growths to K {k_node} (256 expected)")
+
+        vf2 = ShardedTracker(tracker, mesh, kernel_path="off")
+        step2, step1 = vf2.bind_env(fenv), ShardedTracker(tracker, mesh, kernel_path="off").bind_env(fenv)
+        s2 = vf2.init_state(2)
+        s1 = [vf2.init_state(1), vf2.init_state(1)]
+        plain = plain_counters()
+        reset_counts()
+        for k in range(2):
+            s2, o2 = step2(s2, torch.stack([P[k], P[k + 2]]), torch.stack([M[k], M[k + 2]]),
+                           torch.stack([T[k], T[k + 2]]))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        need = ("K6f f64" if fcfg.dtype == "float64" else "K6f",) + floor_need(fcfg)[1:]
+        require_floor(f"{tag} vmap fleet B=2", counts, fcfg, report, plain, need)
+        for s, off in enumerate((0, 2)):
+            for k in range(2):
+                s1[s], o1 = step1(s1[s], P[k + off][None], M[k + off][None], T[k + off][None])
+            bad = [f for f in o2._fields if not equal(npy(getattr(o2, f))[s], npy(getattr(o1, f))[0])]
+            if bad:
+                fail(f"{tag} vmap fleet: stream {s} differs from a B = 1 fleet in {bad}")
+        log(f"[4 floor] {tag}: bind_env x{n_f} n_clusters {ref['n_clusters'].tolist()}, valid "
+            f"{ref['valid'].sum(1).tolist()}, overflow {ref['overflow'].tolist()}; "
+            f"bind_env_multi S={n_f} bit for bit bind_env; TrackerNode grew {node.n_growths} "
+            f"times to K {k_node} (frame 0 bit for bit bind_env's); vmap fleet B=2 x 2 steps "
+            f"bit for bit B=1 per stream, launches {counts}; "
+            f"({time.perf_counter() - t0:.1f} s so far)")
+
+        if case == "floor_f64":
+            continue
+        # the grown bank padded to 2,048 slots (K4 xl past 1,024), two more frames
+        state = node.state
+        big = tracker_for(fcfg, 2048, dev)
+        small = tracker_for(fcfg, k_node, dev)
+        padded = grow_bank(state, 2048)
+        if case == "floor":
+            bstep, sstep = big.bind_env(fenv), small.bind_env(fenv)
+            plain = plain_counters()
+            reset_counts()
+            sb, ss = padded, state
+            for k in range(n_f, n_f + 2):
+                fr = Frame(P[k], M[k], T[k])
+                sb, ob = bstep(sb, fr)
+                ss, os_ = sstep(ss, fr)
+                bad = [f for f in ob._fields if not equal(npy(getattr(ob, f)), npy(getattr(os_, f)))]
+                if bad:
+                    fail(f"{tag}: the bank padded to 2,048 slots differs from K={k_node} in {bad}")
+            torch.cuda.synchronize()
+            counts = read_counts()
+            require_floor(f"{tag} padded to 2,048", counts, fcfg, report, plain)
+            log(f"[4 floor] {tag}: the node's K={k_node} bank padded to 2,048 slots, frames "
+                f"{n_f}-{n_f + 1}: bit for bit the K={k_node} bank's; launches {counts}")
+        else:
+            plan = big.plan(fenv)
+            p = big.perceive(Frame(P[n_f:n_f + 1], M[n_f:n_f + 1], T[n_f:n_f + 1]), plan)
+            args = (map_state(lambda x: x[None], padded), p.dets[None], p.det_valid[None],
+                    torch.as_tensor(p.t).reshape(1, 1))
+            check_track_inputs(big.config, big.gains_xy, args, report, "K4 xl hungarian",
+                               f"the floor node's K={k_node} bank padded to 2,048, "
+                               f"D={fcfg.caps.c_max_clusters}, one frame")
+    report["K5 wide"].setdefault("launches", 0)   # exact mode only: no floor path runs it
+
+
+def tracker_for(cfg, k, dev):
+    """A Tracker of ``cfg`` with ``k_max_tracks = k``."""
+    import dataclasses
+
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    return Tracker(cfg.replace(caps=dataclasses.replace(cfg.caps, k_max_tracks=k)), dev)
+
+
+def busy_idle(fn, n_frames):
+    """(wall ms per frame under the profiler, device busy us per frame, idle
+    share) of one run of fn after a warm-up: busy = the union of its device
+    intervals (``scripts/profile_torch_slice.py::_busy_us``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import profile_torch_slice
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    busy = profile_torch_slice._busy_us(prof)
+    return wall_us / 1e3 / n_frames, busy / n_frames, 1.0 - busy / wall_us
+
+
+def k4_bytes(inp, out) -> int:
+    """K4's bytes: each input read once (the state, the frames), each output
+    written once (the state after, the outputs)."""
+    st, dets, valid, t = inp
+    ns, no = out
+    return (nbytes(tuple(st.bank) + tuple(st[1:]) + (dets, valid, t))
+            + nbytes(tuple(ns.bank) + tuple(ns[1:]) + tuple(no)))
+
+
+def phase_timings_slice16(dev, smi, report):
+    """The narrow K4 beside its PR 11-13 range (K = 64, D = 32, 1 x 1, lpf:
+    the refactor into slot_step must not move it); the kernels' report
+    entries (kernel and plain ms by CUDA events in turns, bounds: bytes at
+    HBM_BYTES_PER_S, operations at F32_OPS_PER_S, counted from this run's
+    data): K4 xl (greedy lpf f32, K = 2,048, D = 32, 1 x 1), K4 xl
+    hungarian (the same bank and frame under hungarian: the auction's
+    iterations per phase from its plain version), K1 wide and K5 wide (the
+    floor, S = 1), K14 (the floor's dynamic cells, S = 1); then the floor
+    (30 m, greedy f32 and Hungarian) ``bind_env`` and ``bind_env_multi``
+    ms/frame, device ops, host syncs and idle share per frame, and the
+    floor bank padded to 2,048 slots under greedy and Hungarian."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases as bc
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        stencil_cc_cuda as k14, track_cuda, voxel_grid_cuda as vg)
+    from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import kernel_offsets
+    from multiple_object_tracking_lidar_tpu_torch.ops.hungarian import (
+        EPS, MAX_ITERS, auction_assign_plain, gate_costs)
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import grid_shape, in_dtype
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame, grow_bank, map_state
+
+    cfg = bc.bench_config()
+    tr = Tracker(cfg, dev)
+    inp = bc.track_scene(5, cfg, 64, 32, 1, 1, (), dev)
+    us, ops, whole = one_op_profile(
+        lambda: track_cuda.track_frames(*inp, config=cfg, gains_xy=tr.gains_xy), 50)
+    require_one_op("K4 1 x 1", ops, whole)
+    lo, hi = K4_NARROW_US
+    log(f"[5 timing] {smi}: K4 (narrow build) K=64 D=32 1 x 1 lpf: device {us:.2f} us per "
+        f"launch; PR 11-13's range {lo}-{hi}")
+    if us > K4_NARROW_FACTOR * hi:
+        fail(f"K4's narrow build at the headline: {us:.2f} us, past {K4_NARROW_FACTOR} x {hi}")
+
+    def entry(name, fk, fp, moved, n_ops, what, plain_reps=2, plain_turns=2):
+        ms_p = cuda_ms(fp, plain_reps)
+        ms_k = cuda_ms(fk, 5)
+        ms_k2 = cuda_ms(fk, 5)
+        ms_p2 = cuda_ms(fp, plain_reps) if plain_turns == 2 else ms_p
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+        e = report.setdefault(name, {"max_abs_err": 0.0})
+        e["ms"] = min(ms_k, ms_k2)
+        e["plain_ms"] = min(ms_p, ms_p2)
+        e["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        e["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        e["library_ms"] = None
+        turns = "plain, kernel, kernel, plain" if plain_turns == 2 else "plain, kernel, kernel"
+        log(f"[5 timing] {smi}: {name} {what}: kernel {ms_k:.4f}/{ms_k2:.4f} ms, plain "
+            f"{ms_p:.4f}/{ms_p2:.4f} ms ({turns}; min reported); bound "
+            f"{e['bound_ms']:.6f} ms by {e['bound_by']} ({moved} bytes, {n_ops} operations); "
+            "library call none")
+
+    # K4 xl and K4 xl hungarian at K = 2,048, D = 32, 1 x 1
+    for assoc, name in (("greedy", "K4 xl"), ("hungarian", "K4 xl hungarian")):
+        c = cfg.replace(association=assoc)
+        gains = Tracker(c, dev).gains_xy
+        inp = bc.track_scene(2048 * 16 + 32 + 1, c, 2048, 32, 1, 1, (), dev, assoc == "hungarian")
+        fk = lambda: track_cuda.track_frames(*inp, config=c, gains_xy=gains)  # noqa: E731
+        fp = lambda: track_cuda.track_frames_plain(*inp, config=c, gains_xy=gains)  # noqa: E731
+        out = fk()
+        n_up = int(npy(out[1].valid).sum())
+        v = npy(inp[2])[0, 0]
+        scanned = int(np.flatnonzero(v).max()) + 1 if v.any() else 0
+        st0 = inp[0]
+        n_ops = scanned * 2048 * 6 + n_up * 20 * cfg.data_length
+        what = "K=2,048 D=32 1 x 1 (track_scene)"
+        if assoc == "hungarian":
+            bank = map_state(lambda x: x[0], st0).bank
+            cost, feas = gate_costs(bank, inp[1][0, 0], inp[2][0, 0], cfg.id_threshold, True)
+            _, _, iters = auction_assign_plain(cost, feas, EPS, cfg.id_threshold, MAX_ITERS,
+                                               return_iters=True)
+            n = 32 + 2048
+            n_ops = sum(iters) * 3 * n + len(iters) * 32 * 2048
+            what += f", auction iterations per phase {list(iters)} (cap {MAX_ITERS})"
+        entry(name, fk, fp, k4_bytes(inp, out), n_ops, what, 1,
+              2 if assoc == "greedy" else 1)   # a plain Hungarian frame here: ~6 s
+        us, ops, whole = one_op_profile(fk, 3)
+        require_one_op(name, ops, whole)
+        log(f"[5 timing] {smi}: {name} {what}: device {us:.2f} us per launch (torch.profiler)")
+
+    # K1 wide, K5 wide and K14 at the floor, S = 1
+    fcfg, fenv, fsc = bc.floor_case(dev)
+    kw = (fcfg.scene, fcfg.voxel_leaf_size, fcfg.leaf_z)
+    pts, msk, ts = headline_frames(fsc, fcfg.caps.n_max_points, range(10))
+    P, M, T = (torch.from_numpy(a).to(dev) for a in (pts, msk, ts))
+    k1p = vg.kernel_params(*kw)
+    nc, kept = k1p["n_cells"], int(vg.kept_cells(P[:1], M[:1], k1p)[0].sum())
+    for name, fk, fp, per_pt in (
+            ("K1 wide", vg.accumulate_fast_stacked, vg.accumulate_fast_stacked_plain, 20),
+            ("K5 wide", vg.accumulate_exact_stacked, vg.accumulate_exact_stacked_plain, 40)):
+        out = fk(P[:1], M[:1], *kw)
+        entry(name, lambda fk=fk: fk(P[:1], M[:1], *kw), lambda fp=fp: fp(P[:1], M[:1], *kw),
+              nbytes((P[:1], M[:1])) + nbytes(out), kept * per_pt,
+              f"floor {nc} cells, S=1, N={P.shape[1]} ({kept} kept), layout "
+              f"{vg.digit_layout(nc, 1, 1 if name == 'K1 wide' else 3)}")
+    cent, dyn, _ = floor_cells(dev, fcfg, fenv, P[:1], M[:1])
+    dims = grid_shape(*kw)
+    caps, tol = fcfg.caps, fcfg.cluster_tolerance
+    offs = kernel_offsets(dims, tol, kw[1], kw[2])
+    args = (caps.label_prop_iters, caps.grid_sweeps_per_iter, caps.grid_jumps_per_iter)
+    labels, n_sw, _ = k14.stencil_cc(cent, dyn, dims, tol, kw[1], kw[2], *args)
+    n_dyn = int(dyn.sum())
+    d3 = dyn.reshape(dims[2], dims[1], dims[0])
+    pairs = 0
+    for dz, dy, dx in offs:   # dynamic cells with a dynamic neighbour at each offset
+        a = d3[max(0, -dz):dims[2] - max(0, dz), max(0, -dy):dims[1] - max(0, dy),
+               max(0, -dx):dims[0] - max(0, dx)]
+        b = d3[max(0, dz):dims[2] - max(0, -dz), max(0, dy):dims[1] - max(0, -dy),
+               max(0, dx):dims[0] - max(0, -dx)]
+        pairs += int((a & b).sum())
+    iters = int(n_sw[0]) // caps.grid_sweeps_per_iter
+    moved = nc + 3 * 4 * n_dyn + nbytes((labels,)) + 8
+    n_ops = 8 * pairs + iters * (caps.grid_sweeps_per_iter * pairs + caps.grid_jumps_per_iter * n_dyn)
+    entry("K14", lambda: k14.stencil_cc(cent, dyn, dims, tol, kw[1], kw[2], *args),
+          lambda: k14.stencil_cc_plain(cent, dyn, dims, offs, in_dtype(tol * tol, cent.dtype),
+                                       *args),
+          moved, n_ops, f"floor {dims}, S=1, {n_dyn} dynamic cells, {pairs} dynamic neighbour "
+          f"pairs, {iters} iterations")
+
+    # the floor end to end (greedy and Hungarian, f32), and the bank padded to 2,048
+    for assoc in ("greedy", "hungarian"):
+        c = fcfg.replace(association=assoc)
+        tr = Tracker(c, dev)
+        step, multi = tr.bind_env(fenv), tr.bind_env_multi(fenv)
+
+        def one():
+            st = tr.init_state()
+            for k in range(8):
+                st, _ = step(st, Frame(P[k], M[k], T[k]))
+
+        def eight():
+            multi(tr.init_state(), Frame(P[:8], M[:8], T[:8]))
+
+        ms1, ms8 = cuda_ms(one, 2) / 8, cuda_ms(eight, 2) / 8
+        (o1, s1), (o8, s8) = trace_counts(one, 8), trace_counts(eight, 8)
+        if s1 or s8:
+            fail(f"floor {assoc}: host syncs per frame {s1} / {s8} (0 expected)")
+        (_, b1, i1), (_, b8, i8) = busy_idle(one, 8), busy_idle(eight, 8)
+        log(f"[5 timing] {smi}: floor 30 m {assoc} (1,119,963 cells, C=256, K=64) bind_env "
+            f"{ms1:.4f} ms/frame, bind_env_multi S=8 {ms8:.4f} ms/frame; device ops per frame "
+            f"{o1:.2f} / {o8:.2f}; host syncs per frame {s1:.3f} / {s8:.3f}; device busy "
+            f"{b1:.1f} / {b8:.1f} us per frame, idle share {i1:.3f} / {i8:.3f}")
+        st = tr.init_state()
+        for k in range(8):
+            st, _ = step(st, Frame(P[k], M[k], T[k]))
+        big = tracker_for(c, 2048, dev)
+        bstep = big.bind_env(fenv)
+        padded = grow_bank(st, 2048)
+
+        def two():
+            s = padded
+            for k in (8, 9):
+                s, _ = bstep(s, Frame(P[k], M[k], T[k]))
+
+        ms2 = cuda_ms(two, 1) / 2
+        (o2, s2) = trace_counts(two, 2)
+        log(f"[5 timing] {smi}: floor {assoc}, the K=64 bank after 8 frames padded to 2,048 "
+            f"slots (K4 xl): bind_env {ms2:.4f} ms/frame, {o2:.2f} device ops and {s2:.3f} "
+            "host syncs per frame")
+
+
 KERNELS = (
     ("K1", "voxel_grid fast-digit histogram + finalize, one launch (cell ranges x point-chunk "
      "clusters)",
@@ -4063,6 +4673,30 @@ KERNELS = (
      "window recursion one thread per window, the sums in a fixed order, the update (timed at "
      "the headline node's 2 x 3 windows of 39 steps; launched on the learning node and tune)",
      f"{PKG}/csrc/learning.cu", "multiple_object_tracking_lidar_tpu/models/learning.py:121"),
+    ("K4 xl", "K4 past its narrow builds (K > 1,024 slots or D > 128 detections): lane t owns "
+     "slots t, t + 1,024, ...; the slots' summaries, the decisions and the detection flags in "
+     "device memory; every reduction over a lane's own slots first, then K4's (timed at K = "
+     "2,048, D = 32, 1 x 1; launched on the floor paths at D = 256 and K = 64-2,048, f32 and "
+     "f64)", f"{PKG}/csrc/assign.cu",
+     "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188"),
+    ("K4 xl hungarian", "K4 xl under association=hungarian: the auction on n = D + K columns, "
+     "its tables sized at run time (shared memory while they fit, device memory past that), "
+     "the cost rebuilt, the registrations by rank in slot order (timed at K = 2,048, D = 32, "
+     "1 x 1; launched on the floor's hungarian paths)", f"{PKG}/csrc/assign.cu",
+     "multiple_object_tracking_lidar_tpu/ops/hungarian.py:139"),
+    ("K1 wide", "K1 past 232,320 cells: more cell ranges (a power of two), each CTA reading "
+     "every point of its frame and keeping its own range in shared memory, one launch (timed "
+     "at the floor's 1,119,963 cells, S = 1; launched on every floor path)",
+     f"{PKG}/csrc/voxel_grid.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1272"),
+    ("K5 wide", "K5 past 232,320 cells, K1 wide's layout over its three channel groups "
+     "(exact mode only: checked and timed at the floor's grid, no floor path launches it)",
+     f"{PKG}/csrc/voxel_exact.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1538"),
+    ("K14", "the dense grid's stencil CC (grid_cc=jnp, no per-cell table, past K2's cells): one "
+     "CTA per frame, the dynamic cells listed, their adjacency packed into bit words once, "
+     "Jacobi sweeps and pointer jumps between two label buffers, each frame stopping on its "
+     "own, no host sync; f32 and f64 builds (no TPU kernel: the JAX jnp "
+     "connected_components_grid)", f"{PKG}/csrc/stencil_cc.cu",
+     "multiple_object_tracking_lidar_tpu/ops/cluster_grid.py:60"),
     ("K11", "batched transpose of 32-bit words: the (S, N, 3) -> (S, 3, N) points K1-cm reads "
      "(4-row groups, 16-byte loads and stores, no shared memory), and the probes' (1, B) -> "
      "(B, 1) int32 row (a copy) and (16, 128) tile",
@@ -4089,6 +4723,7 @@ def main() -> int:
     k13 = phase_kernels_slice13(dev, report, cfg)
     k14 = phase_kernels_slice14(dev, report, cfg)
     phase_kernels_slice15(dev, report)
+    phase_kernels_slice16(dev, report)
     tracker, env, frames = phase_slice(dev, cfg, sc, report)
     phase_cli(dev, report)
     phase_ihgp(dev, report)
@@ -4101,6 +4736,7 @@ def main() -> int:
     fleet, fleet_env, fleet_in = phase_fleet(dev, report)
     phase_entry_points(dev, report, cfg, sc, table)
     phase_growth(dev, report)
+    phase_floor(dev, report)
     phase_timings(dev, cfg, smi, tracker, env, frames, report)
     phase_timings_fleet(dev, smi, fleet, fleet_env, fleet_in)
     phase_timings_slice11(dev, smi, *frames)
@@ -4108,6 +4744,12 @@ def main() -> int:
     phase_timings_slice13(dev, smi, *frames, report, k13)
     phase_timings_slice14(dev, smi, report, k14)
     phase_learning(dev, smi, report)
+    phase_timings_slice16(dev, smi, report)
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import micro_torch_digits
+
+    log(f"[5 timing] torch.profiler traces taken again after losing device events: "
+        f"{micro_torch_digits.retaken}")
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": f"{k}: {desc}", "route": "cuda", "source": src, "replaces": rep,

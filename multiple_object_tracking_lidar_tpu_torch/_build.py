@@ -72,6 +72,11 @@ SIGNATURES = {
                         *[_P] * 17],
     "motl_track_step_f64": [*[_P] * 20, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, *[_D] * 7, _I,
                             *[_P] * 17],
+    "motl_track_step_xl": [*[_P] * 20, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, *[_F] * 7, _I,
+                           *[_P] * 18],
+    "motl_track_step_xl_f64": [*[_P] * 20, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, *[_D] * 7,
+                               _I, *[_P] * 18],
+    "motl_track_step_xl_scratch": [_I, _I, _I, _I, _I, _I, _P],
     "motl_auction_assign": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "motl_voxel_exact": _DIGITS,
     "motl_voxel_bf16x3": [_P, _P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _I, _I,
@@ -86,6 +91,8 @@ SIGNATURES = {
     "motl_cc_adjacency": [_P, _I, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P],
     "motl_cc_adjacency_f64": [_P, _I, _P, _I, _I, _I, _D, _I, _P, _P, _P, _P],
     "motl_cc_labels": [_P, _I, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P],
+    "motl_stencil_cc": [_P, _P, _I, _I, _I, _I, _P, _I, _F, _I, _I, _I, _P, _P, _P, _P],
+    "motl_stencil_cc_f64": [_P, _P, _I, _I, _I, _I, _P, _I, _D, _I, _I, _I, _P, _P, _P, _P],
     "motl_transpose32": [_P, _P, _I, _I, _I, _P],
     "motl_learning_step": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
 }
@@ -187,6 +194,15 @@ def build_info() -> dict:
     compiler's ``-Xptxas -v`` report of the loaded library."""
     load()
     return {"path": _state.path, "seconds": _state.build_seconds, "log": _state.log}
+
+
+def count(wrapper, entry: str, base: str) -> None:
+    """One launch of the C entry ``entry`` by ``wrapper``:
+    ``wrapper.launches_by[entry]`` counts it, and ``wrapper.launches`` too
+    where ``entry`` is ``base``, the wrapper's f32 build."""
+    wrapper.launches_by[entry] += 1
+    if entry == base:
+        wrapper.launches += 1
 
 
 def check(err: int, name: str) -> None:

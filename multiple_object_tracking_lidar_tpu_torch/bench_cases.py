@@ -265,6 +265,197 @@ def dense_hungarian_case(device="cpu"):
     return cfg.replace(association="hungarian"), env, sc
 
 
+FLOOR_SEED = 16
+FLOOR_M = 30.0          # the floor's side: 611 x 611 x 3 = 1,119,963 cells at the 0.05 m leaf
+FLOOR_CELLS = 1_119_963
+FLOOR_RES = 0.05        # the occupancy grid's resolution (m)
+
+
+def floor_map(seed: int = FLOOR_SEED, size_m: float = FLOOR_M):
+    """A synthetic occupancy grid of one office or warehouse floor, from
+    ``seed``, numpy only: ``size_m`` square at 0.05 m, origin (0, 0),
+    border walls 0.15 m thick, four interior walls 0.1 m thick with a 2 m
+    door each, and pillars of 0.4 m; occupied 100, free 0, no unknown
+    (int8).  Returns the port's ``OccupancyGrid``."""
+    import numpy as np
+
+    from multiple_object_tracking_lidar_tpu_torch.utils.pgm import MapInfo, OccupancyGrid
+
+    n = int(round(size_m / FLOOR_RES))
+    data = np.zeros((n, n), np.int8)
+    data[:3], data[-3:], data[:, :3], data[:, -3:] = 100, 100, 100, 100
+    rng = np.random.default_rng(seed)
+    for k in range(4):
+        at = int(rng.integers(n // 5, 4 * n // 5))
+        door = int(rng.integers(n // 8, n - n // 8 - 40))
+        wall = np.ones(n, bool)
+        wall[door:door + 40] = False
+        if k % 2:
+            data[at:at + 2, wall] = 100
+        else:
+            data[wall, at:at + 2] = 100
+    for _ in range(max(1, int(size_m * size_m / 75))):
+        r, c = rng.integers(10, n - 18, 2)
+        data[r:r + 8, c:c + 8] = 100
+    return OccupancyGrid(MapInfo(resolution=FLOOR_RES, width=n, height=n, origin_x=0.0,
+                                 origin_y=0.0), data)
+
+
+def floor_objects(grid, n_objects: int, seed: int):
+    """``n_objects`` people-sized movers on the free floor of ``grid``,
+    placed from ``seed``: at least 0.9 m apart (0.4 m between their 0.25 m
+    disks) and 0.5 m from any occupied cell, walking one way at 0.35-0.45
+    m/s (a crowd through a concourse: neighbours keep their distance over
+    the frames)."""
+    import numpy as np
+
+    from multiple_object_tracking_lidar_tpu_torch.io.scenario import ScenarioObject
+
+    info = grid.info
+    occ = np.argwhere(grid.data > 50)
+    occ_xy = np.stack([(occ[:, 1] + 0.5) * info.resolution + info.origin_x,
+                       (occ[:, 0] + 0.5) * info.resolution + info.origin_y], 1)
+    size = (info.width * info.resolution, info.height * info.resolution)
+    rng = np.random.default_rng(seed)
+    placed: list = []
+    while len(placed) < n_objects:
+        p = rng.uniform([0.5, 0.5], [size[0] - 0.5, size[1] - 0.5])
+        if placed and np.min(np.hypot(*(np.asarray(placed) - p).T)) < 0.9:
+            continue
+        if np.min(np.hypot(*(occ_xy - p).T)) < 0.5:
+            continue
+        placed.append(p)
+    speed = rng.uniform(0.35, 0.45, n_objects)
+    heading = 0.3 + rng.uniform(-0.05, 0.05, n_objects)
+    return [ScenarioObject(float(x), float(y), float(v * np.cos(h)), float(v * np.sin(h)))
+            for (x, y), v, h in zip(placed, speed, heading)]
+
+
+def floor_case(device="cpu", size_m: float = FLOOR_M, n_objects: int = 150,
+               n_valid: int = 120_000, n_points: int = 131_072, clutter: int = 1_500,
+               c_max: int = 256, k_max: int = 64):
+    """(cfg, env, scenario) of one floor: ``bench_config()`` at the JAX
+    default leaf (0.05 m, z-leaf 1.0 m) over ``floor_map``'s ``size_m``
+    floor through ``SceneBounds.from_map`` (margin 0.25 m, z 0-2 m) -- a
+    611 x 611 x 3 grid (``grid_shape``'s floor indexing; the scene's own
+    ``grid_dims`` says 610 x 610 x 2) of 1,119,963 cells at 30 m, past K1's
+    232,320-cell layouts and K2's 454,656 cells, so the digit sums run wide
+    and the CC is K14 -- with
+    ``n_objects`` movers (``floor_objects``), ``clutter`` sparse free-space
+    returns, wall returns up to ``n_valid`` points in frames of
+    ``n_points`` (``n_max_points``), ``c_max_clusters = c_max`` (D past 128)
+    and ``k_max_tracks = k_max`` (the node grows it)."""
+    from multiple_object_tracking_lidar_tpu_torch.io.scenario import Scenario
+    from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import build_static_mask
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import grid_shape
+
+    grid = floor_map(FLOOR_SEED, size_m)
+    info = grid.info
+    cfg = bench_config()
+    cfg = cfg.replace(
+        voxel_leaf_size=0.05,
+        scene=SceneBounds.from_map(info.width, info.height, info.resolution, info.origin_x,
+                                   info.origin_y),
+        caps=dataclasses.replace(cfg.caps, n_max_points=n_points, c_max_clusters=c_max,
+                                 k_max_tracks=k_max),
+    )
+    if size_m == FLOOR_M:
+        gx, gy, gz = grid_shape(cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+        assert gx * gy * gz == FLOOR_CELLS, (gx, gy, gz)
+    objs = floor_objects(grid, n_objects, FLOOR_SEED + 1)
+    sc = Scenario(
+        grid=grid,
+        objects=objs,
+        static_points_per_frame=n_valid - sum(o.points_per_frame for o in objs) - clutter,
+        clutter_points=clutter,
+        clutter_bounds=(0.0, info.width * info.resolution, 0.0, info.height * info.resolution),
+        seed=FLOOR_SEED + 2,
+    )
+    env = build_static_mask(grid, cfg.static_tolarance, cfg.occupied_threshold, device=device)
+    return cfg, env, sc
+
+
+FLOOR_GOLDEN_M = 16.0   # the goldens' cut floor: 331 x 331 x 3 = 328,683 cells
+FLOOR_GOLDEN_FRAMES = 8
+
+
+def floor_golden_case(device="cpu"):
+    """The floor the JAX goldens are made on (tests/golden/torch_floor_*.npz):
+    ``floor_case`` at ``FLOOR_GOLDEN_M`` with ``grid_cc="jnp"`` -- still
+    past K1's 232,320 cells and on K14 as the full floor, its JAX stencil
+    CC's pointer jump ((cells, gy * gz) one-hot products) small enough for
+    the JAX package on a CPU."""
+    cfg, env, sc = floor_case(device, size_m=FLOOR_GOLDEN_M)
+    return cfg.replace(grid_cc="jnp"), env, sc
+
+
+def floor_map_hash(grid) -> str:
+    """The sha256 of a floor map's occupancy bytes and geometry (each floor
+    golden stores its map's)."""
+    import hashlib
+
+    i = grid.info
+    h = hashlib.sha256(repr((i.resolution, i.width, i.height, i.origin_x, i.origin_y)).encode())
+    h.update(grid.data.tobytes())
+    return h.hexdigest()
+
+
+# tests/golden/torch_track_wide.npz's cases: (K, D, association, dtype) past
+# K4's narrow builds, and their window length
+TRACK_WIDE = [(k, d, a, dt) for k, d in ((2048, 32), (64, 256))
+              for a in ("greedy", "hungarian") for dt in ("float32", "float64")]
+TRACK_WIDE_L = 10
+
+
+def track_wide_inputs(k: int, d: int, assoc: str, dtype: str):
+    """Seeded inputs of a track_wide case: (bank fields, scalars, frames of
+    (dets (d, 4), valid (d,), t)), numpy, built as tests/test_torch_faults.py
+    builds F1's: some slots alive with a full window, every alive track
+    seen in each frame (the last one twice, invalid lanes between where D is
+    wide), new objects registering in the lowest free slots; three frames,
+    one under hungarian at K > 1,024 (every phase of its auction runs to
+    the cap)."""
+    import numpy as np
+
+    rng = np.random.default_rng(k * 7 + d)
+    L = TRACK_WIDE_L
+    dt = np.dtype(dtype)
+    live = np.sort(rng.permutation(k)[: min(k // 2, d // 4)])
+    xy = rng.uniform(-30, 30, (k, 2))
+    window = np.zeros((k, L, 4), dt)
+    for j in range(L):
+        window[:, j, :2] = xy + 0.03 * j
+        window[:, j, 3] = 1.0 - (L - 1 - j) * 0.1
+    alive = np.zeros(k, bool)
+    alive[live] = True
+    birth = np.full(k, 2**30, np.int32)
+    birth[live] = rng.permutation(len(live))
+    bank = dict(alive=alive, obj_id=np.where(alive, np.arange(k) + 5, -1).astype(np.int32),
+                birth_seq=birth, window=window,
+                m0=rng.normal(0, 0.05, (k, 2, 2)).astype(dt))
+    scal = dict(next_obj_num=np.int32(k + 5), next_birth=np.int32(len(live)),
+                spin_counter=np.int32(0), initialized=np.bool_(True))
+    frames = []
+    for f in range(3):
+        t = dt.type(1.1 + 0.1 * f)
+        dets = rng.uniform(-30, 30, (d, 4)).astype(dt)
+        valid = np.zeros(d, bool)
+        lane = 0
+        for s in live:
+            for _ in range(2 if s == live[-1] else 1):
+                if lane >= d:
+                    break
+                dets[lane] = [window[s, -1, 0] + 0.02 * (f + 1), window[s, -1, 1], 0.0, t]
+                valid[lane] = True
+                lane += 3 if d > 64 else 1
+        for q in range(max(0, min(d - lane, 8))):
+            dets[lane] = [40.0 + q, 40.0 + 10.0 * f, 0.0, t]
+            valid[lane] = True
+            lane += 1
+        frames.append((dets, valid, t))
+    return bank, scal, frames[:1] if assoc == "hungarian" and k > 1024 else frames
+
+
 def track_scene(seed, cfg, K, D, B, S, fresh=(), dev="cpu", gated=False):
     """K4's inputs for B banks x S frames: (state, dets (B, S, D, 4), valid
     (B, S, D), t (B, S)).  Each bank starts with half its K slots alive

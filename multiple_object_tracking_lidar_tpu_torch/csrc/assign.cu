@@ -70,8 +70,8 @@
 // "smallest birth_seq among gated", "lowest free slot", "bank full"), done
 // with warp shuffles plus one shared-memory exchange across the warps.
 // Bounds: K <= 1,024 (one lane per slot, the largest CTA), D <= 128 (the
-// shared detection buffer); past them the track step takes its plain
-// route (tracker/pipeline.py).  The Hungarian builds' static shared memory
+// shared detection buffer); past them K4 xl (below) runs the same step.
+// The Hungarian builds' static shared memory
 // (the auction's columns and lists, each slot's last x / y, the free-slot
 // table) is ~48 KB at 1,024 lanes, at the static limit; their launch opts
 // in to the dynamic shared memory (the smoother weights) past it.  Built for CTAs of up to 128 and of up to
@@ -88,6 +88,20 @@
 // (ops/track_cuda.py), so the two agree bit for bit.  The distance uses
 // IEEE sqrtf; the gap roundings use rintf (round half to even, as
 // torch.round); int64 -> f32 conversions round to nearest.
+//
+// K4 xl (motl_track_step_xl, _xl_f64; track_step_xl_kernel): the same
+// step at any K and D, every instantiation K4 has (greedy and Hungarian,
+// lpf and ihgp, f32 and f64).  One CTA of up to 1,024 threads per bank, lane
+// t owning slots t, t + blockDim.x, ...; the slots' summaries, the
+// detections' flags and decisions in device memory (a scratch the wrapper
+// allocates), the Hungarian tables sized for n = D + K columns at run time
+// (shared memory while they fit).  Each reduction reduces a lane's own
+// slots in ascending order before K4's warp and block reduction, and the
+// per-slot code is K4's (slot_step), so its results are K4's bit for bit
+// where both run.  What bounds it: as K4, latency -- the scan's barriers per
+// detection, and under hungarian the auction's iterations, at least K per
+// phase (3,000 at the cap), each a pass over n columns on one warp.  The
+// narrow builds stay as they are for the sizes they hold.
 //
 // Double builds (motl_track_step_f64, dtype="float64"): the same kernel
 // templated on the float type T of the detections, windows, carries and
@@ -158,8 +172,19 @@ __device__ __forceinline__ int last_valid_bound(const int* s_dv, int D) {
   return bound;
 }
 
+// The per-detection decisions of K4 xl, in device memory (D entries each):
+// indexed as Decisions's arrays.
+struct DecisionsXl {
+  int* slot;
+  int* id;
+  int* is_new;
+  int* ok;
+  int* interp;
+};
+
 // Decision defaults for every detection: slot 0, id -1, flags off.
-__device__ __forceinline__ void decision_defaults(Decisions& r, int D) {
+template <class R>
+__device__ __forceinline__ void decision_defaults(R& r, int D) {
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     r.slot[d] = 0;
     r.id[d] = -1;
@@ -532,9 +557,9 @@ __device__ __forceinline__ void i2f(long long v, double& out) { out = __ll2doubl
 // Lane k's window row after this frame's decisions, in place: the first
 // detection's interpolation backfill or registration fill, then the pushes
 // in arrival order (ops/assign.py::apply_window_updates, _interp_backfill).
-template <class T>
-__device__ void update_window(V4<T>* w, int L, const T* s_det, const Decisions& r,
-                              int D, int k, T dt) {
+template <class T, class R>
+__device__ void update_window(V4<T>* w, int L, const T* s_det, const R& r, int D, int k,
+                              T dt) {
   int mult = 0, first = -1;
   for (int d = 0; d < D; ++d) {
     if (r.ok[d] && r.slot[d] == k) {
@@ -597,6 +622,186 @@ __device__ void update_window(V4<T>* w, int L, const T* s_det, const Decisions& 
       w[row] = V4<T>{s_det[4 * d], s_det[4 * d + 1], s_det[4 * d + 2], s_det[4 * d + 3]};
     ++j;
   }
+}
+
+// The smoother weights in dynamic shared memory: W_vel's wy_last (2, L-1),
+// wm_last (2, 2), my (2, 2, L-1), mm (2, 2, 2); then under ihgp W_pos's
+// wy_last (2, L), wm_last (2, 2), my (2, 2, L), mm (2, 2, 2).
+template <class T>
+struct Weights {
+  const T *wy, *wm, *my, *mm, *pwy, *pwm, *pmy, *pmm;
+};
+
+// Every thread of the CTA copies its share of the weights into s_w.
+template <class T, bool kIhgp>
+__device__ __forceinline__ Weights<T> load_weights(const TrackArgs<T>& a, T* s_w) {
+  const int k = threadIdx.x;
+  const int L = a.L, L1 = L - 1;
+  T* wy = s_w;
+  T* wm = wy + 2 * L1;
+  T* my = wm + 4;
+  T* mm = my + 4 * L1;
+  for (int i = k; i < 2 * L1; i += blockDim.x) {
+    const int ax = i / L1, l = i % L1;
+    wy[i] = a.wy[((size_t)ax * L1 + (L1 - 1)) * L1 + l];
+  }
+  for (int i = k; i < 4; i += blockDim.x) wm[i] = a.wm[((i >> 1) * L1 + (L1 - 1)) * 2 + (i & 1)];
+  for (int i = k; i < 4 * L1; i += blockDim.x) my[i] = a.my[i];
+  for (int i = k; i < 8; i += blockDim.x) mm[i] = a.mm[i];
+  T* pwy = mm + 8;
+  T* pwm = pwy + 2 * L;
+  T* pmy = pwm + 4;
+  T* pmm = pmy + 4 * L;
+  if constexpr (kIhgp) {
+    for (int i = k; i < 2 * L; i += blockDim.x) {
+      const int ax = i / L, l = i % L;
+      pwy[i] = a.pwy[((size_t)ax * L + (L - 1)) * L + l];
+    }
+    for (int i = k; i < 4; i += blockDim.x)
+      pwm[i] = a.pwm[((i >> 1) * L + (L - 1)) * 2 + (i & 1)];
+    for (int i = k; i < 4 * L; i += blockDim.x) pmy[i] = a.pmy[i];
+    for (int i = k; i < 8; i += blockDim.x) pmm[i] = a.pmm[i];
+  }
+  return {wy, wm, my, mm, pwy, pwm, pmy, pmm};
+}
+
+// Slot k's step after the frame's decisions (r) and active flags (act):
+// its window row updated in place, its GP carry m zeroed on registration,
+// then the chained passes its detections ask for, each writing the
+// detection's pos / vel of frame fs -- K4's per-slot code (track_step_kernel
+// below), for K4 xl.  K4's narrow builds keep their own copy: calling this
+// from them cost 2.1% of their device time (63.88 -> 65.23 us at the
+// headline, in turns with the parent).
+template <class T, bool kIhgp, class R>
+__device__ __forceinline__ void slot_step(const TrackArgs<T>& a, const Weights<T>& wt, V4<T>* w,
+                                          T (&m)[2][2], int k, const T* s_det, const R& r,
+                                          const int* act, size_t fs) {
+  const int D = a.D, L = a.L, L1 = L - 1;
+  update_window(w, L, s_det, r, D, k, a.dt);
+  // a registration zeroes the slot's GP carry (the ctor, cpp:45)
+  for (int d = 0; d < D; ++d) {
+    if (r.is_new[d] && r.slot[d] == k) {
+      m[0][0] = m[0][1] = m[1][0] = m[1][1] = T(0);
+    }
+  }
+  int mult = 0;
+  for (int d = 0; d < D; ++d) mult += (act[d] && r.slot[d] == k) ? 1 : 0;
+  if (mult == 0) return;
+  const T *wy = wt.wy, *wm = wt.wm, *my = wt.my, *mm = wt.mm;
+  // velocity window, its mean, the y-parts of the smoother sums and the
+  // LPF position: once per frame, ascending in the window index (each row
+  // read once per pass, both axes together; unrolled so the row loads
+  // overlap)
+  T vmean[2], ey[2], myv[2][2], sum[2];
+  XY<T> prev = {w[0].x, w[0].y};
+#pragma unroll 8
+  for (int l = 0; l < L1; ++l) {
+    const V4<T> cur = w[l + 1];
+    const T vx = fp::div(fp::sub(cur.x, prev.x), a.dt);
+    const T vy = fp::div(fp::sub(cur.y, prev.y), a.dt);
+    sum[0] = l ? fp::add(sum[0], vx) : vx;
+    sum[1] = l ? fp::add(sum[1], vy) : vy;
+    prev = XY<T>{cur.x, cur.y};
+  }
+  vmean[0] = fp::div(sum[0], (T)L1);
+  vmean[1] = fp::div(sum[1], (T)L1);
+  prev = XY<T>{w[0].x, w[0].y};
+#pragma unroll 8
+  for (int l = 0; l < L1; ++l) {
+    const V4<T> cur = w[l + 1];
+    const T yv[2] = {
+        fp::sub(fp::div(fp::sub(cur.x, prev.x), a.dt), vmean[0]),
+        fp::sub(fp::div(fp::sub(cur.y, prev.y), a.dt), vmean[1])};
+    prev = XY<T>{cur.x, cur.y};
+#pragma unroll
+    for (int ax = 0; ax < 2; ++ax) {
+      const T e = fp::mul(yv[ax], wy[ax * L1 + l]);
+      const T c0 = fp::mul(yv[ax], my[(ax * 2 + 0) * L1 + l]);
+      const T c1 = fp::mul(yv[ax], my[(ax * 2 + 1) * L1 + l]);
+      ey[ax] = l ? fp::add(ey[ax], e) : e;
+      myv[ax][0] = l ? fp::add(myv[ax][0], c0) : c0;
+      myv[ax][1] = l ? fp::add(myv[ax][1], c1) : c1;
+    }
+  }
+  // the position: LPF once per frame, or under ihgp the y-parts of the
+  // position smoother (pmean = the last row's xy, y_l = row l's xy less
+  // pmean), ascending in l, and a position pass per pass
+  T pos[2], pmean[2], eyp[2], myp[2][2];
+  if constexpr (kIhgp) {
+    const T *pwy = wt.pwy, *pmy = wt.pmy;
+    pmean[0] = w[L - 1].x;
+    pmean[1] = w[L - 1].y;
+#pragma unroll 8
+    for (int l = 0; l < L; ++l) {
+      const V4<T> cur = w[l];
+      const T yv[2] = {fp::sub(cur.x, pmean[0]), fp::sub(cur.y, pmean[1])};
+#pragma unroll
+      for (int ax = 0; ax < 2; ++ax) {
+        const T e = fp::mul(yv[ax], pwy[ax * L + l]);
+        const T c0 = fp::mul(yv[ax], pmy[(ax * 2 + 0) * L + l]);
+        const T c1 = fp::mul(yv[ax], pmy[(ax * 2 + 1) * L + l]);
+        eyp[ax] = l ? fp::add(eyp[ax], e) : e;
+        myp[ax][0] = l ? fp::add(myp[ax][0], c0) : c0;
+        myp[ax][1] = l ? fp::add(myp[ax][1], c1) : c1;
+      }
+    }
+  } else {
+    pos[0] = fp::add(fp::mul(a.lpf_a, w[L - 2].x), fp::mul(a.lpf_b, w[L - 1].x));
+    pos[1] = fp::add(fp::mul(a.lpf_a, w[L - 2].y), fp::mul(a.lpf_b, w[L - 1].y));
+  }
+  // chained passes, run as detections ask for them: detection d reads pass
+  // ordinal[d] = (updates of slot k at or before d) - 1
+  T vel[2] = {T(0), T(0)};
+  int done = 0, cnt = 0;
+  for (int d = 0; d < D; ++d) {
+    if (r.slot[d] != k) continue;
+    cnt += act[d];
+    if (cnt == 0) continue;
+    while (done < cnt) {
+      T mn[2][2];
+      if constexpr (kIhgp) {  // the position pass; the velocity pass chains on its carry
+        const T *pwm = wt.pwm, *pmm = wt.pmm;
+        for (int ax = 0; ax < 2; ++ax) {
+          const T em = fp::add(fp::mul(m[ax][0], pwm[2 * ax]), fp::mul(m[ax][1], pwm[2 * ax + 1]));
+          pos[ax] = fp::add(fp::add(eyp[ax], em), pmean[ax]);
+          for (int tt = 0; tt < 2; ++tt) {
+            mn[ax][tt] = fp::add(myp[ax][tt], fp::add(fp::mul(m[ax][0], pmm[(ax * 2 + tt) * 2]),
+                                                      fp::mul(m[ax][1], pmm[(ax * 2 + tt) * 2 + 1])));
+          }
+        }
+        for (int q = 0; q < 4; ++q) m[q >> 1][q & 1] = mn[q >> 1][q & 1];
+      }
+      for (int ax = 0; ax < 2; ++ax) {
+        const T em = fp::add(fp::mul(m[ax][0], wm[2 * ax]), fp::mul(m[ax][1], wm[2 * ax + 1]));
+        T v = fp::add(fp::add(ey[ax], em), vmean[ax]);
+        // clamp, NaN-preserving like the C++ if-chain (cpp:649-654)
+        v = v > a.vmax ? a.vmax : (v < -a.vmax ? -a.vmax : v);
+        vel[ax] = v;
+        for (int tt = 0; tt < 2; ++tt) {
+          mn[ax][tt] = fp::add(myv[ax][tt], fp::add(fp::mul(m[ax][0], mm[(ax * 2 + tt) * 2]),
+                                                    fp::mul(m[ax][1], mm[(ax * 2 + tt) * 2 + 1])));
+        }
+      }
+      for (int q = 0; q < 4; ++q) m[q >> 1][q & 1] = mn[q >> 1][q & 1];
+      ++done;
+    }
+    a.pos[2 * (fs * D + d)] = pos[0];
+    a.pos[2 * (fs * D + d) + 1] = pos[1];
+    a.vel[2 * (fs * D + d)] = vel[0];
+    a.vel[2 * (fs * D + d) + 1] = vel[1];
+  }
+}
+
+// A frame's pos / vel defaults: det * 0 (NaN-preserving), for detections no
+// pass reads.
+template <class T>
+__device__ __forceinline__ void pos_vel_defaults(const TrackArgs<T>& a, const T* dets, size_t fs,
+                                                 int d) {
+  const T zx = fp::mul(dets[4 * d], T(0)), zy = fp::mul(dets[4 * d + 1], T(0));
+  a.pos[2 * (fs * a.D + d)] = zx;
+  a.pos[2 * (fs * a.D + d) + 1] = zy;
+  a.vel[2 * (fs * a.D + d)] = zx;
+  a.vel[2 * (fs * a.D + d) + 1] = zy;
 }
 
 template <class T, int kLanes, bool kIhgp, bool kAuction>
@@ -860,6 +1065,467 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs<T> a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4 xl: the track step past one CTA's lanes (K > 1,024 slots) or the shared
+// detection buffer (D > 128)
+// ---------------------------------------------------------------------------
+// One CTA of up to 1,024 threads per bank, as K4, but lane t owns slots t,
+// t + blockDim.x, t + 2 blockDim.x, ...: each slot's summary (last x / y /
+// t, alive, id, birth_seq) sits in device memory indexed by slot, its GP
+// carry in m0_out, its window row in win_out (as K4), and the frame's
+// detection flags and decisions in device memory too (the detections are
+// read where they lie).  Every block-wide reduction first reduces a lane's
+// own slots in ascending slot order, then runs K4's warp and block
+// reduction, so every decision is K4's; every sum is the same ascending
+// loop (slot_step).  Under hungarian the auction's tables are sized for n =
+// D + K columns at run time (AuctionTables), in dynamic shared memory after
+// the weights while they fit, else in the bank's device-memory scratch; the
+// cost is rebuilt as in K4, never stored.  The scratch is the wrapper's
+// (xl_layout bytes per bank); nothing in it needs zeroing.
+
+constexpr size_t kSmemBytes = 232448;  // what one H100 block may use (227 KB)
+constexpr size_t kXlStaticSmem = 2048;  // the xl kernel's static shared arrays, rounded up
+
+// Byte offsets of K4 xl's per-bank scratch.  Per slot: lx, ly, lt (T), alive,
+// oid, birth (int).  Per detection: the five decisions, the active flags,
+// the valid flags (int).  Under hungarian the tables follow, from `tables`
+// (in the scratch, or at the start of the shared memory after the weights
+// when tables_smem): each slot's last x / y, the free slots by rank, the
+// registered detections by rank, three counters, and the auction's.
+struct XlLayout {
+  size_t lx, ly, lt, alive, oid, birth;
+  size_t dslot, did, dnew, dok, dinterp, dact, ddv;
+  size_t tables;  // the tables' offset in the scratch (unused when tables_smem)
+  size_t last, free_slot, reg_det, misc, price, owner, row_col, key, bid_col, bid_row, feas_n,
+      feas_col, feas_val, bid_val, krow;  // from the tables' base
+  size_t table_bytes;
+  size_t bank;  // the scratch's bytes per bank
+  int tables_smem;
+};
+
+__host__ __device__ inline size_t xl_take(size_t& off, size_t bytes) {
+  const size_t o = off;
+  off += (bytes + 15) & ~(size_t)15;
+  return o;
+}
+
+__host__ __device__ inline XlLayout xl_layout(int K, int D, size_t tsize, bool auction,
+                                              size_t smem_free) {
+  XlLayout y{};
+  size_t off = 0;
+  y.lx = xl_take(off, K * tsize);
+  y.ly = xl_take(off, K * tsize);
+  y.lt = xl_take(off, K * tsize);
+  y.alive = xl_take(off, K * sizeof(int));
+  y.oid = xl_take(off, K * sizeof(int));
+  y.birth = xl_take(off, K * sizeof(int));
+  y.dslot = xl_take(off, D * sizeof(int));
+  y.did = xl_take(off, D * sizeof(int));
+  y.dnew = xl_take(off, D * sizeof(int));
+  y.dok = xl_take(off, D * sizeof(int));
+  y.dinterp = xl_take(off, D * sizeof(int));
+  y.dact = xl_take(off, D * sizeof(int));
+  y.ddv = xl_take(off, D * sizeof(int));
+  if (auction) {
+    const size_t n = (size_t)D + K;
+    size_t t = 0;
+    y.last = xl_take(t, K * 2 * tsize);
+    y.free_slot = xl_take(t, K * sizeof(int));
+    y.reg_det = xl_take(t, D * sizeof(int));
+    y.misc = xl_take(t, 4 * sizeof(int));
+    y.price = xl_take(t, n * tsize);
+    y.owner = xl_take(t, n * sizeof(int));
+    y.row_col = xl_take(t, n * sizeof(int));
+    y.key = xl_take(t, n * sizeof(unsigned long long));
+    y.bid_col = xl_take(t, (D + 1) * sizeof(int));
+    y.bid_row = xl_take(t, (D + 1) * sizeof(int));
+    y.feas_n = xl_take(t, D * sizeof(int));
+    y.feas_col = xl_take(t, (size_t)D * motl_auction::kMaxFeas * sizeof(int));
+    y.feas_val = xl_take(t, (size_t)D * motl_auction::kMaxFeas * tsize);
+    y.bid_val = xl_take(t, tsize == sizeof(double) ? (D + 1) * sizeof(double) : 0);
+    y.krow = xl_take(t, tsize == sizeof(double) ? n * sizeof(int) : 0);
+    y.table_bytes = t;
+    y.tables_smem = t <= smem_free ? 1 : 0;
+    y.tables = y.tables_smem ? 0 : xl_take(off, t);
+  }
+  y.bank = off;
+  return y;
+}
+
+// A slot's summary in device memory, indexed by slot.
+template <class T>
+struct SlotsXl {
+  T *lx, *ly, *lt;
+  int *alive, *oid, *birth;
+};
+
+// The Hungarian tables of one bank.
+template <class T>
+struct HungarianXl {
+  motl_auction::AuctionTables<T> auc;
+  motl_auction::WideTables wide;
+  XY<T>* last;
+  int* free_slot;
+  int* reg_det;
+  int* misc;  // [0] saturated phases, [1] detections that want a slot
+};
+
+template <class T>
+__device__ HungarianXl<T> hungarian_tables(unsigned char* base, const XlLayout& y) {
+  using Row = int[motl_auction::kMaxFeas];
+  using RowT = T[motl_auction::kMaxFeas];
+  HungarianXl<T> h;
+  h.auc = {reinterpret_cast<T*>(base + y.price), reinterpret_cast<int*>(base + y.owner),
+           reinterpret_cast<int*>(base + y.row_col),
+           reinterpret_cast<unsigned long long*>(base + y.key),
+           reinterpret_cast<int*>(base + y.bid_col), reinterpret_cast<int*>(base + y.bid_row),
+           reinterpret_cast<int*>(base + y.feas_n), reinterpret_cast<Row*>(base + y.feas_col),
+           reinterpret_cast<RowT*>(base + y.feas_val)};
+  h.wide = {reinterpret_cast<double*>(base + y.bid_val), reinterpret_cast<int*>(base + y.krow)};
+  h.last = reinterpret_cast<XY<T>*>(base + y.last);
+  h.free_slot = reinterpret_cast<int*>(base + y.free_slot);
+  h.reg_det = reinterpret_cast<int*>(base + y.reg_det);
+  h.misc = reinterpret_cast<int*>(base + y.misc);
+  return h;
+}
+
+// K4's block reduction of the four scan values, after each lane reduced its
+// own slots: warp shuffles, then the warps' values through sc.red[buf].
+template <class T>
+__device__ __forceinline__ void scan_reduce(int& any, int& bmin, int& fmin, int& full,
+                                            ScanScratch<T, kMaxLanes>& sc, int buf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) {
+    any |= __shfl_xor_sync(0xffffffffu, any, o);
+    bmin = min(bmin, __shfl_xor_sync(0xffffffffu, bmin, o));
+    fmin = min(fmin, __shfl_xor_sync(0xffffffffu, fmin, o));
+    full &= __shfl_xor_sync(0xffffffffu, full, o);
+  }
+  if (lane == 0) {
+    sc.red[buf][0][warp] = any;
+    sc.red[buf][1][warp] = bmin;
+    sc.red[buf][2][warp] = fmin;
+    sc.red[buf][3][warp] = full;
+  }
+  __syncthreads();
+  any = 0, bmin = kBig, fmin = kBig, full = 1;
+  for (int w = 0; w < n_warps; ++w) {
+    any |= sc.red[buf][0][w];
+    bmin = min(bmin, sc.red[buf][1][w]);
+    fmin = min(fmin, sc.red[buf][2][w]);
+    full &= sc.red[buf][3][w];
+  }
+}
+
+// decide over a lane's several slots: the same decisions, one detection at
+// a time.  The selected slot's summary is written by the lane that owns it.
+template <class T>
+__device__ void decide_xl(const T* det, const int* dv, int bound, bool allow, T thr, T gapthr,
+                          T dt, int K, const SlotsXl<T>& st, int& nobj, int& nbirth, int& ovf,
+                          ScanScratch<T, kMaxLanes>& sc, const DecisionsXl& r) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int j = 0; j < bound; ++j) {
+    const T d0 = det[4 * j], d1 = det[4 * j + 1], d3 = det[4 * j + 3];
+    const bool valid = dv[j] != 0;
+    // this lane's slots, ascending: its gated slot of least birth_seq, its
+    // lowest free slot, whether all its slots are alive
+    int my_any = 0, my_bmin = kBig, my_b = -1, my_fmin = kBig, my_full = 1;
+    for (int k = tid; k < K; k += nt) {
+      const bool is_alive = st.alive[k] > 0;
+      const T dx = fp::sub(d0, st.lx[k]), dy = fp::sub(d1, st.ly[k]);
+      const T dist = fp::sqrt(fp::add(fp::mul(dx, dx), fp::mul(dy, dy)));
+      const bool gate = is_alive && dist < thr && allow;
+      if (gate) {
+        my_any = 1;
+        if (st.birth[k] < my_bmin) {
+          my_bmin = st.birth[k];
+          my_b = k;
+        }
+      }
+      if (!is_alive && my_fmin == kBig) my_fmin = k;
+      my_full &= is_alive ? 1 : 0;
+    }
+    const int buf = j & 1;
+    if (tid == 0) {  // defaults for "no slot selected" (full bank, no match)
+      sc.sel[buf].slot = 0;
+      sc.sel[buf].t = T(0);
+      sc.sel[buf].id = 0;
+    }
+    int any = my_any, bmin = my_bmin, fmin = my_fmin, full = my_full;
+    scan_reduce(any, bmin, fmin, full, sc, buf);
+    const bool am = any != 0;
+    const bool bank_full = full != 0;
+    // the selected slot is unique: min birth_seq among gated, else the
+    // first free slot
+    const int sel = am ? (my_b >= 0 && my_bmin == bmin ? my_b : -1)
+                       : (fmin < kBig && my_fmin == fmin ? fmin : -1);
+    if (sel >= 0) {
+      sc.sel[buf].slot = sel;
+      sc.sel[buf].t = st.lt[sel];
+      sc.sel[buf].id = st.oid[sel];
+    }
+    __syncthreads();
+    const int sel_slot = sc.sel[buf].slot;
+    const T t_slot = sc.sel[buf].t;
+    const int id_slot = sc.sel[buf].id;
+    const T gap = fp::sub(d3, t_slot);
+    const bool do_interp =
+        am && gap > gapthr && fp::sub(fp::rint(fp::div(gap, dt)), T(1)) >= T(1);
+    const bool reg = valid && !am && !bank_full;
+    const bool matched = valid && am;
+    const bool write = matched || reg;
+    if (sel >= 0 && write) {
+      st.lx[sel] = d0;
+      st.ly[sel] = d1;
+      st.lt[sel] = d3;
+    }
+    if (sel >= 0 && reg) {
+      st.alive[sel] = 1;
+      st.oid[sel] = nobj;
+      st.birth[sel] = nbirth;
+    }
+    if (tid == 0) {
+      r.slot[j] = sel_slot;
+      r.id[j] = matched ? id_slot : (reg ? nobj : -1);
+      r.is_new[j] = reg ? 1 : 0;
+      r.ok[j] = write ? 1 : 0;
+      r.interp[j] = (do_interp && write) ? 1 : 0;
+    }
+    nobj += reg ? 1 : 0;
+    nbirth += reg ? 1 : 0;
+    ovf += (valid && !am && bank_full) ? 1 : 0;
+  }
+  __syncthreads();
+}
+
+// hungarian_decide over a lane's several slots: the auction on tables sized
+// for n = D + K, the matches by each slot's owner, the free slots ranked in
+// slot order one round of blockDim.x slots at a time, the registrations by
+// rank.  Ends with a barrier; nobj, nbirth, ovf and sat come out the same in
+// every thread.
+template <class T>
+__device__ void hungarian_decide_xl(const T* det, const int* dv, bool allow, T thr, T gapthr,
+                                    T dt, int K, int D, const motl_auction::AuctionParams<T>& au,
+                                    const SlotsXl<T>& st, int& nobj, int& nbirth, int& ovf,
+                                    int& sat, int* s_wcount, HungarianXl<T>& h,
+                                    const DecisionsXl& r) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int n_warps = nt >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  for (int k = tid; k < K; k += nt) {
+    const T nan = T(NAN);
+    h.last[k] = st.alive[k] ? XY<T>{st.lx[k], st.ly[k]} : XY<T>{nan, nan};
+  }
+  __syncthreads();
+  const TrackValue<T> value{det, dv, h.last, allow, thr, au.neg};
+  motl_auction::auction_lists(value, D, K, au.neg, h.auc, warp, n_warps);
+  __syncthreads();
+  if (warp == 0) {
+    motl_auction::WideTables* wk = nullptr;
+    if constexpr (sizeof(T) == sizeof(double)) wk = &h.wide;
+    const int s = motl_auction::auction_warp(value, D, K, au, h.auc, wk, nullptr);
+    if (lane == 0) h.misc[0] = s;
+  }
+  __syncthreads();
+  sat = h.misc[0];
+  // a match: the detection owning real column k, with the pre-frame slot's
+  // id and last t (the interpolation test)
+  for (int k = tid; k < K; k += nt) {
+    const int own = h.auc.owner[k];
+    if (own >= 0 && own < D) {
+      const T t_det = det[4 * own + 3];
+      const T gap = fp::sub(t_det, st.lt[k]);
+      r.slot[own] = k;
+      r.id[own] = st.oid[k];
+      r.ok[own] = 1;
+      r.interp[own] =
+          (gap > gapthr && fp::sub(fp::rint(fp::div(gap, dt)), T(1)) >= T(1)) ? 1 : 0;
+      st.lx[k] = det[4 * own];
+      st.ly[k] = det[4 * own + 1];
+      st.lt[k] = t_det;
+    }
+  }
+  // the free slots' ranks (slot order), one round of nt slots at a time
+  int n_free = 0;
+  for (int k0 = 0; k0 < K; k0 += nt) {
+    const int k = k0 + tid;
+    const bool free_k = k < K && !st.alive[k];
+    const unsigned fb = __ballot_sync(kFull, free_k);
+    if (lane == 0) s_wcount[warp] = __popc(fb);
+    __syncthreads();
+    int rank = n_free + __popc(fb & below), tot = 0;
+    for (int w = 0; w < n_warps; ++w) {
+      const int c = s_wcount[w];
+      rank += w < warp ? c : 0;
+      tot += c;
+    }
+    if (free_k) h.free_slot[rank] = k;
+    n_free += tot;
+    __syncthreads();  // s_wcount is rewritten by the next round
+  }
+  // registrations: the unmatched valid detections, in order, take the free
+  // slots by rank
+  if (warp == 0) {
+    int cnt = 0;
+    for (int base = 0; base < D; base += 32) {
+      const int d = base + lane;
+      const int col = d < D ? h.auc.row_col[d] : -1;
+      const bool want = d < D && dv[d] && !(col >= 0 && col < K);
+      const unsigned wb = __ballot_sync(kFull, want);
+      const int q = cnt + __popc(wb & below);
+      if (want && q < n_free) {
+        r.slot[d] = h.free_slot[q];
+        r.id[d] = nobj + q;
+        r.is_new[d] = 1;
+        r.ok[d] = 1;
+        h.reg_det[q] = d;
+      }
+      cnt += __popc(wb);
+    }
+    if (lane == 0) h.misc[1] = cnt;
+  }
+  __syncthreads();
+  const int n_want = h.misc[1], n_reg = min(n_want, n_free);
+  for (int q = tid; q < n_reg; q += nt) {
+    const int k = h.free_slot[q], d = h.reg_det[q];
+    st.alive[k] = 1;
+    st.oid[k] = nobj + q;
+    st.birth[k] = nbirth + q;
+    st.lx[k] = det[4 * d];
+    st.ly[k] = det[4 * d + 1];
+    st.lt[k] = det[4 * d + 3];
+  }
+  nobj += n_reg;
+  nbirth += n_reg;
+  ovf += n_want - n_reg;
+  __syncthreads();
+}
+
+// The block's sum of one int per thread (s_red: a word per warp).
+__device__ __forceinline__ int block_sum(int v, int* s_red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = __reduce_add_sync(kFull, v);
+  if (lane == 0) s_red[warp] = v;
+  __syncthreads();
+  int tot = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) tot += s_red[w];
+  return tot;
+}
+
+template <class T, bool kIhgp, bool kAuction>
+__global__ void __launch_bounds__(kMaxLanes)
+track_step_xl_kernel(TrackArgs<T> a, unsigned char* scratch, XlLayout y) {
+  extern __shared__ __align__(16) unsigned char s_wraw[];
+  __shared__ ScanScratch<T, kMaxLanes> s_sc;
+  __shared__ int s_red[kMaxLanes / 32];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int S = a.S, K = a.K, D = a.D, L = a.L;
+  const Weights<T> wt = load_weights<T, kIhgp>(a, reinterpret_cast<T*>(s_wraw));
+  unsigned char* base = scratch + (size_t)b * y.bank;
+  const SlotsXl<T> st{reinterpret_cast<T*>(base + y.lx), reinterpret_cast<T*>(base + y.ly),
+                      reinterpret_cast<T*>(base + y.lt), reinterpret_cast<int*>(base + y.alive),
+                      reinterpret_cast<int*>(base + y.oid),
+                      reinterpret_cast<int*>(base + y.birth)};
+  const DecisionsXl r{reinterpret_cast<int*>(base + y.dslot), reinterpret_cast<int*>(base + y.did),
+                      reinterpret_cast<int*>(base + y.dnew), reinterpret_cast<int*>(base + y.dok),
+                      reinterpret_cast<int*>(base + y.dinterp)};
+  int* act = reinterpret_cast<int*>(base + y.dact);
+  int* dv = reinterpret_cast<int*>(base + y.ddv);
+  V4<T>* win = reinterpret_cast<V4<T>*>(a.win_out) + (size_t)b * K * L;
+
+  for (int k = tid; k < K; k += nt) {
+    const size_t bk = (size_t)b * K + k;
+    const V4<T>* __restrict__ w_in = reinterpret_cast<const V4<T>*>(a.win_in) + bk * L;
+    V4<T>* w = win + (size_t)k * L;
+    for (int l = 0; l < L; ++l) w[l] = w_in[l];
+    st.lx[k] = w[L - 1].x;
+    st.ly[k] = w[L - 1].y;
+    st.lt[k] = w[L - 1].w;
+    st.alive[k] = a.alive_in[bk] != 0;
+    st.oid[k] = a.oid_in[bk];
+    st.birth[k] = a.birth_in[bk];
+    for (int q = 0; q < 4; ++q) a.m0_out[4 * bk + q] = a.m0_in[4 * bk + q];
+  }
+  int nobj = a.nobj_in[b], nbirth = a.nbirth_in[b], spin = a.spin_in[b];
+  bool init = a.init_in[b] != 0;
+
+  for (int s = 0; s < S; ++s) {
+    const size_t fs = (size_t)b * S + s;
+    const T* dets = a.dets + fs * D * 4;
+    for (int d = tid; d < D; d += nt) {
+      dv[d] = a.dv[fs * D + d] != 0;
+      pos_vel_defaults(a, dets, fs, d);
+    }
+    decision_defaults(r, D);
+    __syncthreads();
+    const int bound = last_valid_bound(dv, D);
+    const bool any_det = bound > 0;
+    const bool steady = init && any_det;
+    int ovf = 0, sat = 0;
+    if constexpr (kAuction) {
+      HungarianXl<T> h = hungarian_tables<T>(
+          y.tables_smem ? s_wraw + weights_smem<T>(L, kIhgp) : base + y.tables, y);
+      hungarian_decide_xl<T>(dets, dv, init, a.thr, a.gapthr, a.dt, K, D, a.au, st, nobj,
+                             nbirth, ovf, sat, s_red, h, r);
+    } else {
+      decide_xl<T>(dets, dv, bound, init, a.thr, a.gapthr, a.dt, K, st, nobj, nbirth, ovf, s_sc,
+                   r);
+    }
+    for (int d = tid; d < D; d += nt) act[d] = (r.ok[d] && steady) ? 1 : 0;
+    __syncthreads();
+
+    for (int k = tid; k < K; k += nt) {
+      const size_t bk = (size_t)b * K + k;
+      T m[2][2];
+      for (int q = 0; q < 4; ++q) m[q >> 1][q & 1] = a.m0_out[4 * bk + q];
+      slot_step<T, kIhgp>(a, wt, win + (size_t)k * L, m, k, dets, r, act, fs);
+      for (int q = 0; q < 4; ++q) a.m0_out[4 * bk + q] = m[q >> 1][q & 1];
+    }
+
+    // expiry (cpp:545-584)
+    spin += steady ? 1 : 0;
+    const bool prune = spin > a.prune_spin && steady;
+    int alive_cnt = 0;
+    for (int k = tid; k < K; k += nt) {
+      if (prune && fp::sub(a.t[fs], win[(size_t)k * L + L - 1].w) > a.prune_period)
+        st.alive[k] = 0;
+      alive_cnt += st.alive[k] ? 1 : 0;
+    }
+    if (prune) spin = 0;
+    const int n_alive = block_sum(alive_cnt, s_red);
+    for (int d = tid; d < D; d += nt) {
+      a.valid[fs * D + d] = (r.ok[d] && steady) ? 1 : 0;
+      a.obj_id[fs * D + d] = r.id[d];
+      a.new_track[fs * D + d] = r.is_new[d] ? 1 : 0;
+    }
+    if (tid == 0) {
+      a.publish[fs] = steady ? 1 : 0;
+      a.counts[4 * fs] = n_alive;
+      a.counts[4 * fs + 1] = ovf;
+      a.counts[4 * fs + 2] = 0;
+      a.counts[4 * fs + 3] = sat;
+    }
+    init = init || any_det;
+    __syncthreads();  // the decisions, flags and s_red are rewritten by the next frame
+  }
+
+  for (int k = tid; k < K; k += nt) {
+    const size_t bk = (size_t)b * K + k;
+    a.alive_out[bk] = st.alive[k] ? 1 : 0;
+    a.oid_out[bk] = st.oid[k];
+    a.birth_out[bk] = st.birth[k];
+  }
+  if (tid == 0) {
+    a.nobj_out[b] = nobj;
+    a.nbirth_out[b] = nbirth;
+    a.spin_out[b] = spin;
+    a.init_out[b] = init ? 1 : 0;
+  }
+}
+
 }  // namespace
 
 // af0 (K, 3) f32 [last_x, last_y, last_t]; ai0 (K, 3) i32 [alive, obj_id,
@@ -923,6 +1589,45 @@ int track_step(TrackArgs<T>& a, const T* auction_f, int ihgp, int auction, int n
   return (int)launch_track_width<T, kMaxLanes>(a, ihgp, auction, B, threads, smem, st);
 }
 
+// K4 xl's layout for a bank of K slots and D detections: the weights'
+// shared memory first, the Hungarian tables after them while they fit.
+template <class T>
+XlLayout xl_layout_for(int K, int D, int L, bool ihgp, bool auction) {
+  const size_t smem = weights_smem<T>(L, ihgp);
+  const size_t room = kSmemBytes - kXlStaticSmem - smem;
+  return xl_layout(K, D, sizeof(T), auction, room);
+}
+
+template <class T, bool kIhgp, bool kAuction>
+cudaError_t launch_track_xl(const TrackArgs<T>& a, int B, unsigned char* scratch,
+                            const XlLayout& y, cudaStream_t st) {
+  const int threads = a.K >= kMaxLanes ? kMaxLanes : (a.K + 31) / 32 * 32;
+  const size_t smem = weights_smem<T>(a.L, kIhgp) + (y.tables_smem ? y.table_bytes : 0);
+  const cudaError_t e = cudaFuncSetAttribute(track_step_xl_kernel<T, kIhgp, kAuction>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+  if (e != cudaSuccess) return e;
+  track_step_xl_kernel<T, kIhgp, kAuction><<<B, threads, smem, st>>>(a, scratch, y);
+  return cudaGetLastError();
+}
+
+template <class T>
+int track_step_xl(TrackArgs<T>& a, const T* auction_f, int ihgp, int auction, int n_phases,
+                  int max_iters, int B, void* scratch) {
+  if (B < 1 || a.S < 1 || a.K < 1 || a.D < 1 || a.L < 2 || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (auction && !motl_auction::read_params(auction_f, n_phases, max_iters, &a.au))
+    return (int)cudaErrorInvalidValue;
+  const XlLayout y = xl_layout_for<T>(a.K, a.D, a.L, ihgp, auction);
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  const cudaStream_t st = (cudaStream_t)a.stream;
+  if (auction)
+    return (int)(ihgp ? launch_track_xl<T, true, true>(a, B, sc, y, st)
+                      : launch_track_xl<T, false, true>(a, B, sc, y, st));
+  return (int)(ihgp ? launch_track_xl<T, true, false>(a, B, sc, y, st)
+                    : launch_track_xl<T, false, false>(a, B, sc, y, st));
+}
+
 // The whole track step of B banks over S frames each, one CTA per bank.
 // Inputs: dets (B, S, D, 4) f32, dv (B, S, D) u8, t (B, S) f32; the state
 // alive (B, K) u8, obj_id (B, K) i32, birth_seq (B, K) i32, window (B, K,
@@ -982,4 +1687,64 @@ extern "C" int motl_track_step_f64(
                       spin_out, init_out, publish, valid, obj_id, pos, vel, new_track, counts,
                       {}, stream};
   return track_step(a, auction_f, ihgp, auction, n_phases, max_iters, B);
+}
+
+// K4 xl: the whole track step at any K >= 1 and D >= 1 (past K4's 1,024
+// slots or 128 detections), the arguments of motl_track_step and
+// motl_track_step_f64 and, before the stream, the bank scratch: B times
+// motl_track_step_xl_scratch's bytes of device memory (nothing in it needs
+// zeroing).
+extern "C" int motl_track_step_xl(
+    const float* dets, const uint8_t* dv, const float* t, const uint8_t* alive_in,
+    const int* oid_in, const int* birth_in, const float* win_in, const float* m0_in,
+    const int* nobj_in, const int* nbirth_in, const int* spin_in, const uint8_t* init_in,
+    const float* wy, const float* wm, const float* my, const float* mm, const float* pwy,
+    const float* pwm, const float* pmy, const float* pmm, int ihgp, int auction,
+    const float* auction_f, int n_phases, int max_iters, int B, int S, int K,
+    int D, int L, float thr, float gapthr, float dt, float vmax, float lpf_a, float lpf_b,
+    float prune_period, int prune_spin, uint8_t* alive_out, int* oid_out, int* birth_out,
+    float* win_out, float* m0_out, int* nobj_out, int* nbirth_out, int* spin_out,
+    uint8_t* init_out, uint8_t* publish, uint8_t* valid, int* obj_id, float* pos, float* vel,
+    uint8_t* new_track, int* counts, void* scratch, void* stream) {
+  TrackArgs<float> a{dets, dv, t, alive_in, oid_in, birth_in, win_in, m0_in, nobj_in,
+                     nbirth_in, spin_in, init_in, wy, wm, my, mm, pwy, pwm, pmy, pmm, S, K, D,
+                     L, thr, gapthr, dt, vmax, lpf_a, lpf_b, prune_period, prune_spin,
+                     alive_out, oid_out, birth_out, win_out, m0_out, nobj_out, nbirth_out,
+                     spin_out, init_out, publish, valid, obj_id, pos, vel, new_track, counts,
+                     {}, stream};
+  return track_step_xl(a, auction_f, ihgp, auction, n_phases, max_iters, B, scratch);
+}
+
+extern "C" int motl_track_step_xl_f64(
+    const double* dets, const uint8_t* dv, const double* t, const uint8_t* alive_in,
+    const int* oid_in, const int* birth_in, const double* win_in, const double* m0_in,
+    const int* nobj_in, const int* nbirth_in, const int* spin_in, const uint8_t* init_in,
+    const double* wy, const double* wm, const double* my, const double* mm, const double* pwy,
+    const double* pwm, const double* pmy, const double* pmm, int ihgp, int auction,
+    const double* auction_f, int n_phases, int max_iters, int B, int S, int K,
+    int D, int L, double thr, double gapthr, double dt, double vmax, double lpf_a,
+    double lpf_b, double prune_period, int prune_spin, uint8_t* alive_out, int* oid_out,
+    int* birth_out, double* win_out, double* m0_out, int* nobj_out, int* nbirth_out,
+    int* spin_out, uint8_t* init_out, uint8_t* publish, uint8_t* valid, int* obj_id,
+    double* pos, double* vel, uint8_t* new_track, int* counts, void* scratch, void* stream) {
+  TrackArgs<double> a{dets, dv, t, alive_in, oid_in, birth_in, win_in, m0_in, nobj_in,
+                      nbirth_in, spin_in, init_in, wy, wm, my, mm, pwy, pwm, pmy, pmm, S, K, D,
+                      L, thr, gapthr, dt, vmax, lpf_a, lpf_b, prune_period, prune_spin,
+                      alive_out, oid_out, birth_out, win_out, m0_out, nobj_out, nbirth_out,
+                      spin_out, init_out, publish, valid, obj_id, pos, vel, new_track, counts,
+                      {}, stream};
+  return track_step_xl(a, auction_f, ihgp, auction, n_phases, max_iters, B, scratch);
+}
+
+// K4 xl's scratch bytes per bank (out[0]) and whether the Hungarian tables
+// sit in shared memory (out[1]) for K slots, D detections, window length
+// L, f64 != 0 for the double builds.
+extern "C" int motl_track_step_xl_scratch(int K, int D, int L, int f64, int ihgp, int auction,
+                                          long long* out) {
+  if (K < 1 || D < 1 || L < 2 || out == nullptr) return (int)cudaErrorInvalidValue;
+  const XlLayout y = f64 ? xl_layout_for<double>(K, D, L, ihgp, auction)
+                         : xl_layout_for<float>(K, D, L, ihgp, auction);
+  out[0] = (long long)y.bank;
+  out[1] = y.tables_smem;
+  return 0;
 }

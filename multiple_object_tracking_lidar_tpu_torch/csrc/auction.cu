@@ -42,8 +42,9 @@ auction_kernel(const float* __restrict__ cost, const uint8_t* __restrict__ feas,
   const MatrixValue value{cost + b * D * K, feas + b * D * K, K, p.neg};
   motl_auction::auction_lists(value, D, K, p.neg, sm, 0, 1);
   __syncwarp();
-  const int sat = motl_auction::auction_warp<float, kMaxCols>(
-      value, D, K, p, sm, nullptr, iters != nullptr ? iters + b * p.n_phases : nullptr);
+  motl_auction::WideKeys<kMaxCols>* no_wide = nullptr;  // the f32 build has no second step
+  const int sat = motl_auction::auction_warp(
+      value, D, K, p, sm, no_wide, iters != nullptr ? iters + b * p.n_phases : nullptr);
   for (int r = threadIdx.x; r < D; r += 32) {
     const int c = sm.row_col[r];
     assigned[b * D + r] = (c >= 0 && c < K) ? c : -1;

@@ -57,6 +57,13 @@
 // order JAX writes them; the comparisons strict where argmax and max put
 // them (a later equal value never takes the first maximum's place).
 //
+// The tables come in two forms with the same indexing: AuctionScratch /
+// WideKeys, arrays of compile-time size in static shared memory (K4's narrow
+// builds, K12), and AuctionTables / WideTables, pointers to tables sized at
+// run time for n = D + K columns (K4 xl, csrc/assign.cu: in dynamic shared
+// memory while they fit, in device memory past that).  The device functions
+// take either; the arrays of compile-time size keep their builds' code.
+//
 // Templated on the float type T of the values, prices and bids: float for
 // K4's f32 builds and K12, double for K4's double builds (dtype="float64";
 // the JAX auction runs in the costs' dtype, with _NEG, the penalties and
@@ -129,6 +136,28 @@ template <int kCols>
 struct WideKeys {
   double bid_val[kMaxRows + 1];
   int krow[kCols];
+};
+
+// AuctionScratch's tables as pointers, for D real rows and n = D + K
+// columns sized at run time: price, owner, row_col and key hold n entries,
+// bid_col and bid_row D + 1, feas_n, feas_col and feas_val D.
+template <class T>
+struct AuctionTables {
+  T* price;
+  int* owner;
+  int* row_col;
+  unsigned long long* key;
+  int* bid_col;
+  int* bid_row;
+  int* feas_n;
+  int (*feas_col)[kMaxFeas];
+  T (*feas_val)[kMaxFeas];
+};
+
+// WideKeys's as pointers: bid_val D + 1 entries, krow n.
+struct WideTables {
+  double* bid_val;
+  int* krow;
 };
 
 // The largest value, the first index holding it, and the largest value at
@@ -237,8 +266,8 @@ __device__ __forceinline__ T bid_of(const Top2<T>& t, T price_best, T eps, T neg
 
 // Enter a bid on column c for row r: the f32 build's packed key, or the
 // double build's bid bits (its row settles in place_rows).
-template <class T, int kCols>
-__device__ __forceinline__ void place_bid(AuctionScratch<T, kCols>& sm, int c, T bid, int r) {
+template <class T, class Tab>
+__device__ __forceinline__ void place_bid(Tab& sm, int c, T bid, int r) {
   if constexpr (sizeof(T) == sizeof(float))
     atomicMax(&sm.key[c], bid_key(bid, r));
   else
@@ -252,9 +281,9 @@ __device__ __forceinline__ void place_bid(AuctionScratch<T, kCols>& sm, int c, T
 // decides a bid: its net (NEG - price) is below NEG / 2, so it is neither a
 // row's first maximum (a virtual column beats it) nor a second maximum the
 // NEG / 2 rule keeps.  The caller synchronises before the auction reads them.
-template <class T, int kCols, class Value>
-__device__ void auction_lists(const Value& value, int D, int K, T neg,
-                              AuctionScratch<T, kCols>& sm, int warp, int n_warps) {
+template <class T, class Tab, class Value>
+__device__ void auction_lists(const Value& value, int D, int K, T neg, Tab& sm, int warp,
+                              int n_warps) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   for (int r = warp; r < D; r += n_warps) {
@@ -285,11 +314,11 @@ __device__ void auction_lists(const Value& value, int D, int K, T neg,
 // saturated phase count (the same in every lane).  iters_out, when given,
 // receives each phase's iterations (lane 0 writes).  wk is the double
 // build's second-step scratch (unused, and may be null, in the f32 build).
-// 1 <= D <= kMaxRows, K >= 1, D + K <= kCols.
-template <class T, int kCols, class Value>
+// D >= 1, K >= 1, and the tables hold D rows and D + K columns (kMaxRows
+// and kCols for AuctionScratch).
+template <class T, class Tab, class Wide, class Value>
 __device__ int auction_warp(const Value& value, int D, int K, const AuctionParams<T>& p,
-                            AuctionScratch<T, kCols>& sm, WideKeys<kCols>* wk,
-                            int* iters_out) {
+                            Tab& sm, Wide* wk, int* iters_out) {
   constexpr bool kWide = sizeof(T) == sizeof(double);
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;

@@ -24,7 +24,11 @@
 // C = 1 is every CTA keeping the whole grid (the headline's 5,500 cells fit
 // one CTA: a cluster of R CTAs over the points, reduced over DSMEM); R = 1
 // is every CTA reading all the frame's points and keeping one range (a grid
-// past one CTA).  The wrapper picks (C, R) (ops/voxel_grid_cuda.py::
+// past one CTA).  C is any power of two: past 16 ranges of 14,520 cells
+// (232,320) the grid takes more ranges ("K1 wide", "K5 wide": 128 for a 30
+// m floor's 1,119,963 cells at 0.05 m, one chunk each), so every grid is one
+// launch with no atomic leaving its CTA, at the cost of C reads of each
+// point from L2.  The wrapper picks (C, R) (ops/voxel_grid_cuda.py::
 // digit_layout).  No point's atomic leaves its CTA: sending each kept
 // point's atomics to the rank that owns its cell through DSMEM (one cluster
 // of C ranks per frame, the points split over them) measured 3-7x slower on

@@ -6,11 +6,12 @@ first stage of the whole track step (``ops/track_cuda.py``, one launch per
 call), and ``assoc_scan`` launches that stage alone, from the same device
 function (``csrc/assign.cu::decide``), so that the decisions can be held
 against their plain version by themselves.  The tracking paths do not
-launch it: within K4's bounds they launch the whole step, past them they
-run ``assoc_scan_plain`` (the track step's plain route).  The TPU kernel
-holds K <= 128 and the JAX package takes its jnp scan past that
-(assign.py:168-178); K4 holds a bank grown to ``MAX_LANES`` = 1,024 slots,
-the largest CTA, and ``MAX_DETS`` = 128 detections, and raises past them.
+launch it: they launch the whole step.  The TPU kernel holds K <= 128 and
+the JAX package takes its jnp scan past that (assign.py:168-178).  K4's
+narrow builds, and this scan alone, hold a bank grown to ``MAX_LANES`` =
+1,024 slots, the largest CTA, and ``MAX_DETS`` = 128 detections (the scan
+raises past them); past them the track step launches K4 xl
+(``ops/track_cuda.py``).
 
 ``assoc_scan`` launches the kernel for CUDA tensors and runs
 ``assoc_scan_plain`` for CPU tensors; ``.launches`` counts kernel
@@ -29,8 +30,8 @@ from multiple_object_tracking_lidar_tpu_torch import _build
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype, true_div
 
 _BIG = 2**30
-MAX_LANES = 1024   # track slots: one lane each, one CTA
-MAX_DETS = 128     # detections: K4's shared detection buffer
+MAX_LANES = 1024   # track slots of K4's narrow builds: one lane each, one CTA
+MAX_DETS = 128     # detections of K4's narrow builds: the shared detection buffer
 
 
 def _consts(thr, dt_gp, interp_gap_factor, dtype=torch.float32):

@@ -32,6 +32,7 @@ plain version for CPU tensors, bit for bit the same.
 
 from __future__ import annotations
 
+import collections
 import torch
 
 from multiple_object_tracking_lidar_tpu_torch import _build
@@ -173,15 +174,12 @@ def circumcenter_features(mpts: torch.Tensor, member_mask: torch.Tensor, t) -> t
         out.data_ptr(), _build.stream_ptr(dev),
     )
     _build.check(err, entry)
-    if mpts.dtype == torch.float64:
-        circumcenter_features.launches_f64 += 1
-    else:
-        circumcenter_features.launches += 1
+    _build.count(circumcenter_features, entry, "motl_circumcenter_features")
     return out
 
 
-circumcenter_features.launches = 0
-circumcenter_features.launches_f64 = 0   # the double build's
+circumcenter_features.launches = 0                   # the f32 build's
+circumcenter_features.launches_by = collections.Counter()   # by C entry
 
 
 def circumcenter_xy_plain(mpts: torch.Tensor, member_mask: torch.Tensor) -> torch.Tensor:

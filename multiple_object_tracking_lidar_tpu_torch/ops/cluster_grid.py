@@ -5,10 +5,11 @@ Port of ``multiple_object_tracking_lidar_tpu/ops/cluster_grid.py``.  The
 labels come from K2 (``ops/grid_cuda.py``) or, where K2 does not run
 (``grid_cc="jnp"``, a map with no per-cell static table, a grid past K2's
 shared memory), from ``connected_components_grid``: the JAX package's
-stencil CC in plain torch, with its schedule -- ``sweeps_per_iter`` Jacobi
-sweeps and ``jumps_per_iter`` pointer jumps per iteration, at most
-``max_iters`` iterations -- so its sweep count and ``saturated`` flag are
-JAX's too.  ``cluster_table_grid`` turns labels into PCL's cluster order
+stencil CC with its schedule -- ``sweeps_per_iter`` Jacobi sweeps and
+``jumps_per_iter`` pointer jumps per iteration, at most ``max_iters``
+iterations -- so its sweep count and ``saturated`` flag are JAX's too; on
+the card K14 (``ops/stencil_cc_cuda.py``), on the CPU its plain version.
+``cluster_table_grid`` turns labels into PCL's cluster order
 and the dense (C, P, 3) member table.  The JAX package builds that table
 from one-hot matmuls (an MXU idiom); here an integer ``index_add_``
 histogram (not ``bincount``, which reads its input's min and max on the
@@ -24,8 +25,6 @@ from typing import NamedTuple
 
 import torch
 
-from multiple_object_tracking_lidar_tpu_torch.ops.cluster_pallas import fma
-from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype
 
 
 def _stencil_offsets(tol: float, leaf_xy: float, leaf_z: float) -> list[tuple[int, int, int]]:
@@ -77,64 +76,29 @@ def connected_components_grid(
     jumps_per_iter: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Min-label connected components of the radius graph on the dense
-    grid (cluster_grid.py:60-178).  Returns (labels (..., n) int32: the
-    min flat cell index of each component, n for cells that are not
-    dynamic; n_sweeps (...) int32 = iterations * sweeps_per_iter;
+    grid (cluster_grid.py:60-178): K14 on CUDA tensors, its plain version
+    on CPU tensors (``ops/stencil_cc_cuda.py``).  Returns (labels (..., n)
+    int32: the min flat cell index of each component, n for cells that are
+    not dynamic; n_sweeps (...) int32 = iterations * sweeps_per_iter;
     saturated (...) int32: the loop stopped at ``max_iters`` while labels
     still changed).
 
-    The adjacency is fixed, so it is built once: neighbour j of cell i is
-    adjacent when both are dynamic and d2 <= tol^2 (in the centroids'
-    dtype, f32 or f64), where d2 is what XLA's CPU code computes for the
-    JAX expression ``sum((c - c_j) ** 2)``: the FMA chain fma(dz, dz,
-    fma(dx, dx, dy * dy)), each correctly rounded (``fma``).  A neighbour outside the grid reads the pad (never
-    dynamic), as the JAX pad-and-slice does.  Leading dims batch frames;
-    each frame stops where its own loop would, as under ``jax.vmap``, and
-    the host reads whether any frame still runs once per iteration
-    (``connected_components_grid.host_syncs``)."""
+    Neighbour j of cell i is adjacent when both are dynamic and d2 <= tol^2
+    (in the centroids' dtype, f32 or f64), where d2 is what XLA's CPU code
+    computes for the JAX expression ``sum((c - c_j) ** 2)``: the FMA chain
+    fma(dz, dz, fma(dx, dx, dy * dy)), each correctly rounded.  A neighbour
+    outside the grid is never dynamic, as the JAX pad-and-slice has it.
+    Leading dims batch frames; each frame stops where its own loop would,
+    as under ``jax.vmap``.  Neither route syncs the host:
+    ``.host_syncs`` stays 0."""
+    # imported here: K14's module imports ops/grid_cuda.py, which imports this one
+    from multiple_object_tracking_lidar_tpu_torch.ops.stencil_cc_cuda import stencil_cc
+
     lead = dyn.shape[:-1]
-    gx, gy, gz = dims
-    n = gx * gy * gz
-    dev = dyn.device
-    cent = cent.reshape(-1, 3, n)
-    dyn = dyn.reshape(-1, n)
-    b = dyn.shape[0]
-    offsets = _stencil_offsets(tol, leaf_xy, leaf_z)
-    nb = neighbor_index(dims, offsets, dev)                          # (O, n)
-    nb_c = torch.clamp(nb, max=n - 1)
-    dyn_pad = torch.cat([dyn, torch.zeros((b, 1), dtype=torch.bool, device=dev)], 1)
-    d = [cent[:, k, None, :] - cent[:, k][:, nb_c] for k in range(3)]  # (b, O, n)
-    d2 = fma(d[2], d[2], fma(d[0], d[0], d[1] * d[1]))
-    adj = dyn[:, None, :] & dyn_pad[:, nb] & (d2 <= in_dtype(tol * tol, cent.dtype))
-
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    sentinel = torch.full((b, 1), n, dtype=torch.int32, device=dev)
-    labels = torch.where(dyn, idx, n).to(torch.int32)
-
-    def sweep(lab):
-        cand = torch.where(adj, torch.cat([lab, sentinel], 1)[:, nb], n)
-        return torch.minimum(lab, cand.amin(dim=1)) if offsets else lab
-
-    def jump(lab):
-        return torch.gather(torch.cat([lab, sentinel], 1), 1, lab.to(torch.int64))
-
-    it = torch.zeros(b, dtype=torch.int32, device=dev)
-    changed = torch.ones(b, dtype=torch.bool, device=dev)
-    while True:
-        active = changed & (it < max_iters)
-        connected_components_grid.host_syncs += 1
-        if not bool(active.any()):
-            break
-        new = labels
-        for _ in range(sweeps_per_iter):
-            new = sweep(new)
-        for _ in range(jumps_per_iter):
-            new = jump(new)
-        changed = torch.where(active, (new != labels).any(dim=1), changed)
-        labels = torch.where(active[:, None], new, labels)
-        it = it + active.to(torch.int32)
-    saturated = (changed & (it >= max_iters)).to(torch.int32)
-    n_sweeps = it * sweeps_per_iter
+    n = dims[0] * dims[1] * dims[2]
+    labels, n_sweeps, saturated = stencil_cc(
+        cent.reshape(-1, 3, n), dyn.reshape(-1, n), dims, tol, leaf_xy, leaf_z, max_iters,
+        sweeps_per_iter, jumps_per_iter)
     return labels.reshape(lead + (n,)), n_sweeps.reshape(lead), saturated.reshape(lead)
 
 

@@ -22,7 +22,7 @@ device memory (``_layout``): each CTA's p and sq, the adjacency words and
 K8's labels in device-memory scratches, up to ``MAX_DEVICE_ROWS``.
 
 Under ``dtype="float64"`` the jnp CC's adjacency is K8a's double build
-(``motl_cc_adjacency_f64``, counted in ``cc_adjacency.launches_f64``): the
+(``motl_cc_adjacency_f64``, counted in ``cc_adjacency.launches_by``): the
 JAX f64 ``_pairwise_adjacency`` under ``jax.jit`` spells its ops as the f32
 program does (the 32-row tree sum, the FMA chains; ``fma64`` in the plain
 version) and tests d2 against the f64 ``tol * tol``.  Its frame of 32-byte
@@ -44,6 +44,7 @@ the kernel's), and count their launches in ``.launches``.
 
 from __future__ import annotations
 
+import collections
 import torch
 
 from multiple_object_tracking_lidar_tpu_torch import _build
@@ -330,7 +331,8 @@ def cc_adjacency(pts: torch.Tensor, mask: torch.Tensor, tol: float,
                  cluster: int | None = None) -> torch.Tensor:
     """K8's adjacency stage (K8a) on CUDA tensors, its plain version on CPU
     tensors: bool (M, M), or (S, M, M) for stacked frames.  f64 points take
-    the double build (``.launches_f64``), any other dtype f32.  ``cluster``
+    the double build (``.launches_by["motl_cc_adjacency_f64"]``), any other
+    dtype f32.  ``cluster``
     overrides ``cc_layout``'s CTAs per frame (for checks and sweeps)."""
     if pts.device.type == "cpu":
         p, m, single = _stack(pts, mask, keep_f64=True)
@@ -338,18 +340,14 @@ def cc_adjacency(pts: torch.Tensor, mask: torch.Tensor, tol: float,
         return adj[0] if single else adj
     s, n = (1,) + pts.shape[:1] if pts.dim() == 2 else pts.shape[:2]
     adj = torch.empty((s, n, n), dtype=torch.bool, device=pts.device)
-    f64 = pts.dtype == torch.float64
-    _launch("motl_cc_adjacency_f64" if f64 else "motl_cc_adjacency", pts, mask, tol, cluster,
-            (), (adj,))
-    if f64:
-        cc_adjacency.launches_f64 += 1
-    else:
-        cc_adjacency.launches += 1
+    entry = "motl_cc_adjacency_f64" if pts.dtype == torch.float64 else "motl_cc_adjacency"
+    _launch(entry, pts, mask, tol, cluster, (), (adj,))
+    _build.count(cc_adjacency, entry, "motl_cc_adjacency")
     return adj[0] if pts.dim() == 2 else adj
 
 
-cc_adjacency.launches = 0
-cc_adjacency.launches_f64 = 0   # the double build's
+cc_adjacency.launches = 0                   # the f32 build's
+cc_adjacency.launches_by = collections.Counter()   # by C entry
 
 
 def connected_components_pallas(pts: torch.Tensor, mask: torch.Tensor, tol: float,

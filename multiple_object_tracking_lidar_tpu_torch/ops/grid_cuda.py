@@ -18,16 +18,17 @@ version runs the same schedule, so it reports the same iteration count
 (``n_sweeps``) and ``saturated`` flag as the kernel.
 
 ``fused_finalize_static_cc_stacked`` launches the kernel for CUDA tensors
-and runs the plain version for CPU tensors; ``.launches`` counts kernel
-launches, ``.launches_f64`` those of its double build (``dtype="float64"``:
-the f64 accumulator, centroids and d^2, ``motl_grid_cc_f64``) and
-``.launches_f64_f32sums`` those of the double build fed f32 sums
+and runs the plain version for CPU tensors; ``.launches`` counts the f32
+build's launches and ``.launches_by`` every build's by C entry: its double
+build (``dtype="float64"``: the f64 accumulator, centroids and d^2,
+``motl_grid_cc_f64``) and the double build fed f32 sums
 (``voxel_mode="runs"`` under f64: K7's f32 accumulator finalized in f32,
 the centroid widened, then the f64 d^2; ``motl_grid_cc_f64_f32sums``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -213,10 +214,10 @@ def fused_finalize_static_cc_stacked_plain(
     return cent, dyn, labels, n_sw, sat
 
 
-# (accumulator dtype, centroid dtype) -> (C entry, its launch counter)
-_BUILDS = {(torch.float32, torch.float32): ("motl_grid_cc", "launches"),
-           (torch.float64, torch.float64): ("motl_grid_cc_f64", "launches_f64"),
-           (torch.float32, torch.float64): ("motl_grid_cc_f64_f32sums", "launches_f64_f32sums")}
+# (accumulator dtype, centroid dtype) -> the C entry
+_BUILDS = {(torch.float32, torch.float32): "motl_grid_cc",
+           (torch.float64, torch.float64): "motl_grid_cc_f64",
+           (torch.float32, torch.float64): "motl_grid_cc_f64_f32sums"}
 
 
 def fused_finalize_static_cc_stacked(
@@ -289,7 +290,7 @@ def fused_finalize_static_cc_stacked(
     scratch = (None if adjacency_in_smem(n, len(offsets), cluster) else
                torch.empty((s * cluster * n_words * rng,), dtype=torch.int32, device=dev))
     lib = _build.load()
-    entry, counter = _BUILDS[accs_cm.dtype, dt]
+    entry = _BUILDS[accs_cm.dtype, dt]
     tol2 = (float(tol) * float(tol),) if dt == torch.float64 else ()
     err = getattr(lib, entry)(
         accs_cm.data_ptr(), *(t.data_ptr() for t in ins),
@@ -299,14 +300,12 @@ def fused_finalize_static_cc_stacked(
         _build.stream_ptr(dev),
     )
     _build.check(err, entry)
-    setattr(fused_finalize_static_cc_stacked, counter,
-            getattr(fused_finalize_static_cc_stacked, counter) + 1)
+    _build.count(fused_finalize_static_cc_stacked, entry, "motl_grid_cc")
     return cent, dyn, labels, nsw[:, 0], nsw[:, 1]
 
 
-fused_finalize_static_cc_stacked.launches = 0
-fused_finalize_static_cc_stacked.launches_f64 = 0            # the double build's
-fused_finalize_static_cc_stacked.launches_f64_f32sums = 0    # fed f32 sums
+fused_finalize_static_cc_stacked.launches = 0                   # the f32 build's
+fused_finalize_static_cc_stacked.launches_by = collections.Counter()   # by C entry
 
 
 def fused_finalize_static_cc(acc_cm, scal, base_row, base_col, bits, **kw):

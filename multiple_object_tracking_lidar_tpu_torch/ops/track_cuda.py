@@ -8,19 +8,25 @@ Replaces the Pallas kernel ``multiple_object_tracking_lidar_tpu/ops/
 assign_pallas.py::assoc_scan_pallas`` and, around it, the rest of the JAX
 ``track_step`` (tracker/pipeline.py:942-1100), which XLA compiles into one
 program with it.  CUDA source: ``csrc/assign.cu``, whose header says what
-bounds it on the H100 (latency: a sequential scan over at most 128
-detections, then a few hundred flops per updated track) and how its design
-answers that (one CTA per track bank, one lane per slot, the S frames of a
-call scanned in order inside the CTA; no host sync).
+bounds it on the H100 (latency: a sequential scan over the detections,
+then a few hundred flops per updated track) and how its design answers
+that (one CTA per track bank, one lane per slot, the S frames of a call
+scanned in order inside the CTA; no host sync).  Its narrow builds hold
+K <= 1,024 slots and D <= 128 detections (``kernel_fits``); past them the
+wrapper launches K4 xl, the same step with several slots per lane and the
+per-slot summaries, the decisions and the auction's tables sized at run
+time (``motl_track_step_xl``), bit for bit the same results.
 
 ``track_frames`` takes B banks (a leading stream axis on the state) and S
 frames per bank: (B, S, D, 4) detections, (B, S, D) valid flags, (B, S)
 stamps.  ``bind_env`` launches it at 1 x 1, ``bind_env_multi`` at 1 x S
 and the fleet at B x 1 (``tracker/pipeline.py::track_batch``).  It
-launches the kernel for CUDA tensors and runs ``track_frames_plain`` for
-CPU tensors; ``.launches`` counts kernel launches, ``.launches_f64``
-those of the double builds (``dtype="float64"``).  Both return (the state
-after the S frames, ``TrackOutputs`` stacked (B, S, ...)).
+launches the kernel for CUDA tensors at any K and D and runs
+``track_frames_plain`` for CPU tensors; ``.launches_by`` counts kernel
+launches by C entry (``motl_track_step``, ``_f64`` -- the double builds of
+``dtype="float64"`` -- ``_xl``, ``_xl_f64``) and ``.launches`` those of
+``motl_track_step``.  Both return (the state after the S frames,
+``TrackOutputs`` stacked (B, S, ...)).
 
 ``track_step_plain`` is the plain version of one bank and one frame: the
 decisions (``assign_cuda.assoc_scan_plain``, or under hungarian
@@ -28,17 +34,17 @@ decisions (``assign_cuda.assoc_scan_plain``, or under hungarian
 tracker/pipeline.py:965-990 picks them), the closed-form window
 updates (``ops/assign.py``), and the filter with every f32 reduction
 spelled as an ascending loop started from its first term -- the order the
-kernel sums in, so the two agree bit for bit.  It is the CPU route and,
-past the kernel's bounds (K > 1,024 slots or D > 128 detections) or under
-greedy ``assoc_backend="jnp"``, the card's route (``tracker/pipeline.py``).
-It reads the duplicate-pass count on the host once per frame
+kernel sums in, so the two agree bit for bit.  It is the CPU route.  It
+reads the duplicate-pass count on the host once per frame
 (``track_step_plain.host_syncs``), and under hungarian the auction's
 convergence once per iteration; the kernel never does.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -79,8 +85,19 @@ class TrackOutputs(NamedTuple):
 
 
 def kernel_fits(k: int, d: int) -> bool:
-    """True iff K4 holds a bank of ``k`` slots and ``d`` detection slots."""
+    """True iff K4's narrow builds hold a bank of ``k`` slots and ``d``
+    detection slots (one lane per slot, the shared detection buffer); past
+    them ``track_frames`` launches K4 xl."""
     return 1 <= k <= MAX_LANES and 1 <= d <= MAX_DETS
+
+
+@functools.lru_cache(maxsize=64)
+def xl_scratch_bytes(k: int, d: int, L: int, f64: bool, ihgp: bool, hungarian: bool) -> int:
+    """K4 xl's device-memory scratch per bank (``csrc/assign.cu::xl_layout``)."""
+    out = (ctypes.c_longlong * 2)()
+    _build.check(_build.load().motl_track_step_xl_scratch(
+        k, d, L, int(f64), int(ihgp), int(hungarian), out), "motl_track_step_xl_scratch")
+    return int(out[0])
 
 
 def _asc_sum(terms):
@@ -270,7 +287,9 @@ def track_frames(
 ) -> tuple[TrackerState, TrackOutputs]:
     """K4 on CUDA tensors, ``track_frames_plain`` on CPU tensors.  f64
     tensors (dets, t, the bank's window and m0, the gains) launch the
-    double build (``motl_track_step_f64``), one launch too."""
+    double build (``motl_track_step_f64``), one launch too; a bank past the
+    narrow builds' ``kernel_fits`` launches K4 xl (``motl_track_step_xl``,
+    ``_xl_f64``)."""
     if dets.device.type == "cpu":
         return track_frames_plain(state, dets, det_valid, t, config=config, gains_xy=gains_xy)
     bank = state.bank
@@ -278,18 +297,8 @@ def track_frames(
     k, L = bank.window.shape[1], bank.window.shape[2]
     dev = dets.device
     dt = dets.dtype
-    if not kernel_fits(k, d):
-        if config.association == "hungarian":
-            raise NotImplementedError(
-                f"K4's Hungarian builds hold 1 <= K <= {MAX_LANES} track slots and 1 <= D <= "
-                f"{MAX_DETS} detections (got K={k}, D={d}); past them the Hungarian step has "
-                "no route on the card yet (ROADMAP item 26)"
-            )
-        raise ValueError(
-            f"K4 holds 1 <= K <= {MAX_LANES} track slots (one lane per slot) and "
-            f"1 <= D <= {MAX_DETS} detections (got K={k}, D={d}); the greedy step's "
-            "plain route runs past them (tracker/pipeline.py::track_batch)"
-        )
+    if k < 1 or d < 1:
+        raise ValueError(f"K4 needs K >= 1 track slots and D >= 1 detections (got {k}, {d})")
     if (dets.shape != (n_b, n_s, d, 4) or dt not in (torch.float32, torch.float64)
             or t.shape != (n_b, n_s)):
         raise ValueError(f"dets must be ({n_b}, {n_s}, {d}, 4) float32 or float64 "
@@ -332,9 +341,14 @@ def track_frames(
         state.spin_counter, state.initialized, w["Wy"], w["Wm"], w["My"], w["Mm"],
         wp["Wy"], wp["Wm"], wp["My"], wp["Mm"])]
     nb = new.bank
-    entry = "motl_track_step_f64" if dt == torch.float64 else "motl_track_step"
+    xl = not kernel_fits(k, d)
+    entry = "motl_track_step" + ("_xl" if xl else "") + ("_f64" if dt == torch.float64 else "")
+    ihgp = config.position_filter == "ihgp"
+    scratch = (torch.empty((n_b * xl_scratch_bytes(k, d, L, dt == torch.float64, ihgp,
+                                                   hungarian),), dtype=torch.uint8, device=dev)
+               if xl else None)
     err = getattr(_build.load(), entry)(
-        *(x.data_ptr() for x in ins), int(config.position_filter == "ihgp"),
+        *(x.data_ptr() for x in ins), int(ihgp),
         int(hungarian), ctypes.addressof(au) if hungarian else None, n_phases, MAX_ITERS,
         n_b, n_s, k, d, L,
         thr32, gapthr, dt32, in_dtype(config.max_velocity, dt),
@@ -345,13 +359,10 @@ def track_frames(
         new.next_birth.data_ptr(), new.spin_counter.data_ptr(), new.initialized.data_ptr(),
         publish.data_ptr(), valid.data_ptr(), obj_id.data_ptr(), pos.data_ptr(),
         vel.data_ptr(), new_track.data_ptr(), counts.data_ptr(),
-        _build.stream_ptr(dev),
+        *((scratch.data_ptr(),) if xl else ()), _build.stream_ptr(dev),
     )
     _build.check(err, entry)
-    if dt == torch.float64:
-        track_frames.launches_f64 += 1
-    else:
-        track_frames.launches += 1
+    _build.count(track_frames, entry, "motl_track_step")
     return new, TrackOutputs(
         publish=publish, valid=valid, obj_id=obj_id, pos=pos, vel=vel, new_track=new_track,
         n_alive=counts[..., 0], overflow=counts[..., 1], dup_saturated=counts[..., 2],
@@ -359,5 +370,5 @@ def track_frames(
     )
 
 
-track_frames.launches = 0
-track_frames.launches_f64 = 0   # the double builds'
+track_frames.launches = 0                   # motl_track_step's
+track_frames.launches_by = collections.Counter()   # by C entry

@@ -8,14 +8,13 @@ voxel_grid.py``, with its TPU dispatch (voxel_grid.py:117-164):
 
 - ``quant="fast"``: one int8 digit per axis, K1, for every N (the TPU's v5
   and its i32 twin v4 give the same integers; K1 sums in int32 with no
-  2^24 bound), one launch per call, up to ``max_cells`` (232,320 cells:
-  the CLI's 70,200-cell grid and the default scene's 193,536 included).
-  Past it the digit sums are the plain integer ones and K1's finalize runs
-  on them -- the same bits;
+  2^24 bound), one launch per call at any grid size (past ``max_cells``,
+  232,320 cells, the wide layout: more cell ranges, each CTA reading every
+  point of its frame);
 - ``quant="exact"``: two balanced int8 digits per axis, K5, when a point
   block tiles N (``_pick_block``) and the leaf fits the digit pair
-  (``_v3_leaf_ok``) -- the TPU's v6 / v3 (past ``max_cells``, the plain
-  digit sums and K5's finalize).  Otherwise the bf16x3 sums, K6:
+  (``_v3_leaf_ok``) -- the TPU's v6 / v3, at any grid size as K1.
+  Otherwise the bf16x3 sums, K6:
   the TPU's v2 kernel when the leaf is too coarse, and its jnp lowering of
   the same sums when no block tiles N.
 
@@ -53,10 +52,6 @@ from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
     accumulate_fast_stacked_raw,
     exact_digit_sums,
     fast_digit_sums,
-    finalize_exact_stacked,
-    finalize_fast_stacked,
-    kernel_params,
-    max_cells,
 )
 
 
@@ -84,22 +79,14 @@ def exact_route(n: int, leaf_xy: float, leaf_z: float) -> str:
     return "K5" if _pick_block(n) is not None and _v3_leaf_ok(leaf_xy, leaf_z) else "K6"
 
 
-def digit_kernels_fit(scene: SceneBounds, leaf_xy: float, leaf_z: float, device=None) -> bool:
-    """True iff the grid fits K1's and K5's ranges of shared-memory
-    histograms on ``device`` (``max_cells``, 232,320 cells on the H100).
-    Past it the digit sums are the plain integer ones
-    (``digit_sums_stacked``)."""
-    return kernel_params(scene, leaf_xy, leaf_z)["n_cells"] <= max_cells(device)
-
-
 def digit_sums_stacked(points, mask, scene, leaf_xy, leaf_z, quant: str = "fast"):
     """((S, C, n_cells) int32 digit sums, (S,) i32 mask-nonzero counts): K1's
     (``quant="fast"``, C = 4) or K5's (``"exact"``, C = 7) histogram alone
-    where the grid fits it, else ``fast_digit_sums`` / ``exact_digit_sums``
-    (int64 ``index_add_``, exact in any order: the same integers).  The
-    kernel fleet all-reduces these and finalizes once.  ``.plain_routes``
-    counts the calls that took the plain sums."""
-    if digit_kernels_fit(scene, leaf_xy, leaf_z, points.device):
+    on CUDA tensors, at any grid size; on CPU tensors ``fast_digit_sums`` /
+    ``exact_digit_sums`` (int64 ``index_add_``, exact in any order: the
+    same integers), counted in ``.plain_routes``.  The kernel fleet
+    all-reduces these and finalizes once."""
+    if points.device.type != "cpu":
         raw = accumulate_fast_stacked_raw if quant == "fast" else accumulate_exact_stacked_raw
         return raw(points, mask, scene, leaf_xy, leaf_z)
     digit_sums_stacked.plain_routes += 1
@@ -122,9 +109,7 @@ def voxel_accumulate_stacked(
     S stacked frames in one kernel call; each frame's result is the one a
     single-frame call gives.  f64 points on the exact route sum in f64
     (K6f's double build: the JAX f64 contraction's sums up to its
-    order).  Past K1's and K5's ``max_cells`` the digit
-    sums are the plain integer ones, finalized by K1's or K5's finalize
-    (``digit_sums_stacked``): the same bits."""
+    order)."""
     if quant not in ("fast", "exact"):
         raise ValueError(f"unknown voxel_quant {quant!r}")
     if quant == "exact" and points.dtype == torch.float64:
@@ -132,10 +117,6 @@ def voxel_accumulate_stacked(
     points = points.to(torch.float32).contiguous()
     if quant == "exact" and exact_route(points.shape[1], leaf_xy, leaf_z) == "K6":
         return accumulate_bf16x3_stacked(points, mask, scene, leaf_xy, leaf_z)
-    if not digit_kernels_fit(scene, leaf_xy, leaf_z, points.device):
-        sums, npts = digit_sums_stacked(points, mask, scene, leaf_xy, leaf_z, quant)
-        fin = finalize_fast_stacked if quant == "fast" else finalize_exact_stacked
-        return fin(sums, scene, leaf_xy, leaf_z), npts
     acc_fn = accumulate_fast_stacked if quant == "fast" else accumulate_exact_stacked
     return acc_fn(points, mask, scene, leaf_xy, leaf_z)
 

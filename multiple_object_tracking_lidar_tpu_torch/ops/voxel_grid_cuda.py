@@ -28,8 +28,8 @@ S = 1.
 Each wrapper (``accumulate_fast_stacked``, ``accumulate_exact_stacked``,
 ``accumulate_bf16x3_stacked``, ``accumulate_f32_stacked``) launches its
 kernel for CUDA tensors and runs its ``*_plain`` version for CPU tensors;
-``.launches`` counts kernel launches (``accumulate_f32_stacked.launches_f64``
-its double build's).  All return ``((S, 4, n_cells) [sum_x, sum_y, sum_z,
+``.launches`` counts kernel launches (``accumulate_f32_stacked.launches_by``
+counts its f32 and double builds' by C entry).  All return ``((S, 4, n_cells) [sum_x, sum_y, sum_z,
 count]`` in f32 (f64 from the double build), ``(S,) i32 mask-nonzero point
 count)``.
 
@@ -40,7 +40,9 @@ probes in ``scripts/micro_acc_v5.py`` and ``micro_acc_v7.py``.
 K1 and K5 are one launch per call (``csrc/digit_cluster.cuh``): the
 grid's cells in ranges, each held in one CTA's shared memory, the frame's
 points in chunks, the chunks of a range one thread-block cluster
-(``digit_layout``), up to ``max_cells`` cells.
+(``digit_layout``), at any grid size: up to ``max_cells`` cells the
+ranges of PR 8's layouts, past it more ranges ("K1 wide", "K5 wide"), each
+CTA reading every point of its frame and keeping its own range.
 The kernel fleet (``parallel/sharding.py``) runs their histograms and
 finalizes apart: ``accumulate_*_stacked_raw`` gives the int32 digit sums,
 the fleet all-reduces them over its point shards, and
@@ -51,6 +53,7 @@ These four wrappers count their launches too.
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 
@@ -237,8 +240,15 @@ def finalize_fast_digits(sums: torch.Tensor, k: dict) -> torch.Tensor:
 
 
 def max_cells(device=None) -> int:
-    """Largest grid K1 and K5 hold: ``max_cluster`` ranges (16 on the H100)
-    of ``CTA_CELLS`` cells each, 232,320 cells."""
+    """Largest grid of ``max_cluster`` ranges (16 on the H100) of
+    ``CTA_CELLS`` cells each, 232,320 cells: PR 8's layouts.  Past it K1
+    and K5 take more ranges (``digit_layout``), the CTAs of a range reading
+    their chunks of the frame's points: at the floor's 1,119,963 cells 128
+    ranges of one chunk, i.e. 128 reads of each point, ~200 MB of L2
+    traffic per frame at N = 131,072, spread over 128 SMs -- where one pass
+    of int32 atomicAdds into a zeroed device histogram would move the 18
+    MB histogram through device memory twice (zero, then finalize) in two
+    more launches, and its atomics would leave the SM."""
     return max_cluster(device) * CTA_CELLS
 
 
@@ -250,10 +260,11 @@ def _span(n_cells: int, ranges: int) -> int:
 
 def digit_layout(n_cells: int, s: int, groups: int = 1, device=None) -> tuple[int, int]:
     """(ranges, chunks) of a K1 (``groups`` 1) or K5 (3) launch over S
-    frames: the fewest cell ranges C (a power of two) whose CTAs hold their
-    range in shared memory (``CTA_CELLS``); then the most point chunks R
-    (the cluster size, a power of two up to ``max_cluster``), and then the
-    most ranges, that keep S x groups x C x R within ``CTA_BUDGET`` CTAs."""
+    frames: the fewest cell ranges C (a power of two, any number) whose
+    CTAs hold their range in shared memory (``CTA_CELLS``); then the most
+    point chunks R (the cluster size, a power of two up to
+    ``max_cluster``), and then the most ranges, that keep S x groups x C x R
+    within ``CTA_BUDGET`` CTAs."""
     top = max_cluster(device)
     ranges = 1
     while _span(n_cells, ranges) > CTA_CELLS:
@@ -285,16 +296,6 @@ def _check_points(points, mask, name, channel_major=False, dtypes=None):
     return s, n
 
 
-def _check_cells(nc: int, name: str, device) -> None:
-    if nc > max_cells(device):
-        raise ValueError(
-            f"{nc} grid cells exceed {name}'s {max_cells(device)}: {max_cluster(device)} "
-            f"ranges of {CTA_CELLS} cells, each in one CTA's shared memory at 16 B/cell; "
-            "the dispatcher takes the plain digit sums there "
-            "(ops/voxel_grid.py::digit_sums_stacked)"
-        )
-
-
 @functools.lru_cache(maxsize=64)
 def _launch_geometry(scene: SceneBounds, leaf_xy: float, leaf_z: float, quant: str) -> tuple:
     """``kernel_params`` in the order the K1 / K5 entries take them
@@ -317,15 +318,15 @@ def _launch_digits(name, entry, quant, n_ch, points, mask, scene, leaf_xy, leaf_
     geom = _launch_geometry(scene, leaf_xy, leaf_z, quant)
     nc = geom[0]
     dev = points.device
-    _check_cells(nc, name, dev)
     auto = digit_layout(nc, s, 1 if quant == "fast" else 3, dev)
     ranges = auto[0] if ranges is None else ranges
     chunks = auto[1] if chunks is None else chunks
     top = max_cluster(dev)
-    if (ranges not in (1, 2, 4, 8, 16) or ranges > top or chunks not in (1, 2, 4, 8, 16)
+    if (ranges < 1 or ranges & (ranges - 1) or chunks not in (1, 2, 4, 8, 16)
             or chunks > top or _span(nc, ranges) > CTA_CELLS):
         raise ValueError(f"{name}: {ranges} ranges x {chunks} chunks cannot hold {nc} cells "
-                         f"({CTA_CELLS} per CTA, at most {top} of each)")
+                         f"({CTA_CELLS} per CTA, ranges a power of two, at most {top} "
+                         "chunks)")
     m8 = _build.byte_mask(mask)
     out = (torch.empty((s, n_ch, nc), dtype=torch.int32, device=dev) if raw
            else torch.empty((s, 4, nc), dtype=torch.float32, device=dev))
@@ -811,21 +812,19 @@ def accumulate_f32_stacked(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K6 (f32 mode) on CUDA tensors, its plain version on CPU tensors.
     f64 points sum in f64: on the card K6f's double build
-    (``motl_voxel_sums_f64``, counted in ``.launches_f64``), the JAX f64
+    (``motl_voxel_sums_f64``, counted in ``.launches_by``), the JAX f64
     scatter-add's sums (the point list's and the vmap fleet's accumulator
     under dtype="float64", and the exact route's there)."""
     if points.device.type == "cpu":
         return accumulate_f32_stacked_plain(points, mask, scene, leaf_xy, leaf_z)
     out = _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, 1)
-    if points.dtype == torch.float64:
-        accumulate_f32_stacked.launches_f64 += 1
-    else:
-        accumulate_f32_stacked.launches += 1
+    entry = "motl_voxel_sums_f64" if points.dtype == torch.float64 else "motl_voxel_bf16x3"
+    _build.count(accumulate_f32_stacked, entry, "motl_voxel_bf16x3")
     return out
 
 
-accumulate_f32_stacked.launches = 0
-accumulate_f32_stacked.launches_f64 = 0   # the double build's
+accumulate_f32_stacked.launches = 0                   # the f32 build's
+accumulate_f32_stacked.launches_by = collections.Counter()   # by C entry
 
 
 # ---------------------------------------------------------------------------

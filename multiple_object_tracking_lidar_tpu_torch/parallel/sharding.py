@@ -18,8 +18,7 @@ chosen as the JAX package chooses them (sharding.py:88-107):
 
 * **kernel fleet** (``voxel_mode="onehot"`` + ``cluster_backend="grid"``):
   the local point shard padded to a multiple of 512 with masked rows, K1's
-  or K5's histogram alone (``accumulate_*_stacked_raw``; past their
-  ``max_cells`` the plain integer digit sums, ``voxel_grid.digit_sums_stacked``),
+  or K5's histogram alone at any grid size (``voxel_grid.digit_sums_stacked``),
   ``all_reduce`` of the int32 digit sums and of the point counts over the
   space group --
   exactly two collectives, and the integer sums make the result the same
@@ -33,11 +32,10 @@ chosen as the JAX package chooses them (sharding.py:88-107):
   scatter sums in the compute dtype (K6's f32 mode, or its double build
   K6f f64) whatever ``voxel_mode`` says, an all-reduce in that dtype, and
   perception from the accumulator with no per-cell static table -- on a
-  grid config the stencil CC with the per-point map lookup, since the JAX
-  program's map is a tracer there (sharding.py:316-333).  That stencil CC
-  has no double build, so an f64 grid config's vmap fleet raises on the
-  card at its plan (``check_f64_routes``, ROADMAP item 27's tail) and runs
-  on the CPU; an f64 point-list config's runs on the card.  The track step is the same
+  grid config the stencil CC (K14, built for f32 and f64 centroids) with
+  the per-point map lookup, since the JAX program's map is a tracer there
+  (sharding.py:316-333); every config runs on the card in f32 and f64.
+  The track step is the same
   B x 1 K4 launch, whose decisions equal the jnp associator the JAX vmap
   fleet pins; an explicit ``assoc_backend="pallas"`` raises, as it does
   there.

@@ -21,11 +21,12 @@ one of two perception paths:
   the sorted runs with K7.  ``grid_cc`` picks the CC as the JAX package
   does on the TPU: "auto" and "pallas" take K2 where the map has a per-cell
   static table and the grid fits K2 (454,656 cells); otherwise ("jnp", a
-  rotated or coarse map, a larger grid) the finalize, the static drop (``remove_static_cells``
-  with a table, the per-point map lookup ``remove_static`` without one) and
-  the stencil CC (``ops/cluster_grid.py::connected_components_grid``) run in
-  plain torch (an f64 step on the card raises there: ``check_f64_routes``),
-  and an explicit "pallas" that K2 cannot honour raises;
+  rotated or coarse map, a larger grid) the finalize and the static drop
+  (``remove_static_cells`` with a table, the per-point map lookup
+  ``remove_static`` without one) run in torch and the stencil CC is K14
+  (``ops/cluster_grid.py::connected_components_grid``, ``ops/
+  stencil_cc_cuda.py``), and an explicit "pallas" that K2 cannot honour
+  raises;
 - the point list (``cluster_backend="jnp"`` or ``"pallas"``; the JAX
   package's default ``TrackerConfig()``):
 
@@ -35,8 +36,8 @@ one of two perception paths:
     sweeps) -> cluster postprocess -> K3f circumcenter (one launch)
 
 and then the track step: K4 (``ops/track_cuda.py``), the whole step in
-one launch, or, for an f32 greedy step past K4's bounds, its plain route
-(``track_route``; a Hungarian or f64 step past them raises on the card).
+one launch at any bank and detection count (K4 xl past the narrow builds'
+1,024 slots and 128 detections).
 
 Under ``dtype="float64"`` the stages follow the JAX package's f64 route:
 the quantize, K1 (fast digits, its sums cast), K7 (runs), K8 (the Pallas
@@ -45,8 +46,8 @@ scatter sums (``voxel_mode="dense"``) and the exact route's sums are K6f's
 double build, the jnp CC's adjacency K8a's, the dense grid's CC K2's (fed
 K7's f32 sums under ``voxel_mode="runs"``: finalized in f32, then
 widened), the circumcenter K3f's and the track step K4's; the scan and
-the runs' division run in f64 torch.  No f64 stage takes a plain version
-of a kernel on the card (``check_f64_routes``).  Every
+the runs' division run in f64 torch.  No stage in either dtype takes a
+plain version of a kernel on the card.  Every
 kernel lives in ``ops/*_cuda.py`` or ``ops/cluster_pallas.py``.
 Perception is stateless, so it runs on S stacked frames at once:
 ``bind_env`` is S = 1 and ``bind_env_multi`` perceives its S frames in one
@@ -54,8 +55,7 @@ pass (each frame's result is the one ``bind_env`` computes -- stacked
 frames never mix), then one K4 launch scans their track steps in order.
 PyTorch runs eagerly, so frames stay on the device between stages; the
 dense-grid paths make no host sync, the jnp CC one per
-``ops/cluster.py::CHECK_EVERY`` sweeps, the stencil CC one per iteration
-and K4's plain route one per frame (``track_step_plain.host_syncs``).
+``ops/cluster.py::CHECK_EVERY`` sweeps.
 ``perceive_from_acc`` and ``step_from_voxel_acc`` start after the
 accumulator, as the fleet's vmap form does (``parallel/sharding.py``).
 Other configurations raise ``NotImplementedError`` naming their ROADMAP
@@ -104,7 +104,6 @@ from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import (
 )
 from multiple_object_tracking_lidar_tpu_torch.ops.track_cuda import (
     TrackOutputs,
-    kernel_fits,
     track_frames,
     track_frames_plain,
 )
@@ -117,7 +116,6 @@ from multiple_object_tracking_lidar_tpu_torch.ops.voxel import (
     voxel_accumulate_stacked as scatter_accumulate_stacked,
 )
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid import (
-    digit_kernels_fit,
     finalize_dense_cm,
     voxel_accumulate_stacked,
 )
@@ -136,9 +134,7 @@ from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
 
 # The compute dtypes this package runs, each on every configuration
 # TrackerConfig accepts (it refuses the combinations the JAX package
-# refuses), and the ROADMAP item that holds the f64 stages still without a
-# double build on the card (check_f64_routes raises there).
-F64_TAIL = "ROADMAP Queue 1, item 27's tail: f64 stages with no double build on the card"
+# refuses).
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
@@ -173,31 +169,6 @@ def check_config(config: TrackerConfig) -> None:
         raise NotImplementedError(
             f"dtype={config.dtype!r} is not ported yet: this package runs dtype in "
             f"{tuple(_DTYPES)} (ROADMAP Queue 1: other compute dtypes)"
-        )
-
-
-def check_f64_routes(config: TrackerConfig, device, *, k1: bool = True, k2: bool = True,
-                     k4: bool = True) -> None:
-    """NotImplementedError, naming ROADMAP item 27's tail, where an f64 step
-    on a CUDA device would run a stage in plain torch: every f64 stage on
-    the card is a kernel (K1, K6f, K7 or K8 in f32 where the JAX route is
-    f32; K6f, K8a, K2, K3f and K4 built for double) and none falls back.  ``k1`` is False where the grid passes K1's cells (the
-    plain digit sums), ``k2`` where the dense grid's CC is not K2 (the
-    finalize, static drop and stencil CC in plain torch), ``k4`` where the
-    greedy step takes its plain route.  On the CPU every stage is plain
-    and nothing raises; f32 keeps its plain routes on the card."""
-    if config.dtype != "float64" or torch.device(device).type != "cuda":
-        return
-    plain = [name for name, ok in (
-        ("the digit sums past K1's cells", k1),
-        ("the finalize, static drop and stencil CC without K2 (grid_cc='jnp', a map "
-         "with no per-cell static table, or a grid past K2's cells)", k2),
-        ("the greedy track step past K4's bounds or under assoc_backend='jnp'", k4),
-    ) if not ok]
-    if plain:
-        raise NotImplementedError(
-            f"dtype='float64' on the card runs no plain version, and these stages have "
-            f"no double build: {'; '.join(plain)} ({F64_TAIL})"
         )
 
 
@@ -237,8 +208,7 @@ def make_plan(config: TrackerConfig, env: MapEnv, device, cell_table: bool = Tru
     JAX fleet's vmap form takes it (its map is a tracer there).  K2 runs
     where ``grid_cc`` is "auto" or "pallas", a table exists and the grid
     fits K2 (pipeline.py:527-549); "pallas" that K2 cannot honour raises
-    ValueError.  An f64 plan on the card whose grid passes K1 or does not
-    take K2 raises NotImplementedError (``check_f64_routes``)."""
+    ValueError; where K2 does not run the stencil CC is K14."""
     cfg = config
     dims = grid_shape(cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
     env = env._replace(**{f: getattr(env, f).to(device) for f in env._fields if f != "host"})
@@ -259,11 +229,6 @@ def make_plan(config: TrackerConfig, env: MapEnv, device, cell_table: bool = Tru
             "use a coarser leaf or grid_cc='auto' for the stencil fallback"
         )
     k2 = table is not None and fits and cfg.grid_cc in ("auto", "pallas")
-    if cfg.dtype == "float64":
-        # K1 runs the fast digits alone: under f64 the exact route is K6f's
-        k1 = (cfg.voxel_mode != "onehot" or cfg.voxel_quant != "fast"
-              or digit_kernels_fit(cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z, device))
-        check_f64_routes(cfg, device, k1=k1, k2=k2)
     scal = make_scal(env, cfg.cluster_tolerance, device) if k2 else None
     return GridPlan(env=env, dims=dims, table=table, scal=scal, k2=k2)
 
@@ -597,35 +562,26 @@ def track_batch(
 ) -> tuple[TrackerState, TrackOutputs]:
     """The track step of B banks over S frames each (state fields with a
     leading (B,) axis; dets (B, S, D, 4), det_valid (B, S, D), t (B, S)):
-    K4 in one launch (``ops/track_cuda.py::track_frames``), or its plain
-    route frame by frame where K4 does not run: on the CPU, and for greedy
-    under ``assoc_backend="jnp"`` (the JAX package's choice, ops/assign.py:
-    168-178) and past K4's bounds (K > 1,024 slots or D > 128
-    detections), where the JAX package takes its jnp scan too.  A
-    Hungarian step past K4's bounds raises on the card (ROADMAP item 26),
-    and so does an f64 step that would take the plain route (item 27).
-    Every route makes the same decisions."""
+    K4 in one launch (``ops/track_cuda.py::track_frames``) on the card, at
+    any bank and detection count and under either ``assoc_backend``, or its
+    plain version frame by frame on the CPU.  Every route makes the same
+    decisions."""
     route = track_route(config, state.bank.alive.shape[-1], dets.shape[-2], dets.device)
     run = track_frames if route == "kernel" else track_frames_plain
     return run(state, dets, det_valid, t, config=config, gains_xy=gains_xy)
 
 
 def track_route(config: TrackerConfig, k: int, d: int, device=None) -> str:
-    """The track step's route on the card for a bank of ``k`` slots and
-    ``d`` detection slots: "kernel" (K4) or "plain" (``track_frames_plain``
-    on the device).  The plain route is greedy's alone: under
-    ``assoc_backend="jnp"`` and past K4's bounds; an f64 step on a CUDA
-    ``device`` raises there instead (``check_f64_routes``).  ``assoc_backend`` picks
-    the greedy engine only -- the JAX package passes it to the greedy
-    associator alone (pipeline.py:984-990) -- so a Hungarian step takes K4
-    whatever it says, and past K4's bounds K4 raises (ROADMAP item 26).
-    On the CPU every route is the plain version."""
-    if config.association == "hungarian":
-        return "kernel"
-    route = "kernel" if config.assoc_backend != "jnp" and kernel_fits(k, d) else "plain"
-    if device is not None:
-        check_f64_routes(config, device, k4=route == "kernel")
-    return route
+    """The track step's route for a bank of ``k`` slots and ``d`` detection
+    slots: "kernel" (K4, or K4 xl past its narrow builds' bounds) on the
+    card (``device`` None or CUDA), "plain" (``track_frames_plain``) on the
+    CPU.
+    ``assoc_backend`` picks the greedy engine in the JAX package (its
+    Pallas scan or its jnp scan, pipeline.py:984-990), whose decisions it
+    documents as identical (config.py:179-186); the card runs K4 under
+    both, as it does for a Hungarian step."""
+    del config, k, d
+    return "plain" if device is not None and torch.device(device).type == "cpu" else "kernel"
 
 
 def _frame_output(o: TrackOutputs, p: Perception) -> FrameOutput:

@@ -83,7 +83,18 @@ every FrameOutput field stacked over frames:
   ``tests/golden/torch_learning_headline.npz``;
 - ``cli_tune``: the JAX CLI's ``tune --map assets/sim_map.yaml`` at its
   defaults (``TrackerConfig()``, ``--frames 60 --steps 30``): its JSON
-  lines -> ``tests/golden/torch_cli_tune.json``.
+  lines -> ``tests/golden/torch_cli_tune.json``;
+- ``floor``, ``floor_hungarian`` and ``floor_f64``: the floor case
+  (``bench_cases.floor_golden_case``: ``floor_map`` rebuilt from its seed,
+  150 movers, C = 256 past K4's 128 detections, K = 64) at the goldens'
+  cut floor of 16 m (328,683 cells, the JAX stencil CC), greedy f32, under
+  ``association="hungarian"`` and under ``dtype="float64"`` through
+  ``Tracker.bind_env``, 8 frames, with the map's hash (``map_hash``) ->
+  ``tests/golden/torch_floor{,_hungarian,_f64}_headline.npz``;
+- ``track_wide``: the JAX ``track_step`` (jitted) on seeded synthetic frames
+  (``bench_cases.track_wide_inputs``) at (K, D) = (2,048, 32) and (64,
+  256), greedy and Hungarian, f32 and f64: each case's outputs and final
+  bank under its own key prefix -> ``tests/golden/torch_track_wide.npz``.
 
 tests/test_torch_golden.py recomputes the first frames and checks them
 against the files.
@@ -124,7 +135,14 @@ GOLDENS = {
     "cli_f64_default": os.path.join(GOLDEN_DIR, "torch_cli_f64_default_headline.json"),
     "learning": os.path.join(GOLDEN_DIR, "torch_learning_headline.npz"),
     "cli_tune": os.path.join(GOLDEN_DIR, "torch_cli_tune.json"),
+    "floor": os.path.join(GOLDEN_DIR, "torch_floor_headline.npz"),
+    "floor_hungarian": os.path.join(GOLDEN_DIR, "torch_floor_hungarian_headline.npz"),
+    "floor_f64": os.path.join(GOLDEN_DIR, "torch_floor_f64_headline.npz"),
+    "track_wide": os.path.join(GOLDEN_DIR, "torch_track_wide.npz"),
 }
+FLOOR_FIELDS = {"floor": {}, "floor_hungarian": {"association": "hungarian"},
+                "floor_f64": {"dtype": "float64"}}
+
 CLI_FRAMES = 16
 CLI_IHGP_CONFIG = "position_filter: ihgp\n"   # the cli_ihgp config file's text
 CLI_CONFIGS = {"cli_ihgp": CLI_IHGP_CONFIG,   # each CLI golden's config file, if any
@@ -137,7 +155,8 @@ N_FRAMES = 12
 # frames (the fleet: steps) per golden where not N_FRAMES
 FRAMES = {"default": 4, "fleet": 3, "dense_hungarian": 8, "f64_default": 4, "f64_pointlist": 4,
           "f64_pointlist_scan": 4, "f64_pointlist_runs": 4, "f64_exact": 4, "f64_runs": 4,
-          "cli_f64_default": 8, "learning": 16}
+          "cli_f64_default": 8, "learning": 16, "floor": 8, "floor_hungarian": 8,
+          "floor_f64": 8}
 LEARN_PERIOD = 0.2   # the learning golden's learn_period (s): an update every 2 frames
 TUNE_ARGV = ["tune", "--map", "assets/sim_map.yaml"]   # cli_tune: the JAX defaults
 FLEET_STREAMS = 8
@@ -165,7 +184,7 @@ for _case in ("pointlist", "pointlist_scan", "pointlist_runs", "exact", "runs"):
 
 def uses_f64(case: str) -> bool:
     """True iff the golden runs dtype="float64" (JAX then needs x64 on)."""
-    return "f64" in case
+    return "f64" in case or case == "track_wide"
 
 
 def n_frames_of(case: str) -> int:
@@ -391,6 +410,114 @@ def cli_outputs(case: str, n_frames: int | None = None) -> dict:
             "records": records, "speeds": speeds}
 
 
+def jax_config_of(tcfg, **fields):
+    """The JAX ``TrackerConfig`` with every field of the port's ``tcfg``,
+    then ``fields``."""
+    import dataclasses
+
+    from multiple_object_tracking_lidar_tpu.config import Capacities, SceneBounds, TrackerConfig
+
+    kw = {f.name: getattr(tcfg, f.name) for f in dataclasses.fields(tcfg)
+          if f.name not in ("caps", "scene")}
+    return TrackerConfig(**kw, caps=Capacities(**dataclasses.asdict(tcfg.caps)),
+                         scene=SceneBounds(**dataclasses.asdict(tcfg.scene))).replace(**fields)
+
+
+def floor_env(jcfg):
+    """The JAX MapEnv of the goldens' floor map, and the map's hash."""
+    import dataclasses
+
+    from multiple_object_tracking_lidar_tpu.ops.static_mask import build_static_mask
+    from multiple_object_tracking_lidar_tpu.utils.pgm import MapInfo, OccupancyGrid
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases as bc
+
+    grid = bc.floor_map(bc.FLOOR_SEED, bc.FLOOR_GOLDEN_M)
+    jgrid = OccupancyGrid(MapInfo(**dataclasses.asdict(grid.info)), grid.data)
+    return (build_static_mask(jgrid, jcfg.static_tolarance, jcfg.occupied_threshold),
+            bc.floor_map_hash(grid))
+
+
+def floor_outputs(case: str, n_frames: int) -> dict:
+    """The ``floor*`` goldens' arrays: the JAX ``Tracker.bind_env`` over the
+    first n_frames frames of the goldens' floor, and the map's hash."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from multiple_object_tracking_lidar_tpu.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu.tracker.state import Frame
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases as bc
+
+    tcfg, _, sc = bc.floor_golden_case()
+    jcfg = jax_config_of(tcfg, **FLOOR_FIELDS[case])
+    env, map_hash = floor_env(jcfg)
+    tracker = Tracker(jcfg)
+    state = tracker.init_state()
+    step = tracker.bind_env(env, donate_state=False)
+    rows = []
+    for k in range(n_frames):
+        buf, mask, t = _frame(sc, k, jcfg.caps.n_max_points)
+        state, out = step(state, Frame(jnp.asarray(buf), jnp.asarray(mask), jnp.float32(t)))
+        rows.append(jax.tree.map(np.asarray, out))
+        print(f"{case} frame {k}", flush=True)
+    out = {f: np.stack([getattr(r, f) for r in rows]) for f in rows[0]._fields}
+    out["map_hash"] = np.array(map_hash)
+    return out
+
+
+def track_wide_outputs() -> dict:
+    """The ``track_wide`` golden: per case ``k{K}_d{D}_{assoc}_{dtype}`` of
+    ``bench_cases.TRACK_WIDE``, on ``bench_cases.track_wide_inputs`` (rebuilt
+    from their seed where the golden is read), the jitted JAX
+    ``track_step``'s outputs per frame (``out_*``) and its final bank's
+    integers (``bank_*``); Hungarian at K = 2,048 one frame (every phase of
+    its auction runs to the cap)."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from multiple_object_tracking_lidar_tpu.config import Capacities, TrackerConfig
+    from multiple_object_tracking_lidar_tpu.tracker.pipeline import (
+        Perception,
+        Tracker,
+        track_step,
+    )
+    from multiple_object_tracking_lidar_tpu.tracker.state import TrackBank, TrackerState
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import (
+        TRACK_WIDE,
+        TRACK_WIDE_L,
+        track_wide_inputs,
+    )
+
+    out = {}
+    for k, d, assoc, dtype in TRACK_WIDE:
+        key = f"k{k}_d{d}_{assoc}_{dtype}"
+        caps = Capacities(n_max_points=1024, m_max_voxels=256, m_max_dynamic=128,
+                          c_max_clusters=d, p_max_cluster=32, k_max_tracks=k)
+        jcfg = TrackerConfig(data_length=TRACK_WIDE_L, caps=caps, association=assoc,
+                             dtype=dtype)
+        bank, scal, frames = track_wide_inputs(k, d, assoc, dtype)
+        state = TrackerState(bank=TrackBank(**{f: jnp.asarray(v) for f, v in bank.items()}),
+                             **{f: jnp.asarray(v) for f, v in scal.items()})
+        step = jax.jit(functools.partial(track_step, config=jcfg,
+                                         gains_xy=Tracker(jcfg).gains_xy))
+        rows = []
+        for dets, valid, t in frames:
+            z = jnp.int32(0)
+            state, o = step(state, Perception(jnp.asarray(dets), jnp.asarray(valid),
+                                              jnp.asarray(t), z, z, z,
+                                              jnp.int32(valid.sum()), z))
+            rows.append(jax.tree.map(np.asarray, o))
+        for f in rows[0]._fields:
+            out[f"{key}/out_{f}"] = np.stack([getattr(r, f) for r in rows])
+        for f in ("alive", "obj_id", "birth_seq"):
+            out[f"{key}/bank_{f}"] = np.asarray(getattr(state.bank, f))
+        print(f"track_wide {key}: {len(rows)} frames", flush=True)
+    return out
+
+
 def golden_outputs(n_frames: int | None = None, case: str = "slice",
                    n_streams: int = FLEET_STREAMS) -> dict:
     """{field: (n_frames, ...) array} of the JAX FrameOutputs of ``case``
@@ -412,6 +539,10 @@ def golden_outputs(n_frames: int | None = None, case: str = "slice",
         return growth_outputs(n_frames_of(case) if n_frames is None else n_frames)
     if case == "learning":
         return learning_outputs(n_frames_of(case) if n_frames is None else n_frames)
+    if case in FLOOR_FIELDS:
+        return floor_outputs(case, n_frames_of(case) if n_frames is None else n_frames)
+    if case == "track_wide":
+        return track_wide_outputs()
     cfg, env, sc = bench.dense_case() if case == "dense_hungarian" else bench.headline_case()
     if case in ("default", "f64_default"):
         from multiple_object_tracking_lidar_tpu.config import TrackerConfig

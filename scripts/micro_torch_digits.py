@@ -31,6 +31,7 @@ import argparse
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -59,25 +60,37 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-# A torch.profiler trace on the H100 now and then loses device events at
-# its start: a few, a block of a hundred markers, or every event of the
-# trace (seen late in chip_smoke.py's run).  So each profiled run
-# sits between MARKS marker kernels (``torch.cuda._sleep``'s spin_kernel,
-# ~10 us each) that the counts leave out, and a trace is whole when it kept
-# more markers than one block: a loss at either end then stopped short of
-# the run.
+# About one torch.profiler trace in a hundred on the H100 loses device
+# events at its start or at its end: a few, a block of a hundred markers,
+# or every event of the trace.  The losses come in runs of up to five
+# consecutive traces, under every CUPTI setting PyTorch reads
+# (``scripts/probe_torch_trace_loss.py``).  So each profiled run sits
+# between MARKS marker kernels (``torch.cuda._sleep``'s spin_kernel, ~10 us
+# each) that the counts leave out, and a trace is whole when it kept more
+# markers than one block: a loss at either end then stopped short of the
+# run.  A trace that is not whole is taken again after a pause that grows
+# with each try (RETRY_PAUSE_S seconds times the try), to outlast a run of
+# losses.
 MARKS = 128
 MARK_CYCLES = 20_000
+TRIES = 8
+RETRY_PAUSE_S = 0.5
+retaken = 0   # traces taken again in this process, for the caller's log
 
 
-def whole_trace(run, tries: int = 3, with_stack: bool = False):
+def whole_trace(run, tries: int = TRIES, with_stack: bool = False):
     """(every event, the run's device events without the markers, whole)
     of a torch.profiler trace of ``run()`` between marker kernels.  A trace
-    that is not whole is taken again, up to ``tries`` times; the last one
-    comes back with whole False."""
+    that is not whole is taken again, up to ``tries`` times in all, after a
+    pause of ``RETRY_PAUSE_S`` times the try; the last one comes back with
+    whole False."""
+    global retaken
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
+    for attempt in range(tries):
+        if attempt:
+            retaken += 1
+            time.sleep(RETRY_PAUSE_S * attempt)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      with_stack=with_stack) as prof:
             for _ in range(MARKS):

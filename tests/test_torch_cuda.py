@@ -395,8 +395,9 @@ def test_k5_k6_match_plain(dev, small, name, leaf):
 
 def test_k5_raises_past_one_cta(dev, small):
     """298,377 cells (0.05 m / 0.25 m over 6.4 x 12.8 x 2.1 m): past K5's
-    16 ranges of CTAs (232,320 cells), the wrapper raises and names the
-    dispatcher's plain route; it never falls back."""
+    16 ranges of CTAs (232,320 cells) the wrapper no longer raises: K5
+    takes the wide layout (32 ranges), one launch, bit for bit its plain
+    version; it never falls back."""
     from multiple_object_tracking_lidar_tpu_torch.config import SceneBounds
 
     _, _, frames = small
@@ -404,8 +405,12 @@ def test_k5_raises_past_one_cta(dev, small):
     P = torch.from_numpy(frames[0][0][None]).to(dev)
     M = torch.from_numpy(frames[0][1][None]).to(dev)
     assert voxel_grid_cuda.kernel_params(scene, 0.05, 0.25)["n_cells"] == 298_377
-    with pytest.raises(ValueError, match="digit_sums_stacked"):
-        voxel_grid_cuda.accumulate_exact_stacked(P, M, scene, 0.05, 0.25)
+    assert voxel_grid_cuda.digit_layout(298_377, 1, 3)[0] == 32
+    n0 = voxel_grid_cuda.accumulate_exact_stacked.launches
+    got = voxel_grid_cuda.accumulate_exact_stacked(P, M, scene, 0.05, 0.25)
+    assert voxel_grid_cuda.accumulate_exact_stacked.launches == n0 + 1
+    want = voxel_grid_cuda.accumulate_exact_stacked_plain(P.cpu(), M.cpu(), scene, 0.05, 0.25)
+    assert _bits(got[0], want[0]) and _bits(got[1], want[1])
 
 
 @pytest.mark.parametrize("grid", ["CLI grid", "default scene"])
@@ -787,32 +792,39 @@ def test_k4_track_step_matches_plain(dev, small, K, B, S, D):
     assert _same_tree(got, want)
 
 
-@pytest.mark.parametrize("k_max,c_max", [(2048, 16), (64, 256)])
-def test_f1_track_step_past_k4_bounds_runs_plain_on_the_card(dev, small, k_max, c_max):
-    """Past K4's bounds the track step runs its plain route on the card:
-    no launch, no raise, the CPU route's bits."""
+@pytest.mark.parametrize("k_max,c_max,backend", [(2048, 16, "auto"), (64, 256, "auto"),
+                                                 (64, 16, "jnp")])
+def test_f1_track_step_past_k4_bounds_launches_k4_xl(dev, small, k_max, c_max, backend):
+    """Past K4's narrow builds (K > 1,024 slots, D > 128 detections) the
+    track step launches K4 xl, and under ``assoc_backend="jnp"`` K4: one
+    launch, no host sync, the CPU route's bits."""
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
     from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
     from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import track_batch
     from multiple_object_tracking_lidar_tpu_torch.tracker.state import map_state
 
     cfg, _, _ = small
-    cfg = cfg.replace(caps=dataclasses.replace(cfg.caps, k_max_tracks=k_max, c_max_clusters=c_max))
+    cfg = cfg.replace(assoc_backend=backend,
+                      caps=dataclasses.replace(cfg.caps, k_max_tracks=k_max, c_max_clusters=c_max))
     st, dets, valid, t = track_scene(3, cfg, k_max, c_max, 1, 2, (), "cpu")
     kw = dict(config=cfg, gains_xy=Tracker(cfg, "cpu").gains_xy)
     want = track_batch(st, dets, valid, t, **kw)
-    n0 = track_cuda.track_frames.launches
+    entry = "motl_track_step" if backend == "jnp" else "motl_track_step_xl"
+    n0 = track_cuda.track_frames.launches_by[entry]
+    syncs = track_cuda.track_step_plain.host_syncs
     got = track_batch(map_state(lambda x: x.to(dev), st), dets.to(dev), valid.to(dev),
                       t.to(dev), config=cfg, gains_xy=Tracker(cfg, dev).gains_xy)
-    assert track_cuda.track_frames.launches == n0
+    assert track_cuda.track_frames.launches_by[entry] == n0 + 1
+    assert track_cuda.track_step_plain.host_syncs == syncs
     assert _same_tree(_nan_canonical(got), _nan_canonical(want))
 
 
 def test_f2_accumulator_past_k1_bound_on_the_card(dev):
-    """298,377 cells, past K1's and K5's 232,320: the plain integer digit
-    sums and K1's / K5's finalize on the card (``plain_routes`` counts
-    them), bit for bit the CPU route, no raise; 51,200 points, so a point
-    block tiles N and exact mode takes K5's route, not K6's."""
+    """298,377 cells, past K1's and K5's 232,320-cell layouts: K1 and K5 in
+    their wide layout (32 ranges) on the card, one launch each, no plain
+    digit sums and no separate finalize, bit for bit the CPU route; 51,200
+    points, so a point block tiles N and exact mode takes K5's route, not
+    K6's."""
     from multiple_object_tracking_lidar_tpu_torch.config import SceneBounds
     from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid
 
@@ -826,15 +838,18 @@ def test_f2_accumulator_past_k1_bound_on_the_card(dev):
         args = (scene, 0.05, 0.25)
         fin = (voxel_grid_cuda.finalize_fast_stacked if quant == "fast"
                else voxel_grid_cuda.finalize_exact_stacked)
-        n_fin, routes = fin.launches, voxel_grid.digit_sums_stacked.plain_routes
+        acc = (voxel_grid_cuda.accumulate_fast_stacked if quant == "fast"
+               else voxel_grid_cuda.accumulate_exact_stacked)
+        n_fin, n_acc = fin.launches, acc.launches
+        routes = voxel_grid.digit_sums_stacked.plain_routes
         got = voxel_grid.voxel_accumulate_stacked(torch.from_numpy(pts).to(dev),
                                                   torch.from_numpy(mask).to(dev), *args, quant=quant)
-        assert voxel_grid.digit_sums_stacked.plain_routes == routes + 1
+        assert voxel_grid.digit_sums_stacked.plain_routes == routes
         want = voxel_grid.voxel_accumulate_stacked(torch.from_numpy(pts), torch.from_numpy(mask),
                                                    *args, quant=quant)
         assert _same_tree(got, want)
         assert got[0].shape[-1] == 298_377
-        assert fin.launches == n_fin + 1
+        assert (fin.launches, acc.launches) == (n_fin, n_acc + 1)
 
 
 @pytest.mark.parametrize("dims,leaf,leaf_z,cluster", [
@@ -1049,9 +1064,9 @@ def test_k4_hungarian_matches_plain(dev, small, K, B, S, D, pf):
 
 def test_hungarian_route_ignores_assoc_backend_on_the_card(dev, small):
     """Under hungarian ``assoc_backend="jnp"`` still takes K4 (the JAX
-    package passes the backend to greedy only); past K4's bounds the
-    Hungarian step raises on the card (ROADMAP item 26) and launches
-    nothing: it takes no plain route there."""
+    package passes the backend to greedy only); past K4's narrow builds
+    (D = 256 detections) the Hungarian step launches K4 xl, bit for bit its
+    plain version, and takes no plain route."""
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
     from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
     from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import track_batch
@@ -1066,10 +1081,13 @@ def test_hungarian_route_ignores_assoc_backend_on_the_card(dev, small):
     assert _same_tree(_nan_canonical(got), _nan_canonical(want))
     cfg2 = cfg.replace(caps=dataclasses.replace(cfg.caps, c_max_clusters=256))
     st2, d2, v2, t2 = track_scene(10, cfg2, 64, 256, 1, 1, (), dev, gated=True)
-    n0 = (track_cuda.track_frames.launches, track_cuda.track_step_plain.host_syncs)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 26"):
-        track_batch(st2, d2, v2, t2, config=cfg2, gains_xy=gains)
-    assert (track_cuda.track_frames.launches, track_cuda.track_step_plain.host_syncs) == n0
+    n0 = (track_cuda.track_frames.launches_by["motl_track_step_xl"],
+          track_cuda.track_step_plain.host_syncs)
+    got = track_batch(st2, d2, v2, t2, config=cfg2, gains_xy=gains)
+    assert (track_cuda.track_frames.launches_by["motl_track_step_xl"],
+            track_cuda.track_step_plain.host_syncs) == (n0[0] + 1, n0[1])
+    want = track_cuda.track_frames_plain(st2, d2, v2, t2, config=cfg2, gains_xy=gains)
+    assert _same_tree(_nan_canonical(got), _nan_canonical(want))
 
 
 @pytest.mark.parametrize("case", ["hungarian", "dense_hungarian"])
@@ -1121,9 +1139,10 @@ def test_k2_f64_matches_plain(dev, small):
     kw = dict(dims=plan.dims, tol=cfg.cluster_tolerance, leaf_xy=cfg.voxel_leaf_size,
               leaf_z=cfg.leaf_z, kwin=plan.table.k)
     w = grid_cuda.fused_finalize_static_cc_stacked
-    n0, n64 = w.launches, w.launches_f64
+    n0, n64 = w.launches, w.launches_by["motl_grid_cc_f64"]
     k = w(accs, *tb, **kw)
-    assert (w.launches, w.launches_f64) == (n0, n64 + 1) and k[0].dtype == torch.float64
+    assert (w.launches, w.launches_by["motl_grid_cc_f64"]) == (n0, n64 + 1)
+    assert k[0].dtype == torch.float64
     p = grid_cuda.fused_finalize_static_cc_stacked_plain(
         accs, *tb, dims=plan.dims, kwin=plan.table.k, max_sweeps=2 * sum(plan.dims),
         offsets=grid_cuda.kernel_offsets(plan.dims, cfg.cluster_tolerance,
@@ -1147,9 +1166,10 @@ def test_k3f_f64_matches_plain(dev, s, c, p):
     mp[2, :20] = np.round(mp[2, :20] * 10) / 10
     t = torch.arange(s, dtype=torch.float64, device=dev) * 0.1 + 1e-12
     MP, MM = torch.from_numpy(mp).to(dev), torch.from_numpy(mm).to(dev)
-    n64 = centroid_cuda.circumcenter_features.launches_f64
+    n64 = centroid_cuda.circumcenter_features.launches_by["motl_circumcenter_features_f64"]
     got = centroid_cuda.circumcenter_features(MP, MM, t)
-    assert centroid_cuda.circumcenter_features.launches_f64 == n64 + 1
+    assert centroid_cuda.circumcenter_features.launches_by["motl_circumcenter_features_f64"] == (
+        n64 + 1)
     assert got.dtype == torch.float64
     assert _bits(got, centroid_cuda.circumcenter_features_plain(MP, MM, t))
 
@@ -1174,16 +1194,17 @@ def test_k4_f64_matches_plain(dev, small, K, B, S, D, pf, assoc):
     st = st._replace(bank=st.bank._replace(window=st.bank.window.double(),
                                            m0=st.bank.m0.double()))
     dets, t = dets.double(), t.double()
-    n0, n64 = track_cuda.track_frames.launches, track_cuda.track_frames.launches_f64
+    by = track_cuda.track_frames.launches_by
+    n0, n64 = track_cuda.track_frames.launches, by["motl_track_step_f64"]
     got = track_cuda.track_frames(st, dets, valid, t, config=cfg, gains_xy=gains)
-    assert (track_cuda.track_frames.launches, track_cuda.track_frames.launches_f64) == (n0, n64 + 1)
+    assert (track_cuda.track_frames.launches, by["motl_track_step_f64"]) == (n0, n64 + 1)
     want = track_cuda.track_frames_plain(st, dets, valid, t, config=cfg, gains_xy=gains)
     assert got[0].bank.window.dtype == torch.float64 and _same_tree(got, want)
 
 
-def test_k4_hungarian_f64_raises_past_k4_bounds(dev, small):
-    """As in f32, a Hungarian f64 step past K4's 128 detections raises
-    (ROADMAP item 26)."""
+def test_k4_hungarian_f64_past_k4_bounds_matches_plain(dev, small):
+    """As in f32, a Hungarian f64 step past K4's 128 detections launches K4
+    xl's double build, bit for bit its plain version."""
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
     from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
 
@@ -1192,9 +1213,13 @@ def test_k4_hungarian_f64_raises_past_k4_bounds(dev, small):
     st, dets, valid, t = track_scene(7, cfg, 64, 256, 1, 1, (), dev, gated=True)
     st = st._replace(bank=st.bank._replace(window=st.bank.window.double(),
                                            m0=st.bank.m0.double()))
-    with pytest.raises(NotImplementedError, match="item 26"):
-        track_cuda.track_frames(st, dets.double(), valid, t.double(), config=cfg,
-                                gains_xy=Tracker(cfg, dev).gains_xy)
+    args = (st, dets.double(), valid, t.double())
+    kw = dict(config=cfg, gains_xy=Tracker(cfg, dev).gains_xy)
+    by = track_cuda.track_frames.launches_by
+    n0 = by["motl_track_step_xl_f64"]
+    got = track_cuda.track_frames(*args, **kw)
+    assert by["motl_track_step_xl_f64"] == n0 + 1
+    assert _same_tree(_nan_canonical(got), _nan_canonical(track_cuda.track_frames_plain(*args, **kw)))
 
 
 def test_f64_slice_gpu_matches_cpu_plain_path(dev, small):
@@ -1212,14 +1237,15 @@ def test_f64_slice_gpu_matches_cpu_plain_path(dev, small):
     for where, e in (("cpu", env_cpu), ("gpu", env)):
         tr = Tracker(cfg, "cpu" if where == "cpu" else dev)
         step, st = tr.bind_env(e), tr.init_state()
-        before = [(w.launches, w.launches_f64) for w in counts]
+        f64_entries = ("motl_grid_cc_f64", "motl_circumcenter_features_f64", "motl_track_step_f64")
+        before = [(w.launches, w.launches_by[e]) for w, e in zip(counts, f64_entries)]
         rows = []
         for buf, mask, t in frames[:7]:
             st, o = step(st, Frame(torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))
             rows.append([x.cpu() for x in o])
         outs[where] = rows
         if where == "gpu":
-            after = [(w.launches, w.launches_f64) for w in counts]
+            after = [(w.launches, w.launches_by[e]) for w, e in zip(counts, f64_entries)]
             assert all(a[0] == b[0] and a[1] == b[1] + 7 for a, b in zip(after, before))
     for rc, rg in zip(outs["cpu"], outs["gpu"]):
         for name, a, b in zip(FrameOutput._fields, rc, rg):
@@ -1228,42 +1254,76 @@ def test_f64_slice_gpu_matches_cpu_plain_path(dev, small):
 
 @pytest.mark.parametrize("route", ["grid_cc_jnp", "no_cell_table", "past_k2", "past_k1",
                                    "greedy_past_k4", "assoc_backend_jnp"])
-def test_f64_plain_routes_raise_on_the_card(dev, small, monkeypatch, route):
-    """Every f64 stage on the card is a kernel: where f32 takes a plain
-    route (the stencil CC without K2, the plain digit sums past K1, the
-    greedy step past K4's bounds or under assoc_backend="jnp"), an f64
-    plan or step on the card raises naming ROADMAP item 27."""
+def test_f64_plain_routes_run_kernels_on_the_card(dev, small, monkeypatch, route):
+    """Every f64 stage on the card is a kernel where a plain route once ran
+    or raised: the stencil CC without K2 (K14's double build), the digit
+    sums past K1's 232,320-cell layouts (K1 wide), the greedy step past K4's
+    narrow builds (K4 xl's double build) or under assoc_backend="jnp" (K4):
+    bit for bit the CPU's plain versions."""
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
-    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+    from multiple_object_tracking_lidar_tpu_torch.ops import stencil_cc_cuda, track_cuda
     from multiple_object_tracking_lidar_tpu_torch.tracker import pipeline
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import map_state
 
-    cfg, env, _ = small
+    cfg, env, frames = small
     cfg = cfg.replace(dtype="float64")
+    by = track_cuda.track_frames.launches_by
     if route in ("greedy_past_k4", "assoc_backend_jnp"):
         k, d = (1025, 16) if route == "greedy_past_k4" else (64, 16)
+        entry = "motl_track_step_xl_f64" if route == "greedy_past_k4" else "motl_track_step_f64"
         if route == "assoc_backend_jnp":
             cfg = cfg.replace(assoc_backend="jnp")
-        st, dets, valid, t = track_scene(3, cfg, k, d, 1, 1, (), dev)
+        st, dets, valid, t = track_scene(3, cfg, k, d, 1, 1, (), "cpu")
         st = st._replace(bank=st.bank._replace(window=st.bank.window.double(),
                                                m0=st.bank.m0.double()))
-        n0 = track_cuda.track_frames.launches_f64
-        with pytest.raises(NotImplementedError, match="item 27"):
-            pipeline.track_batch(st, dets.double(), valid, t.double(), config=cfg,
-                                 gains_xy=Tracker(cfg, dev).gains_xy)
-        assert track_cuda.track_frames.launches_f64 == n0
+        args = (st, dets.double(), valid, t.double())
+        want = pipeline.track_batch(*args, config=cfg, gains_xy=Tracker(cfg, "cpu").gains_xy)
+        n0 = by[entry]
+        got = pipeline.track_batch(map_state(lambda x: x.to(dev), args[0]),
+                                   *(x.to(dev) for x in args[1:]), config=cfg,
+                                   gains_xy=Tracker(cfg, dev).gains_xy)
+        assert by[entry] == n0 + 1
+        assert _same_tree(_nan_canonical(got), _nan_canonical(want))
+        return
+    if route == "past_k1":
+        from multiple_object_tracking_lidar_tpu_torch.config import SceneBounds
+        from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid
+
+        scene = SceneBounds(x_min=0.0, x_max=6.43, y_min=0.0, y_max=12.83, z_min=0.0, z_max=2.1)
+        rng = np.random.default_rng(13)
+        pts = torch.from_numpy(np.stack([rng.uniform(-0.3, 6.7, 51_200),
+                                         rng.uniform(-0.3, 13.1, 51_200),
+                                         rng.uniform(-0.2, 2.3, 51_200)], 1).astype(np.float32))
+        mask = torch.ones(51_200, dtype=torch.bool)
+        n0 = voxel_grid_cuda.accumulate_fast_stacked.launches
+        got = voxel_grid.voxel_accumulate_stacked(pts[None].to(dev), mask[None].to(dev), scene,
+                                                  0.05, 0.25, quant="fast")
+        assert voxel_grid_cuda.accumulate_fast_stacked.launches == n0 + 1
+        assert _same_tree(got, voxel_grid.voxel_accumulate_stacked(pts[None], mask[None], scene,
+                                                                  0.05, 0.25, quant="fast"))
         return
     kw = {}
     if route == "grid_cc_jnp":
         cfg = cfg.replace(grid_cc="jnp")
     elif route == "no_cell_table":
         kw = {"cell_table": False}
-    elif route == "past_k2":
-        monkeypatch.setattr(pipeline, "fused_cc_fits", lambda *a: False)
     else:
-        monkeypatch.setattr(pipeline, "digit_kernels_fit", lambda *a: False)
-    with pytest.raises(NotImplementedError, match="item 27"):
-        Tracker(cfg, dev).plan(env, **kw)
-    Tracker(cfg.replace(dtype="float32"), dev).plan(env, **kw)     # f32 keeps its plain routes
+        monkeypatch.setattr(pipeline, "fused_cc_fits", lambda *a: False)
+    outs = {}
+    k14 = stencil_cc_cuda.stencil_cc.launches_by
+    for where, e in (("cpu", headline_case()[1]), ("gpu", env)):
+        tr = Tracker(cfg, "cpu" if where == "cpu" else dev)
+        plan = tr.plan(e, **kw)
+        assert not plan.k2
+        n0 = k14["motl_stencil_cc_f64"]
+        fr = Frame(*(torch.stack([torch.as_tensor(np.asarray(f[i])) for f in frames[:3]])
+                     for i in range(3)))
+        p = tr.perceive(tr._frame(fr), plan)
+        outs[where] = [x.cpu() for x in p]
+        if where == "gpu":
+            assert k14["motl_stencil_cc_f64"] == n0 + 1
+    for a, b in zip(outs["cpu"], outs["gpu"]):
+        assert _bits(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -1279,19 +1339,21 @@ def _f64(a, seed):
 def test_k6f_double_build_matches_plain(dev, small):
     """K6f's double build on f64 points (the adversarial frame 7 included)
     and on configuration G's grid: bit for bit its plain version, counted
-    in ``.launches_f64``."""
+    in ``.launches_by["motl_voxel_sums_f64"]``."""
     cfg, _, frames = small
     P = _f64(np.stack([f[0] for f in frames]), 1).to(dev)
     M = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
     w = voxel_grid_cuda.accumulate_f32_stacked
+    by = w.launches_by
     gcfg, _, gsc = bench_cases.default_case()
     gp = np.stack([gsc.frame_arrays(s)[0][::3][:32768] for s in range(2)])
     GP, GM = _f64(gp, 2).to(dev), torch.ones((2, 32768), dtype=torch.bool, device=dev)
     for P_, M_, c in ((P, M, cfg), (GP, GM, gcfg)):
         kw = (c.scene, c.voxel_leaf_size, c.leaf_z)
-        n0, n64 = w.launches, w.launches_f64
+        n0, n64 = w.launches, by["motl_voxel_sums_f64"]
         k = w(P_, M_, *kw)
-        assert (w.launches, w.launches_f64) == (n0, n64 + 1) and k[0].dtype == torch.float64
+        assert (w.launches, by["motl_voxel_sums_f64"]) == (n0, n64 + 1)
+        assert k[0].dtype == torch.float64
         p = voxel_grid_cuda.accumulate_f32_stacked_plain(P_.cpu(), M_.cpu(), *kw)
         assert _bits(k[0], p[0]) and _bits(k[1], p[1])
 
@@ -1307,9 +1369,9 @@ def test_k8a_double_build_matches_plain(dev, small):
         pts = torch.from_numpy(rng.normal(0, spread, (s, m, 3))).to(dev)
         pts[..., 2] *= 0.1
         msk = torch.from_numpy(rng.random((s, m)) < 0.8).to(dev)
-        n64 = w.launches_f64
+        n64 = w.launches_by["motl_cc_adjacency_f64"]
         got = w(pts, msk, 0.15)
-        assert w.launches_f64 == n64 + 1
+        assert w.launches_by["motl_cc_adjacency_f64"] == n64 + 1
         assert cluster_pallas._layout(m, None, dev, torch.float64)[2] == (m > 4096)
         want = cluster_pallas.cc_adjacency_plain(pts.cpu(), msk.cpu(), 0.15)
         assert torch.equal(got.cpu(), want) and int(want.sum()) > s * m
@@ -1318,7 +1380,8 @@ def test_k8a_double_build_matches_plain(dev, small):
 def test_k2_double_build_fed_f32_sums_matches_plain(dev, small):
     """K2 fed the runs' f32 sums under f64 (finalize in f32, widen, f64
     d^2): bit for bit its plain version, counted in
-    ``.launches_f64_f32sums``, and not the f64 division's centroids."""
+    ``.launches_by["motl_grid_cc_f64_f32sums"]``, and not the f64
+    division's centroids."""
     from multiple_object_tracking_lidar_tpu_torch.ops.voxel_pallas import (
         voxel_accumulate_runs_stacked)
 
@@ -1332,9 +1395,11 @@ def test_k2_double_build_fed_f32_sums_matches_plain(dev, small):
     kw = dict(dims=plan.dims, tol=cfg.cluster_tolerance, leaf_xy=cfg.voxel_leaf_size,
               leaf_z=cfg.leaf_z, kwin=plan.table.k)
     w = grid_cuda.fused_finalize_static_cc_stacked
-    n0, n64, nfs = w.launches, w.launches_f64, w.launches_f64_f32sums
+    by = w.launches_by
+    n0, n64, nfs = w.launches, by["motl_grid_cc_f64"], by["motl_grid_cc_f64_f32sums"]
     k = w(acc, *tb, dtype=torch.float64, **kw)
-    assert (w.launches, w.launches_f64, w.launches_f64_f32sums) == (n0, n64, nfs + 1)
+    assert (w.launches, by["motl_grid_cc_f64"], by["motl_grid_cc_f64_f32sums"]) == (
+        n0, n64, nfs + 1)
     cpu_tb = tuple(t.cpu() for t in tb)
     p = grid_cuda.fused_finalize_static_cc_stacked(acc.cpu(), *cpu_tb, dtype=torch.float64, **kw)
     assert k[0].dtype == torch.float64 and all(_bits(a, b) for a, b in zip(k, p))
@@ -1388,18 +1453,43 @@ def test_f64_pointlist_and_modes_gpu_match_cpu_plain_path(dev, small, name):
             assert _bits(a, b), (name, f)
 
 
-def test_f64_vmap_fleet_on_a_grid_config_raises_on_the_card(dev, small):
+def test_f64_vmap_fleet_on_a_grid_config_runs_on_the_card(dev, small):
     """The f64 vmap fleet (JAX's kernel fleet is f32 only) plans the dense
-    grid with no per-cell table, whose stencil CC has no double build:
-    on the card it raises naming ROADMAP item 27 (``check_f64_routes``),
-    now at the plan and no longer at K6f."""
+    grid with no per-cell table: on the card its stencil CC is K14's double
+    build, one launch a step for both streams, and each step is bit for
+    bit the fleet's route on the CPU (K6f's f64 sums, the finalize, the
+    per-point static drop, the stencil CC, K3f and K4)."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import stencil_cc_cuda
     from multiple_object_tracking_lidar_tpu_torch.parallel import ShardedTracker, make_mesh
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import (
+        perceive_from_acc_stacked, track_batch)
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import voxel_accumulate_stacked
 
-    cfg, env, _ = small
-    fleet = ShardedTracker(Tracker(cfg.replace(dtype="float64"), dev), make_mesh(1, 1))
+    cfg, env, frames = small
+    cfg = cfg.replace(dtype="float64")
+    fleet = ShardedTracker(Tracker(cfg, dev), make_mesh(1, 1))
     assert not fleet._use_kernel_fleet
-    with pytest.raises(NotImplementedError, match="item 27"):
-        fleet.bind_env(env)
+    step = fleet.bind_env(env)
+    state = fleet.init_state(2)
+    tcpu = Tracker(cfg, "cpu")
+    plan = tcpu.plan(headline_case()[1], cell_table=False)
+    cstate = tcpu.init_state(batch=2)
+    by = stencil_cc_cuda.stencil_cc.launches_by
+    for k in range(2):
+        P = torch.from_numpy(np.stack([frames[k][0], frames[k + 2][0]]))
+        M = torch.from_numpy(np.stack([frames[k][1], frames[k + 2][1]]))
+        T = torch.tensor([frames[k][2], frames[k + 2][2]])
+        n0 = by["motl_stencil_cc_f64"]
+        state, o = step(state, P.to(dev), M.to(dev), T.to(dev))
+        assert by["motl_stencil_cc_f64"] == n0 + 1
+        accs, npts = voxel_accumulate_stacked(P.double(), M, cfg.scene, cfg.voxel_leaf_size,
+                                              cfg.leaf_z)
+        p = perceive_from_acc_stacked(accs, T.double(), npts, plan, config=cfg)
+        cstate, co = track_batch(cstate, p.dets[:, None], p.det_valid[:, None], p.t[:, None],
+                                 config=cfg, gains_xy=tcpu.gains_xy)
+        for f in ("valid", "obj_id", "pos", "vel", "new_track", "n_alive"):
+            assert _bits(getattr(o, f).cpu(), getattr(co, f)[:, 0]), f
+        assert _bits(o.raw_centroid.cpu(), p.dets) and _bits(o.n_clusters.cpu(), p.n_clusters)
 
 
 # ---------------------------------------------------------------------------

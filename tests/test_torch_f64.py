@@ -19,11 +19,11 @@ under the same dtype, on the CPU (tests/conftest.py turns x64 on).
 - The exact, runs and scan modes and the point list under f64 (which
   raised naming ROADMAP item 27 before they were ported) against the JAX
   ``bind_env``; tests/test_torch_f64_pointlist.py holds the rest of them.
-- What raises: the kernel fleet (``kernel_path="on"``, as JAX's), and, on
-  the card, every f64 stage that would take a plain route
-  (``check_f64_routes``, item 27's tail: the digit sums past K1, the
-  stencil CC without K2, the greedy step past K4's bounds or under
-  assoc_backend="jnp").
+- What raises: the kernel fleet (``kernel_path="on"``, as JAX's); no f64
+  step raises for its size or engine on the card (the digit sums past
+  K1's 232,320 cells, the stencil CC without K2 -- K14's double build --
+  and the step past K4's narrow builds or under assoc_backend="jnp" run
+  kernels there).
 
 Integers, flags and decisions exact; detections and positions within
 1e-9 m, velocities within 1e-8 m/s (the JAX package's own f64 bounds,
@@ -520,45 +520,23 @@ def test_other_f64_configs_raise_naming_item_27(fields):
     matches_jax({f: getattr(cfg, f) for f in ("voxel_mode", "cluster_backend", "voxel_quant")})
 
 
-@pytest.mark.parametrize("stage", ["k1", "k2", "k4"])
-def test_f64_stage_without_its_kernel_raises_on_the_card(stage):
-    """``check_f64_routes``: an f64 stage that would run plain on a CUDA
-    device raises naming item 27; the CPU runs every stage plain, and f32
-    keeps its plain routes on the card."""
-    cfg = bench_cases.bench_config().replace(dtype="float64")
-    with pytest.raises(NotImplementedError, match="item 27"):
-        tpipe.check_f64_routes(cfg, "cuda", **{stage: False})
-    tpipe.check_f64_routes(cfg, "cuda")
-    tpipe.check_f64_routes(cfg, "cpu", **{stage: False})
-    tpipe.check_f64_routes(cfg.replace(dtype="float32"), "cuda", **{stage: False})
-
-
 def test_f64_track_route_and_plan_check_their_routes(case, monkeypatch):
-    """``track_route`` raises for an f64 greedy step on the card where f32
-    takes the plain route (past K4's bounds, assoc_backend="jnp"), and
-    ``make_plan`` hands ``check_f64_routes`` whether K1 and K2 run: not K2
-    under grid_cc="jnp", on a map with no cell table or past K2's cells,
-    not K1 past its cells."""
+    """No f64 step raises for its size or its engine: ``track_route`` sends
+    every f64 step on the card to K4 (K4 xl past the narrow builds'
+    bounds, the greedy one under ``assoc_backend="jnp"`` too) and to the
+    plain version on the CPU, and ``make_plan`` plans the stencil CC (K14's
+    double build) where K2 does not run -- grid_cc="jnp", a map with no
+    cell table, a grid past K2's cells -- as it does in f32."""
     cfg, env = case["tcfg"], case["tenv"]
-    assert tpipe.track_route(cfg, 64, 32, "cuda") == "kernel"
-    assert tpipe.track_route(cfg.replace(association="hungarian"), 2048, 32, "cuda") == "kernel"
-    for c, k, d in ((cfg, 1025, 32), (cfg, 64, 129), (cfg.replace(assoc_backend="jnp"), 64, 32)):
-        assert tpipe.track_route(c, k, d, "cpu") == "plain"
-        assert tpipe.track_route(c.replace(dtype="float32"), k, d, "cuda") == "plain"
-        with pytest.raises(NotImplementedError, match="item 27"):
-            tpipe.track_route(c, k, d, "cuda")
-    seen = []
-    monkeypatch.setattr(tpipe, "check_f64_routes", lambda config, device, **kw: seen.append(kw))
+    for c in (cfg, cfg.replace(association="hungarian"), cfg.replace(assoc_backend="jnp")):
+        for k, d in ((64, 32), (1025, 32), (64, 129), (2048, 256)):
+            assert tpipe.track_route(c, k, d, "cuda") == "kernel"
+            assert tpipe.track_route(c, k, d, "cpu") == "plain"
     assert tpipe.make_plan(cfg, env, "cpu").k2
-    tpipe.make_plan(cfg.replace(grid_cc="jnp"), env, "cpu")
-    tpipe.make_plan(cfg, env, "cpu", cell_table=False)
+    for c, kw in ((cfg.replace(grid_cc="jnp"), {}), (cfg, dict(cell_table=False))):
+        plan = tpipe.make_plan(c, env, "cpu", **kw)
+        assert not plan.k2 and plan.scal is None
     with monkeypatch.context() as m:
         m.setattr(tpipe, "fused_cc_fits", lambda *a: False)
-        tpipe.make_plan(cfg, env, "cpu")
-    with monkeypatch.context() as m:
-        m.setattr(tpipe, "digit_kernels_fit", lambda *a: False)
-        tpipe.make_plan(cfg, env, "cpu")
-    assert seen == [dict(k1=True, k2=True), dict(k1=True, k2=False), dict(k1=True, k2=False),
-                    dict(k1=True, k2=False), dict(k1=False, k2=True)]
-    tpipe.make_plan(cfg.replace(dtype="float32"), env, "cpu")
-    assert len(seen) == 5
+        assert not tpipe.make_plan(cfg, env, "cpu").k2
+    assert not hasattr(tpipe, "check_f64_routes") and not hasattr(tpipe, "F64_TAIL")

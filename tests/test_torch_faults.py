@@ -1,13 +1,15 @@
 """The port's repaired faults against the JAX package, on the CPU (their
 GPU halves are in tests/test_torch_cuda.py):
 
-- F1: the track step past K4's bounds -- a default bank grown past 1,024
-  slots, and C = 256 detection slots -- and under ``assoc_backend="jnp"``
-  takes its plain route (``track_route``) and matches the JAX track_step;
+- F1: the track step past K4's narrow builds -- a default bank grown past
+  1,024 slots, and C = 256 detection slots -- and under
+  ``assoc_backend="jnp"``: K4 (K4 xl past the narrow builds) on the card,
+  the plain version on the CPU (``track_route``), which matches the JAX
+  track_step;
 - F2: the CLI's 70,200-cell grid, past one CTA's histogram, takes K1 and
   K5 (eight ranges of CTAs; their plain versions here) and matches the
-  JAX package; past their 232,320 cells the accumulator takes
-  the plain integer digit sums and matches the JAX fast-digit route;
+  JAX package; past their 232,320-cell layouts too (the wide layout: more
+  ranges), matching the JAX fast-digit route;
 - F3: ``bind_env(env, donate_state=...)`` and ``bind_env_multi(env,
   donate_state=..., hoist=...)`` take the JAX keywords, refuse exactly the
   configs the JAX package refuses, and every hoist gives the same bits;
@@ -99,7 +101,7 @@ def _run_f1(k, d, live, n_new):
                 p_max_cluster=32, k_max_tracks=k)
     jcfg = JConfig(data_length=L, caps=JCaps(**caps))
     tcfg = TConfig(data_length=L, caps=TCaps(**caps))
-    assert tpipe.track_route(tcfg, k, d) == "plain"
+    assert tpipe.track_route(tcfg, k, d, "cpu") == "plain"
     bank = _bank(k, L, live, rng)
     scal = dict(next_obj_num=np.int32(500), next_birth=np.int32(len(live)),
                 spin_counter=np.int32(0), initialized=np.bool_(True))
@@ -163,15 +165,16 @@ def test_f1_256_detection_slots_match_jax():
 
 
 def test_f1_routes():
-    """K4 within its bounds unless ``assoc_backend="jnp"`` (the JAX
-    package's choice, ops/assign.py:168-178); the plain route past them."""
+    """K4 on the card at every size -- K4 xl past its narrow builds' 1,024
+    slots and 128 detections -- and under every ``assoc_backend`` (the JAX
+    package documents its jnp and Pallas scans' decisions as the same,
+    config.py:179-186); the plain version on the CPU."""
     cfg = TConfig()
-    assert tpipe.track_route(cfg, 64, 32) == "kernel"
-    assert tpipe.track_route(cfg, 1024, 128) == "kernel"
-    assert tpipe.track_route(cfg.replace(assoc_backend="pallas"), 64, 32) == "kernel"
-    assert tpipe.track_route(cfg.replace(assoc_backend="jnp"), 64, 32) == "plain"
-    assert tpipe.track_route(cfg, 1025, 32) == "plain"
-    assert tpipe.track_route(cfg, 64, 129) == "plain"
+    for c in (cfg, cfg.replace(assoc_backend="pallas"), cfg.replace(assoc_backend="jnp")):
+        for k, d in ((64, 32), (1024, 128), (1025, 32), (64, 129), (4096, 512)):
+            assert tpipe.track_route(c, k, d) == "kernel"
+            assert tpipe.track_route(c, k, d, "cuda") == "kernel"
+            assert tpipe.track_route(c, k, d, "cpu") == "plain"
 
 
 # ---------------------------------------------------------------------------
@@ -213,8 +216,7 @@ def test_f2_digit_sums_past_the_one_cta_histogram(quant):
     equal to its jitted ``finalize_exact_digits`` (the FMAs XLA's CPU code
     contracts, which K5 spells); also K5's plain version bit for bit."""
     scene, leaf, leaf_z = TScene(**F2_SCENE), 0.05, 1.0
-    assert vgc.kernel_params(scene, leaf, leaf_z)["n_cells"] == 70_200
-    assert tvg.digit_kernels_fit(scene, leaf, leaf_z)
+    assert vgc.kernel_params(scene, leaf, leaf_z)["n_cells"] == 70_200 <= vgc.max_cells()
     assert vgc.digit_layout(70_200, 1)[0] == 8                  # ceil(70,200 / 8) <= 14,520
     rng = np.random.default_rng(70)
     n = 4096
@@ -224,7 +226,7 @@ def test_f2_digit_sums_past_the_one_cta_histogram(quant):
     routes = tvg.digit_sums_stacked.plain_routes
     acc, npts = tvg.voxel_accumulate_stacked(P, M, scene, leaf, leaf_z, quant=quant)
     sums, _ = tvg.digit_sums_stacked(P, M, scene, leaf, leaf_z, quant)
-    assert tvg.digit_sums_stacked.plain_routes == routes
+    assert tvg.digit_sums_stacked.plain_routes == routes + 1     # a CPU call
     assert sums.dtype == torch.int32 and int(npts[0]) == int(mask.sum())
     if quant == "exact":
         ref, _ = vgc.accumulate_exact_stacked_plain(P, M, scene, leaf, leaf_z)
@@ -254,24 +256,29 @@ F2_BIG_SCENE = dict(x_min=0.0, x_max=6.43, y_min=0.0, y_max=12.83, z_min=0.0, z_
 @pytest.mark.parametrize("quant", ["fast", "exact"])
 def test_f2_digit_sums_past_the_cluster_capacity(quant):
     """298,377 cells (129 x 257 x 9 at 0.05 m / 0.25 m), past K1's and K5's
-    16 ranges of CTAs (232,320 cells): the dispatcher takes the plain integer digit
-    sums and K1's / K5's finalize (``plain_routes`` counts it), the same
-    bits as K1's / K5's plain version; fast mode matches the JAX package's
-    fast-digit route under jit bit for bit, exact mode the JAX
+    16 ranges of CTAs (232,320 cells): the kernels take their wide layout
+    (32 ranges, each CTA reading every point; on the CPU their plain
+    versions, not the digit sums' route, so ``plain_routes`` stays), the
+    same bits as the plain digit sums finalized; fast mode matches the JAX
+    package's fast-digit route under jit bit for bit, exact mode the JAX
     fast route's counts (the same integers in either mode)."""
     scene, leaf, leaf_z = TScene(**F2_BIG_SCENE), 0.05, 0.25
     nc = vgc.kernel_params(scene, leaf, leaf_z)["n_cells"]
     assert nc == 129 * 257 * 9 > vgc.max_cells() == 232_320
-    assert not tvg.digit_kernels_fit(scene, leaf, leaf_z)
+    assert vgc.digit_layout(nc, 1) == (32, 2)
     rng = np.random.default_rng(71)
     pts = _f2_points(rng, 4096, leaf, hi=(6.7, 13.1, 2.3))
     mask = rng.random(4096) < 0.95
     P, M = torch.from_numpy(pts)[None], torch.from_numpy(mask)[None]
     routes = tvg.digit_sums_stacked.plain_routes
     acc, npts = tvg.voxel_accumulate_stacked(P, M, scene, leaf, leaf_z, quant=quant)
-    assert tvg.digit_sums_stacked.plain_routes == routes + 1
+    assert tvg.digit_sums_stacked.plain_routes == routes
     plain = (vgc.accumulate_fast_stacked_plain if quant == "fast"
              else vgc.accumulate_exact_stacked_plain)(P, M, scene, leaf, leaf_z)
+    sums, _ = tvg.digit_sums_stacked(P, M, scene, leaf, leaf_z, quant)
+    fin = vgc.finalize_fast_stacked if quant == "fast" else vgc.finalize_exact_stacked
+    assert torch.equal(fin(sums, scene, leaf, leaf_z).view(torch.int32),
+                       plain[0].view(torch.int32))
     assert torch.equal(acc.view(torch.int32), plain[0].view(torch.int32))
     assert int(npts[0]) == int(mask.sum()) == int(plain[1][0])
     jacc, jn = _jit_fast_route(pts, mask, JScene(**F2_BIG_SCENE), leaf, leaf_z)

@@ -523,10 +523,10 @@ def test_crossing_scene_is_one_greedy_gets_wrong():
 def test_track_route_takes_k4_under_hungarian_whatever_the_backend(backend):
     cfg = bench_cases.bench_config().replace(association="hungarian", assoc_backend=backend)
     assert track_route(cfg, 64, 32) == "kernel"
-    assert track_route(cfg, 2048, 32) == "kernel"      # past K4's bounds K4 raises on the card
+    assert track_route(cfg, 2048, 32) == "kernel"      # past K4's narrow builds: K4 xl
     assert track_route(cfg, 64, 256) == "kernel"
-    assert track_route(cfg.replace(association="greedy"), 64, 32) == (
-        "plain" if backend == "jnp" else "kernel")
+    assert track_route(cfg.replace(association="greedy"), 64, 32) == "kernel"
+    assert track_route(cfg, 2048, 32, "cpu") == "plain"
 
 
 @pytest.mark.parametrize("entry", ["Tracker", "TrackerNode"])

@@ -164,14 +164,13 @@ def test_state_hand_over_through_carry_across(case):
 def test_unported_configs_raise(field, value):
     cfg = bench_cases.bench_config().replace(**{field: value})
     if value == "float64":
-        # f64 runs every configuration; what still raises is an f64 stage
-        # with no double build on the card (ROADMAP item 27's tail): here
-        # the stencil CC of grid_cc="jnp"
-        from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import check_f64_routes
+        # f64 runs every configuration, the stencil CC of grid_cc="jnp"
+        # included (K14's double build on the card)
+        from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import make_plan
 
         TTracker(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_f64_routes(cfg.replace(grid_cc="jnp"), "cuda", k2=False)
+        env = bench_cases.headline_case("cpu")[1]
+        assert not make_plan(cfg.replace(grid_cc="jnp"), env, "cpu").k2
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TTracker(cfg, device="cpu")

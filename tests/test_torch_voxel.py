@@ -206,20 +206,24 @@ def test_k1_layouts_on_the_measured_grids():
 
 def test_k1_capacity_and_dispatch_bound():
     """``max_cells`` is 16 ranges of ``CTA_CELLS`` (16 from
-    ``grid_cuda.max_cluster``: the H100's without a card); the
-    dispatcher's test follows it on either side, and the wrappers'
-    own check raises past it (on a CUDA tensor; nothing here launches)."""
+    ``grid_cuda.max_cluster``: the H100's without a card), the largest
+    grid of PR 8's layouts.  One cell past it the layout takes more ranges
+    (32, of two point chunks; 128 of one chunk at the floor's 1,119,963
+    cells, every CTA reading all its frame's points), and so at any size:
+    no bound is left, the dispatcher takes the kernel on the card at every
+    grid."""
     assert k1.CTA_CELLS == (232_448 - 128) // 16 == 14_520
     assert k1.max_cells() == k1.max_cells("cpu") == 16 * k1.CTA_CELLS
-    for gx, fits in ((k1.CTA_CELLS, True), (k1.CTA_CELLS + 1, False)):
+    for gx, layout in ((k1.CTA_CELLS, (16, 4)), (k1.CTA_CELLS + 1, (32, 2))):
         ts = TScene(x_min=0.0, x_max=(gx - 0.5) * 0.05, y_min=0.0, y_max=15.5 * 0.05,
                     z_min=0.0, z_max=0.05)
         nc = k1.kernel_params(ts, 0.05, 0.1)["n_cells"]
         assert nc == gx * 16
-        assert tvg.digit_kernels_fit(ts, 0.05, 0.1) == fits == (nc <= k1.max_cells())
-    k1._check_cells(k1.max_cells(), "K1", "cpu")
-    with pytest.raises(ValueError, match="digit_sums_stacked"):
-        k1._check_cells(k1.max_cells() + 1, "K1", "cpu")
+        assert k1.digit_layout(nc, 1) == layout
+        assert k1._span(nc, layout[0]) <= k1.CTA_CELLS
+    assert k1.digit_layout(1_119_963, 1) == k1.digit_layout(1_119_963, 8) == (128, 1)
+    assert k1.digit_layout(1_119_963, 1, 3) == (128, 1)
+    assert not hasattr(tvg, "digit_kernels_fit") and not hasattr(k1, "_check_cells")
 
 
 def test_plain_k1_matches_v4_kernel_past_the_f32_bound():

@@ -4572,6 +4572,184 @@ def phase_timings_slice16(dev, smi, report):
             "host syncs per frame")
 
 
+# ---------------------------------------------------------------------------
+# slice 17: the auction and K14 redesigned
+# ---------------------------------------------------------------------------
+def net_tie_costs(d=8, k=24):
+    """(cost, feasible): costs 0.3 + j * 2^-22, exact in f32, so bids differ
+    by less than an ulp of the dummy nets and distinct prices round to one
+    net (the first index, not the lower price, takes the dummy bid); each
+    row gates three columns, the last none (tests/
+    test_torch_auction_schedule.py::net_tie_problem)."""
+    j = np.arange(d * k).reshape(d, k)
+    cost = (np.float32(0.3) + (j % 7).astype(np.float32) * np.float32(2.0**-22)).astype(np.float32)
+    feas = np.zeros((d, k), bool)
+    for r in range(d - 1):
+        feas[r, [(3 * r) % k, (3 * r + 1) % k, (3 * r + 5) % k]] = True
+    return cost, feas
+
+
+def stretch_costs(rng, d, k, density):
+    """(cost, feasible): few real rows, many columns, sparse gates and one
+    row none: each phase is long runs of dummy-only iterations, cut where a
+    dummy bid takes a column a real row holds."""
+    cost = rng.uniform(0, 0.6, (d, k)).astype(np.float32)
+    feas = (cost < 0.5) & (rng.uniform(size=(d, k)) < density)
+    feas[1] = False
+    return cost, feas
+
+
+def net_tie_scene(cfg, K, D, dev):
+    """``track_scene``'s gated bank (B = 1, S = 1) with every slot's window
+    at x = 0.3 + (k % 7) * 2^-22, y = 2 (k % D) and detection d at (0, 2 d),
+    all valid: each detection gates the alive slots k = d (mod D) at costs
+    0.3 plus less than an ulp of the dummy nets -- net_tie_costs in K4."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+
+    st, dets, valid, t = track_scene(K + D + 17, cfg, K, D, 1, 1, (), dev, True)
+    k = torch.arange(K, device=dev)
+    w = st.bank.window.clone()
+    w[0, :, :, 0] = (0.3 + (k % 7).to(torch.float32) * 2.0**-22)[:, None]
+    w[0, :, :, 1] = (2.0 * (k % D)).to(torch.float32)[:, None]
+    dets = dets.clone()
+    dets[0, 0, :, 0] = 0.0
+    dets[0, 0, :, 1] = 2.0 * torch.arange(D, device=dev, dtype=torch.float32)
+    valid = torch.ones_like(valid)
+    return st._replace(bank=st.bank._replace(window=w)), dets, valid, t
+
+
+def k14_grid_frames(rng, dims, s, leaf=0.05, leaf_z=1.0):
+    """(cent (S, 3, n) f32, dyn (S, n) bool) on a grid of ``dims``: blobs of
+    dynamic cells (a few thousand a frame) with centroids jittered inside
+    their cells, and dynamic cells on the grid's edges."""
+    gx, gy, gz = dims
+    n = gx * gy * gz
+    lin = np.arange(n)
+    ix, iy, iz = lin % gx, (lin // gx) % gy, lin // (gx * gy)
+    cents, dyns = [], []
+    for _ in range(s):
+        cent = np.stack([(ix + rng.uniform(0.1, 0.9, n)) * leaf,
+                         (iy + rng.uniform(0.1, 0.9, n)) * leaf,
+                         (iz + rng.uniform(0.1, 0.9, n)) * leaf_z]).astype(np.float32)
+        dyn = np.zeros(n, bool)
+        for _ in range(60):
+            cx, cy, r = rng.integers(0, gx), rng.integers(0, gy), int(rng.integers(1, 7))
+            lo_x, hi_x = max(0, cx - r), min(gx, cx + r + 1)
+            lo_y, hi_y = max(0, cy - r), min(gy, cy + r + 1)
+            for y in range(lo_y, hi_y):
+                row = y * gx + np.arange(lo_x, hi_x)
+                for z in range(gz):
+                    dyn[row + z * gx * gy] |= rng.random(hi_x - lo_x) < 0.6
+        dyn |= ((ix == 0) | (ix == gx - 1)) & (iy < 4)
+        cents.append(cent)
+        dyns.append(dyn)
+    return np.stack(cents), np.stack(dyns)
+
+
+def phase_kernels_slice17(dev, report):
+    """The redesigned auction and K14 against their plain versions on the
+    card, bit for bit.  The auction (one device function in every build):
+    K12 on the net-tie problem and on long dummy-only stretches cut by
+    real-row evictions (D = 8, K = 300: past 256 columns; converged and
+    capped); K4's narrow Hungarian builds (f32 and f64, lpf and ihgp, 128
+    and 1,024 lanes) and K4 xl (lpf f32, ihgp f64, at K = 64, D = 256) on
+    the net-tie scene.  K14 at 232,336 cells (one row past K1's 16 ranges)
+    and 464,640 (2 x max_cells): S = 1 f32 and S = 8 f64 converged, S = 8
+    f32 at max_iters = 1, one device op per call; at the floor S = 1 every
+    cluster size (1-16 CTAs) gives the plain version's outputs."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import bench_config, floor_case
+    from multiple_object_tracking_lidar_tpu_torch.ops import hungarian_cuda, stencil_cc_cuda as k14
+    from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import kernel_offsets
+    from multiple_object_tracking_lidar_tpu_torch.ops.hungarian import auction_assign_plain
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import grid_shape, in_dtype
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1717)
+
+    def k12(tag, probs, max_iters):
+        C = torch.from_numpy(np.stack([q[0] for q in probs])).to(dev)
+        F = torch.from_numpy(np.stack([q[1] for q in probs])).to(dev)
+        a, sat, it = hungarian_cuda.auction_assign(C, F, 1e-3, 0.5, max_iters, return_iters=True)
+        torch.cuda.synchronize()
+        ok = True
+        for b in range(C.shape[0]):
+            pa, ps, pit = auction_assign_plain(C[b], F[b], 1e-3, 0.5, max_iters,
+                                               return_iters=True)
+            ok = ok and equal(npy(a[b]), npy(pa)) and int(sat[b]) == int(ps)
+            ok = ok and npy(it[b]).tolist() == pit
+        log(f"[3 K12 slice 17] {tag}: exact={ok} saturated={npy(sat).tolist()} iterations per "
+            f"phase {npy(it).tolist()}")
+        if not ok:
+            fail(f"K12 ({tag}) disagrees with its plain version")
+        return npy(sat)
+
+    k12("net ties D=8 K=24, 3 problems", [net_tie_costs()] * 3, 3000)
+    stretches = [stretch_costs(rng, 8, 300, 0.01) for _ in range(2)]
+    k12("dummy-only stretches D=8 K=300 (past 256 columns)", stretches, 3000)
+    if k12("dummy-only stretches D=8 K=300 capped", stretches, 200).min() <= 0:
+        fail("K12 at max_iters=200 on K=300 columns did not saturate")
+
+    # K4's narrow Hungarian builds at 128 lanes (K = 64) and 1,024 lanes (K =
+    # 288: n = 320, past 256 columns), K4 xl at D = 256, on the net-tie scene
+    cfg = bench_config().replace(association="hungarian")
+    for pf in ("lpf", "ihgp"):
+        for dt in ("float32", "float64"):
+            c = cfg.replace(position_filter=pf, dtype=dt)
+            gains = Tracker(c, dev).gains_xy
+            for K, D, name in ((64, 32, "K4 hungarian"), (288, 32, "K4 hungarian"),
+                               (64, 256, "K4 xl hungarian")):
+                if name == "K4 xl hungarian" and (pf == "lpf") != (dt == "float32"):
+                    continue   # K4 xl: lpf f32 and ihgp f64 (every build: phase_kernels_slice16)
+                inp = net_tie_scene(c, K, D, dev)
+                if dt == "float64":
+                    inp = f64_track_inputs(inp)
+                check_track_inputs(c, gains, inp, report, name,
+                                   f"{pf} {dt} net-tie scene K={K} D={D} 1 x 1")
+    log(f"[3 slice 17] auction builds checked ({time.perf_counter() - t0:.1f} s so far)")
+
+    fcfg, fenv, fsc = floor_case(dev)
+    tol, caps = fcfg.cluster_tolerance, fcfg.caps
+    args = (caps.label_prop_iters, caps.grid_sweeps_per_iter, caps.grid_jumps_per_iter)
+    for dims in ((14_521, 16, 1), (968, 480, 1)):
+        cent, dyn = (torch.from_numpy(a).to(dev) for a in k14_grid_frames(rng, dims, 8))
+        offs = kernel_offsets(dims, tol, 0.05, 1.0)
+        n = dims[0] * dims[1] * dims[2]
+        for dt, s, mi in ((torch.float32, 1, args[0]), (torch.float64, 8, args[0]),
+                          (torch.float32, 8, 1)):
+            C = cent.to(dt)
+            tol2 = in_dtype(tol * tol, dt)
+            a = (mi,) + args[1:]
+            what = (f"{n} cells {dims} ({len(offs)} offsets, cluster "
+                    f"{k14.cluster_size(n, dev)}), S={s}, {dt}, max_iters={mi}")
+            out = check_pair(report, "K14", what,
+                             lambda: k14.stencil_cc(C[:s], dyn[:s], dims, tol, 0.05, 1.0, *a),
+                             lambda: k14.stencil_cc_plain(C[:s], dyn[:s], dims, offs, tol2, *a))
+            note = ""
+            if s == 8 and mi > 1:
+                us, ops, whole = one_op_profile(
+                    lambda: k14.stencil_cc(C[:s], dyn[:s], dims, tol, 0.05, 1.0, *a), 5)
+                require_one_op(f"K14 {what}", ops, whole)
+                note = f"; device {us:.2f} us per call, one op"
+            log(f"[3 K14 slice 17] {what}: dynamic cells {npy(dyn[:s].sum(1)).tolist()}, "
+                f"n_sweeps {npy(out[1]).tolist()}, saturated {npy(out[2]).tolist()}{note}")
+    pts, msk, _ = headline_frames(fsc, fcfg.caps.n_max_points, range(1))
+    P, M = torch.from_numpy(pts).to(dev), torch.from_numpy(msk).to(dev)
+    cent, dyn, _ = floor_cells(dev, fcfg, fenv, P, M)
+    kw = (fcfg.scene, fcfg.voxel_leaf_size, fcfg.leaf_z)
+    dims = grid_shape(*kw)
+    ref = k14.stencil_cc_plain(cent, dyn, dims, kernel_offsets(dims, tol, kw[1], kw[2]),
+                               in_dtype(tol * tol, cent.dtype), *args)
+    for cl in (1, 2, 4, 8, 16):
+        if cl > k14.cluster_size(1 << 30, dev):
+            continue
+        got = k14.stencil_cc(cent, dyn, dims, tol, kw[1], kw[2], *args, cluster=cl)
+        if not all(equal(npy(x), npy(y)) for x, y in zip(got, ref)):
+            fail(f"K14 at {cl} CTAs per frame differs from its plain version on the floor")
+    log(f"[3 K14 slice 17] the floor {dims}, S=1: every cluster size bit for bit the plain "
+        f"version; slice 17 checked in {time.perf_counter() - t0:.1f} s")
+
+
 KERNELS = (
     ("K1", "voxel_grid fast-digit histogram + finalize, one launch (cell ranges x point-chunk "
      "clusters)",
@@ -4643,7 +4821,9 @@ KERNELS = (
      "scene; launched on the headline and dense scenes' hungarian paths)",
      f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/hungarian.py:139"),
     ("K12", "the Hungarian auction alone on given (D, K) cost matrices, one warp per problem "
-     "(K4's Hungarian stage's device function; no tracking path launches it)",
+     "(K4's Hungarian stage's device function: the column summaries kept per lane, the "
+     "iterations with no real row unassigned applied without keys, atomics or lists; no "
+     "tracking path launches it)",
      f"{PKG}/csrc/auction.cu", "multiple_object_tracking_lidar_tpu/ops/hungarian.py:34"),
     ("K2 f64", "K2's double build (dtype=float64): f64 finalize, the static drop on the "
      "centroid rounded to f32, the stencil's d^2 as fma(dz, dz, fma(dx, dx, dy * dy)) in f64",
@@ -4692,10 +4872,12 @@ KERNELS = (
      "(exact mode only: checked and timed at the floor's grid, no floor path launches it)",
      f"{PKG}/csrc/voxel_exact.cu", "multiple_object_tracking_lidar_tpu/ops/voxel_grid.py:1538"),
     ("K14", "the dense grid's stencil CC (grid_cc=jnp, no per-cell table, past K2's cells): one "
-     "CTA per frame, the dynamic cells listed, their adjacency packed into bit words once, "
-     "Jacobi sweeps and pointer jumps between two label buffers, each frame stopping on its "
-     "own, no host sync; f32 and f64 builds (no TPU kernel: the JAX jnp "
-     "connected_components_grid)", f"{PKG}/csrc/stencil_cc.cu",
+     "thread-block cluster of up to 16 CTAs per frame, the flags read in 16-byte chunks and "
+     "the dynamic cells listed across the cluster, one warp per cell's adjacency words (lane b "
+     "tests offset 32 w + b), Jacobi sweeps and pointer jumps split over the CTAs between "
+     "cluster barriers, the frame's vote in distributed shared memory, no host sync; f32 and "
+     "f64 builds (no TPU kernel: the JAX jnp connected_components_grid)",
+     f"{PKG}/csrc/stencil_cc.cu",
      "multiple_object_tracking_lidar_tpu/ops/cluster_grid.py:60"),
     ("K11", "batched transpose of 32-bit words: the (S, N, 3) -> (S, 3, N) points K1-cm reads "
      "(4-row groups, 16-byte loads and stores, no shared memory), and the probes' (1, B) -> "
@@ -4724,6 +4906,7 @@ def main() -> int:
     k14 = phase_kernels_slice14(dev, report, cfg)
     phase_kernels_slice15(dev, report)
     phase_kernels_slice16(dev, report)
+    phase_kernels_slice17(dev, report)
     tracker, env, frames = phase_slice(dev, cfg, sc, report)
     phase_cli(dev, report)
     phase_ihgp(dev, report)

@@ -77,7 +77,7 @@ SIGNATURES = {
     "motl_track_step_xl_f64": [*[_P] * 20, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, *[_D] * 7,
                                _I, *[_P] * 18],
     "motl_track_step_xl_scratch": [_I, _I, _I, _I, _I, _I, _P],
-    "motl_auction_assign": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "motl_auction_assign": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "motl_voxel_exact": _DIGITS,
     "motl_voxel_bf16x3": [_P, _P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _I, _I,
                           _I, _I, _I, _F, _F, _I, _P],
@@ -91,8 +91,10 @@ SIGNATURES = {
     "motl_cc_adjacency": [_P, _I, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P],
     "motl_cc_adjacency_f64": [_P, _I, _P, _I, _I, _I, _D, _I, _P, _P, _P, _P],
     "motl_cc_labels": [_P, _I, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P],
-    "motl_stencil_cc": [_P, _P, _I, _I, _I, _I, _P, _I, _F, _I, _I, _I, _P, _P, _P, _P],
-    "motl_stencil_cc_f64": [_P, _P, _I, _I, _I, _I, _P, _I, _D, _I, _I, _I, _P, _P, _P, _P],
+    "motl_stencil_cc": [_P, _P, _I, _I, _I, _I, _P, _I, _F, _I, _I, _I, _I, _P, _P, _P, _P],
+    "motl_stencil_cc_f64": [_P, _P, _I, _I, _I, _I, _P, _I, _D, _I, _I, _I, _I, _P, _P, _P,
+                            _P],
+    "motl_stencil_cc_max_cluster": [_P],
     "motl_transpose32": [_P, _P, _I, _I, _I, _P],
     "motl_learning_step": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
 }

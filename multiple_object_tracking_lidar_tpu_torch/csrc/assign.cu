@@ -100,7 +100,7 @@
 // per-slot code is K4's (slot_step), so its results are K4's bit for bit
 // where both run.  What bounds it: as K4, latency -- the scan's barriers per
 // detection, and under hungarian the auction's iterations, at least K per
-// phase (3,000 at the cap), each a pass over n columns on one warp.  The
+// phase (3,000 at the cap), on one warp (auction.cuh says how).  The
 // narrow builds stay as they are for the sizes they hold.
 //
 // Double builds (motl_track_step_f64, dtype="float64"): the same kernel

@@ -36,7 +36,7 @@ struct MatrixValue {
 __global__ void __launch_bounds__(32)
 auction_kernel(const float* __restrict__ cost, const uint8_t* __restrict__ feas, int D, int K,
                AuctionParams<float> p, int* __restrict__ assigned, int* __restrict__ saturated,
-               int* __restrict__ iters) {
+               int* __restrict__ iters, int* __restrict__ fast) {
   __shared__ AuctionScratch<float, kMaxCols> sm;
   const size_t b = blockIdx.x;
   const MatrixValue value{cost + b * D * K, feas + b * D * K, K, p.neg};
@@ -44,7 +44,8 @@ auction_kernel(const float* __restrict__ cost, const uint8_t* __restrict__ feas,
   __syncwarp();
   motl_auction::WideKeys<kMaxCols>* no_wide = nullptr;  // the f32 build has no second step
   const int sat = motl_auction::auction_warp(
-      value, D, K, p, sm, no_wide, iters != nullptr ? iters + b * p.n_phases : nullptr);
+      value, D, K, p, sm, no_wide, iters != nullptr ? iters + b * p.n_phases : nullptr,
+      fast != nullptr ? fast + b * p.n_phases : nullptr);
   for (int r = threadIdx.x; r < D; r += 32) {
     const int c = sm.row_col[r];
     assigned[b * D + r] = (c >= 0 && c < K) ? c : -1;
@@ -58,15 +59,18 @@ auction_kernel(const float* __restrict__ cost, const uint8_t* __restrict__ feas,
 // [neg, neg_half, neg_pen, neg_pen2, eps_0, ..., eps_{n_phases - 1}] (f32,
 // ops/hungarian.py::auction_schedule).  Outputs: assigned (B, D) i32 (the
 // real column of each row, -1 if none), saturated (B,) i32, and, unless
-// iters is null, iters (B, n_phases) i32.  1 <= D <= 128, 1 <= K <= 1024.
+// null, iters (B, n_phases) i32 and fast (B, n_phases) i32, each phase's
+// iterations and those of them with no real row unassigned.  1 <= D <=
+// 128, 1 <= K <= 1024.
 extern "C" int motl_auction_assign(const float* cost, const uint8_t* feas, const float* auction_f,
                                    int n_phases, int max_iters, int B, int D, int K,
-                                   int* assigned, int* saturated, int* iters, void* stream) {
+                                   int* assigned, int* saturated, int* iters, int* fast,
+                                   void* stream) {
   AuctionParams<float> p;
   if (B < 1 || D < 1 || D > motl_auction::kMaxRows || K < 1 || D + K > kMaxCols ||
       !motl_auction::read_params(auction_f, n_phases, max_iters, &p))
     return (int)cudaErrorInvalidValue;
   auction_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(cost, feas, D, K, p, assigned, saturated,
-                                                      iters);
+                                                      iters, fast);
   return (int)cudaGetLastError();
 }

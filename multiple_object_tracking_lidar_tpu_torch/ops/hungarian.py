@@ -80,10 +80,14 @@ def auction_assign_plain(
     max_iters: int = MAX_ITERS,
     scale: float = SCALE,
     return_iters: bool = False,
+    return_split: bool = False,
 ):
     """Eps-scaling Jacobi auction in the costs' dtype (f32 or f64): ((D,)
     int32 column per row or -1, int32 saturated phase count), and with
-    ``return_iters`` the iterations each phase ran (a list)."""
+    ``return_iters`` the iterations each phase ran (a list); with
+    ``return_split`` also the iterations each phase ran with no real row
+    unassigned (a list: the kernels' dummy-only iterations; one more host
+    read per iteration)."""
     d, k = cost.shape
     dev, dt = cost.device, cost.dtype
     neg_pen, neg_pen2, eps_ps = auction_schedule(d, eps, max_cost, scale, dt)
@@ -95,11 +99,11 @@ def auction_assign_plain(
     rows = torch.arange(n, device=dev)
     neg = torch.tensor(neg_v, dtype=dt, device=dev)
     price = torch.zeros(n, dtype=dt, device=dev)
-    saturated, iters = 0, []
+    saturated, iters, dummy_only = 0, [], []
     for eps_p in eps_ps:
         eps_t = torch.tensor(eps_p, dtype=dt, device=dev)
         owner = torch.full((n,), -1, dtype=torch.int32, device=dev)
-        it = 0
+        it = fast = 0
         while True:
             assigned_row = torch.zeros(n + 1, dtype=torch.bool, device=dev)
             assigned_row[torch.where(owner >= 0, owner, n).to(torch.int64)] = True
@@ -107,6 +111,8 @@ def auction_assign_plain(
             pending = bool(unassigned.any())      # the host sync per iteration
             if not pending or it >= max_iters:
                 break
+            if return_split:
+                fast += int(not bool(unassigned[:d].any()))
             net = value - price[None, :]
             best_k = torch.argmax(net, dim=1)     # the first maximum
             best_v = net.amax(dim=1)
@@ -125,12 +131,15 @@ def auction_assign_plain(
             it += 1
         saturated += int(pending and it >= max_iters)
         iters.append(it)
+        dummy_only.append(fast)
     real = owner[:k].to(torch.int64)
     keep = (real >= 0) & (real < d)
     assigned = torch.full((d + 1,), -1, dtype=torch.int32, device=dev)
     assigned[torch.where(keep, real, d)] = torch.arange(k, dtype=torch.int32, device=dev)
     assigned[d] = -1
     out = (assigned[:d], torch.tensor(saturated, dtype=torch.int32, device=dev))
+    if return_split:
+        return (*out, iters, dummy_only)
     return (*out, iters) if return_iters else out
 
 

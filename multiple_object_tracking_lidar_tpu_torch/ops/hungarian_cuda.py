@@ -6,7 +6,9 @@ auction with eps scaling inside bounded ``while_loop``s; it has no TPU
 kernel.  On the card the auction is one device function
 (``csrc/auction.cuh::auction_warp``, whose header says what bounds it and
 how its design answers that: one warp, per-column state in shared memory,
-one bid for all the dummy rows, packed-key ``atomicMax`` winners).  K4's
+one bid for all the dummy rows, the column summaries kept per lane and
+recomputed where a price or an owner changed, the iterations with no real
+row unassigned applied by one lane, packed-key ``atomicMax`` winners).  K4's
 Hungarian builds run it as the decision stage of the track step
 (``ops/track_cuda.py``); ``auction_assign`` launches it alone
 (``csrc/auction.cu``, one 32-thread CTA per problem) so that it can be
@@ -20,7 +22,9 @@ launches it, as no tracking path launches the greedy scan alone
 launches.  It takes (D, K) or B stacked (B, D, K) problems and returns
 (assigned (D,) / (B, D) int32, saturated () / (B,) int32) and, with
 ``return_iters``, the iterations each phase ran ((n_phases,) / (B,
-n_phases) int32).
+n_phases) int32); with ``return_split`` also those of them with no real
+row unassigned (the device function's dummy-only iterations, which
+``scripts/micro_torch_auction.py`` times apart), the same shape.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ def auction_assign(
     max_iters: int = MAX_ITERS,
     scale: float = SCALE,
     return_iters: bool = False,
+    return_split: bool = False,
 ):
     """K12 on CUDA tensors, ``auction_assign_plain`` (problem by problem)
     on CPU tensors."""
@@ -71,17 +76,23 @@ def auction_assign(
     if single:
         cost, feasible = cost[None], feasible[None]
     if cost.device.type == "cpu":
-        outs = [auction_assign_plain(c, f, eps, max_cost, max_iters, scale, return_iters=True)
+        outs = [auction_assign_plain(c, f, eps, max_cost, max_iters, scale, return_split=True)
+                if return_split else
+                auction_assign_plain(c, f, eps, max_cost, max_iters, scale, return_iters=True)
                 for c, f in zip(cost, feasible)]
         assigned = torch.stack([o[0] for o in outs])
         saturated = torch.stack([o[1] for o in outs])
         iters = torch.tensor([o[2] for o in outs], dtype=torch.int32)
+        fast = torch.tensor([o[3] for o in outs], dtype=torch.int32) if return_split else None
     else:
-        assigned, saturated, iters = _launch(cost, feasible, eps, max_cost, max_iters, scale)
-    out = (assigned, saturated, iters)
+        assigned, saturated, iters, fast = _launch(cost, feasible, eps, max_cost, max_iters,
+                                                   scale)
+    out = (assigned, saturated, iters, fast)
     if single:
-        out = tuple(x[0] for x in out)
-    return out if return_iters else out[:2]
+        out = tuple(None if x is None else x[0] for x in out)
+    if return_split:
+        return out
+    return out[:3] if return_iters else out[:2]
 
 
 def _launch(cost, feasible, eps, max_cost, max_iters, scale):
@@ -98,14 +109,15 @@ def _launch(cost, feasible, eps, max_cost, max_iters, scale):
     assigned = torch.empty((n_b, d), dtype=torch.int32, device=dev)
     saturated = torch.empty((n_b,), dtype=torch.int32, device=dev)
     iters = torch.empty((n_b, n_phases), dtype=torch.int32, device=dev)
+    fast = torch.empty((n_b, n_phases), dtype=torch.int32, device=dev)
     err = _build.load().motl_auction_assign(
         cost.data_ptr(), feas.data_ptr(), ctypes.addressof(params), n_phases, int(max_iters),
-        n_b, d, k, assigned.data_ptr(), saturated.data_ptr(), iters.data_ptr(),
+        n_b, d, k, assigned.data_ptr(), saturated.data_ptr(), iters.data_ptr(), fast.data_ptr(),
         _build.stream_ptr(dev),
     )
     _build.check(err, "motl_auction_assign")
     auction_assign.launches += 1
-    return assigned, saturated, iters
+    return assigned, saturated, iters, fast
 
 
 auction_assign.launches = 0

@@ -5,13 +5,15 @@ is jnp inside its jitted step (no TPU kernel: its fused Pallas CC, K2's
 counterpart, stops at 32,768 cells).  The port runs it where K2 does not:
 ``grid_cc="jnp"``, a map with no per-cell static table (the vmap fleet),
 and every grid past K2's 454,656 cells (a 30 m floor at the 0.05 m leaf
-is 744,200).  CUDA source: ``csrc/stencil_cc.cu``, whose header says what
-bounds it (latency: barrier-separated passes over a frame's few thousand
-dynamic cells) and how its design answers that (one CTA per frame, the
-dynamic cells listed, their adjacency packed into bit words once, Jacobi
-passes between two label buffers in device memory, the frame's loop
-ending on a flag in shared memory: one launch, no host sync).  Built for
-f32 and f64 centroids.
+is 1,119,963).  CUDA source: ``csrc/stencil_cc.cu``, whose header says
+what bounds it (latency: barrier-separated passes over a frame's few
+thousand dynamic cells) and how its design answers that (one thread-block
+cluster of ``cluster_size`` CTAs per frame: the flags read in 16-byte
+chunks and the dynamic cells listed across the cluster, one warp per
+cell's adjacency words, the Jacobi passes split over the CTAs with a
+cluster barrier between them and the frame's loop ending on a vote in
+distributed shared memory: one launch, no host sync).  Built for f32 and
+f64 centroids.
 
 ``stencil_cc`` launches the kernel for CUDA tensors and runs
 ``stencil_cc_plain`` for CPU tensors; ``.launches_by`` counts launches by
@@ -20,8 +22,8 @@ those of the f32 build.  ``stencil_cc_plain`` is the same schedule in
 torch: ``max_iters`` trips, each frame's own loop kept by an active mask,
 as under ``jax.vmap``; the neighbour reads one offset at a time from the
 labels padded and sliced (the JAX package's pad-and-slice), 32 offsets at
-a time, the adjacency packed into int32 bit words once, so no (offsets,
-cells) table is held.
+a time, the adjacency packed into int32 bit words once
+(``adjacency_words_plain``), so no (offsets, cells) table is held.
 It reads nothing back to the host on a CUDA device; on the CPU, where a
 read syncs nothing, it stops once no frame is active (the remaining trips
 change nothing).
@@ -30,6 +32,9 @@ change nothing).
 from __future__ import annotations
 
 import collections
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -39,6 +44,79 @@ from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import _device_offse
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype
 
 MAX_OFFSETS = 256   # csrc/stencil_cc.cu::kMaxOffsets
+MAX_CLUSTER = 16    # CTAs per frame: the H100's non-portable cluster size
+# Cluster size rule (``cluster_size``): the fewest CTAs (a power of two,
+# at most the card's) that hold at most this many cells each.  Steps 2-3
+# scale with the dynamic cells, which the host does not know without a
+# sync, so the cell count stands for them: the floor's 1,119,963 cells
+# take 16 CTAs, the headline's 5,500 one.
+CELLS_PER_CTA = 16384
+
+
+@functools.lru_cache(maxsize=8)
+def _device_max_cluster(index: int) -> int:
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(_build.load().motl_stencil_cc_max_cluster(ctypes.addressof(out)),
+                     "motl_stencil_cc_max_cluster")
+    return out.value
+
+
+def cluster_size(n_cells: int, device=None) -> int:
+    """CTAs per frame for a grid of ``n_cells``: the smallest power of two
+    whose shares hold at most ``CELLS_PER_CTA`` cells, at most what the
+    card grants (``cudaOccupancyMaxActiveClusters``; elsewhere the H100's
+    16)."""
+    dev = torch.device(device) if device is not None else None
+    top = MAX_CLUSTER
+    if dev is not None and dev.type == "cuda":
+        top = _device_max_cluster(dev.index if dev.index is not None
+                                  else torch.cuda.current_device())
+    c = 1
+    while c < top and -(-n_cells // c) > CELLS_PER_CTA:
+        c *= 2
+    return c
+
+
+def _pad_shift(offsets, dims):
+    """(pad, shifted) of the JAX package's pad-and-slice: ``pad(a, fill)``
+    pads a (..., gz, gy, gx) array by the offsets' reach, ``shifted(ap,
+    dz, dy, dx)`` slices the padded array at one offset."""
+    gx, gy, gz = dims
+    rz, ry, rx = (max((abs(o[a]) for o in offsets), default=0) for a in range(3))
+
+    def pad(a, fill):
+        return F.pad(a, (rx, rx, ry, ry, rz, rz), value=fill)
+
+    def shifted(a, dz, dy, dx):
+        return a[..., rz + dz:rz + dz + gz, ry + dy:ry + dy + gy, rx + dx:rx + dx + gx]
+
+    return pad, shifted
+
+
+def adjacency_words_plain(cent, dyn, dims, offsets, tol2):
+    """Each cell's adjacency bits, (b, ceil(O / 32), n) int32: bit o % 32
+    of word o // 32 set where the cell and its neighbour at offset o are
+    dynamic and within tol (d = c_i - c_j, the kernel's FMA spelling), 32
+    offsets at a time."""
+    gx, gy, gz = dims
+    b = dyn.shape[0]
+    pad, shifted = _pad_shift(offsets, dims)
+    c3 = cent.reshape(b, 3, gz, gy, gx)
+    d3 = dyn.reshape(b, gz, gy, gx)
+    cp, dp = pad(c3, 0.0), pad(d3.to(torch.uint8), 0).bool()
+    words = []
+    for i in range(0, len(offsets), 32):
+        group = offsets[i:i + 32]
+        d = c3[None] - torch.stack([shifted(cp, *off) for off in group])
+        d2 = fma(d[:, :, 2], d[:, :, 2], fma(d[:, :, 0], d[:, :, 0], d[:, :, 1] * d[:, :, 1]))
+        adj = d3[None] & torch.stack([shifted(dp, *off) for off in group]) & (d2 <= tol2)
+        shift = torch.arange(len(group), device=dyn.device).reshape(-1, 1, 1, 1, 1)
+        word = (adj.to(torch.int64) << shift).sum(0)
+        words.append(torch.where(word >= 2**31, word - 2**32, word).to(torch.int32))
+    if not words:
+        return torch.zeros((b, 0, gx * gy * gz), dtype=torch.int32, device=dyn.device)
+    return torch.stack(words, 1).reshape(b, len(words), -1)
 
 
 def stencil_cc_plain(cent, dyn, dims, offsets, tol2, max_iters, sweeps_per_iter,
@@ -51,28 +129,11 @@ def stencil_cc_plain(cent, dyn, dims, offsets, tol2, max_iters, sweeps_per_iter,
     n = gx * gy * gz
     b = dyn.shape[0]
     dev = dyn.device
-    rz, ry, rx = (max((abs(o[a]) for o in offsets), default=0) for a in range(3))
-    c3 = cent.reshape(b, 3, gz, gy, gx)
-    d3 = dyn.reshape(b, gz, gy, gx)
+    pad, shifted = _pad_shift(offsets, dims)
 
-    def pad(a, fill):
-        return F.pad(a, (rx, rx, ry, ry, rz, rz), value=fill)
-
-    def shifted(a, dz, dy, dx):
-        return a[..., rz + dz:rz + dz + gz, ry + dy:ry + dy + gy, rx + dx:rx + dx + gx]
-
-    # the adjacency of offset o: bit o % 32 of word o // 32 (d = c_i - c_j),
-    # 32 offsets at a time
     groups = [offsets[i:i + 32] for i in range(0, len(offsets), 32)]
-    cp, dp = pad(c3, 0.0), pad(d3.to(torch.uint8), 0).bool()
-    words = []
-    for group in groups:
-        d = c3[None] - torch.stack([shifted(cp, *off) for off in group])
-        d2 = fma(d[:, :, 2], d[:, :, 2], fma(d[:, :, 0], d[:, :, 0], d[:, :, 1] * d[:, :, 1]))
-        adj = d3[None] & torch.stack([shifted(dp, *off) for off in group]) & (d2 <= tol2)
-        shift = torch.arange(len(group), device=dev).reshape(-1, 1, 1, 1, 1)
-        word = (adj.to(torch.int64) << shift).sum(0)
-        words.append(torch.where(word >= 2**31, word - 2**32, word).to(torch.int32))
+    words = [w.reshape(b, gz, gy, gx)
+             for w in adjacency_words_plain(cent, dyn, dims, offsets, tol2).unbind(1)]
 
     def sweep(lab):
         lp = pad(lab.reshape(b, gz, gy, gx), n)
@@ -110,11 +171,13 @@ def stencil_cc_plain(cent, dyn, dims, offsets, tol2, max_iters, sweeps_per_iter,
 
 
 def stencil_cc(cent, dyn, dims, tol, leaf_xy, leaf_z, max_iters, sweeps_per_iter,
-               jumps_per_iter):
+               jumps_per_iter, cluster=None):
     """K14 on CUDA tensors, ``stencil_cc_plain`` on CPU tensors: (labels
     (b, n) int32, n_sweeps (b,) int32, saturated (b,) int32) of (b, 3, n)
     f32 or f64 centroids and (b, n) dynamic flags.  f64 centroids launch
-    the double build (``motl_stencil_cc_f64``), one launch too."""
+    the double build (``motl_stencil_cc_f64``), one launch too.
+    ``cluster`` (1, 2, 4, 8 or 16 CTAs per frame) overrides
+    ``cluster_size``'s; every size gives the same outputs."""
     gx, gy, gz = dims
     n = gx * gy * gz
     offsets = kernel_offsets(dims, tol, leaf_xy, leaf_z)
@@ -138,12 +201,16 @@ def stencil_cc(cent, dyn, dims, tol, leaf_xy, leaf_z, max_iters, sweeps_per_iter
     nsw = torch.empty((b, 2), dtype=torch.int32, device=dev)
     scratch = torch.empty((b * n * (2 + (len(offsets) + 31) // 32),), dtype=torch.int32,
                           device=dev)
+    if cluster is None:
+        cluster = cluster_size(n, dev)
+    if cluster not in (1, 2, 4, 8, 16):
+        raise ValueError(f"K14 takes clusters of 1, 2, 4, 8 or 16 CTAs, got {cluster}")
     entry = "motl_stencil_cc_f64" if dt == torch.float64 else "motl_stencil_cc"
     err = getattr(_build.load(), entry)(
         cent.data_ptr(), dv.data_ptr(), b, gx, gy, gz,
         None if offs is None else offs.data_ptr(), len(offsets), tol2, int(max_iters),
-        int(sweeps_per_iter), int(jumps_per_iter), labels.data_ptr(), nsw.data_ptr(),
-        scratch.data_ptr(), _build.stream_ptr(dev),
+        int(sweeps_per_iter), int(jumps_per_iter), int(cluster), labels.data_ptr(),
+        nsw.data_ptr(), scratch.data_ptr(), _build.stream_ptr(dev),
     )
     _build.check(err, entry)
     _build.count(stencil_cc, entry, "motl_stencil_cc")

@@ -15,6 +15,15 @@ Each result is held bit for bit against the cluster of 1 (or the rule's)
 on the same inputs.  Prints the card's name and power limit beside every
 time.
 
+``--case k14`` times K14 (``ops/stencil_cc_cuda.py``, the stencil CC past
+K2) on the 30 m floor's grid (1,119,963 cells, 146 offsets) at S = 1 and
+8 against the frames' dynamic-cell count: the floor scene's own frames
+(K1, the finalize and the per-cell static drop, as the floor path computes
+them) and synthetic frames of 1-10 thousand to ~60 thousand dynamic cells
+(blobs of cells, centroids jittered inside them), each held bit for bit
+against ``stencil_cc_plain`` at S = 1; with ``--repo DIR`` another
+checkout's K14 in turns.
+
 ``--case headline`` times only the call the tracking path makes on the
 headline grid (the wrapper's own cluster choice, S = 8 and S = 1), so that
 ``--repo DIR`` can time the K2 of another checkout (e.g. a parent commit
@@ -24,7 +33,7 @@ stencil CC in plain torch (``ops/cluster_grid.py::
 connected_components_grid``, one host sync per iteration), on the same
 inputs, and compares their labels.
 
-    python scripts/micro_torch_grid_cc.py [--case sizes|headline|stencil] [--reps 100]
+    python scripts/micro_torch_grid_cc.py [--case sizes|headline|stencil|k14] [--reps 100]
                                           [--repo DIR]
 """
 
@@ -184,6 +193,104 @@ def run_stencil(device="cuda", reps: int = 10, log=print) -> dict:
     return out
 
 
+def device_us_of(fn, reps: int, name: str) -> float:
+    """Mean device time per launch of the kernels whose name holds
+    ``name`` while fn runs ``reps`` times, us, from the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if name in e.key]
+    if not rows:
+        raise SystemExit(f"micro_torch_grid_cc: no {name} in the trace")
+    return sum(e.self_device_time_total for e in rows) / sum(e.count for e in rows)
+
+
+def floor_frames(device, n_frames: int = 8):
+    """(cent (S, 3, n) f32, dyn (S, n), dims, config) of the floor scene's
+    first frames, as the floor path computes them."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid_cuda as vg
+    from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import (
+        remove_static, remove_static_cells)
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import grid_shape
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid import finalize_dense_cm
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    cfg, env, sc = bench_cases.floor_case(device)
+    rows = [bench_cases.padded_frame(sc, k, cfg.caps.n_max_points) for k in range(n_frames)]
+    P = torch.from_numpy(np.stack([r[0] for r in rows])).to(device)
+    M = torch.from_numpy(np.stack([r[1] for r in rows])).to(device)
+    kw = (cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    plan = Tracker(cfg, device).plan(env)
+    acc, _ = vg.accumulate_fast_stacked(P, M, *kw)
+    cent, occ, _ = finalize_dense_cm(acc)
+    dyn = (remove_static_cells(cent, occ, plan.env, plan.table) if plan.table is not None
+           else remove_static(cent.transpose(-1, -2), occ, plan.env))
+    return cent, dyn, grid_shape(*kw), cfg
+
+
+def blob_frames(dims, n_blobs: int, s: int, seed: int, leaf: float, leaf_z: float, device):
+    """(cent (S, 3, n) f32, dyn (S, n)) on ``dims``: ``n_blobs`` square
+    blobs of radius 2-8 cells per frame, 60% of their cells dynamic over
+    every z slab, centroids jittered inside their cells."""
+    gx, gy, gz = dims
+    n = gx * gy * gz
+    rng = np.random.default_rng(seed)
+    lin = np.arange(n)
+    ix, iy, iz = lin % gx, (lin // gx) % gy, lin // (gx * gy)
+    cents, dyns = [], []
+    for _ in range(s):
+        cents.append(np.stack([(ix + rng.uniform(0.1, 0.9, n)) * leaf,
+                               (iy + rng.uniform(0.1, 0.9, n)) * leaf,
+                               (iz + rng.uniform(0.1, 0.9, n)) * leaf_z]).astype(np.float32))
+        d3 = np.zeros((gz, gy, gx), bool)
+        for _ in range(n_blobs):
+            cx, cy, r = rng.integers(0, gx), rng.integers(0, gy), int(rng.integers(2, 9))
+            ys, xs = slice(max(0, cy - r), cy + r + 1), slice(max(0, cx - r), cx + r + 1)
+            d3[:, ys, xs] |= rng.random(d3[:, ys, xs].shape) < 0.6
+        dyns.append(d3.reshape(-1))
+    return (torch.from_numpy(np.stack(cents)).to(device),
+            torch.from_numpy(np.stack(dyns)).to(device))
+
+
+def run_k14(device="cuda", reps: int = 20, log=print) -> dict:
+    """{(label, S): device us} of K14 on the floor's grid."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import stencil_cc_cuda as k14
+    from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import kernel_offsets
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype
+
+    smi = card()
+    cent, dyn, dims, cfg = floor_frames(device)
+    caps, tol = cfg.caps, cfg.cluster_tolerance
+    leaf, leaf_z = cfg.voxel_leaf_size, cfg.leaf_z
+    sched = (caps.label_prop_iters, caps.grid_sweeps_per_iter, caps.grid_jumps_per_iter)
+    offs = kernel_offsets(dims, tol, leaf, leaf_z)
+    sets = [("floor scene", cent, dyn)]
+    for nb in (8, 30, 120, 400):
+        c, d = blob_frames(dims, nb, 8, nb, leaf, leaf_z, device)
+        sets.append((f"{nb} blobs", c, d))
+    out = {}
+    for label, c, d in sets:
+        ref = k14.stencil_cc_plain(c[:1], d[:1], dims, offs, in_dtype(tol * tol, c.dtype), *sched)
+        got = k14.stencil_cc(c[:1], d[:1], dims, tol, leaf, leaf_z, *sched)
+        same = all(torch.equal(x, y) for x, y in zip(got, ref))
+        for s in (1, 8):
+            fn = (lambda c=c, d=d, s=s: k14.stencil_cc(c[:s], d[:s], dims, tol, leaf, leaf_z,
+                                                       *sched))
+            out[(label, s)] = device_us_of(fn, reps, "stencil_cc_kernel")
+            nd = d[:s].sum(1).tolist()
+            log(f"[k14] {smi}: K14 of {os.path.dirname(k14.__file__)}, floor {dims} "
+                f"({len(offs)} offsets), {label}, S={s}: device {out[(label, s)]:.2f} us per "
+                f"launch (torch.profiler, {reps} launches); dynamic cells {nd}; iterations "
+                f"{(fn()[1] // sched[1]).tolist()}; S=1 bit for bit the plain version: {same}")
+    return out
+
+
 def run(device="cuda", reps: int = 100, log=print) -> dict:
     from multiple_object_tracking_lidar_tpu_torch import bench_cases
     from multiple_object_tracking_lidar_tpu_torch.ops import grid_cuda
@@ -216,14 +323,15 @@ def run(device="cuda", reps: int = 100, log=print) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=100)
-    ap.add_argument("--case", choices=["sizes", "headline", "stencil"], default="sizes")
+    ap.add_argument("--case", choices=["sizes", "headline", "stencil", "k14"], default="sizes")
     ap.add_argument("--repo", default=REPO, help="checkout whose port is timed")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("micro_torch_grid_cc: needs a CUDA device")
     sys.path.insert(0, os.path.abspath(a.repo))
     {"sizes": run, "headline": run_headline,
-     "stencil": lambda reps: run_stencil(reps=max(reps // 10, 3))}[a.case](reps=a.reps)
+     "stencil": lambda reps: run_stencil(reps=max(reps // 10, 3)),
+     "k14": lambda reps: run_k14(reps=max(reps // 5, 5))}[a.case](reps=a.reps)
 
 
 if __name__ == "__main__":

@@ -1582,3 +1582,49 @@ def test_learning_node_matches_golden(dev):
     v = golden["valid"]
     np.testing.assert_allclose(got["pos"][v], golden["pos"][v], rtol=0, atol=cs.TOL_DETS)
     np.testing.assert_allclose(got["vel"][v], golden["vel"][v], rtol=0, atol=cs.TOL_VEL)
+
+
+# ---------------------------------------------------------------------------
+# the auction's kept summaries and dummy-only iterations; K14's cluster sizes
+# ---------------------------------------------------------------------------
+def test_k12_split_net_ties_and_stretches_match_plain(dev):
+    """K12 on the net-tie problem (distinct f32 prices of one dummy net)
+    and on dummy-only stretches cut by evictions (D = 8, K = 300): the
+    assignment, saturated phases, iterations per phase and the dummy-only
+    ones among them equal the plain version's count."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import hungarian_cuda
+    from multiple_object_tracking_lidar_tpu_torch.ops.hungarian import auction_assign_plain
+
+    cs = _chip_smoke()
+    rng = np.random.default_rng(17)
+    for cost, feas in (cs.net_tie_costs(), cs.stretch_costs(rng, 8, 300, 0.01)):
+        C, F = torch.from_numpy(cost).to(dev), torch.from_numpy(feas).to(dev)
+        a, sat, it, fast = hungarian_cuda.auction_assign(C, F, 1e-3, 0.5, return_split=True)
+        pa, ps, pit, pfast = auction_assign_plain(C, F, 1e-3, 0.5, return_split=True)
+        assert _bits(a, pa) and int(sat) == int(ps)
+        assert it.tolist() == pit and fast.tolist() == pfast and sum(pfast) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k14_every_cluster_size_matches_plain(dev, dtype):
+    """K14 at 1, 2, 4, 8 and 16 CTAs per frame (those the card grants) on
+    two frames of blobs over a 37 x 23 x 3 grid, converged and at
+    max_iters = 1: labels, n_sweeps and saturated bit for bit the plain
+    version, one launch each."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import stencil_cc_cuda as k14
+    from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import kernel_offsets
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype
+
+    dims, tol = (37, 23, 3), 0.15
+    cent, dyn = _chip_smoke().k14_grid_frames(np.random.default_rng(5), dims, 2)
+    C, D = torch.from_numpy(cent).to(dev).to(dtype), torch.from_numpy(dyn).to(dev)
+    offs = kernel_offsets(dims, tol, 0.05, 1.0)
+    for mi in (32, 1):
+        ref = k14.stencil_cc_plain(C, D, dims, offs, in_dtype(tol * tol, dtype), mi, 2, 2)
+        for cl in (1, 2, 4, 8, 16):
+            if cl > k14.cluster_size(1 << 30, dev):
+                continue
+            n0 = sum(k14.stencil_cc.launches_by.values())
+            got = k14.stencil_cc(C, D, dims, tol, 0.05, 1.0, mi, 2, 2, cluster=cl)
+            assert sum(k14.stencil_cc.launches_by.values()) == n0 + 1
+            assert all(torch.equal(x, y) for x, y in zip(got, ref)), (cl, mi)

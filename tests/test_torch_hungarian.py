@@ -9,14 +9,16 @@ the JAX package on the CPU: the auction and the associator.
   bit, assigned columns and saturated phases: random gated costs, near
   ties, all-infeasible rows, D > K and D < K, and ``max_iters=1``, which
   must saturate.
-- The kernel's algorithm (``csrc/auction.cuh``: each row's feasible
+- The kernel's bidding rules (``csrc/auction.cuh``: each row's feasible
   columns listed, 32 lanes over strided columns, the lanes' top-two values
   combined by three warp reductions, one lane per bidding row, one bid for all the dummy
   rows, packed-key winners) rehearsed in numpy f32 against the literal
-  plain version on the same cases, iterations per phase included: the
-  kernel cannot run here, its shortcuts (the dummy rows' one bid, the
-  infeasible columns left out, rows past the list's length) can be
-  checked.
+  plain version on the same cases, iterations per phase included, with
+  every column summary taken afresh each iteration (the first schedule's
+  pass): its shortcuts (the dummy rows' one bid, the infeasible columns
+  left out, rows past the list's length) are checked here; the device
+  schedule that keeps the summaries and applies the dummy-only iterations
+  apart is rehearsed in tests/test_torch_auction_schedule.py.
 - ``hungarian_associate_and_update_plain`` against the JAX function on
   the crossing, unmatched and no-duplicate scenes of
   tests/test_hungarian.py:96-150, every field.
@@ -246,12 +248,12 @@ MAX_FEAS = 4   # csrc/auction.cuh::kMaxFeas
 
 
 def _rehearse_kernel(cost, feas, eps, max_cost, max_iters):
-    """csrc/auction.cuh step by step in numpy f32: each row's feasible
+    """csrc/auction.cuh's bidding rules in numpy f32: each row's feasible
     columns listed (up to MAX_FEAS, ascending), then per iteration the
-    lanes' strided sweep and warp reductions, one lane per unassigned row
-    with a short list, the warp over the K columns of a row whose list
-    overflowed, one bid for the dummy rows, packed-key winners, each
-    column applied by its winner's bid entry."""
+    lanes' strided sweep (every summary afresh) and warp reductions, one
+    lane per unassigned row with a short list, the warp over the K columns
+    of a row whose list overflowed, one bid for the dummy rows, packed-key
+    winners, each column applied by its winner's bid entry."""
     d, k = cost.shape
     n = d + k
     neg_pen, neg_pen2, eps_ps = auction_schedule(d, eps, max_cost)

@@ -13,6 +13,16 @@ JAX ``connected_components_grid``, bit for bit, in f32 and f64:
 
 K14 itself (``csrc/stencil_cc.cu``) runs only on the card, where
 chip_smoke.py and tests/test_torch_cuda.py hold it to this plain version.
+Its steps are rehearsed here in numpy against the plain version, bit for
+bit (``_rehearse_k14``): the flags read in 16-byte chunks from a frame
+that starts anywhere in a chunk, split over the cluster's CTAs and their
+warps, the dynamic cells listed in ascending order across the CTAs; the
+adjacency words built one warp per cell, lane b testing offset 32 w + b
+(cells on the grid's edges, offsets past the grid, words past the
+offsets); the Jacobi passes split over the CTAs with the cluster-wide vote
+(rank 0's word raised to 1 + the iteration).  Words, list, labels,
+``n_sweeps`` and ``saturated``, f32 and f64, converged and capped, at 1, 4
+and 16 CTAs per frame.
 """
 
 import functools
@@ -141,3 +151,133 @@ def test_plain_packs_the_offsets_the_kernel_takes():
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert int(got[1][0]) > 0
+
+
+# ---------------------------------------------------------------------------
+# K14's steps (csrc/stencil_cc.cu) rehearsed in numpy
+# ---------------------------------------------------------------------------
+def _rehearse_k14(cent, dyn, dims, offs, tol2, max_iters, sweeps, jumps, C, lead):
+    """csrc/stencil_cc.cu on one frame, step by step: the frame's flags at
+    byte ``lead`` of a 16-byte chunk, C CTAs of 32 warps.  Returns (list,
+    words (nd, W), labels, n_sweeps, saturated)."""
+    gx, gy, gz = dims
+    n = gx * gy * gz
+    W = (len(offs) + 31) // 32
+    n_warps = 32
+    # 1. chunk q holds cells 16 q - lead + b; CTA shares, warp parts, 32 a step
+    nq = (lead + n + 15) // 16
+    qc = -(-nq // C)
+
+    def mask(q):
+        c0 = 16 * q - lead
+        return sum(1 << b for b in range(16) if 0 <= c0 + b < n and dyn[c0 + b])
+
+    parts = []
+    for rank in range(C):
+        cq0 = min(nq, rank * qc)
+        cq1 = min(nq, cq0 + qc)
+        qw = -(-(cq1 - cq0) // n_warps)
+        parts.append([(min(cq1, cq0 + w * qw), min(cq1, min(cq1, cq0 + w * qw) + qw))
+                      for w in range(n_warps)])
+    counts = [[sum(bin(mask(q)).count("1") for q in range(a, b)) for a, b in p] for p in parts]
+    cta = [sum(c) for c in counts]
+    nd = sum(cta)
+    lst = np.full(nd, -1, np.int64)
+    lab = np.full(n, -1, np.int64)
+    for rank in range(C):
+        for w, (a, b) in enumerate(parts[rank]):
+            at = sum(cta[:rank]) + sum(counts[rank][:w])
+            for q0 in range(a, b, 32):            # one step: 32 lanes, a warp scan
+                ms = [mask(q) if q < b else 0 for q in range(q0, q0 + 32)]
+                for lane, m in enumerate(ms):
+                    c0 = 16 * (q0 + lane) - lead
+                    k = at + sum(bin(x).count("1") for x in ms[:lane])
+                    for bit in range(16):
+                        if (m >> bit) & 1:
+                            lst[k] = c0 + bit
+                            k += 1
+                    if q0 + lane < b:
+                        for bit in range(16):
+                            if 0 <= c0 + bit < n:
+                                lab[c0 + bit] = c0 + bit if (m >> bit) & 1 else n
+                at += sum(bin(x).count("1") for x in ms)
+    assert (lst >= 0).all() and (lab >= 0).all()
+    # 2. one warp per cell: lane b of word w tests offset 32 w + b (all the
+    #    list's (cell, word, lane) at once; the FMA spelled as the kernel's)
+    O = np.asarray(offs, np.int64).reshape(-1, 3)
+    o = np.arange(32 * W).reshape(W, 32)                      # (word, lane) -> offset
+    valid_o = o < len(offs)
+    oc = np.minimum(o, max(len(offs) - 1, 0))
+    dz, dy, dx = (O[oc, a] if len(offs) else np.zeros_like(oc) for a in range(3))
+    x, y, z = (lst % gx)[:, None, None], ((lst // gx) % gy)[:, None, None], \
+        (lst // (gx * gy))[:, None, None]
+    inside = (valid_o & (x + dx >= 0) & (x + dx < gx) & (y + dy >= 0) & (y + dy < gy)
+              & (z + dz >= 0) & (z + dz < gz))
+    j = np.where(inside, lst[:, None, None] + dx + gx * (dy + gy * dz), 0)
+    cand = inside & dyn[j]
+    c = torch.from_numpy(cent)
+    d = [c[a][torch.from_numpy(lst)][:, None, None] - c[a][torch.from_numpy(j)] for a in range(3)]
+    d2 = k14.fma(d[2], d[2], k14.fma(d[0], d[0], d[1] * d[1])).numpy()
+    hit = cand & (d2 <= tol2)
+    words = (hit.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+    # 3. the passes, each CTA its share of the list; the vote
+    qs = -(-nd // C)
+    src, dst = lab.copy(), lab.copy()
+    fell, it, changed = 0, 0, True
+    deltas = [dx + gx * (dy + gy * dz) for dz, dy, dx in offs]
+    while changed and it < max_iters:
+        moved = [False] * C
+        for p in range(sweeps + jumps):
+            for rank in range(C):
+                for q in range(min(nd, rank * qs), min(nd, min(nd, rank * qs) + qs)):
+                    i = lst[q]
+                    v = src[i]
+                    if p < sweeps:
+                        for w in range(W):
+                            for bit in range(32):
+                                if (int(words[q, w]) >> bit) & 1:
+                                    v = min(v, src[i + deltas[32 * w + bit]])
+                    else:
+                        v = src[src[i]]
+                    moved[rank] |= v != src[i]
+                    dst[i] = v
+            if p == sweeps + jumps - 1 and any(moved):
+                fell = max(fell, it + 1)
+            src, dst = dst, src
+        changed = fell >= it + 1
+        it += 1
+    sat = int(changed and it >= max_iters)
+    return lst, words, src, it * sweeps, sat
+
+
+
+@pytest.mark.parametrize("cluster,lead", [(1, 0), (4, 7), (16, 13)])
+@pytest.mark.parametrize("max_iters", [32, 1])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_kernel_steps_rehearsed_match_plain(dtype, max_iters, cluster, lead):
+    """K14's three steps on a 37 x 23 x 3 grid (2,553 cells: no multiple of
+    16; the 0.05 m leaf's offsets, many past the grid at its edges) with
+    blobs, a snake no capped schedule finishes and the grid's corners and
+    edges dynamic: the list is the dynamic cells in order, the words the
+    plain version's, the labels, n_sweeps and saturated the plain
+    version's, at every cluster size and frame alignment."""
+    dims, leaf, leaf_z, tol = (37, 23, 3), 0.05, 1.0, 0.15
+    gx, gy, gz = dims
+    rng = np.random.default_rng(17)
+    cent, dyn = _frame(rng, dims, leaf, leaf_z, dtype, blobs=6, snake=True)
+    lin = np.arange(dyn.size)
+    ix, iy = lin % gx, (lin // gx) % gy
+    dyn |= ((ix == 0) | (ix == gx - 1)) & ((iy < 3) | (iy > gy - 4))
+    offs = kernel_offsets(dims, tol, leaf, leaf_z)
+    tol2 = np.asarray(tol * tol, dtype)[()]
+    lst, words, lab, n_sw, sat = _rehearse_k14(cent, dyn, dims, offs, tol2, max_iters, 2, 2,
+                                                cluster, lead)
+    np.testing.assert_array_equal(lst, np.flatnonzero(dyn))
+    C, D = torch.from_numpy(cent)[None], torch.from_numpy(dyn)[None]
+    pw = k14.adjacency_words_plain(C, D, dims, offs, tol2)[0].numpy().view(np.uint32)
+    np.testing.assert_array_equal(words, pw[:, lst].T)
+    assert words.shape[1] == 5 and words.any()
+    pl, pn, ps = k14.stencil_cc_plain(C, D, dims, offs, tol2, max_iters, 2, 2)
+    np.testing.assert_array_equal(lab, pl[0].numpy())
+    assert (n_sw, sat) == (int(pn[0]), int(ps[0]))
+    assert sat == (1 if max_iters == 1 else 0)

@@ -56,8 +56,8 @@ of JAX, in five phases, one or more lines each:
    their plain versions; K13 (the IHGP learning step) at the shapes of
    ``K13_SHAPES`` (the headline node's update, tune's 60 windows, 1,024 and
    4,096 windows, one window, half the mask off, logLengthScale at -10 --
-   the NaN reset -- and +10), bit for bit its plain version, one op per
-   call; K4 xl -- K4 past its 1,024 slots and 128 detections -- (greedy and
+   the NaN reset -- and +10, one window past a CTA's 32, nine CTAs a
+   problem), bit for bit its plain version, one op per call; K4 xl -- K4 past its 1,024 slots and 128 detections -- (greedy and
    Hungarian, lpf and ihgp, f32 and f64) at (K, D) = (2,048, 32), (4,096,
    64), (64, 256) and (1,024, 512), K1 and K5 wide (and K1's raw entry) at
    the floor's 1,119,963 cells and at 2 x ``max_cells``, S = 1 and 8, and
@@ -168,8 +168,10 @@ of JAX, in five phases, one or more lines each:
    their bounds, and G in f32 and f64 in turns (ms/frame, device ops and
    host syncs per frame); K13 and its plain version in turns at the
    headline node's shape (the plain version's device ops per call), K13's
-   device time at four shapes, and the headline node's wall ms per frame
-   p50 / p99 with learning on and off in turns.  Every one-op reading
+   device time at every shape of ``K13_SHAPES`` beside its chain bound, and
+   the headline node's wall ms per frame p50 / p99 on update frames and
+   the others with learning on and off in turns, each update split into
+   the window copy, K13, the host gains and the swap.  Every one-op reading
    (``one_op_profile``) comes from a trace between marker kernels, taken
    again, up to eight times with a growing pause, when it lost events at
    an end (``micro_torch_digits.whole_trace``; the run logs how many were
@@ -3758,6 +3760,8 @@ K13_SHAPES = (  # (label, A problems, B windows, T steps, mask, logLengthScale p
     ("one window", 1, 1, 39, "all", None),
     ("half mask", 2, 64, 39, "half", None),
     ("edges", 2, 8, 5, "all", (-10.0, 10.0)),
+    ("W + 1", 2, 33, 39, "all", None),         # one window past a CTA's 32
+    ("nine CTAs", 2, 273, 39, "half", None),   # 8 x 32 + 17 windows a problem
 )
 K13_DT = 0.1
 TOL_LEARN_LP = 5e-5    # the node's log-parameters against the golden (tests/
@@ -3820,7 +3824,8 @@ def phase_kernels_slice15(dev, report):
     shapes of ``K13_SHAPES`` (the headline node's two axes of 3 windows of
     39 steps, the tune default's 60 windows of 9, 1,024 and 4,096 windows,
     one window, half the mask off, logLengthScale at -10 -- the NaN reset --
-    and +10); each call one device op (``require_one_op``)."""
+    and +10, one window past a CTA's 32, nine CTAs a problem with half the
+    mask off); each call one device op (``require_one_op``)."""
     from multiple_object_tracking_lidar_tpu_torch.models import learning as TL
     from multiple_object_tracking_lidar_tpu_torch.ops import learning_cuda
 
@@ -3857,8 +3862,11 @@ def phase_learning(dev, smi, report):
     learning step may run on the card (it fails if called with a CUDA
     tensor).  Then the timings: K13 and its plain version in turns (CUDA
     events; the plain version's launches per call from a trace), K13's
-    entry of the report with its bound, and the node's wall ms per frame
-    p50 / p99 with learning on and off, in turns (on, off, off, on)."""
+    entry of the report with its bound, K13's device us at every shape of
+    ``K13_SHAPES`` beside its operations and its chain bound
+    (``scripts/micro_torch_learning.py::chain_bound_us``), and the node's
+    wall ms per frame with learning on and off in turns, the update by
+    piece (``learning_pieces``)."""
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import headline_case, load_sim_grid
     from multiple_object_tracking_lidar_tpu_torch.models import learning as TL
     from multiple_object_tracking_lidar_tpu_torch.ops import learning_cuda
@@ -3955,28 +3963,110 @@ def phase_learning(dev, smi, report):
         f"kernel, plain; min reported); plain {plain_ops:g} device ops and {plain_syncs:g} "
         f"host syncs per call; bound {entry['bound_ms']:.6f} ms by {entry['bound_by']} "
         f"({moved} bytes, {ops} operations); library call none")
-    for label, a, b, t, mask, lls in K13_SHAPES[:4]:
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import micro_torch_learning as mtl
+
+    sm_mhz, sm_max = (float(x) for x in mtl.smi("clocks.sm,clocks.max.sm").split(","))
+    for label, a, b, t, mask, lls in K13_SHAPES:
         La, Ya, Ma = k13_inputs(rng, dev, a, b, t, mask, lls)
         us, n_ops, whole = one_op_profile(
             lambda: learning_cuda.learning_step_cuda(La, Ya, Ma, K13_DT), 20)
         require_one_op(f"K13 {label}", n_ops, whole)
         log(f"[5 timing] {smi}: K13 {label} (A={a}, B={b}, T={t}) device {us:.2f} us per "
-            f"launch, {n_ops:g} op; {k13_ops(La, b, t)} operations")
+            f"launch, {n_ops:g} op; {k13_ops(La, b, t)} operations; chain bound "
+            f"{mtl.chain_bound_us(t, sm_max):.2f} us ({mtl.chain_ops(t)} dependent ops at "
+            f"{sm_max:g} MHz; SM clock read {sm_mhz:g} MHz)")
+    learning_pieces(dev, smi, cfg, lcfg, sc)
 
-    # the node's wall ms per frame, learning on and off in turns
+
+def learning_pieces(dev, smi, cfg, lcfg, sc, n: int = 48):
+    """The headline node's wall ms per frame over ``n`` scenario frames,
+    learning on and off in turns (on, off, off, on), p50 / p99 on the update
+    frames (those after which an on turn learned) and on the other frames;
+    and on the on turns each update by piece, by wrapping the node's own
+    callables: the window copy (``_maybe_learn`` up to its learning step:
+    ``alive`` and ``window`` to the host, the numpy windows, their upload),
+    K13 (``learning_step_stacked`` from its launch to a synchronise: new
+    and nll ready for the host), ``Tracker.compute_gains`` (host f64), the
+    swap (the rest of ``_set_gains``: the gains to the device) and the rest
+    of the update (new and nll to the host)."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.runtime import node as node_mod
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    frames = [sc.frame(k) for k in range(n)]
+    cur: dict = {}
+    o_learn, o_step = TrackerNode._maybe_learn, node_mod.learning_step_stacked
+    o_gains, o_set = Tracker.compute_gains, TrackerNode._set_gains
+
+    def p_learn(self, t):
+        cur["enter"] = time.perf_counter()
+        o_learn(self, t)
+        cur["exit"] = time.perf_counter()
+
+    def p_step(*args, **kw):
+        cur["call"] = time.perf_counter()
+        out = o_step(*args, **kw)
+        torch.cuda.synchronize()
+        cur["k13"] = time.perf_counter() - cur["call"]
+        return out
+
+    def p_gains(*args, **kw):
+        t0 = time.perf_counter()
+        out = o_gains(*args, **kw)
+        cur["gains"] = time.perf_counter() - t0
+        return out
+
+    def p_set(self):
+        t0 = time.perf_counter()
+        o_set(self)
+        cur["set"] = time.perf_counter() - t0
+
+    def pct(x, q):
+        return float(np.percentile(np.asarray(x), q)) if len(x) else float("nan")
+
+    upd_frames = None
     for turn, on in enumerate((True, False, False, True)):
-        node = TrackerNode(lcfg if on else cfg, dev)
-        node.on_map(load_sim_grid())
-        wall = []
-        for msg in frames:
-            t0 = time.perf_counter()
-            node.on_pointcloud(msg)
-            wall.append(1e3 * (time.perf_counter() - t0))
-        w = np.asarray(wall[2:])
+        TrackerNode._maybe_learn, node_mod.learning_step_stacked = p_learn, p_step
+        Tracker.compute_gains, TrackerNode._set_gains = staticmethod(p_gains), p_set
+        try:
+            node = TrackerNode(lcfg if on else cfg, dev)
+            node.on_map(load_sim_grid())
+            wall, upd, pieces = [], [], []
+            for k, msg in enumerate(frames):
+                cur.clear()
+                t0 = time.perf_counter()
+                node.on_pointcloud(msg)
+                wall.append(1e3 * (time.perf_counter() - t0))
+                if "call" in cur:
+                    upd.append(k)
+                    ms = {key: 1e3 * cur[key] for key in ("k13", "gains")}
+                    ms["copy"] = 1e3 * (cur["call"] - cur["enter"])
+                    ms["swap"] = 1e3 * cur["set"] - ms["gains"]
+                    ms["update"] = 1e3 * (cur["exit"] - cur["enter"])
+                    ms["rest"] = ms["update"] - ms["copy"] - ms["k13"] - 1e3 * cur["set"]
+                    pieces.append(ms)
+        finally:
+            TrackerNode._maybe_learn, node_mod.learning_step_stacked = o_learn, o_step
+            Tracker.compute_gains, TrackerNode._set_gains = staticmethod(o_gains), o_set
+        if on and upd_frames is None:
+            upd_frames = set(upd)
+        w_upd = [x for k, x in enumerate(wall) if k >= 2 and k in upd_frames]
+        w_oth = [x for k, x in enumerate(wall) if k >= 2 and k not in upd_frames]
         log(f"[5 timing] {smi}: headline TrackerNode learning {'on ' if on else 'off'} (turn "
-            f"{turn + 1} of on, off, off, on): wall ms/frame p50 {np.percentile(w, 50):.4f} "
-            f"p99 {np.percentile(w, 99):.4f} mean {w.mean():.4f} over frames 2-{n - 1}; "
-            f"{len(node.nll_history)} updates")
+            f"{turn + 1} of on, off, off, on; {n} frames, {len(upd)} updates): wall ms/frame "
+            f"on the update frames p50 {pct(w_upd, 50):.4f} p99 {pct(w_upd, 99):.4f} "
+            f"({len(w_upd)} frames), on the others p50 {pct(w_oth, 50):.4f} p99 "
+            f"{pct(w_oth, 99):.4f} ({len(w_oth)}), all p50 {pct(wall[2:], 50):.4f} p99 "
+            f"{pct(wall[2:], 99):.4f}")
+        if pieces:
+            parts = ", ".join(
+                f"{key} p50 {pct([p[key] for p in pieces], 50):.4f} p99 "
+                f"{pct([p[key] for p in pieces], 99):.4f}"
+                for key in ("update", "copy", "k13", "gains", "swap", "rest"))
+            log(f"[5 timing] {smi}: learning update by piece (turn {turn + 1}, "
+                f"{len(pieces)} updates), ms: {parts}")
 
 
 # ---------------------------------------------------------------------------
@@ -4848,10 +4938,12 @@ KERNELS = (
     ("K2 f64 f32-sums", "K2's double build fed f32 sums (voxel_mode=runs under dtype=float64): "
      "the f32 finalize and static drop, the centroid widened, the stencil's d^2 in f64",
      f"{PKG}/csrc/grid_cc.cu", "multiple_object_tracking_lidar_tpu/ops/grid_pallas.py:288"),
-    ("K13", "one SGD step of the IHGP hyperparameter learning for A stacked problems, one CTA "
-     "each: the model, JAX's f32 expm, the 100-trip DARE and three Lyapunov recursions, the "
-     "window recursion one thread per window, the sums in a fixed order, the update (timed at "
-     "the headline node's 2 x 3 windows of 39 steps; launched on the learning node and tune)",
+    ("K13", "one SGD step of the IHGP hyperparameter learning for A stacked problems, CTAs of "
+     "32 windows: the model, JAX's f32 expm, the 100-trip DARE (its divisions on two lanes) "
+     "beside three Van Loan expms, three Lyapunov recursions, then per block of steps the "
+     "windows' recursions, their divisions over all threads and the sums in turn, the last "
+     "CTA's sum over chunks by an integer ticket, the update (timed at the headline node's "
+     "2 x 3 windows of 39 steps; launched on the learning node and tune)",
      f"{PKG}/csrc/learning.cu", "multiple_object_tracking_lidar_tpu/models/learning.py:121"),
     ("K4 xl", "K4 past its narrow builds (K > 1,024 slots or D > 128 detections): lane t owns "
      "slots t, t + 1,024, ...; the slots' summaries, the decisions and the detection flags in "

@@ -96,7 +96,7 @@ SIGNATURES = {
                             _P],
     "motl_stencil_cc_max_cluster": [_P],
     "motl_transpose32": [_P, _P, _I, _I, _I, _P],
-    "motl_learning_step": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
+    "motl_learning_step": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P],
 }
 
 

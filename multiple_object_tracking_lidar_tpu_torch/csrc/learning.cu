@@ -1,5 +1,6 @@
-// K13: one SGD step of the IHGP hyperparameter learning, one CTA per
-// problem, one launch for A stacked problems.
+// K13: one SGD step of the IHGP hyperparameter learning for A stacked
+// problems, one launch: a grid of G x A CTAs of 512 threads, G = ceil(B /
+// 32), each CTA 32 windows (one chunk of the masked sums) of one problem.
 //
 // Replaces the JAX package's jitted jnp step (multiple_object_tracking_lidar_tpu/
 // models/learning.py::learning_step :121, with models/ihgp.py::ihgp_nll_grad
@@ -12,22 +13,46 @@
 // (models/f32_math.py), and the sums run in one fixed order.  No float
 // atomics.
 //
-// Stage 1, the gains (learning.py::stationary_gains_torch).  Thread 0: the
-// Matern-3/2 model, A = expm(F dt) (JAX's own f32 expm: the 1-norm,
-// scaling, Pade 3/5/7, LU with partial pivoting as LAPACK's getf2 + trsm
-// take it, squarings), Q, the 100-trip DARE, S, K, HA, AKHA and AK into
-// shared memory.  (G, the smoother gain, is not computed: the step does not
-// read it.)  Then threads 0-2, one per hyperparameter: the Van Loan 4 x 4
-// expm, dQ and C symmetrised, the 100-trip Lyapunov recursion, dS, dK,
-// dAKHA and HdA into shared memory.
-// Stage 2, the windows (ihgp.py::ihgp_nll_grad from m0 = 0): one thread
-// per window, looping past 256, the recursion's state (m, dm, edata,
-// gdata) in registers; each window's (nll, grad) times its mask weight to
-// a scratch row.
-// Stage 3, the update: the sums in learning.py::masked_sums's order (each
-// 32-window chunk in turn by one thread, then the chunk sums in turn by
-// thread 0), the mean over max(sum w, 1), theta * grad, SGD on entries 1
-// and 2, the clamp to [-10, 10] and the reset of a non-finite entry to 0.
+// What bounds it: dependent latency, not bytes or operations.  The DARE and
+// the Lyapunov recursion are 100 trips each of a dependent chain, the
+// DARE's with an IEEE division in it (~60 cycles on an H100 against ~5 for
+// an FMA); the window recursion is a chain over T with seven divisions a
+// step.  A division compiles to its own branch region, so two divisions of
+// one thread run one after the other.  The design keeps each chain to the
+// spelled arithmetic and puts the divisions that do not depend on one
+// another on different lanes.
+//
+// Stage 1, the gains (learning.py::stationary_gains_torch), redone by every
+// CTA.  Warp 0: the Matern-3/2 model, A = expm(F dt) (JAX's own f32 expm:
+// the 1-norm, scaling, Pade 3/5/7, LU with partial pivoting as LAPACK's
+// getf2 + trsm take it, squarings), Q, the 100-trip DARE -- a trip's two
+// divisions by s on lanes of the two parities, the other's quotient by a
+// shuffle --, S, K, HA, AKHA and AK into shared memory.  Meanwhile lane 0 of
+// warps 1-3, one per hyperparameter p and so never diverging on the Pade
+// order: the model again, A again (the same code, the same bits), the Van
+// Loan 4 x 4 expm, dQ symmetrised and HdA, none of which waits on the DARE;
+// warps 4-15 load the CTA's first block of y into shared memory.  After a
+// barrier the three lanes take PP and AK: C symmetrised, the 100-trip
+// Lyapunov recursion, dS, dK and dAKHA into shared memory.  (G, the
+// smoother gain, is not computed: the step does not read it.)
+// Stage 2, the windows (ihgp.py::ihgp_nll_grad from m0 = 0), kSteps steps
+// of y at a time in shared memory: (A) warp p < 3, lane w: window w's m and
+// hyperparameter p's dm in turn over the steps, each step's seven numerators
+// (vv; v dv and vv dS for each p) to shared memory; (B) all 512 threads:
+// the block's divisions, which depend on nothing but their numerator; (C)
+// warp q < 4, lane w: window w's value q summed in turn over the steps (the
+// NLL and the three gradient entries).  No step's sum is reordered.
+// Stage 3, the sums in learning.py::masked_sums's order: warp q sums its
+// lanes' values times their mask weight window by window from +0 through
+// shuffles; warp 0's ballot counts the windows whose mask is on.  With one
+// CTA per problem the total is +0 plus that chunk sum; otherwise each CTA
+// writes its chunk sums and adds (windows on << 32) | 1 to the problem's
+// 64-bit ticket word (__threadfence, then one integer atomicAdd), and the
+// last CTA to arrive reads every chunk sum in coalesced tiles into shared
+// memory, sums them in ascending order and stores 0 to the ticket for the
+// next launch.  Then the update, one thread per entry: the mean over
+// max(sum w, 1), theta * grad, SGD on entries 1 and 2, the clamp to
+// [-10, 10] and the reset of a non-finite entry to 0.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -35,7 +60,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kW = 32;                  // windows per CTA: one chunk of the masked sums
+constexpr int kThreads = 512;
+constexpr int kSums = 4;                // the NLL and the three gradient entries
+constexpr int kQuot = 7;                // a window step's divisions: vv / S, and per
+                                        // hyperparameter (v dv) / S and (vv dS) / (S S)
+constexpr int kSteps = 40;              // steps of y per shared-memory block
+constexpr int kStride = kW + 1;         // ys[step][window], padded: no bank conflicts
+constexpr int kTile = kSteps * kStride / kSums;  // chunk sums per tile of the final sum
+constexpr int kMaxGridY = 65535;
 constexpr int kDareIters = 100;
 constexpr int kMaxSquarings = 16;
 constexpr int kChunk = 32;              // learning.py::SUM_CHUNK
@@ -135,8 +168,13 @@ __device__ __forceinline__ void mm3(const float (&a)[M][K], const float (&b)[K][
   mm(ab, c, d);
 }
 
-__device__ const float kH[1][2] = {{1.0f, 0.0f}};
-__device__ const float kHt[2][1] = {{1.0f}, {0.0f}};
+// H = [1 0] and its transpose as literals, so no trip of a recursion loads
+// them.  A product with a literal 1 is exact and may fold to its operand;
+// the FMAs with a literal 0 stay (x + 0 * y is not x for an infinite or NaN
+// y, or for x = -0), so every value keeps the plain version's bits.
+#define K13_H                                                   \
+  [[maybe_unused]] const float kH[1][2] = {{1.0f, 0.0f}};       \
+  [[maybe_unused]] const float kHt[2][1] = {{1.0f}, {0.0f}}
 
 // Q^-1 P by learning.py::lu_solve: the left-looking getf2 (the U entries'
 // dots from their last term, the lower entries' from their first; the
@@ -294,51 +332,66 @@ __device__ void expm(const float (&a)[N][N], float (&r)[N][N]) {
   }
 }
 
-struct Gains {
-  // stage 1, thread 0
-  float F[2][2], Pinf[2][2], R, dF[3][2][2], dPinf[3][2][2], dR[3];
-  float A[2][2], PP[2][2], PPH[2][1], S, K[2][1], HA[1][2], AKHA[2][2], AK[2][1];
-  // stage 1, threads 0-2
-  float dS[3], dK[3][2], dAKHA[3][2][2], HdA[3][2];
+// The Matern-3/2 model of log-parameters lp (learning.py::matern32_torch)
+struct Model {
+  float sigma2, magn, ls, lam, ls2, ls3, F[2][2], Pinf[2][2];
 };
 
-// thread 0: the model, A, Q, the DARE and the gains (stationary_gains_torch)
-__device__ void gains_base(const float* lp, float dt, Gains& g) {
-  const float sigma2 = exp_f32(lp[0]), magn = exp_f32(lp[1]), ls = exp_f32(lp[2]);
-  const float lam = fdiv(__fsqrt_rn(3.0f), ls);
-  const float ls2 = fmul(ls, ls), ls3 = fmul(ls, ls2);
-  const float F[2][2] = {{0.0f, 1.0f}, {fmul(-lam, lam), fmul(-2.0f, lam)}};
-  const float Pinf[2][2] = {{magn, 0.0f}, {0.0f, fmul(fmul(magn, lam), lam)}};
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      g.F[i][j] = F[i][j];
-      g.Pinf[i][j] = Pinf[i][j];
-#pragma unroll
-      for (int p = 0; p < 3; ++p) g.dF[p][i][j] = g.dPinf[p][i][j] = 0.0f;
-    }
-  g.dF[2][1][0] = fdiv(6.0f, ls3);
-  g.dF[2][1][1] = fdiv(fmul(2.0f, lam), ls);
-  g.dPinf[1][0][0] = 1.0f;
-  g.dPinf[1][1][1] = fdiv(3.0f, ls2);
-  g.dPinf[2][1][1] = fdiv(fmul(-6.0f, magn), ls3);
-  g.dR[0] = 1.0f;
-  g.dR[1] = g.dR[2] = 0.0f;
-  g.R = sigma2;
+__device__ __forceinline__ void model(const float* lp, Model& md) {
+  md.sigma2 = exp_f32(lp[0]);
+  md.magn = exp_f32(lp[1]);
+  md.ls = exp_f32(lp[2]);
+  md.lam = fdiv(__fsqrt_rn(3.0f), md.ls);
+  md.ls2 = fmul(md.ls, md.ls);
+  md.ls3 = fmul(md.ls, md.ls2);
+  md.F[0][0] = 0.0f;
+  md.F[0][1] = 1.0f;
+  md.F[1][0] = fmul(-md.lam, md.lam);
+  md.F[1][1] = fmul(-2.0f, md.lam);
+  md.Pinf[0][0] = md.magn;
+  md.Pinf[0][1] = md.Pinf[1][0] = 0.0f;
+  md.Pinf[1][1] = fmul(fmul(md.magn, md.lam), md.lam);
+}
 
-  float fdt[2][2], A[2][2], At[2][2], t[2][2], Q[2][2];
+// A = expm(F dt)
+__device__ __forceinline__ void transition(const Model& md, float dt, float (&A)[2][2]) {
+  float fdt[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) fdt[i][j] = fmul(F[i][j], dt);
+    for (int j = 0; j < 2; ++j) fdt[i][j] = fmul(md.F[i][j], dt);
   expm(fdt, A);
+}
+
+// the gains of the DARE's solution, which every lane of stage 2 and the
+// derivatives' second half read
+struct Gains {
+  float PP[2][2], PPH[2], S, K[2], HA[2], AKHA[2][2], AK[2];
+  float dS[3], dK[3][2], dAKHA[3][2][2], HdA[3][2];
+  // what stage 2 and the update would otherwise compute after stage 1, each
+  // beside a longer chain: S * S and 0.5 log S beside the Lyapunov
+  // recursions, 0.5 log 2 pi beside the DARE, (0.5 dS) / S, and the
+  // model's exp(lp[1]) and exp(lp[2])
+  float SS, hlS, hl2pi, hdS[3], magn, ls;
+};
+
+// warp 0: the model, A, Q, the DARE and the gains.  Every lane runs every
+// trip; of its two divisions by s, a lane of parity i takes row i and the
+// other row's quotient comes by a shuffle, so a trip waits on one division
+// and not two in turn.  Lane 0 writes the results.
+__device__ void gains_base(const float* lp, float dt, int lane, Gains& g) {
+  K13_H;
+  Model md;
+  model(lp, md);
+  const float sigma2 = md.sigma2;
+  float A[2][2], At[2][2], t[2][2], Q[2][2];
+  transition(md, dt, A);
   tr(A, At);
-  mm3(A, Pinf, At, t);
+  mm3(A, md.Pinf, At, t);
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) Q[i][j] = fsub(Pinf[i][j], t[i][j]);
+    for (int j = 0; j < 2; ++j) Q[i][j] = fsub(md.Pinf[i][j], t[i][j]);
 
   // the DARE: X <- AKB X AKB^T + (K R) K^T + Q, 100 trips
   float X[2][2] = {{1.0f, 0.0f}, {0.0f, 1.0f}};
@@ -348,8 +401,11 @@ __device__ void gains_base(const float* lp, float dt, Gains& g) {
     mm(hx, kHt, hxh);
     const float s = fadd(hxh[0][0], sigma2);
     mm(X, kHt, xh);
-    xs[0][0] = fdiv(xh[0][0], s);
-    xs[1][0] = fdiv(xh[1][0], s);
+    const int row = lane & 1;
+    const float mine = fdiv(row ? xh[1][0] : xh[0][0], s);
+    const float other = __shfl_xor_sync(0xffffffffu, mine, 1);
+    xs[0][0] = row ? other : mine;
+    xs[1][0] = row ? mine : other;
     mm(A, xs, K);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -372,78 +428,103 @@ __device__ void gains_base(const float* lp, float dt, Gains& g) {
   float HA[1][2], AK[2][1];
   mm(kH, A, HA);
   mm(A, K, AK);
+  if (lane != 0) return;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      g.A[i][j] = A[i][j];
       g.PP[i][j] = X[i][j];
       g.AKHA[i][j] = ffma(-K[i][0], HA[0][j], A[i][j]);
     }
-    g.PPH[i][0] = pph[i][0];
-    g.K[i][0] = K[i][0];
-    g.HA[0][i] = HA[0][i];
-    g.AK[i][0] = AK[i][0];
+    g.PPH[i] = pph[i][0];
+    g.K[i] = K[i][0];
+    g.HA[i] = HA[0][i];
+    g.AK[i] = AK[i][0];
   }
   g.S = S;
+  g.magn = md.magn;
+  g.ls = md.ls;
 }
 
-// thread p of 0-2: the derivatives for hyperparameter p
-__device__ void gains_param(int p, float dt, Gains& g) {
-  float A[2][2], At[2][2], Pinf[2][2], PP[2][2], dPinf[2][2], AK[2][1], AKt[1][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      A[i][j] = g.A[i][j];
-      At[j][i] = g.A[i][j];
-      Pinf[i][j] = g.Pinf[i][j];
-      PP[i][j] = g.PP[i][j];
-      dPinf[i][j] = g.dPinf[p][i][j];
-    }
-    AK[i][0] = g.AK[i][0];
-    AKt[0][i] = g.AK[i][0];
+// what lane 0 of warp 1 + p keeps between the two halves of its derivatives
+struct VanLoan {
+  float A[2][2], At[2][2], dA[2][2], dAt[2][2], dQs[2][2], dR;
+};
+
+// the first half for hyperparameter p: the Van Loan expm, dQ symmetrised and
+// HdA, which need nothing of the DARE
+__device__ void gains_param_pre(const float* lp, int p, float dt, VanLoan& vl, Gains& g) {
+  K13_H;
+  Model md;
+  model(lp, md);
+  float dF[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}}, dPinf[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  if (p == 1) {
+    dPinf[0][0] = 1.0f;
+    dPinf[1][1] = fdiv(3.0f, md.ls2);
+  } else if (p == 2) {
+    dF[1][0] = fdiv(6.0f, md.ls3);
+    dF[1][1] = fdiv(fmul(2.0f, md.lam), md.ls);
+    dPinf[1][1] = fdiv(fmul(-6.0f, md.magn), md.ls3);
   }
-  const float dR = g.dR[p], S = g.S;
+  vl.dR = p == 0 ? 1.0f : 0.0f;
+  transition(md, dt, vl.A);
+  tr(vl.A, vl.At);
   float ff[4][4], aa[4][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      ff[i][j] = fmul(g.F[i][j], dt);
+      ff[i][j] = fmul(md.F[i][j], dt);
       ff[i][j + 2] = fmul(0.0f, dt);
-      ff[i + 2][j] = fmul(g.dF[p][i][j], dt);
-      ff[i + 2][j + 2] = fmul(g.F[i][j], dt);
+      ff[i + 2][j] = fmul(dF[i][j], dt);
+      ff[i + 2][j + 2] = fmul(md.F[i][j], dt);
     }
   expm(ff, aa);
-  float dA[2][2], dAt[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      dA[i][j] = aa[i + 2][j];
-      dAt[j][i] = aa[i + 2][j];
+      vl.dA[i][j] = aa[i + 2][j];
+      vl.dAt[j][i] = aa[i + 2][j];
     }
-  float t1[2][2], t2[2][2], t3[2][2], dQ[2][2], C[2][2];
-  mm3(dA, Pinf, At, t1);
-  mm3(A, dPinf, At, t2);
-  mm3(A, Pinf, dAt, t3);
+  float t1[2][2], t2[2][2], t3[2][2], dQ[2][2], hda[1][2];
+  mm3(vl.dA, md.Pinf, vl.At, t1);
+  mm3(vl.A, dPinf, vl.At, t2);
+  mm3(vl.A, md.Pinf, vl.dAt, t3);
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j) dQ[i][j] = fsub(fsub(fsub(dPinf[i][j], t1[i][j]), t2[i][j]), t3[i][j]);
-  float dQs[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) dQs[i][j] = fmul(0.5f, fadd(dQ[i][j], dQ[j][i]));
-  float c1[2][2], c2[2][2], dapp[2][2], u[2][1], akh[2][2], c4[2][2];
-  mm(dA, PP, dapp);
-  mm(dapp, At, c1);
-  mm3(A, PP, dAt, c2);
+    for (int j = 0; j < 2; ++j) vl.dQs[i][j] = fmul(0.5f, fadd(dQ[i][j], dQ[j][i]));
+  mm(kH, vl.dA, hda);
+  g.HdA[p][0] = hda[0][0];
+  g.HdA[p][1] = hda[0][1];
+  if (p == 0) g.hl2pi = fmul(0.5f, log_f32(6.283185308f));
+}
+
+// the second half, after the DARE: C symmetrised, the Lyapunov recursion,
+// dS, dK and dAKHA
+__device__ void gains_param_post(int p, const VanLoan& vl, Gains& g) {
+  K13_H;
+  float PP[2][2], AK[2][1], AKt[1][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) PP[i][j] = g.PP[i][j];
+    AK[i][0] = g.AK[i];
+    AKt[0][i] = g.AK[i];
+  }
+  const float S = g.S;
+  float c1[2][2], c2[2][2], dapp[2][2], u[2][1], akh[2][2], c4[2][2], C[2][2];
+  mm(vl.dA, PP, dapp);
+  mm(dapp, vl.At, c1);
+  mm3(vl.A, PP, vl.dAt, c2);
   mm(dapp, kHt, u);
   mm(AK, kH, akh);
-  mm3(akh, PP, dAt, c4);
+  mm3(akh, PP, vl.dAt, c4);
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -451,7 +532,7 @@ __device__ void gains_param(int p, float dt, Gains& g) {
       float c = fadd(c1[i][j], c2[i][j]);
       c = ffma(-u[i][0], AKt[0][j], c);
       c = fsub(c, c4[i][j]);
-      C[i][j] = fadd(ffma(fmul(AK[i][0], dR), AKt[0][j], c), dQs[i][j]);
+      C[i][j] = fadd(ffma(fmul(AK[i][0], vl.dR), AKt[0][j], c), vl.dQs[i][j]);
     }
   float Cs[2][2], ab[2][2], abt[2][2];
 #pragma unroll
@@ -459,7 +540,7 @@ __device__ void gains_param(int p, float dt, Gains& g) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       Cs[i][j] = fmul(0.5f, fadd(C[i][j], C[j][i]));
-      ab[i][j] = ffma(-AK[i][0], kH[0][j], A[i][j]);
+      ab[i][j] = ffma(-AK[i][0], kH[0][j], vl.A[i][j]);
     }
   tr(ab, abt);
   // the Lyapunov recursion X <- Abar X Abar^T + C, 100 trips
@@ -472,165 +553,276 @@ __device__ void gains_param(int p, float dt, Gains& g) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) X[i][j] = fadd(t[i][j], Cs[i][j]);
   }
-  float hx[1][2], hxh[1][1], xh[2][1], hda[1][2];
+  float hx[1][2], hxh[1][1], xh[2][1];
   mm(kH, X, hx);
   mm(hx, kHt, hxh);
-  const float dS = fadd(hxh[0][0], dR);
+  const float dS = fadd(hxh[0][0], vl.dR);
   mm(X, kHt, xh);
   const float q = fdiv(dS, fmul(S, S));
   float dK[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) dK[i] = ffma(-g.PPH[i][0], q, fdiv(xh[i][0], S));
-  mm(kH, dA, hda);
+  for (int i = 0; i < 2; ++i) dK[i] = ffma(-g.PPH[i], q, fdiv(xh[i][0], S));
   g.dS[p] = dS;
+  g.hdS[p] = fdiv(fmul(0.5f, dS), S);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     g.dK[p][i] = dK[i];
-    g.HdA[p][i] = hda[0][i];
 #pragma unroll
     for (int j = 0; j < 2; ++j)
-      g.dAKHA[p][i][j] = ffma(-g.K[i][0], hda[0][j], ffma(-dK[i], g.HA[0][j], dA[i][j]));
+      g.dAKHA[p][i][j] = ffma(-g.K[i], g.HdA[p][j], ffma(-dK[i], g.HA[j], vl.dA[i][j]));
   }
+}
+
+// steps k0 .. k0 + kc - 1 of the CTA's first nw windows into ys[step][window]:
+// consecutive threads read consecutive floats of y
+__device__ __forceinline__ void load_y(const float* __restrict__ yb, int nw, int T, int k0,
+                                       int kc, float* ys, int tid, int nthreads) {
+  for (int e = tid; e < nw * kc; e += nthreads) {
+    const int w = e / kc, kk = e - w * kc;
+    ys[kk * kStride + w] = yb[(size_t)w * T + k0 + kk];
+  }
+}
+
+// entry p of the update from the four sums (nll, grad) over the problem's
+// windows, one thread each: the mean over max(sum w, 1), theta * grad with
+// theta = exp(lp[p]) (magn, ls), SGD on entries 1 and 2, the clamp to
+// [-10, 10], a non-finite entry reset to 0; entry 0's thread writes the NLL
+__device__ __forceinline__ void update_entry(int p, const float* lp, const float* s,
+                                             unsigned n_on, float magn, float ls,
+                                             float lr_magn, float lr_ls, float* new_params,
+                                             float* nll_out) {
+  const float denom = fmaxf((float)n_on, 1.0f);
+  const float mean = fdiv(s[p == 0 ? 0 : p + 1], denom);
+  float x = lp[0];
+  if (p == 0)
+    *nll_out = mean;
+  else
+    x = ffma(p == 1 ? -lr_magn : -lr_ls, fmul(p == 1 ? magn : ls, mean), lp[p]);
+  if (!isnan(x)) x = fminf(fmaxf(x, -10.0f), 10.0f);
+  new_params[p] = isfinite(x) ? x : 0.0f;
 }
 
 __global__ void __launch_bounds__(kThreads)
 learning_kernel(const float* __restrict__ log_params, const float* __restrict__ y,
-                const uint8_t* __restrict__ mask, int B, int T, float dt, float lr_magn,
-                float lr_ls, float* __restrict__ scratch, float* __restrict__ new_params,
+                const uint8_t* __restrict__ mask, int A, int B, int T, float dt, float lr_magn,
+                float lr_ls, float* __restrict__ chunk_sums,
+                unsigned long long* __restrict__ tickets, float* __restrict__ new_params,
                 float* __restrict__ nll_out) {
+  static_assert(kW == kChunk && kW == 32 && kSums * kW <= kThreads,
+                "a warp per value of the CTA's one chunk");
   __shared__ Gains g;
   __shared__ float lp[3];
-  __shared__ int counts[kThreads];
-  const int a = blockIdx.x, t = threadIdx.x;
-  if (t < 3) lp[t] = log_params[a * 3 + t];
-  __syncthreads();
-  if (t == 0) gains_base(lp, dt, g);
-  __syncthreads();
-  if (t < 3) gains_param(t, dt, g);
-  __syncthreads();
+  __shared__ float ys[kSteps * kStride];
+  __shared__ float quot[kQuot][kSteps][kW];       // a block's numerators, then quotients
+  __shared__ float fin[kSums];
+  __shared__ unsigned n_on_s;
+  __shared__ int last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int G = gridDim.x, cta = blockIdx.x;
+  const int b0 = cta * kW, nw = min(kW, B - b0);
+  // stage 2's threads: (A) warp p < 3, lane w runs window w's m and
+  // hyperparameter p's dm; (C) warp q < 4, lane w sums window w's value q;
+  // (B) the block's divisions, thread t window t % nw of rows t / nw,
+  // t / nw + R, ... of the kQuot x kc rows (q, k)
+  const int w = lane, pa = warp < 3 ? warp : 0, qc = warp < kSums ? warp : 0;
+  const int R = kThreads / nw, ww = tid % nw, r0 = tid / nw;
 
-  // stage 2: one thread per window
-  const int n_chunks = (B + kChunk - 1) / kChunk;
-  float* vals = scratch + (size_t)a * (B + n_chunks) * 4;
-  float* chunks = vals + (size_t)B * 4;
-  {
-    float AKHA[2][2], K[2], HA[2], dS[3], dK[3][2], dAKHA[3][2][2], HdA[3][2];
+  for (int a = blockIdx.y; a < A; a += gridDim.y) {
+    const float* yb = y + ((size_t)a * B + b0) * T;
+    __syncthreads();                               // the previous problem's reads done
+    if (tid < 3) lp[tid] = log_params[a * 3 + tid];
+    __syncthreads();
+
+    // stage 1
+    VanLoan vl;
+    if (warp == 0) {
+      gains_base(lp, dt, lane, g);
+    } else if (warp < 4) {
+      if (lane == 0) gains_param_pre(lp, warp - 1, dt, vl, g);
+    } else {
+      load_y(yb, nw, T, 0, min(kSteps, T), ys, tid - 4 * 32, kThreads - 4 * 32);
+    }
+    __syncthreads();
+    if (warp >= 1 && warp < 4 && lane == 0) gains_param_post(warp - 1, vl, g);
+    if (tid == 0) {
+      g.SS = fmul(g.S, g.S);
+      g.hlS = fmul(0.5f, log_f32(g.S));
+    }
+    __syncthreads();
+
+    // stage 2, a block of kSteps steps at a time: (A) the recursions in turn
+    // over the steps, each step's numerators to quot; (B) the divisions,
+    // independent of one another; (C) each window's sums in turn over the
+    // steps -- the NLL ((e + vv / S) + 0.5 log 2 pi) + 0.5 log S, gradient
+    // entry p ((g + (v dv) / S) - (vv dS) / (S S)) + (0.5 dS) / S
+    float K[2], HA[2], AKHA[2][2], dK[2], dAKHA[2][2], HdA[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      K[i] = g.K[i][0];
-      HA[i] = g.HA[0][i];
+      K[i] = g.K[i];
+      HA[i] = g.HA[i];
+      dK[i] = g.dK[pa][i];
+      HdA[i] = g.HdA[pa][i];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) AKHA[i][j] = g.AKHA[i][j];
-    }
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      dS[p] = g.dS[p];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        dK[p][i] = g.dK[p][i];
-        HdA[p][i] = g.HdA[p][i];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) dAKHA[p][i][j] = g.dAKHA[p][i][j];
+      for (int j = 0; j < 2; ++j) {
+        AKHA[i][j] = g.AKHA[i][j];
+        dAKHA[i][j] = g.dAKHA[pa][i][j];
       }
     }
-    const float S = g.S;
-    const float hl2pi = fmul(0.5f, log_f32(6.283185308f));
-    const float hlS = fmul(0.5f, log_f32(S));
-    const float SS = fmul(S, S);
-    int count = 0;
-    for (int b = t; b < B; b += kThreads) {
-      const float* yy = y + ((size_t)a * B + b) * T;
-      float m0 = 0.0f, m1 = 0.0f, e = 0.0f, gd[3] = {0.0f, 0.0f, 0.0f};
-      float dm[3][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
-      for (int k = 0; k < T; ++k) {
-        const float yk = yy[k];
-        const float v = fsub(yk, ffma(HA[1], m1, fmul(HA[0], m0)));
-        const float vv = fmul(fmul(0.5f, v), v);
-        e = fadd(fadd(fadd(e, fdiv(vv, S)), hl2pi), hlS);
-        float ndm[3][2];
-#pragma unroll
-        for (int p = 0; p < 3; ++p) {
-          const float hm = ffma(HdA[p][1], m1, fmul(HdA[p][0], m0));
-          const float dmh = ffma(dm[p][1], HA[1], fmul(dm[p][0], HA[0]));
+    const float S = g.S, SS = g.SS, dS = g.dS[pa];
+    const float add1 = qc == 0 ? g.hl2pi : 0.0f, add2 = qc == 0 ? g.hlS : g.hdS[qc - 1];
+    float m0 = 0.0f, m1 = 0.0f, dm0 = 0.0f, dm1 = 0.0f, acc = 0.0f;
+    for (int k0 = 0; k0 < T; k0 += kSteps) {
+      const int kc = min(kSteps, T - k0);
+      if (k0 > 0) {
+        __syncthreads();
+        load_y(yb, nw, T, k0, kc, ys, tid, kThreads);
+        __syncthreads();
+      }
+      if (warp < 3 && w < nw) {
+        float yn = ys[w];
+        for (int k = 0; k < kc; ++k) {
+          const float yk = yn;
+          yn = ys[min(k + 1, kc - 1) * kStride + w];      // the next step's, early
+          const float v = fsub(yk, ffma(HA[1], m1, fmul(HA[0], m0)));
+          const float vv = fmul(fmul(0.5f, v), v);
+          const float hm = ffma(HdA[1], m1, fmul(HdA[0], m0));
+          const float dmh = ffma(dm1, HA[1], fmul(dm0, HA[0]));
           const float dv = fsub(-hm, dmh);
-          gd[p] = fadd(fsub(fadd(gd[p], fdiv(fmul(v, dv), S)), fdiv(fmul(vv, dS[p]), SS)),
-                      fdiv(fmul(0.5f, dS[p]), S));
+          if (pa == 0) quot[0][k][w] = vv;
+          quot[1 + 2 * pa][k][w] = fmul(v, dv);
+          quot[2 + 2 * pa][k][w] = fmul(vv, dS);
+          float nd[2];
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            const float dam = ffma(dAKHA[p][i][1], m1, fmul(dAKHA[p][i][0], m0));
-            const float dma = ffma(dm[p][1], AKHA[i][1], fmul(dm[p][0], AKHA[i][0]));
-            ndm[p][i] = ffma(dK[p][i], yk, fadd(dam, dma));
+            const float dam = ffma(dAKHA[i][1], m1, fmul(dAKHA[i][0], m0));
+            const float dma = ffma(dm1, AKHA[i][1], fmul(dm0, AKHA[i][0]));
+            nd[i] = ffma(dK[i], yk, fadd(dam, dma));
           }
-        }
-        const float n0 = ffma(K[0], yk, ffma(AKHA[0][1], m1, fmul(AKHA[0][0], m0)));
-        const float n1 = ffma(K[1], yk, ffma(AKHA[1][1], m1, fmul(AKHA[1][0], m0)));
-        m0 = n0;
-        m1 = n1;
-#pragma unroll
-        for (int p = 0; p < 3; ++p) {
-          dm[p][0] = ndm[p][0];
-          dm[p][1] = ndm[p][1];
+          const float n0 = ffma(K[0], yk, ffma(AKHA[0][1], m1, fmul(AKHA[0][0], m0)));
+          const float n1 = ffma(K[1], yk, ffma(AKHA[1][1], m1, fmul(AKHA[1][0], m0)));
+          m0 = n0;
+          m1 = n1;
+          dm0 = nd[0];
+          dm1 = nd[1];
         }
       }
-      const bool on = mask[(size_t)a * B + b] != 0;
-      const float w = on ? 1.0f : 0.0f;
-      count += on ? 1 : 0;
-      float* out = vals + (size_t)b * 4;
-      out[0] = fmul(e, w);
-      out[1] = fmul(gd[0], w);
-      out[2] = fmul(gd[1], w);
-      out[3] = fmul(gd[2], w);
+      __syncthreads();
+      if (tid < R * nw) {
+        // rows (q, k) stepped by R without a division
+        const int dq = R / kc, dk = R - dq * kc;
+        int q = r0 / kc, k = r0 - q * kc;
+        while (q < kQuot) {
+          quot[q][k][ww] = fdiv(quot[q][k][ww], q == 2 || q == 4 || q == 6 ? SS : S);
+          k += dk;
+          q += dq;
+          if (k >= kc) {
+            k -= kc;
+            ++q;
+          }
+        }
+      }
+      __syncthreads();
+      if (warp < kSums && w < nw) {
+        // four steps' quotients loaded, then summed in turn
+        int k = 0;
+        if (qc == 0) {
+          for (; k + 4 <= kc; k += 4) {
+            float x[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) x[i] = quot[0][k + i][w];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc = fadd(fadd(fadd(acc, x[i]), add1), add2);
+          }
+          for (; k < kc; ++k) acc = fadd(fadd(fadd(acc, quot[0][k][w]), add1), add2);
+        } else {
+          for (; k + 4 <= kc; k += 4) {
+            float x[4], z[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              x[i] = quot[2 * qc - 1][k + i][w];
+              z[i] = quot[2 * qc][k + i][w];
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc = fadd(fsub(fadd(acc, x[i]), z[i]), add2);
+          }
+          for (; k < kc; ++k)
+            acc = fadd(fsub(fadd(acc, quot[2 * qc - 1][k][w]), quot[2 * qc][k][w]), add2);
+        }
+      }
     }
-    counts[t] = count;
-  }
-  __syncthreads();
 
-  // stage 3: the chunk sums, then their sum and the update
-  for (int c = t; c < n_chunks; c += kThreads) {
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    const int end = min(B, (c + 1) * kChunk);
-    for (int b = c * kChunk; b < end; ++b)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s[q] = fadd(s[q], vals[(size_t)b * 4 + q]);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) chunks[(size_t)c * 4 + q] = s[q];
-  }
-  __syncthreads();
-  if (t == 0) {
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int c = 0; c < n_chunks; ++c)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s[q] = fadd(s[q], chunks[(size_t)c * 4 + q]);
-    long long n_on = 0;
-    for (int i = 0; i < kThreads; ++i) n_on += counts[i];
-    const float denom = fmaxf((float)n_on, 1.0f);
-    nll_out[a] = fdiv(s[0], denom);
-    float nw[3];
-    nw[0] = lp[0];
-    nw[1] = ffma(-lr_magn, fmul(exp_f32(lp[1]), fdiv(s[2], denom)), lp[1]);
-    nw[2] = ffma(-lr_ls, fmul(exp_f32(lp[2]), fdiv(s[3], denom)), lp[2]);
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      float x = nw[p];
-      if (!isnan(x)) x = fminf(fmaxf(x, -10.0f), 10.0f);
-      new_params[a * 3 + p] = isfinite(x) ? x : 0.0f;
+    // stage 3: warp q's chunk sum of value q times the mask weight, window
+    // by window from +0 through shuffles (every lane the same sum); warp 0's
+    // ballot counts the windows on.  One CTA per problem: the sum over the
+    // chunks is +0 + that.  Otherwise each CTA's chunk sums go to
+    // chunk_sums and the problem's last CTA to arrive sums them in turn.
+    if (warp < kSums) {
+      const bool on = w < nw && mask[(size_t)a * B + b0 + w] != 0;
+      const float val = fmul(acc, on ? 1.0f : 0.0f);
+      float s = 0.0f;
+      for (int j = 0; j < nw; ++j) s = fadd(s, __shfl_sync(0xffffffffu, val, j));
+      const unsigned n_on = __popc(__ballot_sync(0xffffffffu, on));
+      if (lane == 0) {
+        if (G == 1) {
+          fin[qc] = fadd(0.0f, s);
+        } else {
+          chunk_sums[((size_t)a * G + cta) * kSums + qc] = s;
+          __threadfence();
+        }
+        if (qc == 0) n_on_s = n_on;
+      }
     }
+    __syncthreads();
+    if (G > 1) {
+      // the last CTA to arrive: its count and its arrival in one atomic,
+      // the windows on in the high word, the CTAs in the low
+      if (tid == 0) {
+        const unsigned long long old =
+            atomicAdd(&tickets[a], ((unsigned long long)n_on_s << 32) | 1ull);
+        last = (unsigned)old == (unsigned)(G - 1);
+        if (last) {
+          n_on_s += (unsigned)(old >> 32);
+          tickets[a] = 0ull;
+        }
+      }
+      __syncthreads();
+      if (!last) continue;
+      float s = 0.0f;
+      for (int c0 = 0; c0 < G; c0 += kTile) {
+        const int n = min(kTile, G - c0);
+        __syncthreads();
+        const float* src = chunk_sums + ((size_t)a * G + c0) * kSums;
+        for (int e = tid; e < n * kSums; e += kThreads) ys[e] = __ldcg(src + e);
+        __syncthreads();
+        if (tid < kSums) {
+#pragma unroll 8
+          for (int j = 0; j < n; ++j) s = fadd(s, ys[j * kSums + tid]);
+        }
+      }
+      if (tid < kSums) fin[tid] = s;
+      __syncthreads();
+    }
+    if (tid < 3)
+      update_entry(tid, lp, fin, n_on_s, g.magn, g.ls, lr_magn, lr_ls, new_params + a * 3,
+                   nll_out + a);
   }
 }
 
 }  // namespace
 
 // A problems: log_params (A, 3) f32, y (A, B, T) f32 mean-centred windows,
-// mask (A, B) u8; scratch (A, B + ceil(B / 32), 4) f32 (the per-window
-// values and the chunk sums; no need to zero it).  Outputs new_params (A, 3)
+// mask (A, B) u8; chunk_sums (A, ceil(B / 32), 4) f32 (no need to zero it;
+// unread with one CTA per problem, B <= 32); tickets (A,) u64, zero, left
+// zero by every launch (one buffer per stream).  Outputs new_params (A, 3)
 // and nll (A,) f32.  A >= 1, 1 <= B <= 2^24 (the mask count stays exact in
 // f32), T >= 1.
 extern "C" int motl_learning_step(const float* log_params, const float* y, const uint8_t* mask,
                                   int A, int B, int T, float dt, float lr_magn, float lr_ls,
-                                  float* scratch, float* new_params, float* nll, void* stream) {
+                                  float* chunk_sums, unsigned long long* tickets,
+                                  float* new_params, float* nll, void* stream) {
   if (A < 1 || B < 1 || B > (1 << 24) || T < 1) return (int)cudaErrorInvalidValue;
-  learning_kernel<<<A, kThreads, 0, (cudaStream_t)stream>>>(log_params, y, mask, B, T, dt,
-                                                             lr_magn, lr_ls, scratch,
-                                                             new_params, nll);
+  const dim3 grid((B + kW - 1) / kW, A < kMaxGridY ? A : kMaxGridY);
+  learning_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      log_params, y, mask, A, B, T, dt, lr_magn, lr_ls, chunk_sums, tickets, new_params, nll);
   return (int)cudaGetLastError();
 }

@@ -1497,7 +1497,7 @@ def test_f64_vmap_fleet_on_a_grid_config_runs_on_the_card(dev, small):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("shape", ["headline node", "tune default", "wide node", "wide tune",
-                                   "one window", "half mask", "edges"])
+                                   "one window", "half mask", "edges", "W + 1", "nine CTAs"])
 def test_k13_matches_plain(dev, shape, monkeypatch):
     """K13 against ``learning_step_plain`` on the card at
     ``chip_smoke.K13_SHAPES``: the new log-parameters and the NLL bit for

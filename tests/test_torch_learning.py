@@ -292,11 +292,13 @@ def test_k13_wrapper_raises_off_the_card_and_past_its_bounds():
 # ---------------------------------------------------------------------------
 
 SHIM = r"""
+#include <atomic>
 #include <cmath>
 #include <barrier>
 #include <thread>
 #include <vector>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <algorithm>
 using std::min; using std::max;
@@ -306,10 +308,50 @@ using std::min; using std::max;
 #define __launch_bounds__(x)
 #define __restrict__
 #define __shared__ static
-struct Dim { int x; };
-thread_local Dim threadIdx, blockIdx;
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+thread_local dim3 threadIdx, blockIdx;
+dim3 gridDim;
 std::barrier<>* g_bar;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  const unsigned long long o = *p;
+  *p = o + v;
+  return o;
+}
+inline float __ldcg(const float* p) { return *p; }
+// a whole warp's shuffles and ballot: each lane posts its value, the 32
+// lanes meet at the warp's barrier, read, and meet again
+struct WarpSync { std::barrier<> all{32}; float x[32]; };
+WarpSync* g_warps;
+inline float shfl_(unsigned mask, float v, int src) {
+  if (mask != 0xffffffffu) std::abort();
+  WarpSync& s = g_warps[threadIdx.x / 32];
+  s.x[threadIdx.x % 32] = v;
+  s.all.arrive_and_wait();
+  const float r = s.x[src];
+  s.all.arrive_and_wait();
+  return r;
+}
+inline float __shfl_xor_sync(unsigned mask, float v, int m) {
+  return shfl_(mask, v, (int)(threadIdx.x % 32) ^ m);
+}
+inline float __shfl_sync(unsigned mask, float v, int src) { return shfl_(mask, v, src); }
+inline unsigned __ballot_sync(unsigned mask, bool p) {
+  if (mask != 0xffffffffu) std::abort();
+  WarpSync& s = g_warps[threadIdx.x / 32];
+  s.x[threadIdx.x % 32] = p ? 1.0f : 0.0f;
+  s.all.arrive_and_wait();
+  unsigned bits = 0;
+  for (int l = 0; l < 32; ++l)
+    if (s.x[l] != 0.0f) bits |= 1u << l;
+  s.all.arrive_and_wait();
+  return bits;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -321,12 +363,27 @@ inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
+// The CTAs run one after another, problem by problem; the windows' CTAs in
+// ascending order for even problems and descending for odd ones, so either
+// end of a problem's CTAs is the last to arrive and takes the ticket.  The
+// block's threads are std::threads that run every CTA in turn, meeting at
+// one barrier (and each warp's lanes at their shuffles).
 #define LAUNCH(kernel, grid, block, ...) do { \
-  for (int b_ = 0; b_ < (grid); ++b_) { \
-    std::barrier<> bar(block); g_bar = &bar; std::vector<std::thread> ts; \
-    for (int t_ = 0; t_ < (block); ++t_) \
-      ts.emplace_back([&, t_] { threadIdx.x = t_; blockIdx.x = b_; kernel(__VA_ARGS__); }); \
-    for (auto& th : ts) th.join(); } } while (0)
+  gridDim = (grid); \
+  std::barrier<> bar(block); g_bar = &bar; \
+  std::vector<WarpSync> warps((block) / 32); g_warps = warps.data(); \
+  std::vector<std::thread> ts; \
+  for (int t_ = 0; t_ < (block); ++t_) \
+    ts.emplace_back([&, t_] { \
+      threadIdx = dim3(t_); \
+      for (unsigned y_ = 0; y_ < gridDim.y; ++y_) \
+        for (unsigned i_ = 0; i_ < gridDim.x; ++i_) { \
+          blockIdx = dim3(y_ % 2 ? gridDim.x - 1 - i_ : i_, y_); \
+          kernel(__VA_ARGS__); \
+          bar.arrive_and_wait(); \
+        } \
+    }); \
+  for (auto& th : ts) th.join(); } while (0)
 """
 
 
@@ -337,9 +394,10 @@ def k13_host(tmp_path_factory):
         pytest.skip("no host C++ compiler to build K13's source for the host")
     src = open(os.path.join(REPO, "multiple_object_tracking_lidar_tpu_torch", "csrc",
                             "learning.cu")).read()
+    assert int(re.search(r"constexpr int kW = (\d+);", src).group(1)) == W
     src = src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
-    src, n = re.subn(r"learning_kernel<<<A, kThreads, 0, \(cudaStream_t\)stream>>>\(",
-                     "LAUNCH(learning_kernel, A, kThreads, ", src)
+    src, n = re.subn(r"learning_kernel<<<grid, kThreads, 0, \(cudaStream_t\)stream>>>\(",
+                     "LAUNCH(learning_kernel, grid, kThreads, ", src)
     assert n == 1
     d = tmp_path_factory.mktemp("k13")
     (d / "shim.h").write_text(SHIM)
@@ -349,31 +407,69 @@ def k13_host(tmp_path_factory):
                     "-shared", "-o", so, str(d / "k13.cpp")], check=True, capture_output=True)
     lib = ctypes.CDLL(so)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.motl_learning_step.argtypes = [P, P, P, I, I, I, F, F, F, P, P, P, P]
+    lib.motl_learning_step.argtypes = [P, P, P, I, I, I, F, F, F, P, P, P, P, P]
     return lib
 
 
-def test_k13_source_on_the_host_matches_plain(k13_host):
+W = learning_cuda.WINDOWS_PER_CTA
+# (label, A, B, T, dt, mask): "drawn" draws 60% of the windows on (window 0
+# always), "cta off" turns the second CTA's windows off (W to 2W), "chunk
+# off" the second 32-window chunk, "problem off" every window of problem 0.
+# B <= W is one CTA; past it CTAs of W windows and the ticket.
+K13_HOST_CASES = [
+    ("node", 2, 3, 39, 0.1, "drawn"),
+    ("tune", 1, 60, 9, 0.1, "drawn"),
+    ("B = 300", 2, 300, 5, 0.125, "drawn"),
+    ("edges, T = 1", 3, 33, 1, 0.1, "drawn"),
+    ("one window", 1, 1, 39, 0.1, "drawn"),
+    ("W - 1", 2, W - 1, 7, 0.1, "drawn"),
+    ("W", 1, W, 7, 0.1, "drawn"),
+    ("W + 1", 2, W + 1, 7, 0.1, "drawn"),
+    ("2W", 1, 2 * W, 7, 0.1, "drawn"),
+    ("2W + 1", 2, 2 * W + 1, 7, 0.1, "drawn"),
+    ("2W + 33", 2, 2 * W + 33, 6, 0.1, "drawn"),
+    ("a CTA off", 2, 2 * W + 33, 6, 0.1, "cta off"),
+    ("a chunk off", 1, 2 * W - 2, 5, 0.1, "chunk off"),
+    ("a problem off", 2, 3 * W + 4, 4, 0.1, "problem off"),
+    ("T = 1, CTAs", 2, 3 * W + 2, 1, 0.1, "drawn"),
+    ("T past a y block", 1, W - 6, 150, 0.1, "drawn"),
+    ("T past a y block, CTAs", 2, 2 * W + 6, 90, 0.1, "drawn"),
+]
+
+
+@pytest.mark.parametrize("label,a,b,t,dt,mask", K13_HOST_CASES,
+                         ids=[c[0] for c in K13_HOST_CASES])
+def test_k13_source_on_the_host_matches_plain(k13_host, label, a, b, t, dt, mask):
     """K13's source with IEEE host arithmetic equals learning_step_plain
     bit for bit: the node's (2, 3, 39) and tune's (1, 60, 9) shapes, B past
-    256 threads and past several 32-window chunks, one step per window,
-    a partly zero mask, logLengthScale at -10 (NaN, reset) and +10."""
-    rng = np.random.default_rng(7)
-    for a, b, t, dt in ((2, 3, 39, 0.1), (1, 60, 9, 0.1), (2, 300, 5, 0.125), (3, 33, 1, 0.1),
-                        (1, 1, 39, 0.1)):
-        lp = _log_params(rng, a)
-        if a == 3:
-            lp[1, 2], lp[2, 2] = -10.0, 10.0
-        y = rng.normal(0, 0.3, (a, b, t)).astype(np.float32)
-        m = (rng.uniform(size=(a, b)) > 0.4).astype(np.uint8)
-        m[:, 0] = 1
-        scratch = np.zeros((a, b + -(-b // TL.SUM_CHUNK), 4), np.float32)
-        new, nll = np.zeros((a, 3), np.float32), np.zeros(a, np.float32)
-        err = k13_host.motl_learning_step(lp.ctypes.data, y.ctypes.data, m.ctypes.data, a, b, t,
-                                          dt, 0.1, 0.01, scratch.ctypes.data, new.ctypes.data,
-                                          nll.ctypes.data, None)
-        assert err == 0
-        pn, pl = TL.learning_step_plain(torch.from_numpy(lp), torch.from_numpy(y),
-                                        torch.from_numpy(m.astype(bool)), dt)
-        np.testing.assert_array_equal(new.view(np.uint32), pn.numpy().view(np.uint32))
-        np.testing.assert_array_equal(nll.view(np.uint32), pl.numpy().view(np.uint32))
+    256, one step per window with logLengthScale at -10 (NaN, reset) and
+    +10, one window; the split over CTAs of ``W`` windows at B = W - 1, W,
+    W + 1 and 2W + 33, a CTA, a 32-window chunk and a whole problem masked
+    off, T = 1 over several CTAs, and T past one shared-memory block of
+    y (the last two problems ride on several CTAs' tickets)."""
+    rng = np.random.default_rng(7 + [c[0] for c in K13_HOST_CASES].index(label))
+    lp = _log_params(rng, a)
+    if label.startswith("edges"):
+        lp[1, 2], lp[2, 2] = -10.0, 10.0
+    y = rng.normal(0, 0.3, (a, b, t)).astype(np.float32)
+    m = (rng.uniform(size=(a, b)) > 0.4).astype(np.uint8)
+    m[:, 0] = 1
+    if mask == "cta off":
+        m[:, W:2 * W] = 0
+    elif mask == "chunk off":
+        m[:, 32:64] = 0
+    elif mask == "problem off":
+        m[0] = 0
+    chunk_sums = np.zeros((a, -(-b // TL.SUM_CHUNK), 4), np.float32)
+    tickets = np.zeros(a, np.uint64)
+    new, nll = np.zeros((a, 3), np.float32), np.zeros(a, np.float32)
+    err = k13_host.motl_learning_step(lp.ctypes.data, y.ctypes.data, m.ctypes.data, a, b, t,
+                                      dt, 0.1, 0.01, chunk_sums.ctypes.data,
+                                      tickets.ctypes.data, new.ctypes.data, nll.ctypes.data,
+                                      None)
+    assert err == 0
+    assert not tickets.any()                           # left zero for the next launch
+    pn, pl = TL.learning_step_plain(torch.from_numpy(lp), torch.from_numpy(y),
+                                    torch.from_numpy(m.astype(bool)), dt)
+    np.testing.assert_array_equal(new.view(np.uint32), pn.numpy().view(np.uint32))
+    np.testing.assert_array_equal(nll.view(np.uint32), pl.numpy().view(np.uint32))

@@ -182,6 +182,15 @@ of JAX, in five phases, one or more lines each:
    and the floor's ms/frame, device ops, host syncs and idle share per
    frame (greedy and Hungarian; the bank padded to 2,048).
 
+Half precision and the host surface: K2, K14, K3f, K4 and K4 xl built
+for bf16 and f16 against their plain versions on the card, bit for bit,
+and K6f's key entry (``voxel_downsample_sort``'s run sums, f32 / f64)
+likewise (``phase_kernels_slice19``, ``phase_k6f_keys``); the half headline
+through every entry point against torch_{bf16,f16}_headline.npz and the
+CLI goldens (``phase_half``); the native decoder, the node by piece and
+the rosbridge loopback (``phase_host_slice19``); each half build beside
+its f32 build on the same values widened (``phase_timings_slice19``).
+
 Any failed phase raises (exit 1).  The line before the last is the kernel
 report (JSON); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -268,7 +277,10 @@ def equal(a, b) -> bool:
 
 
 def npy(t):
-    return t.detach().cpu().numpy()
+    """A tensor as numpy; bf16 / f16 widened to f32 (exactly: bits compare
+    as the half values' bits do)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype in (torch.bfloat16, torch.float16) else t).numpy()
 
 
 def max_err(a, b) -> float:
@@ -1207,6 +1219,7 @@ def kernel_wrappers():
         "K12": hungarian_cuda.auction_assign,
         "K13": learning_cuda.learning_step_cuda,
         "K14": stencil_cc_cuda.stencil_cc,
+        "K6f keys": vg.accumulate_sums_keys,
     }
 
 
@@ -1217,7 +1230,8 @@ def entry_builds():
     """{build: (its wrapper, its C entry)} for the builds a wrapper counts
     in ``.launches_by`` beside its f32 build (``.launches``): K2, K3f, K4,
     K6f, K8a and K14 built for double (``dtype="float64"``), K2's double
-    build fed f32 sums, and K4 xl in f32 and f64."""
+    build fed f32 sums, K4 xl in f32 and f64, and K2, K14, K3f, K4 and K4 xl
+    built for bf16 and f16."""
     from multiple_object_tracking_lidar_tpu_torch.ops import (
         centroid_cuda, cluster_pallas, grid_cuda, stencil_cc_cuda, track_cuda, voxel_grid_cuda)
 
@@ -1230,7 +1244,14 @@ def entry_builds():
             "K2 f64 f32-sums": (k2, "motl_grid_cc_f64_f32sums"),
             "K4 xl": (k4, "motl_track_step_xl"),
             "K4 xl f64": (k4, "motl_track_step_xl_f64"),
-            "K14 f64": (stencil_cc_cuda.stencil_cc, "motl_stencil_cc_f64")}
+            "K14 f64": (stencil_cc_cuda.stencil_cc, "motl_stencil_cc_f64"),
+            "K6f keys f64": (voxel_grid_cuda.accumulate_sums_keys, "motl_voxel_sums_keys_f64"),
+            **{f"{k} {h}": (w, f"{e}_{h}") for h in ("bf16", "f16") for k, w, e in (
+                ("K2", k2, "motl_grid_cc"),
+                ("K14", stencil_cc_cuda.stencil_cc, "motl_stencil_cc"),
+                ("K3f", centroid_cuda.circumcenter_features, "motl_circumcenter_features"),
+                ("K4", k4, "motl_track_step"),
+                ("K4 xl", k4, "motl_track_step_xl"))}}
 
 
 def reset_counts():
@@ -4840,6 +4861,7 @@ def phase_kernels_slice17(dev, report):
         f"version; slice 17 checked in {time.perf_counter() - t0:.1f} s")
 
 
+HALF_NAMES = (("bf16", "bfloat16"), ("f16", "float16"))
 KERNELS = (
     ("K1", "voxel_grid fast-digit histogram + finalize, one launch (cell ranges x point-chunk "
      "clusters)",
@@ -4879,6 +4901,11 @@ KERNELS = (
     ("K6f", "K6 f32 mode: the point-list scatter-add's sums in ascending point index "
      "(no TPU kernel: an XLA scatter)",
      f"{PKG}/csrc/voxel_bf16x3.cu", "multiple_object_tracking_lidar_tpu/ops/voxel.py:96"),
+    ("K6f keys", "K6 f32 mode's sums over given bins (voxel_downsample_sort's runs: the "
+     "unbounded scene's sort downsample, O(N) memory; no TPU kernel: an XLA scatter-add)",
+     f"{PKG}/csrc/voxel_bf16x3.cu", "multiple_object_tracking_lidar_tpu/ops/voxel.py:197"),
+    ("K6f keys f64", "K6f keys' double build (f64 points, the sums in f64)",
+     f"{PKG}/csrc/voxel_bf16x3.cu", "multiple_object_tracking_lidar_tpu/ops/voxel.py:197"),
     ("K6f G", "K6 f32 mode at configuration G's grid (193,536 cells, N = 131,072; timed at "
      "S = 8, launched on G's path)",
      f"{PKG}/csrc/voxel_bf16x3.cu", "multiple_object_tracking_lidar_tpu/ops/voxel.py:96"),
@@ -4975,10 +5002,713 @@ KERNELS = (
      "(4-row groups, 16-byte loads and stores, no shared memory), and the probes' (1, B) -> "
      "(B, 1) int32 row (a copy) and (16, 128) tile",
      f"{PKG}/csrc/transpose.cu", "scripts/micro_transpose.py:49"),
+    *((f"K2 {h}", f"K2's {h} build (dtype={n}): the half sums' finalize (an f32 division "
+       "rounded), the static drop on the centroid widened, the stencil's d^2 in the half dtype "
+       "as XLA's CPU code computes it", f"{PKG}/csrc/grid_cc.cu",
+       "multiple_object_tracking_lidar_tpu/ops/grid_pallas.py:288") for h, n in HALF_NAMES),
+    *((f"K14 {h}", f"K14's {h} build (dtype={n}, grid_cc=jnp): the stencil CC on half "
+       "centroids, d^2 in the half dtype (no TPU kernel: the JAX jnp "
+       "connected_components_grid)", f"{PKG}/csrc/stencil_cc.cu",
+       "multiple_object_tracking_lidar_tpu/ops/cluster_grid.py:60") for h, n in HALF_NAMES),
+    *((f"K3f {h}", f"K3f's {h} build (dtype={n}): the JAX half route's circumcenter (the "
+       "jnp table route: member mean, gram d2, line scan, determinant; one CTA per slot)",
+       f"{PKG}/csrc/circumcenter.cu",
+       "multiple_object_tracking_lidar_tpu/ops/centroid_pallas.py:456") for h, n in HALF_NAMES),
+    *((f"K4 {h}", f"K4's greedy {h} builds (dtype={n}, lpf and ihgp): the whole track step "
+       "with every op rounded to the half dtype, the smoother's sums in f32", f"{PKG}/csrc/assign.cu",
+       "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188") for h, n in HALF_NAMES),
+    *((f"K4 xl {h}", f"K4 xl's greedy {h} builds (dtype={n}): the half track step past "
+       "1,024 slots or 128 detections", f"{PKG}/csrc/assign.cu",
+       "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188") for h, n in HALF_NAMES),
 )
 
 
+# ---------------------------------------------------------------------------
+# slice 19: the half builds (dtype="bfloat16" / "float16" on the dense grid)
+# ---------------------------------------------------------------------------
+HALF = (("bf16", torch.bfloat16), ("f16", torch.float16))
+
+
+def half_track_inputs(inputs, dt):
+    """K4's inputs (``track_scene``'s) in a half dtype: the bank's window and
+    m0, the detections and the stamps rounded to it."""
+    st, dets, valid, t = inputs
+    bank = st.bank._replace(window=st.bank.window.to(dt), m0=st.bank.m0.to(dt))
+    return st._replace(bank=bank), dets.to(dt), valid, t.to(dt)
+
+
+def widen_track_inputs(inputs):
+    """Half K4 inputs (``half_track_inputs``') widened to f32, exactly: the
+    f32 build's scene is the half build's."""
+    st, dets, valid, t = inputs
+    bank = st.bank._replace(window=st.bank.window.float(), m0=st.bank.m0.float())
+    return st._replace(bank=bank), dets.float(), valid, t.float()
+
+
+def lane_diff(a, b, limit=4):
+    """Where two arrays' bits differ: the count and the first lanes as
+    (index, a, b), for a failure's message."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype.kind != "f":
+        idx = np.argwhere(a != b)
+    else:
+        u = np.uint32 if a.dtype == np.float32 else np.uint64
+        idx = np.argwhere(a.view(u) != b.astype(a.dtype).view(u))
+    return len(idx), [(tuple(int(q) for q in i), a[tuple(i)].item(), b[tuple(i)].item())
+                      for i in idx[:limit]]
+
+
+def phase_kernels_slice19(dev, report, cfg):
+    """K2, K14, K3f and K4's half builds (bf16, f16) against their plain
+    versions on the card, bit for bit: K2 on the headline's 8 frames of K1
+    sums rounded to the half dtype (S = 8, and S = 1); K14 on K2's half
+    centroids and dynamic cells (the grid_cc="jnp" route); K3f on the
+    headline's half member tables and ``k3f_tables``' edge cases in the half
+    dtype; K4 (lpf, ihgp) on ``track_scene`` at K = 64 (1 x 1, 1 x 8, 8 x
+    1) and 1,024, and K4 xl at K = 2,048.  Then K6f's key entry (f32, f64)
+    against its plain version, and ``voxel_downsample_sort`` (the entry
+    point launching it) on a headline cloud with far returns against the
+    same function on the CPU.  Returns the inputs the timings reuse."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import headline_case, track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        centroid_cuda, grid_cuda, stencil_cc_cuda, voxel_grid_cuda)
+    from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import cluster_table_grid
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    _, env, sc = headline_case(device=dev)
+    leaf, leaf_z, tol = cfg.voxel_leaf_size, cfg.leaf_z, cfg.cluster_tolerance
+    caps = cfg.caps
+    pts, msk, ts = headline_frames(sc, caps.n_max_points, range(8))
+    M8 = torch.from_numpy(msk).to(dev)
+    K, D = caps.k_max_tracks, caps.c_max_clusters
+    keep = {}
+
+    def held(tag, label, got, want):
+        """Every output's bits equal, or fail naming the lanes that differ."""
+        for i, (x, y) in enumerate(zip(got, want)):
+            n_bad, where = lane_diff(npy(x), npy(y))
+            if n_bad or x.dtype != y.dtype:
+                fail(f"{tag} ({label}) disagrees with its plain version: output {i} "
+                     f"{x.dtype}/{y.dtype}, {n_bad} lanes, e.g. {where}")
+
+    for tag, dt in HALF:
+        hcfg = cfg.replace(dtype={"bf16": "bfloat16", "f16": "float16"}[tag])
+        tracker = Tracker(hcfg, dev)
+        plan = tracker.plan(env)
+        P8 = torch.from_numpy(pts).to(dev).to(dt).float()     # the points rounded, widened
+        T8 = torch.from_numpy(ts).to(dev).to(dt)
+        acc32, _ = voxel_grid_cuda.accumulate_fast_stacked(P8, M8, cfg.scene, leaf, leaf_z)
+        acc = acc32.to(dt)
+        tb = (plan.scal, plan.table.base_row, plan.table.base_col, plan.table.bits)
+        kw2 = dict(dims=plan.dims, tol=tol, leaf_xy=leaf, leaf_z=leaf_z, kwin=plan.table.k)
+        offsets = grid_cuda.kernel_offsets(plan.dims, tol, leaf, leaf_z)
+        name = f"K2 {tag}"
+        report.setdefault(name, {"max_abs_err": 0.0})
+        for label, a in (("the headline's 8 frames", acc), ("one frame", acc[3:4])):
+            got = grid_cuda.fused_finalize_static_cc_stacked(a, *tb, **kw2)
+            want = grid_cuda.fused_finalize_static_cc_stacked_plain(
+                a, *tb, dims=plan.dims, offsets=offsets, kwin=plan.table.k,
+                max_sweeps=2 * sum(plan.dims), tol=tol)
+            torch.cuda.synchronize()
+            err = max_err(npy(got[0]), npy(want[0]))
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+            held(name, label, got, want)
+            log(f"[3 {name}] {label}, {acc.shape[2]} cells, {len(offsets)} offsets: "
+                f"bit-exact=True dtype={got[0].dtype} iterations={npy(got[3]).tolist()} "
+                f"dyn={npy(got[1].sum(1)).tolist()}")
+        cent, dyn, labels, n_sw, _ = grid_cuda.fused_finalize_static_cc_stacked(acc, *tb, **kw2)
+        name = f"K14 {tag}"
+        report.setdefault(name, {"max_abs_err": 0.0})
+        cc_args = (plan.dims, tol, leaf, leaf_z, caps.label_prop_iters,
+                   caps.grid_sweeps_per_iter, caps.grid_jumps_per_iter)
+        got = stencil_cc_cuda.stencil_cc(cent, dyn, *cc_args)
+        want = stencil_cc_cuda.stencil_cc_plain(
+            cent, dyn, plan.dims, offsets, in_dtype(tol * tol, dt), *cc_args[4:])
+        torch.cuda.synchronize()
+        held(name, "the headline's 8 frames", got, want)
+        log(f"[3 {name}] the headline's 8 frames (K2's {tag} centroids): bit-exact=True "
+            f"n_sweeps={npy(got[1]).tolist()} components="
+            f"{[len(set(npy(got[0][s]).tolist())) - 1 for s in range(8)]}")
+        ctab = cluster_table_grid(labels, n_sw, cent, dyn, plan.dims[0], cfg.min_cluster_size,
+                                  cfg.max_cluster_size, caps.c_max_clusters, caps.p_max_cluster)
+        mp_h = ctab.mpts.reshape(-1, caps.p_max_cluster, 3).contiguous()
+        mm_h = ctab.member_mask.reshape(-1, caps.p_max_cluster).contiguous()
+        mp_e, mm_e = k3f_tables(np.random.default_rng(1901), 8, 32, caps.p_max_cluster, dev)
+        name = f"K3f {tag}"
+        report.setdefault(name, {"max_abs_err": 0.0})
+        for label, mp, mm in ((f"the headline's {tag} member tables, S=8 x C=32", mp_h, mm_h),
+                              (f"edge-case tables in {tag}, S=8 x C=32", mp_e.to(dt), mm_e)):
+            got = centroid_cuda.circumcenter_features(mp, mm, T8)
+            want = centroid_cuda.circumcenter_features_half_plain(mp, mm, T8)
+            torch.cuda.synchronize()
+            err = max_err(npy(got), npy(want))
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+            held(name, label, (got,), (want,))
+            log(f"[3 {name}] {label}, {int(mm.any(1).sum())} active slots: bit-exact=True "
+                f"max_abs_err={err}")
+        gains = tracker.gains_xy
+        for pf in ("lpf", "ihgp"):
+            c = hcfg.replace(position_filter=pf)
+            for k in (K, 1024, 2048):
+                d = D if k == K else 128
+                cases = (((1, 1, ()), (1, 8, (0,)), (8, 1, (0,))) if k == K
+                         else ((1, 1, ()),))
+                for i, (b, s, fresh) in enumerate(cases):
+                    ins = half_track_inputs(track_scene(1900 + 10 * k + i, cfg, k, d, b, s,
+                                                        fresh, dev), dt)
+                    check_track_inputs(c, gains, ins, report,
+                                       f"K4 xl {tag}" if k > 1024 else f"K4 {tag}",
+                                       f"{pf}, K={k} {b} x {s} frames, D={d}, {tag}")
+        keep[tag] = {"acc": acc, "acc32": acc32, "tb": tb, "kw2": kw2, "cent": cent,
+                     "dyn": dyn, "cc_args": cc_args, "mp": mp_h, "mm": mm_h, "T8": T8,
+                     "tracker": tracker, "hcfg": hcfg}
+    keep["keys"] = phase_k6f_keys(dev, report, pts[0], msk[0])
+    return keep
+
+
+def phase_k6f_keys(dev, report, pts, msk):
+    """K6f's key entry (f32, f64) against its plain version on the card, bit
+    for bit, on a headline cloud's points binned by 0.1 m cell run (as
+    ``voxel_downsample_sort`` bins them) and on random bins with dropped
+    points; then ``voxel_downsample_sort`` on that cloud with far returns
+    (a box of ~1e13 cells at its 0.1 m leaf) against the same function on
+    the CPU, launching K6f keys once.  Returns the timed inputs."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import voxel_grid_cuda
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import voxel_downsample_sort
+
+    cloud = pts[msk].copy()
+    cloud[5] = [9.5e5, -8.25e5, 40.0]                 # far returns
+    cloud[9] = [-7.0e5, 6.5e5, -30.0]
+    n, m_max = cloud.shape[0], 32768
+    p32 = torch.from_numpy(cloud).to(dev)
+    q = torch.floor(p32 * np.float32(10.0)).to(torch.int64)
+    key = (q[:, 2] - q[:, 2].min()) * 2**48 + (q[:, 1] - q[:, 1].min()) * 2**24 + (
+        q[:, 0] - q[:, 0].min())
+    _, run = torch.unique(key, return_inverse=True)   # each point's cell, ranked
+    rng = torch.Generator(device="cpu").manual_seed(1907)
+    rand = torch.randint(-1, 4096, (1, n), generator=rng).to(dev)
+    timed = None
+    for dt, name in ((torch.float32, "K6f keys"), (torch.float64, "K6f keys f64")):
+        report.setdefault(name, {"max_abs_err": 0.0})
+        v = p32.to(dt)[None]
+        for label, bins, nb in ((f"{n} points by cell run", run[None], m_max),
+                                (f"{n} points, random bins, dropped ones", rand, 4096)):
+            got = voxel_grid_cuda.accumulate_sums_keys(v, bins, nb)
+            want = voxel_grid_cuda.accumulate_sums_keys_plain(v, bins, nb)
+            torch.cuda.synchronize()
+            n_bad, where = lane_diff(npy(got), npy(want))
+            log(f"[3 {name}] {label}, {nb} bins: bit-exact={n_bad == 0} "
+                f"bins used {int((npy(want)[0, 3] > 0).sum())}")
+            if n_bad:
+                fail(f"{name} ({label}) disagrees with its plain version: {n_bad} lanes, "
+                     f"e.g. {where}")
+        if dt == torch.float32:
+            timed = (v, run[None], m_max)
+    msk_t = torch.ones(n, dtype=torch.bool, device=dev)
+    reset_counts()
+    got = [voxel_downsample_sort(p32.to(dt), msk_t, 0.1, 0.1, m_max)
+           for dt in (torch.float32, torch.float64)]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for g, dt in zip(got, (torch.float32, torch.float64)):
+        want = voxel_downsample_sort(p32.to(dt).cpu(), msk_t.cpu(), 0.1, 0.1, m_max)
+        ok = all(lane_diff(npy(a), npy(b))[0] == 0 for a, b in zip(g, want))
+        log(f"[3 K6f keys] voxel_downsample_sort {dt}, {n} points with far returns, leaf "
+            f"0.1 m, m_max {m_max}: {int(npy(g[2]))} cells; the CPU's bit for bit: {ok}")
+        if not ok:
+            fail(f"voxel_downsample_sort {dt} on the card departs from the CPU's")
+    log(f"[3 K6f keys] launches {counts['K6f keys']} (f32), {counts['K6f keys f64']} (f64)")
+    require("voxel_downsample_sort", counts, ("K6f keys", "K6f keys f64"), report)
+    return timed
+
+
+
+GOLDEN_HALF = {h: os.path.join(HERE, "tests", "golden", f"torch_{h}_headline.npz")
+               for h in ("bf16", "f16")}
+GOLDEN_CLI_HALF = {h: os.path.join(HERE, "tests", "golden", f"torch_cli_{h}_headline.json")
+                   for h in ("bf16", "f16")}
+F32_TAIL = ("K2", "K3f", "K4", "K14", "K4 xl")   # f32 builds no half path may launch
+
+
+def compare_half(tag, got: dict, ref: dict):
+    """The half goldens' contract (tests/test_torch_half.py): every field
+    bit for bit (pos / vel on valid lanes)."""
+    for f, r in ref.items():
+        g, r = np.asarray(got[f]), np.asarray(r)
+        if f in ("pos", "vel"):
+            g, r = g[ref["valid"]], r[ref["valid"]]
+        if not equal(g, r):
+            fail(f"{tag}: {f} differs (max abs err {max_err(g, r)})")
+
+
+def require_half(tag, counts, htag, need=("K2", "K3f", "K4")):
+    """Fail a half path's run (its counts, reported by ``require``) unless
+    K1 and the ``need`` kernels' ``htag`` builds launched and no f32 or
+    f64 build of K2, K3f, K4, K4 xl or K14 did: every half stage has its
+    build, none falls back."""
+    missing = [k for k in ("K1", *(f"{n} {htag}" for n in need)) if counts[k] <= 0]
+    other = [k for k in (*F32_TAIL, *(f"{k} f64" for k in ("K2", "K3f", "K4", "K14")),
+                         "K4 xl f64", *(f"{k} {o}" for k in F32_TAIL
+                                        for o in ("bf16", "f16") if o != htag))
+             if counts.get(k, 0)]
+    if missing or other:
+        fail(f"the {htag} {tag} path: {missing} not launched, other builds {other} launched: "
+             f"{counts}")
+
+
+def half_frames(dev, sc, n_pts, n):
+    pts, msk, ts = headline_frames(sc, n_pts, range(n))
+    return tuple(torch.from_numpy(a).to(dev) for a in (pts, msk, ts))
+
+
+def phase_half(dev, smi, report):
+    """The bf16 and f16 headline (``dtype="bfloat16"`` / ``"float16"``, lpf
+    and ihgp) through ``bind_env`` (12 frames), ``bind_env_multi`` (S = 8,
+    then S = 4), ``TrackerNode`` (12 PointCloud2 frames, the native
+    decoder; ``StreamingNode`` publishing bit for bit what it does) and the
+    CLI (a config file setting the dtype) against the JAX package's half
+    goldens, bit for bit (``compare_half``; the CLI's 4-decimal records
+    within ``cli_errors``' bound), each run launching K1 and the half builds of K2,
+    K3f and K4 and no other build of them; K14's half build through
+    ``grid_cc="jnp"`` and K4 xl's through a bank padded to 2,048 slots, on
+    the same goldens; then ms/frame (bind_env over 8 frames, multi S = 8)
+    and device ops per frame, f32 / bf16 / f16 in turns."""
+    import dataclasses
+    import tempfile
+
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+    from multiple_object_tracking_lidar_tpu_torch.runtime.stream import StreamingNode
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from make_torch_golden import CLI_CONFIGS, cli_bag
+
+    base, env, sc = bench_cases.headline_case(device=dev)
+    n_pts = base.caps.n_max_points
+    for htag, dname in HALF_NAMES:
+        gold_all = dict(np.load(GOLDEN_HALF[htag]))
+        for variant, fields in (("lpf", {}), ("ihgp", {"position_filter": "ihgp"})):
+            golden = {k.split("/", 1)[1]: v for k, v in gold_all.items()
+                      if k.startswith(variant + "/")}
+            n_gold = golden["publish"].shape[0]
+            P, M, T = half_frames(dev, sc, n_pts, n_gold)
+            report_as = {f"K4 {htag}": f"K4 {htag}"}
+            for label, cfg, need in (
+                    ("bind_env", base.replace(dtype=dname, **fields), ("K2", "K3f", "K4")),
+                    ("bind_env grid_cc=jnp", base.replace(dtype=dname, grid_cc="jnp", **fields),
+                     ("K14", "K3f", "K4")),
+                    ("bind_env, bank padded to 2,048", base.replace(
+                        dtype=dname, caps=dataclasses.replace(base.caps, k_max_tracks=2048),
+                        **fields), ("K2", "K3f", "K4 xl"))):
+                if variant == "ihgp" and label != "bind_env":
+                    continue
+                tracker = Tracker(cfg, dev)
+                step = tracker.bind_env(env)
+                st = tracker.init_state()
+                reset_counts()
+                rows = []
+                for k in range(n_gold):
+                    st, o = step(st, Frame(P[k], M[k], T[k]))
+                    rows.append([npy(x) for x in o])
+                torch.cuda.synchronize()
+                counts = read_counts()
+                got = {f: np.stack([r[i] for r in rows]) for i, f in enumerate(golden)}
+                compare_half(f"{htag} {variant} {label}", got, golden)
+                log(f"[4 {htag}] {variant} {label} x{n_gold}: launches {counts}; the JAX "
+                    f"golden bit for bit")
+                require(f"{htag} {label}", counts, (), report, report_as)
+                require_half(label, counts, htag, need)
+            cfg = base.replace(dtype=dname, **fields)
+            # bind_env_multi: S = 8, then S = 4
+            tracker = Tracker(cfg, dev)
+            multi = tracker.bind_env_multi(env)
+            st = tracker.init_state()
+            reset_counts()
+            rows = []
+            for sl in (slice(0, 8), slice(8, n_gold)):
+                st, o = multi(st, Frame(P[sl], M[sl], T[sl]))
+                rows.append([npy(x) for x in o])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            got = {f: np.concatenate([r[i] for r in rows]) for i, f in enumerate(golden)}
+            compare_half(f"{htag} {variant} bind_env_multi", got, golden)
+            log(f"[4 {htag}] {variant} bind_env_multi S=8 + S=4: launches {counts}; the JAX "
+                f"golden bit for bit")
+            require(f"{htag} bind_env_multi", counts, (), report)
+            require_half("bind_env_multi", counts, htag)
+            # TrackerNode, the native decoder
+            node = TrackerNode(cfg, dev, keep_outputs=True)
+            node.on_map(load_sim_grid())
+            reset_counts()
+            replies = [node.on_pointcloud(sc.frame(k)) for k in range(n_gold)]
+            torch.cuda.synchronize()
+            counts = read_counts()
+            got = {f: np.stack([np.asarray(getattr(o, f)) for o in node.outputs])
+                   for f in golden}
+            compare_half(f"{htag} {variant} TrackerNode", got, golden)
+            log(f"[4 {htag}] {variant} TrackerNode x{n_gold} (decoder {node.decoder}): launches "
+                f"{counts}; the JAX golden bit for bit")
+            if node.decoder != "native":
+                fail(f"the {htag} node decoded with {node.decoder}, not the native decoder")
+            require(f"{htag} TrackerNode", counts, (), report)
+            require_half("TrackerNode", counts, htag)
+            # StreamingNode: what the node publishes, bit for bit
+            streamed = []
+            snode = StreamingNode(cfg, on_outputs=lambda *r: streamed.append(r), depth=2,
+                                  device=dev)
+            snode.on_map(load_sim_grid())
+            reset_counts()
+            for k in range(n_gold):
+                snode.submit(sc.frame(k))
+            snode.flush()
+            counts = read_counts()
+            pub = [r for r in replies if r is not None]
+            same = len(streamed) == len(pub) and all(
+                [o.id for o in a.obstacles] == [o.id for o in b.obstacles]
+                and all(np.array_equal(oa.position, ob.position)
+                        and np.array_equal(oa.velocity, ob.velocity)
+                        for oa, ob in zip(a.obstacles, b.obstacles))
+                for (a, _, _), (b, _, _) in zip(streamed, pub))
+            log(f"[4 {htag}] {variant} StreamingNode x{n_gold} (depth 2): {len(streamed)} "
+                f"publishes, the node's bit for bit: {same}; summary {snode.summary()}")
+            if not same or snode.summary()["decoder"] != "native":
+                fail(f"the {htag} StreamingNode departs from the node or its decoder")
+            require(f"{htag} StreamingNode", counts, (), report)
+            require_half("StreamingNode", counts, htag)
+        # the CLI with a config file setting the dtype
+        with open(GOLDEN_CLI_HALF[htag], encoding="utf-8") as fh:
+            gold = json.load(fh)
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = cli_bag(os.path.join(tmp, "frames.npz"))
+            conf = os.path.join(tmp, "config.yaml")
+            with open(conf, "w", encoding="utf-8") as fh:
+                fh.write(CLI_CONFIGS[f"cli_{htag}"])
+            reset_counts()
+            _, recs, err_recs = run_cli(argv + ["--config", conf, "--device", "cuda"])
+            counts = read_counts()
+        errs, worst = cli_errors(recs, gold)
+        summary = next(r["summary"] for r in err_recs if "summary" in r)
+        log(f"[4 {htag}] CLI run --config <dtype: {dname}>: {len(recs)} records, launches "
+            f"{counts}, summary {summary}; vs the JAX CLI golden: "
+            f"{errs or 'within tolerance'} (worst pos / vel {worst})")
+        if errs:
+            fail(f"{htag} CLI: {errs}")
+        require(f"{htag} CLI", counts, (), report)
+        require_half("CLI", counts, htag)
+
+    # ms/frame and device ops per frame, f32 / bf16 / f16 in turns
+    P, M, T = half_frames(dev, sc, n_pts, 8)
+    trackers = {d: Tracker(base.replace(dtype=d), dev) for d in ("float32", "bfloat16", "float16")}
+    for turn, d in enumerate(("float32", "bfloat16", "float16", "float16", "bfloat16",
+                              "float32")):
+        tr = trackers[d]
+        step, multi = tr.bind_env(env), tr.bind_env_multi(env)
+
+        def one():
+            st = tr.init_state()
+            for i in range(8):
+                st, _ = step(st, Frame(P[i], M[i], T[i]))
+
+        def eight():
+            multi(tr.init_state(), Frame(P, M, T))
+
+        ms1, ms8 = cuda_ms(one, 3) / 8, cuda_ms(eight, 3) / 8
+        counts = ""
+        if turn < 3:
+            (o1, s1), (o8, s8) = trace_counts(one, 8), trace_counts(eight, 8)
+            counts = (f"; device ops per frame {o1:.2f} / {o8:.2f}; host syncs per frame "
+                      f"{s1:.3f} / {s8:.3f}")
+        log(f"[5 timing] {smi}: headline {d} (turn {turn + 1} of f32, bf16, f16, f16, bf16, "
+            f"f32) bind_env {ms1:.4f} ms/frame, bind_env_multi S=8 {ms8:.4f} ms/frame{counts}")
+
+
+def phase_timings_slice19(dev, smi, report, keep):
+    """Each half build beside the f32 build of the same kernel on the same
+    inputs (the f32 inputs the half values widened), device us per call in
+    turns (f32, half, half, f32; torch.profiler between marker kernels):
+    K2 and K14 at the headline's S = 8 and S = 1, K3f at S = 8 x C = 32, K4
+    at K = 64 1 x 1 and 1 x 8 (lpf), K4 xl at K = 2,048; then the report's
+    entries (kernel ms and plain ms in turns, both on the card by CUDA
+    events, bounds, no library call); K6f's key entry beside index_add."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        centroid_cuda, grid_cuda, stencil_cc_cuda, track_cuda, voxel_grid_cuda)
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype
+
+    def device_us(fn, reps):
+        us, ops, _ = one_op_profile(fn, reps)
+        return us * ops
+
+    def turns(tag, f32, half, reps):
+        a, b = device_us(f32, reps), device_us(half, reps)
+        b2, a2 = device_us(half, reps), device_us(f32, reps)
+        log(f"[5 timing] {smi}: {tag} device us per call in turns (f32 build, half, half, "
+            f"f32 build) {a:.2f}, {b:.2f}, {b2:.2f}, {a2:.2f}: half / f32 "
+            f"{min(b, b2) / min(a, a2):.2f}x")
+
+    cfg = keep["bf16"]["hcfg"].replace(dtype="float32")
+    K, D = cfg.caps.k_max_tracks, cfg.caps.c_max_clusters
+    for htag, dt in HALF:
+        k = keep[htag]
+        tb, kw2, acc, cc_args = k["tb"], k["kw2"], k["acc"], k["cc_args"]
+        acc32 = acc.float()
+        for label, sl in (("S=8", slice(0, 8)), ("S=1", slice(3, 4))):
+            a32, ah = acc32[sl].contiguous(), acc[sl].contiguous()
+            turns(f"K2 {htag} headline {label}",
+                  lambda a=a32: grid_cuda.fused_finalize_static_cc_stacked(a, *tb, **kw2),
+                  lambda a=ah: grid_cuda.fused_finalize_static_cc_stacked(a, *tb, **kw2), 20)
+            c16, dyn = k["cent"][sl].contiguous(), k["dyn"][sl].contiguous()
+            c32 = c16.float()
+            turns(f"K14 {htag} headline {label}",
+                  lambda c=c32, d=dyn: stencil_cc_cuda.stencil_cc(c, d, *cc_args),
+                  lambda c=c16, d=dyn: stencil_cc_cuda.stencil_cc(c, d, *cc_args), 20)
+        mp, mm, T8 = k["mp"], k["mm"], k["T8"]
+        turns(f"K3f {htag} S=8 x C=32, P={mp.shape[1]}",
+              lambda: centroid_cuda.circumcenter_features(mp.float(), mm, T8.float()),
+              lambda: centroid_cuda.circumcenter_features(mp, mm, T8), 20)
+        gains_h = keep[htag]["tracker"].gains_xy
+        g32 = {a: ({w: x.float() for w, x in g.items()} if isinstance(g, dict) else g.float())
+               for a, g in gains_h.items()}
+        hcfg = k["hcfg"]
+        for label, kk, d, b, s in (("K = 64 1 x 1", K, D, 1, 1), ("K = 64 1 x 8", K, D, 1, 8),
+                                   ("K4 xl K = 2,048 1 x 1", 2048, D, 1, 1)):
+            hins = half_track_inputs(track_scene(1950 + kk + s, cfg, kk, d, b, s, (), dev), dt)
+            ins = widen_track_inputs(hins)
+            f32 = lambda ins=ins: track_cuda.track_frames(*ins, config=cfg, gains_xy=g32)  # noqa
+            half = lambda ins=hins, c=hcfg, g=gains_h: track_cuda.track_frames(  # noqa: E731
+                *ins, config=c, gains_xy=g)
+            turns(f"K4 {htag} {label} (lpf)", f32, half, 10)
+            k[f"track {label}"] = (half, hins)
+
+    # the report's entries
+    for htag, dt in HALF:
+        k = keep[htag]
+        tb, kw2, acc, cc_args = k["tb"], k["kw2"], k["acc"], k["cc_args"]
+        n = acc.shape[2]
+        n_off = len(grid_cuda.kernel_offsets(kw2["dims"], kw2["tol"], kw2["leaf_xy"],
+                                             kw2["leaf_z"]))
+        outs = grid_cuda.fused_finalize_static_cc_stacked(acc, *tb, **kw2)
+        iters = int(outs[3].sum())
+        cent, dyn = k["cent"], k["dyn"]
+        lab = stencil_cc_cuda.stencil_cc(cent, dyn, *cc_args)
+        mp, mm, T8 = k["mp"], k["mm"], k["T8"]
+        cnt = mm.sum(1).to(torch.float64)
+        half, hins = k["track K = 64 1 x 1"]
+        xl, xins = k["track K4 xl K = 2,048 1 x 1"]
+        kout = half()
+        xout = xl()
+        pairs = {  # name: (kernel, plain, shape, bytes, operations)
+            f"K2 {htag}": (
+                lambda: grid_cuda.fused_finalize_static_cc_stacked(acc, *tb, **kw2),
+                lambda: grid_cuda.fused_finalize_static_cc_stacked_plain(
+                    acc, *tb, dims=kw2["dims"], offsets=grid_cuda.kernel_offsets(
+                        kw2["dims"], kw2["tol"], kw2["leaf_xy"], kw2["leaf_z"]),
+                    kwin=kw2["kwin"], max_sweeps=2 * sum(kw2["dims"]), tol=kw2["tol"]),
+                f"S=8 frames x {n} cells of {htag} sums", nbytes((acc,) + tb) + nbytes(outs),
+                8 * n * (15 + 12 * n_off) + iters * n * (2 * n_off + 1)),
+            f"K14 {htag}": (
+                lambda: stencil_cc_cuda.stencil_cc(cent, dyn, *cc_args),
+                lambda: stencil_cc_cuda.stencil_cc_plain(
+                    cent, dyn, kw2["dims"], grid_cuda.kernel_offsets(
+                        kw2["dims"], kw2["tol"], kw2["leaf_xy"], kw2["leaf_z"]),
+                    in_dtype(kw2["tol"] * kw2["tol"], dt), *cc_args[4:]),
+                f"S=8 frames x {n} cells of {htag} centroids", nbytes((cent, dyn)) + nbytes(lab),
+                8 * n * 12 * n_off + int(lab[1].sum()) * n * (2 * n_off + 1) // 8),
+            f"K3f {htag}": (
+                lambda: centroid_cuda.circumcenter_features(mp, mm, T8),
+                lambda: centroid_cuda.circumcenter_features_half_plain(mp, mm, T8),
+                f"S=8 x C=32 slots of P={mp.shape[1]} {htag} members",
+                nbytes((mp, mm, T8)) + mp.shape[0] * 4 * mp.element_size(),
+                int((cnt * cnt / 2 * 12 + cnt * 30).sum())),
+            f"K4 {htag}": (half, lambda: track_cuda.track_frames_plain(
+                *hins, config=k["hcfg"], gains_xy=k["tracker"].gains_xy),
+                f"K = {hins[0].bank.window.shape[1]}, 1 x 1, D = {hins[1].shape[2]}",
+                k4_bytes(hins, kout), 0),
+            f"K4 xl {htag}": (xl, lambda: track_cuda.track_frames_plain(
+                *xins, config=k["hcfg"], gains_xy=k["tracker"].gains_xy),
+                f"K = {xins[0].bank.window.shape[1]}, 1 x 1, D = {xins[1].shape[2]}",
+                k4_bytes(xins, xout), 0),
+        }
+        for name, (fk, fp, shape, moved, ops) in pairs.items():
+            ms_p = cuda_ms(fp, 1)
+            ms_k = cuda_ms(fk, 20)
+            ms_k2 = cuda_ms(fk, 20)
+            ms_p2 = cuda_ms(fp, 1)
+            t_bytes = moved / HBM_BYTES_PER_S
+            t_ops = ops / F32_OPS_PER_S
+            entry = report.setdefault(name, {"max_abs_err": 0.0})
+            entry["ms"] = min(ms_k, ms_k2)
+            entry["plain_ms"] = min(ms_p, ms_p2)
+            entry["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+            entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            entry["library_ms"] = None
+            log(f"[5 timing] {smi}: {name} {shape}: kernel {ms_k:.4f}/{ms_k2:.4f} ms, plain "
+                f"{ms_p:.4f}/{ms_p2:.4f} ms (both on the card; run plain, kernel, kernel, "
+                f"plain; min reported); "
+                f"bound {entry['bound_ms']:.6f} ms by {entry['bound_by']} ({moved} bytes, "
+                f"{ops} operations); library call none")
+
+    # K6f's key entry, f32 and f64, beside index_add (the library's scatter-add)
+    v, bins, m = keep["keys"]
+    n = v.shape[1]
+    for name, vv in (("K6f keys", v), ("K6f keys f64", v.double())):
+        out = voxel_grid_cuda.accumulate_sums_keys(vv, bins, m)
+        vals4 = torch.cat([vv[0], torch.ones_like(vv[0][:, :1])], 1)
+        tgt = torch.where((bins[0] >= 0) & (bins[0] < m), bins[0], m)
+        base = torch.zeros((m + 1, 4), dtype=vv.dtype, device=dev)
+        fk = lambda vv=vv: voxel_grid_cuda.accumulate_sums_keys(vv, bins, m)  # noqa: E731
+        fp = lambda vv=vv: voxel_grid_cuda.accumulate_sums_keys_plain(vv, bins, m)  # noqa: E731
+        ms_p = cuda_ms(fp, 1)
+        ms_k, ms_k2 = cuda_ms(fk, 20), cuda_ms(fk, 20)
+        ms_p2 = cuda_ms(fp, 1)
+        ms_l = cuda_ms(lambda: torch.index_add(base, 0, tgt, vals4), 20)
+        moved = nbytes((vv, bins)) + nbytes(out)
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, 3 * n / F32_OPS_PER_S
+        entry = report.setdefault(name, {"max_abs_err": 0.0})
+        entry.update(ms=min(ms_k, ms_k2), plain_ms=min(ms_p, ms_p2), library_ms=ms_l,
+                     bound_ms=1e3 * max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"[5 timing] {smi}: {name} {n} points into {m} bins: kernel {ms_k:.4f}/"
+            f"{ms_k2:.4f} ms, plain {ms_p:.4f}/{ms_p2:.4f} ms (on the card; plain, kernel, "
+            f"kernel, plain), index_add {ms_l:.4f} ms; bound {entry['bound_ms']:.6f} ms by "
+            f"{entry['bound_by']} ({moved} bytes)")
+
+
+def phase_host_slice19(dev, smi, report):
+    """The host surface on the card's machine: the native decoder built
+    from source (its build seconds), bit for bit numpy's on the headline's
+    106,496-point clouds, ms per cloud native and numpy (host clock, min of
+    reps, in turns); the port's TrackerNode on the card decoding natively,
+    its wall ms/frame split into decode, upload, step (synchronised),
+    outputs to the host and the rest, beside ``bind_env``'s ms/frame; the
+    rosbridge loopback round trip (``scripts/ros_interop_demo_torch.py``)
+    through the node on the card."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.io import native, pointcloud2
+    from multiple_object_tracking_lidar_tpu_torch.runtime import node as node_mod
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:   # a build from nothing, timed
+        keep_dir, native.BUILD_DIR = native.BUILD_DIR, tmp
+        try:
+            t0 = time.perf_counter()
+            native.build_native()
+            secs = time.perf_counter() - t0
+        finally:
+            native.BUILD_DIR = keep_dir
+    path = native.build_native()
+    native.load_native()
+    log(f"[6 host] native decoder {os.path.relpath(path, HERE)}: native/motl_host.cpp "
+        f"built with g++ in {secs:.2f} s (into an empty directory), loaded")
+    cfg, env, sc = bench_cases.headline_case(device=dev)
+    n_max = cfg.caps.n_max_points
+    clouds = [sc.frame(k) for k in range(8)]
+    for k, msg in enumerate(clouds):
+        a = pointcloud2.decode_pointcloud2_named(msg, n_max)
+        b = pointcloud2.decode_pointcloud2_named(msg, n_max, use_native=False)
+        if a[2] != "native" or not (equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            fail(f"the native decoder ({a[2]}) disagrees with numpy on cloud {k}")
+    n_valid = int(pointcloud2.decode_pointcloud2(clouds[0], n_max)[1].sum())
+
+    def per_cloud(use_native, reps=5):
+        best = float("inf")
+        for _ in range(reps):
+            t = time.perf_counter()
+            for msg in clouds:
+                pointcloud2.decode_pointcloud2(msg, n_max, use_native=use_native)
+            best = min(best, (time.perf_counter() - t) / len(clouds))
+        return 1e3 * best
+
+    times = [per_cloud(True), per_cloud(False), per_cloud(False), per_cloud(True)]
+    log(f"[6 host] {smi}: decode of the headline's {clouds[0].n_points}-point clouds "
+        f"({n_valid} valid), ms per cloud in turns (native, numpy, numpy, native): "
+        f"{', '.join(f'{x:.4f}' for x in times)}; bit for bit numpy's on 8 clouds")
+
+    # the node's wall clock by piece, on the card: the decode and the step
+    # (synchronised before and after) timed around their calls; the rest of
+    # the node's wall_ms is the upload and the outputs' copies to the host,
+    # on_pointcloud's time past wall_ms the messages, stats and colours
+    n = 24
+    msgs = [sc.frame(k) for k in range(n)]
+    pieces = {"decode": [], "step": []}
+    orig_decode = node_mod.decode_pointcloud2_named
+
+    def timed_decode(*a, **kw):
+        t = time.perf_counter()
+        out = orig_decode(*a, **kw)
+        pieces["decode"].append(1e3 * (time.perf_counter() - t))
+        return out
+
+    node = node_mod.TrackerNode(cfg, dev)
+    node.on_map(load_sim_grid())
+    orig_step = node._bound_step
+
+    def timed_step(state, frame):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_step(state, frame)
+        torch.cuda.synchronize()
+        pieces["step"].append(1e3 * (time.perf_counter() - t))
+        return out
+
+    node._bound_step = timed_step
+    node_mod.decode_pointcloud2_named = timed_decode
+    walls = []
+    try:
+        for msg in msgs:
+            t = time.perf_counter()
+            node.on_pointcloud(msg)
+            walls.append(1e3 * (time.perf_counter() - t))
+    finally:
+        node_mod.decode_pointcloud2_named = orig_decode
+    p50 = lambda xs: float(np.percentile(np.asarray(xs[4:]), 50))  # noqa: E731
+    wall_ms = [s_.wall_ms for s_ in node.stats]
+    tracker = Tracker(cfg, dev)
+    step = tracker.bind_env(node.env)
+    pts, msk, ts = headline_frames(sc, n_max, range(8))
+    P, M, T = (torch.from_numpy(a).to(dev) for a in (pts, msk, ts))
+
+    def one():
+        st = tracker.init_state()
+        for i in range(8):
+            st, _ = step(st, Frame(P[i], M[i], T[i]))
+
+    ms_bind = cuda_ms(one, 3) / 8
+    rest = p50(wall_ms) - p50(pieces["decode"]) - p50(pieces["step"])
+    log(f"[6 host] {smi}: TrackerNode on the card, {n} headline frames (p50 over the last "
+        f"{n - 4}), decoder {node.decoder}: on_pointcloud {p50(walls):.3f} ms, of which its "
+        f"wall_ms {p50(wall_ms):.3f} = decode {p50(pieces['decode']):.3f} + step (bind_env, "
+        f"synchronised) {p50(pieces['step']):.3f} + upload and outputs to the host "
+        f"{rest:.3f}; messages, stats and colours {p50(walls) - p50(wall_ms):.3f}; "
+        f"bind_env alone (frames on the card) {ms_bind:.4f} ms/frame")
+    if node.decoder != "native":
+        fail(f"the node decoded with {node.decoder}")
+
+    # the rosbridge loopback through the port's node on the card
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import contextlib
+    import io
+
+    import ros_interop_demo_torch
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = ros_interop_demo_torch.main(["--device", dev.type, "--frames", "12"])
+    log(f"[6 host] {smi}: rosbridge loopback (scripts/ros_interop_demo_torch.py, the mock "
+        f"rosbridge_tcp endpoint on 127.0.0.1, the port's node on the card): {res}")
+    if res["frames"] != 12 or res["obstacle_arrays_received"] < 6 or res["decoder"] != "native":
+        fail(f"the rosbridge loopback: {res}")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     smi = phase_card()
     sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)
@@ -4999,6 +5729,7 @@ def main() -> int:
     phase_kernels_slice15(dev, report)
     phase_kernels_slice16(dev, report)
     phase_kernels_slice17(dev, report)
+    k19 = phase_kernels_slice19(dev, report, cfg)
     tracker, env, frames = phase_slice(dev, cfg, sc, report)
     phase_cli(dev, report)
     phase_ihgp(dev, report)
@@ -5012,6 +5743,8 @@ def main() -> int:
     phase_entry_points(dev, report, cfg, sc, table)
     phase_growth(dev, report)
     phase_floor(dev, report)
+    phase_half(dev, smi, report)
+    phase_host_slice19(dev, smi, report)
     phase_timings(dev, cfg, smi, tracker, env, frames, report)
     phase_timings_fleet(dev, smi, fleet, fleet_env, fleet_in)
     phase_timings_slice11(dev, smi, *frames)
@@ -5020,11 +5753,13 @@ def main() -> int:
     phase_timings_slice14(dev, smi, report, k14)
     phase_learning(dev, smi, report)
     phase_timings_slice16(dev, smi, report)
+    phase_timings_slice19(dev, smi, report, k19)
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import micro_torch_digits
 
     log(f"[5 timing] torch.profiler traces taken again after losing device events: "
         f"{micro_torch_digits.retaken}")
+    log(f"[7 total] {time.perf_counter() - t_start:.1f} s from the start, the build included")
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": f"{k}: {desc}", "route": "cuda", "source": src, "replaces": rep,

@@ -24,6 +24,8 @@ from multiple_object_tracking_lidar_tpu_torch.config import (
     TrackerConfig,
     load_config,
 )
+from multiple_object_tracking_lidar_tpu_torch.tracker.state import TrackerState, Frame
+from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
 
 # Any f32 matmul left in the port must run in full f32 (the JAX package pins
 # Precision.HIGHEST where it matters); TF32 keeps ~3 decimal digits.
@@ -32,4 +34,13 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-__all__ = ["TrackerConfig", "Capacities", "SceneBounds", "load_config", "__version__"]
+__all__ = [
+    "TrackerConfig",
+    "Capacities",
+    "SceneBounds",
+    "load_config",
+    "TrackerState",
+    "Frame",
+    "Tracker",
+    "__version__",
+]

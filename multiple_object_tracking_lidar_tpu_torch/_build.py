@@ -61,11 +61,17 @@ SIGNATURES = {
                          _P, _P, _P, _P, _P, _P],
     "motl_grid_cc_f64_f32sums": [_P, _P, _P, _P, _P, _I, _P, _D, _I, _I, _I, _I, _I, _I, _I,
                                  _P, _P, _P, _P, _P, _P],
+    "motl_grid_cc_bf16": [_P, _P, _P, _P, _P, _I, _P, _F, _I, _I, _I, _I, _I, _I, _I,
+                          _P, _P, _P, _P, _P, _P],
+    "motl_grid_cc_f16": [_P, _P, _P, _P, _P, _I, _P, _F, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P],
     "motl_grid_cc_max_cluster": [_I, _P],
     "motl_pair_stats": [_P, _P, _I, _I, _P, _P, _P],
     "motl_circumcenter": [_P, _P, _I, _I, _P, _P],
     "motl_circumcenter_features": [_P, _P, _P, _I, _I, _I, _P, _P],
     "motl_circumcenter_features_f64": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "motl_circumcenter_features_bf16": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "motl_circumcenter_features_f16": [_P, _P, _P, _I, _I, _I, _P, _P],
     "motl_assoc_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P,
                         _P, _P],
     "motl_track_step": [*[_P] * 20, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, *[_F] * 7, _I,
@@ -77,6 +83,9 @@ SIGNATURES = {
     "motl_track_step_xl_f64": [*[_P] * 20, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, *[_D] * 7,
                                _I, *[_P] * 18],
     "motl_track_step_xl_scratch": [_I, _I, _I, _I, _I, _I, _P],
+    **{f"motl_track_step{xl}_{h}": [*[_P] * 20, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                                    *[_F] * 7, _I, *[_P] * (18 if xl else 17)]
+       for xl in ("", "_xl") for h in ("bf16", "f16")},
     "motl_auction_assign": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "motl_voxel_exact": _DIGITS,
     "motl_voxel_bf16x3": [_P, _P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _I, _I,
@@ -85,6 +94,8 @@ SIGNATURES = {
                             _I, _I, _I, _F, _F, _P],
     "motl_voxel_bf16x3_keys": [_P, _P, _P, _P, _I, _I, _I, _I, *[_P] * 7, _I,
                                _I, _P],
+    "motl_voxel_sums_keys": [_P, _P, _P, _P, _I, _I, _I, _I, *[_P] * 7, _I, _I, _P],
+    "motl_voxel_sums_keys_f64": [_P, _P, _P, _P, _I, _I, _I, _I, *[_P] * 7, _I, _I, _P],
     "motl_segment_totals": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P,
                             _P, _I, _P],
     "motl_segment_totals_rows": [_P, _P, _I, _I, _I, _P, _P, _I, _P],
@@ -93,6 +104,10 @@ SIGNATURES = {
     "motl_cc_labels": [_P, _I, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P],
     "motl_stencil_cc": [_P, _P, _I, _I, _I, _I, _P, _I, _F, _I, _I, _I, _I, _P, _P, _P, _P],
     "motl_stencil_cc_f64": [_P, _P, _I, _I, _I, _I, _P, _I, _D, _I, _I, _I, _I, _P, _P, _P,
+                            _P],
+    "motl_stencil_cc_bf16": [_P, _P, _I, _I, _I, _I, _P, _I, _F, _I, _I, _I, _I, _P, _P, _P,
+                             _P],
+    "motl_stencil_cc_f16": [_P, _P, _I, _I, _I, _I, _P, _I, _F, _I, _I, _I, _I, _P, _P, _P,
                             _P],
     "motl_stencil_cc_max_cluster": [_P],
     "motl_transpose32": [_P, _P, _I, _I, _I, _P],

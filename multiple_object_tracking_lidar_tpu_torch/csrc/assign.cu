@@ -118,6 +118,7 @@
 #include <stdint.h>
 
 #include "auction.cuh"
+#include "fp_half.cuh"
 #include "fp_rn.cuh"
 
 namespace {
@@ -130,6 +131,96 @@ template <class T>
 struct alignas(4 * sizeof(T)) V4 {
   T x, y, z, w;
 };
+
+// The smoother's sums, its mean and the divisions by dt, per float type:
+// the f32 / f64 builds in the type itself, ascending from the first term
+// (the ops the kernel always spelled); the half builds (HV, fp_half.cuh)
+// as XLA's CPU code computes the JAX track step in bf16 / f16
+// (ops/half.py, the plain version's ops/track_cuda.py::_wsum,
+// mean_f32, smoother_parts, ops/voxel.py::true_div, models/lpf.py): exact
+// products summed in f32 and rounded once, the mean that sum times
+// f32(1 / n), a division by dt the product by dt's reciprocal (f16: rounded
+// to f16; bf16: an f32 product by the f32 reciprocal), the LPF in f16 one
+// contracted multiply-add.
+template <class T>
+struct Arith {
+  using A = T;
+  static __device__ __forceinline__ A lift(T x) { return x; }
+  static __device__ __forceinline__ A mul(T a, T b) { return fp::mul(a, b); }
+  static __device__ __forceinline__ A add(A a, A b) { return fp::add(a, b); }
+  static __device__ __forceinline__ T fin(A a) { return a; }
+  static __device__ __forceinline__ T mean(A s, int n) { return fp::div(s, (T)n); }
+  static __device__ __forceinline__ T div_dt(T x, T dt) { return fp::div(x, dt); }
+  // a window velocity as the mean's sum takes it; one less the mean; the
+  // backfill's time last + jj * dt
+  static __device__ __forceinline__ A vel_term(T diff, T dt) { return fp::div(diff, dt); }
+  static __device__ __forceinline__ T centred(T diff, T dt, T mean) {
+    return fp::sub(fp::div(diff, dt), mean);
+  }
+  static __device__ __forceinline__ T tstep(T last, T jj, T dt) {
+    return fp::add(last, fp::mul(jj, dt));
+  }
+  static __device__ __forceinline__ T dot2(T a0, T b0, T a1, T b1) {
+    return fp::add(fp::mul(a0, b0), fp::mul(a1, b1));
+  }
+  static __device__ __forceinline__ T lpf(T a, T w2, T b, T w1) {
+    return fp::add(fp::mul(a, w2), fp::mul(b, w1));
+  }
+};
+
+// The half builds' float type (K4 runs greedy association only in them).
+template <class T>
+constexpr bool kHalfT = false;
+template <class H>
+constexpr bool kHalfT<HV<H>> = true;
+
+template <class H>
+struct Arith<HV<H>> {
+  using T = HV<H>;
+  using A = float;
+  static __device__ __forceinline__ A lift(T x) { return x.f(); }
+  static __device__ __forceinline__ A mul(T a, T b) { return __fmul_rn(a.f(), b.f()); }
+  static __device__ __forceinline__ A add(A a, A b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ T fin(A a) { return T(a); }
+  static __device__ __forceinline__ T mean(A s, int n) {
+    return T(__fmul_rn(s, __double2float_rn(__ddiv_rn(1.0, (double)n))));
+  }
+  // f16: x times dt's f16 reciprocal, rounded; bf16: x times dt's f32
+  // reciprocal, rounded (XLA's folds of x / dt, ops/voxel.py::true_div)
+  static __device__ __forceinline__ float recip(T dt) {
+    if constexpr (H::kDivByProduct) return H::load(H::store_d(__ddiv_rn(1.0, (double)dt.f())));
+    return __fdiv_rn(1.0f, dt.f());
+  }
+  static __device__ __forceinline__ T div_dt(T x, T dt) { return T(__fmul_rn(x.f(), recip(dt))); }
+  // the mean's terms: f16 the rounded velocities, bf16 their f32 products
+  // before the rounding (XLA keeps them in the reduction's fusion)
+  static __device__ __forceinline__ A vel_term(T diff, T dt) {
+    if constexpr (H::kDivByProduct) return div_dt(diff, dt).f();
+    return __fmul_rn(diff.f(), recip(dt));
+  }
+  // f16 contracts the velocity's product into its centring and the
+  // backfill's jj * dt into last + (XLA's f16 FMAs); bf16 rounds each op
+  static __device__ __forceinline__ T centred(T diff, T dt, T mean) {
+    if constexpr (H::kDivByProduct) return T(H::madd(diff.f(), recip(dt), -mean.f()));
+    return fp::sub(div_dt(diff, dt), mean);
+  }
+  static __device__ __forceinline__ T tstep(T last, T jj, T dt) {
+    if constexpr (H::kDivByProduct) return T(H::madd(jj.f(), dt.f(), last.f()));
+    return fp::add(last, fp::mul(jj, dt));
+  }
+  static __device__ __forceinline__ T dot2(T a0, T b0, T a1, T b1) {
+    return fin(add(mul(a0, b0), mul(a1, b1)));
+  }
+  static __device__ __forceinline__ T lpf(T a, T w2, T b, T w1) {
+    return T(H::madd(w2.f(), a.f(), fp::hmul<H>(b.f(), w1.f())));
+  }
+};
+
+__device__ __forceinline__ void i2f(long long v, float& out);
+template <class H>
+__device__ __forceinline__ void i2f(long long v, HV<H>& out) {
+  out = HV<H>(__ll2float_rn(v));
+}
 
 constexpr int kMaxDets = 128;
 constexpr int kMaxLanes = 1024;
@@ -264,7 +355,7 @@ __device__ void decide(const T* s_det, const int* s_dv, int bound, bool allow,
     const int id_slot = sc.sel[buf].id;
     const T gap = fp::sub(d3, t_slot);
     const bool do_interp =
-        am && gap > gapthr && fp::sub(fp::rint(fp::div(gap, dt)), T(1)) >= T(1);
+        am && gap > gapthr && fp::sub(fp::rint(Arith<T>::div_dt(gap, dt)), T(1)) >= T(1);
     const bool reg = valid && !am && !bank_full;
     const bool matched = valid && am;
     const bool write = matched || reg;
@@ -495,7 +586,7 @@ __device__ void hungarian_decide(const T* s_det, const int* s_dv, bool allow, T 
     r.id[own] = me.oid;
     r.ok[own] = 1;
     r.interp[own] =
-        (gap > gapthr && fp::sub(fp::rint(fp::div(gap, dt)), T(1)) >= T(1)) ? 1 : 0;
+        (gap > gapthr && fp::sub(fp::rint(Arith<T>::div_dt(gap, dt)), T(1)) >= T(1)) ? 1 : 0;
     me.lx = s_det[4 * own];
     me.ly = s_det[4 * own + 1];
     me.lt = t_det;
@@ -576,7 +667,7 @@ __device__ void update_window(V4<T>* w, int L, const T* s_det, const R& r, int D
   } else if (r.interp[first]) {
     const V4<T> last = w[L - 1];
     const T gap = fp::sub(d1.w, last.w);
-    const long long lost = (long long)fp::rint(fp::div(gap, dt)) - 1;
+    const long long lost = (long long)fp::rint(Arith<T>::div_dt(gap, dt)) - 1;
     const long long lost_c = lost < 1 ? 1 : lost;
     T lc;
     i2f(lost_c, lc);
@@ -592,7 +683,7 @@ __device__ void update_window(V4<T>* w, int L, const T* s_det, const R& r, int D
         w[l] = V4<T>{fp::add(last.x, fp::mul(fp::mul(jj, sx), T(1))),
                      fp::add(last.y, fp::mul(fp::mul(jj, sy), T(1))),
                      fp::add(last.z, fp::mul(fp::mul(jj, sz), T(0))),
-                     fp::add(last.w, fp::mul(jj, dt))};
+                     Arith<T>::tstep(last.w, jj, dt)};
       }
     }
   }
@@ -692,41 +783,48 @@ __device__ __forceinline__ void slot_step(const TrackArgs<T>& a, const Weights<T
   // LPF position: once per frame, ascending in the window index (each row
   // read once per pass, both axes together; unrolled so the row loads
   // overlap)
-  T vmean[2], ey[2], myv[2][2], sum[2];
+  T vmean[2], ey[2], myv[2][2];
+  typename Arith<T>::A sum[2], eyA[2], myvA[2][2];
   XY<T> prev = {w[0].x, w[0].y};
 #pragma unroll 8
   for (int l = 0; l < L1; ++l) {
     const V4<T> cur = w[l + 1];
-    const T vx = fp::div(fp::sub(cur.x, prev.x), a.dt);
-    const T vy = fp::div(fp::sub(cur.y, prev.y), a.dt);
-    sum[0] = l ? fp::add(sum[0], vx) : vx;
-    sum[1] = l ? fp::add(sum[1], vy) : vy;
+    const auto vx = Arith<T>::vel_term(fp::sub(cur.x, prev.x), a.dt);
+    const auto vy = Arith<T>::vel_term(fp::sub(cur.y, prev.y), a.dt);
+    sum[0] = l ? Arith<T>::add(sum[0], vx) : vx;
+    sum[1] = l ? Arith<T>::add(sum[1], vy) : vy;
     prev = XY<T>{cur.x, cur.y};
   }
-  vmean[0] = fp::div(sum[0], (T)L1);
-  vmean[1] = fp::div(sum[1], (T)L1);
+  vmean[0] = Arith<T>::mean(sum[0], L1);
+  vmean[1] = Arith<T>::mean(sum[1], L1);
   prev = XY<T>{w[0].x, w[0].y};
 #pragma unroll 8
   for (int l = 0; l < L1; ++l) {
     const V4<T> cur = w[l + 1];
     const T yv[2] = {
-        fp::sub(fp::div(fp::sub(cur.x, prev.x), a.dt), vmean[0]),
-        fp::sub(fp::div(fp::sub(cur.y, prev.y), a.dt), vmean[1])};
+        Arith<T>::centred(fp::sub(cur.x, prev.x), a.dt, vmean[0]),
+        Arith<T>::centred(fp::sub(cur.y, prev.y), a.dt, vmean[1])};
     prev = XY<T>{cur.x, cur.y};
 #pragma unroll
     for (int ax = 0; ax < 2; ++ax) {
-      const T e = fp::mul(yv[ax], wy[ax * L1 + l]);
-      const T c0 = fp::mul(yv[ax], my[(ax * 2 + 0) * L1 + l]);
-      const T c1 = fp::mul(yv[ax], my[(ax * 2 + 1) * L1 + l]);
-      ey[ax] = l ? fp::add(ey[ax], e) : e;
-      myv[ax][0] = l ? fp::add(myv[ax][0], c0) : c0;
-      myv[ax][1] = l ? fp::add(myv[ax][1], c1) : c1;
+      const auto e = Arith<T>::mul(yv[ax], wy[ax * L1 + l]);
+      const auto c0 = Arith<T>::mul(yv[ax], my[(ax * 2 + 0) * L1 + l]);
+      const auto c1 = Arith<T>::mul(yv[ax], my[(ax * 2 + 1) * L1 + l]);
+      eyA[ax] = l ? Arith<T>::add(eyA[ax], e) : e;
+      myvA[ax][0] = l ? Arith<T>::add(myvA[ax][0], c0) : c0;
+      myvA[ax][1] = l ? Arith<T>::add(myvA[ax][1], c1) : c1;
     }
+  }
+  for (int ax = 0; ax < 2; ++ax) {
+    ey[ax] = Arith<T>::fin(eyA[ax]);
+    myv[ax][0] = Arith<T>::fin(myvA[ax][0]);
+    myv[ax][1] = Arith<T>::fin(myvA[ax][1]);
   }
   // the position: LPF once per frame, or under ihgp the y-parts of the
   // position smoother (pmean = the last row's xy, y_l = row l's xy less
   // pmean), ascending in l, and a position pass per pass
   T pos[2], pmean[2], eyp[2], myp[2][2];
+  typename Arith<T>::A eypA[2], mypA[2][2];
   if constexpr (kIhgp) {
     const T *pwy = wt.pwy, *pmy = wt.pmy;
     pmean[0] = w[L - 1].x;
@@ -737,17 +835,22 @@ __device__ __forceinline__ void slot_step(const TrackArgs<T>& a, const Weights<T
       const T yv[2] = {fp::sub(cur.x, pmean[0]), fp::sub(cur.y, pmean[1])};
 #pragma unroll
       for (int ax = 0; ax < 2; ++ax) {
-        const T e = fp::mul(yv[ax], pwy[ax * L + l]);
-        const T c0 = fp::mul(yv[ax], pmy[(ax * 2 + 0) * L + l]);
-        const T c1 = fp::mul(yv[ax], pmy[(ax * 2 + 1) * L + l]);
-        eyp[ax] = l ? fp::add(eyp[ax], e) : e;
-        myp[ax][0] = l ? fp::add(myp[ax][0], c0) : c0;
-        myp[ax][1] = l ? fp::add(myp[ax][1], c1) : c1;
+        const auto e = Arith<T>::mul(yv[ax], pwy[ax * L + l]);
+        const auto c0 = Arith<T>::mul(yv[ax], pmy[(ax * 2 + 0) * L + l]);
+        const auto c1 = Arith<T>::mul(yv[ax], pmy[(ax * 2 + 1) * L + l]);
+        eypA[ax] = l ? Arith<T>::add(eypA[ax], e) : e;
+        mypA[ax][0] = l ? Arith<T>::add(mypA[ax][0], c0) : c0;
+        mypA[ax][1] = l ? Arith<T>::add(mypA[ax][1], c1) : c1;
       }
     }
+    for (int ax = 0; ax < 2; ++ax) {
+      eyp[ax] = Arith<T>::fin(eypA[ax]);
+      myp[ax][0] = Arith<T>::fin(mypA[ax][0]);
+      myp[ax][1] = Arith<T>::fin(mypA[ax][1]);
+    }
   } else {
-    pos[0] = fp::add(fp::mul(a.lpf_a, w[L - 2].x), fp::mul(a.lpf_b, w[L - 1].x));
-    pos[1] = fp::add(fp::mul(a.lpf_a, w[L - 2].y), fp::mul(a.lpf_b, w[L - 1].y));
+    pos[0] = Arith<T>::lpf(a.lpf_a, w[L - 2].x, a.lpf_b, w[L - 1].x);
+    pos[1] = Arith<T>::lpf(a.lpf_a, w[L - 2].y, a.lpf_b, w[L - 1].y);
   }
   // chained passes, run as detections ask for them: detection d reads pass
   // ordinal[d] = (updates of slot k at or before d) - 1
@@ -762,24 +865,24 @@ __device__ __forceinline__ void slot_step(const TrackArgs<T>& a, const Weights<T
       if constexpr (kIhgp) {  // the position pass; the velocity pass chains on its carry
         const T *pwm = wt.pwm, *pmm = wt.pmm;
         for (int ax = 0; ax < 2; ++ax) {
-          const T em = fp::add(fp::mul(m[ax][0], pwm[2 * ax]), fp::mul(m[ax][1], pwm[2 * ax + 1]));
+          const T em = Arith<T>::dot2(m[ax][0], pwm[2 * ax], m[ax][1], pwm[2 * ax + 1]);
           pos[ax] = fp::add(fp::add(eyp[ax], em), pmean[ax]);
           for (int tt = 0; tt < 2; ++tt) {
-            mn[ax][tt] = fp::add(myp[ax][tt], fp::add(fp::mul(m[ax][0], pmm[(ax * 2 + tt) * 2]),
-                                                      fp::mul(m[ax][1], pmm[(ax * 2 + tt) * 2 + 1])));
+            mn[ax][tt] = fp::add(myp[ax][tt], Arith<T>::dot2(m[ax][0], pmm[(ax * 2 + tt) * 2],
+                                                             m[ax][1], pmm[(ax * 2 + tt) * 2 + 1]));
           }
         }
         for (int q = 0; q < 4; ++q) m[q >> 1][q & 1] = mn[q >> 1][q & 1];
       }
       for (int ax = 0; ax < 2; ++ax) {
-        const T em = fp::add(fp::mul(m[ax][0], wm[2 * ax]), fp::mul(m[ax][1], wm[2 * ax + 1]));
+        const T em = Arith<T>::dot2(m[ax][0], wm[2 * ax], m[ax][1], wm[2 * ax + 1]);
         T v = fp::add(fp::add(ey[ax], em), vmean[ax]);
         // clamp, NaN-preserving like the C++ if-chain (cpp:649-654)
         v = v > a.vmax ? a.vmax : (v < -a.vmax ? -a.vmax : v);
         vel[ax] = v;
         for (int tt = 0; tt < 2; ++tt) {
-          mn[ax][tt] = fp::add(myv[ax][tt], fp::add(fp::mul(m[ax][0], mm[(ax * 2 + tt) * 2]),
-                                                    fp::mul(m[ax][1], mm[(ax * 2 + tt) * 2 + 1])));
+          mn[ax][tt] = fp::add(myv[ax][tt], Arith<T>::dot2(m[ax][0], mm[(ax * 2 + tt) * 2],
+                                                           m[ax][1], mm[(ax * 2 + tt) * 2 + 1]));
         }
       }
       for (int q = 0; q < 4; ++q) m[q >> 1][q & 1] = mn[q >> 1][q & 1];
@@ -922,41 +1025,48 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs<T> a) {
         // the LPF position: once per frame, ascending in the window index
         // (each row read once per pass, both axes together; unrolled so
         // the row loads overlap)
-        T vmean[2], ey[2], myv[2][2], sum[2];
+        T vmean[2], ey[2], myv[2][2];
+        typename Arith<T>::A sum[2], eyA[2], myvA[2][2];
         XY<T> prev = {w[0].x, w[0].y};
 #pragma unroll 8
         for (int l = 0; l < L1; ++l) {
           const V4<T> cur = w[l + 1];
-          const T vx = fp::div(fp::sub(cur.x, prev.x), a.dt);
-          const T vy = fp::div(fp::sub(cur.y, prev.y), a.dt);
-          sum[0] = l ? fp::add(sum[0], vx) : vx;
-          sum[1] = l ? fp::add(sum[1], vy) : vy;
+          const auto vx = Arith<T>::vel_term(fp::sub(cur.x, prev.x), a.dt);
+          const auto vy = Arith<T>::vel_term(fp::sub(cur.y, prev.y), a.dt);
+          sum[0] = l ? Arith<T>::add(sum[0], vx) : vx;
+          sum[1] = l ? Arith<T>::add(sum[1], vy) : vy;
           prev = XY<T>{cur.x, cur.y};
         }
-        vmean[0] = fp::div(sum[0], (T)L1);
-        vmean[1] = fp::div(sum[1], (T)L1);
+        vmean[0] = Arith<T>::mean(sum[0], L1);
+        vmean[1] = Arith<T>::mean(sum[1], L1);
         prev = XY<T>{w[0].x, w[0].y};
 #pragma unroll 8
         for (int l = 0; l < L1; ++l) {
           const V4<T> cur = w[l + 1];
           const T yv[2] = {
-              fp::sub(fp::div(fp::sub(cur.x, prev.x), a.dt), vmean[0]),
-              fp::sub(fp::div(fp::sub(cur.y, prev.y), a.dt), vmean[1])};
+              Arith<T>::centred(fp::sub(cur.x, prev.x), a.dt, vmean[0]),
+              Arith<T>::centred(fp::sub(cur.y, prev.y), a.dt, vmean[1])};
           prev = XY<T>{cur.x, cur.y};
 #pragma unroll
           for (int ax = 0; ax < 2; ++ax) {
-            const T e = fp::mul(yv[ax], wy[ax * L1 + l]);
-            const T c0 = fp::mul(yv[ax], my[(ax * 2 + 0) * L1 + l]);
-            const T c1 = fp::mul(yv[ax], my[(ax * 2 + 1) * L1 + l]);
-            ey[ax] = l ? fp::add(ey[ax], e) : e;
-            myv[ax][0] = l ? fp::add(myv[ax][0], c0) : c0;
-            myv[ax][1] = l ? fp::add(myv[ax][1], c1) : c1;
+            const auto e = Arith<T>::mul(yv[ax], wy[ax * L1 + l]);
+            const auto c0 = Arith<T>::mul(yv[ax], my[(ax * 2 + 0) * L1 + l]);
+            const auto c1 = Arith<T>::mul(yv[ax], my[(ax * 2 + 1) * L1 + l]);
+            eyA[ax] = l ? Arith<T>::add(eyA[ax], e) : e;
+            myvA[ax][0] = l ? Arith<T>::add(myvA[ax][0], c0) : c0;
+            myvA[ax][1] = l ? Arith<T>::add(myvA[ax][1], c1) : c1;
           }
+        }
+        for (int ax = 0; ax < 2; ++ax) {
+          ey[ax] = Arith<T>::fin(eyA[ax]);
+          myv[ax][0] = Arith<T>::fin(myvA[ax][0]);
+          myv[ax][1] = Arith<T>::fin(myvA[ax][1]);
         }
         // the position: LPF once per frame, or under ihgp the y-parts of
         // the position smoother (pmean = the last row's xy, y_l = row l's
         // xy less pmean), ascending in l, and a position pass per pass
         T pos[2], pmean[2], eyp[2], myp[2][2];
+        typename Arith<T>::A eypA[2], mypA[2][2];
         if constexpr (kIhgp) {
           pmean[0] = w[L - 1].x;
           pmean[1] = w[L - 1].y;
@@ -966,17 +1076,22 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs<T> a) {
             const T yv[2] = {fp::sub(cur.x, pmean[0]), fp::sub(cur.y, pmean[1])};
 #pragma unroll
             for (int ax = 0; ax < 2; ++ax) {
-              const T e = fp::mul(yv[ax], pwy[ax * L + l]);
-              const T c0 = fp::mul(yv[ax], pmy[(ax * 2 + 0) * L + l]);
-              const T c1 = fp::mul(yv[ax], pmy[(ax * 2 + 1) * L + l]);
-              eyp[ax] = l ? fp::add(eyp[ax], e) : e;
-              myp[ax][0] = l ? fp::add(myp[ax][0], c0) : c0;
-              myp[ax][1] = l ? fp::add(myp[ax][1], c1) : c1;
+              const auto e = Arith<T>::mul(yv[ax], pwy[ax * L + l]);
+              const auto c0 = Arith<T>::mul(yv[ax], pmy[(ax * 2 + 0) * L + l]);
+              const auto c1 = Arith<T>::mul(yv[ax], pmy[(ax * 2 + 1) * L + l]);
+              eypA[ax] = l ? Arith<T>::add(eypA[ax], e) : e;
+              mypA[ax][0] = l ? Arith<T>::add(mypA[ax][0], c0) : c0;
+              mypA[ax][1] = l ? Arith<T>::add(mypA[ax][1], c1) : c1;
             }
           }
+          for (int ax = 0; ax < 2; ++ax) {
+            eyp[ax] = Arith<T>::fin(eypA[ax]);
+            myp[ax][0] = Arith<T>::fin(mypA[ax][0]);
+            myp[ax][1] = Arith<T>::fin(mypA[ax][1]);
+          }
         } else {
-          pos[0] = fp::add(fp::mul(a.lpf_a, w[L - 2].x), fp::mul(a.lpf_b, w[L - 1].x));
-          pos[1] = fp::add(fp::mul(a.lpf_a, w[L - 2].y), fp::mul(a.lpf_b, w[L - 1].y));
+          pos[0] = Arith<T>::lpf(a.lpf_a, w[L - 2].x, a.lpf_b, w[L - 1].x);
+          pos[1] = Arith<T>::lpf(a.lpf_a, w[L - 2].y, a.lpf_b, w[L - 1].y);
         }
         // chained passes, run as detections ask for them: detection d
         // reads pass ordinal[d] = (updates of slot k at or before d) - 1
@@ -990,28 +1105,26 @@ __global__ void __launch_bounds__(kLanes) track_step_kernel(TrackArgs<T> a) {
             T mn[2][2];
             if constexpr (kIhgp) {  // the position pass; the velocity pass chains on its carry
               for (int ax = 0; ax < 2; ++ax) {
-                const T em = fp::add(fp::mul(m[ax][0], pwm[2 * ax]),
-                                     fp::mul(m[ax][1], pwm[2 * ax + 1]));
+                const T em = Arith<T>::dot2(m[ax][0], pwm[2 * ax], m[ax][1], pwm[2 * ax + 1]);
                 pos[ax] = fp::add(fp::add(eyp[ax], em), pmean[ax]);
                 for (int tt = 0; tt < 2; ++tt) {
                   mn[ax][tt] = fp::add(
-                      myp[ax][tt], fp::add(fp::mul(m[ax][0], pmm[(ax * 2 + tt) * 2]),
-                                           fp::mul(m[ax][1], pmm[(ax * 2 + tt) * 2 + 1])));
+                      myp[ax][tt], Arith<T>::dot2(m[ax][0], pmm[(ax * 2 + tt) * 2], m[ax][1],
+                                                  pmm[(ax * 2 + tt) * 2 + 1]));
                 }
               }
               for (int q = 0; q < 4; ++q) m[q >> 1][q & 1] = mn[q >> 1][q & 1];
             }
             for (int ax = 0; ax < 2; ++ax) {
-              const T em = fp::add(fp::mul(m[ax][0], wm[2 * ax]),
-                                   fp::mul(m[ax][1], wm[2 * ax + 1]));
+              const T em = Arith<T>::dot2(m[ax][0], wm[2 * ax], m[ax][1], wm[2 * ax + 1]);
               T v = fp::add(fp::add(ey[ax], em), vmean[ax]);
               // clamp, NaN-preserving like the C++ if-chain (cpp:649-654)
               v = v > a.vmax ? a.vmax : (v < -a.vmax ? -a.vmax : v);
               vel[ax] = v;
               for (int tt = 0; tt < 2; ++tt) {
                 mn[ax][tt] = fp::add(
-                    myv[ax][tt], fp::add(fp::mul(m[ax][0], mm[(ax * 2 + tt) * 2]),
-                                         fp::mul(m[ax][1], mm[(ax * 2 + tt) * 2 + 1])));
+                    myv[ax][tt], Arith<T>::dot2(m[ax][0], mm[(ax * 2 + tt) * 2], m[ax][1],
+                                                mm[(ax * 2 + tt) * 2 + 1]));
               }
             }
             for (int q = 0; q < 4; ++q) m[q >> 1][q & 1] = mn[q >> 1][q & 1];
@@ -1271,7 +1384,7 @@ __device__ void decide_xl(const T* det, const int* dv, int bound, bool allow, T 
     const int id_slot = sc.sel[buf].id;
     const T gap = fp::sub(d3, t_slot);
     const bool do_interp =
-        am && gap > gapthr && fp::sub(fp::rint(fp::div(gap, dt)), T(1)) >= T(1);
+        am && gap > gapthr && fp::sub(fp::rint(Arith<T>::div_dt(gap, dt)), T(1)) >= T(1);
     const bool reg = valid && !am && !bank_full;
     const bool matched = valid && am;
     const bool write = matched || reg;
@@ -1341,7 +1454,7 @@ __device__ void hungarian_decide_xl(const T* det, const int* dv, bool allow, T t
       r.id[own] = st.oid[k];
       r.ok[own] = 1;
       r.interp[own] =
-          (gap > gapthr && fp::sub(fp::rint(fp::div(gap, dt)), T(1)) >= T(1)) ? 1 : 0;
+          (gap > gapthr && fp::sub(fp::rint(Arith<T>::div_dt(gap, dt)), T(1)) >= T(1)) ? 1 : 0;
       st.lx[k] = det[4 * own];
       st.ly[k] = det[4 * own + 1];
       st.lt[k] = t_det;
@@ -1566,9 +1679,11 @@ cudaError_t launch_track(const TrackArgs<T>& a, int B, int threads, size_t smem,
 template <class T, int kLanes>
 cudaError_t launch_track_width(const TrackArgs<T>& a, bool ihgp, bool auction, int B,
                                int threads, size_t smem, cudaStream_t st) {
-  if (auction)
-    return ihgp ? launch_track<T, kLanes, true, true>(a, B, threads, smem, st)
-                : launch_track<T, kLanes, false, true>(a, B, threads, smem, st);
+  if constexpr (!kHalfT<T>) {
+    if (auction)
+      return ihgp ? launch_track<T, kLanes, true, true>(a, B, threads, smem, st)
+                  : launch_track<T, kLanes, false, true>(a, B, threads, smem, st);
+  }
   return ihgp ? launch_track<T, kLanes, true, false>(a, B, threads, smem, st)
               : launch_track<T, kLanes, false, false>(a, B, threads, smem, st);
 }
@@ -1579,8 +1694,11 @@ int track_step(TrackArgs<T>& a, const T* auction_f, int ihgp, int auction, int n
   const int K = a.K, D = a.D, L = a.L;
   if (B < 1 || a.S < 1 || K < 1 || K > kMaxLanes || D < 1 || D > kMaxDets || L < 2)
     return (int)cudaErrorInvalidValue;
-  if (auction && !motl_auction::read_params(auction_f, n_phases, max_iters, &a.au))
+  if constexpr (kHalfT<T>) {
+    if (auction) return (int)cudaErrorInvalidValue;
+  } else if (auction && !motl_auction::read_params(auction_f, n_phases, max_iters, &a.au)) {
     return (int)cudaErrorInvalidValue;
+  }
   const int threads = (K + 31) / 32 * 32;
   const size_t smem = weights_smem<T>(L, ihgp);
   const cudaStream_t st = (cudaStream_t)a.stream;
@@ -1616,14 +1734,19 @@ int track_step_xl(TrackArgs<T>& a, const T* auction_f, int ihgp, int auction, in
                   int max_iters, int B, void* scratch) {
   if (B < 1 || a.S < 1 || a.K < 1 || a.D < 1 || a.L < 2 || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (auction && !motl_auction::read_params(auction_f, n_phases, max_iters, &a.au))
+  if constexpr (kHalfT<T>) {
+    if (auction) return (int)cudaErrorInvalidValue;
+  } else if (auction && !motl_auction::read_params(auction_f, n_phases, max_iters, &a.au)) {
     return (int)cudaErrorInvalidValue;
+  }
   const XlLayout y = xl_layout_for<T>(a.K, a.D, a.L, ihgp, auction);
   unsigned char* sc = static_cast<unsigned char*>(scratch);
   const cudaStream_t st = (cudaStream_t)a.stream;
-  if (auction)
-    return (int)(ihgp ? launch_track_xl<T, true, true>(a, B, sc, y, st)
-                      : launch_track_xl<T, false, true>(a, B, sc, y, st));
+  if constexpr (!kHalfT<T>) {
+    if (auction)
+      return (int)(ihgp ? launch_track_xl<T, true, true>(a, B, sc, y, st)
+                        : launch_track_xl<T, false, true>(a, B, sc, y, st));
+  }
   return (int)(ihgp ? launch_track_xl<T, true, false>(a, B, sc, y, st)
                     : launch_track_xl<T, false, false>(a, B, sc, y, st));
 }
@@ -1734,6 +1857,125 @@ extern "C" int motl_track_step_xl_f64(
                       spin_out, init_out, publish, valid, obj_id, pos, vel, new_track, counts,
                       {}, stream};
   return track_step_xl(a, auction_f, ihgp, auction, n_phases, max_iters, B, scratch);
+}
+
+// The half builds (motl_track_step_bf16 / _f16, K4 xl's motl_track_step_xl_
+// bf16 / _f16; greedy association only, auction != 0 refused): the
+// arguments of motl_track_step, every float array a bf16 / f16 tensor of
+// the build's type, read and written as such, and the seven scalars half
+// values as floats; the arithmetic K4's body spells on HV<H> (fp_half.cuh,
+// which holds a value's bits) and Arith<HV<H>>.
+template <class H, class St = typename H::storage>
+TrackArgs<HV<H>> half_args(
+    const St* dets, const uint8_t* dv, const St* t, const uint8_t* alive_in, const int* oid_in,
+    const int* birth_in, const St* win_in, const St* m0_in, const int* nobj_in,
+    const int* nbirth_in, const int* spin_in, const uint8_t* init_in, const St* wy,
+    const St* wm, const St* my, const St* mm, const St* pwy, const St* pwm, const St* pmy,
+    const St* pmm, int S, int K, int D, int L,
+    float thr, float gapthr, float dt, float vmax, float lpf_a, float lpf_b,
+    float prune_period, int prune_spin, uint8_t* alive_out, int* oid_out, int* birth_out,
+    St* win_out, St* m0_out, int* nobj_out, int* nbirth_out, int* spin_out,
+    uint8_t* init_out, uint8_t* publish, uint8_t* valid, int* obj_id, St* pos, St* vel,
+    uint8_t* new_track, int* counts, void* stream) {
+  using V = HV<H>;
+  auto c = [](const St* p) { return reinterpret_cast<const V*>(p); };
+  auto m = [](St* p) { return reinterpret_cast<V*>(p); };
+  return TrackArgs<V>{c(dets), dv, c(t), alive_in, oid_in, birth_in, c(win_in), c(m0_in),
+                      nobj_in, nbirth_in, spin_in, init_in, c(wy), c(wm), c(my), c(mm), c(pwy),
+                      c(pwm), c(pmy), c(pmm), S, K, D, L, V::raw(thr), V::raw(gapthr),
+                      V::raw(dt), V::raw(vmax), V::raw(lpf_a), V::raw(lpf_b),
+                      V::raw(prune_period), prune_spin, alive_out, oid_out, birth_out,
+                      m(win_out), m(m0_out), nobj_out, nbirth_out, spin_out, init_out,
+                      publish, valid, obj_id, m(pos), m(vel), new_track, counts, {}, stream};
+}
+
+using bf16_t = __nv_bfloat16;
+using f16_t = __half;
+
+extern "C" int motl_track_step_bf16(
+    const bf16_t* dets, const uint8_t* dv, const bf16_t* t, const uint8_t* alive_in,
+    const int* oid_in, const int* birth_in, const bf16_t* win_in, const bf16_t* m0_in,
+    const int* nobj_in, const int* nbirth_in, const int* spin_in, const uint8_t* init_in,
+    const bf16_t* wy, const bf16_t* wm, const bf16_t* my, const bf16_t* mm, const bf16_t* pwy,
+    const bf16_t* pwm, const bf16_t* pmy, const bf16_t* pmm, int ihgp, int auction,
+    const float* auction_f, int n_phases, int max_iters, int B, int S, int K, int D, int L,
+    float thr, float gapthr, float dt, float vmax, float lpf_a, float lpf_b, float prune_period,
+    int prune_spin, uint8_t* alive_out, int* oid_out, int* birth_out, bf16_t* win_out,
+    bf16_t* m0_out, int* nobj_out, int* nbirth_out, int* spin_out, uint8_t* init_out,
+    uint8_t* publish, uint8_t* valid, int* obj_id, bf16_t* pos, bf16_t* vel, uint8_t* new_track,
+    int* counts, void* stream) {
+  auto a = half_args<fp::BF16>(
+      dets, dv, t, alive_in, oid_in, birth_in, win_in, m0_in, nobj_in, nbirth_in, spin_in,
+      init_in, wy, wm, my, mm, pwy, pwm, pmy, pmm, S, K, D, L, thr, gapthr, dt, vmax, lpf_a,
+      lpf_b, prune_period, prune_spin, alive_out, oid_out, birth_out, win_out, m0_out,
+      nobj_out, nbirth_out, spin_out, init_out, publish, valid, obj_id, pos, vel, new_track,
+      counts, stream);
+  return track_step(a, (const HV<fp::BF16>*)nullptr, ihgp, auction, n_phases, max_iters, B);
+}
+
+extern "C" int motl_track_step_f16(
+    const f16_t* dets, const uint8_t* dv, const f16_t* t, const uint8_t* alive_in,
+    const int* oid_in, const int* birth_in, const f16_t* win_in, const f16_t* m0_in,
+    const int* nobj_in, const int* nbirth_in, const int* spin_in, const uint8_t* init_in,
+    const f16_t* wy, const f16_t* wm, const f16_t* my, const f16_t* mm, const f16_t* pwy,
+    const f16_t* pwm, const f16_t* pmy, const f16_t* pmm, int ihgp, int auction,
+    const float* auction_f, int n_phases, int max_iters, int B, int S, int K, int D, int L,
+    float thr, float gapthr, float dt, float vmax, float lpf_a, float lpf_b, float prune_period,
+    int prune_spin, uint8_t* alive_out, int* oid_out, int* birth_out, f16_t* win_out,
+    f16_t* m0_out, int* nobj_out, int* nbirth_out, int* spin_out, uint8_t* init_out,
+    uint8_t* publish, uint8_t* valid, int* obj_id, f16_t* pos, f16_t* vel, uint8_t* new_track,
+    int* counts, void* stream) {
+  auto a = half_args<fp::F16>(
+      dets, dv, t, alive_in, oid_in, birth_in, win_in, m0_in, nobj_in, nbirth_in, spin_in,
+      init_in, wy, wm, my, mm, pwy, pwm, pmy, pmm, S, K, D, L, thr, gapthr, dt, vmax, lpf_a,
+      lpf_b, prune_period, prune_spin, alive_out, oid_out, birth_out, win_out, m0_out,
+      nobj_out, nbirth_out, spin_out, init_out, publish, valid, obj_id, pos, vel, new_track,
+      counts, stream);
+  return track_step(a, (const HV<fp::F16>*)nullptr, ihgp, auction, n_phases, max_iters, B);
+}
+
+extern "C" int motl_track_step_xl_bf16(
+    const bf16_t* dets, const uint8_t* dv, const bf16_t* t, const uint8_t* alive_in,
+    const int* oid_in, const int* birth_in, const bf16_t* win_in, const bf16_t* m0_in,
+    const int* nobj_in, const int* nbirth_in, const int* spin_in, const uint8_t* init_in,
+    const bf16_t* wy, const bf16_t* wm, const bf16_t* my, const bf16_t* mm, const bf16_t* pwy,
+    const bf16_t* pwm, const bf16_t* pmy, const bf16_t* pmm, int ihgp, int auction,
+    const float* auction_f, int n_phases, int max_iters, int B, int S, int K, int D, int L,
+    float thr, float gapthr, float dt, float vmax, float lpf_a, float lpf_b, float prune_period,
+    int prune_spin, uint8_t* alive_out, int* oid_out, int* birth_out, bf16_t* win_out,
+    bf16_t* m0_out, int* nobj_out, int* nbirth_out, int* spin_out, uint8_t* init_out,
+    uint8_t* publish, uint8_t* valid, int* obj_id, bf16_t* pos, bf16_t* vel, uint8_t* new_track,
+    int* counts, void* scratch, void* stream) {
+  auto a = half_args<fp::BF16>(
+      dets, dv, t, alive_in, oid_in, birth_in, win_in, m0_in, nobj_in, nbirth_in, spin_in,
+      init_in, wy, wm, my, mm, pwy, pwm, pmy, pmm, S, K, D, L, thr, gapthr, dt, vmax, lpf_a,
+      lpf_b, prune_period, prune_spin, alive_out, oid_out, birth_out, win_out, m0_out,
+      nobj_out, nbirth_out, spin_out, init_out, publish, valid, obj_id, pos, vel, new_track,
+      counts, stream);
+  return track_step_xl(a, (const HV<fp::BF16>*)nullptr, ihgp, auction, n_phases, max_iters, B,
+                       scratch);
+}
+
+extern "C" int motl_track_step_xl_f16(
+    const f16_t* dets, const uint8_t* dv, const f16_t* t, const uint8_t* alive_in,
+    const int* oid_in, const int* birth_in, const f16_t* win_in, const f16_t* m0_in,
+    const int* nobj_in, const int* nbirth_in, const int* spin_in, const uint8_t* init_in,
+    const f16_t* wy, const f16_t* wm, const f16_t* my, const f16_t* mm, const f16_t* pwy,
+    const f16_t* pwm, const f16_t* pmy, const f16_t* pmm, int ihgp, int auction,
+    const float* auction_f, int n_phases, int max_iters, int B, int S, int K, int D, int L,
+    float thr, float gapthr, float dt, float vmax, float lpf_a, float lpf_b, float prune_period,
+    int prune_spin, uint8_t* alive_out, int* oid_out, int* birth_out, f16_t* win_out,
+    f16_t* m0_out, int* nobj_out, int* nbirth_out, int* spin_out, uint8_t* init_out,
+    uint8_t* publish, uint8_t* valid, int* obj_id, f16_t* pos, f16_t* vel, uint8_t* new_track,
+    int* counts, void* scratch, void* stream) {
+  auto a = half_args<fp::F16>(
+      dets, dv, t, alive_in, oid_in, birth_in, win_in, m0_in, nobj_in, nbirth_in, spin_in,
+      init_in, wy, wm, my, mm, pwy, pwm, pmy, pmm, S, K, D, L, thr, gapthr, dt, vmax, lpf_a,
+      lpf_b, prune_period, prune_spin, alive_out, oid_out, birth_out, win_out, m0_out,
+      nobj_out, nbirth_out, spin_out, init_out, publish, valid, obj_id, pos, vel, new_track,
+      counts, stream);
+  return track_step_xl(a, (const HV<fp::F16>*)nullptr, ihgp, auction, n_phases, max_iters, B,
+                       scratch);
 }
 
 // K4 xl's scratch bytes per bank (out[0]) and whether the Hungarian tables

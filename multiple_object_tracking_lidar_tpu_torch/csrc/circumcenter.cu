@@ -58,6 +58,8 @@
 
 #include <cuda_runtime.h>
 #include <limits.h>
+
+#include "fp_half.cuh"
 #include <math.h>
 #include <stdint.h>
 
@@ -170,6 +172,181 @@ int launch(const T* mpts, const uint8_t* mm, const T* t, int t_div, int C, int P
   return (int)cudaGetLastError();
 }
 
+// K3f's half builds (motl_circumcenter_features_bf16 / _f16): the JAX
+// package's half dtypes run the jnp circumcenter_features_table
+// (ops/centroid.py:121-133, _one_cluster per slot) -- a gram d2, not the
+// pair-stats route -- so these builds are that algorithm, one CTA of
+// kHalfThreads threads per slot, every value a half value held in a float
+// (fp_half.cuh):
+//  1. the member mean: the masked members summed in f32 in lane order (in
+//     windows of 32 lanes past 32, the windows' sums added in order: XLA's
+//     split reduction), rounded, divided by the count rounded to the half
+//     type; the centred members pc rounded per op; sq = ((x^2 + y^2) + z^2)
+//     of pc in f32, rounded once;
+//  2. per row i (a thread each): d2_ij = (sq_i + sq_j) - 2 gram_ij, the gram
+//     an f32 dot rounded once, over the member pairs i < j (-1 elsewhere);
+//     the row's first maximum; then the first row reaching the largest
+//     (jnp.argmax's rule: a NaN counts as the maximum, here and below);
+//  3. the line scan and the determinant per op, under f16 the cross
+//     product, e, f, G and both numerators one FMA each (the first product
+//     of each sum or difference) -- as XLA's compiled f16 tracking step has
+//     them (ops/centroid_cuda.py::circumcenter_features_half_plain, the
+//     plain version these builds equal bit for bit).
+constexpr int kHalfThreads = 256;
+
+template <class H>
+__global__ void __launch_bounds__(kHalfThreads)
+circumcenter_half_kernel(const typename H::storage* __restrict__ mpts,
+                         const uint8_t* __restrict__ mm, const typename H::storage* __restrict__ t,
+                         int t_div, int P, typename H::storage* __restrict__ out) {
+  extern __shared__ __align__(16) float hs[];
+  float* px = hs;             // [P] members
+  float* py = px + P;
+  float* pz = py + P;
+  float* qx = pz + P;         // [P] centred members
+  float* qy = qx + P;
+  float* qz = qy + P;
+  float* sq = qz + P;         // [P]
+  float* rmax = sq + P;       // [P] row maxima
+  int* rarg = reinterpret_cast<int*>(rmax + P);   // [P] their first columns
+  float* lds = rmax + 2 * P;  // [P] line distances, -1 where skipped
+  uint8_t* msk = reinterpret_cast<uint8_t*>(lds + P);
+  __shared__ float s_c[3];
+  __shared__ int s_ijk[3];
+  const int c = blockIdx.x;
+  const typename H::storage* mp = mpts + (size_t)c * P * 3;
+  const uint8_t* m = mm + (size_t)c * P;
+  for (int l = threadIdx.x; l < P; l += kHalfThreads) {
+    px[l] = H::load(mp[3 * l]);
+    py[l] = H::load(mp[3 * l + 1]);
+    pz[l] = H::load(mp[3 * l + 2]);
+    msk[l] = m[l] != 0;
+  }
+  __syncthreads();
+
+  // 1. the mean (three threads, one axis each)
+  if (threadIdx.x < 3) {
+    const float* v = threadIdx.x == 0 ? px : (threadIdx.x == 1 ? py : pz);
+    int cnt = 0;
+    float total = 0.0f;
+    for (int w0 = 0; w0 < P; w0 += 32) {
+      float part = 0.0f;
+      for (int l = w0; l < min(P, w0 + 32); ++l) {
+        const float term = msk[l] ? v[l] : 0.0f * v[l];  // x * 0 keeps x's sign
+        part = l == w0 ? term : __fadd_rn(part, term);
+        cnt += msk[l];
+      }
+      total = w0 == 0 ? part : __fadd_rn(total, part);
+    }
+    const float den = H::rnd((float)max(cnt, 1));
+    s_c[threadIdx.x] = cnt > 0 ? fp::hdiv<H>(H::rnd(total), den) : 0.0f;
+  }
+  __syncthreads();
+  for (int l = threadIdx.x; l < P; l += kHalfThreads) {
+    const bool in = msk[l];
+    const float x = in ? fp::hsub<H>(px[l], s_c[0]) : 0.0f;
+    const float y = in ? fp::hsub<H>(py[l], s_c[1]) : 0.0f;
+    const float z = in ? fp::hsub<H>(pz[l], s_c[2]) : 0.0f;
+    qx[l] = x;
+    qy[l] = y;
+    qz[l] = z;
+    sq[l] = H::rnd(__fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z)));
+  }
+  __syncthreads();
+
+  // 2. each row's first maximum of d2 over its pairs, then the pair
+  for (int i = threadIdx.x; i < P; i += kHalfThreads) {
+    // columns 0..i and unmasked ones hold -1, so the row's first maximum
+    // starts as (-1, column 0) and only a member column past i can raise it
+    float best = -1.0f;
+    int arg = 0;
+    if (msk[i]) {
+      for (int j = i + 1; j < P; ++j) {
+        if (!msk[j]) continue;
+        const float g = H::rnd(__fadd_rn(__fadd_rn(__fmul_rn(qx[i], qx[j]),
+                                                   __fmul_rn(qy[i], qy[j])),
+                                         __fmul_rn(qz[i], qz[j])));
+        const float v = fp::hsub<H>(fp::hadd<H>(sq[i], sq[j]), fp::hmul<H>(2.0f, g));
+        if (!isnan(best) && (isnan(v) || v > best)) {  // argmax: a NaN wins
+          best = v;
+          arg = j;
+        }
+      }
+    }
+    rmax[i] = best;
+    rarg[i] = arg;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int ib = 0;
+    for (int i = 1; i < P; ++i)
+      if (!isnan(rmax[ib]) && (isnan(rmax[i]) || rmax[i] > rmax[ib])) ib = i;
+    s_ijk[0] = ib;
+    s_ijk[1] = rarg[ib];
+  }
+  __syncthreads();
+
+  // 3. the member farthest from the PiPj line in XY
+  const int i_star = s_ijk[0], j_star = s_ijk[1];
+  const float pix = px[i_star], piy = py[i_star], piz = pz[i_star];
+  const float pjx = px[j_star], pjy = py[j_star], pjz = pz[j_star];
+  const float ex = fp::hsub<H>(pjx, pix), ey = fp::hsub<H>(pjy, piy);
+  const float norm = fp::hsqrt<H>(fp::hadd<H>(fp::hmul<H>(ex, ex), fp::hmul<H>(ey, ey)));
+  const float den = fmaxf(norm, H::rnd(1e-30f));  // the JAX clamp, in the half dtype
+  for (int l = threadIdx.x; l < P; l += kHalfThreads) {
+    const float x = px[l], y = py[l], z = pz[l];
+    const bool eq_i = x == pix && y == piy && z == piz;
+    const bool eq_j = x == pjx && y == pjy && z == pjz;
+    float v = -1.0f;
+    if (msk[l] && !eq_i && !eq_j) {
+      const float cross = fabsf(H::madd(ex, fp::hsub<H>(y, piy),
+                                        -fp::hmul<H>(ey, fp::hsub<H>(x, pix))));
+      v = fp::hdiv<H>(cross, den);
+    }
+    lds[l] = v;
+  }
+  __syncthreads();
+
+  // 4. the circumcenter determinant
+  if (threadIdx.x == 0) {
+    int kb = 0;
+    for (int l = 1; l < P; ++l)
+      if (!isnan(lds[kb]) && (isnan(lds[l]) || lds[l] > lds[kb])) kb = l;
+    const float pkx = px[kb], pky = py[kb];
+    const float a = fp::hsub<H>(pjx, pix), b = fp::hsub<H>(pjy, piy);
+    const float cc = fp::hsub<H>(pkx, pix), d = fp::hsub<H>(pky, piy);
+    const float s1 = fp::hadd<H>(pix, pjx), s2 = fp::hadd<H>(piy, pjy);
+    const float s3 = fp::hadd<H>(pix, pkx), s4 = fp::hadd<H>(piy, pky);
+    const float e = H::madd(a, s1, fp::hmul<H>(b, s2));
+    const float f = H::madd(cc, s3, fp::hmul<H>(d, s4));
+    const float g = fp::hmul<H>(2.0f, H::madd(a, fp::hsub<H>(pky, pjy),
+                                              -fp::hmul<H>(b, fp::hsub<H>(pkx, pjx))));
+    const bool collinear = g == 0.0f;
+    const float gs = collinear ? 1.0f : g;
+    const float cx = collinear ? pix : fp::hdiv<H>(H::madd(d, e, -fp::hmul<H>(b, f)), gs);
+    const float cy = collinear ? piy : fp::hdiv<H>(H::madd(a, f, -fp::hmul<H>(cc, e)), gs);
+    typename H::storage* o = out + (size_t)c * 4;
+    o[0] = H::store(cx);
+    o[1] = H::store(cy);
+    o[2] = H::store(0.0f);
+    o[3] = t[c / t_div];
+  }
+}
+
+template <class H>
+int launch_half(const typename H::storage* mpts, const uint8_t* mm,
+                const typename H::storage* t, int t_div, int C, int P,
+                typename H::storage* out, void* stream) {
+  if (C < 1 || P < 1 || t_div < 1 || t == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)P * (10 * sizeof(float) + 1);
+  cudaError_t err = cudaFuncSetAttribute(circumcenter_half_kernel<H>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  circumcenter_half_kernel<H><<<C, kHalfThreads, smem, (cudaStream_t)stream>>>(mpts, mm, t, t_div,
+                                                                              P, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K10: mpts (C, P, 3) f32, mm (C, P) u8 -> out (C, 2) f32 circumcenter [x, y].
@@ -192,4 +369,18 @@ extern "C" int motl_circumcenter_features_f64(const double* mpts, const uint8_t*
                                               const double* t, int C, int P, int t_div,
                                               double* out, void* stream) {
   return launch<double, 4>(mpts, mm, t, t_div, C, P, out, stream);
+}
+
+// K3f's half builds: mpts (C, P, 3), t (C / t_div,) and out (C, 4) bf16
+// (motl_circumcenter_features_bf16) or f16 (_f16), mm (C, P) u8.
+extern "C" int motl_circumcenter_features_bf16(const __nv_bfloat16* mpts, const uint8_t* mm,
+                                               const __nv_bfloat16* t, int C, int P, int t_div,
+                                               __nv_bfloat16* out, void* stream) {
+  return launch_half<fp::BF16>(mpts, mm, t, t_div, C, P, out, stream);
+}
+
+extern "C" int motl_circumcenter_features_f16(const __half* mpts, const uint8_t* mm,
+                                              const __half* t, int C, int P, int t_div,
+                                              __half* out, void* stream) {
+  return launch_half<fp::F16>(mpts, mm, t, t_div, C, P, out, stream);
 }

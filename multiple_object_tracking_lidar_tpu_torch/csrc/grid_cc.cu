@@ -71,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fp_half.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -107,12 +109,56 @@ __device__ __forceinline__ double dist2(const Cent<double>& a, const Cent<double
   return __fma_rn(ddz, ddz, __fma_rn(ddx, ddx, __dmul_rn(ddy, ddy)));
 }
 
+// The f32 / f64 builds' arithmetic (centroid and dist2 above)
 template <class T, class TA>
+struct Exact {
+  using CT = T;
+  static __device__ __forceinline__ Cent<T> cent(const TA* A, int n, int i) {
+    return centroid<T, TA>(A, n, i);
+  }
+  static __device__ __forceinline__ T store(T v) { return v; }
+  static __device__ __forceinline__ bool occupied(TA c) { return c > TA(0); }
+  static __device__ __forceinline__ T d2(const Cent<T>& a, const Cent<T>& b) {
+    return dist2(a, b);
+  }
+  // tol^2: the f32 build's scal[5], the double build's argument
+  static __device__ __forceinline__ T tol2(const float* scal, T arg) {
+    return sizeof(T) == sizeof(float) ? (T)scal[5] : arg;
+  }
+};
+
+// The half builds (motl_grid_cc_bf16 / _f16): the JAX half route's
+// finalize (the half sums and count widened, divided in f32, rounded), its
+// stencil d^2 (each difference and square rounded; under f16 the two
+// multiply-adds XLA contracts, fp_half.cuh), against tol^2 rounded to the
+// half type (the argument); the map transform takes the half centroid
+// widened, as the f32 builds take theirs.
+template <class H>
+struct Half {
+  using S = typename H::storage;
+  using CT = float;
+  static __device__ __forceinline__ Cent<float> cent(const S* A, int n, int i) {
+    const float den = fmaxf(H::load(A[3 * n + i]), 1.0f);
+    return {fp::hdiv<H>(H::load(A[i]), den), fp::hdiv<H>(H::load(A[n + i]), den),
+            fp::hdiv<H>(H::load(A[2 * n + i]), den)};
+  }
+  static __device__ __forceinline__ S store(float v) { return H::store(v); }
+  static __device__ __forceinline__ bool occupied(S c) { return H::load(c) > 0.0f; }
+  static __device__ __forceinline__ float d2(const Cent<float>& a, const Cent<float>& b) {
+    const float dx = fp::hsub<H>(a.x, b.x), dy = fp::hsub<H>(a.y, b.y),
+                dz = fp::hsub<H>(a.z, b.z);
+    return H::madd(dz, dz, H::madd(dx, dx, fp::hmul<H>(dy, dy)));
+  }
+  static __device__ __forceinline__ float tol2(const float*, float arg) { return arg; }
+};
+
+template <class T, class TA, class P>
 __global__ void __launch_bounds__(kThreads)
 grid_cc_kernel(const TA* __restrict__ acc, const int* __restrict__ brow,
                const int* __restrict__ bcol, const int* __restrict__ bits,
                const int* __restrict__ offs, int n_off,
-               const float* __restrict__ scal, T tol2_arg, int gx, int gy, int gz,
+               const float* __restrict__ scal, typename P::CT tol2_arg, int gx, int gy,
+               int gz,
                int kwin, int max_sweeps, int range, unsigned* adj_global,
                T* __restrict__ cent,
                uint8_t* __restrict__ dyn_out, int* __restrict__ lab_out,
@@ -151,16 +197,15 @@ grid_cc_kernel(const TA* __restrict__ acc, const int* __restrict__ brow,
   if (threadIdx.x < 2) s_vote[threadIdx.x] = 0;
   const float ox = scal[0], oy = scal[1], cosv = scal[2], sinv = scal[3],
               invr = scal[4];
-  // tol^2: the f32 build's scal[5], the double build's argument
-  const T tol2 = sizeof(T) == sizeof(float) ? (T)scal[5] : tol2_arg;
+  const typename P::CT tol2 = P::tol2(scal, tol2_arg);
 
   // ---- phase 1: finalize + static drop bit, this CTA's range ------------
   for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
     const TA cnt = A[3 * n + i];
-    const Cent<T> c = centroid<T>(A, n, i);
-    C[i] = c.x;
-    C[n + i] = c.y;
-    C[2 * n + i] = c.z;
+    const auto c = P::cent(A, n, i);
+    C[i] = P::store(c.x);
+    C[n + i] = P::store(c.y);
+    C[2 * n + i] = P::store(c.z);
     // the map transform in f32 (a double centroid rounded once)
     const float xm = __fsub_rn((float)c.x, ox), ym = __fsub_rn((float)c.y, oy);
     const int col = (int)__fmul_rn(__fsub_rn(__fmul_rn(cosv, xm), __fmul_rn(sinv, ym)), invr);
@@ -171,7 +216,7 @@ grid_cc_kernel(const TA* __restrict__ acc, const int* __restrict__ brow,
     q = q < 0 ? 0 : (q > kwin * kwin - 1 ? kwin * kwin - 1 : q);
     const int bit = (int)(((unsigned)bits[i] >> q) & 1u);
     const int drop = in_win ? bit : 1;
-    const bool dyn = cnt > TA(0) && drop == 0;
+    const bool dyn = P::occupied(cnt) && drop == 0;
     dyn_out[(size_t)s * n + i] = dyn ? 1 : 0;
     labB[i - lo] = dyn ? 1 : 0;  // dyn flags, until the sweeps reuse the buffer
     labA[i - lo] = dyn ? i : n;
@@ -183,13 +228,13 @@ grid_cc_kernel(const TA* __restrict__ acc, const int* __restrict__ brow,
     unsigned w[kMaxWords] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
     if (labB[i - lo]) {
       const int x = i % gx, yz = i / gx, y = yz % gy, z = yz / gy;
-      const Cent<T> c = centroid<T>(A, n, i);
+      const auto c = P::cent(A, n, i);
       for (int o = 0; o < n_off; ++o) {
         const int nx = x + s_dx[o], ny = y + s_dy[o], nz = z + s_dz[o];
         if (nx < 0 || nx >= gx || ny < 0 || ny >= gy || nz < 0 || nz >= gz) continue;
         const int j = i + s_shift[o];
         if (!remote(labB, j)) continue;
-        if (dist2(c, centroid<T>(A, n, j)) <= tol2) w[o >> 5] |= 1u << (o & 31);
+        if (P::d2(c, P::cent(A, n, j)) <= tol2) w[o >> 5] |= 1u << (o & 31);
       }
     }
     for (int k = 0; k < n_words; ++k) adj[k * range + (i - lo)] = w[k];
@@ -243,19 +288,20 @@ grid_cc_kernel(const TA* __restrict__ acc, const int* __restrict__ brow,
   cluster.sync();  // no rank leaves while another may read its shared memory
 }
 
-template <class T, class TA>
+template <class T, class TA, class P>
 cudaError_t set_attributes(size_t smem, int cluster) {
   cudaError_t err = cudaFuncSetAttribute(
-      grid_cc_kernel<T, TA>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      grid_cc_kernel<T, TA, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(grid_cc_kernel<T, TA>,
+    err = cudaFuncSetAttribute(grid_cc_kernel<T, TA, P>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return err;
 }
 
-template <class T, class TA = T>
+template <class T, class TA = T, class P = Exact<T, TA>>
 int launch(const TA* acc, const int* brow, const int* bcol, const int* bits, const int* offs,
-           int n_off, const float* scal, T tol2, int S, int gx, int gy, int gz, int kwin,
+           int n_off, const float* scal, typename P::CT tol2, int S, int gx, int gy, int gz,
+           int kwin,
            int max_sweeps, int cluster, unsigned* adj_global, T* cent, uint8_t* dyn,
            int* labels, int* nsw, void* stream) {
   if (n_off > kMaxOffsets || cluster < 1 || cluster > kMaxCluster || S < 1)
@@ -264,7 +310,7 @@ int launch(const TA* acc, const int* brow, const int* bcol, const int* bits, con
   const int n_words = (n_off + 31) >> 5;
   const int range = (n + cluster - 1) / cluster;
   const size_t smem = (size_t)(2 + (adj_global ? 0 : n_words)) * range * sizeof(int);
-  cudaError_t err = set_attributes<T, TA>(smem, cluster);
+  cudaError_t err = set_attributes<T, TA, P>(smem, cluster);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(S * cluster, 1, 1);
@@ -278,7 +324,7 @@ int launch(const TA* acc, const int* brow, const int* bcol, const int* bits, con
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, grid_cc_kernel<T, TA>, acc, brow, bcol, bits, offs, n_off, scal,
+  err = cudaLaunchKernelEx(&cfg, grid_cc_kernel<T, TA, P>, acc, brow, bcol, bits, offs, n_off, scal,
                            tol2, gx, gy, gz, kwin, max_sweeps, range, adj_global, cent, dyn,
                            labels, nsw);
   if (err != cudaSuccess) return (int)err;
@@ -332,12 +378,36 @@ extern "C" int motl_grid_cc_f64_f32sums(const float* acc, const int* brow, const
                                stream);
 }
 
+// The half builds: acc (S, 4, n) and cent (S, 3, n) bf16 (motl_grid_cc_bf16)
+// or f16 (motl_grid_cc_f16), tol2 the half-rounded tol * tol as a float
+// (scal[5] unread); the rest as motl_grid_cc.
+extern "C" int motl_grid_cc_bf16(const __nv_bfloat16* acc, const int* brow, const int* bcol,
+                                 const int* bits, const int* offs, int n_off, const float* scal,
+                                 float tol2, int S, int gx, int gy, int gz, int kwin,
+                                 int max_sweeps, int cluster, unsigned* adj_global,
+                                 __nv_bfloat16* cent, uint8_t* dyn, int* labels, int* nsw,
+                                 void* stream) {
+  return launch<__nv_bfloat16, __nv_bfloat16, Half<fp::BF16>>(
+      acc, brow, bcol, bits, offs, n_off, scal, tol2, S, gx, gy, gz, kwin, max_sweeps, cluster,
+      adj_global, cent, dyn, labels, nsw, stream);
+}
+
+extern "C" int motl_grid_cc_f16(const __half* acc, const int* brow, const int* bcol,
+                                const int* bits, const int* offs, int n_off, const float* scal,
+                                float tol2, int S, int gx, int gy, int gz, int kwin,
+                                int max_sweeps, int cluster, unsigned* adj_global, __half* cent,
+                                uint8_t* dyn, int* labels, int* nsw, void* stream) {
+  return launch<__half, __half, Half<fp::F16>>(acc, brow, bcol, bits, offs, n_off, scal, tol2, S,
+                                               gx, gy, gz, kwin, max_sweeps, cluster, adj_global,
+                                               cent, dyn, labels, nsw, stream);
+}
+
 // The largest cluster (16, 8, 4, 2 or 1 CTAs) of which the card can hold
 // at least one at `smem` bytes of dynamic shared memory per CTA, written
 // to *out (a host int).
 extern "C" int motl_grid_cc_max_cluster(int smem, int* out) {
   for (int c = kMaxCluster; c >= 1; c >>= 1) {
-    cudaError_t err = set_attributes<float, float>((size_t)smem, c);
+    cudaError_t err = set_attributes<float, float, Exact<float, float>>((size_t)smem, c);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(c, 1, 1);
@@ -351,7 +421,8 @@ extern "C" int motl_grid_cc_max_cluster(int smem, int* out) {
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     int n_clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&n_clusters, grid_cc_kernel<float, float>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n_clusters,
+                                         grid_cc_kernel<float, float, Exact<float, float>>, &cfg);
     if (err == cudaSuccess && n_clusters >= 1) {
       *out = c;
       return 0;

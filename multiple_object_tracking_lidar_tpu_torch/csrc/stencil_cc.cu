@@ -67,7 +67,7 @@
 #include <limits.h>
 #include <stdint.h>
 
-#include "fp_rn.cuh"
+#include "fp_half.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -165,11 +165,46 @@ __device__ __forceinline__ bool relax(int i, const Words& wd, int W, bool sweep,
   return v != old;
 }
 
-template <class T>
+// The centroids' arithmetic per storage type S: f32 and f64 compute in
+// their own type (fp_rn.cuh); the half builds (motl_stencil_cc_bf16 /
+// _f16) hold each half value in a float and round every difference and
+// square to the half type, under f16 the two multiply-adds XLA contracts
+// one FMA each (fp_half.cuh) -- the plain version's ops/cluster_pallas.py::
+// fma on half tensors.
+template <class S>
+struct Num {
+  using T = S;
+  static __device__ __forceinline__ T ld(const S* p) { return __ldg(p); }
+  static __device__ __forceinline__ T d2(T ci0, T ci1, T ci2, T cj0, T cj1, T cj2) {
+    const T dx = fp::sub(ci0, cj0), dy = fp::sub(ci1, cj1), dz = fp::sub(ci2, cj2);
+    return fp::fma(dz, dz, fp::fma(dx, dx, fp::mul(dy, dy)));
+  }
+};
+
+template <class H>
+struct NumHalf {
+  using T = float;
+  static __device__ __forceinline__ T ld(const typename H::storage* p) {
+    return H::load(__ldg(p));
+  }
+  static __device__ __forceinline__ T d2(T ci0, T ci1, T ci2, T cj0, T cj1, T cj2) {
+    const T dx = fp::hsub<H>(ci0, cj0), dy = fp::hsub<H>(ci1, cj1), dz = fp::hsub<H>(ci2, cj2);
+    return H::madd(dz, dz, H::madd(dx, dx, fp::hmul<H>(dy, dy)));
+  }
+};
+
+template <>
+struct Num<__nv_bfloat16> : NumHalf<fp::BF16> {};
+template <>
+struct Num<__half> : NumHalf<fp::F16> {};
+
+template <class S>
 __global__ void __launch_bounds__(kThreads)
-stencil_cc_kernel(const T* __restrict__ cent, const uint8_t* __restrict__ dyn, int gx, int gy,
-                  int gz, const int* __restrict__ offsets, int n_off, T tol2, int max_iters,
-                  int sweeps, int jumps, int* labels, int* __restrict__ nsw, int* scratch) {
+stencil_cc_kernel(const S* __restrict__ cent, const uint8_t* __restrict__ dyn, int gx, int gy,
+                  int gz, const int* __restrict__ offsets, int n_off, typename Num<S>::T tol2,
+                  int max_iters, int sweeps, int jumps, int* labels, int* __restrict__ nsw,
+                  int* scratch) {
+  using T = typename Num<S>::T;
   __shared__ int s_dx[kMaxOffsets], s_dy[kMaxOffsets], s_dz[kMaxOffsets], s_delta[kMaxOffsets];
   __shared__ int s_wcnt[kWarps];
   __shared__ int s_count;  // this CTA's dynamic cells
@@ -180,9 +215,9 @@ stencil_cc_kernel(const T* __restrict__ cent, const uint8_t* __restrict__ dyn, i
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = gx * gy * gz;
   const int W = (n_off + 31) / 32;
-  const T* cx = cent + (size_t)f * 3 * n;
-  const T* cy = cx + n;
-  const T* cz = cy + n;
+  const S* cx = cent + (size_t)f * 3 * n;
+  const S* cy = cx + n;
+  const S* cz = cy + n;
   const uint8_t* dv = dyn + (size_t)f * n;
   int* lab_a = labels + (size_t)f * n;
   int* base = scratch + (size_t)f * n * (2 + W);
@@ -251,7 +286,8 @@ stencil_cc_kernel(const T* __restrict__ cent, const uint8_t* __restrict__ dyn, i
   const int p0 = min(nd, (rank * kWarps + warp) * per), p1 = min(nd, p0 + per);
   for (int base = p0; base < p1; base += 32) {
     const int i_l = base + lane < p1 ? __ldcg(list + base + lane) : 0;
-    const T c0_l = __ldg(cx + i_l), c1_l = __ldg(cy + i_l), c2_l = __ldg(cz + i_l);
+    const T c0_l = Num<S>::ld(cx + i_l), c1_l = Num<S>::ld(cy + i_l),
+            c2_l = Num<S>::ld(cz + i_l);
     const int m = min(32, p1 - base);
 #pragma unroll 2
     for (int k = 0; k < m; ++k) {
@@ -270,9 +306,8 @@ stencil_cc_kernel(const T* __restrict__ cent, const uint8_t* __restrict__ dyn, i
                         zz < gz;
         const int j = in ? i + s_delta[oc] : i;
         const bool dj = __ldg(dv + j) != 0;
-        const T dx = fp::sub(ci0, __ldg(cx + j)), dy = fp::sub(ci1, __ldg(cy + j)),
-                dz = fp::sub(ci2, __ldg(cz + j));
-        const T d2 = fp::fma(dz, dz, fp::fma(dx, dx, fp::mul(dy, dy)));
+        const T d2 = Num<S>::d2(ci0, ci1, ci2, Num<S>::ld(cx + j), Num<S>::ld(cy + j),
+                                Num<S>::ld(cz + j));
         if (in && dj && d2 <= tol2) hit |= 1u << w;
       }
 #pragma unroll
@@ -337,8 +372,8 @@ cudaError_t set_attributes(int cluster) {
 
 template <class T>
 int launch(const T* cent, const uint8_t* dyn, int S, int gx, int gy, int gz, const int* offsets,
-           int n_off, T tol2, int max_iters, int sweeps, int jumps, int cluster, int* labels,
-           int* nsw, int* scratch, void* stream) {
+           int n_off, typename Num<T>::T tol2, int max_iters, int sweeps, int jumps,
+           int cluster, int* labels, int* nsw, int* scratch, void* stream) {
   if (S < 1 || gx < 1 || gy < 1 || gz < 1 || n_off < 0 || n_off > kMaxOffsets || max_iters < 0 ||
       sweeps < 0 || jumps < 0 || (n_off > 0 && offsets == nullptr) || scratch == nullptr ||
       cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0)
@@ -384,6 +419,25 @@ extern "C" int motl_stencil_cc(const float* cent, const uint8_t* dyn, int S, int
 // motl_stencil_cc.
 extern "C" int motl_stencil_cc_f64(const double* cent, const uint8_t* dyn, int S, int gx, int gy,
                                    int gz, const int* offsets, int n_off, double tol2,
+                                   int max_iters, int sweeps, int jumps, int cluster, int* labels,
+                                   int* nsw, int* scratch, void* stream) {
+  return launch(cent, dyn, S, gx, gy, gz, offsets, n_off, tol2, max_iters, sweeps, jumps, cluster,
+                labels, nsw, scratch, stream);
+}
+
+// The half builds: cent (S, 3, n) bf16 (motl_stencil_cc_bf16) or f16
+// (motl_stencil_cc_f16), tol2 the half-rounded tol * tol as a float; the
+// rest as motl_stencil_cc.
+extern "C" int motl_stencil_cc_bf16(const __nv_bfloat16* cent, const uint8_t* dyn, int S, int gx,
+                                    int gy, int gz, const int* offsets, int n_off, float tol2,
+                                    int max_iters, int sweeps, int jumps, int cluster,
+                                    int* labels, int* nsw, int* scratch, void* stream) {
+  return launch(cent, dyn, S, gx, gy, gz, offsets, n_off, tol2, max_iters, sweeps, jumps, cluster,
+                labels, nsw, scratch, stream);
+}
+
+extern "C" int motl_stencil_cc_f16(const __half* cent, const uint8_t* dyn, int S, int gx, int gy,
+                                   int gz, const int* offsets, int n_off, float tol2,
                                    int max_iters, int sweeps, int jumps, int cluster, int* labels,
                                    int* nsw, int* scratch, void* stream) {
   return launch(cent, dyn, S, gx, gy, gz, offsets, n_off, tol2, max_iters, sweeps, jumps, cluster,

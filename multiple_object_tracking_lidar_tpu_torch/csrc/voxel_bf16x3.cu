@@ -605,6 +605,24 @@ int launch_points(const T* pts, const uint8_t* mask, int S, int N, int n_tiles, 
   return launch_sorted_sums<1, T>(pts, S, N, n_tiles, n_passes, sc, p.n_cells, out, npts, st);
 }
 
+// The key entries: stage 1 from the given bins (yz * gx + x), then the
+// sums of mode kMode in the points' type T.
+template <int kMode, class T>
+int launch_keys(const T* pts, const int* ix, const int* iyz, const uint8_t* inb, int S, int N,
+                int n_tiles, int n_passes, const Scratch& sc, T* out, int gx, int gyz,
+                void* stream) {
+  if (gx < 1 || gyz < 1 || (long long)gx * gyz > 0x7fffffffLL ||
+      bad_plan(S, N, n_tiles, n_passes, gx * gyz))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  key_idx_kernel<<<dim3(n_tiles, S), kThreads, 0, st>>>(ix, iyz, inb, S, N, n_tiles, n_passes,
+                                                        gx, gyz, sc);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_sorted_sums<kMode, T>(pts, S, N, n_tiles, n_passes, sc, gx * gyz, out, nullptr,
+                                      st);
+}
+
 }  // namespace
 
 // points (S, N, 3) f32, mask (S, N) u8 (nonzero = keep).  Scratch from the
@@ -651,15 +669,30 @@ extern "C" int motl_voxel_bf16x3_keys(
     const float* pts, const int* ix, const int* iyz, const uint8_t* inb, int S, int N,
     int n_tiles, int n_passes, int* keys, int* pairs, int* hist, int* tilecnt, int* cells,
     float* sorted, float* out, int gx, int gyz, void* stream) {
-  if (gx < 1 || gyz < 1 || (long long)gx * gyz > 0x7fffffffLL ||
-      bad_plan(S, N, n_tiles, n_passes, gx * gyz))
-    return (int)cudaErrorInvalidValue;
   const Scratch sc{keys, pairs, hist, tilecnt, cells, sorted};
-  cudaStream_t st = (cudaStream_t)stream;
-  key_idx_kernel<<<dim3(n_tiles, S), kThreads, 0, st>>>(ix, iyz, inb, S, N, n_tiles, n_passes,
-                                                        gx, gyz, sc);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_sorted_sums<0, float>(pts, S, N, n_tiles, n_passes, sc, gx * gyz, out, nullptr,
-                                      st);
+  return launch_keys<0, float>(pts, ix, iyz, inb, S, N, n_tiles, n_passes, sc, out, gx, gyz,
+                               stream);
+}
+
+// K6f's key entry (ops/voxel.py::voxel_downsample_sort's sums, by run): the
+// arguments of motl_voxel_bf16x3_keys, each bin's coordinates summed as
+// mode 1 sums them -- from +0.0, in ascending point index, one rounded f32
+// add at a time -- and its count.
+extern "C" int motl_voxel_sums_keys(
+    const float* pts, const int* ix, const int* iyz, const uint8_t* inb, int S, int N,
+    int n_tiles, int n_passes, int* keys, int* pairs, int* hist, int* tilecnt, int* cells,
+    float* sorted, float* out, int gx, int gyz, void* stream) {
+  const Scratch sc{keys, pairs, hist, tilecnt, cells, sorted};
+  return launch_keys<1, float>(pts, ix, iyz, inb, S, N, n_tiles, n_passes, sc, out, gx, gyz,
+                               stream);
+}
+
+// Its double build: points, sorted and out f64, the sums in f64.
+extern "C" int motl_voxel_sums_keys_f64(
+    const double* pts, const int* ix, const int* iyz, const uint8_t* inb, int S, int N,
+    int n_tiles, int n_passes, int* keys, int* pairs, int* hist, int* tilecnt, int* cells,
+    double* sorted, double* out, int gx, int gyz, void* stream) {
+  const Scratch sc{keys, pairs, hist, tilecnt, cells, sorted};
+  return launch_keys<1, double>(pts, ix, iyz, inb, S, N, n_tiles, n_passes, sc, out, gx, gyz,
+                                stream);
 }

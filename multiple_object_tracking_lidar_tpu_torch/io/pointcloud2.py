@@ -7,10 +7,13 @@ strided records with typed fields at byte offsets.  Decoding produces the
 TPU-side frame contract: a fixed-size ``(n_max, 3) float32`` tensor plus a
 validity mask (padding, never dynamic shapes).
 
+A C++ fast path (native/motl_host.cpp, ``io/native.py``, built from
+source at first use) implements the same decode for the production ingest
+loop; the numpy decode is the reference implementation.
+
 Copy of ``multiple_object_tracking_lidar_tpu.io.pointcloud2`` (the JAX
-package cannot be imported without JAX), minus its optional native decoder:
-the numpy decode is the reference implementation, and
-tests/test_torch_host.py pins this copy against the original.
+package cannot be imported without JAX); tests/test_torch_host.py pins this
+copy against the original.
 """
 
 from __future__ import annotations
@@ -98,12 +101,42 @@ def decode_pointcloud2(
     msg: PointCloud2,
     n_max: int,
     drop_nonfinite: bool = True,
+    use_native: bool = True,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Decode to a padded ``(n_max, 3) float32`` array + ``(n_max,) bool`` mask.
 
     Non-finite points are dropped (PCL's NaN handling for not-dense clouds).
     Overflow beyond ``n_max`` is truncated (reported by the runtime's stats).
+    Uses the native C++ decoder (native/motl_host.cpp) for the canonical
+    float32 XYZ layout, NumPy otherwise (``decode_pointcloud2_named``).
     """
+    pts, mask, _ = decode_pointcloud2_named(msg, n_max, drop_nonfinite, use_native)
+    return pts, mask
+
+
+def decode_pointcloud2_named(
+    msg: PointCloud2,
+    n_max: int,
+    drop_nonfinite: bool = True,
+    use_native: bool = True,
+) -> tuple[np.ndarray, np.ndarray, str]:
+    """``decode_pointcloud2`` and the name of the decoder that ran:
+    "native" or "numpy".  With ``use_native`` the native library is built
+    at first use and a failure to build or load it raises; a layout it does
+    not take (not float32 XYZ, a malformed message) and
+    ``drop_nonfinite=False`` decode with NumPy, as in the JAX package."""
+    if use_native and drop_nonfinite:
+        from multiple_object_tracking_lidar_tpu_torch.io import native as _native
+
+        res = _native.decode_pc2_native(msg, n_max)
+        if res is not None:
+            return res[0], res[1], "native"
+    return (*_decode_numpy(msg, n_max, drop_nonfinite), "numpy")
+
+
+def _decode_numpy(
+    msg: PointCloud2, n_max: int, drop_nonfinite: bool
+) -> tuple[np.ndarray, np.ndarray]:
     n = msg.n_points
     raw = np.frombuffer(msg.data, dtype=np.uint8)
     raw = raw[: n * msg.point_step].reshape(n, msg.point_step)

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from multiple_object_tracking_lidar_tpu_torch.ops.assign_cuda import assoc_scan_plain
+from multiple_object_tracking_lidar_tpu_torch.ops.half import madd
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype, true_div
 from multiple_object_tracking_lidar_tpu_torch.tracker.state import TrackBank
 
@@ -66,7 +67,8 @@ def _interp_backfill(w: torch.Tensor, det: torch.Tensor, dt_gp: float) -> torch.
     interp = torch.cat(
         [
             last[:, None, :3] + jj[..., None] * step_xyz[:, None, :] * keep_xy,
-            (last[:, None, 3] + jj * dt32)[..., None],
+            (madd(jj, dt32, last[:, None, 3].expand_as(jj)) if w.dtype == torch.float16
+             else last[:, None, 3] + jj * dt32)[..., None],   # f16: XLA's contracted FMA
         ],
         dim=2,
     )

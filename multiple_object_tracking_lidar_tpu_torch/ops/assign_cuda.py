@@ -46,10 +46,12 @@ def assoc_scan_plain(
 ):
     """Plain PyTorch version of K4: the same sequential scan, one detection
     per Python iteration (D is at most a few dozen), in the detections'
-    dtype (f32, or f64: K4's double build)."""
+    dtype (f32, or f64: K4's double build; bf16 / f16: its half builds,
+    each op rounded to the half dtype)."""
     k, d = af0.shape[0], dets.shape[0]
     dev = af0.device
-    dt = torch.float64 if dets.dtype == torch.float64 else torch.float32
+    dt = dets.dtype if dets.dtype in (torch.float64, torch.bfloat16, torch.float16) \
+        else torch.float32
     thr32, gapthr, dt32 = _consts(thr, dt_gp, interp_gap_factor, dt)
     af = af0.to(dt).clone()
     ai = ai0.to(torch.int32).clone()

@@ -112,6 +112,34 @@ def circumcenter_features_table_stacked(
     return dets.reshape(s, c, 4)
 
 
+def circumcenter_features_table(
+    mpts: torch.Tensor, member_mask: torch.Tensor, t
+) -> torch.Tensor:
+    """(C, 4) detections of one frame's member table (C, P, 3) (JAX
+    centroid.py:121-135): one K3f launch."""
+    t = torch.as_tensor(t, device=mpts.device).reshape(1)
+    return circumcenter_features_table_stacked(mpts[None], member_mask[None], t)[0]
+
+
+def circumcenter_features(
+    pts: torch.Tensor,
+    members: torch.Tensor,
+    member_mask: torch.Tensor,
+    cluster_valid: torch.Tensor,
+    t,
+    chunk: int = 0,
+) -> torch.Tensor:
+    """(C, 4) [x, y, 0, t] detections of clusters given as member indices
+    (JAX centroid.py:87-118): pts (M, 3), members / member_mask (C, P),
+    cluster_valid (C,) (rows where it is False are garbage, as in JAX).
+    The member points are gathered, then K3f runs on the table.
+    ``chunk`` only splits the JAX program into a sequential map; every
+    value gives the same result, so it is accepted and unused here."""
+    del cluster_valid, chunk
+    mpts = pts[members.to(torch.int64)]
+    return circumcenter_features_table(mpts, member_mask, t)
+
+
 def circumcenter_features_sorted(
     sorted_pts: torch.Tensor,     # (S, M + P, 3) cluster-contiguous points
     starts: torch.Tensor,         # (S, C)

@@ -36,6 +36,7 @@ import collections
 import torch
 
 from multiple_object_tracking_lidar_tpu_torch import _build
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype
 
 
 def column_max_plain(d2: torch.Tensor, pair_ok: torch.Tensor):
@@ -152,23 +153,103 @@ def circumcenter_features_plain(mpts: torch.Tensor, member_mask: torch.Tensor,
                                         tt.repeat_interleave(c // tt.numel()))
 
 
+def _take1(mpts: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    return torch.gather(mpts, 1, i[:, None, None].expand(-1, 1, 3))[:, 0]
+
+
+def circumcenter_features_half_plain(mpts: torch.Tensor, member_mask: torch.Tensor,
+                                     t) -> torch.Tensor:
+    """Plain PyTorch version of K3f's half builds: the JAX package's jnp
+    ``circumcenter_features_table`` (``_one_cluster`` per slot, centroid.py:
+    30-84; the route its half dtypes take) in bf16 or f16, as XLA's CPU
+    code computes it (ops/half.py): the member mean, the squared norms and
+    the gram as f32 sums rounded once, d2 = (sq_i + sq_j) - 2 gram rounded
+    per op, the first maximum in row-major (i, j) order, the line scan and
+    the determinant per op -- under f16 the line's cross product, e, f, G
+    and the two numerators each one f32 FMA rounded once (``madd``)."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.half import madd, sum_f32, sum_f32_windows
+
+    c, p, _ = mpts.shape
+    dt = mpts.dtype
+    tt = _slot_times(t, c, mpts)
+    mm = member_mask.to(torch.bool)
+    cnt = torch.clamp(mm.sum(dim=1), min=1).to(dt)
+    prod = mpts * mm[..., None].to(dt)
+    tot = sum_f32_windows([prod[:, q] for q in range(p)], dt)             # (C, 3)
+    cen = torch.where(mm.any(dim=1)[:, None], tot / cnt[:, None], torch.zeros_like(tot))
+    pc = torch.where(mm[..., None], mpts - cen[:, None, :], torch.zeros_like(mpts))
+    sq = sum_f32([(pc[..., a], pc[..., a]) for a in range(3)], dt)        # (C, P)
+    gram = sum_f32([(pc[:, :, None, a], pc[:, None, :, a]) for a in range(3)], dt)
+    d2 = (sq[:, :, None] + sq[:, None, :]) - 2.0 * gram
+    iu = torch.arange(p, device=mpts.device)
+    pair = mm[:, :, None] & mm[:, None, :] & (iu[:, None] < iu[None, :])
+    d2m = torch.where(pair, d2, torch.full_like(d2, -1.0))
+    row_max = d2m.max(dim=2).values
+    row_arg = _first_max(d2m, 2)
+    i_star = _first_max(row_max, 1)
+    j_star = torch.gather(row_arg, 1, i_star[:, None])[:, 0]
+    pi, pj = _take1(mpts, i_star), _take1(mpts, j_star)
+    pix, piy, pjx, pjy = pi[:, 0:1], pi[:, 1:2], pj[:, 0:1], pj[:, 1:2]
+    xs, ys = mpts[..., 0], mpts[..., 1]
+    ex, ey = pjx - pix, pjy - piy
+    cross = torch.abs(madd(ex, ys - piy, -(ey * (xs - pix))))
+    norm = torch.sqrt(ex * ex + ey * ey)
+    line_d = cross / torch.clamp(norm, min=in_dtype(1e-30, dt))
+    eq_i = (mpts == pi[:, None, :]).all(dim=2)
+    eq_j = (mpts == pj[:, None, :]).all(dim=2)
+    k_mask = mm & ~eq_i & ~eq_j
+    k_star = _first_max(torch.where(k_mask, line_d, torch.full_like(line_d, -1.0)), 1)
+    pk = _take1(mpts, k_star)
+    pix, piy, pjx, pjy, pkx, pky = pi[:, 0], pi[:, 1], pj[:, 0], pj[:, 1], pk[:, 0], pk[:, 1]
+    a, b, cc, d = pjx - pix, pjy - piy, pkx - pix, pky - piy
+    e = madd(a, pix + pjx, b * (piy + pjy))
+    f = madd(cc, pix + pkx, d * (piy + pky))
+    g = 2.0 * madd(a, pky - pjy, -(b * (pkx - pjx)))
+    collinear = g == 0.0
+    g_safe = torch.where(collinear, torch.ones_like(g), g)
+    cx = torch.where(collinear, pix, madd(d, e, -(b * f)) / g_safe)
+    cy = torch.where(collinear, piy, madd(a, f, -(cc * e)) / g_safe)
+    tcol = tt.repeat_interleave(c // tt.numel())
+    return torch.stack([cx, cy, torch.zeros_like(cx), tcol], dim=1)
+
+
+def _first_max(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.argmax``: the first index of the maximum along ``dim``, a NaN
+    counting as the maximum."""
+    n = v.shape[dim]
+    nan = torch.isnan(v)
+    hit = torch.where(nan.any(dim=dim, keepdim=True), nan,
+                      v == v.max(dim=dim, keepdim=True).values)
+    idx = torch.arange(n, device=v.device).reshape([-1 if q == dim % v.dim() else 1
+                                                    for q in range(v.dim())])
+    return torch.where(hit, idx, n).min(dim=dim).values
+
+
 def circumcenter_features(mpts: torch.Tensor, member_mask: torch.Tensor, t) -> torch.Tensor:
     """K3f on CUDA tensors, its plain version on CPU tensors: (C, 4)
     [x, y, 0, t] detections of the member table mpts (C, P, 3), mask
     (C, P), t (C,) per slot (or (S,) per frame of S stacked frames, or a
     scalar), in mpts' dtype: f32, or f64 (the double build,
-    ``motl_circumcenter_features_f64``).  One launch; t is read on the
-    device."""
+    ``motl_circumcenter_features_f64``), or bf16 / f16 (the half builds,
+    ``motl_circumcenter_features_bf16`` / ``_f16``, the JAX jnp route's
+    arithmetic: ``circumcenter_features_half_plain``).  One launch; t is
+    read on the device."""
+    half = mpts.dtype in (torch.bfloat16, torch.float16)
     if mpts.device.type == "cpu":
+        if half:
+            return circumcenter_features_half_plain(mpts, member_mask, t)
         return circumcenter_features_plain(mpts, member_mask, t)
-    c, p = _check_table(mpts, member_mask, (torch.float32, torch.float64))
+    c, p = _check_table(mpts, member_mask,
+                        (torch.float32, torch.float64, torch.bfloat16, torch.float16))
     dev = mpts.device
     mpts = mpts.contiguous()
     mm8 = _build.byte_mask(member_mask)
     tt = _slot_times(t, c, mpts).contiguous()
     out = torch.empty((c, 4), dtype=mpts.dtype, device=dev)
-    entry = ("motl_circumcenter_features_f64" if mpts.dtype == torch.float64
-             else "motl_circumcenter_features")
+    entry = {torch.float64: "motl_circumcenter_features_f64",
+             torch.bfloat16: "motl_circumcenter_features_bf16",
+             torch.float16: "motl_circumcenter_features_f16"}.get(
+                 mpts.dtype, "motl_circumcenter_features")
     err = getattr(_build.load(), entry)(
         mpts.data_ptr(), mm8.data_ptr(), tt.data_ptr(), c, p, c // tt.numel(),
         out.data_ptr(), _build.stream_ptr(dev),

@@ -207,3 +207,33 @@ def cluster_table_grid(
         n_clusters=out(n_clusters),
         n_iters=n_iters,
     )
+
+
+def euclidean_cluster_grid(
+    cent: torch.Tensor,       # (3, n_cells) channel-major
+    dyn: torch.Tensor,        # (n_cells,)
+    dims: tuple[int, int, int],
+    tol: float,
+    leaf_xy: float,
+    leaf_z: float,
+    min_size: int,
+    max_size: int,
+    c_max: int,
+    p_max: int,
+    max_iters: int = 32,
+    sweeps_per_iter: int = 6,
+    jumps_per_iter: int = 2,
+):
+    """PCL-semantics clustering on the dense grid of one frame (JAX
+    cluster_grid.py:380-403): the stencil CC (K14 on CUDA tensors), then the
+    point list's size filter, ordering and member layout
+    (``ops/cluster.py::cluster_postprocess``) over the cells."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.cluster import Clusters, cluster_postprocess
+
+    labels, n_iters, _ = connected_components_grid(
+        cent, dyn, dims, tol, leaf_xy, leaf_z, max_iters, sweeps_per_iter, jumps_per_iter,
+    )
+    c = cluster_postprocess(
+        labels[None], n_iters[None], cent.T[None], dyn[None], min_size, max_size, c_max, p_max,
+    )
+    return Clusters(*(f[0] for f in c))

@@ -138,9 +138,19 @@ def fma64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded fma(a, b, c) in the tensors' dtype (f32 or
-    f64): ``fma32`` or ``fma64``."""
-    return fma64(a, b, c) if a.dtype == torch.float64 else fma32(a, b, c)
+    """fma(a, b, c) in the tensors' dtype, as XLA's jitted CPU code computes
+    the multiply-add it contracts: correctly rounded in f32 and f64
+    (``fma32``, ``fma64``); in f16 the FMA rounded once to f16 (XLA's
+    native f16 FMA; emulated in f64, where the
+    product of two f16 values is exact); in bf16 no contraction at all --
+    XLA rounds the product to bf16, then the sum (ops/half.py)."""
+    if a.dtype == torch.float64:
+        return fma64(a, b, c)
+    if a.dtype == torch.float16:
+        return (a.double() * b.double() + c.double()).to(torch.float16)
+    if a.dtype == torch.bfloat16:
+        return a * b + c
+    return fma32(a, b, c)
 
 
 def _tree_colsum(v: torch.Tensor) -> torch.Tensor:

@@ -39,7 +39,8 @@ from multiple_object_tracking_lidar_tpu_torch.ops.cluster_grid import (
     _stencil_offsets,
     neighbor_index,
 )
-from multiple_object_tracking_lidar_tpu_torch.ops.cluster_pallas import fma64
+from multiple_object_tracking_lidar_tpu_torch.ops.cluster_pallas import fma
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype
 
 SMEM_BYTES = 232448       # what one H100 block may use (227 KB)
 _STATIC_SMEM = 5120       # the kernel's static shared arrays, rounded up
@@ -162,14 +163,20 @@ def fused_finalize_static_cc_stacked_plain(
     n = gx * gy * gz
     s = accs.shape[0]
     dev = accs.device
-    f64 = (dtype or accs.dtype) == torch.float64
+    out_dtype = dtype or accs.dtype
+    f64 = out_dtype == torch.float64
+    # the half builds: the JAX half route's finalize (an f32 division of
+    # the half sums, rounded), its stencil d^2 in the half dtype (ops/
+    # cluster_pallas.py::fma) against tol * tol rounded to it
+    half = out_dtype in (torch.bfloat16, torch.float16)
     if accs.dtype != torch.float64:
         accs = accs.to(torch.float32)
     cnt = accs[:, 3]
-    cent = (accs[:, :3] / torch.clamp(cnt, min=1.0)[:, None, :]).to(dtype or accs.dtype)
+    cent = (accs[:, :3] / torch.clamp(cnt, min=1.0)[:, None, :]).to(out_dtype)
     ox, oy, cosv, sinv, invr, tol2 = (scal[q] for q in range(6))
-    if f64:
-        tol2 = torch.tensor(float(tol) * float(tol), dtype=torch.float64, device=dev)
+    if f64 or half:
+        tol2 = torch.tensor(in_dtype(float(tol) * float(tol), out_dtype), dtype=out_dtype,
+                            device=dev)
     xm = cent[:, 0].to(torch.float32) - ox
     ym = cent[:, 1].to(torch.float32) - oy
     col = ((cosv * xm - sinv * ym) * invr).to(torch.int32)
@@ -191,10 +198,10 @@ def fused_finalize_static_cc_stacked_plain(
     for f in range(s):
         c = cent[f]
         adj = dyn[f][None, :] & valid_nb & dyn[f][nb_c]                  # (O, n)
-        if f64:     # the emulated FMAs on the pairs of dynamic cells alone
+        if f64 or half:     # the emulated FMAs on the pairs of dynamic cells alone
             pair = adj.nonzero(as_tuple=True)
             d = [c[a][pair[1]] - c[a][nb_c[pair]] for a in range(3)]
-            adj[pair] = fma64(d[2], d[2], fma64(d[0], d[0], d[1] * d[1])) <= tol2
+            adj[pair] = fma(d[2], d[2], fma(d[0], d[0], d[1] * d[1])) <= tol2
         else:
             d = [c[a][None, :] - c[a][nb_c] for a in range(3)]
             adj &= ((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]) <= tol2
@@ -217,11 +224,13 @@ def fused_finalize_static_cc_stacked_plain(
 # (accumulator dtype, centroid dtype) -> the C entry
 _BUILDS = {(torch.float32, torch.float32): "motl_grid_cc",
            (torch.float64, torch.float64): "motl_grid_cc_f64",
-           (torch.float32, torch.float64): "motl_grid_cc_f64_f32sums"}
+           (torch.float32, torch.float64): "motl_grid_cc_f64_f32sums",
+           (torch.bfloat16, torch.bfloat16): "motl_grid_cc_bf16",
+           (torch.float16, torch.float16): "motl_grid_cc_f16"}
 
 
 def fused_finalize_static_cc_stacked(
-    accs_cm: torch.Tensor,   # (S, 4, n_cells) f32 or f64 channel-major accumulators
+    accs_cm: torch.Tensor,   # (S, 4, n_cells) f32, f64, bf16 or f16 channel-major sums
     scal: torch.Tensor,      # (6,) f32 (make_scal)
     base_row: torch.Tensor,  # (n_cells,) i32
     base_col: torch.Tensor,
@@ -239,7 +248,9 @@ def fused_finalize_static_cc_stacked(
     """Returns (cent (S, 3, n) of ``dtype`` (by default the accumulators'),
     dyn (S, n) bool, labels (S, n) i32, n_sweeps (S,) i32, saturated (S,)
     i32).  An f64 accumulator launches the double build
-    (``motl_grid_cc_f64``, one launch too); an f32 one with
+    (``motl_grid_cc_f64``, one launch too), a bf16 / f16 one the half
+    build (``motl_grid_cc_bf16`` / ``_f16``: the JAX half route's finalize,
+    static drop and stencil CC); an f32 one with
     ``dtype=torch.float64`` the double build fed f32 sums
     (``motl_grid_cc_f64_f32sums``).  ``max_sweeps=None`` caps the
     iterations at the grid-diameter bound 2 (gx + gy + gz); ``cluster=None`` takes ``cluster_size``'s CTAs
@@ -260,10 +271,10 @@ def fused_finalize_static_cc_stacked(
         cluster = cluster_size(n, len(offsets), dev)
     s = accs_cm.shape[0]
     dt = dtype or accs_cm.dtype
-    if (accs_cm.shape != (s, 4, n) or accs_cm.dtype not in (torch.float32, torch.float64)
-            or dt not in (accs_cm.dtype, torch.float64)):
-        raise ValueError(f"accs must be (S, 4, {n}) float32 or float64 and dtype the same "
-                         f"or float64, got {tuple(accs_cm.shape)} {accs_cm.dtype} -> {dt}")
+    if (accs_cm.shape != (s, 4, n) or (accs_cm.dtype, dt) not in _BUILDS):
+        raise ValueError(f"accs must be (S, 4, {n}) float32, float64, bfloat16 or float16 and "
+                         f"dtype the same (or float64 on float32 sums), got "
+                         f"{tuple(accs_cm.shape)} {accs_cm.dtype} -> {dt}")
     for name, t in (("base_row", base_row), ("base_col", base_col), ("bits", bits)):
         if t.shape != (n,) or t.dtype != torch.int32 or t.device != dev:
             raise ValueError(f"{name} must be ({n},) int32 on {dev}")
@@ -291,7 +302,8 @@ def fused_finalize_static_cc_stacked(
                torch.empty((s * cluster * n_words * rng,), dtype=torch.int32, device=dev))
     lib = _build.load()
     entry = _BUILDS[accs_cm.dtype, dt]
-    tol2 = (float(tol) * float(tol),) if dt == torch.float64 else ()
+    tol2 = ((in_dtype(float(tol) * float(tol), dt),)
+            if dt in (torch.float64, torch.bfloat16, torch.float16) else ())
     err = getattr(lib, entry)(
         accs_cm.data_ptr(), *(t.data_ptr() for t in ins),
         offs.data_ptr(), len(offsets), scal.data_ptr(), *tol2, s, gx, gy, gz, kwin,

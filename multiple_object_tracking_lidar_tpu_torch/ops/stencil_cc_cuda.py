@@ -170,12 +170,19 @@ def stencil_cc_plain(cent, dyn, dims, offsets, tol2, max_iters, sweeps_per_iter,
     return labels, it * sweeps_per_iter, saturated
 
 
+_ENTRIES = {torch.float32: "motl_stencil_cc", torch.float64: "motl_stencil_cc_f64",
+            torch.bfloat16: "motl_stencil_cc_bf16", torch.float16: "motl_stencil_cc_f16"}
+
+
 def stencil_cc(cent, dyn, dims, tol, leaf_xy, leaf_z, max_iters, sweeps_per_iter,
                jumps_per_iter, cluster=None):
     """K14 on CUDA tensors, ``stencil_cc_plain`` on CPU tensors: (labels
     (b, n) int32, n_sweeps (b,) int32, saturated (b,) int32) of (b, 3, n)
-    f32 or f64 centroids and (b, n) dynamic flags.  f64 centroids launch
-    the double build (``motl_stencil_cc_f64``), one launch too.
+    f32, f64, bf16 or f16 centroids and (b, n) dynamic flags.  f64
+    centroids launch the double build (``motl_stencil_cc_f64``), bf16 / f16
+    ones the half builds (``motl_stencil_cc_bf16`` / ``_f16``: d^2 in the
+    half dtype, as XLA's CPU code computes the JAX stencil there), one
+    launch each.
     ``cluster`` (1, 2, 4, 8 or 16 CTAs per frame) overrides
     ``cluster_size``'s; every size gives the same outputs."""
     gx, gy, gz = dims
@@ -188,9 +195,9 @@ def stencil_cc(cent, dyn, dims, tol, leaf_xy, leaf_z, max_iters, sweeps_per_iter
                                 jumps_per_iter)
     b = dyn.shape[0]
     dev = cent.device
-    if cent.shape != (b, 3, n) or dt not in (torch.float32, torch.float64) or dyn.shape != (b, n):
-        raise ValueError(f"cent must be ({b}, 3, {n}) float32 or float64 and dyn ({b}, {n}), "
-                         f"got {tuple(cent.shape)} {dt}, {tuple(dyn.shape)}")
+    if cent.shape != (b, 3, n) or dt not in _ENTRIES or dyn.shape != (b, n):
+        raise ValueError(f"cent must be ({b}, 3, {n}) float32, float64, bfloat16 or float16 "
+                         f"and dyn ({b}, {n}), got {tuple(cent.shape)} {dt}, {tuple(dyn.shape)}")
     if len(offsets) > MAX_OFFSETS or dyn.device != dev:
         raise ValueError(f"K14 holds at most {MAX_OFFSETS} stencil offsets (got {len(offsets)}) "
                          f"and dyn on {dev}")
@@ -205,7 +212,7 @@ def stencil_cc(cent, dyn, dims, tol, leaf_xy, leaf_z, max_iters, sweeps_per_iter
         cluster = cluster_size(n, dev)
     if cluster not in (1, 2, 4, 8, 16):
         raise ValueError(f"K14 takes clusters of 1, 2, 4, 8 or 16 CTAs, got {cluster}")
-    entry = "motl_stencil_cc_f64" if dt == torch.float64 else "motl_stencil_cc"
+    entry = _ENTRIES[dt]
     err = getattr(_build.load(), entry)(
         cent.data_ptr(), dv.data_ptr(), b, gx, gy, gz,
         None if offs is None else offs.data_ptr(), len(offsets), tol2, int(max_iters),

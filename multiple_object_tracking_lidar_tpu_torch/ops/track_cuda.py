@@ -59,7 +59,8 @@ from multiple_object_tracking_lidar_tpu_torch.ops.hungarian import (
     hungarian_associate_and_update_plain,
 )
 from multiple_object_tracking_lidar_tpu_torch.ops.hungarian_cuda import auction_params
-from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype, true_div
+from multiple_object_tracking_lidar_tpu_torch.ops.half import is_half, madd, mean_f32, sum_f32
+from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype, recip_f32, true_div
 from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
     TrackBank,
     TrackerState,
@@ -108,19 +109,44 @@ def _asc_sum(terms):
     return acc
 
 
+def _wsum(pairs, dtype):
+    """An einsum's sum of products over its contracted index, ascending: in
+    the dtype for f32 / f64 (the kernel's order); for bf16 / f16 the
+    products and the sum in f32, rounded once, as XLA's CPU dot of half
+    operands (ops/half.py)."""
+    if is_half(dtype):
+        return sum_f32(pairs, dtype)
+    return _asc_sum([a * b for a, b in pairs])
+
+
 def smoother_parts(window: torch.Tensor, w_vel: dict, dt_gp: float):
     """The pass-independent parts of the velocity smoother on a (K, L, 4)
     window: (vmean (K, 2), ey (K, 2) = sum_l y_l Wy[:, -1, l], my (K, 2, 2)
     = sum_l y_l My[:, :, l]), y the mean-centred window velocities
-    (cpp:887-898) -- each sum ascending in l."""
+    (cpp:887-898) -- each sum ascending in l (in f32 for the half dtypes,
+    the mean that sum times f32(1 / n); in bf16 the mean sums the
+    velocities' f32 products before their rounding, and in f16 the
+    centring contracts the velocity's product, as XLA's fusions do)."""
     dt = window.dtype
-    vels = true_div(window[:, 1:, :2] - window[:, :-1, :2], in_dtype(dt_gp, dt))  # (K, L-1, 2)
+    diff = window[:, 1:, :2] - window[:, :-1, :2]
+    vels = true_div(diff, in_dtype(dt_gp, dt))                                  # (K, L-1, 2)
     n = vels.shape[1]
-    vmean = true_div(_asc_sum([vels[:, l] for l in range(n)]), float(n))
-    y = vels - vmean[:, None, :]
+    if dt == torch.bfloat16:
+        # XLA keeps the bf16 velocities' f32 products unrounded in the mean's sum
+        v32 = diff.float() * recip_f32(dt_gp, dt)
+        vmean = mean_f32([v32[:, l] for l in range(n)], dt)
+    elif is_half(dt):
+        vmean = mean_f32([vels[:, l] for l in range(n)], dt)
+    else:
+        vmean = true_div(_asc_sum([vels[:, l] for l in range(n)]), float(n))
+    if dt == torch.float16:
+        # XLA's f16 code contracts the velocity's product into the centring
+        y = madd(diff, in_dtype(1.0 / in_dtype(dt_gp, dt), dt), -vmean[:, None, :])
+    else:
+        y = vels - vmean[:, None, :]
     wy, my_w = w_vel["Wy"][:, -1, :], w_vel["My"]                      # (2, L-1), (2, 2, L-1)
-    ey = _asc_sum([y[:, l] * wy[:, l] for l in range(n)])
-    my = _asc_sum([y[:, l, :, None] * my_w[:, :, l] for l in range(n)])
+    ey = _wsum([(y[:, l], wy[:, l]) for l in range(n)], dt)
+    my = _wsum([(y[:, l, :, None], my_w[:, :, l]) for l in range(n)], dt)
     return vmean, ey, my
 
 
@@ -129,12 +155,13 @@ def position_parts(window: torch.Tensor, w_pos: dict):
     4) window: (pmean (K, 2), the last row's xy; ey (K, 2) = sum_l y_l
     Wy[:, -1, l]; my (K, 2, 2) = sum_l y_l My[:, :, l]), y the window's xy
     less pmean (cpp:835-869) -- each sum ascending in l."""
+    dt = window.dtype
     pmean = window[:, -1, :2]
     y = window[:, :, :2] - pmean[:, None, :]                            # (K, L, 2)
     n = y.shape[1]
     wy, my_w = w_pos["Wy"][:, -1, :], w_pos["My"]                      # (2, L), (2, 2, L)
-    ey = _asc_sum([y[:, l] * wy[:, l] for l in range(n)])
-    my = _asc_sum([y[:, l, :, None] * my_w[:, :, l] for l in range(n)])
+    ey = _wsum([(y[:, l], wy[:, l]) for l in range(n)], dt)
+    my = _wsum([(y[:, l, :, None], my_w[:, :, l]) for l in range(n)], dt)
     return pmean, ey, my
 
 
@@ -142,9 +169,10 @@ def smoother_pass(m: torch.Tensor, ey, my, w: dict):
     """One closed-form smoother pass from the carry m (K, 2, 2) with the
     y-parts given: (eft_last (K, 2), next carry (K, 2, 2)) -- the JAX
     ``ihgp_apply_weights``."""
+    dt = m.dtype
     wm, mm = w["Wm"][:, -1, :], w["Mm"]                                # (2, 2), (2, 2, 2)
-    em = m[:, :, 0] * wm[:, 0] + m[:, :, 1] * wm[:, 1]
-    m_next = my + (m[:, :, None, 0] * mm[:, :, 0] + m[:, :, None, 1] * mm[:, :, 1])
+    em = _wsum([(m[:, :, 0], wm[:, 0]), (m[:, :, 1], wm[:, 1])], dt)
+    m_next = my + _wsum([(m[:, :, None, 0], mm[:, :, 0]), (m[:, :, None, 1], mm[:, :, 1])], dt)
     return ey + em, m_next
 
 
@@ -276,6 +304,10 @@ def track_frames_plain(state, dets, det_valid, t, *, config, gains_xy):
     return stack_states(states), TrackOutputs(*(torch.stack(f) for f in zip(*rows)))
 
 
+_SUFFIX = {torch.float32: "", torch.float64: "_f64", torch.bfloat16: "_bf16",
+           torch.float16: "_f16"}
+
+
 def track_frames(
     state: TrackerState,      # every field with a leading (B,) bank axis
     dets: torch.Tensor,       # (B, S, D, 4) f32
@@ -287,9 +319,11 @@ def track_frames(
 ) -> tuple[TrackerState, TrackOutputs]:
     """K4 on CUDA tensors, ``track_frames_plain`` on CPU tensors.  f64
     tensors (dets, t, the bank's window and m0, the gains) launch the
-    double build (``motl_track_step_f64``), one launch too; a bank past the
+    double build (``motl_track_step_f64``), one launch too; bf16 / f16 ones
+    (greedy association) the half builds (``motl_track_step_bf16`` /
+    ``_f16``), which read and write the half tensors themselves; a bank past the
     narrow builds' ``kernel_fits`` launches K4 xl (``motl_track_step_xl``,
-    ``_xl_f64``)."""
+    ``_xl_f64``, ``_xl_bf16``, ``_xl_f16``)."""
     if dets.device.type == "cpu":
         return track_frames_plain(state, dets, det_valid, t, config=config, gains_xy=gains_xy)
     bank = state.bank
@@ -299,10 +333,9 @@ def track_frames(
     dt = dets.dtype
     if k < 1 or d < 1:
         raise ValueError(f"K4 needs K >= 1 track slots and D >= 1 detections (got {k}, {d})")
-    if (dets.shape != (n_b, n_s, d, 4) or dt not in (torch.float32, torch.float64)
-            or t.shape != (n_b, n_s)):
-        raise ValueError(f"dets must be ({n_b}, {n_s}, {d}, 4) float32 or float64 "
-                         f"and t ({n_b}, {n_s})")
+    if (dets.shape != (n_b, n_s, d, 4) or dt not in _SUFFIX or t.shape != (n_b, n_s)):
+        raise ValueError(f"dets must be ({n_b}, {n_s}, {d}, 4) float32, float64, bfloat16 "
+                         f"or float16 and t ({n_b}, {n_s})")
     if bank.window.shape != (n_b, k, L, 4) or bank.window.dtype != dt or L < 2:
         raise ValueError(f"window must be ({n_b}, {k}, L >= 2, 4) {dt}")
     w, wp = gains_xy["W_vel"], gains_xy["W_pos"]
@@ -310,6 +343,11 @@ def track_frames(
         raise ValueError(f"m0 and the smoother weights must be {dt}, as the detections")
     thr32, gapthr, dt32 = _consts(config.id_threshold, config.dt_gp, config.interp_gap_factor, dt)
     hungarian = config.association == "hungarian"
+    half = dt in (torch.bfloat16, torch.float16)
+    if half and hungarian:
+        raise NotImplementedError(
+            "association='hungarian' under a half dtype is not ported yet (ROADMAP Queue 1, "
+            "item 28's remaining parts)")
     # the auction's parameters as JAX's hungarian_associate_and_update sets
     # them: its eps, max_cost the gate, auction_assign's cap and scale
     au, n_phases = (auction_params(d, EPS, config.id_threshold, dtype=dt) if hungarian
@@ -342,7 +380,7 @@ def track_frames(
         wp["Wy"], wp["Wm"], wp["My"], wp["Mm"])]
     nb = new.bank
     xl = not kernel_fits(k, d)
-    entry = "motl_track_step" + ("_xl" if xl else "") + ("_f64" if dt == torch.float64 else "")
+    entry = "motl_track_step" + ("_xl" if xl else "") + _SUFFIX[dt]
     ihgp = config.position_filter == "ihgp"
     scratch = (torch.empty((n_b * xl_scratch_bytes(k, d, L, dt == torch.float64, ihgp,
                                                    hungarian),), dtype=torch.uint8, device=dev)

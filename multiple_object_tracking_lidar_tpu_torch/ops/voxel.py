@@ -52,17 +52,45 @@ def f32(x: float) -> float:
 
 
 def in_dtype(x: float, dtype: torch.dtype) -> float:
-    """``x`` as a value of ``dtype`` (f32 or f64), as a Python float: the
-    value JAX gives a Python constant meeting an array of that dtype."""
-    return f32(x) if dtype == torch.float32 else float(x)
+    """``x`` as a value of ``dtype`` (f32, f64, bf16 or f16), as a Python
+    float: the value JAX gives a Python constant meeting an array of that
+    dtype (f16 rounded once from f64, as numpy converts; bf16 from the f32
+    value, as ml_dtypes and torch convert)."""
+    if dtype == torch.float64:
+        return float(x)
+    if dtype == torch.float16:
+        return float(np.float16(x))
+    if dtype == torch.bfloat16:
+        # round to nearest even from the f32 value (no torch op: a scalar read
+        # back from a tensor would count as a host sync in a trace)
+        bits = int(np.float32(x).view(np.uint32))
+        if (bits & 0x7F800000) != 0x7F800000:       # finite: round the low 16 bits
+            bits += 0x7FFF + ((bits >> 16) & 1)
+        return float(np.uint32(bits & 0xFFFF0000).view(np.float32))
+    return f32(x)
 
 
 def true_div(x: torch.Tensor, v: float) -> torch.Tensor:
     """``x / v`` by IEEE division on every device.  PyTorch's CUDA divide by
     a Python scalar multiplies by the scalar's rounded reciprocal instead
     (off by an ulp for ~14% of f32 values); a 0-dim tensor on x's device
-    takes the true division, as the CPU and the kernels do."""
+    takes the true division, as the CPU and the kernels do.  In the half
+    dtypes the JAX package's division by a constant is a product: XLA folds
+    ``x / c`` into ``x * (1 / c)``, the reciprocal rounded to f16 in f16,
+    in bf16 an f32 product by the f32 reciprocal (``recip_f32``) rounded
+    once; and so does this (not in f32 and f64)."""
+    if x.dtype == torch.float16:
+        return x * torch.tensor(in_dtype(1.0 / in_dtype(v, x.dtype), x.dtype),
+                                dtype=x.dtype, device=x.device)
+    if x.dtype == torch.bfloat16:
+        return (x.float() * recip_f32(v, x.dtype)).to(x.dtype)
     return x / torch.tensor(v, dtype=x.dtype, device=x.device)
+
+
+def recip_f32(v: float, dtype: torch.dtype) -> float:
+    """1 / v as XLA folds it for ``x / v`` on a bf16 ``x``: the f32
+    quotient of 1 by v rounded to the dtype (bf16 division runs in f32)."""
+    return float(np.float32(1.0) / np.float32(in_dtype(v, dtype)))
 
 
 def _quantize(points: torch.Tensor, leaf_xy: float, leaf_z: float):
@@ -189,3 +217,48 @@ def voxel_downsample_scan(points, mask, scene: SceneBounds, leaf_xy: float, leaf
     out = torch.where(out_mask[..., None], out, 0.0)
     res = (out, out_mask, n_vox.to(torch.int32))
     return tuple(r[0] for r in res) if single else res
+
+
+def voxel_downsample_sort(
+    points: torch.Tensor, mask: torch.Tensor, leaf_xy: float, leaf_z: float, m_max: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Voxel centroid downsample for unbounded scenes (JAX ops/voxel.py:
+    197-241): one (N, 3) frame -> ((m_max, 3) centroids ordered by (iz, iy,
+    ix) ascending, (m_max,) mask, the occupied-cell count), the first m_max
+    cells kept.
+
+    As the JAX function: the quantized points lexsorted (primary iz, then
+    iy, then ix, masked-off rows last; here three stable sorts, least
+    significant key first), the runs of one cell numbered in sorted order,
+    each of the first m_max runs summed in sorted row order.  The sums of
+    the permuted points go through K6f's key entry keyed by run
+    (``voxel_grid_cuda.accumulate_sums_keys``: a run's rows add from +0.0
+    in ascending sorted position, the scatter-add's order; never float
+    atomics).  Memory O(N + m_max), whatever the points' extent."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
+        accumulate_sums_keys,
+    )
+
+    n, dev = points.shape[0], points.device
+    p32 = points.to(torch.float32)
+    v = points if points.dtype == torch.float64 else p32
+    ok = mask.reshape(-1) != 0
+    if n == 0:
+        return (torch.zeros((m_max, 3), dtype=v.dtype, device=dev),
+                torch.zeros(m_max, dtype=torch.bool, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    ix, iy, iz = _quantize(p32, leaf_xy, leaf_z)
+    izk = torch.where(ok, iz, 2**30)
+    perm = torch.arange(n, device=dev)
+    for key in (ix, iy, izk):
+        perm = perm[torch.sort(key[perm], stable=True).indices]
+    ixs, iys, izs, ms = ix[perm], iy[perm], iz[perm], ok[perm]
+    new_seg = torch.ones(n, dtype=torch.bool, device=dev)
+    new_seg[1:] = (ixs[1:] != ixs[:-1]) | (iys[1:] != iys[:-1]) | (izs[1:] != izs[:-1])
+    new_seg &= ms
+    seg = torch.cumsum(new_seg.to(torch.int64), 0) - 1
+    bins = torch.where(ms & (seg < m_max), seg, -1)
+    acc = accumulate_sums_keys(v[perm][None], bins[None], m_max)[0]       # (4, m_max)
+    counts = acc[3]
+    out = (acc[:3] / torch.clamp(counts, min=1.0)).T.contiguous()
+    return out, counts > 0, new_seg.sum().to(torch.int32)

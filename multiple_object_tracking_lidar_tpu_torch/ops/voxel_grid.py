@@ -139,6 +139,31 @@ def voxel_accumulate_onehot_cm(
     return (acc[0], npts[0]) if with_npts else acc[0]
 
 
+def voxel_accumulate_onehot(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    scene: SceneBounds,
+    leaf_xy: float,
+    leaf_z: float,
+    use_pallas: bool | None = None,
+    block: int | None = None,
+) -> torch.Tensor:
+    """The (n_cells, 4) [sum_x, sum_y, sum_z, count] accumulator of one
+    (N, 3) frame by the exact digits (JAX voxel_grid.py:56-73): K5 on CUDA
+    tensors.  ``use_pallas`` and ``block`` pick the JAX package's TPU
+    kernel and its block; every choice gives the same bits, so both are
+    accepted and unused here."""
+    del use_pallas, block
+    return voxel_accumulate_onehot_cm(points, mask, scene, leaf_xy, leaf_z).T
+
+
+def finalize_dense(acc: torch.Tensor):
+    """(n_cells, 4) accumulator -> ((n_cells, 3) centroids, occupancy,
+    occupied count) (JAX voxel_grid.py:2066-2073)."""
+    cent, occ, n = finalize_dense_cm(acc.T)
+    return cent.T, occ, n
+
+
 def finalize_dense_cm(acc_cm: torch.Tensor):
     """(..., 4, n_cells) accumulator -> ((..., 3, n_cells) centroids,
     (..., n_cells) occupancy, (...) occupied count).  No compaction: the

@@ -882,3 +882,64 @@ def accumulate_bf16x3_keys(
 
 
 accumulate_bf16x3_keys.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6f's key entry: f32 (or f64) sums over given bins
+# ---------------------------------------------------------------------------
+def accumulate_sums_keys_plain(points, bins, n_bins: int):
+    """Plain PyTorch version of K6f's key entry: each bin's points summed
+    from +0.0 in ascending point index, one rounded add at a time, in the
+    points' dtype (f32, or f64), and its count; a point whose bin lies
+    outside [0, n_bins) is dropped.  (S, 4, n_bins)."""
+    s = points.shape[0]
+    bins = bins.to(torch.int64)
+    ok = (bins >= 0) & (bins < n_bins)
+    frame = torch.arange(s, device=points.device)[:, None]
+    key = torch.where(ok, frame * n_bins + bins, s * n_bins).reshape(-1)
+    vals = points if points.dtype == torch.float64 else points.to(torch.float32)
+    acc, counts = _sums_in_key_order(vals.reshape(-1, 3), key, s * n_bins,
+                                     lambda v: v[..., None])
+    return _cell_major(acc[..., 0], counts, s)
+
+
+def accumulate_sums_keys(
+    points: torch.Tensor,   # (S, N, 3) f32 or f64
+    bins: torch.Tensor,     # (S, N) int: each point's bin, outside [0, n_bins) = dropped
+    n_bins: int,
+) -> torch.Tensor:
+    """K6f's key entry on CUDA tensors (``motl_voxel_sums_keys``; f64
+    points its double build ``motl_voxel_sums_keys_f64``, counted in
+    ``.launches_by``), its plain version on CPU tensors: (S, 4, n_bins) of
+    the points' dtype, [sum_x, sum_y, sum_z, count], each sum K6f's (its
+    radix sort groups the bins stably, so a bin's points add in ascending
+    point index; no float atomics).  Memory O(N + n_bins)."""
+    if points.device.type == "cpu":
+        return accumulate_sums_keys_plain(points, bins, n_bins)
+    if (points.dim() != 3 or points.shape[2] != 3
+            or points.dtype not in (torch.float32, torch.float64)):
+        raise ValueError(f"K6f keys: points must be (S, N, 3) float32 or float64, got "
+                         f"{tuple(points.shape)} {points.dtype}")
+    s, n = points.shape[0], points.shape[1]
+    if bins.shape != (s, n) or bins.device != points.device:
+        raise ValueError(f"K6f keys: bins must be ({s}, {n}) on {points.device}")
+    dev = points.device
+    points = points.contiguous()
+    b32 = bins.to(torch.int32).contiguous()
+    zero = torch.zeros((s, n), dtype=torch.int32, device=dev)      # iyz: one row of bins
+    inb = torch.ones((s, n), dtype=torch.uint8, device=dev)
+    plan, buf, ptrs, out = _sorted_sums_scratch(s, n, n_bins, dev, points.dtype)
+    entry = ("motl_voxel_sums_keys_f64" if points.dtype == torch.float64
+             else "motl_voxel_sums_keys")
+    err = getattr(_build.load(), entry)(
+        points.data_ptr(), b32.data_ptr(), zero.data_ptr(), inb.data_ptr(), s, n,
+        plan["n_tiles"], plan["passes"], *ptrs, out.data_ptr(), n_bins, 1,
+        _build.stream_ptr(dev),
+    )
+    _build.check(err, entry)
+    _build.count(accumulate_sums_keys, entry, "motl_voxel_sums_keys")
+    return out
+
+
+accumulate_sums_keys.launches = 0                   # the f32 build's
+accumulate_sums_keys.launches_by = collections.Counter()   # by C entry

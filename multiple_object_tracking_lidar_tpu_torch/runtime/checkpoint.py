@@ -19,8 +19,11 @@ from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import resolve_de
 from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
     TrackBank,
     TrackerState,
+    host_numpy,
     state_from_numpy,
 )
+
+_HALF = {torch.bfloat16: "bfloat16", torch.float16: "float16"}
 
 _FIELDS = [
     "alive", "obj_id", "birth_seq", "window", "m0",
@@ -29,10 +32,16 @@ _FIELDS = [
 
 
 def save_state(path: str, state: TrackerState, extra: dict | None = None) -> None:
-    arrays = {f: getattr(state.bank, f).cpu().numpy() for f in TrackBank._fields}
-    arrays.update({f: getattr(state, f).cpu().numpy()
+    """A bf16 / f16 state's window and carry are written widened to f32,
+    and the dtype's name under ``__half__`` (numpy has no bf16 without
+    ml_dtypes); ``load_state`` rounds them back, exactly."""
+    arrays = {f: host_numpy(getattr(state.bank, f)) for f in TrackBank._fields}
+    arrays.update({f: host_numpy(getattr(state, f))
                    for f in TrackerState._fields if f != "bank"})
     arrays["__meta__"] = np.frombuffer(json.dumps(extra or {}).encode(), dtype=np.uint8)
+    dt = state.bank.window.dtype
+    if dt in _HALF:
+        arrays["__half__"] = np.frombuffer(_HALF[dt].encode(), dtype=np.uint8)
     np.savez(path, **arrays)
 
 
@@ -41,6 +50,12 @@ def load_state(path: str, device: torch.device | str = "cuda") -> tuple[TrackerS
     with np.load(path) as z:
         d = {k: z[k] for k in _FIELDS}
         meta = json.loads(bytes(z["__meta__"].tobytes()).decode() or "{}")
+        half = bytes(z["__half__"].tobytes()).decode() if "__half__" in z else None
     state = TrackerState(bank=TrackBank(**{f: d[f] for f in TrackBank._fields}),
                          **{f: d[f] for f in TrackerState._fields if f != "bank"})
-    return state_from_numpy(state, resolve_device(device)), meta
+    state = state_from_numpy(state, resolve_device(device))
+    if half is not None:
+        dt = {v: k for k, v in _HALF.items()}[half]
+        state = state._replace(bank=state.bank._replace(window=state.bank.window.to(dt),
+                                                        m0=state.bank.m0.to(dt)))
+    return state, meta

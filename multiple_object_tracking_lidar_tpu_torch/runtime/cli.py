@@ -60,7 +60,9 @@ def cmd_run(args) -> int:
     cfg = _load_cfg(args)
     grid = load_map_yaml(args.map)
     cfg = _apply_backend(cfg, grid, getattr(args, "backend", "default"))
-    node = TrackerNode(cfg, device=args.device)
+    node = TrackerNode(
+        cfg, device=args.device, use_native=getattr(args, "decoder", "native") == "native"
+    )
     node.on_map(grid)
 
     ckpt = getattr(args, "checkpoint", None)
@@ -150,6 +152,7 @@ def cmd_run(args) -> int:
                 {
                     "summary": {
                         "frames": len(node.stats),
+                        "decoder": node.decoder,
                         "mean_ms": round(float(np.mean(wall)), 3),
                         "p50_ms": round(float(np.percentile(wall, 50)), 3),
                         "p99_ms": round(float(np.percentile(wall, 99)), 3),
@@ -183,7 +186,9 @@ def cmd_tune(args) -> int:
     cfg = _load_cfg(args)
     grid = load_map_yaml(args.map)
     cfg = _apply_backend(cfg, grid, getattr(args, "backend", "default"))
-    node = TrackerNode(cfg, device=args.device)
+    node = TrackerNode(
+        cfg, device=args.device, use_native=getattr(args, "decoder", "native") == "native"
+    )
     node.on_map(grid)
     sc = Scenario(
         grid=grid,
@@ -272,6 +277,13 @@ def main(argv=None) -> int:
         default="cuda",
         help="torch device the tracker runs on (default cuda; 'cpu' runs the "
         "plain PyTorch versions of the kernels)",
+    )
+    pr.add_argument(
+        "--decoder",
+        choices=["native", "numpy"],
+        default="native",
+        help="PointCloud2 decoder: 'native' (native/motl_host.cpp, built with "
+        "g++ at first use; a failed build raises) or 'numpy'",
     )
     pr.set_defaults(fn=cmd_run)
 

@@ -47,7 +47,7 @@ import torch
 from multiple_object_tracking_lidar_tpu_torch.config import TrackerConfig
 from multiple_object_tracking_lidar_tpu_torch.io.pointcloud2 import (
     PointCloud2,
-    decode_pointcloud2,
+    decode_pointcloud2_named,
 )
 from multiple_object_tracking_lidar_tpu_torch.models.learning import learning_step_stacked
 from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import MapEnv, build_static_mask
@@ -60,6 +60,7 @@ from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
     TrackerState,
     gains_from_numpy,
     grow_bank,
+    host_numpy,
 )
 from multiple_object_tracking_lidar_tpu_torch.utils.colors import GlibcRand
 from multiple_object_tracking_lidar_tpu_torch.utils.pgm import OccupancyGrid
@@ -90,9 +91,14 @@ class TrackerNode:
         on_markers: Callable | None = None,
         on_pose: Callable | None = None,
         keep_outputs: bool = False,
+        use_native: bool = True,
     ):
         self.config = config
         self.tracker = Tracker(config, device)
+        # the PointCloud2 decoder the caller chose (``decode_pointcloud2``'s
+        # use_native) and the name of the one that ran last
+        self.use_native = use_native
+        self.decoder: str | None = None
         self.state = self.tracker.init_state()
         self.env: MapEnv | None = None
         self.time_init: float = time.time()  # cpp:74 -- now() at init
@@ -158,7 +164,9 @@ class TrackerNode:
         t = stamp - self.time_init
 
         t0 = time.perf_counter()
-        pts, mask = decode_pointcloud2(msg, self.config.caps.n_max_points)
+        pts, mask, self.decoder = decode_pointcloud2_named(
+            msg, self.config.caps.n_max_points, use_native=self.use_native
+        )
         dev = self.tracker.device
         frame = Frame(
             points=torch.from_numpy(pts).to(dev),
@@ -171,7 +179,7 @@ class TrackerNode:
             self.state, out = self._bound_gstep(self.state, frame, self._gains)
         else:
             self.state, out = self._bound_step(self.state, frame)
-        out = FrameOutput(*(f.cpu().numpy() for f in out))
+        out = FrameOutput(*(host_numpy(f) for f in out))
         wall_ms = 1e3 * (time.perf_counter() - t0)
         if self.keep_outputs:
             self.outputs.append(out)

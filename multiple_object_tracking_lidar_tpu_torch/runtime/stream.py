@@ -36,11 +36,11 @@ import torch
 
 from multiple_object_tracking_lidar_tpu_torch.config import TrackerConfig
 from multiple_object_tracking_lidar_tpu_torch.io import wire
-from multiple_object_tracking_lidar_tpu_torch.io.pointcloud2 import PointCloud2, decode_pointcloud2
+from multiple_object_tracking_lidar_tpu_torch.io.pointcloud2 import PointCloud2, decode_pointcloud2_named
 from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import MapEnv, build_static_mask
 from multiple_object_tracking_lidar_tpu_torch.outputs.messages import build_outputs
 from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
-from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame, FrameOutput
+from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame, FrameOutput, host_numpy
 from multiple_object_tracking_lidar_tpu_torch.utils.colors import GlibcRand
 from multiple_object_tracking_lidar_tpu_torch.utils.pgm import MapInfo, OccupancyGrid
 
@@ -57,9 +57,13 @@ class StreamingNode:
         on_outputs: Callable | None = None,
         depth: int = 2,
         device: torch.device | str = "cuda",
+        use_native: bool = True,
     ):
         self.config = config
         self.tracker = Tracker(config, device)
+        # the PointCloud2 decoder the caller chose and the one that ran last
+        self.use_native = use_native
+        self.decoder: str | None = None
         self.state = self.tracker.init_state()
         self.on_outputs = on_outputs
         self.depth = max(1, int(depth))
@@ -114,7 +118,9 @@ class StreamingNode:
         t = stamp - self.time_init
 
         t0 = time.perf_counter()
-        pts, mask = decode_pointcloud2(msg, self.config.caps.n_max_points)
+        pts, mask, self.decoder = decode_pointcloud2_named(
+            msg, self.config.caps.n_max_points, use_native=self.use_native
+        )
         t1 = time.perf_counter()
         dev = self.tracker.device
         frame = Frame(
@@ -149,7 +155,7 @@ class StreamingNode:
         t0 = time.perf_counter()
         if event is not None:
             event.synchronize()          # waits only until THIS frame's copies land
-        out = FrameOutput(*(f.numpy() for f in out))
+        out = FrameOutput(*(host_numpy(f) for f in out))
         self.drain_ms.append(1e3 * (time.perf_counter() - t0))
         self.frames_out += 1
         if not bool(out.publish):
@@ -184,6 +190,7 @@ class StreamingNode:
 
         return {
             "frames": self.frames_out,
+            "decoder": self.decoder,
             "decode_ms_p50": pct(self.decode_ms, 50),
             "dispatch_ms_p50": pct(self.dispatch_ms, 50),
             "dispatch_ms_p99": pct(self.dispatch_ms, 99),

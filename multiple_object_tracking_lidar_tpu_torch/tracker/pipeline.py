@@ -1,7 +1,8 @@
 """The per-frame tracking step.
 
 Port of ``multiple_object_tracking_lidar_tpu/tracker/pipeline.py`` for f32
-and f64 (every configuration the JAX ``TrackerConfig`` accepts), both
+and f64 (every configuration the JAX ``TrackerConfig`` accepts) and bf16
+and f16 (the dense grid's one-hot configurations), both
 associations (``greedy``, and ``hungarian``, the optimal gated
 assignment) and both position filters (``lpf``, and ``ihgp``, the
 reference's present-but-disabled mode).  The reference's
@@ -46,8 +47,36 @@ scatter sums (``voxel_mode="dense"``) and the exact route's sums are K6f's
 double build, the jnp CC's adjacency K8a's, the dense grid's CC K2's (fed
 K7's f32 sums under ``voxel_mode="runs"``: finalized in f32, then
 widened), the circumcenter K3f's and the track step K4's; the scan and
-the runs' division run in f64 torch.  No stage in either dtype takes a
-plain version of a kernel on the card.  Every
+the runs' division run in f64 torch.
+
+Under ``dtype="bfloat16"`` and ``"float16"`` (the dense grid fed by the
+one-hot accumulator, greedy association, fixed gains: ``check_config``)
+the stages follow the JAX half route as XLA's jitted CPU code computes it
+(read stage by stage from its compiled programs; ``ops/half.py`` spells
+the rules): the points are rounded to the half dtype and widened (JAX
+pipeline.py:846), K1 / K5 sum them in f32 and the sums, counts included,
+are rounded to the half dtype (voxel_grid.py:239: bf16 counts exact to 256,
+f16 to 2,048; f16 sums overflow to inf past 65,504, as in JAX); K2's half
+build (or, without it, the finalize, the static drop and K14's half build)
+divides in f32 and rounds, takes the static drop on the centroid widened
+to f32 (static_mask.py:241), and the stencil's d^2 in the half dtype; the
+cluster table copies half values; K3f's half build is the jnp table route
+(``_one_cluster``: member mean, gram d2, line scan, determinant); K4's half
+build is the whole step in the half dtype.  Each elementwise op computes in
+f32 and rounds once; bf16 contracts no multiply-add, f16 contracts the
+first product of an add or a subtraction of two products into one FMA
+rounded once, where the step's compiled code does (the circumcenter's e,
+f, G and numerators, the cross product, the LPF, the stencil's d^2, a
+window velocity's product into its centring, the backfill's jj * dt); a
+reduction, dot or einsum of half operands (the member mean -- in windows
+of 32 members past 32 --, the squared norms and gram, the smoother's sums)
+accumulates exact f32 products in f32 in ascending index and rounds once;
+a mean is that sum times f32(1 / n) rounded; a division by a constant
+(dt) is the product by its reciprocal (f16: rounded to f16; bf16: the f32
+reciprocal, the product rounded), and bf16's velocity mean sums those
+products before their rounding.  Both dtypes give the JAX package's bits
+end to end (tests/test_torch_half.py, tests/test_torch_half_paths.py).
+No stage in any dtype takes a plain version of a kernel on the card.  Every
 kernel lives in ``ops/*_cuda.py`` or ``ops/cluster_pallas.py``.
 Perception is stateless, so it runs on S stacked frames at once:
 ``bind_env`` is S = 1 and ``bind_env_multi`` perceives its S frames in one
@@ -95,6 +124,7 @@ from multiple_object_tracking_lidar_tpu_torch.ops.grid_cuda import (
     make_scal,
     max_kernel_cells,
 )
+from multiple_object_tracking_lidar_tpu_torch.ops.half import HALF
 from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import (
     CellStaticTable,
     MapEnv,
@@ -132,10 +162,12 @@ from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
     map_state,
 )
 
-# The compute dtypes this package runs, each on every configuration
+# The compute dtypes this package runs: f32 and f64 on every configuration
 # TrackerConfig accepts (it refuses the combinations the JAX package
-# refuses).
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# refuses), bf16 and f16 on the dense grid's one-hot configurations
+# (``check_config``).
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def points_dtype(config: TrackerConfig) -> torch.dtype:
@@ -143,7 +175,12 @@ def points_dtype(config: TrackerConfig) -> torch.dtype:
     as the JAX package casts them (pipeline.py:846, :905, :916), except on
     the fast digits (``voxel_mode="onehot"``, ``voxel_quant="fast"``),
     which quantize and sum the points rounded to f32 in every dtype
-    (voxel_grid.py:187-233), so f32 points give the same bits."""
+    (voxel_grid.py:187-233), so f32 points give the same bits as f64 ones.
+    Under bf16 / f16 the points are rounded to the half dtype first
+    (pipeline.py:846) and then widened, exactly, to f32: the accumulators
+    (K1, K5, K6) take f32 points, as the JAX one-hot routes widen them."""
+    if config.dtype in ("bfloat16", "float16"):
+        return torch.float32
     if config.voxel_mode == "onehot" and config.voxel_quant == "fast":
         return torch.float32
     return _DTYPES[config.dtype]
@@ -164,12 +201,31 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 def check_config(config: TrackerConfig) -> None:
     """NotImplementedError, naming the ROADMAP item, where this package does
-    not run ``config``: a compute dtype other than f32 and f64."""
+    not run ``config``: a compute dtype outside ``_DTYPES``, and under bf16
+    or f16 every configuration but the dense grid fed by the one-hot
+    accumulator (fast or exact digits) with greedy association and fixed
+    gains (ROADMAP item 28's remaining parts)."""
     if config.dtype not in _DTYPES:
         raise NotImplementedError(
             f"dtype={config.dtype!r} is not ported yet: this package runs dtype in "
             f"{tuple(_DTYPES)} (ROADMAP Queue 1: other compute dtypes)"
         )
+    if _DTYPES[config.dtype] not in HALF:
+        return
+    left = [
+        (config.cluster_backend != "grid",
+         f"cluster_backend={config.cluster_backend!r} (the point list: K6f, K8, K8a)"),
+        (config.voxel_mode != "onehot", f"voxel_mode={config.voxel_mode!r} (the runs: K7)"),
+        (config.association != "greedy", "association='hungarian'"),
+        (not config.param_fix, "param_fix=False (the learning step: K13)"),
+    ]
+    for hit, what in left:
+        if hit:
+            raise NotImplementedError(
+                f"dtype={config.dtype!r} runs only on the dense grid fed by the one-hot "
+                f"accumulator with greedy association and fixed gains; {what} under a "
+                "half dtype is not ported yet (ROADMAP Queue 1, item 28's remaining parts)"
+            )
 
 
 class Perception(NamedTuple):
@@ -255,8 +311,11 @@ class Tracker:
     def compute_gains(config: TrackerConfig, log_x, log_y):
         """Host-f64 stationary gains + smoother weights per axis, stacked on
         a leading {x, y} axis as numpy of the compute dtype (the JAX
-        Tracker.compute_gains)."""
-        dtype = np.dtype(config.dtype)
+        Tracker.compute_gains).  Under bf16 / f16 the numpy leaves stay f64
+        (numpy has no bf16 without ml_dtypes, which the card's machine
+        lacks): ``gains_from_numpy`` rounds them once to the half dtype, as
+        JAX's cast from f64 does."""
+        dtype = np.dtype(config.dtype if config.dtype in ("float32", "float64") else "float64")
         gx = stationary_gains(matern32_from_log(*log_x), config.dt_gp)
         gy = stationary_gains(matern32_from_log(*log_y), config.dt_gp)
         ax, ay = gx.as_arrays(dtype), gy.as_arrays(dtype)
@@ -283,8 +342,11 @@ class Tracker:
         dtype, f32 on the fast digits), t in the compute dtype (a caller's
         f64 stamp is not rounded through f32 first)."""
         dev = self.device
+        points = torch.as_tensor(frame.points, device=dev)
+        if self.dtype in HALF:
+            points = points.to(self.dtype)
         return Frame(
-            points=torch.as_tensor(frame.points, dtype=points_dtype(self.config), device=dev),
+            points=points.to(points_dtype(self.config)),
             mask=torch.as_tensor(frame.mask, device=dev),
             t=torch.as_tensor(frame.t, device=dev).to(self.dtype),
         )

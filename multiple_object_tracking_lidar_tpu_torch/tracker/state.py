@@ -135,14 +135,29 @@ _STATE_DTYPES = {
 }
 
 
+_HALF_NP = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
 def _t(a, dtype, device) -> torch.Tensor:
-    return torch.as_tensor(np.array(a), device=device).to(dtype)  # a copy: never aliases
+    a = np.array(a)  # a copy: never aliases
+    if dtype == torch.float16 and a.dtype == np.float64:
+        # numpy rounds f64 to f16 once, as JAX's cast does; torch's cast goes
+        # through f32 (twice rounded)
+        a = a.astype(np.float16)
+    if a.dtype.name in _HALF_NP:
+        # a JAX half array (ml_dtypes' bfloat16 has no torch twin in numpy):
+        # its bits, reinterpreted
+        t = torch.from_numpy(a.view(np.int16)).view(_HALF_NP[a.dtype.name])
+        return t.to(device).to(dtype)
+    return torch.as_tensor(a, device=device).to(dtype)
 
 
 def _float_t(a, device) -> torch.Tensor:
-    """A float leaf in its compute dtype: f64 stays f64, the rest f32."""
+    """A float leaf in its compute dtype: f64, bf16 and f16 stay, the rest
+    f32."""
     a = np.array(a)
-    return _t(a, torch.float64 if a.dtype == np.float64 else torch.float32, device)
+    keep = {"float64": torch.float64, **_HALF_NP}
+    return _t(a, keep.get(a.dtype.name, torch.float32), device)
 
 
 def state_from_numpy(state, device="cpu") -> TrackerState:
@@ -165,12 +180,20 @@ def state_from_numpy(state, device="cpu") -> TrackerState:
     )
 
 
+def host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy; bf16 / f16 widened to f32 (exactly:
+    numpy has no bf16 without ml_dtypes)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype in (torch.bfloat16, torch.float16) else t).numpy()
+
+
 def state_to_numpy(state: TrackerState) -> dict:
     """The inverse: {field: numpy} with the bank's fields nested under
-    "bank", the shape the JAX TrackerState's constructor takes."""
+    "bank", the shape the JAX TrackerState's constructor takes (a half
+    state's floats widened to f32)."""
     return {
-        "bank": {f: getattr(state.bank, f).cpu().numpy() for f in TrackBank._fields},
-        **{f: getattr(state, f).cpu().numpy() for f in TrackerState._fields if f != "bank"},
+        "bank": {f: host_numpy(getattr(state.bank, f)) for f in TrackBank._fields},
+        **{f: host_numpy(getattr(state, f)) for f in TrackerState._fields if f != "bank"},
     }
 
 

@@ -94,7 +94,13 @@ every FrameOutput field stacked over frames:
 - ``track_wide``: the JAX ``track_step`` (jitted) on seeded synthetic frames
   (``bench_cases.track_wide_inputs``) at (K, D) = (2,048, 32) and (64,
   256), greedy and Hungarian, f32 and f64: each case's outputs and final
-  bank under its own key prefix -> ``tests/golden/torch_track_wide.npz``.
+  bank under its own key prefix -> ``tests/golden/torch_track_wide.npz``;
+- ``bf16`` and ``f16``: the headline under ``dtype="bfloat16"`` /
+  ``"float16"`` through ``Tracker.bind_env``, lpf and ihgp (each field under
+  ``lpf/`` or ``ihgp/``, the half fields widened to f32: the card's numpy
+  reads no bf16), 12 frames -> ``tests/golden/torch_{bf16,f16}_headline.npz``;
+  ``cli_bf16`` and ``cli_f16``: the JAX CLI under a config file setting the
+  dtype -> ``tests/golden/torch_cli_{bf16,f16}_headline.json``.
 
 tests/test_torch_golden.py recomputes the first frames and checks them
 against the files.
@@ -139,7 +145,16 @@ GOLDENS = {
     "floor_hungarian": os.path.join(GOLDEN_DIR, "torch_floor_hungarian_headline.npz"),
     "floor_f64": os.path.join(GOLDEN_DIR, "torch_floor_f64_headline.npz"),
     "track_wide": os.path.join(GOLDEN_DIR, "torch_track_wide.npz"),
+    "bf16": os.path.join(GOLDEN_DIR, "torch_bf16_headline.npz"),
+    "f16": os.path.join(GOLDEN_DIR, "torch_f16_headline.npz"),
+    "cli_bf16": os.path.join(GOLDEN_DIR, "torch_cli_bf16_headline.json"),
+    "cli_f16": os.path.join(GOLDEN_DIR, "torch_cli_f16_headline.json"),
 }
+# the half goldens: one file per dtype, a variant per position filter, each
+# field stored as "<variant>/<field>", half arrays widened to f32 (exactly:
+# the card's numpy has no bf16)
+HALF_DTYPES = {"bf16": "bfloat16", "f16": "float16"}
+HALF_VARIANTS = {"lpf": {}, "ihgp": {"position_filter": "ihgp"}}
 FLOOR_FIELDS = {"floor": {}, "floor_hungarian": {"association": "hungarian"},
                 "floor_f64": {"dtype": "float64"}}
 
@@ -148,7 +163,9 @@ CLI_IHGP_CONFIG = "position_filter: ihgp\n"   # the cli_ihgp config file's text
 CLI_CONFIGS = {"cli_ihgp": CLI_IHGP_CONFIG,   # each CLI golden's config file, if any
                "cli_hungarian": "association: hungarian\n",
                "cli_f64": "dtype: float64\n",
-               "cli_f64_default": "dtype: float64\n"}
+               "cli_f64_default": "dtype: float64\n",
+               "cli_bf16": "dtype: bfloat16\n",
+               "cli_f16": "dtype: float16\n"}
 CLI_POINTLIST = ("cli_f64_default",)   # the CLI goldens without --backend grid
 GROWTH_K0 = 2   # the growth golden's initial k_max_tracks
 N_FRAMES = 12
@@ -518,6 +535,40 @@ def track_wide_outputs() -> dict:
     return out
 
 
+def half_outputs(case: str, n_frames: int) -> dict:
+    """The headline through the JAX ``bind_env`` under ``dtype`` bf16 or f16
+    (``case``), one run per position filter: {"<variant>/<field>": (n_frames,
+    ...)}, the half fields widened to f32."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    sys.path.insert(0, REPO)
+    import bench
+    from multiple_object_tracking_lidar_tpu.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu.tracker.state import Frame
+
+    cfg0, env, sc = bench.headline_case()
+    hd = jnp.dtype(HALF_DTYPES[case])
+    out = {}
+    for variant, fields in HALF_VARIANTS.items():
+        cfg = cfg0.replace(dtype=HALF_DTYPES[case], **fields)
+        n = cfg.caps.n_max_points
+        tracker = Tracker(cfg)
+        state = tracker.init_state()
+        step = tracker.bind_env(env, donate_state=False)
+        rows = []
+        for k in range(n_frames):
+            buf, mask, t = _frame(sc, k, n)
+            state, o = step(state, Frame(jnp.asarray(buf), jnp.asarray(mask), jnp.asarray(t, hd)))
+            rows.append(jax.tree.map(np.asarray, o))
+        for f in rows[0]._fields:
+            a = np.stack([getattr(r, f) for r in rows])
+            out[f"{variant}/{f}"] = a.astype(np.float32) if a.dtype == hd else a
+        print(f"{case} {variant}: {n_frames} frames", flush=True)
+    return out
+
+
 def golden_outputs(n_frames: int | None = None, case: str = "slice",
                    n_streams: int = FLEET_STREAMS) -> dict:
     """{field: (n_frames, ...) array} of the JAX FrameOutputs of ``case``
@@ -543,6 +594,8 @@ def golden_outputs(n_frames: int | None = None, case: str = "slice",
         return floor_outputs(case, n_frames_of(case) if n_frames is None else n_frames)
     if case == "track_wide":
         return track_wide_outputs()
+    if case in HALF_DTYPES:
+        return half_outputs(case, n_frames_of(case) if n_frames is None else n_frames)
     cfg, env, sc = bench.dense_case() if case == "dense_hungarian" else bench.headline_case()
     if case in ("default", "f64_default"):
         from multiple_object_tracking_lidar_tpu.config import TrackerConfig

@@ -310,6 +310,33 @@ def test_k6_keys_matches_plain(dev, small):
     assert _bits(got, voxel_grid_cuda.accumulate_bf16x3_keys_plain(*args))
 
 
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k6f_keys_and_sort_downsample_match_plain(dev, small, dtype):
+    """K6f's key entry (f32, and its double build) bit for bit its plain
+    version on the same CUDA tensors (frame 7's NaN points included), bins
+    dropped below 0 and past n_bins; then ``voxel_downsample_sort`` on the
+    card, with a far return, bit for bit the same function on the CPU."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel import voxel_downsample_sort
+
+    _, _, frames = small
+    P = torch.from_numpy(np.stack([f[0] for f in frames])).to(dtype).to(dev)
+    g = torch.Generator().manual_seed(5)
+    bins = torch.randint(-2, 1100, P.shape[:2], generator=g).to(dev)
+    by = voxel_grid_cuda.accumulate_sums_keys.launches_by
+    entry = "motl_voxel_sums_keys" + ("_f64" if dtype == torch.float64 else "")
+    n0 = by[entry]
+    got = voxel_grid_cuda.accumulate_sums_keys(P, bins, 1024)
+    assert by[entry] == n0 + 1
+    assert _bits(got, voxel_grid_cuda.accumulate_sums_keys_plain(P, bins, 1024))
+    pts = P[0].clone()
+    pts[3] = torch.tensor([9.5e5, -8.25e5, 40.0], dtype=dtype)
+    mask = torch.from_numpy(frames[0][1]).to(dev)
+    mask[3] = True
+    got = voxel_downsample_sort(pts, mask, 0.1, 0.1, 4096)
+    want = voxel_downsample_sort(pts.cpu(), mask.cpu(), 0.1, 0.1, 4096)
+    assert all(_bits(a, b) for a, b in zip(got, want))
+
 def test_k1_cm_matches_plain(dev, small):
     cfg, _, frames = small
     P = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
@@ -1628,3 +1655,150 @@ def test_k14_every_cluster_size_matches_plain(dev, dtype):
             got = k14.stencil_cc(C, D, dims, tol, 0.05, 1.0, mi, 2, 2, cluster=cl)
             assert sum(k14.stencil_cc.launches_by.values()) == n0 + 1
             assert all(torch.equal(x, y) for x, y in zip(got, ref)), (cl, mi)
+
+
+# ---------------------------------------------------------------------------
+# dtype="bfloat16" / "float16": K2, K14, K3f, K4 and K4 xl built for half
+# ---------------------------------------------------------------------------
+HALF_CUDA = {"bf16": torch.bfloat16, "f16": torch.float16}
+
+
+@pytest.mark.parametrize("h", ["bf16", "f16"])
+def test_k2_and_k14_half_match_plain(dev, small, h):
+    """K2's half build on K1's sums rounded to the half dtype, then K14's
+    half build on its centroids, every output bit for bit its plain
+    version; one launch each, counted as the half build's."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import stencil_cc_cuda
+
+    cfg, env, frames = small
+    dt = HALF_CUDA[h]
+    P = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev).to(dt).float()
+    M = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
+    accs, _ = voxel_grid_cuda.accumulate_fast_stacked(
+        P, M, cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    accs = accs.to(dt)
+    plan = Tracker(cfg.replace(dtype={"bf16": "bfloat16", "f16": "float16"}[h]), dev).plan(env)
+    tb = (plan.scal, plan.table.base_row, plan.table.base_col, plan.table.bits)
+    kw = dict(dims=plan.dims, tol=cfg.cluster_tolerance, leaf_xy=cfg.voxel_leaf_size,
+              leaf_z=cfg.leaf_z, kwin=plan.table.k)
+    w = grid_cuda.fused_finalize_static_cc_stacked
+    n0 = w.launches_by[f"motl_grid_cc_{h}"]
+    k = w(accs, *tb, **kw)
+    assert w.launches_by[f"motl_grid_cc_{h}"] == n0 + 1 and k[0].dtype == dt
+    p = grid_cuda.fused_finalize_static_cc_stacked_plain(
+        accs.cpu(), *(x.cpu() for x in tb), dims=plan.dims, kwin=plan.table.k,
+        max_sweeps=2 * sum(plan.dims), tol=cfg.cluster_tolerance,
+        offsets=grid_cuda.kernel_offsets(plan.dims, cfg.cluster_tolerance,
+                                         cfg.voxel_leaf_size, cfg.leaf_z))
+    for a, b in zip(k, p):
+        assert _bits(a.float() if a.is_floating_point() else a,
+                     b.float() if b.is_floating_point() else b)
+    caps = cfg.caps
+    args = (plan.dims, cfg.cluster_tolerance, cfg.voxel_leaf_size, cfg.leaf_z,
+            caps.label_prop_iters, caps.grid_sweeps_per_iter, caps.grid_jumps_per_iter)
+    s = stencil_cc_cuda.stencil_cc
+    n0 = s.launches_by[f"motl_stencil_cc_{h}"]
+    got = s(k[0], k[1], *args)
+    assert s.launches_by[f"motl_stencil_cc_{h}"] == n0 + 1
+    want = s(k[0].cpu(), k[1].cpu(), *args)
+    for a, b in zip(got, want):
+        assert _bits(a, b)
+
+
+@pytest.mark.parametrize("h", ["bf16", "f16"])
+@pytest.mark.parametrize("s,c,p", [(1, 32, 384), (8, 32, 64)])
+def test_k3f_half_matches_plain(dev, h, s, c, p):
+    """K3f's half build on half member tables (random clusters, a lattice,
+    a collinear slot, empty slots) bit for bit its plain version
+    (``circumcenter_features_half_plain``)."""
+    dt = HALF_CUDA[h]
+    rng = np.random.default_rng(s * 100 + c + p)
+    mp = rng.normal(0, 1, (s * c, p, 3))
+    mm = np.zeros((s * c, p), bool)
+    for i in range(s * c):
+        mm[i, : int(rng.integers(0, p))] = i % 4 != 3
+    mp[1, :9] = np.stack([0.25 * np.arange(9), 0.5 * np.arange(9), np.zeros(9)], 1)
+    mm[1] = np.arange(p) < 9
+    MP = torch.from_numpy(mp).to(dt).to(dev)
+    MM = torch.from_numpy(mm).to(dev)
+    t = (torch.arange(s, device=dev) * 0.1 + 100.0).to(dt)
+    by = centroid_cuda.circumcenter_features.launches_by
+    n0 = by[f"motl_circumcenter_features_{h}"]
+    got = centroid_cuda.circumcenter_features(MP, MM, t)
+    assert by[f"motl_circumcenter_features_{h}"] == n0 + 1 and got.dtype == dt
+    want = centroid_cuda.circumcenter_features_half_plain(MP.cpu(), MM.cpu(), t.cpu())
+    assert _bits(got.float(), want.float())
+
+
+@pytest.mark.parametrize("h", ["bf16", "f16"])
+@pytest.mark.parametrize("K,B,S,D,pf", [
+    (64, 1, 1, 16, "lpf"), (64, 1, 8, 32, "ihgp"), (64, 8, 1, 16, "lpf"),
+    (1024, 1, 4, 128, "lpf"), (2048, 1, 2, 32, "ihgp")])
+def test_k4_half_matches_plain(dev, small, h, K, B, S, D, pf):
+    """K4's half builds (K4 xl's past 1,024 slots), lpf and ihgp, on half
+    inputs: every state and output field bit for bit the plain version on
+    the CPU; one launch per call."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import map_state
+
+    cfg, _, _ = small
+    dt = HALF_CUDA[h]
+    cfg = cfg.replace(dtype={"bf16": "bfloat16", "f16": "float16"}[h], position_filter=pf)
+    gains = Tracker(cfg, dev).gains_xy
+    st, dets, valid, t = track_scene(K + B + S, cfg, K, D, B, S, (0,), dev)
+    st = st._replace(bank=st.bank._replace(window=st.bank.window.to(dt),
+                                           m0=st.bank.m0.to(dt)))
+    dets, t = dets.to(dt), (t + 100.0).to(dt)
+    entry = "motl_track_step" + ("_xl" if K > 1024 else "") + f"_{h}"
+    by = track_cuda.track_frames.launches_by
+    n0 = by[entry]
+    got = track_cuda.track_frames(st, dets, valid, t, config=cfg, gains_xy=gains)
+    assert by[entry] == n0 + 1 and got[0].bank.window.dtype == dt
+    cpu = lambda x: x.cpu()  # noqa: E731
+    gcpu = {k: ({q: v.cpu() for q, v in w.items()} if isinstance(w, dict) else w.cpu())
+            for k, w in gains.items()}
+    want = track_cuda.track_frames_plain(map_state(cpu, st), dets.cpu(), valid.cpu(), t.cpu(),
+                                         config=cfg, gains_xy=gcpu)
+    assert _same_tree(tuple(map(_widen_canonical, _leaves(got))),
+                      tuple(map(_widen_canonical, _leaves(want))))
+
+
+def _widen_canonical(x: torch.Tensor) -> torch.Tensor:
+    """A half tensor widened to f32 (exactly), every NaN one bit pattern
+    (``_nan_canonical``'s reason: the NaN lane's det * 0)."""
+    x = x.cpu()
+    if x.dtype in (torch.bfloat16, torch.float16):
+        x = x.float()
+    return torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x) \
+        if x.is_floating_point() else x
+
+
+def _leaves(tree):
+    """The tensors of a (TrackerState, TrackOutputs) pair, flattened."""
+    st, out = tree
+    return (*st.bank, *st[1:], *out)
+
+
+@pytest.mark.parametrize("h", ["bf16", "f16"])
+def test_half_slice_gpu_matches_cpu_plain_path(dev, small, h):
+    """``bind_env`` under bf16 / f16 on the card (K1, then K2, K3f and K4's
+    half builds, no other build of them) against the CPU plain path: every
+    field bit for bit."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+
+    cfg, env, frames = small
+    cfg = cfg.replace(dtype={"bf16": "bfloat16", "f16": "float16"}[h])
+    outs = {}
+    for d in ("cpu", dev):
+        tr = Tracker(cfg, d)
+        step, st = tr.bind_env(env), tr.init_state()
+        rows = []
+        for pts, mask, t in frames:
+            st, o = step(st, Frame(torch.from_numpy(pts), torch.from_numpy(mask), torch.tensor(t)))
+            rows.append([_widen_canonical(x) for x in o])
+        outs[str(d)] = rows
+    assert track_cuda.track_frames.launches_by[f"motl_track_step_{h}"] > 0
+    for a, b in zip(outs["cpu"], outs[str(dev)]):
+        for x, y in zip(a, b):
+            assert _bits(x, y)

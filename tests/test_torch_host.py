@@ -356,3 +356,210 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     with open(prof.trace_path, encoding="utf-8") as fh:
         names = {e.get("name") for e in _json.load(fh)["traceEvents"]}
     assert "aten::cumsum" in names
+
+
+# ---- item 25: the rosbridge copy and the native decoder ---------------------
+
+def _rb_modules(pkg):
+    import importlib
+
+    rb = importlib.import_module(pkg + ".io.rosbridge")
+    pc2 = importlib.import_module(pkg + ".io.pointcloud2")
+    msg = importlib.import_module(pkg + ".outputs.messages")
+    return rb, pc2, msg
+
+
+PKGS = ["multiple_object_tracking_lidar_tpu", "multiple_object_tracking_lidar_tpu_torch"]
+
+
+def test_rosbridge_copy_is_the_original():
+    """The copy's source is the original's with the package renamed."""
+    src = {}
+    for pkg in PKGS:
+        path = os.path.join(REPO, pkg, "io", "rosbridge.py")
+        with open(path, encoding="utf-8") as f:
+            src[pkg] = f.read()
+    assert src[PKGS[1]] == src[PKGS[0]].replace(PKGS[0] + ".", PKGS[1] + ".")
+
+
+def _rb_outputs(msgmod, n):
+    ids = list(range(n))
+    pos = np.arange(2 * n, dtype=np.float64).reshape(n, 2) * 0.5
+    vel = np.ones((n, 2)) * 0.31
+    colors = {i: (0.1 * i, 0.2 * i, 0.3 * i, 0.8) for i in ids}
+    return msgmod.build_outputs(12.25, "map", ids, pos, vel, colors)
+
+
+@pytest.mark.parametrize("strict", [False, True])
+def test_rosbridge_schemas_and_republish_match_original(strict):
+    """Every op each package emits for the same frame (obstacles, markers,
+    pose cloud, the advertises and the subscribe), normalised and strict
+    (the reference's republish quirk, cpp:293), is the same JSON."""
+    import json
+
+    ops = []
+    for pkg in PKGS:
+        rb, _, msgmod = _rb_modules(pkg)
+        oa, ma, pm = _rb_outputs(msgmod, 3)
+        ops.append(json.dumps([rb.publish_ops(oa, ma, pm, strict_republish=strict),
+                               rb.advertise_ops(), rb.subscribe_op(),
+                               rb.obstacle_array_to_ros(oa, seq=7),
+                               rb.marker_array_to_ros(ma, oa.stamp, seq=3),
+                               rb.pose_cloud_to_ros(pm, oa.stamp)], sort_keys=True))
+    assert ops[0] == ops[1]
+    n_ob = sum(1 for o in json.loads(ops[1])[0] if o["topic"] == "move_base/TebLocalPlannerROS/obstacles")
+    assert n_ob == (3 if strict else 1)
+
+
+@pytest.mark.parametrize("byte_list", [False, True])
+def test_rosbridge_pointcloud2_round_trip_matches_original(byte_list):
+    import json
+
+    xyz = np.random.default_rng(21).normal(size=(100, 3)).astype(np.float32)
+    got = []
+    for pkg in PKGS:
+        rb, pc2, _ = _rb_modules(pkg)
+        pc = pc2.make_pointcloud2(xyz, stamp=3.5, frame_id="velo", extra_padding=4)
+        msg = rb.pointcloud2_to_ros(pc)
+        json.dumps(msg)
+        if byte_list:
+            msg["data"] = list(pc.data)
+        back = rb.pointcloud2_from_ros(msg)
+        out, mask = pc2.decode_pointcloud2(back, 128, use_native=False)
+        got.append((json.dumps(rb.pointcloud2_to_ros(back), sort_keys=True), out, mask))
+        assert back.stamp == 3.5 and back.frame_id == "velo"
+        np.testing.assert_array_equal(out[:100], xyz)
+    assert got[0][0] == got[1][0]
+    np.testing.assert_array_equal(got[0][1], got[1][1])
+
+
+def test_rosbridge_live_tcp_round_trip_through_the_port_node():
+    """The port's TrackerNode on the CPU behind its RosBridgeClient, over a
+    loopback socket: advertises + subscribe, clouds in, obstacle arrays
+    out, the same records the JAX node publishes for the same clouds."""
+    import json
+    import socket
+    import threading
+
+    from multiple_object_tracking_lidar_tpu.runtime.node import TrackerNode as JNode
+    from multiple_object_tracking_lidar_tpu_torch.io import rosbridge as rb
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+
+    grid = tpgm.load_map_yaml(SIM_MAP)
+    cfg = tcfg.TrackerConfig(voxel_leaf_size=0.1, data_length=10)
+    sc = tscen.Scenario(grid=grid, objects=[
+        tscen.ScenarioObject(x0=-0.5, y0=4.0, vx=0.35, vy=0.0, points_per_frame=40),
+        tscen.ScenarioObject(x0=0.0, y0=1.2, vx=0.0, vy=0.45, points_per_frame=40)],
+        static_points_per_frame=600, clutter_points=16, seed=7)
+    frames = [sc.frame(k) for k in range(4)]
+    node = TrackerNode(cfg, device="cpu")
+    node.on_map(grid)
+    jnode = JNode(jcfg.TrackerConfig(voxel_leaf_size=0.1, data_length=10))
+    jnode.on_map(jpgm.load_map_yaml(SIM_MAP))
+
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    inbox, got = [], threading.Event()
+
+    def on_cloud(pc):
+        inbox.append(pc)
+        if len(inbox) == len(frames):
+            got.set()
+
+    client = rb.RosBridgeClient("127.0.0.1", srv.getsockname()[1], on_cloud=on_cloud)
+    conn, _ = srv.accept()
+    f = conn.makefile("rb")
+    head = [json.loads(f.readline()) for _ in range(4)]
+    assert [h["op"] for h in head] == ["advertise"] * 3 + ["subscribe"]
+    rb.serve_lines(conn, [{"op": "publish", "topic": rb.INPUT_TOPIC,
+                           "msg": rb.pointcloud2_to_ros(pc)} for pc in frames])
+    assert got.wait(10.0)
+    published = 0
+    for pc, jpc in zip(inbox, frames):
+        res = node.on_pointcloud(pc)
+        jres = jnode.on_pointcloud(jpc)
+        assert (res is None) == (jres is None)
+        if res is None:
+            continue
+        n_ops = client.send_frame(*res)
+        ops = [json.loads(f.readline()) for _ in range(n_ops)]
+        want = rb.obstacle_array_to_ros(jres[0], seq=0)["obstacles"]
+        ob = [o for o in ops if o["topic"] == rb.OBSTACLE_TOPIC][0]["msg"]["obstacles"]
+        assert [o["id"] for o in ob] == [o["id"] for o in want]
+        np.testing.assert_allclose([o["polygon"]["points"][0]["x"] for o in ob],
+                                   [o["polygon"]["points"][0]["x"] for o in want], atol=1e-6)
+        published += 1
+    assert published >= 2 and node.decoder == "native"
+    client.close()
+    conn.close()
+    srv.close()
+
+
+def _jax_native_on(path):
+    """The JAX package's ctypes binding, loading the library at ``path``."""
+    from multiple_object_tracking_lidar_tpu.io import native as jnative
+
+    jnative._LIB, jnative._TRIED = None, False
+    orig = jnative._lib_path
+    jnative._lib_path = lambda: path
+    try:
+        assert jnative.native_available()
+    finally:
+        jnative._lib_path = orig
+    return jnative
+
+
+def test_native_decoder_matches_numpy_and_the_original_binding():
+    """The port builds native/motl_host.cpp under build/native/ and decodes
+    bit for bit as numpy and as the JAX package's binding of the same
+    library: NaN / inf rows dropped, padding, truncation past n_max, a
+    big-endian cloud; a layout it does not take decodes with numpy."""
+    from multiple_object_tracking_lidar_tpu_torch.io import native as tnative
+
+    path = tnative.build_native()
+    assert path.startswith(os.path.join(REPO, "build", "native"))
+    jnative = _jax_native_on(path)
+    rng = np.random.default_rng(23)
+    xyz = rng.uniform(-10, 10, (500, 3)).astype(np.float32)
+    xyz[11] = np.nan
+    xyz[200, 1] = np.inf
+    for n_max in (600, 64):
+        for big in (False, True):
+            msg = tpc2.make_pointcloud2(xyz, stamp=2.0, extra_padding=4)
+            if big:
+                rec = np.frombuffer(msg.data, np.uint8).reshape(500, -1).copy()
+                rec[:, :12] = rec[:, :12].reshape(500, 3, 4)[:, :, ::-1].reshape(500, 12)
+                msg = dataclasses.replace(msg, data=rec.tobytes(), is_bigendian=True)
+            got = tpc2.decode_pointcloud2_named(msg, n_max)
+            want = tpc2.decode_pointcloud2_named(msg, n_max, use_native=False)
+            orig = jnative.decode_pc2_native(msg, n_max)
+            assert (got[2], want[2]) == ("native", "numpy")
+            for g, w, o in zip(got[:2], want[:2], orig):
+                np.testing.assert_array_equal(g, w)
+                np.testing.assert_array_equal(g, o)
+    assert int(tpc2.decode_pointcloud2(msg, 64)[1].sum()) == 64
+    f64 = tpc2.make_pointcloud2(xyz[:10].astype(np.float64), stamp=1.0)
+    if any(f.datatype == 8 for f in f64.fields):
+        assert tpc2.decode_pointcloud2_named(f64, 16)[2] == "numpy"
+    for seed in (0, 12345):
+        np.testing.assert_array_equal(tnative.glibc_colors_native(seed, 37),
+                                      jnative.glibc_colors_native(seed, 37))
+
+
+def test_native_decoder_that_fails_to_build_raises(tmp_path, monkeypatch):
+    """use_native=True never falls back to numpy quietly: a library that
+    does not build raises; use_native=False decodes with numpy."""
+    from multiple_object_tracking_lidar_tpu_torch.io import native as tnative
+
+    bad = tmp_path / "motl_host.cpp"
+    bad.write_text("this is not C++\n")
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        tnative.build_native(str(bad))
+    monkeypatch.setattr(tnative, "_LIB", None)
+    monkeypatch.setattr(tnative, "SOURCE", str(bad))
+    msg = tpc2.make_pointcloud2(np.zeros((4, 3), np.float32), stamp=0.0)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        tpc2.decode_pointcloud2(msg, 8)
+    assert not tnative.native_available()
+    assert tpc2.decode_pointcloud2_named(msg, 8, use_native=False)[2] == "numpy"

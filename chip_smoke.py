@@ -289,8 +289,13 @@ def max_err(a, b) -> float:
     with np.errstate(invalid="ignore"):
         a = np.asarray(a, np.float64)
         b = np.asarray(b, np.float64)
-        same = (a == b) | (np.isnan(a) & np.isnan(b))
-        return float(np.max(np.where(same, 0.0, np.abs(a - b)), initial=0.0))
+        return float(np.max(np.where(equal_mask(a, b), 0.0, np.abs(a - b)), initial=0.0))
+
+
+def equal_mask(a, b):
+    """Elementwise: equal values, NaN pairs included."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a == b) | (np.isnan(a) & np.isnan(b))
 
 
 # ---------------------------------------------------------------------------
@@ -1230,8 +1235,9 @@ def entry_builds():
     """{build: (its wrapper, its C entry)} for the builds a wrapper counts
     in ``.launches_by`` beside its f32 build (``.launches``): K2, K3f, K4,
     K6f, K8a and K14 built for double (``dtype="float64"``), K2's double
-    build fed f32 sums, K4 xl in f32 and f64, and K2, K14, K3f, K4 and K4 xl
-    built for bf16 and f16."""
+    build fed f32 sums, K4 xl in f32 and f64, K2, K14, K3f, K4 and K4 xl
+    built for bf16 and f16, and K6f, K8a and K2 fed f32 sums built for
+    them."""
     from multiple_object_tracking_lidar_tpu_torch.ops import (
         centroid_cuda, cluster_pallas, grid_cuda, stencil_cc_cuda, track_cuda, voxel_grid_cuda)
 
@@ -1251,7 +1257,11 @@ def entry_builds():
                 ("K14", stencil_cc_cuda.stencil_cc, "motl_stencil_cc"),
                 ("K3f", centroid_cuda.circumcenter_features, "motl_circumcenter_features"),
                 ("K4", k4, "motl_track_step"),
-                ("K4 xl", k4, "motl_track_step_xl"))}}
+                ("K4 xl", k4, "motl_track_step_xl"))},
+            **{f"{k} {h}": (w, e.format(h=h)) for h in ("bf16", "f16") for k, w, e in (
+                ("K6f", voxel_grid_cuda.accumulate_f32_stacked, "motl_voxel_sums_{h}"),
+                ("K8a", cluster_pallas.cc_adjacency, "motl_cc_adjacency_{h}"))},
+            **{f"K2 {h} f32-sums": (k2, f"motl_grid_cc_{h}_f32sums") for h in ("bf16", "f16")}}
 
 
 def reset_counts():
@@ -2761,7 +2771,7 @@ def phase_timings_slice11(dev, smi, P, M, T):
 AUCTION_PROBLEMS = (  # (D, K, kind, max_iters) K12 is held to its plain version at
     (12, 10, "dense", 3000), (20, 6, "dense", 3000), (5, 30, "dense", 3000),
     (16, 16, "ties", 3000), (16, 16, "ties", 1), (32, 64, "sparse", 3000),
-    (128, 1024, "sparse", 3000))
+    (128, 1024, "sparse", 1000))   # saturates every phase: 1,000 keeps the run's time
 
 
 def auction_problem(rng, d, k, kind):
@@ -4100,6 +4110,10 @@ FLOOR_FIELDS = {"floor": {}, "floor_hungarian": {"association": "hungarian"},
                 "floor_f64": {"dtype": "float64"}}
 TOL_F64 = (1e-9, 1e-8)   # m, m/s: the f64 goldens' bounds (the JAX package's own)
 XL_SHAPES = ((2048, 32), (4096, 64), (64, 256), (1024, 512))   # (K, D) past K4's narrow builds
+# of each pair of XL_SHAPES (K > 1,024; D > 128), the one the Hungarian runs
+# under (lpf, f32) and (ihgp, f64) take; the other two (filter, dtype) take
+# the other
+XL_HUNGARIAN_SECOND = ((4096, 64), (1024, 512))
 # K4 at K = 64, D = 32, 1 x 1, lpf on track_scene(5, ...): device us per launch, the
 # range PR 11's call 11 and PR 13's calls measured (PERF.md section 6, row 4); the
 # narrow builds this slice refactored must stay within FACTOR of its top
@@ -4190,9 +4204,10 @@ def phase_kernels_slice16(dev, report):
     bit for bit, one device op per call: K4 xl (greedy and Hungarian, lpf
     and ihgp, f32 and f64) at ``XL_SHAPES`` on ``track_scene``'s frames
     (greedy 1 x 3 and 2 x 1 with a first frame, Hungarian 1 x 1 on its
-    gated scene, at K = 2,048 and 4,096 each (filter, dtype) on one of the
-    two banks: their plain versions run every auction phase to its cap,
-    ~5-10 s a frame on the card); K1 and K5 (and K1's raw entry) at the floor's 1,119,963
+    gated scene, each (filter, dtype) on one of the two banks K = 2,048 and
+    4,096 and on one of the two widths D = 256 and 512: their plain
+    versions run every auction phase to its cap, ~5-10 s a frame on the
+    card); K1 and K5 (and K1's raw entry) at the floor's 1,119,963
     cells and at 2 x ``max_cells``, S = 1 and 8; K14 on the floor frames'
     own dynamic cells, f32 and f64, converged and at ``max_iters = 1``."""
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import (
@@ -4212,9 +4227,11 @@ def phase_kernels_slice16(dev, report):
                 c = cfg.replace(association=assoc, position_filter=pf, dtype=dt)
                 gains = Tracker(c, dev).gains_xy
                 for K, D in XL_SHAPES:
-                    if assoc == "hungarian" and K > 1024 and (K == 4096) != ((pf, dt) in (
+                    if assoc == "hungarian" and ((K, D) in XL_HUNGARIAN_SECOND) != ((pf, dt) in (
                             ("lpf", "float32"), ("ihgp", "float64"))):
-                        continue   # K > 1,024: each (filter, dtype) once over the two banks
+                        # past K4's narrow builds each (filter, dtype) runs once over the
+                        # two banks (K > 1,024) and once over the two widths (D > 128)
+                        continue
                     cases = ((1, 3, ()), (2, 1, (1,))) if assoc == "greedy" else ((1, 1, ()),)
                     for B, S, fresh in cases:
                         inp = track_scene(16 * K + D + B, c, K, D, B, S, fresh, dev,
@@ -5020,6 +5037,20 @@ KERNELS = (
     *((f"K4 xl {h}", f"K4 xl's greedy {h} builds (dtype={n}): the half track step past "
        "1,024 slots or 128 detections", f"{PKG}/csrc/assign.cu",
        "multiple_object_tracking_lidar_tpu/ops/assign_pallas.py:188") for h, n in HALF_NAMES),
+    *((f"K6f {h}", f"K6f's {h} build (dtype={n}): the point list's scatter sums in the half "
+       "dtype, ascending point index, every add rounded, the count stopping at 2^p; the cells "
+       "from the points rounded to the half dtype (timed at the headline's S = 8; launched on "
+       "C, D, G and the dense grid in half)", f"{PKG}/csrc/voxel_bf16x3.cu",
+       "multiple_object_tracking_lidar_tpu/ops/voxel.py:96") for h, n in HALF_NAMES),
+    *((f"K8a {h}", f"K8a's {h} build (dtype={n}): the jnp CC's half adjacency -- the 32-row "
+       "tree sum in f32 rounded, half centring, sq and gram as f32 sums rounded once, d2 per "
+       "op -- on half rows, the f32 build's frame bounds (timed at G's M = 2,048, S = 8; "
+       "launched on D, E and G in half)", f"{PKG}/csrc/cluster_cc.cu",
+       "multiple_object_tracking_lidar_tpu/ops/cluster_pallas.py:96") for h, n in HALF_NAMES),
+    *((f"K2 {h} f32-sums", f"K2's {h} build fed f32 sums (voxel_mode=runs under dtype={n}): "
+       "the f32 finalize and static drop, the centroid rounded to the half dtype, the "
+       "stencil's d^2 in it", f"{PKG}/csrc/grid_cc.cu",
+       "multiple_object_tracking_lidar_tpu/ops/grid_pallas.py:288") for h, n in HALF_NAMES),
 )
 
 
@@ -5240,6 +5271,51 @@ def compare_half(tag, got: dict, ref: dict):
             g, r = g[ref["valid"]], r[ref["valid"]]
         if not equal(g, r):
             fail(f"{tag}: {f} differs (max abs err {max_err(g, r)})")
+
+
+HALF_BITS = {"bf16": (8, -126), "f16": (11, -14)}   # significand bits, least normal exponent
+# The runs' point list under a half dtype (F, and the runs with the jnp CC)
+# is f32 from K7 to the circumcenter, as the JAX route is, and its
+# detections are cast to half at the end.  The f32 circumcenter is K3f's
+# pair-stats arithmetic, not the JAX package's ``_one_cluster`` f32
+# program (the f32 point list's own TOL_DETS), so the cast can round a
+# slot one half ulp the other way (ROADMAP Queue 3), which the LPF carries
+# into the position: raw_centroid within HALF_RUNS_ULPS["raw_centroid"]
+# ulps of the half dtype at the golden's value, pos within its bound, vel
+# within its bound at max(|golden|, 0.25 m/s); every other field bit for
+# bit.
+HALF_RUNS_ULPS = {"raw_centroid": 1, "pos": 2, "vel": 2}
+
+
+def half_ulp(x, htag):
+    """The spacing of the half dtype ``htag`` at the values x (f32 holding
+    half values; subnormals at the least normal exponent's spacing)."""
+    bits, emin = HALF_BITS[htag]
+    with np.errstate(divide="ignore"):
+        e = np.floor(np.log2(np.abs(np.asarray(x, np.float64))))
+    return np.exp2(np.maximum(np.nan_to_num(e, neginf=emin), emin) - (bits - 1))
+
+
+def compare_half_runs_list(tag, got: dict, ref: dict, htag):
+    """The half runs point list's contract (``HALF_RUNS_ULPS``): floats
+    within those ulps, everything else bit for bit; returns the largest
+    departure of each float field in ulps."""
+    worst = {}
+    for f, r in ref.items():
+        g, r = np.asarray(got[f]), np.asarray(r)
+        if f in ("pos", "vel"):
+            g, r = g[ref["valid"]], r[ref["valid"]]
+        if f in ("raw_centroid", "pos", "vel"):
+            scale = np.maximum(np.abs(r), 0.25) if f == "vel" else r
+            with np.errstate(invalid="ignore"):
+                d = np.where(equal_mask(g, r), 0.0, np.abs(g.astype(np.float64) - r))
+            worst[f] = float(np.max(d / half_ulp(scale, htag), initial=0.0))
+            if not worst[f] <= HALF_RUNS_ULPS[f]:
+                fail(f"{tag}: {f} {worst[f]} half ulps from the golden (bound "
+                     f"{HALF_RUNS_ULPS[f]})")
+        elif not equal(g, r):
+            fail(f"{tag}: {f} differs (max abs err {max_err(g, r)})")
+    return worst
 
 
 def require_half(tag, counts, htag, need=("K2", "K3f", "K4")):
@@ -5707,58 +5783,509 @@ def phase_host_slice19(dev, smi, report):
         fail(f"the rosbridge loopback: {res}")
 
 
+# ---------------------------------------------------------------------------
+# slice 20: bf16 / f16 on every perception front end
+# ---------------------------------------------------------------------------
+# build families: a half path may launch only the builds of these that it
+# needs (``require_builds``)
+FAMILIES = ("K2", "K3f", "K4", "K6f", "K8a", "K14")
+
+
+def require_builds(tag, counts, need, plain_before):
+    """Fail unless every build of ``need`` launched in the run, no other
+    build of ``FAMILIES`` did (no f32, f64 or other half build of them),
+    and no plain route's counter moved since ``plain_before``."""
+    missing = [k for k in need if counts.get(k, 0) <= 0]
+    other = [k for k, c in counts.items()
+             if c and k.split(" ")[0] in FAMILIES and k not in need]
+    after = plain_counters()
+    if missing or other or after != plain_before:
+        fail(f"{tag}: {missing} not launched, other builds {other} launched, plain routes "
+             f"{plain_before} -> {after}: {counts}")
+
+
+def half_sorted_lists(rng, s, c, p, dt, dev):
+    """S cluster-sorted point lists in ``dt`` (C clusters of 1-P members,
+    the first three of P, 300 and 33; the last two slots invalid) as
+    ``circumcenter_features_sorted`` takes them: (sorted (S, M + P, 3),
+    starts (S, C), sizes (S, C), valid (S, C))."""
+    rows, starts, sizes = [], [], []
+    for _ in range(s):
+        sz = rng.integers(1, p + 1, c)
+        sz[:3] = [p, 300, 33]
+        centre = np.repeat(rng.uniform(-20, 20, (c, 3)), sz, axis=0)
+        rows.append(centre + rng.normal(0, 0.4, centre.shape))
+        starts.append(np.concatenate([[0], np.cumsum(sz)[:-1]]))
+        sizes.append(sz)
+    m = max(len(r) for r in rows)
+    pts = np.zeros((s, m + p, 3))
+    for f, r in enumerate(rows):
+        pts[f, :len(r)] = r
+    valid = np.ones((s, c), bool)
+    valid[:, -2:] = False
+    return (torch.from_numpy(pts).to(dt).to(dev), torch.from_numpy(np.stack(starts)).to(dev),
+            torch.from_numpy(np.stack(sizes)).to(dev), torch.from_numpy(valid).to(dev))
+
+
+def phase_kernels_slice20(dev, report, cfg):
+    """K6f, K8a and K2 fed f32 sums built for bf16 and f16, and K3f's half
+    build on the sorted point list at G's P = 512, against their plain
+    versions on the card, bit for bit: K6f on the headline's 8 frames
+    rounded to the half dtype (frame 6 with a cell of 300 points: the bf16
+    count stops at 256) and on G's grid (S = 8), 2 + passes launches per
+    call; K8a on C's M = 1,024 and G's M = 2,048 half point lists (S = 1
+    and 8) and at M = 8,448 (the frame in device memory), one op per call;
+    K2 fed the runs' f32 sums of the half points (S = 8), one op; K3f on 8
+    sorted lists of C = 64 clusters of up to 512 members.  Returns the
+    inputs the timings reuse."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import (
+        default_case, headline_case, pointlist_case)
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        centroid_cuda, cluster_pallas, grid_cuda, voxel_grid_cuda as vg)
+    from multiple_object_tracking_lidar_tpu_torch.ops.centroid import circumcenter_features_sorted
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel_pallas import (
+        voxel_accumulate_runs_stacked)
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    t0 = time.perf_counter()
+    kw = (cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    _, env, sc = headline_case(device=dev)
+    pts, msk, _ = headline_frames(sc, cfg.caps.n_max_points, range(8))
+    pts[6, :300] = np.float32([0.31, 1.27, 0.5])       # one cell of 300 points
+    M8 = torch.from_numpy(msk).to(dev)
+    gcfg, _, gsc = default_case()
+    gp, gm, _ = headline_frames(gsc, gcfg.caps.n_max_points, range(8))
+    GM = torch.from_numpy(gm).to(dev)
+    gkw = (gcfg.scene, gcfg.voxel_leaf_size, gcfg.leaf_z)
+    pcfg = pointlist_case()[0]
+    tol = pcfg.cluster_tolerance
+    rng = np.random.default_rng(2001)
+    keep = {"M8": M8, "GM": GM, "kw": kw, "gkw": gkw, "tol": tol}
+    for htag, dt in HALF:
+        P8 = torch.from_numpy(pts).to(dev).to(dt).float()     # the points rounded, widened
+        GP = torch.from_numpy(gp).to(dev).to(dt).float()
+        name = f"K6f {htag}"
+        for label, Pd, Md, kk in (("the headline's 8 frames (6: a cell of 300 points)", P8, M8,
+                                   kw), ("configuration G's grid, 8 frames", GP, GM, gkw)):
+            n_pass = vg.sorted_sums_plan(8, Pd.shape[1], vg.kernel_params(*kk)["n_cells"])[
+                "passes"]
+            fk = lambda Pd=Pd, Md=Md, kk=kk: vg.accumulate_f32_stacked(  # noqa: E731
+                Pd, Md, *kk, dtype=dt)
+            out = check_pair(report, name, f"S=8 N={Pd.shape[1]}, "
+                             f"{vg.kernel_params(*kk)['n_cells']} cells, {n_pass} passes: "
+                             f"{label}", fk, lambda Pd=Pd, Md=Md, kk=kk:
+                             vg.accumulate_f32_stacked_plain(Pd, Md, *kk, dtype=dt))
+            if out[0].dtype != dt:
+                fail(f"{name} returned {out[0].dtype}")
+            _, ops, whole = one_op_profile(fk, 5)
+            require_ops(f"{name} ({label})", ops, whole, 2 + n_pass)
+        top = float(vg.accumulate_f32_stacked(P8[6:7], M8[6:7], *kw, dtype=dt)[0][0, 3].max())
+        exact = float(vg.accumulate_f32_stacked(P8[6:7], M8[6:7], *kw)[0][0, 3].max())
+        log(f"[3 {name}] the fullest cell of frame 6 holds {exact:.0f} points; its {htag} "
+            f"count {top} (a half count stops at {vg.COUNT_SAT[dt]})")
+        if exact < 300 or top != min(exact, vg.COUNT_SAT[dt]):
+            fail(f"{name}: the fullest cell's count is {top}, of {exact} points")
+
+        # K8a: C's and G's half point lists, S = 1 and 8, and past 8,192 rows
+        name = f"K8a {htag}"
+        cpts, cmsk = pointlist_rows(dev, pcfg, P8, M8)
+        gpts, gmsk = pointlist_rows(dev, gcfg, GP, GM)
+        ch, gh = cpts.to(dt).contiguous(), gpts.to(dt).contiguous()
+        big = 8448
+        bp = torch.from_numpy(rng.normal(0, 2.5, (1, big, 3))).to(dev)
+        bp[..., 2] *= 0.1
+        bp = bp.to(dt)
+        bm = torch.from_numpy(rng.random((1, big)) < 0.8).to(dev)
+        for label, p, m in (("C's M=1,024, S=1", ch[:1], cmsk[:1]), ("C's M=1,024, S=8", ch, cmsk),
+                            ("G's M=2,048, S=1", gh[:1], gmsk[:1]), ("G's M=2,048, S=8", gh, gmsk),
+                            (f"M={big}, S=1 (the frame in device memory)", bp, bm)):
+            fk = lambda p=p, m=m: (cluster_pallas.cc_adjacency(p, m, tol),)  # noqa: E731
+            check_pair(report, name, f"{label} point lists in {htag}", fk,
+                       lambda p=p, m=m: (cluster_pallas.cc_adjacency_half_plain(p, m, tol),))
+            _, ops, whole = one_op_profile(fk, 5)
+            require_one_op(f"{name} ({label})", ops, whole)
+        keep[htag] = {"P8": P8, "GP": GP, "ch": ch, "cmsk": cmsk, "gh": gh, "gmsk": gmsk}
+
+        # K2 fed the runs' f32 sums of the half points
+        name = f"K2 {htag} f32-sums"
+        rcfg = cfg.replace(voxel_mode="runs", dtype={"bf16": "bfloat16", "f16": "float16"}[htag])
+        plan = Tracker(rcfg, dev).plan(env)
+        acc_r, _ = voxel_accumulate_runs_stacked(P8, M8, *kw)
+        tb = (plan.scal, plan.table.base_row, plan.table.base_col, plan.table.bits)
+        kw2 = dict(dims=plan.dims, tol=cfg.cluster_tolerance, leaf_xy=cfg.voxel_leaf_size,
+                   leaf_z=cfg.leaf_z, kwin=plan.table.k)
+        offsets = grid_cuda.kernel_offsets(plan.dims, cfg.cluster_tolerance,
+                                           cfg.voxel_leaf_size, cfg.leaf_z)
+        fk = lambda: grid_cuda.fused_finalize_static_cc_stacked(  # noqa: E731
+            acc_r, *tb, dtype=dt, **kw2)
+        fp = lambda: grid_cuda.fused_finalize_static_cc_stacked_plain(  # noqa: E731
+            acc_r, *tb, dims=plan.dims, offsets=offsets, kwin=plan.table.k,
+            max_sweeps=2 * sum(plan.dims), tol=cfg.cluster_tolerance, dtype=dt)
+        out = check_pair(report, name, f"S=8 x {acc_r.shape[2]} cells of the runs' f32 sums of "
+                         f"the {htag} points, finalized in f32, rounded, d^2 in {htag}", fk, fp)
+        if out[0].dtype != dt:
+            fail(f"{name} returned {out[0].dtype} centroids")
+        _, ops, whole = one_op_profile(fk, 10)
+        require_one_op(name, ops, whole)
+        keep[htag].update(acc_r=acc_r, tb=tb, kw2=kw2, offsets=offsets, fp_k2=fp)
+
+        # K3f's half build on the sorted point list at P = 512
+        name = f"K3f {htag}"
+        lists = half_sorted_lists(rng, 8, 64, 512, dt, dev)
+        T8 = torch.arange(8, device=dev).to(dt) * 0.1 + 100.0
+        p_max = 512
+        lane = torch.arange(p_max, device=dev)
+        rows = (lists[1].to(torch.int64)[:, :, None] + lane).reshape(8, -1)
+        mpts = torch.gather(lists[0], 1, rows[..., None].expand(-1, -1, 3)).reshape(-1, p_max, 3)
+        mm = ((lane < lists[2][:, :, None]) & lists[3][:, :, None]).reshape(-1, p_max)
+        check_pair(report, name, "8 sorted point lists x C=64 clusters of up to P=512 members",
+                   lambda: (circumcenter_features_sorted(*lists, T8, p_max).reshape(-1, 4),),
+                   lambda: (centroid_cuda.circumcenter_features_half_plain(mpts, mm, T8),))
+        keep[htag].update(lists=lists, T8=T8)
+    log(f"[3 slice 20] the half front ends' builds checked in {time.perf_counter() - t0:.1f} s")
+    return keep
+
+
+HALF_FRONT_ENDS = (  # golden (after "<h>_"), case, tag, the builds its run must launch
+    ("pointlist", "headline_case", "C", ("K6f {h}", "K8", "K3f {h}", "K4 {h}")),
+    ("pointlist_jnp", "headline_case", "D", ("K6f {h}", "K8a {h}", "K3f {h}", "K4 {h}")),
+    ("pointlist_scan", "headline_case", "E", ("K8a {h}", "K3f {h}", "K4 {h}")),
+    ("pointlist_runs", "headline_case", "F", ("K7", "K8", "K3f", "K4 {h}")),
+    ("runs", "headline_case", "B", ("K7", "K2 {h} f32-sums", "K3f {h}", "K4 {h}")),
+    ("dense_grid", "headline_case", "dense grid", ("K6f {h}", "K2 {h}", "K3f {h}", "K4 {h}")),
+    ("default", "default_case", "G", ("K6f {h}", "K8a {h}", "K3f {h}", "K4 {h}")),
+)
+
+
+def phase_half_pointlist(dev, smi, report):
+    """bf16 and f16 on every perception front end against the JAX
+    package's goldens (``tests/golden/torch_{bf16,f16}_<case>_headline.
+    npz``): C, D, E, F, B, the dense grid fed by the scatter sums and G at
+    full width through ``bind_env`` (12 frames; G 4) and ``bind_env_multi``
+    (S = 8, then S = 4; G S = 4), ``TrackerNode`` on D (12 PointCloud2
+    frames) and the CLI on its default backend, the point list (a config
+    file setting the dtype, 8 frames).  Every output bit for bit
+    (``compare_half``; F, whose f32 circumcenter is cast, within
+    ``HALF_RUNS_ULPS``; the CLI's records within ``cli_errors``' bound).
+    Each run launches the builds ``HALF_FRONT_ENDS`` names and no other
+    build of K2, K3f, K4, K6f, K8a or K14, and no plain route moves
+    (``require_builds``).  Then ms/frame and device ops per frame of D and
+    G, f32 / bf16 / f16 in turns."""
+    import tempfile
+
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    from make_torch_golden import CASE_FIELDS, CLI_CONFIGS, FRAMES, GOLDENS, cli_bag
+
+    t0 = time.perf_counter()
+    for htag, dname in HALF_NAMES:
+        def check(tag, got, golden, runs_list):
+            if runs_list:
+                worst = compare_half_runs_list(tag, got, golden, htag)
+                return f"within {HALF_RUNS_ULPS} half ulps (worst {worst})"
+            compare_half(tag, got, golden)
+            return "bit for bit"
+
+        for key, case, tag, need in HALF_FRONT_ENDS:
+            gkey = f"{htag}_{key}"
+            golden = dict(np.load(GOLDENS[gkey]))
+            n_gold = golden["publish"].shape[0]
+            cfg, env, sc = getattr(bench_cases, case)(device=dev)
+            cfg = cfg.replace(**CASE_FIELDS[gkey])
+            need = tuple(n.format(h=htag) for n in need)
+            runs_list = key == "pointlist_runs"
+            P, M, T = half_frames(dev, sc, cfg.caps.n_max_points, n_gold)
+            tracker = Tracker(cfg, dev)
+            step = tracker.bind_env(env)
+            st = tracker.init_state()
+            reset_counts()
+            plain = plain_counters()
+            rows = []
+            for k in range(n_gold):
+                st, o = step(st, Frame(P[k], M[k], T[k]))
+                rows.append([npy(x) for x in o])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            got = {f: np.stack([r[i] for r in rows]) for i, f in enumerate(golden)}
+            verdict = check(f"{tag} {htag} bind_env", got, golden, runs_list)
+            log(f"[4 {tag} {htag}] bind_env x{n_gold} ({cfg.voxel_mode} / {cfg.cluster_backend}, "
+                f"N={cfg.caps.n_max_points}, C={cfg.caps.c_max_clusters}, "
+                f"P={cfg.caps.p_max_cluster}): n_clusters {got['n_clusters'].tolist()}, "
+                f"launches {counts}; the JAX golden {verdict}")
+            require(f"{tag} {htag} bind_env", counts, need, report)
+            require_builds(f"{tag} {htag} bind_env", counts, need, plain)
+            # bind_env_multi: S = 8, then S = 4 (G: its 4 frames at once)
+            multi = tracker.bind_env_multi(env)
+            st = tracker.init_state()
+            reset_counts()
+            plain = plain_counters()
+            rows = []
+            cuts = (slice(0, 8), slice(8, n_gold)) if n_gold > 8 else (slice(0, n_gold),)
+            for sl in cuts:
+                st, o = multi(st, Frame(P[sl], M[sl], T[sl]))
+                rows.append([npy(x) for x in o])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            got = {f: np.concatenate([r[i] for r in rows]) for i, f in enumerate(golden)}
+            verdict = check(f"{tag} {htag} bind_env_multi", got, golden, runs_list)
+            log(f"[4 {tag} {htag}] bind_env_multi S={[c.stop - c.start for c in cuts]}: "
+                f"launches {counts}; the JAX golden {verdict}")
+            require(f"{tag} {htag} bind_env_multi", counts, need, report)
+            require_builds(f"{tag} {htag} bind_env_multi", counts, need, plain)
+            if key != "pointlist_jnp":
+                continue
+            # TrackerNode on D, the native decoder
+            node = TrackerNode(cfg, dev, keep_outputs=True)
+            node.on_map(load_sim_grid())
+            reset_counts()
+            plain = plain_counters()
+            for k in range(n_gold):
+                node.on_pointcloud(sc.frame(k))
+            torch.cuda.synchronize()
+            counts = read_counts()
+            got = {f: np.stack([np.asarray(getattr(o, f)) for o in node.outputs])
+                   for f in golden}
+            compare_half(f"{tag} {htag} TrackerNode", got, golden)
+            log(f"[4 {tag} {htag}] TrackerNode x{n_gold} (decoder {node.decoder}): launches "
+                f"{counts}; the JAX golden bit for bit")
+            require(f"{tag} {htag} TrackerNode", counts, need, report)
+            require_builds(f"{tag} {htag} TrackerNode", counts, need, plain)
+        # the CLI: a config file setting the dtype, no --backend (G's point list)
+        case = f"cli_{htag}_default"
+        with open(GOLDENS[case], encoding="utf-8") as fh:
+            gold = json.load(fh)
+        need = tuple(n.format(h=htag) for n in HALF_FRONT_ENDS[-1][3])
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = cli_bag(os.path.join(tmp, "frames.npz"), FRAMES[case], grid=False)
+            conf = os.path.join(tmp, "config.yaml")
+            with open(conf, "w", encoding="utf-8") as fh:
+                fh.write(CLI_CONFIGS[case])
+            reset_counts()
+            plain = plain_counters()
+            _, recs, _ = run_cli(argv + ["--config", conf, "--device", "cuda"])
+            counts = read_counts()
+        errs, worst = cli_errors(recs, gold)
+        log(f"[4 G {htag}] CLI run --config <dtype: {dname}> (no --backend): {len(recs)} "
+            f"records, launches {counts}; vs the JAX CLI golden: {errs or 'within tolerance'} "
+            f"(worst pos / vel {worst})")
+        if errs:
+            fail(f"G {htag} CLI: {errs}")
+        require(f"G {htag} CLI", counts, need, report)
+        require_builds(f"G {htag} CLI", counts, need, plain)
+    log(f"[4 slice 20] the half front ends against their goldens in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # D and G: ms/frame and device ops per frame, f32 / bf16 / f16 in turns
+    for tag, case, fields in (("D", "headline_case", CASE_FIELDS["pointlist_jnp"]),
+                              ("G", "default_case", {})):
+        cfg, env, sc = getattr(bench_cases, case)(device=dev)
+        P, M, T = half_frames(dev, sc, cfg.caps.n_max_points, 8)
+        trackers = {d: Tracker(cfg.replace(dtype=d, **fields), dev)
+                    for d in ("float32", "bfloat16", "float16")}
+        for turn, d in enumerate(("float32", "bfloat16", "float16", "float16", "bfloat16",
+                                  "float32")):
+            tr = trackers[d]
+            step, multi = tr.bind_env(env), tr.bind_env_multi(env)
+
+            def one():
+                st = tr.init_state()
+                for i in range(8):
+                    st, _ = step(st, Frame(P[i], M[i], T[i]))
+
+            def eight():
+                multi(tr.init_state(), Frame(P, M, T))
+
+            ms1, ms8 = cuda_ms(one, 2) / 8, cuda_ms(eight, 2) / 8
+            counts = ""
+            if turn < 3:
+                (o1, s1), (o8, s8) = trace_counts(one, 8), trace_counts(eight, 8)
+                counts = (f"; device ops per frame {o1:.2f} / {o8:.2f}; host syncs per frame "
+                          f"{s1:.3f} / {s8:.3f}")
+            log(f"[5 timing] {smi}: {tag} {d} (turn {turn + 1} of f32, bf16, f16, f16, bf16, "
+                f"f32) bind_env {ms1:.4f} ms/frame, bind_env_multi S=8 {ms8:.4f} "
+                f"ms/frame{counts}")
+
+
+def phase_timings_slice20(dev, smi, report, keep):
+    """Each new half build beside the f32 build of the same kernel on the
+    same inputs (the half values widened), device us per call in turns
+    (f32, half, half, f32; torch.profiler between marker kernels): K6f at
+    the headline's S = 8 and G's grid S = 8, K8a at M = 1,024 and 2,048 (S
+    = 1 and 8), K2 fed f32 sums beside K2 f32, K3f on the sorted lists at
+    P = 512; then the report's entries (kernel and plain ms by CUDA events
+    in turns, bounds: bytes at HBM_BYTES_PER_S, operations at
+    F32_OPS_PER_S; K6f's library call a ``torch.index_add`` in the half
+    dtype)."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        cluster_pallas, grid_cuda, voxel_grid_cuda as vg)
+    from multiple_object_tracking_lidar_tpu_torch.ops.centroid import circumcenter_features_sorted
+
+    def device_us(fn, reps):
+        us, ops, _ = one_op_profile(fn, reps)
+        return us * ops
+
+    def turns(tag, f32, half, reps):
+        a, b = device_us(f32, reps), device_us(half, reps)
+        b2, a2 = device_us(half, reps), device_us(f32, reps)
+        log(f"[5 timing] {smi}: {tag} device us per call in turns (f32 build, half, half, "
+            f"f32 build) {a:.2f}, {b:.2f}, {b2:.2f}, {a2:.2f}: half / f32 "
+            f"{min(b, b2) / min(a, a2):.2f}x")
+
+    M8, GM, kw, gkw, tol = keep["M8"], keep["GM"], keep["kw"], keep["gkw"], keep["tol"]
+    for htag, dt in HALF:
+        k = keep[htag]
+        for label, P, Mk, kk in (("headline S=8", k["P8"], M8, kw),
+                                 ("G's grid S=8", k["GP"], GM, gkw)):
+            turns(f"K6f {htag} {label}",
+                  lambda P=P, Mk=Mk, kk=kk: vg.accumulate_f32_stacked(P, Mk, *kk),
+                  lambda P=P, Mk=Mk, kk=kk: vg.accumulate_f32_stacked(P, Mk, *kk, dtype=dt), 10)
+        for label, p, m in (("M=1,024 S=1", k["ch"][:1], k["cmsk"][:1]),
+                            ("M=1,024 S=8", k["ch"], k["cmsk"]),
+                            ("M=2,048 S=1", k["gh"][:1], k["gmsk"][:1]),
+                            ("M=2,048 S=8", k["gh"], k["gmsk"])):
+            p32 = p.float()
+            turns(f"K8a {htag} {label}",
+                  lambda p32=p32, m=m: cluster_pallas.cc_adjacency(p32, m, tol),
+                  lambda p=p, m=m: cluster_pallas.cc_adjacency(p, m, tol), 20)
+        acc_r, tb, kw2 = k["acc_r"], k["tb"], k["kw2"]
+        k2_32 = lambda: grid_cuda.fused_finalize_static_cc_stacked(acc_r, *tb, **kw2)  # noqa: E731
+        k2_h = lambda: grid_cuda.fused_finalize_static_cc_stacked(  # noqa: E731
+            acc_r, *tb, dtype=dt, **kw2)
+        turns(f"K2 {htag} f32-sums (beside K2 f32)", k2_32, k2_h, 20)
+        lists, T8 = k["lists"], k["T8"]
+        l32 = (lists[0].float(),) + lists[1:]
+        turns(f"K3f {htag} sorted lists S=8 x C=64, P=512",
+              lambda: circumcenter_features_sorted(*l32, T8.float(), 512),
+              lambda: circumcenter_features_sorted(*lists, T8, 512), 10)
+
+        # the report's entries
+        P8 = k["P8"]
+        k1p = vg.kernel_params(*kw)
+        s8, nc = P8.shape[0], k1p["n_cells"]
+        ok, lin, _ = vg.kept_cells(P8, M8, k1p)
+        kept = int(ok.sum())
+        frame_of = torch.arange(s8, device=dev)[:, None]
+        tgt = torch.where(ok, frame_of * nc + lin, s8 * nc).reshape(-1)
+        vals4 = torch.cat([torch.where(ok[..., None], P8, 0.0), ok[..., None].float()],
+                          -1).reshape(-1, 4).to(dt)
+        base = torch.zeros((s8 * nc + 1, 4), dtype=dt, device=dev)
+        gh, gmsk = k["gh"], k["gmsk"]
+        vg8 = gmsk.sum(dim=1).to(torch.float64)
+        outs = k2_h()
+        n_off, iters = len(k["offsets"]), int(outs[3].sum())
+        n = acc_r.shape[2]
+        pairs = {  # name: (kernel, plain, shape, bytes, operations, library call)
+            f"K6f {htag}": (lambda: vg.accumulate_f32_stacked(P8, M8, *kw, dtype=dt),
+                            lambda: vg.accumulate_f32_stacked_plain(P8, M8, *kw, dtype=dt),
+                            f"S=8 frames x {P8.shape[1]} points, {nc} cells, {htag} sums",
+                            nbytes((P8, M8)) + nbytes(vg.accumulate_f32_stacked(
+                                P8, M8, *kw, dtype=dt)),
+                            23 * kept, lambda: torch.index_add(base, 0, tgt, vals4)),
+            f"K8a {htag}": (lambda: cluster_pallas.cc_adjacency(gh, gmsk, tol),
+                            lambda: cluster_pallas.cc_adjacency_half_plain(gh, gmsk, tol),
+                            f"S=8 x M={gh.shape[1]} G point lists in {htag}, bool (M, M) out",
+                            nbytes((gh, gmsk)) + nbytes(cluster_pallas.cc_adjacency(gh, gmsk,
+                                                                                    tol)),
+                            int((12 * vg8 * vg8).sum()), None),
+            f"K2 {htag} f32-sums": (k2_h, k["fp_k2"],
+                                    f"S=8 frames x {n} cells of f32 sums, {htag} centroids "
+                                    "and d^2", nbytes((acc_r,) + tb) + nbytes(outs),
+                                    s8 * n * (15 + 14 * n_off) + iters * n * (2 * n_off + 1),
+                                    None),
+        }
+        for name, (fk, fp, shape, moved, ops, lib) in pairs.items():
+            ms_p = cuda_ms(fp, 2)
+            ms_k = cuda_ms(fk, 20)
+            ms_k2 = cuda_ms(fk, 20)
+            ms_p2 = cuda_ms(fp, 2)
+            t_bytes = moved / HBM_BYTES_PER_S
+            t_ops = ops / F32_OPS_PER_S
+            entry = report[name]
+            entry["ms"] = min(ms_k, ms_k2)
+            entry["plain_ms"] = min(ms_p, ms_p2)
+            entry["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+            entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            entry["library_ms"] = cuda_ms(lib, 20) if lib is not None else None
+            log(f"[5 timing] {smi}: {name} {shape}: kernel {ms_k:.4f}/{ms_k2:.4f} ms, plain "
+                f"{ms_p:.4f}/{ms_p2:.4f} ms (run plain, kernel, kernel, plain; min reported); "
+                f"bound {entry['bound_ms']:.6f} ms by {entry['bound_by']} ({moved} bytes, {ops} "
+                f"operations); library call "
+                f"{'none' if lib is None else format(entry['library_ms'], '.4f') + ' ms'}")
+
+
+PHASE_SECONDS: dict = {}   # wall seconds of each phase main runs
+
+
+def timed(phase, *args):
+    """Run ``phase(*args)``, keeping its wall seconds in PHASE_SECONDS."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    PHASE_SECONDS[phase.__name__] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_card()
     sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_build()
+    timed(phase_build)
     report: dict = {}
-    cfg, sc, k1_inputs, table = phase_kernels(dev, report)
-    phase_kernels_more(dev, report, cfg, k1_inputs)
-    phase_kernels_pointlist(dev, report, cfg, k1_inputs)
-    phase_kernels_fleet(dev, report, cfg, k1_inputs)
-    phase_kernels_slice5(dev, report, cfg, k1_inputs, table)
-    phase_kernels_slice7(dev, report)
-    phase_kernels_slice8(dev, report, cfg, k1_inputs)
-    phase_kernels_slice11(dev, smi, report, cfg)
-    phase_kernels_slice12(dev, smi, report, cfg)
-    k13 = phase_kernels_slice13(dev, report, cfg)
-    k14 = phase_kernels_slice14(dev, report, cfg)
-    phase_kernels_slice15(dev, report)
-    phase_kernels_slice16(dev, report)
-    phase_kernels_slice17(dev, report)
-    k19 = phase_kernels_slice19(dev, report, cfg)
-    tracker, env, frames = phase_slice(dev, cfg, sc, report)
-    phase_cli(dev, report)
-    phase_ihgp(dev, report)
-    phase_hungarian(dev, report)
-    phase_f64(dev, report)
-    phase_f64_pointlist(dev, report)
-    phase_modes(dev, report)
-    phase_pointlist(dev, report)
-    phase_g_grid(dev, report)
-    fleet, fleet_env, fleet_in = phase_fleet(dev, report)
-    phase_entry_points(dev, report, cfg, sc, table)
-    phase_growth(dev, report)
-    phase_floor(dev, report)
-    phase_half(dev, smi, report)
-    phase_host_slice19(dev, smi, report)
-    phase_timings(dev, cfg, smi, tracker, env, frames, report)
-    phase_timings_fleet(dev, smi, fleet, fleet_env, fleet_in)
-    phase_timings_slice11(dev, smi, *frames)
-    phase_timings_slice12(dev, smi, *frames, report)
-    phase_timings_slice13(dev, smi, *frames, report, k13)
-    phase_timings_slice14(dev, smi, report, k14)
-    phase_learning(dev, smi, report)
-    phase_timings_slice16(dev, smi, report)
-    phase_timings_slice19(dev, smi, report, k19)
+    cfg, sc, k1_inputs, table = timed(phase_kernels, dev, report)
+    timed(phase_kernels_more, dev, report, cfg, k1_inputs)
+    timed(phase_kernels_pointlist, dev, report, cfg, k1_inputs)
+    timed(phase_kernels_fleet, dev, report, cfg, k1_inputs)
+    timed(phase_kernels_slice5, dev, report, cfg, k1_inputs, table)
+    timed(phase_kernels_slice7, dev, report)
+    timed(phase_kernels_slice8, dev, report, cfg, k1_inputs)
+    timed(phase_kernels_slice11, dev, smi, report, cfg)
+    timed(phase_kernels_slice12, dev, smi, report, cfg)
+    k13 = timed(phase_kernels_slice13, dev, report, cfg)
+    k14 = timed(phase_kernels_slice14, dev, report, cfg)
+    timed(phase_kernels_slice15, dev, report)
+    timed(phase_kernels_slice16, dev, report)
+    timed(phase_kernels_slice17, dev, report)
+    k19 = timed(phase_kernels_slice19, dev, report, cfg)
+    k20 = timed(phase_kernels_slice20, dev, report, cfg)
+    tracker, env, frames = timed(phase_slice, dev, cfg, sc, report)
+    timed(phase_cli, dev, report)
+    timed(phase_ihgp, dev, report)
+    timed(phase_hungarian, dev, report)
+    timed(phase_f64, dev, report)
+    timed(phase_f64_pointlist, dev, report)
+    timed(phase_modes, dev, report)
+    timed(phase_pointlist, dev, report)
+    timed(phase_g_grid, dev, report)
+    fleet, fleet_env, fleet_in = timed(phase_fleet, dev, report)
+    timed(phase_entry_points, dev, report, cfg, sc, table)
+    timed(phase_growth, dev, report)
+    timed(phase_floor, dev, report)
+    timed(phase_half, dev, smi, report)
+    timed(phase_half_pointlist, dev, smi, report)
+    timed(phase_host_slice19, dev, smi, report)
+    timed(phase_timings, dev, cfg, smi, tracker, env, frames, report)
+    timed(phase_timings_fleet, dev, smi, fleet, fleet_env, fleet_in)
+    timed(phase_timings_slice11, dev, smi, *frames)
+    timed(phase_timings_slice12, dev, smi, *frames, report)
+    timed(phase_timings_slice13, dev, smi, *frames, report, k13)
+    timed(phase_timings_slice14, dev, smi, report, k14)
+    timed(phase_learning, dev, smi, report)
+    timed(phase_timings_slice16, dev, smi, report)
+    timed(phase_timings_slice19, dev, smi, report, k19)
+    timed(phase_timings_slice20, dev, smi, report, k20)
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import micro_torch_digits
 
     log(f"[5 timing] torch.profiler traces taken again after losing device events: "
         f"{micro_torch_digits.retaken}")
+    log(f"[7 phases] seconds by phase, longest first: "
+        f"{sorted(PHASE_SECONDS.items(), key=lambda kv: -kv[1])}")
     log(f"[7 total] {time.perf_counter() - t_start:.1f} s from the start, the build included")
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

@@ -65,6 +65,8 @@ SIGNATURES = {
                           _P, _P, _P, _P, _P, _P],
     "motl_grid_cc_f16": [_P, _P, _P, _P, _P, _I, _P, _F, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P],
+    **{f"motl_grid_cc_{h}_f32sums": [_P, _P, _P, _P, _P, _I, _P, _F, _I, _I, _I, _I, _I, _I,
+                                     _I, _P, _P, _P, _P, _P, _P] for h in ("bf16", "f16")},
     "motl_grid_cc_max_cluster": [_I, _P],
     "motl_pair_stats": [_P, _P, _I, _I, _P, _P, _P],
     "motl_circumcenter": [_P, _P, _I, _I, _P, _P],
@@ -92,6 +94,8 @@ SIGNATURES = {
                           _I, _I, _I, _F, _F, _I, _P],
     "motl_voxel_sums_f64": [_P, _P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _I, _I,
                             _I, _I, _I, _F, _F, _P],
+    **{f"motl_voxel_sums_{h}": [_P, _P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _I, _I,
+                                _I, _I, _I, _F, _F, _P] for h in ("bf16", "f16")},
     "motl_voxel_bf16x3_keys": [_P, _P, _P, _P, _I, _I, _I, _I, *[_P] * 7, _I,
                                _I, _P],
     "motl_voxel_sums_keys": [_P, _P, _P, _P, _I, _I, _I, _I, *[_P] * 7, _I, _I, _P],
@@ -101,6 +105,8 @@ SIGNATURES = {
     "motl_segment_totals_rows": [_P, _P, _I, _I, _I, _P, _P, _I, _P],
     "motl_cc_adjacency": [_P, _I, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P],
     "motl_cc_adjacency_f64": [_P, _I, _P, _I, _I, _I, _D, _I, _P, _P, _P, _P],
+    **{f"motl_cc_adjacency_{h}": [_P, _I, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P]
+       for h in ("bf16", "f16")},
     "motl_cc_labels": [_P, _I, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P],
     "motl_stencil_cc": [_P, _P, _I, _I, _I, _I, _P, _I, _F, _I, _I, _I, _I, _P, _P, _P, _P],
     "motl_stencil_cc_f64": [_P, _P, _I, _I, _I, _I, _P, _I, _D, _I, _I, _I, _I, _P, _P, _P,

@@ -68,12 +68,26 @@
 // 4,096 rows and moves to device memory past it.  K8 (the labels) has no
 // double build: the JAX Pallas CC casts the points to f32 (cluster_pallas.
 // py:132), and so does the port.
+//
+// K8a's half builds (motl_cc_adjacency_bf16 / _f16, dtype="bfloat16" /
+// "float16") are the same body on bf16 / f16 rows, staged as floats, with the
+// JAX half adjacency's ops as XLA's jitted CPU code computes them (read
+// from the compiled bind_env programs; fp_half.cuh, HalfOps below): the
+// 32-row tree column sum in f32 (the products by the 0/1 mask are exact),
+// rounded to the half type and divided by the count rounded to it; p =
+// (pts - c) rounded, 0 on invalid rows; sq the f32 sum of the squares --
+// exact products in bf16, products rounded to f16 in f16 -- rounded once;
+// the gram the f32 dot of exact products in ascending order, rounded
+// once; d2 = ((sq_i + sq_j) rounded - 2 gram) rounded, against tol * tol
+// rounded to the half type.  The frame's bounds are the f32 build's.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fp_rn.cuh"
+#include <type_traits>
+
+#include "fp_half.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -93,6 +107,54 @@ struct Frame {
   int pfs;
   const uint8_t* mask;  // (M,) at mask + s * mfs
   int mfs;
+};
+
+// The float ops of the f32 and f64 builds (T's own, as the header lists).
+template <class T>
+struct ExactOps {
+  using in_t = T;  // the points' type in memory
+  static __device__ __forceinline__ T load(T x) { return x; }
+  static __device__ __forceinline__ T centre(T sum, int cnt) {
+    return fp::div(sum, fmax((T)cnt, T(1)));
+  }
+  static __device__ __forceinline__ T centred(T v, T c, bool in) {
+    return fp::mul(fp::sub(v, c), in ? T(1) : T(0));
+  }
+  static __device__ __forceinline__ T sq(T p0, T p1, T p2) {
+    return fp::fma(p2, p2, fp::fma(p1, p1, fp::mul(p0, p0)));
+  }
+  static __device__ __forceinline__ T d2(T x, T y, T z, T xj, T yj, T zj, T sqi, T sqj) {
+    const T g = fp::fma(z, zj, fp::fma(y, yj, fp::mul(x, xj)));
+    return fp::sub(fp::add(sqi, sqj), fp::mul(T(2), g));
+  }
+};
+
+// The half builds' ops (policy H of fp_half.cuh) on half values held in
+// floats: the JAX half adjacency as the header lists it.
+template <class H>
+struct HalfOps {
+  using in_t = typename H::storage;
+  static __device__ __forceinline__ float load(in_t x) { return H::load(x); }
+  static __device__ __forceinline__ float centre(float sum, int cnt) {
+    return fp::hdiv<H>(H::rnd(sum), H::rnd((float)max(cnt, 1)));
+  }
+  static __device__ __forceinline__ float centred(float v, float c, bool in) {
+    return in ? fp::hsub<H>(v, c) : 0.0f;
+  }
+  static __device__ __forceinline__ float square(float a) {
+    // XLA's f16 program keeps the f16 square; its bf16 one drops the
+    // rounding of the product (a convert pair simplified away)
+    return std::is_same<H, fp::F16>::value ? fp::hmul<H>(a, a) : __fmul_rn(a, a);
+  }
+  static __device__ __forceinline__ float sq(float p0, float p1, float p2) {
+    return H::rnd(__fadd_rn(__fadd_rn(square(p0), square(p1)), square(p2)));
+  }
+  static __device__ __forceinline__ float d2(float x, float y, float z, float xj, float yj,
+                                             float zj, float sqi, float sqj) {
+    const float g = H::rnd(__fadd_rn(__fadd_rn(__fmul_rn(x, xj), __fmul_rn(y, yj)),
+                                     __fmul_rn(z, zj)));
+    return fp::hsub<H>(fp::hadd<H>(sqi, sqj), fp::hmul<H>(2.0f, g));
+  }
 };
 
 // P, SQ and the tree partials of one CTA: 4M + 6 ceil(M / 32) values.
@@ -123,9 +185,9 @@ __device__ __forceinline__ int ld_label(const int* p) {
 // holds the valid-row bits alone (W u32); P, SQ and the partials lie at
 // frame_global + blockIdx.x * frame_floats(M), the bits in bits_global, the
 // labels of frame s at lab_global + 2 s M.
-template <class T, bool kLabels, bool kDeviceFrame>
+template <class T, class O, bool kLabels, bool kDeviceFrame>
 __global__ void __launch_bounds__(kThreads)
-cc_kernel(Frame<T> f, int M, T tol2, int n_sweeps, int C, int R, int bits_in_smem,
+cc_kernel(Frame<typename O::in_t> f, int M, T tol2, int n_sweeps, int C, int R, int bits_in_smem,
           unsigned* __restrict__ bits_global, T* __restrict__ frame_global,
           int* __restrict__ lab_global, int* __restrict__ labels,
           int* __restrict__ sweeps, uint8_t* __restrict__ adj) {
@@ -139,7 +201,7 @@ cc_kernel(Frame<T> f, int M, T tol2, int n_sweeps, int C, int R, int bits_in_sme
   const int s = blockIdx.x / C;
   const int W = (M + 31) / 32, Wp = W + 1;
   const int t = threadIdx.x;
-  const T* X = f.pts + (size_t)s * f.pfs;
+  const typename O::in_t* X = f.pts + (size_t)s * f.pfs;
   const uint8_t* MK = f.mask + (size_t)s * f.mfs;
   unsigned* bits = (!kDeviceFrame && bits_in_smem) ? sm : bits_global + (size_t)blockIdx.x * Wp * R;
   T* P = kDeviceFrame ? frame_global + (size_t)blockIdx.x * frame_floats(M)
@@ -156,7 +218,7 @@ cc_kernel(Frame<T> f, int M, T tol2, int n_sweeps, int C, int R, int bits_in_sme
   if (t < 3) s_vote[t] = 0;
   __syncthreads();
   int local = 0;
-  for (int q = t; q < 3 * M; q += blockDim.x) P[q] = X[q];  // the frame, staged
+  for (int q = t; q < 3 * M; q += blockDim.x) P[q] = O::load(X[q]);  // the frame, staged
   for (int i = t; i < M; i += blockDim.x) {
     if (MK[i]) {
       ++local;
@@ -191,19 +253,18 @@ cc_kernel(Frame<T> f, int M, T tol2, int n_sweeps, int C, int R, int bits_in_sme
   if (t < 3) {
     T a = T(0);
     for (int i = 0; i < n; ++i) a = fp::add(a, part[cur][t * n + i]);
-    s_c[t] = fp::div(a, fmax((T)s_cnt, T(1)));
+    s_c[t] = O::centre(a, s_cnt);
   }
   __syncthreads();
   for (int i = t; i < M; i += blockDim.x) {  // in place: row i is this thread's alone
-    const T mf = valid(i) ? T(1) : T(0);
-    const T p0 = fp::mul(fp::sub(P[3 * i], s_c[0]), mf);
-    const T p1 = fp::mul(fp::sub(P[3 * i + 1], s_c[1]), mf);
-    const T p2 = fp::mul(fp::sub(P[3 * i + 2], s_c[2]), mf);
+    const bool in = valid(i);
+    const T p0 = O::centred(P[3 * i], s_c[0], in);
+    const T p1 = O::centred(P[3 * i + 1], s_c[1], in);
+    const T p2 = O::centred(P[3 * i + 2], s_c[2], in);
     P[3 * i] = p0;
     P[3 * i + 1] = p1;
     P[3 * i + 2] = p2;
-    const T sq = fp::fma(p2, p2, fp::fma(p1, p1, fp::mul(p0, p0)));
-    SQ[i] = valid(i) ? sq : invalid_sq;
+    SQ[i] = in ? O::sq(p0, p1, p2) : invalid_sq;
   }
   __syncthreads();
 
@@ -229,8 +290,7 @@ cc_kernel(Frame<T> f, int M, T tol2, int n_sweeps, int C, int R, int bits_in_sme
         for (int u = 0; u < 4; ++u) {
           if (bb[u] < 0) continue;
           const int j = 32 * w + bb[u];
-          const T g = fp::fma(z, P[3 * j + 2], fp::fma(y, P[3 * j + 1], fp::mul(x, P[3 * j])));
-          const T d2 = fp::sub(fp::add(sqi, SQ[j]), fp::mul(T(2), g));
+          const T d2 = O::d2(x, y, z, P[3 * j], P[3 * j + 1], P[3 * j + 2], sqi, SQ[j]);
           if (d2 <= tol2) word |= 1u << bb[u];
         }
       }
@@ -349,17 +409,17 @@ cc_kernel(Frame<T> f, int M, T tol2, int n_sweeps, int C, int R, int bits_in_sme
 
 // Once per process and device: a kernel's shared-memory limit and its
 // non-portable cluster size.
-template <class T, bool kLabels, bool kDeviceFrame>
+template <class T, class O, bool kLabels, bool kDeviceFrame>
 cudaError_t allow(size_t smem) {
   static size_t set[16];
   int d = 0;
   cudaError_t err = cudaGetDevice(&d);
   if (err != cudaSuccess) return err;
   if (d < 16 && set[d] >= smem) return cudaSuccess;
-  err = cudaFuncSetAttribute(cc_kernel<T, kLabels, kDeviceFrame>,
+  err = cudaFuncSetAttribute(cc_kernel<T, O, kLabels, kDeviceFrame>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && kLabels)
-    err = cudaFuncSetAttribute(cc_kernel<T, kLabels, kDeviceFrame>,
+    err = cudaFuncSetAttribute(cc_kernel<T, O, kLabels, kDeviceFrame>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess && d < 16) set[d] = smem;
   return err;
@@ -372,8 +432,8 @@ size_t smem_bytes(int M, int R, bool bits_in_smem) {
   return region + (bits_in_smem ? 4 * bits_words<T>(W, R) : 0);
 }
 
-template <class T, bool kLabels, bool kDeviceFrame>
-int launch(const Frame<T>& f, int S, int M, T tol2, int n_sweeps, int cluster,
+template <class T, class O, bool kLabels, bool kDeviceFrame>
+int launch(const Frame<typename O::in_t>& f, int S, int M, T tol2, int n_sweeps, int cluster,
            unsigned* bits_global, T* frame_global, int* lab_global, int* labels,
            int* sweeps, uint8_t* adj, cudaStream_t st) {
   const int max_rows = kDeviceFrame ? kMaxDeviceRows : (sizeof(T) == 8 ? kMaxRowsF64 : kMaxRows);
@@ -384,7 +444,7 @@ int launch(const Frame<T>& f, int S, int M, T tol2, int n_sweeps, int cluster,
   const int R = (M + cluster - 1) / cluster;
   const bool in_smem = bits_global == nullptr;
   const size_t smem = kDeviceFrame ? (size_t)4 * ((M + 31) / 32) : smem_bytes<T>(M, R, in_smem);
-  cudaError_t err = allow<T, kLabels, kDeviceFrame>(smem);
+  cudaError_t err = allow<T, O, kLabels, kDeviceFrame>(smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(S * cluster, 1, 1);
@@ -398,23 +458,24 @@ int launch(const Frame<T>& f, int S, int M, T tol2, int n_sweeps, int cluster,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = kLabels ? 1 : 0;  // K8a's CTAs share nothing
-  err = cudaLaunchKernelEx(&cfg, cc_kernel<T, kLabels, kDeviceFrame>, f, M, tol2, n_sweeps,
+  err = cudaLaunchKernelEx(&cfg, cc_kernel<T, O, kLabels, kDeviceFrame>, f, M, tol2, n_sweeps,
                            cluster, R, (int)in_smem, bits_global, frame_global, lab_global,
                            labels, sweeps, adj);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <class T>
-int adjacency(const T* pts, int pfs, const uint8_t* mask, int mfs, int S, int M, T tol2,
-              int cluster, unsigned* bits_global, T* frame_global, uint8_t* adj, void* stream) {
-  const Frame<T> f{pts, pfs, mask, mfs};
+template <class T, class O = ExactOps<T>>
+int adjacency(const typename O::in_t* pts, int pfs, const uint8_t* mask, int mfs, int S, int M,
+              T tol2, int cluster, unsigned* bits_global, T* frame_global, uint8_t* adj,
+              void* stream) {
+  const Frame<typename O::in_t> f{pts, pfs, mask, mfs};
   const cudaStream_t st = (cudaStream_t)stream;
   if (frame_global)
-    return launch<T, false, true>(f, S, M, tol2, 0, cluster, bits_global, frame_global, nullptr,
-                                  nullptr, nullptr, adj, st);
-  return launch<T, false, false>(f, S, M, tol2, 0, cluster, bits_global, nullptr, nullptr,
-                                 nullptr, nullptr, adj, st);
+    return launch<T, O, false, true>(f, S, M, tol2, 0, cluster, bits_global, frame_global,
+                                     nullptr, nullptr, nullptr, adj, st);
+  return launch<T, O, false, false>(f, S, M, tol2, 0, cluster, bits_global, nullptr, nullptr,
+                                    nullptr, nullptr, adj, st);
 }
 
 }  // namespace
@@ -448,6 +509,26 @@ extern "C" int motl_cc_adjacency_f64(const double* pts, int pfs, const uint8_t* 
                            adj, stream);
 }
 
+// K8a's half builds: pts bf16 (motl_cc_adjacency_bf16) or f16 (_f16) rows,
+// frame_global f32 (the half values widened), tol2 tol * tol rounded to the
+// half type (a float); the rest, the frame's bounds included, as
+// motl_cc_adjacency.
+extern "C" int motl_cc_adjacency_bf16(const __nv_bfloat16* pts, int pfs, const uint8_t* mask,
+                                      int mfs, int S, int M, float tol2, int cluster,
+                                      unsigned* bits_global, float* frame_global, uint8_t* adj,
+                                      void* stream) {
+  return adjacency<float, HalfOps<fp::BF16>>(pts, pfs, mask, mfs, S, M, tol2, cluster,
+                                             bits_global, frame_global, adj, stream);
+}
+
+extern "C" int motl_cc_adjacency_f16(const __half* pts, int pfs, const uint8_t* mask, int mfs,
+                                     int S, int M, float tol2, int cluster,
+                                     unsigned* bits_global, float* frame_global, uint8_t* adj,
+                                     void* stream) {
+  return adjacency<float, HalfOps<fp::F16>>(pts, pfs, mask, mfs, S, M, tol2, cluster,
+                                            bits_global, frame_global, adj, stream);
+}
+
 // K8: labels (S, M) i32; sweeps (S,) i32 the sweeps run (the last one
 // changed nothing unless the cap cut the loop).
 extern "C" int motl_cc_labels(const float* pts, int pfs, const uint8_t* mask, int mfs, int S,
@@ -458,9 +539,11 @@ extern "C" int motl_cc_labels(const float* pts, int pfs, const uint8_t* mask, in
   const cudaStream_t st = (cudaStream_t)stream;
   if (frame_global) {
     int* lab_global = reinterpret_cast<int*>(frame_global + (size_t)S * cluster * frame_floats(M));
-    return launch<float, true, true>(f, S, M, tol2, n_sweeps, cluster, bits_global, frame_global,
-                                     lab_global, labels, sweeps, nullptr, st);
+    return launch<float, ExactOps<float>, true, true>(f, S, M, tol2, n_sweeps, cluster,
+                                                      bits_global, frame_global, lab_global,
+                                                      labels, sweeps, nullptr, st);
   }
-  return launch<float, true, false>(f, S, M, tol2, n_sweeps, cluster, bits_global, nullptr,
-                                    nullptr, labels, sweeps, nullptr, st);
+  return launch<float, ExactOps<float>, true, false>(f, S, M, tol2, n_sweeps, cluster,
+                                                     bits_global, nullptr, nullptr, labels,
+                                                     sweeps, nullptr, st);
 }

@@ -1,5 +1,5 @@
 // bf16 and f16 arithmetic as the JAX package's jitted CPU code computes it,
-// for the half builds of K2, K14, K3f and K4 (dtype="bfloat16" /
+// for the half builds of K2, K14, K3f, K4, K6f and K8a (dtype="bfloat16" /
 // "float16").  A half value lives in a float register (exactly: every
 // bf16 and f16 value is an f32 value) and is read from and written to
 // memory in its storage type.  Each op computes in f32 with the __f*_rn
@@ -30,6 +30,7 @@ namespace fp {
 struct BF16 {
   using storage = __nv_bfloat16;
   static constexpr bool kDivByProduct = false;  // x / c stays a division
+  static constexpr int kCountSat = 256;  // 0 + 1 + 1 + ... stops here (2^8 + 1 rounds to 2^8)
   static __device__ __forceinline__ float rnd(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
   }
@@ -56,6 +57,7 @@ struct BF16 {
 struct F16 {
   using storage = __half;
   static constexpr bool kDivByProduct = true;  // x / c is x * f16(1 / c) in XLA's f16 code
+  static constexpr int kCountSat = 2048;  // a count summed in f16 stops at 2^11
   static __device__ __forceinline__ float rnd(float x) {
     return __half2float(__float2half_rn(x));
   }

@@ -152,6 +152,26 @@ struct Half {
   static __device__ __forceinline__ float tol2(const float*, float arg) { return arg; }
 };
 
+// The half builds fed f32 sums (motl_grid_cc_bf16_f32sums / _f16_f32sums):
+// the JAX half route of voxel_mode="runs" on the dense grid.  Its
+// accumulator is f32 (K7's), the finalize divides in f32 (pipeline.py:591),
+// the static drop reads that f32 centroid, and the centroid is rounded to
+// the half type (:600) for the output and the stencil's half d^2 (Half's).
+template <class H>
+struct HalfF32Sums {
+  using CT = float;
+  static __device__ __forceinline__ Cent<float> cent(const float* A, int n, int i) {
+    return centroid<float, float>(A, n, i);
+  }
+  static __device__ __forceinline__ typename H::storage store(float v) { return H::store(v); }
+  static __device__ __forceinline__ bool occupied(float c) { return c > 0.0f; }
+  static __device__ __forceinline__ float d2(const Cent<float>& a, const Cent<float>& b) {
+    return Half<H>::d2({H::rnd(a.x), H::rnd(a.y), H::rnd(a.z)},
+                       {H::rnd(b.x), H::rnd(b.y), H::rnd(b.z)});
+  }
+  static __device__ __forceinline__ float tol2(const float*, float arg) { return arg; }
+};
+
 template <class T, class TA, class P>
 __global__ void __launch_bounds__(kThreads)
 grid_cc_kernel(const TA* __restrict__ acc, const int* __restrict__ brow,
@@ -400,6 +420,31 @@ extern "C" int motl_grid_cc_f16(const __half* acc, const int* brow, const int* b
   return launch<__half, __half, Half<fp::F16>>(acc, brow, bcol, bits, offs, n_off, scal, tol2, S,
                                                gx, gy, gz, kwin, max_sweeps, cluster, adj_global,
                                                cent, dyn, labels, nsw, stream);
+}
+
+// The half builds fed f32 sums: acc (S, 4, n) f32, finalized in f32 (the
+// static drop on that centroid), cent (S, 3, n) bf16 / f16 and tol2 as
+// motl_grid_cc_bf16 / _f16.
+extern "C" int motl_grid_cc_bf16_f32sums(const float* acc, const int* brow, const int* bcol,
+                                         const int* bits, const int* offs, int n_off,
+                                         const float* scal, float tol2, int S, int gx, int gy,
+                                         int gz, int kwin, int max_sweeps, int cluster,
+                                         unsigned* adj_global, __nv_bfloat16* cent, uint8_t* dyn,
+                                         int* labels, int* nsw, void* stream) {
+  return launch<__nv_bfloat16, float, HalfF32Sums<fp::BF16>>(
+      acc, brow, bcol, bits, offs, n_off, scal, tol2, S, gx, gy, gz, kwin, max_sweeps, cluster,
+      adj_global, cent, dyn, labels, nsw, stream);
+}
+
+extern "C" int motl_grid_cc_f16_f32sums(const float* acc, const int* brow, const int* bcol,
+                                        const int* bits, const int* offs, int n_off,
+                                        const float* scal, float tol2, int S, int gx, int gy,
+                                        int gz, int kwin, int max_sweeps, int cluster,
+                                        unsigned* adj_global, __half* cent, uint8_t* dyn,
+                                        int* labels, int* nsw, void* stream) {
+  return launch<__half, float, HalfF32Sums<fp::F16>>(
+      acc, brow, bcol, bits, offs, n_off, scal, tol2, S, gx, gy, gz, kwin, max_sweeps, cluster,
+      adj_global, cent, dyn, labels, nsw, stream);
 }
 
 // The largest cluster (16, 8, 4, 2 or 1 CTAs) of which the card can hold

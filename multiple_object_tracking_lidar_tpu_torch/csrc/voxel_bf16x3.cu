@@ -30,6 +30,14 @@
 // sums, and the sums of the f64 one-hot contraction that voxel_quant=
 // "exact" takes under f64 (voxel_grid.py:242-254), there up to XLA's own
 // summation order.
+// Its half builds (motl_voxel_sums_bf16 / _f16, dtype="bfloat16" /
+// "float16") are mode 1 on f32 points that hold the frame's points rounded
+// to the half type: the JAX half scatter-add keeps a half accumulator and
+// XLA's CPU code rounds each update to it (bf16: an f32 add rounded; f16:
+// the native add -- both the correctly rounded half sum), so each add here
+// is __fadd_rn rounded to the half type, in the same order, and the count
+// is the half sum of ones, which stops at 256 in bf16 and 2,048 in f16.
+// Past 65,504 an f16 sum is inf, as in JAX.
 //
 // The summation order.  Float atomics would change the bits from run to
 // run, and the TPU's MXU order (mode 0) has no counterpart to copy.  So K6
@@ -110,7 +118,7 @@
 
 #include <type_traits>
 
-#include "fp_rn.cuh"
+#include "fp_half.cuh"
 
 namespace {
 
@@ -443,10 +451,33 @@ struct Parts {
   }
 };
 
-template <int kMode, class T>
+// How the sums add and store: in the points' type T (f32, f64), each add
+// rounded to it; or, for the half builds, in the half type of policy H on
+// f32 points that hold half values: each add rounded to H, as XLA's CPU
+// scatter-add rounds each update of its half accumulator, and the count a
+// half sum of ones -- exact up to 2^p (256 in bf16, 2,048 in f16), where
+// adding 1 rounds back to it.
+template <class T>
+struct ExactAcc {
+  using out_t = T;
+  static __device__ __forceinline__ T add(T a, T b) { return fp::add(a, b); }
+  static __device__ __forceinline__ out_t store(T v) { return v; }
+  static __device__ __forceinline__ out_t count(int n) { return (T)n; }
+};
+template <class H>
+struct HalfAcc {
+  using out_t = typename H::storage;
+  static __device__ __forceinline__ float add(float a, float b) { return fp::hadd<H>(a, b); }
+  static __device__ __forceinline__ out_t store(float v) { return H::store(v); }
+  static __device__ __forceinline__ out_t count(int n) {
+    return H::store((float)min(n, H::kCountSat));
+  }
+};
+
+template <int kMode, class T, class A = ExactAcc<T>>
 __global__ void __launch_bounds__(kThreads)
 sum_kernel(const T* __restrict__ sorted, const int* __restrict__ cells, int S, int N,
-           int n_cells, T* __restrict__ out) {
+           int n_cells, typename A::out_t* __restrict__ out) {
   using Pt = Parts<kMode, T>;
   constexpr int B = kBatch<T>, V = kVecN<T>;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
@@ -476,7 +507,7 @@ sum_kernel(const T* __restrict__ sorted, const int* __restrict__ cells, int S, i
     for (; vec && j < hi && (j % V); ++j) {
       Pt::of(src + 3 * (size_t)j, v);
 #pragma unroll
-      for (int k = 0; k < Pt::n; ++k) acc[k] = fp::add(acc[k], v[k]);
+      for (int k = 0; k < Pt::n; ++k) acc[k] = A::add(acc[k], v[k]);
     }
     for (; j + B <= hi; j += B) {
       T q[3 * B];
@@ -492,13 +523,13 @@ sum_kernel(const T* __restrict__ sorted, const int* __restrict__ cells, int S, i
       for (int u = 0; u < B; ++u) {
         Pt::of(q + 3 * u, v);
 #pragma unroll
-        for (int k = 0; k < Pt::n; ++k) acc[k] = fp::add(acc[k], v[k]);
+        for (int k = 0; k < Pt::n; ++k) acc[k] = A::add(acc[k], v[k]);
       }
     }
     for (; j < hi; ++j) {
       Pt::of(src + 3 * (size_t)j, v);
 #pragma unroll
-      for (int k = 0; k < Pt::n; ++k) acc[k] = fp::add(acc[k], v[k]);
+      for (int k = 0; k < Pt::n; ++k) acc[k] = A::add(acc[k], v[k]);
     }
   }
   Pt::result(acc, r);
@@ -527,24 +558,24 @@ sum_kernel(const T* __restrict__ sorted, const int* __restrict__ cells, int S, i
         for (int q = 0; q < 32; ++q) {
 #pragma unroll
           for (int k = 0; k < Pt::n; ++k)
-            acc[k] = fp::add(acc[k], __shfl_sync(0xffffffffu, v[k], q));
+            acc[k] = A::add(acc[k], __shfl_sync(0xffffffffu, v[k], q));
         }
       } else {
         for (int q = 0; q < lhi - b; ++q) {
 #pragma unroll
           for (int k = 0; k < Pt::n; ++k)
-            acc[k] = fp::add(acc[k], __shfl_sync(0xffffffffu, v[k], q));
+            acc[k] = A::add(acc[k], __shfl_sync(0xffffffffu, v[k], q));
         }
       }
     }
     if (lane == L) Pt::result(acc, r);
   }
   if (valid) {
-    T* O = out + (size_t)s * 4 * n_cells;
-    O[cell] = r[0];
-    O[n_cells + cell] = r[1];
-    O[2 * n_cells + cell] = r[2];
-    O[3 * n_cells + cell] = (T)(hi - lo);
+    typename A::out_t* O = out + (size_t)s * 4 * n_cells;
+    O[cell] = A::store(r[0]);
+    O[n_cells + cell] = A::store(r[1]);
+    O[2 * n_cells + cell] = A::store(r[2]);
+    O[3 * n_cells + cell] = A::count(hi - lo);
   }
 }
 
@@ -561,9 +592,10 @@ bool bad_plan(int S, int N, int n_tiles, int n_passes, int n_cells) {
 
 // Stages 2-3 of every entry, after stage 1 has written the keys and the
 // first histogram and initialised the rest; T the points' and sums' type.
-template <int kMode, class T>
+template <int kMode, class T, class A = ExactAcc<T>>
 int launch_sorted_sums(const T* pts, int S, int N, int n_tiles, int n_passes,
-                       const Scratch& sc, int n_cells, T* out, int* npts, cudaStream_t st) {
+                       const Scratch& sc, int n_cells, typename A::out_t* out, int* npts,
+                       cudaStream_t st) {
   const size_t frame = (size_t)S * N;
   const size_t hist_pass = (size_t)S * n_tiles * kRadix;
   T* sorted = static_cast<T*>(sc.sorted);
@@ -585,24 +617,25 @@ int launch_sorted_sums(const T* pts, int S, int N, int n_tiles, int n_passes,
   }
   const long long total = (long long)S * n_cells;
   const int blocks = (int)((total + kThreads - 1) / kThreads);
-  sum_kernel<kMode, T><<<blocks, kThreads, 0, st>>>(sorted, sc.cells, S, N, n_cells, out);
+  sum_kernel<kMode, T, A><<<blocks, kThreads, 0, st>>>(sorted, sc.cells, S, N, n_cells, out);
   return (int)cudaGetLastError();
 }
 
-template <class T>
+template <class T, class A = ExactAcc<T>>
 int launch_points(const T* pts, const uint8_t* mask, int S, int N, int n_tiles, int n_passes,
-                  const Scratch& sc, T* out, int* npts, const BfParams& p, int mode,
-                  cudaStream_t st) {
+                  const Scratch& sc, typename A::out_t* out, int* npts, const BfParams& p,
+                  int mode, cudaStream_t st) {
   key_kernel<T><<<dim3(n_tiles, S), kThreads, 0, st>>>(pts, mask, S, N, n_tiles, n_passes, p,
                                                        sc);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (std::is_same<A, ExactAcc<float>>::value) {
     if (mode == 0)
       return launch_sorted_sums<0, T>(pts, S, N, n_tiles, n_passes, sc, p.n_cells, out, npts,
                                       st);
   }
-  return launch_sorted_sums<1, T>(pts, S, N, n_tiles, n_passes, sc, p.n_cells, out, npts, st);
+  return launch_sorted_sums<1, T, A>(pts, S, N, n_tiles, n_passes, sc, p.n_cells, out, npts,
+                                     st);
 }
 
 // The key entries: stage 1 from the given bins (yz * gx + x), then the
@@ -661,6 +694,26 @@ extern "C" int motl_voxel_sums_f64(
                                (cudaStream_t)stream);
 }
 
+// K6f's half builds of mode 1 (motl_voxel_sums_bf16 / _f16, the JAX half
+// route's scatter-add, ops/voxel.py:55-97 under dtype="bfloat16" /
+// "float16"): points (S, N, 3) f32 holding half values (the frame's points
+// rounded to the half type and widened), their cells as the f32 build's;
+// sorted (S, N, 3) f32; out (S, 4, n_cells) of the half type -- each sum
+// from +0 in ascending point index, every add rounded to the half type,
+// the count the half sum of ones; the rest as motl_voxel_bf16x3.
+template <class H>
+int voxel_sums_half(const float* pts, const uint8_t* mask, int S, int N, int n_tiles,
+                    int n_passes, int* keys, int* pairs, int* hist, int* tilecnt, int* cells,
+                    float* sorted, typename H::storage* out, int* npts, int n_cells, int gx,
+                    int gy, int gz, int bx, int by, int bz, float inv_xy, float inv_z,
+                    void* stream) {
+  if (bad_plan(S, N, n_tiles, n_passes, n_cells)) return (int)cudaErrorInvalidValue;
+  const BfParams p{gx, gy, gz, bx, by, bz, n_cells, inv_xy, inv_z};
+  const Scratch sc{keys, pairs, hist, tilecnt, cells, sorted};
+  return launch_points<float, HalfAcc<H>>(pts, mask, S, N, n_tiles, n_passes, sc, out, npts, p,
+                                          1, (cudaStream_t)stream);
+}
+
 // The key entry: ix, iyz (S, N) i32 and in_bounds (S, N) u8 instead of the
 // mask and the grid geometry; n_cells = gyz * gx in iyz-major order.  The
 // bf16x3 sums of mode 0; the same scratch and output as motl_voxel_bf16x3,
@@ -695,4 +748,26 @@ extern "C" int motl_voxel_sums_keys_f64(
   const Scratch sc{keys, pairs, hist, tilecnt, cells, sorted};
   return launch_keys<1, double>(pts, ix, iyz, inb, S, N, n_tiles, n_passes, sc, out, gx, gyz,
                                 stream);
+}
+
+// K6f's half builds (voxel_sums_half above): points and sorted f32, out
+// (S, 4, n_cells) bf16 / f16.
+extern "C" int motl_voxel_sums_bf16(
+    const float* pts, const uint8_t* mask, int S, int N, int n_tiles, int n_passes,
+    int* keys, int* pairs, int* hist, int* tilecnt, int* cells, float* sorted,
+    __nv_bfloat16* out, int* npts, int n_cells, int gx, int gy, int gz, int bx, int by, int bz,
+    float inv_xy, float inv_z, void* stream) {
+  return voxel_sums_half<fp::BF16>(pts, mask, S, N, n_tiles, n_passes, keys, pairs, hist,
+                                   tilecnt, cells, sorted, out, npts, n_cells, gx, gy, gz, bx, by,
+                                   bz, inv_xy, inv_z, stream);
+}
+
+extern "C" int motl_voxel_sums_f16(
+    const float* pts, const uint8_t* mask, int S, int N, int n_tiles, int n_passes,
+    int* keys, int* pairs, int* hist, int* tilecnt, int* cells, float* sorted, __half* out,
+    int* npts, int n_cells, int gx, int gy, int gz, int bx, int by, int bz, float inv_xy,
+    float inv_z, void* stream) {
+  return voxel_sums_half<fp::F16>(pts, mask, S, N, n_tiles, n_passes, keys, pairs, hist,
+                                  tilecnt, cells, sorted, out, npts, n_cells, gx, gy, gz, bx, by,
+                                  bz, inv_xy, inv_z, stream);
 }

@@ -17,7 +17,10 @@ separately rounded op at a time, so no FMA contraction can break the
 G == 0 test.  Both the dense member table (the grid path) and the
 cluster-sorted point list (``circumcenter_features_sorted``) go that way;
 the JAX point-list path runs ``_one_cluster``, whose picks the JAX package
-documents as those of the pair-stats route (centroid.py:152-157).
+documents as those of the pair-stats route (centroid.py:152-157).  Under
+bf16 / f16 K3f's half builds are ``_one_cluster`` itself, as XLA's CPU
+code computes it (``centroid_cuda.circumcenter_features_half_plain``): on
+the dense grid's table and on the sorted list alike (P up to G's 512).
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ backends, as in the JAX package:
 - ``"jnp"``: min-label propagation with pointer jumps over the (M, M)
   adjacency, at most ``max_iters`` sweeps.  Plain torch; the adjacency is
   K8's first stage on the card (``ops/cluster_pallas.py::cc_adjacency``),
-  so both backends test the same d2 bits.  Its sweep count ``n_iters`` is
+  so both backends test the same d2 bits (under bf16 / f16 its half
+  builds, the JAX half adjacency).  Its sweep count ``n_iters`` is
   an output (the pipeline's ``cc_saturated``), so it is JAX's exactly: the
   sweep at which nothing changed, or ``max_iters``.  A converged sweep
   changes nothing, so frames of a batch run on together and the host checks

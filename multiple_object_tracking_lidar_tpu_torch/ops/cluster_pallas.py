@@ -30,6 +30,14 @@ rows stays in shared memory up to ``MAX_ROWS_F64`` = 4,096 rows.  K8 has
 no double build: the JAX Pallas CC casts the points to f32, and
 ``connected_components_pallas`` does too.
 
+Under ``dtype="bfloat16"`` and ``"float16"`` the jnp CC's adjacency is
+K8a's half builds (``motl_cc_adjacency_bf16`` / ``_f16``, counted in
+``cc_adjacency.launches_by``): the JAX half ``_pairwise_adjacency`` as
+XLA's jitted CPU code computes it in ``bind_env``'s programs
+(``cc_adjacency_half_plain``; the kernel reads the half rows and keeps the
+f32 build's frame bounds).  K8 stays f32 under half, as the JAX Pallas CC
+casts the points to f32.
+
 - ``connected_components_pallas``: labels (min point index per component,
   M for invalid rows); K8 on CUDA tensors, ``..._plain`` on CPU tensors.
 - ``cc_adjacency``: K8's adjacency stage alone (K8a, the same kernel body
@@ -48,6 +56,7 @@ import collections
 import torch
 
 from multiple_object_tracking_lidar_tpu_torch import _build
+from multiple_object_tracking_lidar_tpu_torch.ops.half import HALF
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import in_dtype
 
 BLOCK = 256         # cluster_pallas.py::_BLOCK: M % 256 == 0 for M > 256
@@ -184,6 +193,32 @@ def centred_rows(pts: torch.Tensor, mask: torch.Tensor):
     return p, torch.where(mask, sq, INVALID_SQ)
 
 
+def cc_adjacency_half_plain(pts: torch.Tensor, mask: torch.Tensor, tol: float) -> torch.Tensor:
+    """(S, M, M) bool: the JAX half ``_pairwise_adjacency`` (ops/cluster.py:
+    51-69) on bf16 / f16 rows, as XLA's CPU code computes it in the
+    tracking step's compiled programs (K8a's half builds): the column sum
+    of the rows times their 0/1 mask in f32 (the 32-row tree; the products
+    are exact), rounded, divided by the count rounded to the dtype; p =
+    (pts - c) rounded, 0 on invalid rows; sq the f32 sum of the squares
+    (bf16: the exact products -- XLA drops their rounding; f16: each
+    product rounded to f16) rounded once; the gram the f32 sum of the exact
+    products in ascending order, rounded once; d2 = ((sq_i + sq_j) - 2
+    gram), each op rounded; d2 <= tol * tol rounded to the dtype.  Invalid
+    rows are adjacent to nothing."""
+    dt = pts.dtype
+    cnt = torch.clamp(mask.sum(dim=1), min=1).to(dt)
+    tot = _tree_colsum(pts.float() * mask[..., None].float()).to(dt)
+    c = tot / cnt[:, None]
+    p = torch.where(mask[..., None], pts - c[:, None, :], torch.zeros((), dtype=dt))
+    pf = p.float()
+    sqs = (p * p).float() if dt == torch.float16 else pf * pf
+    sq = ((sqs[..., 0] + sqs[..., 1]) + sqs[..., 2]).to(dt)
+    pi, pj = pf[:, :, None, :], pf[:, None, :, :]
+    g = ((pi[..., 0] * pj[..., 0] + pi[..., 1] * pj[..., 1]) + pi[..., 2] * pj[..., 2]).to(dt)
+    d2 = (sq[:, :, None] + sq[:, None, :]) - 2.0 * g
+    return (d2 <= tol2_of(tol, dt)) & mask[:, :, None] & mask[:, None, :]
+
+
 def cc_adjacency_plain(pts: torch.Tensor, mask: torch.Tensor, tol: float) -> torch.Tensor:
     """(S, M, M) bool: d2 <= tol2 with K8's float ops, in the points'
     dtype (f32, or f64 as K8a's double build; self pairs included; invalid
@@ -272,10 +307,10 @@ def fits_smem(m: int, c: int, dtype: torch.dtype = torch.float32) -> bool:
 
 
 def _frames(p: torch.Tensor):
-    """(p, its frame stride in values): (S, M, 3) f32 or f64 rows, each
-    frame's (M, 3) contiguous, as compact_points' views are; else a copy
-    (other dtypes to f32)."""
-    if p.dtype not in (torch.float32, torch.float64):
+    """(p, its frame stride in values): (S, M, 3) f32, f64, bf16 or f16
+    rows, each frame's (M, 3) contiguous, as compact_points' views are; else
+    a copy (other dtypes to f32)."""
+    if p.dtype not in (torch.float32, torch.float64, *HALF):
         p = p.to(torch.float32)
     if p.stride(-1) != 1 or p.stride(-2) != 3:
         p = p.contiguous()
@@ -320,7 +355,8 @@ def _launch(entry, pts, mask, tol, cluster, extra, outs):
     s, m = p.shape[:2]
     mk = mask.reshape(s, m)
     p, pfs = _frames(p)
-    cluster, in_smem, device_frame = _layout(m, cluster, p.device, p.dtype)
+    work = torch.float32 if p.dtype in HALF else p.dtype     # the half builds stage f32
+    cluster, in_smem, device_frame = _layout(m, cluster, p.device, work)
     mk, mfs = _mask_frames(mk)
     bits = frame = None
     if not in_smem:
@@ -328,7 +364,7 @@ def _launch(entry, pts, mask, tol, cluster, extra, outs):
                            device=p.device)
     if device_frame:
         frame = torch.empty(s * cluster * (4 * m + 6 * -(-m // 32)) + s * 2 * m,
-                            dtype=p.dtype, device=p.device)
+                            dtype=work, device=p.device)
     err = getattr(_build.load(), entry)(
         p.data_ptr(), pfs, mk.data_ptr(), mfs, s, m, tol2_of(tol, p.dtype), *extra, cluster,
         *(None if b is None else b.data_ptr() for b in (bits, frame)),
@@ -337,20 +373,30 @@ def _launch(entry, pts, mask, tol, cluster, extra, outs):
     _build.check(err, entry)
 
 
+_ADJ_ENTRY = {torch.float64: "motl_cc_adjacency_f64", torch.bfloat16: "motl_cc_adjacency_bf16",
+              torch.float16: "motl_cc_adjacency_f16"}
+
+
 def cc_adjacency(pts: torch.Tensor, mask: torch.Tensor, tol: float,
                  cluster: int | None = None) -> torch.Tensor:
     """K8's adjacency stage (K8a) on CUDA tensors, its plain version on CPU
     tensors: bool (M, M), or (S, M, M) for stacked frames.  f64 points take
-    the double build (``.launches_by["motl_cc_adjacency_f64"]``), any other
-    dtype f32.  ``cluster``
+    the double build (``.launches_by["motl_cc_adjacency_f64"]``), bf16 and
+    f16 points the half builds (``motl_cc_adjacency_bf16`` / ``_f16``:
+    ``cc_adjacency_half_plain``), any other dtype f32.  ``cluster``
     overrides ``cc_layout``'s CTAs per frame (for checks and sweeps)."""
     if pts.device.type == "cpu":
+        if pts.dtype in HALF:
+            single = pts.dim() == 2
+            p = pts[None] if single else pts
+            adj = cc_adjacency_half_plain(p, mask.reshape(p.shape[:2]) != 0, tol)
+            return adj[0] if single else adj
         p, m, single = _stack(pts, mask, keep_f64=True)
         adj = cc_adjacency_plain(p, m, tol)
         return adj[0] if single else adj
     s, n = (1,) + pts.shape[:1] if pts.dim() == 2 else pts.shape[:2]
     adj = torch.empty((s, n, n), dtype=torch.bool, device=pts.device)
-    entry = "motl_cc_adjacency_f64" if pts.dtype == torch.float64 else "motl_cc_adjacency"
+    entry = _ADJ_ENTRY.get(pts.dtype, "motl_cc_adjacency")
     _launch(entry, pts, mask, tol, cluster, (), (adj,))
     _build.count(cc_adjacency, entry, "motl_cc_adjacency")
     return adj[0] if pts.dim() == 2 else adj
@@ -368,8 +414,8 @@ def connected_components_pallas(pts: torch.Tensor, mask: torch.Tensor, tol: floa
     CUDA tensors (one launch), its plain version on CPU tensors.
     ``with_sweeps`` also returns the sweeps run (the largest over frames; a
     host read).  ``cluster`` overrides ``cc_layout``'s CTAs per frame.
-    f64 points are rounded to f32 first, as the JAX Pallas CC rounds them
-    (cluster_pallas.py:132): K8 has no double build."""
+    f64, bf16 and f16 points are taken to f32 first, as the JAX Pallas CC
+    casts them (cluster_pallas.py:132): K8 has no double or half build."""
     if pts.device.type == "cpu":
         return connected_components_pallas_plain(pts, mask, tol, n_sweeps, with_sweeps)
     if pts.dtype != torch.float32:

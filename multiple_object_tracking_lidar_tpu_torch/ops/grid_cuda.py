@@ -23,7 +23,11 @@ build's launches and ``.launches_by`` every build's by C entry: its double
 build (``dtype="float64"``: the f64 accumulator, centroids and d^2,
 ``motl_grid_cc_f64``) and the double build fed f32 sums
 (``voxel_mode="runs"`` under f64: K7's f32 accumulator finalized in f32,
-the centroid widened, then the f64 d^2; ``motl_grid_cc_f64_f32sums``).
+the centroid widened, then the f64 d^2; ``motl_grid_cc_f64_f32sums``),
+the half builds (``motl_grid_cc_bf16`` / ``_f16``) and the half builds fed
+f32 sums (``voxel_mode="runs"`` under bf16 / f16: K7's f32 accumulator
+finalized in f32, the static drop on that centroid, the centroid rounded
+for the half d^2; ``motl_grid_cc_bf16_f32sums`` / ``_f16_f32sums``).
 """
 
 from __future__ import annotations
@@ -158,7 +162,9 @@ def fused_finalize_static_cc_stacked_plain(
     (``tol`` required), as the JAX package's f64 route computes them.
     ``dtype=torch.float64`` on f32 ``accs`` is the build fed f32 sums: the
     centroids finalized in f32, then widened, the rest as the double
-    build's."""
+    build's; a half ``dtype`` on f32 ``accs`` the half build fed f32 sums
+    (the half runs grid): the f32 finalize, the static drop on the f32
+    centroid, the centroid rounded to the half dtype for the half d^2."""
     gx, gy, gz = dims
     n = gx * gy * gz
     s = accs.shape[0]
@@ -169,16 +175,21 @@ def fused_finalize_static_cc_stacked_plain(
     # the half sums, rounded), its stencil d^2 in the half dtype (ops/
     # cluster_pallas.py::fma) against tol * tol rounded to it
     half = out_dtype in (torch.bfloat16, torch.float16)
+    f32_sums = accs.dtype == torch.float32
     if accs.dtype != torch.float64:
         accs = accs.to(torch.float32)
     cnt = accs[:, 3]
-    cent = (accs[:, :3] / torch.clamp(cnt, min=1.0)[:, None, :]).to(out_dtype)
+    c_acc = accs[:, :3] / torch.clamp(cnt, min=1.0)[:, None, :]     # the finalize, in f32 or f64
+    cent = c_acc.to(out_dtype)
     ox, oy, cosv, sinv, invr, tol2 = (scal[q] for q in range(6))
     if f64 or half:
         tol2 = torch.tensor(in_dtype(float(tol) * float(tol), out_dtype), dtype=out_dtype,
                             device=dev)
-    xm = cent[:, 0].to(torch.float32) - ox
-    ym = cent[:, 1].to(torch.float32) - oy
+    # the static drop reads the finalized centroid: f32 sums' f32 one, else
+    # the output's, rounded to f32
+    c_map = c_acc if f32_sums else cent.to(torch.float32)
+    xm = c_map[:, 0] - ox
+    ym = c_map[:, 1] - oy
     col = ((cosv * xm - sinv * ym) * invr).to(torch.int32)
     row = ((sinv * xm + cosv * ym) * invr).to(torch.int32)
     qr = row - base_row
@@ -225,6 +236,8 @@ def fused_finalize_static_cc_stacked_plain(
 _BUILDS = {(torch.float32, torch.float32): "motl_grid_cc",
            (torch.float64, torch.float64): "motl_grid_cc_f64",
            (torch.float32, torch.float64): "motl_grid_cc_f64_f32sums",
+           (torch.float32, torch.bfloat16): "motl_grid_cc_bf16_f32sums",
+           (torch.float32, torch.float16): "motl_grid_cc_f16_f32sums",
            (torch.bfloat16, torch.bfloat16): "motl_grid_cc_bf16",
            (torch.float16, torch.float16): "motl_grid_cc_f16"}
 
@@ -252,7 +265,9 @@ def fused_finalize_static_cc_stacked(
     build (``motl_grid_cc_bf16`` / ``_f16``: the JAX half route's finalize,
     static drop and stencil CC); an f32 one with
     ``dtype=torch.float64`` the double build fed f32 sums
-    (``motl_grid_cc_f64_f32sums``).  ``max_sweeps=None`` caps the
+    (``motl_grid_cc_f64_f32sums``), and with a half ``dtype`` the half
+    build fed f32 sums (``motl_grid_cc_bf16_f32sums`` / ``_f16_f32sums``:
+    the half runs grid).  ``max_sweeps=None`` caps the
     iterations at the grid-diameter bound 2 (gx + gy + gz); ``cluster=None`` takes ``cluster_size``'s CTAs
     per frame (any size gives the same results; the plain version on a CPU
     tensor has no CTAs and ignores it)."""
@@ -273,7 +288,7 @@ def fused_finalize_static_cc_stacked(
     dt = dtype or accs_cm.dtype
     if (accs_cm.shape != (s, 4, n) or (accs_cm.dtype, dt) not in _BUILDS):
         raise ValueError(f"accs must be (S, 4, {n}) float32, float64, bfloat16 or float16 and "
-                         f"dtype the same (or float64 on float32 sums), got "
+                         f"dtype the same (or float64, bfloat16, float16 on float32 sums), got "
                          f"{tuple(accs_cm.shape)} {accs_cm.dtype} -> {dt}")
     for name, t in (("base_row", base_row), ("base_col", base_col), ("bits", bits)):
         if t.shape != (n,) or t.dtype != torch.int32 or t.device != dev:

@@ -21,6 +21,10 @@ body: one launch per call, each row one 16-byte load and store, the carry
 the same chained scan over the same per-stream scratch.  No path of the
 JAX package reaches it.
 
+K7 has f32 builds alone: under ``dtype="float64"`` and the half dtypes the
+runs front ends feed it f32 values, as the JAX runs route casts its values
+to f32 (voxel_pallas.py:128, :350-352).
+
 ``segment_totals`` / ``segment_totals_rows`` launch the kernel for CUDA
 tensors and run ``segment_totals_plain`` / ``segment_totals_rows_plain``
 for CPU tensors; ``.launches`` counts kernel launches.  Rows are (N,) or

@@ -115,21 +115,29 @@ def _squeeze(points, mask):
 
 
 def voxel_accumulate_stacked(
-    points: torch.Tensor, mask: torch.Tensor, scene: SceneBounds, leaf_xy: float, leaf_z: float
+    points: torch.Tensor, mask: torch.Tensor, scene: SceneBounds, leaf_xy: float, leaf_z: float,
+    dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """((S, 4, n_cells) channel-major [sum_x, sum_y, sum_z, count] of the
     points' dtype, (S,) i32 mask-nonzero counts): one K6 f32-mode call for
     S frames.  f64 points sum in f64 (the JAX f64 scatter-add), K6f's
-    double build on the card (``accumulate_f32_stacked``)."""
+    double build on the card (``accumulate_f32_stacked``); bf16 / f16
+    points sum in their dtype, each add rounded to it and the count
+    saturating (the JAX half scatter-add: ops/voxel.py:55-97), K6f's half
+    builds on the points widened to f32 -- and so do f32 points holding
+    half values under a half ``dtype``."""
     # imported here: voxel_grid_cuda imports this module
     from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
         accumulate_f32_stacked,
     )
 
     points, mask, _ = _squeeze(points, mask)
+    half = dtype if dtype in (torch.bfloat16, torch.float16) else None
+    if points.dtype in (torch.bfloat16, torch.float16):
+        half = points.dtype
     if points.dtype != torch.float64:
         points = points.to(torch.float32)
-    return accumulate_f32_stacked(points.contiguous(), mask, scene, leaf_xy, leaf_z)
+    return accumulate_f32_stacked(points.contiguous(), mask, scene, leaf_xy, leaf_z, dtype=half)
 
 
 def voxel_accumulate(
@@ -146,7 +154,10 @@ def voxel_finalize_cm(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(S, 4, n_cells) accumulators -> ((S, m_max, 3) centroids, (S, m_max)
     mask, (S,) occupied-cell counts): centroid = sum / max(count, 1), the
-    occupied cells packed in ascending cell index, the rest dropped."""
+    occupied cells packed in ascending cell index, the rest dropped.  In
+    the accumulator's dtype: a half division is the f32 quotient rounded
+    once, as XLA's CPU code divides bf16 (f16: its native division, the
+    same correctly rounded value)."""
     cent = acc[:, :3] / torch.clamp(acc[:, 3:4], min=1.0)           # (S, 3, nc)
     return compact_points(cent.permute(0, 2, 1), acc[:, 3] > 0, m_max)
 
@@ -168,15 +179,19 @@ def voxel_downsample_dense(points, mask, scene: SceneBounds, leaf_xy: float, lea
 
 
 def voxel_downsample_scan(points, mask, scene: SceneBounds, leaf_xy: float, leaf_z: float,
-                          m_max: int):
+                          m_max: int, dtype: torch.dtype | None = None):
     """Scatter-free voxel centroid downsample, the dense path's semantics
     and order: co-sort (key, x, y, z, w) by cell (stable), segmented
     Hillis-Steele prefix sums ``v + where(same, shifted, 0.0)`` (the last
     row of each run holds its total), then gather-only compaction through
     a cumsum and a searchsorted.  ((S, m_max, 3), (S, m_max), (S,)), or the
     single-frame shapes for an (N, 3) input.  The cells come from the
-    points rounded to f32; the sums are in the points' dtype (f32 or f64,
-    ``w`` in ``points.dtype`` as JAX's: ops/voxel.py:166)."""
+    points rounded to f32; the sums are in the points' dtype (f32, f64,
+    bf16 or f16: ``w`` in ``points.dtype`` as JAX's, ops/voxel.py:166), or
+    in ``dtype`` where given (the half dtype of f32 points that hold half
+    values): each pass's add and the final division rounded to it, as
+    XLA's CPU code rounds them under bf16 / f16 (no kernel: the JAX scan
+    is jnp)."""
     from multiple_object_tracking_lidar_tpu_torch.ops.voxel_grid_cuda import (
         kept_cells,
         kernel_params,
@@ -188,7 +203,7 @@ def voxel_downsample_scan(points, mask, scene: SceneBounds, leaf_xy: float, leaf
     p = pts.to(torch.float32)
     ok, lin, _ = kept_cells(p, msk, k)
     keys = torch.where(ok, lin, nc)
-    v = pts if pts.dtype == torch.float64 else p
+    v = pts.to(dtype) if dtype is not None else (pts if pts.dtype != torch.float32 else p)
     w = ok.to(v.dtype)
     vals = torch.cat([torch.where(ok[..., None], v, 0.0), w[..., None]], dim=-1)
     ks, perm = torch.sort(keys, dim=1, stable=True)

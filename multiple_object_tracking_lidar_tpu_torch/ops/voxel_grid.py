@@ -27,6 +27,11 @@ in XLA's ``dot_general`` order.  The port takes K6f's double build
 (``accumulate_f32_stacked``): the same sums in ascending point index, so
 they agree to a few ulps, not bit for bit.
 
+Under ``dtype="bfloat16"`` / ``"float16"`` every route stays f32 (K1, K5,
+K6 on the points rounded to the half dtype and widened) and the caller
+rounds the sums, counts included, to the half dtype, as the JAX one-hot
+routes round their f32 sums (voxel_grid.py:239).
+
 ``accumulate_from_indices`` is the port of ``_accumulate_pallas``, the
 TPU's first one-hot accumulator, whose caller quantizes; no tracking path
 runs it.

@@ -17,7 +17,11 @@ K6 (bf16x3 sums).
   accumulator (``voxel_mode="dense"``), whose JAX form is an XLA
   scatter-add, not a Pallas kernel; on f64 points its double build
   (K6f f64, ``dtype="float64"``) sums them in f64, the cells from the
-  points rounded to f32.
+  points rounded to f32; its half builds (K6f bf16 / f16, the half
+  dtypes) sum f32 points holding half values in the half dtype, each add
+  rounded, the count saturating (``half_count``).  K1, K5 and K6's bf16x3
+  mode have f32 builds alone: the one-hot routes sum in f32 under every
+  dtype, and the caller rounds the sums.
 
 Each CUDA header says what bounds the kernel on the H100 and how its design
 answers that.  K1 and K5 sum integer digits with integer atomics, so their
@@ -678,11 +682,13 @@ def _sums_in_key_order(p, key, n_bins, parts):
     return acc, counts
 
 
-def _ordered_sums_plain(points, mask, scene, leaf_xy, leaf_z, parts):
+def _ordered_sums_plain(points, mask, scene, leaf_xy, leaf_z, parts, dtype=None):
     """``_sums_in_key_order`` over the S frames' cells (bin frame * nc +
     lin): the (S * nc, 3, k) sums and the (S * nc,) counts.  The cells come
     from the f32 points (the JAX quantize is f32 in every dtype); f64
-    points are summed as they are."""
+    points are summed as they are, and a half ``dtype`` sums the points
+    (f32 holding half values) in that dtype, each add rounded to it (torch's
+    CPU half add computes in f32 and rounds once)."""
     k = kernel_params(scene, leaf_xy, leaf_z)
     s = points.shape[0]
     nc = k["n_cells"]
@@ -690,14 +696,26 @@ def _ordered_sums_plain(points, mask, scene, leaf_xy, leaf_z, parts):
     ok, lin, _ = kept_cells(p, mask, k)
     frame = torch.arange(s, device=p.device)[:, None]
     key = torch.where(ok, frame * nc + lin, s * nc).reshape(-1)
-    vals = points if points.dtype == torch.float64 else p
+    vals = points if points.dtype == torch.float64 else p.to(dtype or torch.float32)
     return _sums_in_key_order(vals.reshape(-1, 3), key, s * nc, parts)
+
+
+# a count summed in a half dtype, 0 + 1 + 1 + ..., stops where adding 1
+# rounds back: 2^8 in bf16, 2^11 in f16
+COUNT_SAT = {torch.bfloat16: 256, torch.float16: 2048}
+
+
+def half_count(counts: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Integer counts as the JAX half route sums them (``w`` added in the
+    half dtype): exact up to ``COUNT_SAT``, then stuck there."""
+    return torch.clamp(counts, max=COUNT_SAT[dtype]).to(dtype)
 
 
 def _cell_major(sums, counts, s):
     """(S * nc, 3) sums and (S * nc,) counts -> (S, 4, nc) of the sums'
-    dtype."""
-    out = torch.cat([sums, counts[:, None].to(sums.dtype)], dim=1)
+    dtype (a half count saturates as ``half_count``)."""
+    cnt = half_count(counts, sums.dtype) if sums.dtype in COUNT_SAT else counts.to(sums.dtype)
+    out = torch.cat([sums, cnt[:, None]], dim=1)
     return out.reshape(s, -1, 4).permute(0, 2, 1).contiguous()
 
 
@@ -710,12 +728,13 @@ def accumulate_bf16x3_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
     return _cell_major(sums, counts, s), _npts(mask, s)
 
 
-def accumulate_f32_stacked_plain(points, mask, scene, leaf_xy, leaf_z):
+def accumulate_f32_stacked_plain(points, mask, scene, leaf_xy, leaf_z, dtype=None):
     """Plain PyTorch version of K6's f32 mode: the coordinates themselves
     summed in K6's order -- the order in which XLA's CPU scatter-add
-    (``ops/voxel.py::voxel_accumulate`` of the JAX package) applies them."""
+    (``ops/voxel.py::voxel_accumulate`` of the JAX package) applies them;
+    in ``dtype`` where it is bf16 or f16 (K6f's half builds)."""
     acc, counts = _ordered_sums_plain(points, mask, scene, leaf_xy, leaf_z,
-                                      lambda v: v[..., None])
+                                      lambda v: v[..., None], dtype)
     s = points.shape[0]
     return _cell_major(acc[..., 0], counts, s), _npts(mask, s)
 
@@ -761,10 +780,16 @@ def _sorted_sums_scratch(s: int, n: int, nc: int, dev, dtype=torch.float32):
     return plan, buf, ptrs, out
 
 
-def _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, mode: int):
+# K6f's builds by the sums' dtype (mode 1)
+_SUMS_ENTRY = {torch.float32: "motl_voxel_bf16x3", torch.float64: "motl_voxel_sums_f64",
+               torch.bfloat16: "motl_voxel_sums_bf16", torch.float16: "motl_voxel_sums_f16"}
+
+
+def _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, mode: int, dtype=None):
     """Launch K6 (mode 0 bf16x3, mode 1 f32; mode 1 on f64 points its
-    double build, ``motl_voxel_sums_f64``): ((S, 4, n_cells) of the
-    points' dtype, (S,) i32); the kernels zero their own counters and
+    double build, ``motl_voxel_sums_f64``; mode 1 on f32 points with a half
+    ``dtype`` its half builds): ((S, 4, n_cells) of the sums' dtype, (S,)
+    i32), and the C entry launched; the kernels zero their own counters and
     count the mask."""
     f64 = points.dtype == torch.float64 and mode == 1
     s, n = _check_points(points, mask, "K6", dtypes=(torch.float64,) if f64 else None)
@@ -773,16 +798,20 @@ def _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, mode: int):
     m8 = _build.byte_mask(mask)
     dev = points.device
     plan, buf, ptrs, out = _sorted_sums_scratch(s, n, nc, dev, points.dtype)
+    sums = dtype if mode == 1 and dtype is not None else points.dtype
+    if sums != points.dtype:
+        out = torch.empty((s, 4, nc), dtype=sums, device=dev)
     npts = torch.empty((s,), dtype=torch.int32, device=dev)
-    entry = "motl_voxel_sums_f64" if f64 else "motl_voxel_bf16x3"
+    entry = _SUMS_ENTRY[sums] if mode == 1 else "motl_voxel_bf16x3"
     err = getattr(_build.load(), entry)(
         points.data_ptr(), m8.data_ptr(), s, n, plan["n_tiles"], plan["passes"], *ptrs,
         out.data_ptr(), npts.data_ptr(), nc,
         k["gx"], k["gy"], k["gz"], k["bx"], k["by"], k["bz"],
-        k["inv_xy"], k["inv_z"], *(() if f64 else (mode,)), _build.stream_ptr(dev),
+        k["inv_xy"], k["inv_z"], *((mode,) if entry == "motl_voxel_bf16x3" else ()),
+        _build.stream_ptr(dev),
     )
     _build.check(err, entry)
-    return out, npts
+    return out, npts, entry
 
 
 def accumulate_bf16x3_stacked(
@@ -795,9 +824,9 @@ def accumulate_bf16x3_stacked(
     """K6 (bf16x3 mode) on CUDA tensors, its plain version on CPU tensors."""
     if points.device.type == "cpu":
         return accumulate_bf16x3_stacked_plain(points, mask, scene, leaf_xy, leaf_z)
-    out = _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, 0)
+    out, npts, _ = _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, 0)
     accumulate_bf16x3_stacked.launches += 1
-    return out
+    return out, npts
 
 
 accumulate_bf16x3_stacked.launches = 0
@@ -809,18 +838,22 @@ def accumulate_f32_stacked(
     scene: SceneBounds,
     leaf_xy: float,
     leaf_z: float,
+    dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K6 (f32 mode) on CUDA tensors, its plain version on CPU tensors.
     f64 points sum in f64: on the card K6f's double build
     (``motl_voxel_sums_f64``, counted in ``.launches_by``), the JAX f64
     scatter-add's sums (the point list's and the vmap fleet's accumulator
-    under dtype="float64", and the exact route's there)."""
+    under dtype="float64", and the exact route's there).  ``dtype`` bf16 or
+    f16 on f32 points holding half values sums them in that dtype, each add
+    rounded, the count saturating (``half_count``): the JAX half
+    scatter-add's sums, K6f's half builds (``motl_voxel_sums_bf16`` /
+    ``_f16``) on the card."""
     if points.device.type == "cpu":
-        return accumulate_f32_stacked_plain(points, mask, scene, leaf_xy, leaf_z)
-    out = _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, 1)
-    entry = "motl_voxel_sums_f64" if points.dtype == torch.float64 else "motl_voxel_bf16x3"
+        return accumulate_f32_stacked_plain(points, mask, scene, leaf_xy, leaf_z, dtype)
+    out, npts, entry = _launch_sorted_sums(points, mask, scene, leaf_xy, leaf_z, 1, dtype)
     _build.count(accumulate_f32_stacked, entry, "motl_voxel_bf16x3")
-    return out
+    return out, npts
 
 
 accumulate_f32_stacked.launches = 0                   # the f32 build's

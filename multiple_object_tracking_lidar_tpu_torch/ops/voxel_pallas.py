@@ -18,6 +18,13 @@ the JAX route casts them (``segment_totals_raster``, voxel_pallas.py:
 and widens the centroids), and the voxel list divides the f32 totals by
 f64 counts (voxel_pallas.py:152-153), in f64.
 
+Under ``dtype="bfloat16"`` and ``"float16"`` K7 stays f32 too, on the
+points rounded to the half dtype and widened: JAX's ``w`` is f32
+(voxel_pallas.py:128), so ``points * w`` promotes to f32.  The voxel list
+rounds each run's count to the half dtype (:152) and divides the f32 totals
+by it in f32 (f32 / half promotes to f32), so its centroids are f32, and so
+is the point list after it, until the detections' cast (pipeline.py:820).
+
 Dropped points -- masked, out of bounds or NaN -- take the key ``n_cells``
 and sort to the end.  JAX casts ``floor(NaN)`` to int32 before its bounds
 test, so whether it drops a NaN point is implementation-defined; the port
@@ -94,14 +101,15 @@ def voxel_accumulate_runs_cm(points, mask, scene, leaf_xy, leaf_z) -> torch.Tens
 
 
 def voxel_downsample_runs(points, mask, scene: SceneBounds, leaf_xy: float, leaf_z: float,
-                          m_max: int):
+                          m_max: int, dtype: torch.dtype | None = None):
     """Voxel centroids of S frames (S, N, 3) through the sorted runs:
     ((S, m_max, 3), (S, m_max), (S,)), or the single-frame shapes for one
     (N, 3) frame.  The run ends come out of a second sort (of their row
     index; other rows go to the back), the totals of those rows are
     gathered, and each count is the distance between two run ends.  The
     totals are f32 (K7); the counts and the centroids are in the points'
-    dtype, f32 or f64."""
+    dtype, f32 or f64.  A half ``dtype`` (f32 points holding half values)
+    rounds the counts to it and divides in f32: f32 centroids."""
     single = points.dim() == 2
     if single:
         points, mask = points[None], mask[None]
@@ -119,7 +127,8 @@ def voxel_downsample_runs(points, mask, scene: SceneBounds, leaf_xy: float, leaf
     rows = torch.stack([torch.gather(c, 1, srcc) for c in (tx, ty, tz)], dim=-1)
     prev = torch.cat([torch.full((s, 1), -1, dtype=src.dtype, device=dev), src[:, :-1]], dim=1)
     dt = torch.float64 if points.dtype == torch.float64 else torch.float32
-    counts = torch.where(out_mask, src - prev, 1).to(dt)
+    counts = torch.where(out_mask, src - prev, 1)
+    counts = (counts.to(dtype) if dtype in (torch.bfloat16, torch.float16) else counts).to(dt)
     out = rows.to(dt) / torch.clamp(counts[..., None], min=1.0)
     out = torch.where(out_mask[..., None], out, 0.0)
     res = (out, out_mask, n_vox)

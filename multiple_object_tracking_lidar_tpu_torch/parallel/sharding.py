@@ -40,6 +40,9 @@ chosen as the JAX package chooses them (sharding.py:88-107):
   fleet pins; an explicit ``assoc_backend="pallas"`` raises, as it does
   there.
 
+Under ``dtype="bfloat16"`` or ``"float16"`` the fleet raises
+NotImplementedError (ROADMAP item 28's remaining parts).
+
 Collectives go through ``torch.distributed`` on the mesh's process groups:
 NCCL on the card, gloo on the CPU.
 """
@@ -133,6 +136,13 @@ class ShardedTracker:
         if self.kernel_path not in ("auto", "on", "off"):
             raise ValueError(f"unknown kernel_path {self.kernel_path!r}")
         cfg = self.tracker.config
+        if cfg.dtype in ("bfloat16", "float16"):
+            # the half fleet (its sums, their all-reduce, the grid without a
+            # table) is not read from XLA's programs yet
+            raise NotImplementedError(
+                f"ShardedTracker under dtype={cfg.dtype!r} is not ported yet (ROADMAP Queue 1, "
+                "item 28's remaining parts: the fleet)"
+            )
         kernel_ok = (
             cfg.voxel_mode == "onehot"
             and cfg.cluster_backend == "grid"

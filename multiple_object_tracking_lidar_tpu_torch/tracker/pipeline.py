@@ -2,7 +2,7 @@
 
 Port of ``multiple_object_tracking_lidar_tpu/tracker/pipeline.py`` for f32
 and f64 (every configuration the JAX ``TrackerConfig`` accepts) and bf16
-and f16 (the dense grid's one-hot configurations), both
+and f16 (every perception front end, greedy association, fixed gains), both
 associations (``greedy``, and ``hungarian``, the optimal gated
 assignment) and both position filters (``lpf``, and ``ihgp``, the
 reference's present-but-disabled mode).  The reference's
@@ -49,21 +49,43 @@ K7's f32 sums under ``voxel_mode="runs"``: finalized in f32, then
 widened), the circumcenter K3f's and the track step K4's; the scan and
 the runs' division run in f64 torch.
 
-Under ``dtype="bfloat16"`` and ``"float16"`` (the dense grid fed by the
-one-hot accumulator, greedy association, fixed gains: ``check_config``)
-the stages follow the JAX half route as XLA's jitted CPU code computes it
-(read stage by stage from its compiled programs; ``ops/half.py`` spells
-the rules): the points are rounded to the half dtype and widened (JAX
-pipeline.py:846), K1 / K5 sum them in f32 and the sums, counts included,
-are rounded to the half dtype (voxel_grid.py:239: bf16 counts exact to 256,
-f16 to 2,048; f16 sums overflow to inf past 65,504, as in JAX); K2's half
+Under ``dtype="bfloat16"`` and ``"float16"`` (greedy association, fixed
+gains: ``check_config``) the stages follow the JAX half route as XLA's
+jitted CPU code computes it in ``bind_env``'s programs (read stage by
+stage from their HLO and machine code; ``ops/half.py`` spells the rules).
+The points are rounded to the half dtype and widened (JAX pipeline.py:846,
+:905, :916).  The front ends:
+
+- one-hot: K1 / K5 sum them in f32 (K6 at the exact route's coarse leaf)
+  and the sums, counts included, are rounded to the half dtype
+  (voxel_grid.py:239: bf16 counts exact to 256, f16 to 2,048; f16 sums
+  overflow to inf past 65,504, as in JAX);
+- scatter sums (``voxel_mode="dense"``): K6f's half builds, every update
+  rounded to the half dtype in ascending point index (XLA's CPU scatter
+  adds in f32 and rounds for bf16, natively for f16), the count a half sum
+  of ones (stuck at 256 in bf16, 2,048 in f16);
+- scan: the passes and the division as half ops (torch; no kernel);
+- runs: K7 in f32 (JAX's ``w`` is f32, voxel_pallas.py:128); on the grid
+  the accumulator, its finalize and the static drop stay f32 and K2's half
+  build fed f32 sums rounds the centroid for its half d^2; on the point
+  list the counts are rounded to the half dtype and the division is f32,
+  so that list stays f32 through K8 / K8a's f32 builds and K3f's f32
+  build, and the detections are cast at the end (pipeline.py:820).
+
+On the point list the finalize divides in half (a half division), the
+static drop reads the points widened to f32 (static_mask.py:263), the jnp
+CC's adjacency is K8a's half build (the column sum in f32 rounded once,
+the count rounded, sq and the gram as f32 sums rounded once -- bf16 sums
+exact squares, f16 its rounded squares --, d2 per op), the Pallas CC is K8
+on the points widened (cluster_pallas.py:132), and the circumcenter is
+K3f's half build on the cluster-sorted list.  On the dense grid K2's half
 build (or, without it, the finalize, the static drop and K14's half build)
 divides in f32 and rounds, takes the static drop on the centroid widened
 to f32 (static_mask.py:241), and the stencil's d^2 in the half dtype; the
 cluster table copies half values; K3f's half build is the jnp table route
 (``_one_cluster``: member mean, gram d2, line scan, determinant); K4's half
-build is the whole step in the half dtype.  Each elementwise op computes in
-f32 and rounds once; bf16 contracts no multiply-add, f16 contracts the
+build is the whole step in the half dtype (under every front end).  Each
+elementwise op computes in f32 and rounds once; bf16 contracts no multiply-add, f16 contracts the
 first product of an add or a subtraction of two products into one FMA
 rounded once, where the step's compiled code does (the circumcenter's e,
 f, G and numerators, the cross product, the LPF, the stencil's d^2, a
@@ -75,7 +97,9 @@ a mean is that sum times f32(1 / n) rounded; a division by a constant
 (dt) is the product by its reciprocal (f16: rounded to f16; bf16: the f32
 reciprocal, the product rounded), and bf16's velocity mean sums those
 products before their rounding.  Both dtypes give the JAX package's bits
-end to end (tests/test_torch_half.py, tests/test_torch_half_paths.py).
+end to end (tests/test_torch_half*.py), but the runs' point list, whose
+f32 circumcenter (K3f's arithmetic, not JAX's ``_one_cluster``) can cast
+a slot one half ulp off (ROADMAP Queue 3, F9).
 No stage in any dtype takes a plain version of a kernel on the card.  Every
 kernel lives in ``ops/*_cuda.py`` or ``ops/cluster_pallas.py``.
 Perception is stateless, so it runs on S stacked frames at once:
@@ -164,8 +188,8 @@ from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
 
 # The compute dtypes this package runs: f32 and f64 on every configuration
 # TrackerConfig accepts (it refuses the combinations the JAX package
-# refuses), bf16 and f16 on the dense grid's one-hot configurations
-# (``check_config``).
+# refuses), bf16 and f16 on every front end with greedy association and
+# fixed gains (``check_config``).
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -202,9 +226,8 @@ def resolve_device(device: torch.device | str) -> torch.device:
 def check_config(config: TrackerConfig) -> None:
     """NotImplementedError, naming the ROADMAP item, where this package does
     not run ``config``: a compute dtype outside ``_DTYPES``, and under bf16
-    or f16 every configuration but the dense grid fed by the one-hot
-    accumulator (fast or exact digits) with greedy association and fixed
-    gains (ROADMAP item 28's remaining parts)."""
+    or f16 Hungarian association and the learning mode (ROADMAP item 28's
+    remaining parts); every perception front end runs in half."""
     if config.dtype not in _DTYPES:
         raise NotImplementedError(
             f"dtype={config.dtype!r} is not ported yet: this package runs dtype in "
@@ -213,18 +236,14 @@ def check_config(config: TrackerConfig) -> None:
     if _DTYPES[config.dtype] not in HALF:
         return
     left = [
-        (config.cluster_backend != "grid",
-         f"cluster_backend={config.cluster_backend!r} (the point list: K6f, K8, K8a)"),
-        (config.voxel_mode != "onehot", f"voxel_mode={config.voxel_mode!r} (the runs: K7)"),
-        (config.association != "greedy", "association='hungarian'"),
+        (config.association != "greedy", "association='hungarian' (K12 and K4's Hungarian builds)"),
         (not config.param_fix, "param_fix=False (the learning step: K13)"),
     ]
     for hit, what in left:
         if hit:
             raise NotImplementedError(
-                f"dtype={config.dtype!r} runs only on the dense grid fed by the one-hot "
-                f"accumulator with greedy association and fixed gains; {what} under a "
-                "half dtype is not ported yet (ROADMAP Queue 1, item 28's remaining parts)"
+                f"dtype={config.dtype!r} runs with greedy association and fixed gains; {what} "
+                "under a half dtype is not ported yet (ROADMAP Queue 1, item 28's remaining parts)"
             )
 
 
@@ -369,7 +388,7 @@ class Tracker:
         if cfg.voxel_mode == "runs":
             return voxel_accumulate_runs_stacked(*args)
         if cfg.voxel_mode == "dense":
-            return scatter_accumulate_stacked(*args)
+            return scatter_accumulate_stacked(*args, dtype=self.dtype)
         accs, npts = voxel_accumulate_stacked(*args, quant=cfg.voxel_quant)
         return accs.to(self.dtype), npts
 
@@ -385,6 +404,7 @@ class Tracker:
         vox, vox_mask, n_vox = down(
             frames.points, frames.mask, cfg.scene,
             cfg.voxel_leaf_size, cfg.leaf_z, cfg.caps.m_max_voxels,
+            dtype=self.dtype if self.dtype in HALF else None,
         )
         return _perceive_from_vox(vox, vox_mask, n_vox, frames.t, npts, plan.env, config=cfg)
 
@@ -603,7 +623,7 @@ def _perceive_from_vox(
     dets = circumcenter_features_sorted(
         clusters.sorted_pts, clusters.starts, clusters.sizes, clusters.cluster_valid,
         t, caps.p_max_cluster,
-    )
+    ).to(_DTYPES[config.dtype])
     return Perception(
         dets=dets,
         det_valid=clusters.cluster_valid,

@@ -100,7 +100,19 @@ every FrameOutput field stacked over frames:
   ``lpf/`` or ``ihgp/``, the half fields widened to f32: the card's numpy
   reads no bf16), 12 frames -> ``tests/golden/torch_{bf16,f16}_headline.npz``;
   ``cli_bf16`` and ``cli_f16``: the JAX CLI under a config file setting the
-  dtype -> ``tests/golden/torch_cli_{bf16,f16}_headline.json``.
+  dtype -> ``tests/golden/torch_cli_{bf16,f16}_headline.json``;
+- the half perception front ends, each ``CASE_FIELDS`` of its f32 case plus
+  ``dtype`` bf16 / f16 through ``Tracker.bind_env`` (stamps in the half
+  dtype; the half fields widened to f32), 12 frames:
+  ``{bf16,f16}_pointlist`` (C), ``_pointlist_jnp`` (D: under half its
+  adjacency is the half gram, which joins other voxels than the Pallas
+  CC's f32 one), ``_pointlist_scan`` (E), ``_pointlist_runs`` (F),
+  ``_runs`` (B), ``_dense_grid`` ("dense", "grid") and ``_default`` (G:
+  ``TrackerConfig(dtype=...)``, 4 frames) ->
+  ``tests/golden/torch_{bf16,f16}_<case>_headline.npz``;
+  ``cli_bf16_default`` and ``cli_f16_default``: the JAX CLI ``run`` with a
+  config file setting the dtype and no ``--backend grid`` (the point list),
+  8 frames -> ``tests/golden/torch_cli_{bf16,f16}_default_headline.json``.
 
 tests/test_torch_golden.py recomputes the first frames and checks them
 against the files.
@@ -149,6 +161,12 @@ GOLDENS = {
     "f16": os.path.join(GOLDEN_DIR, "torch_f16_headline.npz"),
     "cli_bf16": os.path.join(GOLDEN_DIR, "torch_cli_bf16_headline.json"),
     "cli_f16": os.path.join(GOLDEN_DIR, "torch_cli_f16_headline.json"),
+    **{f"{h}_{case}": os.path.join(GOLDEN_DIR, f"torch_{h}_{case}_headline.npz")
+       for h in ("bf16", "f16") for case in (
+           "pointlist", "pointlist_jnp", "pointlist_scan", "pointlist_runs", "runs",
+           "dense_grid", "default")},
+    **{f"cli_{h}_default": os.path.join(GOLDEN_DIR, f"torch_cli_{h}_default_headline.json")
+       for h in ("bf16", "f16")},
 }
 # the half goldens: one file per dtype, a variant per position filter, each
 # field stored as "<variant>/<field>", half arrays widened to f32 (exactly:
@@ -165,15 +183,19 @@ CLI_CONFIGS = {"cli_ihgp": CLI_IHGP_CONFIG,   # each CLI golden's config file, i
                "cli_f64": "dtype: float64\n",
                "cli_f64_default": "dtype: float64\n",
                "cli_bf16": "dtype: bfloat16\n",
-               "cli_f16": "dtype: float16\n"}
-CLI_POINTLIST = ("cli_f64_default",)   # the CLI goldens without --backend grid
+               "cli_f16": "dtype: float16\n",
+               "cli_bf16_default": "dtype: bfloat16\n",
+               "cli_f16_default": "dtype: float16\n"}
+# the CLI goldens without --backend grid
+CLI_POINTLIST = ("cli_f64_default", "cli_bf16_default", "cli_f16_default")
 GROWTH_K0 = 2   # the growth golden's initial k_max_tracks
 N_FRAMES = 12
 # frames (the fleet: steps) per golden where not N_FRAMES
 FRAMES = {"default": 4, "fleet": 3, "dense_hungarian": 8, "f64_default": 4, "f64_pointlist": 4,
           "f64_pointlist_scan": 4, "f64_pointlist_runs": 4, "f64_exact": 4, "f64_runs": 4,
           "cli_f64_default": 8, "learning": 16, "floor": 8, "floor_hungarian": 8,
-          "floor_f64": 8}
+          "floor_f64": 8, "bf16_default": 4, "f16_default": 4, "cli_bf16_default": 8,
+          "cli_f16_default": 8}
 LEARN_PERIOD = 0.2   # the learning golden's learn_period (s): an update every 2 frames
 TUNE_ARGV = ["tune", "--map", "assets/sim_map.yaml"]   # cli_tune: the JAX defaults
 FLEET_STREAMS = 8
@@ -197,6 +219,13 @@ CASE_FIELDS = {
 }
 for _case in ("pointlist", "pointlist_scan", "pointlist_runs", "exact", "runs"):
     CASE_FIELDS[f"f64_{_case}"] = {**CASE_FIELDS[_case], "dtype": "float64"}
+CASE_FIELDS["dense_grid"] = {"voxel_mode": "dense", "cluster_backend": "grid"}
+# the half front ends (on TrackerConfig() for "default", as "default")
+for _h, _dt in HALF_DTYPES.items():
+    for _case in ("pointlist", "pointlist_jnp", "pointlist_scan", "pointlist_runs", "runs",
+                  "dense_grid"):
+        CASE_FIELDS[f"{_h}_{_case}"] = {**CASE_FIELDS[_case], "dtype": _dt}
+    CASE_FIELDS[f"{_h}_default"] = {"dtype": _dt}
 
 
 def uses_f64(case: str) -> bool:
@@ -597,7 +626,7 @@ def golden_outputs(n_frames: int | None = None, case: str = "slice",
     if case in HALF_DTYPES:
         return half_outputs(case, n_frames_of(case) if n_frames is None else n_frames)
     cfg, env, sc = bench.dense_case() if case == "dense_hungarian" else bench.headline_case()
-    if case in ("default", "f64_default"):
+    if case in ("default", "f64_default", "bf16_default", "f16_default"):
         from multiple_object_tracking_lidar_tpu.config import TrackerConfig
 
         # the env: the same sim map, default tolerances
@@ -618,11 +647,16 @@ def golden_outputs(n_frames: int | None = None, case: str = "slice",
         out = jax.tree.map(np.asarray, out)
         return {f: getattr(out, f) for f in out._fields}
     step = tracker.bind_env(env, donate_state=False)
+    # a half config takes its stamps in the half dtype and stores its half
+    # fields widened to f32 (exactly: the card's numpy has no bf16)
+    hd = jnp.dtype(cfg.dtype) if cfg.dtype in HALF_DTYPES.values() else jnp.dtype(jnp.float32)
     rows = []
     for buf, mask, t in zip(bufs, masks, ts):
-        state, out = step(state, Frame(jnp.asarray(buf), jnp.asarray(mask), jnp.float32(t)))
+        state, out = step(state, Frame(jnp.asarray(buf), jnp.asarray(mask), jnp.asarray(t, hd)))
         rows.append(jax.tree.map(np.asarray, out))
-    return {f: np.stack([getattr(r, f) for r in rows]) for f in rows[0]._fields}
+    stacked = {f: np.stack([getattr(r, f) for r in rows]) for f in rows[0]._fields}
+    return {f: a.astype(np.float32) if a.dtype == hd != np.float32 else a
+            for f, a in stacked.items()}
 
 
 def main(cases: list[str]) -> None:

@@ -14,7 +14,10 @@ K6f, K8a and K2 fed f32 sums) against their plain versions, the f64 paths
 (the dense grid, the point list, the exact and runs modes) against the
 CPU plain path, and the f64 routes with no double build raising; K13
 (the IHGP learning step) against its plain version and past its bounds,
-and the learning node against its JAX golden.  Marked
+and the learning node against its JAX golden; under bf16 / f16 the half
+builds (K2, K14, K3f, K4; K6f, K8a, K2 fed f32 sums, K3f on the sorted
+point list at P = 512) against their plain versions and each perception
+front end against the CPU plain path.  Marked
 ``cuda``: they
 skip without a GPU.  This file imports no JAX, so on the GPU machine (which
 has none) it runs without the suite's conftest:
@@ -1789,6 +1792,145 @@ def test_half_slice_gpu_matches_cpu_plain_path(dev, small, h):
 
     cfg, env, frames = small
     cfg = cfg.replace(dtype={"bf16": "bfloat16", "f16": "float16"}[h])
+    outs = {}
+    for d in ("cpu", dev):
+        tr = Tracker(cfg, d)
+        step, st = tr.bind_env(env), tr.init_state()
+        rows = []
+        for pts, mask, t in frames:
+            st, o = step(st, Frame(torch.from_numpy(pts), torch.from_numpy(mask), torch.tensor(t)))
+            rows.append([_widen_canonical(x) for x in o])
+        outs[str(d)] = rows
+    assert track_cuda.track_frames.launches_by[f"motl_track_step_{h}"] > 0
+    for a, b in zip(outs["cpu"], outs[str(dev)]):
+        for x, y in zip(a, b):
+            assert _bits(x, y)
+
+
+@pytest.mark.parametrize("h", ["bf16", "f16"])
+def test_k6f_half_builds_match_plain(dev, small, h):
+    """K6f's half builds (the point list's scatter sums under bf16 / f16)
+    on the small frames' points rounded to the half dtype (the adversarial
+    frame 7 included, a cell of 300 points whose bf16 count stops at 256)
+    and on configuration G's grid: bit for bit their plain version, one
+    call counted as the half build's."""
+    cfg, _, frames = small
+    dt = HALF_CUDA[h]
+    pts = np.stack([f[0] for f in frames])
+    pts[6, :300] = np.float32([0.31, 1.27, 0.5])
+    P = torch.from_numpy(pts).to(dev).to(dt).float()
+    M = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
+    gcfg, _, gsc = bench_cases.default_case()
+    gp = np.stack([gsc.frame_arrays(s)[0][::3][:32768] for s in range(2)])
+    GP = torch.from_numpy(gp).to(dev).to(dt).float()
+    GM = torch.ones((2, 32768), dtype=torch.bool, device=dev)
+    w = voxel_grid_cuda.accumulate_f32_stacked
+    entry = f"motl_voxel_sums_{h}"
+    for P_, M_, c in ((P, M, cfg), (GP, GM, gcfg)):
+        kw = (c.scene, c.voxel_leaf_size, c.leaf_z)
+        n0, nh = w.launches, w.launches_by[entry]
+        k = w(P_, M_, *kw, dtype=dt)
+        assert (w.launches, w.launches_by[entry]) == (n0, nh + 1) and k[0].dtype == dt
+        p = voxel_grid_cuda.accumulate_f32_stacked_plain(P_.cpu(), M_.cpu(), *kw, dtype=dt)
+        assert _bits(_widen_canonical(k[0]), _widen_canonical(p[0])) and _bits(k[1], p[1])
+    kw = (cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    top = float(w(P[6:7], M[6:7], *kw, dtype=dt)[0][0, 3].max())
+    exact = float(w(P[6:7], M[6:7], *kw)[0][0, 3].max())
+    assert exact >= 300 and top == min(exact, voxel_grid_cuda.COUNT_SAT[dt])
+
+
+@pytest.mark.parametrize("h", ["bf16", "f16"])
+def test_k8a_half_builds_match_plain(dev, h):
+    """K8a's half builds on half point lists: C's M = 1,024 (S = 8), G's M
+    = 2,048 (S = 2) and M = 8,448 past the shared-memory frame (S = 1), bit
+    for bit ``cc_adjacency_half_plain``; one launch each."""
+    dt = HALF_CUDA[h]
+    rng = np.random.default_rng(20)
+    w = cluster_pallas.cc_adjacency
+    for s, m, spread in ((8, 1024, 0.8), (2, 2048, 1.5), (1, 8448, 2.5)):
+        pts = torch.from_numpy(rng.normal(0, spread, (s, m, 3))).to(dt).to(dev)
+        pts[..., 2] *= 0.1
+        msk = torch.from_numpy(rng.random((s, m)) < 0.8).to(dev)
+        n0 = w.launches_by[f"motl_cc_adjacency_{h}"]
+        got = w(pts, msk, 0.15)
+        assert w.launches_by[f"motl_cc_adjacency_{h}"] == n0 + 1
+        want = cluster_pallas.cc_adjacency_half_plain(pts.cpu(), msk.cpu(), 0.15)
+        assert torch.equal(got.cpu(), want) and int(want.sum()) > s * m
+
+
+@pytest.mark.parametrize("h", ["bf16", "f16"])
+def test_k2_half_builds_fed_f32_sums_match_plain(dev, small, h):
+    """K2's half builds fed the runs' f32 sums (the f32 finalize, the static
+    drop on that centroid, the centroid rounded for the half d^2): bit for
+    bit their plain version, counted as the f32-sums builds."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.voxel_pallas import (
+        voxel_accumulate_runs_stacked)
+
+    cfg, env, frames = small
+    dt = HALF_CUDA[h]
+    cfg = cfg.replace(voxel_mode="runs", dtype={"bf16": "bfloat16", "f16": "float16"}[h])
+    plan = Tracker(cfg, dev).plan(env)
+    P = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev).to(dt).float()
+    M = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
+    acc, _ = voxel_accumulate_runs_stacked(P, M, cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
+    tb = (plan.scal, plan.table.base_row, plan.table.base_col, plan.table.bits)
+    kw = dict(dims=plan.dims, tol=cfg.cluster_tolerance, leaf_xy=cfg.voxel_leaf_size,
+              leaf_z=cfg.leaf_z, kwin=plan.table.k)
+    w = grid_cuda.fused_finalize_static_cc_stacked
+    entry = f"motl_grid_cc_{h}_f32sums"
+    n0 = w.launches_by[entry]
+    k = w(acc, *tb, dtype=dt, **kw)
+    assert w.launches_by[entry] == n0 + 1 and k[0].dtype == dt
+    p = w(acc.cpu(), *(t.cpu() for t in tb), dtype=dt, **kw)
+    assert all(_bits(_widen_canonical(a), _widen_canonical(b)) for a, b in zip(k, p))
+
+
+@pytest.mark.parametrize("h", ["bf16", "f16"])
+def test_k3f_half_sorted_list_at_p_512_matches_plain(dev, h):
+    """K3f's half build on the cluster-sorted point list at G's P = 512
+    (clusters of 1-512 members), bit for bit its plain version."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.centroid import circumcenter_features_sorted
+
+    dt = HALF_CUDA[h]
+    rng = np.random.default_rng(512)
+    p, c = 512, 24
+    sizes = rng.integers(1, p + 1, c)
+    sizes[:3] = [p, 300, 33]
+    m = int(sizes.sum())
+    centre = np.repeat(rng.uniform(-20, 20, (c, 3)), sizes, axis=0)
+    pts = np.concatenate([centre + rng.normal(0, 0.4, (m, 3)), np.zeros((p, 3))])
+    starts = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)[:-1]]))[None]
+    args = (torch.from_numpy(pts).to(dt)[None], starts, torch.from_numpy(sizes)[None],
+            torch.ones((1, c), dtype=torch.bool), torch.tensor([1.5]).to(dt))
+    by = centroid_cuda.circumcenter_features.launches_by
+    n0 = by[f"motl_circumcenter_features_{h}"]
+    got = circumcenter_features_sorted(*(a.to(dev) for a in args), p)
+    assert by[f"motl_circumcenter_features_{h}"] == n0 + 1 and got.dtype == dt
+    want = circumcenter_features_sorted(*args, p)
+    assert _bits(_widen_canonical(got), _widen_canonical(want))
+
+
+HALF_FRONT_ENDS = {   # fields: the builds each must launch on the card
+    "C": ({"voxel_mode": "dense", "cluster_backend": "pallas"}, ("K6f", "K8", "K3f")),
+    "D": ({"voxel_mode": "dense", "cluster_backend": "jnp"}, ("K6f", "K8a", "K3f")),
+    "E": ({"voxel_mode": "scan", "cluster_backend": "jnp"}, ("K8a", "K3f")),
+    "F": ({"voxel_mode": "runs", "cluster_backend": "pallas"}, ("K7", "K8")),
+    "B": ({"voxel_mode": "runs", "cluster_backend": "grid"}, ("K7", "K2 f32-sums", "K3f")),
+    "dense-grid": ({"voxel_mode": "dense", "cluster_backend": "grid"}, ("K6f", "K2", "K3f")),
+}
+
+
+@pytest.mark.parametrize("h", ["bf16", "f16"])
+@pytest.mark.parametrize("name", list(HALF_FRONT_ENDS))
+def test_half_front_ends_gpu_match_cpu_plain_path(dev, small, name, h):
+    """``bind_env`` under bf16 / f16 on each perception front end on the
+    card (its half builds, K4's half build) against the CPU plain path:
+    every field bit for bit."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import track_cuda
+
+    cfg, env, frames = small
+    fields, _ = HALF_FRONT_ENDS[name]
+    cfg = cfg.replace(dtype={"bf16": "bfloat16", "f16": "float16"}[h], **fields)
     outs = {}
     for d in ("cpu", dev):
         tr = Tracker(cfg, d)

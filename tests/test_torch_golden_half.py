@@ -10,7 +10,9 @@ builds against (chip_smoke.py ``phase_half``):
    ``chip_smoke.cli_errors``' bound (its records are rounded to 4 decimals).
 
 The goldens hold the half fields widened to f32 (exactly): the card's
-numpy has no bf16.
+numpy has no bf16.  The other front ends' half goldens (the point list,
+the scatter sums and the runs) are held the same way in
+tests/test_torch_golden_half_pointlist.py and its f16 twin.
 """
 
 import os

@@ -4,7 +4,8 @@ frames of the cut headline scene through ``bind_env`` and
 ``bind_env_multi`` (S = 4), lpf and ihgp, fast and exact digits, one run
 with its stamps offset to ~100 s; the grid without K2 (``grid_cc="jnp"``,
 K14's plain version) with a two-slot bank that overflows; and every half
-configuration left to item 28's later parts raising.  The helpers and the
+configuration left to item 28's later parts (Hungarian association, the
+learning mode) raising, on the grid, the point list and the runs.  The helpers and the
 comparisons are tests/test_torch_half.py's: every output bit for bit."""
 
 import dataclasses
@@ -63,14 +64,23 @@ def test_entry_points_match_jax(dtype, position_filter, quant, entry, t0):
 
 
 @pytest.mark.parametrize("fields", [
-    dict(cluster_backend="jnp"), dict(cluster_backend="pallas", voxel_mode="dense"),
-    dict(voxel_mode="runs"), dict(association="hungarian"), dict(param_fix=False),
+    dict(association="hungarian"), dict(param_fix=False),
+    dict(association="hungarian", voxel_mode="dense", cluster_backend="jnp"),
+    dict(param_fix=False, voxel_mode="scan", cluster_backend="jnp"),
+    dict(association="hungarian", voxel_mode="runs"),
+    dict(param_fix=False, voxel_mode="runs", cluster_backend="pallas"),
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_other_half_configs_raise_naming_item_28(dtype, fields):
+    """Under a half dtype only Hungarian association and the learning mode
+    raise, on the dense grid, the point list and the runs alike; the
+    message names the one left and item 28."""
     cfg = bench_cases.bench_config().replace(dtype=dtype, **fields)
-    with pytest.raises(NotImplementedError, match="item 28"):
+    what = "hungarian" if "association" in fields else "param_fix=False"
+    with pytest.raises(NotImplementedError, match=f"(?s){what}.*item 28"):
         TTracker(cfg, device="cpu")
+    ok = {k: v for k, v in fields.items() if k not in ("association", "param_fix")}
+    TTracker(bench_cases.bench_config().replace(dtype=dtype, **ok), device="cpu")
 
 
 def test_half_grid_cc_jnp_and_a_two_slot_bank_match_jax():
@@ -96,6 +106,14 @@ def test_half_nodes_match_jax(dtype, tmp_path):
     publishes, bit for bit; ``StreamingNode`` publishes bit for bit what
     the port's ``TrackerNode`` does; a checkpoint of the half state resumes
     with the same dtype and bits."""
+    check_half_nodes(dtype, tmp_path)
+
+
+def check_half_nodes(dtype, tmp_path, k_max_tracks=None, **fields):
+    """``test_half_nodes_match_jax``'s checks on the config of ``fields``
+    (and a bank of ``k_max_tracks`` slots where given: the streaming node,
+    like the JAX one, never grows its bank, so the bank must hold every
+    track for the two nodes to agree)."""
     from multiple_object_tracking_lidar_tpu.io.pointcloud2 import make_pointcloud2 as jmake
     from multiple_object_tracking_lidar_tpu.runtime.node import TrackerNode as JNode
     from multiple_object_tracking_lidar_tpu_torch.io.pointcloud2 import make_pointcloud2
@@ -106,7 +124,10 @@ def test_half_nodes_match_jax(dtype, tmp_path):
 
     import os
 
-    jcfg, _, tcfg, _, sc = _configs(dtype)
+    jcfg, _, tcfg, _, sc = _configs(dtype, **fields)
+    if k_max_tracks is not None:
+        jcfg = jcfg.replace(caps=dataclasses.replace(jcfg.caps, k_max_tracks=k_max_tracks))
+        tcfg = tcfg.replace(caps=dataclasses.replace(tcfg.caps, k_max_tracks=k_max_tracks))
     sim = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "assets", "sim_map.yaml")
     frames = _frames(sc, n=8)

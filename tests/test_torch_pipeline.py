@@ -172,8 +172,10 @@ def test_unported_configs_raise(field, value):
         env = bench_cases.headline_case("cpu")[1]
         assert not make_plan(cfg.replace(grid_cc="jnp"), env, "cpu").k2
         return
-    # bf16 runs the dense grid since item 28's first part; the point list
-    # under bf16 still raises, naming the item
+    # bf16 runs every perception front end since item 28's second part (the
+    # point list here); Hungarian association under bf16 still raises,
+    # naming the item
     cfg = cfg.replace(cluster_backend="jnp")
+    TTracker(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 28"):
-        TTracker(cfg, device="cpu")
+        TTracker(cfg.replace(association="hungarian"), device="cpu")

@@ -197,6 +197,7 @@ report (JSON); the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -248,6 +249,18 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def once_ms(fn) -> float:
+    """ms of one call of fn on the current stream, by CUDA events (no
+    warm-up: for plain versions that take seconds a call)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1236,10 +1249,11 @@ def entry_builds():
     in ``.launches_by`` beside its f32 build (``.launches``): K2, K3f, K4,
     K6f, K8a and K14 built for double (``dtype="float64"``), K2's double
     build fed f32 sums, K4 xl in f32 and f64, K2, K14, K3f, K4 and K4 xl
-    built for bf16 and f16, and K6f, K8a and K2 fed f32 sums built for
-    them."""
+    built for bf16 and f16, K6f, K8a and K2 fed f32 sums built for them,
+    K3f's f32 table build and K12's half builds."""
     from multiple_object_tracking_lidar_tpu_torch.ops import (
-        centroid_cuda, cluster_pallas, grid_cuda, stencil_cc_cuda, track_cuda, voxel_grid_cuda)
+        centroid_cuda, cluster_pallas, grid_cuda, hungarian_cuda, stencil_cc_cuda, track_cuda,
+        voxel_grid_cuda)
 
     k2, k4 = grid_cuda.fused_finalize_static_cc_stacked, track_cuda.track_frames
     return {"K2 f64": (k2, "motl_grid_cc_f64"),
@@ -1261,7 +1275,10 @@ def entry_builds():
             **{f"{k} {h}": (w, e.format(h=h)) for h in ("bf16", "f16") for k, w, e in (
                 ("K6f", voxel_grid_cuda.accumulate_f32_stacked, "motl_voxel_sums_{h}"),
                 ("K8a", cluster_pallas.cc_adjacency, "motl_cc_adjacency_{h}"))},
-            **{f"K2 {h} f32-sums": (k2, f"motl_grid_cc_{h}_f32sums") for h in ("bf16", "f16")}}
+            **{f"K2 {h} f32-sums": (k2, f"motl_grid_cc_{h}_f32sums") for h in ("bf16", "f16")},
+            "K3f table": (centroid_cuda.circumcenter_features, "motl_circumcenter_features_table"),
+            **{f"K12 {h}": (hungarian_cuda.auction_assign, f"motl_auction_assign_{h}")
+               for h in ("bf16", "f16")}}
 
 
 def reset_counts():
@@ -2830,10 +2847,11 @@ def phase_kernels_slice12(dev, smi, report, cfg):
     the assigned columns, saturated phases and iterations per phase bit for
     bit on dense, sparse and near-tie problems up to D = 128, K = 1,024
     (several problems in one launch), ``max_iters=1`` saturating, and on
-    the headline and dense scenes' own problems under hungarian (their
-    iterations per phase logged); then K4's Hungarian builds against their
-    plain version, bit for bit: on the dense scene's own frames (K = 96, D =
-    64; 1 x 4 and 4 x 1), and at K = 64 and 1,024, 1 x 1, 1 x S and B x 1,
+    the headline and dense scenes' own problems under hungarian (their first
+    4 and 2 frames; their iterations per phase logged); then K4's Hungarian
+    builds against their plain version, bit for bit: on the dense scene's own
+    frames (K = 96, D = 64; 1 x 2 and 2 x 1), and at K = 64 and 1,024, 1 x 1,
+    1 x S and B x 1 (S, B = 2 at 1,024),
     under lpf and ihgp, on ``track_scene``'s gated scene (pairs of tracks
     0.35 m apart, conflicts, registrations, overflow)."""
     from multiple_object_tracking_lidar_tpu_torch import bench_cases
@@ -2872,8 +2890,8 @@ def phase_kernels_slice12(dev, smi, report, cfg):
                        max_iters)
         if max_iters == 1 and sat.min() <= 0:
             fail("K12 at max_iters=1 did not saturate")
-    for name, case, n in (("headline", bench_cases.hungarian_case, 8),
-                          ("dense", bench_cases.dense_hungarian_case, 4)):
+    for name, case, n in (("headline", bench_cases.hungarian_case, 4),
+                          ("dense", bench_cases.dense_hungarian_case, 2)):
         hcfg, env, sc = case(device=dev)
         states, dets, valid, t, C, F = path_track_inputs(dev, hcfg, env, sc, n)
         check(f"the {name} scene's {n} frames under hungarian (D={C.shape[1]}, "
@@ -2899,7 +2917,7 @@ def phase_kernels_slice12(dev, smi, report, cfg):
     check_track(dev, hcfg, gains, cfg.caps.k_max_tracks,
                 ((1, 1, D, ()), (1, 8, D, (0,)), (8, 1, D, (0,)), (1, 8, 128, ())),
                 report, "K4 hungarian", gated=True)
-    check_track(dev, hcfg, gains, 1024, ((1, 1, 128, ()), (1, 4, D, (0,)), (4, 1, D, ())),
+    check_track(dev, hcfg, gains, 1024, ((1, 1, 128, ()), (1, 2, D, (0,)), (2, 1, D, ())),
                 report, "K4 hungarian", gated=True)
     check_track(dev, hcfg.replace(position_filter="ihgp"), gains, cfg.caps.k_max_tracks,
                 ((1, 8, D, (0,)), (8, 1, D, (0,))), report, "K4 hungarian", gated=True)
@@ -5051,6 +5069,25 @@ KERNELS = (
        "the f32 finalize and static drop, the centroid rounded to the half dtype, the "
        "stencil's d^2 in it", f"{PKG}/csrc/grid_cc.cu",
        "multiple_object_tracking_lidar_tpu/ops/grid_pallas.py:288") for h, n in HALF_NAMES),
+    ("K3f table", "K3f's f32 table build: the half builds' body (the JAX jnp _one_cluster: "
+     "member mean, gram d2, line scan, determinant) on f32 values with XLA's f32 FMAs, the "
+     "runs' point list's circumcenter under bf16 / f16 before its cast (timed on 8 sorted "
+     "lists of C = 32, P = 384; launched on F in half)", f"{PKG}/csrc/circumcenter.cu",
+     "multiple_object_tracking_lidar_tpu/ops/centroid.py:30"),
+    *((f"K4 hungarian {h}", f"K4's Hungarian {h} builds (dtype={n}, lpf and ihgp): the gate "
+       "cost and the eps-scaling auction on half values (every sum and difference rounded to "
+       "the half dtype, _NEG -inf in f16), then the half track step (timed at K = 64 1 x 1 on "
+       "a gated scene; launched on the half Hungarian headline and dense scenes' paths)",
+       f"{PKG}/csrc/assign.cu", "multiple_object_tracking_lidar_tpu/ops/hungarian.py:139")
+      for h, n in HALF_NAMES),
+    *((f"K4 xl hungarian {h}", f"K4 xl's Hungarian {h} builds (dtype={n}): the half auction on "
+       "tables sized for n = D + K columns past 1,024 slots or 128 detections (timed at K = "
+       "2,048, D = 32, 1 x 1; launched on the half Hungarian headline with its bank padded to "
+       "2,048 slots)", f"{PKG}/csrc/assign.cu",
+       "multiple_object_tracking_lidar_tpu/ops/hungarian.py:139") for h, n in HALF_NAMES),
+    *((f"K12 {h}", f"K12's {h} build (dtype={n}): the auction alone on half (D, K) cost "
+       "matrices (no tracking path launches it)", f"{PKG}/csrc/auction.cu",
+       "multiple_object_tracking_lidar_tpu/ops/hungarian.py:34") for h, n in HALF_NAMES),
 )
 
 
@@ -5271,51 +5308,6 @@ def compare_half(tag, got: dict, ref: dict):
             g, r = g[ref["valid"]], r[ref["valid"]]
         if not equal(g, r):
             fail(f"{tag}: {f} differs (max abs err {max_err(g, r)})")
-
-
-HALF_BITS = {"bf16": (8, -126), "f16": (11, -14)}   # significand bits, least normal exponent
-# The runs' point list under a half dtype (F, and the runs with the jnp CC)
-# is f32 from K7 to the circumcenter, as the JAX route is, and its
-# detections are cast to half at the end.  The f32 circumcenter is K3f's
-# pair-stats arithmetic, not the JAX package's ``_one_cluster`` f32
-# program (the f32 point list's own TOL_DETS), so the cast can round a
-# slot one half ulp the other way (ROADMAP Queue 3), which the LPF carries
-# into the position: raw_centroid within HALF_RUNS_ULPS["raw_centroid"]
-# ulps of the half dtype at the golden's value, pos within its bound, vel
-# within its bound at max(|golden|, 0.25 m/s); every other field bit for
-# bit.
-HALF_RUNS_ULPS = {"raw_centroid": 1, "pos": 2, "vel": 2}
-
-
-def half_ulp(x, htag):
-    """The spacing of the half dtype ``htag`` at the values x (f32 holding
-    half values; subnormals at the least normal exponent's spacing)."""
-    bits, emin = HALF_BITS[htag]
-    with np.errstate(divide="ignore"):
-        e = np.floor(np.log2(np.abs(np.asarray(x, np.float64))))
-    return np.exp2(np.maximum(np.nan_to_num(e, neginf=emin), emin) - (bits - 1))
-
-
-def compare_half_runs_list(tag, got: dict, ref: dict, htag):
-    """The half runs point list's contract (``HALF_RUNS_ULPS``): floats
-    within those ulps, everything else bit for bit; returns the largest
-    departure of each float field in ulps."""
-    worst = {}
-    for f, r in ref.items():
-        g, r = np.asarray(got[f]), np.asarray(r)
-        if f in ("pos", "vel"):
-            g, r = g[ref["valid"]], r[ref["valid"]]
-        if f in ("raw_centroid", "pos", "vel"):
-            scale = np.maximum(np.abs(r), 0.25) if f == "vel" else r
-            with np.errstate(invalid="ignore"):
-                d = np.where(equal_mask(g, r), 0.0, np.abs(g.astype(np.float64) - r))
-            worst[f] = float(np.max(d / half_ulp(scale, htag), initial=0.0))
-            if not worst[f] <= HALF_RUNS_ULPS[f]:
-                fail(f"{tag}: {f} {worst[f]} half ulps from the golden (bound "
-                     f"{HALF_RUNS_ULPS[f]})")
-        elif not equal(g, r):
-            fail(f"{tag}: {f} differs (max abs err {max_err(g, r)})")
-    return worst
 
 
 def require_half(tag, counts, htag, need=("K2", "K3f", "K4")):
@@ -5827,6 +5819,19 @@ def half_sorted_lists(rng, s, c, p, dt, dev):
             torch.from_numpy(np.stack(sizes)).to(dev), torch.from_numpy(valid).to(dev))
 
 
+def sorted_list_table(lists, p_max):
+    """The (S * C, P, 3) member table and (S * C, P) mask of sorted point
+    lists (``half_sorted_lists``' form), as circumcenter_features_sorted
+    gathers them."""
+    pts, starts, sizes, valid = lists
+    s = starts.shape[0]
+    lane = torch.arange(p_max, device=pts.device)
+    rows = (starts.to(torch.int64)[:, :, None] + lane).reshape(s, -1)
+    mpts = torch.gather(pts, 1, rows[..., None].expand(-1, -1, 3)).reshape(-1, p_max, 3)
+    mm = ((lane < sizes[:, :, None]) & valid[:, :, None]).reshape(-1, p_max)
+    return mpts, mm
+
+
 def phase_kernels_slice20(dev, report, cfg):
     """K6f, K8a and K2 fed f32 sums built for bf16 and f16, and K3f's half
     build on the sorted point list at G's P = 512, against their plain
@@ -5934,10 +5939,7 @@ def phase_kernels_slice20(dev, report, cfg):
         lists = half_sorted_lists(rng, 8, 64, 512, dt, dev)
         T8 = torch.arange(8, device=dev).to(dt) * 0.1 + 100.0
         p_max = 512
-        lane = torch.arange(p_max, device=dev)
-        rows = (lists[1].to(torch.int64)[:, :, None] + lane).reshape(8, -1)
-        mpts = torch.gather(lists[0], 1, rows[..., None].expand(-1, -1, 3)).reshape(-1, p_max, 3)
-        mm = ((lane < lists[2][:, :, None]) & lists[3][:, :, None]).reshape(-1, p_max)
+        mpts, mm = sorted_list_table(lists, p_max)
         check_pair(report, name, "8 sorted point lists x C=64 clusters of up to P=512 members",
                    lambda: (circumcenter_features_sorted(*lists, T8, p_max).reshape(-1, 4),),
                    lambda: (centroid_cuda.circumcenter_features_half_plain(mpts, mm, T8),))
@@ -5950,7 +5952,7 @@ HALF_FRONT_ENDS = (  # golden (after "<h>_"), case, tag, the builds its run must
     ("pointlist", "headline_case", "C", ("K6f {h}", "K8", "K3f {h}", "K4 {h}")),
     ("pointlist_jnp", "headline_case", "D", ("K6f {h}", "K8a {h}", "K3f {h}", "K4 {h}")),
     ("pointlist_scan", "headline_case", "E", ("K8a {h}", "K3f {h}", "K4 {h}")),
-    ("pointlist_runs", "headline_case", "F", ("K7", "K8", "K3f", "K4 {h}")),
+    ("pointlist_runs", "headline_case", "F", ("K7", "K8", "K3f table", "K4 {h}")),
     ("runs", "headline_case", "B", ("K7", "K2 {h} f32-sums", "K3f {h}", "K4 {h}")),
     ("dense_grid", "headline_case", "dense grid", ("K6f {h}", "K2 {h}", "K3f {h}", "K4 {h}")),
     ("default", "default_case", "G", ("K6f {h}", "K8a {h}", "K3f {h}", "K4 {h}")),
@@ -5965,8 +5967,9 @@ def phase_half_pointlist(dev, smi, report):
     (S = 8, then S = 4; G S = 4), ``TrackerNode`` on D (12 PointCloud2
     frames) and the CLI on its default backend, the point list (a config
     file setting the dtype, 8 frames).  Every output bit for bit
-    (``compare_half``; F, whose f32 circumcenter is cast, within
-    ``HALF_RUNS_ULPS``; the CLI's records within ``cli_errors``' bound).
+    (``compare_half``; F too, whose f32 circumcenter -- K3f's f32 table
+    build, the JAX f32 ``_one_cluster`` -- is cast; the CLI's records within
+    ``cli_errors``' bound).
     Each run launches the builds ``HALF_FRONT_ENDS`` names and no other
     build of K2, K3f, K4, K6f, K8a or K14, and no plain route moves
     (``require_builds``).  Then ms/frame and device ops per frame of D and
@@ -5984,10 +5987,7 @@ def phase_half_pointlist(dev, smi, report):
 
     t0 = time.perf_counter()
     for htag, dname in HALF_NAMES:
-        def check(tag, got, golden, runs_list):
-            if runs_list:
-                worst = compare_half_runs_list(tag, got, golden, htag)
-                return f"within {HALF_RUNS_ULPS} half ulps (worst {worst})"
+        def check(tag, got, golden):
             compare_half(tag, got, golden)
             return "bit for bit"
 
@@ -5998,7 +5998,6 @@ def phase_half_pointlist(dev, smi, report):
             cfg, env, sc = getattr(bench_cases, case)(device=dev)
             cfg = cfg.replace(**CASE_FIELDS[gkey])
             need = tuple(n.format(h=htag) for n in need)
-            runs_list = key == "pointlist_runs"
             P, M, T = half_frames(dev, sc, cfg.caps.n_max_points, n_gold)
             tracker = Tracker(cfg, dev)
             step = tracker.bind_env(env)
@@ -6012,7 +6011,7 @@ def phase_half_pointlist(dev, smi, report):
             torch.cuda.synchronize()
             counts = read_counts()
             got = {f: np.stack([r[i] for r in rows]) for i, f in enumerate(golden)}
-            verdict = check(f"{tag} {htag} bind_env", got, golden, runs_list)
+            verdict = check(f"{tag} {htag} bind_env", got, golden)
             log(f"[4 {tag} {htag}] bind_env x{n_gold} ({cfg.voxel_mode} / {cfg.cluster_backend}, "
                 f"N={cfg.caps.n_max_points}, C={cfg.caps.c_max_clusters}, "
                 f"P={cfg.caps.p_max_cluster}): n_clusters {got['n_clusters'].tolist()}, "
@@ -6032,7 +6031,7 @@ def phase_half_pointlist(dev, smi, report):
             torch.cuda.synchronize()
             counts = read_counts()
             got = {f: np.concatenate([r[i] for r in rows]) for i, f in enumerate(golden)}
-            verdict = check(f"{tag} {htag} bind_env_multi", got, golden, runs_list)
+            verdict = check(f"{tag} {htag} bind_env_multi", got, golden)
             log(f"[4 {tag} {htag}] bind_env_multi S={[c.stop - c.start for c in cuts]}: "
                 f"launches {counts}; the JAX golden {verdict}")
             require(f"{tag} {htag} bind_env_multi", counts, need, report)
@@ -6218,6 +6217,476 @@ def phase_timings_slice20(dev, smi, report, keep):
                 f"{'none' if lib is None else format(entry['library_ms'], '.4f') + ' ms'}")
 
 
+# ---------------------------------------------------------------------------
+# slice 21: F9 repaired (K3f's f32 table build) and bf16 / f16 under Hungarian
+# association and in the fleet
+# ---------------------------------------------------------------------------
+GOLDEN_HALF_HUNGARIAN = {(h, g): os.path.join(HERE, "tests", "golden", f"torch_{h}_{g}.npz")
+                         for h in ("bf16", "f16")
+                         for g in ("hungarian_headline", "hungarian_dense", "fleet_headline")}
+AUCTION_PROBLEMS_NPZ = os.path.join(HERE, "tests", "golden", "torch_auction_problems.npz")
+HALF_K12_PROBLEMS = (  # (D, K, kind, max_iters): AUCTION_PROBLEMS' small ones, in half;
+    # near ties capped at 200 (in bf16 their six phases run to any cap: the
+    # plain version's 18,000 synced iterations would cost a minute); the
+    # headline's (32, 64) shape comes from the scene's own problem below
+    (12, 10, "dense", 3000), (16, 16, "ties", 200), (16, 16, "ties", 1))
+SCENE_PROBLEMS = 1   # the scenes' own problems K12's half builds take (frames of each)
+
+
+def hungarian_half_report_as(htag):
+    """A half Hungarian path's K4 / K4 xl half launches count in the report
+    as K4 hungarian's / K4 xl hungarian's half builds."""
+    return {f"K4 {htag}": f"K4 hungarian {htag}", f"K4 xl {htag}": f"K4 xl hungarian {htag}"}
+
+
+def phase_kernels_slice21(dev, report, cfg):
+    """The new builds against their plain versions on the card, bit for bit:
+    K12's half builds (assignments, saturated phases, iterations per phase
+    and the dummy-only ones) on dense, near-tie, capped and gate-like
+    problems and on the headline and dense scenes' own problems cast to
+    the half dtype; K4's Hungarian half builds (lpf at 1 x 1, 1 x 2 and 2 x
+    1, ihgp at 1 x 2, K = 64, on ``track_scene``'s gated scene) and K4 xl's
+    at K = 2,048 (its plain time kept for the report); K3f's f32 table
+    build on 8 sorted lists of C = 32 clusters of up to P = 384 members,
+    and the half builds' mesh spelling of cy.  Returns the inputs the
+    timings reuse."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import centroid_cuda, hungarian_cuda
+    from multiple_object_tracking_lidar_tpu_torch.ops.centroid import circumcenter_features_sorted
+    from multiple_object_tracking_lidar_tpu_torch.ops.hungarian import EPS, auction_assign_plain
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2101)
+    scenes = np.load(AUCTION_PROBLEMS_NPZ)
+    K, D = cfg.caps.k_max_tracks, cfg.caps.c_max_clusters
+    keep = {}
+    for htag, dt in HALF:
+        dname = dict(HALF_NAMES)[htag]
+        name = f"K12 {htag}"
+        report.setdefault(name, {"max_abs_err": 0.0})
+
+        def check(tag, C, F, eps, max_cost, max_iters, name=name):
+            a, sat, it, fast = hungarian_cuda.auction_assign(C, F, eps, max_cost, max_iters,
+                                                             return_split=True)
+            torch.cuda.synchronize()
+            ok, err = True, 0.0
+            for b in range(C.shape[0]):
+                pa, ps, pit, pfast = auction_assign_plain(C[b], F[b], eps, max_cost, max_iters,
+                                                          return_split=True)
+                ok = (ok and equal(npy(a[b]), npy(pa)) and int(sat[b]) == int(ps)
+                      and npy(it[b]).tolist() == pit and npy(fast[b]).tolist() == pfast)
+                err = max(err, max_err(npy(a[b]), npy(pa)))
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+            log(f"[3 {name}] {tag}, {C.shape[0]} problem(s) in one launch: exact={ok} "
+                f"saturated={npy(sat).tolist()} iterations per phase {npy(it).tolist()} "
+                f"(dummy-only {npy(fast).tolist()})")
+            if not ok:
+                fail(f"{name} ({tag}) disagrees with its plain version")
+            return npy(sat)
+
+        for d, k, kind, max_iters in HALF_K12_PROBLEMS:
+            eps, max_cost = (1e-4, 1.0) if kind == "ties" else (1e-3, 0.5)
+            probs = [auction_problem(rng, d, k, kind) for _ in range(3)]
+            C = torch.from_numpy(np.stack([q[0] for q in probs])).to(dev).to(dt)
+            F = torch.from_numpy(np.stack([q[1] for q in probs])).to(dev)
+            sat = check(f"D={d} K={k} {kind} max_iters={max_iters} in {htag}", C, F, eps,
+                        max_cost, max_iters)
+            if max_iters == 1 and sat.min() <= 0:
+                fail(f"{name} at max_iters=1 did not saturate")
+        for scene in ("headline", "dense"):
+            C = torch.from_numpy(scenes[f"{scene}_cost"][:SCENE_PROBLEMS]).to(dev).to(dt)
+            F = torch.from_numpy(scenes[f"{scene}_feas"][:SCENE_PROBLEMS]).to(dev)
+            check(f"the {scene} scene's first {SCENE_PROBLEMS} problems (D={C.shape[1]}, "
+                  f"K={C.shape[2]}) cast to {htag}", C, F, EPS, float(scenes[f"{scene}_thr"]),
+                  3000)
+
+        # K4's Hungarian half builds on the gated scene, and K4 xl's at 2,048 slots
+        hcfg = cfg.replace(association="hungarian", dtype=dname)
+        gains = Tracker(hcfg, dev).gains_xy
+        for pf, cases in (("lpf", ((1, 1, ()), (1, 2, (0,)), (2, 1, (0,)))),
+                          ("ihgp", ((1, 2, (0,)),))):
+            c = hcfg.replace(position_filter=pf)
+            for i, (b, s_fr, fresh) in enumerate(cases):
+                ins = half_track_inputs(track_scene(2100 + i, cfg, K, D, b, s_fr, fresh, dev,
+                                                   gated=True), dt)
+                check_track_inputs(c, gains, ins, report, f"K4 hungarian {htag}",
+                                   f"{pf}, K={K} {b} x {s_fr} frames, D={D}, gated, {htag}")
+        wide = half_track_inputs(track_scene(2150, cfg, 2048, D, 1, 1, (), dev, gated=True), dt)
+        t_p = time.perf_counter()
+        check_track_inputs(hcfg, gains, wide, report, f"K4 xl hungarian {htag}",
+                           f"lpf, K=2048 1 x 1, D={D}, gated, {htag}")
+        keep[htag] = {"hcfg": hcfg, "gains": gains, "wide": wide,
+                      "xl_check_s": time.perf_counter() - t_p}
+
+    # K3f's f32 table build (F's circumcenter under half) and the mesh spelling
+    name = "K3f table"
+    lists = half_sorted_lists(rng, 8, 32, 384, torch.float32, dev)
+    T8 = torch.arange(8, device=dev).float() * 0.1 + 100.0
+    mpts, mm = sorted_list_table(lists, 384)
+    check_pair(report, name, "8 sorted f32 point lists x C=32 clusters of up to P=384 members "
+               "(the jnp _one_cluster in f32; the norm's epilogue slots 24-31 contracted)",
+               lambda: (circumcenter_features_sorted(*lists, T8, 384, table=True).reshape(-1, 4),),
+               lambda: (centroid_cuda.circumcenter_features_half_plain(mpts, mm, T8, 32),))
+    for htag, dt in HALF:
+        hl = (lists[0].to(dt),) + lists[1:]
+        hm, _ = sorted_list_table(hl, 384)
+        with centroid_cuda.mesh_program():
+            check_pair(report, f"K3f {htag}", f"8 sorted {htag} point lists, C=32, P=384, cy "
+                       "as the JAX fleet's program on several devices spells it",
+                       lambda hl=hl, dt=dt: (circumcenter_features_sorted(
+                           *hl, T8.to(dt), 384).reshape(-1, 4),),
+                       lambda hm=hm, dt=dt: (centroid_cuda.circumcenter_features_half_plain(
+                           hm, mm, T8.to(dt), 32, cy_alt=True),))
+    keep["lists"], keep["T8"] = lists, T8
+    log(f"[3 slice 21] the new builds checked in {time.perf_counter() - t0:.1f} s")
+    return keep
+
+
+def phase_hungarian_half(dev, smi, report):
+    """bf16 and f16 under ``association="hungarian"`` against the JAX
+    goldens (``tests/golden/torch_{bf16,f16}_hungarian_{headline,dense}.npz``,
+    every field bit for bit): the headline through ``bind_env`` (12
+    frames, one K4 launch each), ``bind_env_multi`` (S = 8, then 4) and
+    ``TrackerNode`` (12 PointCloud2 frames), the dense scene (K = 96)
+    through ``bind_env`` and ``bind_env_multi`` (S = 8); each frame's
+    ``assoc_saturated`` logged.  The headline again with its bank padded
+    to 2,048 slots (``k_max_tracks``, 3 frames), which K4 xl's half
+    Hungarian build runs (held to its plain version in
+    ``phase_kernels_slice21``; here its launches, saturation and finite
+    positions).  The half fleet golden
+    (``torch_{bf16,f16}_fleet_headline.npz``: the JAX vmap fleet, B = 8 x 3
+    steps) on a one-rank NCCL mesh, bit for bit; then the half fleet under
+    hungarian (which the JAX vmap fleet cannot trace), B = 4 x 2 steps,
+    each stream bit for bit a fleet of its own.  Every run launches the half
+    builds of its stages and no other build (``require_half``,
+    ``require_builds``), and no plain route moves."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.parallel import ShardedTracker, make_mesh
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import Frame
+
+    t0 = time.perf_counter()
+    for htag, dt in HALF:
+        dname = dict(HALF_NAMES)[htag]
+        ras = hungarian_half_report_as(htag)
+        for tag, case, gkey, s_cuts in (
+                ("hungarian", bench_cases.hungarian_case, "hungarian_headline", (8, 4)),
+                ("dense hungarian", bench_cases.dense_hungarian_case, "hungarian_dense", (8,))):
+            golden = dict(np.load(GOLDEN_HALF_HUNGARIAN[htag, gkey]))
+            n = golden["publish"].shape[0]
+            cfg, env, sc = case(device=dev)
+            cfg = cfg.replace(dtype=dname)
+            P, M, T = half_frames(dev, sc, cfg.caps.n_max_points, n)
+            tracker = Tracker(cfg, dev)
+            step, st = tracker.bind_env(env), tracker.init_state()
+            reset_counts()
+            plain = plain_counters()
+            rows = []
+            for k in range(n):
+                st, o = step(st, Frame(P[k], M[k], T[k]))
+                rows.append([npy(x) for x in o])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            got = {f: np.stack([r[i] for r in rows]) for i, f in enumerate(golden)}
+            compare_half(f"{tag} {htag} bind_env", got, golden)
+            require_half(f"{tag} bind_env", counts, htag)
+            if counts[f"K4 {htag}"] != n or counts.get(f"K4 xl {htag}", 0):
+                fail(f"{tag} {htag} bind_env: {counts[f'K4 {htag}']} K4 {htag} launches for "
+                     f"{n} frames")
+            require_builds(f"{tag} {htag} bind_env", counts,
+                           (f"K2 {htag}", f"K3f {htag}", f"K4 {htag}"), plain)
+            require(f"{tag} {htag} bind_env", counts, (), report, ras)
+            log(f"[4 {tag} {htag}] bind_env x{n} (K={cfg.caps.k_max_tracks}, "
+                f"C={cfg.caps.c_max_clusters}): assoc_saturated "
+                f"{got['assoc_saturated'].tolist()}, valid per frame "
+                f"{got['valid'].sum(1).tolist()}, launches {counts}; the JAX golden bit for bit")
+            multi = tracker.bind_env_multi(env)
+            st = tracker.init_state()
+            reset_counts()
+            plain = plain_counters()
+            rows, at = [], 0
+            for cut in s_cuts:
+                sl = slice(at, min(n, at + cut))
+                at = sl.stop
+                st, o = multi(st, Frame(P[sl], M[sl], T[sl]))
+                rows.append([npy(x) for x in o])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            got = {f: np.concatenate([r[i] for r in rows]) for i, f in enumerate(golden)}
+            compare_half(f"{tag} {htag} bind_env_multi", got, {f: v[:at] for f, v in
+                                                               golden.items()})
+            require_half(f"{tag} bind_env_multi", counts, htag)
+            require_builds(f"{tag} {htag} bind_env_multi", counts,
+                           (f"K2 {htag}", f"K3f {htag}", f"K4 {htag}"), plain)
+            require(f"{tag} {htag} bind_env_multi", counts, (), report, ras)
+            log(f"[4 {tag} {htag}] bind_env_multi S={list(s_cuts)}: launches {counts}; the "
+                f"JAX golden's first {at} frames bit for bit")
+            if tag != "hungarian":
+                continue
+            node = TrackerNode(cfg, dev, keep_outputs=True)
+            node.on_map(load_sim_grid())
+            reset_counts()
+            plain = plain_counters()
+            for k in range(n):
+                node.on_pointcloud(sc.frame(k))
+            torch.cuda.synchronize()
+            counts = read_counts()
+            got = {f: np.stack([np.asarray(getattr(o, f)) for o in node.outputs])
+                   for f in golden}
+            compare_half(f"{tag} {htag} TrackerNode", got, golden)
+            require_half(f"{tag} TrackerNode", counts, htag)
+            require(f"{tag} {htag} TrackerNode", counts, (), report, ras)
+            log(f"[4 {tag} {htag}] TrackerNode x{n} (decoder {node.decoder}): launches "
+                f"{counts}; the JAX golden bit for bit")
+            # the bank padded to 2,048 slots: K4 xl's half Hungarian build
+            wcfg = cfg.replace(caps=dataclasses.replace(cfg.caps, k_max_tracks=2048))
+            wtr = Tracker(wcfg, dev)
+            wstep, wst = wtr.bind_env(env), wtr.init_state()
+            reset_counts()
+            plain = plain_counters()
+            wrows = []
+            for k in range(3):
+                wst, o = wstep(wst, Frame(P[k], M[k], T[k]))
+                wrows.append(o)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            if counts[f"K4 xl {htag}"] != 3 or counts[f"K4 {htag}"]:
+                fail(f"{tag} {htag} padded to 2,048 slots: K4 xl {htag} "
+                     f"{counts[f'K4 xl {htag}']} launches for 3 frames: {counts}")
+            require_builds(f"{tag} {htag} 2,048 slots", counts,
+                           (f"K2 {htag}", f"K3f {htag}", f"K4 xl {htag}"), plain)
+            require(f"{tag} {htag} 2,048 slots", counts, (), report, ras)
+            fin = all(bool(torch.isfinite(o.pos[o.valid]).all()) for o in wrows)
+            log(f"[4 {tag} {htag}] bind_env x3 with the bank padded to 2,048 slots: launches "
+                f"{counts}; assoc_saturated {[int(o.assoc_saturated) for o in wrows]}, valid "
+                f"{[int(o.valid.sum()) for o in wrows]}, finite positions {fin}")
+            if not fin:
+                fail(f"{tag} {htag} 2,048 slots: non-finite positions on valid lanes")
+
+        # the half fleet golden: the JAX vmap fleet, B = 8 x 3 steps
+        golden = dict(np.load(GOLDEN_HALF_HUNGARIAN[htag, "fleet_headline"]))
+        cfg, env, sc = bench_cases.headline_case(device=dev)
+        cfg = cfg.replace(dtype=dname)
+        frames = fleet_frames(dev, sc, cfg.caps.n_max_points, 8, 3)
+        mesh = make_mesh(1, 1, device=dev)
+        fleet = ShardedTracker(Tracker(cfg, dev), mesh)
+        if fleet._use_kernel_fleet:
+            fail(f"the {htag} fleet took the kernel fleet (f32 only)")
+        need = (f"K6f {htag}", f"K14 {htag}", f"K3f {htag}", f"K4 {htag}")
+        step, state = fleet.bind_env(env), fleet.init_state(8)
+        reset_counts()
+        plain = plain_counters()
+        outs = []
+        for k in range(3):
+            state, o = step(state, frames[0][k], frames[1][k], frames[2][k])
+            outs.append(o)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        got = {f: np.stack([npy(getattr(o, f)) for o in outs]) for f in golden}
+        compare_half(f"{htag} vmap fleet B=8 x 3", got, golden)
+        if counts[f"K4 {htag}"] != 3:
+            fail(f"{htag} fleet: {counts[f'K4 {htag}']} K4 {htag} launches for 3 steps")
+        require_builds(f"{htag} fleet", counts, need, plain)
+        require(f"{htag} fleet", counts, (), report)
+        log(f"[4 fleet {htag}] the vmap fleet on a one-rank NCCL mesh, B=8 x 3 steps: launches "
+            f"{counts}; the JAX fleet golden bit for bit")
+        # the half fleet under hungarian (B x 1: one K4 launch for the four
+        # banks), each stream against a fleet of its own (1 x 1)
+        hcfg = cfg.replace(association="hungarian")
+        hfleet = ShardedTracker(Tracker(hcfg, dev), mesh)
+        hstep, hstate = hfleet.bind_env(env), hfleet.init_state(4)
+        own = [hfleet.init_state(1) for _ in range(4)]
+        reset_counts()
+        plain = plain_counters()
+        for k in range(2):
+            hstate, o = hstep(hstate, frames[0][k, :4], frames[1][k, :4], frames[2][k, :4])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts[f"K4 {htag}"] != 2:
+            fail(f"{htag} hungarian fleet: {counts[f'K4 {htag}']} K4 {htag} launches for 2 steps")
+        require_builds(f"{htag} hungarian fleet", counts, need, plain)
+        require(f"{htag} hungarian fleet", counts, (), report, ras)
+        outs = [o]
+        hstate = hfleet.init_state(4)
+        for k in range(2):
+            hstate, o = hstep(hstate, frames[0][k, :4], frames[1][k, :4], frames[2][k, :4])
+            for si in range(4):
+                own[si], w = hstep(own[si], *(f[k, si:si + 1] for f in frames))
+                bad = [f for f in w._fields if not equal(npy(getattr(o, f)[si]),
+                                                         npy(getattr(w, f)[0]))]
+                if bad:
+                    fail(f"{htag} hungarian fleet: stream {si} step {k} differs from its own "
+                         f"fleet in {bad}")
+        log(f"[4 fleet {htag}] the vmap fleet under hungarian, B=4 x 2 steps (one K4 {htag} "
+            f"launch a step): bit for bit each stream's own 1 x 1 fleet; assoc_saturated "
+            f"{npy(outs[0].assoc_saturated).tolist()}; launches {counts}")
+    log(f"[4 slice 21] the half Hungarian goldens and the half fleet in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_timings_slice21(dev, smi, report, keep):
+    """The Hungarian headline's ``bind_env`` and ``bind_env_multi`` ms/frame
+    in f32, bf16 and f16 in turns; then each new build in turns with its f32
+    build on the same values widened (f32, half, half, f32; device us per
+    launch from torch.profiler between marker kernels): K4 hungarian at K =
+    64, D = 32, 1 x 1 on the gated scene and on the dense scene's own frame
+    1 (K = 96, D = 64), K4 xl hungarian at K = 2,048, K12 on the gated
+    frame's gate costs, K3f's table build beside the f32 pair-stats build on
+    the same lists; each auction's iterations per phase split into
+    dummy-only and general (K12's ``return_split``, past K12's columns the
+    plain version's).  Then the report's entries: kernel ms by CUDA events
+    (twice), plain ms from one call (K4 xl hungarian's from its check);
+    bounds: bytes at HBM_BYTES_PER_S, operations at F32_OPS_PER_S."""
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import track_scene
+    from multiple_object_tracking_lidar_tpu_torch.ops import (
+        centroid_cuda, hungarian_cuda, track_cuda)
+    from multiple_object_tracking_lidar_tpu_torch.ops.centroid import circumcenter_features_sorted
+    from multiple_object_tracking_lidar_tpu_torch.ops.hungarian import (
+        EPS, auction_assign_plain, gate_costs)
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+    from multiple_object_tracking_lidar_tpu_torch.tracker.state import map_state
+
+    def device_us(fn, reps):
+        us, ops, whole = one_op_profile(fn, reps)
+        return us * ops
+
+    def turns(tag, f32, half, reps):
+        a, b = device_us(f32, reps), device_us(half, reps)
+        b2, a2 = device_us(half, reps), device_us(f32, reps)
+        log(f"[5 timing] {smi}: {tag} device us per launch in turns (f32 build, half, half, "
+            f"f32 build) {a:.2f}, {b:.2f}, {b2:.2f}, {a2:.2f}: half / f32 "
+            f"{min(b, b2) / min(a, a2):.2f}x")
+
+    def split(tag, C, F, thr):
+        if C.shape[-1] <= hungarian_cuda.MAX_COLS:
+            _, sat, it, fast = hungarian_cuda.auction_assign(C, F, EPS, thr, return_split=True)
+            it, fast = npy(it).tolist(), npy(fast).tolist()
+        else:   # past K12's columns: the plain version's count (the same, bit for bit)
+            _, sat, it, fast = auction_assign_plain(C, F, EPS, thr, return_split=True)
+        log(f"[5 timing] {smi}: {tag}: iterations per phase {it}, dummy-only {fast}, general "
+            f"{[a - b for a, b in zip(it, fast)]}, saturated {int(sat)}")
+        return it
+
+    cfg, env, _ = bench_cases.headline_case(device=dev)
+    K, D = cfg.caps.k_max_tracks, cfg.caps.c_max_clusters
+    dcfg, denv, dsc = bench_cases.dense_hungarian_case(device=dev)
+    lists, T8 = keep["lists"], keep["T8"]
+    # the Hungarian headline end to end, f32 / bf16 / f16 in turns (16 frames)
+    hcfg0, henv, hsc = bench_cases.hungarian_case(device=dev)
+    P, M, T = half_frames(dev, hsc, hcfg0.caps.n_max_points, 16)
+    trackers = {d: Tracker(hcfg0.replace(dtype=d), dev)
+                for d in ("float32", "bfloat16", "float16")}
+    for turn, d in enumerate(("float32", "bfloat16", "float16", "float16", "bfloat16",
+                              "float32")):
+        ms1, ms8 = time_path(trackers[d], henv, P, M, T, reps=2)
+        log(f"[5 timing] {smi}: the Hungarian headline {d} (turn {turn + 1} of f32, bf16, "
+            f"f16, f16, bf16, f32) bind_env {ms1:.4f} ms/frame, bind_env_multi S=8 "
+            f"{ms8:.4f} ms/frame")
+    l_tab = lambda: circumcenter_features_sorted(*lists, T8, 384, table=True)  # noqa: E731
+    turns("K3f table (beside the f32 pair-stats build) 8 sorted lists C=32 P=384",
+          lambda: circumcenter_features_sorted(*lists, T8, 384), l_tab, 20)
+    for htag, dt in HALF:
+        k = keep[htag]
+        hcfg, gains = k["hcfg"], k["gains"]
+        f32cfg = hcfg.replace(dtype="float32")
+        g32 = {q: ({a: b.float() for a, b in w.items()} if isinstance(w, dict) else w.float())
+               for q, w in gains.items()}
+        gated = half_track_inputs(track_scene(5, cfg, K, D, 1, 1, (), dev, gated=True), dt)
+        wide32 = widen_track_inputs(gated)
+        turns(f"K4 hungarian {htag} K={K} D={D} 1 x 1 gated scene",
+              lambda: track_cuda.track_frames(*wide32, config=f32cfg, gains_xy=g32),
+              lambda: track_cuda.track_frames(*gated, config=hcfg, gains_xy=gains), 5)
+        st0 = map_state(lambda x: x[0], gated[0])
+        C, F = gate_costs(st0.bank, gated[1][0, 0], gated[2][0, 0], cfg.id_threshold, True)
+        C32, _ = gate_costs(map_state(lambda x: x[0], wide32[0]).bank, wide32[1][0, 0],
+                            wide32[2][0, 0], cfg.id_threshold, True)
+        iters = split(f"the gated frame's auction in {htag} (K4 hungarian {htag}, K12 {htag})",
+                      C, F, cfg.id_threshold)
+        split("the same frame widened, f32", C32, F, cfg.id_threshold)
+        turns(f"K12 {htag} on the gated frame's costs (beside K12 f32 on them widened)",
+              lambda: hungarian_cuda.auction_assign(C.float(), F, EPS, cfg.id_threshold),
+              lambda: hungarian_cuda.auction_assign(C, F, EPS, cfg.id_threshold), 5)
+        # the dense scene's frame 1 (K = 96, D = 64) from the state before it
+        dh = dcfg.replace(dtype=dict(HALF_NAMES)[htag])
+        states, dets, valid, t, DC, DF = path_track_inputs(dev, dh, denv, dsc, 2)
+        dins = (map_state(lambda x: x[None], states[1]), dets[1][None, None],
+                valid[1][None, None], t[1][None, None].to(dt))
+        d32 = widen_track_inputs(dins)
+        dgains = Tracker(dh, dev).gains_xy
+        dg32 = {q: ({a: b.float() for a, b in w.items()} if isinstance(w, dict) else w.float())
+                for q, w in dgains.items()}
+        turns(f"K4 hungarian {htag} on the dense scene's frame 1 (K=96, D=64)",
+              lambda: track_cuda.track_frames(*d32, config=dh.replace(dtype="float32"),
+                                              gains_xy=dg32),
+              lambda: track_cuda.track_frames(*dins, config=dh, gains_xy=dgains), 3)
+        split(f"the dense scene's frame 1 auction in {htag}", DC[1], DF[1], dh.id_threshold)
+        split(f"the dense scene's frame 1 widened, f32", DC[1].float(), DF[1], dh.id_threshold)
+        wide = k["wide"]
+        turns(f"K4 xl hungarian {htag} K=2048 D={D} 1 x 1 gated scene",
+              lambda: track_cuda.track_frames(*widen_track_inputs(wide), config=f32cfg,
+                                              gains_xy=g32),
+              lambda: track_cuda.track_frames(*wide, config=hcfg, gains_xy=gains), 2)
+        wst0 = map_state(lambda x: x[0], wide[0])
+        WC, WF = gate_costs(wst0.bank, wide[1][0, 0], wide[2][0, 0], cfg.id_threshold, True)
+        witers = split(f"K4 xl hungarian {htag}'s frame (K=2048)", WC, WF, cfg.id_threshold)
+
+        # the report's entries
+        kw = dict(config=hcfg, gains_xy=gains)
+        out4 = track_cuda.track_frames(*gated, **kw)
+        outw = track_cuda.track_frames(*wide, **kw)
+        n_upd = int(out4[1].valid.sum())
+        pairs = {  # name: (kernel, plain or None (its check's time), shape, bytes, operations)
+            f"K4 hungarian {htag}": (
+                lambda: track_cuda.track_frames(*gated, **kw),
+                lambda: track_cuda.track_frames_plain(*gated, **kw),
+                f"K={K} 1 x 1 frame, D={D}, gated scene in {htag}, iterations per phase {iters}",
+                nbytes(gated) + nbytes(out4),
+                auction_ops(iters, D, K, 8) + 20 * cfg.data_length * n_upd),
+            f"K4 xl hungarian {htag}": (
+                lambda: track_cuda.track_frames(*wide, **kw), None,
+                f"K=2048 1 x 1 frame, D={D}, gated scene in {htag}, iterations per phase "
+                f"{witers}", nbytes(wide) + nbytes(outw),
+                auction_ops(witers, D, 2048, 8) + 20 * cfg.data_length * int(outw[1].valid.sum())),
+            f"K12 {htag}": (
+                lambda: hungarian_cuda.auction_assign(C, F, EPS, cfg.id_threshold),
+                lambda: auction_assign_plain(C, F, EPS, cfg.id_threshold),
+                f"D={D} K={K}, the gated frame's {htag} gate costs, iterations per phase {iters}",
+                nbytes((C, F)) + nbytes(hungarian_cuda.auction_assign(C, F, EPS,
+                                                                       cfg.id_threshold)),
+                auction_ops(iters, D, K, 2)),
+        }
+        if htag == "bf16":
+            mp, mm = sorted_list_table(lists, 384)
+            pairs["K3f table"] = (
+                l_tab, lambda: centroid_cuda.circumcenter_features_half_plain(mp, mm, T8, 32),
+                "8 sorted f32 lists x C=32, P=384", nbytes(lists) + nbytes(l_tab()),
+                int(mm.sum(1).double().pow(2).sum()) * 14)
+        for name, (fk, fp, shape, moved, ops) in pairs.items():
+            # one plain call (the plain auction takes seconds: its spread is
+            # nothing beside that); K4 xl's from its check
+            ms_p = ms_p2 = (1e3 * keep[htag]["xl_check_s"] if fp is None else once_ms(fp))
+            ms_k = cuda_ms(fk, 5)
+            ms_k2 = cuda_ms(fk, 5)
+            t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+            entry = report[name]
+            entry["ms"] = min(ms_k, ms_k2)
+            entry["plain_ms"] = min(ms_p, ms_p2)
+            entry["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+            entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            entry["library_ms"] = None
+            log(f"[5 timing] {smi}: {name} {shape}: kernel {ms_k:.4f}/{ms_k2:.4f} ms, plain "
+                f"{ms_p:.4f}/{ms_p2:.4f} ms"
+                + (" (the check's one plain call, wrapper and kernel beside it)" if fp is None
+                   else " (one plain call, then the kernel twice)")
+                + f"; bound {entry['bound_ms']:.6f} ms by {entry['bound_by']} ({moved} bytes, "
+                f"{ops} operations); library call none (no PyTorch call solves an assignment "
+                "or a circumcenter)")
+
+
 PHASE_SECONDS: dict = {}   # wall seconds of each phase main runs
 
 
@@ -6253,6 +6722,7 @@ def main() -> int:
     timed(phase_kernels_slice17, dev, report)
     k19 = timed(phase_kernels_slice19, dev, report, cfg)
     k20 = timed(phase_kernels_slice20, dev, report, cfg)
+    k21 = timed(phase_kernels_slice21, dev, report, cfg)
     tracker, env, frames = timed(phase_slice, dev, cfg, sc, report)
     timed(phase_cli, dev, report)
     timed(phase_ihgp, dev, report)
@@ -6268,6 +6738,7 @@ def main() -> int:
     timed(phase_floor, dev, report)
     timed(phase_half, dev, smi, report)
     timed(phase_half_pointlist, dev, smi, report)
+    timed(phase_hungarian_half, dev, smi, report)
     timed(phase_host_slice19, dev, smi, report)
     timed(phase_timings, dev, cfg, smi, tracker, env, frames, report)
     timed(phase_timings_fleet, dev, smi, fleet, fleet_env, fleet_in)
@@ -6279,6 +6750,7 @@ def main() -> int:
     timed(phase_timings_slice16, dev, smi, report)
     timed(phase_timings_slice19, dev, smi, report, k19)
     timed(phase_timings_slice20, dev, smi, report, k20)
+    timed(phase_timings_slice21, dev, smi, report, k21)
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import micro_torch_digits
 

@@ -72,8 +72,9 @@ SIGNATURES = {
     "motl_circumcenter": [_P, _P, _I, _I, _P, _P],
     "motl_circumcenter_features": [_P, _P, _P, _I, _I, _I, _P, _P],
     "motl_circumcenter_features_f64": [_P, _P, _P, _I, _I, _I, _P, _P],
-    "motl_circumcenter_features_bf16": [_P, _P, _P, _I, _I, _I, _P, _P],
-    "motl_circumcenter_features_f16": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "motl_circumcenter_features_bf16": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "motl_circumcenter_features_f16": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "motl_circumcenter_features_table": [_P, _P, _P, _I, _I, _I, _P, _P],
     "motl_assoc_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P,
                         _P, _P],
     "motl_track_step": [*[_P] * 20, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, *[_F] * 7, _I,
@@ -88,7 +89,8 @@ SIGNATURES = {
     **{f"motl_track_step{xl}_{h}": [*[_P] * 20, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                                     *[_F] * 7, _I, *[_P] * (18 if xl else 17)]
        for xl in ("", "_xl") for h in ("bf16", "f16")},
-    "motl_auction_assign": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    **{f"motl_auction_assign{h}": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+       for h in ("", "_bf16", "_f16")},
     "motl_voxel_exact": _DIGITS,
     "motl_voxel_bf16x3": [_P, _P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _I, _I,
                           _I, _I, _I, _F, _F, _I, _P],

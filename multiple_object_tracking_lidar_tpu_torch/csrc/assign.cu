@@ -49,7 +49,9 @@
 // are the same code as greedy's (every multiplicity is at most 1), and the
 // frame's counts[3] is the auction's saturated phase count.  Each width
 // and filter has its Hungarian build, so the greedy builds keep their
-// registers and shared memory.
+// registers and shared memory.  The half builds (bf16 / f16) have theirs
+// too: the auction on half values (auction_half.cuh), as JAX runs
+// hungarian_associate_and_update in the compute dtype.
 //
 // What bounds it on the H100: latency.  The scan is sequential over at
 // most D <= 128 detections, a few dozen instructions each; the rest is a
@@ -117,7 +119,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "auction.cuh"
+#include "auction_half.cuh"
 #include "fp_half.cuh"
 #include "fp_rn.cuh"
 
@@ -167,12 +169,6 @@ struct Arith {
     return fp::add(fp::mul(a, w2), fp::mul(b, w1));
   }
 };
-
-// The half builds' float type (K4 runs greedy association only in them).
-template <class T>
-constexpr bool kHalfT = false;
-template <class H>
-constexpr bool kHalfT<HV<H>> = true;
 
 template <class H>
 struct Arith<HV<H>> {
@@ -501,13 +497,14 @@ struct HungarianScratch {
   int n_want;
 };
 
-// The double builds' second-step auction scratch (unused by the f32 builds).
+// The double builds' second-step auction scratch (none in the f32 and half
+// builds).
 template <class T, int kLanes>
-struct WideScratch {
+struct WideScratch {};
+template <int kLanes>
+struct WideScratch<double, kLanes> {
   motl_auction::WideKeys<kLanes + kMaxDets> keys;
 };
-template <int kLanes>
-struct WideScratch<float, kLanes> {};
 
 // Bytes of the smoother weights in dynamic shared memory (W_vel's, and
 // W_pos's under ihgp), rounded up to 16 so that what follows is aligned.
@@ -528,7 +525,10 @@ inline size_t hungarian_smem() {
 
 // A detection's value on a slot: -cost where gated (valid, allowed, cost <
 // thr), else NEG; the cost sqrt(fma(dx, dx, dy * dy)), as XLA's CPU code
-// contracts the JAX expression (tests/test_torch_hungarian.py).
+// contracts the JAX expression (tests/test_torch_hungarian.py).  In the half
+// builds fp::fma is H::madd: f16 one FMA rounded once (bind_env's program
+// computes vfmadd231sh, then vsqrtsh), bf16 the square rounded, then the
+// sum, then the f32 root, each rounded to bf16 (ops/hungarian.py::gate_costs).
 template <class T>
 struct TrackValue {
   const T* det;
@@ -1641,6 +1641,10 @@ track_step_xl_kernel(TrackArgs<T> a, unsigned char* scratch, XlLayout y) {
 
 }  // namespace
 
+// The f32 and double entries below build with this file; the half entries
+// (motl_track_step{,_xl}_{bf16,f16}) with assign_half.cu, which includes it
+// with MOTL_ASSIGN_HALF defined, so that nvcc compiles the two at once.
+#ifndef MOTL_ASSIGN_HALF
 // af0 (K, 3) f32 [last_x, last_y, last_t]; ai0 (K, 3) i32 [alive, obj_id,
 // birth_seq]; dets (D, 4) f32; dv (D,) u8; allow (1,) i32; cnt_in (2,) i32
 // [next_obj_num, next_birth].  Outputs: ai_out (K, 3) i32, outs (5, D) i32
@@ -1661,6 +1665,7 @@ extern "C" int motl_assoc_scan(const float* af0, const int* ai0, const float* de
         af0, ai0, dets, dv, allow, cnt_in, K, D, thr, gapthr, dt, ai_out, outs, cnt_out);
   return (int)cudaGetLastError();
 }
+#endif  // MOTL_ASSIGN_HALF
 
 template <class T, int kLanes, bool kIhgp, bool kAuction>
 cudaError_t launch_track(const TrackArgs<T>& a, int B, int threads, size_t smem,
@@ -1679,26 +1684,33 @@ cudaError_t launch_track(const TrackArgs<T>& a, int B, int threads, size_t smem,
 template <class T, int kLanes>
 cudaError_t launch_track_width(const TrackArgs<T>& a, bool ihgp, bool auction, int B,
                                int threads, size_t smem, cudaStream_t st) {
-  if constexpr (!kHalfT<T>) {
-    if (auction)
-      return ihgp ? launch_track<T, kLanes, true, true>(a, B, threads, smem, st)
-                  : launch_track<T, kLanes, false, true>(a, B, threads, smem, st);
-  }
+  if (auction)
+    return ihgp ? launch_track<T, kLanes, true, true>(a, B, threads, smem, st)
+                : launch_track<T, kLanes, false, true>(a, B, threads, smem, st);
   return ihgp ? launch_track<T, kLanes, true, false>(a, B, threads, smem, st)
               : launch_track<T, kLanes, false, false>(a, B, threads, smem, st);
 }
 
+// The auction's parameters from the entry's host array: of T for the f32
+// and double builds, of floats holding half values for the half builds.
 template <class T>
-int track_step(TrackArgs<T>& a, const T* auction_f, int ihgp, int auction, int n_phases,
+bool auction_params(const void* f, int n_phases, int max_iters, motl_auction::AuctionParams<T>* p) {
+  return motl_auction::read_params(static_cast<const T*>(f), n_phases, max_iters, p);
+}
+template <class H>
+bool auction_params(const void* f, int n_phases, int max_iters,
+                    motl_auction::AuctionParams<HV<H>>* p) {
+  return motl_auction::read_params_half<H>(static_cast<const float*>(f), n_phases, max_iters, p);
+}
+
+template <class T>
+int track_step(TrackArgs<T>& a, const void* auction_f, int ihgp, int auction, int n_phases,
                int max_iters, int B) {
   const int K = a.K, D = a.D, L = a.L;
   if (B < 1 || a.S < 1 || K < 1 || K > kMaxLanes || D < 1 || D > kMaxDets || L < 2)
     return (int)cudaErrorInvalidValue;
-  if constexpr (kHalfT<T>) {
-    if (auction) return (int)cudaErrorInvalidValue;
-  } else if (auction && !motl_auction::read_params(auction_f, n_phases, max_iters, &a.au)) {
+  if (auction && !auction_params(auction_f, n_phases, max_iters, &a.au))
     return (int)cudaErrorInvalidValue;
-  }
   const int threads = (K + 31) / 32 * 32;
   const size_t smem = weights_smem<T>(L, ihgp);
   const cudaStream_t st = (cudaStream_t)a.stream;
@@ -1730,27 +1742,23 @@ cudaError_t launch_track_xl(const TrackArgs<T>& a, int B, unsigned char* scratch
 }
 
 template <class T>
-int track_step_xl(TrackArgs<T>& a, const T* auction_f, int ihgp, int auction, int n_phases,
+int track_step_xl(TrackArgs<T>& a, const void* auction_f, int ihgp, int auction, int n_phases,
                   int max_iters, int B, void* scratch) {
   if (B < 1 || a.S < 1 || a.K < 1 || a.D < 1 || a.L < 2 || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
-  if constexpr (kHalfT<T>) {
-    if (auction) return (int)cudaErrorInvalidValue;
-  } else if (auction && !motl_auction::read_params(auction_f, n_phases, max_iters, &a.au)) {
+  if (auction && !auction_params(auction_f, n_phases, max_iters, &a.au))
     return (int)cudaErrorInvalidValue;
-  }
   const XlLayout y = xl_layout_for<T>(a.K, a.D, a.L, ihgp, auction);
   unsigned char* sc = static_cast<unsigned char*>(scratch);
   const cudaStream_t st = (cudaStream_t)a.stream;
-  if constexpr (!kHalfT<T>) {
-    if (auction)
-      return (int)(ihgp ? launch_track_xl<T, true, true>(a, B, sc, y, st)
-                        : launch_track_xl<T, false, true>(a, B, sc, y, st));
-  }
+  if (auction)
+    return (int)(ihgp ? launch_track_xl<T, true, true>(a, B, sc, y, st)
+                      : launch_track_xl<T, false, true>(a, B, sc, y, st));
   return (int)(ihgp ? launch_track_xl<T, true, false>(a, B, sc, y, st)
                     : launch_track_xl<T, false, false>(a, B, sc, y, st));
 }
 
+#ifndef MOTL_ASSIGN_HALF
 // The whole track step of B banks over S frames each, one CTA per bank.
 // Inputs: dets (B, S, D, 4) f32, dv (B, S, D) u8, t (B, S) f32; the state
 // alive (B, K) u8, obj_id (B, K) i32, birth_seq (B, K) i32, window (B, K,
@@ -1859,12 +1867,17 @@ extern "C" int motl_track_step_xl_f64(
   return track_step_xl(a, auction_f, ihgp, auction, n_phases, max_iters, B, scratch);
 }
 
+#endif  // MOTL_ASSIGN_HALF
+
+#ifdef MOTL_ASSIGN_HALF
 // The half builds (motl_track_step_bf16 / _f16, K4 xl's motl_track_step_xl_
-// bf16 / _f16; greedy association only, auction != 0 refused): the
-// arguments of motl_track_step, every float array a bf16 / f16 tensor of
-// the build's type, read and written as such, and the seven scalars half
-// values as floats; the arithmetic K4's body spells on HV<H> (fp_half.cuh,
-// which holds a value's bits) and Arith<HV<H>>.
+// bf16 / _f16; greedy and Hungarian association): the arguments of
+// motl_track_step, every float array a bf16 / f16 tensor of the build's
+// type, read and written as such, the seven scalars and auction_f's
+// parameters half values as floats (in f16 the auction's neg and neg_half
+// are -inf); the arithmetic K4's body spells on HV<H> (fp_half.cuh, which
+// holds a value's bits) and Arith<HV<H>>, the auction's on HV<H> too
+// (auction_half.cuh).
 template <class H, class St = typename H::storage>
 TrackArgs<HV<H>> half_args(
     const St* dets, const uint8_t* dv, const St* t, const uint8_t* alive_in, const int* oid_in,
@@ -1910,7 +1923,7 @@ extern "C" int motl_track_step_bf16(
       lpf_b, prune_period, prune_spin, alive_out, oid_out, birth_out, win_out, m0_out,
       nobj_out, nbirth_out, spin_out, init_out, publish, valid, obj_id, pos, vel, new_track,
       counts, stream);
-  return track_step(a, (const HV<fp::BF16>*)nullptr, ihgp, auction, n_phases, max_iters, B);
+  return track_step(a, auction_f, ihgp, auction, n_phases, max_iters, B);
 }
 
 extern "C" int motl_track_step_f16(
@@ -1931,7 +1944,7 @@ extern "C" int motl_track_step_f16(
       lpf_b, prune_period, prune_spin, alive_out, oid_out, birth_out, win_out, m0_out,
       nobj_out, nbirth_out, spin_out, init_out, publish, valid, obj_id, pos, vel, new_track,
       counts, stream);
-  return track_step(a, (const HV<fp::F16>*)nullptr, ihgp, auction, n_phases, max_iters, B);
+  return track_step(a, auction_f, ihgp, auction, n_phases, max_iters, B);
 }
 
 extern "C" int motl_track_step_xl_bf16(
@@ -1952,7 +1965,7 @@ extern "C" int motl_track_step_xl_bf16(
       lpf_b, prune_period, prune_spin, alive_out, oid_out, birth_out, win_out, m0_out,
       nobj_out, nbirth_out, spin_out, init_out, publish, valid, obj_id, pos, vel, new_track,
       counts, stream);
-  return track_step_xl(a, (const HV<fp::BF16>*)nullptr, ihgp, auction, n_phases, max_iters, B,
+  return track_step_xl(a, auction_f, ihgp, auction, n_phases, max_iters, B,
                        scratch);
 }
 
@@ -1974,10 +1987,13 @@ extern "C" int motl_track_step_xl_f16(
       lpf_b, prune_period, prune_spin, alive_out, oid_out, birth_out, win_out, m0_out,
       nobj_out, nbirth_out, spin_out, init_out, publish, valid, obj_id, pos, vel, new_track,
       counts, stream);
-  return track_step_xl(a, (const HV<fp::F16>*)nullptr, ihgp, auction, n_phases, max_iters, B,
+  return track_step_xl(a, auction_f, ihgp, auction, n_phases, max_iters, B,
                        scratch);
 }
 
+#endif  // MOTL_ASSIGN_HALF
+
+#ifndef MOTL_ASSIGN_HALF
 // K4 xl's scratch bytes per bank (out[0]) and whether the Hungarian tables
 // sit in shared memory (out[1]) for K slots, D detections, window length
 // L, f64 != 0 for the double builds.
@@ -1990,3 +2006,4 @@ extern "C" int motl_track_step_xl_scratch(int K, int D, int L, int f64, int ihgp
   out[1] = y.tables_smem;
   return 0;
 }
+#endif  // MOTL_ASSIGN_HALF

@@ -92,7 +92,15 @@
 // Templated on the float type T of the values, prices and bids: float for
 // K4's f32 builds and K12, double for K4's double builds (dtype="float64";
 // the JAX auction runs in the costs' dtype, with _NEG, the penalties and
-// eps_p in f64).  A 64-bit word cannot hold a double bid beside its row, so
+// eps_p in f64), and HV<H> (fp_half.cuh: a bf16 / f16 value's bits) for
+// the half builds of K4 and K12 (dtype="bfloat16" / "float16": every sum
+// and difference computed in f32 and rounded once to the half dtype, as
+// XLA's CPU code computes them; auction_half.cuh holds HV's warp top two).
+// A half value is an f32 value, so the half builds key their bids as the
+// f32 build does (bid_key of the widened bid, exact).  In f16 _NEG and _NEG
+// / 2 are -inf (the JAX cast overflows): an infeasible pair's value is
+// -inf, never a row's first maximum, and the second-maximum rule keeps
+// best_v only for -inf; the lists and summaries need nothing else.  A 64-bit word cannot hold a double bid beside its row, so
 // the double build picks each column's winner in two steps: one 64-bit
 // atomicMax of the bid's order-preserving bits, then, after a __syncwarp,
 // an atomicMin of the row among the bids equal to that maximum -- the same
@@ -138,7 +146,7 @@ inline bool read_params(const T* f, int n_phases, int max_iters, AuctionParams<T
   p->neg_half = f[1];
   p->neg_pen = f[2];
   p->neg_pen2 = f[3];
-  for (int i = 0; i < kMaxPhases; ++i) p->eps[i] = i < n_phases ? f[4 + i] : T(0);
+  for (int i = 0; i < kMaxPhases; ++i) p->eps[i] = i < n_phases ? f[4 + i] : T{};
   p->n_phases = n_phases;
   p->max_iters = max_iters;
   return true;
@@ -304,12 +312,13 @@ __device__ __forceinline__ T bid_of(const Top2<T>& t, T price_best, T eps, T neg
   return fp::add(fp::add(price_best, fp::sub(t.v1, second)), eps);
 }
 
-// Enter a bid on column c for row r: the f32 build's packed key, or the
-// double build's bid bits (its row settles in place_rows).
+// Enter a bid on column c for row r: the f32 and half builds' packed key
+// (a half bid widened to f32, exactly), or the double build's bid bits (its
+// row settles in the second step).
 template <class T, class Tab>
 __device__ __forceinline__ void place_bid(Tab& sm, int c, T bid, int r) {
-  if constexpr (sizeof(T) == sizeof(float))
-    atomicMax(&sm.key[c], bid_key(bid, r));
+  if constexpr (sizeof(T) != sizeof(double))
+    atomicMax(&sm.key[c], bid_key(static_cast<float>(bid), r));
   else
     atomicMax(&sm.key[c], ord_bits64(bid));
 }
@@ -641,7 +650,7 @@ __device__ int auction_warp(const Value& value, int D, int K, const AuctionParam
             if constexpr (kWide)
               bid = from_ord64(key);
             else
-              bid = key_bid(key);
+              bid = T(key_bid(key));  // the half builds' bid: exact
             if (bid > p.neg_half) {
               const int old = sm.owner[c];
               sm.owner[c] = w;

@@ -192,13 +192,50 @@ int launch(const T* mpts, const uint8_t* mm, const T* t, int t_div, int C, int P
 //     of each sum or difference) -- as XLA's compiled f16 tracking step has
 //     them (ops/centroid_cuda.py::circumcenter_features_half_plain, the
 //     plain version these builds equal bit for bit).
+// The f32 table build (motl_circumcenter_features_table, policy TableF32)
+// is the same body on f32 values: the JAX point list's f32 _one_cluster as
+// bind_env's program computes it (the runs' point list under a half dtype
+// casts it): the mean and d2 as above, sq and the gram as XLA's loops,
+// fma(z, z', fma(y, y', x * x')), the cross product, e, f, G and the
+// numerators one f32 FMA each, and the norm one FMA, fma(ex, ex, ey^2), only
+// on the slots XLA's fused loop runs in its scalar epilogue (its 8-wide
+// vector body takes a frame's first 8 floor((C - 1) / 8) slots uncontracted).
 constexpr int kHalfThreads = 256;
+
+// The f32 table build's policy: f32 values, no rounding past f32's own, the
+// contracted multiply-adds as f32 FMAs.
+struct TableF32 {
+  using storage = float;
+  static constexpr bool kF32 = true;
+  static __device__ __forceinline__ float rnd(float x) { return x; }
+  static __device__ __forceinline__ float load(float x) { return x; }
+  static __device__ __forceinline__ float store(float x) { return x; }
+  static __device__ __forceinline__ float madd(float a, float b, float c) {
+    return __fmaf_rn(a, b, c);
+  }
+};
+
+template <class H>
+constexpr bool kTableF32 = false;
+template <>
+constexpr bool kTableF32<TableF32> = true;
+
+// The three-term dot of the squared norms and the gram: the half builds sum
+// the exact products in f32 and round once; the f32 build is XLA's loop,
+// an FMA per term from the first product.
+template <class H>
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, float by,
+                                      float bz) {
+  if constexpr (kTableF32<H>)
+    return __fmaf_rn(az, bz, __fmaf_rn(ay, by, __fmul_rn(ax, bx)));
+  return H::rnd(__fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz)));
+}
 
 template <class H>
 __global__ void __launch_bounds__(kHalfThreads)
 circumcenter_half_kernel(const typename H::storage* __restrict__ mpts,
                          const uint8_t* __restrict__ mm, const typename H::storage* __restrict__ t,
-                         int t_div, int P, typename H::storage* __restrict__ out) {
+                         int t_div, int P, int cy_alt, typename H::storage* __restrict__ out) {
   extern __shared__ __align__(16) float hs[];
   float* px = hs;             // [P] members
   float* py = px + P;
@@ -250,7 +287,7 @@ circumcenter_half_kernel(const typename H::storage* __restrict__ mpts,
     qx[l] = x;
     qy[l] = y;
     qz[l] = z;
-    sq[l] = H::rnd(__fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z)));
+    sq[l] = dot3<H>(x, y, z, x, y, z);
   }
   __syncthreads();
 
@@ -263,9 +300,7 @@ circumcenter_half_kernel(const typename H::storage* __restrict__ mpts,
     if (msk[i]) {
       for (int j = i + 1; j < P; ++j) {
         if (!msk[j]) continue;
-        const float g = H::rnd(__fadd_rn(__fadd_rn(__fmul_rn(qx[i], qx[j]),
-                                                   __fmul_rn(qy[i], qy[j])),
-                                         __fmul_rn(qz[i], qz[j])));
+        const float g = dot3<H>(qx[i], qy[i], qz[i], qx[j], qy[j], qz[j]);
         const float v = fp::hsub<H>(fp::hadd<H>(sq[i], sq[j]), fp::hmul<H>(2.0f, g));
         if (!isnan(best) && (isnan(v) || v > best)) {  // argmax: a NaN wins
           best = v;
@@ -291,7 +326,11 @@ circumcenter_half_kernel(const typename H::storage* __restrict__ mpts,
   const float pix = px[i_star], piy = py[i_star], piz = pz[i_star];
   const float pjx = px[j_star], pjy = py[j_star], pjz = pz[j_star];
   const float ex = fp::hsub<H>(pjx, pix), ey = fp::hsub<H>(pjy, piy);
-  const float norm = fp::hsqrt<H>(fp::hadd<H>(fp::hmul<H>(ex, ex), fp::hmul<H>(ey, ey)));
+  // the f32 build: contracted on the slots of a frame's scalar epilogue
+  const int in_frame = c % t_div;
+  const bool tail = kTableF32<H> && in_frame >= 8 * ((t_div - 1) / 8);
+  const float norm = fp::hsqrt<H>(tail ? H::madd(ex, ex, fp::hmul<H>(ey, ey))
+                                       : fp::hadd<H>(fp::hmul<H>(ex, ex), fp::hmul<H>(ey, ey)));
   const float den = fmaxf(norm, H::rnd(1e-30f));  // the JAX clamp, in the half dtype
   for (int l = threadIdx.x; l < P; l += kHalfThreads) {
     const float x = px[l], y = py[l], z = pz[l];
@@ -324,7 +363,11 @@ circumcenter_half_kernel(const typename H::storage* __restrict__ mpts,
     const bool collinear = g == 0.0f;
     const float gs = collinear ? 1.0f : g;
     const float cx = collinear ? pix : fp::hdiv<H>(H::madd(d, e, -fp::hmul<H>(b, f)), gs);
-    const float cy = collinear ? piy : fp::hdiv<H>(H::madd(a, f, -fp::hmul<H>(cc, e)), gs);
+    // cy_alt (the f16 fleet on a mesh of several devices): XLA's program
+    // contracts cy's own copies of e and f on their second product
+    const float e2 = cy_alt ? H::madd(b, s2, fp::hmul<H>(a, s1)) : e;
+    const float f2 = cy_alt ? H::madd(d, s4, fp::hmul<H>(cc, s3)) : f;
+    const float cy = collinear ? piy : fp::hdiv<H>(H::madd(a, f2, -fp::hmul<H>(cc, e2)), gs);
     typename H::storage* o = out + (size_t)c * 4;
     o[0] = H::store(cx);
     o[1] = H::store(cy);
@@ -336,14 +379,14 @@ circumcenter_half_kernel(const typename H::storage* __restrict__ mpts,
 template <class H>
 int launch_half(const typename H::storage* mpts, const uint8_t* mm,
                 const typename H::storage* t, int t_div, int C, int P,
-                typename H::storage* out, void* stream) {
+                typename H::storage* out, void* stream, int cy_alt = 0) {
   if (C < 1 || P < 1 || t_div < 1 || t == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)P * (10 * sizeof(float) + 1);
   cudaError_t err = cudaFuncSetAttribute(circumcenter_half_kernel<H>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   circumcenter_half_kernel<H><<<C, kHalfThreads, smem, (cudaStream_t)stream>>>(mpts, mm, t, t_div,
-                                                                              P, out);
+                                                                              P, cy_alt, out);
   return (int)cudaGetLastError();
 }
 
@@ -372,15 +415,28 @@ extern "C" int motl_circumcenter_features_f64(const double* mpts, const uint8_t*
 }
 
 // K3f's half builds: mpts (C, P, 3), t (C / t_div,) and out (C, 4) bf16
-// (motl_circumcenter_features_bf16) or f16 (_f16), mm (C, P) u8.
+// (motl_circumcenter_features_bf16) or f16 (_f16), mm (C, P) u8; cy_alt
+// != 0 spells cy as the JAX fleet's program on a mesh of several devices
+// has it (f16: e and f contracted on their second product; bf16 contracts
+// nothing, so it changes no bit there).
 extern "C" int motl_circumcenter_features_bf16(const __nv_bfloat16* mpts, const uint8_t* mm,
                                                const __nv_bfloat16* t, int C, int P, int t_div,
-                                               __nv_bfloat16* out, void* stream) {
-  return launch_half<fp::BF16>(mpts, mm, t, t_div, C, P, out, stream);
+                                               int cy_alt, __nv_bfloat16* out, void* stream) {
+  return launch_half<fp::BF16>(mpts, mm, t, t_div, C, P, out, stream, cy_alt);
 }
 
 extern "C" int motl_circumcenter_features_f16(const __half* mpts, const uint8_t* mm,
                                               const __half* t, int C, int P, int t_div,
-                                              __half* out, void* stream) {
-  return launch_half<fp::F16>(mpts, mm, t, t_div, C, P, out, stream);
+                                              int cy_alt, __half* out, void* stream) {
+  return launch_half<fp::F16>(mpts, mm, t, t_div, C, P, out, stream, cy_alt);
+}
+
+// K3f's f32 table build: mpts (C, P, 3) f32, mm (C, P) u8, t (C / t_div,)
+// f32 -> out (C, 4) f32, through the JAX jnp route (_one_cluster) of the
+// half builds on f32 values; t per frame, t_div = C / S slots a frame (the
+// slot's place in its frame picks its norm's spelling).
+extern "C" int motl_circumcenter_features_table(const float* mpts, const uint8_t* mm,
+                                                const float* t, int C, int P, int t_div,
+                                                float* out, void* stream) {
+  return launch_half<TableF32>(mpts, mm, t, t_div, C, P, out, stream);
 }

@@ -20,7 +20,11 @@ the JAX point-list path runs ``_one_cluster``, whose picks the JAX package
 documents as those of the pair-stats route (centroid.py:152-157).  Under
 bf16 / f16 K3f's half builds are ``_one_cluster`` itself, as XLA's CPU
 code computes it (``centroid_cuda.circumcenter_features_half_plain``): on
-the dense grid's table and on the sorted list alike (P up to G's 512).
+the dense grid's table and on the sorted list alike (P up to G's 512).  The
+runs' point list under bf16 / f16 stays f32 to the circumcenter and casts
+after it, as JAX does: its f32 ``_one_cluster`` is K3f's f32 table build
+(the half builds' body on f32 values, ``table=True``), not the pair-stats
+route, so that the cast rounds the JAX package's f32 values.
 """
 
 from __future__ import annotations
@@ -104,14 +108,16 @@ def circumcenter_from_pair_stats(
 
 
 def circumcenter_features_table_stacked(
-    mpts: torch.Tensor, member_mask: torch.Tensor, t: torch.Tensor
+    mpts: torch.Tensor, member_mask: torch.Tensor, t: torch.Tensor, table: bool = False
 ) -> torch.Tensor:
     """(S, C, 4) detections of S frames' member tables (S, C, P, 3), t
     (S,): one K3f launch for the S * C slots; each slot's result is the one
-    a single-frame call gives."""
+    a single-frame call gives.  ``table``: f32 tables through the JAX jnp
+    route (``centroid_cuda.circumcenter_features``)."""
     s, c, p, _ = mpts.shape
     dets = centroid_cuda.circumcenter_features(
-        mpts.reshape(s * c, p, 3), member_mask.reshape(s * c, p), torch.as_tensor(t).reshape(-1))
+        mpts.reshape(s * c, p, 3), member_mask.reshape(s * c, p), torch.as_tensor(t).reshape(-1),
+        table=table)
     return dets.reshape(s, c, 4)
 
 
@@ -150,14 +156,17 @@ def circumcenter_features_sorted(
     cluster_valid: torch.Tensor,  # (S, C)
     t: torch.Tensor,              # (S,)
     p_max: int,
+    table: bool = False,
 ) -> torch.Tensor:
     """(S, C, 4) detections of S frames from the cluster-sorted point list
     (``ops/cluster.py::cluster_postprocess``): slot c's members are rows
     ``starts[c] + arange(P)`` (every start is <= M, so JAX's dynamic_slice
-    never clamps), masked to ``sizes[c]``."""
+    never clamps), masked to ``sizes[c]``.  ``table``: an f32 list through
+    the JAX jnp route (``_one_cluster``), as the runs' point list takes it
+    under a half dtype before its cast."""
     s, c = starts.shape
     lane = torch.arange(p_max, device=sorted_pts.device)
     rows = (starts.to(torch.int64)[:, :, None] + lane).reshape(s, -1)
     mpts = torch.gather(sorted_pts, 1, rows[..., None].expand(-1, -1, 3)).reshape(s, c, p_max, 3)
     mm = (lane < sizes[:, :, None]) & cluster_valid[:, :, None]
-    return circumcenter_features_table_stacked(mpts, mm, t)
+    return circumcenter_features_table_stacked(mpts, mm, t, table=table)

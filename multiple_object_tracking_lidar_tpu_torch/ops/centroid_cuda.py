@@ -33,6 +33,9 @@ plain version for CPU tensors, bit for bit the same.
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
+
 import torch
 
 from multiple_object_tracking_lidar_tpu_torch import _build
@@ -158,16 +161,30 @@ def _take1(mpts: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 
 
 def circumcenter_features_half_plain(mpts: torch.Tensor, member_mask: torch.Tensor,
-                                     t) -> torch.Tensor:
-    """Plain PyTorch version of K3f's half builds: the JAX package's jnp
-    ``circumcenter_features_table`` (``_one_cluster`` per slot, centroid.py:
-    30-84; the route its half dtypes take) in bf16 or f16, as XLA's CPU
-    code computes it (ops/half.py): the member mean, the squared norms and
-    the gram as f32 sums rounded once, d2 = (sq_i + sq_j) - 2 gram rounded
-    per op, the first maximum in row-major (i, j) order, the line scan and
-    the determinant per op -- under f16 the line's cross product, e, f, G
-    and the two numerators each one f32 FMA rounded once (``madd``)."""
-    from multiple_object_tracking_lidar_tpu_torch.ops.half import madd, sum_f32, sum_f32_windows
+                                     t, frame_slots: int | None = None,
+                                     cy_alt: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K3f's half builds and of its f32 table
+    build: the JAX package's jnp ``_one_cluster`` per slot (centroid.py:
+    30-84; the route its half dtypes take, and its point list's f32 route)
+    in bf16, f16 or f32, as XLA's CPU code computes it in ``bind_env``'s
+    programs (ops/half.py): the member mean in windows of 32 members, the
+    windows' sums added in order, divided by the count; d2 = (sq_i + sq_j) -
+    2 gram; the first maximum in row-major (i, j) order, the line scan and
+    the determinant per op -- under f16 and f32 the line's cross product,
+    e, f, G and the two numerators each one FMA rounded once (the first
+    product of each sum or difference: ``cluster_pallas.fma``).  The half
+    dtypes sum the squared norms and the gram as exact products in f32,
+    rounded once; f32 takes them as XLA's loops do, fma(z, z', fma(y, y',
+    x * x')).  f32's norm sqrt(ex^2 + ey^2) is contracted, fma(ex, ex, ey^2),
+    only on the slots the fused loop runs in its scalar epilogue: XLA's
+    8-wide vector body takes the first 8 * floor((C - 1) / 8) slots of each
+    frame's C (``frame_slots``; 24 of the headline's 32) without an FMA,
+    the rest one at a time with it (read from the program's machine code).
+    ``cy_alt``: cy as the JAX fleet's f16 program on a mesh of several
+    devices computes it, from its own e and f contracted on their second
+    product (``mesh_program``)."""
+    from multiple_object_tracking_lidar_tpu_torch.ops.cluster_pallas import fma, fma32
+    from multiple_object_tracking_lidar_tpu_torch.ops.half import sum_f32, sum_f32_windows
 
     c, p, _ = mpts.shape
     dt = mpts.dtype
@@ -178,8 +195,15 @@ def circumcenter_features_half_plain(mpts: torch.Tensor, member_mask: torch.Tens
     tot = sum_f32_windows([prod[:, q] for q in range(p)], dt)             # (C, 3)
     cen = torch.where(mm.any(dim=1)[:, None], tot / cnt[:, None], torch.zeros_like(tot))
     pc = torch.where(mm[..., None], mpts - cen[:, None, :], torch.zeros_like(mpts))
-    sq = sum_f32([(pc[..., a], pc[..., a]) for a in range(3)], dt)        # (C, P)
-    gram = sum_f32([(pc[:, :, None, a], pc[:, None, :, a]) for a in range(3)], dt)
+    if dt == torch.float32:
+        def dot3(u, v):
+            return fma32(u[..., 2], v[..., 2], fma32(u[..., 1], v[..., 1], u[..., 0] * v[..., 0]))
+
+        sq = dot3(pc, pc)                                                    # (C, P)
+        gram = dot3(pc[:, :, None, :], pc[:, None, :, :])
+    else:
+        sq = sum_f32([(pc[..., a], pc[..., a]) for a in range(3)], dt)    # (C, P)
+        gram = sum_f32([(pc[:, :, None, a], pc[:, None, :, a]) for a in range(3)], dt)
     d2 = (sq[:, :, None] + sq[:, None, :]) - 2.0 * gram
     iu = torch.arange(p, device=mpts.device)
     pair = mm[:, :, None] & mm[:, None, :] & (iu[:, None] < iu[None, :])
@@ -192,8 +216,14 @@ def circumcenter_features_half_plain(mpts: torch.Tensor, member_mask: torch.Tens
     pix, piy, pjx, pjy = pi[:, 0:1], pi[:, 1:2], pj[:, 0:1], pj[:, 1:2]
     xs, ys = mpts[..., 0], mpts[..., 1]
     ex, ey = pjx - pix, pjy - piy
-    cross = torch.abs(madd(ex, ys - piy, -(ey * (xs - pix))))
-    norm = torch.sqrt(ex * ex + ey * ey)
+    cross = torch.abs(fma(ex.expand_as(ys), ys - piy, -(ey * (xs - pix))))
+    if dt == torch.float32:
+        per = frame_slots or c
+        tail = (torch.arange(c, device=mpts.device) % per >= 8 * ((per - 1) // 8))[:, None]
+        sq_xy = torch.where(tail, fma32(ex, ex, ey * ey), ex * ex + ey * ey)
+        norm = torch.sqrt(sq_xy.double()).float()      # correctly rounded, as vsqrtss
+    else:
+        norm = torch.sqrt(ex * ex + ey * ey)
     line_d = cross / torch.clamp(norm, min=in_dtype(1e-30, dt))
     eq_i = (mpts == pi[:, None, :]).all(dim=2)
     eq_j = (mpts == pj[:, None, :]).all(dim=2)
@@ -202,13 +232,15 @@ def circumcenter_features_half_plain(mpts: torch.Tensor, member_mask: torch.Tens
     pk = _take1(mpts, k_star)
     pix, piy, pjx, pjy, pkx, pky = pi[:, 0], pi[:, 1], pj[:, 0], pj[:, 1], pk[:, 0], pk[:, 1]
     a, b, cc, d = pjx - pix, pjy - piy, pkx - pix, pky - piy
-    e = madd(a, pix + pjx, b * (piy + pjy))
-    f = madd(cc, pix + pkx, d * (piy + pky))
-    g = 2.0 * madd(a, pky - pjy, -(b * (pkx - pjx)))
+    e = fma(a, pix + pjx, b * (piy + pjy))
+    f = fma(cc, pix + pkx, d * (piy + pky))
+    g = 2.0 * fma(a, pky - pjy, -(b * (pkx - pjx)))
     collinear = g == 0.0
     g_safe = torch.where(collinear, torch.ones_like(g), g)
-    cx = torch.where(collinear, pix, madd(d, e, -(b * f)) / g_safe)
-    cy = torch.where(collinear, piy, madd(a, f, -(cc * e)) / g_safe)
+    cx = torch.where(collinear, pix, fma(d, e, -(b * f)) / g_safe)
+    if cy_alt:
+        e, f = fma(b, piy + pjy, a * (pix + pjx)), fma(d, piy + pky, cc * (pix + pkx))
+    cy = torch.where(collinear, piy, fma(a, f, -(cc * e)) / g_safe)
     tcol = tt.repeat_interleave(c // tt.numel())
     return torch.stack([cx, cy, torch.zeros_like(cx), tcol], dim=1)
 
@@ -225,19 +257,46 @@ def _first_max(v: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.where(hit, idx, n).min(dim=dim).values
 
 
-def circumcenter_features(mpts: torch.Tensor, member_mask: torch.Tensor, t) -> torch.Tensor:
+_MESH_PROGRAM = contextvars.ContextVar("mesh_program", default=False)
+
+
+@contextlib.contextmanager
+def mesh_program(on: bool = True):
+    """Inside it the half builds spell cy as XLA compiles the JAX fleet on a
+    mesh of more than one device (``ShardedTracker`` enters it there): that
+    program contracts cy's own copies of e and f on their second product,
+    where ``bind_env``'s and the one-device fleet's contract the first
+    (read from the programs' machine code; f16 only -- bf16 contracts
+    nothing)."""
+    token = _MESH_PROGRAM.set(bool(on))
+    try:
+        yield
+    finally:
+        _MESH_PROGRAM.reset(token)
+
+
+def circumcenter_features(mpts: torch.Tensor, member_mask: torch.Tensor, t,
+                          table: bool = False) -> torch.Tensor:
     """K3f on CUDA tensors, its plain version on CPU tensors: (C, 4)
     [x, y, 0, t] detections of the member table mpts (C, P, 3), mask
     (C, P), t (C,) per slot (or (S,) per frame of S stacked frames, or a
     scalar), in mpts' dtype: f32, or f64 (the double build,
     ``motl_circumcenter_features_f64``), or bf16 / f16 (the half builds,
     ``motl_circumcenter_features_bf16`` / ``_f16``, the JAX jnp route's
-    arithmetic: ``circumcenter_features_half_plain``).  One launch; t is
-    read on the device."""
+    arithmetic: ``circumcenter_features_half_plain``).  ``table`` takes f32
+    tables through that jnp route too (``motl_circumcenter_features_table``,
+    the half builds' body on f32 values: the JAX point list's f32
+    ``_one_cluster``, which the runs' point list casts to the half dtype),
+    t then per frame.  One launch; t is read on the device."""
     half = mpts.dtype in (torch.bfloat16, torch.float16)
+    if table and mpts.dtype != torch.float32:
+        raise ValueError(f"the f32 table build takes float32 tables (got {mpts.dtype})")
+    c = mpts.shape[0]
+    cy_alt = half and _MESH_PROGRAM.get()
     if mpts.device.type == "cpu":
-        if half:
-            return circumcenter_features_half_plain(mpts, member_mask, t)
+        if half or table:
+            return circumcenter_features_half_plain(
+                mpts, member_mask, t, c // max(1, torch.as_tensor(t).numel()), cy_alt)
         return circumcenter_features_plain(mpts, member_mask, t)
     c, p = _check_table(mpts, member_mask,
                         (torch.float32, torch.float64, torch.bfloat16, torch.float16))
@@ -249,10 +308,11 @@ def circumcenter_features(mpts: torch.Tensor, member_mask: torch.Tensor, t) -> t
     entry = {torch.float64: "motl_circumcenter_features_f64",
              torch.bfloat16: "motl_circumcenter_features_bf16",
              torch.float16: "motl_circumcenter_features_f16"}.get(
-                 mpts.dtype, "motl_circumcenter_features")
+                 mpts.dtype, "motl_circumcenter_features_table" if table
+                 else "motl_circumcenter_features")
     err = getattr(_build.load(), entry)(
         mpts.data_ptr(), mm8.data_ptr(), tt.data_ptr(), c, p, c // tt.numel(),
-        out.data_ptr(), _build.stream_ptr(dev),
+        *((int(cy_alt),) if half else ()), out.data_ptr(), _build.stream_ptr(dev),
     )
     _build.check(err, entry)
     _build.count(circumcenter_features, entry, "motl_circumcenter_features")

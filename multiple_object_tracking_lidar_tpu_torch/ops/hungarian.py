@@ -33,13 +33,15 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from multiple_object_tracking_lidar_tpu_torch.ops.assign import (
     AssocResult,
     apply_window_updates,
 )
-from multiple_object_tracking_lidar_tpu_torch.ops.cluster_pallas import fma32, fma64
+from multiple_object_tracking_lidar_tpu_torch.ops.cluster_pallas import fma, fma32, fma64
+from multiple_object_tracking_lidar_tpu_torch.ops.half import is_half
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import f32, in_dtype, true_div
 from multiple_object_tracking_lidar_tpu_torch.tracker.state import TrackBank
 
@@ -68,12 +70,16 @@ def auction_schedule(d: int, eps: float, max_cost: float, scale: float = SCALE,
 def auction_negs(dtype: torch.dtype = torch.float32) -> tuple[float, float]:
     """(_NEG, _NEG / 2) as values of ``dtype``: what ``jnp.where(...,
     _NEG)`` writes into an array of that dtype, and what its values are
-    compared with."""
-    return in_dtype(_NEG, dtype), in_dtype(_NEG / 2, dtype)
+    compared with.  Finite in f32, f64 and bf16; both overflow to -inf in
+    f16, as numpy's cast of the weak-typed constant does in JAX (then an
+    infeasible pair's value is -inf and ``second <= _NEG / 2`` holds only
+    for -inf)."""
+    with np.errstate(over="ignore"):
+        return in_dtype(_NEG, dtype), in_dtype(_NEG / 2, dtype)
 
 
 def auction_assign_plain(
-    cost: torch.Tensor,       # (D, K) f32 assignment costs
+    cost: torch.Tensor,       # (D, K) assignment costs: f32, f64, bf16 or f16
     feasible: torch.Tensor,   # (D, K) bool allowed pairs
     eps: float,
     max_cost: float,
@@ -82,7 +88,9 @@ def auction_assign_plain(
     return_iters: bool = False,
     return_split: bool = False,
 ):
-    """Eps-scaling Jacobi auction in the costs' dtype (f32 or f64): ((D,)
+    """Eps-scaling Jacobi auction in the costs' dtype (f32, f64, bf16 or
+    f16; a half sum or difference computed in f32 and rounded once, as
+    XLA's CPU code does in both half dtypes): ((D,)
     int32 column per row or -1, int32 saturated phase count), and with
     ``return_iters`` the iterations each phase ran (a list); with
     ``return_split`` also the iterations each phase ran with no real row
@@ -153,13 +161,21 @@ def gate_costs(bank: TrackBank, dets: torch.Tensor, det_valid: torch.Tensor,
     taken in f64 and rounded once to f32 (correctly rounded: 53 >= 2 * 24
     + 2 bits): PyTorch's f32 ``sqrt`` on the CPU is off by an ulp for
     ~0.6% of inputs, and a bid moves with every bit of its cost.  In f64
-    (K4's double build) the same: ``fma64`` and the f64 root."""
+    (K4's double build) the same: ``fma64`` and the f64 root.  In bf16 and
+    f16 ``bind_env``'s program computes the cost in the half dtype: f16
+    contracts it as f32 does, fma(dx, dx, dy * dy) rounded once to f16
+    (``vfmadd231sh``), then the native f16 root; bf16 rounds the squares,
+    the sum and the f32 root each to bf16.  Both are ``cluster_pallas.fma``
+    and the root taken in f64 and rounded once (correctly rounded: 53 >=
+    2 * 11 + 2 bits)."""
     L = bank.window.shape[1]
     last = bank.window[:, L - 1, :]
     dx = dets[:, 0:1] - last[None, :, 0]
     dy = dets[:, 1:2] - last[None, :, 1]
     if dx.dtype == torch.float64:
         cost = torch.sqrt(fma64(dx, dx, dy * dy))
+    elif is_half(dx.dtype):
+        cost = torch.sqrt(fma(dx, dx, dy * dy).to(torch.float64)).to(dx.dtype)
     else:
         cost = torch.sqrt(fma32(dx, dx, dy * dy).to(torch.float64)).to(torch.float32)
     allow = torch.as_tensor(allow_match, device=dets.device).to(torch.bool)

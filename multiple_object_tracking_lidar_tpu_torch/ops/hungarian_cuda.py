@@ -18,8 +18,11 @@ launches it, as no tracking path launches the greedy scan alone
 (``ops/assign_cuda.py``).
 
 ``auction_assign`` launches the kernel for CUDA tensors and runs
-``auction_assign_plain`` for CPU tensors; ``.launches`` counts kernel
-launches.  It takes (D, K) or B stacked (B, D, K) problems and returns
+``auction_assign_plain`` for CPU tensors, in f32 or, for bf16 / f16 costs
+(``dtype="bfloat16"`` / ``"float16"``), the half builds
+(``motl_auction_assign_bf16`` / ``_f16``: the auction on half values, each
+sum and difference rounded to the half dtype); ``.launches_by`` counts
+kernel launches by C entry and ``.launches`` those of the f32 build.  It takes (D, K) or B stacked (B, D, K) problems and returns
 (assigned (D,) / (B, D) int32, saturated () / (B,) int32) and, with
 ``return_iters``, the iterations each phase ran ((n_phases,) / (B,
 n_phases) int32); with ``return_split`` also those of them with no real
@@ -29,6 +32,7 @@ row unassigned (the device function's dummy-only iterations, which
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -51,7 +55,8 @@ def auction_params(d: int, eps: float, max_cost: float, scale: float = SCALE,
                    dtype: torch.dtype = torch.float32):
     """(host array [neg, neg_half, neg_pen, neg_pen2, eps_0, ...] of f32, or
     of f64 for K4's double builds, n_phases): the kernels' auction
-    parameters for ``d`` real rows."""
+    parameters for ``d`` real rows, values of ``dtype`` (the half builds
+    take the bf16 / f16 values as f32, exactly)."""
     neg_pen, neg_pen2, eps_ps = auction_schedule(d, eps, max_cost, scale, dtype)
     if len(eps_ps) > MAX_PHASES:
         raise ValueError(f"{len(eps_ps)} eps phases; the kernels hold at most {MAX_PHASES}")
@@ -61,7 +66,7 @@ def auction_params(d: int, eps: float, max_cost: float, scale: float = SCALE,
 
 
 def auction_assign(
-    cost: torch.Tensor,       # (D, K) or (B, D, K) f32
+    cost: torch.Tensor,       # (D, K) or (B, D, K) f32, bf16 or f16
     feasible: torch.Tensor,   # the same shape, bool
     eps: float,
     max_cost: float,
@@ -101,23 +106,28 @@ def _launch(cost, feasible, eps, max_cost, max_iters, scale):
     if not (1 <= d <= MAX_ROWS and 1 <= k <= MAX_COLS):
         raise ValueError(f"K12 holds 1 <= D <= {MAX_ROWS} rows and 1 <= K <= {MAX_COLS} "
                          f"columns (got D={d}, K={k})")
-    if cost.dtype != torch.float32 or feasible.shape != cost.shape or feasible.device != dev:
-        raise ValueError(f"cost must be float32 and feasible {tuple(cost.shape)} on {dev}")
-    params, n_phases = auction_params(d, eps, max_cost, scale)
+    if cost.dtype not in _ENTRY or feasible.shape != cost.shape or feasible.device != dev:
+        raise ValueError(f"cost must be float32, bfloat16 or float16 and feasible "
+                         f"{tuple(cost.shape)} on {dev}")
+    params, n_phases = auction_params(d, eps, max_cost, scale, dtype=cost.dtype)
     cost = cost.contiguous()
     feas = _build.byte_mask(feasible)
     assigned = torch.empty((n_b, d), dtype=torch.int32, device=dev)
     saturated = torch.empty((n_b,), dtype=torch.int32, device=dev)
     iters = torch.empty((n_b, n_phases), dtype=torch.int32, device=dev)
     fast = torch.empty((n_b, n_phases), dtype=torch.int32, device=dev)
-    err = _build.load().motl_auction_assign(
+    entry = _ENTRY[cost.dtype]
+    err = getattr(_build.load(), entry)(
         cost.data_ptr(), feas.data_ptr(), ctypes.addressof(params), n_phases, int(max_iters),
         n_b, d, k, assigned.data_ptr(), saturated.data_ptr(), iters.data_ptr(), fast.data_ptr(),
         _build.stream_ptr(dev),
     )
-    _build.check(err, "motl_auction_assign")
-    auction_assign.launches += 1
+    _build.check(err, entry)
+    _build.count(auction_assign, entry, "motl_auction_assign")
     return assigned, saturated, iters, fast
 
 
-auction_assign.launches = 0
+_ENTRY = {torch.float32: "motl_auction_assign", torch.bfloat16: "motl_auction_assign_bf16",
+          torch.float16: "motl_auction_assign_f16"}
+auction_assign.launches = 0                          # motl_auction_assign's
+auction_assign.launches_by = collections.Counter()   # by C entry

@@ -320,8 +320,9 @@ def track_frames(
     """K4 on CUDA tensors, ``track_frames_plain`` on CPU tensors.  f64
     tensors (dets, t, the bank's window and m0, the gains) launch the
     double build (``motl_track_step_f64``), one launch too; bf16 / f16 ones
-    (greedy association) the half builds (``motl_track_step_bf16`` /
-    ``_f16``), which read and write the half tensors themselves; a bank past the
+    (greedy or Hungarian association) the half builds
+    (``motl_track_step_bf16`` / ``_f16``), which read and write the half
+    tensors themselves; a bank past the
     narrow builds' ``kernel_fits`` launches K4 xl (``motl_track_step_xl``,
     ``_xl_f64``, ``_xl_bf16``, ``_xl_f16``)."""
     if dets.device.type == "cpu":
@@ -343,13 +344,9 @@ def track_frames(
         raise ValueError(f"m0 and the smoother weights must be {dt}, as the detections")
     thr32, gapthr, dt32 = _consts(config.id_threshold, config.dt_gp, config.interp_gap_factor, dt)
     hungarian = config.association == "hungarian"
-    half = dt in (torch.bfloat16, torch.float16)
-    if half and hungarian:
-        raise NotImplementedError(
-            "association='hungarian' under a half dtype is not ported yet (ROADMAP Queue 1, "
-            "item 28's remaining parts)")
     # the auction's parameters as JAX's hungarian_associate_and_update sets
-    # them: its eps, max_cost the gate, auction_assign's cap and scale
+    # them: its eps, max_cost the gate, auction_assign's cap and scale, in
+    # the compute dtype (the half builds take them as f32 holding half values)
     au, n_phases = (auction_params(d, EPS, config.id_threshold, dtype=dt) if hungarian
                     else (None, 0))
     i32 = dict(dtype=torch.int32, device=dev)

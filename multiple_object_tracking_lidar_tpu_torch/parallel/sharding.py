@@ -32,16 +32,21 @@ chosen as the JAX package chooses them (sharding.py:88-107):
   scatter sums in the compute dtype (K6's f32 mode, or its double build
   K6f f64) whatever ``voxel_mode`` says, an all-reduce in that dtype, and
   perception from the accumulator with no per-cell static table -- on a
-  grid config the stencil CC (K14, built for f32 and f64 centroids) with
-  the per-point map lookup, since the JAX program's map is a tracer there
-  (sharding.py:316-333); every config runs on the card in f32 and f64.
+  grid config the stencil CC (K14, built for f32, f64, bf16 and f16
+  centroids) with the per-point map lookup, since the JAX program's map is
+  a tracer there (sharding.py:316-333); every config runs on the card in
+  every compute dtype.
   The track step is the same
   B x 1 K4 launch, whose decisions equal the jnp associator the JAX vmap
   fleet pins; an explicit ``assoc_backend="pallas"`` raises, as it does
   there.
 
-Under ``dtype="bfloat16"`` or ``"float16"`` the fleet raises
-NotImplementedError (ROADMAP item 28's remaining parts).
+Under ``dtype="bfloat16"`` or ``"float16"`` the fleet is the vmap fleet,
+as in JAX (its kernel fleet needs f32): the points cast to the half dtype,
+K6f's half build summing them (every add rounded), the half sums summed
+over the space group as XLA's CPU all-reduce sums them (``half_psum``),
+then the half perception and the half track step under either
+association.
 
 Collectives go through ``torch.distributed`` on the mesh's process groups:
 NCCL on the card, gloo on the CPU.
@@ -55,6 +60,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from multiple_object_tracking_lidar_tpu_torch.ops.centroid_cuda import mesh_program
 from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import MapEnv
 from multiple_object_tracking_lidar_tpu_torch.ops.track_cuda import TrackOutputs
 from multiple_object_tracking_lidar_tpu_torch.ops.voxel import voxel_accumulate_stacked
@@ -118,6 +124,33 @@ def local_shard(a, mesh: DeviceMesh):
     return a
 
 
+def half_psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the bf16 / f16 tensor ``x`` over the ranks of ``group``,
+    as XLA's CPU all-reduce of the JAX ``psum`` computes it (read from the
+    fleet program's HLO and checked on its in-process collectives): bf16
+    promoted to f32 (``to_apply=%region_*_promoted``), summed in f32 in
+    rank order and rounded once; f16 summed natively in rank order, each
+    add rounded to f16.  One rank is the identity.  NCCL's ring and gloo
+    add in other orders, so each rank gathers every rank's bits (as bytes,
+    which every backend moves) and adds them in rank order itself."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    flat = x.contiguous().view(torch.uint8)
+    parts = [torch.empty_like(flat) for _ in range(n)]
+    dist.all_gather(parts, flat, group=group)
+    vals = [p.view(x.dtype).view(x.shape) for p in parts]
+    if x.dtype == torch.float16:
+        acc = vals[0]
+        for v in vals[1:]:
+            acc = acc + v
+        return acc
+    acc = vals[0].float()
+    for v in vals[1:]:
+        acc = acc + v.float()
+    return acc.to(x.dtype)
+
+
 @dataclasses.dataclass
 class ShardedTracker:
     """Fleet tracking: a batch of independent streams over a DeviceMesh,
@@ -136,13 +169,6 @@ class ShardedTracker:
         if self.kernel_path not in ("auto", "on", "off"):
             raise ValueError(f"unknown kernel_path {self.kernel_path!r}")
         cfg = self.tracker.config
-        if cfg.dtype in ("bfloat16", "float16"):
-            # the half fleet (its sums, their all-reduce, the grid without a
-            # table) is not read from XLA's programs yet
-            raise NotImplementedError(
-                f"ShardedTracker under dtype={cfg.dtype!r} is not ported yet (ROADMAP Queue 1, "
-                "item 28's remaining parts: the fleet)"
-            )
         kernel_ok = (
             cfg.voxel_mode == "onehot"
             and cfg.cluster_backend == "grid"
@@ -212,7 +238,10 @@ class ShardedTracker:
         if self._use_kernel_fleet:
             p = self._kernel_perceive(pts, msk, t, plan)
         else:
-            p = self._vmap_perceive(pts, msk, t, plan)
+            # XLA compiles the JAX fleet on several devices into another
+            # program, whose f16 circumcenter spells cy apart (mesh_program)
+            with mesh_program(self.mesh.size() > 1):
+                p = self._vmap_perceive(pts, msk, t, plan)
         cfg, gains = self.tracker.config, self.tracker.gains_xy
         # every local stream's track step in one K4 launch (B banks x 1 frame)
         st, o = track_batch(state, p.dets[:, None], p.det_valid[:, None], p.t[:, None],
@@ -245,6 +274,9 @@ class ShardedTracker:
     def _vmap_perceive(self, pts, msk, t, plan) -> Perception:
         cfg = self.tracker.config
         accs, n_pts = voxel_accumulate_stacked(pts, msk, cfg.scene, cfg.voxel_leaf_size, cfg.leaf_z)
-        dist.all_reduce(accs, group=self._space)
+        if accs.dtype in (torch.bfloat16, torch.float16):
+            accs = half_psum(accs, self._space)
+        else:
+            dist.all_reduce(accs, group=self._space)
         dist.all_reduce(n_pts, group=self._space)
         return perceive_from_acc_stacked(accs, t, n_pts, plan, config=cfg)

@@ -2,7 +2,7 @@
 
 Port of ``multiple_object_tracking_lidar_tpu/tracker/pipeline.py`` for f32
 and f64 (every configuration the JAX ``TrackerConfig`` accepts) and bf16
-and f16 (every perception front end, greedy association, fixed gains), both
+and f16 (every perception front end, both associations, fixed gains), both
 associations (``greedy``, and ``hungarian``, the optimal gated
 assignment) and both position filters (``lpf``, and ``ihgp``, the
 reference's present-but-disabled mode).  The reference's
@@ -49,8 +49,8 @@ K7's f32 sums under ``voxel_mode="runs"``: finalized in f32, then
 widened), the circumcenter K3f's and the track step K4's; the scan and
 the runs' division run in f64 torch.
 
-Under ``dtype="bfloat16"`` and ``"float16"`` (greedy association, fixed
-gains: ``check_config``) the stages follow the JAX half route as XLA's
+Under ``dtype="bfloat16"`` and ``"float16"`` (fixed gains:
+``check_config``) the stages follow the JAX half route as XLA's
 jitted CPU code computes it in ``bind_env``'s programs (read stage by
 stage from their HLO and machine code; ``ops/half.py`` spells the rules).
 The points are rounded to the half dtype and widened (JAX pipeline.py:846,
@@ -84,7 +84,11 @@ divides in f32 and rounds, takes the static drop on the centroid widened
 to f32 (static_mask.py:241), and the stencil's d^2 in the half dtype; the
 cluster table copies half values; K3f's half build is the jnp table route
 (``_one_cluster``: member mean, gram d2, line scan, determinant); K4's half
-build is the whole step in the half dtype (under every front end).  Each
+build is the whole step in the half dtype (under every front end); under
+``association="hungarian"`` its Hungarian half build computes the gate cost
+as ``bind_env``'s program does (f16: fma(dx, dx, dy * dy) rounded once and
+the f16 root; bf16: each op rounded) and the auction on half values, every
+sum and difference rounded (``ops/hungarian.py``).  Each
 elementwise op computes in f32 and rounds once; bf16 contracts no multiply-add, f16 contracts the
 first product of an add or a subtraction of two products into one FMA
 rounded once, where the step's compiled code does (the circumcenter's e,
@@ -97,9 +101,9 @@ a mean is that sum times f32(1 / n) rounded; a division by a constant
 (dt) is the product by its reciprocal (f16: rounded to f16; bf16: the f32
 reciprocal, the product rounded), and bf16's velocity mean sums those
 products before their rounding.  Both dtypes give the JAX package's bits
-end to end (tests/test_torch_half*.py), but the runs' point list, whose
-f32 circumcenter (K3f's arithmetic, not JAX's ``_one_cluster``) can cast
-a slot one half ulp off (ROADMAP Queue 3, F9).
+end to end (tests/test_torch_half*.py); the runs' point list computes its
+f32 circumcenter as JAX's f32 ``_one_cluster`` program does (K3f's f32
+table build) before the cast.
 No stage in any dtype takes a plain version of a kernel on the card.  Every
 kernel lives in ``ops/*_cuda.py`` or ``ops/cluster_pallas.py``.
 Perception is stateless, so it runs on S stacked frames at once:
@@ -188,7 +192,7 @@ from multiple_object_tracking_lidar_tpu_torch.tracker.state import (
 
 # The compute dtypes this package runs: f32 and f64 on every configuration
 # TrackerConfig accepts (it refuses the combinations the JAX package
-# refuses), bf16 and f16 on every front end with greedy association and
+# refuses), bf16 and f16 on every front end, under both associations, with
 # fixed gains (``check_config``).
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -226,25 +230,19 @@ def resolve_device(device: torch.device | str) -> torch.device:
 def check_config(config: TrackerConfig) -> None:
     """NotImplementedError, naming the ROADMAP item, where this package does
     not run ``config``: a compute dtype outside ``_DTYPES``, and under bf16
-    or f16 Hungarian association and the learning mode (ROADMAP item 28's
-    remaining parts); every perception front end runs in half."""
+    or f16 the learning mode (ROADMAP item 28's last part); every
+    perception front end and both associations run in half."""
     if config.dtype not in _DTYPES:
         raise NotImplementedError(
             f"dtype={config.dtype!r} is not ported yet: this package runs dtype in "
             f"{tuple(_DTYPES)} (ROADMAP Queue 1: other compute dtypes)"
         )
-    if _DTYPES[config.dtype] not in HALF:
-        return
-    left = [
-        (config.association != "greedy", "association='hungarian' (K12 and K4's Hungarian builds)"),
-        (not config.param_fix, "param_fix=False (the learning step: K13)"),
-    ]
-    for hit, what in left:
-        if hit:
-            raise NotImplementedError(
-                f"dtype={config.dtype!r} runs with greedy association and fixed gains; {what} "
-                "under a half dtype is not ported yet (ROADMAP Queue 1, item 28's remaining parts)"
-            )
+    if _DTYPES[config.dtype] in HALF and not config.param_fix:
+        raise NotImplementedError(
+            f"dtype={config.dtype!r} runs with fixed gains; param_fix=False (the learning "
+            "step: K13) under a half dtype is not ported yet (ROADMAP Queue 1, item 28's "
+            "last part)"
+        )
 
 
 class Perception(NamedTuple):
@@ -620,10 +618,12 @@ def _perceive_from_vox(
         config.max_cluster_size, caps.c_max_clusters, caps.p_max_cluster,
         caps.label_prop_iters, caps.pointer_jumps, backend=config.cluster_backend,
     )
+    # the runs' f32 list under a half dtype: JAX's f32 _one_cluster, then the cast
+    dtype = _DTYPES[config.dtype]
     dets = circumcenter_features_sorted(
         clusters.sorted_pts, clusters.starts, clusters.sizes, clusters.cluster_valid,
-        t, caps.p_max_cluster,
-    ).to(_DTYPES[config.dtype])
+        t, caps.p_max_cluster, table=dtype in HALF and vox.dtype == torch.float32,
+    ).to(dtype)
     return Perception(
         dets=dets,
         det_valid=clusters.cluster_valid,

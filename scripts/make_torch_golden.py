@@ -95,6 +95,12 @@ every FrameOutput field stacked over frames:
   (``bench_cases.track_wide_inputs``) at (K, D) = (2,048, 32) and (64,
   256), greedy and Hungarian, f32 and f64: each case's outputs and final
   bank under its own key prefix -> ``tests/golden/torch_track_wide.npz``;
+- ``{bf16,f16}_hungarian``, ``{bf16,f16}_dense_hungarian`` and
+  ``{bf16,f16}_fleet``: the ``hungarian``, ``dense_hungarian`` and ``fleet``
+  goldens under ``dtype`` bf16 / f16 (the fleet the JAX vmap fleet, B = 8 x
+  3 steps; half fields widened to f32) ->
+  ``tests/golden/torch_{bf16,f16}_{hungarian_headline,hungarian_dense,
+  fleet_headline}.npz``;
 - ``bf16`` and ``f16``: the headline under ``dtype="bfloat16"`` /
   ``"float16"`` through ``Tracker.bind_env``, lpf and ihgp (each field under
   ``lpf/`` or ``ihgp/``, the half fields widened to f32: the card's numpy
@@ -167,6 +173,10 @@ GOLDENS = {
            "dense_grid", "default")},
     **{f"cli_{h}_default": os.path.join(GOLDEN_DIR, f"torch_cli_{h}_default_headline.json")
        for h in ("bf16", "f16")},
+    **{f"{h}_{case}": os.path.join(GOLDEN_DIR, f"torch_{h}_{name}.npz")
+       for h in ("bf16", "f16") for case, name in (
+           ("hungarian", "hungarian_headline"), ("dense_hungarian", "hungarian_dense"),
+           ("fleet", "fleet_headline"))},
 }
 # the half goldens: one file per dtype, a variant per position filter, each
 # field stored as "<variant>/<field>", half arrays widened to f32 (exactly:
@@ -191,7 +201,9 @@ CLI_POINTLIST = ("cli_f64_default", "cli_bf16_default", "cli_f16_default")
 GROWTH_K0 = 2   # the growth golden's initial k_max_tracks
 N_FRAMES = 12
 # frames (the fleet: steps) per golden where not N_FRAMES
-FRAMES = {"default": 4, "fleet": 3, "dense_hungarian": 8, "f64_default": 4, "f64_pointlist": 4,
+FRAMES = {"default": 4, "fleet": 3, "dense_hungarian": 8, "bf16_dense_hungarian": 8,
+          "f16_dense_hungarian": 8, "bf16_fleet": 3, "f16_fleet": 3, "f64_default": 4,
+          "f64_pointlist": 4,
           "f64_pointlist_scan": 4, "f64_pointlist_runs": 4, "f64_exact": 4, "f64_runs": 4,
           "cli_f64_default": 8, "learning": 16, "floor": 8, "floor_hungarian": 8,
           "floor_f64": 8, "bf16_default": 4, "f16_default": 4, "cli_bf16_default": 8,
@@ -226,6 +238,8 @@ for _h, _dt in HALF_DTYPES.items():
                   "dense_grid"):
         CASE_FIELDS[f"{_h}_{_case}"] = {**CASE_FIELDS[_case], "dtype": _dt}
     CASE_FIELDS[f"{_h}_default"] = {"dtype": _dt}
+    CASE_FIELDS[f"{_h}_hungarian"] = {"association": "hungarian", "dtype": _dt}
+    CASE_FIELDS[f"{_h}_dense_hungarian"] = {"association": "hungarian", "dtype": _dt}
 
 
 def uses_f64(case: str) -> bool:
@@ -249,9 +263,11 @@ def _frame(sc, k: int, n: int):
     return buf, mask, np.float32(t)
 
 
-def fleet_outputs(n_steps: int, n_streams: int = FLEET_STREAMS) -> dict:
+def fleet_outputs(n_steps: int, n_streams: int = FLEET_STREAMS, dtype: str | None = None) -> dict:
     """{field: (n_steps, n_streams, ...) array} of the JAX kernel fleet on
-    the headline config; stream s at step k gets headline frame 3 s + k."""
+    the headline config; stream s at step k gets headline frame 3 s + k.
+    Under a half ``dtype`` the JAX fleet is its vmap form (the kernel fleet
+    needs f32) and the half fields are widened to f32."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -262,15 +278,22 @@ def fleet_outputs(n_steps: int, n_streams: int = FLEET_STREAMS) -> dict:
     from multiple_object_tracking_lidar_tpu.tracker.pipeline import Tracker
 
     cfg, env, sc = bench.headline_case()
-    fleet = ShardedTracker(Tracker(cfg), make_mesh(1, 1), kernel_path="on")
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
+    fleet = ShardedTracker(Tracker(cfg), make_mesh(1, 1),
+                           kernel_path="on" if dtype is None else "off")
+    hd = jnp.dtype(dtype or "float32")
     state = fleet.init_state(n_streams)
     rows = []
     for k in range(n_steps):
         frames = [_frame(sc, 3 * s + k, cfg.caps.n_max_points) for s in range(n_streams)]
-        state, out = fleet.step(state, *(jnp.asarray(np.stack([f[i] for f in frames]))
-                                         for i in range(3)), env)
+        pts, mask, ts = (np.stack([f[i] for f in frames]) for i in range(3))
+        state, out = fleet.step(state, jnp.asarray(pts), jnp.asarray(mask),
+                                jnp.asarray(ts).astype(hd), env)
         rows.append(jax.tree.map(np.asarray, out))
-    return {f: np.stack([getattr(r, f) for r in rows]) for f in rows[0]._fields}
+    stacked = {f: np.stack([getattr(r, f) for r in rows]) for f in rows[0]._fields}
+    return {f: a.astype(np.float32) if a.dtype == hd != np.float32 else a
+            for f, a in stacked.items()}
 
 
 def node_outputs(node, grid, frames) -> dict:
@@ -613,8 +636,9 @@ def golden_outputs(n_frames: int | None = None, case: str = "slice",
 
     if uses_f64(case):
         jax.config.update("jax_enable_x64", True)
-    if case == "fleet":
-        return fleet_outputs(n_frames_of(case) if n_frames is None else n_frames, n_streams)
+    if case in ("fleet", "bf16_fleet", "f16_fleet"):
+        return fleet_outputs(n_frames_of(case) if n_frames is None else n_frames, n_streams,
+                             HALF_DTYPES.get(case.split("_")[0]))
     if case == "growth":
         return growth_outputs(n_frames_of(case) if n_frames is None else n_frames)
     if case == "learning":
@@ -625,7 +649,8 @@ def golden_outputs(n_frames: int | None = None, case: str = "slice",
         return track_wide_outputs()
     if case in HALF_DTYPES:
         return half_outputs(case, n_frames_of(case) if n_frames is None else n_frames)
-    cfg, env, sc = bench.dense_case() if case == "dense_hungarian" else bench.headline_case()
+    cfg, env, sc = (bench.dense_case() if case.endswith("dense_hungarian")
+                    else bench.headline_case())
     if case in ("default", "f64_default", "bf16_default", "f16_default"):
         from multiple_object_tracking_lidar_tpu.config import TrackerConfig
 

@@ -501,6 +501,50 @@ template <class F> void run_warp(F& body) {
     run_warp(body_); } } while (0)
 """
 
+# The CUDA half headers for the host (fp_half.cuh's half builds, compiled
+# by K12's source): bf16 rounded to nearest even from the f32 bits, f16 by
+# g++'s _Float16, whose conversions round correctly.
+SHIM_BF16 = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+struct __nv_bfloat16 { unsigned short x; };
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u; std::memcpy(&u, &f, 4);
+  if ((u & 0x7f800000u) != 0x7f800000u) u += 0x7fffu + ((u >> 16) & 1u);
+  else if (u & 0x7fffffu) u |= 0x400000u;
+  return {(unsigned short)(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 h) {
+  const uint32_t u = (uint32_t)h.x << 16; float f; std::memcpy(&f, &u, 4); return f;
+}
+inline __nv_bfloat16 __double2bfloat16(double d) {
+  // to f32 rounded to odd (exact for the second rounding), then to bf16
+  float f = (float)d;
+  if ((double)f != d) {
+    uint32_t u; std::memcpy(&u, &f, 4);
+    if (!(u & 1u)) { u += ((double)f < d) == (f > 0) ? 1 : -1; std::memcpy(&f, &u, 4); }
+  }
+  return __float2bfloat16_rn(f);
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }
+inline __nv_bfloat16 __ushort_as_bfloat16(unsigned short b) { return {b}; }
+"""
+SHIM_F16 = r"""
+#pragma once
+#include <cstring>
+struct __half { unsigned short x; };
+inline __half __float2half_rn(float f) {
+  const _Float16 h = (_Float16)f; __half r; std::memcpy(&r.x, &h, 2); return r;
+}
+inline __half __double2half(double d) {
+  const _Float16 h = (_Float16)d; __half r; std::memcpy(&r.x, &h, 2); return r;
+}
+inline float __half2float(__half h) { _Float16 v; std::memcpy(&v, &h.x, 2); return (float)v; }
+inline unsigned short __half_as_ushort(__half h) { return h.x; }
+inline __half __ushort_as_half(unsigned short b) { return {b}; }
+"""
+
 # The double build of the device function, as K4's double builds call it:
 # K12's kernel on f64 values, the second step's scratch beside the tables.
 HARNESS_F64 = r"""
@@ -546,16 +590,19 @@ extern "C" int host_auction_f64(const double* cost, const uint8_t* feas, const d
 
 @pytest.fixture(scope="module")
 def host_auction(tmp_path_factory):
-    """K12's source (f32) and the f64 harness, built for the host."""
+    """K12's source (f32 and its half builds) and the f64 harness, built
+    for the host."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the auction's source for the host")
     csrc = os.path.join(REPO, "multiple_object_tracking_lidar_tpu_torch", "csrc")
     d = tmp_path_factory.mktemp("auction")
     (d / "cuda_runtime.h").write_text(SHIM)
+    (d / "cuda_bf16.h").write_text(SHIM_BF16)
+    (d / "cuda_fp16.h").write_text(SHIM_F16)
     src = open(os.path.join(csrc, "auction.cu")).read()
-    src, n = re.subn(r"auction_kernel<<<B, 32, 0, \(cudaStream_t\)stream>>>\(",
-                     "LAUNCH(auction_kernel, B, ", src)
+    src, n = re.subn(r"auction_kernel<T><<<B, 32, 0, \(cudaStream_t\)stream>>>\(",
+                     "LAUNCH(auction_kernel<T>, B, ", src)
     assert n == 1
     (d / "k12.cpp").write_text(src)
     (d / "f64.cpp").write_text(HARNESS_F64)

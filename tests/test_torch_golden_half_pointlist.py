@@ -14,9 +14,9 @@ grid's one-hot half goldens:
    for bit (the CLI's first 3 frames' records);
 2. the port's plain path on the CPU reproduces the first 6 frames bit for
    bit (G's 4), and the runs' point list (F) all 12 -- its f32
-   circumcenter is cast to half, held to ``chip_smoke.HALF_RUNS_ULPS``
-   (``compare_half_runs_list`` says why; the f16 golden's frame 7 needs
-   it); the CLI's first 6 frames within ``chip_smoke.cli_errors``' bound
+   circumcenter, JAX's f32 ``_one_cluster`` program, cast to half (F9,
+   whose one f16 ulp on a slot of frame 7 the pair-stats route gave); the
+   CLI's first 6 frames within ``chip_smoke.cli_errors``' bound
    (its records are rounded to 4 decimals).
 """
 
@@ -89,30 +89,7 @@ def check_port_reproduces(case):
         st, o = step(st, Frame(torch.from_numpy(buf), torch.from_numpy(mask), torch.tensor(t)))
         rows.append([chip_smoke.npy(x) for x in o])
     got = {f: np.stack([r[i] for r in rows]) for i, f in enumerate(o._fields)}
-    htag = case.split("_", 1)[0]
-    if runs_list:
-        worst = chip_smoke.compare_half_runs_list(case, got, ref, htag)
-        assert set(worst) == {"raw_centroid", "pos", "vel"}
-    else:
-        chip_smoke.compare_half(case, got, ref)
-
-
-def test_half_runs_list_tolerance_counts_ulps():
-    """``compare_half_runs_list`` measures in ulps of the half dtype: one
-    f16 ulp at 1.3 m passes, two fail; NaN pairs and equal values are 0."""
-    import chip_smoke
-
-    ref = {"valid": np.array([[True]]), "raw_centroid": np.float32([[[1.3, np.nan]]]),
-           "pos": np.float32([[[1.0, 2.0]]]), "vel": np.float32([[[0.0, 0.5]]])}
-    ulp = float(chip_smoke.half_ulp(1.3, "f16"))
-    assert ulp == 2.0 ** -10
-    got = {k: v.copy() for k, v in ref.items()}
-    got["raw_centroid"] = np.float32([[[1.3 + ulp, np.nan]]])
-    worst = chip_smoke.compare_half_runs_list("one", got, ref, "f16")
-    assert worst == {"raw_centroid": pytest.approx(1.0), "pos": 0.0, "vel": 0.0}
-    got["raw_centroid"] = np.float32([[[1.3 + 2 * ulp, np.nan]]])
-    with pytest.raises(SystemExit):
-        chip_smoke.compare_half_runs_list("two", got, ref, "f16")
+    chip_smoke.compare_half(case, got, ref)
 
 
 def test_half_pointlist_cli_golden():

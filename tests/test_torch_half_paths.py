@@ -3,9 +3,10 @@ entry points, against the JAX package under ``jax.jit`` on the CPU: 12
 frames of the cut headline scene through ``bind_env`` and
 ``bind_env_multi`` (S = 4), lpf and ihgp, fast and exact digits, one run
 with its stamps offset to ~100 s; the grid without K2 (``grid_cc="jnp"``,
-K14's plain version) with a two-slot bank that overflows; and every half
-configuration left to item 28's later parts (Hungarian association, the
-learning mode) raising, on the grid, the point list and the runs.  The helpers and the
+K14's plain version) with a two-slot bank that overflows; and the half
+configuration left to item 28's last part (the learning mode) raising on
+the grid, the point list and the runs, Hungarian association running
+there.  The helpers and the
 comparisons are tests/test_torch_half.py's: every output bit for bit."""
 
 import dataclasses
@@ -72,14 +73,17 @@ def test_entry_points_match_jax(dtype, position_filter, quant, entry, t0):
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_other_half_configs_raise_naming_item_28(dtype, fields):
-    """Under a half dtype only Hungarian association and the learning mode
-    raise, on the dense grid, the point list and the runs alike; the
-    message names the one left and item 28."""
+    """Under a half dtype only the learning mode raises, on the dense grid,
+    the point list and the runs alike, and its message names it and item
+    28; Hungarian association runs on every front end (item 28's third
+    part)."""
     cfg = bench_cases.bench_config().replace(dtype=dtype, **fields)
-    what = "hungarian" if "association" in fields else "param_fix=False"
-    with pytest.raises(NotImplementedError, match=f"(?s){what}.*item 28"):
+    if "association" in fields:
+        assert TTracker(cfg, device="cpu").config.association == "hungarian"
+        return
+    with pytest.raises(NotImplementedError, match="(?s)param_fix=False.*item 28"):
         TTracker(cfg, device="cpu")
-    ok = {k: v for k, v in fields.items() if k not in ("association", "param_fix")}
+    ok = {k: v for k, v in fields.items() if k != "param_fix"}
     TTracker(bench_cases.bench_config().replace(dtype=dtype, **ok), device="cpu")
 
 

@@ -4,8 +4,8 @@ one-hot accumulator into the point list (fast digits with the jnp CC,
 exact digits with the Pallas CC) and the runs with the jnp CC through
 ``bind_env``; ``bind_env_multi`` (S = 4) on a front end of each kind;
 ``TrackerNode``, ``StreamingNode`` and a checkpoint round trip on D (G's
-form); and the fleet, which raises under a half dtype.  Every output bit
-for bit the JAX package's under ``jax.jit`` on the CPU."""
+form); and the fleet, which runs under a half dtype (F10 repaired).  Every
+output bit for bit the JAX package's under ``jax.jit`` on the CPU."""
 
 import pytest
 
@@ -49,14 +49,18 @@ def test_half_point_list_nodes_match_jax(dtype, tmp_path):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 def test_fleet_raises_under_a_half_dtype(dtype):
-    """The fleet is left to item 28's last part: ``ShardedTracker`` raises
-    under a half dtype, on the dense grid (whose one-hot config the port's
-    ``Tracker`` runs in half) and on the point list."""
+    """F10, repaired by item 28's third part: ``ShardedTracker`` runs under a
+    half dtype, on the dense grid (the one-hot config, whose kernel fleet
+    needs f32, so the vmap fleet as in JAX) and on the point list, and its
+    half sums stay in the half dtype (tests/test_torch_half_fleet.py holds
+    it bit for bit to the JAX fleet)."""
     mesh = make_mesh(1, 1, device="cpu")
     for fields in ({}, FRONT_ENDS["D"]):
         cfg = bench_cases.bench_config().replace(dtype=dtype, **fields)
-        with pytest.raises(NotImplementedError, match="item 28"):
-            ShardedTracker(Tracker(cfg, device="cpu"), mesh)
+        st = ShardedTracker(Tracker(cfg, device="cpu"), mesh)
+        assert not st._use_kernel_fleet
+        with pytest.raises(ValueError, match="kernel_path='on'"):
+            ShardedTracker(Tracker(cfg, device="cpu"), mesh, kernel_path="on")
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])

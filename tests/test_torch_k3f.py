@@ -247,9 +247,9 @@ def route_spy(monkeypatch):
     calls = {"k3f": [], "k3": 0}
     k3f, k3 = centroid_cuda.circumcenter_features, centroid_cuda.pair_stats
 
-    def spy_k3f(mpts, member_mask, t):
+    def spy_k3f(mpts, member_mask, t, **kw):
         calls["k3f"].append(tuple(mpts.shape))
-        return k3f(mpts, member_mask, t)
+        return k3f(mpts, member_mask, t, **kw)
 
     def spy_k3(mpts, member_mask):
         calls["k3"] += 1

@@ -173,9 +173,10 @@ def test_unported_configs_raise(field, value):
         assert not make_plan(cfg.replace(grid_cc="jnp"), env, "cpu").k2
         return
     # bf16 runs every perception front end since item 28's second part (the
-    # point list here); Hungarian association under bf16 still raises,
-    # naming the item
+    # point list here) and Hungarian association since its third; the
+    # learning mode under bf16 still raises, naming the item
     cfg = cfg.replace(cluster_backend="jnp")
     TTracker(cfg, device="cpu")
+    TTracker(cfg.replace(association="hungarian"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 28"):
-        TTracker(cfg.replace(association="hungarian"), device="cpu")
+        TTracker(cfg.replace(param_fix=False), device="cpu")

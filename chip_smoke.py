@@ -189,7 +189,11 @@ likewise (``phase_kernels_slice19``, ``phase_k6f_keys``); the half headline
 through every entry point against torch_{bf16,f16}_headline.npz and the
 CLI goldens (``phase_half``); the native decoder, the node by piece and
 the rosbridge loopback (``phase_host_slice19``); each half build beside
-its f32 build on the same values widened (``phase_timings_slice19``).
+its f32 build on the same values widened (``phase_timings_slice19``); the
+learning node and ``tune`` under bf16 and f16 against
+torch_{bf16,f16}_learning_headline.npz and torch_cli_{bf16,f16}_tune.json
+bit for bit, one K13 launch per update and per step, the update timed by
+piece (``phase_half_learning``).
 
 Any failed phase raises (exit 1).  The line before the last is the kernel
 report (JSON); the last line is ``{"ok": true, "device": {...}}``.
@@ -197,6 +201,7 @@ report (JSON); the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -226,6 +231,11 @@ GOLDEN_HUNGARIAN = {"hungarian": os.path.join(HERE, "tests", "golden",
                                                     "torch_hungarian_dense.npz")}
 GOLDEN_LEARNING = os.path.join(HERE, "tests", "golden", "torch_learning_headline.npz")
 GOLDEN_TUNE = os.path.join(HERE, "tests", "golden", "torch_cli_tune.json")
+GOLDEN_HALF_LEARNING = {
+    h: os.path.join(HERE, "tests", "golden", f"torch_{h}_learning_headline.npz")
+    for h in ("bf16", "f16")}
+GOLDEN_HALF_TUNE = {h: os.path.join(HERE, "tests", "golden", f"torch_cli_{h}_tune.json")
+                    for h in ("bf16", "f16")}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM: HBM3 rate (NVIDIA's datasheet)
 F32_OPS_PER_S = 67e12         # H100 SXM: f32 outside the tensor cores; int32 ops too
 PKG = "multiple_object_tracking_lidar_tpu_torch"
@@ -3898,6 +3908,29 @@ def phase_kernels_slice15(dev, report):
             f"{us:.2f} us in {ops:g} op per call; NLL {npy(nll).tolist()}")
 
 
+LEARN_FIELDS = ("update_frame", "log_params", "nll_history")   # a learning golden's own
+
+
+@contextlib.contextmanager
+def no_plain_learning_step():
+    """Within it, the plain learning step fails the run if called with a
+    CUDA tensor: the learning paths on the card launch K13 only."""
+    from multiple_object_tracking_lidar_tpu_torch.models import learning as TL
+
+    plain = TL.learning_step_plain
+
+    def card_guard(lp, *args, **kw):
+        if lp.device.type != "cpu":
+            fail("the plain learning step ran on the card")
+        return plain(lp, *args, **kw)
+
+    TL.learning_step_plain = card_guard
+    try:
+        yield
+    finally:
+        TL.learning_step_plain = plain
+
+
 def phase_learning(dev, smi, report):
     """The learning mode on the card, as a user runs it: the headline
     ``TrackerNode`` with ``param_fix=False``, ``learn_period=0.2`` on the 16
@@ -3922,19 +3955,10 @@ def phase_learning(dev, smi, report):
     from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
 
     golden = dict(np.load(GOLDEN_LEARNING))
-    learn_fields = ("update_frame", "log_params", "nll_history")
     cfg, _, sc = headline_case(device=dev)
     lcfg = cfg.replace(param_fix=False, learn_period=0.2)
     n = golden["publish"].shape[0]
-    plain = TL.learning_step_plain
-
-    def card_guard(lp, *args, **kw):
-        if lp.device.type != "cpu":
-            fail("the plain learning step ran on the card")
-        return plain(lp, *args, **kw)
-
-    TL.learning_step_plain = card_guard
-    try:
+    with no_plain_learning_step():
         node = TrackerNode(lcfg, dev, keep_outputs=True)
         node.on_map(load_sim_grid())
         frames = [sc.frame(k) for k in range(n)]
@@ -3950,7 +3974,7 @@ def phase_learning(dev, smi, report):
         counts = read_counts()
         got = {f: np.stack([getattr(o, f) for o in node.outputs]) for f in node.outputs[0]._fields}
         e = compare("learning TrackerNode vs JAX golden", got,
-                    {f: v for f, v in golden.items() if f not in learn_fields}, TOL_DETS, TOL_VEL)
+                    {f: v for f, v in golden.items() if f not in LEARN_FIELDS}, TOL_DETS, TOL_VEL)
         if upd != golden["update_frame"].tolist():
             fail(f"learning node updated after frames {upd}, the golden {golden['update_frame']}")
         e_lp = max_err(np.asarray(lps), golden["log_params"])
@@ -3985,8 +4009,6 @@ def phase_learning(dev, smi, report):
             f"{len(ref)} steps): vs JAX golden max abs err {e_t}; last {recs[-1]}; "
             f"launches {counts}")
         require("tune", counts, ("K6f", "K8a", "K3f", "K4", "K13"), report)
-    finally:
-        TL.learning_step_plain = plain
 
     # timings: K13 and its plain version in turns at the node's shape
     rng = np.random.default_rng(150)
@@ -4034,10 +4056,10 @@ def learning_pieces(dev, smi, cfg, lcfg, sc, n: int = 48):
     frames (those after which an on turn learned) and on the other frames;
     and on the on turns each update by piece, by wrapping the node's own
     callables: the window copy (``_maybe_learn`` up to its learning step:
-    ``alive`` and ``window`` to the host, the numpy windows, their upload),
-    K13 (``learning_step_stacked`` from its launch to a synchronise: new
-    and nll ready for the host), ``Tracker.compute_gains`` (host f64), the
-    swap (the rest of ``_set_gains``: the gains to the device) and the rest
+    ``alive`` and ``window`` to the host and the windows' upload), the host
+    windows (``velocity_windows``, both axes), K13 (``learning_step_stacked``
+    from its launch to a synchronise: new and nll ready for the host),
+    ``Tracker.compute_gains`` (host f64), the swap (the rest of ``_set_gains``: the gains to the device) and the rest
     of the update (new and nll to the host)."""
     from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
     from multiple_object_tracking_lidar_tpu_torch.runtime import node as node_mod
@@ -4048,11 +4070,19 @@ def learning_pieces(dev, smi, cfg, lcfg, sc, n: int = 48):
     cur: dict = {}
     o_learn, o_step = TrackerNode._maybe_learn, node_mod.learning_step_stacked
     o_gains, o_set = Tracker.compute_gains, TrackerNode._set_gains
+    o_windows = node_mod.velocity_windows
 
     def p_learn(self, t):
         cur["enter"] = time.perf_counter()
+        cur["windows"] = 0.0
         o_learn(self, t)
         cur["exit"] = time.perf_counter()
+
+    def p_windows(*args, **kw):
+        t0 = time.perf_counter()
+        out = o_windows(*args, **kw)
+        cur["windows"] += time.perf_counter() - t0
+        return out
 
     def p_step(*args, **kw):
         cur["call"] = time.perf_counter()
@@ -4079,6 +4109,7 @@ def learning_pieces(dev, smi, cfg, lcfg, sc, n: int = 48):
     for turn, on in enumerate((True, False, False, True)):
         TrackerNode._maybe_learn, node_mod.learning_step_stacked = p_learn, p_step
         Tracker.compute_gains, TrackerNode._set_gains = staticmethod(p_gains), p_set
+        node_mod.velocity_windows = p_windows
         try:
             node = TrackerNode(lcfg if on else cfg, dev)
             node.on_map(load_sim_grid())
@@ -4090,20 +4121,23 @@ def learning_pieces(dev, smi, cfg, lcfg, sc, n: int = 48):
                 wall.append(1e3 * (time.perf_counter() - t0))
                 if "call" in cur:
                     upd.append(k)
-                    ms = {key: 1e3 * cur[key] for key in ("k13", "gains")}
-                    ms["copy"] = 1e3 * (cur["call"] - cur["enter"])
+                    ms = {key: 1e3 * cur[key] for key in ("k13", "gains", "windows")}
+                    ms["copy"] = 1e3 * (cur["call"] - cur["enter"]) - ms["windows"]
                     ms["swap"] = 1e3 * cur["set"] - ms["gains"]
                     ms["update"] = 1e3 * (cur["exit"] - cur["enter"])
-                    ms["rest"] = ms["update"] - ms["copy"] - ms["k13"] - 1e3 * cur["set"]
+                    ms["rest"] = (ms["update"] - ms["copy"] - ms["windows"] - ms["k13"]
+                                  - 1e3 * cur["set"])
                     pieces.append(ms)
         finally:
             TrackerNode._maybe_learn, node_mod.learning_step_stacked = o_learn, o_step
             Tracker.compute_gains, TrackerNode._set_gains = staticmethod(o_gains), o_set
+            node_mod.velocity_windows = o_windows
         if on and upd_frames is None:
             upd_frames = set(upd)
         w_upd = [x for k, x in enumerate(wall) if k >= 2 and k in upd_frames]
         w_oth = [x for k, x in enumerate(wall) if k >= 2 and k not in upd_frames]
-        log(f"[5 timing] {smi}: headline TrackerNode learning {'on ' if on else 'off'} (turn "
+        log(f"[5 timing] {smi}: headline TrackerNode {cfg.dtype} learning "
+            f"{'on ' if on else 'off'} (turn "
             f"{turn + 1} of on, off, off, on; {n} frames, {len(upd)} updates): wall ms/frame "
             f"on the update frames p50 {pct(w_upd, 50):.4f} p99 {pct(w_upd, 99):.4f} "
             f"({len(w_upd)} frames), on the others p50 {pct(w_oth, 50):.4f} p99 "
@@ -4113,9 +4147,103 @@ def learning_pieces(dev, smi, cfg, lcfg, sc, n: int = 48):
             parts = ", ".join(
                 f"{key} p50 {pct([p[key] for p in pieces], 50):.4f} p99 "
                 f"{pct([p[key] for p in pieces], 99):.4f}"
-                for key in ("update", "copy", "k13", "gains", "swap", "rest"))
-            log(f"[5 timing] {smi}: learning update by piece (turn {turn + 1}, "
+                for key in ("update", "copy", "windows", "k13", "gains", "swap", "rest"))
+            log(f"[5 timing] {smi}: {cfg.dtype} learning update by piece (turn {turn + 1}, "
                 f"{len(pieces)} updates), ms: {parts}")
+
+
+def phase_half_learning(dev, smi, report):
+    """The learning mode and ``tune`` under bf16 and f16 on the card, as a
+    user runs them: the headline ``TrackerNode`` with ``param_fix=False``,
+    ``learn_period=0.2`` and the half dtype over the 16 golden frames
+    against tests/golden/torch_{bf16,f16}_learning_headline.npz, bit for
+    bit (every frame's fields, the update frames, the log-parameters and
+    the NLL: the windows are the JAX node's, ``velocity_windows``, and K13
+    is the JAX step's to the last bit); one K13 launch per update, one K4
+    half build per frame, the half builds of K2 and K3f and no other build
+    of their families (``require_half``, ``require_builds``), no plain
+    route and no plain learning step.  Then the CLI's ``tune`` at its
+    defaults with a config file setting the dtype (``TrackerConfig()`` on
+    the point list, 60 frames, 30 steps) against
+    torch_cli_{bf16,f16}_tune.json, every record exactly, one K13 launch
+    per step.  Then the node's wall ms per frame with learning on and off
+    in turns, each update by piece (``learning_pieces``: the window copy,
+    the host windows, K13, the host gains, the swap)."""
+    import tempfile
+
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import headline_case, load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+
+    t0 = time.perf_counter()
+    cfg0, _, sc = headline_case(device=dev)
+    for htag, dname in HALF_NAMES:
+        golden = dict(np.load(GOLDEN_HALF_LEARNING[htag]))
+        cfg = cfg0.replace(dtype=dname)
+        lcfg = cfg.replace(param_fix=False, learn_period=0.2)
+        n = golden["publish"].shape[0]
+        tag = f"{htag} learning TrackerNode"
+        with no_plain_learning_step():
+            node = TrackerNode(lcfg, dev, keep_outputs=True)
+            node.on_map(load_sim_grid())
+            frames = [sc.frame(k) for k in range(n)]
+            reset_counts()
+            plain = plain_counters()
+            upd, lps = [], []
+            for k, msg in enumerate(frames):
+                n0 = len(node.nll_history)
+                node.on_pointcloud(msg)
+                if len(node.nll_history) > n0:
+                    upd.append(k)
+                    lps.append(np.stack([node.log_params["x"], node.log_params["y"]]))
+            torch.cuda.synchronize()
+            counts = read_counts()
+            got = {f: np.stack([getattr(o, f) for o in node.outputs])
+                   for f in node.outputs[0]._fields}
+            compare_half(tag, got, {f: v for f, v in golden.items() if f not in LEARN_FIELDS})
+            if upd != golden["update_frame"].tolist():
+                fail(f"{tag} updated after frames {upd}, the golden {golden['update_frame']}")
+            if not (equal(np.asarray(lps), golden["log_params"])
+                    and equal(np.asarray(node.nll_history), golden["nll_history"])):
+                fail(f"{tag}: log_params max abs err "
+                     f"{max_err(np.asarray(lps), golden['log_params'])}, NLL "
+                     f"{max_err(np.asarray(node.nll_history), golden['nll_history'])}")
+            if counts["K13"] != len(upd) or counts[f"K4 {htag}"] != n:
+                fail(f"{tag}: K13 {counts['K13']} launches for {len(upd)} updates, K4 {htag} "
+                     f"{counts[f'K4 {htag}']} for {n} frames")
+            require_half("learning TrackerNode", counts, htag)
+            require_builds(tag, counts, (f"K2 {htag}", f"K3f {htag}", f"K4 {htag}"), plain)
+            require(tag, counts, ("K13",), report)
+            log(f"[4 half learning] {tag} x{n} (headline, param_fix=False, learn_period=0.2): "
+                f"{len(upd)} updates after frames {upd}; the JAX golden bit for bit (frames, "
+                f"log_params, NLL); last log_params {lps[-1].tolist()}; launches {counts}")
+
+            with open(GOLDEN_HALF_TUNE[htag], encoding="utf-8") as fh:
+                gt = json.load(fh)
+            ref = gt["records"]
+            with tempfile.TemporaryDirectory() as tmp:
+                cfg_file = os.path.join(tmp, "config.yaml")
+                with open(cfg_file, "w", encoding="utf-8") as fh:
+                    fh.write(gt["argv"][-1][1:-1] + "\n")
+                argv = [os.path.join(HERE, a) if a.endswith(".yaml") else a
+                        for a in gt["argv"][:-1]] + [cfg_file, "--device", "cuda"]
+                reset_counts()
+                plain = plain_counters()
+                _, recs, _ = run_cli(argv)
+                torch.cuda.synchronize()
+                counts = read_counts()
+            if recs != ref:
+                bad = [(a, b) for a, b in zip(recs, ref) if a != b][:3]
+                fail(f"{htag} tune vs JAX golden: {len(recs)} records, first differing {bad}")
+            if counts["K13"] != len(ref):
+                fail(f"{htag} tune: K13 {counts['K13']} launches for {len(ref)} steps")
+            require_builds(f"{htag} tune", counts, tuple(f"{k} {htag}" for k in (
+                "K6f", "K8a", "K3f", "K4")), plain)
+            require(f"{htag} tune", counts, ("K13",), report)
+            log(f"[4 half learning] {htag} CLI tune {' '.join(gt['argv'][1:])} (60 frames, "
+                f"{len(ref)} steps): the JAX golden's records exactly; last {recs[-1]}; "
+                f"launches {counts}")
+        learning_pieces(dev, smi, cfg, lcfg, sc)
+    log(f"[4 half learning] the half learning node and tune in {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -6747,6 +6875,7 @@ def main() -> int:
     timed(phase_timings_slice13, dev, smi, *frames, report, k13)
     timed(phase_timings_slice14, dev, smi, report, k14)
     timed(phase_learning, dev, smi, report)
+    timed(phase_half_learning, dev, smi, report)
     timed(phase_timings_slice16, dev, smi, report)
     timed(phase_timings_slice19, dev, smi, report, k19)
     timed(phase_timings_slice20, dev, smi, report, k20)

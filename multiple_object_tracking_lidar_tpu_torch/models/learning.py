@@ -21,13 +21,16 @@ order (``masked_sums``).  No path on the card runs it.
 
 The step is f32 whatever the tracker's dtype, as the JAX package runs it
 (its node casts the windows to f32 and keeps the log-parameters in f32,
-runtime/node.py:74-83, :302-305; the CLI's tune, cli.py:197-199).
+runtime/node.py:74-83, :302-305; the CLI's tune, cli.py:197-199).  The
+windows themselves are the compute dtype's: ``velocity_windows`` forms
+them on the host as the JAX package's numpy does.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from multiple_object_tracking_lidar_tpu_torch.models.f32_math import exp_f32, log_f32
@@ -392,6 +395,46 @@ def learning_step_plain(
     new = torch.clamp(new, -10.0, 10.0)
     new = torch.where(torch.isfinite(new), new, torch.zeros_like(new))
     return new, nll
+
+
+def velocity_windows(window: torch.Tensor, dt: float) -> np.ndarray:
+    """The mean-centred finite-difference velocity windows the JAX node
+    (runtime/node.py:301-306) and the JAX ``tune`` (cli.py:186-196) hand to
+    ``learning_step``: ``window`` (B, L) is one axis of the bank's window
+    rows in the compute dtype, the result the f32 (B, L - 1) ``y``.
+
+    The JAX package computes ``v = (w[:, 1:] - w[:, :-1]) / dt`` and ``v -
+    v.mean(axis=1)`` in numpy on the host; this spells each of numpy's
+    roundings in that dtype explicitly, so the card's numpy (which has no
+    bf16) and its promotion rules play no part.  Only the f32 mean is
+    numpy's own: its pairwise order is the JAX package's, and a row's mean
+    along axis 1 is the 1-D mean ``tune`` takes of it.
+
+    - f32 / f64: numpy in the window's dtype, then f32;
+    - bf16: the difference rounded to bf16; the quotient ``f32(d) /
+      f32(dt)`` (numpy promotes a bf16 array divided by a Python float to
+      f32); the f32 mean and centring;
+    - f16: the difference rounded to f16; the quotient ``f16(f32(d) /
+      f32(f16(dt)))`` (numpy keeps f16 and divides through f32); the mean
+      the f32 mean of the widened quotients rounded to f16 (numpy's
+      ``_mean`` rule for f16); the centring rounded to f16, then widened.
+
+    A half sum, difference or quotient computed in f32 and rounded once is
+    the correctly rounded half result (24 >= 2 p + 2 bits for bf16's p = 8
+    and f16's p = 11), as numpy and ml_dtypes compute them."""
+    w = window.detach().cpu()
+    if w.dtype == torch.bfloat16:
+        d = (w[:, 1:].float() - w[:, :-1].float()).bfloat16()
+        v = d.float().numpy() / np.float32(dt)
+        return v - v.mean(axis=1, keepdims=True)
+    if w.dtype == torch.float16:
+        d = (w[:, 1:].float() - w[:, :-1].float()).half()
+        q = torch.from_numpy(d.float().numpy() / np.float32(np.float16(dt))).half().float()
+        m = torch.from_numpy(q.numpy().mean(axis=1, keepdims=True)).half().float()
+        return (q - m).half().float().numpy()
+    w = w.numpy()
+    v = (w[:, 1:] - w[:, :-1]) / dt
+    return (v - v.mean(axis=1, keepdims=True)).astype(np.float32)
 
 
 def learning_step_stacked(log_params, y, mask, dt: float, lr_magn: float = 0.1,

@@ -16,10 +16,12 @@ iterations have run; ``saturated`` counts the phases cut at the cap.
 argmax with its first-index ties, the second maximum with the best column
 masked to ``_NEG``, the ``second <= _NEG / 2`` rule, the bid
 ``(price[best] + (best - second)) + eps_p`` in that order, each column's
-first-index winner.  It reads the convergence test on the host every
-iteration, so it serves the CPU and the tests; on the card the auction runs
-inside K4 (the track step, ``csrc/assign.cu``) and alone as K12
-(``ops/hungarian_cuda.py``), from one device function
+first-index winner.  It reads the convergence test on the host once per
+``CHECK_EVERY`` iterations (those run past convergence place no bid), and
+on CUDA tensors replays such a chunk as one CUDA graph of the same kernels;
+it serves the CPU, the tests and the card's checks.  On the card the
+auction runs inside K4 (the track step, ``csrc/assign.cu``) and alone as
+K12 (``ops/hungarian_cuda.py``), from one device function
 (``csrc/auction.cuh``), and both are held bit for bit to this version.
 
 ``hungarian_associate_and_update_plain`` is the JAX function of the same
@@ -51,6 +53,7 @@ NEG_HALF32 = f32(_NEG / 2)   # the weak-typed _NEG / 2 compared with f32 values
 EPS = 1e-3                   # hungarian_associate_and_update's default eps
 MAX_ITERS = 3000             # auction_assign's per-phase cap
 SCALE = 8.0                  # auction_assign's eps scaling factor
+CHECK_EVERY = 32             # iterations between the plain auction's host reads
 
 
 def auction_schedule(d: int, eps: float, max_cost: float, scale: float = SCALE,
@@ -78,6 +81,25 @@ def auction_negs(dtype: torch.dtype = torch.float32) -> tuple[float, float]:
         return in_dtype(_NEG, dtype), in_dtype(_NEG / 2, dtype)
 
 
+def _chunk_graph(iterate, reps: int, state: tuple):
+    """``reps`` calls of ``iterate`` (in place on the CUDA tensors of
+    ``state``, no host read) captured as one CUDA graph, after a warm-up
+    call on a side stream; ``state`` is left as it was."""
+    saved = [t.clone() for t in state]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        iterate()
+    torch.cuda.current_stream().wait_stream(side)
+    for t, v in zip(state, saved):
+        t.copy_(v)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            iterate()
+    return graph
+
+
 def auction_assign_plain(
     cost: torch.Tensor,       # (D, K) assignment costs: f32, f64, bf16 or f16
     feasible: torch.Tensor,   # (D, K) bool allowed pairs
@@ -94,8 +116,7 @@ def auction_assign_plain(
     int32 column per row or -1, int32 saturated phase count), and with
     ``return_iters`` the iterations each phase ran (a list); with
     ``return_split`` also the iterations each phase ran with no real row
-    unassigned (a list: the kernels' dummy-only iterations; one more host
-    read per iteration)."""
+    unassigned (a list: the kernels' dummy-only iterations)."""
     d, k = cost.shape
     dev, dt = cost.device, cost.dtype
     neg_pen, neg_pen2, eps_ps = auction_schedule(d, eps, max_cost, scale, dt)
@@ -106,40 +127,69 @@ def auction_assign_plain(
     value[:d, k:] = neg_pen
     rows = torch.arange(n, device=dev)
     neg = torch.tensor(neg_v, dtype=dt, device=dev)
+    # the auction's state, updated in place (a CUDA graph replays on it)
     price = torch.zeros(n, dtype=dt, device=dev)
+    owner = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    unassigned = torch.ones(n, dtype=torch.bool, device=dev)
+    it = torch.zeros((), dtype=torch.int64, device=dev)
+    fast = torch.zeros((), dtype=torch.int64, device=dev)
+    eps_t = torch.zeros((), dtype=dt, device=dev)
+
+    def iterate():
+        """One Jacobi iteration, in place and with no host read: ``it``
+        (and ``fast``) count it if a row (no real row) was unassigned."""
+        pending = unassigned.any()
+        it.add_(pending)
+        if return_split:
+            fast.add_(pending & ~unassigned[:d].any())
+        net = value - price[None, :]
+        best_k = torch.argmax(net, dim=1)     # the first maximum
+        best_v = net.amax(dim=1)
+        net2 = net.clone()
+        net2[rows, best_k] = neg
+        second_v = net2.amax(dim=1)
+        second_v = torch.where(second_v <= neg_half, best_v, second_v)
+        bid = price[best_k] + (best_v - second_v) + eps_t
+        col_bid = torch.where(unassigned[:, None] & (best_k[:, None] == rows[None, :]),
+                              bid[:, None], neg)
+        top_bid = col_bid.amax(dim=0)
+        winner = torch.argmax(col_bid, dim=0).to(torch.int32)
+        took = top_bid > neg_half
+        price.copy_(torch.where(took, top_bid, price))
+        owner.copy_(torch.where(took, winner, owner))
+        assigned_row = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        assigned_row.index_fill_(0, torch.where(owner >= 0, owner, n).to(torch.int64), True)
+        unassigned.copy_(~assigned_row[:n])
+
+    graph = None
     saturated, iters, dummy_only = 0, [], []
     for eps_p in eps_ps:
-        eps_t = torch.tensor(eps_p, dtype=dt, device=dev)
-        owner = torch.full((n,), -1, dtype=torch.int32, device=dev)
-        it = fast = 0
-        while True:
-            assigned_row = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-            assigned_row[torch.where(owner >= 0, owner, n).to(torch.int64)] = True
-            unassigned = ~assigned_row[:n]
-            pending = bool(unassigned.any())      # the host sync per iteration
-            if not pending or it >= max_iters:
-                break
-            if return_split:
-                fast += int(not bool(unassigned[:d].any()))
-            net = value - price[None, :]
-            best_k = torch.argmax(net, dim=1)     # the first maximum
-            best_v = net.amax(dim=1)
-            net2 = net.clone()
-            net2[rows, best_k] = neg
-            second_v = net2.amax(dim=1)
-            second_v = torch.where(second_v <= neg_half, best_v, second_v)
-            bid = price[best_k] + (best_v - second_v) + eps_t
-            col_bid = torch.where(unassigned[:, None] & (best_k[:, None] == rows[None, :]),
-                                  bid[:, None], neg)
-            top_bid = col_bid.amax(dim=0)
-            winner = torch.argmax(col_bid, dim=0).to(torch.int32)
-            took = top_bid > neg_half
-            price = torch.where(took, top_bid, price)
-            owner = torch.where(took, winner, owner)
-            it += 1
-        saturated += int(pending and it >= max_iters)
-        iters.append(it)
-        dummy_only.append(fast)
+        eps_t.fill_(eps_p)
+        owner.fill_(-1)
+        unassigned.fill_(True)
+        it.zero_()
+        fast.zero_()
+        ran = 0
+        # the host reads the convergence once per CHECK_EVERY iterations: an
+        # iteration with no row unassigned places no bid and changes nothing,
+        # so those run past convergence are no-ops, and ``it`` counts only
+        # the iterations that ran with a row unassigned.  On the card a full
+        # chunk is one CUDA graph of the same kernels (the iterations'
+        # launches, not their arithmetic, are the plain auction's time)
+        while ran < max_iters and bool(unassigned.any()):
+            chunk = min(CHECK_EVERY, max_iters - ran)
+            if dev.type == "cuda" and chunk == CHECK_EVERY:
+                if graph is None:
+                    graph = _chunk_graph(iterate, CHECK_EVERY,
+                                         (price, owner, unassigned, it, fast))
+                graph.replay()
+            else:
+                for _ in range(chunk):
+                    iterate()
+            ran += chunk
+        saturated += int(int(it) >= max_iters and bool(unassigned.any()))
+        iters.append(int(it))
+        dummy_only.append(int(fast))
     real = owner[:k].to(torch.int64)
     keep = (real >= 0) & (real < d)
     assigned = torch.full((d + 1,), -1, dtype=torch.int32, device=dev)

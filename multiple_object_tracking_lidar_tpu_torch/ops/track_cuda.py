@@ -37,7 +37,8 @@ spelled as an ascending loop started from its first term -- the order the
 kernel sums in, so the two agree bit for bit.  It is the CPU route.  It
 reads the duplicate-pass count on the host once per frame
 (``track_step_plain.host_syncs``), and under hungarian the auction's
-convergence once per iteration; the kernel never does.
+convergence once per ``ops/hungarian.py::CHECK_EVERY`` iterations; the
+kernel never does.
 """
 
 from __future__ import annotations

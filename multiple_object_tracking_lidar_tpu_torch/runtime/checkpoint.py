@@ -46,11 +46,18 @@ def save_state(path: str, state: TrackerState, extra: dict | None = None) -> Non
 
 
 def load_state(path: str, device: torch.device | str = "cuda") -> tuple[TrackerState, dict]:
-    """(state with its tensors on ``device``, the ``extra`` dict)."""
+    """(state with its tensors on ``device``, the ``extra`` dict).  A JAX
+    bf16 checkpoint holds its window and carry as ml_dtypes' bf16, which
+    numpy without ml_dtypes reads as 2-byte voids (``|V2``): their bits are
+    read as bf16 (the JAX package's own ``load_state`` refuses them)."""
     with np.load(path) as z:
         d = {k: z[k] for k in _FIELDS}
         meta = json.loads(bytes(z["__meta__"].tobytes()).decode() or "{}")
         half = bytes(z["__half__"].tobytes()).decode() if "__half__" in z else None
+    for f, a in d.items():
+        if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+            d[f] = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).float().numpy()
+            half = "bfloat16"
     state = TrackerState(bank=TrackBank(**{f: d[f] for f in TrackBank._fields}),
                          **{f: d[f] for f in TrackerState._fields if f != "bank"})
     state = state_from_numpy(state, resolve_device(device))

@@ -179,7 +179,10 @@ def cmd_tune(args) -> int:
     import torch
 
     from multiple_object_tracking_lidar_tpu_torch.io.scenario import Scenario, ScenarioObject
-    from multiple_object_tracking_lidar_tpu_torch.models.learning import learning_step
+    from multiple_object_tracking_lidar_tpu_torch.models.learning import (
+        learning_step,
+        velocity_windows,
+    )
     from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
     from multiple_object_tracking_lidar_tpu_torch.utils.pgm import load_map_yaml
 
@@ -197,19 +200,18 @@ def cmd_tune(args) -> int:
         static_points_per_frame=min(4000, cfg.caps.n_max_points // 2),
     )
 
-    # harvest mean-centered velocity windows from the live track bank
+    # harvest mean-centered velocity windows from the live track bank: each
+    # alive track's x row, as the JAX CLI's numpy computes it in the compute
+    # dtype (velocity_windows), f32 out
     windows = []
     for k in range(args.frames):
         node.on_pointcloud(sc.frame(k))
         bank = node.state.bank
-        alive = bank.alive.cpu().numpy()
-        w = bank.window.cpu().numpy()
-        for i in np.nonzero(alive)[0]:
-            v = (w[i, 1:, 0] - w[i, :-1, 0]) / cfg.dt_gp
-            windows.append(v - v.mean())
+        alive = bank.alive.cpu()
+        windows.extend(velocity_windows(bank.window.cpu()[alive][..., 0], cfg.dt_gp))
     # float32 whatever the tracker's dtype, as the JAX CLI runs the step
     dev = node.tracker.device
-    y = torch.from_numpy(np.stack(windows).astype(np.float32)).to(dev)
+    y = torch.from_numpy(np.stack(windows)).to(dev)
     mask = torch.ones(len(windows), dtype=torch.bool, device=dev)
 
     lp = torch.tensor([cfg.logSigma2_x, cfg.logMagnSigma2_x, cfg.logLengthScale_x],

@@ -26,7 +26,8 @@ the reference's dead IHGP_nonfixed loop, cpp:922-1011; JAX node.py:71-86,
 :286-318): the node steps through ``Tracker.bind_env_gains`` with its
 current gains, and every ``learn_period`` seconds copies the bank's windows
 to the host once, forms each alive track's mean-centred velocity window per
-axis in numpy f32 as the JAX node does, runs one learning step for both
+axis as the JAX node's numpy does in the compute dtype (f32 out:
+``models/learning.py::velocity_windows``), runs one learning step for both
 axes in one K13 launch (``models/learning.py::learning_step_stacked``; the
 plain version on the CPU), and swaps in the gains ``Tracker.compute_gains``
 derives on the host in f64.  The log-parameters stay f32 whatever the
@@ -49,7 +50,10 @@ from multiple_object_tracking_lidar_tpu_torch.io.pointcloud2 import (
     PointCloud2,
     decode_pointcloud2_named,
 )
-from multiple_object_tracking_lidar_tpu_torch.models.learning import learning_step_stacked
+from multiple_object_tracking_lidar_tpu_torch.models.learning import (
+    learning_step_stacked,
+    velocity_windows,
+)
 from multiple_object_tracking_lidar_tpu_torch.ops.static_mask import MapEnv, build_static_mask
 from multiple_object_tracking_lidar_tpu_torch.outputs.messages import build_outputs
 from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
@@ -310,11 +314,8 @@ class TrackerNode:
         if not alive.any():
             return
         self._last_learn_t = t
-        w = self.state.bank.window.cpu().numpy()[alive]        # (B, L, 4)
-        ys = []
-        for col in (0, 1):
-            v = (w[:, 1:, col] - w[:, :-1, col]) / self.config.dt_gp
-            ys.append((v - v.mean(axis=1, keepdims=True)).astype(np.float32))
+        w = self.state.bank.window.cpu()[torch.from_numpy(alive)]   # (B, L, 4)
+        ys = [velocity_windows(w[..., col], self.config.dt_gp) for col in (0, 1)]
         dev = self.tracker.device
         lp = np.stack([self.log_params["x"], self.log_params["y"]])
         new, nll = learning_step_stacked(

@@ -84,6 +84,11 @@ every FrameOutput field stacked over frames:
 - ``cli_tune``: the JAX CLI's ``tune --map assets/sim_map.yaml`` at its
   defaults (``TrackerConfig()``, ``--frames 60 --steps 30``): its JSON
   lines -> ``tests/golden/torch_cli_tune.json``;
+- ``bf16_learning`` and ``f16_learning``: the ``learning`` golden under
+  ``dtype`` bf16 / f16 (the half fields widened to f32) ->
+  ``tests/golden/torch_{bf16,f16}_learning_headline.npz``;
+  ``cli_bf16_tune`` and ``cli_f16_tune``: ``cli_tune`` with a config file
+  setting the dtype -> ``tests/golden/torch_cli_{bf16,f16}_tune.json``;
 - ``floor``, ``floor_hungarian`` and ``floor_f64``: the floor case
   (``bench_cases.floor_golden_case``: ``floor_map`` rebuilt from its seed,
   150 movers, C = 256 past K4's 128 detections, K = 64) at the goldens'
@@ -159,6 +164,10 @@ GOLDENS = {
     "cli_f64_default": os.path.join(GOLDEN_DIR, "torch_cli_f64_default_headline.json"),
     "learning": os.path.join(GOLDEN_DIR, "torch_learning_headline.npz"),
     "cli_tune": os.path.join(GOLDEN_DIR, "torch_cli_tune.json"),
+    **{f"{h}_learning": os.path.join(GOLDEN_DIR, f"torch_{h}_learning_headline.npz")
+       for h in ("bf16", "f16")},
+    **{f"cli_{h}_tune": os.path.join(GOLDEN_DIR, f"torch_cli_{h}_tune.json")
+       for h in ("bf16", "f16")},
     "floor": os.path.join(GOLDEN_DIR, "torch_floor_headline.npz"),
     "floor_hungarian": os.path.join(GOLDEN_DIR, "torch_floor_hungarian_headline.npz"),
     "floor_f64": os.path.join(GOLDEN_DIR, "torch_floor_f64_headline.npz"),
@@ -195,7 +204,9 @@ CLI_CONFIGS = {"cli_ihgp": CLI_IHGP_CONFIG,   # each CLI golden's config file, i
                "cli_bf16": "dtype: bfloat16\n",
                "cli_f16": "dtype: float16\n",
                "cli_bf16_default": "dtype: bfloat16\n",
-               "cli_f16_default": "dtype: float16\n"}
+               "cli_f16_default": "dtype: float16\n",
+               "cli_bf16_tune": "dtype: bfloat16\n",
+               "cli_f16_tune": "dtype: float16\n"}
 # the CLI goldens without --backend grid
 CLI_POINTLIST = ("cli_f64_default", "cli_bf16_default", "cli_f16_default")
 GROWTH_K0 = 2   # the growth golden's initial k_max_tracks
@@ -207,7 +218,7 @@ FRAMES = {"default": 4, "fleet": 3, "dense_hungarian": 8, "bf16_dense_hungarian"
           "f64_pointlist_scan": 4, "f64_pointlist_runs": 4, "f64_exact": 4, "f64_runs": 4,
           "cli_f64_default": 8, "learning": 16, "floor": 8, "floor_hungarian": 8,
           "floor_f64": 8, "bf16_default": 4, "f16_default": 4, "cli_bf16_default": 8,
-          "cli_f16_default": 8}
+          "cli_f16_default": 8, "bf16_learning": 16, "f16_learning": 16}
 LEARN_PERIOD = 0.2   # the learning golden's learn_period (s): an update every 2 frames
 TUNE_ARGV = ["tune", "--map", "assets/sim_map.yaml"]   # cli_tune: the JAX defaults
 FLEET_STREAMS = 8
@@ -358,8 +369,9 @@ def growth_outputs(n_frames: int) -> dict:
     return node_outputs(TrackerNode(cfg), sc.grid, [sc.frame(k) for k in range(n_frames)])
 
 
-def learning_outputs(n_frames: int) -> dict:
-    """The ``learning`` golden's arrays over the first n_frames frames."""
+def learning_outputs(n_frames: int, dtype: str | None = None) -> dict:
+    """The ``learning`` golden's arrays over the first n_frames frames
+    (``dtype``: the compute dtype, the half fields widened to f32)."""
     import numpy as np
 
     sys.path.insert(0, REPO)
@@ -367,7 +379,8 @@ def learning_outputs(n_frames: int) -> dict:
     from multiple_object_tracking_lidar_tpu.runtime.node import TrackerNode
 
     cfg, _, sc = bench.headline_case()
-    node = TrackerNode(cfg.replace(param_fix=False, learn_period=LEARN_PERIOD))
+    cfg = cfg.replace(param_fix=False, learn_period=LEARN_PERIOD)
+    node = TrackerNode(cfg if dtype is None else cfg.replace(dtype=dtype))
     seen, update_frame, log_params = [], [], []
     on_pointcloud = node.on_pointcloud
 
@@ -383,18 +396,26 @@ def learning_outputs(n_frames: int) -> dict:
     node.on_pointcloud = recording
     out = node_outputs(node, sc.grid, [sc.frame(k) for k in range(n_frames)])
     del out["n_growths"], out["k_max_tracks"]
+    if dtype is not None:
+        import jax.numpy as jnp
+
+        hd = jnp.dtype(dtype)
+        out = {f: a.astype(np.float32) if a.dtype == hd else a for f, a in out.items()}
     out["update_frame"] = np.asarray(update_frame, np.int32)
     out["log_params"] = np.asarray(log_params, np.float32)
     out["nll_history"] = np.asarray(node.nll_history, np.float64)
     return out
 
 
-def tune_outputs(steps: int | None = None) -> dict:
-    """The JAX CLI's ``tune`` at ``TUNE_ARGV`` (``steps`` cuts ``--steps``):
-    {"argv": its arguments, "records": its JSON lines}."""
+def tune_outputs(steps: int | None = None, case: str = "cli_tune") -> dict:
+    """The JAX CLI's ``tune`` at ``TUNE_ARGV`` (``steps`` cuts ``--steps``;
+    ``case``'s config file, if ``CLI_CONFIGS`` has one): {"argv": its
+    arguments, the config file as ``<its text>``, "records": its JSON
+    lines}."""
     import contextlib
     import io
     import json
+    import tempfile
 
     sys.path.insert(0, REPO)
     from multiple_object_tracking_lidar_tpu.runtime.cli import main as jmain
@@ -402,14 +423,21 @@ def tune_outputs(steps: int | None = None) -> dict:
     argv = TUNE_ARGV + ([] if steps is None else ["--steps", str(steps)])
     out = io.StringIO()
     cwd = os.getcwd()
-    os.chdir(REPO)
-    try:
-        with contextlib.redirect_stdout(out):
-            assert jmain(argv) == 0
-    finally:
-        os.chdir(cwd)
-    return {"argv": argv, "records": [json.loads(x) for x in out.getvalue().splitlines()
-                                      if x.startswith("{")]}
+    with tempfile.TemporaryDirectory() as tmp:
+        extra = []
+        if case in CLI_CONFIGS:
+            extra = ["--config", os.path.join(tmp, "config.yaml")]
+            with open(extra[1], "w", encoding="utf-8") as fh:
+                fh.write(CLI_CONFIGS[case])
+        os.chdir(REPO)
+        try:
+            with contextlib.redirect_stdout(out):
+                assert jmain(argv + extra) == 0
+        finally:
+            os.chdir(cwd)
+    return {"argv": argv + (["--config", f"<{CLI_CONFIGS[case].strip()}>"] if extra else []),
+            "records": [json.loads(x) for x in out.getvalue().splitlines()
+                        if x.startswith("{")]}
 
 
 def cli_bag(path: str, n_frames: int = CLI_FRAMES, grid: bool = True) -> list[str]:
@@ -641,8 +669,9 @@ def golden_outputs(n_frames: int | None = None, case: str = "slice",
                              HALF_DTYPES.get(case.split("_")[0]))
     if case == "growth":
         return growth_outputs(n_frames_of(case) if n_frames is None else n_frames)
-    if case == "learning":
-        return learning_outputs(n_frames_of(case) if n_frames is None else n_frames)
+    if case in ("learning", "bf16_learning", "f16_learning"):
+        return learning_outputs(n_frames_of(case) if n_frames is None else n_frames,
+                                HALF_DTYPES.get(case.split("_")[0]))
     if case in FLOOR_FIELDS:
         return floor_outputs(case, n_frames_of(case) if n_frames is None else n_frames)
     if case == "track_wide":
@@ -694,7 +723,7 @@ def main(cases: list[str]) -> None:
         if case.startswith("cli"):
             import json
 
-            out = tune_outputs() if case == "cli_tune" else cli_outputs(case)
+            out = tune_outputs(case=case) if case.endswith("tune") else cli_outputs(case)
             with open(GOLDENS[case], "w", encoding="utf-8") as fh:
                 json.dump(out, fh, indent=None, separators=(",", ":"))
                 fh.write("\n")

@@ -14,7 +14,8 @@ K6f, K8a and K2 fed f32 sums) against their plain versions, the f64 paths
 (the dense grid, the point list, the exact and runs modes) against the
 CPU plain path, and the f64 routes with no double build raising; K13
 (the IHGP learning step) against its plain version and past its bounds,
-and the learning node against its JAX golden; under bf16 / f16 the half
+and the learning node and ``tune`` against their JAX goldens (in f32, and
+under bf16 / f16 bit for bit); under bf16 / f16 the half
 builds (K2, K14, K3f, K4; K6f, K8a, K2 fed f32 sums, K3f on the sorted
 point list at P = 512) against their plain versions and each perception
 front end against the CPU plain path.  Marked
@@ -1612,6 +1613,92 @@ def test_learning_node_matches_golden(dev):
     v = golden["valid"]
     np.testing.assert_allclose(got["pos"][v], golden["pos"][v], rtol=0, atol=cs.TOL_DETS)
     np.testing.assert_allclose(got["vel"][v], golden["vel"][v], rtol=0, atol=cs.TOL_VEL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_plain_auction_graph_chunks_match_the_host(dev, dtype):
+    """The plain auction on CUDA tensors replays each full chunk of
+    ``CHECK_EVERY`` iterations as one CUDA graph: its assignment, saturated
+    phases, iterations per phase and dummy-only ones equal the same
+    auction's on a host copy, on the scenes' own problems, converged and
+    capped mid-chunk."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import hungarian as th
+
+    cs = _chip_smoke()
+    sc = np.load(cs.AUCTION_PROBLEMS_NPZ)
+    for scene in ("headline", "dense"):
+        C = torch.from_numpy(sc[f"{scene}_cost"][0]).to(dtype)
+        F = torch.from_numpy(sc[f"{scene}_feas"][0])
+        for max_iters in (3000, 70):
+            args = (th.EPS, float(sc[f"{scene}_thr"]), max_iters)
+            g = th.auction_assign_plain(C.to(dev), F.to(dev), *args, return_split=True)
+            h = th.auction_assign_plain(C, F, *args, return_split=True)
+            assert torch.equal(g[0].cpu(), h[0]) and int(g[1]) == int(h[1])
+            assert g[2] == h[2] and g[3] == h[3]
+
+
+@pytest.mark.parametrize("h", ["bf16", "f16"])
+def test_half_learning_node_matches_golden(dev, h):
+    """The headline TrackerNode with ``param_fix=False`` under bf16 / f16 on
+    the card against tests/golden/torch_{bf16,f16}_learning_headline.npz,
+    bit for bit (every frame, the update frames, the log-parameters, the
+    NLL); one K13 launch per update and one K4 half build per frame."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import load_sim_grid
+    from multiple_object_tracking_lidar_tpu_torch.ops import learning_cuda, track_cuda
+    from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
+
+    cs = _chip_smoke()
+    golden = dict(np.load(cs.GOLDEN_HALF_LEARNING[h]))
+    cfg, _, sc = headline_case(device=dev)
+    cfg = cfg.replace(param_fix=False, learn_period=0.2,
+                      dtype={"bf16": "bfloat16", "f16": "float16"}[h])
+    node = TrackerNode(cfg, dev, keep_outputs=True)
+    node.on_map(load_sim_grid())
+    n0 = learning_cuda.learning_step_cuda.launches
+    k0 = track_cuda.track_frames.launches_by[f"motl_track_step_{h}"]
+    upd, lps = [], []
+    n = golden["publish"].shape[0]
+    for k in range(n):
+        c = len(node.nll_history)
+        node.on_pointcloud(sc.frame(k))
+        if len(node.nll_history) > c:
+            upd.append(k)
+            lps.append(np.stack([node.log_params["x"], node.log_params["y"]]))
+    assert learning_cuda.learning_step_cuda.launches - n0 == len(upd)
+    assert track_cuda.track_frames.launches_by[f"motl_track_step_{h}"] - k0 == n
+    assert upd == golden["update_frame"].tolist()
+    np.testing.assert_array_equal(np.asarray(lps), golden["log_params"])
+    np.testing.assert_array_equal(np.asarray(node.nll_history), golden["nll_history"])
+    got = {f: np.stack([getattr(o, f) for o in node.outputs]) for f in node.outputs[0]._fields}
+    v = golden["valid"]
+    for f, r in golden.items():
+        if f in cs.LEARN_FIELDS:
+            continue
+        g = got[f][v] if f in ("pos", "vel") else got[f]
+        np.testing.assert_array_equal(g, r[v] if f in ("pos", "vel") else r, err_msg=f)
+
+
+@pytest.mark.parametrize("h", ["bf16", "f16"])
+def test_half_tune_matches_golden(dev, h, tmp_path):
+    """The CLI's ``tune`` at its defaults with a config file setting bf16 /
+    f16, on the card, against tests/golden/torch_cli_{bf16,f16}_tune.json:
+    every record exactly, one K13 launch per step."""
+    import json
+    import os
+
+    from multiple_object_tracking_lidar_tpu_torch.ops import learning_cuda
+
+    cs = _chip_smoke()
+    with open(cs.GOLDEN_HALF_TUNE[h], encoding="utf-8") as fh:
+        gt = json.load(fh)
+    cfg_file = tmp_path / "config.yaml"
+    cfg_file.write_text(gt["argv"][-1][1:-1] + "\n")
+    argv = [os.path.join(cs.HERE, a) if a.endswith(".yaml") else a
+            for a in gt["argv"][:-1]] + [str(cfg_file), "--device", "cuda"]
+    n0 = learning_cuda.learning_step_cuda.launches
+    _, recs, _ = cs.run_cli(argv)
+    assert recs == gt["records"]
+    assert learning_cuda.learning_step_cuda.launches - n0 == len(recs)
 
 
 # ---------------------------------------------------------------------------

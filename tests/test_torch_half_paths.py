@@ -3,10 +3,10 @@ entry points, against the JAX package under ``jax.jit`` on the CPU: 12
 frames of the cut headline scene through ``bind_env`` and
 ``bind_env_multi`` (S = 4), lpf and ihgp, fast and exact digits, one run
 with its stamps offset to ~100 s; the grid without K2 (``grid_cc="jnp"``,
-K14's plain version) with a two-slot bank that overflows; and the half
-configuration left to item 28's last part (the learning mode) raising on
-the grid, the point list and the runs, Hungarian association running
-there.  The helpers and the
+K14's plain version) with a two-slot bank that overflows; and the
+learning mode and Hungarian association building on the grid, the point
+list and the runs (tests/test_torch_half_learning.py holds the learning
+node to the JAX node).  The helpers and the
 comparisons are tests/test_torch_half.py's: every output bit for bit."""
 
 import dataclasses
@@ -28,6 +28,7 @@ from test_torch_half import (
 )
 
 from multiple_object_tracking_lidar_tpu_torch import bench_cases
+from multiple_object_tracking_lidar_tpu_torch.runtime.node import TrackerNode
 from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker as TTracker
 
 DTYPES = ["bfloat16", "float16"]
@@ -72,19 +73,19 @@ def test_entry_points_match_jax(dtype, position_filter, quant, entry, t0):
     dict(param_fix=False, voxel_mode="runs", cluster_backend="pallas"),
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_other_half_configs_raise_naming_item_28(dtype, fields):
-    """Under a half dtype only the learning mode raises, on the dense grid,
-    the point list and the runs alike, and its message names it and item
-    28; Hungarian association runs on every front end (item 28's third
-    part)."""
+def test_other_half_configs_build(dtype, fields):
+    """Under a half dtype Hungarian association (item 28's third part) and
+    the learning mode (its last part) build on the dense grid, the point
+    list and the runs alike; the learning node steps through the gains as
+    an argument, with the tracker's half gains to start from."""
     cfg = bench_cases.bench_config().replace(dtype=dtype, **fields)
     if "association" in fields:
         assert TTracker(cfg, device="cpu").config.association == "hungarian"
         return
-    with pytest.raises(NotImplementedError, match="(?s)param_fix=False.*item 28"):
-        TTracker(cfg, device="cpu")
-    ok = {k: v for k, v in fields.items() if k != "param_fix"}
-    TTracker(bench_cases.bench_config().replace(dtype=dtype, **ok), device="cpu")
+    node = TrackerNode(cfg, device="cpu")
+    assert node.learning and not node.tracker.config.param_fix
+    assert node._gains["W_vel"]["Wy"].dtype == TORCH[dtype]
+    assert node.log_params["x"].dtype == np.float32
 
 
 def test_half_grid_cc_jnp_and_a_two_slot_bank_match_jax():

@@ -191,6 +191,30 @@ def test_auction_plain_matches_jax(name):
         assert len(used) == len(set(used.tolist())) and all(feas[i, a[i]] for i in np.flatnonzero(a >= 0))
 
 
+@pytest.mark.parametrize("dtype,max_iters", [
+    *((torch.float32, m) for m in (1, 31, 32, 33, 70, 3000)),   # f32 converges
+    *((torch.bfloat16, m) for m in (1, 31, 32, 33, 70, 200)),   # bf16 caps phases
+])
+def test_auction_plain_chunked_reads_match_a_read_every_iteration(max_iters, dtype,
+                                                                  monkeypatch):
+    """The plain auction reads its convergence once per ``CHECK_EVERY``
+    iterations and runs the rest of a chunk past convergence (iterations
+    that bid nothing): the assignment, saturated phases, iterations per
+    phase and dummy-only ones equal a read after every iteration's, with
+    caps below, at and past a chunk's end (bf16's near ties cap every
+    phase after the first: 200, not 3,000, keeps it short)."""
+    from multiple_object_tracking_lidar_tpu_torch.ops import hungarian as th
+
+    cost, feas, eps, max_cost, _ = _case("near-ties")
+    c, f = torch.from_numpy(cost).to(dtype), torch.from_numpy(feas)
+    got = auction_assign_plain(c, f, eps, max_cost, max_iters, return_split=True)
+    monkeypatch.setattr(th, "CHECK_EVERY", 1)
+    ref = auction_assign_plain(c, f, eps, max_cost, max_iters, return_split=True)
+    assert torch.equal(got[0], ref[0]) and int(got[1]) == int(ref[1])
+    assert got[2] == ref[2] and got[3] == ref[3]
+    assert max(ref[2]) <= max_iters and (int(ref[1]) > 0) == (max(ref[2]) == max_iters)
+
+
 def _top2_push(t, x, i):
     v1, i1, v2 = t
     if x > v1:

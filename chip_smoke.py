@@ -193,7 +193,14 @@ its f32 build on the same values widened (``phase_timings_slice19``); the
 learning node and ``tune`` under bf16 and f16 against
 torch_{bf16,f16}_learning_headline.npz and torch_cli_{bf16,f16}_tune.json
 bit for bit, one K13 launch per update and per step, the update timed by
-piece (``phase_half_learning``).
+piece (``phase_half_learning``).  K3f's redesigned half and table builds
+(compacted members, the mean in 32-lane windows, the pair stage in tiles
+over the warps) bit for bit their plain version on the headline's half
+tables, G's and F's sorted lists, ``bench_cases.k3f_edge_tables`` (P =
+100, 384, 1,100) and ``k3f_tables`` (P = 384, 512), with cy as on a
+multi-device mesh, P past ``HALF_P_MAX`` raising
+(``phase_kernels_slice23``); each beside the f32 build in turns, and the
+half headline and G end to end in dtype turns (``phase_timings_slice23``).
 
 Any failed phase raises (exit 1).  The line before the last is the kernel
 report (JSON); the last line is ``{"ok": true, "device": {...}}``.
@@ -5692,7 +5699,6 @@ def phase_timings_slice19(dev, smi, report, keep):
         cent, dyn = k["cent"], k["dyn"]
         lab = stencil_cc_cuda.stencil_cc(cent, dyn, *cc_args)
         mp, mm, T8 = k["mp"], k["mm"], k["T8"]
-        cnt = mm.sum(1).to(torch.float64)
         half, hins = k["track K = 64 1 x 1"]
         xl, xins = k["track K4 xl K = 2,048 1 x 1"]
         kout = half()
@@ -5718,8 +5724,7 @@ def phase_timings_slice19(dev, smi, report, keep):
                 lambda: centroid_cuda.circumcenter_features(mp, mm, T8),
                 lambda: centroid_cuda.circumcenter_features_half_plain(mp, mm, T8),
                 f"S=8 x C=32 slots of P={mp.shape[1]} {htag} members",
-                nbytes((mp, mm, T8)) + mp.shape[0] * 4 * mp.element_size(),
-                int((cnt * cnt / 2 * 12 + cnt * 30).sum())),
+                nbytes((mp, mm, T8)) + mp.shape[0] * 4 * mp.element_size(), k3f_half_ops(mm)),
             f"K4 {htag}": (half, lambda: track_cuda.track_frames_plain(
                 *hins, config=k["hcfg"], gains_xy=k["tracker"].gains_xy),
                 f"K = {hins[0].bank.window.shape[1]}, 1 x 1, D = {hins[1].shape[2]}",
@@ -5922,6 +5927,15 @@ def require_builds(tag, counts, need, plain_before):
     if missing or other or after != plain_before:
         fail(f"{tag}: {missing} not launched, other builds {other} launched, plain routes "
              f"{plain_before} -> {after}: {counts}")
+
+
+def k3f_half_ops(mm) -> int:
+    """The operations of K3f's half and table builds on the member mask mm
+    (C, P): n (n - 1) / 2 member pairs a slot at 12 each (the gram's dot,
+    d2 and the running pick) and 30 a member (its mean term, the centring,
+    its squared norm and its line distance)."""
+    n = mm.sum(1).to(torch.float64)
+    return int((n * (n - 1) / 2 * 12 + 30 * n).sum())
 
 
 def half_sorted_lists(rng, s, c, p, dt, dev):
@@ -6792,7 +6806,7 @@ def phase_timings_slice21(dev, smi, report, keep):
             pairs["K3f table"] = (
                 l_tab, lambda: centroid_cuda.circumcenter_features_half_plain(mp, mm, T8, 32),
                 "8 sorted f32 lists x C=32, P=384", nbytes(lists) + nbytes(l_tab()),
-                int(mm.sum(1).double().pow(2).sum()) * 14)
+                k3f_half_ops(mm))
         for name, (fk, fp, shape, moved, ops) in pairs.items():
             # one plain call (the plain auction takes seconds: its spread is
             # nothing beside that); K4 xl's from its check
@@ -6813,6 +6827,117 @@ def phase_timings_slice21(dev, smi, report, keep):
                 + f"; bound {entry['bound_ms']:.6f} ms by {entry['bound_by']} ({moved} bytes, "
                 f"{ops} operations); library call none (no PyTorch call solves an assignment "
                 "or a circumcenter)")
+
+
+# ---------------------------------------------------------------------------
+# slice 23: K3f's half kernel redesigned (bf16, f16 and the f32 table build)
+# ---------------------------------------------------------------------------
+K3F_HALF_BUILDS = (("bf16", torch.bfloat16), ("f16", torch.float16), ("table", torch.float32))
+
+
+def phase_kernels_slice23(dev, report, k19, k20, k21):
+    """K3f's redesigned half and table builds (``circumcenter_half_kernel``:
+    members compacted, the mean in 32-lane windows, the pair stage in 32 x
+    32 tiles dealt over the warps, block reductions under jnp.argmax's
+    order) against their plain version on the card, bit for bit, one launch
+    a call: the headline's half member tables (S = 8 x C = 32, P = 384; the
+    table build on the bf16 ones widened), ``bench_cases.k3f_edge_tables`` at
+    P = 100, 384 and 1,100 and ``k3f_tables`` at S = 8 x C = 32, P = 384
+    and 512, the half builds also with cy as the multi-device fleet spells
+    it; G's sorted lists (C = 64, P = 512; F's f32 lists, C = 32, P = 384,
+    for the table build) through ``circumcenter_features_sorted``; P past
+    ``HALF_P_MAX`` raising, naming it, and P at it bit for bit."""
+    from multiple_object_tracking_lidar_tpu_torch.bench_cases import k3f_edge_tables
+    from multiple_object_tracking_lidar_tpu_torch.ops import centroid_cuda
+    from multiple_object_tracking_lidar_tpu_torch.ops.centroid import circumcenter_features_sorted
+
+    t0 = time.perf_counter()
+    cf, plain = centroid_cuda.circumcenter_features, centroid_cuda.circumcenter_features_half_plain
+    by = cf.launches_by
+    tables = []   # (label, members, mask, frames)
+    for p in (100, 384, 1100):
+        mp, mm = k3f_edge_tables(2300 + p, p)
+        tables.append((f"edge tables S=2 x C=16, P={p}", torch.from_numpy(mp).to(dev),
+                       torch.from_numpy(mm).to(dev), 2))
+    for p in (384, 512):
+        mp, mm = k3f_tables(np.random.default_rng(2300 + p), 8, 32, p, dev)
+        tables.append((f"k3f_tables S=8 x C=32, P={p}", mp.double(), mm, 8))
+    for build, dt in K3F_HALF_BUILDS:
+        name, entry, table = f"K3f {build}", f"motl_circumcenter_features_{build}", build == "table"
+        head = k19["bf16" if table else build]
+        cases = [(f"the headline's {'bf16 member tables widened' if table else build + ' member tables'}"
+                  f", S=8 x C=32, P=384", head["mp"].to(dt), head["mm"], head["T8"].to(dt), 32)]
+        for label, mp, mm, s in tables:
+            t = (torch.arange(s, device=dev, dtype=torch.float64) * 0.1 + 100.0).to(dt)
+            cases.append((label, mp.to(dt), mm, t, mp.shape[0] // s))
+        for cy_alt in ((False,) if table else (False, True)):
+            with centroid_cuda.mesh_program(cy_alt):
+                for label, mp, mm, t, per in cases:
+                    n0 = by[entry]
+                    check_pair(report, name, label + (", cy as on a multi-device mesh" if cy_alt
+                                                      else ""),
+                               lambda mp=mp, mm=mm, t=t: (cf(mp, mm, t, table=table),),
+                               lambda mp=mp, mm=mm, t=t, per=per, a=cy_alt: (
+                                   plain(mp, mm, t, per, a),))
+                    if by[entry] != n0 + 1:
+                        fail(f"{name}: {by[entry] - n0} launches of {entry} for one call")
+        lists, T8, p_max = ((k21["lists"], k21["T8"], 384) if table
+                            else (k20[build]["lists"], k20[build]["T8"], 512))
+        mpts, mm = sorted_list_table(lists, p_max)
+        c = lists[1].shape[1]
+        check_pair(report, name, f"8 sorted lists x C={c}, P={p_max} through "
+                   "circumcenter_features_sorted",
+                   lambda: (circumcenter_features_sorted(*lists, T8, p_max, table=table)
+                            .reshape(-1, 4),),
+                   lambda: (plain(mpts, mm, T8, c),))
+        p = centroid_cuda.HALF_P_MAX
+        t1 = torch.zeros(1, dtype=dt, device=dev)
+        try:
+            cf(torch.zeros((1, p + 1, 3), dtype=dt, device=dev),
+               torch.zeros((1, p + 1), dtype=torch.bool, device=dev), t1, table=table)
+            fail(f"{name}: P = {p + 1} past HALF_P_MAX did not raise")
+        except ValueError as e:
+            if "HALF_P_MAX" not in str(e):
+                fail(f"{name}: P past the bound raised without naming it: {e}")
+            log(f"[3 {name}] P = {p + 1} raises: {e}")
+        rng = np.random.default_rng(p)
+        mp = torch.from_numpy(rng.normal(0, 2, (2, p, 3))).to(dt).to(dev)
+        mm = torch.from_numpy(rng.random((2, p)) < 0.05).to(dev)
+        check_pair(report, name, f"2 slots at P = HALF_P_MAX = {p}, ~5% members",
+                   lambda: (cf(mp, mm, t1, table=table),), lambda: (plain(mp, mm, t1, 2),))
+    log(f"[3 slice 23] K3f's redesigned half and table builds checked in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_timings_slice23(dev, smi):
+    """K3f's redesigned builds in turns with its f32 build on the same values
+    (``scripts/micro_torch_pair_stats.py::run_half``: the half values
+    widened; device us per call from torch.profiler between marker kernels):
+    bf16 and f16 on the headline's member tables (S = 8 x C = 32, P = 384;
+    the target: within 1.5x of the f32 build), on micro tables at S = 1 and
+    8 for (C, P) = (32, 384) and (64, 512) and on sorted lists (C = 64, P =
+    512), the table build beside them and on F's form of lists (C = 32, P =
+    384); then the half headline and G end to end, ``bind_env`` and
+    ``bind_env_multi`` (S = 8) ms/frame over 16 frames in dtype turns (f32,
+    bf16, f16, f16, bf16, f32)."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import micro_torch_pair_stats
+
+    from multiple_object_tracking_lidar_tpu_torch import bench_cases
+    from multiple_object_tracking_lidar_tpu_torch.tracker.pipeline import Tracker
+
+    micro_torch_pair_stats.run_half(dev, reps=20, log=log)
+    for tag, case in (("the headline", bench_cases.headline_case),
+                      ("G", bench_cases.default_case)):
+        cfg0, env, sc = case(device=dev)
+        P, M, T = half_frames(dev, sc, cfg0.caps.n_max_points, 16)
+        trackers = {d: Tracker(cfg0.replace(dtype=d), dev)
+                    for d in ("float32", "bfloat16", "float16")}
+        for turn, d in enumerate(("float32", "bfloat16", "float16", "float16", "bfloat16",
+                                  "float32")):
+            ms1, ms8 = time_path(trackers[d], env, P, M, T, reps=2)
+            log(f"[5 timing] {smi}: {tag} {d} (turn {turn + 1} of f32, bf16, f16, f16, bf16, "
+                f"f32) bind_env {ms1:.4f} ms/frame, bind_env_multi S=8 {ms8:.4f} ms/frame")
 
 
 PHASE_SECONDS: dict = {}   # wall seconds of each phase main runs
@@ -6851,6 +6976,7 @@ def main() -> int:
     k19 = timed(phase_kernels_slice19, dev, report, cfg)
     k20 = timed(phase_kernels_slice20, dev, report, cfg)
     k21 = timed(phase_kernels_slice21, dev, report, cfg)
+    timed(phase_kernels_slice23, dev, report, k19, k20, k21)
     tracker, env, frames = timed(phase_slice, dev, cfg, sc, report)
     timed(phase_cli, dev, report)
     timed(phase_ihgp, dev, report)
@@ -6880,6 +7006,7 @@ def main() -> int:
     timed(phase_timings_slice19, dev, smi, report, k19)
     timed(phase_timings_slice20, dev, smi, report, k20)
     timed(phase_timings_slice21, dev, smi, report, k21)
+    timed(phase_timings_slice23, dev, smi)
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import micro_torch_digits
 

@@ -19,7 +19,9 @@ that scene under hungarian.
 The kernels' own inputs, made from a seed: ``track_scene`` (K4: banks,
 detections with duplicates, gaps, overflow), ``k2_grids`` and
 ``k2_inputs`` (K2 from the headline's 5,500 cells to the default scene's
-193,536), ``digit_grids`` (the same grids as scenes, for K1 and K5).
+193,536), ``digit_grids`` (the same grids as scenes, for K1 and K5),
+``k3f_edge_tables`` (K3f's half and table builds: gaps, non-finite
+non-members, empty slots on a non-finite row 0, d2 ties, f16 overflow).
 """
 
 from __future__ import annotations
@@ -604,3 +606,77 @@ def k2_inputs(dims, leaf, leaf_z, tol, seed, dev, s_frames=3):
     z = torch.zeros(n, dtype=torch.int32, device=dev)
     scal = torch.tensor([0.0, 0.0, 0.0, 0.0, 1.0, tol * tol], dtype=torch.float32, device=dev)
     return torch.from_numpy(accs).to(dev), scal, z, z.clone(), z.clone(), 1
+
+
+def k3f_edge_tables(seed: int, p: int, c: int = 32):
+    """(mpts (C, P, 3) f64, mask (C, P) bool) numpy member tables on the
+    edges of K3f's half and table builds (cast them to the dtype under
+    test), slot by slot, cycling through: members scattered with gaps in
+    lane order; an active slot with a NaN and an inf in non-member lanes
+    (its mean, and so every d2, NaN); empty slots whose row 0 holds a NaN
+    in x, in y, or an inf; d2 ties (a square's corners, a 0.25 m lattice,
+    duplicated members); coordinates 150-400 from the mean (f16's squared
+    norms overflow: d2 inf or NaN); a singleton and a pair behind a NaN
+    row 0 (the picks fall back to it); then, in the last two slots, a full
+    slot and up to 300 members scattered over the lanes (past one 32 x 32
+    tile).  Every case fits any P >= 4 and C >= 14."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mp = np.zeros((c, p, 3))
+    mm = np.zeros((c, p), bool)
+
+    def gaps(k, n):
+        lanes = np.sort(rng.choice(p, min(n, p), replace=False))
+        mp[k, lanes] = rng.uniform(-15, 15, 3) + rng.normal(0, 0.6, (len(lanes), 3))
+        mm[k, lanes] = True
+
+    def nonfinite(k):
+        mp[k] = rng.normal(0, 1, (p, 3))
+        mm[k, : min(p, 24)] = True
+        mm[k, [1, 3]] = False
+        mp[k, 1, 0], mp[k, 3, 1] = np.nan, np.inf
+
+    def empty_row0(k, row0):
+        mp[k, 0] = row0
+        mp[k, 1:] = rng.normal(0, 1, (p - 1, 3))
+
+    def ties(k, kind):
+        if kind == 0:     # a square's corners: both diagonals tie, a lane skipped
+            pts = [[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0]]
+            lanes = [0, 1, 3, 4] if p > 4 else [0, 1, 2, 3]
+        elif kind == 1:   # a 0.25 m lattice
+            g = np.stack(np.meshgrid(np.arange(4), np.arange(3), np.arange(2)), -1)
+            pts = 0.25 * g.reshape(-1, 3)[: p]
+            lanes = list(range(len(pts)))
+        else:             # members duplicated: equal rows, equal d2
+            base = rng.normal(0, 1, (3, 3))
+            pts = np.concatenate([base, base, base[::-1]])[: p]
+            lanes = list(range(len(pts)))
+        mp[k, lanes] = pts
+        mm[k, lanes] = True
+
+    def overflow(k, n):
+        lanes = np.sort(rng.choice(p, min(n, p), replace=False))
+        sign = np.where(rng.random(len(lanes)) < 0.3, -1.0, 1.0)
+        mp[k, lanes] = np.stack([sign * rng.uniform(150, 400, len(lanes)),
+                                 rng.uniform(-5, 5, len(lanes)), np.zeros(len(lanes))], 1)
+        mm[k, lanes] = True
+
+    def behind_nan_row0(k, lanes):
+        mp[k] = rng.normal(0, 1, (p, 3))
+        mp[k, 0] = [np.nan, 0.5, 0.5]
+        mm[k, lanes] = True
+
+    cases = [lambda k: gaps(k, 40), nonfinite, lambda k: empty_row0(k, [np.nan, 1.0, 2.0]),
+             lambda k: empty_row0(k, [1.0, np.nan, 2.0]),
+             lambda k: empty_row0(k, [np.inf, 0.0, 0.0]), lambda k: ties(k, 0),
+             lambda k: ties(k, 1), lambda k: ties(k, 2), lambda k: overflow(k, 12),
+             lambda k: behind_nan_row0(k, [p // 2]), lambda k: behind_nan_row0(k, [2, p - 1]),
+             lambda k: overflow(k, 60)]
+    for k in range(c - 2):
+        cases[k % len(cases)](k)
+    mp[c - 2] = rng.uniform(-3, 3, (p, 3))
+    mm[c - 2] = True
+    gaps(c - 1, 300)
+    return mp, mm

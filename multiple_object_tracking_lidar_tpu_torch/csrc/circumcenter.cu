@@ -175,18 +175,18 @@ int launch(const T* mpts, const uint8_t* mm, const T* t, int t_div, int C, int P
 // K3f's half builds (motl_circumcenter_features_bf16 / _f16): the JAX
 // package's half dtypes run the jnp circumcenter_features_table
 // (ops/centroid.py:121-133, _one_cluster per slot) -- a gram d2, not the
-// pair-stats route -- so these builds are that algorithm, one CTA of
-// kHalfThreads threads per slot, every value a half value held in a float
-// (fp_half.cuh):
+// pair-stats route -- so these builds are that algorithm, every value a
+// half value held in a float (fp_half.cuh):
 //  1. the member mean: the masked members summed in f32 in lane order (in
 //     windows of 32 lanes past 32, the windows' sums added in order: XLA's
 //     split reduction), rounded, divided by the count rounded to the half
 //     type; the centred members pc rounded per op; sq = ((x^2 + y^2) + z^2)
 //     of pc in f32, rounded once;
-//  2. per row i (a thread each): d2_ij = (sq_i + sq_j) - 2 gram_ij, the gram
-//     an f32 dot rounded once, over the member pairs i < j (-1 elsewhere);
-//     the row's first maximum; then the first row reaching the largest
-//     (jnp.argmax's rule: a NaN counts as the maximum, here and below);
+//  2. d2_ij = (sq_i + sq_j) - 2 gram_ij, the gram an f32 dot rounded once,
+//     under f16 the doubling contracted into the difference (one FMA),
+//     over the member pairs i < j (-1 elsewhere); its first maximum in
+//     row-major (i, j) order (jnp.argmax's rule: a NaN counts as the
+//     maximum, here and below);
 //  3. the line scan and the determinant per op, under f16 the cross
 //     product, e, f, G and both numerators one FMA each (the first product
 //     of each sum or difference) -- as XLA's compiled f16 tracking step has
@@ -200,7 +200,36 @@ int launch(const T* mpts, const uint8_t* mm, const T* t, int t_div, int C, int P
 // numerators one f32 FMA each, and the norm one FMA, fma(ex, ex, ey^2), only
 // on the slots XLA's fused loop runs in its scalar epilogue (its 8-wide
 // vector body takes a frame's first 8 floor((C - 1) / 8) slots uncontracted).
-constexpr int kHalfThreads = 256;
+//
+// Design: one CTA of kThreads = 512 per slot, as the f32 build; no loop of
+// one to three threads over P.
+//  - compaction: pair_scan.cuh's compact_members (a stable prefix sum over
+//    the mask).  A slot without members reads only its row 0 and computes
+//    the determinant on it with the same ops (i* = j* = k* = 0), so a NaN
+//    there gives the plain version's bits;
+//  - staging: the rows widened into three per-axis arrays padded by a word
+//    per 32 lanes, each lane holding its term of the mean -- its value for
+//    a member, 0 * value for another lane (a non-finite non-member reaches
+//    the mean as a NaN, as the plain mpts * mm lets it) -- and row 0 kept
+//    raw beside them (the picks fall back to it);
+//  - the mean: a thread per (axis, 32-lane window) sums its window in lane
+//    order (the padding keeps the windows' reads on distinct banks), then
+//    three threads add the window sums in order: a chain of 32 + P / 32
+//    adds;
+//  - the pair stage over the compacted members: the upper triangle's 32 x
+//    32 tiles dealt round-robin to the warps; in a tile a lane holds its
+//    column in registers and reads the rows by broadcast, keeping the
+//    tile's first maximum of its column, then merges it into its partial
+//    (d2, row, column) under jnp.argmax's total order: a NaN beats every
+//    number and NaNs tie; then larger d2, smaller row, smaller column.  A
+//    total order, so any split and merge order gives the serial answer.
+//    Every partial starts at the sentinel (-1, row 0, column 0) -- d2m's -1
+//    at column 0 -- so a pair at d2 <= -1 never wins and no pair gives
+//    (0, 0).  Compacted indices keep the lanes' order, so the order is
+//    stated on them and the winner mapped back to its lanes;
+//  - the line pick: a block reduction under the same order over the
+//    compacted members, -1 where a lane is skipped, lane 0 where none
+//    qualifies; thread 0 then computes the determinant.
 
 // The f32 table build's policy: f32 values, no rounding past f32's own, the
 // contracted multiply-adds as f32 FMAs.
@@ -231,100 +260,179 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, fl
   return H::rnd(__fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)), __fmul_rn(az, bz)));
 }
 
+// a lane's place in the padded per-axis arrays: one spare word per 32 lanes
+__host__ __device__ constexpr int half_pad(int l) { return l + (l >> 5); }
+
+// Dynamic shared memory of a slot: the compacted members (x, y, z, sq) as
+// float4, P rounded up to whole 32-row tiles (a tile's rows are read before
+// they are masked); the three padded per-axis arrays; compact_members' rank
+// and lane [P] each.  The wrapper's bound on P (ops/centroid_cuda.py::
+// HALF_P_MAX) is the same formula.
+inline size_t half_smem_bytes(int P) {
+  const size_t tiles = (size_t)(P + 31) >> 5;
+  return 16 * 32 * tiles + 3 * ((size_t)P + tiles) * sizeof(float) +
+         2 * (size_t)P * sizeof(int);
+}
+
+// jnp.argmax's total order on (value, a, b), block_best's order for the
+// half builds: a NaN beats every number and NaNs tie; then the larger
+// value, the smaller a, the smaller b.  (block_best's default, where a NaN
+// never wins, is the f32 build's.)
+struct ArgmaxBeats {
+  __device__ __forceinline__ bool operator()(float v, int a, int b, float bv, int ba,
+                                             int bb) const {
+    const bool vn = isnan(v), bn = isnan(bv);
+    if (vn != bn) return vn;
+    if (!vn && v != bv) return v > bv;
+    return a < ba || (a == ba && b < bb);
+  }
+};
+
+// The circumcenter of (Pi, Pj, Pk) per op of policy H into o = [x, y, 0, t].
 template <class H>
-__global__ void __launch_bounds__(kHalfThreads)
+__device__ __forceinline__ void half_circumcenter(float pix, float piy, float pjx, float pjy,
+                                                  float pkx, float pky, int cy_alt,
+                                                  typename H::storage tval,
+                                                  typename H::storage* o) {
+  const float a = fp::hsub<H>(pjx, pix), b = fp::hsub<H>(pjy, piy);
+  const float cc = fp::hsub<H>(pkx, pix), d = fp::hsub<H>(pky, piy);
+  const float s1 = fp::hadd<H>(pix, pjx), s2 = fp::hadd<H>(piy, pjy);
+  const float s3 = fp::hadd<H>(pix, pkx), s4 = fp::hadd<H>(piy, pky);
+  const float e = H::madd(a, s1, fp::hmul<H>(b, s2));
+  const float f = H::madd(cc, s3, fp::hmul<H>(d, s4));
+  const float g = fp::hmul<H>(2.0f, H::madd(a, fp::hsub<H>(pky, pjy),
+                                            -fp::hmul<H>(b, fp::hsub<H>(pkx, pjx))));
+  const bool collinear = g == 0.0f;
+  const float gs = collinear ? 1.0f : g;
+  const float cx = collinear ? pix : fp::hdiv<H>(H::madd(d, e, -fp::hmul<H>(b, f)), gs);
+  // cy_alt (the f16 fleet on a mesh of several devices): XLA's program
+  // contracts cy's own copies of e and f on their second product
+  const float e2 = cy_alt ? H::madd(b, s2, fp::hmul<H>(a, s1)) : e;
+  const float f2 = cy_alt ? H::madd(d, s4, fp::hmul<H>(cc, s3)) : f;
+  const float cy = collinear ? piy : fp::hdiv<H>(H::madd(a, f2, -fp::hmul<H>(cc, e2)), gs);
+  o[0] = H::store(cx);
+  o[1] = H::store(cy);
+  o[2] = H::store(0.0f);
+  o[3] = tval;
+}
+
+template <class H>
+__global__ void __launch_bounds__(kThreads, 2)
 circumcenter_half_kernel(const typename H::storage* __restrict__ mpts,
                          const uint8_t* __restrict__ mm, const typename H::storage* __restrict__ t,
                          int t_div, int P, int cy_alt, typename H::storage* __restrict__ out) {
-  extern __shared__ __align__(16) float hs[];
-  float* px = hs;             // [P] members
-  float* py = px + P;
-  float* pz = py + P;
-  float* qx = pz + P;         // [P] centred members
-  float* qy = qx + P;
-  float* qz = qy + P;
-  float* sq = qz + P;         // [P]
-  float* rmax = sq + P;       // [P] row maxima
-  int* rarg = reinterpret_cast<int*>(rmax + P);   // [P] their first columns
-  float* lds = rmax + 2 * P;  // [P] line distances, -1 where skipped
-  uint8_t* msk = reinterpret_cast<uint8_t*>(lds + P);
-  __shared__ float s_c[3];
-  __shared__ int s_ijk[3];
+  extern __shared__ __align__(16) unsigned char hsh[];
+  const int padded = P + ((P + 31) >> 5);
+  float4* q = reinterpret_cast<float4*>(hsh);      // [P to 32 rows] compacted: x, y, z, sq
+  float* ax = reinterpret_cast<float*>(q + 32 * ((P + 31) >> 5));  // [padded] the mean's terms
+  float* ay = ax + padded;
+  float* az = ay + padded;
+  Slot<float> s{};
+  s.rank = reinterpret_cast<int*>(az + padded);    // [P] lane -> compacted index, -1
+  s.lane = s.rank + P;                             // [P] compacted index -> lane
+  __shared__ Scratch<float> ss;
+  __shared__ float r0[3], cen[3];
   const int c = blockIdx.x;
   const typename H::storage* mp = mpts + (size_t)c * P * 3;
-  const uint8_t* m = mm + (size_t)c * P;
-  for (int l = threadIdx.x; l < P; l += kHalfThreads) {
-    px[l] = H::load(mp[3 * l]);
-    py[l] = H::load(mp[3 * l + 1]);
-    pz[l] = H::load(mp[3 * l + 2]);
-    msk[l] = m[l] != 0;
+  typename H::storage* o = out + (size_t)c * 4;
+
+  const int n = compact_members(mm + (size_t)c * P, P, s, ss);
+  if (n == 0) {  // i* = j* = k* = 0: the determinant on row 0
+    if (threadIdx.x == 0) {
+      const float x = H::load(mp[0]), y = H::load(mp[1]);
+      half_circumcenter<H>(x, y, x, y, x, y, cy_alt, t[c / t_div], o);
+    }
+    return;
+  }
+
+  // staging: each lane's term of the mean (x * 0 keeps a non-finite
+  // non-member's NaN and a finite one's sign), row 0 raw
+  for (int k = threadIdx.x; k < 3 * P; k += kThreads) {
+    const int l = k / 3, a = k - 3 * l;
+    const float v = H::load(mp[k]);
+    float* arr = a == 0 ? ax : (a == 1 ? ay : az);
+    arr[half_pad(l)] = s.rank[l] >= 0 ? v : 0.0f * v;
+    if (k < 3) r0[k] = v;
   }
   __syncthreads();
 
-  // 1. the mean (three threads, one axis each)
+  // 1. the mean: a thread per (axis, window), then the windows in order
+  const int n_win = (P + 31) >> 5;
+  float* wsum = reinterpret_cast<float*>(q);       // [3 * n_win], before q is written
+  for (int u = threadIdx.x; u < 3 * n_win; u += kThreads) {
+    const int a = u / n_win, w = u - a * n_win;
+    const float* v = (a == 0 ? ax : (a == 1 ? ay : az)) + 33 * w;
+    const int len = min(32, P - 32 * w);
+    float part = v[0];
+#pragma unroll
+    for (int k = 1; k < 32; ++k)
+      if (k < len) part = __fadd_rn(part, v[k]);
+    wsum[u] = part;
+  }
+  __syncthreads();
   if (threadIdx.x < 3) {
-    const float* v = threadIdx.x == 0 ? px : (threadIdx.x == 1 ? py : pz);
-    int cnt = 0;
-    float total = 0.0f;
-    for (int w0 = 0; w0 < P; w0 += 32) {
-      float part = 0.0f;
-      for (int l = w0; l < min(P, w0 + 32); ++l) {
-        const float term = msk[l] ? v[l] : 0.0f * v[l];  // x * 0 keeps x's sign
-        part = l == w0 ? term : __fadd_rn(part, term);
-        cnt += msk[l];
-      }
-      total = w0 == 0 ? part : __fadd_rn(total, part);
-    }
-    const float den = H::rnd((float)max(cnt, 1));
-    s_c[threadIdx.x] = cnt > 0 ? fp::hdiv<H>(H::rnd(total), den) : 0.0f;
+    const float* ws = wsum + threadIdx.x * n_win;
+    float total = ws[0];
+    for (int w = 1; w < n_win; ++w) total = __fadd_rn(total, ws[w]);
+    cen[threadIdx.x] = fp::hdiv<H>(H::rnd(total), H::rnd((float)n));
   }
   __syncthreads();
-  for (int l = threadIdx.x; l < P; l += kHalfThreads) {
-    const bool in = msk[l];
-    const float x = in ? fp::hsub<H>(px[l], s_c[0]) : 0.0f;
-    const float y = in ? fp::hsub<H>(py[l], s_c[1]) : 0.0f;
-    const float z = in ? fp::hsub<H>(pz[l], s_c[2]) : 0.0f;
-    qx[l] = x;
-    qy[l] = y;
-    qz[l] = z;
-    sq[l] = dot3<H>(x, y, z, x, y, z);
+  for (int ii = threadIdx.x; ii < n; ii += kThreads) {
+    const int L = half_pad(s.lane[ii]);
+    const float x = fp::hsub<H>(ax[L], cen[0]);
+    const float y = fp::hsub<H>(ay[L], cen[1]);
+    const float z = fp::hsub<H>(az[L], cen[2]);
+    q[ii] = make_float4(x, y, z, dot3<H>(x, y, z, x, y, z));
   }
   __syncthreads();
 
-  // 2. each row's first maximum of d2 over its pairs, then the pair
-  for (int i = threadIdx.x; i < P; i += kHalfThreads) {
-    // columns 0..i and unmasked ones hold -1, so the row's first maximum
-    // starts as (-1, column 0) and only a member column past i can raise it
-    float best = -1.0f;
-    int arg = 0;
-    if (msk[i]) {
-      for (int j = i + 1; j < P; ++j) {
-        if (!msk[j]) continue;
-        const float g = dot3<H>(qx[i], qy[i], qz[i], qx[j], qy[j], qz[j]);
-        const float v = fp::hsub<H>(fp::hadd<H>(sq[i], sq[j]), fp::hmul<H>(2.0f, g));
-        if (!isnan(best) && (isnan(v) || v > best)) {  // argmax: a NaN wins
-          best = v;
-          arg = j;
-        }
+  // 2. the farthest pair: the triangle's tiles, column-major (tile = jb (jb
+  //    + 1) / 2 + ib, ib <= jb), round-robin over the warps
+  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int nb = (n + 31) >> 5;
+  const int n_tiles = nb * (nb + 1) / 2;
+  float bv = -1.0f;
+  int bi = -1, bj = -1;  // the sentinel: below every pair's (row, column)
+  for (int tile = warp; tile < n_tiles; tile += kWarps) {
+    int jb = (int)((sqrtf(8.0f * (float)tile + 1.0f) - 1.0f) * 0.5f);
+    while (jb * (jb + 1) / 2 > tile) --jb;
+    while ((jb + 1) * (jb + 2) / 2 <= tile) ++jb;
+    const int ib = tile - jb * (jb + 1) / 2;
+    const int jj = 32 * jb + l;
+    const int rows = jj >= n ? 0 : (ib == jb ? l : 32);  // rows 32 ib + r < jj
+    const float4 cj = q[min(jj, n - 1)];
+    const float4* qi = q + 32 * ib;
+    float tv = -1.0f;
+    int tr = -1;
+#pragma unroll 8
+    for (int r = 0; r < 32; ++r) {  // branch-free: the rows' d2 overlap, past `rows` unused
+      const float4 ci = qi[r];
+      const float g = dot3<H>(ci.x, ci.y, ci.z, cj.x, cj.y, cj.z);
+      // 2 g unrounded: f16's is XLA's contracted fma(-2, g, s) (rounding f32's
+      // exact 2 g and difference once to f16 gives its bits for every f16 s
+      // and g), bf16's and f32's 2 g is exact
+      const float v = fp::hsub<H>(fp::hadd<H>(ci.w, cj.w), __fmul_rn(2.0f, g));
+      if (r < rows && tv == tv && !(v <= tv)) {  // the column's first maximum, a NaN first
+        tv = v;
+        tr = r;
       }
     }
-    rmax[i] = best;
-    rarg[i] = arg;
+    if (tr >= 0 && ArgmaxBeats{}(tv, 32 * ib + tr, jj, bv, bi, bj)) {
+      bv = tv;
+      bi = 32 * ib + tr;
+      bj = jj;
+    }
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int ib = 0;
-    for (int i = 1; i < P; ++i)
-      if (!isnan(rmax[ib]) && (isnan(rmax[i]) || rmax[i] > rmax[ib])) ib = i;
-    s_ijk[0] = ib;
-    s_ijk[1] = rarg[ib];
-  }
-  __syncthreads();
+  block_best(bv, bi, bj, ss, ArgmaxBeats{});
+  const int i_star = bi < 0 ? 0 : s.lane[bi];
+  const int j_star = bi < 0 ? 0 : s.lane[bj];
 
   // 3. the member farthest from the PiPj line in XY
-  const int i_star = s_ijk[0], j_star = s_ijk[1];
-  const float pix = px[i_star], piy = py[i_star], piz = pz[i_star];
-  const float pjx = px[j_star], pjy = py[j_star], pjz = pz[j_star];
+  const auto row = [&](const float* arr, int a, int L) {
+    return L == 0 ? r0[a] : arr[half_pad(L)];  // a member's term is its value
+  };
+  const float pix = row(ax, 0, i_star), piy = row(ay, 1, i_star), piz = row(az, 2, i_star);
+  const float pjx = row(ax, 0, j_star), pjy = row(ay, 1, j_star), pjz = row(az, 2, j_star);
   const float ex = fp::hsub<H>(pjx, pix), ey = fp::hsub<H>(pjy, piy);
   // the f32 build: contracted on the slots of a frame's scalar epilogue
   const int in_frame = c % t_div;
@@ -332,48 +440,29 @@ circumcenter_half_kernel(const typename H::storage* __restrict__ mpts,
   const float norm = fp::hsqrt<H>(tail ? H::madd(ex, ex, fp::hmul<H>(ey, ey))
                                        : fp::hadd<H>(fp::hmul<H>(ex, ex), fp::hmul<H>(ey, ey)));
   const float den = fmaxf(norm, H::rnd(1e-30f));  // the JAX clamp, in the half dtype
-  for (int l = threadIdx.x; l < P; l += kHalfThreads) {
-    const float x = px[l], y = py[l], z = pz[l];
+  float kv = -1.0f;  // a skipped lane's -1; every qualifying distance is >= 0 or NaN
+  int kl = 0, unused = 0;
+  for (int ii = threadIdx.x; ii < n; ii += kThreads) {
+    const int L = s.lane[ii], pl = half_pad(L);
+    const float x = ax[pl], y = ay[pl], z = az[pl];
     const bool eq_i = x == pix && y == piy && z == piz;
     const bool eq_j = x == pjx && y == pjy && z == pjz;
-    float v = -1.0f;
-    if (msk[l] && !eq_i && !eq_j) {
+    if (!eq_i && !eq_j) {
       const float cross = fabsf(H::madd(ex, fp::hsub<H>(y, piy),
                                         -fp::hmul<H>(ey, fp::hsub<H>(x, pix))));
-      v = fp::hdiv<H>(cross, den);
+      const float v = fp::hdiv<H>(cross, den);
+      if (ArgmaxBeats{}(v, L, 0, kv, kl, 0)) {
+        kv = v;
+        kl = L;
+      }
     }
-    lds[l] = v;
   }
-  __syncthreads();
+  block_best(kv, kl, unused, ss, ArgmaxBeats{});
 
   // 4. the circumcenter determinant
-  if (threadIdx.x == 0) {
-    int kb = 0;
-    for (int l = 1; l < P; ++l)
-      if (!isnan(lds[kb]) && (isnan(lds[l]) || lds[l] > lds[kb])) kb = l;
-    const float pkx = px[kb], pky = py[kb];
-    const float a = fp::hsub<H>(pjx, pix), b = fp::hsub<H>(pjy, piy);
-    const float cc = fp::hsub<H>(pkx, pix), d = fp::hsub<H>(pky, piy);
-    const float s1 = fp::hadd<H>(pix, pjx), s2 = fp::hadd<H>(piy, pjy);
-    const float s3 = fp::hadd<H>(pix, pkx), s4 = fp::hadd<H>(piy, pky);
-    const float e = H::madd(a, s1, fp::hmul<H>(b, s2));
-    const float f = H::madd(cc, s3, fp::hmul<H>(d, s4));
-    const float g = fp::hmul<H>(2.0f, H::madd(a, fp::hsub<H>(pky, pjy),
-                                              -fp::hmul<H>(b, fp::hsub<H>(pkx, pjx))));
-    const bool collinear = g == 0.0f;
-    const float gs = collinear ? 1.0f : g;
-    const float cx = collinear ? pix : fp::hdiv<H>(H::madd(d, e, -fp::hmul<H>(b, f)), gs);
-    // cy_alt (the f16 fleet on a mesh of several devices): XLA's program
-    // contracts cy's own copies of e and f on their second product
-    const float e2 = cy_alt ? H::madd(b, s2, fp::hmul<H>(a, s1)) : e;
-    const float f2 = cy_alt ? H::madd(d, s4, fp::hmul<H>(cc, s3)) : f;
-    const float cy = collinear ? piy : fp::hdiv<H>(H::madd(a, f2, -fp::hmul<H>(cc, e2)), gs);
-    typename H::storage* o = out + (size_t)c * 4;
-    o[0] = H::store(cx);
-    o[1] = H::store(cy);
-    o[2] = H::store(0.0f);
-    o[3] = t[c / t_div];
-  }
+  if (threadIdx.x == 0)
+    half_circumcenter<H>(pix, piy, pjx, pjy, row(ax, 0, kl), row(ay, 1, kl), cy_alt,
+                         t[c / t_div], o);
 }
 
 template <class H>
@@ -381,12 +470,12 @@ int launch_half(const typename H::storage* mpts, const uint8_t* mm,
                 const typename H::storage* t, int t_div, int C, int P,
                 typename H::storage* out, void* stream, int cy_alt = 0) {
   if (C < 1 || P < 1 || t_div < 1 || t == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)P * (10 * sizeof(float) + 1);
+  const size_t smem = half_smem_bytes(P);
   cudaError_t err = cudaFuncSetAttribute(circumcenter_half_kernel<H>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  circumcenter_half_kernel<H><<<C, kHalfThreads, smem, (cudaStream_t)stream>>>(mpts, mm, t, t_div,
-                                                                              P, cy_alt, out);
+  circumcenter_half_kernel<H><<<C, kThreads, smem, (cudaStream_t)stream>>>(mpts, mm, t, t_div,
+                                                                          P, cy_alt, out);
   return (int)cudaGetLastError();
 }
 

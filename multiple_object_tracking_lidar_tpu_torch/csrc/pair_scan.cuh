@@ -207,16 +207,27 @@ __device__ __forceinline__ void scan_slot(const T* __restrict__ M, int P, int n,
   __syncthreads();
 }
 
-// Block-wide lexicographic choice of (v, a, b): larger v, then smaller a,
-// then smaller b.  Every thread calls it in the same order and gets the
-// winner; exact in any order of merging.
-template <class T>
-__device__ __forceinline__ void block_best(T& v, int& a, int& b, Scratch<T>& ss) {
+// The lexicographic order of block_best's default: (v, a, b) beats (bv,
+// ba, bb) on a larger v, then a smaller a, then a smaller b; a NaN never
+// wins.
+struct LexBeats {
+  template <class T>
+  __device__ __forceinline__ bool operator()(T v, int a, int b, T bv, int ba, int bb) const {
+    return v > bv || (v == bv && (a < ba || (a == ba && b < bb)));
+  }
+};
+
+// Block-wide choice of (v, a, b) under `beats` (a total order, so exact in
+// any order of merging).  Every thread calls it in the same order and gets
+// the winner.
+template <class T, class Beats = LexBeats>
+__device__ __forceinline__ void block_best(T& v, int& a, int& b, Scratch<T>& ss,
+                                           Beats beats = {}) {
   for (int o = 16; o > 0; o >>= 1) {
     const T ov = __shfl_xor_sync(0xffffffffu, v, o);
     const int oa = __shfl_xor_sync(0xffffffffu, a, o);
     const int ob = __shfl_xor_sync(0xffffffffu, b, o);
-    if (ov > v || (ov == v && (oa < a || (oa == a && ob < b)))) {
+    if (beats(ov, oa, ob, v, a, b)) {
       v = ov;
       a = oa;
       b = ob;
@@ -235,7 +246,7 @@ __device__ __forceinline__ void block_best(T& v, int& a, int& b, Scratch<T>& ss)
   for (int k = 1; k < kWarps; ++k) {
     const T ov = ss.red_v[k];
     const int oa = ss.red_a[k], ob = ss.red_b[k];
-    if (ov > v || (ov == v && (oa < a || (oa == a && ob < b)))) {
+    if (beats(ov, oa, ob, v, a, b)) {
       v = ov;
       a = oa;
       b = ob;

@@ -204,7 +204,10 @@ def circumcenter_features_half_plain(mpts: torch.Tensor, member_mask: torch.Tens
     else:
         sq = sum_f32([(pc[..., a], pc[..., a]) for a in range(3)], dt)    # (C, P)
         gram = sum_f32([(pc[:, :, None, a], pc[:, None, :, a]) for a in range(3)], dt)
-    d2 = (sq[:, :, None] + sq[:, None, :]) - 2.0 * gram
+    s = sq[:, :, None] + sq[:, None, :]
+    # f16: XLA contracts the doubling into the difference, fma(-2, gram, s),
+    # so a 2 gram past 65,504 is not inf; f32's and bf16's 2 gram is exact
+    d2 = fma(torch.full_like(gram, -2.0), gram, s) if dt == torch.float16 else s - 2.0 * gram
     iu = torch.arange(p, device=mpts.device)
     pair = mm[:, :, None] & mm[:, None, :] & (iu[:, None] < iu[None, :])
     d2m = torch.where(pair, d2, torch.full_like(d2, -1.0))
@@ -257,6 +260,22 @@ def _first_max(v: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.where(hit, idx, n).min(dim=dim).values
 
 
+def half_smem_bytes(p: int) -> int:
+    """Shared memory of one slot of K3f's half and table builds
+    (``csrc/circumcenter.cu::half_smem_bytes``): the compacted members as
+    float4 in whole 32-row tiles, three per-axis arrays padded by a word per
+    32 lanes, the compaction's rank and lane."""
+    tiles = (p + 31) // 32
+    return 16 * 32 * tiles + 12 * (p + tiles) + 8 * p
+
+
+# The H100's shared memory per block (227 KB opt-in) less 1 KB for the
+# kernel's static scratch: the largest P the half and table builds take.
+HALF_SMEM_LIMIT = 227 * 1024 - 1024
+HALF_P_MAX = max(p for p in range(1, HALF_SMEM_LIMIT // 36 + 1)
+                 if half_smem_bytes(p) <= HALF_SMEM_LIMIT)
+
+
 _MESH_PROGRAM = contextvars.ContextVar("mesh_program", default=False)
 
 
@@ -287,7 +306,9 @@ def circumcenter_features(mpts: torch.Tensor, member_mask: torch.Tensor, t,
     tables through that jnp route too (``motl_circumcenter_features_table``,
     the half builds' body on f32 values: the JAX point list's f32
     ``_one_cluster``, which the runs' point list casts to the half dtype),
-    t then per frame.  One launch; t is read on the device."""
+    t then per frame.  One launch; t is read on the device.  The half and
+    table builds hold a slot in shared memory: P past ``HALF_P_MAX``
+    raises."""
     half = mpts.dtype in (torch.bfloat16, torch.float16)
     if table and mpts.dtype != torch.float32:
         raise ValueError(f"the f32 table build takes float32 tables (got {mpts.dtype})")
@@ -300,6 +321,9 @@ def circumcenter_features(mpts: torch.Tensor, member_mask: torch.Tensor, t,
         return circumcenter_features_plain(mpts, member_mask, t)
     c, p = _check_table(mpts, member_mask,
                         (torch.float32, torch.float64, torch.bfloat16, torch.float16))
+    if (half or table) and p > HALF_P_MAX:
+        raise ValueError(f"K3f's half and table builds take P <= HALF_P_MAX = {HALF_P_MAX} "
+                         f"members a slot (shared memory), got P={p}")
     dev = mpts.device
     mpts = mpts.contiguous()
     mm8 = _build.byte_mask(member_mask)
